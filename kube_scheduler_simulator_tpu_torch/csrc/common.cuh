@@ -1,0 +1,207 @@
+// Shared definitions of the step kernel: the argument block the Python
+// wrapper fills (kernels/step.py mirrors it field for field as a
+// ctypes.Structure), plugin ids, integer helpers and block reductions.
+#pragma once
+
+#include <climits>
+
+#define KSS_MAX_F 8        // filter plugins per step
+#define KSS_MAX_S 8        // score plugins per step
+#define KSS_MAX_RES 8      // scored resources per strategy
+#define KSS_MAX_SHAPE 16   // RequestedToCapacityRatio shape points
+#define KSS_MC 4           // topologyspread.MAX_CONSTRAINTS
+#define KSS_THREADS 1024
+
+enum PluginId {
+  P_FIT = 0,        // NodeResourcesFit
+  P_BALANCED = 1,   // NodeResourcesBalancedAllocation
+  P_AFFINITY = 2,   // NodeAffinity
+  P_TAINT = 3,      // TaintToleration
+  P_SPREAD = 4,     // PodTopologySpread
+  P_INTERPOD = 5,   // InterPodAffinity
+};
+
+enum ResSrc { RES_NONZERO = 0, RES_REQUESTED = 1, RES_NONE = 2 };
+enum FitType { FIT_LEAST = 0, FIT_MOST = 1, FIT_RTCR = 2 };
+enum RawGroup { G_NONE = 0, G_RAW8 = 1, G_RAW16 = 2, G_RAW32 = 3 };
+
+// All 8-byte members first, then the 4-byte ones: the layout has no
+// padding that ctypes and nvcc could place differently.  Shapes: N nodes,
+// C pods in the chunk, R resource columns, G spread count groups, T
+// InterPod terms; per-pod arrays are the chunk's rows.
+struct StepArgs {
+  // --- core (NodeResourcesFit statics, carry and per-pod rows)
+  const long long* allocatable;     // [N, R]
+  const long long* allowed_pods;    // [N]
+  const unsigned char* fit_ignored; // [R] bool
+  long long* requested;             // [N, R]  carry, updated in place
+  long long* nonzero;               // [N, 2]  carry
+  long long* num_pods;              // [N]     carry
+  const long long* pod_requests;    // [C, R]
+  const long long* pod_nonzero;     // [C, 2]
+  const unsigned char* is_pad;      // [C] bool
+  // --- NodeAffinity
+  const unsigned char* aff_req_rows;     // [U, N] bool
+  const int* aff_pref_rows;              // [V, N]
+  const int* aff_req_idx;                // [C]
+  const int* aff_pref_idx;               // [C]
+  const unsigned char* aff_filter_skip;  // [C]
+  const unsigned char* aff_score_skip;   // [C]
+  // --- TaintToleration
+  const short* taint_code;               // [C, N]
+  const short* taint_prefer;             // [C, N]
+  // --- PodTopologySpread
+  const int* sp_dom_idx;                 // [G, N]
+  int* sp_counts;                        // [G, N] carry
+  const unsigned char* sp_pm;            // [C, G] bool
+  const int* sp_c_id;                    // [C, MC]
+  const int* sp_max_skew;                // [C, MC]
+  const unsigned char* sp_is_filter;     // [C, MC]
+  const unsigned char* sp_is_score;      // [C, MC]
+  const double* sp_weight;               // [C, MC]
+  const unsigned char* sp_eligible;      // [C, N] or [C, MC, N]
+  const unsigned char* sp_md_unsat;      // [C, MC]
+  const unsigned char* sp_filter_skip;   // [C]
+  const unsigned char* sp_score_skip;    // [C]
+  // --- InterPodAffinity
+  const int* ip_dom_idx;                 // [T, N]
+  int* ip_matched;                       // [T, N] carry
+  int* ip_have_req_anti;                 // [T, N] carry
+  int* ip_have_req_aff;                  // [T, N] carry
+  int* ip_sym_pref_aff;                  // [T, N] carry
+  int* ip_sym_pref_anti;                 // [T, N] carry
+  int* ip_matched_total;                 // [T]    carry
+  const unsigned char* ip_t_matches;     // [C, T] bool
+  const int* ip_h_req_aff;               // [C, T]
+  const int* ip_h_req_anti;              // [C, T]
+  const long long* ip_h_pref_aff_w;      // [C, T]
+  const long long* ip_h_pref_anti_w;     // [C, T]
+  const unsigned char* ip_self_ok;       // [C]
+  const unsigned char* ip_filter_skip;   // [C]
+  // --- outputs, "full" mode (StepOut)
+  int* out_codes;                        // [C, F, N]
+  int* out_raw;                          // [C, S, N]
+  int* out_final;                        // [C, S, N]
+  // --- outputs, "compact" mode (CompactOut)
+  void* out_packed;                      // [C, N] of pack_bytes
+  signed char* out_raw8;                 // [C, S8, N]
+  short* out_raw16;                      // [C, S16, N]
+  void* out_raw32;                       // [C, S32, N] of raw32_bytes
+  unsigned char* out_overflow;           // [C] bool
+  // --- outputs, both modes
+  int* out_selected;                     // [C]
+  int* out_feasible_count;               // [C]
+  int* out_prefilter_reject;             // [C]
+  // --- scratch, one pod at a time
+  long long* scratch_raw;                // [S, N]
+  unsigned char* scratch_feas;           // [N]
+  unsigned char* scratch_ign;            // [N]
+  // --- 8-byte scalars
+  long long ip_hard_weight;
+  long long score_weight[KSS_MAX_S];
+  long long fit_weight[KSS_MAX_RES];
+  long long shape_u[KSS_MAX_SHAPE];      // RTCR utilization points
+  long long shape_s[KSS_MAX_SHAPE];      // RTCR scores (x10)
+  // --- 4-byte scalars
+  int C, N, R, G, T;
+  int F, S, S8, S16, S32;
+  int filter_ids[KSS_MAX_F];
+  int score_ids[KSS_MAX_S];
+  int score_group[KSS_MAX_S];            // RawGroup, compact mode
+  int score_row[KSS_MAX_S];              // row within its group
+  int compact;                           // 0 "full", 1 "compact"
+  int pack_code_bits;
+  int pack_bytes;                        // 1, 2, 4 or 8
+  int raw32_bytes;                       // 4 or 8
+  int check_group;                       // group whose narrowing is checked
+  int fit_type;                          // FitType
+  int fit_nres;
+  int fit_src[KSS_MAX_RES];              // ResSrc
+  int fit_col[KSS_MAX_RES];
+  int fit_need_request[KSS_MAX_RES];     // scalar resource: pod must request it
+  int fit_nshape;
+  int bal_nres;
+  int bal_src[KSS_MAX_RES];
+  int bal_col[KSS_MAX_RES];
+  int bal_need_request[KSS_MAX_RES];
+  int has_spread;                        // carry holds PodTopologySpread
+  int has_interpod;                      // carry holds InterPodAffinity
+  int sp_elig_per_slot;                  // eligible is [C, MC, N]
+};
+
+static constexpr long long KSS_BIG = 1LL << 40;   // topologyspread._BIG
+static constexpr int MAX_NODE_SCORE = 100;
+
+// Floor vs truncation: jnp's (and torch's) `//` floors, C's `/`
+// truncates.  Every `//` of the reference goes through floordiv, so the
+// results agree at every node, feasible or not.
+__device__ __forceinline__ long long floordiv(long long a, long long b) {
+  long long q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
+  return q;
+}
+
+// fitscoring._jnp_trunc_div: Go's truncating division, on purpose.
+__device__ __forceinline__ long long truncdiv(long long a, long long b) {
+  long long q = (a < 0 ? -a : a) / (b < 0 ? -b : b);
+  return ((a >= 0) == (b >= 0)) ? q : -q;
+}
+
+__device__ __forceinline__ long long ll_min(long long a, long long b) { return a < b ? a : b; }
+__device__ __forceinline__ long long ll_max(long long a, long long b) { return a > b ? a : b; }
+
+// ---- block reductions.  Every thread of the block calls them with its
+// partial; every thread gets the result.  `sh` holds one slot per warp.
+// The leading __syncthreads keeps a reduction from overwriting slots the
+// previous one is still reading.
+
+__device__ __forceinline__ long long block_min_ll(long long v, long long* sh) {
+  for (int o = warpSize / 2; o > 0; o >>= 1) v = ll_min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  long long r = sh[0];
+  for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) r = ll_min(r, sh[w]);
+  return r;
+}
+
+__device__ __forceinline__ long long block_max_ll(long long v, long long* sh) {
+  for (int o = warpSize / 2; o > 0; o >>= 1) v = ll_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  long long r = sh[0];
+  for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) r = ll_max(r, sh[w]);
+  return r;
+}
+
+__device__ __forceinline__ long long block_sum_ll(long long v, long long* sh) {
+  for (int o = warpSize / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  long long r = sh[0];
+  for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) r += sh[w];
+  return r;
+}
+
+// Argmax ties go to the LOWEST node index (pipeline.py:385, jnp.argmax
+// returns the first maximum): the pair order is (value desc, index asc).
+__device__ __forceinline__ void argmax_pair(long long& v, int& i, long long ov, int oi) {
+  if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
+}
+
+__device__ __forceinline__ int block_argmax(long long v, int i, long long* shv, int* shi) {
+  for (int o = warpSize / 2; o > 0; o >>= 1) {
+    long long ov = __shfl_xor_sync(0xffffffffu, v, o);
+    int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    argmax_pair(v, i, ov, oi);
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) { shv[threadIdx.x >> 5] = v; shi[threadIdx.x >> 5] = i; }
+  __syncthreads();
+  long long bv = shv[0];
+  int bi = shi[0];
+  for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) argmax_pair(bv, bi, shv[w], shi[w]);
+  return bi;
+}

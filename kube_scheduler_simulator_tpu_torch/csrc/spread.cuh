@@ -1,0 +1,96 @@
+// B1e: PodTopologySpread for one pod — the per-slot minima (a block
+// reduction over N), filter, score and normalize at one node, and the
+// same-domain bind.  Counterparts: plugins/topologyspread.py
+// _per_constraint :318, filter_kernel :338, score_kernel :352,
+// normalize :365, bind_update :379 (line numbers in the JAX package).
+// Counts are node-space [G, N] int32; the _BIG sentinel is int64.
+#pragma once
+
+#include "common.cuh"
+
+// Spread eligibility comes in two layouts: [P, N] shared by every slot,
+// or [P, MC, N] when a constraint sets a non-default inclusion policy
+// (topologyspread.py:312-316).
+__device__ __forceinline__ bool spread_eligible(const StepArgs& a, int c, int m, int n) {
+  if (a.sp_elig_per_slot) return a.sp_eligible[((long long)c * KSS_MC + m) * a.N + n] != 0;
+  return a.sp_eligible[(long long)c * a.N + n] != 0;
+}
+
+__device__ __forceinline__ bool spread_checks(const StepArgs& a, int c, int m) {
+  return a.sp_c_id[c * KSS_MC + m] >= 0 && a.sp_is_filter[c * KSS_MC + m];
+}
+
+// Per-slot minimum count over eligible keyed nodes, for the slots the
+// filter checks (min_match of _per_constraint); minDomains unsatisfied
+// forces 0.  Every thread calls this and gets every slot's minimum.
+__device__ void spread_minima(const StepArgs& a, int c, long long* mins, long long* sh) {
+  for (int m = 0; m < KSS_MC; ++m) {
+    mins[m] = 0;
+    if (!spread_checks(a, c, m)) continue;  // uniform across the block
+    const long long cid = a.sp_c_id[c * KSS_MC + m];
+    long long local = KSS_BIG;
+    for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+      if (a.sp_dom_idx[cid * a.N + n] >= 0 && spread_eligible(a, c, m, n))
+        local = ll_min(local, (long long)a.sp_counts[cid * a.N + n]);
+    }
+    long long mn = block_min_ll(local, sh);
+    mins[m] = a.sp_md_unsat[c * KSS_MC + m] ? 0 : mn;
+  }
+}
+
+// 0 pass; 1+2m missing label at slot m; 2+2m skew at slot m; the first
+// violating slot wins.
+__device__ int spread_filter(const StepArgs& a, int c, int n, const long long* mins) {
+  int code = 0;
+  for (int m = 0; m < KSS_MC; ++m) {
+    if (!spread_checks(a, c, m)) continue;
+    const long long cid = a.sp_c_id[c * KSS_MC + m];
+    bool has_key = a.sp_dom_idx[cid * a.N + n] >= 0;
+    long long self_match = a.sp_pm[(long long)c * a.G + cid] ? 1 : 0;
+    long long skew = (long long)a.sp_counts[cid * a.N + n] + self_match - mins[m];
+    int viol = has_key ? (skew > a.sp_max_skew[c * KSS_MC + m] ? 2 + 2 * m : 0) : 1 + 2 * m;
+    if (code == 0 && viol > 0) code = viol;
+  }
+  return code;
+}
+
+// float64 sum of count * weight in slot order m = 0..3 (the file is built
+// with -fmad=false: no contraction of total + cnt * w), then Go
+// math.Round of a non-negative value: floor(total + 0.5).
+__device__ long long spread_score(const StepArgs& a, int c, int n, bool& ignored) {
+  double total = 0.0;
+  ignored = false;
+  for (int m = 0; m < KSS_MC; ++m) {
+    const long long cid = a.sp_c_id[c * KSS_MC + m];
+    if (cid < 0 || !a.sp_is_score[c * KSS_MC + m]) continue;
+    if (a.sp_dom_idx[cid * a.N + n] >= 0)
+      total = total + (double)a.sp_counts[cid * a.N + n] * a.sp_weight[c * KSS_MC + m];
+    else
+      ignored = true;
+  }
+  long long raw = (long long)floor(total + 0.5);
+  return ignored ? 0 : raw;
+}
+
+// mn / mx: min and max of raw over scored (feasible, not ignored) nodes,
+// _BIG and 0 where none is scored.  mx + mn - raw >= 0 at every scored
+// node; floordiv keeps the other positions exact too.
+__device__ __forceinline__ long long spread_normalize(long long raw, bool ignored, long long mn,
+                                                      long long mx, bool any_scored) {
+  if (!any_scored) mn = 0;
+  long long out = mx == 0 ? MAX_NODE_SCORE
+                          : floordiv(MAX_NODE_SCORE * (mx + mn - raw), ll_max(mx, 1));
+  return ignored ? 0 : out;
+}
+
+// Node-space bind: every node sharing the selected node's domain, in
+// every group the pod matches, takes +1.  Only called with sel >= 0.
+__device__ void spread_bind(const StepArgs& a, int c, int sel) {
+  for (int g = 0; g < a.G; ++g) {
+    if (!a.sp_pm[(long long)c * a.G + g]) continue;  // uniform across the block
+    const int dcol = a.sp_dom_idx[(long long)g * a.N + sel];
+    if (dcol < 0) continue;
+    for (int n = threadIdx.x; n < a.N; n += blockDim.x)
+      if (a.sp_dom_idx[(long long)g * a.N + n] == dcol) a.sp_counts[(long long)g * a.N + n] += 1;
+  }
+}

@@ -1,0 +1,106 @@
+"""Host-side (numpy) mirrors of the score-normalization kernels.
+
+A copy of kube_scheduler_simulator_tpu/framework/hostnorm.py.
+
+The compact replay path (framework/replay.py) transfers only the RAW score
+tensors off-device and reconstructs finalscore = normalize(raw) x weight on
+host, because the normalizations are pure per-pod reductions of data the
+host already holds (raw scores + feasibility) — re-deriving them costs a
+few vectorized numpy passes while halving the device->host payload.
+
+Every function here mirrors its torch twin (plugins/) bit-for-bit over int64
+(reference semantics: upstream helper.DefaultNormalizeScore and the
+per-plugin ScoreExtensions recorded by
+simulator/scheduler/plugin/wrappedplugin.go:388-415; the weight
+multiplication is resultstore/store.go:488-507).  All operate vectorized
+over a pod-chunk axis: raw [C, N] int64, feasible/ignored [C, N] bool.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+MAX_NODE_SCORE = 100
+
+
+def default_normalize(raw: np.ndarray, feasible: np.ndarray, reverse: bool) -> np.ndarray:
+    """plugins.base.default_normalize_score over a [C, N] chunk."""
+    raw = raw.astype(np.int64)
+    masked = np.where(feasible, raw, 0)
+    max_count = masked.max(axis=1, keepdims=True)
+    safe_max = np.maximum(max_count, 1)
+    scaled = raw * MAX_NODE_SCORE // safe_max
+    if reverse:
+        scaled = MAX_NODE_SCORE - scaled
+        return np.where(max_count == 0, np.int64(MAX_NODE_SCORE), scaled)
+    return np.where(max_count == 0, raw, scaled)
+
+
+def topologyspread_normalize(raw: np.ndarray, ignored: np.ndarray,
+                             feasible: np.ndarray) -> np.ndarray:
+    """plugins.topologyspread.normalize over a [C, N] chunk."""
+    from ..plugins.topologyspread import _BIG
+
+    raw = raw.astype(np.int64)
+    scored = feasible & ~ignored
+    mn = np.where(scored, raw, _BIG).min(axis=1, keepdims=True)
+    mx = np.where(scored, raw, 0).max(axis=1, keepdims=True)
+    any_scored = scored.any(axis=1, keepdims=True)
+    mn = np.where(any_scored, mn, 0)
+    out = np.where(
+        mx == 0,
+        np.int64(MAX_NODE_SCORE),
+        MAX_NODE_SCORE * (mx + mn - raw) // np.maximum(mx, 1),
+    )
+    return np.where(ignored, 0, out)
+
+
+def interpod_normalize(raw: np.ndarray, feasible: np.ndarray) -> np.ndarray:
+    """plugins.interpod.normalize over a [C, N] chunk (float64 math with
+    Go int64() truncation, like the device kernel under x64)."""
+    raw = raw.astype(np.int64)
+    big = np.int64(1) << 40
+    mn = np.where(feasible, raw, big).min(axis=1, keepdims=True)
+    mx = np.where(feasible, raw, -big).max(axis=1, keepdims=True)
+    diff = (mx - mn).astype(np.float64)
+    f = np.where(
+        diff > 0,
+        MAX_NODE_SCORE * ((raw - mn).astype(np.float64) / np.maximum(diff, 1.0)),
+        0.0,
+    )
+    return np.trunc(f).astype(np.int64)
+
+
+def finalize_chunk(cw, raw: np.ndarray, feasible: np.ndarray,
+                   ignored: np.ndarray | None, pod_lo: int) -> np.ndarray:
+    """finalscore tensors for one chunk: raw [C, S, N] int64 ->
+    final [C, S, N] int64 (= normalize x weight, zeroed where the per-pod
+    score_skip flag holds, matching pipeline._eval_phase).
+
+    pod_lo: the chunk's first pod index into cw's per-pod host tables.
+    """
+    c, s_count, n = raw.shape
+    final = np.zeros_like(raw, dtype=np.int64)
+    sskip = cw.host["score_skip"]
+    n_pods = cw.n_pods
+    for s, name in enumerate(cw.config.scorers()):
+        r = raw[:, s, :]
+        if name == "NodeAffinity":
+            normed = default_normalize(r, feasible, reverse=False)
+        elif name == "TaintToleration":
+            normed = default_normalize(r, feasible, reverse=True)
+        elif name == "PodTopologySpread":
+            normed = topologyspread_normalize(r, ignored, feasible)
+        elif name == "InterPodAffinity":
+            normed = interpod_normalize(r, feasible)
+        else:
+            # no ScoreExtensions (Fit/BalancedAllocation/ImageLocality/
+            # VolumeBinding/custom-without-normalize): final = raw x weight
+            normed = r.astype(np.int64)
+        final[:, s, :] = normed * cw.config.weight(name)
+        skip = sskip[name][pod_lo:min(pod_lo + c, n_pods)]
+        if skip.any():
+            rows = np.zeros(c, bool)
+            rows[: len(skip)] = skip
+            final[rows, s, :] = 0
+    return final

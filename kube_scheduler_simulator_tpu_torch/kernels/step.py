@@ -1,0 +1,336 @@
+"""Wrapper of the step kernel (csrc/step.cu `step_chunk`).
+
+`step_chunk(step, carry, xs_chunk)` runs one chunk of pods through the
+scheduling step of framework/pipeline.py `Step`:
+
+  * for tensors on the card it launches the hand-written kernel once, on
+    PyTorch's current stream, without synchronising, and returns the
+    chunk's StepOut / CompactOut (leading pod axis) with `carry` updated
+    in place;
+  * for tensors on the CPU it runs the plain PyTorch version,
+    `Step.plain_scan`, because there is no card to launch on.
+
+There is no fallback: a failed build or launch raises.  `step_chunk.launches`
+counts kernel launches (and nothing else), so a run can show that its
+main path went through the kernel.
+
+The kernel takes its ~60 pointers and its scalars in one C struct,
+`StepArgs` (csrc/common.cuh), mirrored here as a ctypes.Structure; the
+wrapper checks every tensor's device, dtype, shape and contiguity before
+it takes a pointer.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..framework.pipeline import PACK_MODES, CompactOut, StepOut
+from ..plugins import fitscoring
+from ..plugins.fitscoring import parse_balanced_resources, parse_fit_strategy
+from ..plugins.topologyspread import MAX_CONSTRAINTS
+from ..state.resources import CPU, MEMORY
+
+MAX_F, MAX_S, MAX_RES, MAX_SHAPE = 8, 8, 8, 16
+
+PLUGIN_IDS = {
+    "NodeResourcesFit": 0,
+    "NodeResourcesBalancedAllocation": 1,
+    "NodeAffinity": 2,
+    "TaintToleration": 3,
+    "PodTopologySpread": 4,
+    "InterPodAffinity": 5,
+}
+RES_NONZERO, RES_REQUESTED, RES_NONE = 0, 1, 2
+FIT_TYPES = {fitscoring.LEAST_ALLOCATED: 0, fitscoring.MOST_ALLOCATED: 1,
+             fitscoring.REQUESTED_TO_CAPACITY_RATIO: 2}
+G_NONE, G_RAW8, G_RAW16, G_RAW32 = 0, 1, 2, 3
+
+_PTR_FIELDS = (
+    "allocatable", "allowed_pods", "fit_ignored", "requested", "nonzero",
+    "num_pods", "pod_requests", "pod_nonzero", "is_pad",
+    "aff_req_rows", "aff_pref_rows", "aff_req_idx", "aff_pref_idx",
+    "aff_filter_skip", "aff_score_skip",
+    "taint_code", "taint_prefer",
+    "sp_dom_idx", "sp_counts", "sp_pm", "sp_c_id", "sp_max_skew",
+    "sp_is_filter", "sp_is_score", "sp_weight", "sp_eligible", "sp_md_unsat",
+    "sp_filter_skip", "sp_score_skip",
+    "ip_dom_idx", "ip_matched", "ip_have_req_anti", "ip_have_req_aff",
+    "ip_sym_pref_aff", "ip_sym_pref_anti", "ip_matched_total",
+    "ip_t_matches", "ip_h_req_aff", "ip_h_req_anti", "ip_h_pref_aff_w",
+    "ip_h_pref_anti_w", "ip_self_ok", "ip_filter_skip",
+    "out_codes", "out_raw", "out_final",
+    "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
+    "out_selected", "out_feasible_count", "out_prefilter_reject",
+    "scratch_raw", "scratch_feas", "scratch_ign",
+)
+_LL = ctypes.c_longlong
+_INT = ctypes.c_int
+
+
+class StepArgs(ctypes.Structure):
+    """Mirror of `struct StepArgs` in csrc/common.cuh, field for field."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in _PTR_FIELDS]
+        + [("ip_hard_weight", _LL), ("score_weight", _LL * MAX_S),
+           ("fit_weight", _LL * MAX_RES), ("shape_u", _LL * MAX_SHAPE),
+           ("shape_s", _LL * MAX_SHAPE)]
+        + [(f, _INT) for f in ("C", "N", "R", "G", "T", "F", "S", "S8", "S16", "S32")]
+        + [("filter_ids", _INT * MAX_F), ("score_ids", _INT * MAX_S),
+           ("score_group", _INT * MAX_S), ("score_row", _INT * MAX_S)]
+        + [(f, _INT) for f in ("compact", "pack_code_bits", "pack_bytes",
+                               "raw32_bytes", "check_group", "fit_type",
+                               "fit_nres")]
+        + [("fit_src", _INT * MAX_RES), ("fit_col", _INT * MAX_RES),
+           ("fit_need_request", _INT * MAX_RES)]
+        + [("fit_nshape", _INT), ("bal_nres", _INT)]
+        + [("bal_src", _INT * MAX_RES), ("bal_col", _INT * MAX_RES),
+           ("bal_need_request", _INT * MAX_RES)]
+        + [(f, _INT) for f in ("has_spread", "has_interpod", "sp_elig_per_slot")]
+    )
+
+
+def _ptr(t: torch.Tensor, dtype, shape, what: str) -> int:
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: not contiguous")
+    return t.data_ptr()
+
+
+def _resource_desc(name: str, schema, use_requested: bool):
+    """(source, column, pod-must-request-it) of one scored resource: the
+    kernel's form of noderesources._resource_req_alloc / _resource_active."""
+    if name == "cpu":
+        return (RES_REQUESTED, CPU, 0) if use_requested else (RES_NONZERO, 0, 0)
+    if name == "memory":
+        return (RES_REQUESTED, MEMORY, 0) if use_requested else (RES_NONZERO, 1, 0)
+    if name in schema.columns:
+        need = 0 if name in fitscoring.NATIVE_RESOURCES else 1
+        return RES_REQUESTED, schema.columns.index(name), need
+    return RES_NONE, 0, 0  # untracked: capacity 0, never active
+
+
+def _score_groups(step):
+    """Per scorer (group, row), the checked group and the raw32 width, as
+    pipeline.Step.plain groups the compact raws."""
+    groups, rows = [], []
+    counts = {G_RAW8: 0, G_RAW16: 0, G_RAW32: 0}
+    for g in step.score_dtypes:
+        if g == "host":
+            groups.append(G_NONE)
+            rows.append(0)
+            continue
+        gid = G_RAW32 if step.wide_raw else {"i8": G_RAW8, "i16": G_RAW16, "i32": G_RAW32}[g]
+        groups.append(gid)
+        rows.append(counts[gid])
+        counts[gid] += 1
+    check = {None: G_RAW16, "i32": G_RAW32, "i64": G_NONE}[step.wide_raw]
+    return groups, rows, counts, check, 8 if step.wide_raw == "i64" else 4
+
+
+def make_args(step, carry, xs, outs: dict) -> StepArgs:
+    """Fill StepArgs from the workload, the carry, the chunk's xs and the
+    output / scratch tensors, checking each tensor on the way."""
+    cw = step.cw
+    n, r = cw.n_nodes, cw.schema.n
+    c = xs["is_pad"].shape[0]
+    f, s = len(step.filter_names), len(step.score_names)
+    if f > MAX_F or s > MAX_S:
+        raise ValueError(f"{f} filters / {s} scorers: the kernel takes at most {MAX_F} / {MAX_S}")
+    i64, i32, i16, u8, f64, b = (torch.int64, torch.int32, torch.int16, torch.uint8,
+                                 torch.float64, torch.bool)
+    a = StepArgs()
+    a.C, a.N, a.R, a.F, a.S = c, n, r, f, s
+
+    st, cc, cx = cw.statics["core"], carry["core"], xs["core"]
+    a.allocatable = _ptr(st.allocatable, i64, (n, r), "allocatable")
+    a.allowed_pods = _ptr(st.allowed_pods, i64, (n,), "allowed_pods")
+    a.fit_ignored = _ptr(st.ignored, b, (r,), "ignored")
+    a.requested = _ptr(cc.requested, i64, (n, r), "carry.requested")
+    a.nonzero = _ptr(cc.nonzero, i64, (n, 2), "carry.nonzero")
+    a.num_pods = _ptr(cc.num_pods, i64, (n,), "carry.num_pods")
+    a.pod_requests = _ptr(cx.requests, i64, (c, r), "xs.requests")
+    a.pod_nonzero = _ptr(cx.nonzero, i64, (c, 2), "xs.nonzero")
+    a.is_pad = _ptr(xs["is_pad"], b, (c,), "is_pad")
+
+    if "NodeAffinity" in cw.statics:
+        st, x = cw.statics["NodeAffinity"], xs["NodeAffinity"]
+        a.aff_req_rows = _ptr(st.req_rows, b, (st.req_rows.shape[0], n), "req_rows")
+        a.aff_pref_rows = _ptr(st.pref_rows, i32, (st.pref_rows.shape[0], n), "pref_rows")
+        a.aff_req_idx = _ptr(x.req_idx, i32, (c,), "req_idx")
+        a.aff_pref_idx = _ptr(x.pref_idx, i32, (c,), "pref_idx")
+        a.aff_filter_skip = _ptr(x.filter_skip, b, (c,), "NodeAffinity.filter_skip")
+        a.aff_score_skip = _ptr(x.score_skip, b, (c,), "NodeAffinity.score_skip")
+    if "TaintToleration" in xs:
+        x = xs["TaintToleration"]
+        a.taint_code = _ptr(x.filter_code, i16, (c, n), "taint filter_code")
+        a.taint_prefer = _ptr(x.prefer_count, i16, (c, n), "taint prefer_count")
+    if "PodTopologySpread" in cw.statics:
+        st, x = cw.statics["PodTopologySpread"], xs["PodTopologySpread"]
+        g = st.dom_idx.shape[0]
+        mc = MAX_CONSTRAINTS
+        a.G = g
+        a.has_spread = 1
+        a.sp_dom_idx = _ptr(st.dom_idx, i32, (g, n), "spread dom_idx")
+        a.sp_counts = _ptr(carry["PodTopologySpread"], i32, (g, n), "spread counts")
+        a.sp_pm = _ptr(x.pm, b, (c, g), "spread pm")
+        a.sp_c_id = _ptr(x.c_id, i32, (c, mc), "spread c_id")
+        a.sp_max_skew = _ptr(x.max_skew, i32, (c, mc), "spread max_skew")
+        a.sp_is_filter = _ptr(x.is_filter, b, (c, mc), "spread is_filter")
+        a.sp_is_score = _ptr(x.is_score, b, (c, mc), "spread is_score")
+        a.sp_weight = _ptr(x.weight, f64, (c, mc), "spread weight")
+        a.sp_elig_per_slot = int(x.eligible.dim() == 3)
+        a.sp_eligible = _ptr(x.eligible, b, (c, mc, n) if a.sp_elig_per_slot else (c, n),
+                             "spread eligible")
+        a.sp_md_unsat = _ptr(x.md_unsat, b, (c, mc), "spread md_unsat")
+        a.sp_filter_skip = _ptr(x.filter_skip, b, (c,), "spread filter_skip")
+        a.sp_score_skip = _ptr(x.score_skip, b, (c,), "spread score_skip")
+    if "InterPodAffinity" in cw.statics:
+        st, x, ic = cw.statics["InterPodAffinity"], xs["InterPodAffinity"], carry["InterPodAffinity"]
+        t = st.dom_idx.shape[0]
+        a.T = t
+        a.has_interpod = 1
+        a.ip_hard_weight = int(st.hard_weight)
+        a.ip_dom_idx = _ptr(st.dom_idx, i32, (t, n), "interpod dom_idx")
+        for fld in ("matched", "have_req_anti", "have_req_aff", "sym_pref_aff", "sym_pref_anti"):
+            setattr(a, "ip_" + fld, _ptr(getattr(ic, fld), i32, (t, n), "interpod " + fld))
+        a.ip_matched_total = _ptr(ic.matched_total, i32, (t,), "interpod matched_total")
+        a.ip_t_matches = _ptr(x.t_matches, b, (c, t), "interpod t_matches")
+        a.ip_h_req_aff = _ptr(x.h_req_aff, i32, (c, t), "interpod h_req_aff")
+        a.ip_h_req_anti = _ptr(x.h_req_anti, i32, (c, t), "interpod h_req_anti")
+        a.ip_h_pref_aff_w = _ptr(x.h_pref_aff_w, i64, (c, t), "interpod h_pref_aff_w")
+        a.ip_h_pref_anti_w = _ptr(x.h_pref_anti_w, i64, (c, t), "interpod h_pref_anti_w")
+        a.ip_self_ok = _ptr(x.self_ok, b, (c,), "interpod self_ok")
+        a.ip_filter_skip = _ptr(x.filter_skip, b, (c,), "interpod filter_skip")
+
+    for k, name in enumerate(step.filter_names):
+        a.filter_ids[k] = PLUGIN_IDS[name]
+    for k, name in enumerate(step.score_names):
+        a.score_ids[k] = PLUGIN_IDS[name]
+        a.score_weight[k] = step.weights[k]
+
+    strategy = parse_fit_strategy(cw.config.args.get("NodeResourcesFit"))
+    rtcr = strategy.stype == fitscoring.REQUESTED_TO_CAPACITY_RATIO
+    if len(strategy.resources) > MAX_RES or len(strategy.shape) > MAX_SHAPE:
+        raise ValueError("fit strategy larger than the kernel takes")
+    a.fit_type = FIT_TYPES[strategy.stype]
+    a.fit_nres = len(strategy.resources)
+    for k, (name, w) in enumerate(strategy.resources):
+        a.fit_src[k], a.fit_col[k], a.fit_need_request[k] = _resource_desc(name, cw.schema, rtcr)
+        a.fit_weight[k] = w
+    a.fit_nshape = len(strategy.shape)
+    for k, (u, sc) in enumerate(strategy.shape):
+        a.shape_u[k], a.shape_s[k] = u, sc
+    balanced = parse_balanced_resources(cw.config.args.get("NodeResourcesBalancedAllocation"))
+    if len(balanced) > MAX_RES:
+        raise ValueError("balanced allocation over more resources than the kernel takes")
+    a.bal_nres = len(balanced)
+    for k, name in enumerate(balanced):
+        a.bal_src[k], a.bal_col[k], a.bal_need_request[k] = _resource_desc(name, cw.schema, False)
+
+    if step.out_mode == "full":
+        a.out_codes = _ptr(outs["filter_codes"], i32, (c, f, n), "filter_codes")
+        a.out_raw = _ptr(outs["score_raw"], i32, (c, s, n), "score_raw")
+        a.out_final = _ptr(outs["score_final"], i32, (c, s, n), "score_final")
+    else:
+        groups, rows, counts, check, raw32_bytes = _score_groups(step)
+        dtype, code_bits, _ = PACK_MODES[step.pack_mode]
+        a.compact = 1
+        a.pack_code_bits = code_bits
+        a.pack_bytes = outs["packed_filter"].element_size()
+        a.raw32_bytes = raw32_bytes
+        a.check_group = check
+        a.S8, a.S16, a.S32 = counts[G_RAW8], counts[G_RAW16], counts[G_RAW32]
+        for k in range(s):
+            a.score_group[k], a.score_row[k] = groups[k], rows[k]
+        a.out_packed = _ptr(outs["packed_filter"], dtype, (c, n), "packed_filter")
+        a.out_raw8 = _ptr(outs["raw8"], torch.int8, (c, a.S8, n), "raw8")
+        a.out_raw16 = _ptr(outs["raw16"], i16, (c, a.S16, n), "raw16")
+        a.out_raw32 = _ptr(outs["raw32"], i64 if raw32_bytes == 8 else i32,
+                           (c, a.S32, n), "raw32")
+        a.out_overflow = _ptr(outs["raw_overflow"], b, (c,), "raw_overflow")
+    a.out_selected = _ptr(outs["selected"], i32, (c,), "selected")
+    a.out_feasible_count = _ptr(outs["feasible_count"], i32, (c,), "feasible_count")
+    a.out_prefilter_reject = _ptr(outs["prefilter_reject"], i32, (c,), "prefilter_reject")
+    a.scratch_raw = _ptr(outs["scratch_raw"], i64, (max(s, 1), n), "scratch_raw")
+    a.scratch_feas = _ptr(outs["scratch_feas"], u8, (n,), "scratch_feas")
+    a.scratch_ign = _ptr(outs["scratch_ign"], u8, (n,), "scratch_ign")
+    return a
+
+
+def alloc_outputs(step, c: int, device) -> dict:
+    """Output and scratch tensors of one launch (torch.empty: the kernel
+    writes every element it is responsible for)."""
+    n = step.cw.n_nodes
+    f, s = len(step.filter_names), len(step.score_names)
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    outs = {
+        "selected": empty((c,), torch.int32),
+        "feasible_count": empty((c,), torch.int32),
+        "prefilter_reject": empty((c,), torch.int32),
+        "scratch_raw": empty((max(s, 1), n), torch.int64),
+        "scratch_feas": empty((n,), torch.uint8),
+        "scratch_ign": empty((n,), torch.uint8),
+    }
+    if step.out_mode == "full":
+        outs["filter_codes"] = empty((c, f, n), torch.int32)
+        outs["score_raw"] = empty((c, s, n), torch.int32)
+        outs["score_final"] = empty((c, s, n), torch.int32)
+    else:
+        _, _, counts, _, raw32_bytes = _score_groups(step)
+        outs["packed_filter"] = empty((c, n), PACK_MODES[step.pack_mode][0])
+        outs["raw8"] = empty((c, counts[G_RAW8], n), torch.int8)
+        outs["raw16"] = empty((c, counts[G_RAW16], n), torch.int16)
+        outs["raw32"] = empty((c, counts[G_RAW32], n),
+                              torch.int64 if raw32_bytes == 8 else torch.int32)
+        outs["raw_overflow"] = empty((c,), torch.bool)
+    return outs
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, torch.Tensor):
+            yield v
+        else:
+            yield from (a for a in v if isinstance(a, torch.Tensor))
+
+
+def step_chunk(step, carry: dict, xs_chunk: dict):
+    """One chunk of pods -> (carry, StepOut / CompactOut with a leading pod
+    axis).  CUDA tensors: one kernel launch, carry updated in place.  CPU
+    tensors: the plain version."""
+    dev = carry["core"].requested.device
+    if dev.type == "cpu":
+        return step.plain_scan(carry, xs_chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"step_chunk: unsupported device {dev}")
+    for t in (*_tensors(step.cw.statics), *_tensors(carry), *_tensors(xs_chunk)):
+        if t.device != dev:
+            raise ValueError(f"step_chunk: a tensor on {t.device}, the carry on {dev}")
+    from . import build
+
+    lib = build.load()
+    if lib.kss_step_args_size() != ctypes.sizeof(StepArgs):
+        raise RuntimeError("StepArgs layout differs between csrc/common.cuh and kernels/step.py")
+    c = xs_chunk["is_pad"].shape[0]
+    outs = alloc_outputs(step, c, dev)
+    args = make_args(step, carry, xs_chunk, outs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.kss_step_chunk(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"step_chunk launch failed: CUDA error {err}")
+    step_chunk.launches += 1
+    cls = StepOut if step.out_mode == "full" else CompactOut
+    return carry, cls(**{k: outs[k] for k in cls._fields})
+
+
+step_chunk.launches = 0

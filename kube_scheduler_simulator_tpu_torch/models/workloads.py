@@ -1,0 +1,222 @@
+"""Synthetic cluster / pod-queue generators for the BASELINE configs.
+
+Port of kube_scheduler_simulator_tpu/models/workloads.py (`make_nodes`
+:16, `make_pods` :68, `BASELINE_CONFIGS` and `baseline_config` :481-524):
+the same numpy draws in the same order, so the same seed gives the same
+manifests.  The columnar, slot, gang and churn generators wait for later
+slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..plugins.registry import PluginSetConfig
+
+
+def make_nodes(
+    n: int,
+    seed: int = 0,
+    n_zones: int = 8,
+    taint_fraction: float = 0.0,
+    unschedulable_fraction: float = 0.0,
+    cpu_milli: int = 64_000,
+    mem_bytes: int = 256 << 30,
+) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(n):
+        cpu = int(cpu_milli * rng.choice([0.5, 1.0, 1.0, 2.0]))
+        mem = int(mem_bytes * rng.choice([0.5, 1.0, 1.0, 2.0]))
+        node = {
+            "apiVersion": "v1",
+            "kind": "Node",
+            "metadata": {
+                "name": f"node-{i:05d}",
+                "labels": {
+                    "kubernetes.io/hostname": f"node-{i:05d}",
+                    "topology.kubernetes.io/zone": f"zone-{i % n_zones}",
+                    "topology.kubernetes.io/region": f"region-{(i % n_zones) // 4}",
+                    "node.kubernetes.io/instance-type": f"type-{int(rng.integers(4))}",
+                    "disktype": "ssd" if rng.random() < 0.5 else "hdd",
+                },
+            },
+            "spec": {},
+            "status": {
+                "allocatable": {
+                    "cpu": f"{cpu}m",
+                    "memory": str(mem),
+                    "ephemeral-storage": str(512 << 30),
+                    "pods": "110",
+                },
+                "conditions": [{"type": "Ready", "status": "True"}],
+            },
+        }
+        if rng.random() < taint_fraction:
+            node["spec"]["taints"] = [
+                {"key": "dedicated", "value": "batch", "effect": "NoSchedule"}
+            ]
+        elif rng.random() < taint_fraction:
+            node["spec"]["taints"] = [
+                {"key": "degraded", "value": "", "effect": "PreferNoSchedule"}
+            ]
+        if rng.random() < unschedulable_fraction:
+            node["spec"]["unschedulable"] = True
+        nodes.append(node)
+    return nodes
+
+
+def make_pods(
+    n: int,
+    seed: int = 1,
+    with_affinity: bool = False,
+    with_tolerations: bool = False,
+    with_spread: bool = False,
+    with_interpod: bool = False,
+    n_apps: int = 20,
+) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    pods = []
+    for i in range(n):
+        app = f"app-{int(rng.integers(n_apps))}"
+        cpu = int(rng.choice([100, 250, 500, 1000, 2000]))
+        mem = int(rng.choice([128, 256, 512, 1024, 2048])) << 20
+        pod = {
+            "apiVersion": "v1",
+            "kind": "Pod",
+            "metadata": {
+                "name": f"pod-{i:05d}",
+                "namespace": "default",
+                "labels": {"app": app, "tier": "web" if rng.random() < 0.5 else "backend"},
+            },
+            "spec": {
+                "containers": [
+                    {
+                        "name": "main",
+                        "image": "registry.k8s.io/pause:3.9",
+                        "resources": {"requests": {"cpu": f"{cpu}m", "memory": str(mem)}},
+                    }
+                ],
+            },
+        }
+        spec = pod["spec"]
+        if with_affinity and rng.random() < 0.5:
+            spec["affinity"] = {
+                "nodeAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": {
+                        "nodeSelectorTerms": [
+                            {
+                                "matchExpressions": [
+                                    {"key": "disktype", "operator": "In", "values": ["ssd"]}
+                                ]
+                            }
+                        ]
+                    },
+                    "preferredDuringSchedulingIgnoredDuringExecution": [
+                        {
+                            "weight": int(rng.integers(1, 100)),
+                            "preference": {
+                                "matchExpressions": [
+                                    {
+                                        "key": "node.kubernetes.io/instance-type",
+                                        "operator": "In",
+                                        "values": [f"type-{int(rng.integers(4))}"],
+                                    }
+                                ]
+                            },
+                        }
+                    ],
+                }
+            }
+        if with_tolerations and rng.random() < 0.3:
+            spec["tolerations"] = [
+                {"key": "dedicated", "operator": "Equal", "value": "batch", "effect": "NoSchedule"}
+            ]
+        if with_spread and rng.random() < 0.6:
+            spec["topologySpreadConstraints"] = [
+                {
+                    "maxSkew": 5,
+                    "topologyKey": "topology.kubernetes.io/zone",
+                    "whenUnsatisfiable": "DoNotSchedule",
+                    "labelSelector": {"matchLabels": {"app": app}},
+                },
+                {
+                    "maxSkew": 3,
+                    "topologyKey": "kubernetes.io/hostname",
+                    "whenUnsatisfiable": "ScheduleAnyway",
+                    "labelSelector": {"matchLabels": {"app": app}},
+                },
+            ]
+        if with_interpod and rng.random() < 0.4:
+            aff: dict = {}
+            if rng.random() < 0.5:
+                aff["podAffinity"] = {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [
+                        {
+                            "weight": int(rng.integers(1, 100)),
+                            "podAffinityTerm": {
+                                "topologyKey": "topology.kubernetes.io/zone",
+                                "labelSelector": {"matchLabels": {"app": app}},
+                            },
+                        }
+                    ]
+                }
+            else:
+                aff["podAntiAffinity"] = {
+                    "requiredDuringSchedulingIgnoredDuringExecution": [
+                        {
+                            "topologyKey": "kubernetes.io/hostname",
+                            "labelSelector": {"matchLabels": {"app": app}},
+                        }
+                    ]
+                }
+            spec.setdefault("affinity", {}).update(aff)
+        pods.append(pod)
+    return pods
+
+
+# BASELINE.md benchmark configs 1-5
+BASELINE_CONFIGS = {
+    1: dict(pods=100, nodes=10, plugins=["NodeResourcesFit"]),
+    2: dict(pods=1000, nodes=500, plugins=["NodeResourcesFit", "NodeResourcesBalancedAllocation"]),
+    3: dict(
+        pods=5000, nodes=1000,
+        plugins=["NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity", "TaintToleration"],
+        affinity=True, tolerations=True, taint_fraction=0.1,
+    ),
+    4: dict(
+        pods=10_000, nodes=5000,
+        plugins=["NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
+                 "TaintToleration", "PodTopologySpread"],
+        affinity=True, tolerations=True, taint_fraction=0.1, spread=True,
+    ),
+    5: dict(
+        pods=10_000, nodes=5000,
+        plugins=["NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
+                 "TaintToleration", "PodTopologySpread", "InterPodAffinity"],
+        affinity=True, tolerations=True, taint_fraction=0.1, spread=True, interpod=True,
+    ),
+}
+
+
+def baseline_config(idx: int, scale: float = 1.0, seed: int = 0,
+                    node_scale: float | None = None):
+    """-> (nodes, pods, PluginSetConfig). scale shrinks pod/node counts for
+    tests and CPU-baseline measurement; node_scale (default: scale)
+    overrides the node-axis factor separately — the CPU baseline keeps
+    node_scale=1.0 so per-cycle cost reflects the real cluster size."""
+    c = BASELINE_CONFIGS[idx]
+    n_nodes = max(int(c["nodes"] * (scale if node_scale is None else node_scale)), 2)
+    n_pods = max(int(c["pods"] * scale), 1)
+    nodes = make_nodes(
+        n_nodes, seed=seed,
+        taint_fraction=c.get("taint_fraction", 0.0),
+    )
+    pods = make_pods(
+        n_pods, seed=seed + 1,
+        with_affinity=c.get("affinity", False),
+        with_tolerations=c.get("tolerations", False),
+        with_spread=c.get("spread", False),
+        with_interpod=c.get("interpod", False),
+    )
+    return nodes, pods, PluginSetConfig(enabled=list(c["plugins"]))

@@ -1,0 +1,173 @@
+"""NodeAffinity tensor functions.
+
+Port of kube_scheduler_simulator_tpu/plugins/affinity.py: build code
+(:61-147), `filter_kernel` :155, `score_kernel` :160, `normalize` :164 and
+`decode_filter` :168.  On the card the row gathers and the normalization
+run inside csrc/affinity.cuh.
+
+Upstream v1.32 pkg/scheduler/framework/plugins/nodeaffinity.  Both the
+Filter predicate (pod.spec.nodeSelector AND
+requiredDuringSchedulingIgnoredDuringExecution) and the Score raw value
+(sum of weights of matching preferredDuringScheduling terms) depend only on
+node labels — static during a replay — so both are precompiled host-side
+into dense arrays; the per-pod functions are pure gathers.
+
+Recording semantics (reference shim):
+* Filter fail message: "node(s) didn't match Pod's node affinity/selector"
+  (upstream ErrReasonPod).
+* PreFilter returns Skip when the pod has neither nodeSelector nor required
+  affinity -> its Filter is skipped by the framework (no filter-result
+  entries for this plugin on any node).
+* PreScore returns Skip when the pod has no preferred terms -> no
+  score-result entries.
+* ScoreExtensions: DefaultNormalizeScore(100, reverse=false).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .base import default_normalize_score, to_tensor
+from ..state.nodes import NodeTable
+from ..state.selectors import (
+    match_labels_rows,
+    node_selector_rows,
+    node_selector_term_rows,
+    spec_key,
+)
+
+NAME = "NodeAffinity"
+ERR_REASON = "node(s) didn't match Pod's node affinity/selector"
+
+
+class NodeAffinityStatic(NamedTuple):
+    """Unique match rows, shared across pods.  Pods stamped from one
+    template dedup to the same row, so device residency is [U, N] +
+    [V, N] (U/V = unique specs) instead of two dense [P, N] tensors —
+    the per-pod xs are just row indices the kernels gather."""
+
+    req_rows: torch.Tensor       # [U, N] bool  (row 0 = all-True)
+    pref_rows: torch.Tensor      # [V, N] int32 (row 0 = zeros)
+
+
+class NodeAffinityXS(NamedTuple):
+    req_idx: torch.Tensor        # [P] int32 into static.req_rows
+    pref_idx: torch.Tensor       # [P] int32 into static.pref_rows
+    filter_skip: torch.Tensor    # [P] bool (PreFilter returned Skip)
+    score_skip: torch.Tensor     # [P] bool (PreScore returned Skip)
+
+
+def build(table: NodeTable, pods: list[dict],
+          args: dict | None = None,
+          host_out: dict | None = None, device="cpu"
+          ) -> tuple[NodeAffinityStatic, NodeAffinityXS]:
+    n, p = table.n, len(pods)
+    filter_skip = np.zeros(p, dtype=bool)
+    score_skip = np.zeros(p, dtype=bool)
+
+    # addedAffinity (NodeAffinityArgs): admin-configured affinity ANDed
+    # onto every pod (upstream node_affinity.go); with it present,
+    # PreFilter/PreScore never Skip
+    idx = table.label_index  # columnar: one vector op per expression
+
+    added = (args or {}).get("addedAffinity") or {}
+    added_req = added.get("requiredDuringSchedulingIgnoredDuringExecution")
+    added_pref = added.get("preferredDuringSchedulingIgnoredDuringExecution") or []
+    added_req_row = node_selector_rows(added_req, idx) if added_req else None
+    added_pref_row = None
+    if added_pref:
+        added_pref_row = np.zeros(n, dtype=np.int32)
+        for t in added_pref:
+            added_pref_row += int(t.get("weight", 0)) * node_selector_term_rows(
+                t.get("preference") or {}, idx)
+
+    # row 0 of each pool is the identity row — what skipped pods gather
+    # (their kernel output is masked by the skip flag downstream)
+    req_pool: list[np.ndarray] = [np.ones(n, dtype=bool)]
+    pref_pool: list[np.ndarray] = [np.zeros(n, dtype=np.int32)]
+    req_by_key: dict[str, int] = {}
+    pref_by_key: dict[str, int] = {}
+    req_idx = np.zeros(p, dtype=np.int32)
+    pref_idx = np.zeros(p, dtype=np.int32)
+    for i, pod in enumerate(pods):
+        spec = pod.get("spec") or {}
+        node_sel = spec.get("nodeSelector") or {}
+        aff = ((spec.get("affinity") or {}).get("nodeAffinity")) or {}
+        required = aff.get("requiredDuringSchedulingIgnoredDuringExecution")
+        preferred = aff.get("preferredDuringSchedulingIgnoredDuringExecution") or []
+
+        if not node_sel and not required and added_req_row is None:
+            filter_skip[i] = True
+        else:
+            key = spec_key(node_sel, required)
+            j = req_by_key.get(key)
+            if j is None:
+                row = np.ones(n, dtype=bool)
+                if node_sel:
+                    row &= match_labels_rows(node_sel, idx)
+                if required:
+                    row &= node_selector_rows(required, idx)
+                if added_req_row is not None:
+                    row &= added_req_row
+                j = len(req_pool)
+                req_pool.append(row)
+                req_by_key[key] = j
+            req_idx[i] = j
+
+        if not preferred and added_pref_row is None:
+            score_skip[i] = True
+        else:
+            key = spec_key(preferred)
+            j = pref_by_key.get(key)
+            if j is None:
+                row = np.zeros(n, dtype=np.int32)
+                for term in preferred:
+                    row += int(term.get("weight", 0)) * node_selector_term_rows(
+                        term.get("preference") or {}, idx)
+                if added_pref_row is not None:
+                    row += added_pref_row
+                j = len(pref_pool)
+                pref_pool.append(row)
+                pref_by_key[key] = j
+            pref_idx[i] = j
+
+    pref_mat = np.stack(pref_pool)
+    if host_out is not None and not score_skip.all():
+        # the raw score IS the precompiled row (score_kernel is a pure
+        # gather), so the compact replay never transfers it back from the
+        # device — the decoder reads this host copy directly
+        # (framework/replay.py "host" score group).  Skipped-for-every-pod
+        # scoring stashes nothing (the decoder emits no annotations for
+        # skipped scorers).
+        host_out.setdefault("static_score_rows", {})[NAME] = (
+            np.ascontiguousarray(np.take(pref_mat, pref_idx, axis=0)))
+    static = NodeAffinityStatic(
+        req_rows=to_tensor(np.stack(req_pool), device),
+        pref_rows=to_tensor(pref_mat, device),
+    )
+    return static, NodeAffinityXS(
+        req_idx=to_tensor(req_idx, device),
+        pref_idx=to_tensor(pref_idx, device),
+        filter_skip=to_tensor(filter_skip, device),
+        score_skip=to_tensor(score_skip, device),
+    )
+
+
+def filter_kernel(static: NodeAffinityStatic, pod_xs) -> torch.Tensor:
+    row = static.req_rows[pod_xs.req_idx.to(torch.int64)]
+    return torch.where(row, 0, 1).to(torch.int32)
+
+
+def score_kernel(static: NodeAffinityStatic, pod_xs) -> torch.Tensor:
+    return static.pref_rows[pod_xs.pref_idx.to(torch.int64)].to(torch.int64)
+
+
+def normalize(raw, feasible):
+    return default_normalize_score(raw, feasible, reverse=False)
+
+
+def decode_filter(code: int, node_idx: int, host_aux) -> str:
+    return ERR_REASON

@@ -1,0 +1,372 @@
+"""InterPodAffinity tensor functions.
+
+Port of kube_scheduler_simulator_tpu/plugins/interpod.py: build code
+(:110-251), `assemble_carry` :269, `filter_kernel` :290, `score_kernel`
+:312, `normalize` :321, `bind_update` :334 and `decode_filter` :357.  On the
+card the same math runs inside csrc/interpod.cuh.
+
+Upstream v1.32 pkg/scheduler/framework/plugins/interpodaffinity.  The
+pod x pod cross terms are factored through *unique affinity terms*: a term
+is (topologyKey, labelSelector, namespaces); the whole workload (initial
+pods + queue) mentions a small set T of distinct terms, and every pairwise
+relation the plugin needs is a function of per-(term, domain) counts:
+
+  matched[T, D]    existing pods whose labels+ns match term t, per domain
+  have_req_anti    existing pods having t as a required anti-affinity term
+  have_req_aff     ... as a required affinity term
+  sym_pref_aff     sum of weights of existing pods having t as a preferred
+                   affinity term (symmetric score credit)
+  sym_pref_anti    ... preferred anti-affinity term
+
+These five [T, D] matrices are the scan carry; per-pod statics are
+t_matches[P, T] (does pod p match term t) and the pod's own term
+multiplicities/weights h_*[P, T].  A 10k x 5k InterPodAffinity replay that
+is O(pods^2 x nodes) pairwise in the reference becomes O(T x D) per step.
+
+Filter (required terms), in upstream check order:
+  1. pod affinity:   every t with h_req_aff>0 needs matched[t, dom(n)]>0,
+     OR the self-match escape: no pod anywhere matches any of the pod's
+     affinity terms AND the pod matches all its own terms AND the node has
+     all term topology keys.     -> "node(s) didn't match pod affinity rules"
+  2. pod anti-affinity: no t with h_req_anti>0 may have matched[t,dom]>0
+                                 -> "node(s) didn't match pod anti-affinity rules"
+  3. existing pods' anti-affinity: sum_t t_matches[p,t]*have_req_anti[t,dom]
+     must be 0       -> "node(s) didn't satisfy existing pods' anti-affinity rules"
+
+Score: raw(n) = sum_t [ (h_pref_aff_w - h_pref_anti_w)[p,t] * matched[t,dom]
+                 + t_matches[p,t] * (sym_pref_aff - sym_pref_anti
+                                     + hardWeight * have_req_aff)[t,dom] ]
+with hardWeight = args.hardPodAffinityWeight (default 1).
+NormalizeScore: fScore = 100 * (score - min) / (max - min) over feasible
+nodes, float64 then int64 truncation, 0 when max == min.
+
+Term normalization (effective_terms, shared with the CPU oracle):
+namespaceSelector resolved against the namespace manifests supplied at
+compile time (explicit namespaces union selector matches; {} matches all
+known namespaces), matchLabelKeys / mismatchLabelKeys merged into the
+selector as In / NotIn expressions over the incoming pod's own values.
+Remaining simplification (docs/SEMANTICS.md): PreFilter never returns
+Skip when any pod in the workload carries required anti-affinity terms
+(coarser than upstream's per-cycle check, applied identically in the CPU
+reference).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .base import MAX_NODE_SCORE, to_tensor
+from ..state.nodes import NodeTable
+from ..state.selectors import label_selector_matches
+
+NAME = "InterPodAffinity"
+ERR_AFFINITY = "node(s) didn't match pod affinity rules"
+ERR_ANTI_AFFINITY = "node(s) didn't match pod anti-affinity rules"
+ERR_EXISTING_ANTI = "node(s) didn't satisfy existing pods' anti-affinity rules"
+
+CODE_AFFINITY, CODE_ANTI, CODE_EXISTING = 1, 2, 3
+
+DEFAULT_HARD_POD_AFFINITY_WEIGHT = 1
+
+
+class InterPodStatic(NamedTuple):
+    dom_idx: torch.Tensor     # [T, N] int32 (-1: node lacks term's key)
+    hard_weight: torch.Tensor  # scalar int64
+
+
+class InterPodXS(NamedTuple):
+    t_matches: torch.Tensor     # [P, T] bool
+    h_req_aff: torch.Tensor     # [P, T] int32
+    h_req_anti: torch.Tensor    # [P, T] int32
+    h_pref_aff_w: torch.Tensor  # [P, T] int64
+    h_pref_anti_w: torch.Tensor  # [P, T] int64
+    self_ok: torch.Tensor       # [P] bool — pod matches all its own req aff terms
+    filter_skip: torch.Tensor   # [P] bool
+
+
+class InterPodCarry(NamedTuple):
+    """Per-(term, NODE) counts — the domain-space [T, D] matrices of the
+    module docstring materialized per node (value at each node's domain,
+    0 where the node lacks the key).  Node-space keeps the whole step
+    gather/scatter-free: reading "matched at n's domain" is just
+    carry.matched[:, n], and a bind updates every node of the selected
+    node's domain with one elementwise compare-and-add.  matched_total
+    keeps the per-term cluster-wide count that the self-match escape
+    needs (the only cross-domain aggregate).
+
+    int32: counts are bounded by #pods and weight sums by 100 x #pods
+    (upstream caps per-term weights at 100), far inside int32; the score
+    reduction accumulates in int64."""
+
+    matched: torch.Tensor        # [T, N] int32
+    have_req_anti: torch.Tensor  # [T, N] int32
+    have_req_aff: torch.Tensor   # [T, N] int32
+    sym_pref_aff: torch.Tensor   # [T, N] int32
+    sym_pref_anti: torch.Tensor  # [T, N] int32
+    matched_total: torch.Tensor  # [T] int32
+
+
+def _terms_of(pod: dict, field: str, preferred: bool) -> list[tuple[dict, int]]:
+    aff = ((pod.get("spec") or {}).get("affinity") or {}).get(field) or {}
+    if preferred:
+        return [
+            (wt.get("podAffinityTerm") or {}, int(wt.get("weight", 0)))
+            for wt in aff.get("preferredDuringSchedulingIgnoredDuringExecution") or []
+        ]
+    return [(t, 1) for t in aff.get("requiredDuringSchedulingIgnoredDuringExecution") or []]
+
+
+def effective_terms(pod: dict, field: str, preferred: bool,
+                    namespaces: list[dict] | None = None) -> list[tuple[dict, int]]:
+    """The pod's [anti-]affinity terms, normalized the way upstream's
+    framework.AffinityTerm constructor does:
+
+    * matchLabelKeys / mismatchLabelKeys merged into the labelSelector as
+      In / NotIn expressions over the incoming pod's own label values
+      (MatchLabelKeysInPodAffinity, beta default-on since v1.31; keys the
+      pod doesn't carry are skipped);
+    * the namespace set resolved: explicit `namespaces` union namespaces
+      whose labels match `namespaceSelector` (an empty selector {} matches
+      every known namespace; nil adds nothing); neither field -> the
+      pod's own namespace.  Resolution is against the `namespaces`
+      manifests supplied at compile time — the engine passes the store's
+      live list, matching upstream's per-cycle namespace lister read.
+
+    Shared by the tensor build and the sequential oracle so term
+    interning and match semantics can never diverge."""
+    meta = pod.get("metadata") or {}
+    pod_ns = meta.get("namespace") or "default"
+    pod_labels = {k: str(v) for k, v in (meta.get("labels") or {}).items()}
+    out = []
+    for term, w in _terms_of(pod, field, preferred):
+        extra = []
+        for k in term.get("matchLabelKeys") or []:
+            if k in pod_labels:
+                extra.append({"key": k, "operator": "In", "values": [pod_labels[k]]})
+        for k in term.get("mismatchLabelKeys") or []:
+            if k in pod_labels:
+                extra.append({"key": k, "operator": "NotIn", "values": [pod_labels[k]]})
+        sel = term.get("labelSelector")
+        if extra:
+            sel = dict(sel or {})
+            sel["matchExpressions"] = list(sel.get("matchExpressions") or []) + extra
+        ns_selector = term.get("namespaceSelector")
+        ns_set = set(term.get("namespaces") or [])
+        if ns_selector is not None:
+            for ns_obj in namespaces or []:
+                ns_meta = ns_obj.get("metadata") or {}
+                labels = {k: str(v) for k, v in (ns_meta.get("labels") or {}).items()}
+                if label_selector_matches(ns_selector, labels):
+                    ns_set.add(ns_meta.get("name", ""))
+        if not ns_set and ns_selector is None:
+            ns_set = {pod_ns}
+        term = dict(term, labelSelector=sel, namespaces=sorted(ns_set))
+        term.pop("namespaceSelector", None)
+        out.append((term, w))
+    return out
+
+
+def build(table: NodeTable, pods: list[dict],
+          hard_weight: int = DEFAULT_HARD_POD_AFFINITY_WEIGHT,
+          namespaces: list[dict] | None = None, device="cpu"):
+    labels = table.labels
+    n, p = table.n, len(pods)
+
+    # --- unique term table ----------------------------------------------
+    terms: dict[tuple, int] = {}
+    term_list: list[tuple[str, dict | None, tuple[str, ...]]] = []  # (key, selector, namespaces)
+
+    def intern_term(term: dict) -> int:
+        # effective_terms already resolved the namespace set and merged
+        # matchLabelKeys into the selector
+        nss = tuple(term.get("namespaces") or ())
+        sel = term.get("labelSelector")
+        tk = (term.get("topologyKey", ""), json.dumps(sel, sort_keys=True), nss)
+        if tk not in terms:
+            terms[tk] = len(term_list)
+            term_list.append((term.get("topologyKey", ""), sel, nss))
+        return terms[tk]
+
+    per_pod: list[dict[str, list[tuple[int, int]]]] = []
+    for pod in pods:
+        entry = {}
+        for kind, field, preferred in (
+            ("req_aff", "podAffinity", False),
+            ("req_anti", "podAntiAffinity", False),
+            ("pref_aff", "podAffinity", True),
+            ("pref_anti", "podAntiAffinity", True),
+        ):
+            entry[kind] = [
+                (intern_term(t), w)
+                for t, w in effective_terms(pod, field, preferred, namespaces)
+            ]
+        per_pod.append(entry)
+
+    t_count = max(len(term_list), 1)
+
+    # --- domain indexing per term key ------------------------------------
+    dom_idx = np.full((t_count, n), -1, dtype=np.int32)
+    for t_id, (key, _, _) in enumerate(term_list):
+        vals: dict[str, int] = {}
+        for j in range(n):
+            v = labels[j].get(key)
+            if v is not None:
+                dom_idx[t_id, j] = vals.setdefault(v, len(vals))
+    d_max = max(int(dom_idx.max()) + 1, 1)
+
+    # --- pod x term matches + per-pod term weights -----------------------
+    t_matches = np.zeros((p, t_count), dtype=bool)
+    h_req_aff = np.zeros((p, t_count), dtype=np.int32)
+    h_req_anti = np.zeros((p, t_count), dtype=np.int32)
+    h_pref_aff_w = np.zeros((p, t_count), dtype=np.int64)
+    h_pref_anti_w = np.zeros((p, t_count), dtype=np.int64)
+    self_ok = np.zeros(p, dtype=bool)
+    for i, pod in enumerate(pods):
+        pod_ns = (pod.get("metadata") or {}).get("namespace") or "default"
+        pod_labels = {k: str(v) for k, v in ((pod.get("metadata") or {}).get("labels") or {}).items()}
+        for t_id, (_, sel, nss) in enumerate(term_list):
+            t_matches[i, t_id] = pod_ns in nss and label_selector_matches(sel, pod_labels)
+        e = per_pod[i]
+        for t_id, _ in e["req_aff"]:
+            h_req_aff[i, t_id] += 1
+        for t_id, _ in e["req_anti"]:
+            h_req_anti[i, t_id] += 1
+        for t_id, w in e["pref_aff"]:
+            h_pref_aff_w[i, t_id] += w
+        for t_id, w in e["pref_anti"]:
+            h_pref_anti_w[i, t_id] += w
+        self_ok[i] = all(t_matches[i, t_id] for t_id, _ in e["req_aff"])
+
+    any_workload_anti = bool(h_req_anti.any())
+    filter_skip = np.array(
+        [
+            not any_workload_anti
+            and not per_pod[i]["req_aff"]
+            and not per_pod[i]["req_anti"]
+            for i in range(p)
+        ],
+        dtype=bool,
+    )
+
+    static = InterPodStatic(
+        dom_idx=to_tensor(dom_idx, device),
+        hard_weight=torch.tensor(hard_weight, dtype=torch.int64, device=device))
+    xs = InterPodXS(
+        t_matches=to_tensor(t_matches, device),
+        h_req_aff=to_tensor(h_req_aff, device),
+        h_req_anti=to_tensor(h_req_anti, device),
+        h_pref_aff_w=to_tensor(h_pref_aff_w, device),
+        h_pref_anti_w=to_tensor(h_pref_anti_w, device),
+        self_ok=to_tensor(self_ok, device),
+        filter_skip=to_tensor(filter_skip, device),
+    )
+    dom_mats = {
+        name: np.zeros((t_count, d_max), dtype=np.int64)
+        for name in ("matched", "have_req_anti", "have_req_aff",
+                     "sym_pref_aff", "sym_pref_anti")
+    }
+    return static, xs, dom_mats
+
+
+def assemble_carry(static: InterPodStatic, dom_mats: dict) -> InterPodCarry:
+    """[T, D] domain-space numpy mats (build + host priming) -> the
+    node-space carry on the statics' device (one take_along_axis per
+    mat, on host)."""
+    dom = static.dom_idx.cpu().numpy()
+    safe = np.maximum(dom, 0)
+    device = static.dom_idx.device
+
+    def to_nodes(mat: np.ndarray) -> torch.Tensor:
+        vals = np.take_along_axis(mat, safe, axis=1)
+        return to_tensor(np.where(dom >= 0, vals, 0).astype(np.int32), device)
+
+    return InterPodCarry(
+        matched=to_nodes(dom_mats["matched"]),
+        have_req_anti=to_nodes(dom_mats["have_req_anti"]),
+        have_req_aff=to_nodes(dom_mats["have_req_aff"]),
+        sym_pref_aff=to_nodes(dom_mats["sym_pref_aff"]),
+        sym_pref_anti=to_nodes(dom_mats["sym_pref_anti"]),
+        matched_total=to_tensor(
+            dom_mats["matched"].sum(axis=1).astype(np.int32), device),
+    )
+
+
+def filter_kernel(static: InterPodStatic, pod, carry: InterPodCarry) -> torch.Tensor:
+    matched_n = carry.matched                              # [T, N]
+    has_aff = pod.h_req_aff > 0                            # [T]
+    # 1. required pod affinity
+    term_sat = matched_n > 0                               # [T, N]
+    aff_ok_all = torch.all(term_sat | ~has_aff[:, None], dim=0)  # [N]
+    # the self-match escape reads the CLUSTER-WIDE count of each term
+    total_any = torch.sum(torch.where(has_aff, carry.matched_total, 0))
+    node_has_keys = torch.all((static.dom_idx >= 0) | ~has_aff[:, None], dim=0)
+    self_escape = (total_any == 0) & pod.self_ok & node_has_keys
+    fail_aff = torch.any(has_aff) & ~(aff_ok_all | self_escape)
+    # 2. required pod anti-affinity
+    has_anti = pod.h_req_anti > 0
+    fail_anti = torch.any((matched_n > 0) & has_anti[:, None], dim=0)
+    # 3. existing pods' anti-affinity vs this pod
+    fail_existing = torch.sum(
+        torch.where(pod.t_matches[:, None], carry.have_req_anti, 0),
+        dim=0, dtype=torch.int32) > 0
+    code = torch.where(fail_existing, CODE_EXISTING, 0)
+    code = torch.where(fail_anti, CODE_ANTI, code)
+    code = torch.where(fail_aff, CODE_AFFINITY, code)
+    return code.to(torch.int32)
+
+
+def score_kernel(static: InterPodStatic, pod, carry: InterPodCarry) -> torch.Tensor:
+    """int32 per-term products (counts are bounded far inside int32, see
+    InterPodCarry), summed over terms in int64."""
+    own = ((pod.h_pref_aff_w - pod.h_pref_anti_w).to(torch.int32)[:, None]
+           * carry.matched)
+    sym = (carry.sym_pref_aff - carry.sym_pref_anti
+           + static.hard_weight.to(torch.int32) * carry.have_req_aff)
+    sym_contrib = torch.where(pod.t_matches[:, None], sym, 0)
+    return torch.sum((own + sym_contrib).to(torch.int64), dim=0)
+
+
+def normalize(raw, feasible):
+    """float64 min/max scaling over the feasible set, truncated to int64
+    (Go int64())."""
+    big = 1 << 40
+    mn = torch.min(torch.where(feasible, raw, big))
+    mx = torch.max(torch.where(feasible, raw, -big))
+    diff = (mx - mn).to(torch.float64)
+    f = torch.where(
+        diff > 0,
+        MAX_NODE_SCORE * ((raw - mn).to(torch.float64) / torch.clamp(diff, min=1.0)),
+        0.0,
+    )
+    return f.to(torch.int64)
+
+
+def bind_update(static: InterPodStatic, pod, carry: InterPodCarry, sel):
+    """Node-space bind: every node sharing the selected node's domain (per
+    term) takes the increment — an elementwise compare-and-add."""
+    bound = sel >= 0
+    s = torch.clamp(sel, min=0).to(torch.int64)
+    dom_col = static.dom_idx[:, s]                  # [T]
+    valid = bound & (dom_col >= 0)                  # [T]
+    same = (static.dom_idx == dom_col[:, None]) & valid[:, None]  # [T, N]
+
+    def upd(mat, inc):
+        return mat + torch.where(same, inc.to(mat.dtype)[:, None], 0)
+
+    return InterPodCarry(
+        matched=upd(carry.matched, pod.t_matches),
+        have_req_anti=upd(carry.have_req_anti, pod.h_req_anti),
+        have_req_aff=upd(carry.have_req_aff, pod.h_req_aff),
+        sym_pref_aff=upd(carry.sym_pref_aff, pod.h_pref_aff_w),
+        sym_pref_anti=upd(carry.sym_pref_anti, pod.h_pref_anti_w),
+        matched_total=carry.matched_total
+        + torch.where(valid, pod.t_matches.to(torch.int32), 0),
+    )
+
+
+def decode_filter(code: int, node_idx: int, host_aux) -> str:
+    return {CODE_AFFINITY: ERR_AFFINITY, CODE_ANTI: ERR_ANTI_AFFINITY, CODE_EXISTING: ERR_EXISTING_ANTI}[code]

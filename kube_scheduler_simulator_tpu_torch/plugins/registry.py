@@ -1,0 +1,206 @@
+"""Plugin registry: names, extension points, default order and weights.
+
+A copy of kube_scheduler_simulator_tpu/plugins/registry.py.
+
+Mirrors the role of the reference's in-tree registry + config rewrite
+(reference: simulator/scheduler/plugin/plugins.go:25-85 builds a factory
+per plugin; :289-304 getScorePluginWeight collects score weights, default 1
+when unset).  Order and default weights follow upstream v1.32
+getDefaultPlugins (MultiPoint): NodeUnschedulable, NodeName,
+TaintToleration(3), NodeAffinity(2), NodeResourcesFit(1),
+PodTopologySpread(2), InterPodAffinity(2),
+NodeResourcesBalancedAllocation(1) — restricted to the plugins this
+framework tensorizes so far.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class PluginDesc:
+    name: str
+    has_preenqueue: bool = False
+    has_prefilter: bool = False
+    has_filter: bool = False
+    has_postfilter: bool = False
+    has_prescore: bool = False
+    has_score: bool = False
+    has_normalize: bool = False  # ScoreExtensions != nil
+    default_weight: int = 1
+
+
+PLUGIN_REGISTRY: dict[str, PluginDesc] = {
+    d.name: d
+    for d in [
+        PluginDesc("NodeUnschedulable", has_filter=True),
+        PluginDesc("NodeName", has_filter=True),
+        PluginDesc("TaintToleration", has_filter=True, has_prescore=True, has_score=True,
+                   has_normalize=True, default_weight=3),
+        PluginDesc("NodeAffinity", has_prefilter=True, has_filter=True, has_prescore=True,
+                   has_score=True, has_normalize=True, default_weight=2),
+        PluginDesc("NodePorts", has_prefilter=True, has_filter=True),
+        PluginDesc("NodeResourcesFit", has_prefilter=True, has_filter=True, has_prescore=True,
+                   has_score=True, default_weight=1),
+        PluginDesc("VolumeRestrictions", has_prefilter=True, has_filter=True),
+        PluginDesc("NodeVolumeLimits", has_prefilter=True, has_filter=True),
+        PluginDesc("VolumeBinding", has_prefilter=True, has_filter=True, has_score=True,
+                   default_weight=1),
+        PluginDesc("VolumeZone", has_prefilter=True, has_filter=True),
+        PluginDesc("PodTopologySpread", has_prefilter=True, has_filter=True, has_prescore=True,
+                   has_score=True, has_normalize=True, default_weight=2),
+        PluginDesc("InterPodAffinity", has_prefilter=True, has_filter=True, has_prescore=True,
+                   has_score=True, has_normalize=True, default_weight=2),
+        PluginDesc("DefaultPreemption", has_postfilter=True),
+        PluginDesc("NodeResourcesBalancedAllocation", has_prescore=True, has_score=True,
+                   default_weight=1),
+        PluginDesc("ImageLocality", has_score=True, default_weight=1),
+        PluginDesc("SchedulingGates", has_preenqueue=True),
+    ]
+}
+
+# upstream MultiPoint order (v1.32 getDefaultPlugins), restricted to the above
+DEFAULT_ORDER = [
+    "SchedulingGates",
+    "NodeUnschedulable",
+    "NodeName",
+    "TaintToleration",
+    "NodeAffinity",
+    "NodePorts",
+    "NodeResourcesFit",
+    "VolumeRestrictions",
+    "NodeVolumeLimits",
+    "VolumeBinding",
+    "VolumeZone",
+    "PodTopologySpread",
+    "InterPodAffinity",
+    "DefaultPreemption",
+    "NodeResourcesBalancedAllocation",
+    "ImageLocality",
+]
+
+
+def default_plugin_names() -> list[str]:
+    return list(DEFAULT_ORDER)
+
+
+@dataclass
+class PluginSetConfig:
+    """Enabled plugins (ordered as in DEFAULT_ORDER) + score weights.
+
+    Weight semantics follow the reference: a configured weight of 0 means 1
+    (plugins.go:296-300).  custom maps out-of-tree plugin name ->
+    CustomPlugin instance (the WithPlugin analogue); custom plugins sort
+    after the in-tree set, like upstream mergePluginSet appending custom
+    enables."""
+
+    enabled: list[str] = field(default_factory=default_plugin_names)
+    weights: dict[str, int] = field(default_factory=dict)
+    custom: dict[str, object] = field(default_factory=dict)
+    # per-plugin pluginConfig args (KubeSchedulerConfiguration
+    # profiles[].pluginConfig[].args), e.g. NodeResourcesFit
+    # scoringStrategy or InterPodAffinity hardPodAffinityWeight
+    args: dict[str, dict] = field(default_factory=dict)
+    # per-extension-point overrides (upstream lets a profile disable a
+    # plugin at ONE point while it stays active at the others, or enable
+    # one only there): point name ("filter", "score", "preFilter", ...)
+    # -> names; "*" in a disabled set drops every base plugin at that
+    # point except the point's own enabled entries
+    point_enabled: dict[str, list[str]] = field(default_factory=dict)
+    point_disabled: dict[str, set[str]] = field(default_factory=dict)
+
+    def __post_init__(self):
+        order = {n: i for i, n in enumerate(DEFAULT_ORDER)}
+        self.enabled = sorted(self.enabled, key=lambda n: order.get(n, 99))
+        for name in self.enabled:
+            if name not in PLUGIN_REGISTRY and name not in self.custom:
+                raise ValueError(f"unknown plugin {name}")
+
+    def _desc(self, name: str):
+        d = PLUGIN_REGISTRY.get(name)
+        if d is not None:
+            return d
+        return self.custom[name]
+
+    def is_custom(self, name: str) -> bool:
+        return name in self.custom and name not in PLUGIN_REGISTRY
+
+    def weight(self, name: str) -> int:
+        w = self.weights.get(name, self._desc(name).default_weight)
+        return w if w != 0 else 1
+
+    _POINT_CAPABILITY = {
+        "preEnqueue": "has_preenqueue", "preFilter": "has_prefilter",
+        "filter": "has_filter", "postFilter": "has_postfilter",
+        "preScore": "has_prescore", "score": "has_score",
+    }
+
+    def _point_set(self, point: str, base: list[str]) -> list[str]:
+        """Apply the point's enable/disable overrides to the base (multi-
+        point-derived) plugin list, upstream per-point merge semantics:
+        disables (incl. "*") suppress only the base entries; explicit
+        point enables append after in the user's order (so an
+        enable+disable of the same name keeps the plugin, like
+        mergePluginSet); enables must implement the point."""
+        cap = self._POINT_CAPABILITY[point]
+        extra = [
+            n for n in self.point_enabled.get(point, [])
+            if (n in PLUGIN_REGISTRY or n in self.custom)
+            and getattr(self._desc(n), cap, False)
+        ]
+        dis = self.point_disabled.get(point, ())
+        if "*" in dis:
+            names: list[str] = []
+        else:
+            names = [n for n in base if n not in dis]
+        return names + [n for n in extra if n not in names]
+
+    def active_plugins(self) -> list[str]:
+        """Union of the globally enabled plugins and every point-enabled
+        extra (deduped, registry order) — the set the workload compiler
+        must build tensors for."""
+        out = list(self.enabled)
+        seen = set(out)
+        for point, names in self.point_enabled.items():
+            cap = self._POINT_CAPABILITY[point]
+            for n in names:
+                if n in seen or (n not in PLUGIN_REGISTRY and n not in self.custom):
+                    continue
+                if getattr(self._desc(n), cap, False):
+                    out.append(n)
+                    seen.add(n)
+        order = {n: i for i, n in enumerate(DEFAULT_ORDER)}
+        return sorted(out, key=lambda n: order.get(n, 99))
+
+    def filters(self) -> list[str]:
+        return self._point_set(
+            "filter", [n for n in self.enabled if self._desc(n).has_filter])
+
+    def preenqueues(self) -> list[str]:
+        return self._point_set("preEnqueue", [
+            n for n in self.enabled
+            if not self.is_custom(n) and PLUGIN_REGISTRY[n].has_preenqueue
+        ])
+
+    def postfilters(self) -> list[str]:
+        return self._point_set("postFilter", [
+            n for n in self.enabled
+            if not self.is_custom(n) and PLUGIN_REGISTRY[n].has_postfilter
+        ])
+
+    def scorers(self) -> list[str]:
+        return self._point_set(
+            "score", [n for n in self.enabled if self._desc(n).has_score])
+
+    def prefilters(self) -> list[str]:
+        return self._point_set("preFilter", [
+            n for n in self.enabled
+            if not self.is_custom(n) and PLUGIN_REGISTRY[n].has_prefilter
+        ])
+
+    def prescorers(self) -> list[str]:
+        return self._point_set("preScore", [
+            n for n in self.enabled
+            if not self.is_custom(n) and PLUGIN_REGISTRY[n].has_prescore
+        ])

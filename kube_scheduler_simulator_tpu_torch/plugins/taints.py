@@ -1,0 +1,89 @@
+"""TaintToleration tensor functions.
+
+Port of kube_scheduler_simulator_tpu/plugins/taints.py: `build_taints`
+(:59), `taint_filter` :121, `taint_score` :125, `taint_normalize` :129 and
+`decode_taint_filter` :133.  NodeUnschedulable and NodeName (:89-117,
+:139-144) wait for a later slice.  On the card the row reads and the
+reverse normalization run inside csrc/taints.cuh.
+
+The filter predicate and the score depend only on node taints and the
+pod's tolerations — static during a replay — so they precompile to dense
+[P, N] arrays.  Upstream v1.32 semantics:
+* Filter: first taint with effect NoSchedule/NoExecute not tolerated fails
+  the node with "node(s) had untolerated taint {<key>: <value>}".  The
+  failure code is 1 + index of that taint in the node's taint list so the
+  decoder can reproduce the exact message.
+* Score: count of PreferNoSchedule taints not tolerated by the pod's
+  tolerations filtered to effect in {"", PreferNoSchedule};
+  NormalizeScore = DefaultNormalizeScore(100, reverse=true).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .base import default_normalize_score, to_tensor
+from ..state.nodes import NodeTable, NO_EXECUTE, NO_SCHEDULE, PREFER_NO_SCHEDULE
+from ..state.selectors import spec_key, tolerations_tolerate
+
+NAME_TAINT = "TaintToleration"
+
+
+class TaintXS(NamedTuple):
+    filter_code: torch.Tensor   # [P, N] int16; 0 pass, else 1 + taint index
+    prefer_count: torch.Tensor  # [P, N] int16 (intolerable PreferNoSchedule taints)
+
+
+def build_taints(table: NodeTable, pods: list[dict],
+                 host_out: dict | None = None, device="cpu") -> TaintXS:
+    n, p = table.n, len(pods)
+    code = np.zeros((p, n), dtype=np.int16)
+    prefer = np.zeros((p, n), dtype=np.int16)
+    rows: dict[str, tuple[np.ndarray, np.ndarray]] = {}  # unique tolerations -> rows
+    for i, pod in enumerate(pods):
+        tols = (pod.get("spec") or {}).get("tolerations") or []
+        cache_key = spec_key(tols)
+        cached = rows.get(cache_key)
+        if cached is None:
+            tols_prefer = [t for t in tols if (t.get("effect") or "") in ("", PREFER_NO_SCHEDULE)]
+            crow = np.zeros(n, dtype=np.int16)
+            prow = np.zeros(n, dtype=np.int16)
+            for j in range(n):
+                for ti, (key, value, eff) in enumerate(table.taints[j]):
+                    if eff in (NO_SCHEDULE, NO_EXECUTE):
+                        if crow[j] == 0 and not tolerations_tolerate(tols, key, value, eff):
+                            crow[j] = 1 + ti
+                    elif eff == PREFER_NO_SCHEDULE:
+                        if not tolerations_tolerate(tols_prefer, key, value, eff):
+                            prow[j] += 1
+            cached = (crow, prow)
+            rows[cache_key] = cached
+        code[i], prefer[i] = cached
+    if host_out is not None:
+        # the raw score IS this precompiled row (taint_score is a pure
+        # pass-through): the compact replay keeps it host-resident
+        # (framework/replay.py "host" score group) instead of fetching it
+        host_out.setdefault("static_score_rows", {})[NAME_TAINT] = prefer
+    return TaintXS(filter_code=to_tensor(code, device),
+                   prefer_count=to_tensor(prefer, device))
+
+
+def taint_filter(pod_xs: TaintXS) -> torch.Tensor:
+    return pod_xs.filter_code.to(torch.int32)
+
+
+def taint_score(pod_xs: TaintXS) -> torch.Tensor:
+    return pod_xs.prefer_count.to(torch.int64)
+
+
+def taint_normalize(raw, feasible):
+    return default_normalize_score(raw, feasible, reverse=True)
+
+
+def decode_taint_filter(code: int, node_idx: int, host_aux) -> str:
+    table: NodeTable = host_aux["node_table"]
+    key, value, _ = table.taints[node_idx][code - 1]
+    return "node(s) had untolerated taint {%s: %s}" % (key, value)

@@ -1,0 +1,402 @@
+"""PodTopologySpread tensor functions.
+
+Port of kube_scheduler_simulator_tpu/plugins/topologyspread.py: build code
+(:98-296), `assemble_counts` :301, `_per_constraint` :318, `filter_kernel`
+:338, `score_kernel` :352, `normalize` :365, `bind_update` :379 and
+`decode_filter` :389.  On the card the same math runs inside
+csrc/spread.cuh.
+
+Upstream v1.32 pkg/scheduler/framework/plugins/podtopologyspread.  The
+dynamic quantity is the number of already-placed pods matching each
+constraint's label selector per topology domain; it lives in the scan carry
+as a dense counts[C, D] matrix where C indexes *unique count groups*
+(namespace, topologyKey, selector) deduplicated across the whole workload
+and D indexes topology domains (distinct label values of the key).
+
+Static precompiles:
+  dom_idx[C, N]    domain index of each node for each group key (-1: node
+                   lacks the topology label)
+  pm[P, C]         does pod p's labels+namespace match group c's selector
+  per-pod constraint slots (padded to MAX_CONSTRAINTS): group id, maxSkew,
+                   whenUnsatisfiable, eligibility (node affinity match for
+                   minMatchNum domain filtering), log-normalizing weight.
+
+Filter (DoNotSchedule): skew = count(node domain) + selfMatch - min over
+domains present among nodes matching the pod's nodeSelector/affinity;
+fails with "node(s) didn't match pod topology spread constraints" (or the
+"(missing required label)" variant).  Constraints are checked in pod order
+and the first violation wins, as upstream does.
+
+Score (ScheduleAnyway): sum over constraints of count * log(#domains + 2)
+(topologyNormalizingWeight), Go math.Round'ed; nodes missing any scored
+topology key are ignored (score 0 after normalize).  NormalizeScore:
+score = 100 * (max + min - s) / max over scored feasible nodes, 100 for
+all when max == 0.
+
+Modeled knobs: matchLabelKeys (merged into the selector per incoming pod,
+effective_constraints), minDomains (global minimum forced to 0 when fewer
+eligible domains exist), nodeAffinityPolicy (default Honor) and
+nodeTaintsPolicy (default Ignore) for the min-match domain eligibility.
+Remaining simplifications (documented in docs/SEMANTICS.md):
+system-default constraints derived from service/replicaset owners are not
+modeled; the inclusion policies filter the min-match DOMAIN set but not
+the per-domain pod counting (upstream also excludes filtered-out nodes'
+pods from TpPairToMatchNum — differs only on clusters where some nodes of
+a domain are excluded while others aren't); #domains for the normalizing
+weight is computed over all nodes with the key rather than the
+affinity-filtered subset.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .base import MAX_NODE_SCORE, to_tensor
+from ..state.nodes import NodeTable
+from ..state.selectors import (
+    label_selector_matches,
+    match_labels_rows,
+    node_selector_rows,
+    spec_key,
+)
+
+NAME = "PodTopologySpread"
+ERR_SKEW = "node(s) didn't match pod topology spread constraints"
+ERR_MISSING_LABEL = "node(s) didn't match pod topology spread constraints (missing required label)"
+
+MAX_CONSTRAINTS = 4
+_BIG = np.int64(1) << 40
+
+
+class SpreadStatic(NamedTuple):
+    dom_idx: torch.Tensor   # [C, N] int32
+    n_groups: int
+
+
+class SpreadXS(NamedTuple):
+    pm: torch.Tensor          # [P, C] bool — pod matches group selector
+    c_id: torch.Tensor        # [P, MC] int32 (-1 pad)
+    max_skew: torch.Tensor    # [P, MC] int32
+    is_filter: torch.Tensor   # [P, MC] bool (DoNotSchedule)
+    is_score: torch.Tensor    # [P, MC] bool (ScheduleAnyway)
+    weight: torch.Tensor      # [P, MC] float64 (topologyNormalizingWeight)
+    eligible: torch.Tensor    # [P, N] bool (node matches pod's selector/
+    #   affinity; [P, MC, N] when any constraint sets a non-default
+    #   nodeAffinityPolicy/nodeTaintsPolicy — per-slot inclusion)
+    md_unsat: torch.Tensor    # [P, MC] bool — minDomains unsatisfied: fewer
+    #   eligible domains than spec.minDomains -> global minimum becomes 0
+    filter_skip: torch.Tensor  # [P] bool
+    score_skip: torch.Tensor   # [P] bool
+
+
+def _pod_constraints(pod: dict) -> list[dict]:
+    return (pod.get("spec") or {}).get("topologySpreadConstraints") or []
+
+
+def effective_constraints(pod: dict) -> list[dict]:
+    """The pod's first MAX_CONSTRAINTS topologySpreadConstraints with
+    matchLabelKeys merged into the labelSelector as In-expressions
+    (upstream enableMatchLabelKeysInPodTopologySpread, on by default since
+    1.27: keys the incoming pod doesn't carry are skipped).  Used by BOTH
+    the tensor build and the sequential oracle so group interning, counts
+    and self-match all see the same selector."""
+    meta = pod.get("metadata") or {}
+    pod_labels = {k: str(v) for k, v in (meta.get("labels") or {}).items()}
+    out = []
+    for c in _pod_constraints(pod)[:MAX_CONSTRAINTS]:
+        keys = c.get("matchLabelKeys") or []
+        extra = [
+            {"key": k, "operator": "In", "values": [pod_labels[k]]}
+            for k in keys if k in pod_labels
+        ]
+        if extra:
+            sel = dict(c.get("labelSelector") or {})
+            sel["matchExpressions"] = list(sel.get("matchExpressions") or []) + extra
+            c = dict(c, labelSelector=sel)
+        out.append(c)
+    return out
+
+
+def _intern_groups(pods: list[dict]):
+    """(group_list, per_pod_slots): unique (namespace, topologyKey,
+    selector) count groups over the workload's effective constraints in
+    first-seen order, plus each pod's [(group_id, constraint)] slots.
+    The single interning implementation behind both build() and the
+    engine's bound-pod priming."""
+    groups: dict[tuple, int] = {}
+    group_list: list[tuple[str, str, dict | None]] = []
+    per_pod: list[list[tuple[int, dict]]] = []
+    for pod in pods:
+        ns = (pod.get("metadata") or {}).get("namespace") or "default"
+        slots = []
+        for c in effective_constraints(pod):
+            sel = c.get("labelSelector")
+            gk = (ns, c.get("topologyKey", ""), json.dumps(sel, sort_keys=True))
+            if gk not in groups:
+                groups[gk] = len(group_list)
+                group_list.append((ns, c.get("topologyKey", ""), sel))
+            slots.append((groups[gk], c))
+        per_pod.append(slots)
+    return group_list, per_pod
+
+
+def constraint_groups(pods: list[dict]) -> list[tuple[str, str, dict | None]]:
+    """The group-id space shared by build(), the engine's bound-pod
+    priming (state/compile.py), and the carry layout."""
+    return _intern_groups(pods)[0]
+
+
+def _node_affinity_eligible(pod: dict, table: NodeTable) -> np.ndarray:
+    """nodeAffinityPolicy: Honor — domains for minMatchNum only count nodes
+    matching the pod's nodeSelector + required node affinity."""
+    spec = pod.get("spec") or {}
+    sel = spec.get("nodeSelector") or {}
+    req = (((spec.get("affinity") or {}).get("nodeAffinity")) or {}).get(
+        "requiredDuringSchedulingIgnoredDuringExecution"
+    )
+    out = np.ones(table.n, dtype=bool)
+    if sel:
+        out &= match_labels_rows(sel, table.label_index)
+    if req:
+        out &= node_selector_rows(req, table.label_index)
+    return out
+
+
+def _taints_tolerated_row(pod: dict, table: NodeTable) -> np.ndarray:
+    """nodeTaintsPolicy Honor: a node is excluded when it carries a
+    NoSchedule/NoExecute taint the incoming pod doesn't tolerate
+    (upstream helper.DoNotScheduleTaintsFilterFunc)."""
+    from ..state.selectors import has_untolerated_do_not_schedule_taint
+
+    tols = (pod.get("spec") or {}).get("tolerations") or []
+    return np.asarray([
+        not has_untolerated_do_not_schedule_taint(table.taints[j], tols)
+        for j in range(table.n)
+    ], dtype=bool)
+
+
+def build(table: NodeTable, pods: list[dict], device="cpu"):
+    labels = table.labels
+    n, p = table.n, len(pods)
+
+    # unique count groups + per-pod slots over the effective constraints
+    # (single interning implementation — the engine's bound-pod priming
+    # reads the same group-id space via constraint_groups)
+    group_list, per_pod = _intern_groups(pods)
+    n_groups = max(len(group_list), 1)
+
+    # --- domain indexing per group key -----------------------------------
+    # the domain row depends only on (node labels, topologyKey) — cache it
+    # on the NodeTable so the engine's per-wave rebuild (reuse=NodeTable)
+    # skips the n-iteration Python loop for keys it has already indexed
+    dom_cache = getattr(table, "_tsp_dom_cache", None)
+    if dom_cache is None:
+        dom_cache = {}
+        table._tsp_dom_cache = dom_cache
+    dom_idx = np.full((n_groups, n), -1, dtype=np.int32)
+    n_domains = np.zeros(n_groups, dtype=np.int64)
+    for c_id, (_, key, _) in enumerate(group_list):
+        hit = dom_cache.get(key)
+        if hit is None:
+            vals: dict[str, int] = {}
+            row = np.full(n, -1, dtype=np.int32)
+            for j in range(n):
+                v = labels[j].get(key)
+                if v is not None:
+                    row[j] = vals.setdefault(v, len(vals))
+            hit = (row, len(vals))
+            dom_cache[key] = hit
+        dom_idx[c_id] = hit[0]
+        n_domains[c_id] = hit[1]
+    d_max = max(int(dom_idx.max()) + 1, 1)
+
+    # --- pod x group selector matches ------------------------------------
+    pm = np.zeros((p, n_groups), dtype=bool)
+    for i, pod in enumerate(pods):
+        pod_ns = (pod.get("metadata") or {}).get("namespace") or "default"
+        pod_labels = {k: str(v) for k, v in ((pod.get("metadata") or {}).get("labels") or {}).items()}
+        for c_id, (ns, _, sel) in enumerate(group_list):
+            pm[i, c_id] = ns == pod_ns and label_selector_matches(sel, pod_labels)
+
+    # --- per-pod constraint slots ----------------------------------------
+    c_id_arr = np.full((p, MAX_CONSTRAINTS), -1, dtype=np.int32)
+    max_skew = np.ones((p, MAX_CONSTRAINTS), dtype=np.int32)
+    is_filter = np.zeros((p, MAX_CONSTRAINTS), dtype=bool)
+    is_score = np.zeros((p, MAX_CONSTRAINTS), dtype=bool)
+    weight = np.zeros((p, MAX_CONSTRAINTS), dtype=np.float64)
+    md_unsat = np.zeros((p, MAX_CONSTRAINTS), dtype=bool)
+    filter_skip = np.ones(p, dtype=bool)
+    score_skip = np.ones(p, dtype=bool)
+    # non-default nodeAffinityPolicy/nodeTaintsPolicy make inclusion
+    # per-constraint -> the eligible tensor grows a slot axis
+    per_slot_eligibility = any(
+        (c.get("nodeAffinityPolicy") or "Honor") != "Honor"
+        or (c.get("nodeTaintsPolicy") or "Ignore") != "Ignore"
+        for slots in per_pod for _, c in slots
+    )
+    eligible = (np.ones((p, MAX_CONSTRAINTS, n), dtype=bool)
+                if per_slot_eligibility else np.ones((p, n), dtype=bool))
+    eligible_rows: dict[str, np.ndarray] = {}  # unique inclusion spec -> [N]
+
+    def slot_eligible_row(pod: dict, c: dict) -> np.ndarray:
+        aff_policy = c.get("nodeAffinityPolicy") or "Honor"
+        taint_policy = c.get("nodeTaintsPolicy") or "Ignore"
+        pspec = pod.get("spec") or {}
+        ek = spec_key(
+            aff_policy, taint_policy,
+            (pspec.get("nodeSelector") or {}) if aff_policy == "Honor" else None,
+            (((pspec.get("affinity") or {}).get("nodeAffinity")) or {}).get(
+                "requiredDuringSchedulingIgnoredDuringExecution")
+            if aff_policy == "Honor" else None,
+            (pspec.get("tolerations") or []) if taint_policy == "Honor" else None,
+        )
+        row = eligible_rows.get(ek)
+        if row is None:
+            row = (_node_affinity_eligible(pod, table)
+                   if aff_policy == "Honor" else np.ones(n, dtype=bool))
+            if taint_policy == "Honor":
+                row = row & _taints_tolerated_row(pod, table)
+            eligible_rows[ek] = row
+        return row
+
+    for i, slots in enumerate(per_pod):
+        for m, (cid, c) in enumerate(slots):
+            c_id_arr[i, m] = cid
+            max_skew[i, m] = int(c.get("maxSkew", 1))
+            hard = c.get("whenUnsatisfiable", "DoNotSchedule") == "DoNotSchedule"
+            is_filter[i, m] = hard
+            is_score[i, m] = not hard
+            weight[i, m] = math.log(float(n_domains[cid]) + 2.0)
+            if hard:
+                row = slot_eligible_row(pods[i], c)
+                if per_slot_eligibility:
+                    eligible[i, m] = row
+                else:
+                    eligible[i] = row
+                md = c.get("minDomains")
+                if md is not None:
+                    doms = np.unique(dom_idx[cid][(dom_idx[cid] >= 0) & row])
+                    # zero eligible domains: upstream's minMatchNum lookup
+                    # errors and the constraint is SKIPPED, not zeroed
+                    md_unsat[i, m] = 0 < len(doms) < int(md)
+        filter_skip[i] = not is_filter[i].any()
+        score_skip[i] = not is_score[i].any()
+
+    static = SpreadStatic(dom_idx=to_tensor(dom_idx, device), n_groups=n_groups)
+    xs = SpreadXS(
+        pm=to_tensor(pm, device),
+        c_id=to_tensor(c_id_arr, device),
+        max_skew=to_tensor(max_skew, device),
+        is_filter=to_tensor(is_filter, device),
+        is_score=to_tensor(is_score, device),
+        weight=to_tensor(weight, device),
+        eligible=to_tensor(eligible, device),
+        md_unsat=to_tensor(md_unsat, device),
+        filter_skip=to_tensor(filter_skip, device),
+        score_skip=to_tensor(score_skip, device),
+    )
+    counts_dom = np.zeros((n_groups, d_max), dtype=np.int64)
+    return static, xs, counts_dom
+
+
+def assemble_counts(static: SpreadStatic, counts_dom: np.ndarray) -> torch.Tensor:
+    """[C, D] domain-space counts (build + host priming) -> node-space
+    [C, N] int32 carry (value at each node's domain, 0 where the node
+    lacks the key), on the statics' device.  Node-space keeps the step
+    free of per-step gathers and scatters: a bind is one elementwise
+    compare-and-add."""
+    dom = static.dom_idx.cpu().numpy()
+    vals = np.take_along_axis(counts_dom, np.maximum(dom, 0), axis=1)
+    return to_tensor(np.where(dom >= 0, vals, 0).astype(np.int32),
+                     static.dom_idx.device)
+
+
+def _slot_eligible(pod, m):
+    """[N] inclusion mask for slot m ([P, MC, N] layout when any
+    constraint sets a non-default inclusion policy, else shared [P, N])."""
+    return pod.eligible[m] if pod.eligible.dim() == 2 else pod.eligible
+
+
+def _per_constraint(static: SpreadStatic, pod, counts, m):
+    """Per-constraint-slot quantities: (active, has_key[N], cnt[N], min_match).
+
+    counts is node-space [C, N]; min-over-present-domains equals the min
+    over eligible keyed NODES of the node-space counts.  minDomains
+    (spec'd and unsatisfied -> md_unsat at build time) forces the global
+    minimum to 0, upstream getMinMatchNum semantics."""
+    cid = pod.c_id[m]
+    active = cid >= 0
+    c = torch.clamp(cid, min=0).to(torch.int64)
+    dom = static.dom_idx[c]                      # [N]
+    has_key = dom >= 0
+    cnt = counts[c]                              # [N] (0 where key missing)
+    min_match = torch.min(
+        torch.where(has_key & _slot_eligible(pod, m), cnt.to(torch.int64),
+                    int(_BIG)))
+    min_match = torch.where(pod.md_unsat[m], 0, min_match)
+    return active, has_key, cnt, min_match
+
+
+def filter_kernel(static: SpreadStatic, pod, counts) -> torch.Tensor:
+    """[N] int32: 0 pass; 1+2m missing-label at slot m; 2+2m skew at slot m."""
+    code = torch.zeros(static.dom_idx.shape[1], dtype=torch.int32,
+                       device=counts.device)
+    for m in range(MAX_CONSTRAINTS):
+        active, has_key, cnt, min_match = _per_constraint(static, pod, counts, m)
+        check = active & pod.is_filter[m]
+        self_match = pod.pm[torch.clamp(pod.c_id[m], min=0).to(torch.int64)].to(torch.int64)
+        skew = cnt + self_match - min_match
+        viol = torch.where(
+            has_key, torch.where(skew > pod.max_skew[m], 2 + 2 * m, 0), 1 + 2 * m)
+        viol = torch.where(check, viol, 0).to(torch.int32)
+        code = torch.where((code == 0) & (viol > 0), viol, code)
+    return code
+
+
+def score_kernel(static: SpreadStatic, pod, counts):
+    """-> (raw [N] int64, ignored [N] bool).  The float64 sum runs in slot
+    order m = 0..MAX_CONSTRAINTS-1, then rounds half up."""
+    n = static.dom_idx.shape[1]
+    total = torch.zeros(n, dtype=torch.float64, device=counts.device)
+    ignored = torch.zeros(n, dtype=torch.bool, device=counts.device)
+    for m in range(MAX_CONSTRAINTS):
+        active, has_key, cnt, _ = _per_constraint(static, pod, counts, m)
+        scored = active & pod.is_score[m]
+        total = total + torch.where(
+            scored & has_key, cnt.to(torch.float64) * pod.weight[m], 0.0)
+        ignored = ignored | (scored & ~has_key)
+    raw = torch.floor(total + 0.5).to(torch.int64)  # Go math.Round for non-negative
+    return torch.where(ignored, 0, raw), ignored
+
+
+def normalize(raw, ignored, feasible):
+    scored = feasible & ~ignored
+    mn = torch.min(torch.where(scored, raw, int(_BIG)))
+    mx = torch.max(torch.where(scored, raw, 0))
+    mn = torch.where(torch.any(scored), mn, 0)
+    out = torch.where(
+        mx == 0,
+        MAX_NODE_SCORE,
+        MAX_NODE_SCORE * (mx + mn - raw) // torch.clamp(mx, min=1),
+    )
+    return torch.where(ignored, 0, out)
+
+
+def bind_update(static: SpreadStatic, pod, counts, sel):
+    """Node-space bind: every node sharing the selected node's domain (per
+    group) takes the pm[c] increment — elementwise, no scatter."""
+    bound = sel >= 0
+    s = torch.clamp(sel, min=0).to(torch.int64)
+    dom_col = static.dom_idx[:, s]                  # [C]
+    valid = bound & (dom_col >= 0) & pod.pm         # [C]
+    same = (static.dom_idx == dom_col[:, None]) & valid[:, None]  # [C, N]
+    return counts + same.to(counts.dtype)
+
+
+def decode_filter(code: int, node_idx: int, host_aux) -> str:
+    return ERR_MISSING_LABEL if code % 2 == 1 else ERR_SKEW

@@ -1,0 +1,120 @@
+"""Resource schema + pod resource-request computation.
+
+Port of kube_scheduler_simulator_tpu/state/resources.py (the columnar
+`discover_columnar` waits for the engine slice).
+
+Reproduces the semantics of upstream `computePodResourceRequest`
+(k8s.io/kubernetes pkg/scheduler/framework/plugins/noderesources/fit.go,
+pinned v1.32.5 by the reference at simulator/go.mod:59):
+
+    request = max(sum(app containers), max(init containers)) + pod overhead
+
+and the *non-zero* request variant used only by the scoring path
+(pkg/scheduler/util GetNonzeroRequestForResource): a container with no cpu
+request counts as 100 millicores, no memory request as 200 MiB.  The node
+side accumulates both (`NodeInfo.Requested` vs `NodeInfo.NonZeroRequested`);
+we carry both accumulators in the device state.
+
+Resource columns are a fixed, deterministic order: cpu (millicores), memory
+(bytes), ephemeral-storage (bytes), then any extended resources discovered
+in the workload, sorted by name.  (Upstream iterates ScalarResources in Go
+map order, which is nondeterministic; we use sorted order and document the
+divergence — it only affects the ordering of "Insufficient <res>" messages
+when several extended resources are short at once.)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..utils.quantity import parse_cpu_milli, parse_memory_bytes
+
+# upstream pkg/scheduler/util/non_zero.go
+DEFAULT_MILLI_CPU_REQUEST = 100
+DEFAULT_MEMORY_REQUEST = 200 * 1024 * 1024
+
+CPU, MEMORY, EPHEMERAL = 0, 1, 2
+_BASE_COLUMNS = ("cpu", "memory", "ephemeral-storage")
+
+
+@dataclass
+class ResourceSchema:
+    """Maps resource names to dense column indices."""
+
+    extended: tuple[str, ...] = ()
+    columns: tuple[str, ...] = field(init=False)
+
+    def __post_init__(self):
+        self.columns = _BASE_COLUMNS + tuple(self.extended)
+
+    @property
+    def n(self) -> int:
+        return len(self.columns)
+
+    def index(self, name: str) -> int:
+        return self.columns.index(name)
+
+    @staticmethod
+    def discover(pods: list[dict], nodes: list[dict]) -> "ResourceSchema":
+        """Collect extended resource names used anywhere in the workload."""
+        ext: set[str] = set()
+
+        def scan_res(res: dict):
+            for name in res or {}:
+                if name not in _BASE_COLUMNS and name != "pods":
+                    ext.add(name)
+
+        for node in nodes:
+            scan_res(((node.get("status") or {}).get("allocatable")) or {})
+        for pod in pods:
+            spec = pod.get("spec") or {}
+            for c in (spec.get("containers") or []) + (spec.get("initContainers") or []):
+                scan_res(((c.get("resources") or {}).get("requests")) or {})
+            scan_res(spec.get("overhead") or {})
+        return ResourceSchema(tuple(sorted(ext)))
+
+    def parse_map(self, res: dict) -> np.ndarray:
+        """Parse a k8s resource map into a dense int64 row (base units)."""
+        row = np.zeros(self.n, dtype=np.int64)
+        for name, value in (res or {}).items():
+            if name == "cpu":
+                row[CPU] = parse_cpu_milli(value)
+            elif name == "pods":
+                continue  # handled via allowed-pod-number, not a column
+            elif name in ("memory", "ephemeral-storage"):
+                row[self.index(name)] = parse_memory_bytes(value)
+            elif name in self.columns:
+                row[self.index(name)] = parse_memory_bytes(value)
+        return row
+
+
+def pod_resource_request(pod: dict, schema: ResourceSchema) -> tuple[np.ndarray, np.ndarray]:
+    """(actual_request, nonzero_request) rows for one pod.
+
+    actual_request feeds the Filter path; nonzero_request (cpu/memory only,
+    with the upstream 100m / 200Mi defaults) feeds the scoring path.
+    """
+    spec = pod.get("spec") or {}
+    total = np.zeros(schema.n, dtype=np.int64)
+    nonzero = np.zeros(2, dtype=np.int64)
+    for c in spec.get("containers") or []:
+        req = ((c.get("resources") or {}).get("requests")) or {}
+        row = schema.parse_map(req)
+        total += row
+        nonzero[CPU] += row[CPU] if row[CPU] != 0 else DEFAULT_MILLI_CPU_REQUEST
+        nonzero[MEMORY] += row[MEMORY] if row[MEMORY] != 0 else DEFAULT_MEMORY_REQUEST
+    for c in spec.get("initContainers") or []:
+        req = ((c.get("resources") or {}).get("requests")) or {}
+        row = schema.parse_map(req)
+        total = np.maximum(total, row)
+        nz_cpu = row[CPU] if row[CPU] != 0 else DEFAULT_MILLI_CPU_REQUEST
+        nz_mem = row[MEMORY] if row[MEMORY] != 0 else DEFAULT_MEMORY_REQUEST
+        nonzero[CPU] = max(nonzero[CPU], nz_cpu)
+        nonzero[MEMORY] = max(nonzero[MEMORY], nz_mem)
+    if spec.get("overhead"):
+        oh = schema.parse_map(spec["overhead"])
+        total += oh
+        nonzero += oh[:2]
+    return total, nonzero

@@ -43,3 +43,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running / tooling-heavy tests (excluded from tier-1, "
         "which runs -m 'not slow'); e.g. the codec-suite-under-ASan run")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips "
+        "without one")
