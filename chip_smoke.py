@@ -4,14 +4,31 @@ on one NVIDIA card.
 
     python3 chip_smoke.py
 
-It drives the port's main path — BASELINE config 5 (10,000 pods x 5,000
-nodes, six plugins) from manifests through compile_workload, the chunked
-replay on the card and the annotation decode — builds the step kernel
-from csrc/, holds the kernel exactly equal to its plain PyTorch version,
-times both with CUDA events, and prints one line per phase.  The line
-before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero; without a card
-it exits 1 before printing a result.  It imports nothing of JAX.
+It builds every kernel of the port from csrc/ (one nvcc per source, all
+at once) and drives the port's paths on the card, printing one line per
+phase:
+
+  1-5  the chunked replay: BASELINE config 5 (10,000 pods x 5,000 nodes,
+       six plugins) from manifests through compile_workload, the step
+       kernel held exactly equal to its plain PyTorch version, the replay
+       and the annotation decode, and the kernel's times;
+  6    the speculative wave's kernels (spec_round, spec_oracle, spec_eval,
+       spec_commit_core, spec_commit_bind, grid_append, grid_emit) held
+       exactly equal to their plain versions at full width;
+  7    low contention, the wave's main path: the slot-pinned fleet
+       (10,000 pods x 5,000 nodes) through replay_speculative_stream,
+       equal to the scan of the same workload;
+  8    contended: config 5 through the stream (it falls back to the
+       scan), and replay_speculative with no fallback on 1,024 pods x
+       5,000 nodes, each equal to its scan;
+  9    the wave's kernels' times, their plain versions' and the library
+       calls', and their bounds.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after.  The line before the last is the kernel table as JSON; the
+last line is {"ok": true, "device": {...}}.  Any failure exits non-zero;
+without a card it exits 1 before printing a result.  It imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +45,15 @@ CONFIG, SEED, CHUNK = 5, 0, 512
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 FP64_FLOPS = 34e12             # H100 SXM float64 outside the tensor cores (data sheet)
 DECODE_CHECK_PODS = (0, 1, 511, 512, 1023)
+# the speculative wave: the JAX package's `make bench-spec` low-contention
+# scenario (bench.py:907-1030), and config 5 for the contended one
+SLOT_PODS, SLOT_NODES = 10_000, 5_000
+SLOT_PLUGINS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity")
+SPEC_BATCH = 512               # the ladder's top rung at chunk 512
+KCAND = 128                    # KSS_TPU_SPECULATIVE_CANDIDATES' default
+ACCEPT = 37                    # the accept prefix of the general commit's check
+FILL = 37                      # an unaligned fill mark for grid_append's check
+DIRECT_SCALE = 0.1024          # 1,024 pods x 5,000 nodes for replay_speculative
 
 
 class SmokeFailure(Exception):
@@ -48,6 +74,435 @@ def _nbytes(tree) -> int:
         total += sum(t.numel() * t.element_size() for t in leaves
                      if isinstance(t, torch.Tensor))
     return total
+
+
+def bound(nbytes: int, f64_ops: int = 0) -> tuple[float, str]:
+    """The least time for the work: the bytes over the card's memory rate
+    or the float64 operations over its float64 rate, the larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = f64_ops / FP64_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def timed(fn, reps: int) -> float:
+    """ms per call of fn: `reps` calls back to back between two CUDA events,
+    after one untimed call.  The host's preparation of a launch overlaps
+    the kernel before it, so for a kernel longer than that preparation
+    this is device time; for a shorter one it is the wrapper's host cost."""
+    import torch
+
+    fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def timed_graph(fn, reps: int) -> float:
+    """Device ms per call of fn: `reps` calls captured once in a CUDA graph,
+    the graph replayed once untimed and once between two CUDA events, so
+    no host work is inside the window."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def timed_once(fn) -> float:
+    """ms of one call of fn between two CUDA events (the plain versions)."""
+    import torch
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def _leaves(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaves(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _leaves(v)]
+    return []  # a Python scalar of a NamedTuple
+
+
+def tree_err(got, want) -> int:
+    """max |got - want| over the tensors of two equal trees; a dtype or
+    shape mismatch fails the run."""
+    err = 0
+    for a, b in zip(_leaves(got), _leaves(want), strict=True):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
+    """Phases 6-9: the speculative wave's kernels against their plain
+    versions, its two paths (low contention, contended) and the kernels'
+    times.  -> the kernels' entries of the JSON line."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.models import (
+        baseline_config, make_slot_pinned_workload)
+    from kube_scheduler_simulator_tpu_torch.parallel import (
+        replay_speculative, replay_speculative_stream)
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result
+
+    kernels = (*kspec.KERNELS, kstep.step_chunk)
+
+    def batch_xs(w, lo: int, b: int) -> dict:
+        hi = min(lo + b, w.n_pods)
+        xs = _slice_xs(w.xs, lo, hi, b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
+        return xs
+
+    def counts() -> dict:
+        return {f.__name__: f.launches for f in kernels}
+
+    def reset() -> None:
+        for f in kernels:
+            f.launches = 0
+
+    errs: dict[str, int] = {}
+
+    def held(name: str, got, want) -> None:
+        err = tree_err(got, want)
+        errs[name] = max(errs.get(name, 0), err)
+        check(err == 0, f"{name} differs from its plain version (max |d| {err})")
+
+    def same_replay(a, b, what: str, sample) -> None:
+        """Equal results: selections, feasible counts, decode bytes of the
+        sampled pods, and every compact chunk's bytes over the queue's
+        pods (the last chunk's pad rows are don't-cares), the raw scores
+        at feasible nodes.  A raw at an infeasible node is a don't-care
+        of the compact layout, which never reads it, and the wave's differ
+        from the scan's there: a sparse round leaves 0 off its
+        candidates, and a round evaluates its pods against the carry of
+        the round's start, whose later binds land only on nodes the
+        accepted pods cannot use (speculative.py's exactness argument)."""
+        check((a.selected == b.selected).all(), f"{what}: selected")
+        check((a.feasible_count == b.feasible_count).all(), f"{what}: feasible_count")
+        for grp in ("packed", "raw8", "raw16", "raw32"):
+            ga, gb = getattr(a._compact, grp), getattr(b._compact, grp)
+            check(len(ga) == len(gb), f"{what}: {grp} chunk count")
+            for ci, (x, y) in enumerate(zip(ga, gb)):
+                real = min(CHUNK, a.cw.n_pods - ci * CHUNK)
+                x, y = x[:real], y[:real]
+                if grp != "packed":
+                    feas = (a._compact.packed[ci][:real] == 0)[:, None, :]
+                    x, y = np.where(feas, x, 0), np.where(feas, y, 0)
+                check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+                      f"{what}: compact {grp} chunk {ci} bytes")
+        for i in sample:
+            check(decode_pod_result(a, i) == decode_pod_result(b, i),
+                  f"{what}: pod {i} annotations")
+
+    # ---- 6. the wave's kernels == their plain versions, at full width
+    t6 = time.perf_counter()
+    snodes, spods = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)
+    t0 = time.perf_counter()
+    scw = compile_workload(snodes, spods, PluginSetConfig(enabled=list(SLOT_PLUGINS)),
+                           device=dev)
+    torch.cuda.synchronize()
+    slot_compile_s = time.perf_counter() - t0
+    sp, sn = scw.n_pods, scw.n_nodes
+    spm, ssd, _ = _compact_plan(scw, None)
+    sstep = build_step(scw, out_mode="compact", pack_mode=spm, score_dtypes=ssd)
+    sxs0, sxs1 = batch_xs(scw, 0, SPEC_BATCH), batch_xs(scw, SPEC_BATCH, SPEC_BATCH)
+    scarry = _clone_carry(scw.init_carry)
+    r0 = kspec.spec_round(sstep, scarry, sxs0, KCAND)
+    held("spec_round", r0, kspec.sparse_round_plain(sstep, scarry, sxs0, KCAND))
+    k0 = kspec.spec_oracle(r0[0], r0[1], r0[7])
+    held("spec_oracle", k0, kspec._oracle_core(r0[0], r0[1], r0[7], SPEC_BATCH))
+    check(int(k0) == SPEC_BATCH, f"slot-pinned round 0 accepted {int(k0)} of {SPEC_BATCH}")
+    committed = kspec.commit_plain(sstep, _clone_carry(scarry), sxs0, r0[7], SPEC_BATCH)
+    kspec.spec_commit_core(sstep, scarry, sxs0, r0[7], SPEC_BATCH)
+    held("spec_commit_core", scarry, committed)
+    r1 = kspec.spec_round(sstep, scarry, sxs1, KCAND)
+    held("spec_round", r1, kspec.sparse_round_plain(sstep, scarry, sxs1, KCAND))
+    k1 = kspec.spec_oracle(r1[0], r1[1], r1[7])
+    held("spec_oracle", k1, kspec._oracle_core(r1[0], r1[1], r1[7], SPEC_BATCH))
+
+    cpm, csd, _ = _compact_plan(cw, None)
+    cstep = build_step(cw, out_mode="compact", pack_mode=cpm, score_dtypes=csd)
+    cxs = batch_xs(cw, 0, SPEC_BATCH)
+    ccarry = _clone_carry(cw.init_carry)
+    ev = kspec.spec_eval(cstep, ccarry, cxs)
+    held("spec_eval", ev, kspec.eval_plain(cstep, ccarry, cxs))
+    kd = kspec.spec_oracle(ev.packed_filter, ev.prefilter_reject, ev.selected)
+    held("spec_oracle", kd, kspec._oracle_core(ev.packed_filter, ev.prefilter_reject,
+                                               ev.selected, SPEC_BATCH))
+    committed = kspec.commit_plain(cstep, _clone_carry(ccarry), cxs, ev.selected, ACCEPT)
+    cbound = kspec.spec_commit_bind(cstep, _clone_carry(ccarry), cxs, ev.selected, ACCEPT)
+    held("spec_commit_bind", cbound, committed)
+    del committed, cbound
+
+    # the chunk grid at the slot-pinned stream's shapes, random contents
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows0 = {"packed": r0[0], "raw8": r0[3], "raw16": r0[4], "raw32": r0[5], "fc": r0[2]}
+    bufs = {k: torch.randint(0, 100, (CHUNK + SPEC_BATCH,) + tuple(v.shape[1:]), device=dev,
+                             generator=gen, dtype=torch.int32).to(v.dtype)
+            for k, v in rows0.items()}
+    appended = kspec.grid_append({k: v.clone() for k, v in bufs.items()}, rows0, FILL)
+    want = kspec.append_plain({k: v.clone() for k, v in bufs.items()}, rows0, FILL)
+    held("grid_append", appended, want)
+    held("grid_emit", kspec.grid_emit(appended, CHUNK), kspec.emit_plain(want, CHUNK))
+    torch.cuda.synchronize()
+    print(f"[6 spec kernels==plain] slot-pinned {sp}x{sn} (compile {slot_compile_s:.3f} s): "
+          f"spec_round rounds 0 and 1 at batch {SPEC_BATCH}, K={KCAND}, round 1 after "
+          f"spec_commit_core; config {CONFIG} {cw.n_pods}x{cw.n_nodes}: spec_eval and "
+          f"spec_oracle at batch {SPEC_BATCH}, spec_commit_bind with accept prefix {ACCEPT}; "
+          f"grid_append at fill {FILL} then grid_emit; max_abs_err {errs}; "
+          f"{time.perf_counter() - t6:.1f} s", flush=True)
+
+    # ---- 7. low contention, the slice's main path: the slot-pinned stream
+    t7 = time.perf_counter()
+    reset()
+    t0 = time.perf_counter()
+    srr, sstats = replay_speculative_stream(scw, chunk=CHUNK)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    low = counts()
+    check(sstats["rounds"] == 20 and sstats["accepted"] == sp and sstats["rolled_back"] == 0
+          and sstats["fallback_at"] is None, f"slot-pinned stream stats {sstats}")
+    for name in ("spec_round", "spec_oracle", "spec_commit_core", "grid_append", "grid_emit"):
+        check(low[name] > 0, f"the low-contention path launched no {name}")
+    t0 = time.perf_counter()
+    sbase = replay(scw, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    sample = sorted(set(range(0, sp, sp // 8)) | {1, CHUNK - 1, CHUNK, sp - 1})
+    same_replay(srr, sbase, "slot-pinned stream vs scan", sample)
+    check(srr.scheduled == sp, f"slot-pinned: {srr.scheduled} of {sp} scheduled")
+    # device time of each: the same launches again, no fetch, between events
+    carry = _clone_carry(scw.init_carry)
+    spans = []
+    for lo in range(0, sp, SPEC_BATCH):
+        m = min(SPEC_BATCH, sp - lo)
+        xs = batch_xs(scw, lo, SPEC_BATCH)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = kspec.spec_round(sstep, carry, xs, KCAND)
+        kspec.spec_oracle(out[0], out[1], out[7])
+        kspec.spec_commit_core(sstep, carry, xs, out[7], m)
+        if m < SPEC_BATCH:
+            grid = {k: torch.zeros((CHUNK + SPEC_BATCH,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                   device=dev) for k, v in rows0.items()}
+            grid = kspec.grid_append(grid, {"packed": out[0], "raw8": out[3], "raw16": out[4],
+                                            "raw32": out[5], "fc": out[2]}, 0)
+            kspec.grid_emit(grid, CHUNK)
+        e1.record()
+        spans.append((e0, e1))
+    carry = _clone_carry(scw.init_carry)
+    scan_spans = []
+    for lo in range(0, sp, CHUNK):
+        xs = batch_xs(scw, lo, CHUNK)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        carry, _ = sstep.scan(carry, xs)
+        e1.record()
+        scan_spans.append((e0, e1))
+    torch.cuda.synchronize()
+    stream_dev_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    scan_dev_s = sum(a.elapsed_time(b) for a, b in scan_spans) / 1e3
+    # the host fetch of one grid chunk, as the stream's ingest does it
+    t0 = time.perf_counter()
+    fetched = sum(np.ascontiguousarray(v.cpu().numpy()).nbytes for v in rows0.values())
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[7 low contention] slot-pinned {sp} pods x {sn} nodes, "
+          f"{'+'.join(SLOT_PLUGINS)}, chunk {CHUNK}: stats {json.dumps(sstats)}; "
+          f"stream {stream_s:.4f} s = {sp / stream_s:.1f} cycles/s (device {stream_dev_s:.4f} s); "
+          f"scan {scan_s:.4f} s = {sp / scan_s:.1f} cycles/s (device {scan_dev_s:.4f} s); "
+          f"host fetch of one chunk's outputs {fetch_ms:.3f} ms ({fetched} B); "
+          f"selected, feasible_count, every compact chunk's bytes (raws at feasible nodes) "
+          f"and decode bytes of pods {sample} equal to the scan; launches {low}; {time.perf_counter() - t7:.1f} s",
+          flush=True)
+
+    # ---- 8. contended: config 5 through the stream (it falls back to the
+    # scan), then the direct replay with no fallback on 1,024 pods
+    t8 = time.perf_counter()
+    reset()
+    t0 = time.perf_counter()
+    crr, cstats = replay_speculative_stream(cw, chunk=CHUNK, pods=pods)
+    torch.cuda.synchronize()
+    cstream_s = time.perf_counter() - t0
+    hot = counts()
+    check(cstats["fallback_at"] is not None, f"config {CONFIG} stream did not fall back: {cstats}")
+    for name in ("spec_eval", "spec_oracle", "spec_commit_bind", "step_chunk"):
+        check(hot[name] > 0, f"the contended stream launched no {name}")
+    same_replay(crr, rr, f"config {CONFIG} stream vs phase 4",
+                [i for i in DECODE_CHECK_PODS if i < cw.n_pods])
+    dnodes, dpods, dcfg = baseline_config(CONFIG, scale=DIRECT_SCALE, node_scale=1.0, seed=SEED)
+    dcw = compile_workload(dnodes, dpods, dcfg, device=dev)
+    reset()
+    t0 = time.perf_counter()
+    drr, dstats = replay_speculative(dcw, pods=dpods)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    direct = counts()
+    for name in ("spec_eval", "spec_oracle", "spec_commit_bind"):
+        check(direct[name] > 0, f"the direct replay launched no {name}")
+    t0 = time.perf_counter()
+    dbase = replay(dcw, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    dscan_s = time.perf_counter() - t0
+    dp = dcw.n_pods
+    same_replay(drr, dbase, f"config {CONFIG} direct vs scan",
+                sorted({0, 1, dp // 2, dp - 1}))
+    print(f"[8 contended] config {CONFIG} {cw.n_pods}x{cw.n_nodes} stream: stats "
+          f"{json.dumps(cstats)}; {cstream_s:.4f} s = {cw.n_pods / cstream_s:.1f} cycles/s; "
+          f"equal to phase 4's scan; launches {hot} | direct replay_speculative "
+          f"{dp}x{dcw.n_nodes}: stats rounds {dstats['rounds']} accepted {dstats['accepted']} "
+          f"rolled_back {dstats['rolled_back']} mean_accept {dstats['mean_accept']} "
+          f"fallback_at {dstats['fallback_at']}; {direct_s:.4f} s = {dp / direct_s:.1f} "
+          f"cycles/s against the scan's {dscan_s:.4f} s; equal to the scan; launches {direct}; "
+          f"{time.perf_counter() - t8:.1f} s", flush=True)
+
+    # ---- 9. the kernels' times, at the phase-6 inputs: device time from
+    # CUDA graphs, and the time per wrapper call back to back (which for
+    # a short kernel is the wrapper's host cost)
+    scarry = _clone_carry(scw.init_carry)
+    ccarry = _clone_carry(cw.init_carry)
+    sel0, sel_eval = r0[7], ev.selected
+    grid = {k: v.clone() for k, v in bufs.items()}
+    cxs8 = batch_xs(cw, 0, 8)
+    calls = {
+        "spec_round": (lambda: kspec.spec_round(sstep, scarry, sxs0, KCAND), 5),
+        "spec_oracle": (lambda: kspec.spec_oracle(r0[0], r0[1], sel0), 20),
+        "spec_eval": (lambda: kspec.spec_eval(cstep, ccarry, cxs), 3),
+        "spec_commit_core": (
+            lambda: kspec.spec_commit_core(sstep, scarry, sxs0, sel0, SPEC_BATCH), 20),
+        "spec_commit_bind": (
+            lambda: kspec.spec_commit_bind(cstep, ccarry, cxs, sel_eval, ACCEPT), 5),
+        "grid_append": (lambda: kspec.grid_append(grid, rows0, FILL), 20),
+        "grid_emit": (lambda: kspec.grid_emit(grid, CHUNK), 20),
+    }
+    ms = {name: timed_graph(fn, reps) for name, (fn, reps) in calls.items()}
+    call_ms = {name: timed(fn, reps) for name, (fn, reps) in calls.items()}
+    eval8 = timed_graph(lambda: kspec.spec_eval(cstep, ccarry, cxs8), 5)
+    scarry = _clone_carry(scw.init_carry)
+    ccarry = _clone_carry(cw.init_carry)
+    plain = {
+        "spec_round": timed_once(lambda: kspec.sparse_round_plain(sstep, scarry, sxs0, KCAND)),
+        "spec_oracle": timed_once(lambda: kspec._oracle_core(r0[0], r0[1], sel0, SPEC_BATCH)),
+        "spec_eval": timed_once(lambda: kspec.eval_plain(cstep, ccarry, cxs)),
+        "spec_commit_core": timed_once(
+            lambda: kspec.commit_plain(sstep, scarry, sxs0, sel0, SPEC_BATCH)),
+        "spec_commit_bind": timed_once(
+            lambda: kspec.commit_plain(cstep, ccarry, cxs, sel_eval, ACCEPT)),
+        "grid_append": timed_once(lambda: kspec.append_plain(grid, rows0, FILL)),
+        "grid_emit": timed_once(lambda: kspec.emit_plain(grid, CHUNK)),
+    }
+    # one PyTorch call (per carry tensor / per buffer) computing the same
+    # function, timed like the kernels; never used by the port
+    core, sx = scarry["core"], sxs0["core"]
+    idx = sel0.long()
+
+    def lib_commit():
+        core.requested.index_add_(0, idx, sx.requests)
+        core.nonzero.index_add_(0, idx, sx.nonzero)
+        core.num_pods.index_add_(0, idx, torch.ones_like(idx))
+
+    def lib_append():
+        for k, v in rows0.items():
+            grid[k][FILL:FILL + v.shape[0]].copy_(v)
+
+    heads = {k: torch.empty((CHUNK,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
+             for k, v in grid.items()}
+    rest = {k: torch.empty_like(v) for k, v in grid.items()}
+
+    def lib_emit():
+        for k, v in grid.items():
+            heads[k].copy_(v[:CHUNK])
+            rest[k][:SPEC_BATCH].copy_(v[CHUNK:])
+            rest[k][SPEC_BATCH:].zero_()
+
+    library = {"spec_commit_core": timed_graph(lib_commit, 20),
+               "grid_append": timed_graph(lib_append, 20), "grid_emit": timed_graph(lib_emit, 20)}
+
+    # bounds: each input read once and each output written once, at the
+    # timed inputs; float64 work where the kernel has it
+    def nb(*xs) -> int:
+        return sum(t.numel() * t.element_size() for x in xs for t in _leaves(x))
+
+    s_stat = scw.statics
+    aff_rows = (len(torch.unique(sxs0["NodeAffinity"].req_idx)) * sn
+                + len(torch.unique(sxs0["NodeAffinity"].pref_idx)) * sn * 4)
+    round_out = nb(r0)
+    bounds = {
+        # core statics and carry, the referenced affinity rows, the batch's
+        # xs, the outputs; balanced allocation's ~9 float64 ops per candidate
+        "spec_round": bound(nb(s_stat["core"], scw.init_carry, sxs0) + aff_rows + round_out,
+                            SPEC_BATCH * KCAND * 9),
+        # the [B, B] packed words at the selected nodes, reject, selected, K
+        "spec_oracle": bound(SPEC_BATCH * SPEC_BATCH * r0[0].element_size()
+                             + 8 * SPEC_BATCH + 4),
+        # as step_chunk's bound, with the carry read once and not written
+        "spec_eval": bound(nb(cw.statics, cw.init_carry, cxs, ev), SPEC_BATCH * cw.n_nodes * 22),
+        # the batch's core rows and selections; the selected carry rows read
+        # and written
+        "spec_commit_core": bound(nb(sx, sel0) + 2 * SPEC_BATCH * (scw.schema.n + 3) * 8),
+        # the carry read and written once, the batch's xs and selections
+        "spec_commit_bind": bound(2 * nb(cw.init_carry) + nb(cxs, sel_eval)),
+        "grid_append": bound(2 * nb(rows0)),
+        # the buffer read, the head and the second buffer written
+        "grid_emit": bound(nb(grid) + nb(heads) + nb(rest)),
+    }
+    print(f"[9 timing] {card}: device ms per launch (CUDA graph) {ms} (spec_eval at batch 8: "
+          f"{eval8:.4f}); ms per wrapper call back to back {call_ms}; plain {plain}; "
+          f"library (CUDA graph) {library}; bounds {bounds}", flush=True)
+
+    launches = {name: low[name] + hot[name] + direct[name] for name in ms}
+    sources = {"spec_eval": "spec_eval.cu", "spec_oracle": "spec_eval.cu",
+               "spec_round": "spec_round.cu", "spec_commit_core": "spec_commit.cu",
+               "spec_commit_bind": "spec_commit.cu", "grid_append": "grid.cu",
+               "grid_emit": "grid.cu"}
+    replaces = {"spec_eval": 318, "spec_oracle": 299, "spec_round": 381,
+                "spec_commit_core": 501, "spec_commit_bind": 501, "grid_append": 553,
+                "grid_emit": 553}
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": f"kube_scheduler_simulator_tpu_torch/csrc/{sources[name]}",
+        "replaces": f"kube_scheduler_simulator_tpu/parallel/speculative.py:{replaces[name]}",
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": ms[name],
+        "plain_ms": plain[name],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": library.get(name),
+    } for name in ms]
 
 
 def main() -> int:
@@ -77,13 +532,18 @@ def main() -> int:
     print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| devices {torch.cuda.device_count()}", flush=True)
 
-    # ---- 2. the build
-    res = build.build()
-    build.load()
-    ptxas = " ".join(ln.strip() for ln in res.log.splitlines()
-                     if "registers" in ln or "spill" in ln)
-    print(f"[2 build] {res.path.name} compiled={res.compiled} seconds={res.seconds:.2f} "
-          f"| {ptxas}", flush=True)
+    # ---- 2. the build: one nvcc per csrc/*.cu, all started together
+    t0 = time.perf_counter()
+    built = build.build()
+    for stem in built:
+        build.load(stem)
+    build_s = time.perf_counter() - t0
+    for stem, res in built.items():
+        ptxas = " ".join(ln.strip() for ln in res.log.splitlines()
+                         if "entry function" in ln or "registers" in ln or "spill" in ln)
+        print(f"[2 build] {res.path.name} compiled={res.compiled} seconds={res.seconds:.2f} "
+              f"| {ptxas}", flush=True)
+    print(f"[2 build] {len(built)} libraries in {build_s:.2f} s wall", flush=True)
 
     # the main path's workload, compiled once (timed for phase 4)
     nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
@@ -255,10 +715,7 @@ def main() -> int:
                               "selected", "feasible_count", "prefilter_reject"))
     carry_bytes = _nbytes(cw.init_carry)
     move_bytes = _nbytes(cw.statics) + 2 * carry_bytes + _nbytes(chunk_inputs[0]) + out_bytes
-    f64_ops = CHUNK * n * 22
-    bytes_ms = move_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = f64_ops / FP64_FLOPS * 1e3
-    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    bound_ms, bound_by = bound(move_bytes, CHUNK * n * 22)
     # the bytes one pod touches (node-axis state rows + its own rows +
     # its compact outputs), over the whole queue
     pod_bytes = (n * (2 * r + 4) * 8 + n * 5 + n * 4 + n + g * n * 8 + t * n * 4 * 6
@@ -270,7 +727,7 @@ def main() -> int:
           f"ms/chunk by {bound_by} ({move_bytes} B); per-pod touch bound "
           f"{pod_bytes} B/pod -> {queue_bound_ms:.3f} ms/queue", flush=True)
 
-    print(json.dumps({"kernels": [{
+    step_entry = {
         "name": "step_chunk",
         "route": "cuda",
         "source": "kube_scheduler_simulator_tpu_torch/csrc/step.cu",
@@ -282,7 +739,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }
+    del chunk_inputs, outs0
+
+    spec_entries = speculative_phases(dev, card, cw, pods, rr)
+    print(json.dumps({"kernels": [step_entry, *spec_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-// Shared definitions of the step kernel: the argument block the Python
-// wrapper fills (kernels/step.py mirrors it field for field as a
-// ctypes.Structure), plugin ids, integer helpers and block reductions.
+// Shared definitions of the step kernel and the speculative wave's
+// kernels: the argument block the Python wrappers fill (kernels/step.py
+// mirrors it field for field as a ctypes.Structure), plugin ids, integer
+// helpers and block reductions.
 #pragma once
 
 #include <climits>
@@ -27,8 +28,8 @@ enum RawGroup { G_NONE = 0, G_RAW8 = 1, G_RAW16 = 2, G_RAW32 = 3 };
 
 // All 8-byte members first, then the 4-byte ones: the layout has no
 // padding that ctypes and nvcc could place differently.  Shapes: N nodes,
-// C pods in the chunk, R resource columns, G spread count groups, T
-// InterPod terms; per-pod arrays are the chunk's rows.
+// C pods in the chunk or batch, R resource columns, G spread count groups, T
+// InterPod terms; per-pod arrays are the chunk's or the batch's rows.
 struct StepArgs {
   // --- core (NodeResourcesFit statics, carry and per-pod rows)
   const long long* allocatable;     // [N, R]
@@ -92,10 +93,11 @@ struct StepArgs {
   int* out_selected;                     // [C]
   int* out_feasible_count;               // [C]
   int* out_prefilter_reject;             // [C]
-  // --- scratch, one pod at a time
-  long long* scratch_raw;                // [S, N]
-  unsigned char* scratch_feas;           // [N]
-  unsigned char* scratch_ign;            // [N]
+  // --- scratch, one slot per pod in flight (pod.cuh pod_scratch)
+  long long* scratch_raw;                // [slots, S, N]; spec_round [B, S, K]
+  unsigned char* scratch_feas;           // [slots, N]
+  unsigned char* scratch_ign;            // [slots, N]
+  int* scratch_cand;                     // spec_round: [B, K] candidate nodes
   // --- 8-byte scalars
   long long ip_hard_weight;
   long long score_weight[KSS_MAX_S];
@@ -104,6 +106,7 @@ struct StepArgs {
   long long shape_s[KSS_MAX_SHAPE];      // RTCR scores (x10)
   // --- 4-byte scalars
   int C, N, R, G, T;
+  int K;                                 // spec_round: candidates per pod
   int F, S, S8, S16, S32;
   int filter_ids[KSS_MAX_F];
   int score_ids[KSS_MAX_S];
@@ -204,4 +207,22 @@ __device__ __forceinline__ int block_argmax(long long v, int i, long long* shv, 
   int bi = shi[0];
   for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) argmax_pair(bv, bi, shv[w], shi[w]);
   return bi;
+}
+
+// Exclusive prefix sum of one int per thread, in thread order; every
+// thread gets its own prefix.  blockDim.x must be a multiple of 32; `sh`
+// holds one slot per warp.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  __syncthreads();
+  if (lane == 31) sh[w] = x;
+  __syncthreads();
+  int off = 0;
+  for (int k = 0; k < w; ++k) off += sh[k];
+  return off + x - v;
 }

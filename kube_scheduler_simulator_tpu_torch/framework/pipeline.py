@@ -2,6 +2,7 @@
 
 Port of kube_scheduler_simulator_tpu/framework/pipeline.py: `StepOut` :46,
 `CompactOut` :59, `PACK_MODES` :99, `choose_pack_mode` :107,
+`_filter_phase` :238, `_score_phase` :254, `_prefilter_reject` :323,
 `pack_filter_codes` :340 and `build_step` :360.  Per pod:
 
     Filter x (plugins x nodes) -> first-fail pack -> Score x (plugins x
@@ -9,7 +10,9 @@ Port of kube_scheduler_simulator_tpu/framework/pipeline.py: `StepOut` :46,
 
 `build_step(cw, ...)` returns a `Step`.  `Step.plain(carry, sl)` composes
 the plugins' plain functions for one pod (the reference the kernel is held
-to); `Step.scan(carry, xs_chunk)` walks a chunk of pods in order — the
+to); `Step.eval_plain(carry, sl)` is the same pod without the bind (the
+speculative wave's dense eval, parallel/speculative.py);
+`Step.scan(carry, xs_chunk)` walks a chunk of pods in order — the
 counterpart of the JAX package's `lax.scan` (framework/replay.py:1130).
 For tensors on the CPU, `scan` loops `plain`; for tensors on the card it
 launches the hand-written kernel once for the chunk
@@ -24,8 +27,8 @@ Fidelity notes (as in the JAX package):
   * Host selection: highest weighted-normalized total; ties go to the
     LOWEST node index (the framework's documented divergence from
     upstream's random tie-break, applied identically in the CPU oracle).
-  * None of the six ported plugins rejects in PreFilter, so
-    `prefilter_reject` is always 0 here.
+  * None of the six ported plugins rejects in PreFilter, and the compiler
+    emits no `force_unsched`, so `prefilter_reject` is always 0 here.
 """
 
 from __future__ import annotations
@@ -155,8 +158,13 @@ def _filter_phase(cw, carry, sl, filter_names):
 
 
 def _score_phase(cw, carry, sl, weights, score_names, feasible):
-    """score -> normalize -> weight.  Returns (score_raw [S, N], score_final
-    [S, N], total [N] with infeasible forced to -1)."""
+    """score -> normalize -> weight over whatever node set the inputs
+    cover: the full [N] axis, or a gathered candidate subset (the sparse
+    round of parallel/speculative.py passes cw/carry/sl with their node
+    axes gathered and `feasible` marking the valid rows; every
+    normalization reduces over that mask, so the subset result equals the
+    dense one at those positions).  Returns (score_raw [S, n], score_final
+    [S, n], total [n] with infeasible forced to -1)."""
     n = feasible.shape[0]
     raws, finals = [], []
     total = torch.zeros(n, dtype=torch.int64, device=feasible.device)
@@ -194,6 +202,17 @@ def _bind_phase(cw, carry, sl, selected):
             carry["InterPodAffinity"], selected,
         )
     return new_carry
+
+
+def _prefilter_reject(cw, carry, sl) -> torch.Tensor:
+    """PreFilter rejects: the static compile-time ones (xs['force_unsched'],
+    bit 1).  >0 forces selected = -1.  The dynamic bit 0 belongs to
+    VolumeRestrictions, which the port does not have yet."""
+    code = torch.zeros((), dtype=torch.int32, device=carry["core"].requested.device)
+    force = sl.get("force_unsched")
+    if force is not None:
+        code = code | torch.where(force, 2, 0).to(torch.int32)
+    return code
 
 
 def pack_filter_codes(filter_codes: torch.Tensor, n: int, mode: str) -> torch.Tensor:
@@ -240,28 +259,38 @@ class Step:
         self.filter_names = cfg.filters()
         self.score_names = cfg.scorers()
         self.weights = [cfg.weight(n) for n in self.score_names]
+        # InterPodAffinity's hardPodAffinityWeight as a Python int, read
+        # from the device once here: the kernels take it as a scalar, and
+        # reading the tensor at every launch would wait for the card
+        ip = cw.statics.get("InterPodAffinity")
+        self.ip_hard_weight = int(ip.hard_weight) if ip is not None else 0
         if out_mode == "compact" and len(score_dtypes) != len(self.score_names):
             raise ValueError("compact mode needs one score dtype per scorer")
         self.score_dtypes = tuple(score_dtypes)
 
     def plain(self, carry: dict[str, Any], sl: dict[str, Any]):
         """One pod through the plain PyTorch functions -> (carry', out)."""
+        out = self.eval_plain(carry, sl)
+        return _bind_phase(self.cw, carry, sl, out.selected), out
+
+    def eval_plain(self, carry: dict[str, Any], sl: dict[str, Any]):
+        """One pod's outputs against `carry`, without the bind."""
         cw = self.cw
         weights = torch.tensor(self.weights, dtype=torch.int64,
                                device=carry["core"].requested.device)
         filter_codes, feasible = _filter_phase(cw, carry, sl, self.filter_names)
         score_raw, score_final, total = _score_phase(
             cw, carry, sl, weights, self.score_names, feasible)
-        reject = torch.zeros((), dtype=torch.int32, device=feasible.device)
+        reject = _prefilter_reject(cw, carry, sl)
         feasible_count = torch.sum(feasible, dtype=torch.int32)
+        feasible_count = torch.where(reject > 0, 0, feasible_count)
         selected = torch.argmax(total).to(torch.int32)  # first max == lowest index
         selected = torch.where(feasible_count > 0, selected, -1)
         is_pad = sl.get("is_pad")
         if is_pad is not None:
             selected = torch.where(is_pad, -1, selected)
-        new_carry = _bind_phase(cw, carry, sl, selected)
         if self.out_mode == "full":
-            out: Any = StepOut(
+            return StepOut(
                 filter_codes=filter_codes.to(torch.int32),
                 score_raw=score_raw.to(torch.int32),
                 score_final=score_final.to(torch.int32),
@@ -269,7 +298,6 @@ class Step:
                 feasible_count=feasible_count,
                 prefilter_reject=reject,
             )
-            return new_carry, out
         groups: dict[str, list] = {"i8": [], "i16": [], "i32": []}
         for s, g in enumerate(self.score_dtypes):
             if g == "host":
@@ -295,7 +323,7 @@ class Step:
         elif self.wide_raw == "i32" and groups["i32"]:
             full = torch.stack(groups["i32"])
             ovf = torch.any(full != raw32.to(full.dtype))
-        out = CompactOut(
+        return CompactOut(
             packed_filter=pack_filter_codes(filter_codes, n, self.pack_mode),
             raw8=raw8,
             raw16=raw16,
@@ -305,7 +333,6 @@ class Step:
             feasible_count=feasible_count,
             prefilter_reject=reject,
         )
-        return new_carry, out
 
     def plain_scan(self, carry: dict[str, Any], xs_chunk: dict[str, Any]):
         """A chunk of pods through `plain`, in order -> (carry', outs

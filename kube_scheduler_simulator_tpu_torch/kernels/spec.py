@@ -1,0 +1,435 @@
+"""The speculative wave's kernels: each wrapper and, beside it, its plain
+PyTorch version.
+
+    kernel (csrc/)                wrapper           plain version         JAX counterpart
+    B2 spec_eval.cu spec_eval     spec_eval         eval_plain            parallel/speculative.py:318 _eval_fn
+    B3 spec_eval.cu spec_oracle   spec_oracle       _oracle_core          :299 _oracle_core
+    B4 spec_round.cu spec_round   spec_round        sparse_round_plain    :381 _sparse_round_fn
+    B5 spec_commit.cu (two)       spec_commit_core  commit_plain          :501 _commit_fn
+                                  spec_commit_bind
+    B6 grid.cu (two)              grid_append       append_plain          :553 _accum_fns
+                                  grid_emit         emit_plain
+
+As kernels/step.py does for the step: for tensors on the card a wrapper
+launches its kernel on PyTorch's current stream, without synchronising,
+and adds one to its `launches`; for tensors on the CPU it runs the plain
+version, because there is no card to launch on.  There is no fallback: a
+failed build or launch raises.  The plain versions are the tests' and
+chip_smoke.py's reference; nothing on the card's main path calls them.
+
+The JAX package tiles the batch for XLA on a CPU (`_spec_tile`,
+`_tiled_vmap`, :253-296, KSS_TPU_SPECULATIVE_TILE); the port has no such
+tiling, and its results never depended on it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from types import SimpleNamespace
+
+import torch
+
+from ..framework.pipeline import (CompactOut, _bind_phase, _filter_phase,
+                                  _prefilter_reject, _score_phase, _stack,
+                                  _map_tree, pack_filter_codes, slice_pod)
+from . import step as kstep
+
+GRID_GROUPS = ("packed", "raw8", "raw16", "raw32", "fc")
+# plugins the sparse round's kernel scores at gathered candidates: the
+# node-local ones the port has (speculative.py SAFE_SPECULATIVE)
+SPARSE_KERNEL_PLUGINS = {"NodeResourcesFit", "NodeResourcesBalancedAllocation",
+                         "NodeAffinity", "TaintToleration"}
+
+
+def _device(carry) -> torch.device:
+    return carry["core"].requested.device
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """uint16 (the p16 pack) as int16 bits: PyTorch gives uint16 little
+    more than conversions, and these functions only compare with 0, copy
+    and stack."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+# ------------------------------------------------------------ B2 dense eval
+
+def eval_plain(step, carry: dict, xs: dict) -> CompactOut:
+    """The compact step of every pod of the batch against one frozen carry,
+    with no bind: `Step.eval_plain` per row, stacked."""
+    b = xs["is_pad"].shape[0]
+    outs = [step.eval_plain(carry, slice_pod(xs, i)) for i in range(b)]
+    return CompactOut(*[_stack([getattr(o, f) for o in outs]) for f in CompactOut._fields])
+
+
+def spec_eval(step, carry: dict, xs: dict) -> CompactOut:
+    """B2: the dense round's evaluation.  CUDA tensors: one launch, one
+    block per pod of the batch; CPU tensors: eval_plain."""
+    if step.out_mode != "compact":
+        raise ValueError("spec_eval evaluates the compact step")
+    dev = _device(carry)
+    if dev.type == "cpu":
+        return eval_plain(step, carry, xs)
+    kstep.check_device("spec_eval", dev, step.cw.statics, carry, xs)
+    lib = kstep.load_lib("spec_eval")
+    b = xs["is_pad"].shape[0]
+    outs = kstep.alloc_outputs(step, b, dev, slots=b)
+    args = kstep.make_args(step, carry, xs, outs, slots=b)
+    kstep.check_launch("spec_eval", lib.kss_spec_eval(ctypes.byref(args), kstep.stream_of(dev)))
+    spec_eval.launches += 1
+    return CompactOut(**{k: outs[k] for k in CompactOut._fields})
+
+
+spec_eval.launches = 0
+
+
+# ------------------------------------------------------------ B3 oracle
+
+def _oracle_core(packed, prefilter_reject, selected, batch: int) -> torch.Tensor:
+    """The dirty-node prefix length: pod k conflicts when it is feasible
+    (packed word 0, no PreFilter reject) at the node an earlier pod j < k
+    selected; K is the first conflicting k, or `batch`.  Pad rows sit past
+    the real rows (selected == -1, never bound), so a pad conflict only
+    pushes K past them: the caller clamps to the round's real size."""
+    feas = (_bits(packed) == 0) & (prefilter_reject == 0)[:, None]
+    bound = selected >= 0                                   # [B]
+    cols = torch.clamp(selected, min=0).to(torch.int64)
+    feas_at_sel = feas[:, cols]                             # [B(k), B(j)]
+    before = torch.ones((batch, batch), dtype=torch.bool, device=packed.device).tril(-1)
+    conflict = torch.any(feas_at_sel & bound[None, :] & before, dim=1)
+    first = torch.argmax(conflict.to(torch.uint8))           # first True
+    return torch.where(torch.any(conflict), first, batch).to(torch.int32)
+
+
+def spec_oracle(packed, prefilter_reject, selected) -> torch.Tensor:
+    """B3: K as an int32 tensor on the inputs' device.  CUDA tensors: one
+    launch of one block; CPU tensors: _oracle_core."""
+    b, n = packed.shape
+    dev = packed.device
+    if dev.type == "cpu":
+        return _oracle_core(packed, prefilter_reject, selected, b)
+    kstep.check_device("spec_oracle", dev, {"p": packed, "r": prefilter_reject, "s": selected})
+    lib = kstep.load_lib("spec_eval")
+    out = torch.empty((), dtype=torch.int32, device=dev)
+    err = lib.kss_spec_oracle(
+        kstep._ptr(packed, packed.dtype, (b, n), "packed"), packed.element_size(),
+        kstep._ptr(prefilter_reject, torch.int32, (b,), "prefilter_reject"),
+        kstep._ptr(selected, torch.int32, (b,), "selected"), b, n,
+        out.data_ptr(), kstep.stream_of(dev))
+    kstep.check_launch("spec_oracle", err)
+    spec_oracle.launches += 1
+    return out
+
+
+spec_oracle.launches = 0
+
+
+# ------------------------------------------------------------ B4 sparse round
+
+def _take_nodes(x, idx, n: int):
+    """Gather candidate rows along a leaf's node axis (its first axis whose
+    extent == n; leaves without one, and non-tensors, pass through): the
+    JAX package's node-axis rule (speculative.py:369)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    for ax in range(x.dim()):
+        if x.shape[ax] == n:
+            return torch.index_select(x, ax, idx)
+    return x
+
+
+def _sparse_one(step, carry: dict, sl: dict, weights, kcand: int):
+    cw = step.cw
+    n = cw.n_nodes
+    codes, feasible = _filter_phase(cw, carry, sl, step.filter_names)
+    packed = pack_filter_codes(codes, n, step.pack_mode)
+    reject = _prefilter_reject(cw, carry, sl)
+    count = torch.sum(feasible, dtype=torch.int32)
+    count = torch.where(reject > 0, 0, count)
+    cum = torch.cumsum(feasible.to(torch.int32), 0, dtype=torch.int32)
+    dev = feasible.device
+    cand = torch.searchsorted(cum, torch.arange(1, kcand + 1, dtype=torch.int32, device=dev))
+    cand = torch.clamp(cand, max=n - 1).to(torch.int32)
+    valid = torch.arange(kcand, dtype=torch.int32, device=dev) < count
+    idx = cand.to(torch.int64)
+
+    def take(tree):
+        return _map_tree(lambda x: _take_nodes(x, idx, n), tree)
+
+    g_sl = take(sl)
+    # every sparse-eligible plugin reads its node-axis statics and carry
+    # rows positionally, so every entry is gathered
+    view = SimpleNamespace(config=cw.config, statics=take(cw.statics),
+                           n_nodes=kcand, schema=cw.schema)
+    raws, _finals, total = _score_phase(view, take(carry), g_sl, weights,
+                                        step.score_names, valid)
+    sel_k = torch.argmax(total)
+    selected = torch.where(count > 0, cand[sel_k], -1).to(torch.int32)
+    is_pad = g_sl.get("is_pad")
+    if is_pad is not None:
+        selected = torch.where(is_pad, -1, selected)
+    # scatter the raw columns onto the dense grid: invalid slots park in a
+    # shed column past n, sliced off below
+    park = torch.where(valid, cand, n).to(torch.int64)
+    groups: dict[str, list] = {"i8": [], "i16": [], "i32": []}
+    for s, g in enumerate(step.score_dtypes):
+        if g == "host":
+            continue
+        groups["i32" if step.wide_raw else g].append(raws[s])
+
+    def scatter(rows, dtype):
+        if not rows:
+            return torch.zeros((0, n), dtype=dtype, device=dev)
+        vals = torch.stack(rows).to(dtype)                  # [Sg, K]
+        buf = torch.zeros((vals.shape[0], n + 1), dtype=dtype, device=dev)
+        buf[:, park] = vals
+        return buf[:, :n]
+
+    raw8 = scatter(groups["i8"], torch.int8)
+    raw16 = scatter(groups["i16"], torch.int16)
+    raw32 = scatter(groups["i32"], torch.int64 if step.wide_raw == "i64" else torch.int32)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    if step.wide_raw is None and groups["i16"]:
+        full = torch.stack(groups["i16"])
+        ovf = torch.any(valid[None, :] & (full != full.to(torch.int16).to(full.dtype)))
+    elif step.wide_raw == "i32" and groups["i32"]:
+        full = torch.stack(groups["i32"])
+        ovf = torch.any(valid[None, :] & (full != full.to(torch.int32).to(full.dtype)))
+    return packed, reject, count, raw8, raw16, raw32, ovf, selected
+
+
+def sparse_round_plain(step, carry: dict, xs: dict, kcand: int):
+    """Every pod of the batch: dense filters and pack, the first `kcand`
+    feasible nodes by cumsum + searchsorted, score / normalize / select on
+    those candidates, raws scattered back onto [N].  The JAX round then
+    runs the oracle in the same jit; here the caller runs spec_oracle.
+    -> (packed, reject, counts, raw8, raw16, raw32, ovf, selected)."""
+    b = xs["is_pad"].shape[0]
+    weights = torch.tensor(step.weights, dtype=torch.int64, device=_device(carry))
+    rows = [_sparse_one(step, carry, slice_pod(xs, i), weights, kcand) for i in range(b)]
+    return tuple(_stack([r[j] for r in rows]) for j in range(8))
+
+
+def spec_round(step, carry: dict, xs: dict, kcand: int):
+    """B4: the sparse round's per-pod pass.  CUDA tensors: one launch, one
+    block per pod; CPU tensors: sparse_round_plain."""
+    if step.out_mode != "compact":
+        raise ValueError("spec_round evaluates the compact step")
+    dev = _device(carry)
+    if dev.type == "cpu":
+        return sparse_round_plain(step, carry, xs, kcand)
+    plugins = set(step.filter_names) | set(step.score_names)
+    if not plugins <= SPARSE_KERNEL_PLUGINS:
+        raise ValueError(f"spec_round scores only node-local plugins, not "
+                         f"{sorted(plugins - SPARSE_KERNEL_PLUGINS)}")
+    if not 1 <= kcand <= step.cw.n_nodes:
+        raise ValueError(f"kcand {kcand} outside [1, {step.cw.n_nodes}]")
+    kstep.check_device("spec_round", dev, step.cw.statics, carry, xs)
+    lib = kstep.load_lib("spec_round")
+    b = xs["is_pad"].shape[0]
+    outs = kstep.alloc_outputs(step, b, dev, slots=b, width=kcand)
+    cand = torch.empty((b, kcand), dtype=torch.int32, device=dev)
+    args = kstep.make_args(step, carry, xs, outs, slots=b, width=kcand)
+    args.K = kcand
+    args.scratch_cand = cand.data_ptr()
+    kstep.check_launch("spec_round", lib.kss_spec_round(ctypes.byref(args), kstep.stream_of(dev)))
+    spec_round.launches += 1
+    return (outs["packed_filter"], outs["prefilter_reject"], outs["feasible_count"],
+            outs["raw8"], outs["raw16"], outs["raw32"], outs["raw_overflow"],
+            outs["selected"])
+
+
+spec_round.launches = 0
+
+
+# ------------------------------------------------------------ B5 commit
+
+def core_only(carry: dict) -> bool:
+    """The commit's variant (speculative.py:511): the carry holds nothing
+    but "core"."""
+    return set(carry) <= {"core"}
+
+
+def commit_plain(step, carry: dict, xs: dict, selected, k: int) -> dict:
+    """The accepted prefix (rows < k) bound into the carry -> a new carry.
+    Core-only: one scatter-add of requests, non-zero requests and pod
+    counts.  Otherwise: `_bind_phase` folded over the batch with the
+    selection -1 past the prefix."""
+    b = selected.shape[0]
+    accept = torch.arange(b, device=selected.device) < k
+    if core_only(carry):
+        core_batch, core = xs["core"], carry["core"]
+        idx = torch.clamp(selected, min=0).to(torch.int64)
+        add = (accept & (selected >= 0)).to(torch.int64)
+        out = dict(carry)
+        out["core"] = core._replace(
+            requested=core.requested.index_add(0, idx, core_batch.requests * add[:, None]),
+            nonzero=core.nonzero.index_add(0, idx, core_batch.nonzero * add[:, None]),
+            num_pods=core.num_pods.index_add(0, idx, add))
+        return out
+    sel = torch.where(accept, selected, -1)
+    for i in range(b):
+        carry = _bind_phase(step.cw, carry, slice_pod(xs, i), sel[i])
+    return carry
+
+
+def _commit(kernel, step, carry: dict, xs: dict, selected, k: int) -> dict:
+    if kernel is spec_commit_core and not core_only(carry):
+        raise ValueError(f"spec_commit_core binds only the core carry, not {sorted(carry)}")
+    dev = _device(carry)
+    kstep.check_device(kernel.__name__, dev, step.cw.statics, carry, xs, {"s": selected})
+    lib = kstep.load_lib("spec_commit")
+    b = xs["is_pad"].shape[0]
+    args = kstep.make_args(step, carry, xs, None)
+    sel_ptr = kstep._ptr(selected, torch.int32, (b,), "selected")
+    err = lib.kss_spec_commit(ctypes.byref(args), sel_ptr, int(k),
+                              int(kernel is spec_commit_core), kstep.stream_of(dev))
+    kstep.check_launch(kernel.__name__, err)
+    kernel.launches += 1
+    return carry
+
+
+def spec_commit_core(step, carry: dict, xs: dict, selected, k: int) -> dict:
+    """B5, core-only: 64-bit atomic adds, one thread per batch row, carry
+    updated in place."""
+    return _commit(spec_commit_core, step, carry, xs, selected, k)
+
+
+def spec_commit_bind(step, carry: dict, xs: dict, selected, k: int) -> dict:
+    """B5, general: one block folds the step's bind over the batch in order,
+    carry updated in place."""
+    return _commit(spec_commit_bind, step, carry, xs, selected, k)
+
+
+spec_commit_core.launches = 0
+spec_commit_bind.launches = 0
+
+
+def spec_commit(step, carry: dict, xs: dict, selected, k: int) -> dict:
+    """B5: rows < k of the batch bound into the carry.  CUDA tensors: the
+    variant's kernel, in place; CPU tensors: commit_plain."""
+    if _device(carry).type == "cpu":
+        return commit_plain(step, carry, xs, selected, k)
+    kernel = spec_commit_core if core_only(carry) else spec_commit_bind
+    return kernel(step, carry, xs, selected, k)
+
+
+# ------------------------------------------------------------ B6 chunk grid
+
+def append_plain(bufs: dict, rows: dict, fill: int) -> dict:
+    """rows[name] written into bufs[name] at row `fill`, in place."""
+    for name, buf in bufs.items():
+        r = rows[name].to(buf.dtype)
+        _bits(buf)[fill:fill + r.shape[0]] = _bits(r)
+    return bufs
+
+
+def emit_plain(bufs: dict, chunk: int) -> tuple[dict, dict]:
+    """-> (the first `chunk` rows of each buffer, the buffer shifted down
+    by `chunk` with zeros after)."""
+    heads, rest = {}, {}
+    for name, buf in bufs.items():
+        x = _bits(buf)
+        heads[name] = x[:chunk].clone().view(buf.dtype)
+        rest[name] = torch.cat([x[chunk:], torch.zeros_like(x[:chunk])]).view(buf.dtype)
+    return heads, rest
+
+
+class GridArgs(ctypes.Structure):
+    """Mirror of `struct GridArgs` in csrc/grid.cu, field for field."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p * len(GRID_GROUPS)) for f in ("buf", "rows", "head", "rest")]
+        + [("row_bytes", ctypes.c_longlong * len(GRID_GROUPS))]
+        + [(f, ctypes.c_longlong) for f in ("n_rows", "fill", "chunk", "total_rows")]
+        + [("unit", ctypes.c_int * len(GRID_GROUPS)), ("groups", ctypes.c_int)]
+    )
+
+
+def _grid_lib(dev: torch.device, bufs: dict) -> ctypes.CDLL:
+    from . import build
+
+    if list(bufs) != list(GRID_GROUPS):
+        raise ValueError(f"grid buffers {list(bufs)}, expected {list(GRID_GROUPS)}")
+    kstep.check_device("grid", dev, bufs)
+    lib = build.load("grid")
+    if lib.kss_grid_args_size() != ctypes.sizeof(GridArgs):
+        raise RuntimeError("GridArgs layout differs between csrc/grid.cu and kernels/spec.py")
+    return lib
+
+
+def _unit(*values: int) -> int:
+    """The largest word (16, 8, 4, 2 or 1 bytes) dividing every address and
+    length."""
+    for u in (16, 8, 4, 2):
+        if all(v % u == 0 for v in values):
+            return u
+    return 1
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return t[0].numel() * t.element_size() if t.shape[0] else 0
+
+
+def grid_append(bufs: dict, rows: dict, fill: int) -> dict:
+    """B6 append: rows[name] into bufs[name] at row `fill`, in place.  CUDA
+    tensors: one launch over the five buffers; CPU tensors: append_plain."""
+    dev = bufs["fc"].device
+    if dev.type == "cpu":
+        return append_plain(bufs, rows, fill)
+    lib = _grid_lib(dev, bufs)
+    kstep.check_device("grid_append", dev, rows)
+    a = GridArgs()
+    n_rows = rows["fc"].shape[0]
+    for g, name in enumerate(GRID_GROUPS):
+        buf, r = bufs[name], rows[name]
+        if (r.dtype != buf.dtype or tuple(r.shape[1:]) != tuple(buf.shape[1:])
+                or r.shape[0] != n_rows or not r.is_contiguous() or not buf.is_contiguous()):
+            raise ValueError(f"grid_append {name}: rows {r.dtype} {tuple(r.shape)} do not "
+                             f"fit the buffer {buf.dtype} {tuple(buf.shape)}")
+        if fill + n_rows > buf.shape[0]:
+            raise ValueError(f"grid_append {name}: rows [{fill}, {fill + n_rows}) past "
+                             f"{buf.shape[0]}")
+        rb = _row_bytes(buf)
+        a.buf[g], a.rows[g], a.row_bytes[g] = buf.data_ptr(), r.data_ptr(), rb
+        a.unit[g] = _unit(buf.data_ptr() + fill * rb, r.data_ptr(), n_rows * rb)
+    a.n_rows, a.fill, a.groups = n_rows, fill, len(GRID_GROUPS)
+    kstep.check_launch("grid_append", lib.kss_grid_append(ctypes.byref(a), kstep.stream_of(dev)))
+    grid_append.launches += 1
+    return bufs
+
+
+def grid_emit(bufs: dict, chunk: int) -> tuple[dict, dict]:
+    """B6 emit -> (heads, rest): heads the first `chunk` rows of each
+    buffer, rest a second buffer holding the others shifted down, zeros
+    after.  CUDA tensors: one launch over the five buffers; CPU tensors:
+    emit_plain."""
+    dev = bufs["fc"].device
+    if dev.type == "cpu":
+        return emit_plain(bufs, chunk)
+    lib = _grid_lib(dev, bufs)
+    a = GridArgs()
+    total = bufs["fc"].shape[0]
+    heads, rest = {}, {}
+    for g, name in enumerate(GRID_GROUPS):
+        buf = bufs[name]
+        if buf.shape[0] != total or not buf.is_contiguous() or not chunk <= total:
+            raise ValueError(f"grid_emit {name}: buffer {tuple(buf.shape)}, chunk {chunk}")
+        heads[name] = torch.empty((chunk,) + tuple(buf.shape[1:]), dtype=buf.dtype, device=dev)
+        rest[name] = torch.empty_like(buf)
+        rb = _row_bytes(buf)
+        a.buf[g], a.head[g], a.rest[g], a.row_bytes[g] = (
+            buf.data_ptr(), heads[name].data_ptr(), rest[name].data_ptr(), rb)
+        a.unit[g] = _unit(buf.data_ptr(), heads[name].data_ptr(), rest[name].data_ptr(),
+                          chunk * rb, (total - chunk) * rb)
+    a.chunk, a.total_rows, a.groups = chunk, total, len(GRID_GROUPS)
+    kstep.check_launch("grid_emit", lib.kss_grid_emit(ctypes.byref(a), kstep.stream_of(dev)))
+    grid_emit.launches += 1
+    return heads, rest
+
+
+grid_append.launches = 0
+grid_emit.launches = 0
+
+KERNELS = (spec_eval, spec_oracle, spec_round, spec_commit_core, spec_commit_bind,
+           grid_append, grid_emit)

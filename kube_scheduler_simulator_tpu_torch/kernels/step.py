@@ -63,7 +63,7 @@ _PTR_FIELDS = (
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
-    "scratch_raw", "scratch_feas", "scratch_ign",
+    "scratch_raw", "scratch_feas", "scratch_ign", "scratch_cand",
 )
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
@@ -77,7 +77,8 @@ class StepArgs(ctypes.Structure):
         + [("ip_hard_weight", _LL), ("score_weight", _LL * MAX_S),
            ("fit_weight", _LL * MAX_RES), ("shape_u", _LL * MAX_SHAPE),
            ("shape_s", _LL * MAX_SHAPE)]
-        + [(f, _INT) for f in ("C", "N", "R", "G", "T", "F", "S", "S8", "S16", "S32")]
+        + [(f, _INT) for f in ("C", "N", "R", "G", "T", "K",
+                               "F", "S", "S8", "S16", "S32")]
         + [("filter_ids", _INT * MAX_F), ("score_ids", _INT * MAX_S),
            ("score_group", _INT * MAX_S), ("score_row", _INT * MAX_S)]
         + [(f, _INT) for f in ("compact", "pack_code_bits", "pack_bytes",
@@ -133,15 +134,21 @@ def _score_groups(step):
     return groups, rows, counts, check, 8 if step.wide_raw == "i64" else 4
 
 
-def make_args(step, carry, xs, outs: dict) -> StepArgs:
+def make_args(step, carry, xs, outs: dict | None, slots: int = 1,
+              width: int | None = None) -> StepArgs:
     """Fill StepArgs from the workload, the carry, the chunk's xs and the
-    output / scratch tensors, checking each tensor on the way."""
+    output / scratch tensors (`slots` scratch slots of raw rows `width`
+    wide, N by default; none when `outs` is None), checking each tensor on
+    the way."""
     cw = step.cw
     n, r = cw.n_nodes, cw.schema.n
     c = xs["is_pad"].shape[0]
     f, s = len(step.filter_names), len(step.score_names)
     if f > MAX_F or s > MAX_S:
         raise ValueError(f"{f} filters / {s} scorers: the kernel takes at most {MAX_F} / {MAX_S}")
+    if "force_unsched" in xs:
+        raise NotImplementedError("the kernels do not read xs['force_unsched'] "
+                                  "(compile-time PreFilter rejects)")
     i64, i32, i16, u8, f64, b = (torch.int64, torch.int32, torch.int16, torch.uint8,
                                  torch.float64, torch.bool)
     a = StepArgs()
@@ -195,7 +202,7 @@ def make_args(step, carry, xs, outs: dict) -> StepArgs:
         t = st.dom_idx.shape[0]
         a.T = t
         a.has_interpod = 1
-        a.ip_hard_weight = int(st.hard_weight)
+        a.ip_hard_weight = step.ip_hard_weight
         a.ip_dom_idx = _ptr(st.dom_idx, i32, (t, n), "interpod dom_idx")
         for fld in ("matched", "have_req_anti", "have_req_aff", "sym_pref_aff", "sym_pref_anti"):
             setattr(a, "ip_" + fld, _ptr(getattr(ic, fld), i32, (t, n), "interpod " + fld))
@@ -233,6 +240,8 @@ def make_args(step, carry, xs, outs: dict) -> StepArgs:
     for k, name in enumerate(balanced):
         a.bal_src[k], a.bal_col[k], a.bal_need_request[k] = _resource_desc(name, cw.schema, False)
 
+    if outs is None:
+        return a
     if step.out_mode == "full":
         a.out_codes = _ptr(outs["filter_codes"], i32, (c, f, n), "filter_codes")
         a.out_raw = _ptr(outs["score_raw"], i32, (c, s, n), "score_raw")
@@ -257,15 +266,18 @@ def make_args(step, carry, xs, outs: dict) -> StepArgs:
     a.out_selected = _ptr(outs["selected"], i32, (c,), "selected")
     a.out_feasible_count = _ptr(outs["feasible_count"], i32, (c,), "feasible_count")
     a.out_prefilter_reject = _ptr(outs["prefilter_reject"], i32, (c,), "prefilter_reject")
-    a.scratch_raw = _ptr(outs["scratch_raw"], i64, (max(s, 1), n), "scratch_raw")
-    a.scratch_feas = _ptr(outs["scratch_feas"], u8, (n,), "scratch_feas")
-    a.scratch_ign = _ptr(outs["scratch_ign"], u8, (n,), "scratch_ign")
+    a.scratch_raw = _ptr(outs["scratch_raw"], i64, (slots, max(s, 1), width or n),
+                         "scratch_raw")
+    a.scratch_feas = _ptr(outs["scratch_feas"], u8, (slots, n), "scratch_feas")
+    a.scratch_ign = _ptr(outs["scratch_ign"], u8, (slots, n), "scratch_ign")
     return a
 
 
-def alloc_outputs(step, c: int, device) -> dict:
-    """Output and scratch tensors of one launch (torch.empty: the kernel
-    writes every element it is responsible for)."""
+def alloc_outputs(step, c: int, device, slots: int = 1, width: int | None = None) -> dict:
+    """Output and scratch tensors of one launch, with `slots` scratch slots
+    (one per pod in flight) of raw rows `width` wide, N by default
+    (torch.empty: the kernel writes every element it is responsible
+    for)."""
     n = step.cw.n_nodes
     f, s = len(step.filter_names), len(step.score_names)
 
@@ -276,9 +288,9 @@ def alloc_outputs(step, c: int, device) -> dict:
         "selected": empty((c,), torch.int32),
         "feasible_count": empty((c,), torch.int32),
         "prefilter_reject": empty((c,), torch.int32),
-        "scratch_raw": empty((max(s, 1), n), torch.int64),
-        "scratch_feas": empty((n,), torch.uint8),
-        "scratch_ign": empty((n,), torch.uint8),
+        "scratch_raw": empty((slots, max(s, 1), width or n), torch.int64),
+        "scratch_feas": empty((slots, n), torch.uint8),
+        "scratch_ign": empty((slots, n), torch.uint8),
     }
     if step.out_mode == "full":
         outs["filter_codes"] = empty((c, f, n), torch.int32)
@@ -303,6 +315,38 @@ def _tensors(tree):
             yield from (a for a in v if isinstance(a, torch.Tensor))
 
 
+def check_device(what: str, dev: torch.device, *trees) -> None:
+    """Every tensor of the trees (dicts of tensors / NamedTuples) on dev."""
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    for tree in trees:
+        for t in _tensors(tree):
+            if t.device != dev:
+                raise ValueError(f"{what}: a tensor on {t.device}, the carry on {dev}")
+
+
+def load_lib(stem: str) -> ctypes.CDLL:
+    """The built library of csrc/<stem>.cu, its StepArgs layout checked."""
+    from . import build
+
+    lib = build.load(stem)
+    if lib.kss_step_args_size() != ctypes.sizeof(StepArgs):
+        raise RuntimeError(f"StepArgs layout differs between csrc/common.cuh and "
+                           f"kernels/step.py ({stem})")
+    return lib
+
+
+def stream_of(dev: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on dev, for a launch."""
+    with torch.cuda.device(dev):
+        return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def check_launch(what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
 def step_chunk(step, carry: dict, xs_chunk: dict):
     """One chunk of pods -> (carry, StepOut / CompactOut with a leading pod
     axis).  CUDA tensors: one kernel launch, carry updated in place.  CPU
@@ -310,24 +354,12 @@ def step_chunk(step, carry: dict, xs_chunk: dict):
     dev = carry["core"].requested.device
     if dev.type == "cpu":
         return step.plain_scan(carry, xs_chunk)
-    if dev.type != "cuda":
-        raise ValueError(f"step_chunk: unsupported device {dev}")
-    for t in (*_tensors(step.cw.statics), *_tensors(carry), *_tensors(xs_chunk)):
-        if t.device != dev:
-            raise ValueError(f"step_chunk: a tensor on {t.device}, the carry on {dev}")
-    from . import build
-
-    lib = build.load()
-    if lib.kss_step_args_size() != ctypes.sizeof(StepArgs):
-        raise RuntimeError("StepArgs layout differs between csrc/common.cuh and kernels/step.py")
+    check_device("step_chunk", dev, step.cw.statics, carry, xs_chunk)
+    lib = load_lib("step")
     c = xs_chunk["is_pad"].shape[0]
     outs = alloc_outputs(step, c, dev)
     args = make_args(step, carry, xs_chunk, outs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.kss_step_chunk(ctypes.byref(args), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"step_chunk launch failed: CUDA error {err}")
+    check_launch("step_chunk", lib.kss_step_chunk(ctypes.byref(args), stream_of(dev)))
     step_chunk.launches += 1
     cls = StepOut if step.out_mode == "full" else CompactOut
     return carry, cls(**{k: outs[k] for k in cls._fields})

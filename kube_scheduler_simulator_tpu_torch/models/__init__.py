@@ -1,1 +1,3 @@
-from .workloads import make_nodes, make_pods, baseline_config, BASELINE_CONFIGS  # noqa: F401
+from .workloads import (  # noqa: F401
+    make_nodes, make_pods, baseline_config, BASELINE_CONFIGS, SLOT_LABEL,
+    make_slot_pinned_workload)

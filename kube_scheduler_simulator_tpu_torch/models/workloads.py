@@ -1,10 +1,10 @@
 """Synthetic cluster / pod-queue generators for the BASELINE configs.
 
 Port of kube_scheduler_simulator_tpu/models/workloads.py (`make_nodes`
-:16, `make_pods` :68, `BASELINE_CONFIGS` and `baseline_config` :481-524):
-the same numpy draws in the same order, so the same seed gives the same
-manifests.  The columnar, slot, gang and churn generators wait for later
-slices.
+:16, `make_pods` :68, `SLOT_LABEL` and `make_slot_pinned_workload`
+:299-345, `BASELINE_CONFIGS` and `baseline_config` :481-524): the same
+numpy draws in the same order, so the same seed gives the same manifests.
+The columnar, gang and churn generators wait for later slices.
 """
 
 from __future__ import annotations
@@ -174,6 +174,52 @@ def make_pods(
         pods.append(pod)
     return pods
 
+
+
+SLOT_LABEL = "kss.simulator/slot"
+
+
+def make_slot_pinned_workload(
+    n_pods: int,
+    n_nodes: int,
+    seed: int = 0,
+    slot_size: int = 2,
+) -> tuple[list[dict], list[dict]]:
+    """Reserved-slot fleet: nodes partition into slots of `slot_size` and
+    every pod carries a REQUIRED nodeAffinity pin to one slot, the
+    placement shape where each job owns a reserved node group.
+    Feasibility is sparse (slot_size nodes per pod) and pods of different
+    slots never interact, so the speculative wave's conflict oracle
+    accepts whole batches: the low-contention scenario of the JAX
+    package's `make bench-spec`.  -> (nodes, pods)."""
+    nodes = make_nodes(n_nodes, seed=seed)
+    n_slots = max(n_nodes // max(slot_size, 1), 1)
+    for i, node in enumerate(nodes):
+        node["metadata"]["labels"][SLOT_LABEL] = f"slot-{i % n_slots}"
+    rng = np.random.default_rng(seed + 1)
+    pods = []
+    for i in range(n_pods):
+        cpu = int(rng.choice([100, 250, 500]))
+        pods.append({
+            "apiVersion": "v1",
+            "kind": "Pod",
+            "metadata": {"name": f"slot-pod-{i:05d}", "namespace": "default",
+                         "labels": {"app": f"job-{i % n_slots}"}},
+            "spec": {
+                "containers": [{
+                    "name": "main",
+                    "image": "registry.k8s.io/pause:3.9",
+                    "resources": {"requests": {"cpu": f"{cpu}m",
+                                               "memory": str(256 << 20)}},
+                }],
+                "affinity": {"nodeAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": {
+                        "nodeSelectorTerms": [{"matchExpressions": [{
+                            "key": SLOT_LABEL, "operator": "In",
+                            "values": [f"slot-{i % n_slots}"]}]}]}}},
+            },
+        })
+    return nodes, pods
 
 # BASELINE.md benchmark configs 1-5
 BASELINE_CONFIGS = {

@@ -1,0 +1,505 @@
+"""Speculative pod-batch scheduling: the engine's default wave.
+
+Port of kube_scheduler_simulator_tpu/parallel/speculative.py for one
+device.  The scan replay is sequential-exact: each pod's evaluation sees
+every earlier bind.  The wave batches it: evaluate a BATCH of B pending
+pods against one frozen carry, let a CONFLICT ORACLE accept the longest
+provably non-interfering prefix, fold the accepted binds into the carry
+in one device call, and roll the rejected suffix into the next round
+re-scored against the updated carry.  Results stay BIT-IDENTICAL to the
+scan: the JAX module's docstring (:16-57) gives the exactness argument,
+the dirty-node rule for node-local plugins and the interaction rule for
+label-coupled ones, and it holds here unchanged.
+
+Each round's device work is a hand-written kernel (kernels/spec.py):
+
+  * sparse round (node-local plugin sets, `_sparse_ok`): spec_round (B4)
+    then spec_oracle (B3), which the JAX package fuses into one jit;
+  * dense round (label-coupled sets, and rounds whose feasible count
+    passes the candidate cap): spec_eval (B2) then spec_oracle (B3);
+  * commit: spec_commit_core or spec_commit_bind (B5), in place;
+  * the chunk grid: grid_append and grid_emit (B6);
+  * the contention fallback: the scan's step_chunk (B1), resumed from
+    the speculative carry.
+
+On the CPU each wrapper runs its plain PyTorch version instead.  The
+device is the one `cw` lives on: `compile_workload` defaults to the card.
+
+Every grid chunk is fetched to the host as it fills (the JAX package's
+host-resident rung); the result is a ReplayResult with the same compact
+chunk grid as `replay()`, and `on_chunk(rr, lo, hi)` sees the chunks in
+ascending order.
+
+Not ported, and refused where a caller asks for them: meshes (`mesh`,
+ROADMAP Queue B item B12), gangs (`gang`, framework/gang.aligned_cut and
+the engine), device residency (`device_resident=True`, with B7).  The
+fuse coordinator (B11), the autopilot's CONTROLS overrides, TRACER,
+BLACKBOX and fault points are absent: the port does what the JAX package
+does with none of them engaged.  So is the stream's `ignore=` (the
+engine's gang plugin) and `unroll=` (the scan kernel has no unroll).
+
+Env knobs, read as in JAX: KSS_TPU_SPECULATIVE_BATCH pins the batch (one
+rung); KSS_TPU_SPECULATIVE_CANDIDATES caps the sparse round's candidate
+set (default 128); KSS_TPU_SPECULATIVE_MIN_ACCEPT and
+KSS_TPU_SPECULATIVE_FALLBACK_ROUNDS tune the scan-fallback trigger.
+KSS_TPU_SPECULATIVE_TILE has no effect here (kernels/spec.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..framework.pipeline import PACK_MODES, build_step
+from ..framework.replay import (ReplayResult, _CompactChunks, _clone_carry,
+                                _compact_plan, _slice_xs)
+from ..kernels import spec as kspec
+from ..state.compile import CompiledWorkload
+from ..utils.env import env_float, env_int
+
+# per-node plugins with no cross-pod coupling: filters are static or
+# monotone in node allocation, scores depend only on the node's own
+# accumulated resources, binds touch only carry["core"]  (JAX :129)
+SAFE_SPECULATIVE = {
+    "NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
+    "TaintToleration", "NodeUnschedulable", "NodeName", "ImageLocality",
+    "NodePorts",
+}
+
+# label-coupled plugins: a bound pod j changes pod k's evaluation ONLY
+# when j is visible to k's selectors, or k to a term j imposes  (JAX :142)
+LABEL_COUPLED = {"PodTopologySpread", "InterPodAffinity"}
+
+
+def speculation_ok(cfg, have_manifests: bool = True,
+                   ignore: frozenset | set = frozenset()) -> bool:
+    """True when the ACTIVE plugin set (enabled list plus every per-point
+    override) admits exact speculative batching.  Label-coupled plugins
+    require the pod manifests (for the interaction rule); without them
+    only the node-local class qualifies.  `ignore` names plugins the
+    caller handles outside the device pipeline."""
+    active = set(cfg.active_plugins()) - set(ignore)
+    if any(cfg.is_custom(n) for n in active):
+        return False
+    if active <= SAFE_SPECULATIVE:
+        return True
+    return have_manifests and active <= (SAFE_SPECULATIVE | LABEL_COUPLED)
+
+
+# ------------------------------------------------------------ interaction
+
+def _pod_terms(pod: dict, namespaces: list[dict] | None) -> tuple[list, list]:
+    """(selectors that OTHER pods are matched against for THIS pod's
+    evaluation, terms this pod imposes ON others once bound).  Reads: the
+    pod's spread-constraint selectors (same namespace, matchLabelKeys
+    merged) and its interpod terms; writes: its interpod terms, which act
+    on later pods as existing-pod constraints.  The terms come from the
+    plugins' own normalizers, so namespaceSelector resolution and
+    matchLabelKeys merging cannot diverge from what the evaluation
+    matches."""
+    from ..plugins.interpod import effective_terms
+    from ..plugins.topologyspread import effective_constraints
+
+    meta = pod.get("metadata") or {}
+    ns = meta.get("namespace") or "default"
+    reads: list[tuple[list, dict]] = []
+    writes: list[tuple[list, dict]] = []
+    for c in effective_constraints(pod):
+        reads.append(([ns], c.get("labelSelector") or {}))
+    for field in ("podAffinity", "podAntiAffinity"):
+        for preferred in (False, True):
+            for term, _w in effective_terms(pod, field, preferred,
+                                            namespaces=namespaces):
+                entry = (list(term.get("namespaces") or [ns]),
+                         term.get("labelSelector") or {})
+                reads.append(entry)
+                writes.append(entry)
+    return reads, writes
+
+
+def _matches_any(terms: list, pod: dict) -> bool:
+    from ..state.selectors import label_selector_matches
+
+    meta = pod.get("metadata") or {}
+    ns = meta.get("namespace") or "default"
+    labels = {k: str(v) for k, v in (meta.get("labels") or {}).items()}
+    for ns_list, sel in terms:
+        if ns in ns_list and label_selector_matches(sel, labels):
+            return True
+    return False
+
+
+class _InteractionOracle:
+    """interacts(j, k): does pod j's bind change pod k's label-coupled
+    state?  True when j matches any selector k READS, or k matches any
+    term j WRITES.  Conservative and exact: a False guarantees k's
+    spread/interpod inputs are untouched by j's bind."""
+
+    def __init__(self, pods: list[dict], namespaces: list[dict] | None = None):
+        self.pods = pods
+        self.namespaces = namespaces
+        self._terms = [None] * len(pods)
+
+    def _t(self, i: int):
+        if self._terms[i] is None:
+            self._terms[i] = _pod_terms(self.pods[i], self.namespaces)
+        return self._terms[i]
+
+    def interacts(self, j: int, k: int) -> bool:
+        k_reads, _ = self._t(k)
+        _, j_writes = self._t(j)
+        return (_matches_any(k_reads, self.pods[j])
+                or _matches_any(j_writes, self.pods[k]))
+
+
+def _interaction_cut(inter: _InteractionOracle, selected: np.ndarray,
+                     base: int, k: int) -> int:
+    """Shrink the dirty-node-accepted prefix [0, k) to the longest prefix
+    with no label-coupled interaction: pod i is kept only when no
+    earlier-kept BOUND pod interacts with it either way.  `base` is the
+    batch's first absolute pod index."""
+    bound: list[int] = []
+    for i in range(k):
+        if bound and any(inter.interacts(j, base + i) for j in bound):
+            return i
+        if int(selected[i]) >= 0:
+            bound.append(base + i)
+    return k
+
+
+# sparse scoring is exact only for plugins whose node-axis statics/xs rows
+# are read POSITIONALLY (gathering candidate rows keeps every read
+# identical); label-coupled plugins index domain tables by value, so they
+# take the dense eval instead
+def _sparse_ok(active: set) -> bool:
+    return active <= SAFE_SPECULATIVE
+
+
+# ------------------------------------------------------------- ladder
+
+def _batch_ladder(chunk: int, dp: int, pinned: int | None) -> list[int]:
+    """Adaptive batch rungs: dp multiples growing x4 from 8*dp up to the
+    chunk grid; a pinned batch is a one-rung ladder."""
+    dp = max(dp, 1)
+
+    def fit(b: int) -> int:
+        b = max(b - b % dp, dp)
+        return max(min(b, max(chunk - chunk % dp, dp)), 1)
+
+    if pinned is not None:
+        return [fit(pinned)]
+    rungs: list[int] = []
+    b = 8 * dp
+    while fit(b) < fit(chunk):
+        rungs.append(fit(b))
+        b *= 4
+    rungs.append(fit(chunk))
+    # dedupe while preserving order (tiny workloads collapse rungs)
+    out: list[int] = []
+    for r in rungs:
+        if not out or r != out[-1]:
+            out.append(r)
+    return out
+
+
+# ------------------------------------------------------------- stream
+
+class _SpecStats:
+    """Per-stream tallies; the final tier's numbers are the wave's."""
+
+    def __init__(self):
+        self.rounds: list[tuple[int, int]] = []   # (accepted, round size)
+        self.scan_pods = 0
+        self.fallback_at: int | None = None
+        self.final_batch = 0
+
+    def as_dict(self, adaptive: bool) -> dict:
+        accepts = [k for k, _ in self.rounds]
+        total = sum(accepts)
+        rolled = sum(m - k for k, m in self.rounds)
+        return {
+            "rounds": len(self.rounds),
+            "batch": self.final_batch,
+            "adaptive": adaptive,
+            "round_batches": [m for _, m in self.rounds],
+            "mean_accept": round(float(np.mean(accepts)), 2) if accepts else 0,
+            "accepted_first_try": int(sum(k == m for k, m in self.rounds)),
+            "accepted": total,
+            "rolled_back": rolled,
+            "accept_rate": round(total / (total + rolled), 4)
+                if total + rolled else None,
+            "fallback_at": self.fallback_at,
+            "scan_pods": self.scan_pods,
+        }
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """Blocking copy of a device tensor to host numpy, C order."""
+    return np.ascontiguousarray(t.cpu().numpy())
+
+
+def replay_speculative_stream(
+        cw: CompiledWorkload, mesh=None, chunk: int = 512,
+        batch: int | None = None, pods: list[dict] | None = None,
+        namespaces: list[dict] | None = None, on_chunk=None,
+        device_resident: bool | None = None, gang=None,
+        scan_fallback: bool = True,
+) -> tuple[ReplayResult, dict]:
+    """Schedule the whole queue in streaming speculative rounds (module
+    doc).  Same consumer contract as framework.replay.replay(): compact
+    chunk-grid results, on_chunk(rr, lo, hi) in ascending contiguous order
+    with re-delivery from chunk 0 on a width-tier overflow.
+
+    pods: the pod manifests, required when label-coupled plugins
+    (PodTopologySpread / InterPodAffinity) are active.  namespaces: the
+    namespace manifests for interpod namespaceSelector resolution.
+
+    Returns (rr, stats): rr is bit-identical to replay(cw) and the
+    sequential oracle; stats records rounds, acceptance and fallback.
+    Caller must have checked speculation_ok(cw.config, ...)."""
+    if mesh is not None:
+        raise NotImplementedError("meshes are not ported (ROADMAP Queue B: B12)")
+    if gang is not None:
+        raise NotImplementedError(
+            "gang round cuts are not ported (framework/gang.aligned_cut, ROADMAP Queue A)")
+    if device_resident:
+        raise NotImplementedError(
+            "device residency is not ported (ROADMAP Queue B: B7); chunks go to the host")
+    active = set(cw.config.active_plugins())
+    inter: _InteractionOracle | None = None
+    if active & LABEL_COUPLED:
+        if pods is None:
+            raise ValueError(
+                "label-coupled plugins active: the speculative stream needs "
+                "the pod manifests for the interaction rule")
+        inter = _InteractionOracle(pods, namespaces)
+
+    if batch is None:
+        batch = env_int("KSS_TPU_SPECULATIVE_BATCH", 0) or None
+
+    tiers = (("i64",) if "i64" in cw.host.get("score_dtypes", ())
+             else (None, "i32", "i64"))
+    for t, wide in enumerate(tiers):
+        result = _spec_run(cw, chunk, batch, on_chunk, wide, inter, scan_fallback)
+        if result is not None:
+            result[0].tiers = tiers[:t + 1]
+            return result
+    raise AssertionError("unreachable: i64 speculative replay cannot overflow")
+
+
+def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
+              wide, inter, scan_fallback: bool) -> tuple[ReplayResult, dict] | None:
+    """One width tier of the stream; None when a raw overflowed its group
+    dtype (the caller reruns from a fresh carry at the next tier)."""
+    dev = cw.device
+    p = cw.n_pods
+    chunk = min(chunk, max(p, 1))
+    pack_mode, score_dtypes, score_cols = _compact_plan(cw, wide)
+    step = build_step(cw, out_mode="compact", pack_mode=pack_mode,
+                      score_dtypes=score_dtypes, wide_raw=wide)
+    ladder = _batch_ladder(chunk, 1, batch)
+    adaptive = batch is None and len(ladder) > 1
+    rung = 0
+    min_accept = env_float("KSS_TPU_SPECULATIVE_MIN_ACCEPT", 0.25)
+    fallback_rounds = (env_int("KSS_TPU_SPECULATIVE_FALLBACK_ROUNDS", 3)
+                       if scan_fallback else 0)
+    check_overflow = wide != "i64"
+
+    n = cw.n_nodes
+    compact = _CompactChunks(chunk=chunk, pack_mode=pack_mode, score_cols=score_cols)
+    selected = np.full(p, -1, dtype=np.int32)
+    feasible_count = np.zeros(p, dtype=np.int32)
+    prefilter_reject = np.zeros(p, dtype=np.int32)
+    rr = ReplayResult(cw=cw, selected=selected,
+                      feasible_count=feasible_count,
+                      prefilter_reject=prefilter_reject, compact=compact)
+
+    # device-side chunk-grid accumulator: group buffers big enough for one
+    # grid chunk plus the largest single append (a top-rung round or a
+    # fallback scan chunk)
+    extra = max(chunk, max(ladder))
+    n8, n16, n32 = 0, 0, 0
+    for g, _r in score_cols:
+        n8 += g == "raw8"
+        n16 += g == "raw16"
+        n32 += g == "raw32"
+    buf_shapes = {
+        "packed": ((chunk + extra, n), PACK_MODES[pack_mode][0]),
+        "raw8": ((chunk + extra, n8, n), torch.int8),
+        "raw16": ((chunk + extra, n16, n), torch.int16),
+        # the i64 tier's raw32 group IS int64: the buffers must not
+        # truncate it
+        "raw32": ((chunk + extra, n32, n),
+                  torch.int64 if wide == "i64" else torch.int32),
+        "fc": ((chunk + extra,), torch.int32),
+    }
+    bufs = {name: torch.zeros(s, dtype=d, device=dev) for name, (s, d) in buf_shapes.items()}
+    fill = 0
+
+    def deliver(lo_c: int, hi_c: int) -> None:
+        if on_chunk is not None:
+            on_chunk(rr, lo_c, hi_c)
+
+    def ingest_chunk(heads: dict) -> None:
+        """Land one grid chunk (group name -> [chunk, ...] tensors) in the
+        compact result on the host, then deliver it to the consumer."""
+        ci = len(compact.packed)
+        lo_c = ci * chunk
+        hi_c = min(lo_c + chunk, p)
+        for group in _CompactChunks.GROUPS:
+            getattr(compact, group).append(_host(heads[group]))
+        deliver(lo_c, hi_c)
+
+    def emit_chunk() -> None:
+        nonlocal bufs, fill
+        heads, bufs = kspec.grid_emit(bufs, chunk)
+        fill -= chunk
+        ingest_chunk(heads)
+
+    # copy: the commit and the scan update the carry in place, and
+    # cw.init_carry must survive for later replays of the same workload
+    carry = _clone_carry(cw.init_carry)
+    stats = _SpecStats()
+    mode = "speculative"
+    low_streak = 0
+    # sparse-round eligibility: node-local plugin sets score/select on the
+    # gathered candidate rows only; label-coupled sets and wide-feasibility
+    # rounds run the dense eval
+    kcand = min(max(env_int("KSS_TPU_SPECULATIVE_CANDIDATES", 128), 1), n)
+    sparse = _sparse_ok(set(cw.config.active_plugins())) and kcand < n
+    if sparse and adaptive:
+        # sparse probes are cheap, so start at the TOP rung: a
+        # contention-free wave's rounds are then whole aligned chunks
+        # ingested directly; a collapse steps the ladder down round by
+        # round and the bottom-rung fallback still engages.  The dense
+        # eval keeps the climb-from-8 ramp
+        rung = len(ladder) - 1
+
+    def rows_of(out) -> dict:
+        return {"packed": out.packed_filter, "raw8": out.raw8, "raw16": out.raw16,
+                "raw32": out.raw32, "fc": out.feasible_count}
+
+    lo = 0
+    while lo < p:
+        if mode == "scan":
+            # contention fallback: the scan's chunk kernel, resumed from
+            # the speculative carry (bit-identical to the sequential carry
+            # at pod `lo`).  The first fallback chunk is sized to reach
+            # the chunk grid; every later one is a whole aligned chunk
+            # whose outputs ingest directly
+            aligned = fill == 0 and lo % chunk == 0
+            hi = min(lo + (chunk if aligned else chunk - fill), p)
+            m = hi - lo
+            xs_chunk = _slice_xs(cw.xs, lo, hi, chunk)
+            xs_chunk["is_pad"] = torch.arange(chunk, device=dev) >= m
+            carry, out = step.scan(carry, xs_chunk)
+            sel = _host(out.selected)
+            fc = _host(out.feasible_count)
+            rej = _host(out.prefilter_reject)
+            ovf = _host(out.raw_overflow)
+            if check_overflow and ovf[:m].any():
+                return None
+            selected[lo:hi] = sel[:m]
+            feasible_count[lo:hi] = fc[:m]
+            prefilter_reject[lo:hi] = rej[:m]
+            if aligned:
+                # a whole aligned chunk (or the final partial one, whose
+                # pad rows are don't-cares exactly like the scan path's)
+                ingest_chunk(rows_of(out))
+            else:
+                bufs = kspec.grid_append(bufs, rows_of(out), fill)
+                fill += m
+                while fill >= chunk:
+                    emit_chunk()
+            stats.scan_pods += m
+            lo = hi
+            continue
+
+        b = ladder[rung]
+        hi = min(lo + b, p)
+        m = hi - lo
+        xs = _slice_xs(cw.xs, lo, hi, b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= m
+        dense = not sparse
+        if sparse:
+            # one round; a wide-feasibility round (max count past the
+            # candidate cap) discards the sparse output and re-runs dense
+            (packed, reject_d, counts_d, raw8, raw16, raw32, ovf_d,
+             sel_dev) = kspec.spec_round(step, carry, xs, kcand)
+            k_dev = kspec.spec_oracle(packed, reject_d, sel_dev)
+            fc = _host(counts_d)
+            rej = _host(reject_d)
+            if int(fc[:m].max(initial=0)) > kcand:
+                dense = True  # wide feasibility: this round runs dense
+            else:
+                sel = _host(sel_dev)
+                ovf = _host(ovf_d)
+                rows = {"packed": packed, "raw8": raw8, "raw16": raw16,
+                        "raw32": raw32, "fc": counts_d}
+        if dense:
+            outs = kspec.spec_eval(step, carry, xs)
+            k_dev = kspec.spec_oracle(outs.packed_filter, outs.prefilter_reject,
+                                      outs.selected)
+            sel = _host(outs.selected)
+            fc = _host(outs.feasible_count)
+            rej = _host(outs.prefilter_reject)
+            ovf = _host(outs.raw_overflow)
+            sel_dev = outs.selected
+            rows = rows_of(outs)
+        k = min(int(k_dev), m)
+        if inter is not None and k > 1:
+            k = _interaction_cut(inter, sel, lo, k)
+        if check_overflow and ovf[:k].any():
+            return None
+        selected[lo:lo + k] = sel[:k]
+        feasible_count[lo:lo + k] = fc[:k]
+        prefilter_reject[lo:lo + k] = rej[:k]
+        carry = kspec.spec_commit(step, carry, xs, sel_dev, k)
+        if k == m == chunk and fill == 0 and lo % chunk == 0:
+            # a fully-accepted top-rung round at an aligned position IS a
+            # grid chunk: ingest its outputs directly, with no
+            # accumulator passes (the steady state of a contention-free
+            # wave)
+            ingest_chunk(rows)
+        else:
+            bufs = kspec.grid_append(bufs, rows, fill)
+            fill += k
+            while fill >= chunk:
+                emit_chunk()
+        stats.rounds.append((k, m))
+        stats.final_batch = b
+        lo += k
+        # contention-aware controller: full-accept rounds climb the
+        # ladder, heavily-cut rounds step down, and a sustained accept
+        # collapse at the bottom rung hands the rest of the wave to the
+        # sequential scan
+        if adaptive:
+            if k == m and rung < len(ladder) - 1:
+                rung += 1
+            elif k < max(1, m // 4) and rung > 0:
+                rung -= 1
+        if fallback_rounds > 0 and rung == 0 and lo < p:
+            if k / m < min_accept:
+                low_streak += 1
+                if low_streak >= fallback_rounds:
+                    mode = "scan"
+                    stats.fallback_at = lo
+            else:
+                low_streak = 0
+
+    if fill > 0:
+        emit_chunk()
+    return rr, stats.as_dict(adaptive)
+
+
+def replay_speculative(cw: CompiledWorkload, mesh=None, batch: int | None = None,
+                       pods: list[dict] | None = None,
+                       namespaces: list[dict] | None = None,
+                       ) -> tuple[ReplayResult, dict]:
+    """Whole-queue speculative replay without a streaming consumer, the
+    direct-call surface.  Results land in the same compact chunk grid as
+    the scan.  The scan fallback stays OFF here: direct callers probe
+    speculation itself, and every pod goes through a round."""
+    return replay_speculative_stream(cw, mesh, batch=batch, pods=pods,
+                                     namespaces=namespaces,
+                                     scan_fallback=False)

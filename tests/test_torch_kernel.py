@@ -84,3 +84,117 @@ def test_kernel_matches_plain(card, wl):
             for a, b in zip(_leaves(ck), _leaves(cp)):
                 assert torch.equal(a, b), (out_mode, pack_mode, wide, lo, "carry")
         assert kstep.step_chunk.launches - launches == -(-cw.n_pods // chunk)
+
+
+# ------------------------------------------------ the speculative wave's kernels
+
+def _slot_mixed():
+    # pinned pods around broad ones, on nodes with taints: sparse rounds,
+    # wide-feasibility rows, and every node-local scorer
+    from kube_scheduler_simulator_tpu_torch.models import SLOT_LABEL, make_slot_pinned_workload
+
+    _, pinned = make_slot_pinned_workload(40, 32, seed=71)
+    nodes = make_nodes(32, seed=71, taint_fraction=0.3)
+    for i, node in enumerate(nodes):
+        node["metadata"]["labels"][SLOT_LABEL] = f"slot-{i % 16}"
+    pods = pinned[:10] + make_pods(10, seed=72, with_tolerations=True) + pinned[10:]
+    return nodes, pods, PluginSetConfig(enabled=SIX[:4])
+
+
+SPEC_WORKLOADS = {"tiny": WORKLOADS["tiny"], "config5": WORKLOADS["config5"],
+                  "slot_mixed": _slot_mixed}
+
+
+def _batch(cw, lo, b, dev):
+    hi = min(lo + b, cw.n_pods)
+    xs = _slice_xs(cw.xs, lo, hi, b)
+    xs["is_pad"] = torch.arange(b, device=dev) >= hi - lo
+    return xs
+
+
+def _equal(a, b, what):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert torch.equal(a.cpu(), b.cpu()), what
+    elif isinstance(a, dict):
+        for k in a:
+            _equal(a[k], b[k], f"{what}.{k}")
+    else:
+        for k, (x, y) in enumerate(zip(a, b, strict=True)):
+            _equal(x, y, f"{what}[{k}]")
+
+
+@pytest.mark.parametrize("wl", list(SPEC_WORKLOADS))
+@pytest.mark.parametrize("wide", [None, "i32", "i64"])
+def test_spec_kernels_match_plain(card, wl, wide):
+    """spec_eval, spec_oracle, spec_round (node-local sets), and the commit
+    of the workload's variant, each against its plain version on the
+    card, over batches with and without pad rows."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    cw = compile_workload(*SPEC_WORKLOADS[wl](), device=card)
+    pm, sd, _ = _compact_plan(cw, wide)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+    sparse = set(cw.config.active_plugins()) <= kspec.SPARSE_KERNEL_PLUGINS
+    carry = _clone_carry(cw.init_carry)
+    for lo, b in ((0, 8), (5, 16), (cw.n_pods - 3, 8)):
+        xs = _batch(cw, lo, b, card)
+        ev = kspec.spec_eval(step, carry, xs)
+        _equal(ev, kspec.eval_plain(step, carry, xs), f"spec_eval {lo}")
+        k = kspec.spec_oracle(ev.packed_filter, ev.prefilter_reject, ev.selected)
+        _equal(k, kspec._oracle_core(ev.packed_filter, ev.prefilter_reject, ev.selected, b),
+               f"spec_oracle {lo}")
+        if sparse:
+            for kcand in (1, 4, cw.n_nodes - 1):
+                got = kspec.spec_round(step, carry, xs, kcand)
+                _equal(got, kspec.sparse_round_plain(step, carry, xs, kcand),
+                       f"spec_round {lo} {kcand}")
+        for acc in (0, 3, b):
+            want = kspec.commit_plain(step, _clone_carry(carry), xs, ev.selected, acc)
+            got = kspec.spec_commit(step, _clone_carry(carry), xs, ev.selected, acc)
+            _equal(got, want, f"commit {lo} {acc}")
+        carry = want
+
+
+@pytest.mark.parametrize("pack", [torch.uint8, torch.uint16, torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [7, 8])
+def test_grid_kernels_match_plain(card, pack, n):
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    chunk, extra = 16, 16
+    gen = torch.Generator(device=card).manual_seed(n)
+    shapes = {"packed": ((n,), pack), "raw8": ((2, n), torch.int8),
+              "raw16": ((0, n), torch.int16), "raw32": ((3, n), torch.int64),
+              "fc": ((), torch.int32)}
+
+    def rand(rows, shape, dtype):
+        return torch.randint(0, 100, (rows,) + shape, device=card, generator=gen,
+                             dtype=torch.int32).to(dtype)
+
+    for fill, b in ((0, 8), (5, 8), (15, 16), (3, 1)):
+        bufs = {k: rand(chunk + extra, s, d) for k, (s, d) in shapes.items()}
+        rows = {k: rand(b, s, d) for k, (s, d) in shapes.items()}
+        got = kspec.grid_append({k: v.clone() for k, v in bufs.items()}, rows, fill)
+        want = kspec.append_plain({k: v.clone() for k, v in bufs.items()}, rows, fill)
+        _equal(got, want, f"append {fill} {b}")
+        _equal(kspec.grid_emit(got, chunk), kspec.emit_plain(want, chunk), f"emit {fill} {b}")
+
+
+@pytest.mark.parametrize("wl", list(SPEC_WORKLOADS))
+def test_speculative_stream_on_card_matches_cpu(card, wl):
+    """The whole stream on the card (every round through the kernels)
+    equals the stream on the CPU (the plain versions), stats included."""
+    from kube_scheduler_simulator_tpu_torch.parallel import replay_speculative_stream
+
+    nodes, pods, cfg = SPEC_WORKLOADS[wl]()
+    runs = []
+    for dev in (card, "cpu"):
+        cw = compile_workload(nodes, pods, cfg, device=dev)
+        runs.append(replay_speculative_stream(cw, chunk=16, pods=pods))
+    (rr, stats), (want, wstats) = runs
+    assert stats == wstats
+    assert (rr.selected == want.selected).all()
+    for group in ("packed", "raw8", "raw16", "raw32"):
+        for a, b in zip(getattr(rr._compact, group), getattr(want._compact, group), strict=True):
+            assert a.dtype == b.dtype and (a == b).all(), group
