@@ -56,6 +56,151 @@ FILL = 37                      # an unaligned fill mark for grid_append's check
 DIRECT_SCALE = 0.1024          # 1,024 pods x 5,000 nodes for replay_speculative
 
 
+# the default-profile fleet's decoration (phases 10-12)
+GI = 1 << 30
+MB = 1 << 20
+ZONE_KEY = "topology.kubernetes.io/zone"
+CSI_DRIVER = "csi.example.com"
+CSI_LIMIT = 4
+
+
+def decorate_default_profile(nodes: list, pods: list, seed: int,
+                             volumes_on: bool = True) -> tuple[dict, list]:
+    """Decorate a BASELINE fleet, in place, for the scheduler's default
+    profile, from one numpy generator on `seed`: 2 % of nodes
+    unschedulable; a catalog of 64 images of 10 MB-2 GB, 6 listed on each
+    node, one in 80 % of pods; one hostPort in 30000-30015 in 20 % of pods
+    (a quarter UDP, a quarter on a specific hostIP); 0.5 % of pods pinned
+    by spec.nodeName.  With volumes_on also: a WaitForFirstConsumer class
+    (no provisioner) and 1,500 zone-affine PVs of 1-8 Gi per 10,000 pods,
+    in every zone but the last two, one unbound 1-4 Gi claim in 10 % of
+    pods; claims bound to zone-labelled
+    PVs in 2 %; ReadWriteOncePod claims shared in pairs by 0.5 %; one CSI
+    volume of one driver in 5 %, under a CSINode limit of 4 on every node,
+    with a tenth of the nodes already at the limit through bound pods; and
+    a missing claim in 10 pods per 10,000.  Counts scale with the fleet,
+    at least one of each.
+
+    -> (volumes for compile_workload, bound_pods)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, p = len(nodes), len(pods)
+    zones = sorted({nd["metadata"]["labels"].get(ZONE_KEY, "") for nd in nodes})
+
+    def some(frac: float) -> np.ndarray:
+        k = min(p, max(1, round(frac * p)))
+        return rng.choice(p, size=k, replace=False)
+
+    for j in rng.choice(n, size=max(1, round(0.02 * n)), replace=False):
+        nodes[j].setdefault("spec", {})["unschedulable"] = True
+    sizes = rng.integers(10 * MB, 2048 * MB, size=64)
+    catalog = [f"registry.example/app-{k}:v{k % 3}" for k in range(64)]
+    for nd in nodes:
+        nd.setdefault("status", {})["images"] = [
+            {"names": [catalog[k]], "sizeBytes": int(sizes[k])}
+            for k in rng.choice(64, size=6, replace=False)]
+    for i in some(0.8):
+        pods[i]["spec"]["containers"][0]["image"] = catalog[int(rng.integers(64))]
+    for i in some(0.2):
+        port = {"containerPort": 8080, "hostPort": int(rng.integers(30000, 30016))}
+        if rng.random() < 0.25:
+            port["protocol"] = "UDP"
+        if rng.random() < 0.25:
+            port["hostIP"] = f"10.0.0.{int(rng.integers(1, 4))}"
+        pods[i]["spec"]["containers"][0]["ports"] = [port]
+    for i in some(0.005):
+        pods[i]["spec"]["nodeName"] = nodes[int(rng.integers(n))]["metadata"]["name"]
+    if not volumes_on:
+        return {}, []
+
+    def claim(pod: dict, name: str) -> None:
+        pod["spec"].setdefault("volumes", []).append(
+            {"name": f"v-{name}", "persistentVolumeClaim": {"claimName": name}})
+
+    def pvc(name: str, ns: str, sc: str, request: int, modes=("ReadWriteOnce",),
+            volume_name: str = "") -> dict:
+        spec = {"storageClassName": sc, "accessModes": list(modes),
+                "resources": {"requests": {"storage": str(request)}}}
+        if volume_name:
+            spec["volumeName"] = volume_name
+        return {"metadata": {"name": name, "namespace": ns}, "spec": spec}
+
+    def pv(name: str, cap: int, sc: str = "", modes=("ReadWriteOnce",), labels=None,
+           zone: str | None = None, claim_ref: tuple | None = None, csi=None) -> dict:
+        spec = {"capacity": {"storage": str(cap)}, "accessModes": list(modes),
+                "storageClassName": sc}
+        if zone is not None:
+            spec["nodeAffinity"] = {"required": {"nodeSelectorTerms": [{"matchExpressions": [
+                {"key": ZONE_KEY, "operator": "In", "values": [zone]}]}]}}
+        if claim_ref is not None:
+            spec["claimRef"] = {"namespace": claim_ref[0], "name": claim_ref[1]}
+        if csi is not None:
+            spec["csi"] = csi
+        return {"metadata": {"name": name, "labels": labels or {}}, "spec": spec}
+
+    scs = [{"metadata": {"name": "wffc"}, "provisioner": "kubernetes.io/no-provisioner",
+            "volumeBindingMode": "WaitForFirstConsumer"}]
+    pvcs, pvs = [], []
+    # local PVs in all zones but the last two: there a claim finds none
+    local_zones = zones[:max(1, len(zones) - 2)]
+    for k in range(max(1, round(0.15 * p))):
+        pvs.append(pv(f"pv-local-{k}", int(rng.integers(1, 9)) * GI, sc="wffc",
+                      zone=local_zones[int(rng.integers(len(local_zones)))]))
+    order = rng.permutation(p)
+    counts = [max(1, round(f * p)) for f in (0.10, 0.02, 0.005, 0.05, 0.001)]
+    counts[2] = max(2, counts[2] - counts[2] % 2)  # ReadWriteOncePod pairs
+    cuts = np.cumsum(counts)
+    unbound, zoned, rwop, csi, missing = np.split(order[:cuts[-1]], cuts[:-1])
+    for i in unbound:
+        ns = pods[i]["metadata"].get("namespace") or "default"
+        pvcs.append(pvc(f"claim-{i}", ns, "wffc", int(rng.integers(1, 5)) * GI))
+        claim(pods[i], f"claim-{i}")
+    for i in zoned:
+        ns = pods[i]["metadata"].get("namespace") or "default"
+        zone = zones[int(rng.integers(len(zones)))]
+        pvs.append(pv(f"pv-zoned-{i}", 10 * GI, labels={ZONE_KEY: zone},
+                      claim_ref=(ns, f"zoned-{i}")))
+        pvcs.append(pvc(f"zoned-{i}", ns, "", 10 * GI, volume_name=f"pv-zoned-{i}"))
+        claim(pods[i], f"zoned-{i}")
+    for k in range(0, len(rwop), 2):
+        # the pair shares one claim, in the first pod's namespace (every
+        # BASELINE pod is in "default")
+        ns = pods[rwop[k]]["metadata"].get("namespace") or "default"
+        modes = ("ReadWriteOncePod",)
+        pvs.append(pv(f"pv-rwop-{k}", GI, modes=modes, claim_ref=(ns, f"rwop-{k}")))
+        pvcs.append(pvc(f"rwop-{k}", ns, "", GI, modes=modes, volume_name=f"pv-rwop-{k}"))
+        for i in rwop[k:k + 2]:
+            claim(pods[i], f"rwop-{k}")
+    for i in csi:
+        ns = pods[i]["metadata"].get("namespace") or "default"
+        pvs.append(pv(f"pv-csi-{i}", GI, claim_ref=(ns, f"csi-{i}"),
+                      csi={"driver": CSI_DRIVER, "volumeHandle": f"h-{i}"}))
+        pvcs.append(pvc(f"csi-{i}", ns, "", GI, volume_name=f"pv-csi-{i}"))
+        claim(pods[i], f"csi-{i}")
+    for i in missing:
+        claim(pods[i], f"missing-{i}")
+    csinodes = [{"metadata": {"name": nd["metadata"]["name"]},
+                 "spec": {"drivers": [{"name": CSI_DRIVER, "allocatable": {"count": CSI_LIMIT}}]}}
+                for nd in nodes]
+    # a tenth of the nodes already hold CSI_LIMIT volumes of the driver
+    bound = []
+    for j in rng.choice(n, size=max(1, n // 10), replace=False):
+        name = nodes[j]["metadata"]["name"]
+        filler = {"metadata": {"name": f"csi-filler-{j}", "namespace": "kube-system"},
+                  "spec": {"nodeName": name, "containers": [{"name": "c", "image": "filler:v1",
+                           "resources": {"requests": {"cpu": "10m"}}}]},
+                  "status": {"phase": "Running"}}
+        for v in range(CSI_LIMIT):
+            key = f"filler-{j}-{v}"
+            pvs.append(pv(f"pv-{key}", GI, claim_ref=("kube-system", key),
+                          csi={"driver": CSI_DRIVER, "volumeHandle": f"h-{key}"}))
+            pvcs.append(pvc(key, "kube-system", "", GI, volume_name=f"pv-{key}"))
+            claim(filler, key)
+        bound.append((filler, name))
+    return {"pvcs": pvcs, "pvs": pvs, "storageclasses": scs, "csinodes": csinodes}, bound
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -158,6 +303,39 @@ def tree_err(got, want) -> int:
     return err
 
 
+def same_replay(a, b, what: str, sample) -> None:
+    """Equal results: selections, feasible counts, decode bytes of the
+    sampled pods, and every compact chunk's bytes over the queue's
+    pods (the last chunk's pad rows are don't-cares), the raw scores
+    at feasible nodes.  A raw at an infeasible node is a don't-care
+    of the compact layout, which never reads it, and the wave's differ
+    from the scan's there: a sparse round leaves 0 off its
+    candidates, and a round evaluates its pods against the carry of
+    the round's start, whose later binds land only on nodes the
+    accepted pods cannot use (speculative.py's exactness argument)."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result
+
+    check((a.selected == b.selected).all(), f"{what}: selected")
+    check((a.feasible_count == b.feasible_count).all(), f"{what}: feasible_count")
+    check((a.prefilter_reject == b.prefilter_reject).all(), f"{what}: prefilter_reject")
+    for grp in ("packed", "raw8", "raw16", "raw32"):
+        ga, gb = getattr(a._compact, grp), getattr(b._compact, grp)
+        check(len(ga) == len(gb), f"{what}: {grp} chunk count")
+        for ci, (x, y) in enumerate(zip(ga, gb)):
+            real = min(CHUNK, a.cw.n_pods - ci * CHUNK)
+            x, y = x[:real], y[:real]
+            if grp != "packed":
+                feas = (a._compact.packed[ci][:real] == 0)[:, None, :]
+                x, y = np.where(feas, x, 0), np.where(feas, y, 0)
+            check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+                  f"{what}: compact {grp} chunk {ci} bytes")
+    for i in sample:
+        check(decode_pod_result(a, i) == decode_pod_result(b, i),
+              f"{what}: pod {i} annotations")
+
+
 def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     """Phases 6-9: the speculative wave's kernels against their plain
     versions, its two paths (low contention, contended) and the kernels'
@@ -199,33 +377,6 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         err = tree_err(got, want)
         errs[name] = max(errs.get(name, 0), err)
         check(err == 0, f"{name} differs from its plain version (max |d| {err})")
-
-    def same_replay(a, b, what: str, sample) -> None:
-        """Equal results: selections, feasible counts, decode bytes of the
-        sampled pods, and every compact chunk's bytes over the queue's
-        pods (the last chunk's pad rows are don't-cares), the raw scores
-        at feasible nodes.  A raw at an infeasible node is a don't-care
-        of the compact layout, which never reads it, and the wave's differ
-        from the scan's there: a sparse round leaves 0 off its
-        candidates, and a round evaluates its pods against the carry of
-        the round's start, whose later binds land only on nodes the
-        accepted pods cannot use (speculative.py's exactness argument)."""
-        check((a.selected == b.selected).all(), f"{what}: selected")
-        check((a.feasible_count == b.feasible_count).all(), f"{what}: feasible_count")
-        for grp in ("packed", "raw8", "raw16", "raw32"):
-            ga, gb = getattr(a._compact, grp), getattr(b._compact, grp)
-            check(len(ga) == len(gb), f"{what}: {grp} chunk count")
-            for ci, (x, y) in enumerate(zip(ga, gb)):
-                real = min(CHUNK, a.cw.n_pods - ci * CHUNK)
-                x, y = x[:real], y[:real]
-                if grp != "packed":
-                    feas = (a._compact.packed[ci][:real] == 0)[:, None, :]
-                    x, y = np.where(feas, x, 0), np.where(feas, y, 0)
-                check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
-                      f"{what}: compact {grp} chunk {ci} bytes")
-        for i in sample:
-            check(decode_pod_result(a, i) == decode_pod_result(b, i),
-                  f"{what}: pod {i} annotations")
 
     # ---- 6. the wave's kernels == their plain versions, at full width
     t6 = time.perf_counter()
@@ -505,6 +656,359 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     } for name in ms]
 
 
+# the default profile's further plugins, fused into the kernels: group ->
+# (plugins, source, the JAX function it replaces)
+B9_GROUPS = {
+    "B9a": (("NodeUnschedulable", "NodeName"), "taints.cuh",
+            "kube_scheduler_simulator_tpu/plugins/taints.py:139"),
+    "B9b": (("NodePorts",), "ports.cuh", "kube_scheduler_simulator_tpu/plugins/ports.py:152"),
+    "B9c": (("ImageLocality",), "pod.cuh",
+            "kube_scheduler_simulator_tpu/plugins/imagelocality.py:109"),
+    "B9d": (("VolumeZone",), "volumes.cuh",
+            "kube_scheduler_simulator_tpu/plugins/volumezone.py:97"),
+    "B9e": (("NodeVolumeLimits",), "volumes.cuh",
+            "kube_scheduler_simulator_tpu/plugins/nodevolumelimits.py:125"),
+    "B9f": (("VolumeRestrictions",), "volumes.cuh",
+            "kube_scheduler_simulator_tpu/plugins/volumerestrictions.py:173"),
+    "B9g": (("VolumeBinding",), "volumes.cuh",
+            "kube_scheduler_simulator_tpu/plugins/volumebinding.py:222"),
+}
+SAFE_PLUGINS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
+                "TaintToleration", "NodeUnschedulable", "NodeName", "ImageLocality", "NodePorts")
+
+
+def default_profile_phases(dev, card: str) -> list[dict]:
+    """Phases 10-12: the scheduler's default profile.  10: every B9 row of
+    step_chunk at full width, and spec_eval / spec_round /
+    spec_commit_bind on the SAFE-set fleet, against the plain versions;
+    11: the default-profile fleet through compile and replay (B1 with B9
+    fused in), held to the plain replay; 12: the SAFE-set stream, held to
+    its scan.  -> the B9 entries of the JSON line."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import PACK_MODES, build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        ReplayResult, _CompactChunks, _clone_carry, _compact_plan, _slice_xs, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.models import (
+        baseline_config, make_slot_pinned_workload)
+    from kube_scheduler_simulator_tpu_torch.parallel import replay_speculative_stream
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+
+    kernels = (*kspec.KERNELS, kstep.step_chunk)
+
+    def counts() -> dict:
+        return {f.__name__: f.launches for f in kernels}
+
+    def reset() -> None:
+        for f in kernels:
+            f.launches = 0
+
+    def batch_xs(w, lo: int, b: int) -> dict:
+        hi = min(lo + b, w.n_pods)
+        xs = _slice_xs(w.xs, lo, hi, b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
+        return xs
+
+    group_of = {name: g for g, (names, _, _) in B9_GROUPS.items() for name in names}
+    errs = {g: 0 for g in B9_GROUPS}
+
+    # ---- 10. B9 == plain at full width
+    t10 = time.perf_counter()
+    dnodes, dpods, _ = baseline_config(CONFIG, scale=1.0, seed=SEED)
+    volumes, bound_pods = decorate_default_profile(dnodes, dpods, SEED)
+    t0 = time.perf_counter()
+    dcw = compile_workload(dnodes, dpods, PluginSetConfig(), volumes=volumes,
+                           bound_pods=bound_pods, device=dev)
+    torch.cuda.synchronize()
+    dcompile_s = time.perf_counter() - t0
+    p, n = dcw.n_pods, dcw.n_nodes
+    step_full = build_step(dcw, out_mode="full")
+    xs0 = batch_xs(dcw, 0, CHUNK)
+    ck, ok_ = kstep.step_chunk(step_full, _clone_carry(dcw.init_carry), xs0)
+    cp, op_ = step_full.plain_scan(_clone_carry(dcw.init_carry), xs0)
+    torch.cuda.synchronize()
+    rows = 0
+    for field, names in (("filter_codes", step_full.filter_names),
+                         ("score_raw", step_full.score_names),
+                         ("score_final", step_full.score_names)):
+        a, b = getattr(ok_, field), getattr(op_, field)
+        for k, name in enumerate(names):
+            err = tree_err(a[:, k], b[:, k])
+            check(err == 0, f"default profile {field}[{name}] differs from the plain step "
+                            f"(max |d| {err})")
+            rows += 1
+            if name in group_of:
+                errs[group_of[name]] = max(errs[group_of[name]], err)
+    for field in ("selected", "feasible_count", "prefilter_reject"):
+        check(tree_err(getattr(ok_, field), getattr(op_, field)) == 0,
+              f"default profile {field} differs from the plain step")
+    for key in ck:
+        err = tree_err(ck[key], cp[key])
+        check(err == 0, f"default profile carry {key} differs from the plain step")
+        if key in group_of:
+            errs[group_of[key]] = max(errs[group_of[key]], err)
+    rejected0 = int((op_.prefilter_reject != 0).sum())
+    del ck, cp, ok_, op_
+
+    snodes, spods = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)
+    decorate_default_profile(snodes, spods, SEED, volumes_on=False)
+    t0 = time.perf_counter()
+    scw = compile_workload(snodes, spods, PluginSetConfig(enabled=list(SAFE_PLUGINS)),
+                           device=dev)
+    torch.cuda.synchronize()
+    scompile_s = time.perf_counter() - t0
+    spm, ssd, _ = _compact_plan(scw, None)
+    sstep = build_step(scw, out_mode="compact", pack_mode=spm, score_dtypes=ssd)
+    scarry = _clone_carry(scw.init_carry)
+    spec_err = {}
+    for lo in (0, SPEC_BATCH):
+        sxs = batch_xs(scw, lo, SPEC_BATCH)
+        got = kspec.spec_round(sstep, scarry, sxs, KCAND)
+        spec_err["spec_round"] = max(spec_err.get("spec_round", 0), tree_err(
+            got, kspec.sparse_round_plain(sstep, scarry, sxs, KCAND)))
+        ev = kspec.spec_eval(sstep, scarry, sxs)
+        spec_err["spec_eval"] = max(spec_err.get("spec_eval", 0), tree_err(
+            ev, kspec.eval_plain(sstep, scarry, sxs)))
+        k = int(kspec.spec_oracle(got[0], got[1], got[7]))
+        want = kspec.commit_plain(sstep, _clone_carry(scarry), sxs, got[7], k)
+        scarry = kspec.spec_commit_bind(sstep, scarry, sxs, got[7], k)
+        spec_err["spec_commit_bind"] = max(spec_err.get("spec_commit_bind", 0),
+                                           tree_err(scarry, want))
+    for name, err in spec_err.items():
+        check(err == 0, f"SAFE set: {name} differs from its plain version (max |d| {err})")
+    for g in ("B9a", "B9b", "B9c"):
+        errs[g] = max(errs[g], *spec_err.values())
+    torch.cuda.synchronize()
+    print(f"[10 default profile kernels==plain] default-profile fleet {p}x{n} (compile "
+          f"{dcompile_s:.3f} s, {len(bound_pods)} bound pods, {len(volumes['pvs'])} PVs): "
+          f"step_chunk chunk 0 in full mode, {rows} plugin rows ({len(step_full.filter_names)} "
+          f"filters, {len(step_full.score_names)} scorers), selections, PreFilter rejects "
+          f"({rejected0} in the chunk) and every carry equal; SAFE-set fleet "
+          f"{scw.n_pods}x{scw.n_nodes} (compile {scompile_s:.3f} s): spec_round, spec_eval, "
+          f"spec_commit_bind at batch {SPEC_BATCH} over two rounds equal; max_abs_err "
+          f"{errs} {spec_err}; {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # ---- 11. the default profile's main path: compile -> replay (B1 + B9)
+    t11 = time.perf_counter()
+    reset()
+    t0 = time.perf_counter()
+    drr = replay(dcw, chunk=CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    dwall_s = time.perf_counter() - t0
+    main_counts = counts()
+    n_chunks = math.ceil(p / CHUNK)
+    check(main_counts["step_chunk"] == n_chunks * len(drr.tiers),
+          f"default profile: step_chunk launches {main_counts['step_chunk']}")
+    wide = drr.tiers[-1]
+    pack_mode, score_dtypes, _ = _compact_plan(dcw, wide)
+    check(pack_mode == drr._compact.pack_mode, "pack mode")
+    dstep = build_step(dcw, out_mode="compact", pack_mode=pack_mode,
+                       score_dtypes=score_dtypes, wide_raw=wide)
+    # the first pod of each kind, from the replay's packed words
+    col = {name: k for k, name in enumerate(dcw.config.filters())}
+    _, code_bits, ff_bits = PACK_MODES[pack_mode]
+    first: dict[str, int] = {}
+    for ci, packed in enumerate(drr._compact.packed):
+        w = packed[:min(CHUNK, p - ci * CHUNK)].astype(np.int64)
+        ff, code = (w >> code_bits) & ((1 << ff_bits) - 1), w & ((1 << code_bits) - 1)
+        for kind, hit in (("NodePorts conflict", ff == col["NodePorts"] + 1),
+                          ("VolumeBinding bind conflict",
+                           (ff == col["VolumeBinding"] + 1) & ((code & 2) != 0)),
+                          ("NodeVolumeLimits rejection", ff == col["NodeVolumeLimits"] + 1),
+                          ("VolumeZone conflict", ff == col["VolumeZone"] + 1)):
+            rows_hit = np.flatnonzero(hit.any(axis=1))
+            if kind not in first and len(rows_hit):
+                first[kind] = ci * CHUNK + int(rows_hit[0])
+    for kind, bit in (("static PreFilter reject", 2), ("ReadWriteOncePod reject", 1)):
+        hit = np.flatnonzero(drr.prefilter_reject & bit)
+        if len(hit):
+            first[kind] = int(hit[0])
+    for kind in ("static PreFilter reject", "NodePorts conflict", "VolumeBinding bind conflict",
+                 "NodeVolumeLimits rejection"):
+        check(kind in first, f"default profile: no pod with a {kind}")
+    check_chunks = sorted({0, 1} | {i // CHUNK for i in first.values()})
+
+    # the same chunk loop, kernel launches between CUDA events (device
+    # time); at the checked chunks the plain step runs from the same carry
+    carry = _clone_carry(dcw.init_carry)
+    plain_chunks = _CompactChunks(chunk=CHUNK, pack_mode=pack_mode,
+                                  score_cols=drr._compact.score_cols)
+    psel, pfc, prej = (drr.selected.copy(), drr.feasible_count.copy(),
+                       drr.prefilter_reject.copy())
+    events = []
+    for ci in range(n_chunks):
+        lo = ci * CHUNK
+        m = min(CHUNK, p - lo)
+        xs = batch_xs(dcw, lo, CHUNK)
+        before = _clone_carry(carry) if ci in check_chunks else None
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        carry, out = dstep.scan(carry, xs)
+        e1.record()
+        events.append((e0, e1))
+        for grp in _CompactChunks.GROUPS:
+            getattr(plain_chunks, grp).append(drr._compact.host(grp, ci))
+        if before is None:
+            continue
+        pc, pout = dstep.plain_scan(before, xs)
+        host = {f: getattr(out, f).cpu().numpy() for f in out._fields}
+        phost = {f: getattr(pout, f).cpu().numpy() for f in pout._fields}
+        for f in ("selected", "feasible_count", "prefilter_reject", "packed_filter",
+                  "raw8", "raw16", "raw32", "raw_overflow"):
+            check(host[f].tobytes() == phost[f].tobytes(),
+                  f"default profile chunk {ci}: {f} differs from the plain step")
+        for grp, f in (("packed", "packed_filter"), ("raw8", "raw8"), ("raw16", "raw16"),
+                       ("raw32", "raw32")):
+            check(drr._compact.host(grp, ci).tobytes() == host[f].tobytes(),
+                  f"default profile chunk {ci}: replay's {grp} differs from the relaunch")
+            getattr(plain_chunks, grp)[ci] = phost[f]
+        check(tree_err(carry, pc) == 0, f"default profile chunk {ci}: carry differs")
+        psel[lo:lo + m] = phost["selected"][:m]
+        pfc[lo:lo + m] = phost["feasible_count"][:m]
+        prej[lo:lo + m] = phost["prefilter_reject"][:m]
+    torch.cuda.synchronize()
+    ddevice_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    rr_plain = ReplayResult(cw=dcw, selected=psel, feasible_count=pfc, prefilter_reject=prej,
+                            compact=plain_chunks)
+    for what in ("selected", "feasible_count", "prefilter_reject"):
+        check((getattr(rr_plain, what) == getattr(drr, what)).all(),
+              f"default profile: {what} differs from the plain path")
+    sample = sorted(set(first.values()) | {0, 1, CHUNK - 1, CHUNK, 2 * CHUNK - 1})
+    t0 = time.perf_counter()
+    anns = {i: decode_pod_result(drr, i) for i in sample}
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+    for i in sample:
+        check(sorted(anns[i]) == sorted(ALL_PLUGIN_KEYS), f"pod {i}: annotation keys")
+        check(anns[i] == decode_pod_result(rr_plain, i),
+              f"default profile pod {i}: annotations differ from the plain path")
+        want = dcw.node_table.names[drr.selected[i]] if drr.selected[i] >= 0 else ""
+        check(anns[i]["kube-scheduler-simulator.sigs.k8s.io/selected-node"] == want,
+              f"pod {i}: selected-node annotation")
+    for kind in ("static PreFilter reject", "ReadWriteOncePod reject"):
+        if kind in first:
+            pf = json.loads(anns[first[kind]]["kube-scheduler-simulator.sigs.k8s.io/"
+                                              "prefilter-result-status"])
+            check("VolumeRestrictions" in pf or "VolumeBinding" in pf, f"{kind}: {pf}")
+    ms_launch = ddevice_s * 1e3 / n_chunks
+    print(f"[11 default profile main path] {p} pods x {n} nodes, PluginSetConfig() "
+          f"({len(dcw.config.filters())} filters, {len(dcw.config.scorers())} scorers): "
+          f"scheduled {drr.scheduled}, PreFilter-rejected {int((drr.prefilter_reject != 0).sum())}; "
+          f"compile {dcompile_s:.3f} s; device {ddevice_s:.4f} s; wall {dwall_s:.4f} s = "
+          f"{p / dwall_s:.1f} cycles/s; step_chunk {ms_launch:.3f} ms per launch; launches "
+          f"{main_counts['step_chunk']} = {n_chunks} chunks x {len(drr.tiers)} tier(s) "
+          f"{list(drr.tiers)}; chunks {check_chunks} equal to the plain step from the same carry "
+          f"(0-1 the plain replay from the start: selected, feasible_count, prefilter_reject, "
+          f"compact bytes, carry); first pods {first}; annotations equal for pods {sample}; "
+          f"decode_pod_result {decode_ms:.3f} ms/pod; {time.perf_counter() - t11:.1f} s",
+          flush=True)
+
+    # ---- 12. the SAFE-set stream against its scan
+    t12 = time.perf_counter()
+    reset()
+    t0 = time.perf_counter()
+    srr, sstats = replay_speculative_stream(scw, chunk=CHUNK)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_counts = counts()
+    check(sstats["rounds"] > 0 and sstats["accepted"] > 0, f"SAFE-set stream stats {sstats}")
+    for name in ("spec_oracle", "spec_commit_bind", "grid_append"):
+        check(stream_counts[name] > 0, f"the SAFE-set stream launched no {name}")
+    check(stream_counts["spec_round"] + stream_counts["spec_eval"] > 0,
+          "the SAFE-set stream launched no round kernel")
+    check(stream_counts["spec_commit_core"] == 0,
+          "the SAFE-set stream took the core-only commit with a NodePorts carry")
+    t0 = time.perf_counter()
+    sbase = replay(scw, chunk=CHUNK, device=dev)
+    torch.cuda.synchronize()
+    sscan_s = time.perf_counter() - t0
+    sp = scw.n_pods
+    ssample = sorted(set(range(0, sp, sp // 8)) | {1, CHUNK - 1, CHUNK, sp - 1})
+    same_replay(srr, sbase, "SAFE-set stream vs scan", ssample)
+    print(f"[12 SAFE-set stream] slot-pinned {sp}x{scw.n_nodes}, {'+'.join(SAFE_PLUGINS)}, "
+          f"chunk {CHUNK}: stats {json.dumps(sstats)}; stream {stream_s:.4f} s = "
+          f"{sp / stream_s:.1f} cycles/s; scan {sscan_s:.4f} s = {sp / sscan_s:.1f} cycles/s; "
+          f"scheduled {srr.scheduled}; selected, feasible_count, prefilter_reject, compact "
+          f"bytes (raws at feasible nodes) and decode bytes of pods {ssample} equal to the "
+          f"scan; launches {stream_counts}; {time.perf_counter() - t12:.1f} s", flush=True)
+
+    # ---- the B9 entries: each group's share of step_chunk on chunk 0 of
+    # the default fleet (the launch with the group's plugins against the
+    # same launch without them), its plain functions on the same pods, and
+    # the bytes its rows and carry need
+    xs0 = batch_xs(dcw, 0, CHUNK)
+    reps = 3
+
+    def kernel_ms(step) -> float:
+        carries = [_clone_carry(dcw.init_carry) for _ in range(reps + 1)]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        step.scan(carries[0], xs0)
+        marks[0].record()
+        for k in range(reps):
+            step.scan(carries[k + 1], xs0)
+            marks[k + 1].record()
+        torch.cuda.synchronize()
+        ts = sorted(marks[k].elapsed_time(marks[k + 1]) for k in range(reps))
+        return ts[len(ts) // 2]
+
+    full_ms = kernel_ms(dstep)
+    entries = []
+    for g, (names, source, replaces) in B9_GROUPS.items():
+        without = build_step(dcw, out_mode="compact", pack_mode=pack_mode,
+                             score_dtypes=score_dtypes, wide_raw=wide)
+        keep = [k for k, nm in enumerate(without.score_names) if nm not in names]
+        without.filter_names = [nm for nm in without.filter_names if nm not in names]
+        without.score_names = [without.score_names[k] for k in keep]
+        without.weights = [without.weights[k] for k in keep]
+        without.score_dtypes = tuple(without.score_dtypes[k] for k in keep)
+        g_ms = full_ms - kernel_ms(without)
+        carry0 = _clone_carry(dcw.init_carry)
+        filters = [nm for nm in names if nm in step_full.filter_names]
+        scorers = [nm for nm in names if nm in step_full.score_names]
+        feas = torch.ones(n, dtype=torch.bool, device=dev)
+
+        def plain_group():
+            for i in range(CHUNK):
+                sl = pipeline.slice_pod(xs0, i)
+                for nm in filters:
+                    pipeline._filter_one(nm, dcw, carry0, sl)
+                for nm in scorers:
+                    pipeline._score_one(nm, dcw, carry0, sl, feas)
+
+        plain_ms = timed_once(plain_group)
+        nbytes = sum(t.numel() * t.element_size()
+                     for nm in names for tree in (xs0.get(nm), dcw.statics.get(nm))
+                     if tree is not None for t in _leaves(tree))
+        nbytes += sum(2 * t.numel() * t.element_size()
+                      for nm in names if nm in dcw.init_carry
+                      for t in _leaves(dcw.init_carry[nm]))
+        b_ms, b_by = bound(nbytes)
+        entries.append({
+            "name": f"step_chunk[{g} {'+'.join(names)}]",
+            "route": "cuda",
+            "source": f"kube_scheduler_simulator_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": main_counts["step_chunk"],
+            "max_abs_err": errs[g],
+            "ms": g_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    print(f"[13 default profile timing] {card}: step_chunk {full_ms:.3f} ms on chunk 0 of the "
+          f"default fleet (median of {reps}); per B9 group, its share of that launch "
+          f"(ms without it subtracted), plain ms and bound ms: "
+          f"{ {e['name']: (round(e['ms'], 3), round(e['plain_ms'], 3), e['bound_ms']) for e in entries} }",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -743,7 +1247,8 @@ def main() -> int:
     del chunk_inputs, outs0
 
     spec_entries = speculative_phases(dev, card, cw, pods, rr)
-    print(json.dumps({"kernels": [step_entry, *spec_entries]}))
+    b9_entries = default_profile_phases(dev, card)
+    print(json.dumps({"kernels": [step_entry, *spec_entries, *b9_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,8 @@ kube_scheduler_simulator_tpu, for an NVIDIA Hopper card.
 The JAX package stays the reference; this package keeps its module names
 (state/, plugins/, framework/, store/, models/) so each counterpart is easy
 to find, and imports neither JAX nor the JAX package.  Its device work is
-plain PyTorch on the CPU and a hand-written CUDA kernel on the card
-(csrc/step.cu, bound in kernels/step.py).
+plain PyTorch on the CPU and hand-written CUDA kernels on the card
+(csrc/, bound in kernels/).
 
 Counterpart of kube_scheduler_simulator_tpu/__init__.py:27-65: the JAX
 package turns on x64 globally; here every tensor names its dtype, and the

@@ -6,11 +6,12 @@
 
 #include <climits>
 
-#define KSS_MAX_F 8        // filter plugins per step
+#define KSS_MAX_F 16       // filter plugins per step
 #define KSS_MAX_S 8        // score plugins per step
 #define KSS_MAX_RES 8      // scored resources per strategy
 #define KSS_MAX_SHAPE 16   // RequestedToCapacityRatio shape points
 #define KSS_MC 4           // topologyspread.MAX_CONSTRAINTS
+#define KSS_MAX_VBK 8      // VolumeBinding: unbound claims per pod
 #define KSS_THREADS 1024
 
 enum PluginId {
@@ -20,6 +21,14 @@ enum PluginId {
   P_TAINT = 3,      // TaintToleration
   P_SPREAD = 4,     // PodTopologySpread
   P_INTERPOD = 5,   // InterPodAffinity
+  P_UNSCHED = 6,    // NodeUnschedulable
+  P_NODENAME = 7,   // NodeName
+  P_PORTS = 8,      // NodePorts
+  P_IMAGE = 9,      // ImageLocality
+  P_VOLRESTR = 10,  // VolumeRestrictions
+  P_VOLLIMITS = 11, // NodeVolumeLimits
+  P_VOLBIND = 12,   // VolumeBinding
+  P_VOLZONE = 13,   // VolumeZone
 };
 
 enum ResSrc { RES_NONZERO = 0, RES_REQUESTED = 1, RES_NONE = 2 };
@@ -29,7 +38,11 @@ enum RawGroup { G_NONE = 0, G_RAW8 = 1, G_RAW16 = 2, G_RAW32 = 3 };
 // All 8-byte members first, then the 4-byte ones: the layout has no
 // padding that ctypes and nvcc could place differently.  Shapes: N nodes,
 // C pods in the chunk or batch, R resource columns, G spread count groups, T
-// InterPod terms; per-pod arrays are the chunk's or the batch's rows.
+// InterPod terms, Q/QS NodePorts (protocol, port) and specific-IP slots,
+// VC/VD NodeVolumeLimits volumes and drivers, RD/RR VolumeRestrictions
+// disks and ReadWriteOncePod claims, VV/VK VolumeBinding PVs and unbound
+// claim slots; per-pod arrays are the chunk's or the batch's rows.  A
+// pointer of a plugin the workload does not enable is null.
 struct StepArgs {
   // --- core (NodeResourcesFit statics, carry and per-pod rows)
   const long long* allocatable;     // [N, R]
@@ -79,6 +92,49 @@ struct StepArgs {
   const long long* ip_h_pref_anti_w;     // [C, T]
   const unsigned char* ip_self_ok;       // [C]
   const unsigned char* ip_filter_skip;   // [C]
+  // --- NodeUnschedulable, NodeName
+  const unsigned char* unsched_fail;     // [C, N] bool
+  const unsigned char* nodename_fail;    // [C, N] bool
+  // --- NodePorts
+  const int* np_sq;                      // [QS] specific slot -> its (protocol, port) slot
+  const unsigned char* np_w_wild;        // [C, Q]
+  const unsigned char* np_w_spec;        // [C, QS]
+  const unsigned char* np_w_any;         // [C, Q]
+  const unsigned char* np_filter_skip;   // [C]
+  unsigned char* np_used_any;            // [N, Q]  carry
+  unsigned char* np_used_wild;           // [N, Q]  carry
+  unsigned char* np_used_spec;           // [N, QS] carry
+  // --- ImageLocality
+  const long long* image_score;          // [C, N]
+  // --- VolumeZone
+  const int* vz_codes;                   // [C, vz_width]
+  const unsigned char* vz_filter_skip;   // [C]
+  // --- NodeVolumeLimits
+  const unsigned char* nvl_onehot;       // [VC, VD]
+  const long long* nvl_limits;           // [N, VD], -1 = unlimited
+  const unsigned char* nvl_pod_vols;     // [C, VC]
+  const unsigned char* nvl_filter_skip;  // [C]
+  unsigned char* nvl_on_node;            // [N, VC] carry
+  // --- VolumeRestrictions
+  const unsigned char* vr_strict;        // [RD]
+  const unsigned char* vr_w_any;         // [C, RD]
+  const unsigned char* vr_w_rw;          // [C, RD]
+  const unsigned char* vr_rwop;          // [C, RR]
+  const unsigned char* vr_filter_skip;   // [C]
+  unsigned char* vr_used_any;            // [N, RD] carry
+  unsigned char* vr_used_rw;             // [N, RD] carry
+  unsigned char* vr_rwop_used;           // [RR]    carry, cluster-wide
+  // --- VolumeBinding
+  const long long* vb_pv_cap;            // [VV]
+  const unsigned char* vb_pv_node_ok;    // [VV, N]
+  const int* vb_bound_code;              // [C, vb_width]
+  const unsigned char* vb_want;          // [C, VK, VV]
+  const unsigned char* vb_active;        // [C, VK]
+  const unsigned char* vb_provision_ok;  // [C, VK, N]
+  const unsigned char* vb_filter_skip;   // [C]
+  unsigned char* vb_claimed;             // [VV] carry, cluster-wide
+  // --- compile-time PreFilter rejects (xs["force_unsched"])
+  const unsigned char* force_unsched;    // [C] bool, or null
   // --- outputs, "full" mode (StepOut)
   int* out_codes;                        // [C, F, N]
   int* out_raw;                          // [C, S, N]
@@ -130,6 +186,13 @@ struct StepArgs {
   int has_spread;                        // carry holds PodTopologySpread
   int has_interpod;                      // carry holds InterPodAffinity
   int sp_elig_per_slot;                  // eligible is [C, MC, N]
+  int Q, QS, VC, VD, RD, RR, VV, VK;
+  int vz_width;                          // 1 (every pod Skips) or N
+  int vb_width;                          // 1 (no pod has a bound claim) or N
+  int has_ports;                         // carry holds NodePorts
+  int has_nvl;                           // carry holds NodeVolumeLimits
+  int has_vr;                            // carry holds VolumeRestrictions
+  int has_vb;                            // carry holds VolumeBinding
 };
 
 static constexpr long long KSS_BIG = 1LL << 40;   // topologyspread._BIG

@@ -16,6 +16,8 @@
 #include "taints.cuh"
 #include "spread.cuh"
 #include "interpod.cuh"
+#include "ports.cuh"
+#include "volumes.cuh"
 
 __device__ int filter_code(const StepArgs& a, int pid, int c, int n, const long long* sp_mins,
                            bool ip_any_aff, int ip_total_any) {
@@ -30,6 +32,20 @@ __device__ int filter_code(const StepArgs& a, int pid, int c, int n, const long 
       return a.sp_filter_skip[c] ? 0 : spread_filter(a, c, n, sp_mins);
     case P_INTERPOD:
       return a.ip_filter_skip[c] ? 0 : interpod_filter(a, c, n, ip_any_aff, ip_total_any);
+    case P_UNSCHED:
+      return unsched_filter(a, c, n);
+    case P_NODENAME:
+      return nodename_filter(a, c, n);
+    case P_PORTS:
+      return a.np_filter_skip[c] ? 0 : ports_filter(a, c, n);
+    case P_VOLRESTR:
+      return a.vr_filter_skip[c] ? 0 : vr_filter(a, c, n);
+    case P_VOLLIMITS:
+      return a.nvl_filter_skip[c] ? 0 : nvl_filter(a, c, n);
+    case P_VOLBIND:
+      return a.vb_filter_skip[c] ? 0 : vb_filter(a, c, n);
+    case P_VOLZONE:
+      return a.vz_filter_skip[c] ? 0 : volzone_filter(a, c, n);
   }
   return 0;
 }
@@ -54,10 +70,15 @@ __device__ long long score_raw(const StepArgs& a, int pid, int c, int n, bool& i
       return spread_score(a, c, n, ignored);
     case P_INTERPOD:
       return interpod_score(a, c, n);
+    case P_IMAGE:  // B9c: the precompiled int64 row
+      return a.image_score[(long long)c * a.N + n];
+    case P_VOLBIND:  // VolumeCapacityPriority is off: Score returns 0
+      return 0;
   }
   return 0;
 }
 
+// Scorers with ScoreExtensions (ImageLocality and VolumeBinding have none).
 __device__ __forceinline__ bool normalizes(int pid) {
   return pid == P_AFFINITY || pid == P_TAINT || pid == P_SPREAD || pid == P_INTERPOD;
 }
@@ -113,13 +134,27 @@ __device__ __forceinline__ PodScratch pod_scratch(const StepArgs& a, long long s
                     a.scratch_ign + slot * n};
 }
 
+// The PreFilter reject of pod c (pipeline.py _prefilter_reject): bit 0
+// VolumeRestrictions' ReadWriteOncePod conflict against the cluster-wide
+// carry, bit 1 the compile-time reject.  Uniform across the block.
+__device__ __forceinline__ int prefilter_reject(const StepArgs& a, int c) {
+  int code = a.has_vr ? vr_prefilter_reject(a, c) : 0;
+  if (a.force_unsched != nullptr && a.force_unsched[c]) code |= 2;
+  return code;
+}
+
 // Phases 0 and 1 of the step for pod c: the pre-reductions over N, then
 // per node each filter in config order with its filter_skip, the
 // first-fail word (compact) or the codes (full), and feasibility into
-// sc.feas.  Every thread of the block calls it and gets the feasible
-// count; sc.feas is complete when it returns (block_sum_ll's barrier).
-__device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, long long* sh_ll) {
+// sc.feas; thread 0 writes the PreFilter reject.  Every thread of the
+// block calls it and gets the feasible count before the reject is
+// applied, and the reject in `reject`; sc.feas is complete when it
+// returns (block_sum_ll's barrier).
+__device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, long long* sh_ll,
+                          int& reject) {
   const int N = a.N;
+  reject = prefilter_reject(a, c);
+  if (threadIdx.x == 0) a.out_prefilter_reject[c] = reject;
   long long sp_mins[KSS_MC];
   for (int m = 0; m < KSS_MC; ++m) sp_mins[m] = 0;
   bool ip_any_aff = false;
@@ -151,8 +186,9 @@ __device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, long l
 // raw_overflow check, the normalizing reductions over the feasible set,
 // normalize x weight into the int64 total (-1 where infeasible), the
 // argmax (value desc, index asc) with feasible_count > 0 and is_pad
-// applied; thread 0 writes the pod's scalar outputs.  Returns the
-// selection to every thread.
+// applied; thread 0 writes the pod's scalar outputs.  feasible_count is
+// 0 for a pod a PreFilter rejected.  Returns the selection to every
+// thread.
 __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
                                 const PodScratch& sc, long long* sh_ll, int* sh_i) {
   const int N = a.N;
@@ -233,7 +269,6 @@ __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
   if (threadIdx.x == 0) {
     a.out_selected[c] = sel;
     a.out_feasible_count[c] = feasible_count;
-    a.out_prefilter_reject[c] = 0;  // none of the six plugins rejects in PreFilter
     if (a.compact) a.out_overflow[c] = overflow != 0;
   }
   return sel;
@@ -243,6 +278,23 @@ __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
 // selection.  The caller binds (step_chunk) or does not (spec_eval).
 __device__ __forceinline__ int eval_pod(const StepArgs& a, int c, const PodScratch& sc,
                                         long long* sh_ll, int* sh_i) {
-  const int feasible_count = pod_filter(a, c, sc, sh_ll);
-  return pod_score_select(a, c, feasible_count, sc, sh_ll, sh_i);
+  int reject;
+  const int total = pod_filter(a, c, sc, sh_ll, reject);
+  return pod_score_select(a, c, reject > 0 ? 0 : total, sc, sh_ll, sh_i);
+}
+
+// Phase 5: the bind of pod c at `sel` into the carry, in place, for every
+// carry the workload has (pipeline.py _bind_phase).  Every thread of the
+// block calls it; a rejected or padded pod (sel == -1) binds nothing.
+// The caller puts a barrier between the evaluation's last read of the
+// carry and this call, and after it.
+__device__ __forceinline__ void bind_pod(const StepArgs& a, int c, int sel) {
+  if (sel < 0) return;
+  core_bind(a, c, sel);
+  if (a.has_ports) ports_bind(a, c, sel);
+  if (a.has_spread) spread_bind(a, c, sel);
+  if (a.has_interpod) interpod_bind(a, c, sel);
+  if (a.has_vr) vr_bind(a, c, sel);
+  if (a.has_nvl) nvl_bind(a, c, sel);
+  if (a.has_vb) vb_bind(a, c, sel);
 }

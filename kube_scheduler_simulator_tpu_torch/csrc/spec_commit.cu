@@ -10,11 +10,10 @@
 //     row `selected` with 64-bit atomicAdd.  Integer addition is exact in
 //     any order (and accepted pods bind distinct nodes anyway), so this
 //     is the JAX package's one batched scatter-add.
-//   * general (spread and InterPod carries): one block walks the batch in
-//     order and applies the step's bind (fit.cuh core_bind, spread.cuh
-//     spread_bind, interpod.cuh interpod_bind) with the selection masked
-//     to -1 past the accepted prefix: the JAX package's lax.scan of
-//     `_bind_phase`.
+//   * general (any other carry: NodePorts, spread, InterPod): one block
+//     walks the batch in order and applies the step's bind (pod.cuh
+//     bind_pod) with the selection masked to -1 past the accepted
+//     prefix: the JAX package's lax.scan of `_bind_phase`.
 //
 // What bounds it on this card: the core-only variant is a few hundred
 // 8-byte atomics, bound by its launch; the general one walks up to B
@@ -43,11 +42,7 @@ __global__ void __launch_bounds__(KSS_THREADS, 1) spec_commit_bind_kernel(
     const StepArgs a, const int* selected, int k) {
   for (int b = 0; b < a.C; ++b) {
     const int sel = b < k ? selected[b] : -1;
-    if (sel >= 0) {
-      core_bind(a, b, sel);
-      if (a.has_spread) spread_bind(a, b, sel);
-      if (a.has_interpod) interpod_bind(a, b, sel);
-    }
+    bind_pod(a, b, sel);
     __syncthreads();  // the next bind may touch the rows this one wrote
   }
 }

@@ -43,9 +43,11 @@ __global__ void __launch_bounds__(SPEC_THREADS) spec_round_kernel(const StepArgs
   int* cand = a.scratch_cand + (long long)c * K;             // [K]
   const PodScratch sc = pod_scratch(a, c);                   // feas [N]
 
-  // ---- a. filters and the packed word at every node
-  const int total = pod_filter(a, c, sc, sh_ll);
-  const int count = total;  // prefilter_reject is 0 here (pod.cuh)
+  // ---- a. filters and the packed word at every node; the feasible count
+  // is 0 for a pod a PreFilter rejected, and every slot is then invalid
+  int reject;
+  const int total = pod_filter(a, c, sc, sh_ll, reject);
+  const int count = reject > 0 ? 0 : total;
 
   // ---- b/c. the first K feasible nodes, ascending
   const int tile = (N + (int)blockDim.x - 1) / (int)blockDim.x;
@@ -117,7 +119,6 @@ __global__ void __launch_bounds__(SPEC_THREADS) spec_round_kernel(const StepArgs
   if (threadIdx.x == 0) {
     a.out_selected[c] = sel;
     a.out_feasible_count[c] = count;
-    a.out_prefilter_reject[c] = 0;
     a.out_overflow[c] = overflow != 0;
   }
 }

@@ -18,9 +18,15 @@
 //   4. per node, normalize x weight summed into the int64 total (-1 where
 //      infeasible); a block argmax (value desc, index asc); feasible_count
 //      > 0 and is_pad applied;
-//   5. the bind into the carry, in place: the core row at `selected`,
-//      the spread same-domain increments, the InterPod five-matrix
-//      increments and matched_total.
+//   5. the bind into the carry, in place (pod.cuh bind_pod): the core row
+//      at `selected`, the spread same-domain increments, the InterPod
+//      five-matrix increments and matched_total, the NodePorts, disk and
+//      CSI-volume bits at `selected`, the cluster-wide ReadWriteOncePod
+//      bits, and the PVs VolumeBinding's greedy choice claims there.
+//
+// A pod a PreFilter rejected (pod.cuh prefilter_reject: VolumeRestrictions'
+// ReadWriteOncePod conflict, or a compile-time reject) still writes its
+// filter and score outputs, with feasible_count 0, and selects -1.
 //
 // What bounds it on this card: per-pod latency on one SM.  The bytes a pod
 // touches (a few rows of [N] per plugin plus the compact outputs) are
@@ -48,11 +54,7 @@ __global__ void __launch_bounds__(KSS_THREADS, 1) step_chunk_kernel(const StepAr
 
     // ---- 5. bind.  Every read of the carry for this pod happened before
     // the barriers of block_argmax; a rejected or padded pod binds nothing.
-    if (sel >= 0) {
-      core_bind(a, c, sel);
-      if (a.has_spread) spread_bind(a, c, sel);
-      if (a.has_interpod) interpod_bind(a, c, sel);
-    }
+    bind_pod(a, c, sel);
     __syncthreads();  // the next pod reads the carry this one wrote
   }
 }

@@ -27,8 +27,10 @@ Fidelity notes (as in the JAX package):
   * Host selection: highest weighted-normalized total; ties go to the
     LOWEST node index (the framework's documented divergence from
     upstream's random tie-break, applied identically in the CPU oracle).
-  * None of the six ported plugins rejects in PreFilter, and the compiler
-    emits no `force_unsched`, so `prefilter_reject` is always 0 here.
+  * PreFilter rejects: bit 0 is VolumeRestrictions' dynamic
+    ReadWriteOncePod conflict (against the cluster-wide carry), bit 1 the
+    compile-time rejects (xs["force_unsched"]); a rejected pod selects -1
+    and binds nothing.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..plugins import affinity, interpod, noderesources, taints, topologyspread
+from ..plugins import (
+    affinity, imagelocality, interpod, noderesources, nodevolumelimits, ports,
+    taints, topologyspread, volumebinding, volumerestrictions, volumezone,
+)
 from ..plugins.fitscoring import parse_balanced_resources, parse_fit_strategy
 
 
@@ -95,6 +100,12 @@ def _filter_one(name: str, cw, carry, sl) -> torch.Tensor:
         return affinity.filter_kernel(cw.statics["NodeAffinity"], sl["NodeAffinity"])
     if name == "TaintToleration":
         return taints.taint_filter(sl["TaintToleration"])
+    if name == "NodeUnschedulable":
+        return taints.unsched_filter(sl["NodeUnschedulable"])
+    if name == "NodeName":
+        return taints.nodename_filter(sl["NodeName"])
+    if name == "NodePorts":
+        return ports.filter_kernel(cw.statics["NodePorts"], sl["NodePorts"], carry["NodePorts"])
     if name == "PodTopologySpread":
         return topologyspread.filter_kernel(
             cw.statics["PodTopologySpread"], sl["PodTopologySpread"], carry["PodTopologySpread"]
@@ -103,6 +114,18 @@ def _filter_one(name: str, cw, carry, sl) -> torch.Tensor:
         return interpod.filter_kernel(
             cw.statics["InterPodAffinity"], sl["InterPodAffinity"], carry["InterPodAffinity"]
         )
+    if name == "VolumeRestrictions":
+        return volumerestrictions.filter_kernel(
+            cw.statics["VolumeRestrictions"], sl["VolumeRestrictions"],
+            carry["VolumeRestrictions"])
+    if name == "NodeVolumeLimits":
+        return nodevolumelimits.filter_kernel(
+            cw.statics["NodeVolumeLimits"], sl["NodeVolumeLimits"], carry["NodeVolumeLimits"])
+    if name == "VolumeBinding":
+        return volumebinding.filter_kernel(
+            cw.statics["VolumeBinding"], sl["VolumeBinding"], carry["VolumeBinding"])
+    if name == "VolumeZone":
+        return volumezone.filter_kernel(sl["VolumeZone"])
     raise ValueError(f"no filter function for {name}")
 
 
@@ -120,6 +143,12 @@ def _score_one(name: str, cw, carry, sl, feasible):
             resources=parse_balanced_resources(cw.config.args.get(name)),
             schema=cw.schema)
         return raw, raw  # no ScoreExtensions
+    if name == "ImageLocality":
+        raw = imagelocality.score_kernel(sl["ImageLocality"])
+        return raw, raw  # no ScoreExtensions
+    if name == "VolumeBinding":
+        raw = volumebinding.score_kernel(feasible.shape[0], feasible.device)
+        return raw, raw  # scorer nil with VolumeCapacityPriority off
     if name == "NodeAffinity":
         raw = affinity.score_kernel(cw.statics["NodeAffinity"], sl["NodeAffinity"])
         return raw, affinity.normalize(raw, feasible)
@@ -146,7 +175,8 @@ def _filter_phase(cw, carry, sl, filter_names):
     codes = []
     feasible = torch.ones(n, dtype=torch.bool, device=dev)
     for name in filter_names:
-        code = _filter_one(name, cw, carry, sl)
+        # broadcast: compact builders emit [1]-shaped always-pass rows
+        code = torch.broadcast_to(_filter_one(name, cw, carry, sl), (n,))
         x = sl.get(name)
         if x is not None and hasattr(x, "filter_skip"):
             code = torch.where(x.filter_skip, 0, code)
@@ -191,6 +221,9 @@ def _bind_phase(cw, carry, sl, selected):
     """Apply a bind of this pod to node `selected` (-1: no-op)."""
     new_carry = dict(carry)
     new_carry["core"] = noderesources.core_bind_update(carry["core"], sl["core"], selected)
+    if "NodePorts" in carry:
+        new_carry["NodePorts"] = ports.bind_update(
+            cw.statics["NodePorts"], sl["NodePorts"], carry["NodePorts"], selected)
     if "PodTopologySpread" in carry:
         new_carry["PodTopologySpread"] = topologyspread.bind_update(
             cw.statics["PodTopologySpread"], sl["PodTopologySpread"],
@@ -201,14 +234,29 @@ def _bind_phase(cw, carry, sl, selected):
             cw.statics["InterPodAffinity"], sl["InterPodAffinity"],
             carry["InterPodAffinity"], selected,
         )
+    if "VolumeRestrictions" in carry:
+        new_carry["VolumeRestrictions"] = volumerestrictions.bind_update(
+            sl["VolumeRestrictions"], carry["VolumeRestrictions"], selected)
+    if "NodeVolumeLimits" in carry:
+        new_carry["NodeVolumeLimits"] = nodevolumelimits.bind_update(
+            sl["NodeVolumeLimits"], carry["NodeVolumeLimits"], selected)
+    if "VolumeBinding" in carry:
+        new_carry["VolumeBinding"] = volumebinding.bind_update(
+            cw.statics["VolumeBinding"], sl["VolumeBinding"], carry["VolumeBinding"],
+            selected)
     return new_carry
 
 
 def _prefilter_reject(cw, carry, sl) -> torch.Tensor:
-    """PreFilter rejects: the static compile-time ones (xs['force_unsched'],
-    bit 1).  >0 forces selected = -1.  The dynamic bit 0 belongs to
-    VolumeRestrictions, which the port does not have yet."""
+    """Dynamic (replay-state-dependent) PreFilter rejects + the static
+    compile-time ones (xs['force_unsched']).  >0 forces selected = -1.
+    Bit 0: VolumeRestrictions' ReadWriteOncePod conflict; bit 1: the
+    compile-time reject; the decoder resolves plugin attribution in
+    prefilter order."""
     code = torch.zeros((), dtype=torch.int32, device=carry["core"].requested.device)
+    if "VolumeRestrictions" in carry:
+        code = volumerestrictions.prefilter_reject(
+            sl["VolumeRestrictions"], carry["VolumeRestrictions"])
     force = sl.get("force_unsched")
     if force is not None:
         code = code | torch.where(force, 2, 0).to(torch.int32)

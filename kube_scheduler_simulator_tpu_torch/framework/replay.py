@@ -252,7 +252,8 @@ def _slice_xs(xs: dict[str, Any], lo: int, hi: int, pad_to: int) -> dict[str, An
             piece = torch.cat([piece, pad])
         return piece.contiguous()
 
-    return {k: type(v)(*[cut(a) for a in v]) for k, v in xs.items()}
+    return {k: cut(v) if isinstance(v, torch.Tensor) else type(v)(*[cut(a) for a in v])
+            for k, v in xs.items()}
 
 
 def _clone_carry(carry: dict[str, Any]) -> dict[str, Any]:

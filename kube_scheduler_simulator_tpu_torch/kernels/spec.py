@@ -35,10 +35,6 @@ from ..framework.pipeline import (CompactOut, _bind_phase, _filter_phase,
 from . import step as kstep
 
 GRID_GROUPS = ("packed", "raw8", "raw16", "raw32", "fc")
-# plugins the sparse round's kernel scores at gathered candidates: the
-# node-local ones the port has (speculative.py SAFE_SPECULATIVE)
-SPARSE_KERNEL_PLUGINS = {"NodeResourcesFit", "NodeResourcesBalancedAllocation",
-                         "NodeAffinity", "TaintToleration"}
 
 
 def _device(carry) -> torch.device:
@@ -218,10 +214,14 @@ def spec_round(step, carry: dict, xs: dict, kcand: int):
     dev = _device(carry)
     if dev.type == "cpu":
         return sparse_round_plain(step, carry, xs, kcand)
+    # the kernel scores the node-local plugins, whose node-axis rows it
+    # reads positionally at the candidates
+    from ..parallel.speculative import SAFE_SPECULATIVE
+
     plugins = set(step.filter_names) | set(step.score_names)
-    if not plugins <= SPARSE_KERNEL_PLUGINS:
+    if not plugins <= SAFE_SPECULATIVE:
         raise ValueError(f"spec_round scores only node-local plugins, not "
-                         f"{sorted(plugins - SPARSE_KERNEL_PLUGINS)}")
+                         f"{sorted(plugins - SAFE_SPECULATIVE)}")
     if not 1 <= kcand <= step.cw.n_nodes:
         raise ValueError(f"kcand {kcand} outside [1, {step.cw.n_nodes}]")
     kstep.check_device("spec_round", dev, step.cw.statics, carry, xs)

@@ -14,7 +14,7 @@ There is no fallback: a failed build or launch raises.  `step_chunk.launches`
 counts kernel launches (and nothing else), so a run can show that its
 main path went through the kernel.
 
-The kernel takes its ~60 pointers and its scalars in one C struct,
+The kernel takes its ~100 pointers and its scalars in one C struct,
 `StepArgs` (csrc/common.cuh), mirrored here as a ctypes.Structure; the
 wrapper checks every tensor's device, dtype, shape and contiguity before
 it takes a pointer.
@@ -32,7 +32,7 @@ from ..plugins.fitscoring import parse_balanced_resources, parse_fit_strategy
 from ..plugins.topologyspread import MAX_CONSTRAINTS
 from ..state.resources import CPU, MEMORY
 
-MAX_F, MAX_S, MAX_RES, MAX_SHAPE = 8, 8, 8, 16
+MAX_F, MAX_S, MAX_RES, MAX_SHAPE, MAX_VBK = 16, 8, 8, 16, 8
 
 PLUGIN_IDS = {
     "NodeResourcesFit": 0,
@@ -41,6 +41,14 @@ PLUGIN_IDS = {
     "TaintToleration": 3,
     "PodTopologySpread": 4,
     "InterPodAffinity": 5,
+    "NodeUnschedulable": 6,
+    "NodeName": 7,
+    "NodePorts": 8,
+    "ImageLocality": 9,
+    "VolumeRestrictions": 10,
+    "NodeVolumeLimits": 11,
+    "VolumeBinding": 12,
+    "VolumeZone": 13,
 }
 RES_NONZERO, RES_REQUESTED, RES_NONE = 0, 1, 2
 FIT_TYPES = {fitscoring.LEAST_ALLOCATED: 0, fitscoring.MOST_ALLOCATED: 1,
@@ -60,6 +68,16 @@ _PTR_FIELDS = (
     "ip_sym_pref_aff", "ip_sym_pref_anti", "ip_matched_total",
     "ip_t_matches", "ip_h_req_aff", "ip_h_req_anti", "ip_h_pref_aff_w",
     "ip_h_pref_anti_w", "ip_self_ok", "ip_filter_skip",
+    "unsched_fail", "nodename_fail",
+    "np_sq", "np_w_wild", "np_w_spec", "np_w_any", "np_filter_skip",
+    "np_used_any", "np_used_wild", "np_used_spec",
+    "image_score", "vz_codes", "vz_filter_skip",
+    "nvl_onehot", "nvl_limits", "nvl_pod_vols", "nvl_filter_skip", "nvl_on_node",
+    "vr_strict", "vr_w_any", "vr_w_rw", "vr_rwop", "vr_filter_skip",
+    "vr_used_any", "vr_used_rw", "vr_rwop_used",
+    "vb_pv_cap", "vb_pv_node_ok", "vb_bound_code", "vb_want", "vb_active",
+    "vb_provision_ok", "vb_filter_skip", "vb_claimed",
+    "force_unsched",
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
@@ -89,7 +107,10 @@ class StepArgs(ctypes.Structure):
         + [("fit_nshape", _INT), ("bal_nres", _INT)]
         + [("bal_src", _INT * MAX_RES), ("bal_col", _INT * MAX_RES),
            ("bal_need_request", _INT * MAX_RES)]
-        + [(f, _INT) for f in ("has_spread", "has_interpod", "sp_elig_per_slot")]
+        + [(f, _INT) for f in ("has_spread", "has_interpod", "sp_elig_per_slot",
+                               "Q", "QS", "VC", "VD", "RD", "RR", "VV", "VK",
+                               "vz_width", "vb_width",
+                               "has_ports", "has_nvl", "has_vr", "has_vb")]
     )
 
 
@@ -146,9 +167,6 @@ def make_args(step, carry, xs, outs: dict | None, slots: int = 1,
     f, s = len(step.filter_names), len(step.score_names)
     if f > MAX_F or s > MAX_S:
         raise ValueError(f"{f} filters / {s} scorers: the kernel takes at most {MAX_F} / {MAX_S}")
-    if "force_unsched" in xs:
-        raise NotImplementedError("the kernels do not read xs['force_unsched'] "
-                                  "(compile-time PreFilter rejects)")
     i64, i32, i16, u8, f64, b = (torch.int64, torch.int32, torch.int16, torch.uint8,
                                  torch.float64, torch.bool)
     a = StepArgs()
@@ -215,6 +233,8 @@ def make_args(step, carry, xs, outs: dict | None, slots: int = 1,
         a.ip_self_ok = _ptr(x.self_ok, b, (c,), "interpod self_ok")
         a.ip_filter_skip = _ptr(x.filter_skip, b, (c,), "interpod filter_skip")
 
+    _plugin_args(a, cw, carry, xs, c, n)
+
     for k, name in enumerate(step.filter_names):
         a.filter_ids[k] = PLUGIN_IDS[name]
     for k, name in enumerate(step.score_names):
@@ -271,6 +291,80 @@ def make_args(step, carry, xs, outs: dict | None, slots: int = 1,
     a.scratch_feas = _ptr(outs["scratch_feas"], u8, (slots, n), "scratch_feas")
     a.scratch_ign = _ptr(outs["scratch_ign"], u8, (slots, n), "scratch_ign")
     return a
+
+
+def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
+    """The default profile's further plugins (csrc/taints.cuh, ports.cuh,
+    volumes.cuh and the ImageLocality row) and the compile-time PreFilter
+    rejects: each one's pointers, checked, where the workload has it."""
+    i32, i64, b = torch.int32, torch.int64, torch.bool
+    if "NodeUnschedulable" in xs:
+        a.unsched_fail = _ptr(xs["NodeUnschedulable"].fail, b, (c, n), "NodeUnschedulable.fail")
+    if "NodeName" in xs:
+        a.nodename_fail = _ptr(xs["NodeName"].fail, b, (c, n), "NodeName.fail")
+    if "NodePorts" in cw.statics:
+        st, x, pc = cw.statics["NodePorts"], xs["NodePorts"], carry["NodePorts"]
+        a.Q, a.QS = pc.used_any.shape[1], pc.used_spec.shape[1]
+        a.has_ports = 1
+        a.np_sq = _ptr(st.sq, i32, (a.QS,), "ports sq")
+        a.np_w_wild = _ptr(x.w_wild, b, (c, a.Q), "ports w_wild")
+        a.np_w_spec = _ptr(x.w_spec, b, (c, a.QS), "ports w_spec")
+        a.np_w_any = _ptr(x.w_any, b, (c, a.Q), "ports w_any")
+        a.np_filter_skip = _ptr(x.filter_skip, b, (c,), "ports filter_skip")
+        a.np_used_any = _ptr(pc.used_any, b, (n, a.Q), "ports used_any")
+        a.np_used_wild = _ptr(pc.used_wild, b, (n, a.Q), "ports used_wild")
+        a.np_used_spec = _ptr(pc.used_spec, b, (n, a.QS), "ports used_spec")
+    if "ImageLocality" in xs:
+        a.image_score = _ptr(xs["ImageLocality"].score, i64, (c, n), "ImageLocality.score")
+    if "VolumeZone" in xs:
+        x = xs["VolumeZone"]
+        a.vz_width = x.codes.shape[-1]
+        if a.vz_width not in (1, n):
+            raise ValueError(f"VolumeZone.codes: shape {tuple(x.codes.shape)}")
+        a.vz_codes = _ptr(x.codes, i32, (c, a.vz_width), "VolumeZone.codes")
+        a.vz_filter_skip = _ptr(x.filter_skip, b, (c,), "VolumeZone.filter_skip")
+    if "NodeVolumeLimits" in cw.statics:
+        st, x, lc = cw.statics["NodeVolumeLimits"], xs["NodeVolumeLimits"], carry["NodeVolumeLimits"]
+        a.VC, a.VD = st.driver_onehot.shape
+        a.has_nvl = 1
+        a.nvl_onehot = _ptr(st.driver_onehot, b, (a.VC, a.VD), "limits driver_onehot")
+        a.nvl_limits = _ptr(st.limits, i64, (n, a.VD), "limits limits")
+        a.nvl_pod_vols = _ptr(x.pod_vols, b, (c, a.VC), "limits pod_vols")
+        a.nvl_filter_skip = _ptr(x.filter_skip, b, (c,), "limits filter_skip")
+        a.nvl_on_node = _ptr(lc.on_node, b, (n, a.VC), "limits on_node")
+    if "VolumeRestrictions" in cw.statics:
+        st, x, rc = (cw.statics["VolumeRestrictions"], xs["VolumeRestrictions"],
+                     carry["VolumeRestrictions"])
+        a.RD, a.RR = rc.used_any.shape[1], rc.rwop_used.shape[0]
+        a.has_vr = 1
+        a.vr_strict = _ptr(st.strict, b, (a.RD,), "restrictions strict")
+        a.vr_w_any = _ptr(x.w_any, b, (c, a.RD), "restrictions w_any")
+        a.vr_w_rw = _ptr(x.w_rw, b, (c, a.RD), "restrictions w_rw")
+        a.vr_rwop = _ptr(x.rwop, b, (c, a.RR), "restrictions rwop")
+        a.vr_filter_skip = _ptr(x.filter_skip, b, (c,), "restrictions filter_skip")
+        a.vr_used_any = _ptr(rc.used_any, b, (n, a.RD), "restrictions used_any")
+        a.vr_used_rw = _ptr(rc.used_rw, b, (n, a.RD), "restrictions used_rw")
+        a.vr_rwop_used = _ptr(rc.rwop_used, b, (a.RR,), "restrictions rwop_used")
+    if "VolumeBinding" in cw.statics:
+        st, x, bc = cw.statics["VolumeBinding"], xs["VolumeBinding"], carry["VolumeBinding"]
+        a.VV, a.VK = st.pv_cap.shape[0], x.active.shape[1]
+        if a.VK > MAX_VBK:
+            raise ValueError(f"{a.VK} unbound claims in one pod: the kernel takes at most "
+                             f"{MAX_VBK}")
+        a.vb_width = x.bound_code.shape[-1]
+        if a.vb_width not in (1, n):
+            raise ValueError(f"VolumeBinding.bound_code: shape {tuple(x.bound_code.shape)}")
+        a.has_vb = 1
+        a.vb_pv_cap = _ptr(st.pv_cap, i64, (a.VV,), "binding pv_cap")
+        a.vb_pv_node_ok = _ptr(st.pv_node_ok, b, (a.VV, n), "binding pv_node_ok")
+        a.vb_bound_code = _ptr(x.bound_code, i32, (c, a.vb_width), "binding bound_code")
+        a.vb_want = _ptr(x.want, b, (c, a.VK, a.VV), "binding want")
+        a.vb_active = _ptr(x.active, b, (c, a.VK), "binding active")
+        a.vb_provision_ok = _ptr(x.provision_ok, b, (c, a.VK, n), "binding provision_ok")
+        a.vb_filter_skip = _ptr(x.filter_skip, b, (c,), "binding filter_skip")
+        a.vb_claimed = _ptr(bc.claimed, b, (a.VV,), "binding claimed")
+    if "force_unsched" in xs:
+        a.force_unsched = _ptr(xs["force_unsched"], b, (c,), "force_unsched")
 
 
 def alloc_outputs(step, c: int, device, slots: int = 1, width: int | None = None) -> dict:

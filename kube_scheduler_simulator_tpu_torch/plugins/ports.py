@@ -1,0 +1,183 @@
+"""NodePorts tensor functions.
+
+Port of kube_scheduler_simulator_tpu/plugins/ports.py: `build` (:92) with
+its `_Interner`, `filter_kernel` :152, `bind_update` :161 and the scalar
+`sequential_conflict`.  On the card the filter and the bind run inside
+csrc/ports.cuh.
+
+Upstream v1.32 `nodeports`: PreFilter collects the pod's container
+hostPorts (Skip when none); Filter fails a node whose existing pods
+already use a conflicting hostPort with
+"node(s) didn't have free ports for the requested pod ports".
+
+Conflict rule (upstream `Fits`): ports conflict iff port numbers and
+protocols are equal AND (hostIPs equal, or either is 0.0.0.0).
+
+Tensorization: intern (protocol, port) pairs as q-slots and specific-IP
+triples (protocol, port, ip) as s-slots over the whole workload
+(queue + bound pods).  Per node the carry tracks
+    used_any[q]  — any pod uses (protocol, port) with any IP
+    used_wild[q] — some pod uses (protocol, port) with 0.0.0.0
+    used_spec[s] — some pod uses the exact specific-IP triple
+and a pod conflicts iff
+    (wants wildcard q   AND used_any[q]) OR
+    (wants specific s   AND (used_spec[s] OR used_wild[q(s)])).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .base import to_tensor
+
+NAME = "NodePorts"
+ERR_NODE_PORTS = "node(s) didn't have free ports for the requested pod ports"
+
+WILDCARD_IP = "0.0.0.0"
+
+
+class PortsStatic(NamedTuple):
+    sq: torch.Tensor         # [S] int32: specific-slot -> its q-slot
+
+
+class PortsXS(NamedTuple):
+    w_wild: torch.Tensor     # [P, Q] bool: wants (proto, port) on 0.0.0.0
+    w_spec: torch.Tensor     # [P, S] bool: wants exact specific-IP triple
+    w_any: torch.Tensor      # [P, Q] bool: wants (proto, port) with any IP
+    filter_skip: torch.Tensor  # [P] bool: no hostPorts -> PreFilter Skip
+
+
+class PortsCarry(NamedTuple):
+    used_any: torch.Tensor   # [N, Q] bool
+    used_wild: torch.Tensor  # [N, Q] bool
+    used_spec: torch.Tensor  # [N, S] bool
+
+
+def pod_host_ports(pod: dict) -> list[tuple[str, int, str]]:
+    """(protocol, hostPort, hostIP) triples, upstream defaulting applied.
+
+    Regular containers only: upstream getContainerPorts /
+    NodeInfo.updateUsedPorts ignore initContainer hostPorts."""
+    out = []
+    spec = pod.get("spec") or {}
+    for c in spec.get("containers") or []:
+        for p in c.get("ports") or []:
+            hp = int(p.get("hostPort") or 0)
+            if hp <= 0:
+                continue
+            out.append((
+                (p.get("protocol") or "TCP"),
+                hp,
+                (p.get("hostIP") or WILDCARD_IP),
+            ))
+    return out
+
+
+class _Interner:
+    def __init__(self):
+        self.q: dict[tuple[str, int], int] = {}
+        self.s: dict[tuple[str, int, str], int] = {}
+        self.sq: list[int] = []
+
+    def q_id(self, proto: str, port: int) -> int:
+        return self.q.setdefault((proto, port), len(self.q))
+
+    def s_id(self, proto: str, port: int, ip: str) -> int:
+        k = (proto, port, ip)
+        i = self.s.get(k)
+        if i is None:
+            i = self.s[k] = len(self.s)
+            self.sq.append(self.q_id(proto, port))
+        return i
+
+
+def build(table, pods: list[dict], bound_pods: list[tuple[dict, str]], device="cpu"):
+    """-> (PortsStatic, PortsXS, PortsCarry primed with bound pods)."""
+    intern = _Interner()
+    pod_ports = [pod_host_ports(p) for p in pods]
+    bound_ports = [(pod_host_ports(bp), node_name) for bp, node_name in bound_pods]
+    for ports in pod_ports + [bp for bp, _ in bound_ports]:
+        for proto, port, ip in ports:
+            intern.q_id(proto, port)
+            if ip != WILDCARD_IP:
+                intern.s_id(proto, port, ip)
+
+    p, n = len(pods), table.n
+    nq, ns = len(intern.q), len(intern.s)
+    w_wild = np.zeros((p, nq), dtype=bool)
+    w_spec = np.zeros((p, ns), dtype=bool)
+    w_any = np.zeros((p, nq), dtype=bool)
+    skip = np.ones(p, dtype=bool)
+    for i, ports in enumerate(pod_ports):
+        for proto, port, ip in ports:
+            skip[i] = False
+            q = intern.q_id(proto, port)
+            w_any[i, q] = True
+            if ip == WILDCARD_IP:
+                w_wild[i, q] = True
+            else:
+                w_spec[i, intern.s_id(proto, port, ip)] = True
+
+    used_any = np.zeros((n, nq), dtype=bool)
+    used_wild = np.zeros((n, nq), dtype=bool)
+    used_spec = np.zeros((n, ns), dtype=bool)
+    name_idx = {name: j for j, name in enumerate(table.names)}
+    for ports, node_name in bound_ports:
+        j = name_idx.get(node_name)
+        if j is None:
+            continue
+        for proto, port, ip in ports:
+            q = intern.q_id(proto, port)
+            used_any[j, q] = True
+            if ip == WILDCARD_IP:
+                used_wild[j, q] = True
+            else:
+                used_spec[j, intern.s_id(proto, port, ip)] = True
+
+    static = PortsStatic(sq=to_tensor(np.asarray(intern.sq, dtype=np.int32), device))
+    xs = PortsXS(
+        w_wild=to_tensor(w_wild, device), w_spec=to_tensor(w_spec, device),
+        w_any=to_tensor(w_any, device), filter_skip=to_tensor(skip, device),
+    )
+    carry = PortsCarry(
+        used_any=to_tensor(used_any, device), used_wild=to_tensor(used_wild, device),
+        used_spec=to_tensor(used_spec, device),
+    )
+    return static, xs, carry
+
+
+def filter_kernel(static: PortsStatic, sl: PortsXS, carry: PortsCarry) -> torch.Tensor:
+    """sl: this pod's slice (w_wild [Q], w_spec [S], ...) -> [N] int32."""
+    # wildcard wants clash with any user of the (proto, port) pair
+    c1 = torch.any(sl.w_wild[None, :] & carry.used_any, dim=1)
+    # specific wants clash with the same triple or a wildcard user
+    wild_at_spec = carry.used_wild[:, static.sq.to(torch.int64)]
+    c2 = torch.any(sl.w_spec[None, :] & (carry.used_spec | wild_at_spec), dim=1)
+    return (c1 | c2).to(torch.int32)
+
+
+def bind_update(static: PortsStatic, sl: PortsXS, carry: PortsCarry,
+                selected: torch.Tensor) -> PortsCarry:
+    """Mark the bound pod's ports used on node `selected` (-1: no-op)."""
+    n = carry.used_any.shape[0]
+    onehot = (torch.arange(n, device=carry.used_any.device) == selected)[:, None]
+    return PortsCarry(
+        used_any=carry.used_any | (onehot & sl.w_any[None, :]),
+        used_wild=carry.used_wild | (onehot & sl.w_wild[None, :]),
+        used_spec=carry.used_spec | (onehot & sl.w_spec[None, :]),
+    )
+
+
+def sequential_conflict(wanted: list[tuple[str, int, str]],
+                        existing: list[tuple[str, int, str]]) -> bool:
+    """Scalar reference of the upstream conflict rule."""
+    for wp, wport, wip in wanted:
+        for ep, eport, eip in existing:
+            if wport == eport and wp == ep and (
+                wip == eip or wip == WILDCARD_IP or eip == WILDCARD_IP
+            ):
+                return True
+    return False

@@ -1,14 +1,16 @@
-"""TaintToleration tensor functions.
+"""TaintToleration, NodeUnschedulable and NodeName tensor functions.
 
 Port of kube_scheduler_simulator_tpu/plugins/taints.py: `build_taints`
-(:59), `taint_filter` :121, `taint_score` :125, `taint_normalize` :129 and
-`decode_taint_filter` :133.  NodeUnschedulable and NodeName (:89-117,
-:139-144) wait for a later slice.  On the card the row reads and the
-reverse normalization run inside csrc/taints.cuh.
+(:59), `build_unschedulable` (:90), `build_nodename` (:102),
+`taint_filter` :121, `taint_score` :125, `taint_normalize` :129,
+`decode_taint_filter` :133, `unsched_filter` :139 and `nodename_filter`
+:143.  On the card the row reads and the reverse normalization run inside
+csrc/taints.cuh.
 
-The filter predicate and the score depend only on node taints and the
-pod's tolerations — static during a replay — so they precompile to dense
-[P, N] arrays.  Upstream v1.32 semantics:
+The filter predicates and the score depend only on node taints, labels
+and names and on the pod's tolerations and nodeName — static during a
+replay — so they precompile to dense [P, N] arrays.  Upstream v1.32
+semantics:
 * Filter: first taint with effect NoSchedule/NoExecute not tolerated fails
   the node with "node(s) had untolerated taint {<key>: <value>}".  The
   failure code is 1 + index of that taint in the node's taint list so the
@@ -16,6 +18,11 @@ pod's tolerations — static during a replay — so they precompile to dense
 * Score: count of PreferNoSchedule taints not tolerated by the pod's
   tolerations filtered to effect in {"", PreferNoSchedule};
   NormalizeScore = DefaultNormalizeScore(100, reverse=true).
+* NodeUnschedulable Filter: node.spec.unschedulable fails with
+  "node(s) were unschedulable" unless the pod tolerates the
+  node.kubernetes.io/unschedulable:NoSchedule taint.
+* NodeName Filter: pod.spec.nodeName set and != node name fails with
+  "node(s) didn't match the requested node name".
 """
 
 from __future__ import annotations
@@ -30,11 +37,26 @@ from ..state.nodes import NodeTable, NO_EXECUTE, NO_SCHEDULE, PREFER_NO_SCHEDULE
 from ..state.selectors import spec_key, tolerations_tolerate
 
 NAME_TAINT = "TaintToleration"
+NAME_UNSCHED = "NodeUnschedulable"
+NAME_NODENAME = "NodeName"
+
+ERR_UNSCHEDULABLE = "node(s) were unschedulable"
+ERR_NODE_NAME = "node(s) didn't match the requested node name"
+
+UNSCHEDULABLE_TAINT_KEY = "node.kubernetes.io/unschedulable"
 
 
 class TaintXS(NamedTuple):
     filter_code: torch.Tensor   # [P, N] int16; 0 pass, else 1 + taint index
     prefer_count: torch.Tensor  # [P, N] int16 (intolerable PreferNoSchedule taints)
+
+
+class UnschedXS(NamedTuple):
+    fail: torch.Tensor  # [P, N] bool
+
+
+class NodeNameXS(NamedTuple):
+    fail: torch.Tensor  # [P, N] bool
 
 
 def build_taints(table: NodeTable, pods: list[dict],
@@ -71,6 +93,35 @@ def build_taints(table: NodeTable, pods: list[dict],
                    prefer_count=to_tensor(prefer, device))
 
 
+def build_unschedulable(table: NodeTable, pods: list[dict], device="cpu") -> UnschedXS:
+    n, p = table.n, len(pods)
+    fail = np.zeros((p, n), dtype=bool)
+    unsched_nodes = np.flatnonzero(table.unschedulable)
+    for i, pod in enumerate(pods):
+        tols = (pod.get("spec") or {}).get("tolerations") or []
+        tolerated = tolerations_tolerate(tols, UNSCHEDULABLE_TAINT_KEY, "", "NoSchedule")
+        if not tolerated:
+            fail[i, unsched_nodes] = True
+    return UnschedXS(fail=to_tensor(fail, device))
+
+
+def build_nodename(table: NodeTable, pods: list[dict], device="cpu") -> NodeNameXS:
+    """Upstream NodeName has NO PreFilter: its Filter runs (and records
+    "passed") for every pod, empty nodeName matching every node."""
+    n, p = table.n, len(pods)
+    fail = np.zeros((p, n), dtype=bool)
+    name_idx = {name: j for j, name in enumerate(table.names)}
+    for i, pod in enumerate(pods):
+        want = (pod.get("spec") or {}).get("nodeName") or ""
+        if not want:
+            continue
+        fail[i, :] = True
+        j = name_idx.get(want)
+        if j is not None:
+            fail[i, j] = False
+    return NodeNameXS(fail=to_tensor(fail, device))
+
+
 def taint_filter(pod_xs: TaintXS) -> torch.Tensor:
     return pod_xs.filter_code.to(torch.int32)
 
@@ -87,3 +138,11 @@ def decode_taint_filter(code: int, node_idx: int, host_aux) -> str:
     table: NodeTable = host_aux["node_table"]
     key, value, _ = table.taints[node_idx][code - 1]
     return "node(s) had untolerated taint {%s: %s}" % (key, value)
+
+
+def unsched_filter(pod_xs: UnschedXS) -> torch.Tensor:
+    return pod_xs.fail.to(torch.int32)
+
+
+def nodename_filter(pod_xs: NodeNameXS) -> torch.Tensor:
+    return pod_xs.fail.to(torch.int32)

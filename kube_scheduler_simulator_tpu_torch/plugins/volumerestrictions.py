@@ -1,0 +1,214 @@
+"""VolumeRestrictions tensor functions.
+
+Port of kube_scheduler_simulator_tpu/plugins/volumerestrictions.py:
+`build` (:98), `prefilter_reject` :173, `filter_kernel` :178,
+`bind_update` :191 and the scalar `sequential_disk_conflict`.  On the
+card they run inside csrc/volumes.cuh.
+
+Upstream v1.32 `volumerestrictions` has two jobs:
+
+* **Inline-disk conflicts** (Filter): two pods on one node may not use the
+  same GCEPersistentDisk / RBD / ISCSI volume unless both mount it
+  read-only; the same AWSElasticBlockStore conflicts regardless of
+  read-only.  Failure status: "node(s) had no available disk".
+* **ReadWriteOncePod** (PreFilter): a pod using a PVC with the
+  ReadWriteOncePod access mode is rejected outright — all nodes — when any
+  other pod already uses that PVC, with status "node has pod using
+  PersistentVolumeClaim with the same name and ReadWriteOncePod access
+  mode".  PreFilter returns Skip when the pod has neither kind of volume.
+
+Tensorization: inline volume identities are interned as d-slots with a
+per-slot `strict` flag (AWS EBS: conflicts even read-only-vs-read-only);
+the carry tracks per-node `used_any[d]` / `used_rw[d]`.  RWOP PVCs are
+interned as r-slots with a *cluster-wide* (not per-node) `rwop_used[r]`
+carry — the PreFilter conflict is global, which is why the step exposes
+it as a prefilter-reject output (bit 0) rather than a per-node code.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .base import to_tensor
+from ..state.volumes import READ_WRITE_ONCE_POD, VolumeTable, pod_pvc_keys
+
+NAME = "VolumeRestrictions"
+ERR_DISK_CONFLICT = "node(s) had no available disk"
+ERR_RWOP_CONFLICT = (
+    "node has pod using PersistentVolumeClaim with the same name and "
+    "ReadWriteOncePod access mode"
+)
+
+
+class RestrictionsStatic(NamedTuple):
+    strict: torch.Tensor       # [D] bool: conflicts even when both read-only
+
+
+class RestrictionsXS(NamedTuple):
+    w_any: torch.Tensor        # [P, D] bool: pod uses disk d
+    w_rw: torch.Tensor         # [P, D] bool: pod uses disk d NOT read-only
+    rwop: torch.Tensor         # [P, R] bool: pod uses RWOP PVC r
+    filter_skip: torch.Tensor  # [P] bool
+
+
+class RestrictionsCarry(NamedTuple):
+    used_any: torch.Tensor     # [N, D] bool
+    used_rw: torch.Tensor      # [N, D] bool
+    rwop_used: torch.Tensor    # [R] bool — cluster-wide
+
+
+def pod_inline_disks(pod: dict) -> list[tuple[tuple, bool]]:
+    """(identity, read_only) for each restricted inline volume.
+
+    identity[0] is the source kind; 'aws' identities are strict."""
+    out = []
+    for vol in ((pod.get("spec") or {}).get("volumes")) or []:
+        gce = vol.get("gcePersistentDisk")
+        if gce and gce.get("pdName"):
+            out.append((("gce", gce["pdName"]), bool(gce.get("readOnly"))))
+        aws = vol.get("awsElasticBlockStore")
+        if aws and aws.get("volumeID"):
+            out.append((("aws", aws["volumeID"]), bool(aws.get("readOnly"))))
+        rbd = vol.get("rbd")
+        if rbd and rbd.get("image"):
+            mons = tuple(sorted(rbd.get("monitors") or []))
+            out.append((
+                ("rbd", mons, rbd.get("pool", "rbd"), rbd["image"]),
+                bool(rbd.get("readOnly")),
+            ))
+        iscsi = vol.get("iscsi")
+        if iscsi and iscsi.get("iqn"):
+            out.append((
+                ("iscsi", iscsi.get("targetPortal", ""), iscsi["iqn"],
+                 str(iscsi.get("lun", 0))),
+                bool(iscsi.get("readOnly")),
+            ))
+    return out
+
+
+def pod_rwop_keys(vt: VolumeTable, pod: dict) -> list[str]:
+    out = []
+    for key in pod_pvc_keys(pod):
+        pvc = vt.pvcs.get(key)
+        if pvc is not None and READ_WRITE_ONCE_POD in pvc.access_modes:
+            out.append(key)
+    return out
+
+
+def build(vt: VolumeTable, table, pods: list[dict],
+          bound_pods: list[tuple[dict, str]], device="cpu"):
+    """-> (RestrictionsStatic, RestrictionsXS, RestrictionsCarry)."""
+    disk_id: dict[tuple, int] = {}
+    strict: list[bool] = []
+    rwop_id: dict[str, int] = {}
+
+    def d_of(ident: tuple) -> int:
+        i = disk_id.get(ident)
+        if i is None:
+            i = disk_id[ident] = len(disk_id)
+            strict.append(ident[0] == "aws")
+        return i
+
+    def r_of(key: str) -> int:
+        return rwop_id.setdefault(key, len(rwop_id))
+
+    pod_disks = [pod_inline_disks(p) for p in pods]
+    pod_rwops = [pod_rwop_keys(vt, p) for p in pods]
+    bound_disks = [(pod_inline_disks(bp), nn) for bp, nn in bound_pods]
+    bound_rwops = [pod_rwop_keys(vt, bp) for bp, _ in bound_pods]
+    for disks in pod_disks + [d for d, _ in bound_disks]:
+        for ident, _ in disks:
+            d_of(ident)
+    for keys in pod_rwops + bound_rwops:
+        for key in keys:
+            r_of(key)
+
+    p, n = len(pods), table.n
+    nd, nr = len(disk_id), len(rwop_id)
+    w_any = np.zeros((p, nd), dtype=bool)
+    w_rw = np.zeros((p, nd), dtype=bool)
+    rwop = np.zeros((p, nr), dtype=bool)
+    skip = np.ones(p, dtype=bool)
+    for i in range(p):
+        # upstream PreFilter: Skip unless the pod has an inline restricted
+        # volume (needsRestrictionsCheck) or a ReadWriteOncePod PVC
+        if pod_disks[i] or pod_rwops[i]:
+            skip[i] = False
+        for ident, ro in pod_disks[i]:
+            d = d_of(ident)
+            w_any[i, d] = True
+            if not ro:
+                w_rw[i, d] = True
+        for key in pod_rwops[i]:
+            rwop[i, r_of(key)] = True
+
+    used_any = np.zeros((n, nd), dtype=bool)
+    used_rw = np.zeros((n, nd), dtype=bool)
+    rwop_used = np.zeros(nr, dtype=bool)
+    name_idx = {name: j for j, name in enumerate(table.names)}
+    for (disks, node_name), keys in zip(bound_disks, bound_rwops):
+        j = name_idx.get(node_name)
+        for key in keys:
+            rwop_used[r_of(key)] = True
+        if j is None:
+            continue
+        for ident, ro in disks:
+            d = d_of(ident)
+            used_any[j, d] = True
+            if not ro:
+                used_rw[j, d] = True
+
+    static = RestrictionsStatic(strict=to_tensor(np.asarray(strict, dtype=bool), device))
+    xs = RestrictionsXS(
+        w_any=to_tensor(w_any, device), w_rw=to_tensor(w_rw, device),
+        rwop=to_tensor(rwop, device), filter_skip=to_tensor(skip, device),
+    )
+    carry = RestrictionsCarry(
+        used_any=to_tensor(used_any, device), used_rw=to_tensor(used_rw, device),
+        rwop_used=to_tensor(rwop_used, device),
+    )
+    return static, xs, carry
+
+
+def prefilter_reject(sl: RestrictionsXS, carry: RestrictionsCarry) -> torch.Tensor:
+    """scalar int32: 1 when this pod's RWOP PVC is already in use."""
+    return torch.any(sl.rwop & carry.rwop_used).to(torch.int32)
+
+
+def filter_kernel(static: RestrictionsStatic, sl: RestrictionsXS,
+                  carry: RestrictionsCarry) -> torch.Tensor:
+    """[N] int32: 1 where an inline disk conflicts."""
+    # conflict: volume already on node with a writer, we write to a volume
+    # already on the node, or a strict (EBS) volume appears on both sides
+    c = (
+        torch.any(sl.w_any[None, :] & carry.used_rw, dim=1)
+        | torch.any(sl.w_rw[None, :] & carry.used_any, dim=1)
+        | torch.any((sl.w_any & static.strict)[None, :] & carry.used_any, dim=1)
+    )
+    return c.to(torch.int32)
+
+
+def bind_update(sl: RestrictionsXS, carry: RestrictionsCarry,
+                selected: torch.Tensor) -> RestrictionsCarry:
+    n = carry.used_any.shape[0]
+    onehot = (torch.arange(n, device=carry.used_any.device) == selected)[:, None]
+    did_bind = selected >= 0
+    return RestrictionsCarry(
+        used_any=carry.used_any | (onehot & sl.w_any[None, :]),
+        used_rw=carry.used_rw | (onehot & sl.w_rw[None, :]),
+        rwop_used=carry.rwop_used | (did_bind & sl.rwop),
+    )
+
+
+def sequential_disk_conflict(wanted, existing) -> bool:
+    """Scalar reference of the inline-disk rule."""
+    for wid, wro in wanted:
+        for eid, ero in existing:
+            if wid != eid:
+                continue
+            if wid[0] == "aws" or not (wro and ero):
+                return True
+    return False

@@ -1,10 +1,11 @@
 """Workload compiler: manifests -> torch tensors.
 
 Port of kube_scheduler_simulator_tpu/state/compile.py:87
-`compile_workload` for the core resource carry and the six main-path
-plugins (NodeResourcesFit, NodeResourcesBalancedAllocation, NodeAffinity,
-TaintToleration, PodTopologySpread, InterPodAffinity).  The whole workload
-is compiled ONCE into
+`compile_workload` for the core resource carry and every plugin of the
+default profile (upstream v1.32 getDefaultPlugins: the 14 Filter/Score
+plugins, the volume family included; DefaultPreemption and
+SchedulingGates compile to nothing, as in the JAX package).  The whole
+workload is compiled ONCE into
 
   * static per-node tensors (allocatable, allowed pods, domain indices),
   * per-pod tensors with leading axis P (requests, precompiled match rows)
@@ -14,10 +15,14 @@ is compiled ONCE into
 all on one device.  Already-bound pods (`bound_pods`) are folded into the
 initial carry the way informers prime the scheduler's NodeInfo snapshots.
 
+The volume family's PreFilter rejects that a workload fixes at compile
+time (a missing PVC or StorageClass, an unbound Immediate claim) land in
+`host["prefilter_reject"]` (messages per plugin, for the decoder) and in
+`xs["force_unsched"]` ([P] bool, the step's prefilter-reject bit 1).
+
 Not ported here: node-table reuse and delta patching (`reuse=`), the
-columnar pod view (`pod_columns=`), the volume family and tracing.  A
-workload that enables any plugin outside the six raises
-NotImplementedError.
+columnar pod view (`pod_columns=`), custom plugins and tracing; a workload
+with a custom plugin raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,13 +37,14 @@ from .. import resolve_device
 from .nodes import NodeTable, build_node_table
 from .resources import ResourceSchema, pod_resource_request
 from ..plugins import registry as reg
-from ..plugins import affinity, interpod, noderesources, taints, topologyspread
+from .volumes import build_volume_table, pod_pvc_keys
+from ..plugins import (
+    affinity, imagelocality, interpod, noderesources, nodevolumelimits, ports,
+    taints, topologyspread, volumebinding, volumerestrictions, volumezone,
+)
 from ..plugins.base import CoreCarry, to_tensor
 
-SLICE_PLUGINS = (
-    "NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
-    "TaintToleration", "PodTopologySpread", "InterPodAffinity",
-)
+VOLUME_PLUGINS = ("VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 
 
 @dataclass
@@ -77,6 +83,7 @@ def compile_workload(
     pods: list[dict],
     config: reg.PluginSetConfig | None = None,
     bound_pods: list[tuple[dict, str]] | None = None,
+    volumes: dict | None = None,
     namespaces: list[dict] | None = None,
     device="cuda",
 ) -> CompiledWorkload:
@@ -85,18 +92,19 @@ def compile_workload(
 
     bound_pods: (pod manifest, node name) pairs folded into the initial
     carry; they also contribute to topology/affinity counts.
+    volumes: optional {"pvcs": [...], "pvs": [...], "storageclasses":
+    [...], "csinodes": [...]} manifest lists backing the volume family.
     namespaces: namespace manifests that InterPodAffinity's
     namespaceSelector resolves against."""
     device = resolve_device(device)
     config = config or reg.PluginSetConfig()
     enabled = set(config.active_plugins())
-    outside = sorted(enabled - set(SLICE_PLUGINS))
-    if outside:
+    custom = sorted(n for n in enabled if config.is_custom(n))
+    if custom:
         raise NotImplementedError(
-            f"plugins {outside} are not ported yet: they come with the "
-            "remaining-plugins slice (ROADMAP.md Queue A item 9); this "
-            f"port compiles {', '.join(SLICE_PLUGINS)}")
+            f"custom plugins {custom} are not ported yet (ROADMAP.md Queue A)")
     bound_pods = bound_pods or []
+    volumes = volumes or {}
     schema = ResourceSchema.discover(pods + [bp for bp, _ in bound_pods], nodes)
     table = build_node_table(nodes, schema)
 
@@ -141,15 +149,29 @@ def compile_workload(
             device=device)
         statics["NodeAffinity"] = st
         xs["NodeAffinity"] = x
+    if "NodePorts" in enabled:
+        st, x, carry = ports.build(table, pods, bound_pods, device=device)
+        statics["NodePorts"] = st
+        xs["NodePorts"] = x
+        init_carry["NodePorts"] = carry
+    if "ImageLocality" in enabled:
+        xs["ImageLocality"] = imagelocality.build(nodes, pods, host_out=host, device=device)
     if "TaintToleration" in enabled:
         xs["TaintToleration"] = taints.build_taints(
             table, pods, host_out=host, device=device)
+    if "NodeUnschedulable" in enabled:
+        xs["NodeUnschedulable"] = taints.build_unschedulable(table, pods, device=device)
+    if "NodeName" in enabled:
+        xs["NodeName"] = taints.build_nodename(table, pods, device=device)
     if "PodTopologySpread" in enabled:
         st, x, counts_dom = topologyspread.build(table, pods, device=device)
         statics["PodTopologySpread"] = st
         xs["PodTopologySpread"] = x
         _prime_spread_counts(counts_dom, st, pods, bound_pods, name_idx)
         init_carry["PodTopologySpread"] = topologyspread.assemble_counts(st, counts_dom)
+    if any(name in enabled for name in VOLUME_PLUGINS):
+        _compile_volumes(table, pods, bound_pods, volumes, enabled, statics, xs,
+                         init_carry, host, device)
     if "InterPodAffinity" in enabled:
         # the term table spans queue + bound pods so the bound pods' terms
         # (which matter for the symmetric existing-pod checks) share the
@@ -182,6 +204,61 @@ def compile_workload(
     )
     _collect_host_flags(cw)
     return cw
+
+
+def _compile_volumes(table, pods, bound_pods, volumes, enabled, statics, xs,
+                     init_carry, host, device) -> None:
+    """The volume family (compile.py:225-270): its tensors, and the
+    PreFilter rejects fixed at compile time, keyed by the plugin whose
+    PreFilter reports them (the earliest enabled prefilter in config
+    order wins at decode time)."""
+    p = len(pods)
+    vt = build_volume_table(
+        table, volumes.get("pvcs"), volumes.get("pvs"),
+        volumes.get("storageclasses"), volumes.get("csinodes"),
+    )
+    host["volume_table"] = vt
+    rejects: dict[str, list[str | None]] = {}
+    if "VolumeRestrictions" in enabled:
+        st, x, carry = volumerestrictions.build(vt, table, pods, bound_pods, device=device)
+        statics["VolumeRestrictions"] = st
+        xs["VolumeRestrictions"] = x
+        init_carry["VolumeRestrictions"] = carry
+        # upstream VolumeRestrictions' PreFilter does the PVC lister
+        # lookup first, so a missing PVC rejects there
+        rejects["VolumeRestrictions"] = [_missing_pvc_message(vt, pod) for pod in pods]
+    if "NodeVolumeLimits" in enabled:
+        st, x, carry = nodevolumelimits.build(vt, table, pods, bound_pods, device=device)
+        statics["NodeVolumeLimits"] = st
+        xs["NodeVolumeLimits"] = x
+        init_carry["NodeVolumeLimits"] = carry
+    if "VolumeBinding" in enabled:
+        st, x, carry, vb_rejects = volumebinding.build(vt, table, pods, bound_pods,
+                                                       device=device)
+        statics["VolumeBinding"] = st
+        xs["VolumeBinding"] = x
+        init_carry["VolumeBinding"] = carry
+        rejects["VolumeBinding"] = vb_rejects
+        # VolumeCapacityPriority is off: Score is constant 0 for every
+        # (pod, node), kept host-resident
+        host.setdefault("static_score_rows", {})["VolumeBinding"] = (
+            np.zeros((p, table.n), dtype=np.int8))
+    if "VolumeZone" in enabled:
+        xs["VolumeZone"] = volumezone.build(vt, table, pods, device=device)
+    if any(any(m is not None for m in msgs) for msgs in rejects.values()):
+        host["prefilter_reject"] = rejects
+        xs["force_unsched"] = to_tensor(np.asarray([
+            any(msgs[i] is not None for msgs in rejects.values())
+            for i in range(p)
+        ], dtype=bool), device)
+
+
+def _missing_pvc_message(vt, pod: dict) -> str | None:
+    """upstream volumerestrictions PreFilter: the PVC lister Get fails."""
+    for key in pod_pvc_keys(pod):
+        if key not in vt.pvcs:
+            return f'persistentvolumeclaim "{key.split("/", 1)[1]}" not found'
+    return None
 
 
 def _pod_requests(pods: list[dict], schema: ResourceSchema):
@@ -278,13 +355,18 @@ def _collect_host_flags(cw: CompiledWorkload):
 # static per-plugin bound on the filter codes each function can emit —
 # lets the replay pick the narrowest first-fail packing
 # (framework/pipeline.py pack_filter_codes)
-_FILTER_CODE_BOUNDS = {"NodeAffinity": 1, "InterPodAffinity": 3}
+_FILTER_CODE_BOUNDS = {
+    "NodeAffinity": 1, "NodeUnschedulable": 1, "NodeName": 1, "NodePorts": 1,
+    "VolumeRestrictions": 1, "NodeVolumeLimits": 1, "VolumeZone": 1,
+    "InterPodAffinity": 3, "VolumeBinding": 7,
+}
 
 
 # raw scores provably bounded by framework.MaxNodeScore (100): they travel
 # as int8 in the compact replay without a runtime overflow check
 _SCORE_I8_SAFE = frozenset({
-    "NodeResourcesFit", "NodeResourcesBalancedAllocation",
+    "NodeResourcesFit", "NodeResourcesBalancedAllocation", "ImageLocality",
+    "VolumeBinding",
 })
 
 

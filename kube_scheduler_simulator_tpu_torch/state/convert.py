@@ -17,16 +17,27 @@ import torch
 
 from ..plugins.affinity import NodeAffinityStatic, NodeAffinityXS
 from ..plugins.base import CoreCarry, to_tensor
+from ..plugins.imagelocality import ImageXS
 from ..plugins.interpod import InterPodCarry, InterPodStatic, InterPodXS
 from ..plugins.noderesources import FitPodXS, FitStatic
-from ..plugins.taints import TaintXS
+from ..plugins.nodevolumelimits import LimitsCarry, LimitsStatic, LimitsXS
+from ..plugins.ports import PortsCarry, PortsStatic, PortsXS
+from ..plugins.taints import NodeNameXS, TaintXS, UnschedXS
 from ..plugins.topologyspread import SpreadStatic, SpreadXS
+from ..plugins.volumebinding import BindingCarry, BindingStatic, BindingXS
+from ..plugins.volumerestrictions import (RestrictionsCarry, RestrictionsStatic,
+                                          RestrictionsXS)
+from ..plugins.volumezone import VolumeZoneXS
 
 _STATICS = {
     "core": FitStatic,
     "NodeAffinity": NodeAffinityStatic,
     "PodTopologySpread": SpreadStatic,
     "InterPodAffinity": InterPodStatic,
+    "NodePorts": PortsStatic,
+    "NodeVolumeLimits": LimitsStatic,
+    "VolumeRestrictions": RestrictionsStatic,
+    "VolumeBinding": BindingStatic,
 }
 _XS = {
     "core": FitPodXS,
@@ -34,11 +45,24 @@ _XS = {
     "TaintToleration": TaintXS,
     "PodTopologySpread": SpreadXS,
     "InterPodAffinity": InterPodXS,
+    "NodeUnschedulable": UnschedXS,
+    "NodeName": NodeNameXS,
+    "NodePorts": PortsXS,
+    "ImageLocality": ImageXS,
+    "NodeVolumeLimits": LimitsXS,
+    "VolumeRestrictions": RestrictionsXS,
+    "VolumeBinding": BindingXS,
+    "VolumeZone": VolumeZoneXS,
+    "force_unsched": None,  # a bare [P] bool tensor
 }
 _CARRY = {
     "core": CoreCarry,
     "PodTopologySpread": None,  # a bare [G, N] int32 tensor
     "InterPodAffinity": InterPodCarry,
+    "NodePorts": PortsCarry,
+    "NodeVolumeLimits": LimitsCarry,
+    "VolumeRestrictions": RestrictionsCarry,
+    "VolumeBinding": BindingCarry,
 }
 
 

@@ -1,0 +1,286 @@
+"""Columnar volume state: PVCs, PVs, StorageClasses, CSINodes.
+
+A copy of kube_scheduler_simulator_tpu/state/volumes.py (pure numpy, no
+device work): `VolumeTable`, `build_volume_table` (:172),
+`empty_volume_table` (:227), the pod-side volume extraction and the
+static match rules `pv_matches_claim` (:250), `topology_term_matches`
+(:267) and `allowed_topologies_match` (:277).
+
+PV/PVC/StorageClass *structure* is static during a replay — the simulator
+has no PV controller, exactly like the reference's KWOK cluster runs no
+volume controllers — so all manifest parsing, selector matching and PV
+node-affinity evaluation happens once here, producing dense numpy arrays.
+The only *dynamic* volume state is which PVs get claimed as pods with
+unbound WaitForFirstConsumer PVCs bind during the replay; that is the
+device-side carry of plugins/volumebinding.py.
+
+Semantics follow upstream k8s.io/kubernetes v1.32
+pkg/scheduler/framework/plugins/{volumebinding,volumezone,
+volumerestrictions,nodevolumelimits} and
+pkg/controller/volume/persistentvolume (findMatchingVolume match rules).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from .nodes import NodeTable
+from .selectors import label_selector_matches, node_selector_rows, spec_key
+from ..utils.quantity import parse_quantity
+
+# PVC annotation predating spec.storageClassName (still honored upstream)
+BETA_STORAGE_CLASS_ANN = "volume.beta.kubernetes.io/storage-class"
+DEFAULT_CLASS_ANN = "storageclass.kubernetes.io/is-default-class"
+NO_PROVISIONER = "kubernetes.io/no-provisioner"
+WAIT_FOR_FIRST_CONSUMER = "WaitForFirstConsumer"
+READ_WRITE_ONCE_POD = "ReadWriteOncePod"
+
+# upstream volumezone.topologyLabels
+ZONE_LABELS = (
+    "failure-domain.beta.kubernetes.io/zone",
+    "failure-domain.beta.kubernetes.io/region",
+    "topology.kubernetes.io/zone",
+    "topology.kubernetes.io/region",
+)
+
+
+@dataclass
+class StorageClassInfo:
+    name: str
+    provisioner: str
+    wait_for_first_consumer: bool
+    allowed_topologies: list[dict] | None  # v1.TopologySelectorTerm list
+
+
+@dataclass
+class PVInfo:
+    name: str
+    capacity: int                  # bytes of .spec.capacity.storage
+    storage_class: str
+    access_modes: frozenset[str]
+    claim_ref: str | None          # "ns/name" of pre-bound / bound PVC
+    labels: dict[str, str]
+    node_affinity: dict | None     # .spec.nodeAffinity.required (NodeSelector)
+    csi_driver: str | None
+    csi_handle: str | None
+
+
+@dataclass
+class PVCInfo:
+    key: str                       # "ns/name"
+    storage_class: str | None      # resolved (default class applied); None = missing PVC
+    volume_name: str               # bound PV name or ""
+    access_modes: frozenset[str]
+    request: int                   # bytes requested
+    selector: dict | None
+
+
+@dataclass
+class VolumeTable:
+    pvcs: dict[str, PVCInfo]
+    pvs: list[PVInfo]
+    pv_index: dict[str, int]
+    classes: dict[str, StorageClassInfo]
+    default_class: str | None
+    # dense, [V, N]: PV node-affinity evaluated against every node
+    pv_node_ok: np.ndarray
+    pv_cap: np.ndarray             # [V] int64
+    pv_claimed0: np.ndarray        # [V] bool (claimRef set at compile time)
+    # CSINode limits: driver name -> [N] int64 (-1 = no limit on that node)
+    csi_limits: dict[str, np.ndarray]
+
+    @property
+    def n_pvs(self) -> int:
+        return len(self.pvs)
+
+
+def _meta(obj: dict) -> dict:
+    return obj.get("metadata") or {}
+
+
+def _key(obj: dict) -> str:
+    m = _meta(obj)
+    return f"{m.get('namespace') or 'default'}/{m.get('name', '')}"
+
+
+def parse_storage_classes(scs: list[dict]) -> tuple[dict[str, StorageClassInfo], str | None]:
+    classes: dict[str, StorageClassInfo] = {}
+    default = None
+    for sc in scs or []:
+        name = _meta(sc).get("name", "")
+        info = StorageClassInfo(
+            name=name,
+            provisioner=sc.get("provisioner", NO_PROVISIONER),
+            wait_for_first_consumer=(
+                sc.get("volumeBindingMode") == WAIT_FOR_FIRST_CONSUMER
+            ),
+            allowed_topologies=sc.get("allowedTopologies") or None,
+        )
+        classes[name] = info
+        if (_meta(sc).get("annotations") or {}).get(DEFAULT_CLASS_ANN) == "true":
+            default = name
+    return classes, default
+
+
+def _parse_pv(pv: dict) -> PVInfo:
+    meta = _meta(pv)
+    spec = pv.get("spec") or {}
+    cap = int(parse_quantity((spec.get("capacity") or {}).get("storage", "0")))
+    claim = spec.get("claimRef")
+    claim_ref = None
+    if claim and claim.get("name"):
+        claim_ref = f"{claim.get('namespace') or 'default'}/{claim['name']}"
+    csi = spec.get("csi") or {}
+    affinity = ((spec.get("nodeAffinity") or {}).get("required")) or None
+    return PVInfo(
+        name=meta.get("name", ""),
+        capacity=cap,
+        storage_class=spec.get("storageClassName") or "",
+        access_modes=frozenset(spec.get("accessModes") or []),
+        claim_ref=claim_ref,
+        labels={k: str(v) for k, v in (meta.get("labels") or {}).items()},
+        node_affinity=affinity,
+        csi_driver=csi.get("driver"),
+        csi_handle=csi.get("volumeHandle"),
+    )
+
+
+def _parse_pvc(pvc: dict, classes: dict[str, StorageClassInfo],
+               default_class: str | None) -> PVCInfo:
+    meta = _meta(pvc)
+    spec = pvc.get("spec") or {}
+    sc = spec.get("storageClassName")
+    if sc is None:
+        sc = (meta.get("annotations") or {}).get(BETA_STORAGE_CLASS_ANN)
+    if sc is None:
+        # upstream GetDefaultClass: nil class on the PVC resolves to the
+        # cluster default StorageClass (retroactive default assignment)
+        sc = default_class if default_class is not None else ""
+    req = int(parse_quantity(
+        ((spec.get("resources") or {}).get("requests") or {}).get("storage", "0")
+    ))
+    return PVCInfo(
+        key=_key(pvc),
+        storage_class=sc,
+        volume_name=spec.get("volumeName") or "",
+        access_modes=frozenset(spec.get("accessModes") or []),
+        request=req,
+        selector=spec.get("selector"),
+    )
+
+
+def build_volume_table(
+    node_table: NodeTable,
+    pvcs: list[dict] | None,
+    pvs: list[dict] | None,
+    storage_classes: list[dict] | None,
+    csinodes: list[dict] | None,
+) -> VolumeTable:
+    classes, default_class = parse_storage_classes(storage_classes or [])
+    pv_infos = [_parse_pv(pv) for pv in (pvs or [])]
+    pv_index = {pv.name: i for i, pv in enumerate(pv_infos)}
+    pvc_infos = {
+        _key(pvc): _parse_pvc(pvc, classes, default_class) for pvc in (pvcs or [])
+    }
+
+    v, n = len(pv_infos), node_table.n
+    pv_node_ok = np.ones((v, n), dtype=bool)
+    pv_cap = np.zeros(v, dtype=np.int64)
+    pv_claimed0 = np.zeros(v, dtype=bool)
+    # PV node affinity over every node: node_selector_rows is the
+    # vectorized node_selector_matches (state/selectors.py), one row per
+    # distinct affinity
+    rows: dict[str, np.ndarray] = {}
+    for i, pv in enumerate(pv_infos):
+        pv_cap[i] = pv.capacity
+        pv_claimed0[i] = pv.claim_ref is not None
+        if pv.node_affinity is not None:
+            key = spec_key(pv.node_affinity)
+            if key not in rows:
+                rows[key] = node_selector_rows(pv.node_affinity, node_table.label_index)
+            pv_node_ok[i] = rows[key]
+
+    csi_limits: dict[str, np.ndarray] = {}
+    name_idx = {name: j for j, name in enumerate(node_table.names)}
+    for cn in csinodes or []:
+        j = name_idx.get(_meta(cn).get("name", ""))
+        if j is None:
+            continue
+        for drv in ((cn.get("spec") or {}).get("drivers")) or []:
+            count = (drv.get("allocatable") or {}).get("count")
+            if count is None:
+                continue
+            dn = drv.get("name", "")
+            if dn not in csi_limits:
+                csi_limits[dn] = np.full(n, -1, dtype=np.int64)
+            csi_limits[dn][j] = int(count)
+
+    return VolumeTable(
+        pvcs=pvc_infos,
+        pvs=pv_infos,
+        pv_index=pv_index,
+        classes=classes,
+        default_class=default_class,
+        pv_node_ok=pv_node_ok,
+        pv_cap=pv_cap,
+        pv_claimed0=pv_claimed0,
+        csi_limits=csi_limits,
+    )
+
+
+def empty_volume_table(node_table: NodeTable) -> VolumeTable:
+    return build_volume_table(node_table, None, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# pod-side volume extraction (shared by the tensor builders and the
+# sequential oracle)
+
+def pod_pvc_names(pod: dict) -> list[str]:
+    """claimNames of the pod's persistentVolumeClaim volumes, in order."""
+    out = []
+    for vol in ((pod.get("spec") or {}).get("volumes")) or []:
+        pvc = vol.get("persistentVolumeClaim")
+        if pvc and pvc.get("claimName"):
+            out.append(pvc["claimName"])
+    return out
+
+
+def pod_pvc_keys(pod: dict) -> list[str]:
+    ns = _meta(pod).get("namespace") or "default"
+    return [f"{ns}/{name}" for name in pod_pvc_names(pod)]
+
+
+def pv_matches_claim(pv: PVInfo, pvc: PVCInfo) -> bool:
+    """Static-provisioning match, upstream findMatchingVolume rules:
+    storage class equal, access modes a superset, capacity sufficient,
+    label selector satisfied, and claimRef (if set) naming this claim."""
+    if pv.storage_class != (pvc.storage_class or ""):
+        return False
+    if not pvc.access_modes <= pv.access_modes:
+        return False
+    if pv.capacity < pvc.request:
+        return False
+    if pvc.selector is not None and not label_selector_matches(pvc.selector, pv.labels):
+        return False
+    if pv.claim_ref is not None and pv.claim_ref != pvc.key:
+        return False
+    return True
+
+
+def topology_term_matches(term: dict, labels: dict[str, str]) -> bool:
+    """v1.TopologySelectorTerm: AND over matchLabelExpressions, each
+    requiring label[key] in values (upstream MatchTopologySelectorTerms)."""
+    for expr in term.get("matchLabelExpressions") or []:
+        key = expr.get("key", "")
+        if key not in labels or labels[key] not in (expr.get("values") or []):
+            return False
+    return True
+
+
+def allowed_topologies_match(sc: StorageClassInfo, labels: dict[str, str]) -> bool:
+    if not sc.allowed_topologies:
+        return True
+    return any(topology_term_matches(t, labels) for t in sc.allowed_topologies)

@@ -1,8 +1,10 @@
 """Replay results -> per-pod result annotations.
 
 Port of kube_scheduler_simulator_tpu/store/decode.py: `decode_pod_result`
-(:104), `_assemble` (:265), `decode_all` (:306) and the `_DECODERS`
-entries (:47) of the six ported plugins, on the pure-Python encoder path.
+(:104) with its PreFilter-reject early-out (:112-130),
+`prefilter_reject_message` (:66), `_assemble` (:265), `decode_all` (:306)
+and the `_DECODERS` entries (:47) of every default plugin, on the
+pure-Python encoder path.
 The native C++ codec (native/annotation_codec.cpp, store/native_decode.py)
 and the chunk/parallel decoders are a later slice; the Python encoder
 writes the same bytes.
@@ -14,25 +16,51 @@ pod (13 JSON blobs):
   * scoring recorded only when >1 node was feasible;
   * score map covers only feasible nodes;
   * PreFilter/PreScore Skip recorded as "";
-  * finalscore = normalized score x plugin weight.
-
-None of the six ported plugins rejects in PreFilter, so the JAX package's
-prefilter-reject early-out (:130-159) has no case here.
+  * finalscore = normalized score x plugin weight;
+  * a pod whose cycle a PreFilter aborted records only the PreFilter
+    statuses up to the rejecting plugin.
 """
 
 from __future__ import annotations
 
 from . import annotations as ann
 from ..framework.replay import ReplayResult
-from ..plugins import affinity, interpod, noderesources, taints, topologyspread
+from ..plugins import (
+    affinity, interpod, noderesources, nodevolumelimits, ports, taints,
+    topologyspread, volumebinding, volumerestrictions, volumezone,
+)
 
 _DECODERS = {
     "NodeResourcesFit": lambda code, node, aux: noderesources.decode_fit_filter(code, aux["schema"]),
     "NodeAffinity": affinity.decode_filter,
     "TaintToleration": taints.decode_taint_filter,
+    "NodeUnschedulable": lambda code, node, aux: taints.ERR_UNSCHEDULABLE,
+    "NodeName": lambda code, node, aux: taints.ERR_NODE_NAME,
+    "NodePorts": lambda code, node, aux: ports.ERR_NODE_PORTS,
     "PodTopologySpread": topologyspread.decode_filter,
     "InterPodAffinity": interpod.decode_filter,
+    "VolumeRestrictions": lambda code, node, aux: volumerestrictions.ERR_DISK_CONFLICT,
+    "NodeVolumeLimits": lambda code, node, aux: nodevolumelimits.ERR_MAX_VOLUME_COUNT,
+    "VolumeBinding": volumebinding.decode_filter,
+    "VolumeZone": lambda code, node, aux: volumezone.ERR_VOLUME_ZONE_CONFLICT,
 }
+
+
+def prefilter_reject_message(cw, i: int, dynamic_code: int) -> tuple[str, str] | None:
+    """(plugin name, message) of the PreFilter reject that aborted pod i's
+    cycle, or None.  As upstream RunPreFilterPlugins: the first rejecting
+    plugin in config order wins; within VolumeRestrictions the static
+    (PVC-lister) reject precedes the dynamic ReadWriteOncePod conflict."""
+    static = cw.host.get("prefilter_reject", {})
+    if not static and not dynamic_code:
+        return None
+    for name in cw.config.prefilters():
+        msgs = static.get(name)
+        if msgs is not None and msgs[i] is not None:
+            return name, msgs[i]
+        if name == "VolumeRestrictions" and (dynamic_code & 1):
+            return name, volumerestrictions.ERR_RWOP_CONFLICT
+    return None
 
 
 def decode_filter_message(name: str, code: int, node_idx: int, host_aux) -> str:
@@ -48,6 +76,22 @@ def decode_pod_result(rr: ReplayResult, i: int) -> dict[str, str]:
     score_names = cfg.scorers()
     fskip = cw.host["filter_skip"]
     sskip = cw.host["score_skip"]
+
+    # --- prefilter reject: the cycle aborted before Filter --------------
+    reject = prefilter_reject_message(cw, i, int(rr.prefilter_reject[i]))
+    if reject is not None:
+        rej_name, rej_msg = reject
+        pf: dict[str, str] = {}
+        for name in cfg.prefilters():
+            if name == rej_name:
+                pf[name] = rej_msg
+                break
+            pf[name] = "" if fskip[name][i] else ann.SUCCESS_MESSAGE
+        empty = ann.marshal({})
+        out = {key: empty for key in ann.ALL_PLUGIN_KEYS}
+        out[ann.PRE_FILTER_STATUS_RESULT] = ann.marshal(pf)
+        out[ann.SELECTED_NODE] = ""
+        return out
 
     prefilter_status = {}
     for name in cfg.prefilters():
@@ -109,6 +153,13 @@ def _assemble(cfg, names, rr, i: int, prefilter_status: dict,
     sel = int(rr.selected[i])
     scheduled = sel >= 0
     bind = {"DefaultBinder": ann.SUCCESS_MESSAGE} if scheduled else {}
+    # VolumeBinding is the only default plugin implementing Reserve and
+    # PreBind; the reference records "success" for each on the happy path
+    reserve: dict[str, str] = {}
+    prebind: dict[str, str] = {}
+    if scheduled and "VolumeBinding" in cfg.enabled and not cfg.is_custom("VolumeBinding"):
+        reserve["VolumeBinding"] = ann.SUCCESS_MESSAGE
+        prebind["VolumeBinding"] = ann.SUCCESS_MESSAGE
     empty = ann.marshal({})
     return {
         ann.PRE_FILTER_STATUS_RESULT: ann.marshal(prefilter_status),
@@ -118,12 +169,10 @@ def _assemble(cfg, names, rr, i: int, prefilter_status: dict,
         ann.PRE_SCORE_RESULT: ann.marshal(prescore),
         ann.SCORE_RESULT: score_json,
         ann.FINAL_SCORE_RESULT: final_json,
-        # VolumeBinding (the only default plugin with Reserve/PreBind) is
-        # not in this slice, so both maps stay empty
-        ann.RESERVE_RESULT: empty,
+        ann.RESERVE_RESULT: ann.marshal(reserve),
         ann.PERMIT_STATUS_RESULT: empty,
         ann.PERMIT_TIMEOUT_RESULT: empty,
-        ann.PRE_BIND_RESULT: empty,
+        ann.PRE_BIND_RESULT: ann.marshal(prebind),
         ann.BIND_RESULT: ann.marshal(bind),
         ann.SELECTED_NODE: names[sel] if scheduled else "",
     }

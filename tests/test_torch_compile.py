@@ -103,7 +103,38 @@ def test_compile_bound_pods_equal():
 
 
 def test_compile_refuses_plugins_outside_the_slice():
+    """Every default plugin compiles now; what lies outside the ported
+    slices is a custom (out-of-tree) plugin, which raises."""
+    from types import SimpleNamespace
+
     nodes, pods, _ = baseline_config(1, scale=0.1, seed=0)
-    cfg = PluginSetConfig(enabled=["NodeResourcesFit", "NodePorts"])
-    with pytest.raises(NotImplementedError, match="NodePorts"):
+    guest = SimpleNamespace(has_filter=True, has_score=False, default_weight=1)
+    cfg = PluginSetConfig(enabled=["NodeResourcesFit", "GuestFilter"],
+                          custom={"GuestFilter": guest})
+    with pytest.raises(NotImplementedError, match="GuestFilter"):
         compile_workload(nodes, pods, cfg, device="cpu")
+    compile_workload(nodes, pods, PluginSetConfig(enabled=["NodeResourcesFit", "NodePorts"]),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("volumes_on", [True, False], ids=["volumes", "no_volumes"])
+def test_compile_default_profile_equal(volumes_on):
+    """PluginSetConfig() on a decorated fleet (chip_smoke.py's decoration):
+    every static, per-pod and carry leaf of the 14 plugins, the
+    compile-time PreFilter rejects and the host rows equal the JAX
+    package's."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu.plugins.registry import PluginSetConfig as JPluginSetConfig
+
+    nodes, pods, _ = baseline_config(5, scale=0.02, seed=5)
+    volumes, bound = chip_smoke.decorate_default_profile(nodes, pods, seed=5,
+                                                         volumes_on=volumes_on)
+    cw = compile_workload(nodes, pods, PluginSetConfig(), volumes=volumes, bound_pods=bound,
+                          device="cpu")
+    jcw = jax_compile(nodes, pods, JPluginSetConfig(), volumes=volumes, bound_pods=bound)
+    assert_trees_equal(cw.statics, jcw.statics, "statics")
+    assert_trees_equal(cw.xs, jcw.xs, "xs")
+    assert_trees_equal(cw.init_carry, jcw.init_carry, "init_carry")
+    assert_host_flags_equal(cw, jcw)
+    assert cw.host.get("prefilter_reject") == jcw.host.get("prefilter_reject")
+    assert ("force_unsched" in cw.xs) == volumes_on

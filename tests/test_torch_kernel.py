@@ -1,8 +1,10 @@
 """The step kernel (csrc/step.cu) against its plain PyTorch version, on
 the card: every output and the carry equal, exactly, in "full" mode and
 in "compact" mode under every pack mode and raw-width tier, on configs
-1-5 at test scale, the tiny workload and a workload with per-slot spread
-eligibility.  A CUDA kernel has no CPU mode, so these tests skip where
+1-5 at test scale, the tiny workload, a workload with per-slot spread
+eligibility, and the scheduler's default profile (every plugin row of
+the default lineup, the volume family included); the speculative wave's
+kernels likewise, the SAFE-set fleet included.  A CUDA kernel has no CPU mode, so these tests skip where
 there is no card; run them on one with
 
     python -m pytest tests/test_torch_kernel.py -q
@@ -101,8 +103,20 @@ def _slot_mixed():
     return nodes, pods, PluginSetConfig(enabled=SIX[:4])
 
 
+def _safe_set():
+    # the eight node-local plugins on a slot-pinned fleet with unschedulable
+    # nodes, node images, hostPorts and nodeName pins (chip_smoke.py phase 12)
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.models import make_slot_pinned_workload
+    from kube_scheduler_simulator_tpu_torch.parallel.speculative import SAFE_SPECULATIVE
+
+    nodes, pods = make_slot_pinned_workload(96, 48, seed=3)
+    chip_smoke.decorate_default_profile(nodes, pods, seed=3, volumes_on=False)
+    return nodes, pods, PluginSetConfig(enabled=sorted(SAFE_SPECULATIVE))
+
+
 SPEC_WORKLOADS = {"tiny": WORKLOADS["tiny"], "config5": WORKLOADS["config5"],
-                  "slot_mixed": _slot_mixed}
+                  "slot_mixed": _slot_mixed, "safe_set": _safe_set}
 
 
 def _batch(cw, lo, b, dev):
@@ -132,11 +146,12 @@ def test_spec_kernels_match_plain(card, wl, wide):
     card, over batches with and without pad rows."""
     from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.parallel.speculative import SAFE_SPECULATIVE
 
     cw = compile_workload(*SPEC_WORKLOADS[wl](), device=card)
     pm, sd, _ = _compact_plan(cw, wide)
     step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
-    sparse = set(cw.config.active_plugins()) <= kspec.SPARSE_KERNEL_PLUGINS
+    sparse = set(cw.config.active_plugins()) <= SAFE_SPECULATIVE
     carry = _clone_carry(cw.init_carry)
     for lo, b in ((0, 8), (5, 16), (cw.n_pods - 3, 8)):
         xs = _batch(cw, lo, b, card)
@@ -198,3 +213,97 @@ def test_speculative_stream_on_card_matches_cpu(card, wl):
     for group in ("packed", "raw8", "raw16", "raw32"):
         for a, b in zip(getattr(rr._compact, group), getattr(want._compact, group), strict=True):
             assert a.dtype == b.dtype and (a == b).all(), group
+
+
+# ------------------------------------------------ the default profile (B9)
+
+B9 = ["NodeUnschedulable", "NodeName", "NodePorts", "VolumeRestrictions", "NodeVolumeLimits",
+      "VolumeBinding", "VolumeZone", "ImageLocality"]
+
+
+def _default_profile():
+    """BASELINE config 5 at 500 pods x 250 nodes, decorated as chip_smoke.py
+    decorates its full-size fleet, with pods of two unbound claims and
+    inline disks -> compile_workload's arguments."""
+    import chip_smoke
+
+    nodes, pods, _ = baseline_config(5, scale=0.05, seed=0)
+    volumes, bound = chip_smoke.decorate_default_profile(nodes, pods, seed=0)
+    disks = [{"gcePersistentDisk": {"pdName": "pd-1"}},
+             {"awsElasticBlockStore": {"volumeID": "ebs-1", "readOnly": True}}]
+    for i in range(10):
+        pods[7 * i]["spec"].setdefault("volumes", []).append({"name": "disk", **disks[i % 2]})
+    claimants = [p for p in pods
+                 if any((v.get("persistentVolumeClaim") or {}).get("claimName", "")
+                        .startswith("claim-") for v in p["spec"].get("volumes", []))]
+    for i, p in enumerate(claimants[:6]):
+        name = f"second-{i}"
+        volumes["pvcs"].append({"metadata": {"name": name, "namespace": "default"},
+                                "spec": {"storageClassName": "wffc",
+                                         "accessModes": ["ReadWriteOnce"],
+                                         "resources": {"requests": {"storage": str(2 << 30)}}}})
+        p["spec"]["volumes"].append({"name": name, "persistentVolumeClaim": {"claimName": name}})
+    return (nodes, pods, PluginSetConfig()), {"volumes": volumes, "bound_pods": bound}
+
+
+# 12 filters need the p16 word or wider (pipeline.choose_pack_mode)
+DEFAULT_MODES = [("full", "p16", None), ("compact", "p16", None), ("compact", "p32", "i32"),
+                 ("compact", "p64", "i64")]
+
+
+@pytest.mark.parametrize("mode", DEFAULT_MODES, ids=lambda m: "-".join(map(str, m)))
+def test_default_profile_rows_of_step_chunk(card, mode):
+    """Each B9 plugin's filter row (and ImageLocality's and VolumeBinding's
+    score rows) of step_chunk equals the plain step's, chunk after chunk,
+    with every carry and the PreFilter rejects."""
+    args, kw = _default_profile()
+    cw = compile_workload(*args, device=card, **kw)
+    out_mode, pack_mode, wide = mode
+    step = build_step(cw, out_mode=out_mode, pack_mode=pack_mode,
+                      score_dtypes=cw.host["score_dtypes"], wide_raw=wide)
+    assert set(B9) <= set(step.filter_names) | set(step.score_names)
+    ck, cp = _clone_carry(cw.init_carry), _clone_carry(cw.init_carry)
+    chunk, rejects = 64, 0
+    for lo in range(0, cw.n_pods, chunk):
+        xs = _batch(cw, lo, chunk, card)
+        ck, ok = step.scan(ck, xs)
+        cp, op = step.plain_scan(cp, xs)
+        if out_mode == "full":
+            for names, field in ((step.filter_names, "filter_codes"),
+                                 (step.score_names, "score_raw"),
+                                 (step.score_names, "score_final")):
+                for k, name in enumerate(names):
+                    if name in B9:
+                        _equal(getattr(ok, field)[:, k], getattr(op, field)[:, k],
+                               f"{field}[{name}] chunk {lo}")
+        _equal(ok, op, f"outputs chunk {lo}")
+        _equal(ck, cp, f"carry chunk {lo}")
+        rejects += int((op.prefilter_reject != 0).sum())
+    assert rejects > 0
+
+
+@pytest.mark.parametrize("wl", ["default_profile", "safe_set"])
+def test_b9_in_spec_kernels(card, wl):
+    """spec_eval, spec_round (the SAFE set) and spec_commit_bind with the
+    B9 plugins, against their plain versions."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.parallel.speculative import SAFE_SPECULATIVE
+
+    args, kw = _default_profile() if wl == "default_profile" else (_safe_set(), {})
+    cw = compile_workload(*args, device=card, **kw)
+    pm, sd, _ = _compact_plan(cw, None)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    sparse = set(cw.config.active_plugins()) <= SAFE_SPECULATIVE
+    assert sparse == (wl == "safe_set")
+    carry = _clone_carry(cw.init_carry)
+    for lo in range(0, cw.n_pods, 32):
+        xs = _batch(cw, lo, 32, card)
+        ev = kspec.spec_eval(step, carry, xs)
+        _equal(ev, kspec.eval_plain(step, carry, xs), f"spec_eval {lo}")
+        if sparse:
+            got = kspec.spec_round(step, carry, xs, 16)
+            _equal(got, kspec.sparse_round_plain(step, carry, xs, 16), f"spec_round {lo}")
+        want = kspec.commit_plain(step, _clone_carry(carry), xs, ev.selected, 32)
+        carry = kspec.spec_commit_bind(step, carry, xs, ev.selected, 32)
+        _equal(carry, want, f"spec_commit_bind {lo}")

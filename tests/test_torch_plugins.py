@@ -307,3 +307,217 @@ def test_interpod_self_match_escape():
         same(code, j_interpod.filter_kernel(jst, jx, jc), f"matched_total {total}")
         keyed = np.asarray(jst.dom_idx)[0] >= 0
         assert (code.numpy()[keyed] == (0 if total == 0 else 1)).all()
+
+
+# ------------------------------------------------ the default profile's further plugins (B9)
+
+def _default_profile_workload():
+    """BASELINE config 5 at 200 pods x 100 nodes decorated as chip_smoke.py
+    decorates its fleet, plus inline disks (GCE, read-only GCE, EBS) and
+    pods with two unbound claims, so every B9 function has work."""
+    import chip_smoke
+
+    nodes, pods, _ = jax_baseline_config(5, scale=0.02, seed=0)
+    volumes, bound = chip_smoke.decorate_default_profile(nodes, pods, seed=0)
+    disks = [{"gcePersistentDisk": {"pdName": "pd-1"}},
+             {"gcePersistentDisk": {"pdName": "pd-1", "readOnly": True}},
+             {"awsElasticBlockStore": {"volumeID": "ebs-1", "readOnly": True}},
+             {"gcePersistentDisk": {"pdName": "pd-2"}}]
+    for i in range(12):
+        pods[3 * i]["spec"].setdefault("volumes", []).append({"name": "disk", **disks[i % 4]})
+    claimants = [p for p in pods
+                 if any((v.get("persistentVolumeClaim") or {}).get("claimName", "")
+                        .startswith("claim-") for v in p["spec"].get("volumes", []))]
+    for i, p in enumerate(claimants[:4]):
+        name = f"second-{i}"
+        volumes["pvcs"].append({"metadata": {"name": name, "namespace": "default"},
+                                "spec": {"storageClassName": "wffc",
+                                         "accessModes": ["ReadWriteOnce"],
+                                         "resources": {"requests": {"storage": str(2 << 30)}}}})
+        p["spec"]["volumes"].append({"name": name, "persistentVolumeClaim": {"claimName": name}})
+    return jax_compile(nodes, pods, JPluginSetConfig(), bound_pods=bound, volumes=volumes)
+
+
+class DefaultCase:
+    """The default profile's state on both sides, with its B9 carries drawn
+    from numpy.random.default_rng(seed)."""
+
+    def __init__(self, seed=0):
+        self.jcw = _default_profile_workload()
+        rng = np.random.default_rng(seed)
+        to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+        init = to_np(self.jcw.init_carry)
+        carry_np = dict(init)
+        bools = lambda a, p: rng.random(np.shape(a)) < p  # noqa: E731
+        carry_np["NodePorts"] = type(init["NodePorts"])(
+            *[bools(a, 0.2) for a in init["NodePorts"]])
+        carry_np["NodeVolumeLimits"] = type(init["NodeVolumeLimits"])(
+            on_node=bools(init["NodeVolumeLimits"].on_node, 0.3))
+        carry_np["VolumeRestrictions"] = type(init["VolumeRestrictions"])(
+            *[bools(a, 0.3) for a in init["VolumeRestrictions"]])
+        carry_np["VolumeBinding"] = type(init["VolumeBinding"])(
+            claimed=bools(init["VolumeBinding"].claimed, 0.4))
+        self.statics, self.xs, self.carry = from_numpy_workload(
+            to_np(self.jcw.statics), to_np(self.jcw.xs), carry_np, device="cpu")
+        self.jstatics, self.jxs = self.jcw.statics, self.jcw.xs
+        self.jcarry = jax.tree.map(jnp.asarray, carry_np)
+        p, n = self.jcw.n_pods, self.jcw.n_nodes
+        self.sel = rng.integers(-1, n, size=p).astype(np.int32)
+        # the pods each function has work for, plus a spread of the rest
+        self.pods = sorted(set(np.linspace(0, p - 1, PODS_CHECKED).astype(int)))
+
+    def pods_with(self, name, field):
+        rows = np.asarray(getattr(self.jxs[name], field)).reshape(self.jcw.n_pods, -1)
+        hit = np.flatnonzero(rows.any(axis=1))
+        return sorted(set(self.pods) | set(hit[:8].tolist()))
+
+    def pod(self, i):
+        return (slice_pod(self.xs, i),
+                {k: jax.tree.map(lambda a: a[i], v) for k, v in self.jxs.items()})
+
+
+_DEFAULT = {}
+
+
+def default_case():
+    if not _DEFAULT:
+        _DEFAULT["case"] = DefaultCase()
+    return _DEFAULT["case"]
+
+
+def test_b9_plain_functions_cover_the_workload():
+    c = default_case()
+    assert c.jcw.config.filters() == [
+        "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity", "NodePorts",
+        "NodeResourcesFit", "VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding",
+        "VolumeZone", "PodTopologySpread", "InterPodAffinity"]
+    assert np.asarray(c.jxs["VolumeBinding"].active).sum(axis=1).max() == 2
+    assert np.asarray(c.jxs["VolumeRestrictions"].w_any).any()
+    assert np.asarray(c.jxs["NodeVolumeLimits"].pod_vols).any()
+    assert np.asarray(c.jxs["NodePorts"].w_spec).any()
+
+
+@pytest.mark.parametrize("name", ["NodeUnschedulable", "NodeName"])
+def test_unsched_and_nodename_filters(name):
+    c = default_case()
+    port_fn = {"NodeUnschedulable": taints.unsched_filter, "NodeName": taints.nodename_filter}
+    jax_fn = {"NodeUnschedulable": j_taints.unsched_filter,
+              "NodeName": j_taints.nodename_filter}
+    for i in c.pods_with(name, "fail"):
+        x, jx = c.pod(i)
+        same(port_fn[name](x[name]), jit(jax_fn[name])(jx[name]), f"{name} pod {i}")
+
+
+def test_ports():
+    from kube_scheduler_simulator_tpu.plugins import ports as j_ports
+    from kube_scheduler_simulator_tpu_torch.plugins import ports
+
+    c = default_case()
+    st, jst = c.statics["NodePorts"], c.jstatics["NodePorts"]
+    carry, jcarry = c.carry["NodePorts"], c.jcarry["NodePorts"]
+    for i in c.pods_with("NodePorts", "w_any"):
+        x, jx = c.pod(i)
+        x, jx = x["NodePorts"], jx["NodePorts"]
+        same(ports.filter_kernel(st, x, carry), jit(j_ports.filter_kernel)(jst, jx, jcarry),
+             f"filter pod {i}")
+        sel = int(c.sel[i])
+        same_tree(ports.bind_update(st, x, carry, torch.tensor(sel, dtype=torch.int32)),
+                  jit(j_ports.bind_update)(jst, jx, jcarry, jnp.int32(sel)), f"bind pod {i}")
+
+
+def test_imagelocality():
+    from kube_scheduler_simulator_tpu.plugins import imagelocality as j_image
+    from kube_scheduler_simulator_tpu_torch.plugins import imagelocality
+
+    c = default_case()
+    rows = c.jcw.host["static_score_rows"]["ImageLocality"]
+    assert rows.any()
+    for i in c.pods_with("ImageLocality", "score"):
+        x, jx = c.pod(i)
+        same(imagelocality.score_kernel(x["ImageLocality"]),
+             jit(j_image.score_kernel)(jx["ImageLocality"]), f"score pod {i}")
+
+
+def test_imagelocality_build_matches_jax():
+    """The port's `build` (one row per distinct image set, numpy
+    arithmetic) against the JAX package's per-node Python loop."""
+    from kube_scheduler_simulator_tpu.plugins import imagelocality as j_image
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.plugins import imagelocality
+
+    nodes, pods, _ = jax_baseline_config(5, scale=0.02, seed=3)
+    chip_smoke.decorate_default_profile(nodes, pods, seed=3, volumes_on=False)
+    pods[0]["spec"]["initContainers"] = [{"name": "init", "image": nodes[0]["status"]["images"][0]["names"][0]}]
+    same(imagelocality.build(nodes, pods).score, j_image.build(nodes, pods).score, "score rows")
+
+
+def test_volumezone():
+    from kube_scheduler_simulator_tpu.plugins import volumezone as j_zone
+    from kube_scheduler_simulator_tpu_torch.plugins import volumezone
+
+    c = default_case()
+    for i in c.pods_with("VolumeZone", "codes"):
+        x, jx = c.pod(i)
+        same(volumezone.filter_kernel(x["VolumeZone"]),
+             jit(j_zone.filter_kernel)(jx["VolumeZone"]), f"filter pod {i}")
+
+
+def test_nodevolumelimits():
+    from kube_scheduler_simulator_tpu.plugins import nodevolumelimits as j_nvl
+    from kube_scheduler_simulator_tpu_torch.plugins import nodevolumelimits
+
+    c = default_case()
+    st, jst = c.statics["NodeVolumeLimits"], c.jstatics["NodeVolumeLimits"]
+    carry, jcarry = c.carry["NodeVolumeLimits"], c.jcarry["NodeVolumeLimits"]
+    for i in c.pods_with("NodeVolumeLimits", "pod_vols"):
+        x, jx = c.pod(i)
+        x, jx = x["NodeVolumeLimits"], jx["NodeVolumeLimits"]
+        same(nodevolumelimits.filter_kernel(st, x, carry),
+             jit(j_nvl.filter_kernel)(jst, jx, jcarry), f"filter pod {i}")
+        sel = int(c.sel[i])
+        same_tree(nodevolumelimits.bind_update(x, carry, torch.tensor(sel, dtype=torch.int32)),
+                  jit(j_nvl.bind_update)(jx, jcarry, jnp.int32(sel)), f"bind pod {i}")
+
+
+def test_volumerestrictions():
+    from kube_scheduler_simulator_tpu.plugins import volumerestrictions as j_vr
+    from kube_scheduler_simulator_tpu_torch.plugins import volumerestrictions
+
+    c = default_case()
+    st, jst = c.statics["VolumeRestrictions"], c.jstatics["VolumeRestrictions"]
+    carry, jcarry = c.carry["VolumeRestrictions"], c.jcarry["VolumeRestrictions"]
+    pods = sorted(set(c.pods_with("VolumeRestrictions", "w_any"))
+                  | set(c.pods_with("VolumeRestrictions", "rwop")))
+    for i in pods:
+        x, jx = c.pod(i)
+        x, jx = x["VolumeRestrictions"], jx["VolumeRestrictions"]
+        same(volumerestrictions.prefilter_reject(x, carry),
+             jit(j_vr.prefilter_reject)(jx, jcarry), f"prefilter_reject pod {i}")
+        same(volumerestrictions.filter_kernel(st, x, carry),
+             jit(j_vr.filter_kernel)(jst, jx, jcarry), f"filter pod {i}")
+        sel = int(c.sel[i])
+        same_tree(volumerestrictions.bind_update(x, carry, torch.tensor(sel, dtype=torch.int32)),
+                  jit(j_vr.bind_update)(jx, jcarry, jnp.int32(sel)), f"bind pod {i}")
+
+
+def test_volumebinding():
+    from kube_scheduler_simulator_tpu.plugins import volumebinding as j_vb
+    from kube_scheduler_simulator_tpu_torch.plugins import volumebinding
+
+    c = default_case()
+    st, jst = c.statics["VolumeBinding"], c.jstatics["VolumeBinding"]
+    carry, jcarry = c.carry["VolumeBinding"], c.jcarry["VolumeBinding"]
+    for i in c.pods_with("VolumeBinding", "active"):
+        x, jx = c.pod(i)
+        x, jx = x["VolumeBinding"], jx["VolumeBinding"]
+        fail, chosen = volumebinding._greedy_choices(st, x, carry.claimed)
+        jfail, jchosen = jit(j_vb._greedy_choices)(jst, jx, jcarry.claimed)
+        same(fail, jfail, f"greedy bindfail pod {i}")
+        same(chosen, jchosen, f"greedy chosen pod {i}")
+        same(volumebinding.filter_kernel(st, x, carry),
+             jit(j_vb.filter_kernel)(jst, jx, jcarry), f"filter pod {i}")
+        for sel in (int(c.sel[i]), -1, int(np.argmin(np.asarray(jfail)))):
+            same_tree(volumebinding.bind_update(st, x, carry, torch.tensor(sel, dtype=torch.int32)),
+                      jit(j_vb.bind_update)(jst, jx, jcarry, jnp.int32(sel)), f"bind pod {i} {sel}")
+    n = c.jcw.n_nodes
+    same(volumebinding.score_kernel(n, "cpu"), j_vb.score_kernel(n), "score")
