@@ -22,7 +22,27 @@ phase:
        scan), and replay_speculative with no fallback on 1,024 pods x
        5,000 nodes, each equal to its scan;
   9    the wave's kernels' times, their plain versions' and the library
-       calls', and their bounds.
+       calls', and their bounds;
+  10-13 the scheduler's default profile (B9 fused into the kernels): each
+       plugin row against the plain step, the default-profile fleet's
+       replay, the SAFE-set stream, each B9 group's share of a launch;
+  14   B7 (chunk_attribution) held exactly equal to its plain version on
+       chunk 0 of config 5, of the default-profile fleet, of a p64 chunk
+       and of an i64-tier chunk, with its time and bound;
+  15   the default result path: config 5 through replay(cw) with default
+       arguments (device-resident, B7 on every chunk) against phase 4's
+       host-resident replay, again under a 64 MB retention budget, and the
+       default-profile fleet against phase 11;
+  16   the native annotation codec: the first and last chunk of both
+       fleets through decode_release_batches, sampled pods against the
+       Python encoder;
+  17   the slot-pinned and SAFE-set streams with device_resident=True
+       against phases 7 and 12.
+
+Phases 4, 7, 8, 11 and 12 run the host-resident rung
+(KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
+encoder, so that phases 15-17 compare the default rung and the native
+codec against them.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  The line before the last is the kernel table as JSON; the
@@ -33,8 +53,10 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -210,6 +232,25 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+@contextlib.contextmanager
+def env(**values):
+    """The environment variables set (None: unset) for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _nbytes(tree) -> int:
     import torch
 
@@ -321,13 +362,13 @@ def same_replay(a, b, what: str, sample) -> None:
     check((a.feasible_count == b.feasible_count).all(), f"{what}: feasible_count")
     check((a.prefilter_reject == b.prefilter_reject).all(), f"{what}: prefilter_reject")
     for grp in ("packed", "raw8", "raw16", "raw32"):
-        ga, gb = getattr(a._compact, grp), getattr(b._compact, grp)
-        check(len(ga) == len(gb), f"{what}: {grp} chunk count")
-        for ci, (x, y) in enumerate(zip(ga, gb)):
+        check(len(getattr(a._compact, grp)) == len(getattr(b._compact, grp)),
+              f"{what}: {grp} chunk count")
+        for ci in range(len(getattr(a._compact, grp))):
             real = min(CHUNK, a.cw.n_pods - ci * CHUNK)
-            x, y = x[:real], y[:real]
+            x, y = a._compact.host(grp, ci)[:real], b._compact.host(grp, ci)[:real]
             if grp != "packed":
-                feas = (a._compact.packed[ci][:real] == 0)[:, None, :]
+                feas = (a._compact.host("packed", ci)[:real] == 0)[:, None, :]
                 x, y = np.where(feas, x, 0), np.where(feas, y, 0)
             check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
                   f"{what}: compact {grp} chunk {ci} bytes")
@@ -339,7 +380,8 @@ def same_replay(a, b, what: str, sample) -> None:
 def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     """Phases 6-9: the speculative wave's kernels against their plain
     versions, its two paths (low contention, contended) and the kernels'
-    times.  -> the kernels' entries of the JSON line."""
+    times.  -> ({"slot": (the slot-pinned workload, its host-resident
+    stream)}, the kernels' entries of the JSON line)."""
     import numpy as np
     import torch
 
@@ -440,7 +482,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     t7 = time.perf_counter()
     reset()
     t0 = time.perf_counter()
-    srr, sstats = replay_speculative_stream(scw, chunk=CHUNK)
+    srr, sstats = replay_speculative_stream(scw, chunk=CHUNK, device_resident=False)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     low = counts()
@@ -504,7 +546,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     t8 = time.perf_counter()
     reset()
     t0 = time.perf_counter()
-    crr, cstats = replay_speculative_stream(cw, chunk=CHUNK, pods=pods)
+    crr, cstats = replay_speculative_stream(cw, chunk=CHUNK, pods=pods, device_resident=False)
     torch.cuda.synchronize()
     cstream_s = time.perf_counter() - t0
     hot = counts()
@@ -634,6 +676,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
           f"library (CUDA graph) {library}; bounds {bounds}", flush=True)
 
     launches = {name: low[name] + hot[name] + direct[name] for name in ms}
+    ctx = {"slot": (scw, srr)}
     sources = {"spec_eval": "spec_eval.cu", "spec_oracle": "spec_eval.cu",
                "spec_round": "spec_round.cu", "spec_commit_core": "spec_commit.cu",
                "spec_commit_bind": "spec_commit.cu", "grid_append": "grid.cu",
@@ -641,7 +684,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     replaces = {"spec_eval": 318, "spec_oracle": 299, "spec_round": 381,
                 "spec_commit_core": 501, "spec_commit_bind": 501, "grid_append": 553,
                 "grid_emit": 553}
-    return [{
+    return ctx, [{
         "name": name,
         "route": "cuda",
         "source": f"kube_scheduler_simulator_tpu_torch/csrc/{sources[name]}",
@@ -683,7 +726,10 @@ def default_profile_phases(dev, card: str) -> list[dict]:
     spec_commit_bind on the SAFE-set fleet, against the plain versions;
     11: the default-profile fleet through compile and replay (B1 with B9
     fused in), held to the plain replay; 12: the SAFE-set stream, held to
-    its scan.  -> the B9 entries of the JSON line."""
+    its scan.  -> ({"default": (the fleet, its host-resident replay),
+    "safe": (the SAFE-set fleet, its host-resident stream), "decode_ms":
+    phase 11's Python-encoder ms per pod}, the B9 entries of the JSON
+    line)."""
     import numpy as np
     import torch
 
@@ -798,7 +844,8 @@ def default_profile_phases(dev, card: str) -> list[dict]:
     t11 = time.perf_counter()
     reset()
     t0 = time.perf_counter()
-    drr = replay(dcw, chunk=CHUNK, device="cuda")
+    with env(KSS_TPU_HOST_RESIDENT="1"):
+        drr = replay(dcw, chunk=CHUNK, device="cuda")
     torch.cuda.synchronize()
     dwall_s = time.perf_counter() - t0
     main_counts = counts()
@@ -880,9 +927,10 @@ def default_profile_phases(dev, card: str) -> list[dict]:
         check((getattr(rr_plain, what) == getattr(drr, what)).all(),
               f"default profile: {what} differs from the plain path")
     sample = sorted(set(first.values()) | {0, 1, CHUNK - 1, CHUNK, 2 * CHUNK - 1})
-    t0 = time.perf_counter()
-    anns = {i: decode_pod_result(drr, i) for i in sample}
-    decode_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+    with env(KSS_TPU_DISABLE_NATIVE="1"):  # the Python encoder, as phase 16 compares
+        t0 = time.perf_counter()
+        anns = {i: decode_pod_result(drr, i) for i in sample}
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
     for i in sample:
         check(sorted(anns[i]) == sorted(ALL_PLUGIN_KEYS), f"pod {i}: annotation keys")
         check(anns[i] == decode_pod_result(rr_plain, i),
@@ -905,14 +953,15 @@ def default_profile_phases(dev, card: str) -> list[dict]:
           f"{list(drr.tiers)}; chunks {check_chunks} equal to the plain step from the same carry "
           f"(0-1 the plain replay from the start: selected, feasible_count, prefilter_reject, "
           f"compact bytes, carry); first pods {first}; annotations equal for pods {sample}; "
-          f"decode_pod_result {decode_ms:.3f} ms/pod; {time.perf_counter() - t11:.1f} s",
+          f"decode_pod_result {decode_ms:.3f} ms/pod (Python encoder); "
+          f"{time.perf_counter() - t11:.1f} s",
           flush=True)
 
     # ---- 12. the SAFE-set stream against its scan
     t12 = time.perf_counter()
     reset()
     t0 = time.perf_counter()
-    srr, sstats = replay_speculative_stream(scw, chunk=CHUNK)
+    srr, sstats = replay_speculative_stream(scw, chunk=CHUNK, device_resident=False)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     stream_counts = counts()
@@ -1006,7 +1055,301 @@ def default_profile_phases(dev, card: str) -> list[dict]:
           f"(ms without it subtracted), plain ms and bound ms: "
           f"{ {e['name']: (round(e['ms'], 3), round(e['plain_ms'], 3), e['bound_ms']) for e in entries} }",
           flush=True)
-    return entries
+    ctx = {"default": (dcw, drr), "safe": (scw, srr), "decode_ms": decode_ms}
+    return ctx, entries
+
+
+def extend_resources(nodes: list, pods: list, seed: int, k: int = 16) -> None:
+    """Give every node k extended resources (0-3 each) and a third of the
+    pods a request of 2 of one, from a numpy generator on `seed`:
+    NodeResourcesFit's filter code then needs k + 4 bits, so the compact
+    pack is p64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for nd in nodes:
+        for j in range(k):
+            nd["status"]["allocatable"][f"example.com/dev-{j}"] = str(int(rng.integers(0, 4)))
+    for i, pod in enumerate(pods):
+        if i % 3 == 0:
+            pod["spec"]["containers"][0]["resources"].setdefault("requests", {})[
+                f"example.com/dev-{int(rng.integers(k))}"] = "2"
+
+
+def result_path_phases(dev, card: str, cw, pods: list, rr, spec_ctx: dict,
+                       dp_ctx: dict) -> dict:
+    """Phases 14-17: the default result path.  14: B7 against its plain
+    version on four chunks; 15: config 5 (then the default-profile fleet)
+    through replay() with default arguments, device-resident, against
+    phase 4's (phase 11's) host-resident replay, and under a 64 MB
+    retention budget; 16: the native chunk decode against the Python
+    encoder; 17: the slot-pinned and SAFE-set streams with
+    device_resident=True against phases 7 and 12.  -> B7's entry of the
+    JSON line."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _DEVICE_BUDGET, _clone_carry, _compact_plan, _DeviceAttribution, _slice_xs,
+        plugin_attribution, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import (
+        chunk_attribution, chunk_attribution_plain)
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.parallel import replay_speculative_stream
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result, decode_release_batches
+    from kube_scheduler_simulator_tpu_torch.store.decode import _decode_path_label
+
+    def chunk0(w, wide):
+        """(att context, chunk 0's compact outputs) of workload w at tier wide."""
+        pm, sd, cols = _compact_plan(w, wide)
+        step = build_step(w, out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+        hi = min(CHUNK, w.n_pods)
+        xs = _slice_xs(w.xs, 0, hi, CHUNK)
+        xs["is_pad"] = torch.arange(CHUNK, device=dev) >= hi
+        _, out = step.scan(_clone_carry(w.init_carry), xs)
+        return _DeviceAttribution(w, CHUNK, pm, cols), out, pm
+
+    def att_args(ctx, out):
+        m = min(CHUNK, ctx.p)
+        return (out.packed_filter, out.raw8, out.raw16, out.raw32, out.feasible_count,
+                ctx.fskip_dev[0], ctx.sskip_dev[0], m, ctx.code_bits, ctx.dev_cols,
+                ctx.want_pack)
+
+    # ---- 14. B7 == its plain version, exactly
+    t14 = time.perf_counter()
+    dcw, drr = dp_ctx["default"]
+    pnodes, ppods, pcfg = baseline_config(CONFIG, scale=CHUNK / 10_000, node_scale=1.0, seed=SEED)
+    extend_resources(pnodes, ppods, SEED)
+    pcw = compile_workload(pnodes, ppods, pcfg, device=dev)
+    cases = {"config5": chunk0(cw, rr.tiers[-1]), "default_profile": chunk0(dcw, drr.tiers[-1]),
+             "p64": chunk0(pcw, None), "i64": chunk0(cw, "i64")}
+    check(cases["p64"][2] == "p64", f"the extended-resource chunk packs {cases['p64'][2]}")
+    check(cases["default_profile"][0].want_pack, "the default profile has no host score column")
+    att_err, att_info = 0, {}
+    for name, (ctx, out, pm) in cases.items():
+        args = att_args(ctx, out)
+        got = chunk_attribution(*args)
+        want = chunk_attribution_plain(*args)
+        check(sorted(got) == sorted(want), f"B7 {name}: keys {sorted(got)}")
+        err = tree_err(got, want)
+        att_err = max(att_err, err)
+        check(err == 0, f"B7 {name} differs from its plain version (max |d| {err})")
+        att_info[name] = (pm, str(out.raw32.dtype).replace("torch.", ""),
+                          int(want["f_rejects"].sum()) if "f_rejects" in want else 0)
+    torch.cuda.synchronize()
+    ctx, out, _ = cases["config5"]
+    args = att_args(ctx, out)
+    att_ms = timed_graph(lambda: chunk_attribution(*args), 20)
+    att_call_ms = timed(lambda: chunk_attribution(*args), 20)
+    att_plain_ms = timed_once(lambda: chunk_attribution_plain(*args))
+    want = chunk_attribution_plain(*args)
+    # the bytes this chunk's attribution needs: every packed word, each
+    # device score column's raws where the pod scores and the node is
+    # feasible (s_evaluated counts them), fc and the skips, the outputs
+    elem = {"raw8": 1, "raw16": 2, "raw32": out.raw32.element_size()}
+    raw_bytes = sum(int(want["s_evaluated"][q]) * elem[g]
+                    for q, (_s, g, _r) in enumerate(ctx.dev_cols))
+    att_bytes = (out.packed_filter.numel() * out.packed_filter.element_size() + raw_bytes
+                 + 4 * CHUNK + ctx.fskip_dev[0].numel() + ctx.sskip_dev[0].numel()
+                 + sum(t.numel() * t.element_size() for t in want.values()))
+    att_bound_ms, att_bound_by = bound(att_bytes)
+    print(f"[14 B7==plain] {card}: chunk_attribution on chunk 0 of config {CONFIG}, of the "
+          f"default-profile fleet (host score columns: the feasibility bitmap), of "
+          f"{pcw.n_pods}x{pcw.n_nodes} config-{CONFIG} pods on nodes with 16 extended resources, "
+          f"and of config {CONFIG} at the i64 tier: (pack, raw32 dtype, rejects) {att_info}; "
+          f"max_abs_err {att_err}; config {CONFIG}: {att_ms:.5f} ms per launch (CUDA graph), "
+          f"{att_call_ms:.5f} ms per wrapper call back to back, plain {att_plain_ms:.3f} ms, "
+          f"bound {att_bound_ms:.6f} ms by {att_bound_by} ({att_bytes} B: packed + the "
+          f"{raw_bytes} B of raws scored at feasible nodes); {time.perf_counter() - t14:.1f} s",
+          flush=True)
+    del cases, pcw
+
+    kernels = (kstep.step_chunk, chunk_attribution)
+
+    def reset() -> None:
+        for f in kernels:
+            f.launches = 0
+
+    def counts() -> dict:
+        return {f.__name__: f.launches for f in kernels}
+
+    def held(got, want, want_att: dict, what: str, sample) -> None:
+        for f in ("selected", "feasible_count", "prefilter_reject"):
+            check((getattr(got, f) == getattr(want, f)).all(), f"{what}: {f}")
+        check(plugin_attribution(got) == want_att, f"{what}: attribution")
+        for i in sample:
+            check(decode_pod_result(got, i) == decode_pod_result(want, i),
+                  f"{what}: pod {i} annotations")
+
+    # ---- 15. config 5 through replay(cw) with default arguments
+    t15 = time.perf_counter()
+    p, n = cw.n_pods, cw.n_nodes
+    n_chunks = math.ceil(p / CHUNK)
+    with env(KSS_TPU_HOST_RESIDENT=None, KSS_TPU_EAGER_DECODE=None,
+             KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+        reset()
+        t0 = time.perf_counter()
+        drr15 = replay(cw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        main = counts()
+    cc = drr15._compact
+    check(main["step_chunk"] == n_chunks * len(drr15.tiers) and main["chunk_attribution"]
+          == n_chunks * len(drr15.tiers), f"config {CONFIG} default replay launches {main}")
+    check(all(cc.is_device(ci) for ci in range(len(cc.packed))), "a chunk is not retained")
+    retained = sum(cc.device_nbytes(ci) for ci in range(len(cc.packed)))
+    d2h_dev, d2h_host = np.mean(cc.d2h_bytes), np.mean(rr._compact.d2h_bytes)
+    att15 = plugin_attribution(drr15)
+    check(cc.materialized == 0, "the attribution fold fetched a chunk")
+    att4 = plugin_attribution(rr)  # phase 4's host tally
+    check(att15 == att4, "device fold != phase 4's host tally")
+    for f in ("selected", "feasible_count", "prefilter_reject"):
+        check((getattr(drr15, f) == getattr(rr, f)).all(), f"default replay: {f} != phase 4")
+    sample = sorted(set(range(0, p, p // 8)) | {1, CHUNK - 1, CHUNK, p - 1})
+    for i in sample:
+        check(decode_pod_result(drr15, i) == decode_pod_result(rr, i),
+              f"default replay: cold read of pod {i} != phase 4")
+    cold = cc.materialized
+    check(cold == len({i // CHUNK for i in sample}), f"{cold} chunk fetches for the sample")
+    # device-only time: the same launches (step + B7 per chunk) between events
+    wide = drr15.tiers[-1]
+    pm, sd, cols = _compact_plan(cw, wide)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+    actx = _DeviceAttribution(cw, CHUNK, pm, cols)
+    carry = _clone_carry(cw.init_carry)
+    spans = []
+    for lo in range(0, p, CHUNK):
+        xs = _slice_xs(cw.xs, lo, min(lo + CHUNK, p), CHUNK)
+        xs["is_pad"] = torch.arange(CHUNK, device=dev) >= min(CHUNK, p - lo)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        carry, out = step.scan(carry, xs)
+        actx.run(out, lo)
+        e1.record()
+        spans.append((e0, e1))
+    torch.cuda.synchronize()
+    device_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    del carry, out, spans
+    # under a 64 MB retention budget: chunks spill on the background thread
+    with env(KSS_TPU_HOST_RESIDENT=None, KSS_TPU_EAGER_DECODE=None,
+             KSS_TPU_DEVICE_RESULT_BUDGET_MB="64"):
+        spilled0 = _DEVICE_BUDGET.spilled
+        brr = replay(cw)
+        _DEVICE_BUDGET.drain()
+    spilled = _DEVICE_BUDGET.spilled - spilled0
+    b_left = sum(brr._compact.device_nbytes(ci) for ci in range(len(brr._compact.packed)))
+    check(spilled > 0 and b_left <= 64 << 20, f"budget 64 MB: {spilled} spilled, {b_left} B left")
+    held(brr, rr, att4, "budget 64 MB vs phase 4", sample[:4])
+    del brr
+    # the default-profile fleet, the same way, against phase 11
+    with env(KSS_TPU_HOST_RESIDENT=None, KSS_TPU_EAGER_DECODE=None,
+             KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+        reset()
+        t0 = time.perf_counter()
+        dprr = replay(dcw)
+        torch.cuda.synchronize()
+        dwall_s = time.perf_counter() - t0
+        dmain = counts()
+    dp = dcw.n_pods
+    check(all(dprr._compact.is_device(ci) for ci in range(len(dprr._compact.packed))),
+          "default profile: a chunk is not retained")
+    dsample = sorted({0, 1, CHUNK - 1, CHUNK, dp // 2, dp - 1})
+    held(dprr, drr, plugin_attribution(drr), "default profile default replay vs phase 11",
+         dsample)
+    print(f"[15 default rung] {card}: config {CONFIG} {p}x{n} replay(cw): wall {wall_s:.4f} s = "
+          f"{p / wall_s:.1f} cycles/s; device-only (step_chunk + B7) {device_s:.4f} s, idle "
+          f"share {1 - device_s / wall_s:.4f}; launches {main}; D2H per chunk {d2h_dev:.1f} B "
+          f"device-resident vs {d2h_host:.1f} B host-resident (phase 4); retained on the device "
+          f"{retained} B in {len(cc.packed)} chunks; selections, feasible counts, PreFilter "
+          f"rejects and plugin_attribution equal phase 4's (host tally), with no chunk fetched "
+          f"for the attribution; cold reads of pods {sample} ({cold} chunk fetches) decode to "
+          f"phase 4's bytes | KSS_TPU_DEVICE_RESULT_BUDGET_MB=64: {spilled} chunks spilled, "
+          f"{b_left} B left on the device, reads equal | default-profile fleet {dp}x"
+          f"{dcw.n_nodes} replay(dcw): wall {dwall_s:.4f} s = {dp / dwall_s:.1f} cycles/s; "
+          f"launches {dmain}; equal to phase 11 (attribution, pods {dsample}); "
+          f"{time.perf_counter() - t15:.1f} s", flush=True)
+    del dprr
+
+    # ---- 16. the native chunk decode, first and last chunk of each fleet
+    t16 = time.perf_counter()
+    lines = []
+    for name, w_rr, py_ms in ((f"config {CONFIG}", drr15, dp_ctx["decode_ms"][4]),
+                              ("default profile", drr, dp_ctx["decode_ms"][11])):
+        check(_decode_path_label(w_rr) == "native_chunk", f"{name}: decode path "
+              f"{_decode_path_label(w_rr)}")
+        wp = w_rr.cw.n_pods
+        last = (wp - 1) // CHUNK * CHUNK
+        checked, decoded, dt = [], 0, 0.0
+        for lo in (0, last):
+            hi = min(lo + CHUNK, wp)
+            picks = {lo, lo + 1, (lo + hi) // 2, hi - 1}
+            kept = {}
+
+            def on_pod(i, a, picks=picks, kept=kept):
+                nonlocal decoded
+                decoded += 1
+                if i in picks:
+                    kept[i] = a  # the others are released as the batch goes
+
+            w_rr._compact.host("packed", lo // CHUNK)  # the chunk's fetch is phase 15's cost
+            t0 = time.perf_counter()
+            decode_release_batches(w_rr, lo, hi, on_pod=on_pod)
+            dt += time.perf_counter() - t0
+            with env(KSS_TPU_DISABLE_NATIVE="1"):
+                for i in sorted(picks):
+                    check(kept[i] == decode_pod_result(w_rr, i),
+                          f"{name}: pod {i} native != Python encoder")
+            checked += sorted(picks)
+        check(decoded == min(CHUNK, wp) + (wp - last), f"{name}: {decoded} pods decoded")
+        lines.append(f"{name}: {decoded} pods in {dt:.3f} s = {dt * 1e3 / decoded:.3f} ms/pod "
+                     f"native (Python encoder: {py_ms:.3f} ms/pod, phase "
+                     f"{4 if name.startswith('config') else 11}); pods {checked} equal the "
+                     f"Python "
+                     f"encoder's bytes")
+    print(f"[16 native decode] decode_release_batches, path native_chunk: {'; '.join(lines)}; "
+          f"{time.perf_counter() - t16:.1f} s", flush=True)
+    del drr15
+
+    # ---- 17. the streams with device_resident=True
+    t17 = time.perf_counter()
+    lines = []
+    for name, (scw, srr) in (("slot-pinned", spec_ctx["slot"]), ("SAFE-set", dp_ctx["safe"])):
+        reset()
+        t0 = time.perf_counter()
+        vrr, vstats = replay_speculative_stream(scw, chunk=CHUNK, device_resident=True)
+        torch.cuda.synchronize()
+        s_wall = time.perf_counter() - t0
+        launched = chunk_attribution.launches
+        vcc = vrr._compact
+        check(launched == len(vcc.packed), f"{name}: {launched} B7 launches for "
+              f"{len(vcc.packed)} chunks")
+        check(all(vcc.is_device(ci) for ci in range(len(vcc.packed))), f"{name}: not retained")
+        check(plugin_attribution(vrr) == plugin_attribution(srr), f"{name}: attribution")
+        sp = scw.n_pods
+        same_replay(vrr, srr, f"{name} device-resident stream vs host-resident",
+                    sorted({0, 1, CHUNK, sp - 1}))
+        lines.append(f"{name} {sp}x{scw.n_nodes}: {vstats['rounds']} rounds, {s_wall:.4f} s = "
+                     f"{sp / s_wall:.1f} cycles/s, B7 launches {launched} = chunks")
+    print(f"[17 streams, device_resident=True] {'; '.join(lines)}; equal to phases 7 and 12 "
+          f"(selections, compact bytes, attribution, sampled annotations); "
+          f"{time.perf_counter() - t17:.1f} s", flush=True)
+
+    return {
+        "name": "chunk_attribution",
+        "route": "cuda",
+        "source": "kube_scheduler_simulator_tpu_torch/csrc/attribution.cu",
+        "replaces": "kube_scheduler_simulator_tpu/framework/replay.py:1217",
+        "launches": main["chunk_attribution"],
+        "max_abs_err": att_err,
+        "ms": att_ms,
+        "plain_ms": att_plain_ms,
+        "bound_ms": att_bound_ms,
+        "bound_by": att_bound_by,
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -1102,7 +1445,8 @@ def main() -> int:
     # ---- 4. the main path
     kstep.step_chunk.launches = 0
     t0 = time.perf_counter()
-    rr = replay(cw, chunk=CHUNK, device="cuda")
+    with env(KSS_TPU_HOST_RESIDENT="1"):  # phase 15 runs the default, device-resident rung
+        rr = replay(cw, chunk=CHUNK, device="cuda")
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
     launches = kstep.step_chunk.launches
@@ -1168,9 +1512,10 @@ def main() -> int:
     # decode time on the host: each sampled pod after the first lies in
     # another chunk than the pod decoded before it, so it also pays for
     # rebuilding its chunk's full views
-    t0 = time.perf_counter()
-    anns = [decode_pod_result(rr, i) for i in sample]
-    decode_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+    with env(KSS_TPU_DISABLE_NATIVE="1"):  # the Python encoder, as phase 16 compares
+        t0 = time.perf_counter()
+        anns = [decode_pod_result(rr, i) for i in sample]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
     for i, ann in zip(sample, anns):
         check(sorted(ann) == sorted(ALL_PLUGIN_KEYS), f"pod {i}: annotation keys")
         check(all(isinstance(v, str) for v in ann.values()), f"pod {i}: annotation values")
@@ -1179,7 +1524,7 @@ def main() -> int:
               f"pod {i}: selected-node annotation")
     print(f"[4 main path] plain replay of chunks 0-1 equal (selected, feasible_count, "
           f"compact outputs); decode bytes equal for pods {list(DECODE_CHECK_PODS)}; "
-          f"13 keys on pods {sample}; decode_pod_result {decode_ms:.3f} ms/pod (host, "
+          f"13 keys on pods {sample}; decode_pod_result {decode_ms:.3f} ms/pod (Python encoder, "
           f"mean over those {len(sample)} pods)", flush=True)
 
     # ---- 5. timing: the kernel per chunk and the plain step, CUDA events.
@@ -1246,9 +1591,11 @@ def main() -> int:
     }
     del chunk_inputs, outs0
 
-    spec_entries = speculative_phases(dev, card, cw, pods, rr)
-    b9_entries = default_profile_phases(dev, card)
-    print(json.dumps({"kernels": [step_entry, *spec_entries, *b9_entries]}))
+    spec_ctx, spec_entries = speculative_phases(dev, card, cw, pods, rr)
+    dp_ctx, b9_entries = default_profile_phases(dev, card)
+    dp_ctx["decode_ms"] = {4: decode_ms, 11: dp_ctx["decode_ms"]}
+    att_entry = result_path_phases(dev, card, cw, pods, rr, spec_ctx, dp_ctx)
+    print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -58,6 +58,8 @@ SIGNATURES = {
                     "kss_spec_commit": ([_P, _P, _I, _I, _P], _I)},
     "grid": {"kss_grid_args_size": ([], _I), "kss_grid_append": ([_P, _P], _I),
              "kss_grid_emit": ([_P, _P], _I)},
+    "attribution": {"kss_att_args_size": ([], _I),
+                    "kss_chunk_attribution": ([_P, _P], _I)},
 }
 
 

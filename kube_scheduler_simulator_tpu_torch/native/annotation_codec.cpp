@@ -1,0 +1,1225 @@
+// The port's own copy of kube_scheduler_simulator_tpu/native/annotation_codec.cpp,
+// byte for byte the same codec; kube_scheduler_simulator_tpu_torch/native/__init__.py
+// builds and loads it.
+//
+// Native annotation codec — the host-side hot path of the reflector.
+//
+// The reference serializes scheduling results to Pod annotations in Go
+// (simulator/scheduler/plugin/resultstore/store.go:133-198); at 10k pods x
+// 5k nodes the filter/score/finalscore JSON blobs dominate host time in
+// this framework's write-back path, so they are encoded here in C++ and
+// exposed over a C ABI consumed via ctypes (no pybind11 in this image).
+//
+// Encoding contract (byte-identical to Go encoding/json):
+//   * compact (no spaces), map keys sorted lexicographically (Go sorts
+//     map keys when marshaling);
+//   * strings escaped per encoding/json: ", \\, control chars, and the
+//     HTML-safe set < > & as < > &;
+//   * filter map reproduces the framework's stop-at-first-fail truncation:
+//     plugins in execution order until the first failure, keys sorted in
+//     the output object.
+//
+// Message resolution is table-driven: per filter plugin a LUT indexed by
+// (code-1), either shared across nodes or per-node (taint messages embed
+// the node's taint key/value).  Python builds the LUTs once per compiled
+// workload.
+
+#include <atomic>
+#include <chrono>
+#include <condition_variable>
+#include <cstdint>
+#include <charconv>
+#include <cstring>
+#include <cstdlib>
+#include <functional>
+#include <mutex>
+#include <string>
+#include <thread>
+#include <algorithm>
+#include <vector>
+
+namespace {
+
+// one string VALUE, quotes included — Python json.dumps(ensure_ascii=
+// False) escapes (incl. the \b/\f shortcuts) plus Go's HTML escaping of
+// < > & , matching store/annotations.py marshal() byte-for-byte
+// needs_escape[c]: byte c cannot be copied verbatim inside a JSON string
+struct EscTable {
+    bool t[256] = {};
+    EscTable() {
+        for (int c = 0; c < 0x20; ++c) t[c] = true;
+        t[(unsigned char)'"'] = t[(unsigned char)'\\'] = true;
+        t[(unsigned char)'<'] = t[(unsigned char)'>'] = t[(unsigned char)'&'] = true;
+    }
+};
+const EscTable kEsc;
+
+void append_escaped_n(std::string& out, const char* s, size_t len) {
+    out.push_back('"');
+    size_t i = 0;
+    while (i < len) {
+        // bulk-copy the run up to the next byte needing escape (values
+        // are whole JSON blobs, so runs average ~a dozen bytes between
+        // quotes — still ~2x over the per-char switch)
+        size_t run = i;
+        while (run < len && !kEsc.t[(unsigned char)s[run]]) ++run;
+        if (run > i) {
+            out.append(s + i, run - i);
+            i = run;
+        }
+        if (i >= len) break;
+        unsigned char c = (unsigned char)s[i++];
+        switch (c) {
+            case '"': out += "\\\""; break;
+            case '\\': out += "\\\\"; break;
+            case '\b': out += "\\b"; break;
+            case '\f': out += "\\f"; break;
+            case '\n': out += "\\n"; break;
+            case '\r': out += "\\r"; break;
+            case '\t': out += "\\t"; break;
+            case '<': out += "\\u003c"; break;
+            case '>': out += "\\u003e"; break;
+            case '&': out += "\\u0026"; break;
+            default: {
+                char buf[8];
+                snprintf(buf, sizeof buf, "\\u%04x", c);
+                out += buf;
+            }
+        }
+    }
+    out.push_back('"');
+}
+
+void append_escaped(std::string& out, const char* s) {
+    append_escaped_n(out, s, std::strlen(s));
+}
+
+char* dup_string(const std::string& s) {
+    char* out = (char*)std::malloc(s.size() + 1);
+    std::memcpy(out, s.c_str(), s.size() + 1);
+    return out;
+}
+
+// quoted integer without snprintf (the per-value %lld dominated the
+// score-blob encode time at cluster scale: ~3 ms -> ~0.3 ms per blob)
+void append_quoted_int(std::string& out, long long v) {
+    char tmp[24];
+    auto r = std::to_chars(tmp, tmp + sizeof tmp, v);
+    out.push_back('"');
+    out.append(tmp, (size_t)(r.ptr - tmp));
+    out.push_back('"');
+}
+
+}  // namespace
+
+extern "C" {
+
+void codec_free(char* p) { std::free(p); }
+
+// {"key":"value",...} from pre-sorted keys — the result-history record
+// encoder (values are whole annotation blobs, so the escape pass over
+// hundreds of KiB is the hot part; byte-identical to marshal(dict))
+char* encode_string_map(const char* const* keys,
+                        const char* const* vals,
+                        const long long* val_lens,
+                        long long n) {
+    size_t cap = 2;
+    for (long long i = 0; i < n; ++i) cap += (size_t)val_lens[i] + 48;
+    std::string out;
+    out.reserve(cap);
+    out.push_back('{');
+    for (long long i = 0; i < n; ++i) {
+        if (i) out.push_back(',');
+        append_escaped(out, keys[i]);
+        out.push_back(':');
+        append_escaped_n(out, vals[i], (size_t)val_lens[i]);
+    }
+    out.push_back('}');
+    return dup_string(out);
+}
+
+// encode_string_map with the output length returned (out_len) so the
+// caller can build the str in one sized copy instead of a NUL-scan +
+// bytes round-trip — the history-record encode runs once per pod per
+// wave and its values are ~250KB of blobs, so the extra pass is real.
+// ascii_only is set when every emitted byte is ASCII (escaping only
+// ever emits ASCII for ASCII input; a non-ASCII input byte is copied
+// through verbatim), letting the caller skip UTF-8 validation.
+char* encode_string_map_sized(const char* const* keys,
+                              const char* const* vals,
+                              const long long* val_lens,
+                              long long n,
+                              long long* out_len,
+                              int32_t* ascii_only) {
+    size_t cap = 2;
+    for (long long i = 0; i < n; ++i) cap += (size_t)val_lens[i] + 48;
+    std::string out;
+    out.reserve(cap);
+    out.push_back('{');
+    for (long long i = 0; i < n; ++i) {
+        if (i) out.push_back(',');
+        append_escaped(out, keys[i]);
+        out.push_back(':');
+        append_escaped_n(out, vals[i], (size_t)val_lens[i]);
+    }
+    out.push_back('}');
+    if (out_len) *out_len = (long long)out.size();
+    if (ascii_only) {
+        int32_t ascii = 1;
+        for (unsigned char c : out) if (c >= 0x80) { ascii = 0; break; }
+        *ascii_only = ascii;
+    }
+    return dup_string(out);
+}
+
+// filter-result: {"node":{"Plugin":"passed"|msg,...},...}
+//
+// codes:        [F*N] int32, 0 == pass (plugin-skip already zeroed)
+// active:       [F] uint8 — plugins whose Filter ran for this pod
+// sorted_nodes: [N] int32 — node indices in lexicographic name order
+// sorted_plugins_by_name: [F] int32 — plugin indices sorted by name
+// lut_flat/lut_off: message LUTs; for plugin f the LUT spans
+//     lut_flat[lut_off[f] .. lut_off[f+1]) ; node-dependent plugins
+//     (per_node[f] != 0) use stride = (lut_off[f+1]-lut_off[f])/N per node.
+char* encode_filter_result(
+    int32_t n, int32_t f,
+    const int32_t* codes,
+    const uint8_t* active,
+    const char* const* node_names,
+    const char* const* plugin_names,
+    const int32_t* sorted_nodes,
+    const int32_t* sorted_plugins_by_name,
+    const char* const* lut_flat,
+    const int32_t* lut_off,
+    const uint8_t* per_node) {
+    std::string out;
+    out.reserve((size_t)n * 64);
+    out.push_back('{');
+    bool any_active = false;
+    for (int32_t pf = 0; pf < f; ++pf) any_active |= (bool)active[pf];
+    bool first_node = true;
+    for (int32_t si = 0; si < n && any_active; ++si) {
+        int32_t j = sorted_nodes[si];
+        // index (in execution order) of the first failing active plugin
+        int32_t fail_at = f;
+        for (int32_t pf = 0; pf < f; ++pf) {
+            if (active[pf] && codes[(size_t)pf * n + j] != 0) { fail_at = pf; break; }
+        }
+        if (!first_node) out.push_back(',');
+        first_node = false;
+        append_escaped(out, node_names[j]);
+        out.push_back(':');
+        out.push_back('{');
+        // entries: active plugins with index <= fail_at, sorted by name
+        bool first_plugin = true;
+        for (int32_t k = 0; k < f; ++k) {
+            int32_t pf = sorted_plugins_by_name[k];
+            if (!active[pf] || pf > fail_at) continue;
+            const char* msg;
+            int32_t code = codes[(size_t)pf * n + j];
+            if (code == 0) {
+                msg = "passed";
+            } else {
+                int32_t span = lut_off[pf + 1] - lut_off[pf];
+                int32_t base = lut_off[pf];
+                if (per_node[pf]) {
+                    int32_t stride = span / n;
+                    msg = lut_flat[base + (size_t)j * stride + (code - 1)];
+                } else {
+                    msg = lut_flat[base + (code - 1)];
+                }
+            }
+            if (!first_plugin) out.push_back(',');
+            first_plugin = false;
+            append_escaped(out, plugin_names[pf]);
+            out.push_back(':');
+            append_escaped(out, msg);
+        }
+        out.push_back('}');
+    }
+    out.push_back('}');
+    return dup_string(out);
+}
+
+// score-result / finalscore-result: {"node":{"Plugin":"<int>",...},...}
+// over feasible nodes only; plugins with sskip are omitted.  Values are
+// int64 (upstream node scores are int64; custom plugins can exceed int32).
+char* encode_score_result(
+    int32_t n, int32_t s,
+    const int64_t* values,           // [S*N]
+    const uint8_t* sskip,            // [S]
+    const uint8_t* feasible,         // [N]
+    const char* const* node_names,
+    const char* const* score_names,
+    const int32_t* sorted_nodes,
+    const int32_t* sorted_scores_by_name) {
+    std::string out;
+    out.reserve((size_t)n * 48);
+    out.push_back('{');
+    bool first_node = true;
+    for (int32_t si = 0; si < n; ++si) {
+        int32_t j = sorted_nodes[si];
+        if (!feasible[j]) continue;
+        bool any = false;
+        for (int32_t q = 0; q < s; ++q) if (!sskip[q]) { any = true; break; }
+        if (!any) continue;
+        if (!first_node) out.push_back(',');
+        first_node = false;
+        append_escaped(out, node_names[j]);
+        out.push_back(':');
+        out.push_back('{');
+        bool first_sc = true;
+        for (int32_t k = 0; k < s; ++k) {
+            int32_t q = sorted_scores_by_name[k];
+            if (sskip[q]) continue;
+            if (!first_sc) out.push_back(',');
+            first_sc = false;
+            append_escaped(out, score_names[q]);
+            out.push_back(':');
+            append_quoted_int(out, (long long)values[(size_t)q * n + j]);
+        }
+        out.push_back('}');
+    }
+    out.push_back('}');
+    return dup_string(out);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Context API — the per-workload fast path.
+//
+// Everything that is constant across pods (escaped node-name keys, escaped
+// plugin-name keys, escaped failure messages) is escaped ONCE at context
+// build; per-pod encoding is then fragment memcpy + integer formatting.
+// At 5k nodes this moves the encoder from ~300 MB/s (per-char escape
+// switch) to multi-GB/s fragment assembly — the decode-inclusive
+// end-to-end number rides on this loop.
+
+namespace {
+
+struct Ctx {
+    uint64_t uid = 0;                     // for thread-local cache keying
+    int32_t n = 0, f = 0, s = 0;
+    std::vector<int32_t> sorted_nodes;    // si -> node index j (name order)
+    std::vector<int32_t> sorted_filters;  // k -> filter exec index (name order)
+    std::vector<int32_t> sorted_scores;   // k -> scorer index (name order)
+    std::vector<std::string> node_key;    // per node j: `"name":` escaped
+    std::vector<std::string> filter_key;  // per filter pf: `"Name":`
+    std::vector<std::string> score_key;   // per scorer q: `"Name":`
+    std::vector<std::string> lut;         // escaped messages, quotes included
+    std::vector<int32_t> lut_off;
+    std::vector<uint8_t> per_node;
+    size_t max_msg = 0;                   // longest LUT message (reserve hint)
+    size_t sum_node_key = 0;              // Σ node_key sizes (cap computation)
+    // score finalization (the host mirror of framework/hostnorm.py):
+    // kind 0 = passthrough, 1 = default, 2 = default-reverse,
+    // 3 = PodTopologySpread, 4 = InterPodAffinity
+    std::vector<int32_t> score_kind;
+    std::vector<int64_t> score_weight;
+    int64_t tsp_big = 0;
+    // 1 when every fragment this ctx can emit is pure ASCII (append_escaped
+    // passes bytes >= 0x80 through verbatim, so non-ASCII names/messages
+    // clear it); lets the Python side build result strs with a plain
+    // memcpy instead of a UTF-8-validating decode
+    int32_t all_ascii = 1;
+};
+
+bool str_is_ascii(const std::string& s) {
+    for (unsigned char c : s) if (c >= 0x80) return false;
+    return true;
+}
+
+// raw output buffer: one malloc sized from an upper bound, pointer-bump
+// writes (std::string's per-append capacity checks and the final
+// dup_string copy both showed up at 5k-node scale)
+inline void put(char*& w, const std::string& s) {
+    std::memcpy(w, s.data(), s.size());
+    w += s.size();
+}
+inline void put(char*& w, const char* s, size_t len) {
+    std::memcpy(w, s, len);
+    w += len;
+}
+
+std::string escaped_key(const char* name) {
+    std::string out;
+    append_escaped(out, name);
+    out.push_back(':');
+    return out;
+}
+
+}  // namespace
+
+namespace {
+
+// shared filter-blob machinery for ctx_encode_filter / ctx_decode_pod —
+// the two entry points differ only in WHERE the per-node first-fail
+// (fail_at, code) comes from (unpacked [F,N] codes vs the packed word);
+// fragment construction and the emit loop are one implementation so the
+// byte contract cannot diverge between them.
+struct FilterFrags {
+    struct Frag { std::string head, tail; bool used = false; };
+    std::string all_pass;
+    std::vector<Frag> frag;
+    size_t max_frag = 0;
+    bool any_active = false;
+};
+
+// Everything about the filter blob that depends only on (workload,
+// active set) — i.e. NOT on the per-pod codes: the per-fail-plugin
+// fragments, and `cat`, the full concatenation over name-sorted nodes of
+// "," + node_key + all_pass with per-node offsets.  Workloads run the
+// same active set for nearly every pod, and most nodes pass every
+// filter, so a pod's blob is mostly maximal RUNS of consecutive all-pass
+// nodes — each run emits as ONE memcpy out of `cat` (measured: the
+// per-node emit loop was the largest decode slice at 5k nodes, ~0.36
+// ms/pod; runs cut it to near-memcpy).  Cached thread-local, one entry
+// (active sets change between pods only on PreFilter-skip boundaries).
+struct FilterCache {
+    uint64_t uid = ~0ull;
+    uint64_t mask = 0;
+    bool valid = false;
+    FilterFrags ff;
+    std::string cat;
+    std::vector<uint32_t> off;  // [n+1] into cat
+    // pre-rendered head+msg+tail per (fail plugin, code) for plugins with
+    // a SHARED (not per-node) message LUT: a failing node then emits as
+    // key + ONE suffix memcpy instead of three puts
+    std::vector<std::string> suffix;      // indexed lut_off[pf] + code-1
+    std::vector<uint8_t> suffix_ok;       // same indexing; 0 = per-node LUT
+};
+
+void build_filter_frags(const Ctx& ctx, const uint8_t* active, FilterFrags& ff) {
+    const int32_t f = ctx.f;
+    // reset alongside all_pass/frag: FilterFrags lives inside reused
+    // FilterCache slots (round-robin eviction, and the f>64 thread_local),
+    // so a stale true would make an empty-active pod emit per-node {}
+    // objects instead of "{}" — and cache the wrong blob
+    ff.any_active = false;
+    ff.all_pass = "{";
+    bool first = true;
+    for (int32_t k = 0; k < f; ++k) {
+        int32_t pf = ctx.sorted_filters[k];
+        if (!active[pf]) continue;
+        ff.any_active = true;
+        if (!first) ff.all_pass.push_back(',');
+        first = false;
+        ff.all_pass += ctx.filter_key[pf];
+        ff.all_pass += "\"passed\"";
+    }
+    ff.all_pass.push_back('}');
+    ff.frag.assign(f, {});
+    for (int32_t pf_fail = 0; pf_fail < f; ++pf_fail) {
+        if (!active[pf_fail]) continue;
+        FilterFrags::Frag& fr = ff.frag[pf_fail];
+        fr.used = true;
+        fr.head = "{";
+        bool frst = true, before = true;
+        for (int32_t k = 0; k < f; ++k) {
+            int32_t pf = ctx.sorted_filters[k];
+            if (!active[pf] || pf > pf_fail) continue;
+            std::string& dst = before ? fr.head : fr.tail;
+            if (pf == pf_fail) {
+                if (!frst) fr.head.push_back(',');
+                fr.head += ctx.filter_key[pf];
+                before = false;
+            } else {
+                if (!frst) dst.push_back(',');
+                dst += ctx.filter_key[pf];
+                dst += "\"passed\"";
+            }
+            frst = false;
+        }
+        fr.tail.push_back('}');
+    }
+    ff.max_frag = ff.all_pass.size();
+    for (const FilterFrags::Frag& fr : ff.frag) if (fr.used)
+        ff.max_frag = std::max(ff.max_frag,
+                               fr.head.size() + ctx.max_msg + fr.tail.size());
+}
+
+// thread_local: ctx_decode_pod runs from a decode thread pool; each
+// thread keeps its own cache so no locking is needed.  Keyed by
+// (ctx uid, active bitmask); several entries live at once because pods
+// ALTERNATE between a handful of active sets (PreFilter-skip patterns —
+// measured 4 distinct masks at config 4 with the mask changing between
+// ~76% of consecutive pods, so a single-entry cache would rebuild its
+// ~1 MB cat nearly every pod).  f > 64 filters disables caching
+// (rebuild per pod — no real lineup is that large).
+const FilterCache& filter_cache_for(const Ctx& ctx, const uint8_t* active) {
+    thread_local std::vector<FilterCache> caches;
+    thread_local size_t victim = 0;
+    FilterCache* cache = nullptr;
+    uint64_t mask = 0;
+    bool cacheable = ctx.f <= 64;
+    if (cacheable) {
+        for (int32_t pf = 0; pf < ctx.f; ++pf)
+            if (active[pf]) mask |= 1ull << pf;
+        for (FilterCache& c : caches)
+            if (c.valid && c.uid == ctx.uid && c.mask == mask) return c;
+        if (caches.size() < 8) {
+            caches.emplace_back();
+            cache = &caches.back();
+        } else {
+            cache = &caches[victim];       // round-robin eviction
+            victim = (victim + 1) % caches.size();
+        }
+    } else {
+        thread_local FilterCache uncached;
+        cache = &uncached;
+    }
+    cache->valid = cacheable;
+    cache->uid = ctx.uid;
+    cache->mask = mask;
+    build_filter_frags(ctx, active, cache->ff);
+    if (!cacheable) {
+        // the run/suffix paths check fc.valid and can never read these —
+        // don't pay the O(n) concatenation per pod on the uncached path
+        cache->cat.clear();
+        cache->off.clear();
+        cache->suffix.clear();
+        cache->suffix_ok.clear();
+        return *cache;
+    }
+    const int32_t n = ctx.n;
+    cache->cat.clear();
+    cache->cat.reserve(ctx.sum_node_key
+                       + (size_t)n * (1 + cache->ff.all_pass.size()));
+    cache->off.assign((size_t)n + 1, 0);
+    for (int32_t si = 0; si < n; ++si) {
+        int32_t j = ctx.sorted_nodes[si];
+        cache->cat.push_back(',');
+        cache->cat += ctx.node_key[j];
+        cache->cat += cache->ff.all_pass;
+        cache->off[(size_t)si + 1] = (uint32_t)cache->cat.size();
+    }
+    int32_t total = ctx.lut_off.empty() ? 0 : ctx.lut_off.back();
+    cache->suffix.assign(total, {});
+    cache->suffix_ok.assign(total, 0);
+    for (int32_t pf = 0; pf < ctx.f; ++pf) {
+        if (!active[pf] || ctx.per_node[pf]) continue;
+        const FilterFrags::Frag& fr = cache->ff.frag[pf];
+        for (int32_t c = ctx.lut_off[pf]; c < ctx.lut_off[pf + 1]; ++c) {
+            cache->suffix[c] = fr.head + ctx.lut[c] + fr.tail;
+            cache->suffix_ok[c] = 1;
+        }
+    }
+    return *cache;
+}
+
+// fail_buf[j]: first-fail exec idx (f = all active passed); code_buf[j]:
+// the failing plugin's code (only read when fail_buf[j] < f).
+// n_fail picks the emit strategy: when failures are rare, maximal runs
+// of consecutive all-pass nodes memcpy straight out of the cached `cat`
+// (one big copy per run); when failures are dense the runs are short
+// (measured mean 2 at config 4's ~55% fail rate) and walking the ~1 MB
+// cat in scattered pieces costs more cache traffic than rendering from
+// the small L1-resident fragments — so the per-node path is kept, with
+// the pre-rendered (plugin, code) suffix turning a failing node into
+// two memcpys.
+char* emit_filter_blob(const Ctx& ctx, const FilterCache& fc,
+                       const int32_t* fail_buf, const int32_t* code_buf,
+                       int32_t n_fail, int64_t* out_len) {
+    const FilterFrags& ff = fc.ff;
+    const int32_t n = ctx.n, f = ctx.f;
+    size_t cap = 3 + (ff.any_active
+        ? ctx.sum_node_key + (size_t)n * (1 + ff.max_frag) : 0);
+    char* buf = (char*)std::malloc(cap);
+    char* w = buf;
+    *w++ = '{';
+    bool first_node = true;
+    // mean all-pass run length >= ~128 nodes before the cat walk pays
+    const bool use_runs = fc.valid && n_fail * 128 < n;
+    int32_t si = 0;
+    while (si < n && ff.any_active) {
+        int32_t j = ctx.sorted_nodes[si];
+        int32_t fail_at = fail_buf[j];
+        if (fail_at == f && use_runs) {
+            // maximal run of consecutive all-pass nodes -> one memcpy of
+            // the cached ",node":{...passed...}" bytes (skip the leading
+            // comma at blob start)
+            int32_t run_end = si + 1;
+            while (run_end < n && fail_buf[ctx.sorted_nodes[run_end]] == f)
+                ++run_end;
+            const char* src = fc.cat.data() + fc.off[si];
+            size_t len = fc.off[run_end] - fc.off[si];
+            if (first_node) { ++src; --len; first_node = false; }
+            put(w, src, len);
+            si = run_end;
+            continue;
+        }
+        if (!first_node) *w++ = ',';
+        first_node = false;
+        put(w, ctx.node_key[j]);
+        if (fail_at == f) {
+            put(w, ff.all_pass);
+            ++si;
+            continue;
+        }
+        int32_t base = ctx.lut_off[fail_at];
+        int32_t code = code_buf[j];
+        if (fc.valid && fc.suffix_ok[base + (code - 1)]) {
+            put(w, fc.suffix[base + (code - 1)]);
+            ++si;
+            continue;
+        }
+        const FilterFrags::Frag& fr = ff.frag[fail_at];
+        put(w, fr.head);
+        int32_t span = ctx.lut_off[fail_at + 1] - ctx.lut_off[fail_at];
+        if (ctx.per_node[fail_at]) {
+            int32_t stride = span / n;
+            put(w, ctx.lut[base + (size_t)j * stride + (code - 1)]);
+        } else {
+            put(w, ctx.lut[base + (code - 1)]);
+        }
+        put(w, fr.tail);
+        ++si;
+    }
+    *w++ = '}';
+    *w = 0;
+    *out_len = (int64_t)(w - buf);
+    return buf;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* codec_ctx_new(
+    int32_t n, int32_t f, int32_t s,
+    const char* const* node_names,
+    const char* const* filter_names,
+    const char* const* score_names,
+    const int32_t* sorted_nodes,
+    const int32_t* sorted_filters,
+    const int32_t* sorted_scores,
+    const char* const* lut_flat,
+    const int32_t* lut_off,
+    const uint8_t* per_node,
+    const int32_t* score_kind,
+    const int64_t* score_weight,
+    int64_t tsp_big) {
+    Ctx* ctx = new Ctx();
+    static std::atomic<uint64_t> next_uid{1};
+    ctx->uid = next_uid.fetch_add(1);
+    ctx->n = n; ctx->f = f; ctx->s = s;
+    ctx->sorted_nodes.assign(sorted_nodes, sorted_nodes + n);
+    ctx->sorted_filters.assign(sorted_filters, sorted_filters + f);
+    ctx->sorted_scores.assign(sorted_scores, sorted_scores + s);
+    ctx->node_key.reserve(n);
+    for (int32_t j = 0; j < n; ++j) {
+        ctx->node_key.push_back(escaped_key(node_names[j]));
+        ctx->sum_node_key += ctx->node_key.back().size();
+    }
+    ctx->filter_key.reserve(f);
+    for (int32_t pf = 0; pf < f; ++pf) ctx->filter_key.push_back(escaped_key(filter_names[pf]));
+    ctx->score_key.reserve(s);
+    for (int32_t q = 0; q < s; ++q) ctx->score_key.push_back(escaped_key(score_names[q]));
+    ctx->lut_off.assign(lut_off, lut_off + f + 1);
+    ctx->per_node.assign(per_node, per_node + f);
+    int32_t total = ctx->lut_off.empty() ? 0 : ctx->lut_off.back();
+    ctx->lut.reserve(total);
+    for (int32_t i = 0; i < total; ++i) {
+        std::string m;
+        append_escaped(m, lut_flat[i]);
+        ctx->max_msg = std::max(ctx->max_msg, m.size());
+        ctx->lut.push_back(std::move(m));
+    }
+    ctx->score_kind.assign(score_kind, score_kind + s);
+    ctx->score_weight.assign(score_weight, score_weight + s);
+    ctx->tsp_big = tsp_big;
+    for (const auto& v : {&ctx->node_key, &ctx->filter_key,
+                          &ctx->score_key, &ctx->lut})
+        for (const std::string& str : *v)
+            if (!str_is_ascii(str)) { ctx->all_ascii = 0; break; }
+    return ctx;
+}
+
+int32_t ctx_all_ascii(void* p) { return ((const Ctx*)p)->all_ascii; }
+
+void codec_ctx_free(void* p) { delete (Ctx*)p; }
+
+char* ctx_encode_filter(void* p, const int32_t* codes, const uint8_t* active,
+                        int64_t* out_len) {
+    const Ctx& ctx = *(const Ctx*)p;
+    const int32_t n = ctx.n, f = ctx.f;
+    thread_local std::vector<int32_t> fail_buf;
+    thread_local std::vector<int32_t> code_buf;
+    fail_buf.resize(n);
+    code_buf.resize(n);
+    int32_t n_fail = 0;
+    for (int32_t j = 0; j < n; ++j) {
+        int32_t fail_at = f, code = 0;
+        for (int32_t pf = 0; pf < f; ++pf) {
+            if (active[pf] && codes[(size_t)pf * n + j] != 0) {
+                fail_at = pf; code = codes[(size_t)pf * n + j]; break;
+            }
+        }
+        fail_buf[j] = fail_at;
+        code_buf[j] = code;
+        n_fail += (fail_at != f);
+    }
+    return emit_filter_blob(ctx, filter_cache_for(ctx, active),
+                            fail_buf.data(), code_buf.data(), n_fail,
+                            out_len);
+}
+
+// Fused per-pod decode from the COMPACT replay layout: reads the packed
+// first-fail word and the narrow typed score columns directly, computes
+// finalscore (the framework/hostnorm.py math, bit-exact incl. numpy's
+// floor division) in place, and emits the three heavy blobs in one call.
+// This removes the [C,F,N] code unpack and the [C,S,N] int64 raw/final
+// materialization from the decode hot path entirely.
+//
+//   packed:     [N] little-endian words, elem size pack_elem (1/2/4/8);
+//               word = code | (first_fail_idx+1) << code_bits; 0 = pass
+//   score_cols: [S] pointers to this pod's raw column, elem size
+//               score_elem[q] (1/2/4/8), signed
+//   ignored:    [N] PodTopologySpread score-ignore mask (NULL = none)
+//   want_scores: feasible_count > 1 (upstream skips scoring otherwise)
+//   out_blobs/out_lens: filter-result, score-result, finalscore-result;
+//               score slots are NULL when want_scores is 0
+namespace {
+
+inline int64_t floordiv(int64_t a, int64_t b) {
+    int64_t q = a / b;
+    if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+    return q;
+}
+
+inline uint64_t read_packed(const void* packed, int32_t elem, int32_t j) {
+    switch (elem) {
+        case 1: return ((const uint8_t*)packed)[j];
+        case 2: return ((const uint16_t*)packed)[j];
+        case 4: return (uint64_t)((const int32_t*)packed)[j];
+        default: return (uint64_t)((const int64_t*)packed)[j];
+    }
+}
+
+inline int64_t read_score(const void* col, int32_t elem, int32_t j) {
+    switch (elem) {
+        case 1: return ((const int8_t*)col)[j];
+        case 2: return ((const int16_t*)col)[j];
+        case 4: return ((const int32_t*)col)[j];
+        default: return ((const int64_t*)col)[j];
+    }
+}
+
+// decode_one: the per-pod body shared by ctx_decode_pod (one C call per
+// pod, the legacy fused path) and ctx_decode_chunk (one C call per replay
+// chunk, pods iterated by the worker pool).  Runs on any thread; all
+// scratch state is thread_local.
+int32_t decode_one(
+    const Ctx& ctx,
+    const void* packed, int32_t pack_elem, int32_t code_bits,
+    const uint8_t* active,
+    const uint8_t* sskip,
+    const void* const* score_cols, const int32_t* score_elem,
+    const uint8_t* ignored,
+    int32_t want_scores,
+    char** out_blobs, int64_t* out_lens) {
+    const int32_t n = ctx.n, f = ctx.f, s = ctx.s;
+    const uint64_t code_mask = (code_bits >= 64) ? ~0ull : ((1ull << code_bits) - 1);
+
+    thread_local std::vector<uint8_t> feas_buf;
+    thread_local std::vector<int32_t> fail_buf;   // first-fail exec idx, f = pass
+    thread_local std::vector<int32_t> code_buf;
+    feas_buf.resize(n);
+    fail_buf.resize(n);
+    code_buf.resize(n);
+
+    int32_t n_fail = 0;
+    for (int32_t j = 0; j < n; ++j) {
+        uint64_t w = read_packed(packed, pack_elem, j);
+        int32_t ffp = (int32_t)(w >> code_bits);
+        int32_t code = (int32_t)(w & code_mask);
+        feas_buf[j] = (ffp == 0);  // replay.py recon: feasible = ffp == 0
+        if (ffp > 0 && ffp <= f && code != 0 && active[ffp - 1]) {
+            fail_buf[j] = ffp - 1;
+            code_buf[j] = code;
+            ++n_fail;
+        } else {
+            fail_buf[j] = f;  // all active plugins passed (or fail not active)
+            code_buf[j] = 0;
+        }
+    }
+
+    out_blobs[0] = emit_filter_blob(ctx, filter_cache_for(ctx, active),
+                                    fail_buf.data(), code_buf.data(), n_fail,
+                                    &out_lens[0]);
+    out_blobs[1] = out_blobs[2] = nullptr;
+    out_lens[1] = out_lens[2] = 0;
+    if (!want_scores) return 0;
+
+    // ---- distinct-tuple pass (hostnorm mirrors) ------------------------
+    //
+    // Workloads cluster: at the 5k-node shape only ~0.5% of feasible
+    // nodes carry a DISTINCT (raw values, ignored) tuple, and both the
+    // reductions (max/min ignore multiplicity) and the normalization are
+    // pure functions of that tuple + per-pod state.  So: hash every
+    // feasible node's tuple ONCE, compute reductions over the distinct
+    // entries, render each distinct score/finalscore row suffix once,
+    // and emit = node key + two memcpys per node.  Byte-identical to the
+    // per-node math (the 0 floors below replicate the per-node loops'
+    // accumulator init values); measured ~3x on the score/final side.
+    std::vector<std::string> prefix;
+    std::vector<int32_t> act;
+    prefix.reserve(s);
+    act.reserve(s);
+    size_t row_fixed = 3;
+    for (int32_t k = 0; k < s; ++k) {
+        int32_t q = ctx.sorted_scores[k];
+        if (sskip[q]) continue;
+        std::string pre(act.empty() ? "{" : ",");
+        pre += ctx.score_key[q];
+        pre.push_back('"');
+        row_fixed += pre.size() + 21;
+        prefix.push_back(std::move(pre));
+        act.push_back(q);
+    }
+
+    size_t cap = 3 + (act.empty() ? 0 : ctx.sum_node_key + (size_t)n * (1 + row_fixed));
+    char* sbuf = (char*)std::malloc(cap);
+    char* fbuf = (char*)std::malloc(cap);
+    char* sw = sbuf;
+    char* fw = fbuf;
+    *sw++ = '{';
+    *fw++ = '{';
+    bool first_node = true;
+    if (!act.empty()) {
+        const size_t kvals = act.size();
+        struct Entry {
+            uint64_t hash; uint32_t val_off;
+            uint32_t s_off, s_len, f_off, f_len;
+            uint8_t ig;
+        };
+        thread_local std::vector<Entry> entries;
+        thread_local std::vector<uint32_t> table;  // slot -> entry id + 1
+        thread_local std::vector<int64_t> val_store;
+        thread_local std::vector<int32_t> ent_of;  // node -> entry id (-1 infeasible)
+        thread_local std::vector<int64_t> vals;
+        thread_local std::string scr_s, scr_f;
+        entries.clear();
+        val_store.clear();
+        scr_s.clear();
+        scr_f.clear();
+        table.assign(256, 0);  // grows 4x at 1/2 load
+        size_t tmask = table.size() - 1;
+        ent_of.assign(n, -1);
+        vals.resize(kvals);
+
+        // pass 1: dedup every feasible node's tuple
+        for (int32_t j = 0; j < n; ++j) {
+            if (!feas_buf[j]) continue;
+            uint64_t h = 1469598103934665603ull;  // FNV-1a over the tuple
+            for (size_t k = 0; k < kvals; ++k) {
+                int64_t v = read_score(score_cols[act[k]], score_elem[act[k]], j);
+                vals[k] = v;
+                h ^= (uint64_t)v;
+                h *= 1099511628211ull;
+            }
+            uint8_t ig = (ignored && ignored[j]) ? 1 : 0;
+            h ^= ig;
+            h *= 1099511628211ull;
+
+            size_t slot = (size_t)h & tmask;
+            int32_t eid = -1;
+            for (;;) {
+                uint32_t ref = table[slot];
+                if (!ref) break;
+                const Entry& e = entries[ref - 1];
+                if (e.hash == h && e.ig == ig &&
+                    std::memcmp(&val_store[e.val_off], vals.data(),
+                                kvals * sizeof(int64_t)) == 0) {
+                    eid = (int32_t)(ref - 1);
+                    break;
+                }
+                slot = (slot + 1) & tmask;
+            }
+            if (eid < 0) {
+                eid = (int32_t)entries.size();
+                Entry e{};
+                e.hash = h;
+                e.ig = ig;
+                e.val_off = (uint32_t)val_store.size();
+                val_store.insert(val_store.end(), vals.begin(), vals.end());
+                entries.push_back(e);
+                table[slot] = (uint32_t)eid + 1;
+                if (entries.size() * 2 > table.size()) {  // grow + rehash
+                    table.assign(table.size() * 4, 0);
+                    tmask = table.size() - 1;
+                    for (size_t t2 = 0; t2 < entries.size(); ++t2) {
+                        size_t s2 = (size_t)entries[t2].hash & tmask;
+                        while (table[s2]) s2 = (s2 + 1) & tmask;
+                        table[s2] = (uint32_t)t2 + 1;
+                    }
+                }
+            }
+            ent_of[j] = eid;
+        }
+
+        // pass 2: reductions over the distinct tuples
+        struct Red { int64_t mn, mx; };
+        std::vector<Red> red(kvals);
+        for (size_t k = 0; k < kvals; ++k) {
+            int32_t kind = ctx.score_kind[act[k]];
+            Red r{0, 0};
+            if (kind == 1 || kind == 2) {
+                // default_normalize: max over feasible of raw (0 floor)
+                int64_t mx = 0;
+                for (const Entry& e : entries) {
+                    int64_t v = val_store[e.val_off + k];
+                    if (v > mx) mx = v;
+                }
+                r.mx = mx;
+            } else if (kind == 3) {
+                int64_t mn = ctx.tsp_big, mx = 0;
+                bool any = false;
+                for (const Entry& e : entries) {
+                    if (e.ig) continue;
+                    int64_t v = val_store[e.val_off + k];
+                    if (v < mn) mn = v;
+                    if (v > mx) mx = v;
+                    any = true;
+                }
+                r.mn = any ? mn : 0;
+                r.mx = mx;
+            } else if (kind == 4) {
+                const int64_t big = (int64_t)1 << 40;
+                int64_t mn = big, mx = -big;
+                for (const Entry& e : entries) {
+                    int64_t v = val_store[e.val_off + k];
+                    if (v < mn) mn = v;
+                    if (v > mx) mx = v;
+                }
+                r.mn = mn;
+                r.mx = mx;
+            }
+            red[k] = r;
+        }
+
+        // pass 3: render each distinct row suffix once
+        char num[24];
+        for (Entry& e : entries) {
+            e.s_off = (uint32_t)scr_s.size();
+            e.f_off = (uint32_t)scr_f.size();
+            for (size_t k = 0; k < kvals; ++k) {
+                int32_t q = act[k];
+                int64_t raw = val_store[e.val_off + k];
+                scr_s += prefix[k];
+                auto rs = std::to_chars(num, num + 24, (long long)raw);
+                scr_s.append(num, rs.ptr - num);
+                scr_s.push_back('"');
+
+                int64_t normed;
+                const Red& r = red[k];
+                switch (ctx.score_kind[q]) {
+                    case 1: {  // default_normalize
+                        normed = (r.mx == 0)
+                            ? raw : floordiv(raw * 100, std::max(r.mx, (int64_t)1));
+                        break;
+                    }
+                    case 2: {  // default reverse (TaintToleration)
+                        normed = (r.mx == 0)
+                            ? 100 : 100 - floordiv(raw * 100, std::max(r.mx, (int64_t)1));
+                        break;
+                    }
+                    case 3: {  // PodTopologySpread
+                        if (e.ig) { normed = 0; break; }
+                        normed = (r.mx == 0)
+                            ? 100
+                            : floordiv(100 * (r.mx + r.mn - raw),
+                                       std::max(r.mx, (int64_t)1));
+                        break;
+                    }
+                    case 4: {  // InterPodAffinity (float64 + trunc, like Go)
+                        double diff = (double)(r.mx - r.mn);
+                        double fv = diff > 0
+                            ? 100.0 * ((double)(raw - r.mn) / std::max(diff, 1.0))
+                            : 0.0;
+                        normed = (int64_t)fv;
+                        break;
+                    }
+                    default: normed = raw;
+                }
+                scr_f += prefix[k];
+                auto rf = std::to_chars(num, num + 24,
+                                        (long long)(normed * ctx.score_weight[q]));
+                scr_f.append(num, rf.ptr - num);
+                scr_f.push_back('"');
+            }
+            scr_s.push_back('}');
+            scr_f.push_back('}');
+            e.s_len = (uint32_t)(scr_s.size() - e.s_off);
+            e.f_len = (uint32_t)(scr_f.size() - e.f_off);
+        }
+
+        // pass 4: emit = node key + two row-suffix memcpys per node
+        for (int32_t si = 0; si < n; ++si) {
+            int32_t j = ctx.sorted_nodes[si];
+            if (ent_of[j] < 0) continue;
+            if (!first_node) { *sw++ = ','; *fw++ = ','; }
+            first_node = false;
+            put(sw, ctx.node_key[j]);
+            put(fw, ctx.node_key[j]);
+            const Entry& e = entries[ent_of[j]];
+            put(sw, scr_s.data() + e.s_off, e.s_len);
+            put(fw, scr_f.data() + e.f_off, e.f_len);
+        }
+    }
+    *sw++ = '}'; *sw = 0;
+    *fw++ = '}'; *fw = 0;
+    out_blobs[1] = sbuf;
+    out_lens[1] = (int64_t)(sw - sbuf);
+    out_blobs[2] = fbuf;
+    out_lens[2] = (int64_t)(fw - fbuf);
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Chunk-granular decode (ctx_decode_chunk): one GIL-released C call per
+// replay chunk.  A small persistent worker pool iterates the chunk's pods
+// (work-stealing atomic counter); each pod's three blobs land in a
+// per-call arena whose addresses/lengths are written into caller arrays,
+// so Python builds the result strs with zero per-pod C calls and frees
+// everything with ONE chunk_arena_free.  Pool threads persist across
+// calls so their thread_local FilterCaches (the ~1 MB per-active-set
+// `cat` concatenations) survive from chunk to chunk.
+
+class WorkerPool {
+public:
+    // fn(worker_idx) on n workers total; the calling thread is worker 0,
+    // pool threads are 1..n-1.  Concurrent callers (parallel chunk
+    // decodes from several Python threads) don't queue: whoever finds
+    // the pool busy just runs inline — the work-stealing loop makes a
+    // single worker complete the whole chunk correctly.
+    void run(int n, const std::function<void(int)>& fn) {
+        if (n <= 1) {  // inline, WITHOUT claiming the pool: a small
+            fn(0);     // chunk must not degrade a concurrent big one
+            return;
+        }
+        std::unique_lock<std::mutex> busy(busy_m_, std::try_to_lock);
+        if (!busy.owns_lock()) {
+            fn(0);
+            return;
+        }
+        {
+            std::lock_guard<std::mutex> lk(m_);
+            while ((int)threads_.size() < n - 1) {
+                int idx = (int)threads_.size() + 1;
+                threads_.emplace_back([this, idx] { loop(idx); });
+            }
+            job_ = &fn;
+            target_ = n - 1;
+            remaining_ = n - 1;
+            ++gen_;
+        }
+        cv_.notify_all();
+        fn(0);
+        std::unique_lock<std::mutex> lk(m_);
+        done_cv_.wait(lk, [&] { return remaining_ == 0; });
+        job_ = nullptr;
+    }
+
+private:
+    void loop(int idx) {
+        uint64_t seen = 0;
+        std::unique_lock<std::mutex> lk(m_);
+        for (;;) {
+            cv_.wait(lk, [&] { return gen_ != seen; });
+            seen = gen_;
+            if (idx > target_) continue;  // sized out of this round
+            const std::function<void(int)>* j = job_;
+            lk.unlock();
+            (*j)(idx);
+            lk.lock();
+            if (--remaining_ == 0) done_cv_.notify_one();
+        }
+    }
+
+    std::mutex busy_m_;  // one chunk in the pool at a time
+    std::mutex m_;
+    std::condition_variable cv_, done_cv_;
+    std::vector<std::thread> threads_;
+    const std::function<void(int)>* job_ = nullptr;
+    uint64_t gen_ = 0;
+    int target_ = 0, remaining_ = 0;
+};
+
+// leaked on purpose: joining detached-for-life workers from a static
+// destructor would std::terminate at interpreter exit
+WorkerPool& decode_pool() {
+    static WorkerPool* p = new WorkerPool();
+    return *p;
+}
+
+struct ChunkArena {
+    std::vector<char*> blobs;
+    ~ChunkArena() {
+        for (char* b : blobs) std::free(b);
+    }
+};
+
+}  // namespace
+
+int32_t ctx_decode_pod(
+    void* p,
+    const void* packed, int32_t pack_elem, int32_t code_bits,
+    const uint8_t* active,
+    const uint8_t* sskip,
+    const void* const* score_cols, const int32_t* score_elem,
+    const uint8_t* ignored,
+    int32_t want_scores,
+    char** out_blobs, int64_t* out_lens) {
+    return decode_one(*(const Ctx*)p, packed, pack_elem, code_bits, active,
+                      sskip, score_cols, score_elem, ignored, want_scores,
+                      out_blobs, out_lens);
+}
+
+// One call per replay chunk; the GIL is released for the whole call.
+//
+//   c:            pods in this range
+//   packed:       [c, N] packed first-fail words, C-contiguous
+//   active_rows:  [c, F] uint8 plugin-ran masks (per-pod rows)
+//   sskip_rows:   [c, S] uint8 score-skip masks
+//   col_base:     [S] pointer to pod 0's raw column (NULL when unused)
+//   col_stride:   [S] BYTES between consecutive pods' columns
+//   col_elem:     [S] column element size (1/2/4/8, signed)
+//   ignored:      [c, N] TSP score-ignore rows, or NULL
+//   want_scores:  [c] uint8, feasible_count > 1
+//   skip_pod:     [c] uint8 (or NULL): 1 = leave the pod's slots 0 —
+//                 Python's prefilter-reject early-out owns it
+//   n_threads:    workers incl. the caller (clamped to [1, 16])
+//   out_ptrs/out_lens: [c*3] blob addresses/lengths (0 = absent); valid
+//                 until chunk_arena_free of the returned arena
+//   thread_seconds: out, summed worker busy time (tracer counter)
+void* ctx_decode_chunk(
+    void* p,
+    int32_t c,
+    const void* packed, int32_t pack_elem, int32_t code_bits,
+    const uint8_t* active_rows,
+    const uint8_t* sskip_rows,
+    const void* const* col_base,
+    const int64_t* col_stride,
+    const int32_t* col_elem,
+    const uint8_t* ignored,
+    const uint8_t* want_scores,
+    const uint8_t* skip_pod,
+    int32_t n_threads,
+    int64_t* out_ptrs,
+    int64_t* out_lens,
+    double* thread_seconds) {
+    const Ctx& ctx = *(const Ctx*)p;
+    const int32_t n = ctx.n, f = ctx.f, s = ctx.s;
+    ChunkArena* arena = new ChunkArena();
+    arena->blobs.reserve((size_t)c * 3);
+    std::memset(out_ptrs, 0, (size_t)c * 3 * sizeof(int64_t));
+    std::memset(out_lens, 0, (size_t)c * 3 * sizeof(int64_t));
+
+    if (n_threads < 1) n_threads = 1;
+    if (n_threads > 16) n_threads = 16;
+    if (c < 2 * n_threads) n_threads = 1;  // not worth waking the pool
+
+    std::atomic<int32_t> next{0};
+    std::atomic<long long> busy_ns{0};
+    std::mutex merge_m;
+
+    auto work = [&](int) {
+        auto t0 = std::chrono::steady_clock::now();
+        std::vector<char*> local;
+        std::vector<const void*> cols((size_t)(s > 0 ? s : 1), nullptr);
+        for (;;) {
+            int32_t i = next.fetch_add(1, std::memory_order_relaxed);
+            if (i >= c) break;
+            if (skip_pod && skip_pod[i]) continue;
+            for (int32_t q = 0; q < s; ++q)
+                cols[q] = col_base[q]
+                    ? (const char*)col_base[q] + (int64_t)i * col_stride[q]
+                    : nullptr;
+            char* blobs[3];
+            int64_t lens[3];
+            decode_one(ctx,
+                       (const char*)packed + (size_t)i * n * pack_elem,
+                       pack_elem, code_bits,
+                       active_rows + (size_t)i * f,
+                       sskip_rows + (size_t)i * s,
+                       cols.data(), col_elem,
+                       ignored ? ignored + (size_t)i * n : nullptr,
+                       want_scores[i] ? 1 : 0,
+                       blobs, lens);
+            for (int b = 0; b < 3; ++b) {
+                if (!blobs[b]) continue;
+                // emit caps are upper bounds (21 bytes per numeric
+                // field); trim so the arena holds ~actual blob bytes
+                // for the whole chunk, not the slack
+                char* t = (char*)std::realloc(blobs[b], (size_t)lens[b] + 1);
+                if (t) blobs[b] = t;
+                local.push_back(blobs[b]);
+                out_ptrs[(size_t)i * 3 + b] = (int64_t)(intptr_t)blobs[b];
+                out_lens[(size_t)i * 3 + b] = lens[b];
+            }
+        }
+        busy_ns.fetch_add(std::chrono::duration_cast<std::chrono::nanoseconds>(
+            std::chrono::steady_clock::now() - t0).count());
+        std::lock_guard<std::mutex> lg(merge_m);
+        arena->blobs.insert(arena->blobs.end(), local.begin(), local.end());
+    };
+
+    decode_pool().run(n_threads, work);
+    if (thread_seconds) *thread_seconds = busy_ns.load() / 1e9;
+    return arena;
+}
+
+void chunk_arena_free(void* a) { delete (ChunkArena*)a; }
+
+char* ctx_encode_scores(void* p, const int64_t* values,
+                        const uint8_t* sskip, const uint8_t* feasible,
+                        int64_t* out_len) {
+    const Ctx& ctx = *(const Ctx*)p;
+    const int32_t n = ctx.n, s = ctx.s;
+    // prefix[k] = ('{'|',') + `"Name":"` for each active scorer in name
+    // order; per node the varying bytes are just the score digits.
+    std::vector<std::string> prefix;
+    std::vector<const int64_t*> col;
+    prefix.reserve(s);
+    col.reserve(s);
+    size_t row_fixed = 3;
+    for (int32_t k = 0; k < s; ++k) {
+        int32_t q = ctx.sorted_scores[k];
+        if (sskip[q]) continue;
+        std::string pre(col.empty() ? "{" : ",");
+        pre += ctx.score_key[q];
+        pre.push_back('"');
+        row_fixed += pre.size() + 21;  // prefix + digits(<=20) + closing quote
+        prefix.push_back(std::move(pre));
+        col.push_back(values + (size_t)q * n);
+    }
+    size_t cap = 3 + (col.empty() ? 0 : ctx.sum_node_key + (size_t)n * (1 + row_fixed));
+    char* buf = (char*)std::malloc(cap);
+    char* w = buf;
+    *w++ = '{';
+    bool first_node = true;
+    if (!col.empty()) {
+        for (int32_t si = 0; si < n; ++si) {
+            int32_t j = ctx.sorted_nodes[si];
+            if (!feasible[j]) continue;
+            if (!first_node) *w++ = ',';
+            first_node = false;
+            put(w, ctx.node_key[j]);
+            for (size_t k = 0; k < col.size(); ++k) {
+                put(w, prefix[k]);
+                auto r = std::to_chars(w, w + 24, (long long)col[k][j]);
+                w = r.ptr;
+                *w++ = '"';
+            }
+            *w++ = '}';
+        }
+    }
+    *w++ = '}';
+    *w = 0;
+    *out_len = (int64_t)(w - buf);
+    return buf;
+}
+
+}  // extern "C"

@@ -25,17 +25,23 @@ Each round's device work is a hand-written kernel (kernels/spec.py):
 On the CPU each wrapper runs its plain PyTorch version instead.  The
 device is the one `cw` lives on: `compile_workload` defaults to the card.
 
-Every grid chunk is fetched to the host as it fills (the JAX package's
-host-resident rung); the result is a ReplayResult with the same compact
-chunk grid as `replay()`, and `on_chunk(rr, lo, hi)` sees the chunks in
-ascending order.
+The result is a ReplayResult with the same compact chunk grid as
+`replay()`, and `on_chunk(rr, lo, hi)` sees the chunks in ascending
+order.  Residency is resolved exactly as the scan's
+(framework/replay.py `_resolve_device_resident`): by default, with no
+`on_chunk` consumer, each emitted grid chunk stays on the device,
+retained under `_DEVICE_BUDGET`, and B7 (kernels/attribution.py) runs on
+it so only its sums cross; otherwise each chunk is fetched to the host
+as it fills.  The scan fallback's chunks follow the same rung.  The
+heads a grid emit hands over are fresh tensors (kernels/spec.py
+`grid_emit`), as are a round's and a scan chunk's outputs, so retaining
+them aliases nothing.
 
 Not ported, and refused where a caller asks for them: meshes (`mesh`,
 ROADMAP Queue B item B12), gangs (`gang`, framework/gang.aligned_cut and
-the engine), device residency (`device_resident=True`, with B7).  The
-fuse coordinator (B11), the autopilot's CONTROLS overrides, TRACER,
-BLACKBOX and fault points are absent: the port does what the JAX package
-does with none of them engaged.  So is the stream's `ignore=` (the
+the engine).  The fuse coordinator (B11), the autopilot's CONTROLS
+overrides, TRACER, BLACKBOX and fault points are absent: the port does
+what the JAX package does with none of them engaged.  So is the stream's `ignore=` (the
 engine's gang plugin) and `unroll=` (the scan kernel has no unroll).
 
 Env knobs, read as in JAX: KSS_TPU_SPECULATIVE_BATCH pins the batch (one
@@ -47,12 +53,15 @@ KSS_TPU_SPECULATIVE_TILE has no effect here (kernels/spec.py).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
 from ..framework.pipeline import PACK_MODES, build_step
-from ..framework.replay import (ReplayResult, _CompactChunks, _clone_carry,
-                                _compact_plan, _slice_xs)
+from ..framework.replay import (_DEVICE_BUDGET, ReplayResult, _CompactChunks,
+                                _DeviceAttribution, _Landing, _clone_carry, _ready_event,
+                                _compact_plan, _resolve_device_resident, _slice_xs)
 from ..kernels import spec as kspec
 from ..state.compile import CompiledWorkload
 from ..utils.env import env_float, env_int
@@ -254,6 +263,9 @@ def replay_speculative_stream(
     (PodTopologySpread / InterPodAffinity) are active.  namespaces: the
     namespace manifests for interpod namespaceSelector resolution.
 
+    device_resident: keep the grid chunks on the device (module doc);
+    None resolves as the scan's does.
+
     Returns (rr, stats): rr is bit-identical to replay(cw) and the
     sequential oracle; stats records rounds, acceptance and fallback.
     Caller must have checked speculation_ok(cw.config, ...)."""
@@ -262,9 +274,7 @@ def replay_speculative_stream(
     if gang is not None:
         raise NotImplementedError(
             "gang round cuts are not ported (framework/gang.aligned_cut, ROADMAP Queue A)")
-    if device_resident:
-        raise NotImplementedError(
-            "device residency is not ported (ROADMAP Queue B: B7); chunks go to the host")
+    device_resident = _resolve_device_resident(device_resident, True, on_chunk)
     active = set(cw.config.active_plugins())
     inter: _InteractionOracle | None = None
     if active & LABEL_COUPLED:
@@ -280,7 +290,8 @@ def replay_speculative_stream(
     tiers = (("i64",) if "i64" in cw.host.get("score_dtypes", ())
              else (None, "i32", "i64"))
     for t, wide in enumerate(tiers):
-        result = _spec_run(cw, chunk, batch, on_chunk, wide, inter, scan_fallback)
+        result = _spec_run(cw, chunk, batch, on_chunk, wide, inter, scan_fallback,
+                           device_resident)
         if result is not None:
             result[0].tiers = tiers[:t + 1]
             return result
@@ -288,7 +299,8 @@ def replay_speculative_stream(
 
 
 def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
-              wide, inter, scan_fallback: bool) -> tuple[ReplayResult, dict] | None:
+              wide, inter, scan_fallback: bool,
+              device_resident: bool) -> tuple[ReplayResult, dict] | None:
     """One width tier of the stream; None when a raw overflowed its group
     dtype (the caller reruns from a fresh carry at the next tier)."""
     dev = cw.device
@@ -340,14 +352,38 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
         if on_chunk is not None:
             on_chunk(rr, lo_c, hi_c)
 
+    att_ctx = (_DeviceAttribution(cw, chunk, pack_mode, score_cols)
+               if device_resident else None)
+    if att_ctx is not None and not att_ctx.enabled:
+        att_ctx = None
+
     def ingest_chunk(heads: dict) -> None:
         """Land one grid chunk (group name -> [chunk, ...] tensors) in the
-        compact result on the host, then deliver it to the consumer."""
+        compact result: retained on the device with B7's sums, or fetched
+        to the host; then deliver it to the consumer."""
         ci = len(compact.packed)
         lo_c = ci * chunk
         hi_c = min(lo_c + chunk, p)
-        for group in _CompactChunks.GROUPS:
-            getattr(compact, group).append(_host(heads[group]))
+        if device_resident:
+            att = None
+            if att_ctx is not None:
+                out_like = SimpleNamespace(
+                    packed_filter=heads["packed"], raw8=heads["raw8"], raw16=heads["raw16"],
+                    raw32=heads["raw32"], feasible_count=heads["fc"])
+                att = _Landing(att_ctx.run(out_like, lo_c)).result()
+            compact.d2h_bytes.append(att.pop("_d2h_bytes") if att else 0)
+            for group in _CompactChunks.GROUPS:
+                getattr(compact, group).append(heads[group])
+            compact.ready.append(_ready_event(dev))
+            compact.att.append(att)
+            _DEVICE_BUDGET.retain(compact, ci, compact.device_nbytes(ci))
+        else:
+            for group in _CompactChunks.GROUPS:
+                getattr(compact, group).append(_host(heads[group]))
+            compact.ready.append(None)
+            compact.att.append(None)
+            compact.d2h_bytes.append(sum(getattr(compact, g)[ci].nbytes
+                                         for g in _CompactChunks.GROUPS))
         deliver(lo_c, hi_c)
 
     def emit_chunk() -> None:
@@ -398,6 +434,7 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
             rej = _host(out.prefilter_reject)
             ovf = _host(out.raw_overflow)
             if check_overflow and ovf[:m].any():
+                _DEVICE_BUDGET.drop(compact)
                 return None
             selected[lo:hi] = sel[:m]
             feasible_count[lo:hi] = fc[:m]
@@ -450,6 +487,7 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
         if inter is not None and k > 1:
             k = _interaction_cut(inter, sel, lo, k)
         if check_overflow and ovf[:k].any():
+            _DEVICE_BUDGET.drop(compact)
             return None
         selected[lo:lo + k] = sel[:k]
         feasible_count[lo:lo + k] = fc[:k]

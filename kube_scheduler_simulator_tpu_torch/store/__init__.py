@@ -1,2 +1,4 @@
 from .annotations import *  # noqa: F401,F403
-from .decode import decode_pod_result, decode_all  # noqa: F401
+from .decode import (  # noqa: F401
+    decode_all, decode_all_parallel, decode_chunk_into, decode_pod_result,
+    decode_release_batches)

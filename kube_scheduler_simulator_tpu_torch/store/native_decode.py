@@ -1,0 +1,499 @@
+"""Native fast path for the annotation decoder.
+
+Port of kube_scheduler_simulator_tpu/store/native_decode.py.  Builds the
+per-workload context (name arrays, sorted orders, message LUTs) for
+native/annotation_codec.cpp and encodes the three heavy blobs
+(filter-result, score-result, finalscore-result) in C++.  Used by
+store/decode.py unless KSS_TPU_DISABLE_NATIVE=1; output is
+byte-identical to the Python encoder (tests/test_torch_native_codec.py).
+
+It reads a replay's compact chunks through `_CompactChunks.host`, so a
+device-resident chunk is fetched there, once, in C order: the codec walks
+raw pointers with the arrays' exact dtypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from ..native import (
+    get_lib, peek_string, peek_string_ascii, take_sized_string,
+    take_sized_string_ascii,
+)
+from ..plugins import (
+    affinity, interpod, nodevolumelimits, ports, taints, topologyspread,
+    volumebinding, volumerestrictions, volumezone,
+)
+from ..plugins.noderesources import decode_fit_filter
+
+_MAX_FIT_LUT_BITS = 16
+
+
+def _c_str_array(strings: list[bytes]):
+    arr = (ctypes.c_char_p * len(strings))(*strings)
+    return arr
+
+
+def build_context(cw):
+    """-> the codec context, or None when a plugin's messages can't be
+    LUT'd (a NodeResourcesFit schema past _MAX_FIT_LUT_BITS resources):
+    the Python encoder then decodes that workload.  Raises when the codec
+    cannot be built."""
+    lib = get_lib()
+    table = cw.node_table
+    n = table.n
+    filter_names = cw.config.filters()
+    score_names = cw.config.scorers()
+
+    luts: list[list[bytes]] = []
+    per_node: list[int] = []
+    for name in filter_names:
+        if name == "NodeResourcesFit":
+            bits = cw.schema.n + 1
+            if bits > _MAX_FIT_LUT_BITS:
+                return None
+            lut = [
+                decode_fit_filter(code, cw.schema).encode()
+                for code in range(1, (1 << bits))
+            ]
+            per_node.append(0)
+        elif name == "NodeAffinity":
+            lut = [affinity.ERR_REASON.encode()]
+            per_node.append(0)
+        elif name == "NodeUnschedulable":
+            lut = [taints.ERR_UNSCHEDULABLE.encode()]
+            per_node.append(0)
+        elif name == "NodeName":
+            lut = [taints.ERR_NODE_NAME.encode()]
+            per_node.append(0)
+        elif name == "NodePorts":
+            lut = [ports.ERR_NODE_PORTS.encode()]
+            per_node.append(0)
+        elif name == "TaintToleration":
+            stride = max((len(t) for t in table.taints), default=0)
+            if stride == 0:
+                lut = [b""] * n  # never indexed (no taints -> no failures)
+                stride = 1
+            else:
+                lut = []
+                for j in range(n):
+                    for ti in range(stride):
+                        if ti < len(table.taints[j]):
+                            key, value, _ = table.taints[j][ti]
+                            lut.append(
+                                ("node(s) had untolerated taint {%s: %s}" % (key, value)).encode()
+                            )
+                        else:
+                            lut.append(b"")
+            per_node.append(1)
+        elif name == "PodTopologySpread":
+            lut = []
+            for code in range(1, 2 * topologyspread.MAX_CONSTRAINTS + 1):
+                lut.append(
+                    (topologyspread.ERR_MISSING_LABEL if code % 2 == 1
+                     else topologyspread.ERR_SKEW).encode()
+                )
+            per_node.append(0)
+        elif name == "InterPodAffinity":
+            lut = [interpod.ERR_AFFINITY.encode(), interpod.ERR_ANTI_AFFINITY.encode(),
+                   interpod.ERR_EXISTING_ANTI.encode()]
+            per_node.append(0)
+        elif name == "VolumeRestrictions":
+            lut = [volumerestrictions.ERR_DISK_CONFLICT.encode()]
+            per_node.append(0)
+        elif name == "NodeVolumeLimits":
+            lut = [nodevolumelimits.ERR_MAX_VOLUME_COUNT.encode()]
+            per_node.append(0)
+        elif name == "VolumeBinding":
+            # codes are a bitmask (1 node-conflict | 2 bind-conflict |
+            # 4 pv-not-exist); decode_filter renders every combination
+            lut = [volumebinding.decode_filter(c, 0, None).encode() for c in range(1, 8)]
+            per_node.append(0)
+        elif name == "VolumeZone":
+            lut = [volumezone.ERR_VOLUME_ZONE_CONFLICT.encode()]
+            per_node.append(0)
+        else:
+            return None
+        luts.append(lut)
+
+    lut_flat: list[bytes] = []
+    lut_off = [0]
+    for lut in luts:
+        lut_flat.extend(lut)
+        lut_off.append(len(lut_flat))
+
+    names_sorted = np.argsort(np.asarray(table.names)).astype(np.int32)
+    sorted_filters = (np.argsort(np.asarray(filter_names)).astype(np.int32)
+                      if filter_names else np.zeros(0, np.int32))
+    sorted_scores = (np.argsort(np.asarray(score_names)).astype(np.int32)
+                     if score_names else np.zeros(0, np.int32))
+    lut_off_arr = np.asarray(lut_off, dtype=np.int32)
+    per_node_arr = np.asarray(per_node, dtype=np.uint8)
+    # score finalization params (the hostnorm.finalize_chunk dispatch,
+    # matched by NAME exactly as finalize_chunk does)
+    _KINDS = {"NodeAffinity": 1, "TaintToleration": 2,
+              "PodTopologySpread": 3, "InterPodAffinity": 4}
+    kinds = np.asarray([_KINDS.get(nm, 0) for nm in score_names], np.int32)
+    weights = np.asarray([cw.config.weight(nm) for nm in score_names], np.int64)
+    # the C context copies every fragment (escaped node/plugin keys, escaped
+    # LUT messages) into its own storage, so the Python arrays above only
+    # need to live for this call
+    cptr = lib.codec_ctx_new(
+        n, len(filter_names), len(score_names),
+        _c_str_array([nm.encode() for nm in table.names]),
+        _c_str_array([nm.encode() for nm in filter_names]),
+        _c_str_array([nm.encode() for nm in score_names]),
+        _i32p(np.ascontiguousarray(names_sorted)),
+        _i32p(np.ascontiguousarray(sorted_filters)),
+        _i32p(np.ascontiguousarray(sorted_scores)),
+        _c_str_array(lut_flat or [b""]),
+        _i32p(lut_off_arr), _u8p(per_node_arr),
+        _i32p(kinds), _i64p(weights), int(topologyspread._BIG),
+    )
+    ctx = _NativeCtx(lib, cptr, n)
+    # per-pod plugin-ran / score-skip rows for the fused path (row slices
+    # hand C a contiguous [F]/[S] uint8 pointer without per-pod rebuilds)
+    fskip = cw.host.get("filter_skip", {})
+    sskip = cw.host.get("score_skip", {})
+    p = cw.n_pods
+    ctx.active_rows = np.ascontiguousarray(
+        ~np.stack([np.asarray(fskip[nm], bool) for nm in filter_names], axis=1)
+        if filter_names else np.zeros((p, 0), bool), np.uint8)
+    ctx.sskip_rows = np.ascontiguousarray(
+        np.stack([np.asarray(sskip[nm], bool) for nm in score_names], axis=1)
+        if score_names else np.zeros((p, 0), bool), np.uint8)
+    ctx.has_tsp_score = "PodTopologySpread" in score_names
+    return ctx
+
+
+class _NativeCtx:
+    """Owns one C-side codec context; freed with the workload."""
+
+    __slots__ = ("lib", "ptr", "n", "active_rows", "sskip_rows",
+                 "has_tsp_score", "take", "peek", "__weakref__")
+
+    def __init__(self, lib, ptr, n):
+        self.lib = lib
+        self.ptr = ptr
+        self.n = n
+        self.active_rows = None
+        self.sskip_rows = None
+        self.has_tsp_score = False
+        # blob -> str: a plain memcpy when the ctx proves every
+        # emitted byte ASCII, else the UTF-8-validating decode
+        all_ascii = lib.ctx_all_ascii(ptr)
+        self.take = (take_sized_string_ascii if all_ascii
+                     else take_sized_string)
+        # arena variant (no free; ctx_decode_chunk's arena is released
+        # in one chunk_arena_free after the whole chunk's strs exist)
+        self.peek = peek_string_ascii if all_ascii else peek_string
+
+    def __del__(self):
+        if self.ptr:
+            self.lib.codec_ctx_free(self.ptr)
+            self.ptr = None
+
+
+def _i32p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _i64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _u8p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def encode_filter(ctx: _NativeCtx, codes: np.ndarray, active: np.ndarray) -> str:
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    active = np.ascontiguousarray(active, dtype=np.uint8)
+    out_len = ctypes.c_int64()
+    ptr = ctx.lib.ctx_encode_filter(ctx.ptr, _i32p(codes), _u8p(active),
+                                    ctypes.byref(out_len))
+    return ctx.take(ctx.lib, ptr, out_len.value)
+
+
+def encode_scores(ctx: _NativeCtx, values: np.ndarray, sskip: np.ndarray,
+                  feasible: np.ndarray) -> str:
+    values = np.ascontiguousarray(values, dtype=np.int64)
+    sskip = np.ascontiguousarray(sskip, dtype=np.uint8)
+    feasible = np.ascontiguousarray(feasible, dtype=np.uint8)
+    out_len = ctypes.c_int64()
+    ptr = ctx.lib.ctx_encode_scores(ctx.ptr, _i64p(values), _u8p(sskip),
+                                    _u8p(feasible), ctypes.byref(out_len))
+    return ctx.take(ctx.lib, ptr, out_len.value)
+
+
+def _tsp_ignored_cached(rr, ci: int, c: int):
+    """PodTopologySpread's [C, N] score-ignore mask for compact chunk ci,
+    cached on the ReplayResult (shared by the per-pod fused path and the
+    chunk call; double-checked under the recon lock so a chunk boundary
+    doesn't make every pool worker recompute the O(C*N) mask at once)."""
+    cache = getattr(rr, "_fused_ignored", None)
+    if cache is None or cache[0] != ci:
+        with rr._recon_lock:
+            cache = getattr(rr, "_fused_ignored", None)
+            if cache is None or cache[0] != ci:
+                ig = np.ascontiguousarray(
+                    rr._tsp_ignored_chunk(ci, c, rr.cw.n_nodes), np.uint8)
+                cache = (ci, ig)
+                rr._fused_ignored = cache
+    return cache[1]
+
+
+class _ChunkHandle:
+    """An in-flight ctx_decode_chunk result: the arena pointer plus the
+    per-pod blob address/length arrays.  decode_chunk_take() turns it
+    into strs and frees the arena; dropping it without take leaks the
+    arena (callers always pair the two)."""
+
+    __slots__ = ("ctx", "arena", "out_ptrs", "out_lens", "skip", "c",
+                 "thread_seconds", "_keep")
+
+    def __init__(self, ctx, arena, out_ptrs, out_lens, skip, c,
+                 thread_seconds, keep):
+        self.ctx = ctx
+        self.arena = arena
+        self.out_ptrs = out_ptrs
+        self.out_lens = out_lens
+        self.skip = skip
+        self.c = c
+        self.thread_seconds = thread_seconds
+        self._keep = keep
+
+    def discard(self) -> None:
+        """Free the arena without building any strings — the error-path
+        cleanup (decode_chunk_take does this in its finally on the
+        normal path)."""
+        if self.arena is not None:
+            self.ctx.lib.chunk_arena_free(self.arena)
+            self.arena = None
+
+
+def decode_chunk_start(ctx: _NativeCtx, rr, lo: int, hi: int,
+                       skip=None, n_threads: int | None = None) -> _ChunkHandle:
+    """The GIL-released half of the chunk decode: one ctx_decode_chunk
+    call covering pods lo..hi (a range inside ONE compact replay chunk).
+    The C side iterates the pods with its worker pool and emits every
+    pod's three heavy blobs into a per-call arena.  Runs fine on a helper
+    thread (ctypes drops the GIL for the call) — decode_release_batches
+    pipelines the NEXT batch's C decode under the current batch's
+    str-building this way.
+
+    skip: optional [hi-lo] uint8 — pods Python's prefilter-reject
+    early-out owns; the C side leaves their slots empty."""
+    from ..framework.pipeline import PACK_MODES
+    from ..utils.platform import effective_cpu_count
+
+    cc = rr._compact
+    c = hi - lo
+    ci, r_lo = divmod(lo, cc.chunk)
+    # cc.host(): device-resident chunks materialize here — the memoized
+    # D2H this read path exists to defer (framework/replay.py)
+    packed = cc.host("packed", ci)
+    if not packed.flags["C_CONTIGUOUS"]:
+        # a strided host array (a caller's own); the C codec walks raw
+        # pointers in C order
+        packed = cc.packed[ci] = np.ascontiguousarray(packed)
+    code_bits = PACK_MODES[cc.pack_mode][1]
+    n = ctx.n
+    elem = packed.dtype.itemsize
+    packed_ptr = packed.ctypes.data + r_lo * n * elem
+
+    active = ctx.active_rows[lo:hi]   # [c, F], contiguous row slice
+    sskip = ctx.sskip_rows[lo:hi]     # [c, S]
+    want = np.ascontiguousarray(
+        np.asarray(rr.feasible_count[lo:hi]) > 1, np.uint8)
+
+    s = len(cc.score_cols)
+    col_base = (ctypes.c_void_p * max(s, 1))()
+    col_stride = (ctypes.c_int64 * max(s, 1))()
+    col_elem = (ctypes.c_int32 * max(s, 1))()
+    keep_alive = [packed, active, sskip, want]
+    any_scores = bool(want.any())
+    if any_scores and s:
+        static_rows = rr.cw.host.get("static_score_rows", {})
+        for q, (group, row) in enumerate(cc.score_cols):
+            if group == "host":
+                # precompiled host-resident raw ([P, N] C-contiguous);
+                # sskip'd scorers are never read by the C codec, so the
+                # unmasked rows are safe to hand over
+                src = static_rows[row]
+                if not src.flags["C_CONTIGUOUS"]:
+                    src = static_rows[row] = np.ascontiguousarray(src)
+                keep_alive.append(src)
+                e = src.dtype.itemsize
+                col_base[q] = src.ctypes.data + lo * n * e
+                col_stride[q] = n * e
+                col_elem[q] = e
+            else:
+                arr = cc.host(group, ci)       # [C, S_g, N]
+                if not arr.flags["C_CONTIGUOUS"]:
+                    arr = np.ascontiguousarray(arr)
+                    getattr(cc, group)[ci] = arr
+                keep_alive.append(arr)
+                e = arr.dtype.itemsize
+                col_base[q] = arr.ctypes.data + (r_lo * arr.shape[1] + row) * n * e
+                col_stride[q] = arr.shape[1] * n * e
+                col_elem[q] = e
+
+    ig_ptr = None
+    if (any_scores and ctx.has_tsp_score
+            and rr.cw.host.get("tsp_ignore") is not None):
+        ig = _tsp_ignored_cached(rr, ci, packed.shape[0])
+        ig_rows = ig[r_lo:r_lo + c]
+        keep_alive.append(ig_rows)
+        ig_ptr = _u8p(ig_rows)
+
+    out_ptrs = np.zeros(c * 3, np.int64)
+    out_lens = np.zeros(c * 3, np.int64)
+    tsec = ctypes.c_double()
+    if n_threads is None:
+        n_threads = min(8, effective_cpu_count())
+    if skip is not None:
+        keep_alive.append(skip)
+    arena = ctx.lib.ctx_decode_chunk(
+        ctx.ptr, c,
+        ctypes.c_void_p(packed_ptr), elem, code_bits,
+        _u8p(active), _u8p(sskip),
+        col_base, col_stride, col_elem,
+        ig_ptr, _u8p(want), _u8p(skip) if skip is not None else None,
+        n_threads,
+        _i64p(out_ptrs), _i64p(out_lens), ctypes.byref(tsec))
+    return _ChunkHandle(ctx, arena, out_ptrs, out_lens, skip, c,
+                        float(tsec.value), keep_alive)
+
+
+def decode_chunk_take(handle: _ChunkHandle) -> list:
+    """Blob strs from a decode_chunk_start handle; frees the arena.
+    triples[i] is (filter_json, score_json | None, finalscore_json |
+    None), or None where the skip mask was set."""
+    ctx = handle.ctx
+    peek = ctx.peek
+    skip = handle.skip
+    out_ptrs, out_lens = handle.out_ptrs, handle.out_lens
+    try:
+        triples: list = []
+        for i in range(handle.c):
+            if skip is not None and skip[i]:
+                triples.append(None)
+                continue
+            b = 3 * i
+            fj = peek(int(out_ptrs[b]), int(out_lens[b]))
+            sj = (peek(int(out_ptrs[b + 1]), int(out_lens[b + 1]))
+                  if out_ptrs[b + 1] else None)
+            fnj = (peek(int(out_ptrs[b + 2]), int(out_lens[b + 2]))
+                   if out_ptrs[b + 2] else None)
+            triples.append((fj, sj, fnj))
+    finally:
+        handle.discard()
+    return triples
+
+
+def decode_chunk_fused(ctx: _NativeCtx, rr, lo: int, hi: int,
+                       skip=None, n_threads: int | None = None):
+    """decode_chunk_start + decode_chunk_take in one call.
+
+    Returns (triples, native_thread_seconds)."""
+    handle = decode_chunk_start(ctx, rr, lo, hi, skip=skip,
+                                n_threads=n_threads)
+    return decode_chunk_take(handle), handle.thread_seconds
+
+
+def decode_pod_fused(ctx: _NativeCtx, rr, i: int, hi: int,
+                     want_scores: bool) -> tuple[str, str | None, str | None]:
+    """(filter-result, score-result, finalscore-result) for pod i straight
+    from the compact replay layout — one C call; no [F,N] code unpack, no
+    int64 raw/final materialization, normalization computed in C
+    (hostnorm mirror, asserted byte-identical by tests/test_native_codec.py).
+
+    i indexes the compact chunks; hi indexes the workload's per-pod host
+    tables (they differ only on the extender's single-row replays, which
+    never take this path)."""
+    from ..framework.pipeline import PACK_MODES
+
+    cc = rr._compact
+    ci, r = divmod(i, cc.chunk)
+    # cc.host(): device-resident chunks materialize here (memoized D2H)
+    packed = cc.host("packed", ci)
+    if not packed.flags["C_CONTIGUOUS"]:
+        # a strided host array (a caller's own); the C codec walks raw
+        # pointers in C order
+        packed = cc.packed[ci] = np.ascontiguousarray(packed)
+    code_bits = PACK_MODES[cc.pack_mode][1]
+    prow = packed[r]
+
+    s = len(cc.score_cols)
+    col_ptrs = (ctypes.c_void_p * s)()
+    col_elem = (ctypes.c_int32 * s)()
+    cols_alive = []
+    if want_scores:
+        static_rows = rr.cw.host.get("static_score_rows", {})
+        for q, (group, row) in enumerate(cc.score_cols):
+            if group == "host":
+                # precompiled host-resident raw ([P, N] C-contiguous
+                # numpy); sskip'd scorers are never read by the C codec,
+                # so the unmasked row is safe to hand over
+                src = static_rows[row]
+                col = src[hi]
+                cols_alive.append(col)
+                col_ptrs[q] = col.ctypes.data
+                col_elem[q] = src.dtype.itemsize
+                continue
+            arr = cc.host(group, ci)
+            if not arr.flags["C_CONTIGUOUS"]:
+                arr = np.ascontiguousarray(arr)
+                getattr(cc, group)[ci] = arr
+            col = arr[r, row]
+            cols_alive.append(col)
+            col_ptrs[q] = col.ctypes.data
+            col_elem[q] = arr.dtype.itemsize
+
+    ignored_ptr = None
+    if want_scores and ctx.has_tsp_score and rr.cw.host.get("tsp_ignore") is not None:
+        ig_row = _tsp_ignored_cached(rr, ci, packed.shape[0])[r]
+        ignored_ptr = _u8p(ig_row)
+
+    out_blobs = (ctypes.c_void_p * 3)()
+    out_lens = (ctypes.c_int64 * 3)()
+    ctx.lib.ctx_decode_pod(
+        ctx.ptr,
+        prow.ctypes.data_as(ctypes.c_void_p), packed.dtype.itemsize, code_bits,
+        _u8p(ctx.active_rows[hi]), _u8p(ctx.sskip_rows[hi]),
+        col_ptrs, col_elem, ignored_ptr, 1 if want_scores else 0,
+        out_blobs, out_lens,
+    )
+    filter_json = ctx.take(ctx.lib, out_blobs[0], out_lens[0])
+    score_json = final_json = None
+    if out_blobs[1]:
+        score_json = ctx.take(ctx.lib, out_blobs[1], out_lens[1])
+    if out_blobs[2]:
+        final_json = ctx.take(ctx.lib, out_blobs[2], out_lens[2])
+    return filter_json, score_json, final_json
+
+
+def encode_string_map(d: dict[str, str]) -> str:
+    """marshal(d) for a flat str->str dict via the native escape pass —
+    the result-history record encoder.
+
+    The str is built in ONE sized copy (memmove when the C side proves
+    the output pure ASCII): the record is re-encoded once per pod per
+    wave over ~250KB of blob values, so the NUL-scan + bytes round-trip
+    of the plain take_string path was a real slice of commit time."""
+    lib = get_lib()
+    items = sorted(d.items())
+    keys = _c_str_array([k.encode() for k, _ in items])
+    vals_b = [v.encode() for _, v in items]
+    vals = _c_str_array(vals_b)
+    lens = (ctypes.c_longlong * len(items))(*[len(b) for b in vals_b])
+    out_len = ctypes.c_longlong()
+    ascii_only = ctypes.c_int32()
+    ptr = lib.encode_string_map_sized(keys, vals, lens, len(items),
+                                      ctypes.byref(out_len),
+                                      ctypes.byref(ascii_only))
+    take = take_sized_string_ascii if ascii_only.value else take_sized_string
+    return take(lib, ptr, out_len.value)

@@ -4,8 +4,11 @@ in "compact" mode under every pack mode and raw-width tier, on configs
 1-5 at test scale, the tiny workload, a workload with per-slot spread
 eligibility, and the scheduler's default profile (every plugin row of
 the default lineup, the volume family included); the speculative wave's
-kernels likewise, the SAFE-set fleet included.  A CUDA kernel has no CPU mode, so these tests skip where
-there is no card; run them on one with
+kernels likewise, the SAFE-set fleet included; B7, the chunk
+attribution, in every pack mode and raw tier; and the device-resident
+replay and stream on the card against the CPU port.  A CUDA kernel has
+no CPU mode, so these tests skip where there is no card; run them on one
+with
 
     python -m pytest tests/test_torch_kernel.py -q
 """
@@ -211,7 +214,9 @@ def test_speculative_stream_on_card_matches_cpu(card, wl):
     assert stats == wstats
     assert (rr.selected == want.selected).all()
     for group in ("packed", "raw8", "raw16", "raw32"):
-        for a, b in zip(getattr(rr._compact, group), getattr(want._compact, group), strict=True):
+        assert len(getattr(rr._compact, group)) == len(getattr(want._compact, group)), group
+        for ci in range(len(getattr(rr._compact, group))):
+            a, b = rr._compact.host(group, ci), want._compact.host(group, ci)
             assert a.dtype == b.dtype and (a == b).all(), group
 
 
@@ -307,3 +312,127 @@ def test_b9_in_spec_kernels(card, wl):
         want = kspec.commit_plain(step, _clone_carry(carry), xs, ev.selected, 32)
         carry = kspec.spec_commit_bind(step, carry, xs, ev.selected, 32)
         _equal(carry, want, f"spec_commit_bind {lo}")
+
+
+# ------------------------------------------- B7, the chunk attribution
+
+def _att_chunk(seed, mode, tier, c=40, n=1037):
+    """A chunk's compact outputs drawn with numpy (n not a multiple of 8:
+    the bitmap's padded tail); the i64 tier's raws pass int32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f = 7 if mode == "p8" else 12
+    dtype, code_bits, _ = PACK_MODES[mode]
+    ffp = np.where(rng.random((c, n)) < 0.5, 0, rng.integers(1, f + 1, (c, n)))
+    code = np.where(ffp > 0, rng.integers(1, 1 << min(code_bits, 20), (c, n)), 0)
+    packed = torch.from_numpy((ffp.astype(np.int64) << code_bits) | code).to(dtype)
+    groups = ("raw8", "raw16", "raw32", "raw16") if tier == "narrow" else ("raw32",) * 4
+    seen = {"raw8": 0, "raw16": 0, "raw32": 0}
+    cols = []
+    for s, g in enumerate(groups):
+        cols.append((s, g, seen[g]))
+        seen[g] += 1
+    wide = 1 << 40 if tier == "i64" else 1 << 31
+    raw32 = rng.integers(-wide, wide, (c, seen["raw32"], n))
+    m = c - 3
+    t = {
+        "packed": packed,
+        "raw8": torch.from_numpy(rng.integers(-128, 128, (c, seen["raw8"], n)).astype(np.int8)),
+        "raw16": torch.from_numpy(
+            rng.integers(-(1 << 15), 1 << 15, (c, seen["raw16"], n)).astype(np.int16)),
+        "raw32": torch.from_numpy(raw32.astype(np.int64 if tier == "i64" else np.int32)),
+        "fc": torch.from_numpy(rng.integers(0, 4, c).astype(np.int32)),
+        "fskip": torch.from_numpy(np.concatenate(
+            [rng.random((f, m)) < 0.3, np.ones((f, c - m), bool)], 1)),
+        "sskip": torch.from_numpy(np.concatenate(
+            [rng.random((len(groups) + 1, m)) < 0.3, np.ones((len(groups) + 1, c - m), bool)],
+            1)),
+    }
+    return t, m, code_bits, tuple(cols)
+
+
+@pytest.mark.parametrize("tier", ["narrow", "i32", "i64"])
+@pytest.mark.parametrize("mode", list(PACK_MODES))
+def test_chunk_attribution_matches_plain(card, mode, tier):
+    """B7 on the card equals its plain version exactly: every pack mode
+    (unsigned p8 and p16 words, the int64 p64 word), every raw tier (int64
+    raws past int32 in the i64 tier), a padded tail, skips, the bitmap."""
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import (
+        chunk_attribution, chunk_attribution_plain)
+
+    for seed, want_pack in ((1, True), (2, False)):
+        t, m, code_bits, cols = _att_chunk(seed, mode, tier)
+        args = ("packed", "raw8", "raw16", "raw32", "fc", "fskip", "sskip")
+        before = chunk_attribution.launches
+        got = chunk_attribution(*[t[k].to(card) for k in args], m, code_bits, cols, want_pack)
+        assert chunk_attribution.launches == before + 1
+        want = chunk_attribution_plain(*[t[k] for k in args], m, code_bits, cols, want_pack)
+        _equal(got, want, f"chunk_attribution {mode} {tier} {seed}")
+        assert int(want["f_rejects"].sum()) > 0
+
+
+RESIDENT_WORKLOADS = {"config5": lambda: (WORKLOADS["config5"](), {}),
+                      "policies": lambda: (_policies(), {}),
+                      "default_profile": _default_profile}
+
+
+@pytest.mark.parametrize("wl", list(RESIDENT_WORKLOADS))
+def test_device_resident_replay_on_card_matches_cpu(card, wl):
+    """replay() at its default, device-resident rung on the card equals
+    the CPU port: decisions, B7's attribution (one launch per chunk, no
+    chunk fetched for it), every chunk's bytes on a cold read, annotations."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.framework.replay import plugin_attribution, replay
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution
+    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result
+
+    args, kw = RESIDENT_WORKLOADS[wl]()
+    got = []
+    for dev in (card, "cpu"):
+        cw = compile_workload(*args, **kw, device=dev)
+        before = chunk_attribution.launches
+        rr = replay(cw, chunk=32, device=dev)
+        cc = rr._compact
+        assert all(cc.is_device(ci) for ci in range(len(cc.packed)))
+        launched = chunk_attribution.launches - before
+        got.append((rr, plugin_attribution(rr), launched))
+        assert cc.materialized == 0
+    (rr, att, launched), (want, watt, _) = got
+    assert launched == len(rr._compact.packed) * len(rr.tiers)
+    assert att == watt
+    for f in ("selected", "feasible_count", "prefilter_reject"):
+        assert np.array_equal(getattr(rr, f), getattr(want, f)), f
+    for group in ("packed", "raw8", "raw16", "raw32"):
+        for ci in range(len(rr._compact.packed)):
+            a, b = rr._compact.host(group, ci), want._compact.host(group, ci)
+            assert a.dtype == b.dtype and (a == b).all(), f"{group} {ci}"
+    for i in sorted({0, 1, 31, 32, rr.cw.n_pods - 1}):
+        assert decode_pod_result(rr, i) == decode_pod_result(want, i), f"pod {i}"
+
+
+@pytest.mark.parametrize("wl", list(SPEC_WORKLOADS))
+def test_device_resident_stream_on_card_matches_cpu(card, wl):
+    """replay_speculative_stream(device_resident=True) on the card equals
+    the CPU port, stats and attribution included, with one B7 launch per
+    emitted chunk."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import plugin_attribution
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution
+    from kube_scheduler_simulator_tpu_torch.parallel import replay_speculative_stream
+
+    nodes, pods, cfg = SPEC_WORKLOADS[wl]()
+    runs = []
+    for dev in (card, "cpu"):
+        cw = compile_workload(nodes, pods, cfg, device=dev)
+        before = chunk_attribution.launches
+        rr, stats = replay_speculative_stream(cw, chunk=16, pods=pods, device_resident=True)
+        runs.append((rr, stats, plugin_attribution(rr), chunk_attribution.launches - before))
+    (rr, stats, att, launched), (want, wstats, watt, _) = runs
+    assert stats == wstats and att == watt
+    assert launched == len(rr._compact.packed)
+    assert (rr.selected == want.selected).all()
+    for group in ("packed", "raw8", "raw16", "raw32"):
+        for ci in range(len(rr._compact.packed)):
+            a, b = rr._compact.host(group, ci), want._compact.host(group, ci)
+            assert a.dtype == b.dtype and (a == b).all(), group

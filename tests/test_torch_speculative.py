@@ -277,7 +277,8 @@ def test_what_the_cases_exercise():
     assert fell["fallback_at"] is not None and fell["scan_pods"] > 0
     i64 = runs("i64_b8_k4")[1][0]
     assert i64.tiers == ("i64",) and i64._compact.raw32
-    assert all(a.dtype == np.int64 for a in i64._compact.raw32)
+    assert all(i64._compact.host("raw32", ci).dtype == np.int64
+               for ci in range(len(i64._compact.raw32)))
 
 
 @pytest.mark.parametrize("name,batch", [("safe_oracle", 6), ("coupled_oracle", 6)])
@@ -327,7 +328,7 @@ def test_init_carry_survives_speculative_replay():
 def test_unported_options_raise():
     nodes, pods, _ = _safe(pwl)
     cw = compile_workload(nodes[:4], pods[:4], PluginSetConfig(enabled=SAFE), device="cpu")
-    for kw in (dict(mesh=object()), dict(gang=object()), dict(device_resident=True)):
+    for kw in (dict(mesh=object()), dict(gang=object())):
         with pytest.raises(NotImplementedError):
             pspec.replay_speculative_stream(cw, **kw)
 
