@@ -37,7 +37,22 @@ phase:
        fleets through decode_release_batches, sampled pods against the
        Python encoder;
   17   the slot-pinned and SAFE-set streams with device_resident=True
-       against phases 7 and 12.
+       against phases 7 and 12;
+  18   B8 (quorum_slice) on a 10,000-pod slice of 1,250 groups, and B10
+       (phased_eval, renormalize_row) on config 5's 5,000 nodes, each
+       held exactly equal to its plain version, with times and bounds;
+  19   the scheduling engine: config 5 created in an ObjectStore and
+       scheduled by SchedulerEngine.schedule_pending() at its default
+       wave and rung, then under KSS_TPU_SPECULATIVE=0, every pod's node
+       equal to phase 4's replay() and sampled annotations read from the
+       store equal to its decode;
+  20   gangs at full width: 2,000 PodGroup members on the 5,000 nodes
+       (groups that reach quorum, park, or fail the Coscheduling
+       PreFilter) through the engine, B8 in every wave, binds
+       all-or-nothing and equal across both commit modes and the scan;
+  21   the engine's host-interleaved path (B10): 256 config-5 pods with
+       a webhook extender on localhost and an AfterScore hook, equal to
+       the same run with device="cpu".
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -76,6 +91,9 @@ KCAND = 128                    # KSS_TPU_SPECULATIVE_CANDIDATES' default
 ACCEPT = 37                    # the accept prefix of the general commit's check
 FILL = 37                      # an unaligned fill mark for grid_append's check
 DIRECT_SCALE = 0.1024          # 1,024 pods x 5,000 nodes for replay_speculative
+# phase 20's PodGroups: (family, groups, members, minMember) -> 2,000 pods
+GANG_FAMILIES = (("quorum", 200, 8, 8), ("park", 40, 8, 8), ("reject", 20, 4, 8))
+HOST_PODS = 256                # phase 21: pods through the host-interleaved path
 
 
 # the default-profile fleet's decoration (phases 10-12)
@@ -260,6 +278,60 @@ def _nbytes(tree) -> int:
         total += sum(t.numel() * t.element_size() for t in leaves
                      if isinstance(t, torch.Tensor))
     return total
+
+
+def phased_eval_bytes(cw, carry, xs1) -> int:
+    """The bytes one pod's phased_eval must move: the rows it reads and
+    the uncompacted StepOut it writes.  Read in full: the node-axis core
+    columns (statics and carry) and the pod's own xs (its taint rows and
+    spread eligibility are [N] each).  Read in part: NodeAffinity's one
+    required and one preferred row (by req_idx / pref_idx, unless
+    skipped), PodTopologySpread's dom_idx and count rows of the
+    constraints the pod's slots name, and InterPodAffinity's dom_idx and
+    carry rows of the terms its flags touch (pod.cuh, interpod.cuh,
+    spread.cuh).  Config 5's plugins only; another plugin raises."""
+    n = cw.n_nodes
+    unknown = (set(cw.statics) | set(carry)) - {
+        "core", "NodeAffinity", "PodTopologySpread", "InterPodAffinity"}
+    if unknown:
+        raise ValueError(f"phased_eval_bytes: no row count for {sorted(unknown)}")
+    total = _nbytes({"s": cw.statics["core"], "c": carry["core"]}) + _nbytes(xs1)
+    if "NodeAffinity" in cw.statics:
+        st, x = cw.statics["NodeAffinity"], xs1["NodeAffinity"]
+        if not bool(x.filter_skip[0]):
+            total += n * st.req_rows.element_size()
+        if not bool(x.score_skip[0]):
+            total += n * st.pref_rows.element_size()
+    if "PodTopologySpread" in cw.statics:
+        x = xs1["PodTopologySpread"]
+        cids = set()
+        for m, cid in enumerate(x.c_id[0].tolist()):
+            used = ((bool(x.is_filter[0, m]) and not bool(x.filter_skip[0]))
+                    or (bool(x.is_score[0, m]) and not bool(x.score_skip[0])))
+            if cid >= 0 and used:
+                cids.add(cid)
+        total += len(cids) * n * 4 * 2  # dom_idx row + count row, int32
+    if "InterPodAffinity" in cw.statics:
+        x, ic = xs1["InterPodAffinity"], carry["InterPodAffinity"]
+        filt = not bool(x.filter_skip[0])
+        aff, anti = x.h_req_aff[0].tolist(), x.h_req_anti[0].tolist()
+        coef = (x.h_pref_aff_w[0] - x.h_pref_anti_w[0]).tolist()
+        for t, tm in enumerate(x.t_matches[0].tolist()):
+            rows = set()
+            if filt and aff[t] > 0:
+                rows |= {"dom_idx", "matched"}
+                total += 4  # matched_total[t]
+            if filt and anti[t] > 0:
+                rows.add("matched")
+            if filt and tm:
+                rows.add("have_req_anti")
+            if coef[t] != 0:
+                rows.add("matched")
+            if tm:
+                rows |= {"sym_pref_aff", "sym_pref_anti", "have_req_aff"}
+            total += len(rows) * n * ic.matched.element_size()
+    f_, s_ = len(cw.config.filters()), len(cw.config.scorers())
+    return total + (f_ + 2 * s_) * n * 4 + 3 * 4
 
 
 def bound(nbytes: int, f64_ops: int = 0) -> tuple[float, str]:
@@ -1352,6 +1424,430 @@ def result_path_phases(dev, card: str, cw, pods: list, rr, spec_ctx: dict,
     }
 
 
+class _Extender:
+    """An in-process webhook extender for phase 21 on localhost: filter
+    drops every node whose index is a multiple of 7; prioritize gives 10
+    to every node whose index ends in 3."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                names = body.get("NodeNames") or []
+                if self.path.endswith("/filter"):
+                    resp = {"NodeNames": [nm for nm in names if int(nm[-5:]) % 7],
+                            "FailedNodes": {nm: "vetoed by extender"
+                                            for nm in names if int(nm[-5:]) % 7 == 0}}
+                else:
+                    resp = [{"Host": nm, "Score": 10 if nm.endswith("3") else 0}
+                            for nm in names]
+                data = json.dumps(resp).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def _device_busy_s(prof) -> float:
+    """Seconds of device activity (kernels and copies) a CUDA-only
+    torch.profiler trace recorded; 0.0 when it recorded none."""
+    total = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0)
+        total += float(t or 0)
+    return total / 1e6
+
+
+def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[dict]:
+    """Phases 18-21: the scheduling engine.  18: B8 and B10 against their
+    plain versions; 19: config 5 through SchedulerEngine.schedule_pending()
+    on an ObjectStore, the default wave and the pinned scan, against
+    phase 4's replay; 20: gangs at full width (B8 in every wave); 21: the
+    host-interleaved path (B10) with a webhook extender and an AfterScore
+    hook, against the same run on the CPU.  -> the entries of B8 and B10
+    for the JSON line."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch import profiler
+
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework import gang, pipeline
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _slice_xs
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution
+    from kube_scheduler_simulator_tpu_torch.models import make_gang_workload
+    from kube_scheduler_simulator_tpu_torch.plugins.coscheduling import (
+        Coscheduling, ensure_podgroup_resource)
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.scheduler.debuggable import PluginExtender
+    from kube_scheduler_simulator_tpu_torch.scheduler.extender import ExtenderService
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+    from kube_scheduler_simulator_tpu_torch.store import annotations as ann
+    from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
+
+    kernels = (kstep.step_chunk, chunk_attribution, kspec.spec_eval, kspec.spec_oracle,
+               kspec.spec_round, kspec.spec_commit_core, kspec.spec_commit_bind,
+               kspec.grid_append, kspec.grid_emit, kgang.quorum_slice,
+               kphased.phased_eval, kphased.renormalize_row)
+
+    def reset() -> None:
+        for f in kernels:
+            f.launches = 0
+
+    def counts() -> dict:
+        return {f.__name__: f.launches for f in kernels if f.launches}
+
+    def fresh_store(objects: dict):
+        store = ObjectStore()
+        ensure_podgroup_resource(store)
+        for res, items in objects.items():
+            for obj in items:
+                store.create(res, obj)  # create() deep-copies
+        return store
+
+    rng = np.random.default_rng(SEED)
+    p, n = cw.n_pods, cw.n_nodes
+
+    # ---- 18. B8 and B10 == their plain versions, at full width
+    t18 = time.perf_counter()
+    gn, gg = 10_000, 1_250
+    gid = np.full(gn, -1, np.int32)
+    pos, k = 0, 0
+    while pos < gn and k < gg:
+        if rng.random() < 0.1:
+            k += 1  # a group absent from the slice
+            continue
+        size = int(rng.integers(2, 9))
+        gid[pos:pos + size] = k
+        pos += size + (int(rng.integers(1, 6)) if rng.random() < 0.3 else 0)  # -1 runs
+        k += 1
+    sel = np.where(rng.random(gn) < 0.85, rng.integers(0, n, gn), -1).astype(np.int32)
+    already = rng.integers(0, 3, gg).astype(np.int32)
+    min_member = rng.integers(1, 9, gg).astype(np.int32)
+    packed = np.concatenate([gid, sel, already, min_member])
+    packed_dev = torch.from_numpy(packed).to(dev)
+
+    def b8_plain():
+        return gang.quorum_slice_plain(packed_dev[:gn], packed_dev[gn:2 * gn],
+                                       packed_dev[2 * gn:2 * gn + gg], packed_dev[2 * gn + gg:])
+
+    got = kgang.quorum_slice(packed_dev, gn, gg)
+    admit, wave, wait = b8_plain()
+    want = torch.cat([admit.to(torch.int32), wave, wait.to(torch.int32)])
+    b8_err = tree_err(got, want)
+    check(b8_err == 0, f"B8 differs from its plain version (max |d| {b8_err})")
+    absent = int((np.bincount(gid[gid >= 0], minlength=gg) == 0).sum())
+    # the empty slice and no groups: answered without a launch; a small
+    # slice whose groups are mostly absent
+    before = kgang.quorum_slice.launches
+    for args in ((gid[:0], sel[:0], already, min_member),
+                 (gid, sel, already[:0], min_member[:0])):
+        out = gang.quorum_slice(*args, device=dev)
+        check(all(a.size == 0 or not a.any() for a in out), "B8 empty case")
+    check(kgang.quorum_slice.launches == before, "B8 launched on an empty slice")
+    small = (np.array([-1, 7, 7, -1, 3], np.int32), np.array([0, 4, -1, 2, 9], np.int32),
+             rng.integers(0, 3, 12).astype(np.int32), rng.integers(1, 4, 12).astype(np.int32))
+    for a, b in zip(gang.quorum_slice(*small, device=dev), gang.quorum_slice(*small, device="cpu")):
+        check(a.dtype == b.dtype and (a == b).all(), "B8 absent-group case differs from plain")
+    torch.cuda.synchronize()
+    b8_ms = timed_graph(lambda: kgang.quorum_slice(packed_dev, gn, gg), 20)
+    b8_plain_ms = timed_once(b8_plain)
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    host_in = torch.from_numpy(packed)
+    e[0].record()
+    din = host_in.to(dev)
+    e[1].record()
+    dout = kgang.quorum_slice(din, gn, gg)
+    e[2].record()
+    dout.cpu()
+    e[3].record()
+    torch.cuda.synchronize()
+    h2d_ms, d2h_ms = e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3])
+    t0 = time.perf_counter()
+    for _ in range(20):
+        gang.quorum_slice(gid, sel, already, min_member, device=dev)
+    call_ms = (time.perf_counter() - t0) * 1e3 / 20
+    b8_bytes = (2 * gn + 2 * gg) * 4 + (2 * gg + gn) * 4
+    b8_bound_ms, b8_bound_by = bound(b8_bytes)
+
+    # B10 on config 5's 5,000 nodes: 64 pods bound through the phased
+    # path, then 8 pods evaluated and renormalized against that carry
+    ph = pipeline.build_phased(cw)
+    carry = _clone_carry(cw.init_carry)
+
+    def xs_of(i):
+        xs1 = _slice_xs(cw.xs, i, i + 1, 1)
+        xs1["is_pad"] = torch.zeros(1, dtype=torch.bool, device=dev)
+        return xs1
+
+    for i in range(64):
+        xs1 = xs_of(i)
+        carry = ph.bind(carry, xs1, int(ph.eval(carry, xs1).selected))
+    pe_err = rn_err = 0
+    norm = [s for s in cw.config.scorers() if s in pipeline.NORMALIZING]
+    for i in range(64, 72):
+        xs1 = xs_of(i)
+        out, want = ph.eval(carry, xs1), ph.plain_eval(carry, xs1)
+        err = tree_err(list(out), list(want))
+        check(err == 0, f"phased_eval pod {i} differs from its plain version (max |d| {err})")
+        pe_err = max(pe_err, err)
+        feas = (want.filter_codes == 0).all(0) & torch.from_numpy(rng.random(n) < 0.8).to(dev)
+        for s, name in enumerate(cw.config.scorers()):
+            raw = want.score_raw[s].long() + torch.from_numpy(rng.integers(-3, 4, n)).to(dev)
+            got_r = pipeline.renormalize(name, ph, carry, xs1, raw, feas)
+            want_r = pipeline.renormalize_plain(name, cw, carry, pipeline.slice_pod(xs1, 0),
+                                                raw, feas)
+            err = tree_err(got_r, want_r)
+            check(err == 0, f"renormalize_row {name} pod {i} differs (max |d| {err})")
+            rn_err = max(rn_err, err)
+    torch.cuda.synchronize()
+    xs1 = xs_of(64)
+    want = ph.plain_eval(carry, xs1)
+    feas = (want.filter_codes == 0).all(0)
+    s_aff = cw.config.scorers().index("NodeAffinity")
+    raw = want.score_raw[s_aff].long()
+    pe_ms = timed_graph(lambda: ph.eval(carry, xs1), 20)
+    pe_plain_ms = timed_once(lambda: ph.plain_eval(carry, xs1))
+    rn_ms = timed_graph(lambda: kphased.renormalize_row(ph.step, "NodeAffinity", carry, xs1,
+                                                        raw, feas), 20)
+    rn_plain_ms = timed_once(lambda: pipeline.renormalize_plain(
+        "NodeAffinity", cw, carry, pipeline.slice_pod(xs1, 0), raw, feas))
+    pe_bytes = phased_eval_bytes(cw, carry, xs1)
+    pe_bound_ms, pe_bound_by = bound(pe_bytes)
+    rn_bound_ms, rn_bound_by = bound(n * 8 + n + n * 8)
+    print(f"[18 B8, B10==plain] {card}: quorum_slice on n={gn}, G={gg} ({absent} groups absent "
+          f"from the slice, -1 runs between groups), the empty slice, no groups and a small "
+          f"absent-group slice: max_abs_err {b8_err}; {b8_ms:.5f} ms per launch (CUDA graph), "
+          f"H2D {h2d_ms:.4f} ms, D2H {d2h_ms:.4f} ms, {call_ms:.4f} ms per numpy-to-numpy call; "
+          f"plain {b8_plain_ms:.3f} ms; bound {b8_bound_ms:.6f} ms by {b8_bound_by} ({b8_bytes} B) "
+          f"| config {CONFIG} {n} nodes, 8 pods after 64 phased binds: phased_eval and "
+          f"renormalize_row ({', '.join(norm)}; the others return their raws) max_abs_err "
+          f"{pe_err} and {rn_err}; phased_eval {pe_ms:.5f} ms per launch, plain "
+          f"{pe_plain_ms:.3f} ms, bound {pe_bound_ms:.6f} ms by {pe_bound_by} ({pe_bytes} B); renormalize_row (NodeAffinity) "
+          f"{rn_ms:.5f} ms, plain {rn_plain_ms:.3f} ms, bound {rn_bound_ms:.7f} ms by "
+          f"{rn_bound_by}; {time.perf_counter() - t18:.1f} s", flush=True)
+    del carry
+
+    # ---- 19. config 5 through the engine: ObjectStore -> schedule_pending()
+    t19 = time.perf_counter()
+    names = cw.node_table.names
+    lines19, main19 = [], None
+    for label, spec in (("default wave", None), ("KSS_TPU_SPECULATIVE=0", "0")):
+        with env(KSS_TPU_SPECULATIVE=spec, KSS_TPU_HOST_RESIDENT=None,
+                 KSS_TPU_EAGER_DECODE=None, KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+            store = fresh_store({"nodes": nodes, "pods": pods})
+            engine = SchedulerEngine(store, plugin_config=cfg)
+            order = [q["metadata"]["name"] for q in engine.pending_pods()]
+            check(order == [q["metadata"]["name"] for q in pods],
+                  "the engine's pending order is not the queue's")
+            reset()
+            TRACER.reset()
+            with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                bound_n = engine.schedule_pending()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launched = counts()
+            busy = _device_busy_s(prof)
+            spans = {k: round(v["total_seconds"], 4) for k, v in TRACER.summary()["spans"].items()
+                     if k in ("compile_workload", "replay_and_decode_stream",
+                              "commit_and_reflect", "commit_stream")}
+        check(launched.get("step_chunk", 0) + launched.get("spec_eval", 0) > 0,
+              f"engine ({label}) launched no step or wave kernel: {launched}")
+        check(bound_n == rr.scheduled, f"engine ({label}) bound {bound_n}, replay {rr.scheduled}")
+        by_name = {q["metadata"]["name"]: (q.get("spec") or {}).get("nodeName")
+                   for q in store.list("pods", copy_objects=False)[0]}
+        for i, q in enumerate(pods):
+            s = int(rr.selected[i])
+            check(by_name[q["metadata"]["name"]] == (names[s] if s >= 0 else None),
+                  f"engine ({label}): pod {i} node differs from replay()")
+        sample = sorted(set(range(0, p, p // 11)) | {p - 1})[:12]
+        for i in sample:
+            got_a = store.get("pods", pods[i]["metadata"]["name"])["metadata"]["annotations"]
+            want_a = decode_pod_result(rr, i)
+            for key in ALL_PLUGIN_KEYS:
+                check(got_a.get(key) == want_a[key], f"engine ({label}): pod {i} {key}")
+        engine.close()
+        idle = f"{1 - busy / wall:.4f}" if busy > 0 else "not measured"
+        if main19 is None:
+            main19 = launched
+        lines19.append(f"{label}: bound {bound_n}, wall {wall:.4f} s = {p / wall:.1f} cycles/s, "
+                       f"device busy {busy:.4f} s, idle share {idle}, engine spans (s) {spans}, "
+                       f"launches {launched}")
+        del store, engine
+    print(f"[19 engine] {card}: config {CONFIG} {p}x{n} in an ObjectStore through "
+          f"SchedulerEngine(store, plugin_config=cfg).schedule_pending(): {'; '.join(lines19)}; "
+          f"every pod's spec.nodeName equals phase 4's replay() (the engine's pending order is "
+          f"the queue's), the 13 annotations of pods {sample} read from the store equal its "
+          f"decode; wall under a CUDA-only torch.profiler trace; "
+          f"{time.perf_counter() - t19:.1f} s", flush=True)
+
+    # ---- 20. gangs at full width: B8 in every wave
+    t20 = time.perf_counter()
+    families = GANG_FAMILIES
+    gang_objects = {"nodes": nodes, "podgroups": [], "pods": []}
+    members: dict[str, list[str]] = {}
+    family_of: dict[str, str] = {}
+    for fam, groups, size, mm in families:
+        pgs, gpods = make_gang_workload(groups, size, min_member=mm, seed=SEED + 20,
+                                        name_prefix=f"{fam}-gang")
+        if fam == "park":  # two members of each group fit nowhere: below quorum
+            for q in gpods:
+                if q["metadata"]["name"].endswith(("006", "007")):
+                    q["spec"]["containers"][0]["resources"]["requests"]["cpu"] = "9999999m"
+        for pg in pgs:
+            family_of[pg["metadata"]["name"]] = fam
+        for q in gpods:
+            members.setdefault(q["metadata"]["labels"]["scheduling.x-k8s.io/pod-group"],
+                               []).append(q["metadata"]["name"])
+        gang_objects["podgroups"] += pgs
+        gang_objects["pods"] += gpods
+    gang_cfg = list(cfg.enabled) + ["Coscheduling"]
+    runs20, lines20, main20 = [], [], None
+    for label, pipeline_commit, spec in (("pipelined commit, default wave", True, None),
+                                         ("sequential commit, default wave", False, None),
+                                         ("pipelined commit, pinned scan", True, "0")):
+        with env(KSS_TPU_SPECULATIVE=spec):
+            store = fresh_store(gang_objects)
+            engine = SchedulerEngine(store, plugin_config=PluginSetConfig(
+                enabled=gang_cfg, custom={"Coscheduling": Coscheduling()}),
+                pipeline_commit=pipeline_commit)
+            reset()
+            t0 = time.perf_counter()
+            bound_n = engine.schedule_pending()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()
+        check(launched.get("quorum_slice", 0) > 0, f"gangs ({label}): B8 never launched")
+        pods_now = {q["metadata"]["name"]: q for q in store.list("pods", copy_objects=False)[0]}
+        parked = {k[1] for k in engine.gang_parked}
+        tally = {"admitted": 0, "parked": 0, "rejected": 0}
+        for gname, ms in members.items():
+            fam = family_of[gname]
+            placed = [pods_now[m]["spec"].get("nodeName") for m in ms]
+            n_bound = sum(1 for x in placed if x)
+            if fam == "quorum":
+                check(n_bound == len(ms), f"gangs ({label}): {gname} did not admit")
+                tally["admitted"] += 1
+            elif fam == "park":
+                check(n_bound == 0 and sum(m in parked for m in ms) == 6,
+                      f"gangs ({label}): {gname} did not park its 6 feasible members")
+                tally["parked"] += 1
+            else:
+                a = pods_now[ms[0]]["metadata"].get("annotations") or {}
+                check(n_bound == 0 and "cannot reach quorum" in a.get(
+                    ann.PRE_FILTER_STATUS_RESULT, ""), f"gangs ({label}): {gname} not rejected")
+                tally["rejected"] += 1
+        runs20.append(({k: q["spec"].get("nodeName") for k, q in pods_now.items()},
+                       sorted(parked), bound_n))
+        if main20 is None:
+            main20 = launched
+        lines20.append(f"{label}: bound {bound_n}, {tally}, parked pods {len(parked)}, wall "
+                       f"{wall:.4f} s, B8 launches {launched.get('quorum_slice', 0)}, launches "
+                       f"{launched}")
+        engine.close()
+        del store, engine
+    check(runs20[0] == runs20[1] == runs20[2], "gang binds differ between the commit modes "
+          "and the pinned scan")
+    print(f"[20 gangs] {card}: {len(gang_objects['pods'])} pods in {len(members)} PodGroups on "
+          f"config {CONFIG}'s {n} nodes, plugins {gang_cfg}: {'; '.join(lines20)}; binds "
+          f"all-or-nothing per group and equal across the three runs; "
+          f"{time.perf_counter() - t20:.1f} s", flush=True)
+
+    # ---- 21. the host path: webhook extender + AfterScore hook (B10)
+    t21 = time.perf_counter()
+    host_pods = [copy.deepcopy(q) for q in pods[:HOST_PODS]]
+
+    class Invert(PluginExtender):
+        def after_score(self, pod, node_name, score):
+            return 1000 - 3 * score
+
+    ext = _Extender()
+    try:
+        snaps, lines21 = [], []
+        for device in ("cuda", "cpu"):
+            store = fresh_store({"nodes": nodes, "pods": host_pods})
+            engine = SchedulerEngine(store, plugin_config=cfg, device=device)
+            engine.set_extenders(ExtenderService([{
+                "urlPrefix": ext.url, "filterVerb": "filter", "prioritizeVerb": "prioritize",
+                "weight": 2}]))
+            engine.plugin_extenders = {"NodeAffinity": Invert()}
+            reset()
+            t0 = time.perf_counter()
+            bound_n = engine.schedule_pending()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()
+            snaps.append((bound_n, {q["metadata"]["name"]: (
+                q["spec"].get("nodeName"), q["metadata"].get("annotations"))
+                for q in store.list("pods")[0]}))
+            if device == "cuda":
+                main21 = launched
+                check(launched.get("phased_eval", 0) == len(host_pods),
+                      f"host path: phased_eval launches {launched}")
+                check(launched.get("renormalize_row", 0) > 0, "host path: no renormalize_row")
+                check(launched.get("spec_commit_bind", 0) == bound_n,
+                      f"host path: {launched} for {bound_n} binds")
+            else:
+                check(not launched, f"the CPU run launched {launched}")
+            lines21.append(f"device={device}: bound {bound_n}, {wall:.3f} s = "
+                           f"{wall * 1e3 / len(host_pods):.3f} ms/pod")
+            engine.close()
+            del store, engine
+    finally:
+        ext.close()
+    check(snaps[0] == snaps[1], "host path: the card's run differs from device='cpu'")
+    check(all(v[0] != names[0] for v in snaps[0][1].values()), "an extender-vetoed node won")
+    print(f"[21 host path] {card}: {len(host_pods)} config-{CONFIG} pods on {n} nodes with a "
+          f"webhook extender (filter, prioritize) and an AfterScore hook on NodeAffinity: "
+          f"{'; '.join(lines21)}; launches on the card {main21}; nodes and every annotation "
+          f"(extender results included) equal; {time.perf_counter() - t21:.1f} s", flush=True)
+
+    src = "kube_scheduler_simulator_tpu_torch/csrc/"
+    return [
+        {"name": "quorum_slice", "route": "cuda", "source": src + "gang.cu",
+         "replaces": "kube_scheduler_simulator_tpu/framework/gang.py:195",
+         "launches": main20.get("quorum_slice", 0), "max_abs_err": b8_err, "ms": b8_ms,
+         "plain_ms": b8_plain_ms, "bound_ms": b8_bound_ms, "bound_by": b8_bound_by,
+         "library_ms": None},
+        {"name": "phased_eval", "route": "cuda", "source": src + "phased.cu",
+         "replaces": "kube_scheduler_simulator_tpu/framework/pipeline.py:446",
+         "launches": main21.get("phased_eval", 0), "max_abs_err": pe_err, "ms": pe_ms,
+         "plain_ms": pe_plain_ms, "bound_ms": pe_bound_ms, "bound_by": pe_bound_by,
+         "library_ms": None},
+        {"name": "renormalize_row", "route": "cuda", "source": src + "phased.cu",
+         "replaces": "kube_scheduler_simulator_tpu/framework/pipeline.py:198",
+         "launches": main21.get("renormalize_row", 0), "max_abs_err": rn_err, "ms": rn_ms,
+         "plain_ms": rn_plain_ms, "bound_ms": rn_bound_ms, "bound_by": rn_bound_by,
+         "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1595,7 +2091,9 @@ def main() -> int:
     dp_ctx, b9_entries = default_profile_phases(dev, card)
     dp_ctx["decode_ms"] = {4: decode_ms, 11: dp_ctx["decode_ms"]}
     att_entry = result_path_phases(dev, card, cw, pods, rr, spec_ctx, dp_ctx)
-    print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries]}))
+    engine_entries = engine_phases(dev, card, cw, nodes, pods, cfg, rr)
+    print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
+                                  *engine_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

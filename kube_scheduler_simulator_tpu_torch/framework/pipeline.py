@@ -3,7 +3,9 @@
 Port of kube_scheduler_simulator_tpu/framework/pipeline.py: `StepOut` :46,
 `CompactOut` :59, `PACK_MODES` :99, `choose_pack_mode` :107,
 `_filter_phase` :238, `_score_phase` :254, `_prefilter_reject` :323,
-`pack_filter_codes` :340 and `build_step` :360.  Per pod:
+`pack_filter_codes` :340, `build_step` :360, and the host-interleaved
+path's `renormalize` :198 and `build_phased` :446 (kernel B10,
+kernels/phased.py).  Per pod:
 
     Filter x (plugins x nodes) -> first-fail pack -> Score x (plugins x
     nodes) -> NormalizeScore -> weights -> select -> bind
@@ -418,6 +420,92 @@ def build_step(cw, out_mode: str = "full", pack_mode: str = "p16",
     """pipeline.py:360: the step of one compiled workload (see Step)."""
     return Step(cw, out_mode=out_mode, pack_mode=pack_mode,
                 score_dtypes=score_dtypes, wide_raw=wide_raw)
+
+
+# the in-tree scorers with ScoreExtensions: the ones renormalize recomputes
+NORMALIZING = ("NodeAffinity", "TaintToleration", "PodTopologySpread", "InterPodAffinity")
+
+
+def renormalize_plain(name: str, cw, carry, sl, raw, feasible) -> torch.Tensor:
+    """pipeline.py:198 `renormalize` for an in-tree scorer, plain: its
+    NormalizeScore over [N] raw scores (possibly hook-modified) and a
+    host-edited feasibility -> [N] int64.  `sl` is the pod's slice (no
+    leading axis).  The CPU path and the card's reference for
+    renormalize_row (kernels/phased.py)."""
+    raw = raw.to(torch.int64)
+    if name not in NORMALIZING:
+        return raw  # no ScoreExtensions
+    if name == "NodeAffinity":
+        return affinity.normalize(raw, feasible)
+    if name == "TaintToleration":
+        return taints.taint_normalize(raw, feasible)
+    if name == "InterPodAffinity":
+        return interpod.normalize(raw, feasible)
+    if name == "PodTopologySpread":
+        _, ignored = topologyspread.score_kernel(
+            cw.statics["PodTopologySpread"], sl["PodTopologySpread"],
+            carry["PodTopologySpread"])
+        return topologyspread.normalize(raw, ignored, feasible)
+    raise AssertionError(f"{name} is in NORMALIZING without a NormalizeScore here")
+
+
+def renormalize(name: str, phased: "Phased", carry, xs1, raw, feasible) -> torch.Tensor:
+    """pipeline.py:198: host-side NormalizeScore recompute for one plugin,
+    used by the engine's host-interleaved path when AfterScore hooks or
+    hook-changed feasibility invalidate the fused normalization.  raw [N]
+    int64 and feasible [N] bool on the carry's device; xs1 the pod's xs
+    with a leading axis of 1.  Every scorer is in-tree (a custom plugin
+    that scores does not compile yet; its host-side NormalizeScore,
+    pipeline.py:208-219, comes with its rows): renormalize_row, kernel
+    B10 on the card and renormalize_plain on the CPU."""
+    from ..kernels.phased import renormalize_row
+
+    return renormalize_row(phased.step, name, carry, xs1, raw, feasible)
+
+
+class Phased:
+    """pipeline.py:446 `build_phased`: the step split for the
+    host-interleaved path (the extender round-trip, SURVEY.md §3.3) —
+    the host can veto or boost nodes between the device's score phase
+    and the bind.
+
+      eval(carry, xs1) -> StepOut of the pod (selected = the device's own
+                          choice, advisory; the carry NOT updated)
+      bind(carry, xs1, selected) -> carry with the pod bound at selected
+
+    xs1 is the pod's xs with a leading axis of 1.  On the card eval is
+    kernel B10 `phased_eval` and bind is B5's `spec_commit_bind` on a
+    batch of one, which updates the carry IN PLACE (the JAX bind_fn
+    returns a new carry): a caller starts from a private copy of
+    cw.init_carry.  On the CPU: `plain_eval` and `_bind_phase`."""
+
+    def __init__(self, cw):
+        self.step = build_step(cw, out_mode="full")
+
+    def plain_eval(self, carry: dict[str, Any], xs1: dict[str, Any]) -> StepOut:
+        """B10 eval's plain version: Step.eval_plain of the pod."""
+        return self.step.eval_plain(carry, slice_pod(xs1, 0))
+
+    def eval(self, carry: dict[str, Any], xs1: dict[str, Any]) -> StepOut:
+        from ..kernels.phased import phased_eval
+
+        return phased_eval(self.step, carry, xs1)
+
+    def bind(self, carry: dict[str, Any], xs1: dict[str, Any], selected: int):
+        dev = carry["core"].requested.device
+        if dev.type == "cpu":
+            return _bind_phase(self.step.cw, carry, slice_pod(xs1, 0),
+                               torch.tensor(int(selected), dtype=torch.int32))
+        from ..kernels.spec import spec_commit_bind
+
+        sel = torch.tensor([int(selected)], dtype=torch.int32, device=dev)
+        return spec_commit_bind(self.step, carry, xs1, sel, 1)
+
+
+def build_phased(cw) -> Phased:
+    """pipeline.py:446: the phased step of one compiled workload (see
+    Phased)."""
+    return Phased(cw)
 
 
 def _stack(rows: list) -> torch.Tensor:

@@ -77,8 +77,16 @@ class _FailStreak:
 _MATERIALIZE_FAILS = _FailStreak()
 
 
-def materialize_failure_streak() -> int:
+def materialize_failure_streak(session: str | None = None) -> int:
+    """The streak of on-demand materialization failures (one bucket:
+    `session` is the JAX package's per-session key, kept for its
+    callers)."""
     return _MATERIALIZE_FAILS.value()
+
+
+def reset_materialize_failures(session: str | None = None) -> None:
+    """Restart the streak: the engine steps down the residency ladder."""
+    _MATERIALIZE_FAILS.ok()
 
 
 def _to_host(t) -> np.ndarray:

@@ -60,6 +60,9 @@ SIGNATURES = {
              "kss_grid_emit": ([_P, _P], _I)},
     "attribution": {"kss_att_args_size": ([], _I),
                     "kss_chunk_attribution": ([_P, _P], _I)},
+    "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _P], _I)},
+    "phased": {"kss_step_args_size": ([], _I), "kss_phased_eval": ([_P, _P], _I),
+               "kss_renormalize_row": ([_P, _I, _P, _P, _P, _P, _P], _I)},
 }
 
 

@@ -4,7 +4,8 @@ Port of kube_scheduler_simulator_tpu/models/workloads.py (`make_nodes`
 :16, `make_pods` :68, `SLOT_LABEL` and `make_slot_pinned_workload`
 :299-345, `BASELINE_CONFIGS` and `baseline_config` :481-524): the same
 numpy draws in the same order, so the same seed gives the same manifests.
-The columnar, gang and churn generators wait for later slices.
+`make_gang_workload` ports :348.  The columnar and churn generators wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -222,6 +223,64 @@ def make_slot_pinned_workload(
     return nodes, pods
 
 # BASELINE.md benchmark configs 1-5
+def make_gang_workload(
+    n_groups: int,
+    members: int,
+    min_member: int | None = None,
+    seed: int = 0,
+    namespace: str = "default",
+    timeout_seconds: float = 30,
+    cpu_milli: int = 500,
+    mem_bytes: int = 512 << 20,
+    name_prefix: str = "gang",
+) -> tuple[list[dict], list[dict]]:
+    """Deterministic gang workload: n_groups PodGroups of `members` pods
+    each (minMember defaults to `members` — strict all-or-nothing), in
+    the DL-training shape the papers care about (Tesserae / Gavel —
+    PAPERS.md): every member requests identical resources and carries
+    the ``scheduling.x-k8s.io/pod-group`` label.  -> (podgroups, pods).
+    """
+    from ..framework.gang import POD_GROUP_API_VERSION, POD_GROUP_LABEL
+
+    rng = np.random.default_rng(seed)
+    podgroups, pods = [], []
+    for g in range(n_groups):
+        gname = f"{name_prefix}-{g:04d}"
+        podgroups.append({
+            "apiVersion": POD_GROUP_API_VERSION,
+            "kind": "PodGroup",
+            "metadata": {"name": gname, "namespace": namespace},
+            "spec": {
+                "minMember": int(min_member if min_member is not None
+                                 else members),
+                "scheduleTimeoutSeconds": timeout_seconds,
+            },
+        })
+        prio = int(rng.integers(0, 3)) * 100
+        for m in range(members):
+            pods.append({
+                "apiVersion": "v1",
+                "kind": "Pod",
+                "metadata": {
+                    "name": f"{gname}-member-{m:03d}",
+                    "namespace": namespace,
+                    "labels": {POD_GROUP_LABEL: gname, "app": gname},
+                },
+                "spec": {
+                    "priority": prio,
+                    "containers": [{
+                        "name": "trainer",
+                        "image": "registry.k8s.io/pause:3.9",
+                        "resources": {"requests": {
+                            "cpu": f"{cpu_milli}m",
+                            "memory": str(mem_bytes),
+                        }},
+                    }],
+                },
+            })
+    return podgroups, pods
+
+
 BASELINE_CONFIGS = {
     1: dict(pods=100, nodes=10, plugins=["NodeResourcesFit"]),
     2: dict(pods=1000, nodes=500, plugins=["NodeResourcesFit", "NodeResourcesBalancedAllocation"]),

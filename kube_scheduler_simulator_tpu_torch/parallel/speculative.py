@@ -37,12 +37,17 @@ heads a grid emit hands over are fresh tensors (kernels/spec.py
 `grid_emit`), as are a round's and a scan chunk's outputs, so retaining
 them aliases nothing.
 
+Gangs: with `gang=` (the engine's wave context: `gid` [P] pod->group,
+`start` [G] first member) a round's acceptance cut pulls back to the gang
+boundary (framework/gang.py `aligned_cut`, JAX :1085), and `ignore=`
+names plugins the caller handles outside the device pipeline (the
+engine's Coscheduling plugin), as in JAX :655-661.
+
 Not ported, and refused where a caller asks for them: meshes (`mesh`,
-ROADMAP Queue B item B12), gangs (`gang`, framework/gang.aligned_cut and
-the engine).  The fuse coordinator (B11), the autopilot's CONTROLS
-overrides, TRACER, BLACKBOX and fault points are absent: the port does
-what the JAX package does with none of them engaged.  So is the stream's `ignore=` (the
-engine's gang plugin) and `unroll=` (the scan kernel has no unroll).
+ROADMAP Queue B item B12).  The fuse coordinator (B11), the autopilot's
+CONTROLS overrides, TRACER, BLACKBOX and fault points are absent: the
+port does what the JAX package does with none of them engaged.  So is
+`unroll=` (the scan kernel has no unroll).
 
 Env knobs, read as in JAX: KSS_TPU_SPECULATIVE_BATCH pins the batch (one
 rung); KSS_TPU_SPECULATIVE_CANDIDATES caps the sparse round's candidate
@@ -58,6 +63,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .. import resolve_device
+from ..framework.gang import aligned_cut
 from ..framework.pipeline import PACK_MODES, build_step
 from ..framework.replay import (_DEVICE_BUDGET, ReplayResult, _CompactChunks,
                                 _DeviceAttribution, _Landing, _clone_carry, _ready_event,
@@ -252,7 +259,8 @@ def replay_speculative_stream(
         batch: int | None = None, pods: list[dict] | None = None,
         namespaces: list[dict] | None = None, on_chunk=None,
         device_resident: bool | None = None, gang=None,
-        scan_fallback: bool = True,
+        scan_fallback: bool = True, ignore: frozenset | set = frozenset(),
+        device=None,
 ) -> tuple[ReplayResult, dict]:
     """Schedule the whole queue in streaming speculative rounds (module
     doc).  Same consumer contract as framework.replay.replay(): compact
@@ -266,14 +274,20 @@ def replay_speculative_stream(
     device_resident: keep the grid chunks on the device (module doc);
     None resolves as the scan's does.
 
+    gang: an object with `gid` ([P] int32 pod->group, -1 for plain pods)
+    and `start` ([G] first member index) — round cuts pull back to gang
+    boundaries so gangs stream as all-or-nothing prefix units.  ignore:
+    plugins the caller handles outside the device pipeline (excluded from
+    the sparse-round eligibility).  device: where the stream runs; None
+    is the device `cw` was compiled for, anything else must name it.
+
     Returns (rr, stats): rr is bit-identical to replay(cw) and the
     sequential oracle; stats records rounds, acceptance and fallback.
     Caller must have checked speculation_ok(cw.config, ...)."""
     if mesh is not None:
         raise NotImplementedError("meshes are not ported (ROADMAP Queue B: B12)")
-    if gang is not None:
-        raise NotImplementedError(
-            "gang round cuts are not ported (framework/gang.aligned_cut, ROADMAP Queue A)")
+    if device is not None and resolve_device(device) != cw.device:
+        raise ValueError(f"workload compiled for {cw.device}, stream asked for {device}")
     device_resident = _resolve_device_resident(device_resident, True, on_chunk)
     active = set(cw.config.active_plugins())
     inter: _InteractionOracle | None = None
@@ -291,7 +305,7 @@ def replay_speculative_stream(
              else (None, "i32", "i64"))
     for t, wide in enumerate(tiers):
         result = _spec_run(cw, chunk, batch, on_chunk, wide, inter, scan_fallback,
-                           device_resident)
+                           device_resident, gang, ignore)
         if result is not None:
             result[0].tiers = tiers[:t + 1]
             return result
@@ -300,7 +314,8 @@ def replay_speculative_stream(
 
 def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
               wide, inter, scan_fallback: bool,
-              device_resident: bool) -> tuple[ReplayResult, dict] | None:
+              device_resident: bool, gang=None,
+              ignore: frozenset | set = frozenset()) -> tuple[ReplayResult, dict] | None:
     """One width tier of the stream; None when a raw overflowed its group
     dtype (the caller reruns from a fresh carry at the next tier)."""
     dev = cw.device
@@ -402,7 +417,7 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
     # gathered candidate rows only; label-coupled sets and wide-feasibility
     # rounds run the dense eval
     kcand = min(max(env_int("KSS_TPU_SPECULATIVE_CANDIDATES", 128), 1), n)
-    sparse = _sparse_ok(set(cw.config.active_plugins())) and kcand < n
+    sparse = _sparse_ok(set(cw.config.active_plugins()) - set(ignore)) and kcand < n
     if sparse and adaptive:
         # sparse probes are cheap, so start at the TOP rung: a
         # contention-free wave's rounds are then whole aligned chunks
@@ -486,6 +501,8 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
         k = min(int(k_dev), m)
         if inter is not None and k > 1:
             k = _interaction_cut(inter, sel, lo, k)
+        if gang is not None:
+            k = aligned_cut(gang.gid, gang.start, lo, k, p)
         if check_overflow and ovf[:k].any():
             _DEVICE_BUDGET.drop(compact)
             return None

@@ -21,8 +21,10 @@ time (a missing PVC or StorageClass, an unbound Immediate claim) land in
 `xs["force_unsched"]` ([P] bool, the step's prefilter-reject bit 1).
 
 Not ported here: node-table reuse and delta patching (`reuse=`), the
-columnar pod view (`pod_columns=`), custom plugins and tracing; a workload
-with a custom plugin raises NotImplementedError.
+columnar pod view (`pod_columns=`) and tracing.  A custom plugin compiles
+to nothing when it neither filters nor scores (its lifecycle points and
+Coscheduling run on the host, in the engine); one with filter or score
+rows raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,9 +102,12 @@ def compile_workload(
     config = config or reg.PluginSetConfig()
     enabled = set(config.active_plugins())
     custom = sorted(n for n in enabled if config.is_custom(n))
-    if custom:
+    rows = [n for n in custom
+            if config.custom[n].has_filter or config.custom[n].has_score]
+    if rows:
         raise NotImplementedError(
-            f"custom plugins {custom} are not ported yet (ROADMAP.md Queue A)")
+            f"custom plugins {rows} filter or score: their [P, N] rows are not "
+            "ported yet (ROADMAP.md Queue A)")
     bound_pods = bound_pods or []
     volumes = volumes or {}
     schema = ResourceSchema.discover(pods + [bp for bp, _ in bound_pods], nodes)

@@ -94,14 +94,20 @@ def decode_filter_message(name: str, code: int, node_idx: int, host_aux) -> str:
     return _DECODERS[name](code, node_idx, host_aux)
 
 
-def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[str, str]:
+def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None,
+                      host_index: int | None = None) -> dict[str, str]:
     """The 13 plugin annotations for pod i, values JSON-encoded as Go would.
 
     feasible_override: [N] bool — the extender path narrows feasibility
     after the plugin filters (upstream scores only nodes that survive the
     extender Filter round-trip too); it replaces the feasibility derived
-    from the filter codes for the score maps."""
+    from the filter codes for the score maps.
+    host_index: index into the CompiledWorkload's per-pod host tables
+    (skip flags, static prefilter rejects) when it differs from `i` — the
+    engine's host path builds single-row ReplayResults (i=0) against the
+    full workload's cw."""
     cw = rr.cw
+    hi = i if host_index is None else host_index
     cfg = cw.config
     names = cw.node_table.names
     filter_names = cfg.filters()
@@ -110,7 +116,7 @@ def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[
     sskip = cw.host["score_skip"]
 
     # --- prefilter reject: the cycle aborted before Filter --------------
-    reject = prefilter_reject_message(cw, i, int(rr.prefilter_reject[i]))
+    reject = prefilter_reject_message(cw, hi, int(rr.prefilter_reject[i]))
     if reject is not None:
         rej_name, rej_msg = reject
         pf: dict[str, str] = {}
@@ -118,7 +124,7 @@ def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[
             if name == rej_name:
                 pf[name] = rej_msg
                 break
-            pf[name] = "" if fskip[name][i] else ann.SUCCESS_MESSAGE
+            pf[name] = "" if fskip[name][hi] else ann.SUCCESS_MESSAGE
         empty = _marshal_small({})
         out = {key: empty for key in ann.ALL_PLUGIN_KEYS}
         out[ann.PRE_FILTER_STATUS_RESULT] = _marshal_small(pf)
@@ -127,7 +133,7 @@ def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[
 
     prefilter_status = {}
     for name in cfg.prefilters():
-        prefilter_status[name] = "" if fskip[name][i] else ann.SUCCESS_MESSAGE
+        prefilter_status[name] = "" if fskip[name][hi] else ann.SUCCESS_MESSAGE
 
     native_ctx = _native_ctx(cw)
 
@@ -137,24 +143,24 @@ def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[
 
         feasible_count = int(rr.feasible_count[i])
         filter_json, score_json, final_json = native_decode.decode_pod_fused(
-            native_ctx, rr, i, i, feasible_count > 1)
+            native_ctx, rr, i, hi, feasible_count > 1)
         prescore = {}
         if feasible_count > 1:
             for name in cfg.prescorers():
-                prescore[name] = "" if sskip[name][i] else ann.SUCCESS_MESSAGE
+                prescore[name] = "" if sskip[name][hi] else ann.SUCCESS_MESSAGE
         return _assemble(cfg, names, rr, i, prefilter_status, prescore,
                          filter_json, score_json, final_json)
 
     # --- filter (stop at first fail per node) ---------------------------
     active = [
-        (f, name) for f, name in enumerate(filter_names) if not fskip[name][i]
+        (f, name) for f, name in enumerate(filter_names) if not fskip[name][hi]
     ]
     codes = rr.codes_of(i)  # [F, N]
     filter_json: str | None = None
     if native_ctx is not None:
         from . import native_decode
 
-        active_mask = np.asarray([not fskip[name][i] for name in filter_names], np.uint8)
+        active_mask = np.asarray([not fskip[name][hi] for name in filter_names], np.uint8)
         filter_json = native_decode.encode_filter(native_ctx, codes, active_mask)
     else:
         filter_map: dict[str, dict[str, str]] = {}
@@ -179,7 +185,7 @@ def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[
     final_json: str | None = None
     if feasible_count > 1:
         for name in cfg.prescorers():
-            prescore[name] = "" if sskip[name][i] else ann.SUCCESS_MESSAGE
+            prescore[name] = "" if sskip[name][hi] else ann.SUCCESS_MESSAGE
         feasible = rr.feasible_of(i)
         if feasible is None:
             feasible = (codes[[f for f, _ in active], :] == 0).all(axis=0) if active else None
@@ -190,7 +196,7 @@ def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[
         if native_ctx is not None:
             from . import native_decode
 
-            sskip_mask = np.asarray([bool(sskip[name][i]) for name in score_names], np.uint8)
+            sskip_mask = np.asarray([bool(sskip[name][hi]) for name in score_names], np.uint8)
             feas = (np.ones(len(names), np.uint8) if feasible is None
                     else np.asarray(feasible, np.uint8))
             score_json = native_decode.encode_scores(native_ctx, raw, sskip_mask, feas)
@@ -201,7 +207,7 @@ def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None) -> dict[
                     continue
                 se, fe = {}, {}
                 for s, name in enumerate(score_names):
-                    if sskip[name][i]:
+                    if sskip[name][hi]:
                         continue
                     se[name] = str(int(raw[s, n]))
                     fe[name] = str(int(fin[s, n]))

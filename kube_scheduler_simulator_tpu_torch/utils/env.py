@@ -1,7 +1,7 @@
 """Env-var knob parsing.
 
 Port of kube_scheduler_simulator_tpu/utils/env.py `env_int` :15 and
-`env_float` :25: unset, empty or unparsable (including "inf"/"nan" for
+`env_float` :25 and `env_bool` :35: unset, empty or unparsable (including "inf"/"nan" for
 int knobs) falls back to the default, so an operator typo degrades to
 documented behaviour instead of crashing a wave.
 
@@ -40,6 +40,20 @@ def env_float(name: str, default: float) -> float:
         return float(raw)
     except ValueError:
         return default
+
+
+def env_bool(name: str, default: bool) -> bool:
+    """Boolean knob: "0"/"false"/"no"/"off" (any case) is False,
+    "1"/"true"/"yes"/"on" is True; unset/empty/unparsable falls back."""
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    v = raw.strip().lower()
+    if v in ("0", "false", "no", "off"):
+        return False
+    if v in ("1", "true", "yes", "on"):
+        return True
+    return default
 
 
 def env_flag(name: str) -> bool:

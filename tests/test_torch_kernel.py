@@ -436,3 +436,244 @@ def test_device_resident_stream_on_card_matches_cpu(card, wl):
         for ci in range(len(rr._compact.packed)):
             a, b = rr._compact.host(group, ci), want._compact.host(group, ci)
             assert a.dtype == b.dtype and (a == b).all(), group
+
+
+# ------------------------------------------------ B8, B10 and the engine
+
+def _gang_slice(rng, n, g):
+    import numpy as np
+
+    gid = np.full(n, -1, np.int32)
+    pos = 0
+    for k in range(g):
+        if rng.random() < 0.2:
+            continue  # absent from the slice
+        size = int(rng.integers(1, 12))
+        gid[pos:pos + size] = k
+        pos += size + int(rng.integers(0, 4))
+        if pos >= n:
+            break
+    sel = np.where(rng.random(n) < 0.7, rng.integers(0, 5000, n), -1).astype(np.int32)
+    return (gid[:n], sel, rng.integers(0, 4, g).astype(np.int32),
+            rng.integers(1, 10, g).astype(np.int32))
+
+
+@pytest.mark.parametrize("n,g", [(1, 1), (37, 5), (1000, 40), (10_000, 1_250), (3, 50)])
+def test_quorum_slice_kernel_matches_plain(card, n, g):
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.framework import gang
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+
+    rng = np.random.default_rng(n + g)
+    for _ in range(4):
+        args = _gang_slice(rng, n, g)
+        before = kgang.quorum_slice.launches
+        got = gang.quorum_slice(*args, device=card)
+        assert kgang.quorum_slice.launches == before + 1
+        want = gang.quorum_slice(*args, device="cpu")
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape and (a == b).all()
+
+
+PHASED_WORKLOADS = {k: WORKLOADS[k] for k in ("config3", "config5", "policies")}
+
+
+def _phased_workload(wl):
+    if wl == "default_profile":
+        return _default_profile()
+    return PHASED_WORKLOADS[wl](), {}
+
+
+@pytest.mark.parametrize("wl", list(PHASED_WORKLOADS) + ["default_profile"])
+def test_phased_kernels_match_plain(card, wl):
+    """B10 on the card: phased_eval == Phased.plain_eval (every StepOut
+    field), renormalize_row == renormalize_plain for every scorer on
+    edited raws and feasibility, and the bind (spec_commit_bind on a
+    batch of one) == _bind_phase, pod after pod from one carry."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+
+    args, kw = _phased_workload(wl)
+    cw = compile_workload(*args, **kw, device=card)
+    ph = pipeline.build_phased(cw)
+    ck, cp = _clone_carry(cw.init_carry), _clone_carry(cw.init_carry)
+    rng = np.random.default_rng(3)
+    for i in range(min(cw.n_pods, 10)):
+        xs1 = _slice_xs(cw.xs, i, i + 1, 1)
+        xs1["is_pad"] = torch.zeros(1, dtype=torch.bool, device=card)
+        before = kphased.phased_eval.launches
+        out = ph.eval(ck, xs1)
+        assert kphased.phased_eval.launches == before + 1
+        want = ph.plain_eval(cp, xs1)
+        for f in want._fields:
+            a, b = getattr(out, f), getattr(want, f)
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (i, f)
+        feas = (want.filter_codes == 0).all(0) if want.filter_codes.shape[0] else \
+            torch.ones(cw.n_nodes, dtype=torch.bool, device=card)
+        feas &= torch.from_numpy(rng.random(cw.n_nodes) < 0.8).to(card)
+        for s, name in enumerate(cw.config.scorers()):
+            raw = want.score_raw[s].long() + torch.from_numpy(
+                rng.integers(-3, 4, cw.n_nodes)).to(card)
+            got = pipeline.renormalize(name, ph, ck, xs1, raw, feas)
+            ref = pipeline.renormalize_plain(name, cw, cp, pipeline.slice_pod(xs1, 0), raw, feas)
+            assert got.dtype == ref.dtype and torch.equal(got, ref), (i, name)
+        sel = int(want.selected)
+        ck = ph.bind(ck, xs1, sel)
+        cp = pipeline._bind_phase(cw, cp, pipeline.slice_pod(xs1, 0),
+                                  torch.tensor(sel, dtype=torch.int32, device=card))
+    torch.cuda.synchronize()
+    for a, b in zip(_leaves(ck), _leaves(cp)):
+        assert torch.equal(a, b)
+
+
+def _engine_snapshot(device, objects, cfg, hooks=None, ext_cfgs=None, **kw):
+    import copy
+
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.plugins.coscheduling import (
+        ensure_podgroup_resource)
+
+    store = ObjectStore()
+    ensure_podgroup_resource(store)
+    for res, items in objects.items():
+        for obj in items:
+            store.create(res, copy.deepcopy(obj))
+    engine = SchedulerEngine(store, plugin_config=cfg, device=device, **kw)
+    if hooks:
+        engine.plugin_extenders = hooks
+    if ext_cfgs:
+        from kube_scheduler_simulator_tpu_torch.scheduler.extender import ExtenderService
+
+        engine.set_extenders(ExtenderService(ext_cfgs))
+    bound = engine.schedule_pending()
+    snap = {p["metadata"]["name"]: ((p.get("spec") or {}).get("nodeName"),
+                                    p.get("status"), p["metadata"].get("annotations"))
+            for p in store.list("pods")[0]}
+    parked = sorted(engine.gang_parked)
+    engine.close()
+    return bound, snap, parked
+
+
+def _engine_cases():
+    from kube_scheduler_simulator_tpu_torch.models import make_gang_workload
+    from kube_scheduler_simulator_tpu_torch.plugins.coscheduling import Coscheduling
+    from kube_scheduler_simulator_tpu_torch.scheduler.debuggable import PluginExtender
+
+    nodes, pods, cfg = baseline_config(5, scale=0.02, seed=0)
+
+    class Invert(PluginExtender):
+        def after_score(self, pod, node_name, score):
+            return 1000 - 3 * score
+
+    def preemption():
+        # the default profile, whose PostFilter is DefaultPreemption: four
+        # 1-CPU nodes full of lower-priority pods (three of them guarded by
+        # a PDB that allows no disruption), three pods that fit only after
+        # victims go, and one that fits nowhere even then
+        def node(name):
+            return {"metadata": {"name": name, "labels": {"kubernetes.io/hostname": name}},
+                    "spec": {}, "status": {
+                        "allocatable": {"cpu": "1", "memory": "1Gi", "pods": "110"},
+                        "capacity": {"cpu": "1", "memory": "1Gi", "pods": "110"}}}
+
+        def pod(name, cpu, priority, node_name=None, app="free"):
+            p = {"metadata": {"name": name, "namespace": "default", "labels": {"app": app}},
+                 "spec": {"priority": priority, "containers": [
+                     {"name": "c", "resources": {"requests": {"cpu": cpu}}}]},
+                 "status": {}}
+            if node_name:
+                p["spec"]["nodeName"] = node_name
+                p["status"]["phase"] = "Running"
+            return p
+
+        running = [pod(f"r{i}", "450m", i % 3, f"n{i // 2 + 1}",
+                       "guarded" if i in (0, 1, 5) else "free") for i in range(8)]
+        pending = [pod("hi1", "800m", 100), pod("hi2", "800m", 100),
+                   pod("mid", "900m", 50), pod("huge", "2", 100)]
+        pdb = {"metadata": {"name": "guard", "namespace": "default"},
+               "spec": {"selector": {"matchLabels": {"app": "guarded"}}},
+               "status": {"disruptionsAllowed": 0}}
+        return ({"nodes": [node(f"n{i}") for i in range(1, 5)], "pods": running + pending,
+                 "poddisruptionbudgets": [pdb]}, PluginSetConfig(), {})
+
+    def gangs():
+        pgs, gpods = make_gang_workload(6, 5, seed=2, cpu_milli=700)
+        gpods[7]["spec"]["containers"][0]["resources"]["requests"]["cpu"] = "9999999m"
+        gcfg = PluginSetConfig(enabled=list(cfg.enabled) + ["Coscheduling"],
+                               custom={"Coscheduling": Coscheduling()})
+        return {"nodes": nodes, "podgroups": pgs, "pods": gpods + pods[:40]}, gcfg, {}
+
+    return {
+        "config5": lambda: ({"nodes": nodes, "pods": pods}, cfg, {}),
+        "preemption": preemption,
+        "gangs": gangs,
+        "hooks": lambda: ({"nodes": nodes, "pods": pods[:24]}, cfg,
+                          {"hooks": {"NodeAffinity": Invert()}}),
+    }
+
+
+@pytest.mark.parametrize("case", ["config5", "preemption", "gangs", "hooks"])
+@pytest.mark.parametrize("spec", ["1", "0"])
+def test_engine_on_card_matches_cpu(card, case, spec, monkeypatch):
+    """SchedulerEngine.schedule_pending() with device="cuda" equals the
+    same run with device="cpu": every pod's node, status (the nominated
+    node included) and annotations (the post-filter result included),
+    the deleted victims, the parked gang members; B8 runs in the gang
+    waves, B10 on the host path and step_chunk in DefaultPreemption's
+    dry runs."""
+    from kube_scheduler_simulator_tpu_torch.framework.preemption import Preemptor
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+
+    dry = {"calls": 0, "launches": 0}
+    fits = Preemptor._fits
+
+    def counted_fits(self, *a, **kw):
+        before = kstep.step_chunk.launches
+        try:
+            return fits(self, *a, **kw)
+        finally:
+            dry["calls"] += 1
+            dry["launches"] += kstep.step_chunk.launches - before
+
+    monkeypatch.setattr(Preemptor, "_fits", counted_fits)
+    monkeypatch.setenv("KSS_TPU_SPECULATIVE", spec)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        objects, cfg, extra = _engine_cases()[case]()
+        b8, b10 = kgang.quorum_slice.launches, kphased.phased_eval.launches
+        calls, dry_launches = dry["calls"], dry["launches"]
+        runs.append((_engine_snapshot(dev, objects, cfg, chunk=64, **extra),
+                     kgang.quorum_slice.launches - b8, kphased.phased_eval.launches - b10,
+                     dry["calls"] - calls, dry["launches"] - dry_launches))
+    (got, b8_card, b10_card, fits_card, dry_card), (want, b8_cpu, b10_cpu, _, dry_cpu) = runs
+    assert got == want
+    assert b8_cpu == 0 and b10_cpu == 0 and dry_cpu == 0
+    if case == "preemption":
+        import json
+
+        from kube_scheduler_simulator_tpu_torch.store import annotations as ann
+
+        bound, snap, _ = got
+        running = {f"r{i}" for i in range(8)}
+        victims = running - set(snap)
+        # n1's two guarded pods stay: the PDB sends every preemptor elsewhere
+        assert victims and not victims & {"r0", "r1"}
+        assert bound == 3 and snap["huge"][0] is None
+        assert all(snap[name][1].get("nominatedNodeName") == snap[name][0]
+                   for name in ("hi1", "hi2", "mid"))
+        # a dry run not answered from the fit cache is one step_chunk launch
+        assert 0 < dry_card <= fits_card
+        post = [json.loads(h[ann.POST_FILTER_RESULT])
+                for name in ("hi1", "hi2", "mid")
+                for h in json.loads((snap[name][2] or {}).get(ann.RESULT_HISTORY, "[]"))
+                if h.get(ann.POST_FILTER_RESULT)]
+        assert any("preemption victim" in json.dumps(pf) for pf in post)
+    if case == "gangs":
+        assert b8_card > 0
+    if case == "hooks":
+        assert b10_card == 24

@@ -328,9 +328,10 @@ def test_init_carry_survives_speculative_replay():
 def test_unported_options_raise():
     nodes, pods, _ = _safe(pwl)
     cw = compile_workload(nodes[:4], pods[:4], PluginSetConfig(enabled=SAFE), device="cpu")
-    for kw in (dict(mesh=object()), dict(gang=object())):
-        with pytest.raises(NotImplementedError):
-            pspec.replay_speculative_stream(cw, **kw)
+    # meshes (B12) stay unported; gang= is ported with the engine
+    # (tests/test_torch_gang.py test_stream_takes_gang_and_ignore)
+    with pytest.raises(NotImplementedError):
+        pspec.replay_speculative_stream(cw, mesh=object())
 
 
 def test_on_chunk_ascending():
