@@ -52,7 +52,22 @@ phase:
        all-or-nothing and equal across both commit modes and the scan;
   21   the engine's host-interleaved path (B10): 256 config-5 pods with
        a webhook extender on localhost and an AfterScore hook, equal to
-       the same run with device="cpu".
+       the same run with device="cpu";
+  22   B11, the cross-session fused round (spec_round_fused,
+       spec_eval_fused, spec_oracle_fused): K = 2, 4 and 8 sparse rounds
+       on the slot-pinned fleet and K = 2 dense rounds on config 5, each
+       member held exactly equal to its plain round and to its solo
+       launch, with the fused and the K solo launches' times and bounds;
+  23   multi-session serving: four slot-pinned sessions (10,000 pods
+       each, one fleet) in a SessionManager(device="cuda") scheduling at
+       once, fused against KSS_TPU_FUSE=0 (every pod's node, the bind
+       order and the results equal), with the device's idle share; the
+       same with PodTopologySpread added (dense rounds); two config-5
+       sessions, contended, benched by admission after their first wave;
+  24   the HTTP server on localhost: two sessions created and filled
+       through POST /api/v1/sessions and .../import (5,000 nodes, 10,000
+       pods each), scheduled by their loops, 256 pods of each read back
+       and held to a direct replay().
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -1848,6 +1863,512 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
     ]
 
 
+FUSE_KS = (2, 4, 8)            # phase 22: sessions per fused sparse round
+FUSE_K = 4                     # phase 22's JSON entry and phase 23's sessions
+HTTP_SAMPLE = 256              # phase 24: pods read back per session
+SESSION_WINDOW_MS = 200        # phases 23-24: the fuse window (KSS_TPU_FUSE_WINDOW_MS)
+CONTENDED_WINDOW_MS = 1000     # phase 23's config-5 pair: their four rounds may meet
+# phase 23's dense family: its label-coupled rounds cost the host an
+# interaction walk per round, so its queues are cut to 2,048 pods
+DENSE_PODS = 2048
+
+
+def _session_state(mgr, sids, rrs, orders) -> dict:
+    """Per session: every pod's nodeName, the bind order, and a digest of
+    the wave's results (selections, feasible counts, PreFilter rejects and
+    every compact chunk's bytes), from which the 13 annotations of every
+    pod are decoded (decode is a function of those and the workload,
+    which both arms compile from the same manifests)."""
+    import hashlib
+
+    out = {}
+    for sid in sids:
+        sess = mgr.get(sid, touch=False)
+        nodes = {p["metadata"]["name"]: (p.get("spec") or {}).get("nodeName")
+                 for p in sess.di.store.list("pods", copy_objects=False)[0]}
+        h = hashlib.sha256()
+        for rr in rrs[sid]:
+            for a in (rr.selected, rr.feasible_count, rr.prefilter_reject):
+                h.update(a.tobytes())
+            cc = rr._compact
+            for grp in cc.GROUPS:
+                for ci in range(len(getattr(cc, grp))):
+                    h.update(cc.host(grp, ci).tobytes())
+        out[sid] = (nodes, list(orders[sid]), h.hexdigest())
+    return out
+
+
+def _spy_engine(sess, order: list) -> None:
+    """Record the session engine's binds, in order (as tests/test_fuse.py)."""
+    eng = sess.di.engine
+    orig_batch, orig_bind = eng._commit_pod_batch, eng._bind
+
+    def batch_spy(items):
+        order.extend((ns, n, node) for ns, n, node in items if node)
+        return orig_batch(items)
+
+    def bind_spy(ns, n, node):
+        order.append((ns, n, node))
+        return orig_bind(ns, n, node)
+
+    eng._commit_pod_batch = batch_spy
+    eng._bind = bind_spy
+
+
+def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: dict
+                ) -> list[dict]:
+    """Phases 22-24: multi-session serving and B11.  22: the fused round
+    kernels on the slot-pinned fleet (K = 2, 4, 8 sparse) and config 5
+    (K = 2 dense) against their plain versions and the K solo launches,
+    with times and bounds; 23: K = 4 slot-pinned sessions of 10,000 pods
+    each through SessionManager(device="cuda") and schedule_pending() at
+    once, fused against KSS_TPU_FUSE=0, and two config-5 sessions whose
+    first wave fuses and whose later waves are benched; 24: the HTTP
+    server with two sessions, each importing the slot-pinned fleet and
+    queue, read back against a direct replay().  -> the B11 entries of
+    the JSON line."""
+    import copy
+    import threading
+    import urllib.request
+
+    import torch
+    from torch import profiler
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.models import make_slot_pinned_workload
+    from kube_scheduler_simulator_tpu_torch.parallel import speculative as pspec
+    from kube_scheduler_simulator_tpu_torch.parallel.fuse import FUSE, session_admitted
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.server.server import SimulatorServer
+    from kube_scheduler_simulator_tpu_torch.server.sessions import SessionManager
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+    from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
+
+    b11 = kfuse.KERNELS
+
+    def reset() -> None:
+        for f in b11:
+            f.launches = 0
+
+    def counts() -> dict:
+        return {f.__name__: f.launches for f in b11}
+
+    def nb(*xs) -> int:
+        return sum(t.numel() * t.element_size() for x in xs for t in _leaves(x))
+
+    def batch_xs(w, lo: int, b: int) -> dict:
+        hi = min(lo + b, w.n_pods)
+        xs = _slice_xs(w.xs, lo, hi, b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
+        return xs
+
+    # ---- 22. B11 alone: K members of one family, each its own batch of
+    # the queue and its own carry (one committed batch in), as K sessions
+    # with different pods over one fleet hold them
+    t22 = time.perf_counter()
+    scw = spec_ctx["slot"][0]
+    spm, ssd, _ = _compact_plan(scw, None)
+    sstep = build_step(scw, out_mode="compact", pack_mode=spm, score_dtypes=ssd)
+    cpm, csd, _ = _compact_plan(cw, None)
+    cstep = build_step(cw, out_mode="compact", pack_mode=cpm, score_dtypes=csd)
+
+    def pairs_of(w, step, k: int, kcand):
+        out = []
+        for s in range(k):
+            carry = _clone_carry(w.init_carry)
+            xs0 = batch_xs(w, s * SPEC_BATCH, SPEC_BATCH)
+            sel = (kspec.spec_round(step, carry, xs0, KCAND)[7] if kcand
+                   else kspec.spec_eval(step, carry, xs0).selected)
+            kspec.spec_commit(step, carry, xs0, sel, SPEC_BATCH // 2)
+            out.append((carry, batch_xs(w, (s + 8) * SPEC_BATCH, SPEC_BATCH)))
+        return out
+
+    slot_pairs = pairs_of(scw, sstep, max(FUSE_KS), KCAND)
+    dense_pairs = pairs_of(cw, cstep, 2, None)
+
+    def members(step, pairs, kcand):
+        return [kfuse.Member(step, c, x, kcand) for c, x in pairs]
+
+    errs = {f.__name__: {"plain": 0, "solo": 0} for f in b11}
+
+    def held(name: str, against: str, got, want) -> None:
+        err = tree_err(got, want)
+        errs[name][against] = max(errs[name][against], err)
+        check(err == 0, f"{name} differs from {against} (max |d| {err})")
+
+    # the plain rounds of the eight slot members and the two dense ones;
+    # those of the JSON entries' K are timed as they run (each member's
+    # solo plain round in turn, the oracle's included)
+    slot_plain: list = []
+    dense_plain: list = []
+    plain_round = timed_once(lambda: slot_plain.extend(
+        kfuse.round_plain(members(sstep, slot_pairs[:FUSE_K], KCAND))))
+    slot_plain += kfuse.round_plain(members(sstep, slot_pairs[FUSE_K:], KCAND))
+    plain_eval = timed_once(lambda: dense_plain.extend(
+        kfuse.round_plain(members(cstep, dense_pairs, None))))
+    lines22 = []
+    timing: dict = {}
+    for k in FUSE_KS:
+        ms_ = members(sstep, slot_pairs[:k], KCAND)
+        fused = [tuple(t.clone() for t in _leaves(r)) for r in kfuse.sparse_round_fused(ms_)]
+        solo = [tuple(t.clone() for t in _leaves(kfuse.sparse_round(m))) for m in ms_]
+        for i in range(k):
+            held("spec_round_fused", "plain", fused[i][:8], _leaves(slot_plain[i])[:8])
+            held("spec_round_fused", "solo", fused[i][:8], solo[i][:8])
+            held("spec_oracle_fused", "plain", fused[i][8], _leaves(slot_plain[i])[8])
+            held("spec_oracle_fused", "solo", fused[i][8], solo[i][8])
+        pk = slot_pairs[:k]
+        t_round = timed_graph(lambda: kfuse.spec_round_fused(members(sstep, pk, KCAND)), 3)
+        t_round_solo = timed_graph(
+            lambda: [kspec.spec_round(sstep, c, x, KCAND) for c, x in pk], 3)
+        rows = [(r[0], r[1], r[7]) for r in fused]
+        t_orc = timed_graph(lambda: kfuse.spec_oracle_fused(members(sstep, pk, KCAND), rows), 20)
+        t_orc_solo = timed_graph(lambda: [kspec.spec_oracle(*r) for r in rows], 20)
+        timing[k] = (t_round, t_round_solo, t_orc, t_orc_solo)
+        lines22.append(f"K={k}: spec_round_fused {t_round:.4f} ms vs {k} solo spec_round "
+                       f"{t_round_solo:.4f} ms; spec_oracle_fused {t_orc:.5f} ms vs {k} solo "
+                       f"{t_orc_solo:.5f} ms")
+    dm = members(cstep, dense_pairs, None)
+    dfused = [tuple(t.clone() for t in _leaves(r)) for r in kfuse.dense_round_fused(dm)]
+    dsolo = [tuple(t.clone() for t in _leaves(kfuse.dense_round(m))) for m in dm]
+    for i in range(2):
+        held("spec_eval_fused", "plain", dfused[i][:-1], _leaves(dense_plain[i])[:-1])
+        held("spec_eval_fused", "solo", dfused[i][:-1], dsolo[i][:-1])
+        held("spec_oracle_fused", "plain", dfused[i][-1], _leaves(dense_plain[i])[-1])
+        held("spec_oracle_fused", "solo", dfused[i][-1], dsolo[i][-1])
+    t_eval = timed_graph(lambda: kfuse.spec_eval_fused(members(cstep, dense_pairs, None)), 3)
+    t_eval_solo = timed_graph(lambda: [kspec.spec_eval(cstep, c, x) for c, x in dense_pairs], 3)
+    pk = slot_pairs[:FUSE_K]
+    frows = [(r[0], r[1], r[7]) for r in kfuse.sparse_round_fused(members(sstep, pk, KCAND))]
+    plain_orc = timed_once(lambda: [kspec._oracle_core(p_, r_, s_, SPEC_BATCH)
+                                    for p_, r_, s_ in frows])
+    # bounds: K x the solo round's bytes (each member's statics, carry,
+    # batch and outputs read or written once), as phase 9 counts them
+    s0c, s0x = pk[0]
+    aff_rows = (len(torch.unique(s0x["NodeAffinity"].req_idx)) * scw.n_nodes
+                + len(torch.unique(s0x["NodeAffinity"].pref_idx)) * scw.n_nodes * 4)
+    one = kfuse.sparse_round_fused(members(sstep, pk[:1], KCAND))[0]
+    solo_round_b = nb(scw.statics["core"], s0c, s0x) + aff_rows + nb(one[:8])
+    bounds = {
+        "spec_round_fused": bound(FUSE_K * solo_round_b, FUSE_K * SPEC_BATCH * KCAND * 9),
+        "spec_oracle_fused": bound(FUSE_K * (SPEC_BATCH * SPEC_BATCH * frows[0][0].element_size()
+                                             + 8 * SPEC_BATCH + 4)),
+        "spec_eval_fused": bound(2 * nb(cw.statics, dense_pairs[0][0], dense_pairs[0][1],
+                                        dfused[0][:-1]), 2 * SPEC_BATCH * cw.n_nodes * 22),
+    }
+    ms = {"spec_round_fused": timing[FUSE_K][0], "spec_oracle_fused": timing[FUSE_K][2],
+          "spec_eval_fused": t_eval}
+    solo_ms = {"spec_round_fused": timing[FUSE_K][1], "spec_oracle_fused": timing[FUSE_K][3],
+               "spec_eval_fused": t_eval_solo}
+    plain = {"spec_round_fused": plain_round, "spec_oracle_fused": plain_orc,
+             "spec_eval_fused": plain_eval}
+    print(f"[22 B11 vs solo] {card}: at the JSON entries' K (sparse {FUSE_K}, dense 2) the "
+          f"fused launch and the K solo launches it replaces, device ms: fused {ms}, "
+          f"K solo {solo_ms}", flush=True)
+    torch.cuda.synchronize()
+    print(f"[22 B11==plain==solo] {card}: slot-pinned {scw.n_pods}x{scw.n_nodes} sparse rounds "
+          f"at batch {SPEC_BATCH}, kcand {KCAND}: {'; '.join(lines22)} | config {CONFIG} dense round "
+          f"K=2: spec_eval_fused {t_eval:.4f} ms vs 2 solo spec_eval {t_eval_solo:.4f} ms | "
+          f"device ms per launch (CUDA graph); plain (K={FUSE_K} sparse, K=2 dense) {plain}; "
+          f"bounds (K x the solo round's bytes) {bounds}; max_abs_err against the plain "
+          f"versions and the solo launches {errs}; {time.perf_counter() - t22:.1f} s",
+          flush=True)
+    del slot_pairs, dense_pairs, dm, dfused, dsolo, frows
+
+    # ---- 23. sessions at full width: K = 4 slot-pinned sessions through
+    # SessionManager(device="cuda"), schedule_pending() at once from a
+    # barrier, fused and KSS_TPU_FUSE=0
+    t23 = time.perf_counter()
+    snodes = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)[0]
+    rrs: dict = {}
+    real_stream = pspec.replay_speculative_stream
+
+    def stream_spy(*a, **kw):
+        rr, stats = real_stream(*a, **kw)
+        rrs.setdefault(TRACER.current_session(), []).append(rr)
+        return rr, stats
+
+    pspec.replay_speculative_stream = stream_spy
+
+    def run_together(sessions) -> float:
+        barrier = threading.Barrier(len(sessions) + 1)
+        errors: list = []
+
+        def run(sess):
+            try:
+                barrier.wait()
+                sess.di.engine.schedule_pending()
+            except Exception as e:  # noqa: BLE001 — failed below
+                errors.append(f"{sess.id}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=run, args=(s,)) for s in sessions]
+        for th in threads:
+            th.start()
+        barrier.wait()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not errors, f"sessions failed: {errors}")
+        return wall
+
+    def run_arms(family: str, plugins, seeds, n_pods: int = SLOT_PODS) -> tuple[list, dict]:
+        """Sessions of one family (the slot-pinned fleet, `n_pods` pods of
+        each queue seed of `seeds`, `plugins`) scheduling at once, fused
+        and KSS_TPU_FUSE=0; every pod's node, the bind order and the
+        results digest equal between the arms.  -> (the arms' report
+        lines, the fused arm's B11 launches)."""
+        queues = {f"{family}-{s}": make_slot_pinned_workload(n_pods, SLOT_NODES, seed=s)[1]
+                  for s in seeds}
+        arms, lines, fused_launches = {}, [], None
+        for fuse in ("1", "0"):
+            rrs.clear()
+            with env(KSS_TPU_FUSE=fuse, KSS_TPU_FUSE_WINDOW_MS=SESSION_WINDOW_MS,
+                     KSS_TPU_SPECULATIVE=None, KSS_TPU_HOST_RESIDENT=None,
+                     KSS_TPU_EAGER_DECODE=None, KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+                mgr = SessionManager(max_sessions=8, idle_ttl=0, start_scheduler=False,
+                                     device="cuda")
+                orders = {}
+                try:
+                    for sid, queue in queues.items():
+                        sess = mgr.create(sid)
+                        sess.di.engine.set_profiles(None)
+                        sess.di.engine.plugin_config = PluginSetConfig(enabled=list(plugins))
+                        for obj in snodes:
+                            sess.di.store.create("nodes", obj)
+                        for obj in queue:
+                            sess.di.store.create("pods", obj)
+                        orders[sid] = []
+                        _spy_engine(sess, orders[sid])
+                    f0 = FUSE.stats()
+                    reset()
+                    with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+                        wall = run_together([mgr.get(sid) for sid in queues])
+                    launched = counts()
+                    f1 = FUSE.stats()
+                    busy = _device_busy_s(prof)
+                    check(all(rrs.get(sid) for sid in queues),
+                          f"a session's wave took no speculative stream: {sorted(rrs)}")
+                    arms[fuse] = _session_state(mgr, list(queues), rrs, orders)
+                finally:
+                    mgr.shutdown()
+            calls = f1["fusedDeviceCalls"] - f0["fusedDeviceCalls"]
+            tally = {k: v - f0["dispatches"].get(k, 0) for k, v in f1["dispatches"].items()}
+            if fuse == "1":
+                fused_launches = launched
+                check(calls >= 1, f"{family} fused arm: fusedDeviceCalls {calls}")
+            else:
+                check(calls == 0 and not any(launched.values()),
+                      f"{family} KSS_TPU_FUSE=0 arm fused")
+            idle = f"{1 - busy / wall:.4f}" if busy > 0 else "not measured"
+            lines.append(f"KSS_TPU_FUSE={fuse}: wall {wall:.4f} s, "
+                         f"{len(queues) * n_pods / wall:.1f} cycles/s summed over sessions, "
+                         f"device busy {busy:.4f} s, idle share {idle}, fusedDeviceCalls "
+                         f"{calls}, dispatches {tally}, B11 launches {launched}")
+        for sid in queues:
+            fz, so = arms["1"][sid], arms["0"][sid]
+            check(fz[0] == so[0], f"{sid}: nodeName differs between the arms")
+            check(all(fz[0].values()), f"{sid}: a pod stayed unbound")
+            check(fz[1] == so[1], f"{sid}: bind order differs between the arms")
+            check(fz[2] == so[2], f"{sid}: results (the 13 annotations' source) differ")
+        return lines, fused_launches
+
+    try:
+        # the sparse family: the three-plugin set, rounds of spec_round
+        lines23, main23 = run_arms("slot", SLOT_PLUGINS, range(FUSE_K))
+        check(main23["spec_round_fused"] > 0, f"the sparse arm launched no B11: {main23}")
+        print(f"[23 sessions] {card}: {FUSE_K} sessions x {SLOT_PODS} slot-pinned pods "
+              f"(queue seeds 0-{FUSE_K - 1}, plugins {list(SLOT_PLUGINS)}) on the "
+              f"{SLOT_NODES}-node fleet, SessionManager(device='cuda'), schedule_pending() of "
+              f"every session at once from a barrier, window {SESSION_WINDOW_MS} ms: "
+              f"{'; '.join(lines23)}; every pod's nodeName, every session's bind order and its "
+              f"results digest (selected, feasible counts, PreFilter rejects, every compact "
+              f"chunk's bytes: the 13 annotations' whole input) equal between the arms; "
+              f"{time.perf_counter() - t23:.1f} s", flush=True)
+        # the dense family: PodTopologySpread joins the set (label-coupled,
+        # so every round is spec_eval's; these pods carry no constraint,
+        # so the rounds still accept whole batches)
+        t23d = time.perf_counter()
+        dense_lines, dense23 = run_arms("spread", (*SLOT_PLUGINS, "PodTopologySpread"),
+                                        range(FUSE_K, 2 * FUSE_K), DENSE_PODS)
+        check(dense23["spec_eval_fused"] > 0, f"the dense arm launched no B11: {dense23}")
+        print(f"[23 sessions, dense] {card}: {FUSE_K} sessions x {DENSE_PODS} slot-pinned pods "
+              f"(queue seeds {FUSE_K}-{2 * FUSE_K - 1}) under the three plugins and "
+              f"PodTopologySpread (dense rounds), as above: {'; '.join(dense_lines)}; equal "
+              f"between the arms; {time.perf_counter() - t23d:.1f} s", flush=True)
+        main23 = {k: main23[k] + dense23[k] for k in main23}
+        queues = {f"slot-{s}": make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=s)[1]
+                  for s in range(2)}
+
+        # the contended case: two config-5 sessions (one family).  Their
+        # first wave is admitted (no history), and its dense rounds fuse
+        # where the two streams meet; it rolls most rounds back and falls
+        # to the scan, so their later waves are benched: they time-share
+        with env(KSS_TPU_FUSE="1", KSS_TPU_FUSE_WINDOW_MS=CONTENDED_WINDOW_MS,
+                 KSS_TPU_SPECULATIVE=None, KSS_TPU_HOST_RESIDENT=None,
+                 KSS_TPU_EAGER_DECODE=None, KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+            mgr = SessionManager(max_sessions=4, idle_ttl=0, start_scheduler=False,
+                                 device="cuda")
+            try:
+                cids = ("config5-a", "config5-b")
+                for sid in cids:
+                    sess = mgr.create(sid)
+                    sess.di.engine.set_profiles(None)
+                    sess.di.engine.plugin_config = cfg5
+                    for obj in nodes5:
+                        sess.di.store.create("nodes", obj)
+                    for obj in pods5:
+                        sess.di.store.create("pods", obj)
+                f0 = FUSE.stats()
+                reset()
+                wall_c1 = run_together([mgr.get(sid) for sid in cids])
+                contended = counts()
+                f1 = FUSE.stats()
+                rates = [(TRACER.labeled_totals("speculative_accepted_total", "session").get(s, 0),
+                          TRACER.labeled_totals("speculative_rolled_back_total", "session")
+                          .get(s, 0)) for s in cids]
+                benched = [sid for sid in cids if not session_admitted(sid)]
+                check(len(benched) == 2, f"contended sessions not benched: {benched}")
+                for sid in cids:
+                    sess = mgr.get(sid)
+                    for q in pods5[:SPEC_BATCH]:
+                        q = copy.deepcopy(q)
+                        q["metadata"]["name"] += "-again"
+                        sess.di.store.create("pods", q)
+                reset()
+                wall_c2 = run_together([mgr.get(sid) for sid in cids])
+                f2 = FUSE.stats()
+                later = counts()
+            finally:
+                mgr.shutdown()
+        check(f2["fusedDeviceCalls"] == f1["fusedDeviceCalls"] and not any(later.values()),
+              f"benched sessions fused: {later}")
+        check(f2["dispatches"]["timeshared"] > f1["dispatches"]["timeshared"],
+              "benched sessions dispatched no time-shared round")
+    finally:
+        pspec.replay_speculative_stream = real_stream
+    c_calls = f1["fusedDeviceCalls"] - f0["fusedDeviceCalls"]
+    print(f"[23 contended] {card}: two config-{CONFIG} sessions ({len(pods5)} pods each, one "
+          f"family), window {CONTENDED_WINDOW_MS} ms: first wave {wall_c1:.4f} s, "
+          f"fusedDeviceCalls {c_calls}, B11 launches {contended}; (accepted, rolled back) per "
+          f"session {rates} -> both benched by admission; a later wave of {SPEC_BATCH} pods "
+          f"each {wall_c2:.4f} s, time-shared, no fused call", flush=True)
+    launches = {name: main23[name] + contended[name] for name in main23}
+
+    # ---- 24. HTTP: SimulatorServer on localhost, two sessions, each
+    # importing the slot-pinned fleet and a queue
+    t24 = time.perf_counter()
+    sched_cfg = {"apiVersion": "kubescheduler.config.k8s.io/v1",
+                 "kind": "KubeSchedulerConfiguration",
+                 "profiles": [{"schedulerName": "default-scheduler", "plugins": {"multiPoint": {
+                     "enabled": [{"name": nm} for nm in SLOT_PLUGINS],
+                     "disabled": [{"name": "*"}]}}}]}
+
+    def req(srv, method, path, body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        r = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}", data=data,
+                                   method=method, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(r, timeout=600) as resp:
+            raw = resp.read()
+            return resp.status, json.loads(raw) if raw else None
+
+    with env(KSS_TPU_FUSE="1", KSS_TPU_FUSE_WINDOW_MS=SESSION_WINDOW_MS,
+             KSS_TPU_SPECULATIVE=None, KSS_TPU_HOST_RESIDENT=None,
+             KSS_TPU_EAGER_DECODE=None, KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+        srv = SimulatorServer(port=0, device="cuda")
+        srv.start(block=False)
+        try:
+            http, http_orders = {}, {}
+            f0 = FUSE.stats()
+            sids = []
+            for s in range(2):
+                code, made = req(srv, "POST", "/api/v1/sessions", {"id": f"http-{s}"})
+                check(code == 201, f"POST /api/v1/sessions: {code}")
+                sids.append(made["id"])
+                http_orders[made["id"]] = []
+                _spy_engine(srv.manager.get(made["id"]), http_orders[made["id"]])
+            t0 = time.perf_counter()
+            for sid in sids:
+                snap = {"nodes": snodes, "pods": queues[f"slot-{sids.index(sid)}"],
+                        "schedulerConfig": sched_cfg}
+                code, _ = req(srv, "POST", f"/api/v1/sessions/{sid}/import", snap)
+                check(code == 200, f"import into {sid}: {code}")
+            deadline = time.time() + 600
+            done = set()
+            while len(done) < len(sids) and time.time() < deadline:
+                for sid in sids:
+                    _, m = req(srv, "GET", f"/api/v1/sessions/{sid}/metrics")
+                    if m["counters"].get("pods_scheduled_total", 0) >= SLOT_PODS:
+                        done.add(sid)
+                time.sleep(0.2)
+            bind_s = time.perf_counter() - t0
+            check(len(done) == len(sids), f"HTTP sessions bound only {sorted(done)}")
+            code, listing = req(srv, "GET", "/api/v1/sessions")
+            check(code == 200 and {"fusedDeviceCalls", "dispatches"} <= set(listing["fuse"]),
+                  "/api/v1/sessions has no fuse stats")
+            # the served annotations of a sample against a direct replay()
+            # of the same queue under the profile the server parsed.  The
+            # import applies pods on several threads and the scheduling
+            # loop's waves take them as they land, so the queue's order is
+            # the creation order, which the binds follow: replay in it
+            for k, sid in enumerate(sids):
+                by_name = {q["metadata"]["name"]: q for q in queues[f"slot-{k}"]}
+                queue = [by_name[nm] for _ns, nm, _node in http_orders[sid]]
+                check(len(queue) == SLOT_PODS and len(set(map(id, queue))) == SLOT_PODS,
+                      f"{sid}: {len(queue)} binds for {SLOT_PODS} pods")
+                sess = srv.manager.get(sid)
+                prof_cfg = sess.di.engine.profiles["default-scheduler"]
+                dcw = compile_workload(snodes, queue, prof_cfg, device=dev)
+                drr = replay(dcw, chunk=CHUNK, device=dev)
+                sample = list(range(HTTP_SAMPLE // 2)) + list(
+                    range(SLOT_PODS - HTTP_SAMPLE // 2, SLOT_PODS))
+                for i in sample:
+                    name = queue[i]["metadata"]["name"]
+                    _, pod = req(srv, "GET", f"/api/v1/sessions/{sid}/pods/default/{name}")
+                    got = pod["metadata"]["annotations"]
+                    want = decode_pod_result(drr, i)
+                    for key in ALL_PLUGIN_KEYS:
+                        check(got.get(key) == want[key], f"{sid} pod {i} {key} != replay()")
+                    check((pod["spec"].get("nodeName") or "") ==
+                          want["kube-scheduler-simulator.sigs.k8s.io/selected-node"],
+                          f"{sid} pod {i} nodeName != replay()")
+                http[sid] = len(sample)
+                del dcw, drr
+            f1 = FUSE.stats()
+        finally:
+            srv.shutdown()
+    print(f"[24 HTTP] {card}: SimulatorServer(device='cuda') on localhost, sessions "
+          f"{sids} created through POST /api/v1/sessions, each importing {SLOT_NODES} nodes "
+          f"and {SLOT_PODS} pods (POST .../import with a three-plugin scheduler config); all "
+          f"bound in {bind_s:.3f} s from the first import; the 13 annotations and nodeName of "
+          f"pods {sample[0]}-{sample[HTTP_SAMPLE // 2 - 1]} and "
+          f"{sample[HTTP_SAMPLE // 2]}-{sample[-1]} of each session (GET .../pods/<ns>/<name>) "
+          f"equal a direct replay() of the same queue ({http}); /api/v1/sessions fuse stats "
+          f"{listing['fuse']} (fusedDeviceCalls during the phase: "
+          f"{f1['fusedDeviceCalls'] - f0['fusedDeviceCalls']}); "
+          f"{time.perf_counter() - t24:.1f} s", flush=True)
+
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "kube_scheduler_simulator_tpu_torch/csrc/fuse.cu",
+        "replaces": "kube_scheduler_simulator_tpu/parallel/fuse.py:356",
+        "launches": launches[name],
+        "max_abs_err": max(errs[name].values()),
+        "ms": ms[name],
+        "plain_ms": plain[name],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,
+    } for name in ("spec_eval_fused", "spec_round_fused", "spec_oracle_fused")]
+
+
 def main() -> int:
     import torch
 
@@ -2092,8 +2613,9 @@ def main() -> int:
     dp_ctx["decode_ms"] = {4: decode_ms, 11: dp_ctx["decode_ms"]}
     att_entry = result_path_phases(dev, card, cw, pods, rr, spec_ctx, dp_ctx)
     engine_entries = engine_phases(dev, card, cw, nodes, pods, cfg, rr)
+    fuse_entries = fuse_phases(dev, card, cw, nodes, pods, cfg, spec_ctx)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
-                                  *engine_entries]}))
+                                  *engine_entries, *fuse_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,160 @@
+"""Closed-loop control plane (docs/autopilot.md).
+
+A copy of kube_scheduler_simulator_tpu/control/__init__.py, standard
+library only.
+
+Two layers, split so the hot paths stay import-light:
+
+  * this module — `CONTROLS`, the per-session control registry.  It is
+    the ONLY thing the data-plane read sites import (the speculative
+    stream's starting rung / candidate cap in parallel/speculative.py,
+    the weighted HBM budget shares in framework/replay.py, the load-shed
+    gate in server/server.py), and it imports nothing but the standard
+    library: no telemetry, no torch, no cycle back into the planes that
+    read it.
+  * control/autopilot.py — the controller thread that WRITES this
+    registry from the observed telemetry planes (SLO windows, accept
+    fractions, spill counters).
+
+The empty registry is the parity baseline: every accessor returns the
+static-knob default (`None` override, weight 1.0, no shed), so a
+process that never starts the autopilot — or one whose autopilot
+failed safe (`reset()`) — behaves byte-identically to the pre-autopilot
+engine.  kss-analyze's lock rules watch this module: every method is a
+short dict operation under one lock, nothing blocking.
+"""
+
+from __future__ import annotations
+
+import threading
+
+# qos tiers, most-sheddable first (docs/api.md session create):
+# best-effort sheds under GLOBAL overload, standard only on its own SLO
+# breach, critical is never shed by the autopilot
+QOS_TIERS = ("best-effort", "standard", "critical")
+DEFAULT_QOS = "standard"
+
+# per-session HBM-share weight bounds: the floor keeps every session a
+# guaranteed slice (a donor is squeezed, never starved), the cap keeps
+# one spilling tenant from monopolizing the pool
+WEIGHT_FLOOR = 0.25
+WEIGHT_CAP = 4.0
+
+
+class _SessionControls:
+    """Mutable per-session knob overrides; None = static default."""
+
+    __slots__ = ("spec_start_rung", "spec_candidates", "budget_weight",
+                 "shed", "retry_after_s")
+
+    def __init__(self):
+        self.spec_start_rung: int | None = None   # <0 = top rung
+        self.spec_candidates: int | None = None
+        self.budget_weight: float = 1.0
+        self.shed: bool = False
+        self.retry_after_s: int = 1
+
+    def default(self) -> bool:
+        return (self.spec_start_rung is None and self.spec_candidates is None
+                and self.budget_weight == 1.0 and not self.shed)
+
+    def describe(self) -> dict:
+        return {
+            "specStartRung": self.spec_start_rung,
+            "specCandidates": self.spec_candidates,
+            "budgetWeight": self.budget_weight,
+            "shed": self.shed,
+            "retryAfterSeconds": self.retry_after_s if self.shed else None,
+        }
+
+
+class ControlPlane:
+    """The session -> overrides registry.  Reads are one short locked
+    dict lookup; a session with no entry IS the default."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._by_session: dict[str | None, _SessionControls] = {}
+
+    def _ent(self, session: str | None) -> _SessionControls:
+        ent = self._by_session.get(session)
+        if ent is None:
+            ent = self._by_session[session] = _SessionControls()
+        return ent
+
+    # ------------------------------------------------- data-plane reads
+
+    def spec_overrides(self, session: str | None) -> tuple[int | None,
+                                                           int | None]:
+        """(start rung, candidate cap) for a new speculative stream —
+        (None, None) means the static defaults apply."""
+        with self._mu:
+            ent = self._by_session.get(session)
+            if ent is None:
+                return None, None
+            return ent.spec_start_rung, ent.spec_candidates
+
+    def budget_milliweights(self) -> dict:
+        """{session: int(weight*1000)} for sessions with a non-default
+        weight; integer milli-weights so the equal-split case computes
+        EXACTLY `limit // n` (framework/replay.py parity baseline)."""
+        with self._mu:
+            return {s: int(round(e.budget_weight * 1000))
+                    for s, e in self._by_session.items()
+                    if e.budget_weight != 1.0}
+
+    def shed_state(self, session: str | None) -> tuple[bool, int]:
+        """(shedding?, Retry-After seconds) — the server's 429 gate."""
+        with self._mu:
+            ent = self._by_session.get(session)
+            if ent is None:
+                return False, 0
+            return ent.shed, ent.retry_after_s
+
+    # ------------------------------------------------ autopilot writes
+
+    def set_spec(self, session: str | None, rung: int | None,
+                 candidates: int | None) -> None:
+        with self._mu:
+            ent = self._ent(session)
+            ent.spec_start_rung = rung
+            ent.spec_candidates = (None if candidates is None
+                                   else max(int(candidates), 1))
+
+    def set_budget_weight(self, session: str | None, weight: float) -> None:
+        with self._mu:
+            self._ent(session).budget_weight = (
+                1.0 if weight == 1.0
+                else min(max(float(weight), WEIGHT_FLOOR), WEIGHT_CAP))
+
+    def set_shed(self, session: str | None, shed: bool,
+                 retry_after_s: int = 1) -> None:
+        with self._mu:
+            ent = self._ent(session)
+            ent.shed = bool(shed)
+            ent.retry_after_s = min(max(int(retry_after_s), 1), 600)
+
+    # ---------------------------------------------------- lifecycle
+
+    def drop(self, session: str | None) -> None:
+        """Session teardown: overrides must not outlive the session
+        (server/sessions.py calls this from _teardown)."""
+        with self._mu:
+            self._by_session.pop(session, None)
+
+    def reset(self) -> None:
+        """The fail-safe: revert EVERY effector to the static-knob
+        defaults in one step (a faulted autopilot tick calls this —
+        docs/fault-injection.md autopilot.decide seam — and tests)."""
+        with self._mu:
+            self._by_session.clear()
+
+    def stats(self) -> dict:
+        """{session: overrides} for non-default sessions — the
+        `autopilot.controls` block on /api/v1/sessions."""
+        with self._mu:
+            return {(s if s is not None else ""): e.describe()
+                    for s, e in self._by_session.items() if not e.default()}
+
+
+CONTROLS = ControlPlane()

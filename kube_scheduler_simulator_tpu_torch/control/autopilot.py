@@ -1,0 +1,497 @@
+"""SLO-driven autopilot: the controller thread behind `CONTROLS`.
+
+A copy of kube_scheduler_simulator_tpu/control/autopilot.py, host code
+with its imports rewired to the port.
+
+The telemetry planes grew eyes everywhere — rolling per-session p50/p99
+wave latency (utils/blackbox.py SLOTracker), per-round speculative
+accept fractions, HBM spill counters, retained-bytes accounting — but
+every policy knob stayed a static `KSS_TPU_*` env var.  This module
+closes the loop (ROADMAP item 4, docs/autopilot.md): a periodic tick
+reads those planes and acts through three effectors, writing ONLY the
+`CONTROLS` registry (control/__init__.py) that the data-plane read
+sites consult:
+
+  * speculative tuning — a session whose rolling accept fraction stays
+    high gets the aggressive profile (start at the TOP ladder rung,
+    double the operator's KSS_TPU_SPECULATIVE_CANDIDATES cap); one
+    that keeps collapsing gets the conservative profile (start at the
+    bottom rung, halve the cap); a sustained mid-band fraction decays
+    the profile back to the static default.  Hysteresis: a profile
+    changes only after HYSTERESIS_TICKS consecutive ticks beyond the
+    threshold — one bad wave never thrashes the ladder.
+  * HBM rebalancing — sessions observed spilling get a larger share of
+    KSS_TPU_DEVICE_RESULT_BUDGET_MB (weight steps up per spilling
+    tick); calm sessions decay back toward the equal split, and a
+    session retaining almost nothing while a neighbor spills donates
+    headroom (weight below 1.0, never below the floor).
+  * overload protection — a session whose SLO window breaches
+    KSS_TPU_AUTOPILOT_SLO_TARGET_P99_S for HYSTERESIS_TICKS ticks is
+    shed (HTTP 429 + Retry-After ~ 2x its p99) if its QoS tier allows;
+    under global overload every best-effort session sheds first, and
+    sustained stress applies idle-eviction pressure through the
+    session manager.  Recovery: ticks back under 0.8x target count
+    toward lifting the shed — and so do ticks where a SHEDDING session
+    ran no new waves at all (the gate stopped inflow, the count-based
+    window froze, and a quiesced session carries no evidence of
+    ongoing breach; without this the shed would latch forever).
+
+Every decision is a structured black-box event (`autopilot.decide
+{effector, session, from, to, reason}`) and a labeled counter
+(`autopilot_decisions_total{effector=}`).  The `autopilot.decide`
+fault seam (utils/faults.py) wraps decision application: a faulted
+tick reverts EVERY effector to the static-knob defaults
+(`CONTROLS.reset()`), counts `autopilot_failsafe_total`, and the
+thread keeps ticking — a crashed controller must degrade to the
+pre-autopilot static behavior, never take the server down
+(docs/fault-injection.md, tools/chaos.py proves it).
+
+Opt-out: KSS_TPU_AUTOPILOT=0 (or any unparsable value — fail OFF) is
+the byte-identical parity baseline; tests/test_autopilot.py pins
+annotations + bind order on-vs-off.
+"""
+
+from __future__ import annotations
+
+import atexit
+import math
+import sys
+import threading
+import time
+from collections import deque
+
+from ..utils.blackbox import BLACKBOX, FEEDER
+from ..utils.env import env_float, env_int, env_switch
+from ..utils.faults import fault_point
+from ..utils.tracing import TRACER
+from . import CONTROLS, QOS_TIERS, WEIGHT_CAP, WEIGHT_FLOOR
+
+# consecutive ticks a signal must persist before an effector moves —
+# the hysteresis band that keeps one bad wave (or one good one) from
+# thrashing a profile back and forth
+HYSTERESIS_TICKS = 2
+
+# speculative profiles: (start rung, candidate-cap multiplier vs the
+# static KSS_TPU_SPECULATIVE_CANDIDATES default).  rung <0 = top.
+_SPEC_PROFILES = {
+    "default": (None, None),
+    "aggressive": (-1, 2.0),
+    "conservative": (0, 0.5),
+}
+_SPEC_HI = 0.90   # rolling accept fraction at/above: climb
+_SPEC_LO = 0.50   # below: back off
+_SPEC_BASE_CANDIDATES = 128   # KSS_TPU_SPECULATIVE_CANDIDATES default
+_SPEC_MID_TICKS = 4   # mid-band ticks before a profile decays to default
+
+_WEIGHT_STEP = 0.5
+_DONATE_WEIGHT = 0.5   # a no-demand session's share while neighbors spill
+_CALM_TICKS = 4        # spill-free ticks before a raised weight decays
+
+
+def autopilot_enabled() -> bool:
+    """KSS_TPU_AUTOPILOT, fail-OFF on garbage (utils/env.env_switch):
+    a typo'd knob must yield the static parity baseline, never a
+    half-configured controller."""
+    return env_switch("KSS_TPU_AUTOPILOT", True)
+
+
+def shed_qos_tiers() -> tuple[str, ...]:
+    """KSS_TPU_AUTOPILOT_SHED_QOS: comma-separated tiers the autopilot
+    may shed.  Unknown tokens are dropped; an env value with NO valid
+    tier falls back to the default (fail-safe, never a crash).
+    `critical` is never sheddable regardless."""
+    import os
+
+    raw = os.environ.get("KSS_TPU_AUTOPILOT_SHED_QOS") or ""
+    tiers = tuple(t for t in (s.strip() for s in raw.split(","))
+                  if t in QOS_TIERS and t != "critical")
+    return tiers or ("best-effort", "standard")
+
+
+class _SessState:
+    """Controller-internal per-session memory (streaks, baselines)."""
+
+    __slots__ = ("spec_mode", "hi_streak", "lo_streak", "mid_streak",
+                 "accepted", "rolled", "spilled", "calm_ticks",
+                 "breach_streak", "ok_streak", "waves_total")
+
+    def __init__(self):
+        self.spec_mode = "default"
+        self.hi_streak = 0
+        self.lo_streak = 0
+        self.mid_streak = 0
+        self.accepted = 0.0    # counter baselines from the previous tick
+        self.rolled = 0.0
+        self.spilled = 0.0
+        self.calm_ticks = 0
+        self.breach_streak = 0
+        self.ok_streak = 0
+        self.waves_total = 0   # SLO totalWaves baseline (inflow check)
+
+
+class Autopilot:
+    """One controller per server (server/server.py starts/stops it with
+    the process; tick() is directly callable so tests drive it with
+    synthetic telemetry and no thread)."""
+
+    def __init__(self, manager, interval: float | None = None,
+                 slo_target: float | None = None):
+        self.manager = manager
+        self.interval = (interval if interval is not None
+                         else min(max(env_float(
+                             "KSS_TPU_AUTOPILOT_INTERVAL_S", 1.0),
+                             0.05), 60.0))
+        # <=0 disables the overload effector (no target to breach)
+        self.slo_target = (slo_target if slo_target is not None
+                           else env_float(
+                               "KSS_TPU_AUTOPILOT_SLO_TARGET_P99_S", 2.0))
+        self.shed_qos = shed_qos_tiers()
+        self._mu = threading.Lock()
+        self._state: dict[str, _SessState] = {}
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._ticks = 0
+        self._decisions = 0
+        self._failsafes = 0
+        # the provenance ring behind /api/v1/sessions lastDecisions:
+        # recent decisions WITH their evidence blocks, newest last
+        self._recent: deque = deque(maxlen=64)
+
+    # ------------------------------------------------------- lifecycle
+
+    def start(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="autopilot")
+        self._thread.start()
+        # a server that never reaches shutdown() must not leave the
+        # controller ticking into interpreter finalization
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2)
+        self._thread = None
+        atexit.unregister(self.stop)
+
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            if sys.is_finalizing():
+                return
+            self.tick()
+
+    # ------------------------------------------------------------ tick
+
+    def tick(self) -> int:
+        """One control cycle: read telemetry, plan, apply.  Never
+        raises — any failure (including the injected autopilot.decide
+        seam) reverts every effector to the static defaults and the
+        next tick starts from a clean slate."""
+        try:
+            n = self._tick_inner()
+        except Exception as e:
+            # the fail-safe contract (docs/fault-injection.md): a
+            # faulted controller degrades to the static-knob baseline
+            # instead of leaving half-applied decisions behind
+            CONTROLS.reset()
+            with self._mu:
+                self._state.clear()
+                self._failsafes += 1
+            TRACER.count("autopilot_failsafe_total")
+            BLACKBOX.record("autopilot.failsafe",
+                            error=f"{type(e).__name__}: {e}"[:200])
+            return 0
+        with self._mu:
+            self._ticks += 1
+        return n
+
+    def _tick_inner(self) -> int:
+        sessions = self.manager.sessions_brief()
+        live = {sid for sid, _q, _t, _b in sessions}
+        # one feeder tick reads every plane ONCE and appends the ring
+        # sample this tick's decisions cite: the evidence blocks below
+        # come from the SAME dicts that populated the ring at
+        # `hist_idx`, so provenance matches the ring bit-for-bit
+        # (utils/blackbox.py HistoryFeeder).  With KSS_TPU_HISTORY=0
+        # hist_idx is -1 and the planes are identical — one code path,
+        # the parity baseline unchanged.
+        hist_idx, planes = FEEDER.sample()
+        accepted = planes["accepted"]
+        rolled = planes["rolled"]
+        spilled = planes["spilled"]
+        slo = planes["slo"]
+        from ..framework.replay import _DEVICE_BUDGET
+
+        limit = _DEVICE_BUDGET.limit_bytes()
+        retained = ({(s if s is not None else ""): b
+                     for s, (_c, b) in
+                     _DEVICE_BUDGET.retained_by_session().items()}
+                    if limit else {})
+
+        plan: list[tuple] = []   # (effector, session, frm, to, reason, apply)
+        any_spill = False
+        any_breach = False
+        with self._mu:
+            # controller memory must not outlive its session (the
+            # manager's teardown drops CONTROLS; this drops the streaks)
+            for gone in [s for s in self._state if s not in live]:
+                del self._state[gone]
+            for sid, qos, _last, _busy in sessions:
+                st = self._state.get(sid)
+                if st is None:
+                    st = self._state[sid] = _SessState()
+                # shared evidence base: the session's SLO window as the
+                # effectors saw it this tick, plus the ring index the
+                # feeder wrote it to (absent when history is off)
+                evd = {"sloWindow": slo.get(sid)}
+                if hist_idx >= 0:
+                    evd["historyIndex"] = hist_idx
+                self._plan_speculative(plan, sid, st, accepted, rolled,
+                                       evd)
+                spill_d = spilled.get(sid, 0.0) - st.spilled
+                st.spilled = spilled.get(sid, 0.0)
+                if limit is not None and limit > 0:
+                    any_spill |= self._plan_budget(
+                        plan, sid, st, spill_d, retained.get(sid, 0),
+                        limit, len(sessions), evd)
+                any_breach |= self._plan_shed(plan, sid, st, qos,
+                                              slo.get(sid), evd)
+        if plan:
+            self._apply(plan)
+        if any_spill and any_breach:
+            # sustained global stress: both the HBM pool and an SLO
+            # window are unhappy — apply idle-eviction pressure so a
+            # parked tenant stops holding budget a breaching one needs
+            evicted = self.manager.evict_idle_under_pressure()
+            if evicted:
+                self._decide("evict", None, "idle", "evicted",
+                             f"global stress: {evicted} idle session(s)")
+        return len(plan)
+
+    # ------------------------------------------------- effector: spec
+
+    def _plan_speculative(self, plan, sid, st, accepted, rolled,
+                          evd) -> None:
+        a_d = accepted.get(sid, 0.0) - st.accepted
+        r_d = rolled.get(sid, 0.0) - st.rolled
+        st.accepted = accepted.get(sid, 0.0)
+        st.rolled = rolled.get(sid, 0.0)
+        if a_d + r_d <= 0:
+            return   # no rounds since the last tick: no evidence
+        frac = a_d / (a_d + r_d)
+        if frac >= _SPEC_HI:
+            st.hi_streak += 1
+            st.lo_streak = st.mid_streak = 0
+        elif frac < _SPEC_LO:
+            st.lo_streak += 1
+            st.hi_streak = st.mid_streak = 0
+        else:
+            st.hi_streak = st.lo_streak = 0
+            st.mid_streak += 1
+        want = st.spec_mode
+        reason = (f"accept fraction {frac:.2f} over "
+                  f"{int(a_d + r_d)} round(s)")
+        if st.hi_streak >= HYSTERESIS_TICKS:
+            want = "aggressive"
+        elif st.lo_streak >= HYSTERESIS_TICKS:
+            want = "conservative"
+        elif st.mid_streak >= _SPEC_MID_TICKS:
+            # sustained mid-band evidence: the static default fits
+            # again — decay back instead of pinning the last profile
+            # forever (mirrors the budget effector's calm-tick decay)
+            want = "default"
+            reason = (f"accept fraction {frac:.2f} mid-band for "
+                      f"{st.mid_streak} tick(s)")
+        if want == st.spec_mode:
+            return
+        rung, mult = _SPEC_PROFILES[want]
+        # scale the OPERATOR's baseline, not the built-in default —
+        # with KSS_TPU_SPECULATIVE_CANDIDATES=512 aggressive must mean
+        # 1024, not 256
+        base = env_int("KSS_TPU_SPECULATIVE_CANDIDATES",
+                       _SPEC_BASE_CANDIDATES)
+        cand = None if mult is None else max(int(base * mult), 16)
+        frm, to = st.spec_mode, want
+
+        def apply(sid=sid, st=st, want=want, rung=rung, cand=cand):
+            st.spec_mode = want
+            st.hi_streak = st.lo_streak = st.mid_streak = 0
+            CONTROLS.set_spec(sid, rung, cand)
+
+        plan.append(("speculative", sid, frm, to, reason,
+                     {**evd, "acceptFraction": round(frac, 6),
+                      "rounds": int(a_d + r_d)}, apply))
+
+    # ----------------------------------------------- effector: budget
+
+    def _plan_budget(self, plan, sid, st, spill_d, retained_b,
+                     limit, n_sessions, evd) -> bool:
+        """Returns True when this session spilled this tick."""
+        cur = self._weight(sid)
+        want = cur
+        if spill_d > 0:
+            st.calm_ticks = 0
+            want = min(cur + _WEIGHT_STEP, WEIGHT_CAP)
+            reason = f"{int(spill_d)} spill(s) this tick"
+        else:
+            st.calm_ticks += 1
+            if st.calm_ticks >= _CALM_TICKS and cur > 1.0:
+                want = max(cur - _WEIGHT_STEP, 1.0)
+                reason = f"calm for {st.calm_ticks} tick(s)"
+            elif (st.calm_ticks >= _CALM_TICKS and cur == 1.0
+                    and n_sessions > 1
+                    and retained_b * 4 < limit // n_sessions):
+                # retaining under a quarter of its equal share and
+                # nothing spilling on its side: donate headroom
+                want = max(_DONATE_WEIGHT, WEIGHT_FLOOR)
+                reason = (f"donor: retains {retained_b}B of a "
+                          f"{limit // n_sessions}B share")
+            else:
+                return False
+        if want == cur:
+            return spill_d > 0
+
+        def apply(sid=sid, want=want):
+            CONTROLS.set_budget_weight(sid, want)
+
+        plan.append(("budget", sid, cur, want, reason,
+                     {**evd, "spillDelta": int(spill_d),
+                      "retainedBytes": int(retained_b)}, apply))
+        return spill_d > 0
+
+    # ------------------------------------------------- effector: shed
+
+    def _plan_shed(self, plan, sid, st, qos, slo_stats, evd) -> bool:
+        """Returns True when this session's window shows a live breach."""
+        if self.slo_target <= 0:
+            return False
+        stats = slo_stats or {}
+        p99 = stats.get("p99WaveSeconds")
+        fresh = int(stats.get("totalWaves") or 0) - st.waves_total
+        st.waves_total = int(stats.get("totalWaves") or 0)
+        shedding, _ra = CONTROLS.shed_state(sid)
+        breach = p99 is not None and p99 > self.slo_target
+        if shedding and fresh <= 0:
+            # the shed gate blocks inflow, so the count-based SLO
+            # window is frozen at its breach-era percentiles; a
+            # quiesced session carries NO evidence of ongoing breach —
+            # count the tick toward recovery, or the shed latches
+            # forever (clients 429 away, the window never refills, p99
+            # never drops)
+            st.ok_streak += 1
+            st.breach_streak = 0
+            breach = False
+        elif breach:
+            st.breach_streak += 1
+            st.ok_streak = 0
+        else:
+            # recovery band at 0.8x target: hovering at the line must
+            # not flap shed/unshed every other tick
+            if p99 is None or p99 <= 0.8 * self.slo_target:
+                st.ok_streak += 1
+                st.breach_streak = 0
+            else:
+                st.ok_streak = 0
+        sheddable = qos in self.shed_qos and qos != "critical"
+        if (not shedding and sheddable
+                and st.breach_streak >= HYSTERESIS_TICKS):
+            retry = min(max(int(math.ceil(2 * (p99 or 1.0))), 1), 600)
+
+            def apply(sid=sid, retry=retry):
+                CONTROLS.set_shed(sid, True, retry)
+
+            plan.append(("shed", sid, "open", "shedding",
+                         f"qos={qos} p99 {p99:.3f}s > target "
+                         f"{self.slo_target:.3f}s "
+                         f"x{st.breach_streak} ticks",
+                         {**evd, "p99WaveSeconds": p99,
+                          "sloTargetP99Seconds": self.slo_target,
+                          "breachStreak": st.breach_streak,
+                          "freshWaves": fresh}, apply))
+        elif shedding and st.ok_streak >= HYSTERESIS_TICKS:
+            def apply(sid=sid):
+                CONTROLS.set_shed(sid, False)
+
+            plan.append(("shed", sid, "shedding", "open",
+                         f"p99 {'n/a' if p99 is None else f'{p99:.3f}s'} "
+                         f"back under 0.8x target "
+                         f"x{st.ok_streak} ticks",
+                         {**evd, "p99WaveSeconds": p99,
+                          "sloTargetP99Seconds": self.slo_target,
+                          "okStreak": st.ok_streak,
+                          "freshWaves": fresh}, apply))
+        return breach
+
+    # ------------------------------------------------------- plumbing
+
+    @staticmethod
+    def _weight(sid: str) -> float:
+        mw = CONTROLS.budget_milliweights()
+        return mw.get(sid, 1000) / 1000.0
+
+    def _apply(self, plan) -> None:
+        # the chaos seam wraps decision APPLICATION: a trip here means
+        # zero of this tick's decisions land and tick()'s fail-safe
+        # reverts whatever previous ticks applied
+        fault_point("autopilot.decide")
+        for effector, sid, frm, to, reason, evidence, apply in plan:
+            apply()
+            self._decide(effector, sid, frm, to, reason, evidence)
+
+    def _decide(self, effector, session, frm, to, reason,
+                evidence: dict | None = None) -> None:
+        with self._mu:
+            self._decisions += 1
+            self._recent.append({
+                "t": round(time.time(), 6), "effector": effector,
+                "session": session, "from": frm, "to": to,
+                "reason": reason, "evidence": evidence,
+            })
+        TRACER.inc("autopilot_decisions_total", effector=effector)
+        BLACKBOX.record("autopilot.decide", effector=effector,
+                        session=session, reason=reason,
+                        **{"from": frm, "to": to},
+                        **({"evidence": evidence}
+                           if evidence is not None else {}))
+
+    # ---------------------------------------------------------- stats
+
+    def stats(self) -> dict:
+        """The `autopilot` block on /api/v1/sessions and /readyz."""
+        with self._mu:
+            ticks, decisions, failsafes = (self._ticks, self._decisions,
+                                           self._failsafes)
+            recent = list(self._recent)
+        by_eff = TRACER.labeled_totals("autopilot_decisions_total",
+                                       "effector")
+        controls = CONTROLS.stats()
+        # decision provenance, grouped per session (None -> "" for the
+        # sessionless evict decisions), last 5 each with evidence
+        last: dict[str, list] = {}
+        for d in recent:
+            last.setdefault(d["session"] or "", []).append(d)
+        return {
+            "lastDecisions": {k: v[-5:] for k, v in last.items()},
+            "enabled": autopilot_enabled(),
+            "running": self.running,
+            "intervalSeconds": self.interval,
+            "sloTargetP99Seconds": self.slo_target,
+            "shedQos": list(self.shed_qos),
+            "ticks": ticks,
+            "decisions": decisions,
+            "failsafes": failsafes,
+            "decisionsByEffector": {k: int(v) for k, v in by_eff.items()
+                                    if k},
+            "shedding": sorted(s for s, c in controls.items()
+                               if c.get("shed")),
+            "controls": controls,
+        }

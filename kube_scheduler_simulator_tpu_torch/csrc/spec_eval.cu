@@ -9,19 +9,15 @@
 // scratch slot; nothing writes the carry, so the blocks share it safely.
 //
 // spec_oracle replaces speculative.py:299 `_oracle_core`, the dirty-node
-// prefix: pod k conflicts when it is feasible (packed word 0, no
-// PreFilter reject) at the node an earlier pod j < k selected; K is the
-// lowest conflicting k, or B.  One block; thread k walks j < k.  It runs
-// after spec_eval and after spec_round, on the same stream.
+// prefix (spec.cuh spec_oracle_block), one block.  It runs after
+// spec_eval and after spec_round, on the same stream.
 //
 // What bounds spec_eval on this card: like step_chunk, the latency of one
 // pod's dependent phases on one SM; but B pods now run at once on up to
 // B SMs, so a round of B pods costs about one pod's latency per wave of
 // blocks.  spec_oracle reads B x B packed words and is bound by its
 // launch.
-#include "pod.cuh"
-
-#define SPEC_THREADS 256
+#include "spec.cuh"
 
 __global__ void __launch_bounds__(SPEC_THREADS) spec_eval_kernel(const StepArgs a) {
   __shared__ long long sh_ll[KSS_THREADS / 32];
@@ -30,34 +26,11 @@ __global__ void __launch_bounds__(SPEC_THREADS) spec_eval_kernel(const StepArgs 
   eval_pod(a, c, pod_scratch(a, c), sh_ll, sh_i);
 }
 
-__device__ __forceinline__ long long packed_at(const void* packed, int pack_bytes, long long i) {
-  switch (pack_bytes) {
-    case 1: return ((const unsigned char*)packed)[i];
-    case 2: return ((const unsigned short*)packed)[i];
-    case 4: return ((const int*)packed)[i];
-    default: return ((const long long*)packed)[i];
-  }
-}
-
 __global__ void __launch_bounds__(SPEC_THREADS) spec_oracle_kernel(
     const void* packed, int pack_bytes, const int* reject, const int* selected, int B, int N,
     int* out_k) {
   __shared__ int sh_k;
-  if (threadIdx.x == 0) sh_k = B;
-  __syncthreads();
-  for (int k = threadIdx.x; k < B; k += blockDim.x) {
-    if (reject[k] != 0) continue;  // feasible nowhere: never conflicts
-    const long long row = (long long)k * N;
-    for (int j = 0; j < k; ++j) {
-      const int s = selected[j];
-      if (s >= 0 && packed_at(packed, pack_bytes, row + s) == 0) {
-        atomicMin(&sh_k, k);
-        break;
-      }
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) *out_k = sh_k;
+  spec_oracle_block(packed, pack_bytes, reject, selected, B, N, out_k, sh_k);
 }
 
 #ifdef __CUDACC__

@@ -46,6 +46,7 @@ from ..plugins import (
     taints, topologyspread, volumebinding, volumerestrictions, volumezone,
 )
 from ..plugins.fitscoring import parse_balanced_resources, parse_fit_strategy
+from ..utils.faults import fault_point
 
 
 class StepOut(NamedTuple):
@@ -417,7 +418,11 @@ class Step:
 
 def build_step(cw, out_mode: str = "full", pack_mode: str = "p16",
                score_dtypes: tuple = (), wide_raw: str | None = None) -> Step:
-    """pipeline.py:360: the step of one compiled workload (see Step)."""
+    """pipeline.py:360: the step of one compiled workload (see Step).
+    The port builds every replay's, stream's and host path's step here,
+    so this is the `compile.build` fault seam's one site (the JAX package
+    fires it where its compile cache builds a program, replay.py:1023)."""
+    fault_point("compile.build")
     return Step(cw, out_mode=out_mode, pack_mode=pack_mode,
                 score_dtypes=score_dtypes, wide_raw=wide_raw)
 

@@ -26,8 +26,15 @@ to every reader:
 
 The dispatch loop stays up to `_MAX_INFLIGHT` chunks ahead of the oldest
 fetch, so the host queues launches while the card works.  The last chunk
-is padded; padded steps carry `is_pad` and never bind.  Meshes, fault
-points, tracing and per-session budget shares are later slices.
+is padded; padded steps carry `is_pad` and never bind.  Meshes are
+ROADMAP Queue B item B12.
+
+Fault seams (utils/faults.py), at the JAX package's steps: each chunk's
+dispatch (`replay.scan_dispatch`), each in-wave fetch
+(`replay.decision_fetch`), a cold read (`replay.materialize`) and the
+budget's spill (`replay.budget_spill`).  Multi-session serving
+(server/sessions.py): the materialize failure streak and the device
+budget's shares are per session, keyed on the tracer's session scope.
 """
 
 from __future__ import annotations
@@ -43,50 +50,60 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..control import CONTROLS
 from ..kernels.attribution import chunk_attribution
 from ..state.compile import CompiledWorkload
 from ..utils.env import device_result_budget_bytes, host_resident_forced
+from ..utils.faults import fault_point
+from ..utils.tracing import TRACER
 from .pipeline import PACK_MODES, build_step, choose_pack_mode
 
 
 class _FailStreak:
-    """Consecutive failures of on-demand materialization; any success
-    resets it.  The engine's wave failure protocol reads it at wave start:
-    a streak past its limit is a structural device signal (repeated D2H
-    failure), answered by stepping down to the host-resident rung.  One
-    bucket; per-session streaks come with the server."""
+    """Per-session consecutive failures of on-demand materialization; any
+    success resets the failing session's streak.  The engine's wave
+    failure protocol reads its session's streak at wave start: a streak
+    past its limit is a structural device signal (repeated D2H failure),
+    answered by stepping down to the host-resident rung.  Buckets key on
+    the tracer's session scope at the failing read (None: direct engine
+    use), so one tenant's failures never degrade a neighbour."""
 
     def __init__(self):
         self._mu = threading.Lock()
-        self._n = 0
+        self._n: dict = {}
 
     def fail(self) -> int:
+        sid = TRACER.current_session()
         with self._mu:
-            self._n += 1
-            return self._n
+            self._n[sid] = self._n.get(sid, 0) + 1
+            return self._n[sid]
 
     def ok(self) -> None:
+        sid = TRACER.current_session()
         with self._mu:
-            self._n = 0
+            self._n.pop(sid, None)
 
-    def value(self) -> int:
+    def value(self, session=None) -> int:
         with self._mu:
-            return self._n
+            return self._n.get(session, 0)
+
+    def reset(self, session=None) -> None:
+        with self._mu:
+            self._n.pop(session, None)
 
 
 _MATERIALIZE_FAILS = _FailStreak()
 
 
 def materialize_failure_streak(session: str | None = None) -> int:
-    """The streak of on-demand materialization failures (one bucket:
-    `session` is the JAX package's per-session key, kept for its
-    callers)."""
-    return _MATERIALIZE_FAILS.value()
+    """The session's streak of on-demand materialization failures."""
+    return _MATERIALIZE_FAILS.value(session)
 
 
 def reset_materialize_failures(session: str | None = None) -> None:
-    """Restart the streak: the engine steps down the residency ladder."""
-    _MATERIALIZE_FAILS.ok()
+    """Restart the session's streak: the engine steps down the residency
+    ladder."""
+    _MATERIALIZE_FAILS.reset(session)
 
 
 def _to_host(t) -> np.ndarray:
@@ -147,11 +164,12 @@ class _CompactChunks:
         self.materialize(ci)
         return getattr(self, group)[ci]
 
-    def materialize(self, ci: int) -> None:
+    def materialize(self, ci: int, spill: bool = False) -> None:
         """Fetch chunk ci's four groups to the host, exactly once under
         concurrent readers: the fetch runs outside the lock, latecomers
         wait on the owner's event, and a failed fetch clears the slot so
-        the next reader retries."""
+        the next reader retries.  spill=True is the budget's background
+        path, counted as a spill of the owning session."""
         while True:
             with self._mu:
                 if not isinstance(self.packed[ci], torch.Tensor):
@@ -164,9 +182,12 @@ class _CompactChunks:
                 break
             ev.wait()
         try:
+            t0 = time.perf_counter()
+            fault_point("replay.materialize")
             if self.ready[ci] is not None:
                 self.ready[ci].synchronize()  # written on another thread's stream
             fetched = {g: _to_host(getattr(self, g)[ci]) for g in self.GROUPS}
+            dt = time.perf_counter() - t0
         except BaseException:
             _MATERIALIZE_FAILS.fail()
             with self._mu:
@@ -182,6 +203,15 @@ class _CompactChunks:
             del self._inflight[ci]
         ev.set()
         _DEVICE_BUDGET.release(self, ci)
+        if spill:
+            sid = TRACER.current_session()
+            if sid is not None:
+                TRACER.inc("device_chunks_spilled_total", session=sid)
+            else:
+                TRACER.count("device_chunks_spilled_total")
+        else:
+            TRACER.count("d2h_on_demand_bytes_total", sum(a.nbytes for a in fetched.values()))
+            TRACER.observe("d2h_on_demand_seconds", dt)
 
 
 class _DeviceResultBudget:
@@ -192,14 +222,23 @@ class _DeviceResultBudget:
     order is recency order).  Unset -> no cap (chunks stay until a cold
     read or their result is dropped); 0 -> retain nothing, spill as
     chunks land.  Entries hold the _CompactChunks weakly, so dropping a
-    result's last handle releases its accounting.  One bucket: the JAX
-    package's per-session shares come with the server."""
+    result's last handle releases its accounting.
+
+    Multi-session serving (server/sessions.py): each retained chunk is
+    attributed to the session whose wave produced it (the tracer's
+    session scope at retain time; None for direct engine use).  The pool
+    divides among the sessions holding entries, weighted by the
+    autopilot's `CONTROLS.budget_milliweights()` (equal with no
+    autopilot), and each session is enforced against its own share, in
+    LRU order within it: a fat session spills its own chunks, never a
+    neighbour's.  With one bucket the share is the whole pool."""
 
     _SPILL_RETRIES = 3
 
     def __init__(self):
         self._mu = threading.Lock()
-        # (id(cc), ci) -> [weakref(cc), ci, nbytes, spilling, attempts]
+        # (id(cc), ci) -> [weakref(cc), ci, nbytes, spilling, attempts,
+        #                  session]
         self._entries: OrderedDict[tuple[int, int], list] = OrderedDict()
         self._total = 0
         self._pool: ThreadPoolExecutor | None = None
@@ -221,6 +260,7 @@ class _DeviceResultBudget:
 
     def retain(self, cc: _CompactChunks, ci: int, nbytes: int) -> None:
         key = (id(cc), ci)
+        session = TRACER.current_session()
 
         def _gone(_ref, key=key):
             self._dead.append(key)  # lock-free: pruned on the next locked call
@@ -229,7 +269,7 @@ class _DeviceResultBudget:
             # prune BEFORE inserting: a dead chunk's queued key could
             # collide with this one (id() reuse) and drop the fresh entry
             self._prune_locked()
-            self._entries[key] = [weakref.ref(cc, _gone), ci, nbytes, False, 0]
+            self._entries[key] = [weakref.ref(cc, _gone), ci, nbytes, False, 0, session]
             self._total += nbytes
         self._enforce()
 
@@ -257,31 +297,55 @@ class _DeviceResultBudget:
             self._prune_locked()
             return self._total
 
+    def retained_by_session(self) -> dict:
+        """{session (None = sessionless): (chunks, bytes)} retained now."""
+        out: dict = {}
+        with self._mu:
+            self._prune_locked()
+            for ent in self._entries.values():
+                c, b = out.get(ent[5], (0, 0))
+                out[ent[5]] = (c + 1, b + ent[2])
+        return out
+
     def _enforce(self) -> None:
         limit = self.limit_bytes()
         if limit is None:
             return
-        to_spill: list[tuple[_CompactChunks, int]] = []
+        to_spill: list[tuple[_CompactChunks, int, str | None]] = []
+        # per-session share weights in integer milli-units: a session the
+        # autopilot does not steer weighs 1000, so with no autopilot every
+        # bucket's share is exactly limit // n
+        mweights = CONTROLS.budget_milliweights()
         with self._mu:
             self._prune_locked()
-            over = self._total - limit
+            totals: dict = {}
             for ent in self._entries.values():
-                if over <= 0:
-                    break
-                over -= ent[2]
+                totals[ent[5]] = totals.get(ent[5], 0) + ent[2]
+            mw = {s: max(mweights.get(s, 1000), 1) for s in totals}
+            mw_sum = max(sum(mw.values()), 1)
+            over = {s: t - limit * mw[s] // mw_sum for s, t in totals.items()}
+            for ent in self._entries.values():
+                if over.get(ent[5], 0) <= 0:
+                    continue
                 if ent[3]:
-                    continue  # already queued
+                    over[ent[5]] -= ent[2]  # already queued
+                    continue
                 cc = ent[0]()
                 if cc is None:
                     continue  # the finalizer prunes it
                 ent[3] = True
-                to_spill.append((cc, ent[1]))
-        for cc, ci in to_spill:
-            self._spill_pool().submit(self._spill_one, cc, ci)
+                to_spill.append((cc, ent[1], ent[5]))
+                over[ent[5]] -= ent[2]
+        for cc, ci, session in to_spill:
+            self._spill_pool().submit(self._spill_one, cc, ci, session)
 
-    def _spill_one(self, cc: _CompactChunks, ci: int) -> None:
+    def _spill_one(self, cc: _CompactChunks, ci: int, session: str | None = None) -> None:
         try:
-            cc.materialize(ci)
+            # the spill thread adopts the owning session's scope, for the
+            # session-scoped fault rules and the spill counter's label
+            with TRACER.session_scope(session):
+                fault_point("replay.budget_spill")
+                cc.materialize(ci, spill=True)
         except Exception:
             # a failed fetch: clear the mark and enforce again, at most
             # _SPILL_RETRIES times; after that the chunk stays on the
@@ -767,10 +831,13 @@ class _Landing:
     copied, non-blocking, into a pinned host buffer and an event is
     recorded behind the copies; result() waits on that event only.  CPU
     tensors are already on the host.  `event` also marks the point after
-    which every launch writing the chunk has run (the chunk's `ready`)."""
+    which every launch writing the chunk has run (the chunk's `ready`).
+    `error`: a fetch that failed to start; result() raises it, where the
+    JAX package's fetch future would (replay.py:1616-1634)."""
 
-    def __init__(self, tensors: dict):
+    def __init__(self, tensors: dict, error: BaseException | None = None):
         self.event = None
+        self.error = error
         self._host = {}
         for name, t in tensors.items():
             if t.device.type == "cuda":
@@ -785,6 +852,8 @@ class _Landing:
 
     def result(self) -> dict[str, np.ndarray]:
         """name -> host numpy (C order), plus "_d2h_bytes"."""
+        if self.error is not None:
+            raise self.error
         if self.event is not None:
             self.event.synchronize()
         c = {name: _to_host(h) for name, h in self._host.items()}
@@ -802,8 +871,24 @@ def _ready_event(device: torch.device):
     return ev
 
 
+def _fetch_started() -> BaseException | None:
+    """The `replay.decision_fetch` seam of one in-wave fetch.  The JAX
+    package fires it on the fetch thread and its error surfaces when the
+    chunk is ingested, after later chunks were dispatched; the port
+    fires it as the fetch starts and the landing raises it at the same
+    ingest."""
+    try:
+        fault_point("replay.decision_fetch")
+    except Exception as e:  # noqa: BLE001 — re-raised by _Landing.result
+        return e
+    return None
+
+
 def _fetch_chunk(out) -> _Landing:
     """The host-resident rung: one chunk's whole CompactOut."""
+    err = _fetch_started()
+    if err is not None:
+        return _Landing({}, error=err)
     return _Landing({f: getattr(out, f) for f in out._fields})
 
 
@@ -814,6 +899,9 @@ def _fetch_decisions(out, att: dict | None) -> _Landing:
     """The device-resident rung: only the per-pod rows commit and bind
     consume, O(chunk) bytes, and B7's sums (keys "att:<name>"); the heavy
     tensors stay on the device."""
+    err = _fetch_started()
+    if err is not None:
+        return _Landing({}, error=err)
     tensors = {f: getattr(out, f) for f in _DECISION_FIELDS}
     for k, v in (att or {}).items():
         tensors[f"att:{k}"] = v
@@ -954,6 +1042,68 @@ def _compact_plan(cw: CompiledWorkload, wide: str | None):
     return pack_mode, score_dtypes, tuple(cols)
 
 
+def _leaves(tree, path: str = ""):
+    """(path, leaf) of every leaf of a workload tree: dicts of tensors or
+    NamedTuples of tensors, in a fixed order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from _leaves(getattr(tree, f), f"{path}.{f}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _statics_fingerprint(cw: CompiledWorkload) -> str:
+    """replay.py:1069: a hash of the statics' CONTENT (shape, dtype and
+    bytes of every leaf), computed once per workload."""
+    fp = cw.host.get("_statics_fp")
+    if fp is not None:
+        return fp
+    import hashlib
+
+    h = hashlib.sha1()
+    for name in sorted(cw.statics):
+        h.update(name.encode())
+        for _path, leaf in _leaves(cw.statics[name]):
+            a = _to_host(leaf) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+            h.update(str(a.shape).encode())
+            h.update(str(a.dtype).encode())
+            h.update(a.tobytes())
+    fp = h.hexdigest()
+    cw.host["_statics_fp"] = fp
+    return fp
+
+
+def _workload_scan_key(cw: CompiledWorkload, chunk: int):
+    """replay.py:1088: what picks a workload's compiled programs in the
+    JAX package: the statics' content, the xs and carry SHAPES (not their
+    values), the plugin configuration and the chunk (the JAX key's mesh
+    signature is always None here: the port has no mesh).  Two workloads
+    with equal keys run the same step over different pods; the fuse
+    family (parallel/speculative.py `_fuse_family`) is built on it."""
+    import json
+
+    shapes = tuple((path, tuple(np.shape(leaf)), str(leaf.dtype if isinstance(leaf, torch.Tensor)
+                                                      else np.asarray(leaf).dtype))
+                   for tree in (cw.xs, cw.init_carry) for path, leaf in _leaves(tree))
+    cfg = cw.config
+    cfg_sig = (
+        tuple(cfg.enabled),
+        tuple(sorted((n, cfg.weight(n)) for n in cfg.scorers())),
+        tuple((n, id(p)) for n, p in sorted(cfg.custom.items())),
+        json.dumps(cfg.args, sort_keys=True, default=str),
+        tuple(cw.schema.columns),
+        tuple(sorted((k, tuple(v)) for k, v in cfg.point_enabled.items())),
+        tuple(sorted((k, tuple(sorted(v))) for k, v in cfg.point_disabled.items())),
+    )
+    return (_statics_fingerprint(cw), shapes, cfg_sig, chunk)
+
+
 # chunks in flight before the dispatch loop waits on the oldest fetch.
 # Host-resident: bounds the fetch buffers at O(inflight x chunk x N).
 # Device-resident: landed chunks stay on the device by design, so this
@@ -994,6 +1144,7 @@ def _replay_run(cw: CompiledWorkload, chunk: int, wide: str | None, collect: boo
     if not collect:
         outs = []
         for lo in range(0, p, chunk):
+            fault_point("replay.scan_dispatch")
             carry, out = step.scan(carry, chunk_xs(lo))
             outs.append(_TinyOut(out))
 
@@ -1047,6 +1198,7 @@ def _replay_run(cw: CompiledWorkload, chunk: int, wide: str | None, collect: boo
 
     pending: deque = deque()   # (lo, landing, the chunk's CompactOut if device-resident)
     for lo in range(0, p, chunk):
+        fault_point("replay.scan_dispatch")
         carry, out = step.scan(carry, chunk_xs(lo))
         # launches return at once; the fetch lands while the device runs
         # later chunks

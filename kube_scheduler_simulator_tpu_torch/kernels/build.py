@@ -63,6 +63,10 @@ SIGNATURES = {
     "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _P], _I)},
     "phased": {"kss_step_args_size": ([], _I), "kss_phased_eval": ([_P, _P], _I),
                "kss_renormalize_row": ([_P, _I, _P, _P, _P, _P, _P], _I)},
+    "fuse": {"kss_step_args_size": ([], _I), "kss_fuse_max": ([], _I),
+             "kss_spec_eval_fused": ([_P, _I, _P], _I),
+             "kss_spec_round_fused": ([_P, _I, _P], _I),
+             "kss_spec_oracle_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
 }
 
 
@@ -139,3 +143,12 @@ def load(stem: str = "step") -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def cache_stats() -> dict:
+    """The process's compiled kernel libraries, shared by every session:
+    {entries, hits, misses, hit_rate} of `load`."""
+    info = load.cache_info()
+    total = info.hits + info.misses
+    return {"entries": info.currsize, "hits": info.hits, "misses": info.misses,
+            "hit_rate": round(info.hits / total, 4) if total else None}

@@ -58,9 +58,10 @@ def eval_plain(step, carry: dict, xs: dict) -> CompactOut:
     return CompactOut(*[_stack([getattr(o, f) for o in outs]) for f in CompactOut._fields])
 
 
-def spec_eval(step, carry: dict, xs: dict) -> CompactOut:
+def spec_eval(step, carry: dict, xs: dict, outs: dict | None = None) -> CompactOut:
     """B2: the dense round's evaluation.  CUDA tensors: one launch, one
-    block per pod of the batch; CPU tensors: eval_plain."""
+    block per pod of the batch, into `outs` (round_outputs) when the
+    caller allocated them; CPU tensors: eval_plain."""
     if step.out_mode != "compact":
         raise ValueError("spec_eval evaluates the compact step")
     dev = _device(carry)
@@ -68,9 +69,9 @@ def spec_eval(step, carry: dict, xs: dict) -> CompactOut:
         return eval_plain(step, carry, xs)
     kstep.check_device("spec_eval", dev, step.cw.statics, carry, xs)
     lib = kstep.load_lib("spec_eval")
-    b = xs["is_pad"].shape[0]
-    outs = kstep.alloc_outputs(step, b, dev, slots=b)
-    args = kstep.make_args(step, carry, xs, outs, slots=b)
+    if outs is None:
+        outs = round_outputs(step, xs["is_pad"].shape[0], dev)
+    args = round_args(step, carry, xs, outs)
     kstep.check_launch("spec_eval", lib.kss_spec_eval(ctypes.byref(args), kstep.stream_of(dev)))
     spec_eval.launches += 1
     return CompactOut(**{k: outs[k] for k in CompactOut._fields})
@@ -97,16 +98,19 @@ def _oracle_core(packed, prefilter_reject, selected, batch: int) -> torch.Tensor
     return torch.where(torch.any(conflict), first, batch).to(torch.int32)
 
 
-def spec_oracle(packed, prefilter_reject, selected) -> torch.Tensor:
-    """B3: K as an int32 tensor on the inputs' device.  CUDA tensors: one
-    launch of one block; CPU tensors: _oracle_core."""
+def spec_oracle(packed, prefilter_reject, selected, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """B3: K as an int32 tensor on the inputs' device (`out` when the
+    caller allocated it).  CUDA tensors: one launch of one block; CPU
+    tensors: _oracle_core."""
     b, n = packed.shape
     dev = packed.device
     if dev.type == "cpu":
         return _oracle_core(packed, prefilter_reject, selected, b)
     kstep.check_device("spec_oracle", dev, {"p": packed, "r": prefilter_reject, "s": selected})
     lib = kstep.load_lib("spec_eval")
-    out = torch.empty((), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((), dtype=torch.int32, device=dev)
     err = lib.kss_spec_oracle(
         kstep._ptr(packed, packed.dtype, (b, n), "packed"), packed.element_size(),
         kstep._ptr(prefilter_reject, torch.int32, (b,), "prefilter_reject"),
@@ -206,32 +210,21 @@ def sparse_round_plain(step, carry: dict, xs: dict, kcand: int):
     return tuple(_stack([r[j] for r in rows]) for j in range(8))
 
 
-def spec_round(step, carry: dict, xs: dict, kcand: int):
+def spec_round(step, carry: dict, xs: dict, kcand: int, outs: dict | None = None):
     """B4: the sparse round's per-pod pass.  CUDA tensors: one launch, one
-    block per pod; CPU tensors: sparse_round_plain."""
+    block per pod, into `outs` (round_outputs with kcand) when the caller
+    allocated them; CPU tensors: sparse_round_plain."""
     if step.out_mode != "compact":
         raise ValueError("spec_round evaluates the compact step")
     dev = _device(carry)
     if dev.type == "cpu":
         return sparse_round_plain(step, carry, xs, kcand)
-    # the kernel scores the node-local plugins, whose node-axis rows it
-    # reads positionally at the candidates
-    from ..parallel.speculative import SAFE_SPECULATIVE
-
-    plugins = set(step.filter_names) | set(step.score_names)
-    if not plugins <= SAFE_SPECULATIVE:
-        raise ValueError(f"spec_round scores only node-local plugins, not "
-                         f"{sorted(plugins - SAFE_SPECULATIVE)}")
-    if not 1 <= kcand <= step.cw.n_nodes:
-        raise ValueError(f"kcand {kcand} outside [1, {step.cw.n_nodes}]")
+    check_round(step, kcand)
     kstep.check_device("spec_round", dev, step.cw.statics, carry, xs)
     lib = kstep.load_lib("spec_round")
-    b = xs["is_pad"].shape[0]
-    outs = kstep.alloc_outputs(step, b, dev, slots=b, width=kcand)
-    cand = torch.empty((b, kcand), dtype=torch.int32, device=dev)
-    args = kstep.make_args(step, carry, xs, outs, slots=b, width=kcand)
-    args.K = kcand
-    args.scratch_cand = cand.data_ptr()
+    if outs is None:
+        outs = round_outputs(step, xs["is_pad"].shape[0], dev, kcand)
+    args = round_args(step, carry, xs, outs, kcand)
     kstep.check_launch("spec_round", lib.kss_spec_round(ctypes.byref(args), kstep.stream_of(dev)))
     spec_round.launches += 1
     return (outs["packed_filter"], outs["prefilter_reject"], outs["feasible_count"],
@@ -240,6 +233,42 @@ def spec_round(step, carry: dict, xs: dict, kcand: int):
 
 
 spec_round.launches = 0
+
+
+def check_round(step, kcand: int) -> None:
+    """What spec_round's kernel takes: the node-local plugins, whose
+    node-axis rows it reads positionally at the candidates, and a
+    candidate cap in [1, N]."""
+    from ..parallel.speculative import SAFE_SPECULATIVE
+
+    plugins = set(step.filter_names) | set(step.score_names)
+    if not plugins <= SAFE_SPECULATIVE:
+        raise ValueError(f"spec_round scores only node-local plugins, not "
+                         f"{sorted(plugins - SAFE_SPECULATIVE)}")
+    if not 1 <= kcand <= step.cw.n_nodes:
+        raise ValueError(f"kcand {kcand} outside [1, {step.cw.n_nodes}]")
+
+
+def round_outputs(step, b: int, dev: torch.device, kcand: int | None = None) -> dict:
+    """Output and scratch tensors of one round's launch over b pods: the
+    dense eval's (kcand None) or the sparse round's, with its [b, kcand]
+    candidate scratch ("cand"); and the oracle's K ("k")."""
+    outs = kstep.alloc_outputs(step, b, dev, slots=b, width=kcand)
+    if kcand is not None:
+        outs["cand"] = torch.empty((b, kcand), dtype=torch.int32, device=dev)
+    outs["k"] = torch.empty((), dtype=torch.int32, device=dev)
+    return outs
+
+
+def round_args(step, carry: dict, xs: dict, outs: dict, kcand: int | None = None):
+    """StepArgs of one round's launch over the batch: the dense eval's
+    (kcand None) or the sparse round's."""
+    b = xs["is_pad"].shape[0]
+    args = kstep.make_args(step, carry, xs, outs, slots=b, width=kcand)
+    if kcand is not None:
+        args.K = kcand
+        args.scratch_cand = kstep._ptr(outs["cand"], torch.int32, (b, kcand), "cand")
+    return args
 
 
 # ------------------------------------------------------------ B5 commit

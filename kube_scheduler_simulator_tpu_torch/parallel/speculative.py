@@ -17,6 +17,9 @@ Each round's device work is a hand-written kernel (kernels/spec.py):
     then spec_oracle (B3), which the JAX package fuses into one jit;
   * dense round (label-coupled sets, and rounds whose feasible count
     passes the candidate cap): spec_eval (B2) then spec_oracle (B3);
+  * either round as ONE dispatch through the cross-session fuse
+    coordinator (parallel/fuse.py), which runs K sessions' rounds of one
+    family in one launch of B11 (kernels/fuse.py);
   * commit: spec_commit_core or spec_commit_bind (B5), in place;
   * the chunk grid: grid_append and grid_emit (B6);
   * the contention fallback: the scan's step_chunk (B1), resumed from
@@ -43,11 +46,23 @@ boundary (framework/gang.py `aligned_cut`, JAX :1085), and `ignore=`
 names plugins the caller handles outside the device pipeline (the
 engine's Coscheduling plugin), as in JAX :655-661.
 
+Cross-session fusion (JAX :698-717, :724-747, :939-966): each width
+tier's stream opens a fuse stream of its family (`_fuse_family`) with
+admission read from the session's accept rate, routes every round
+through `FUSE.dispatch` keyed (family, kind, b), and closes it in a
+finally, and again at once when it falls back to the scan.  The
+autopilot's per-session overrides (`CONTROLS.spec_overrides`: starting
+rung, candidate cap) are read where the JAX package reads them.  Taps:
+the `speculative_round` span; `speculative_rounds_total`,
+`speculative_accepted_total` and `speculative_rolled_back_total` under
+the session scope (fuse admission and /api/v1/sessions read them),
+`speculative_fallbacks_total`; BLACKBOX round and fallback events.
+Fault seams: `speculative.round` at the top of every round,
+`replay.scan_dispatch` at each round's and scan chunk's dispatch,
+`replay.decision_fetch` after each result.
+
 Not ported, and refused where a caller asks for them: meshes (`mesh`,
-ROADMAP Queue B item B12).  The fuse coordinator (B11), the autopilot's
-CONTROLS overrides, TRACER, BLACKBOX and fault points are absent: the
-port does what the JAX package does with none of them engaged.  So is
-`unroll=` (the scan kernel has no unroll).
+ROADMAP Queue B item B12), and `unroll=` (the scan kernel has no unroll).
 
 Env knobs, read as in JAX: KSS_TPU_SPECULATIVE_BATCH pins the batch (one
 rung); KSS_TPU_SPECULATIVE_CANDIDATES caps the sparse round's candidate
@@ -64,14 +79,21 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..control import CONTROLS
 from ..framework.gang import aligned_cut
 from ..framework.pipeline import PACK_MODES, build_step
 from ..framework.replay import (_DEVICE_BUDGET, ReplayResult, _CompactChunks,
                                 _DeviceAttribution, _Landing, _clone_carry, _ready_event,
-                                _compact_plan, _resolve_device_resident, _slice_xs)
+                                _compact_plan, _resolve_device_resident, _slice_xs,
+                                _workload_scan_key)
+from ..kernels import fuse as kfuse
 from ..kernels import spec as kspec
 from ..state.compile import CompiledWorkload
+from ..utils.blackbox import BLACKBOX
 from ..utils.env import env_float, env_int
+from ..utils.faults import fault_point
+from ..utils.tracing import TRACER
+from .fuse import FUSE, fuse_enabled, session_admitted
 
 # per-node plugins with no cross-pod coupling: filters are static or
 # monotone in node allocation, scores depend only on the node's own
@@ -304,18 +326,59 @@ def replay_speculative_stream(
     tiers = (("i64",) if "i64" in cw.host.get("score_dtypes", ())
              else (None, "i32", "i64"))
     for t, wide in enumerate(tiers):
-        result = _spec_run(cw, chunk, batch, on_chunk, wide, inter, scan_fallback,
-                           device_resident, gang, ignore)
+        # cross-session fused dispatch (parallel/fuse.py): announce this
+        # stream's family so compatible sessions' rounds can share one
+        # launch.  The try/finally is the lifecycle contract: a wave abort
+        # mid-round must not leave partners counting a dead stream as a
+        # batch-mate, and the retry re-opens cleanly
+        fuse_stream = None
+        if fuse_enabled():
+            fuse_stream = FUSE.stream_open(
+                _fuse_family(cw, chunk, wide, ignore),
+                admitted=session_admitted(TRACER.current_session()))
+        try:
+            result = _spec_run(cw, chunk, batch, on_chunk, wide, inter, scan_fallback,
+                               device_resident, gang, ignore, fuse_stream)
+        finally:
+            if fuse_stream is not None:
+                FUSE.stream_close(fuse_stream)
         if result is not None:
             result[0].tiers = tiers[:t + 1]
             return result
+        TRACER.count("replay_width_retries_total")
     raise AssertionError("unreachable: i64 speculative replay cannot overflow")
+
+
+def _kcand(cw: CompiledWorkload, override: int | None) -> int:
+    """The sparse round's candidate cap: the autopilot's per-session
+    override, else KSS_TPU_SPECULATIVE_CANDIDATES (128), in [1, N]."""
+    want = override if override is not None else env_int("KSS_TPU_SPECULATIVE_CANDIDATES", 128)
+    return min(max(want, 1), cw.n_nodes)
+
+
+def _fuse_family(cw: CompiledWorkload, chunk: int, wide, ignore: frozenset | set):
+    """JAX :724: the fuse-compatibility family, everything that picks the
+    round programs a stream will run short of the rung (which joins the
+    per-dispatch key): the workload's scan key (statics CONTENT, xs and
+    carry SHAPES, plugin configuration, chunk), the width tier, the round
+    kind and the candidate cap.  Streams of one family fuse, so sessions
+    with different pods over the same fleet and queue size share rounds.
+    The candidate cap resolves here exactly as _spec_run resolves it, or
+    two streams of one family could pick different sparse rounds."""
+    chunk = min(chunk, max(cw.n_pods, 1))
+    base_key = _workload_scan_key(cw, chunk)
+    active_eff = set(cw.config.active_plugins()) - set(ignore)
+    _, ov_kcand = CONTROLS.spec_overrides(TRACER.current_session())
+    kcand = _kcand(cw, ov_kcand)
+    sparse = _sparse_ok(active_eff) and kcand < cw.n_nodes
+    return (base_key, wide, sparse, kcand if sparse else None)
 
 
 def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
               wide, inter, scan_fallback: bool,
               device_resident: bool, gang=None,
-              ignore: frozenset | set = frozenset()) -> tuple[ReplayResult, dict] | None:
+              ignore: frozenset | set = frozenset(),
+              fuse_stream=None) -> tuple[ReplayResult, dict] | None:
     """One width tier of the stream; None when a raw overflowed its group
     dtype (the caller reruns from a fresh carry at the next tier)."""
     dev = cw.device
@@ -415,8 +478,11 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
     low_streak = 0
     # sparse-round eligibility: node-local plugin sets score/select on the
     # gathered candidate rows only; label-coupled sets and wide-feasibility
-    # rounds run the dense eval
-    kcand = min(max(env_int("KSS_TPU_SPECULATIVE_CANDIDATES", 128), 1), n)
+    # rounds run the dense eval.  The session's control-plane overrides
+    # (control/autopilot.py) replace the candidate cap and the starting
+    # rung; both only partition the same exact rounds differently
+    ov_rung, ov_kcand = CONTROLS.spec_overrides(TRACER.current_session())
+    kcand = _kcand(cw, ov_kcand)
     sparse = _sparse_ok(set(cw.config.active_plugins()) - set(ignore)) and kcand < n
     if sparse and adaptive:
         # sparse probes are cheap, so start at the TOP rung: a
@@ -425,6 +491,20 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
         # round and the bottom-rung fallback still engages.  The dense
         # eval keeps the climb-from-8 ramp
         rung = len(ladder) - 1
+    if adaptive and ov_rung is not None:
+        # the autopilot's starting rung: <0 is the top rung, else clamped
+        # to this stream's ladder
+        rung = len(ladder) - 1 if ov_rung < 0 else min(max(ov_rung, 0), len(ladder) - 1)
+
+    def fused_call(kind: str, b: int, fn, member):
+        """One round's device work, through the fuse coordinator: with no
+        open stream (fusion off) or a closed one (this stream already
+        fell back to the scan) it IS the direct call.  The key extends
+        the family with the round's kind and batch, so only rounds of the
+        same program ever share a launch."""
+        if fuse_stream is None or fuse_stream.closed:
+            return fn(member)
+        return FUSE.dispatch(fuse_stream, (fuse_stream.family, kind, b), fn, (member,))
 
     def rows_of(out) -> dict:
         return {"packed": out.packed_filter, "raw8": out.raw8, "raw16": out.raw16,
@@ -432,6 +512,7 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
 
     lo = 0
     while lo < p:
+        fault_point("speculative.round")
         if mode == "scan":
             # contention fallback: the scan's chunk kernel, resumed from
             # the speculative carry (bit-identical to the sequential carry
@@ -441,9 +522,11 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
             aligned = fill == 0 and lo % chunk == 0
             hi = min(lo + (chunk if aligned else chunk - fill), p)
             m = hi - lo
+            fault_point("replay.scan_dispatch")
             xs_chunk = _slice_xs(cw.xs, lo, hi, chunk)
             xs_chunk["is_pad"] = torch.arange(chunk, device=dev) >= m
             carry, out = step.scan(carry, xs_chunk)
+            fault_point("replay.decision_fetch")
             sel = _host(out.selected)
             fc = _host(out.feasible_count)
             rej = _host(out.prefilter_reject)
@@ -470,59 +553,71 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
         b = ladder[rung]
         hi = min(lo + b, p)
         m = hi - lo
-        xs = _slice_xs(cw.xs, lo, hi, b)
-        xs["is_pad"] = torch.arange(b, device=dev) >= m
-        dense = not sparse
-        if sparse:
-            # one round; a wide-feasibility round (max count past the
-            # candidate cap) discards the sparse output and re-runs dense
-            (packed, reject_d, counts_d, raw8, raw16, raw32, ovf_d,
-             sel_dev) = kspec.spec_round(step, carry, xs, kcand)
-            k_dev = kspec.spec_oracle(packed, reject_d, sel_dev)
-            fc = _host(counts_d)
-            rej = _host(reject_d)
-            if int(fc[:m].max(initial=0)) > kcand:
-                dense = True  # wide feasibility: this round runs dense
+        with TRACER.span("speculative_round", batch=m, rung=b):
+            fault_point("replay.scan_dispatch")
+            xs = _slice_xs(cw.xs, lo, hi, b)
+            xs["is_pad"] = torch.arange(b, device=dev) >= m
+            dense = not sparse
+            if sparse:
+                # one dispatch per round (spec_round + spec_oracle); a
+                # wide-feasibility round (max count past the candidate
+                # cap) discards the sparse output and re-runs dense
+                (packed, reject_d, counts_d, raw8, raw16, raw32, ovf_d,
+                 sel_dev, k_dev) = fused_call("round", b, kfuse.sparse_round,
+                                              kfuse.Member(step, carry, xs, kcand))
+                fault_point("replay.decision_fetch")
+                fc = _host(counts_d)
+                rej = _host(reject_d)
+                if int(fc[:m].max(initial=0)) > kcand:
+                    dense = True  # wide feasibility: this round runs dense
+                else:
+                    sel = _host(sel_dev)
+                    ovf = _host(ovf_d)
+                    rows = {"packed": packed, "raw8": raw8, "raw16": raw16,
+                            "raw32": raw32, "fc": counts_d}
+            if dense:
+                # one dispatch per round: spec_eval + spec_oracle
+                outs, k_dev = fused_call("dense", b, kfuse.dense_round,
+                                         kfuse.Member(step, carry, xs))
+                fault_point("replay.decision_fetch")
+                sel = _host(outs.selected)
+                fc = _host(outs.feasible_count)
+                rej = _host(outs.prefilter_reject)
+                ovf = _host(outs.raw_overflow)
+                sel_dev = outs.selected
+                rows = rows_of(outs)
+            k = min(int(k_dev), m)
+            if inter is not None and k > 1:
+                k = _interaction_cut(inter, sel, lo, k)
+            if gang is not None:
+                k = aligned_cut(gang.gid, gang.start, lo, k, p)
+            if check_overflow and ovf[:k].any():
+                _DEVICE_BUDGET.drop(compact)
+                return None
+            selected[lo:lo + k] = sel[:k]
+            feasible_count[lo:lo + k] = fc[:k]
+            prefilter_reject[lo:lo + k] = rej[:k]
+            carry = kspec.spec_commit(step, carry, xs, sel_dev, k)
+            if k == m == chunk and fill == 0 and lo % chunk == 0:
+                # a fully-accepted top-rung round at an aligned position IS
+                # a grid chunk: ingest its outputs directly, with no
+                # accumulator passes (the steady state of a contention-free
+                # wave)
+                ingest_chunk(rows)
             else:
-                sel = _host(sel_dev)
-                ovf = _host(ovf_d)
-                rows = {"packed": packed, "raw8": raw8, "raw16": raw16,
-                        "raw32": raw32, "fc": counts_d}
-        if dense:
-            outs = kspec.spec_eval(step, carry, xs)
-            k_dev = kspec.spec_oracle(outs.packed_filter, outs.prefilter_reject,
-                                      outs.selected)
-            sel = _host(outs.selected)
-            fc = _host(outs.feasible_count)
-            rej = _host(outs.prefilter_reject)
-            ovf = _host(outs.raw_overflow)
-            sel_dev = outs.selected
-            rows = rows_of(outs)
-        k = min(int(k_dev), m)
-        if inter is not None and k > 1:
-            k = _interaction_cut(inter, sel, lo, k)
-        if gang is not None:
-            k = aligned_cut(gang.gid, gang.start, lo, k, p)
-        if check_overflow and ovf[:k].any():
-            _DEVICE_BUDGET.drop(compact)
-            return None
-        selected[lo:lo + k] = sel[:k]
-        feasible_count[lo:lo + k] = fc[:k]
-        prefilter_reject[lo:lo + k] = rej[:k]
-        carry = kspec.spec_commit(step, carry, xs, sel_dev, k)
-        if k == m == chunk and fill == 0 and lo % chunk == 0:
-            # a fully-accepted top-rung round at an aligned position IS a
-            # grid chunk: ingest its outputs directly, with no
-            # accumulator passes (the steady state of a contention-free
-            # wave)
-            ingest_chunk(rows)
-        else:
-            bufs = kspec.grid_append(bufs, rows, fill)
-            fill += k
-            while fill >= chunk:
-                emit_chunk()
+                bufs = kspec.grid_append(bufs, rows, fill)
+                fill += k
+                while fill >= chunk:
+                    emit_chunk()
         stats.rounds.append((k, m))
         stats.final_batch = b
+        TRACER.count("speculative_rounds_total")
+        TRACER.inc("speculative_accepted_total", k)
+        if m > k:
+            TRACER.inc("speculative_rolled_back_total", m - k)
+        TRACER.observe("speculative_accept_fraction", k / m)
+        BLACKBOX.record("speculative.round", batch=m, accepted=k, rung=b,
+                        accept_fraction=round(k / m, 4))
         lo += k
         # contention-aware controller: full-accept rounds climb the
         # ladder, heavily-cut rounds step down, and a sustained accept
@@ -538,7 +633,14 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
                 low_streak += 1
                 if low_streak >= fallback_rounds:
                     mode = "scan"
+                    # the scan tail dispatches no more rounds: close the
+                    # fuse stream now (idempotent; the tier loop's finally
+                    # closes again) so partner leaders stop counting it
+                    if fuse_stream is not None:
+                        FUSE.stream_close(fuse_stream)
                     stats.fallback_at = lo
+                    TRACER.inc("speculative_fallbacks_total")
+                    BLACKBOX.record("speculative.fallback", at=lo, rounds=len(stats.rounds))
             else:
                 low_streak = 0
 

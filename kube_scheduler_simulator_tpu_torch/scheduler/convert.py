@@ -1,0 +1,330 @@
+"""KubeSchedulerConfiguration handling: defaults, simulator conversion,
+and the mapping onto the tensor pipeline.
+
+Capability parity with the reference's config rewrite machinery:
+
+  * default_scheduler_config — scheme-defaulted default configuration
+    (reference: simulator/scheduler/config/config.go:20-26);
+  * convert_configuration_for_simulator — ensures a default profile,
+    renames every enabled plugin "<Name>Wrapped", merges the default
+    MultiPoint set, disables "*" so the scheduler only runs the wrapped
+    factories (reference: scheduler.go:141-173, plugin/plugins.go:174-226
+    applyPluginSet/disableAllPluginSet, :230-285 mergePluginSet);
+  * parse_plugin_set — derives the tensor pipeline's PluginSetConfig
+    (enabled plugins + score weights) from a user config, the analogue of
+    getScorePluginWeight (plugins.go:289-304: weight 0 means 1).
+
+Configs are plain dicts in the kubescheduler.config.k8s.io/v1 wire shape.
+
+A copy of kube_scheduler_simulator_tpu/scheduler/convert.py.
+"""
+
+from __future__ import annotations
+
+import copy
+
+from ..plugins.registry import DEFAULT_ORDER, PLUGIN_REGISTRY, PluginSetConfig
+
+WRAPPED_SUFFIX = "Wrapped"
+DEFAULT_SCHEDULER_NAME = "default-scheduler"
+
+
+def _default_plugin_config() -> list[dict]:
+    """The defaulted per-plugin args the upstream scheme attaches to every
+    decoded KubeSchedulerConfiguration (visible in the reference's GET
+    /api/v1/schedulerconfiguration and snapshot schedulerConfig)."""
+    api = "kubescheduler.config.k8s.io/v1"
+
+    def cpu_mem():
+        return [{"name": "cpu", "weight": 1}, {"name": "memory", "weight": 1}]
+
+    return [
+        {"name": "DefaultPreemption", "args": {
+            "kind": "DefaultPreemptionArgs", "apiVersion": api,
+            "minCandidateNodesPercentage": 10,
+            "minCandidateNodesAbsolute": 100}},
+        {"name": "InterPodAffinity", "args": {
+            "kind": "InterPodAffinityArgs", "apiVersion": api,
+            "hardPodAffinityWeight": 1}},
+        {"name": "NodeAffinity", "args": {
+            "kind": "NodeAffinityArgs", "apiVersion": api}},
+        {"name": "NodeResourcesBalancedAllocation", "args": {
+            "kind": "NodeResourcesBalancedAllocationArgs", "apiVersion": api,
+            "resources": cpu_mem()}},
+        {"name": "NodeResourcesFit", "args": {
+            "kind": "NodeResourcesFitArgs", "apiVersion": api,
+            "scoringStrategy": {"type": "LeastAllocated",
+                                "resources": cpu_mem()}}},
+        {"name": "PodTopologySpread", "args": {
+            "kind": "PodTopologySpreadArgs", "apiVersion": api,
+            "defaultingType": "System"}},
+        {"name": "VolumeBinding", "args": {
+            "kind": "VolumeBindingArgs", "apiVersion": api,
+            "bindTimeoutSeconds": 600}},
+    ]
+
+
+def default_multipoint_set() -> dict:
+    """The defaulted MultiPoint plugin set (enabled lineup with default
+    weights) — the piece conversion and profile parsing actually read."""
+    return {"enabled": [
+        {"name": n, "weight": PLUGIN_REGISTRY[n].default_weight}
+        if PLUGIN_REGISTRY[n].has_score else {"name": n}
+        for n in DEFAULT_ORDER
+    ]}
+
+
+def _default_top_level() -> dict:
+    """Scheme-defaulted top-level KubeSchedulerConfiguration fields.
+    leaderElection/clientConnection/backoff are config-surface parity only
+    (a single-process simulator neither elects leaders nor rate-limits an
+    apiserver client); they round-trip through GET/apply untouched."""
+    return {
+        "parallelism": 16,
+        "leaderElection": {
+            "leaderElect": True, "leaseDuration": "15s",
+            "renewDeadline": "10s", "retryPeriod": "2s",
+            "resourceLock": "leases", "resourceName": "kube-scheduler",
+            "resourceNamespace": "kube-system"},
+        "clientConnection": {
+            "kubeconfig": "", "acceptContentTypes": "",
+            "contentType": "application/vnd.kubernetes.protobuf",
+            "qps": 50, "burst": 100},
+        "enableProfiling": True,
+        "enableContentionProfiling": True,
+        "podInitialBackoffSeconds": 1,
+        "podMaxBackoffSeconds": 10,
+    }
+
+
+def apply_scheme_defaults(cfg: dict) -> dict:
+    """Mirror the upstream scheme's config defaulting on a user-supplied
+    config: every profile gains the default per-plugin args it did not
+    set (per-name; a user entry's fields win over the default's at the
+    top level — nested defaulting is the consumers' job, as in the
+    tensor plugin builders)."""
+    cfg = copy.deepcopy(cfg or {})
+    cfg.setdefault("apiVersion", "kubescheduler.config.k8s.io/v1")
+    cfg.setdefault("kind", "KubeSchedulerConfiguration")
+    for k, v in _default_top_level().items():
+        cfg.setdefault(k, v)
+    if not cfg.get("profiles"):
+        cfg["profiles"] = [{"schedulerName": DEFAULT_SCHEDULER_NAME}]
+    for profile in cfg["profiles"]:
+        defaults = {d["name"]: d["args"] for d in _default_plugin_config()}
+        merged, seen = [], set()
+        # user entries keep their position (and casing); missing defaults
+        # append after, as the upstream scheme's setDefaults does
+        for pc in profile.get("pluginConfig") or []:
+            name = (pc.get("name") or "").removesuffix(WRAPPED_SUFFIX)
+            if name in defaults:
+                seen.add(name)
+                merged.append({"name": pc.get("name"),
+                               "args": {**defaults[name],
+                                        **(pc.get("args") or {})}})
+            else:
+                merged.append(pc)
+        merged.extend({"name": d["name"], "args": d["args"]}
+                      for d in _default_plugin_config()
+                      if d["name"] not in seen)
+        profile["pluginConfig"] = merged
+    return cfg
+
+
+def default_scheduler_config() -> dict:
+    return {
+        "apiVersion": "kubescheduler.config.k8s.io/v1",
+        "kind": "KubeSchedulerConfiguration",
+        **_default_top_level(),
+        "profiles": [
+            {
+                "schedulerName": DEFAULT_SCHEDULER_NAME,
+                "plugins": {"multiPoint": default_multipoint_set()},
+                "pluginConfig": _default_plugin_config(),
+            }
+        ],
+        "extenders": [],
+    }
+
+
+def _wrapped(name: str) -> str:
+    return name if name == "*" else name + WRAPPED_SUFFIX
+
+
+def _merge_plugin_set(default_set: dict, custom_set: dict) -> dict:
+    """upstream mergePluginSet semantics (copied into the reference at
+    plugins.go:230-285): custom disables (incl. "*") suppress defaults;
+    custom enables replace same-named defaults in place, else append."""
+    disabled = [{"name": d.get("name", "")} for d in custom_set.get("disabled") or []]
+    disabled += [{"name": d.get("name", "")} for d in default_set.get("disabled") or []]
+    disabled_names = {d["name"] for d in disabled}
+
+    custom_enabled = {p.get("name"): (i, p) for i, p in enumerate(custom_set.get("enabled") or [])}
+    replaced = set()
+    enabled = []
+    if "*" not in disabled_names:
+        for p in default_set.get("enabled") or []:
+            if p.get("name") in disabled_names:
+                continue
+            if p.get("name") in custom_enabled:
+                i, cp = custom_enabled[p["name"]]
+                replaced.add(i)
+                p = cp
+            enabled.append(copy.deepcopy(p))
+    for i, p in enumerate(custom_set.get("enabled") or []):
+        if i not in replaced:
+            enabled.append(copy.deepcopy(p))
+    return {"enabled": enabled, "disabled": disabled}
+
+
+_EXTENSION_POINTS = [
+    "preEnqueue", "queueSort", "preFilter", "filter", "postFilter",
+    "preScore", "score", "reserve", "permit", "preBind", "bind", "postBind",
+]
+
+
+def convert_configuration_for_simulator(cfg: dict) -> dict:
+    """reference: scheduler.go:141-173 ConvertConfigurationForSimulator."""
+    cfg = copy.deepcopy(cfg or {})
+    cfg.setdefault("apiVersion", "kubescheduler.config.k8s.io/v1")
+    cfg.setdefault("kind", "KubeSchedulerConfiguration")
+    if not cfg.get("profiles"):
+        cfg["profiles"] = [{"schedulerName": DEFAULT_SCHEDULER_NAME, "plugins": {}}]
+
+    default_multipoint = default_multipoint_set()
+
+    for profile in cfg["profiles"]:
+        plugins = profile.setdefault("plugins", {}) or {}
+        profile["plugins"] = plugins
+        for point in _EXTENSION_POINTS:
+            ps = plugins.get(point) or {}
+            merged = _merge_plugin_set({}, ps)
+            plugins[point] = {
+                "enabled": [
+                    {k: v for k, v in dict(p, name=_wrapped(p.get("name", ""))).items()}
+                    for p in merged["enabled"]
+                ],
+                "disabled": [{"name": _wrapped(d["name"])} for d in merged["disabled"]],
+            }
+        mp = _merge_plugin_set(default_multipoint | {"disabled": []}, plugins.get("multiPoint") or {})
+        plugins["multiPoint"] = {
+            "enabled": [
+                dict(p, name=_wrapped(p.get("name", ""))) for p in mp["enabled"]
+            ],
+            # the default MultiPoint set must be disabled to "*" so the
+            # scheduler doesn't also enable unwrapped default plugins
+            "disabled": [{"name": "*"}],
+        }
+    return cfg
+
+
+def parse_plugin_set(cfg: dict | None) -> PluginSetConfig:
+    """User config -> tensor pipeline plugin set for the FIRST profile
+    (legacy single-profile entry; parse_profiles handles all of them)."""
+    cfg = cfg or {}
+    profiles = cfg.get("profiles") or []
+    return parse_profile(profiles[0] if profiles else {})
+
+
+def parse_profiles(cfg: dict | None) -> dict[str, PluginSetConfig]:
+    """All profiles, keyed by schedulerName in config order (the upstream
+    scheduler builds one framework per profile and routes each pod by
+    spec.schedulerName; reference
+    simulator/scheduler/scheduler.go:141-173 rewrites every profile)."""
+    cfg = cfg or {}
+    profiles = cfg.get("profiles") or [{}]
+    out: dict[str, PluginSetConfig] = {}
+    for i, profile in enumerate(profiles):
+        name = profile.get("schedulerName") or (
+            DEFAULT_SCHEDULER_NAME if i == 0 else f"profile-{i}")
+        if name in out:
+            # upstream validation rejects duplicate schedulerNames
+            raise ValueError(f"duplicated profile schedulerName {name!r}")
+        out[name] = parse_profile(profile)
+    return out
+
+
+def parse_profile(profile: dict | None) -> PluginSetConfig:
+    """One profile -> tensor pipeline plugin set.
+
+    Unknown (not-yet-tensorized) plugins are ignored; weights follow
+    getScorePluginWeight: explicit weight, else 1 when configured enabled
+    with weight 0, else the upstream default weight."""
+    profile = profile or {}
+    plugins = profile.get("plugins") or {}
+    mp = plugins.get("multiPoint") or {}
+    score = plugins.get("score") or {}
+
+    default_multipoint = default_multipoint_set()
+    merged = _merge_plugin_set(default_multipoint | {"disabled": []}, mp)
+
+    enabled, weights = [], {}
+    for p in merged["enabled"]:
+        name = (p.get("name") or "").removesuffix(WRAPPED_SUFFIX)
+        if name not in PLUGIN_REGISTRY:
+            continue
+        enabled.append(name)
+        if PLUGIN_REGISTRY[name].has_score:
+            w = int(p.get("weight") or 0)
+            weights[name] = w if w != 0 else 1
+    for p in score.get("enabled") or []:
+        # the score-point enable list feeds weights (getScorePluginWeight
+        # unions score.enabled + multiPoint.enabled) and the score point
+        # set below — NOT the global enable, so a plugin enabled only at
+        # score does not also filter (upstream per-point semantics)
+        name = (p.get("name") or "").removesuffix(WRAPPED_SUFFIX)
+        if name in PLUGIN_REGISTRY:
+            w = int(p.get("weight") or 0)
+            weights[name] = w if w != 0 else 1
+    for d in score.get("disabled") or []:
+        weights.pop((d.get("name") or "").removesuffix(WRAPPED_SUFFIX), None)
+
+    # per-extension-point overrides: a plugin disabled at ONE point stays
+    # active at the others (upstream per-point plugin sets); enables add
+    # the plugin at that point only.  Score enables are folded into the
+    # weight/enabled handling above; its disables also land here so
+    # scorers() actually drops the plugin.
+    point_enabled: dict[str, list[str]] = {}
+    point_disabled: dict[str, set[str]] = {}
+    for point in ("preEnqueue", "preFilter", "filter", "postFilter",
+                  "preScore", "score"):
+        ps = plugins.get(point) or {}
+        en = [(p.get("name") or "").removesuffix(WRAPPED_SUFFIX)
+              for p in ps.get("enabled") or []]
+        dis = {(d.get("name") or "").removesuffix(WRAPPED_SUFFIX)
+               if (d.get("name") or "") != "*" else "*"
+               for d in ps.get("disabled") or []}
+        if en:
+            point_enabled[point] = [n for n in en if n]
+        if dis:
+            point_disabled[point] = dis
+
+    args: dict[str, dict] = {}
+    for pc in profile.get("pluginConfig") or []:
+        name = (pc.get("name") or "").removesuffix(WRAPPED_SUFFIX)
+        if name and pc.get("args"):
+            args[name] = pc["args"]
+    _validate_default_preemption_args(args.get("DefaultPreemption") or {})
+    return PluginSetConfig(enabled=enabled, weights=weights, args=args,
+                           point_enabled=point_enabled,
+                           point_disabled=point_disabled)
+
+
+def _validate_default_preemption_args(dp: dict) -> None:
+    """Upstream ValidateDefaultPreemptionArgs: percentage in [0,100],
+    absolute >= 0, and not both zero (a both-zero budget would silently
+    disable preemption)."""
+    pct = dp.get("minCandidateNodesPercentage")
+    abs_ = dp.get("minCandidateNodesAbsolute")
+    if pct is not None and not 0 <= int(pct) <= 100:
+        raise ValueError(
+            f"minCandidateNodesPercentage must be in [0, 100], got {pct}")
+    if abs_ is not None and int(abs_) < 0:
+        raise ValueError(
+            f"minCandidateNodesAbsolute must be >= 0, got {abs_}")
+    eff_pct = 10 if pct is None else int(pct)
+    eff_abs = 100 if abs_ is None else int(abs_)
+    if eff_pct == 0 and eff_abs == 0:
+        raise ValueError(
+            "minCandidateNodesPercentage and minCandidateNodesAbsolute "
+            "may not both be zero")

@@ -1,9 +1,8 @@
 """Debuggable-scheduler library: embed custom plugins and hooks.
 
-A copy of kube_scheduler_simulator_tpu/scheduler/debuggable.py without
-`new_scheduler_command` (:131-162), which builds the HTTP server: the
-port's serving layers are ROADMAP Queue A item 10.  The hooks below are
-what the engine reads.
+A copy of kube_scheduler_simulator_tpu/scheduler/debuggable.py.  The
+hooks below are what the engine reads; `new_scheduler_command` builds the
+port's DI container and HTTP server on `device` ("cuda" by default).
 
 API parity with the reference's integration library
 (reference: simulator/pkg/debuggablescheduler/command.go:14-75):
@@ -15,7 +14,7 @@ becomes
     di, server = new_scheduler_command(
         with_plugins=[MyPlugin()],
         with_plugin_extenders={"NodeResourcesFit": MyExtender()},
-        config=<KubeSchedulerConfiguration dict>, port=1212)
+        config=<KubeSchedulerConfiguration dict>, port=1212, device="cuda")
 
 Custom plugins (plugins/custom.py) with filter or score rows are not
 ported yet (compile_workload raises for them); plugin extenders are host-side hooks with the reference's PluginExtenders
@@ -28,6 +27,10 @@ placement.
 """
 
 from __future__ import annotations
+
+from .convert import default_scheduler_config
+from ..config.config import SimulatorConfiguration
+from ..plugins.custom import CustomPlugin
 
 
 class PluginExtender:
@@ -131,3 +134,33 @@ def intercepts_cycle(ext) -> bool:
     """Does this extender override any filter/score/normalize hook (and so
     require the host-interleaved scheduling path)?"""
     return any(has_hook(ext, h) for h in _CYCLE_HOOKS)
+
+
+def new_scheduler_command(
+    with_plugins: list[CustomPlugin] | None = None,
+    with_plugin_extenders: dict[str, PluginExtender] | None = None,
+    config: dict | None = None,
+    port: int | None = None,
+    start_scheduler: bool = True,
+    device="cuda",
+):
+    """-> (DIContainer, SimulatorServer) with the custom plugins enabled,
+    scheduling on `device`.  The returned server is not started; call
+    server.start(block=...)."""
+    from ..server.di import DIContainer
+    from ..server.server import SimulatorServer
+
+    sim_cfg = SimulatorConfiguration(port=port if port is not None else 1212)
+    di = DIContainer(sim_cfg, start_scheduler=start_scheduler, device=device)
+
+    cfg = config or default_scheduler_config()
+    # register customs FIRST so they survive every restart/reset, then
+    # apply the user's config (including its extenders) through the normal
+    # restart path
+    di.scheduler_service.register_custom_plugins(with_plugins or [])
+    di.scheduler_service._initial = cfg
+    di.scheduler_service.restart_scheduler(cfg)
+    di.engine.plugin_extenders = dict(with_plugin_extenders or {})
+
+    server = SimulatorServer(di, port=port if port is not None else sim_cfg.port)
+    return di, server

@@ -1,0 +1,128 @@
+"""Scheduler service: config lifecycle + engine restart.
+
+Capability parity with the reference scheduler service (reference:
+simulator/scheduler/scheduler.go): holds current + initial
+KubeSchedulerConfiguration (:27-38); RestartScheduler applies a new
+config and ROLLS BACK to the old one if the restart fails (:90-111 —
+there, a Docker container restart; here, rebuilding the tensor pipeline
+configuration); ResetScheduler restores the initial config (:113-115).
+GetSchedulerConfig returns the user-shape config, not the converted one,
+exactly as the reference stores the unconverted cfg in
+currentSchedulerCfg (:124-130).
+
+A copy of kube_scheduler_simulator_tpu/scheduler/service.py.  Guest
+plugins (scheduler/guest.py, a pluginConfig with guestURL/guestPath) are
+not ported: a config that declares one is refused (ROADMAP Queue A item
+1), and the rollback restores the previous config.
+"""
+
+from __future__ import annotations
+
+import copy
+
+from .convert import (
+    apply_scheme_defaults,
+    default_scheduler_config,
+    parse_profiles,
+)
+
+
+def _refuse_guest_plugins(cfg: dict | None) -> dict:
+    """{} for a config that declares no guest plugin; raises for one that
+    does (scheduler/guest.py is ROADMAP Queue A item 1)."""
+    for profile in (cfg or {}).get("profiles") or []:
+        for pc in profile.get("pluginConfig") or []:
+            args = pc.get("args") or {}
+            if args.get("guestURL") or args.get("guestPath"):
+                raise NotImplementedError(
+                    f"guest plugin {pc.get('name')!r}: guest plugins are not ported "
+                    f"(ROADMAP Queue A item 1)")
+    return {}
+
+
+class SchedulerService:
+    def __init__(self, engine=None, initial_config: dict | None = None):
+        self.engine = engine
+        # a boot-time config file goes through the same scheme defaulting
+        # as an applied one, so GET always shows the defaulted form
+        self._initial = (apply_scheme_defaults(initial_config)
+                         if initial_config else default_scheduler_config())
+        self._current = copy.deepcopy(self._initial)
+        # out-of-tree plugins registered via the debuggable-scheduler API;
+        # they live in the process (like the reference's compiled-in
+        # WithPlugin factories) and survive every config restart/reset
+        self._custom_plugins: dict[str, object] = {}
+        # guest plugins (wasm analogue, scheduler/guest.py) are config-
+        # declared, so they are reloaded on every restart rather than
+        # living for the process lifetime like compiled-in customs
+        self._guest_plugins: dict[str, object] = {}
+        if engine is not None:
+            self._apply_profiles(self._current)
+            self._apply_extenders(self._current)
+
+    def register_custom_plugins(self, plugins: list) -> None:
+        """WithPlugin analogue: make plugins part of the registry for this
+        process, enabled by default, surviving restart/reset."""
+        for p in plugins:
+            self._custom_plugins[p.name] = p
+        self.restart_scheduler(self._current)
+
+    def get_config(self) -> dict:
+        return copy.deepcopy(self._current)
+
+    def restart_scheduler(self, cfg: dict | None) -> None:
+        """Apply cfg; on failure restore the previous config (reference:
+        scheduler.go:102-108 rollback)."""
+        if cfg is None:
+            cfg = default_scheduler_config()
+        else:
+            # the upstream scheme defaults every decoded config (per-plugin
+            # default args, apiVersion/kind); GET then shows the defaulted
+            # form, exactly as the reference's handler does
+            cfg = apply_scheme_defaults(cfg)
+        old = self._current
+        old_guests = self._guest_plugins
+        try:
+            self._guest_plugins = _refuse_guest_plugins(cfg)
+            profile_sets = self._parse_all(cfg)  # validates even engine-less
+            if self.engine is not None:
+                self.engine.set_profiles(profile_sets)
+                self._apply_extenders(cfg)
+            self._current = copy.deepcopy(cfg)
+        except Exception:
+            self._guest_plugins = old_guests
+            if self.engine is not None:
+                self._apply_profiles(old)
+                self._apply_extenders(old)
+            raise
+
+    def _parse_all(self, cfg: dict) -> dict:
+        """Every profile feeds the engine's router; custom/guest plugins
+        (compiled-in WithPlugin factories upstream) join every profile."""
+        return {
+            name: self._with_customs(ps)
+            for name, ps in parse_profiles(cfg).items()
+        }
+
+    def _apply_profiles(self, cfg: dict) -> None:
+        self.engine.set_profiles(self._parse_all(cfg))
+
+    def _with_customs(self, plugin_set):
+        for name, p in {**self._custom_plugins, **self._guest_plugins}.items():
+            plugin_set.custom[name] = p
+            if name not in plugin_set.enabled:
+                plugin_set.enabled.append(name)
+        return plugin_set
+
+    def _apply_extenders(self, cfg: dict) -> None:
+        from .extender import ExtenderService
+
+        extenders = (cfg or {}).get("extenders") or []
+        self.engine.set_extenders(ExtenderService(extenders) if extenders else None)
+
+    @property
+    def extender_service(self):
+        return self.engine.extender_service if self.engine else None
+
+    def reset_scheduler(self) -> None:
+        self.restart_scheduler(copy.deepcopy(self._initial))

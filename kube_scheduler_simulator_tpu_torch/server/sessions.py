@@ -1,0 +1,540 @@
+"""Multi-session serving: N isolated simulations on one device.
+
+The north star ("serving heavy traffic from millions of users") needs
+more than one simulated cluster per process; this module is the session
+subsystem the HTTP server multiplexes them through:
+
+  * `SimulationSession` — the per-session envelope around a DIContainer
+    (server/di.py): one private ObjectStore + StoreReflector +
+    SchedulerEngine + result store + scheduling loop + service set, plus
+    session metadata (id, created/last-used stamps) and the registry of
+    live HTTP streams so eviction can close them promptly.
+  * `SessionManager` — create/lookup/evict with an admission policy:
+    at most KSS_TPU_MAX_SESSIONS live sessions (LRU-evicting the
+    least-recently-used idle session to admit a new one), an optional
+    KSS_TPU_SESSION_IDLE_TTL_S idle TTL swept in the background, and a
+    pinned `default` session that bare `/api/v1/...` paths alias so
+    every pre-session client keeps working byte-for-byte.
+
+What sessions do NOT duplicate is the point: the compiled kernel
+libraries are built and loaded once per process (kernels/build.py;
+`stats()["compileCache"]` reports their loads), rounds of sessions of
+one workload family share launches (parallel/fuse.FUSE, kernel B11),
+and device-resident result chunks are bounded by ONE global
+KSS_TPU_DEVICE_RESULT_BUDGET_MB pool split into per-session shares
+(framework/replay._DEVICE_BUDGET — a fat session spills its own
+results, never a neighbor's).
+
+A copy of kube_scheduler_simulator_tpu/server/sessions.py, rewired to
+the port: `device` ("cuda" by default, which raises without a card;
+"cpu" runs the plain PyTorch path) reaches every session's engine.
+
+Teardown always goes through DIContainer.shutdown(): the scheduling
+loop stops, syncer/recorder threads stop, owned sources close — and the
+session's stream stop-events fire so chunked/SSE responses end instead
+of sleeping into a dead simulation.
+
+Locking: the registry lock (`SessionManager._mu`) guards only the id ->
+session map and admission accounting.  Construction and teardown of a
+session — engine builds, store deep copies, thread joins — run OUTSIDE
+it (kss-analyze's blocking/serialize-under-lock rules watch this
+module; docs/static-analysis.md).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+import time
+import uuid
+
+from ..cluster.store import ApiError, NotFound
+from ..config.config import SimulatorConfiguration
+from ..control import CONTROLS, DEFAULT_QOS, QOS_TIERS
+from ..utils.blackbox import BLACKBOX, SLO
+from ..utils.env import env_int as _env_int
+from ..utils.faults import fault_point
+from ..utils.tracing import TRACER
+from .di import DIContainer
+
+DEFAULT_SESSION = "default"
+
+_SESSION_ID_RE = re.compile(r"^[a-zA-Z0-9][a-zA-Z0-9._-]{0,63}$")
+
+
+def speculative_commit_rates(tracer) -> dict[str, dict]:
+    """Per-session speculative commit rate from the flight recorder's
+    session-labeled counters: {session ("" = sessionless direct engine
+    use): {accepted, rolledBack, acceptRate}}.  Sessions that never ran
+    a speculative round are absent.  Shared by /api/v1/sessions stats
+    and `bench --serve` — the measured baseline for cross-session wave
+    batching (parallel/fuse.py admission reads the same counters)."""
+    accepted = tracer.labeled_totals("speculative_accepted_total", "session")
+    rolled = tracer.labeled_totals("speculative_rolled_back_total", "session")
+    out: dict[str, dict] = {}
+    for sid in sorted(set(accepted) | set(rolled)):
+        a = accepted.get(sid, 0)
+        r = rolled.get(sid, 0)
+        out[sid] = {
+            "accepted": int(a),
+            "rolledBack": int(r),
+            "acceptRate": round(a / (a + r), 4) if a + r else None,
+        }
+    return out
+
+
+class SessionError(ApiError):
+    status = 400
+    reason = "BadRequest"
+
+
+class SessionExists(ApiError):
+    status = 409
+    reason = "AlreadyExists"
+
+
+class SessionCapacity(ApiError):
+    status = 429
+    reason = "TooManySessions"
+
+
+class StreamRegistry:
+    """Stop-event registry for long-lived HTTP responses (chunked
+    list-watch, SSE metrics).  Both the server (shutdown closes every
+    stream) and each session (eviction closes just its own) hold one;
+    handlers register the same per-request event with both."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._stops: set[threading.Event] = set()
+        self._closed = False
+
+    def register(self, stop: threading.Event) -> None:
+        """Track a live stream; if the owner is already down, fire the
+        stop immediately so the handler never starts its wait loop."""
+        with self._mu:
+            if self._closed:
+                stop.set()
+                return
+            self._stops.add(stop)
+
+    def unregister(self, stop: threading.Event) -> None:
+        with self._mu:
+            self._stops.discard(stop)
+
+    def active(self) -> int:
+        with self._mu:
+            return len(self._stops)
+
+    def close_all(self) -> None:
+        with self._mu:
+            self._closed = True
+            stops = list(self._stops)
+            self._stops.clear()
+        for ev in stops:
+            ev.set()
+
+
+class SimulationSession:
+    """One isolated simulation: a DIContainer plus the session envelope
+    (identity, usage stamps, live-stream registry).  `di` is the whole
+    per-session service surface the HTTP handlers dispatch into."""
+
+    def __init__(self, session_id: str,
+                 cfg: SimulatorConfiguration | None = None,
+                 start_scheduler: bool = True,
+                 di: DIContainer | None = None,
+                 qos: str = DEFAULT_QOS, device="cuda"):
+        self.id = session_id
+        # QoS tier (docs/api.md): the autopilot's shed/evict ordering —
+        # best-effort sheds first under global overload, critical never
+        self.qos = qos
+        if di is None:
+            di = DIContainer(cfg, start_scheduler=start_scheduler,
+                             session=session_id, device=device)
+        else:
+            # adopted container (the pre-session SimulatorServer(di)
+            # constructor): graft the session identity on
+            di.session = session_id
+            di.engine.session = session_id
+        self.di = di
+        now = time.time()
+        self.created_at = now
+        self.last_used = now
+        self.streams = StreamRegistry()
+
+    def touch(self) -> None:
+        self.last_used = time.time()
+
+    def busy(self) -> bool:
+        """True while a long-lived stream is attached: an actively
+        watched session is not idle, whatever its last_used says (the
+        stream touched it only once, at request start)."""
+        return self.streams.active() > 0
+
+    # ----------------------------------------------------------- info
+
+    def info(self) -> dict:
+        loop = self.di.scheduling_loop
+        t = getattr(loop, "_thread", None)
+        pods, _ = self.di.store.list("pods", copy_objects=False)
+        nodes, _ = self.di.store.list("nodes", copy_objects=False)
+        engine = self.di.engine
+        return {
+            "id": self.id,
+            "createdAt": self.created_at,
+            "lastUsedAt": self.last_used,
+            "default": self.id == DEFAULT_SESSION,
+            "pods": len(pods),
+            "nodes": len(nodes),
+            "schedulerRunning": bool(t is not None and t.is_alive()),
+            # degradation-ladder status (docs/fault-injection.md): the
+            # wave's current result-residency mode, and whether the
+            # engine stepped DOWN from its configured rung after a
+            # structural fault (a degraded session still serves
+            # bit-identical results — the rungs are parity gates — it
+            # just pays host fetch / eager decode until the probe
+            # recovery steps back up)
+            "resultMode": (engine.result_mode()
+                           if hasattr(engine, "result_mode") else None),
+            "degraded": bool(getattr(engine, "_residency", 0)),
+            # rolling SLO window (utils/blackbox.py, docs/metrics.md):
+            # p50/p99 wave latency + cycles/s over the last
+            # KSS_TPU_SLO_WINDOW waves; None before the first wave
+            "slo": SLO.stats(self.id),
+            # autopilot overload state (docs/autopilot.md): tier + the
+            # live shed gate — a shedding session answers sheddable
+            # POSTs with 429 + Retry-After until its window recovers
+            "qos": self.qos,
+            "shedding": CONTROLS.shed_state(self.id)[0],
+            "lastCrash": (loop.last_crash or None) and {
+                k: loop.last_crash[k] for k in ("time", "error")
+            },
+        }
+
+    # ------------------------------------------------------- teardown
+
+    def shutdown(self) -> None:
+        """Clean teardown: close this session's live streams first (a
+        stream sleeping on its interval must not outlive the
+        simulation), then the container's own shutdown path."""
+        self.streams.close_all()
+        self.di.shutdown()
+
+
+class SessionManager:
+    """The thin process-level shell: the id -> SimulationSession registry
+    plus admission/eviction.  Shared pieces (kernel libraries, fuse
+    coordinator, device budget) are module-level — the manager only
+    REPORTS them (stats())."""
+
+    def __init__(self, cfg: SimulatorConfiguration | None = None,
+                 max_sessions: int | None = None,
+                 idle_ttl: float | None = None,
+                 start_scheduler: bool = True,
+                 default_di: DIContainer | None = None,
+                 device="cuda"):
+        # every session's engine schedules here; an adopted default_di
+        # keeps the device it was built with
+        self.device = device
+        self.cfg = cfg or (default_di.cfg if default_di is not None
+                           else SimulatorConfiguration())
+        self.max_sessions = (max_sessions if max_sessions is not None
+                             else max(_env_int("KSS_TPU_MAX_SESSIONS", 8), 1))
+        self.idle_ttl = (idle_ttl if idle_ttl is not None
+                         else _env_int("KSS_TPU_SESSION_IDLE_TTL_S", 0))
+        # external-scheduler mode (KWOK disableKubeScheduler analogue)
+        # applies to every session: a standalone scheduler drives them
+        self.start_scheduler = (start_scheduler
+                                and not self.cfg.external_scheduler_enabled)
+        self._mu = threading.Lock()
+        self._sessions: dict[str, SimulationSession] = {}
+        self._creating: set[str] = set()
+        self._down = False
+        # the server attaches its Autopilot here (server.py start());
+        # stats() surfaces it, teardown never touches it
+        self.autopilot = None
+        self._stop = threading.Event()
+        self._sweeper: threading.Thread | None = None
+        # the default session exists from boot and is never evicted —
+        # bare /api/v1/... paths alias it.  It goes through the same
+        # external-scheduler gate as created sessions (an adopted
+        # default_di keeps whatever loop state its builder chose)
+        default = SimulationSession(DEFAULT_SESSION, self.cfg,
+                                    start_scheduler=self.start_scheduler,
+                                    di=default_di, device=device)
+        self._sessions[DEFAULT_SESSION] = default
+        TRACER.count("sessions_created_total")
+        TRACER.gauge("sessions_active", 1)
+        if self.idle_ttl > 0:
+            self._sweeper = threading.Thread(
+                target=self._sweep_loop, daemon=True, name="session-sweeper")
+            self._sweeper.start()
+
+    # ------------------------------------------------------- accessors
+
+    @property
+    def default(self) -> SimulationSession:
+        return self._sessions[DEFAULT_SESSION]
+
+    def get(self, session_id: str, touch: bool = True) -> SimulationSession:
+        with self._mu:
+            sess = self._sessions.get(session_id)
+        if sess is None:
+            raise NotFound(f"session {session_id!r} not found")
+        if touch:
+            sess.touch()
+        return sess
+
+    def list_sessions(self) -> list[dict]:
+        with self._mu:
+            sessions = list(self._sessions.values())
+        return [s.info() for s in sorted(sessions, key=lambda s: s.created_at)]
+
+    def sessions_brief(self) -> list[tuple[str, str, float, bool]]:
+        """[(id, qos, last_used, busy)] — the autopilot's cheap per-tick
+        view (control/autopilot.py): no store listing, no info() walk."""
+        with self._mu:
+            sessions = list(self._sessions.values())
+        return [(s.id, s.qos, s.last_used, s.busy()) for s in sessions]
+
+    def stats(self) -> dict:
+        """Process-shell view: admission knobs + the shared pieces."""
+        from ..control.autopilot import autopilot_enabled
+        from ..framework.replay import _DEVICE_BUDGET
+        from ..kernels.build import cache_stats
+        from ..parallel.fuse import FUSE
+        from ..utils.tracing import TRACER
+
+        retained = {
+            (sid if sid is not None else ""): {"chunks": c, "bytes": b}
+            for sid, (c, b) in _DEVICE_BUDGET.retained_by_session().items()
+        }
+        with self._mu:
+            n = len(self._sessions)
+        # report what the budget ENFORCES (limit_bytes): 0 means
+        # spill-everything (including the unparsable-env fail-safe),
+        # null means genuinely unlimited
+        limit = _DEVICE_BUDGET.limit_bytes()
+        return {
+            "sessions": n,
+            "maxSessions": self.max_sessions,
+            "idleTtlSeconds": self.idle_ttl,
+            "compileCache": cache_stats(),
+            "deviceResultBudgetMb": (None if limit is None
+                                     else limit // (1 << 20)),
+            "deviceChunksRetained": retained,
+            # per-session speculative commit rate (docs/metrics.md):
+            # accepted / (accepted + rolled back) since process start —
+            # the admission signal cross-session fused dispatch reads
+            "speculative": speculative_commit_rates(TRACER),
+            # cross-session fused dispatch (parallel/fuse.py): knob
+            # state + lifetime outcome tallies (docs/api.md)
+            "fuse": FUSE.stats(),
+            # closed-loop control plane (docs/autopilot.md): controller
+            # tick/decision tallies when the server runs one, else just
+            # the (normally empty) override registry
+            "autopilot": (self.autopilot.stats()
+                          if self.autopilot is not None else {
+                              "enabled": autopilot_enabled(),
+                              "running": False,
+                              "controls": CONTROLS.stats()}),
+        }
+
+    # ------------------------------------------------------- admission
+
+    def create(self, session_id: str | None = None,
+               qos: str | None = None) -> SimulationSession:
+        """Admit a new session.  At capacity, the least-recently-used
+        idle session (never the default; sessions with live streams
+        only if nothing else is evictable) is evicted through the clean
+        teardown path; when every slot is the pinned default or
+        mid-construction, admission fails with 429.  `qos` picks the
+        autopilot's shed/evict tier (docs/api.md; default standard)."""
+        sid = session_id or f"s-{uuid.uuid4().hex[:8]}"
+        if not _SESSION_ID_RE.match(sid):
+            raise SessionError(
+                f"invalid session id {sid!r} (want {_SESSION_ID_RE.pattern})")
+        qos = qos or DEFAULT_QOS
+        if qos not in QOS_TIERS:
+            raise SessionError(
+                f"invalid qos {qos!r} (want one of {', '.join(QOS_TIERS)})")
+        victim: SimulationSession | None = None
+        with self._mu:
+            if self._down:
+                raise SessionError("session manager is shutting down")
+            if sid in self._sessions or sid in self._creating:
+                raise SessionExists(f"session {sid!r} already exists")
+            if len(self._sessions) + len(self._creating) >= self.max_sessions:
+                evictable = [s for k, s in self._sessions.items()
+                             if k != DEFAULT_SESSION]
+                if not evictable:
+                    raise SessionCapacity(
+                        f"session capacity {self.max_sessions} reached and "
+                        "nothing is evictable")
+                # prefer a streamless victim: an attached watch/SSE
+                # client means the session is in active use even though
+                # last_used only saw the request start
+                idle = [s for s in evictable if not s.busy()]
+                victim = min(idle or evictable, key=lambda s: s.last_used)
+                del self._sessions[victim.id]
+            self._creating.add(sid)
+        # construction and eviction teardown run OUTSIDE the registry
+        # lock: engine/service builds and thread joins must never
+        # serialize other sessions' lookups
+        if victim is not None:
+            self._teardown(victim, reason="capacity")
+        try:
+            # chaos seam: a construction failure must release the
+            # reservation (the finally below) and leave the registry
+            # admitting — tests/test_faults.py pins create-after-fault
+            fault_point("session.create")
+            sess = SimulationSession(sid, self.cfg,
+                                     start_scheduler=self.start_scheduler,
+                                     qos=qos, device=self.device)
+        finally:
+            with self._mu:
+                self._creating.discard(sid)
+        with self._mu:
+            if self._down:
+                # lost the race against shutdown(): the registry is
+                # final — never park a live loop nobody owns
+                doomed = sess
+            else:
+                doomed = None
+                self._sessions[sid] = sess
+                n = len(self._sessions)
+        if doomed is not None:
+            doomed.shutdown()
+            raise SessionError("session manager is shutting down")
+        TRACER.count("sessions_created_total")
+        TRACER.gauge("sessions_active", n)
+        BLACKBOX.record("session.create", id=sid, qos=qos)
+        return sess
+
+    def delete(self, session_id: str) -> None:
+        if session_id == DEFAULT_SESSION:
+            raise SessionError(
+                "the default session is pinned (bare /api/v1 paths alias "
+                "it); PUT /api/v1/reset clears its state instead")
+        with self._mu:
+            sess = self._sessions.pop(session_id, None)
+            n = len(self._sessions)
+        if sess is None:
+            raise NotFound(f"session {session_id!r} not found")
+        TRACER.gauge("sessions_active", n)
+        self._teardown(sess, reason="explicit")
+
+    # -------------------------------------------------------- eviction
+
+    def sweep_idle(self) -> int:
+        """Evict sessions idle past the TTL (never the default, and
+        never one with a live watch/SSE stream attached — the stream
+        touched last_used only once, at request start, but the client
+        is plainly still there).  Returns #evicted; called by the
+        background sweeper and usable directly by tests."""
+        if self.idle_ttl <= 0:
+            return 0
+        cutoff = time.time() - self.idle_ttl
+        victims: list[SimulationSession] = []
+        with self._mu:
+            for k in [k for k, s in self._sessions.items()
+                      if (k != DEFAULT_SESSION and s.last_used < cutoff
+                          and not s.busy())]:
+                victims.append(self._sessions.pop(k))
+            n = len(self._sessions)
+        if victims:
+            TRACER.gauge("sessions_active", n)
+        for sess in victims:
+            self._teardown(sess, reason="idle")
+        return len(victims)
+
+    def evict_idle_under_pressure(self, grace_s: float | None = None,
+                                  max_evict: int = 1) -> int:
+        """Autopilot-driven eviction pressure (docs/autopilot.md):
+        under sustained global HBM/SLO stress, evict up to `max_evict`
+        idle sessions — least-recently-used first, best-effort tier
+        before standard, never critical, never the default, never one
+        with a live stream.  Unlike sweep_idle() this runs without a
+        configured TTL; `grace_s` (default KSS_TPU_AUTOPILOT
+        IDLE_GRACE_S 30) keeps a just-created or briefly-quiet session
+        safe."""
+        if grace_s is None:
+            grace_s = max(_env_int("KSS_TPU_AUTOPILOT_IDLE_GRACE_S", 30), 1)
+        cutoff = time.time() - grace_s
+        order = {"best-effort": 0, "standard": 1}
+        victims: list[SimulationSession] = []
+        with self._mu:
+            idle = sorted(
+                (s for k, s in self._sessions.items()
+                 if (k != DEFAULT_SESSION and s.qos in order
+                     and s.last_used < cutoff and not s.busy())),
+                key=lambda s: (order[s.qos], s.last_used))
+            for s in idle[:max_evict]:
+                victims.append(self._sessions.pop(s.id))
+            n = len(self._sessions)
+        if victims:
+            TRACER.gauge("sessions_active", n)
+        for sess in victims:
+            self._teardown(sess, reason="pressure")
+        return len(victims)
+
+    def _sweep_loop(self) -> None:
+        interval = min(max(self.idle_ttl / 4.0, 0.05), 30.0)
+        while not self._stop.wait(interval):
+            try:
+                self.sweep_idle()
+            # kss-analyze: allow(swallowed-exception)
+            except Exception:
+                pass  # the sweeper must survive a racing teardown
+
+    def _teardown(self, sess: SimulationSession, reason: str) -> None:
+        TRACER.inc("sessions_evicted_total", reason=reason)
+        BLACKBOX.record("session.evict", id=sess.id, reason=reason)
+        failed = False
+        try:
+            fault_point("session.evict")
+        except Exception:
+            # an injected evict fault models a failing teardown STEP —
+            # still attempt the real shutdown below, or the evicted
+            # session's scheduling loop would keep running orphaned
+            failed = True
+        try:
+            sess.shutdown()
+        except Exception:
+            failed = True
+        if failed:
+            # a teardown failure must never wedge admission (the victim
+            # was already unregistered; shutdown() stops the loop and
+            # streams first, so a partial failure leaks the least) —
+            # count it so chaos runs and operators see it instead of a
+            # 500 that leaves the registry in the same state anyway
+            TRACER.inc("session_teardown_failures_total", reason=reason)
+        # per-session observability state must not outlive the session:
+        # a churning server (create/evict forever) would otherwise
+        # accumulate one SLO window + one counter baseline per session
+        # id ever seen
+        SLO.drop_session(sess.id)
+        BLACKBOX.drop_session(sess.id)
+        CONTROLS.drop(sess.id)
+        from ..utils.history import HISTORY
+
+        HISTORY.drop_session(sess.id)
+
+    # -------------------------------------------------------- shutdown
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        if self._sweeper is not None:
+            self._sweeper.join(timeout=2)
+        with self._mu:
+            # _down closes the create() window: a racing create either
+            # sees it at reservation or finds it again before insert and
+            # tears its session down instead of parking it unowned
+            self._down = True
+            sessions = list(self._sessions.values())
+            self._sessions.clear()
+        for sess in sessions:
+            self._teardown(sess, reason="shutdown")
+        TRACER.gauge("sessions_active", 0)

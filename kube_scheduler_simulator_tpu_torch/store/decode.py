@@ -37,7 +37,9 @@ import numpy as np
 from . import annotations as ann
 from ..framework.replay import ReplayResult
 from ..utils.env import native_disabled
+from ..utils.faults import fault_point
 from ..utils.platform import effective_cpu_count
+from ..utils.tracing import TRACER
 from ..plugins import (
     affinity, interpod, noderesources, nodevolumelimits, ports, taints,
     topologyspread, volumebinding, volumerestrictions, volumezone,
@@ -362,7 +364,21 @@ def decode_chunk_into(rr, lo: int, hi: int, out: list, base: int = 0) -> None:
     streaming consumer, which runs while the device executes later chunks.
     Idempotent per index (a width-tier rerun re-delivers chunks).  base:
     the offset of a chunk-local sink (out[i-base]) instead of a
-    queue-length list.  Takes the decoder ladder of the module doc."""
+    queue-length list.  Takes the decoder ladder of the module doc.
+
+    A failed decode re-raises to its caller, counted as
+    decode_failures_total{path=...}, and never poisons the chunk: the lazy
+    read path clears for retry (store/lazy.py), so a transient fault heals
+    on the next read.  `decode.chunk` is its fault seam."""
+    try:
+        _decode_chunk_into(rr, lo, hi, out, base)
+    except Exception:
+        TRACER.inc("decode_failures_total", path=_decode_path_label(rr))
+        raise
+
+
+def _decode_chunk_into(rr, lo: int, hi: int, out: list, base: int) -> None:
+    fault_point("decode.chunk")
     cc = rr._compact
     if cc is not None:
         # chunk-granular native decode; ranges spanning several compact
@@ -395,10 +411,13 @@ def decode_chunk_into(rr, lo: int, hi: int, out: list, base: int = 0) -> None:
 def _decode_path_label(rr) -> str:
     """The rung decode_chunk_into takes for rr: "native_chunk" (compact
     layout with a native context), "native_pod" (full arrays) or
-    "python"."""
-    if _native_ctx(rr.cw) is None:
-        return "python"
-    return "native_chunk" if rr._compact is not None else "native_pod"
+    "python"; "unknown" when even that cannot be told."""
+    try:
+        if _native_ctx(rr.cw) is None:
+            return "python"
+        return "native_chunk" if rr._compact is not None else "native_pod"
+    except Exception:  # noqa: BLE001 — a label for a failure tap
+        return "unknown"
 
 
 def decode_release_batches(rr, lo: int, hi: int, on_pod=None, batch: int = 64) -> None:
@@ -440,6 +459,7 @@ def decode_release_batches(rr, lo: int, hi: int, on_pod=None, batch: int = 64) -
     fut = start(ranges[0]) if ranges else None
     try:
         for k, (b0, b1) in enumerate(ranges):
+            fault_point("decode.chunk")
             handle = fut.result()
             fut = start(ranges[k + 1]) if k + 1 < len(ranges) else None
             triples = native_decode.decode_chunk_take(handle)
@@ -448,7 +468,9 @@ def decode_release_batches(rr, lo: int, hi: int, on_pod=None, batch: int = 64) -
             if on_pod is not None:
                 for j, a in enumerate(sink):
                     on_pod(b0 + j, a)
-    except BaseException:
+    except BaseException as e:
+        if isinstance(e, Exception):
+            TRACER.inc("decode_failures_total", path="native_chunk")
         if fut is not None:  # free the in-flight batch's arena
             try:
                 fut.result().discard()

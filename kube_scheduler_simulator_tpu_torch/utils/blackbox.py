@@ -1,8 +1,7 @@
 """Wave black box: crash-consistent post-mortem capture + device telemetry.
 
 A copy of kube_scheduler_simulator_tpu/utils/blackbox.py, host code with its
-imports rewired to the port. Its device probe reads `torch.cuda.memory_stats()`; the control plane's
-effector state (`CONTROLS`) is empty until control is ported.
+imports rewired to the port. Its device probe reads `torch.cuda.memory_stats()`.
 
 The engine's own behavior is its least observable part exactly when it
 matters most: the degradation ladder and the speculative round
@@ -557,8 +556,8 @@ class HistoryFeeder:
         self._base: dict[str, float] = {}
 
     def gather(self) -> dict:
-        # the autopilot's effector state ("controls") comes with the
-        # control plane (ROADMAP Queue A item 11): no session is steered
+        from ..control import CONTROLS
+
         return {
             "slo": SLO.snapshot(),
             "accepted": TRACER.labeled_totals(
@@ -567,7 +566,7 @@ class HistoryFeeder:
                 "speculative_rolled_back_total", "session"),
             "spilled": TRACER.labeled_totals(
                 "device_chunks_spilled_total", "session"),
-            "controls": {},
+            "controls": CONTROLS.stats(),
         }
 
     def sample(self) -> tuple[int, dict]:

@@ -56,6 +56,17 @@ def env_bool(name: str, default: bool) -> bool:
     return default
 
 
+def env_switch(name: str, default: bool) -> bool:
+    """Boolean knob for subsystems that must fail OFF (utils/env.py:49):
+    unset/empty falls back to the default, but an unrecognized value
+    disables the feature.  The autopilot (control/autopilot.py) reads
+    KSS_TPU_AUTOPILOT through it."""
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
 def env_flag(name: str) -> bool:
     """A switch: on exactly when the variable is "1"."""
     return os.environ.get(name) == "1"

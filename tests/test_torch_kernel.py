@@ -5,8 +5,11 @@ in "compact" mode under every pack mode and raw-width tier, on configs
 eligibility, and the scheduler's default profile (every plugin row of
 the default lineup, the volume family included); the speculative wave's
 kernels likewise, the SAFE-set fleet included; B7, the chunk
-attribution, in every pack mode and raw tier; and the device-resident
-replay and stream on the card against the CPU port.  A CUDA kernel has
+attribution, in every pack mode and raw tier; the device-resident
+replay and stream, B8, B10 and the engine on the card against the CPU
+port; and B11, the fused round, against its members' solo launches and
+plain rounds (members on streams of their own included), and sessions
+on the card fused against unfused.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -677,3 +680,146 @@ def test_engine_on_card_matches_cpu(card, case, spec, monkeypatch):
         assert b8_card > 0
     if case == "hooks":
         assert b10_card == 24
+
+
+# ------------------------------------------------------ B11, the fused round
+
+
+def _fuse_members(dev, kind, k, b=16, kcand=6):
+    """K members of one family on `dev`: the slot-pinned fleet (sparse
+    rounds) or config 5 with its pods permuted per member (dense rounds),
+    each carry advanced by four committed pods."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.models.workloads import make_slot_pinned_workload
+
+    members = []
+    for s in range(k):
+        if kind == "sparse":
+            nodes, pods = make_slot_pinned_workload(48, 24, seed=200 + s)
+            cfg = PluginSetConfig(enabled=["NodeResourcesFit", "NodeResourcesBalancedAllocation",
+                                           "NodeAffinity"])
+        else:
+            nodes, pods, cfg = baseline_config(5, scale=0.01, seed=0)
+            pods = [pods[i] for i in np.random.default_rng(s).permutation(len(pods))]
+        cw = compile_workload(nodes, pods, cfg, device=dev)
+        pm, sd, _ = _compact_plan(cw, None)
+        step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+        carry = _clone_carry(cw.init_carry)
+        xs0 = _batch(cw, 0, 4, dev)
+        carry = kspec.commit_plain(step, carry, xs0, kspec.eval_plain(step, carry, xs0).selected, 4)
+        members.append(kfuse.Member(step, carry, _batch(cw, 4, b, dev),
+                                    kcand if kind == "sparse" else None))
+    return members
+
+
+@pytest.mark.parametrize("kind,k", [("sparse", 2), ("sparse", 5), ("sparse", 16),
+                                    ("dense", 2), ("dense", 3)])
+def test_fused_kernels_match_solo_and_plain(card, kind, k):
+    """B11 (spec_eval_fused / spec_round_fused, then spec_oracle_fused) on
+    K members: each member's outputs equal its solo launch and its plain
+    round, exactly; one launch of each fused kernel per call."""
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+
+    members = _fuse_members(card, kind, k)
+    first = kfuse.spec_round_fused if kind == "sparse" else kfuse.spec_eval_fused
+    n0, o0 = first.launches, kfuse.spec_oracle_fused.launches
+    fused = (kfuse.sparse_round_fused if kind == "sparse" else kfuse.dense_round_fused)(members)
+    fused = [tuple(t.clone() for t in _flat(r)) for r in fused]
+    assert first.launches - n0 == 1 and kfuse.spec_oracle_fused.launches - o0 == 1
+    solo_fn = kfuse.sparse_round if kind == "sparse" else kfuse.dense_round
+    plain = kfuse.round_plain(members)
+    for i, m in enumerate(members):
+        solo = tuple(t.clone() for t in _flat(solo_fn(m)))
+        _equal(fused[i], solo, f"{kind} K={k} member {i} vs solo")
+        _equal(fused[i], tuple(_flat(plain[i])), f"{kind} K={k} member {i} vs plain")
+
+
+def _flat(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _flat(v)]
+
+
+def test_fused_members_on_their_own_streams(card):
+    """Members whose work is queued on streams of their own: the leader's
+    stream waits for each member's, and each member's waits for the
+    launch, so the result equals the solo rounds."""
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+
+    streams = [torch.cuda.Stream(card) for _ in range(3)]
+    members = []
+    for s, m in zip(streams, _fuse_members(card, "sparse", 3)):
+        with torch.cuda.stream(s):
+            # a long op on the member's stream before it joins
+            torch.cuda._sleep(20_000_000)
+            members.append(type(m)(m.step, m.carry, m.xs, m.kcand))
+    assert len({m.stream for m in members}) == 3
+    fused = kfuse.sparse_round_fused(members)
+    for s in streams:
+        s.synchronize()
+    for i, m in enumerate(members):
+        _equal(tuple(_flat(fused[i])), tuple(_flat(kfuse.round_plain([m])[0])), f"member {i}")
+
+
+@pytest.mark.parametrize("candidates", ["128", "4"])
+def test_sessions_fuse_on_card(card, monkeypatch, candidates):
+    """Two sessions of one family on the card: fused rounds (B11 launched;
+    dense rounds with the default candidate cap past the 24 nodes, sparse
+    ones with a cap of 4) and KSS_TPU_FUSE=0 give every pod the same node
+    and annotations."""
+    import copy
+    import threading
+
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.models.workloads import make_slot_pinned_workload
+    from kube_scheduler_simulator_tpu_torch.server.sessions import SessionManager
+
+    nodes, pods_a = make_slot_pinned_workload(64, 24, seed=71)
+    pods = {"a": pods_a, "b": make_slot_pinned_workload(64, 24, seed=72)[1]}
+    monkeypatch.setenv("KSS_TPU_SPECULATIVE", "1")
+    monkeypatch.setenv("KSS_TPU_FUSE_WINDOW_MS", "2000")
+    monkeypatch.setenv("KSS_TPU_SPECULATIVE_CANDIDATES", candidates)
+    fused_kernel = kfuse.spec_round_fused if candidates == "4" else kfuse.spec_eval_fused
+    arms = []
+    for fuse in ("1", "0"):
+        monkeypatch.setenv("KSS_TPU_FUSE", fuse)
+        mgr = SessionManager(max_sessions=3, idle_ttl=0, start_scheduler=False, device="cuda")
+        try:
+            sess = {}
+            for name in pods:
+                s = sess[name] = mgr.create(name)
+                s.di.engine.set_profiles(None)
+                s.di.engine.plugin_config = PluginSetConfig(
+                    enabled=["NodeResourcesFit", "NodeResourcesBalancedAllocation",
+                             "NodeAffinity"])
+                for obj in nodes:
+                    s.di.store.create("nodes", copy.deepcopy(obj))
+                for obj in pods[name]:
+                    s.di.store.create("pods", copy.deepcopy(obj))
+            n0 = fused_kernel.launches
+            barrier = threading.Barrier(2)
+
+            def run(s):
+                barrier.wait()
+                s.di.engine.schedule_pending()
+
+            threads = [threading.Thread(target=run, args=(s,)) for s in sess.values()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            arms.append(({name: {p["metadata"]["name"]: (p["spec"].get("nodeName"),
+                                                         p["metadata"].get("annotations"))
+                                 for p in s.di.store.list("pods")[0]}
+                          for name, s in sess.items()},
+                         fused_kernel.launches - n0))
+        finally:
+            mgr.shutdown()
+    (fused, fused_launches), (solo, solo_launches) = arms
+    assert fused == solo
+    assert fused_launches > 0 and solo_launches == 0
+    assert all(v[0] for st in fused.values() for v in st.values())

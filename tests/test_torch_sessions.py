@@ -1,0 +1,523 @@
+"""Multi-session serving in the port (server/sessions.py), the mirror of
+tests/test_sessions.py with every manager, container and server on
+`device="cpu"`.
+
+The same cases: manager admission/eviction, the HTTP CRUD and
+per-session routing surface, hard isolation between co-resident sessions
+(their annotations byte-identical to each other AND to the JAX package's
+sessions on the same workload), the shared piece that replaces the JAX
+compile cache (sessions of one shape share one fuse family), the
+per-session device-result budget shares (a fat session spills only its
+own chunks), loop-crash observability on /readyz, and prompt stream
+teardown on shutdown and eviction.
+"""
+
+from __future__ import annotations
+
+import copy
+import gc
+import json
+import threading
+import time
+import urllib.request
+
+import pytest
+
+from kube_scheduler_simulator_tpu.plugins.registry import PluginSetConfig as JaxConfig
+from kube_scheduler_simulator_tpu.server.sessions import SessionManager as JaxManager
+from kube_scheduler_simulator_tpu_torch.cluster.store import ApiError
+from kube_scheduler_simulator_tpu_torch.config.config import SimulatorConfiguration
+from kube_scheduler_simulator_tpu_torch.framework.replay import (
+    _DEVICE_BUDGET, _workload_scan_key)
+from kube_scheduler_simulator_tpu_torch.models.workloads import make_nodes, make_pods
+from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+from kube_scheduler_simulator_tpu_torch.server.di import DIContainer
+from kube_scheduler_simulator_tpu_torch.server.server import SimulatorServer
+from kube_scheduler_simulator_tpu_torch.server.sessions import (
+    DEFAULT_SESSION, SessionCapacity, SessionManager)
+from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
+
+ENABLED = ["NodeResourcesFit", "NodeResourcesBalancedAllocation",
+           "NodeAffinity", "TaintToleration", "PodTopologySpread"]
+
+
+def _mgr(**kw) -> SessionManager:
+    kw.setdefault("cfg", SimulatorConfiguration(port=0))
+    kw.setdefault("start_scheduler", False)
+    kw.setdefault("idle_ttl", 0)
+    kw.setdefault("device", "cpu")
+    return SessionManager(**kw)
+
+
+def _load(sess, nodes, pods, chunk: int | None = None, config=PluginSetConfig):
+    """Same-shape workload into a session's private store, with the
+    fixed plugin lineup (profiles off: shape determinism)."""
+    sess.di.engine.set_profiles(None)
+    sess.di.engine.plugin_config = config(enabled=list(ENABLED))
+    if chunk is not None:
+        sess.di.engine.chunk = chunk
+    for n in nodes:
+        sess.di.store.create("nodes", copy.deepcopy(n))
+    for p in pods:
+        sess.di.store.create("pods", copy.deepcopy(p))
+
+
+def _annotations(sess) -> dict[str, dict]:
+    return {p["metadata"]["name"]: dict(p["metadata"].get("annotations") or {})
+            for p in sess.di.store.list("pods")[0]}
+
+
+def _lcounter(name: str, **labels) -> float:
+    """Sum of a labeled counter's series matching the given labels."""
+    snap = TRACER.snapshot()
+    total = 0.0
+    for s in snap["labeled_counters"].get(name, []):
+        if all(s["labels"].get(k) == v for k, v in labels.items()):
+            total += s["value"]
+    return total
+
+
+# ------------------------------------------------------------- manager
+
+
+def test_manager_create_get_delete_default_pinned():
+    mgr = _mgr(max_sessions=4)
+    try:
+        assert mgr.default.id == DEFAULT_SESSION
+        a = mgr.create("alpha")
+        assert mgr.get("alpha") is a
+        assert {s["id"] for s in mgr.list_sessions()} == {"default", "alpha"}
+        info = a.info()
+        assert info["pods"] == 0 and not info["default"]
+        with pytest.raises(ApiError) as ei:
+            mgr.create("alpha")
+        assert ei.value.status == 409
+        with pytest.raises(ApiError) as ei:
+            mgr.create("bad id!")
+        assert ei.value.status == 400
+        with pytest.raises(ApiError) as ei:
+            mgr.delete(DEFAULT_SESSION)
+        assert ei.value.status == 400
+        mgr.delete("alpha")
+        with pytest.raises(ApiError) as ei:
+            mgr.get("alpha")
+        assert ei.value.status == 404
+        # clean teardown went through the scheduling loop's stop path
+        assert a.di.scheduling_loop._stop.is_set()
+    finally:
+        mgr.shutdown()
+
+
+def test_manager_lru_capacity_eviction():
+    mgr = _mgr(max_sessions=3)  # default + 2
+    try:
+        a, b = mgr.create("a"), mgr.create("b")
+        a.touch()  # b is now the LRU victim
+        b.last_used -= 1
+        c = mgr.create("c")
+        ids = {s["id"] for s in mgr.list_sessions()}
+        assert ids == {"default", "a", "c"}
+        assert b.di.scheduling_loop._stop.is_set(), "eviction must shut down"
+        assert _lcounter("sessions_evicted_total", reason="capacity") >= 1
+        assert c is mgr.get("c")
+    finally:
+        mgr.shutdown()
+
+
+def test_manager_capacity_error_when_nothing_evictable():
+    mgr = _mgr(max_sessions=1)  # the pinned default fills the only slot
+    try:
+        with pytest.raises(SessionCapacity) as ei:
+            mgr.create("x")
+        assert ei.value.status == 429
+    finally:
+        mgr.shutdown()
+
+
+def test_manager_idle_ttl_sweep():
+    mgr = _mgr(max_sessions=4, idle_ttl=3600)
+    try:
+        stale = mgr.create("stale")
+        fresh = mgr.create("fresh")
+        watched = mgr.create("watched")
+        stale.last_used = time.time() - 7200
+        # an attached stream marks a session busy: idle by the clock,
+        # but a client is plainly connected — the sweep must skip it
+        watched.last_used = time.time() - 7200
+        live = threading.Event()
+        watched.streams.register(live)
+        assert mgr.sweep_idle() == 1
+        ids = {s["id"] for s in mgr.list_sessions()}
+        assert ids == {"default", "fresh", "watched"}
+        assert stale.di.scheduling_loop._stop.is_set()
+        assert not live.is_set()
+        assert _lcounter("sessions_evicted_total", reason="idle") >= 1
+        assert fresh is mgr.get("fresh")
+        # stream gone -> the next sweep may evict it
+        watched.streams.unregister(live)
+        assert mgr.sweep_idle() == 1
+    finally:
+        mgr.shutdown()
+
+
+def test_manager_create_after_shutdown_refused():
+    mgr = _mgr(max_sessions=4)
+    mgr.shutdown()
+    with pytest.raises(ApiError) as ei:
+        mgr.create("late")
+    assert ei.value.status == 400
+
+
+# ----------------------------------------------------------- isolation
+
+
+def test_two_sessions_bit_identical_and_isolated(monkeypatch):
+    monkeypatch.delenv("KSS_TPU_EAGER_DECODE", raising=False)
+    nodes = make_nodes(8, seed=3, taint_fraction=0.25)
+    pods = make_pods(24, seed=4, with_affinity=True, with_tolerations=True,
+                     with_spread=True)
+    mgr = _mgr(max_sessions=4)
+    try:
+        a, b = mgr.create("iso-a"), mgr.create("iso-b")
+        _load(a, nodes, pods)
+        _load(b, nodes, pods)
+        # concurrent waves: isolation must hold under contention
+        results = {}
+        t = threading.Thread(
+            target=lambda: results.update(b=b.di.engine.schedule_pending()),
+            daemon=True)
+        t.start()
+        results["a"] = a.di.engine.schedule_pending()
+        t.join(timeout=120)
+        assert results["a"] == results["b"] > 0
+        ann_a, ann_b = _annotations(a), _annotations(b)
+        assert ann_a.keys() == ann_b.keys()
+        for name in ann_a:
+            assert ann_a[name] == ann_b[name], f"pod {name} diverged"
+        # no cross-session reads: each store holds exactly its own pods,
+        # each result store answers only for its own session
+        assert len(a.di.store.list("pods")[0]) == len(pods)
+        assert len(b.di.store.list("pods")[0]) == len(pods)
+        assert any(ann_a.values()), "wave must have annotated its pods"
+        # per-session metric views are disjoint and complete
+        snap_a = TRACER.snapshot(session="iso-a")
+        snap_b = TRACER.snapshot(session="iso-b")
+        assert snap_a["counters"]["pods_scheduled_total"] == results["a"]
+        assert snap_b["counters"]["pods_scheduled_total"] == results["b"]
+        assert snap_a["session"] == "iso-a"
+    finally:
+        mgr.shutdown()
+    # the JAX package's session on the same workload: byte-identical
+    jmgr = JaxManager(max_sessions=2, idle_ttl=0, start_scheduler=False)
+    try:
+        j = jmgr.create("iso-jax")
+        _load(j, nodes, pods, config=JaxConfig)
+        assert j.di.engine.schedule_pending() == results["a"]
+        assert _annotations(j) == ann_a
+    finally:
+        jmgr.shutdown()
+
+
+def test_same_shape_sessions_share_one_family(monkeypatch):
+    """The JAX package shares compiled scans across same-shape sessions;
+    the port's shared piece is the fuse family the speculative stream
+    builds on `_workload_scan_key`: sessions at one shape (different
+    pods) get one key, and another fleet gets another."""
+    from kube_scheduler_simulator_tpu_torch.framework import engine as peng
+
+    seen: list = []
+    real = peng.compile_workload
+
+    def spy(*a, **k):
+        cw = real(*a, **k)
+        seen.append(_workload_scan_key(cw, 512))
+        return cw
+
+    monkeypatch.setattr(peng, "compile_workload", spy)
+    mgr = _mgr(max_sessions=4)
+    try:
+        keys = []
+        for name, nodes, seed in (("cc-a", make_nodes(6, seed=5), 6),
+                                  ("cc-b", make_nodes(6, seed=5), 7),
+                                  ("cc-c", make_nodes(6, seed=9), 6)):
+            sess = mgr.create(name)
+            _load(sess, nodes, make_pods(16, seed=seed))
+            assert sess.di.engine.schedule_pending() == 16
+            keys.append(seen[-1])
+        assert keys[0] == keys[1], "same-shape sessions should share one family"
+        assert keys[0] != keys[2], "another fleet is another family"
+    finally:
+        mgr.shutdown()
+
+
+# ------------------------------------------------- per-session budgets
+
+
+def test_per_session_budget_spills_only_the_fat_session(monkeypatch):
+    """Under a constrained global KSS_TPU_DEVICE_RESULT_BUDGET_MB pool,
+    a session exceeding its per-session share spills ITS OWN chunks
+    (device_chunks_spilled_total{session=...}) while a small co-resident
+    session's device-resident chunks stay put and its warm reads stay
+    D2H-free."""
+    monkeypatch.delenv("KSS_TPU_EAGER_DECODE", raising=False)
+    monkeypatch.delenv("KSS_TPU_HOST_RESIDENT", raising=False)
+    gc.collect()  # drop other tests' dead budget entries (weakref-kept)
+    monkeypatch.setenv("KSS_TPU_DEVICE_RESULT_BUDGET_MB", "1")
+    mgr = _mgr(max_sessions=4)
+    try:
+        small = mgr.create("small")
+        _load(small, make_nodes(40, seed=7), make_pods(48, seed=8),
+              chunk=16)
+        small.di.engine.schedule_pending()
+        retained = _DEVICE_BUDGET.retained_by_session()
+        assert retained.get("small", (0, 0))[0] > 0, (
+            "small session should retain device-resident chunks")
+        fat = mgr.create("fat")
+        _load(fat, make_nodes(400, seed=9), make_pods(512, seed=10),
+              chunk=64)
+        fat.di.engine.schedule_pending()
+        _DEVICE_BUDGET.drain()
+        # the fat session overflowed ITS share and spilled — with its
+        # session label on every spill
+        assert _lcounter("device_chunks_spilled_total", session="fat") > 0
+        assert _lcounter("device_chunks_spilled_total", session="small") == 0
+        retained = _DEVICE_BUDGET.retained_by_session()
+        assert retained.get("small", (0, 0))[0] > 0, (
+            "the neighbor's chunks must never be evicted by the fat "
+            "session's overflow")
+        # fat is now within its share of the 1MB pool
+        buckets = max(len(retained), 1)
+        assert retained.get("fat", (0, 0))[1] <= (1 << 20) // buckets
+        # warm reads on the small session stay D2H-free: one cold read
+        # materializes its chunk, the re-read and a chunk-mate add zero
+        # on-demand D2H
+        names = [p["metadata"] for p in
+                 small.di.store.list("pods", copy_objects=False)[0][:2]]
+        small.di.store.get("pods", names[0]["name"], names[0].get("namespace"))
+        d2h0 = TRACER.summary()["counters"].get("d2h_on_demand_bytes_total", 0)
+        small.di.store.get("pods", names[0]["name"], names[0].get("namespace"))
+        small.di.store.get("pods", names[1]["name"], names[1].get("namespace"))
+        d2h1 = TRACER.summary()["counters"].get("d2h_on_demand_bytes_total", 0)
+        assert d2h1 == d2h0, "warm chunk-mate reads must not pay D2H"
+    finally:
+        mgr.shutdown()
+
+
+# ------------------------------------------------------------- HTTP api
+
+
+@pytest.fixture()
+def server():
+    cfg = SimulatorConfiguration(port=0)
+    di = DIContainer(cfg, device="cpu")
+    srv = SimulatorServer(di, port=0, device="cpu")
+    srv.start(block=False)
+    yield srv
+    srv.shutdown()
+
+
+def req(srv, method, path, body=None):
+    url = f"http://127.0.0.1:{srv.port}{path}"
+    data = json.dumps(body).encode() if body is not None else None
+    r = urllib.request.Request(url, data=data, method=method,
+                               headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(r, timeout=10) as resp:
+            raw = resp.read()
+            return resp.status, json.loads(raw) if raw else None
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, json.loads(raw) if raw else None
+
+
+def test_http_sessions_crud_and_routing(server):
+    code, listing = req(server, "GET", "/api/v1/sessions")
+    assert code == 200
+    assert [s["id"] for s in listing["items"]] == ["default"]
+    assert "compileCache" in listing and listing["maxSessions"] >= 1
+    code, created = req(server, "POST", "/api/v1/sessions", {"id": "s1"})
+    assert code == 201 and created["id"] == "s1"
+    code, _ = req(server, "POST", "/api/v1/sessions", {"id": "s1"})
+    assert code == 409
+    code, minted = req(server, "POST", "/api/v1/sessions")
+    assert code == 201 and minted["id"].startswith("s-")
+    # session-scoped CRUD is isolated from the default session
+    code, _ = req(server, "POST", "/api/v1/sessions/s1/nodes",
+                  make_nodes(1, seed=11)[0])
+    assert code == 201
+    assert len(req(server, "GET", "/api/v1/sessions/s1/nodes")[1]["items"]) == 1
+    assert req(server, "GET", "/api/v1/nodes")[1]["items"] == []
+    # every aliased route resolves (config surface spot-check)
+    code, cfg = req(server, "GET",
+                    "/api/v1/sessions/s1/schedulerconfiguration")
+    assert code == 200 and cfg["kind"] == "KubeSchedulerConfiguration"
+    code, _ = req(server, "GET", "/api/v1/sessions/nosuch/pods")
+    assert code == 404
+    code, _ = req(server, "DELETE", "/api/v1/sessions/s1")
+    assert code == 200
+    assert req(server, "GET", "/api/v1/sessions/s1")[0] == 404
+    assert req(server, "DELETE", "/api/v1/sessions/default")[0] == 400
+
+
+def test_http_session_scheduling_e2e_and_metrics_filter(server):
+    req(server, "POST", "/api/v1/sessions", {"id": "e2e"})
+    for n in make_nodes(2, seed=12):
+        req(server, "POST", "/api/v1/sessions/e2e/nodes", n)
+    pod = {"metadata": {"name": "web", "namespace": "default"},
+           "spec": {"containers": [{"name": "c", "resources": {
+               "requests": {"cpu": "100m"}}}]}}
+    code, _ = req(server, "POST", "/api/v1/sessions/e2e/pods", pod)
+    assert code == 201
+    deadline = time.time() + 20
+    bound = None
+    while time.time() < deadline:
+        _, got = req(server, "GET", "/api/v1/sessions/e2e/pods/default/web")
+        if (got.get("spec") or {}).get("nodeName"):
+            bound = got
+            break
+        time.sleep(0.1)
+    assert bound, "session-scoped scheduling loop did not bind the pod"
+    # the default session never saw it
+    assert req(server, "GET", "/api/v1/pods")[1]["items"] == []
+    # per-session observability: both the alias and ?session= filter
+    _, m = req(server, "GET", "/api/v1/sessions/e2e/metrics")
+    assert m["session"] == "e2e"
+    assert m["counters"].get("pods_scheduled_total", 0) >= 1
+    _, m2 = req(server, "GET", "/api/v1/metrics?session=e2e")
+    assert m2["counters"].get("pods_scheduled_total", 0) >= 1
+    _, t = req(server, "GET", "/api/v1/sessions/e2e/trace")
+    names = {e["name"] for e in t["traceEvents"] if e.get("ph") == "X"}
+    assert "compile_workload" in names
+    for e in t["traceEvents"]:
+        if e.get("ph") == "X":
+            assert e["args"].get("session") == "e2e"
+    # the aggregate view still carries everything
+    _, agg = req(server, "GET", "/api/v1/metrics")
+    assert agg["counters"].get("pods_scheduled_total", 0) >= 1
+
+
+def test_http_namespaced_update_guard(server):
+    """Regression (the dead `pass` fallthrough): a namespaced PUT/DELETE
+    with only a name must 400 with a pointed message, not silently act
+    cluster-scoped; cluster-scoped single-name CRUD stays intact."""
+    pod = {"metadata": {"name": "guarded", "namespace": "default"},
+           "spec": {"containers": [{"name": "c"}]}}
+    code, created = req(server, "POST", "/api/v1/pods", pod)
+    assert code == 201
+    code, body = req(server, "PUT", "/api/v1/pods/guarded", created)
+    assert code == 400 and "namespaced" in body["message"]
+    code, body = req(server, "DELETE", "/api/v1/pods/guarded")
+    assert code == 400 and "/api/v1/pods/<namespace>/<name>" in body["message"]
+    # the namespaced form still works...
+    code, _ = req(server, "DELETE", "/api/v1/pods/default/guarded")
+    assert code == 200
+    # ...and cluster-scoped single-name CRUD is untouched
+    node = make_nodes(1, seed=13)[0]
+    code, created = req(server, "POST", "/api/v1/nodes", node)
+    assert code == 201
+    code, _ = req(server, "PUT", f"/api/v1/nodes/{node['metadata']['name']}",
+                  created)
+    assert code == 200
+
+
+def test_scheduling_loop_crash_surfaces_on_readyz(server):
+    """Satellite: a wave that raises must not wedge silently — the crash
+    counter increments (session-labeled) and /readyz carries the last
+    crash while the loop itself stays alive."""
+    def boom():
+        raise RuntimeError("injected wave failure")
+
+    engine = server.di.engine
+    orig = engine.schedule_pending
+    engine.schedule_pending = boom
+    try:
+        before = _lcounter("scheduling_loop_crashes_total", session="default")
+        req(server, "POST", "/api/v1/pods",
+            {"metadata": {"name": "crash-me", "namespace": "default"},
+             "spec": {"containers": [{"name": "c"}]}})
+        deadline = time.time() + 10
+        crash = None
+        while time.time() < deadline:
+            code, body = req(server, "GET", "/readyz")
+            if body.get("lastCrash"):
+                crash = (code, body)
+                break
+            time.sleep(0.05)
+        assert crash, "/readyz never surfaced the injected crash"
+        code, body = crash
+        assert code == 200, "the loop survives a crash (alive => ready)"
+        assert "injected wave failure" in body["lastCrash"]["error"]
+        assert _lcounter("scheduling_loop_crashes_total",
+                         session="default") > before
+    finally:
+        engine.schedule_pending = orig
+
+
+# ------------------------------------------------------ stream teardown
+
+
+def _open_stream(port: str | int, path: str, events: list, errors: list):
+    def run():
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+                while True:
+                    chunk = resp.read1(65536)
+                    if not chunk:
+                        return
+                    events.append(chunk)
+        except Exception as e:  # noqa: BLE001 — surfaced by the test
+            errors.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def test_sse_and_listwatch_close_on_shutdown():
+    """Satellite: long-lived responses must not outlive shutdown()
+    sleeping on their interval — the server-level stop event ends them
+    promptly."""
+    srv = SimulatorServer(DIContainer(SimulatorConfiguration(port=0), device="cpu"), port=0,
+                          device="cpu")
+    srv.start(block=False)
+    sse_events, lw_events, errors = [], [], []
+    sse = _open_stream(srv.port, "/api/v1/metrics/stream?interval=600",
+                       sse_events, errors)
+    lw = _open_stream(srv.port, "/api/v1/listwatchresources",
+                      lw_events, errors)
+    deadline = time.time() + 5
+    while time.time() < deadline and not sse_events:
+        time.sleep(0.05)
+    assert sse_events, "SSE stream never produced its first snapshot"
+    t0 = time.time()
+    srv.shutdown()
+    sse.join(timeout=5)
+    lw.join(timeout=5)
+    took = time.time() - t0
+    assert not sse.is_alive(), "SSE handler outlived shutdown"
+    assert not lw.is_alive(), "list-watch handler outlived shutdown"
+    assert took < 5, f"stream teardown took {took:.1f}s"
+
+
+def test_session_eviction_closes_its_streams():
+    srv = SimulatorServer(DIContainer(SimulatorConfiguration(port=0), device="cpu"), port=0,
+                          device="cpu")
+    srv.start(block=False)
+    try:
+        code, _ = req(srv, "POST", "/api/v1/sessions", {"id": "streamy"})
+        assert code == 201
+        events, errors = [], []
+        t = _open_stream(
+            srv.port, "/api/v1/sessions/streamy/metrics/stream?interval=600",
+            events, errors)
+        deadline = time.time() + 5
+        while time.time() < deadline and not events:
+            time.sleep(0.05)
+        assert events, "session SSE stream never started"
+        code, _ = req(srv, "DELETE", "/api/v1/sessions/streamy")
+        assert code == 200
+        t.join(timeout=5)
+        assert not t.is_alive(), "evicting a session must close its streams"
+    finally:
+        srv.shutdown()
