@@ -67,7 +67,20 @@ phase:
   24   the HTTP server on localhost: two sessions created and filled
        through POST /api/v1/sessions and .../import (5,000 nodes, 10,000
        pods each), scheduled by their loops, 256 pods of each read back
-       and held to a direct replay().
+       and held to a direct replay();
+  25   B12, the node-sharded scan: config 5 through replay(cw,
+       mesh=make_mesh(S)) for S = 2, 4 and 8 (each "nodes" shard one CTA
+       of a thread-block cluster) equal to phase 4, step_chunk_sharded
+       held to step_chunk and to its plain twin on chunk 0 and timed
+       against step_chunk, and the default-profile fleet's first 1,024
+       pods on a 4-shard mesh equal to phase 11;
+  26   B12 on the stream and the engine: spec_eval_sharded at b = 512
+       (dp 1 x nodes 8, dp 2 x nodes 4) held to spec_eval and its plain
+       twin; config 5 through replay_speculative_stream on a dp 2 x
+       nodes 4 mesh equal to phase 8, through SchedulerEngine on an
+       8-shard mesh equal to phase 4 as phase 19 holds itself, and a
+       4,996-node fleet through the engine's unsharded fallback, counted
+       once by mesh_fallback_indivisible_nodes_total.
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -468,7 +481,8 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     """Phases 6-9: the speculative wave's kernels against their plain
     versions, its two paths (low contention, contended) and the kernels'
     times.  -> ({"slot": (the slot-pinned workload, its host-resident
-    stream)}, the kernels' entries of the JSON line)."""
+    stream), "contended": phase 8's config-5 stream}, the kernels'
+    entries of the JSON line)."""
     import numpy as np
     import torch
 
@@ -763,7 +777,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
           f"library (CUDA graph) {library}; bounds {bounds}", flush=True)
 
     launches = {name: low[name] + hot[name] + direct[name] for name in ms}
-    ctx = {"slot": (scw, srr)}
+    ctx = {"slot": (scw, srr), "contended": crr}
     sources = {"spec_eval": "spec_eval.cu", "spec_oracle": "spec_eval.cu",
                "spec_round": "spec_round.cu", "spec_commit_core": "spec_commit.cu",
                "spec_commit_bind": "spec_commit.cu", "grid_append": "grid.cu",
@@ -2369,6 +2383,330 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
     } for name in ("spec_eval_fused", "spec_round_fused", "spec_oracle_fused")]
 
 
+# phases 25-26: the node-sharded mesh (B12)
+MESH_SHARDS = (2, 4, 8)        # phase 25: the "nodes" extents; 5,000 nodes divide by each
+MESH_DEFAULT_PODS = 1024       # phase 25: the default-profile fleet's pods on the mesh
+MESH_ODD_NODES = 4996          # phase 26: a fleet that 8 shards do not divide
+MESH_ODD_PODS = 1024
+
+
+def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: dict,
+                dp_ctx: dict, step_entry: dict, spec_entries: list) -> list[dict]:
+    """Phases 25-26: the node-sharded mesh on one card, each "nodes" shard
+    one CTA of a thread-block cluster (B12, csrc/mesh.cu).  25: config 5
+    through replay(cw, mesh=make_mesh(S)) for S = 2, 4, 8 against phase
+    4, step_chunk_sharded against its plain twin and step_chunk on chunk
+    0, its times against step_chunk's, the default-profile fleet's first
+    1,024 pods at S = 4 against phase 11; 26: spec_eval_sharded at
+    b = 512 and S = 2, 4, 8 (make_mesh(2), make_mesh(8, dp=2),
+    make_mesh(8)) against spec_eval and its plain twin, the config-5
+    stream on a dp 2 x nodes 4 mesh against
+    phase 8, the engine on an 8-shard mesh against phase 4 as phase 19
+    holds itself, and a 4,996-node fleet through the engine's unsharded
+    fallback.  -> the entries of B12 for the JSON line."""
+    import copy
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs, plugin_attribution, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.parallel import (make_mesh, replay_speculative_stream,
+                                                             shard_workload)
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+    from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
+
+    kernels = (kmesh.step_chunk_sharded, kmesh.spec_eval_sharded, kstep.step_chunk,
+               *kspec.KERNELS)
+
+    def reset() -> None:
+        for f in kernels:
+            f.launches = 0
+
+    def counts() -> dict:
+        return {f.__name__: f.launches for f in kernels if f.launches}
+
+    def batch_xs(w, lo: int, b: int) -> dict:
+        hi = min(lo + b, w.n_pods)
+        xs = _slice_xs(w.xs, lo, hi, b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
+        return xs
+
+    p, n = cw.n_pods, cw.n_nodes
+    n_chunks = math.ceil(p / CHUNK)
+    sample = sorted(set(DECODE_CHECK_PODS) | {p // 2, p - 1})
+
+    # ---- 25. the sharded scan at full width
+    t25 = time.perf_counter()
+    walls, step_err = {}, 0
+    main_launches = None
+    for s in MESH_SHARDS:
+        # S = 8 at the default, device-resident rung (B7 on every chunk);
+        # S = 2 and 4 host-resident, as phase 4
+        rung = None if s == 8 else "1"
+        reset()
+        with env(KSS_TPU_HOST_RESIDENT=rung):
+            t0 = time.perf_counter()
+            mrr = replay(cw, chunk=CHUNK, device="cuda", mesh=make_mesh(s))
+            torch.cuda.synchronize()
+            walls[s] = time.perf_counter() - t0
+        launched = counts()
+        check(launched.get("step_chunk_sharded", 0) == n_chunks * len(mrr.tiers),
+              f"mesh S={s}: launches {launched}, chunks {n_chunks} x tiers {len(mrr.tiers)}")
+        check("step_chunk" not in launched, f"mesh S={s} ran the unsharded step: {launched}")
+        same_replay(mrr, rr, f"replay on mesh S={s} vs phase 4", sample)
+        if s == 8:
+            main_launches = launched.get("step_chunk_sharded", 0)
+            check(plugin_attribution(mrr) == plugin_attribution(rr),
+                  "mesh S=8 device-resident attribution != phase 4's host tally")
+        del mrr
+
+    wide = rr.tiers[-1]
+    pm, sd, _ = _compact_plan(cw, wide)
+    step_c = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+    # the same step over the workload sharded S ways (S from the mesh)
+    step_s = {s: build_step(shard_workload(cw, make_mesh(s)), out_mode="compact", pack_mode=pm,
+                            score_dtypes=sd, wide_raw=wide) for s in MESH_SHARDS}
+    xs0 = batch_xs(cw, 0, CHUNK)
+    cu, ou = kstep.step_chunk(step_c, _clone_carry(cw.init_carry), xs0)
+    sharded_out = {}
+    for s in MESH_SHARDS:
+        cs, os_ = kmesh.step_chunk_sharded(step_s[s], _clone_carry(cw.init_carry), xs0)
+        torch.cuda.synchronize()
+        err = max(tree_err(list(os_), list(ou)), tree_err(cs, cu))
+        check(err == 0, f"step_chunk_sharded S={s} differs from step_chunk on chunk 0 "
+                        f"(max |d| {err})")
+        sharded_out[s] = (cs, os_)
+    twin = []
+    plain_ms = timed_once(lambda: twin.append(kmesh.step_chunk_sharded_plain(
+        step_s[8], _clone_carry(cw.init_carry), xs0)))
+    cs8, os8 = sharded_out[8]
+    step_err = max(tree_err(list(os8), list(twin[0][1])), tree_err(cs8, twin[0][0]))
+    check(step_err == 0, f"step_chunk_sharded S=8 differs from its plain twin (max |d| {step_err})")
+    del twin, sharded_out, cu, ou
+
+    # times as phase 5 takes B1's: back-to-back launches, each on a fresh
+    # copy of the initial carry, after one untimed launch; in turns
+    # (unsharded, S = 2, 4, 8, unsharded)
+    def chunk_ms(run, reps: int = 3) -> float:
+        carries = [_clone_carry(cw.init_carry) for _ in range(reps + 1)]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        run(carries[0])
+        marks[0].record()
+        for k in range(reps):
+            run(carries[k + 1])
+            marks[k + 1].record()
+        torch.cuda.synchronize()
+        ts = sorted(marks[k].elapsed_time(marks[k + 1]) for k in range(reps))
+        return ts[len(ts) // 2]
+
+    b1_ms = [chunk_ms(lambda c: kstep.step_chunk(step_c, c, xs0))]
+    sharded_ms = {s: chunk_ms(lambda c, s=s: kmesh.step_chunk_sharded(step_s[s], c, xs0))
+                  for s in MESH_SHARDS}
+    b1_ms.append(chunk_ms(lambda c: kstep.step_chunk(step_c, c, xs0)))
+    unsharded_ms = sum(b1_ms) / len(b1_ms)
+
+    # the default-profile fleet's first 1,024 pods at S = 4, against phase 11
+    dnodes, dpods, _ = baseline_config(CONFIG, scale=1.0, seed=SEED)
+    volumes, bound_pods = decorate_default_profile(dnodes, dpods, SEED)
+    fcw = compile_workload(dnodes, dpods[:MESH_DEFAULT_PODS], PluginSetConfig(),
+                           volumes=volumes, bound_pods=bound_pods, device=dev)
+    drr = dp_ctx["default"][1]
+    reset()
+    with env(KSS_TPU_HOST_RESIDENT="1"):
+        t0 = time.perf_counter()
+        frr = replay(fcw, chunk=CHUNK, device="cuda", mesh=make_mesh(4))
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t0
+    flaunched = counts()
+    check(flaunched.get("step_chunk_sharded", 0) > 0 and "step_chunk" not in flaunched,
+          f"default profile on the mesh: launches {flaunched}")
+    fp = fcw.n_pods
+    for f in ("selected", "feasible_count", "prefilter_reject"):
+        check((getattr(frr, f) == getattr(drr, f)[:fp]).all(),
+              f"default profile on mesh S=4: {f} != phase 11's")
+    fsample = sorted(i for i in {0, 1, CHUNK - 1, CHUNK, fp - 1} | set(range(0, fp, fp // 8))
+                     if i < fp)
+    for i in fsample:
+        check(decode_pod_result(frr, i) == decode_pod_result(drr, i),
+              f"default profile on mesh S=4: pod {i} annotations != phase 11's")
+    del frr, fcw
+    print(f"[25 mesh scan] {card}: config {CONFIG} {p}x{n} through replay(cw, "
+          f"mesh=make_mesh(S)), S = 2, 4, 8 ({n // 8}-{n // 2} nodes per CTA): wall "
+          f"{ {s: round(w, 4) for s, w in walls.items()} } s; selected, feasible_count, "
+          f"prefilter_reject, every compact chunk's bytes (raws at feasible nodes) and decode "
+          f"bytes of pods {sample} equal phase 4's (S = 8 at the device-resident rung, its "
+          f"plugin_attribution equal phase 4's host tally); launches {main_launches} at S = 8 | "
+          f"chunk 0: step_chunk_sharded == step_chunk (outputs and carry) at every S, == its "
+          f"plain twin at S = 8, max_abs_err {step_err}; plain twin {plain_ms:.3f} ms | "
+          f"ms per chunk (median of 3, in turns): step_chunk {[round(x, 3) for x in b1_ms]}, "
+          f"step_chunk_sharded { {s: round(v, 3) for s, v in sharded_ms.items()} } = "
+          f"{ {s: round(v / unsharded_ms, 4) for s, v in sharded_ms.items()} } x step_chunk; "
+          f"bound {step_entry['bound_ms']:.6f} ms by {step_entry['bound_by']} | default profile "
+          f"{fp} pods x {n} nodes on mesh S=4: {fwall:.4f} s, launches {flaunched}, selected, "
+          f"feasible_count, prefilter_reject and decode bytes of pods {fsample} equal phase 11's; "
+          f"{time.perf_counter() - t25:.1f} s", flush=True)
+
+    # ---- 26. the stream and the engine on a mesh
+    t26 = time.perf_counter()
+    cpm, csd, _ = _compact_plan(cw, None)
+    cstep = build_step(cw, out_mode="compact", pack_mode=cpm, score_dtypes=csd)
+    cxs = batch_xs(cw, 0, SPEC_BATCH)
+    ccarry = _clone_carry(cw.init_carry)
+    want = kspec.spec_eval(cstep, ccarry, cxs)
+    torch.cuda.synchronize()
+    eval_err, eval_ms, eval_plain_ms = 0, {}, {}
+    # S = 8, 4, 2 shards; a mesh's dp extent only rounds the stream's rungs
+    for mesh in (make_mesh(8), make_mesh(8, dp=2), make_mesh(2)):
+        s = mesh.shape["nodes"]
+        sstep = build_step(shard_workload(cw, mesh), out_mode="compact", pack_mode=cpm,
+                           score_dtypes=csd)
+        got = kmesh.spec_eval_sharded(sstep, ccarry, cxs)
+        torch.cuda.synchronize()
+        err = tree_err(list(got), list(want))
+        check(err == 0, f"spec_eval_sharded S={s} differs from spec_eval (max |d| {err})")
+        twin = []
+        eval_plain_ms[s] = timed_once(lambda: twin.append(kmesh.spec_eval_sharded_plain(
+            sstep, ccarry, cxs)))
+        err = tree_err(list(got), list(twin[0]))
+        check(err == 0, f"spec_eval_sharded S={s} differs from its plain twin (max |d| {err})")
+        eval_err = max(eval_err, err)
+        eval_ms[s] = timed_graph(lambda: kmesh.spec_eval_sharded(sstep, ccarry, cxs), 3)
+        del twin, got
+    b2_ms = timed_graph(lambda: kspec.spec_eval(cstep, ccarry, cxs), 3)
+
+    crr = spec_ctx["contended"]
+    reset()
+    t0 = time.perf_counter()
+    mrr, mstats = replay_speculative_stream(cw, make_mesh(8, dp=2), chunk=CHUNK, pods=pods,
+                                            device_resident=False)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_launched = counts()
+    check(stream_launched.get("spec_eval_sharded", 0) > 0,
+          f"the mesh stream launched no spec_eval_sharded: {stream_launched}")
+    check("spec_eval" not in stream_launched and "step_chunk" not in stream_launched,
+          f"the mesh stream ran an unsharded eval or scan: {stream_launched}")
+    if mstats["fallback_at"] is not None:
+        check(stream_launched.get("step_chunk_sharded", 0) > 0,
+              "the mesh stream's scan fallback launched no step_chunk_sharded")
+    check(all(b % 2 == 0 for b in mstats["round_batches"]), f"rungs not dp multiples: {mstats}")
+    same_replay(mrr, crr, "stream on mesh dp 2 x nodes 4 vs phase 8", sample)
+    del mrr
+
+    names = cw.node_table.names
+
+    def engine_run(objects: dict, mesh):
+        store = ObjectStore()
+        for res, items in objects.items():
+            for obj in items:
+                store.create(res, obj)  # create() deep-copies
+        engine = SchedulerEngine(store, plugin_config=cfg, mesh=mesh)
+        reset()
+        t0 = time.perf_counter()
+        bound_n = engine.schedule_pending()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        engine.close()
+        return store, bound_n, wall, launched
+
+    with env(KSS_TPU_SPECULATIVE=None, KSS_TPU_HOST_RESIDENT=None, KSS_TPU_EAGER_DECODE=None,
+             KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+        store, bound_n, ewall, elaunched = engine_run({"nodes": nodes, "pods": pods},
+                                                      make_mesh(8))
+        check(elaunched.get("spec_eval_sharded", 0) + elaunched.get("step_chunk_sharded", 0) > 0,
+              f"the engine on a mesh launched no B12 kernel: {elaunched}")
+        check("spec_eval" not in elaunched and "step_chunk" not in elaunched,
+              f"the engine on a mesh ran an unsharded eval or scan: {elaunched}")
+        check(bound_n == rr.scheduled, f"engine on a mesh bound {bound_n}, replay {rr.scheduled}")
+        by_name = {q["metadata"]["name"]: (q.get("spec") or {}).get("nodeName")
+                   for q in store.list("pods", copy_objects=False)[0]}
+        for i, q in enumerate(pods):
+            s = int(rr.selected[i])
+            check(by_name[q["metadata"]["name"]] == (names[s] if s >= 0 else None),
+                  f"engine on a mesh: pod {i} node differs from phase 4's replay")
+        esample = sorted(set(range(0, p, p // 11)) | {p - 1})[:12]
+        for i in esample:
+            got_a = store.get("pods", pods[i]["metadata"]["name"])["metadata"]["annotations"]
+            want_a = decode_pod_result(rr, i)
+            for key in ALL_PLUGIN_KEYS:
+                check(got_a.get(key) == want_a[key], f"engine on a mesh: pod {i} {key}")
+        del store
+
+        # a fleet the mesh does not divide: the wave runs unsharded, counted
+        odd = {"nodes": nodes[:MESH_ODD_NODES], "pods": pods[:MESH_ODD_PODS]}
+        key = "mesh_fallback_indivisible_nodes_total"
+        before = TRACER.counter_totals().get(key, 0)
+        ostore, obound, owall, olaunched = engine_run(odd, make_mesh(8))
+        fallbacks = TRACER.counter_totals().get(key, 0) - before
+        check(fallbacks == 1, f"{key} rose by {fallbacks}, not 1")
+        check(not {"spec_eval_sharded", "step_chunk_sharded"} & set(olaunched)
+              and olaunched.get("spec_eval", 0) + olaunched.get("step_chunk", 0) > 0,
+              f"the indivisible fleet's launches {olaunched}")
+        pstore, pbound, _, _ = engine_run(odd, None)
+        check(obound == pbound, f"indivisible fleet bound {obound}, without a mesh {pbound}")
+        snap = {q["metadata"]["name"]: (q["spec"].get("nodeName"),
+                                        q["metadata"].get("annotations"))
+                for q in ostore.list("pods", copy_objects=False)[0]}
+        psnap = {q["metadata"]["name"]: (q["spec"].get("nodeName"),
+                                         q["metadata"].get("annotations"))
+                 for q in pstore.list("pods", copy_objects=False)[0]}
+        check(snap == psnap, "indivisible fleet: placements or annotations differ from the "
+                             "engine without a mesh")
+        del ostore, pstore, snap, psnap
+    print(f"[26 mesh stream, engine] {card}: spec_eval_sharded at b={SPEC_BATCH} on config "
+          f"{CONFIG}: == spec_eval and == its plain twin at S = 8, 4, 2, "
+          f"max_abs_err {eval_err}; ms per launch (CUDA graph) by S "
+          f"{ {s: round(v, 5) for s, v in eval_ms.items()} } against spec_eval {b2_ms:.5f}; "
+          f"plain twin { {s: round(v, 3) for s, v in eval_plain_ms.items()} } ms | "
+          f"replay_speculative_stream(cw, make_mesh(8, dp=2)): stats {json.dumps(mstats)}; "
+          f"{stream_s:.4f} s = {p / stream_s:.1f} cycles/s; equal to phase 8 (selected, "
+          f"feasible_count, compact bytes, decode bytes of pods {sample}); launches "
+          f"{stream_launched} | SchedulerEngine(mesh=make_mesh(8)).schedule_pending(): bound "
+          f"{bound_n}, wall {ewall:.4f} s = {p / ewall:.1f} cycles/s, launches {elaunched}; "
+          f"every spec.nodeName equals phase 4's replay, the 13 annotations of pods {esample} "
+          f"its decode | {MESH_ODD_NODES} nodes x {MESH_ODD_PODS} pods on make_mesh(8): "
+          f"{key} +{fallbacks}, bound {obound} in {owall:.4f} s through launches {olaunched}, "
+          f"equal to the engine without a mesh; {time.perf_counter() - t26:.1f} s", flush=True)
+
+    b2 = next(e for e in spec_entries if e["name"] == "spec_eval")
+    source = "kube_scheduler_simulator_tpu_torch/csrc/mesh.cu"
+    return [{
+        "name": "step_chunk_sharded",
+        "route": "cuda",
+        "source": source,
+        "replaces": "kube_scheduler_simulator_tpu/parallel/mesh.py:130",
+        "launches": main_launches,
+        "max_abs_err": step_err,
+        "ms": sharded_ms[8],
+        "plain_ms": plain_ms,
+        "bound_ms": step_entry["bound_ms"],
+        "bound_by": step_entry["bound_by"],
+        "library_ms": unsharded_ms,
+    }, {
+        "name": "spec_eval_sharded",
+        "route": "cuda",
+        "source": source,
+        "replaces": "kube_scheduler_simulator_tpu/parallel/mesh.py:143",
+        "launches": stream_launched.get("spec_eval_sharded", 0),
+        "max_abs_err": eval_err,
+        "ms": eval_ms[8],
+        "plain_ms": eval_plain_ms[8],
+        "bound_ms": b2["bound_ms"],
+        "bound_by": b2["bound_by"],
+        "library_ms": b2_ms,
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -2614,8 +2952,10 @@ def main() -> int:
     att_entry = result_path_phases(dev, card, cw, pods, rr, spec_ctx, dp_ctx)
     engine_entries = engine_phases(dev, card, cw, nodes, pods, cfg, rr)
     fuse_entries = fuse_phases(dev, card, cw, nodes, pods, cfg, spec_ctx)
+    mesh_entries = mesh_phases(dev, card, cw, nodes, pods, cfg, rr, spec_ctx, dp_ctx,
+                               step_entry, spec_entries)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
-                                  *engine_entries, *fuse_entries]}))
+                                  *engine_entries, *fuse_entries, *mesh_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -257,7 +257,8 @@ __device__ __forceinline__ void argmax_pair(long long& v, int& i, long long ov, 
   if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
 }
 
-__device__ __forceinline__ int block_argmax(long long v, int i, long long* shv, int* shi) {
+// The block's winning pair is left in (v, i) for every thread.
+__device__ __forceinline__ void block_argmax_pair(long long& v, int& i, long long* shv, int* shi) {
   for (int o = warpSize / 2; o > 0; o >>= 1) {
     long long ov = __shfl_xor_sync(0xffffffffu, v, o);
     int oi = __shfl_xor_sync(0xffffffffu, i, o);
@@ -269,7 +270,13 @@ __device__ __forceinline__ int block_argmax(long long v, int i, long long* shv, 
   long long bv = shv[0];
   int bi = shi[0];
   for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) argmax_pair(bv, bi, shv[w], shi[w]);
-  return bi;
+  v = bv;
+  i = bi;
+}
+
+__device__ __forceinline__ int block_argmax(long long v, int i, long long* shv, int* shi) {
+  block_argmax_pair(v, i, shv, shi);
+  return i;
 }
 
 // Exclusive prefix sum of one int per thread, in thread order; every
@@ -289,3 +296,25 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* sh) {
   for (int k = 0; k < w; ++k) off += sh[k];
   return off + x - v;
 }
+
+// ---- the reduction scope of the per-pod body (pod.cuh).  A scope says
+// which nodes the calling block walks, which of its threads writes the
+// pod's scalar outputs, whether it owns a node's exactly-once bind
+// updates, and how a reduction over the node axis ends.  BlockScope is
+// every kernel's but B12's: the block walks all N nodes and its
+// reductions are the block reductions above.  B12's ClusterScope
+// (mesh.cu) walks one shard's slice of the node axis and ends each
+// reduction with a combine across the thread-block cluster.
+struct BlockScope {
+  int lo, hi;  // the nodes this block walks: all of them
+  __device__ explicit BlockScope(const StepArgs& a) : lo(0), hi(a.N) {}
+  __device__ bool leader() const { return threadIdx.x == 0; }
+  __device__ bool owns(int) const { return true; }
+  __device__ long long min(long long v, long long* sh) { return block_min_ll(v, sh); }
+  __device__ long long max(long long v, long long* sh) { return block_max_ll(v, sh); }
+  __device__ long long sum(long long v, long long* sh) { return block_sum_ll(v, sh); }
+  __device__ int any(int v) { return __syncthreads_or(v); }
+  __device__ int argmax(long long v, int i, long long* shv, int* shi) {
+    return block_argmax(v, i, shv, shi);
+  }
+};

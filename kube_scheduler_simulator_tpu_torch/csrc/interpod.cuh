@@ -72,10 +72,11 @@ __device__ __forceinline__ long long interpod_normalize(long long raw, long long
 }
 
 // Node-space bind: for every term whose key the selected node carries,
-// every node of the same domain takes the pod's five increments, and
-// matched_total the match bit.  Terms with all-zero increments are
+// every node of [lo, hi) in the same domain takes the pod's five
+// increments, and matched_total the match bit, once, from thread 0 of
+// the owner of the selected node.  Terms with all-zero increments are
 // skipped (adding 0 changes nothing).  Only called with sel >= 0.
-__device__ void interpod_bind(const StepArgs& a, int c, int sel) {
+__device__ void interpod_bind(const StepArgs& a, int c, int sel, int lo, int hi, bool owner) {
   for (int t = 0; t < a.T; ++t) {
     const int dcol = a.ip_dom_idx[(long long)t * a.N + sel];
     if (dcol < 0) continue;  // uniform across the block
@@ -85,9 +86,9 @@ __device__ void interpod_bind(const StepArgs& a, int c, int sel) {
     const int inc_aff = a.ip_h_req_aff[ct];
     const int inc_pa = (int)a.ip_h_pref_aff_w[ct];
     const int inc_pn = (int)a.ip_h_pref_anti_w[ct];
-    if (threadIdx.x == 0) a.ip_matched_total[t] += inc_m;
+    if (owner && threadIdx.x == 0) a.ip_matched_total[t] += inc_m;
     if ((inc_m | inc_anti | inc_aff | inc_pa | inc_pn) == 0) continue;
-    for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+    for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
       const long long tn = (long long)t * a.N + n;
       if (a.ip_dom_idx[tn] != dcol) continue;
       a.ip_matched[tn] += inc_m;

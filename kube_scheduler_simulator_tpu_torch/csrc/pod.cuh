@@ -8,6 +8,16 @@
 // feasibility and spread-ignore bytes.  step_chunk has one pod in flight
 // and uses slot 0; a kernel with one pod per block gives block b slot b,
 // so blocks never share scratch.
+//
+// The body is templated on its reduction scope (common.cuh BlockScope;
+// B12's ClusterScope in mesh.cu): the node loops walk the scope's
+// [lo, hi), each reduction over the node axis is the scope's, the pod's
+// scalar outputs are written by the scope's leader, and the bind's
+// exactly-once updates (the selected node's rows, the cluster-wide bits)
+// are made only by the scope that owns the selected node.  The
+// non-templated overloads are the block scope's, which every kernel but
+// B12 calls.  Shards of a cluster write disjoint slices of a pod's
+// scratch.
 #pragma once
 
 #include "common.cuh"
@@ -146,25 +156,27 @@ __device__ __forceinline__ int prefilter_reject(const StepArgs& a, int c) {
 // Phases 0 and 1 of the step for pod c: the pre-reductions over N, then
 // per node each filter in config order with its filter_skip, the
 // first-fail word (compact) or the codes (full), and feasibility into
-// sc.feas; thread 0 writes the PreFilter reject.  Every thread of the
-// block calls it and gets the feasible count before the reject is
-// applied, and the reject in `reject`; sc.feas is complete when it
-// returns (block_sum_ll's barrier).
+// sc.feas; the scope's leader writes the PreFilter reject.  Every thread
+// of the scope calls it and gets the feasible count before the reject is
+// applied, and the reject in `reject`; the scope's slice of sc.feas is
+// complete when it returns (the sum's barrier).
+template <class Scope>
 __device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, long long* sh_ll,
-                          int& reject) {
+                          int& reject, Scope& scope) {
   const int N = a.N;
   reject = prefilter_reject(a, c);
-  if (threadIdx.x == 0) a.out_prefilter_reject[c] = reject;
+  if (scope.leader()) a.out_prefilter_reject[c] = reject;
   long long sp_mins[KSS_MC];
   for (int m = 0; m < KSS_MC; ++m) sp_mins[m] = 0;
   bool ip_any_aff = false;
   int ip_total_any = 0;
   for (int f = 0; f < a.F; ++f) {
-    if (a.filter_ids[f] == P_SPREAD && !a.sp_filter_skip[c]) spread_minima(a, c, sp_mins, sh_ll);
+    if (a.filter_ids[f] == P_SPREAD && !a.sp_filter_skip[c])
+      spread_minima(a, c, sp_mins, sh_ll, scope);
     if (a.filter_ids[f] == P_INTERPOD) interpod_pod_scalars(a, c, ip_any_aff, ip_total_any);
   }
   long long local_feasible = 0;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+  for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
     int first = -1, first_code = 0;
     for (int f = 0; f < a.F; ++f) {
       int code = filter_code(a, a.filter_ids[f], c, n, sp_mins, ip_any_aff, ip_total_any);
@@ -179,22 +191,30 @@ __device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, long l
       store_packed(a, (long long)c * N + n, word);
     }
   }
-  return (int)block_sum_ll(local_feasible, sh_ll);
+  return (int)scope.sum(local_feasible, sh_ll);
+}
+
+__device__ __forceinline__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc,
+                                          long long* sh_ll, int& reject) {
+  BlockScope scope(a);
+  return pod_filter(a, c, sc, sh_ll, reject, scope);
 }
 
 // Phases 2-4 for pod c: raw scores (outputs and sc.raw) with the
 // raw_overflow check, the normalizing reductions over the feasible set,
 // normalize x weight into the int64 total (-1 where infeasible), the
 // argmax (value desc, index asc) with feasible_count > 0 and is_pad
-// applied; thread 0 writes the pod's scalar outputs.  feasible_count is
-// 0 for a pod a PreFilter rejected.  Returns the selection to every
-// thread.
+// applied; the scope's leader writes the pod's scalar outputs.
+// feasible_count is 0 for a pod a PreFilter rejected.  Returns the
+// selection to every thread.
+template <class Scope>
 __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
-                                const PodScratch& sc, long long* sh_ll, int* sh_i) {
+                                const PodScratch& sc, long long* sh_ll, int* sh_i,
+                                Scope& scope) {
   const int N = a.N;
   // ---- 2. raw scores
   int local_ovf = 0;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+  for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
     bool ignored = false;
     for (int s = 0; s < a.S; ++s) {
       const int pid = a.score_ids[s];
@@ -207,7 +227,7 @@ __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
     }
     sc.ign[n] = ignored;
   }
-  const int overflow = __syncthreads_or(local_ovf);
+  const int overflow = scope.any(local_ovf);
 
   // ---- 3. reductions of the normalizing scorers over the feasible set
   long long lo[KSS_MAX_S], hi[KSS_MAX_S];
@@ -220,7 +240,7 @@ __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
     if (!normalizes(pid) || score_skipped(a, pid, c)) continue;  // uniform
     long long l = LLONG_MAX, h = LLONG_MIN;
     int any = 0;
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
       const long long raw = sc.raw[(long long)s * N + n];
       const bool feas = sc.feas[n] != 0;
       if (pid == P_SPREAD) {
@@ -235,15 +255,15 @@ __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
         h = ll_max(h, feas ? raw : 0);
       }
     }
-    if (pid == P_SPREAD || pid == P_INTERPOD) lo[s] = block_min_ll(l, sh_ll);
-    hi[s] = block_max_ll(h, sh_ll);
-    if (pid == P_SPREAD) any_scored[s] = __syncthreads_or(any) != 0;
+    if (pid == P_SPREAD || pid == P_INTERPOD) lo[s] = scope.min(l, sh_ll);
+    hi[s] = scope.max(h, sh_ll);
+    if (pid == P_SPREAD) any_scored[s] = scope.any(any) != 0;
   }
 
   // ---- 4. normalize x weight, total, argmax
   long long best_v = LLONG_MIN;
   int best_i = INT_MAX;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+  for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
     long long total = 0;
     for (int s = 0; s < a.S; ++s) {
       const int pid = a.score_ids[s];
@@ -264,9 +284,9 @@ __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
     if (!sc.feas[n]) total = -1;
     argmax_pair(best_v, best_i, total, n);
   }
-  int sel = block_argmax(best_v, best_i, sh_ll, sh_i);
+  int sel = scope.argmax(best_v, best_i, sh_ll, sh_i);
   if (feasible_count == 0 || a.is_pad[c]) sel = -1;
-  if (threadIdx.x == 0) {
+  if (scope.leader()) {
     a.out_selected[c] = sel;
     a.out_feasible_count[c] = feasible_count;
     if (a.compact) a.out_overflow[c] = overflow != 0;
@@ -276,25 +296,43 @@ __device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
 
 // Phases 0-4 for pod c against the carry as it stands; returns the
 // selection.  The caller binds (step_chunk) or does not (spec_eval).
+template <class Scope>
+__device__ __forceinline__ int eval_pod(const StepArgs& a, int c, const PodScratch& sc,
+                                        long long* sh_ll, int* sh_i, Scope& scope) {
+  int reject;
+  const int total = pod_filter(a, c, sc, sh_ll, reject, scope);
+  return pod_score_select(a, c, reject > 0 ? 0 : total, sc, sh_ll, sh_i, scope);
+}
+
 __device__ __forceinline__ int eval_pod(const StepArgs& a, int c, const PodScratch& sc,
                                         long long* sh_ll, int* sh_i) {
-  int reject;
-  const int total = pod_filter(a, c, sc, sh_ll, reject);
-  return pod_score_select(a, c, reject > 0 ? 0 : total, sc, sh_ll, sh_i);
+  BlockScope scope(a);
+  return eval_pod(a, c, sc, sh_ll, sh_i, scope);
 }
 
 // Phase 5: the bind of pod c at `sel` into the carry, in place, for every
 // carry the workload has (pipeline.py _bind_phase).  Every thread of the
-// block calls it; a rejected or padded pod (sel == -1) binds nothing.
-// The caller puts a barrier between the evaluation's last read of the
-// carry and this call, and after it.
-__device__ __forceinline__ void bind_pod(const StepArgs& a, int c, int sel) {
+// scope calls it; a rejected or padded pod (sel == -1) binds nothing.
+// The node-space rows (spread counts, the InterPod matrices) take their
+// same-domain increments over the scope's slice; everything that must
+// happen exactly once (the selected node's core, NodePorts, disk and CSI
+// rows, InterPod's matched_total, the cluster-wide ReadWriteOncePod bits
+// and the PVs VolumeBinding claims) is done by the scope that owns the
+// selected node.  The caller puts a barrier between the evaluation's
+// last read of the carry and this call, and after it.
+template <class Scope>
+__device__ __forceinline__ void bind_pod(const StepArgs& a, int c, int sel, const Scope& scope) {
   if (sel < 0) return;
-  core_bind(a, c, sel);
-  if (a.has_ports) ports_bind(a, c, sel);
-  if (a.has_spread) spread_bind(a, c, sel);
-  if (a.has_interpod) interpod_bind(a, c, sel);
-  if (a.has_vr) vr_bind(a, c, sel);
-  if (a.has_nvl) nvl_bind(a, c, sel);
-  if (a.has_vb) vb_bind(a, c, sel);
+  const bool owner = scope.owns(sel);
+  if (owner) core_bind(a, c, sel);
+  if (a.has_ports && owner) ports_bind(a, c, sel);
+  if (a.has_spread) spread_bind(a, c, sel, scope.lo, scope.hi);
+  if (a.has_interpod) interpod_bind(a, c, sel, scope.lo, scope.hi, owner);
+  if (a.has_vr && owner) vr_bind(a, c, sel);
+  if (a.has_nvl && owner) nvl_bind(a, c, sel);
+  if (a.has_vb && owner) vb_bind(a, c, sel);
+}
+
+__device__ __forceinline__ void bind_pod(const StepArgs& a, int c, int sel) {
+  bind_pod(a, c, sel, BlockScope(a));
 }

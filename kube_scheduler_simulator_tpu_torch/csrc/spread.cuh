@@ -22,18 +22,22 @@ __device__ __forceinline__ bool spread_checks(const StepArgs& a, int c, int m) {
 
 // Per-slot minimum count over eligible keyed nodes, for the slots the
 // filter checks (min_match of _per_constraint); minDomains unsatisfied
-// forces 0.  Every thread calls this and gets every slot's minimum.
-__device__ void spread_minima(const StepArgs& a, int c, long long* mins, long long* sh) {
+// forces 0.  Every thread of the scope calls this and gets every slot's
+// minimum: each walks the scope's nodes, and a shard with no eligible
+// keyed node contributes KSS_BIG to the scope's min.
+template <class Scope>
+__device__ void spread_minima(const StepArgs& a, int c, long long* mins, long long* sh,
+                              Scope& scope) {
   for (int m = 0; m < KSS_MC; ++m) {
     mins[m] = 0;
-    if (!spread_checks(a, c, m)) continue;  // uniform across the block
+    if (!spread_checks(a, c, m)) continue;  // uniform across the scope
     const long long cid = a.sp_c_id[c * KSS_MC + m];
     long long local = KSS_BIG;
-    for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+    for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
       if (a.sp_dom_idx[cid * a.N + n] >= 0 && spread_eligible(a, c, m, n))
         local = ll_min(local, (long long)a.sp_counts[cid * a.N + n]);
     }
-    long long mn = block_min_ll(local, sh);
+    long long mn = scope.min(local, sh);
     mins[m] = a.sp_md_unsat[c * KSS_MC + m] ? 0 : mn;
   }
 }
@@ -83,14 +87,16 @@ __device__ __forceinline__ long long spread_normalize(long long raw, bool ignore
   return ignored ? 0 : out;
 }
 
-// Node-space bind: every node sharing the selected node's domain, in
-// every group the pod matches, takes +1.  Only called with sel >= 0.
-__device__ void spread_bind(const StepArgs& a, int c, int sel) {
+// Node-space bind: every node of [lo, hi) sharing the selected node's
+// domain, in every group the pod matches, takes +1.  Only called with
+// sel >= 0; the selected node's domain is read from the statics, which
+// every shard sees whole.
+__device__ void spread_bind(const StepArgs& a, int c, int sel, int lo, int hi) {
   for (int g = 0; g < a.G; ++g) {
     if (!a.sp_pm[(long long)c * a.G + g]) continue;  // uniform across the block
     const int dcol = a.sp_dom_idx[(long long)g * a.N + sel];
     if (dcol < 0) continue;
-    for (int n = threadIdx.x; n < a.N; n += blockDim.x)
+    for (int n = lo + threadIdx.x; n < hi; n += blockDim.x)
       if (a.sp_dom_idx[(long long)g * a.N + n] == dcol) a.sp_counts[(long long)g * a.N + n] += 1;
   }
 }

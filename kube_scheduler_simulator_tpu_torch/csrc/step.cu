@@ -32,8 +32,9 @@
 // touches (a few rows of [N] per plugin plus the compact outputs) are
 // small against the card's bandwidth; the time goes to the dependent
 // chain of phases and block barriers, pod after pod, on one of 132 SMs.
-// Spreading a pod over a thread-block cluster, or a persistent grid with
-// grid-wide phases, is later work.
+// B12 (mesh.cu step_chunk_sharded) spreads a pod over a thread-block
+// cluster, one node slice per CTA; a persistent grid with grid-wide
+// phases is later work.
 //
 // Phases 0-4 are the per-pod body in pod.cuh, which the speculative
 // wave's kernels share.

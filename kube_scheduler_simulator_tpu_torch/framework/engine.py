@@ -20,7 +20,10 @@ PyTorch versions) and never falls back to the CPU.  The kernels it
 reaches beyond the replay's and the stream's: B8 `quorum_slice` in every
 gang wave (`_gang_decide`) and B10 `phased_eval` / `renormalize_row`
 with B5's `spec_commit_bind` on the host-interleaved path
-(`_schedule_host_path`).  `mesh=` raises (B12); `unroll` is kept in the
+(`_schedule_host_path`).  `mesh=` (a one-card parallel.mesh.Mesh) runs
+every wave whose node count divides the mesh's "nodes" extent through
+B12, the node-sharded replay and stream, and the rest unsharded, counted
+by `mesh_fallback_indivisible_nodes_total`; `unroll` is kept in the
 signature and not passed on (the step kernel has none, and it never
 changes a result); compile_workload's node-table reuse and columnar pod
 view (`reuse=`, `pod_columns=`) and the store's columnar plane that feeds
@@ -519,11 +522,19 @@ class SchedulerEngine:
                  plugin_config: PluginSetConfig | None = None,
                  chunk: int = 512, mesh=None, unroll: int = 2,
                  pipeline_commit: bool = True, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported (ROADMAP Queue B: B12)")
         # every wave's compile, replay, stream and kernel runs here
         self.device = resolve_device(device)
+        # optional one-card parallel.mesh.Mesh with a "nodes" axis: every
+        # batched replay and stream shards the node axis across it
+        if mesh is not None:
+            from ..parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh: expected a parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if mesh.device != self.device:
+                raise ValueError(f"mesh on {mesh.device}, engine on {self.device}")
+        self.mesh = mesh
         self.store = store
         # chunk-pipelined commit (docs/wave-pipeline.md): commit each
         # decoded chunk on a worker thread while the device scans later
@@ -1193,6 +1204,18 @@ class SchedulerEngine:
                    if gang_dir is not None else None)
             self._gang_wave = ctx if ctx else _GANG_NONE
 
+        # a live cluster's node count need not divide the mesh's "nodes"
+        # extent; shard only waves where it does and run the rest
+        # unsharded (shard_workload would reject the shape) — the
+        # speculative stream's dp batching tolerates mesh=None
+        mesh = self.mesh
+        if mesh is not None:
+            from ..parallel.mesh import can_shard
+
+            if not can_shard(cw.n_nodes, mesh):
+                TRACER.count("mesh_fallback_indivisible_nodes_total")
+                mesh = None
+
         from ..store.decode import decode_chunk_into
 
         if (os.environ.get("KSS_TPU_SPECULATIVE", "1") != "0"
@@ -1214,7 +1237,7 @@ class SchedulerEngine:
                       else frozenset())
             if speculation_ok(self.plugin_config, have_manifests=True,
                               ignore=ignore):
-                return self._speculative_wave(cw, pending, exclude,
+                return self._speculative_wave(cw, mesh, pending, exclude,
                                               len(nodes), ignore)
 
         if self._custom_lifecycle_plugins():
@@ -1228,7 +1251,7 @@ class SchedulerEngine:
                                  nodes=len(nodes)) as sp:
                     rr = replay(
                         cw, chunk=min(self.chunk, max(len(pending), 1)),
-                        device=self.device,
+                        device=self.device, mesh=mesh,
                         device_resident=False)
                 return rr, sp.seconds
 
@@ -1261,7 +1284,7 @@ class SchedulerEngine:
                     # (unless the degradation ladder stepped to host)
                     committer.parent_span = sp.id
                     rr = replay(cw, chunk=min(self.chunk, max(len(pending), 1)),
-                                device=self.device,
+                                device=self.device, mesh=mesh,
                                 on_chunk=committer.on_chunk,
                                 device_resident=(
                                     committer.lazy
@@ -1296,7 +1319,7 @@ class SchedulerEngine:
                                  pods=len(pending), nodes=len(nodes)) as sp:
                     rr = replay(
                         cw, chunk=min(self.chunk, max(len(pending), 1)),
-                        device=self.device,
+                        device=self.device, mesh=mesh,
                         device_resident=self._effective_residency() == 0)
                 return rr, sp.seconds
 
@@ -1317,7 +1340,7 @@ class SchedulerEngine:
                              nodes=len(nodes)) as sp:
                 rr = replay(
                     cw, chunk=min(self.chunk, max(len(pending), 1)),
-                    device=self.device,
+                    device=self.device, mesh=mesh,
                     on_chunk=lambda rr_, lo, hi: decode_chunk_into(
                         rr_, lo, hi, all_annotations))
             return rr, sp.seconds
@@ -1327,7 +1350,7 @@ class SchedulerEngine:
         self._record_attribution(rr, replay_seconds)
         return self._finish_wave(cw, rr, all_annotations, pending, exclude)
 
-    def _speculative_wave(self, cw, pending,
+    def _speculative_wave(self, cw, mesh, pending,
                           exclude: set[tuple[str, str]] | None,
                           n_nodes: int, ignore: frozenset = frozenset()
                           ) -> tuple[int, str | None]:
@@ -1355,7 +1378,7 @@ class SchedulerEngine:
                                  mode="speculative") as sp:
                     committer.parent_span = sp.id
                     rr, _stats = replay_speculative_stream(
-                        cw, chunk=chunk, device=self.device,
+                        cw, mesh, chunk=chunk, device=self.device,
                         pods=pending, namespaces=namespaces,
                         on_chunk=committer.on_chunk,
                         device_resident=(
@@ -1398,7 +1421,7 @@ class SchedulerEngine:
             with TRACER.span("replay_and_decode_stream", pods=len(pending),
                              nodes=n_nodes, mode="speculative") as sp:
                 rr, _stats = replay_speculative_stream(
-                    cw, chunk=chunk, device=self.device,
+                    cw, mesh, chunk=chunk, device=self.device,
                     pods=pending, namespaces=namespaces, on_chunk=on_chunk,
                     device_resident=(lazy
                                      and self._effective_residency() == 0),

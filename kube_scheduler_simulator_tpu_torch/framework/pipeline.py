@@ -340,6 +340,40 @@ class Step:
         is_pad = sl.get("is_pad")
         if is_pad is not None:
             selected = torch.where(is_pad, -1, selected)
+        return self.pod_out(filter_codes, score_raw, score_final, selected,
+                            feasible_count, reject)
+
+    def _raw_groups(self, score_raw) -> dict[str, list]:
+        """The compact groups' raw rows of [S, n] int64 score_raw."""
+        groups: dict[str, list] = {"i8": [], "i16": [], "i32": []}
+        for s, g in enumerate(self.score_dtypes):
+            if g == "host":
+                continue  # precompiled host row: never fetched
+            groups["i32" if self.wide_raw else g].append(score_raw[s])
+        return groups
+
+    def raw_overflow(self, score_raw) -> torch.Tensor:
+        """Whether some raw of [S, n] int64 score_raw does not survive the
+        narrowing that is checked (compact mode): the i16 group on the
+        first tier, the i32 group on the second.  i8 members are provably
+        in range (compile-time bounds).  Any node axis: the node-sharded
+        step ORs it over shards."""
+        groups = self._raw_groups(score_raw)
+        ovf = torch.zeros((), dtype=torch.bool, device=score_raw.device)
+        if self.wide_raw is None and groups["i16"]:
+            full = torch.stack(groups["i16"])
+            ovf = torch.any(full != full.to(torch.int16).to(full.dtype))
+        elif self.wide_raw == "i32" and groups["i32"]:
+            full = torch.stack(groups["i32"])
+            ovf = torch.any(full != full.to(torch.int32).to(full.dtype))
+        return ovf
+
+    def pod_out(self, filter_codes, score_raw, score_final, selected, feasible_count,
+                reject, overflow=None):
+        """One pod's StepOut / CompactOut from its [F, N] codes, [S, N]
+        int64 raws and finals and its scalars; the compact raw_overflow is
+        computed here unless given (the node-sharded step's OR of its
+        shards')."""
         if self.out_mode == "full":
             return StepOut(
                 filter_codes=filter_codes.to(torch.int32),
@@ -349,37 +383,21 @@ class Step:
                 feasible_count=feasible_count,
                 prefilter_reject=reject,
             )
-        groups: dict[str, list] = {"i8": [], "i16": [], "i32": []}
-        for s, g in enumerate(self.score_dtypes):
-            if g == "host":
-                continue  # precompiled host row: never fetched
-            groups["i32" if self.wide_raw else g].append(score_raw[s])
-        n = cw.n_nodes
+        groups = self._raw_groups(score_raw)
+        n = self.cw.n_nodes
 
         def stack(rows, dtype):
             if not rows:
-                return torch.zeros((0, n), dtype=dtype, device=feasible.device)
+                return torch.zeros((0, n), dtype=dtype, device=score_raw.device)
             return torch.stack(rows).to(dtype)
 
-        raw8 = stack(groups["i8"], torch.int8)
-        raw16 = stack(groups["i16"], torch.int16)
-        raw32 = stack(groups["i32"],
-                      torch.int64 if self.wide_raw == "i64" else torch.int32)
-        ovf = torch.zeros((), dtype=torch.bool, device=feasible.device)
-        if self.wide_raw is None and groups["i16"]:
-            # i8 members are provably in range (compile-time bounds); only
-            # the i16 group needs the runtime check, at every node
-            full = torch.stack(groups["i16"])
-            ovf = torch.any(full != raw16.to(full.dtype))
-        elif self.wide_raw == "i32" and groups["i32"]:
-            full = torch.stack(groups["i32"])
-            ovf = torch.any(full != raw32.to(full.dtype))
         return CompactOut(
             packed_filter=pack_filter_codes(filter_codes, n, self.pack_mode),
-            raw8=raw8,
-            raw16=raw16,
-            raw32=raw32,
-            raw_overflow=ovf,
+            raw8=stack(groups["i8"], torch.int8),
+            raw16=stack(groups["i16"], torch.int16),
+            raw32=stack(groups["i32"],
+                        torch.int64 if self.wide_raw == "i64" else torch.int32),
+            raw_overflow=self.raw_overflow(score_raw) if overflow is None else overflow,
             selected=selected,
             feasible_count=feasible_count,
             prefilter_reject=reject,
@@ -401,7 +419,13 @@ class Step:
         """A chunk of pods, in order -> (carry', stacked outs), through the
         kernel wrapper: one launch of the step kernel for tensors on the
         card (the carry updated in place), `plain_scan` for tensors on the
-        CPU."""
+        CPU.  A workload sharded over a mesh (parallel/mesh.py
+        shard_workload) runs the node-sharded step instead (B12,
+        kernels/mesh.py step_chunk_sharded)."""
+        if self.cw.mesh is not None:
+            from ..kernels.mesh import step_chunk_sharded
+
+            return step_chunk_sharded(self, carry, xs_chunk)
         from ..kernels.step import step_chunk
 
         return step_chunk(self, carry, xs_chunk)

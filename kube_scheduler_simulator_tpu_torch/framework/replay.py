@@ -26,8 +26,10 @@ to every reader:
 
 The dispatch loop stays up to `_MAX_INFLIGHT` chunks ahead of the oldest
 fetch, so the host queues launches while the card works.  The last chunk
-is padded; padded steps carry `is_pad` and never bind.  Meshes are
-ROADMAP Queue B item B12.
+is padded; padded steps carry `is_pad` and never bind.  With a one-card
+mesh (`replay(cw, mesh=...)`, parallel/mesh.py) every chunk runs B12
+`step_chunk_sharded` and writes the same full-width outputs, so the
+rungs, B7 and the decode run unchanged.
 
 Fault seams (utils/faults.py), at the JAX package's steps: each chunk's
 dispatch (`replay.scan_dispatch`), each in-wave fetch
@@ -996,15 +998,21 @@ def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chun
     device: where the replay runs ("cuda" by default, which needs a card;
     "cpu" runs the plain PyTorch versions).  It must be the device `cw`
     was compiled for.
-    mesh, unroll: the JAX package's node-axis sharding and scan unroll;
-    not ported, they raise."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported (ROADMAP Queue B: B12)")
+    mesh: a one-card parallel.mesh.Mesh — the workload's node axis is
+    sharded over its "nodes" extent (parallel/mesh.py shard_workload) and
+    every chunk runs B12 `step_chunk_sharded`, one CTA of a thread-block
+    cluster per shard; results are byte-identical to the unsharded
+    replay.  The node count must divide by the "nodes" extent.
+    unroll: the JAX package's scan unroll; not ported, it raises."""
     if unroll != 1:
         raise NotImplementedError("the step kernel has no unroll")
     device = resolve_device(device)
     if cw.device != device:
         raise ValueError(f"workload compiled for {cw.device}, replay asked for {device}")
+    if mesh is not None:
+        from ..parallel.mesh import shard_workload
+
+        cw = shard_workload(cw, mesh)
     device_resident = _resolve_device_resident(device_resident, collect, on_chunk)
     # widening ladder: narrow groups -> int32 -> int64 (a raw overflowing
     # its group dtype triggers the next tier; int64 is the upstream score
@@ -1080,14 +1088,16 @@ def _statics_fingerprint(cw: CompiledWorkload) -> str:
 
 
 def _workload_scan_key(cw: CompiledWorkload, chunk: int):
-    """replay.py:1088: what picks a workload's compiled programs in the
-    JAX package: the statics' content, the xs and carry SHAPES (not their
-    values), the plugin configuration and the chunk (the JAX key's mesh
-    signature is always None here: the port has no mesh).  Two workloads
-    with equal keys run the same step over different pods; the fuse
-    family (parallel/speculative.py `_fuse_family`) is built on it."""
+    """replay.py:1092: what picks a workload's compiled programs in the
+    JAX package: the statics' content, the signature of the mesh `cw` is
+    sharded over (None without one), the xs and carry SHAPES (not their
+    values), the plugin configuration and the chunk.  Two workloads with
+    equal keys run the same step over different pods; the fuse family
+    (parallel/speculative.py `_fuse_family`) is built on it, so only
+    sessions on the same mesh stack."""
     import json
 
+    mesh_sig = cw.mesh.signature() if cw.mesh is not None else None
     shapes = tuple((path, tuple(np.shape(leaf)), str(leaf.dtype if isinstance(leaf, torch.Tensor)
                                                       else np.asarray(leaf).dtype))
                    for tree in (cw.xs, cw.init_carry) for path, leaf in _leaves(tree))
@@ -1101,7 +1111,7 @@ def _workload_scan_key(cw: CompiledWorkload, chunk: int):
         tuple(sorted((k, tuple(v)) for k, v in cfg.point_enabled.items())),
         tuple(sorted((k, tuple(sorted(v))) for k, v in cfg.point_disabled.items())),
     )
-    return (_statics_fingerprint(cw), shapes, cfg_sig, chunk)
+    return (_statics_fingerprint(cw), mesh_sig, shapes, cfg_sig, chunk)
 
 
 # chunks in flight before the dispatch loop waits on the oldest fetch.

@@ -67,6 +67,9 @@ SIGNATURES = {
              "kss_spec_eval_fused": ([_P, _I, _P], _I),
              "kss_spec_round_fused": ([_P, _I, _P], _I),
              "kss_spec_oracle_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
+    "mesh": {"kss_step_args_size": ([], _I), "kss_mesh_max_shards": ([], _I),
+             "kss_step_chunk_sharded": ([_P, _I, _P], _I),
+             "kss_spec_eval_sharded": ([_P, _I, _P], _I)},
 }
 
 

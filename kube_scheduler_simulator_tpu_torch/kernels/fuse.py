@@ -78,8 +78,15 @@ class Member:
 
 def dense_round(m: Member):
     """The solo dense round -> (CompactOut, K): spec_eval then
-    spec_oracle (speculative.py:939 `dense_round_for`)."""
-    outs = kspec.spec_eval(m.step, m.carry, m.xs, outs=m.outs)
+    spec_oracle (speculative.py:939 `dense_round_for`).  A member whose
+    workload is sharded over a mesh evaluates with B12
+    `spec_eval_sharded` (kernels/mesh.py) instead of spec_eval."""
+    if m.step.cw.mesh is not None:
+        from .mesh import spec_eval_sharded
+
+        outs = spec_eval_sharded(m.step, m.carry, m.xs, outs=m.outs)
+    else:
+        outs = kspec.spec_eval(m.step, m.carry, m.xs, outs=m.outs)
     k = kspec.spec_oracle(outs.packed_filter, outs.prefilter_reject, outs.selected,
                           out=None if m.outs is None else m.outs["k"])
     return outs, k
@@ -98,7 +105,26 @@ def _members(args_list: list) -> list[Member]:
     return [args[0] for args in args_list]
 
 
-dense_round.fused = lambda args_list: dense_round_fused(_members(args_list))
+def _dense_fused(args_list: list) -> list:
+    """K members' dense rounds in one fused call: B11 for unsharded
+    members; members sharded over a mesh (one fuse family holds one mesh)
+    run their spec_eval_sharded rounds in turn — a single fused sharded
+    launch is later work (ROADMAP Queue B)."""
+    members = _members(args_list)
+    if members[0].step.cw.mesh is None:
+        return dense_round_fused(members)
+    if members[0].stream is None:  # CPU tensors
+        return [dense_round(m) for m in members]
+    # the launches in turn join and release the members' streams as one
+    # B11 launch does (_launch)
+    _join_streams(members)
+    with torch.cuda.stream(members[0].stream):
+        rounds = [dense_round(m) for m in members]
+    _release_streams(members)
+    return rounds
+
+
+dense_round.fused = _dense_fused
 sparse_round.fused = lambda args_list: sparse_round_fused(_members(args_list))
 
 

@@ -12,8 +12,11 @@ and `stats()` are the JAX module's, unchanged.  Two things differ:
     `spec_oracle_fused`), whose blocks each read one session's own
     tensors through a per-session table of kernel arguments.  On the CPU
     it runs each member's plain round in turn;
-  * `_place_sessions` is the identity: a mesh raises in the port
-    (ROADMAP Queue B item B12).
+  * `_place_sessions` places nothing: on one card a mesh's members keep
+    their own tensors, and a fused dense round of members sharded over a
+    mesh runs their B12 `spec_eval_sharded` rounds in turn inside the one
+    `_run_fused` (kernels/fuse.py `_dense_fused`), so the tallies stay
+    the JAX ones.
 
 The rest is the JAX module's description, which holds for the port.
 
@@ -158,10 +161,14 @@ class _Batch:
 
 def _place_sessions(args_list: list, mesh, k: int) -> list:
     """The JAX package lays the stacked session axis over a mesh's "dp"
-    extent.  The port has no mesh (a stream with one raises before it
-    opens), so placement is the identity."""
+    extent.  On one card nothing is stacked: every member of a fused
+    call keeps its own tensors, on the mesh its stream opened with (the
+    fuse family holds the mesh's signature, so members share it)."""
     if mesh is not None:
-        raise NotImplementedError("meshes are not ported (ROADMAP Queue B: B12)")
+        for args in args_list:
+            member_mesh = args[0].step.cw.mesh
+            if member_mesh != mesh:
+                raise ValueError(f"a member on {member_mesh} in a fused call on {mesh}")
     return args_list
 
 

@@ -25,6 +25,13 @@ Each round's device work is a hand-written kernel (kernels/spec.py):
   * the contention fallback: the scan's step_chunk (B1), resumed from
     the speculative carry.
 
+On a mesh (`mesh=`, parallel/mesh.py, JAX :762-763, :969-979, :992-996)
+the stream runs over `shard_workload(cw, mesh)`: the dense round's eval
+is B12 `spec_eval_sharded` (kernels/mesh.py), one cluster of the mesh's
+"nodes" CTAs per pod; the scan fallback is B12 `step_chunk_sharded`; the
+batch ladder rounds its rungs to dp multiples.  The sparse round (B4), the oracle, the commit and the grid
+stay unsharded, as in JAX (`_sparse_round_fn` takes no mesh).
+
 On the CPU each wrapper runs its plain PyTorch version instead.  The
 device is the one `cw` lives on: `compile_workload` defaults to the card.
 
@@ -61,8 +68,9 @@ Fault seams: `speculative.round` at the top of every round,
 `replay.scan_dispatch` at each round's and scan chunk's dispatch,
 `replay.decision_fetch` after each result.
 
-Not ported, and refused where a caller asks for them: meshes (`mesh`,
-ROADMAP Queue B item B12), and `unroll=` (the scan kernel has no unroll).
+Not ported, and refused where a caller asks for them: `unroll=` (the
+scan kernel has no unroll), and a mesh over more than one card (ROADMAP
+Queue B item B12b, parallel/mesh.py).
 
 Env knobs, read as in JAX: KSS_TPU_SPECULATIVE_BATCH pins the batch (one
 rung); KSS_TPU_SPECULATIVE_CANDIDATES caps the sparse round's candidate
@@ -94,6 +102,7 @@ from ..utils.env import env_float, env_int
 from ..utils.faults import fault_point
 from ..utils.tracing import TRACER
 from .fuse import FUSE, fuse_enabled, session_admitted
+from .mesh import shard_workload
 
 # per-node plugins with no cross-pod coupling: filters are static or
 # monotone in node allocation, scores depend only on the node's own
@@ -303,13 +312,15 @@ def replay_speculative_stream(
     the sparse-round eligibility).  device: where the stream runs; None
     is the device `cw` was compiled for, anything else must name it.
 
+    mesh: a one-card parallel.mesh.Mesh (module doc).
+
     Returns (rr, stats): rr is bit-identical to replay(cw) and the
     sequential oracle; stats records rounds, acceptance and fallback.
     Caller must have checked speculation_ok(cw.config, ...)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported (ROADMAP Queue B: B12)")
     if device is not None and resolve_device(device) != cw.device:
         raise ValueError(f"workload compiled for {cw.device}, stream asked for {device}")
+    if mesh is not None:
+        cw = shard_workload(cw, mesh)
     device_resident = _resolve_device_resident(device_resident, True, on_chunk)
     active = set(cw.config.active_plugins())
     inter: _InteractionOracle | None = None
@@ -335,7 +346,7 @@ def replay_speculative_stream(
         if fuse_enabled():
             fuse_stream = FUSE.stream_open(
                 _fuse_family(cw, chunk, wide, ignore),
-                admitted=session_admitted(TRACER.current_session()))
+                admitted=session_admitted(TRACER.current_session()), mesh=cw.mesh)
         try:
             result = _spec_run(cw, chunk, batch, on_chunk, wide, inter, scan_fallback,
                                device_resident, gang, ignore, fuse_stream)
@@ -359,9 +370,9 @@ def _kcand(cw: CompiledWorkload, override: int | None) -> int:
 def _fuse_family(cw: CompiledWorkload, chunk: int, wide, ignore: frozenset | set):
     """JAX :724: the fuse-compatibility family, everything that picks the
     round programs a stream will run short of the rung (which joins the
-    per-dispatch key): the workload's scan key (statics CONTENT, xs and
-    carry SHAPES, plugin configuration, chunk), the width tier, the round
-    kind and the candidate cap.  Streams of one family fuse, so sessions
+    per-dispatch key): the workload's scan key (statics CONTENT, the
+    mesh, xs and carry SHAPES, plugin configuration, chunk), the width
+    tier, the round kind and the candidate cap.  Streams of one family fuse, so sessions
     with different pods over the same fleet and queue size share rounds.
     The candidate cap resolves here exactly as _spec_run resolves it, or
     two streams of one family could pick different sparse rounds."""
@@ -387,7 +398,8 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
     pack_mode, score_dtypes, score_cols = _compact_plan(cw, wide)
     step = build_step(cw, out_mode="compact", pack_mode=pack_mode,
                       score_dtypes=score_dtypes, wide_raw=wide)
-    ladder = _batch_ladder(chunk, 1, batch)
+    # a mesh's dp groups split every batch evenly (JAX :762)
+    ladder = _batch_ladder(chunk, cw.mesh.shape["dp"] if cw.mesh is not None else 1, batch)
     adaptive = batch is None and len(ladder) > 1
     rung = 0
     min_accept = env_float("KSS_TPU_SPECULATIVE_MIN_ACCEPT", 0.25)

@@ -46,8 +46,13 @@ def default_normalize_score(raw, feasible, reverse: bool):
     feasible-node subset (base.py:45).  `//` on int64 tensors floors, as
     jnp's does."""
     raw = raw.to(torch.int64)
-    masked = torch.where(feasible, raw, 0)
-    max_count = masked.max()
+    return default_normalize_apply(raw, torch.where(feasible, raw, 0).max(), reverse)
+
+
+def default_normalize_apply(raw, max_count, reverse: bool):
+    """DefaultNormalizeScore given max_count, the max of int64 raw over
+    the feasible set (0 elsewhere): the node-sharded step reduces it
+    across shards first (kernels/mesh.py)."""
     safe_max = torch.clamp(max_count, min=1)
     scaled = raw * MAX_NODE_SCORE // safe_max
     if reverse:

@@ -336,6 +336,13 @@ def normalize(raw, feasible):
     big = 1 << 40
     mn = torch.min(torch.where(feasible, raw, big))
     mx = torch.max(torch.where(feasible, raw, -big))
+    return normalize_apply(raw, mn, mx)
+
+
+def normalize_apply(raw, mn, mx):
+    """normalize given the feasible min and max of raw (+-2^40 where
+    nothing is feasible): the node-sharded step reduces them across
+    shards first."""
     diff = (mx - mn).to(torch.float64)
     f = torch.where(
         diff > 0,

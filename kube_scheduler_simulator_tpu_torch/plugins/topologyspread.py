@@ -322,32 +322,51 @@ def _slot_eligible(pod, m):
     return pod.eligible[m] if pod.eligible.dim() == 2 else pod.eligible
 
 
-def _per_constraint(static: SpreadStatic, pod, counts, m):
+def _per_constraint(static: SpreadStatic, pod, counts, m, slot_min=None):
     """Per-constraint-slot quantities: (active, has_key[N], cnt[N], min_match).
 
     counts is node-space [C, N]; min-over-present-domains equals the min
     over eligible keyed NODES of the node-space counts.  minDomains
     (spec'd and unsatisfied -> md_unsat at build time) forces the global
-    minimum to 0, upstream getMinMatchNum semantics."""
+    minimum to 0, upstream getMinMatchNum semantics.  slot_min: the min
+    over eligible keyed nodes reduced elsewhere (the node-sharded step
+    combines `minima_partial` across shards) instead of over this
+    node axis."""
     cid = pod.c_id[m]
     active = cid >= 0
     c = torch.clamp(cid, min=0).to(torch.int64)
     dom = static.dom_idx[c]                      # [N]
     has_key = dom >= 0
     cnt = counts[c]                              # [N] (0 where key missing)
-    min_match = torch.min(
-        torch.where(has_key & _slot_eligible(pod, m), cnt.to(torch.int64),
-                    int(_BIG)))
-    min_match = torch.where(pod.md_unsat[m], 0, min_match)
+    if slot_min is None:
+        slot_min = _slot_min(static, pod, counts, m)
+    min_match = torch.where(pod.md_unsat[m], 0, slot_min)
     return active, has_key, cnt, min_match
 
 
-def filter_kernel(static: SpreadStatic, pod, counts) -> torch.Tensor:
-    """[N] int32: 0 pass; 1+2m missing-label at slot m; 2+2m skew at slot m."""
+def _slot_min(static: SpreadStatic, pod, counts, m):
+    """Slot m's min count over the eligible keyed nodes of this node
+    axis, _BIG where it has none (before minDomains)."""
+    c = torch.clamp(pod.c_id[m], min=0).to(torch.int64)
+    keyed = (static.dom_idx[c] >= 0) & _slot_eligible(pod, m)
+    return torch.min(torch.where(keyed, counts[c].to(torch.int64), int(_BIG)))
+
+
+def minima_partial(static: SpreadStatic, pod, counts) -> torch.Tensor:
+    """[MAX_CONSTRAINTS] int64: every slot's `_slot_min`, one shard's
+    partial of the filter's minima."""
+    return torch.stack([_slot_min(static, pod, counts, m) for m in range(MAX_CONSTRAINTS)])
+
+
+def filter_kernel(static: SpreadStatic, pod, counts, slot_mins=None) -> torch.Tensor:
+    """[N] int32: 0 pass; 1+2m missing-label at slot m; 2+2m skew at slot m.
+    slot_mins: the per-slot minima reduced elsewhere (`minima_partial`
+    combined across shards), or None to reduce over this node axis."""
     code = torch.zeros(static.dom_idx.shape[1], dtype=torch.int32,
                        device=counts.device)
     for m in range(MAX_CONSTRAINTS):
-        active, has_key, cnt, min_match = _per_constraint(static, pod, counts, m)
+        active, has_key, cnt, min_match = _per_constraint(
+            static, pod, counts, m, None if slot_mins is None else slot_mins[m])
         check = active & pod.is_filter[m]
         self_match = pod.pm[torch.clamp(pod.c_id[m], min=0).to(torch.int64)].to(torch.int64)
         skew = cnt + self_match - min_match
@@ -378,7 +397,14 @@ def normalize(raw, ignored, feasible):
     scored = feasible & ~ignored
     mn = torch.min(torch.where(scored, raw, int(_BIG)))
     mx = torch.max(torch.where(scored, raw, 0))
-    mn = torch.where(torch.any(scored), mn, 0)
+    return normalize_apply(raw, ignored, mn, mx, torch.any(scored))
+
+
+def normalize_apply(raw, ignored, mn, mx, any_scored):
+    """normalize given the min and max of raw over the scored (feasible,
+    not ignored) nodes, _BIG and 0 where none is, and whether any is: the
+    node-sharded step reduces the three across shards first."""
+    mn = torch.where(any_scored, mn, 0)
     out = torch.where(
         mx == 0,
         MAX_NODE_SCORE,

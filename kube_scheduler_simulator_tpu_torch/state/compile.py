@@ -49,6 +49,61 @@ from ..plugins.base import CoreCarry, to_tensor
 VOLUME_PLUGINS = ("VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
 
 
+# The node axis of every tensor leaf that compile_workload emits, by part
+# ("statics", "carry", and "xs" for ONE pod, so without the pod axis),
+# component and field; a component that is a bare tensor maps to its axis.
+# None: the leaf has no node axis (cluster-wide, or indexed by groups,
+# terms, volumes or slots).  A width-1 node axis (the compact always-pass
+# rows of VolumeZone and VolumeBinding) broadcasts.  The node-sharded
+# step's plain twin (kernels/mesh.py) cuts each shard's view by this
+# table and refuses a leaf that is missing from it.
+NODE_AXES: dict[str, dict[str, Any]] = {
+    "statics": {
+        "core": {"allocatable": 0, "allowed_pods": 0, "ignored": None},
+        "NodeAffinity": {"req_rows": 1, "pref_rows": 1},
+        "NodePorts": {"sq": None},
+        "PodTopologySpread": {"dom_idx": 1},
+        "InterPodAffinity": {"dom_idx": 1, "hard_weight": None},
+        "VolumeRestrictions": {"strict": None},
+        "NodeVolumeLimits": {"driver_onehot": None, "limits": 0},
+        "VolumeBinding": {"pv_cap": None, "pv_node_ok": 1},
+    },
+    "carry": {
+        "core": {"requested": 0, "nonzero": 0, "num_pods": 0},
+        "NodePorts": {"used_any": 0, "used_wild": 0, "used_spec": 0},
+        "PodTopologySpread": 1,
+        "InterPodAffinity": {"matched": 1, "have_req_anti": 1, "have_req_aff": 1,
+                             "sym_pref_aff": 1, "sym_pref_anti": 1, "matched_total": None},
+        "VolumeRestrictions": {"used_any": 0, "used_rw": 0, "rwop_used": None},
+        "NodeVolumeLimits": {"on_node": 0},
+        "VolumeBinding": {"claimed": None},
+    },
+    "xs": {
+        "core": {"requests": None, "nonzero": None},
+        "NodeAffinity": {"req_idx": None, "pref_idx": None, "filter_skip": None,
+                         "score_skip": None},
+        "NodePorts": {"w_wild": None, "w_spec": None, "w_any": None, "filter_skip": None},
+        "ImageLocality": {"score": -1},
+        "TaintToleration": {"filter_code": -1, "prefer_count": -1},
+        "NodeUnschedulable": {"fail": -1},
+        "NodeName": {"fail": -1},
+        "PodTopologySpread": {"pm": None, "c_id": None, "max_skew": None, "is_filter": None,
+                              "is_score": None, "weight": None, "eligible": -1,
+                              "md_unsat": None, "filter_skip": None, "score_skip": None},
+        "InterPodAffinity": {"t_matches": None, "h_req_aff": None, "h_req_anti": None,
+                             "h_pref_aff_w": None, "h_pref_anti_w": None, "self_ok": None,
+                             "filter_skip": None},
+        "VolumeRestrictions": {"w_any": None, "w_rw": None, "rwop": None, "filter_skip": None},
+        "NodeVolumeLimits": {"pod_vols": None, "filter_skip": None},
+        "VolumeBinding": {"bound_code": -1, "want": None, "active": None, "provision_ok": -1,
+                          "filter_skip": None},
+        "VolumeZone": {"codes": -1, "filter_skip": None},
+        "force_unsched": None,
+        "is_pad": None,
+    },
+}
+
+
 @dataclass
 class CompiledWorkload:
     schema: ResourceSchema
@@ -61,6 +116,9 @@ class CompiledWorkload:
     init_carry: dict[str, Any]          # carry component name -> tensor(s)
     host: dict[str, Any] = field(default_factory=dict)  # numpy skip flags etc.
     device: torch.device = torch.device("cpu")
+    # set by parallel/mesh.py shard_workload: the one-card mesh the node
+    # axis is sharded over (its node_slices(n_nodes) are the shards')
+    mesh: Any = None
 
     @property
     def n_pods(self) -> int:

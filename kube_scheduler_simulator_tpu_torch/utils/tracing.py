@@ -172,6 +172,10 @@ _HELP: dict[str, str] = {
         "Speculative waves that handed their remainder to the "
         "sequential chunked scan after a sustained accept-rate collapse "
         "at the bottom batch rung (docs/wave-pipeline.md).",
+    "mesh_fallback_indivisible_nodes_total":
+        "Waves of an engine with a mesh that ran unsharded because the "
+        "cluster's node count does not divide the mesh's 'nodes' extent "
+        "(parallel/mesh.py can_shard).",
     "tracer_events_dropped_total":
         "Span events evicted from the tracer's fixed-size ring because "
         "it was full — a long soak whose trace tail silently scrolled "

@@ -319,8 +319,34 @@ def test_engine_needs_a_card_by_default():
 
 
 def test_engine_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="B12"):
+    """A one-card mesh is ported (B12, tests/test_torch_mesh.py); a mesh
+    over two cards is ROADMAP Queue B item B12b and raises, as does an
+    object that is not a mesh."""
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="B12b"):
+        SchedulerEngine(ObjectStore(), mesh=make_mesh(4, device=["cuda:0", "cuda:1"]),
+                        device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         SchedulerEngine(ObjectStore(), mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("spec", ["1", "0"], ids=["wave", "scan"])
+def test_engine_binds_with_a_cpu_mesh(spec):
+    """SchedulerEngine(..., mesh=make_mesh(4, device="cpu")) binds every
+    pod as the engine without a mesh, annotations and all."""
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    nodes = pworkloads.make_nodes(8, seed=71)
+    pods = pworkloads.make_pods(12, seed=72)
+    cfg = {"enabled": ["NodeResourcesFit", "NodeResourcesBalancedAllocation",
+                       "NodeAffinity", "TaintToleration"]}
+    with knobs(KSS_TPU_SPECULATIVE=spec):
+        b0, s0, _ = run(PORT, {"nodes": nodes, "pods": pods}, cfg)
+        b1, s1, _ = run(PORT, {"nodes": nodes, "pods": pods}, cfg,
+                        mesh=make_mesh(4, device="cpu"))
+    assert b1 == b0 > 0
+    assert_same(s1, s0)
 
 
 # ------------------------------------------------ tests/test_speculative_engine.py:242

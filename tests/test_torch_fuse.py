@@ -292,6 +292,32 @@ def test_b11_refuses_members_of_different_families():
         kfuse.dense_round_fused([a])
 
 
+def test_sharded_members_fuse_as_their_solo_rounds():
+    """Members sharded over one CPU mesh (B12): a fused dense round runs
+    their spec_eval_sharded rounds in turn inside the one `_run_fused`,
+    each equal to the unsharded B11 round of the same member; a fused
+    call on one mesh refuses a member on another."""
+    from kube_scheduler_simulator_tpu_torch.parallel.fuse import _place_sessions
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh, shard_workload
+
+    mesh = make_mesh(8, dp=2, device="cpu")
+    members = _members("dense", 2)
+    sharded = []
+    for m in members:
+        step = build_step(shard_workload(m.step.cw, mesh), out_mode="compact",
+                          pack_mode=m.step.pack_mode, score_dtypes=m.step.score_dtypes)
+        sharded.append(kfuse.Member(step, m.carry, m.xs))
+    args = [(m,) for m in sharded]
+    got = FuseCoordinator()._run_fused("key", kfuse.dense_round, args, 2, mesh)
+    want = kfuse.dense_round_fused(members)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        for a, b in zip(_flat(g), _flat(w), strict=True):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="fused call on"):
+        _place_sessions(args, make_mesh(4, device="cpu"), 2)
+
+
 # ----------------------------------------------- engine golden parity
 
 

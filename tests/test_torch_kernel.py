@@ -9,7 +9,9 @@ attribution, in every pack mode and raw tier; the device-resident
 replay and stream, B8, B10 and the engine on the card against the CPU
 port; and B11, the fused round, against its members' solo launches and
 plain rounds (members on streams of their own included), and sessions
-on the card fused against unfused.  A CUDA kernel has
+on the card fused against unfused; and B12, the node-sharded step and
+dense eval at 1, 2, 4 and 8 shards, against their plain twins and the
+unsharded kernels.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -765,6 +767,35 @@ def test_fused_members_on_their_own_streams(card):
         _equal(tuple(_flat(fused[i])), tuple(_flat(kfuse.round_plain([m])[0])), f"member {i}")
 
 
+def test_sharded_members_on_their_own_streams(card):
+    """Members sharded over a mesh (B12), each carry written on a stream of
+    the member's own behind a long op: the fused dense round runs their
+    spec_eval_sharded launches in turn on the leader's stream, which waits
+    for each member's, and each member's waits for the launches, so the
+    result equals the plain rounds."""
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh, shard_workload
+
+    mesh = make_mesh(2, device=card)
+    streams = [torch.cuda.Stream(card) for _ in range(3)]
+    members = []
+    for s, m in zip(streams, _fuse_members(card, "dense", 3)):
+        step = build_step(shard_workload(m.step.cw, mesh), out_mode="compact",
+                          pack_mode=m.step.pack_mode, score_dtypes=m.step.score_dtypes)
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+            members.append(kfuse.Member(step, _clone_carry(m.carry), m.xs))
+    assert len({m.stream for m in members}) == 3
+    n0 = kmesh.spec_eval_sharded.launches
+    fused = kfuse.dense_round.fused([(m,) for m in members])
+    assert kmesh.spec_eval_sharded.launches - n0 == 3
+    for s in streams:
+        s.synchronize()
+    for i, m in enumerate(members):
+        _equal(tuple(_flat(fused[i])), tuple(_flat(kfuse.round_plain([m])[0])), f"member {i}")
+
+
 @pytest.mark.parametrize("candidates", ["128", "4"])
 def test_sessions_fuse_on_card(card, monkeypatch, candidates):
     """Two sessions of one family on the card: fused rounds (B11 launched;
@@ -823,3 +854,141 @@ def test_sessions_fuse_on_card(card, monkeypatch, candidates):
     assert fused == solo
     assert fused_launches > 0 and solo_launches == 0
     assert all(v[0] for st in fused.values() for v in st.values())
+
+
+# ------------------------------------------------ B12, the node-sharded mesh
+
+def _default_fleet_96():
+    # the decorated default-profile fleet (chip_smoke.py phase 10) cut to
+    # 96 nodes, which divide by 1, 2, 4 and 8 shards
+    import chip_smoke
+
+    nodes, pods, _ = baseline_config(5, scale=0.02, seed=0)
+    nodes, pods = nodes[:96], pods[:64]
+    volumes, bound = chip_smoke.decorate_default_profile(nodes, pods, seed=0)
+    return nodes, pods, PluginSetConfig(), {"volumes": volumes, "bound_pods": bound}
+
+
+MESH_WORKLOADS = {
+    "tiny": lambda: (*WORKLOADS["tiny"](), {}),          # 8 nodes
+    "policies": lambda: (*_policies(), {}),              # 24 nodes
+    "default_profile": _default_fleet_96,                # 96 nodes
+}
+MESH_MODES = [("full", "p16", None), ("compact", "p16", None), ("compact", "p64", "i64")]
+
+
+def _mesh_cw(wl, dev):
+    nodes, pods, cfg, kw = MESH_WORKLOADS[wl]()
+    return compile_workload(nodes, pods, cfg, device=dev, **kw)
+
+
+def _sharded(cw, mesh):
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import shard_workload
+
+    return shard_workload(cw, mesh)
+
+
+def _claiming_shards(cw, shards):
+    """cw carrying a mesh that claims `shards` node shards, past what
+    make_mesh and shard_workload accept: what a wrapper must refuse."""
+    import dataclasses
+
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import Mesh
+
+    mesh = object.__new__(Mesh)
+    mesh.shape, mesh.device = {"dp": 1, "nodes": shards}, cw.device
+    return dataclasses.replace(cw, mesh=mesh)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("wl", list(MESH_WORKLOADS))
+def test_step_chunk_sharded_matches_plain_and_unsharded(card, wl, shards):
+    """B12 step_chunk_sharded against its plain twin and against the
+    unsharded step_chunk (B1), outputs and carry, exactly; every launch's
+    error code checked by the wrapper, faults surfaced by synchronize."""
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    cw = _mesh_cw(wl, card)
+    scw = _sharded(cw, make_mesh(shards, device=card))
+    chunk = 32
+    for out_mode, pack_mode, wide in MESH_MODES:
+        kw = dict(out_mode=out_mode, pack_mode=pack_mode,
+                  score_dtypes=cw.host["score_dtypes"], wide_raw=wide)
+        step, sstep = build_step(cw, **kw), build_step(scw, **kw)
+        cs, cp, cu = (_clone_carry(cw.init_carry) for _ in range(3))
+        launches = kmesh.step_chunk_sharded.launches
+        for lo in range(0, cw.n_pods, chunk):
+            hi = min(lo + chunk, cw.n_pods)
+            xs = _slice_xs(cw.xs, lo, hi, chunk)
+            xs["is_pad"] = torch.arange(chunk, device=card) >= (hi - lo)
+            cs, os_ = kmesh.step_chunk_sharded(sstep, cs, xs)
+            torch.cuda.synchronize()
+            cp, op = kmesh.step_chunk_sharded_plain(sstep, cp, xs)
+            cu, ou = kstep.step_chunk(step, cu, xs)
+            for f in os_._fields:
+                what = (wl, shards, out_mode, pack_mode, wide, lo, f)
+                _equal(getattr(os_, f), getattr(op, f), ("plain",) + what)
+                _equal(getattr(os_, f), getattr(ou, f), ("unsharded",) + what)
+            _equal(cs, cp, (wl, shards, lo, "carry vs plain"))
+            _equal(cs, cu, (wl, shards, lo, "carry vs unsharded"))
+        assert kmesh.step_chunk_sharded.launches - launches == -(-cw.n_pods // chunk)
+
+
+@pytest.mark.parametrize("n,dp", [(1, 1), (2, 1), (8, 2), (8, 1)])  # S = 1, 2, 4, 8
+@pytest.mark.parametrize("wl", list(MESH_WORKLOADS))
+def test_spec_eval_sharded_matches_plain_and_unsharded(card, wl, n, dp):
+    """B12 spec_eval_sharded against its plain twin and spec_eval (B2), in
+    compact mode at three tiers and in full mode against the plain eval;
+    S is the mesh's "nodes" extent, whatever its dp."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    cw = _mesh_cw(wl, card)
+    mesh = make_mesh(n, dp=dp, device=card)
+    shards = mesh.shape["nodes"]
+    scw = _sharded(cw, mesh)
+    carry = _clone_carry(cw.init_carry)
+    for wide in (None, "i32", "i64"):
+        pm, sd, _ = _compact_plan(cw, wide)
+        kw = dict(out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+        step, sstep = build_step(cw, **kw), build_step(scw, **kw)
+        for lo, b in ((0, 8), (cw.n_pods - 3, 16)):
+            xs = _batch(cw, lo, b, card)
+            got = kmesh.spec_eval_sharded(sstep, carry, xs)
+            torch.cuda.synchronize()
+            _equal(got, kmesh.spec_eval_sharded_plain(sstep, carry, xs),
+                   (wl, shards, wide, lo, "plain"))
+            _equal(got, kspec.spec_eval(step, carry, xs), (wl, shards, wide, lo, "B2"))
+    full = build_step(scw)
+    xs = _batch(cw, 0, 8, card)
+    got = kmesh.spec_eval_sharded(full, carry, xs)
+    _equal(got, kmesh.spec_eval_sharded_plain(full, carry, xs), (wl, shards, "full"))
+
+
+def test_sharded_launch_of_16_refused(card):
+    """S = 16 is past a portable cluster: the wrapper refuses it before a
+    launch, and the C entry point returns an error code without one."""
+    import ctypes
+
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+
+    cw = _mesh_cw("policies", card)
+    step = build_step(cw)
+    wide16 = build_step(_claiming_shards(cw, 16))
+    xs = _batch(cw, 0, 8, card)
+    n0 = (kmesh.step_chunk_sharded.launches, kmesh.spec_eval_sharded.launches)
+    with pytest.raises(ValueError, match="1 to 8"):
+        kmesh.step_chunk_sharded(wide16, _clone_carry(cw.init_carry), xs)
+    with pytest.raises(ValueError, match="1 to 8"):
+        kmesh.spec_eval_sharded(wide16, cw.init_carry, xs)
+    assert (kmesh.step_chunk_sharded.launches, kmesh.spec_eval_sharded.launches) == n0
+    lib = kstep.load_lib("mesh")
+    assert lib.kss_mesh_max_shards() == kmesh.MAX_SHARDS
+    outs = kstep.alloc_outputs(step, 8, card)
+    args = kstep.make_args(step, _clone_carry(cw.init_carry), xs, outs)
+    err = lib.kss_step_chunk_sharded(ctypes.byref(args), 16, kstep.stream_of(card))
+    assert err != 0
+    torch.cuda.synchronize()

@@ -328,10 +328,35 @@ def test_init_carry_survives_speculative_replay():
 def test_unported_options_raise():
     nodes, pods, _ = _safe(pwl)
     cw = compile_workload(nodes[:4], pods[:4], PluginSetConfig(enabled=SAFE), device="cpu")
-    # meshes (B12) stay unported; gang= is ported with the engine
-    # (tests/test_torch_gang.py test_stream_takes_gang_and_ignore)
-    with pytest.raises(NotImplementedError):
-        pspec.replay_speculative_stream(cw, mesh=object())
+    # a one-card mesh is ported (B12, tests/test_torch_mesh.py); shards on
+    # separate cards (B12b) stay unported and raise.  gang= is ported with
+    # the engine (tests/test_torch_gang.py test_stream_takes_gang_and_ignore)
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="B12b"):
+        pspec.replay_speculative_stream(cw, mesh=make_mesh(4, device=["cuda:0", "cuda:1"]))
+
+
+@pytest.mark.parametrize("fuse", ["1", "0"])
+def test_stream_on_a_cpu_mesh_matches_unsharded(fuse, monkeypatch):
+    """The SAFE-set stream (sparse rounds, unsharded B4) and a contended
+    one (dense rounds through spec_eval_sharded, then the sharded scan
+    fallback) on a one-card CPU mesh of dp = 2 x nodes = 4, with fusion on
+    and off: rows and annotations equal the unsharded stream's."""
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setenv("KSS_TPU_FUSE", fuse)
+    mesh = make_mesh(8, dp=2, device="cpu")
+    contended = (pwl.make_nodes(4, seed=3), pwl.make_pods(30, seed=4),
+                 ["NodeResourcesFit", "NodeResourcesBalancedAllocation"])
+    for nodes, pods, enabled in (_safe(pwl), contended):
+        cw = compile_workload(nodes, pods, PluginSetConfig(enabled=enabled), device="cpu")
+        base, _ = pspec.replay_speculative_stream(cw, chunk=16, pods=pods)
+        got, stats = pspec.replay_speculative_stream(cw, mesh, chunk=16, pods=pods)
+        assert (got.selected == base.selected).all()
+        assert all(b % 2 == 0 for b in stats["round_batches"])
+        for i in range(cw.n_pods):
+            assert decode_pod_result(got, i) == decode_pod_result(base, i), i
 
 
 def test_on_chunk_ascending():
