@@ -2707,6 +2707,45 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     }]
 
 
+def clock_phase(dev, card: str, fleets: dict) -> dict:
+    """Phase 27: the phase clock.  Chunk 0 of each fleet through the
+    phase-clock build of step_chunk (csrc/step.cu under -DKSS_PHASE_CLOCK,
+    loaded here only), held to the plain build's outputs, with each
+    phase's share of the launch: the sums over the chunk's pods of the
+    ns that thread 0 of the leading block spent in it (kernels/step.py
+    CLOCK_PHASES), and the launch from its first stamp to its last.
+    -> {fleet: {phase: ms}}."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs)
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+
+    t27 = time.perf_counter()
+    split = {}
+    for label, w in fleets.items():
+        pack_mode, score_dtypes, _ = _compact_plan(w, None)
+        step = build_step(w, out_mode="compact", pack_mode=pack_mode, score_dtypes=score_dtypes)
+        xs = _slice_xs(w.xs, 0, min(CHUNK, w.n_pods), CHUNK)
+        xs["is_pad"] = torch.arange(CHUNK, device=dev) >= min(CHUNK, w.n_pods)
+        clock = torch.zeros(CHUNK * kstep.CLOCK_SLOTS + 2, dtype=torch.int64, device=dev)
+        _, got = kstep.step_chunk(step, _clone_carry(w.init_carry), xs, _clock=clock)
+        _, want = kstep.step_chunk(step, _clone_carry(w.init_carry), xs)
+        torch.cuda.synchronize()
+        check(tree_err(got, want) == 0, f"{label}: the phase-clock build differs from the plain "
+                                        "build")
+        ck = clock.cpu()
+        per_pod = ck[:-2].view(CHUNK, kstep.CLOCK_SLOTS).sum(0)
+        split[label] = {"launch": int(ck[-1] - ck[-2]) / 1e6,
+                        **{ph: int(per_pod[k]) / 1e6 for k, ph in enumerate(kstep.CLOCK_PHASES)}}
+    print(f"[27 phase clock] {card}: chunk 0 ({CHUNK} pods) through the phase-clock build of "
+          f"step_chunk, equal to the plain build; ms per chunk by phase (thread 0 of the leading "
+          f"block; NodeVolumeLimits and VolumeBinding are shares of the others): "
+          f"{json.dumps(split)}; {time.perf_counter() - t27:.1f} s", flush=True)
+    return split
+
+
 def main() -> int:
     import torch
 
@@ -2736,9 +2775,12 @@ def main() -> int:
 
     # ---- 2. the build: one nvcc per csrc/*.cu, all started together
     t0 = time.perf_counter()
-    built = build.build()
+    # every library, and with them the phase clock's build (phase 27 alone
+    # loads it; the main path never does)
+    built = build.build([*build.SIGNATURES])
     for stem in built:
-        build.load(stem)
+        if stem not in build.VARIANTS:
+            build.load(stem)
     build_s = time.perf_counter() - t0
     for stem, res in built.items():
         ptxas = " ".join(ln.strip() for ln in res.log.splitlines()
@@ -2925,7 +2967,10 @@ def main() -> int:
     pod_bytes = (n * (2 * r + 4) * 8 + n * 5 + n * 4 + n + g * n * 8 + t * n * 4 * 6
                  + out_bytes // CHUNK)
     queue_bound_ms = pod_bytes * p / HBM_BYTES_PER_S * 1e3
-    print(f"[5 timing] {card}: step_chunk {kernel_ms:.3f} ms/chunk (median of {reps}; "
+    check(kstep.step_chunk.shards in (8, 16),
+          f"step_chunk took a cluster of {kstep.step_chunk.shards} CTAs, not 8 or 16")
+    print(f"[5 timing] {card}: step_chunk on a cluster of S = {kstep.step_chunk.shards} CTAs "
+          f"{kernel_ms:.3f} ms/chunk (median of {reps}; "
           f"queue mean {sum(chunk_ms) / len(chunk_ms):.3f} ms/chunk); plain step "
           f"{plain_ms:.3f} ms/chunk = {plain_ms / CHUNK:.4f} ms/pod; bound {bound_ms:.5f} "
           f"ms/chunk by {bound_by} ({move_bytes} B); per-pod touch bound "
@@ -2954,6 +2999,7 @@ def main() -> int:
     fuse_entries = fuse_phases(dev, card, cw, nodes, pods, cfg, spec_ctx)
     mesh_entries = mesh_phases(dev, card, cw, nodes, pods, cfg, rr, spec_ctx, dp_ctx,
                                step_entry, spec_entries)
+    clock_phase(dev, card, {f"config {CONFIG}": cw, "default profile": dp_ctx["default"][0]})
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
                                   *engine_entries, *fuse_entries, *mesh_entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // Shared definitions of the step kernel and the speculative wave's
 // kernels: the argument block the Python wrappers fill (kernels/step.py
 // mirrors it field for field as a ctypes.Structure), plugin ids, integer
-// helpers and block reductions.
+// helpers, block reductions and the phase clock.  The reduction scopes of
+// the per-pod body are in scope.cuh.
 #pragma once
 
 #include <climits>
@@ -133,6 +134,7 @@ struct StepArgs {
   const unsigned char* vb_provision_ok;  // [C, VK, N]
   const unsigned char* vb_filter_skip;   // [C]
   unsigned char* vb_claimed;             // [VV] carry, cluster-wide
+  const int* vb_order;                   // [VV] PV indices by (capacity, index)
   // --- compile-time PreFilter rejects (xs["force_unsched"])
   const unsigned char* force_unsched;    // [C] bool, or null
   // --- outputs, "full" mode (StepOut)
@@ -154,6 +156,12 @@ struct StepArgs {
   unsigned char* scratch_feas;           // [slots, N]
   unsigned char* scratch_ign;            // [slots, N]
   int* scratch_cand;                     // spec_round: [B, K] candidate nodes
+  // --- the phase clock (built with -DKSS_PHASE_CLOCK only): per pod
+  // KSS_CLOCK_SLOTS durations in ns, then the launch's start and end
+  unsigned long long* clock;             // [C * KSS_CLOCK_SLOTS + 2], or null
+  // --- step_chunk's per-CTA state in device memory, where it does not fit
+  // in shared memory (step_kernel.cuh step_plan): [S, step_smem total]
+  unsigned char* spill;                  // or null: shared memory
   // --- 8-byte scalars
   long long ip_hard_weight;
   long long score_weight[KSS_MAX_S];
@@ -194,6 +202,30 @@ struct StepArgs {
   int has_vr;                            // carry holds VolumeRestrictions
   int has_vb;                            // carry holds VolumeBinding
 };
+
+// ---- the phase clock.  Under -DKSS_PHASE_CLOCK, thread 0 of the
+// leading block reads %globaltimer at each phase boundary of each pod and
+// adds the phase's nanoseconds to a.clock[c * KSS_CLOCK_SLOTS + slot]:
+//   0 pre-reductions (with the pod's volume lists), 1 filter and 2 score
+//   (the thread's own nodes), 3 normalize reductions (the node loop's
+//   combine, waits for the other threads and CTAs included), 4 normalize
+//   x weight and argmax, 5 bind; 6 NodeVolumeLimits' share and 7
+//   VolumeBinding's (inside 0-5: the thread's filter calls, the pod's
+//   list and, for VolumeBinding, the bind).  a.clock[C * KSS_CLOCK_SLOTS]
+//   and the next are the launch's first and last stamps.  Every other
+//   build compiles the stamps out.
+#define KSS_CLOCK_SLOTS 8
+enum ClockSlot { CK_PRE = 0, CK_FILTER, CK_SCORE, CK_REDUCE, CK_ARGMAX, CK_BIND, CK_NVL, CK_VB };
+#ifdef KSS_PHASE_CLOCK
+__device__ __forceinline__ unsigned long long kss_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define KSS_CLOCK(...) __VA_ARGS__
+#else
+#define KSS_CLOCK(...)
+#endif
 
 static constexpr long long KSS_BIG = 1LL << 40;   // topologyspread._BIG
 static constexpr int MAX_NODE_SCORE = 100;
@@ -238,16 +270,6 @@ __device__ __forceinline__ long long block_max_ll(long long v, long long* sh) {
   __syncthreads();
   long long r = sh[0];
   for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) r = ll_max(r, sh[w]);
-  return r;
-}
-
-__device__ __forceinline__ long long block_sum_ll(long long v, long long* sh) {
-  for (int o = warpSize / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  long long r = sh[0];
-  for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) r += sh[w];
   return r;
 }
 
@@ -296,25 +318,3 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* sh) {
   for (int k = 0; k < w; ++k) off += sh[k];
   return off + x - v;
 }
-
-// ---- the reduction scope of the per-pod body (pod.cuh).  A scope says
-// which nodes the calling block walks, which of its threads writes the
-// pod's scalar outputs, whether it owns a node's exactly-once bind
-// updates, and how a reduction over the node axis ends.  BlockScope is
-// every kernel's but B12's: the block walks all N nodes and its
-// reductions are the block reductions above.  B12's ClusterScope
-// (mesh.cu) walks one shard's slice of the node axis and ends each
-// reduction with a combine across the thread-block cluster.
-struct BlockScope {
-  int lo, hi;  // the nodes this block walks: all of them
-  __device__ explicit BlockScope(const StepArgs& a) : lo(0), hi(a.N) {}
-  __device__ bool leader() const { return threadIdx.x == 0; }
-  __device__ bool owns(int) const { return true; }
-  __device__ long long min(long long v, long long* sh) { return block_min_ll(v, sh); }
-  __device__ long long max(long long v, long long* sh) { return block_max_ll(v, sh); }
-  __device__ long long sum(long long v, long long* sh) { return block_sum_ll(v, sh); }
-  __device__ int any(int v) { return __syncthreads_or(v); }
-  __device__ int argmax(long long v, int i, long long* shv, int* shi) {
-    return block_argmax(v, i, shv, shi);
-  }
-};

@@ -56,19 +56,17 @@ struct FusedOracleArgs {
 template <int KM>
 __global__ void __launch_bounds__(SPEC_THREADS)
     spec_eval_fused_kernel(const __grid_constant__ FusedStepArgs<KM> fa) {
-  __shared__ long long sh_ll[KSS_THREADS / 32];
-  __shared__ int sh_i[KSS_THREADS / 32];
+  __shared__ PodShared sh;
   const StepArgs& a = fa.s[blockIdx.y];
   const int c = blockIdx.x;
-  eval_pod(a, c, pod_scratch(a, c), sh_ll, sh_i);
+  eval_pod(a, c, pod_scratch(a, c), sh);
 }
 
 template <int KM>
 __global__ void __launch_bounds__(SPEC_THREADS)
     spec_round_fused_kernel(const __grid_constant__ FusedStepArgs<KM> fa) {
-  __shared__ long long sh_ll[KSS_THREADS / 32];
-  __shared__ int sh_i[KSS_THREADS / 32];
-  spec_round_pod(fa.s[blockIdx.y], blockIdx.x, sh_ll, sh_i);
+  __shared__ PodShared sh;
+  spec_round_pod(fa.s[blockIdx.y], blockIdx.x, sh);
 }
 
 __global__ void __launch_bounds__(SPEC_THREADS)

@@ -73,29 +73,44 @@ __device__ __forceinline__ long long interpod_normalize(long long raw, long long
 
 // Node-space bind: for every term whose key the selected node carries,
 // every node of [lo, hi) in the same domain takes the pod's five
-// increments, and matched_total the match bit, once, from thread 0 of
-// the owner of the selected node.  Terms with all-zero increments are
-// skipped (adding 0 changes nothing).  Only called with sel >= 0.
-__device__ void interpod_bind(const StepArgs& a, int c, int sel, int lo, int hi, bool owner) {
-  for (int t = 0; t < a.T; ++t) {
-    const int dcol = a.ip_dom_idx[(long long)t * a.N + sel];
-    if (dcol < 0) continue;  // uniform across the block
-    const long long ct = (long long)c * a.T + t;
-    const int inc_m = a.ip_t_matches[ct] ? 1 : 0;
-    const int inc_anti = a.ip_h_req_anti[ct];
-    const int inc_aff = a.ip_h_req_aff[ct];
-    const int inc_pa = (int)a.ip_h_pref_aff_w[ct];
-    const int inc_pn = (int)a.ip_h_pref_anti_w[ct];
-    if (owner && threadIdx.x == 0) a.ip_matched_total[t] += inc_m;
-    if ((inc_m | inc_anti | inc_aff | inc_pa | inc_pn) == 0) continue;
-    for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
-      const long long tn = (long long)t * a.N + n;
-      if (a.ip_dom_idx[tn] != dcol) continue;
-      a.ip_matched[tn] += inc_m;
-      a.ip_have_req_anti[tn] += inc_anti;
-      a.ip_have_req_aff[tn] += inc_aff;
-      a.ip_sym_pref_aff[tn] += inc_pa;
-      a.ip_sym_pref_anti[tn] += inc_pn;
+// increments, and matched_total the match bit, once per block that keeps
+// the cluster-wide counters, from its thread 0.  Terms with all-zero
+// increments change nothing: each warp finds the others 32 at a time with
+// a ballot (the same mask in every warp), so they cost no load of their
+// domain row.  Only called with sel >= 0.
+__device__ void interpod_bind(const StepArgs& a, int c, int sel, int lo, int hi,
+                              bool cluster_wide) {
+  const int lane = threadIdx.x & 31;
+  for (int t0 = 0; t0 < a.T; t0 += 32) {
+    const int tl = t0 + lane;
+    bool live = false;
+    if (tl < a.T) {
+      const long long ct = (long long)c * a.T + tl;
+      live = a.ip_t_matches[ct] || a.ip_h_req_anti[ct] != 0 || a.ip_h_req_aff[ct] != 0 ||
+             (int)a.ip_h_pref_aff_w[ct] != 0 || (int)a.ip_h_pref_anti_w[ct] != 0;
+    }
+    unsigned mask = __ballot_sync(0xffffffffu, live);
+    while (mask) {
+      const int t = t0 + __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int dcol = a.ip_dom_idx[(long long)t * a.N + sel];
+      if (dcol < 0) continue;  // uniform across the block
+      const long long ct = (long long)c * a.T + t;
+      const int inc_m = a.ip_t_matches[ct] ? 1 : 0;
+      const int inc_anti = a.ip_h_req_anti[ct];
+      const int inc_aff = a.ip_h_req_aff[ct];
+      const int inc_pa = (int)a.ip_h_pref_aff_w[ct];
+      const int inc_pn = (int)a.ip_h_pref_anti_w[ct];
+      if (cluster_wide && threadIdx.x == 0) a.ip_matched_total[t] += inc_m;
+      for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
+        const long long tn = (long long)t * a.N + n;
+        if (a.ip_dom_idx[tn] != dcol) continue;
+        a.ip_matched[tn] += inc_m;
+        a.ip_have_req_anti[tn] += inc_anti;
+        a.ip_have_req_aff[tn] += inc_aff;
+        a.ip_sym_pref_aff[tn] += inc_pa;
+        a.ip_sym_pref_anti[tn] += inc_pn;
+      }
     }
   }
 }

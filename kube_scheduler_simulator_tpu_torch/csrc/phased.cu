@@ -3,7 +3,7 @@
 // (sm_90a).
 //
 // phased_eval replaces kube_scheduler_simulator_tpu/framework/pipeline.py:446
-// `build_phased`'s eval_fn (B10): the step's phases 0-4 (pod.cuh
+// `build_phased`'s eval_fn (B10): the step's evaluation (pod.cuh
 // eval_pod) for one pod against the carry as it stands, with no bind,
 // writing the UNCOMPACTED StepOut the host loop reads: every filter's
 // code at every node, every scorer's raw and final row cast to int32
@@ -34,11 +34,10 @@
 
 #define PHASED_THREADS 256
 
-__global__ void __launch_bounds__(PHASED_THREADS) phased_eval_kernel(const StepArgs a) {
-  __shared__ long long sh_ll[KSS_THREADS / 32];
-  __shared__ int sh_i[KSS_THREADS / 32];
+__global__ void __launch_bounds__(PHASED_THREADS) phased_eval_kernel(const __grid_constant__ StepArgs a) {
+  __shared__ PodShared sh;
   const int c = blockIdx.x;
-  eval_pod(a, c, pod_scratch(a, c), sh_ll, sh_i);
+  eval_pod(a, c, pod_scratch(a, c), sh);
 }
 
 __global__ void __launch_bounds__(KSS_THREADS) renormalize_row_kernel(

@@ -1,23 +1,28 @@
 // The per-pod body of the scheduling step, shared by step_chunk
-// (step.cu, one pod after another in one block) and the speculative
-// wave's kernels (spec_eval.cu, spec_round.cu, one pod per block):
-// the plugin dispatch, the compact stores, and the step's phases 0-4 for
-// one pod against the carry as it stands.  Nothing here writes the carry.
+// (step.cu, a chunk's pods in order over one thread-block cluster) and the
+// speculative wave's and the host path's kernels (spec_eval.cu,
+// spec_round.cu, phased.cu, fuse.cu: one pod per block; mesh.cu: one pod
+// per cluster): the plugin dispatch, the compact stores, the step's
+// evaluation of one pod against the carry as it stands, and its bind.
 //
-// Scratch: each pod in flight needs its own [S, N] raw rows and [N]
-// feasibility and spread-ignore bytes.  step_chunk has one pod in flight
-// and uses slot 0; a kernel with one pod per block gives block b slot b,
-// so blocks never share scratch.
+// The body is templated on its reduction scope (scope.cuh): the node
+// loops walk the scope's [lo, hi), the pod's rows are kept where the scope
+// says, and each reduction over the node axis is one of the scope's
+// combines.  A pod takes three:
 //
-// The body is templated on its reduction scope (common.cuh BlockScope;
-// B12's ClusterScope in mesh.cu): the node loops walk the scope's
-// [lo, hi), each reduction over the node axis is the scope's, the pod's
-// scalar outputs are written by the scope's leader, and the bind's
-// exactly-once updates (the selected node's rows, the cluster-wide bits)
-// are made only by the scope that owns the selected node.  The
-// non-templated overloads are the block scope's, which every kernel but
-// B12 calls.  Shards of a cluster write disjoint slices of a pod's
-// scratch.
+//   1. the pre-pass: the minima of every spread slot the filter checks,
+//      one vector (spread.cuh spread_minima); InterPod's pod scalars come
+//      from the cluster-wide matched_total, which every block reads whole;
+//   2. one node loop runs each node's filters in config order, its raw
+//      scores, and its share of the feasible count, the raw-overflow OR
+//      and each normalizer's min, max and any, all reduced in one vector
+//      (NodeStat below).  A thread's filter and score results at node n
+//      depend only on node n, the pod and the pre-pass, so filters and
+//      scores share the loop;
+//   3. normalize x weight, the total and the local argmax; one argmax
+//      combine.
+//
+// Nothing in the evaluation writes the carry; bind_pod does.
 #pragma once
 
 #include "common.cuh"
@@ -28,9 +33,18 @@
 #include "interpod.cuh"
 #include "ports.cuh"
 #include "volumes.cuh"
+#include "scope.cuh"
 
-__device__ int filter_code(const StepArgs& a, int pid, int c, int n, const long long* sp_mins,
-                           bool ip_any_aff, int ip_total_any) {
+// What a pod's filters read besides the node: the pre-pass's results and
+// the pod's volume lists.
+struct PodPre {
+  long long sp_mins[KSS_MC];
+  bool ip_any_aff;
+  int ip_total_any;
+  PodVolumes vols;
+};
+
+__device__ int filter_code(const StepArgs& a, int pid, int c, int n, const PodPre& pre) {
   switch (pid) {
     case P_FIT:
       return fit_filter(a, c, n);
@@ -39,9 +53,9 @@ __device__ int filter_code(const StepArgs& a, int pid, int c, int n, const long 
     case P_TAINT:
       return taint_filter(a, c, n);
     case P_SPREAD:
-      return a.sp_filter_skip[c] ? 0 : spread_filter(a, c, n, sp_mins);
+      return a.sp_filter_skip[c] ? 0 : spread_filter(a, c, n, pre.sp_mins);
     case P_INTERPOD:
-      return a.ip_filter_skip[c] ? 0 : interpod_filter(a, c, n, ip_any_aff, ip_total_any);
+      return a.ip_filter_skip[c] ? 0 : interpod_filter(a, c, n, pre.ip_any_aff, pre.ip_total_any);
     case P_UNSCHED:
       return unsched_filter(a, c, n);
     case P_NODENAME:
@@ -51,9 +65,9 @@ __device__ int filter_code(const StepArgs& a, int pid, int c, int n, const long 
     case P_VOLRESTR:
       return a.vr_filter_skip[c] ? 0 : vr_filter(a, c, n);
     case P_VOLLIMITS:
-      return a.nvl_filter_skip[c] ? 0 : nvl_filter(a, c, n);
+      return a.nvl_filter_skip[c] ? 0 : nvl_filter(a, c, n, pre.vols);
     case P_VOLBIND:
-      return a.vb_filter_skip[c] ? 0 : vb_filter(a, c, n);
+      return a.vb_filter_skip[c] ? 0 : vb_filter(a, c, n, pre.vols);
     case P_VOLZONE:
       return a.vz_filter_skip[c] ? 0 : volzone_filter(a, c, n);
   }
@@ -131,208 +145,227 @@ __device__ __forceinline__ int store_raw(const StepArgs& a, int s, int c, int n,
   return 0;  // G_NONE: a precompiled host row, never written
 }
 
-struct PodScratch {
-  long long* raw;        // [max(S, 1), N]
-  unsigned char* feas;   // [N]
-  unsigned char* ign;    // [N]
-};
-
-__device__ __forceinline__ PodScratch pod_scratch(const StepArgs& a, long long slot) {
-  const long long n = a.N;
-  const long long s = a.S > 0 ? a.S : 1;
-  return PodScratch{a.scratch_raw + slot * s * n, a.scratch_feas + slot * n,
-                    a.scratch_ign + slot * n};
-}
-
 // The PreFilter reject of pod c (pipeline.py _prefilter_reject): bit 0
 // VolumeRestrictions' ReadWriteOncePod conflict against the cluster-wide
-// carry, bit 1 the compile-time reject.  Uniform across the block.
+// carry, bit 1 the compile-time reject.  Uniform across the scope.
 __device__ __forceinline__ int prefilter_reject(const StepArgs& a, int c) {
   int code = a.has_vr ? vr_prefilter_reject(a, c) : 0;
   if (a.force_unsched != nullptr && a.force_unsched[c]) code |= 2;
   return code;
 }
 
-// Phases 0 and 1 of the step for pod c: the pre-reductions over N, then
-// per node each filter in config order with its filter_skip, the
-// first-fail word (compact) or the codes (full), and feasibility into
-// sc.feas; the scope's leader writes the PreFilter reject.  Every thread
-// of the scope calls it and gets the feasible count before the reject is
-// applied, and the reject in `reject`; the scope's slice of sc.feas is
-// complete when it returns (the sum's barrier).
+#ifdef KSS_PHASE_CLOCK
+#define KSS_CLOCK_ADD(slot, since) \
+  do { if (ck) ck[slot] += kss_now() - (since); } while (0)
+#endif
+
+// The pod's PreFilter reject (its leader writes it), its volume lists
+// (the scope's, compacted by the caller) and pass 1: the spread minima
+// and InterPod's pod scalars.
 template <class Scope>
-__device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, long long* sh_ll,
-                          int& reject, Scope& scope) {
-  const int N = a.N;
+__device__ PodPre pod_prepass(const StepArgs& a, int c, Scope& scope, int& reject) {
   reject = prefilter_reject(a, c);
   if (scope.leader()) a.out_prefilter_reject[c] = reject;
-  long long sp_mins[KSS_MC];
-  for (int m = 0; m < KSS_MC; ++m) sp_mins[m] = 0;
-  bool ip_any_aff = false;
-  int ip_total_any = 0;
+  PodPre pre;
+  pre.vols = scope.vols;
+  pre.ip_any_aff = false;
+  pre.ip_total_any = 0;
+  for (int m = 0; m < KSS_MC; ++m) pre.sp_mins[m] = 0;
   for (int f = 0; f < a.F; ++f) {
     if (a.filter_ids[f] == P_SPREAD && !a.sp_filter_skip[c])
-      spread_minima(a, c, sp_mins, sh_ll, scope);
-    if (a.filter_ids[f] == P_INTERPOD) interpod_pod_scalars(a, c, ip_any_aff, ip_total_any);
+      spread_minima(a, c, pre.sp_mins, scope);
+    if (a.filter_ids[f] == P_INTERPOD)
+      interpod_pod_scalars(a, c, pre.ip_any_aff, pre.ip_total_any);
   }
-  long long local_feasible = 0;
-  for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
-    int first = -1, first_code = 0;
-    for (int f = 0; f < a.F; ++f) {
-      int code = filter_code(a, a.filter_ids[f], c, n, sp_mins, ip_any_aff, ip_total_any);
-      if (!a.compact) a.out_codes[((long long)c * a.F + f) * N + n] = code;
-      if (code != 0 && first < 0) { first = f; first_code = code; }
-    }
-    sc.feas[n] = first < 0;
-    local_feasible += first < 0;
-    if (a.compact) {
-      long long word = first < 0 ? 0
-          : (((long long)(first + 1)) << a.pack_code_bits) | (long long)first_code;
-      store_packed(a, (long long)c * N + n, word);
-    }
-  }
-  return (int)scope.sum(local_feasible, sh_ll);
+  return pre;
 }
 
-__device__ __forceinline__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc,
-                                          long long* sh_ll, int& reject) {
-  BlockScope scope(a);
-  return pod_filter(a, c, sc, sh_ll, reject, scope);
+// Each filter at node n in config order with its filter_skip: the codes
+// (full) or the first-fail word (compact) stored; -> feasible.
+__device__ __forceinline__ bool node_filters(const StepArgs& a, int c, int n, const PodPre& pre
+                                             KSS_CLOCK(, unsigned long long* ck)) {
+  int first = -1, first_code = 0;
+  for (int f = 0; f < a.F; ++f) {
+    KSS_CLOCK(const unsigned long long tv = kss_now();)
+    const int code = filter_code(a, a.filter_ids[f], c, n, pre);
+    KSS_CLOCK(if (a.filter_ids[f] == P_VOLLIMITS) KSS_CLOCK_ADD(CK_NVL, tv);
+              if (a.filter_ids[f] == P_VOLBIND) KSS_CLOCK_ADD(CK_VB, tv);)
+    if (!a.compact) a.out_codes[((long long)c * a.F + f) * a.N + n] = code;
+    if (code != 0 && first < 0) { first = f; first_code = code; }
+  }
+  if (a.compact) {
+    const long long word = first < 0 ? 0
+        : (((long long)(first + 1)) << a.pack_code_bits) | (long long)first_code;
+    store_packed(a, (long long)c * a.N + n, word);
+  }
+  return first < 0;
 }
 
-// Phases 2-4 for pod c: raw scores (outputs and sc.raw) with the
-// raw_overflow check, the normalizing reductions over the feasible set,
-// normalize x weight into the int64 total (-1 where infeasible), the
-// argmax (value desc, index asc) with feasible_count > 0 and is_pad
-// applied; the scope's leader writes the pod's scalar outputs.
-// feasible_count is 0 for a pod a PreFilter rejected.  Returns the
-// selection to every thread.
+// The filters alone (spec_round_pod): pass 1, then each node's filters
+// and feasibility into sc.feas; -> the feasible count before the reject
+// is applied, the reject in `reject`.  sc.feas is complete when it
+// returns (the combine's barrier).
+__device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, PodShared& sh,
+                          int& reject) {
+  BlockScope scope(a, sc, sh);
+  const PodPre pre = pod_prepass(a, c, scope, reject);
+  long long v[1] = {0};
+  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+    const bool feas = node_filters(a, c, n, pre KSS_CLOCK(, nullptr));
+    sc.feas[n] = feas;
+    v[0] += feas;
+  }
+  return (int)scope_combine<1, combine_ops(OP_SUM)>(v, scope)[0];
+}
+
+// The node loop's partials, one combine: the feasible count, the
+// raw-overflow OR, and the normalizers' statistics over the feasible set
+// (over the scored nodes for PodTopologySpread); a scorer appears once in
+// a profile.
+enum NodeStat {
+  NS_FEASIBLE = 0, NS_OVERFLOW, NS_AFF_MAX, NS_TAINT_MAX, NS_SPREAD_MIN, NS_SPREAD_MAX,
+  NS_SPREAD_ANY, NS_IP_MIN, NS_IP_MAX, NS_COUNT
+};
+constexpr unsigned long long kNodeStatOps =
+    combine_ops(OP_SUM, OP_OR, OP_MAX, OP_MAX, OP_MIN, OP_MAX, OP_OR, OP_MIN, OP_MAX);
+
+// Passes 2-3 for pod c against the carry as it stands: the node loop
+// (filters, raw scores into the outputs and the scope's rows, the node
+// statistics), one combine, normalize x weight into the int64 total (-1
+// where infeasible), the argmax (value desc, index asc) with
+// feasible_count > 0 and is_pad applied; the scope's leader writes the
+// pod's scalar outputs (feasible_count is 0 for a pod a PreFilter
+// rejected).  Every thread of the scope calls it and gets the selection.
 template <class Scope>
-__device__ int pod_score_select(const StepArgs& a, int c, int feasible_count,
-                                const PodScratch& sc, long long* sh_ll, int* sh_i,
-                                Scope& scope) {
-  const int N = a.N;
-  // ---- 2. raw scores
-  int local_ovf = 0;
+__device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
+  KSS_CLOCK(unsigned long long* ck = scope.leader() && a.clock
+                ? a.clock + (long long)c * KSS_CLOCK_SLOTS : nullptr;
+            const unsigned long long t0 = kss_now();)
+  int reject;
+  const PodPre pre = pod_prepass(a, c, scope, reject);
+  KSS_CLOCK(const unsigned long long t1 = kss_now(); if (ck) ck[CK_PRE] += t1 - t0;)
+  const PodRows& rows = scope.rows;
+
+  // ---- 2. the node loop
+  long long st[NS_COUNT] = {0, 0, LLONG_MIN, LLONG_MIN, LLONG_MAX, LLONG_MIN, 0, LLONG_MAX,
+                            LLONG_MIN};
   for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
+    KSS_CLOCK(const unsigned long long tf = kss_now();)
+    const bool feas = node_filters(a, c, n, pre KSS_CLOCK(, ck));
+    KSS_CLOCK(const unsigned long long ts = kss_now(); if (ck) ck[CK_FILTER] += ts - tf;)
     bool ignored = false;
     for (int s = 0; s < a.S; ++s) {
       const int pid = a.score_ids[s];
+      const bool skip = score_skipped(a, pid, c);
       bool ign = false;
-      long long raw = score_skipped(a, pid, c) ? 0 : score_raw(a, pid, c, n, ign);
+      const long long raw = skip ? 0 : score_raw(a, pid, c, n, ign);
       if (pid == P_SPREAD) ignored = ign;
-      sc.raw[(long long)s * N + n] = raw;
-      if (a.compact) local_ovf |= store_raw(a, s, c, n, raw);
-      else a.out_raw[((long long)c * a.S + s) * N + n] = (int)raw;
-    }
-    sc.ign[n] = ignored;
-  }
-  const int overflow = scope.any(local_ovf);
-
-  // ---- 3. reductions of the normalizing scorers over the feasible set
-  long long lo[KSS_MAX_S], hi[KSS_MAX_S];
-  bool any_scored[KSS_MAX_S];
-  for (int s = 0; s < a.S; ++s) {
-    const int pid = a.score_ids[s];
-    lo[s] = 0;
-    hi[s] = 0;
-    any_scored[s] = false;
-    if (!normalizes(pid) || score_skipped(a, pid, c)) continue;  // uniform
-    long long l = LLONG_MAX, h = LLONG_MIN;
-    int any = 0;
-    for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
-      const long long raw = sc.raw[(long long)s * N + n];
-      const bool feas = sc.feas[n] != 0;
-      if (pid == P_SPREAD) {
-        const bool scored = feas && !sc.ign[n];
-        l = ll_min(l, scored ? raw : KSS_BIG);
-        h = ll_max(h, scored ? raw : 0);
-        any |= scored;
-      } else if (pid == P_INTERPOD) {
-        l = ll_min(l, feas ? raw : KSS_BIG);
-        h = ll_max(h, feas ? raw : -KSS_BIG);
-      } else {  // DefaultNormalizeScore: max over raw masked to 0
-        h = ll_max(h, feas ? raw : 0);
+      rows.raw[(long long)s * rows.stride + (n - rows.base)] = raw;
+      if (a.compact) st[NS_OVERFLOW] |= store_raw(a, s, c, n, raw);
+      else a.out_raw[((long long)c * a.S + s) * a.N + n] = (int)raw;
+      if (skip) continue;
+      switch (pid) {
+        case P_AFFINITY:  // DefaultNormalizeScore: max over raw masked to 0
+          st[NS_AFF_MAX] = ll_max(st[NS_AFF_MAX], feas ? raw : 0);
+          break;
+        case P_TAINT:
+          st[NS_TAINT_MAX] = ll_max(st[NS_TAINT_MAX], feas ? raw : 0);
+          break;
+        case P_SPREAD: {
+          const bool scored = feas && !ign;
+          st[NS_SPREAD_MIN] = ll_min(st[NS_SPREAD_MIN], scored ? raw : KSS_BIG);
+          st[NS_SPREAD_MAX] = ll_max(st[NS_SPREAD_MAX], scored ? raw : 0);
+          st[NS_SPREAD_ANY] |= scored;
+          break;
+        }
+        case P_INTERPOD:
+          st[NS_IP_MIN] = ll_min(st[NS_IP_MIN], feas ? raw : KSS_BIG);
+          st[NS_IP_MAX] = ll_max(st[NS_IP_MAX], feas ? raw : -KSS_BIG);
+          break;
       }
     }
-    if (pid == P_SPREAD || pid == P_INTERPOD) lo[s] = scope.min(l, sh_ll);
-    hi[s] = scope.max(h, sh_ll);
-    if (pid == P_SPREAD) any_scored[s] = scope.any(any) != 0;
+    rows.feas[n - rows.base] = feas;
+    rows.ign[n - rows.base] = ignored;
+    st[NS_FEASIBLE] += feas;
+    KSS_CLOCK(if (ck) ck[CK_SCORE] += kss_now() - ts;)
   }
+  KSS_CLOCK(const unsigned long long t2 = kss_now();)
+  const long long* r = scope_combine<NS_COUNT, kNodeStatOps>(st, scope);
+  const int feasible_count = reject > 0 ? 0 : (int)r[NS_FEASIBLE];
+  const bool overflow = r[NS_OVERFLOW] != 0;
+  const long long aff_hi = r[NS_AFF_MAX], taint_hi = r[NS_TAINT_MAX];
+  const long long sp_lo = r[NS_SPREAD_MIN], sp_hi = r[NS_SPREAD_MAX];
+  const bool sp_any = r[NS_SPREAD_ANY] != 0;
+  const long long ip_lo = r[NS_IP_MIN], ip_hi = r[NS_IP_MAX];
+  KSS_CLOCK(const unsigned long long t3 = kss_now(); if (ck) ck[CK_REDUCE] += t3 - t2;)
 
-  // ---- 4. normalize x weight, total, argmax
+  // ---- 3. normalize x weight, total, argmax
   long long best_v = LLONG_MIN;
   int best_i = INT_MAX;
   for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
+    const bool ign = rows.ign[n - rows.base] != 0;
     long long total = 0;
     for (int s = 0; s < a.S; ++s) {
       const int pid = a.score_ids[s];
       long long final_ = 0;
       if (!score_skipped(a, pid, c)) {
-        const long long raw = sc.raw[(long long)s * N + n];
+        const long long raw = rows.raw[(long long)s * rows.stride + (n - rows.base)];
         long long normed = raw;
-        if (pid == P_AFFINITY) normed = default_normalize(raw, hi[s], false);
-        else if (pid == P_TAINT) normed = default_normalize(raw, hi[s], true);
-        else if (pid == P_SPREAD)
-          normed = spread_normalize(raw, sc.ign[n] != 0, lo[s], hi[s], any_scored[s]);
-        else if (pid == P_INTERPOD) normed = interpod_normalize(raw, lo[s], hi[s]);
+        if (pid == P_AFFINITY) normed = default_normalize(raw, aff_hi, false);
+        else if (pid == P_TAINT) normed = default_normalize(raw, taint_hi, true);
+        else if (pid == P_SPREAD) normed = spread_normalize(raw, ign, sp_lo, sp_hi, sp_any);
+        else if (pid == P_INTERPOD) normed = interpod_normalize(raw, ip_lo, ip_hi);
         final_ = normed * a.score_weight[s];
       }
-      if (!a.compact) a.out_final[((long long)c * a.S + s) * N + n] = (int)final_;
+      if (!a.compact) a.out_final[((long long)c * a.S + s) * a.N + n] = (int)final_;
       total += final_;
     }
-    if (!sc.feas[n]) total = -1;
+    if (!rows.feas[n - rows.base]) total = -1;
     argmax_pair(best_v, best_i, total, n);
   }
-  int sel = scope.argmax(best_v, best_i, sh_ll, sh_i);
+  int sel = scope_argmax(best_v, best_i, scope);
   if (feasible_count == 0 || a.is_pad[c]) sel = -1;
   if (scope.leader()) {
     a.out_selected[c] = sel;
     a.out_feasible_count[c] = feasible_count;
-    if (a.compact) a.out_overflow[c] = overflow != 0;
+    if (a.compact) a.out_overflow[c] = overflow;
   }
+  KSS_CLOCK(if (ck) ck[CK_ARGMAX] += kss_now() - t3;)
   return sel;
 }
 
-// Phases 0-4 for pod c against the carry as it stands; returns the
-// selection.  The caller binds (step_chunk) or does not (spec_eval).
-template <class Scope>
+// One pod per block (spec_eval, phased_eval, the fused dense round).
 __device__ __forceinline__ int eval_pod(const StepArgs& a, int c, const PodScratch& sc,
-                                        long long* sh_ll, int* sh_i, Scope& scope) {
-  int reject;
-  const int total = pod_filter(a, c, sc, sh_ll, reject, scope);
-  return pod_score_select(a, c, reject > 0 ? 0 : total, sc, sh_ll, sh_i, scope);
+                                        PodShared& sh) {
+  BlockScope scope(a, sc, sh);
+  return eval_pod(a, c, scope);
 }
 
-__device__ __forceinline__ int eval_pod(const StepArgs& a, int c, const PodScratch& sc,
-                                        long long* sh_ll, int* sh_i) {
-  BlockScope scope(a);
-  return eval_pod(a, c, sc, sh_ll, sh_i, scope);
-}
-
-// Phase 5: the bind of pod c at `sel` into the carry, in place, for every
-// carry the workload has (pipeline.py _bind_phase).  Every thread of the
-// scope calls it; a rejected or padded pod (sel == -1) binds nothing.
-// The node-space rows (spread counts, the InterPod matrices) take their
-// same-domain increments over the scope's slice; everything that must
-// happen exactly once (the selected node's core, NodePorts, disk and CSI
-// rows, InterPod's matched_total, the cluster-wide ReadWriteOncePod bits
-// and the PVs VolumeBinding claims) is done by the scope that owns the
-// selected node.  The caller puts a barrier between the evaluation's
-// last read of the carry and this call, and after it.
-template <class Scope>
-__device__ __forceinline__ void bind_pod(const StepArgs& a, int c, int sel, const Scope& scope) {
+// The bind of pod c at `sel` into the carry, in place, for every carry the
+// workload has (pipeline.py _bind_phase).  Every thread of the block calls
+// it; a rejected or padded pod (sel == -1) binds nothing.  The node-space
+// rows (spread counts, the InterPod matrices) take their same-domain
+// increments over the block's nodes [lo, hi); the selected node's rows
+// (core, NodePorts, disk and CSI rows) are updated by the block that owns
+// it (`owner`), and the cluster-wide carries (InterPod's matched_total,
+// the ReadWriteOncePod bits, VolumeBinding's claims) by every block that
+// keeps them (`cluster_wide`).  Each element is always updated by the
+// same thread of a block, so binds in a row need no barrier between them;
+// the caller puts one between the evaluation's last read of the carry and
+// this call, and after it.
+__device__ void bind_pod(const StepArgs& a, int c, int sel, int lo, int hi, bool owner,
+                         bool cluster_wide, const PodVolumes& vols) {
   if (sel < 0) return;
-  const bool owner = scope.owns(sel);
-  if (owner) core_bind(a, c, sel);
-  if (a.has_ports && owner) ports_bind(a, c, sel);
-  if (a.has_spread) spread_bind(a, c, sel, scope.lo, scope.hi);
-  if (a.has_interpod) interpod_bind(a, c, sel, scope.lo, scope.hi, owner);
-  if (a.has_vr && owner) vr_bind(a, c, sel);
-  if (a.has_nvl && owner) nvl_bind(a, c, sel);
-  if (a.has_vb && owner) vb_bind(a, c, sel);
-}
-
-__device__ __forceinline__ void bind_pod(const StepArgs& a, int c, int sel) {
-  bind_pod(a, c, sel, BlockScope(a));
+  if (owner) {
+    core_bind(a, c, sel);
+    if (a.has_ports) ports_bind(a, c, sel);
+    if (a.has_vr) vr_bind_rows(a, c, sel);
+    if (a.has_nvl) nvl_bind(a, c, sel, vols);
+  }
+  if (a.has_spread) spread_bind(a, c, sel, lo, hi);
+  if (a.has_interpod) interpod_bind(a, c, sel, lo, hi, cluster_wide);
+  if (cluster_wide) {
+    if (a.has_vr) vr_bind_rwop(a, c);
+    if (a.has_vb) vb_bind(a, c, sel, vols);
+  }
 }

@@ -42,7 +42,9 @@
 // What bounds it on this card: the dense filter pass over N nodes per
 // pod (bytes: a packed word written, a few statics read per node); the
 // score tail is K = 128 nodes.  B blocks spread the batch over the SMs.
-__device__ void spec_round_pod(const StepArgs& a, int c, long long* sh_ll, int* sh_i) {
+__device__ void spec_round_pod(const StepArgs& a, int c, PodShared& sh) {
+  long long* sh_ll = sh.ll;
+  int* sh_i = sh.i;
   const int N = a.N, K = a.K;
   const long long S1 = a.S > 0 ? a.S : 1;
   long long* raw = a.scratch_raw + (long long)c * S1 * K;   // [S, K]
@@ -52,7 +54,7 @@ __device__ void spec_round_pod(const StepArgs& a, int c, long long* sh_ll, int* 
   // ---- a. filters and the packed word at every node; the feasible count
   // is 0 for a pod a PreFilter rejected, and every slot is then invalid
   int reject;
-  const int total = pod_filter(a, c, sc, sh_ll, reject);
+  const int total = pod_filter(a, c, sc, sh, reject);
   const int count = reject > 0 ? 0 : total;
 
   // ---- b/c. the first K feasible nodes, ascending

@@ -10,15 +10,32 @@
 //     row `selected` with 64-bit atomicAdd.  Integer addition is exact in
 //     any order (and accepted pods bind distinct nodes anyway), so this
 //     is the JAX package's one batched scatter-add.
-//   * general (any other carry: NodePorts, spread, InterPod): one block
-//     walks the batch in order and applies the step's bind (pod.cuh
-//     bind_pod) with the selection masked to -1 past the accepted
-//     prefix: the JAX package's lax.scan of `_bind_phase`.
+//   * general (any other carry: NodePorts, spread, InterPod, and on the
+//     host path's bind of one pod (framework/pipeline.py Phased.bind) the
+//     volume family): a grid of CTAs over node slices, ceil(N / 128) CTAs
+//     of 128 nodes.  Each CTA walks the accepted binds b < k in batch
+//     order and applies the step's bind (pod.cuh bind_pod) to its own
+//     slice: the spread counts' and the InterPod matrices' same-domain
+//     increments.  The CTA that owns `selected` makes that bind's
+//     exactly-once row updates there (core, NodePorts, disk and CSI rows),
+//     and the last CTA walks every bind for the cluster-wide carries
+//     (InterPod's matched_total, the ReadWriteOncePod bits, VolumeBinding's
+//     claims), so they are set without atomics and in batch order: the JAX
+//     package's lax.scan of `_bind_phase`.  A bind's node-axis updates
+//     read only statics (at `selected` and at the node itself) and write
+//     only the node itself, so node slices never depend on each other
+//     across the batch, and no CTA waits for another.  Within a CTA each
+//     element is always updated by the same thread, so consecutive binds
+//     need no barrier.  The stream never carries the volume family
+//     (parallel/speculative.py speculation_ok admits no volume plugin);
+//     the host path's bind does, and its claims run in batch order on the
+//     last CTA.
 //
 // What bounds it on this card: the core-only variant is a few hundred
-// 8-byte atomics, bound by its launch; the general one walks up to B
-// binds one after another on one SM, each a pass over the [G, N] and
-// [T, N] domain rows of the pod's groups and terms.
+// 8-byte atomics, bound by its launch; the general one is the chain of
+// the k binds within one CTA, each a ballot over the pod's groups and
+// terms (a warp finds the ones it changes, 32 at a time) and a pass of
+// 128 nodes for each of them, with the CTAs in parallel over the nodes.
 #include "pod.cuh"
 
 #define COMMIT_THREADS 256
@@ -38,12 +55,16 @@ __global__ void __launch_bounds__(COMMIT_THREADS) spec_commit_core_kernel(
   atomicAdd((unsigned long long*)&a.num_pods[sel], 1ULL);
 }
 
-__global__ void __launch_bounds__(KSS_THREADS, 1) spec_commit_bind_kernel(
-    const StepArgs a, const int* selected, int k) {
-  for (int b = 0; b < a.C; ++b) {
-    const int sel = b < k ? selected[b] : -1;
-    bind_pod(a, b, sel);
-    __syncthreads();  // the next bind may touch the rows this one wrote
+#define COMMIT_SLICE 128  // nodes (and threads) of a general commit's CTA
+
+__global__ void __launch_bounds__(COMMIT_SLICE) spec_commit_bind_kernel(
+    const __grid_constant__ StepArgs a, const int* selected, int k) {
+  const int lo = min((int)blockIdx.x * COMMIT_SLICE, a.N), hi = min(lo + COMMIT_SLICE, a.N);
+  const bool cluster_wide = blockIdx.x == gridDim.x - 1;
+  const PodVolumes none{};
+  for (int b = 0; b < min(k, a.C); ++b) {
+    const int sel = selected[b];
+    bind_pod(a, b, sel, lo, hi, sel >= lo && sel < hi, cluster_wide, none);
   }
 }
 
@@ -61,7 +82,9 @@ extern "C" int kss_spec_commit(const StepArgs* args, const int* selected, int k,
     spec_commit_core_kernel<<<blocks, COMMIT_THREADS, 0, (cudaStream_t)stream>>>(*args, selected,
                                                                                  k);
   } else {
-    spec_commit_bind_kernel<<<1, KSS_THREADS, 0, (cudaStream_t)stream>>>(*args, selected, k);
+    const int blocks = args->N > 0 ? (args->N + COMMIT_SLICE - 1) / COMMIT_SLICE : 1;
+    spec_commit_bind_kernel<<<blocks, COMMIT_SLICE, 0, (cudaStream_t)stream>>>(*args, selected,
+                                                                               k);
   }
   return (int)cudaGetLastError();
 }

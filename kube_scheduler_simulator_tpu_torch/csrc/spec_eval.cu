@@ -4,7 +4,8 @@
 // spec_eval replaces kube_scheduler_simulator_tpu/parallel/speculative.py:318
 // `_eval_fn`: the step's compact evaluation, vmapped over a batch of B
 // pods against ONE frozen carry, with no bind.  Here the batch axis is
-// the grid: block b runs phases 0-4 of the step (pod.cuh eval_pod) for
+// the grid: block b runs the step's evaluation (pod.cuh eval_pod, three block
+// combines) for
 // pod b and writes the compact outputs at row b.  Each block has its own
 // scratch slot; nothing writes the carry, so the blocks share it safely.
 //
@@ -19,11 +20,10 @@
 // launch.
 #include "spec.cuh"
 
-__global__ void __launch_bounds__(SPEC_THREADS) spec_eval_kernel(const StepArgs a) {
-  __shared__ long long sh_ll[KSS_THREADS / 32];
-  __shared__ int sh_i[KSS_THREADS / 32];
+__global__ void __launch_bounds__(SPEC_THREADS) spec_eval_kernel(const __grid_constant__ StepArgs a) {
+  __shared__ PodShared sh;
   const int c = blockIdx.x;
-  eval_pod(a, c, pod_scratch(a, c), sh_ll, sh_i);
+  eval_pod(a, c, pod_scratch(a, c), sh);
 }
 
 __global__ void __launch_bounds__(SPEC_THREADS) spec_oracle_kernel(

@@ -5,10 +5,9 @@
 // launched right after on the same stream.
 #include "spec.cuh"
 
-__global__ void __launch_bounds__(SPEC_THREADS) spec_round_kernel(const StepArgs a) {
-  __shared__ long long sh_ll[KSS_THREADS / 32];
-  __shared__ int sh_i[KSS_THREADS / 32];
-  spec_round_pod(a, blockIdx.x, sh_ll, sh_i);
+__global__ void __launch_bounds__(SPEC_THREADS) spec_round_kernel(const __grid_constant__ StepArgs a) {
+  __shared__ PodShared sh;
+  spec_round_pod(a, blockIdx.x, sh);
 }
 
 #ifdef __CUDACC__

@@ -1,12 +1,12 @@
-// B1e: PodTopologySpread for one pod — the per-slot minima (a block
-// reduction over N), filter, score and normalize at one node, and the
+// B1e: PodTopologySpread for one pod — the per-slot minima (one combine
+// over the scope's nodes), filter, score and normalize at one node, and the
 // same-domain bind.  Counterparts: plugins/topologyspread.py
 // _per_constraint :318, filter_kernel :338, score_kernel :352,
 // normalize :365, bind_update :379 (line numbers in the JAX package).
 // Counts are node-space [G, N] int32; the _BIG sentinel is int64.
 #pragma once
 
-#include "common.cuh"
+#include "scope.cuh"
 
 // Spread eligibility comes in two layouts: [P, N] shared by every slot,
 // or [P, MC, N] when a constraint sets a non-default inclusion policy
@@ -23,23 +23,36 @@ __device__ __forceinline__ bool spread_checks(const StepArgs& a, int c, int m) {
 // Per-slot minimum count over eligible keyed nodes, for the slots the
 // filter checks (min_match of _per_constraint); minDomains unsatisfied
 // forces 0.  Every thread of the scope calls this and gets every slot's
-// minimum: each walks the scope's nodes, and a shard with no eligible
-// keyed node contributes KSS_BIG to the scope's min.
+// minimum: each walks the scope's nodes for all slots at once, and one
+// combine reduces the four minima together; a CTA with no eligible keyed
+// node contributes KSS_BIG.
 template <class Scope>
-__device__ void spread_minima(const StepArgs& a, int c, long long* mins, long long* sh,
-                              Scope& scope) {
+__device__ void spread_minima(const StepArgs& a, int c, long long* mins, Scope& scope) {
+  bool checks[KSS_MC];
+  bool any = false;
+  long long v[KSS_MC];
+#pragma unroll
   for (int m = 0; m < KSS_MC; ++m) {
+    checks[m] = spread_checks(a, c, m);  // uniform across the scope
+    any |= checks[m];
+    v[m] = KSS_BIG;
     mins[m] = 0;
-    if (!spread_checks(a, c, m)) continue;  // uniform across the scope
-    const long long cid = a.sp_c_id[c * KSS_MC + m];
-    long long local = KSS_BIG;
-    for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
-      if (a.sp_dom_idx[cid * a.N + n] >= 0 && spread_eligible(a, c, m, n))
-        local = ll_min(local, (long long)a.sp_counts[cid * a.N + n]);
-    }
-    long long mn = scope.min(local, sh);
-    mins[m] = a.sp_md_unsat[c * KSS_MC + m] ? 0 : mn;
   }
+  if (!any) return;
+  for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
+#pragma unroll
+    for (int m = 0; m < KSS_MC; ++m) {
+      if (!checks[m]) continue;
+      const long long cid = a.sp_c_id[c * KSS_MC + m];
+      if (a.sp_dom_idx[cid * a.N + n] >= 0 && spread_eligible(a, c, m, n))
+        v[m] = ll_min(v[m], (long long)a.sp_counts[cid * a.N + n]);
+    }
+  }
+  constexpr unsigned long long kOps = combine_ops(OP_MIN, OP_MIN, OP_MIN, OP_MIN);
+  const long long* r = scope_combine<KSS_MC, kOps>(v, scope);
+#pragma unroll
+  for (int m = 0; m < KSS_MC; ++m)
+    mins[m] = checks[m] && !a.sp_md_unsat[c * KSS_MC + m] ? r[m] : 0;
 }
 
 // 0 pass; 1+2m missing label at slot m; 2+2m skew at slot m; the first
@@ -90,13 +103,21 @@ __device__ __forceinline__ long long spread_normalize(long long raw, bool ignore
 // Node-space bind: every node of [lo, hi) sharing the selected node's
 // domain, in every group the pod matches, takes +1.  Only called with
 // sel >= 0; the selected node's domain is read from the statics, which
-// every shard sees whole.
+// every block sees whole.  Each warp finds the pod's groups 32 at a time
+// with a ballot (the same mask in every warp), so groups the pod does not
+// match cost no load of their domain row.
 __device__ void spread_bind(const StepArgs& a, int c, int sel, int lo, int hi) {
-  for (int g = 0; g < a.G; ++g) {
-    if (!a.sp_pm[(long long)c * a.G + g]) continue;  // uniform across the block
-    const int dcol = a.sp_dom_idx[(long long)g * a.N + sel];
-    if (dcol < 0) continue;
-    for (int n = lo + threadIdx.x; n < hi; n += blockDim.x)
-      if (a.sp_dom_idx[(long long)g * a.N + n] == dcol) a.sp_counts[(long long)g * a.N + n] += 1;
+  const int lane = threadIdx.x & 31;
+  for (int g0 = 0; g0 < a.G; g0 += 32) {
+    const int gl = g0 + lane;
+    unsigned mask = __ballot_sync(0xffffffffu, gl < a.G && a.sp_pm[(long long)c * a.G + gl]);
+    while (mask) {
+      const int g = g0 + __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int dcol = a.sp_dom_idx[(long long)g * a.N + sel];
+      if (dcol < 0) continue;
+      for (int n = lo + threadIdx.x; n < hi; n += blockDim.x)
+        if (a.sp_dom_idx[(long long)g * a.N + n] == dcol) a.sp_counts[(long long)g * a.N + n] += 1;
+    }
   }
 }

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -50,7 +51,8 @@ class BuildResult:
 # C functions of each library: name -> (argtypes, restype)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "step": {"kss_step_args_size": ([], _I), "kss_step_chunk": ([_P, _P], _I)},
+    "step": {"kss_step_args_size": ([], _I), "kss_step_chunk": ([_P, _I, _P], _I),
+             "kss_step_plan": ([_P, _I, _P, _P], _I)},
     "spec_eval": {"kss_step_args_size": ([], _I), "kss_spec_eval": ([_P, _P], _I),
                   "kss_spec_oracle": ([_P, _I, _P, _P, _I, _I, _P, _P], _I)},
     "spec_round": {"kss_step_args_size": ([], _I), "kss_spec_round": ([_P, _P], _I)},
@@ -68,9 +70,17 @@ SIGNATURES = {
              "kss_spec_round_fused": ([_P, _I, _P], _I),
              "kss_spec_oracle_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
     "mesh": {"kss_step_args_size": ([], _I), "kss_mesh_max_shards": ([], _I),
+             "kss_step_plan": ([_P, _I, _P, _P], _I),
              "kss_step_chunk_sharded": ([_P, _I, _P], _I),
              "kss_spec_eval_sharded": ([_P, _I, _P], _I)},
 }
+
+
+# builds of a source with extra flags, compiled only when `load` asks for
+# one (never by a plain `build()`): stem -> (source stem, flags).  The
+# phase clock of csrc/common.cuh.
+VARIANTS = {"step_clock": ("step", ("-DKSS_PHASE_CLOCK",))}
+SIGNATURES["step_clock"] = SIGNATURES["step"]
 
 
 def _sources() -> list[Path]:
@@ -102,26 +112,41 @@ def library_path(stem: str = "step") -> Path:
     return BUILD_DIR / f"libkss_{stem}_{_digest()}.so"
 
 
-def build() -> dict[str, BuildResult]:
-    """Compile every csrc/*.cu (each includes the .cuh files it needs)
-    whose library for these sources does not exist: one nvcc per source,
-    started together.  -> {source stem: BuildResult}."""
-    results = {stem: BuildResult(library_path(stem), False, 0.0, "")
-               for stem in SIGNATURES if library_path(stem).exists()}
-    missing = [stem for stem in SIGNATURES if stem not in results]
-    if not missing:
-        return results
+# one build at a time in a process: threads that first launch together
+# (sessions, the fuse coordinator) would otherwise start the same nvcc
+# twice into one temporary file
+_BUILD_LOCK = threading.Lock()
+
+
+def build(stems=None) -> dict[str, BuildResult]:
+    """Compile the libraries of `stems` (by default every csrc/*.cu, each
+    including the .cuh files it needs, and no VARIANTS) whose library for
+    these sources does not exist: one nvcc per library, started together.
+    A thread that finds another thread building waits for it, then finds
+    its libraries.  -> {stem: BuildResult}."""
+    stems = [s for s in SIGNATURES if s not in VARIANTS] if stems is None else list(stems)
+    with _BUILD_LOCK:
+        results = {stem: BuildResult(library_path(stem), False, 0.0, "")
+                   for stem in stems if library_path(stem).exists()}
+        missing = [stem for stem in stems if stem not in results]
+        if missing:
+            results.update(_compile(missing))
+    return {stem: results[stem] for stem in stems}
+
+
+def _compile(stems: list[str]) -> dict[str, BuildResult]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
-    for stem in missing:
+    for stem in stems:
         out = library_path(stem)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        source, extra = VARIANTS.get(stem, (stem, ()))
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{source}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         running[stem] = (proc, tmp, out, time.perf_counter())
-    failed = []
+    results, failed = {}, []
     for stem, (proc, tmp, out, t0) in running.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
@@ -132,15 +157,16 @@ def build() -> dict[str, BuildResult]:
         results[stem] = BuildResult(out, True, seconds, log)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {stem: results[stem] for stem in SIGNATURES}
+    return results
 
 
 @functools.cache
 def load(stem: str = "step") -> ctypes.CDLL:
     """The library built from csrc/<stem>.cu with its C functions'
-    signatures declared.  Built, hashed and opened once per process: later
-    launches reuse it."""
-    lib = ctypes.CDLL(str(build()[stem].path))
+    signatures declared.  Built (with every other library, or a variant
+    alone), hashed and opened once per process: later launches reuse it."""
+    built = build((stem,)) if stem in VARIANTS else build()
+    lib = ctypes.CDLL(str(built[stem].path))
     for name, (argtypes, restype) in SIGNATURES[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

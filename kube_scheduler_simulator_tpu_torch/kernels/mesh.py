@@ -347,8 +347,9 @@ def _launch(what: str, fn, args, shards: int, dev) -> None:
 def step_chunk_sharded(step, carry: dict, xs_chunk: dict):
     """B12 sharded_step: one chunk of pods -> (carry, StepOut / CompactOut
     with a leading pod axis), over the workload's mesh.  CUDA tensors: one
-    launch of one cluster of the mesh's S CTAs, carry updated in place.
-    CPU tensors: step_chunk_sharded_plain."""
+    launch of step_chunk's cluster kernel (csrc/step_kernel.cuh) over the
+    mesh's S CTAs, carry updated in place.  CPU tensors:
+    step_chunk_sharded_plain."""
     dev = carry["core"].requested.device
     if dev.type == "cpu":
         return step_chunk_sharded_plain(step, carry, xs_chunk)
@@ -356,8 +357,9 @@ def step_chunk_sharded(step, carry: dict, xs_chunk: dict):
     kstep.check_device("step_chunk_sharded", dev, step.cw.statics, carry, xs_chunk)
     lib = kstep.load_lib("mesh")
     c = xs_chunk["is_pad"].shape[0]
-    outs = kstep.alloc_outputs(step, c, dev)
-    args = kstep.make_args(step, carry, xs_chunk, outs)
+    outs = kstep.alloc_outputs(step, c, dev, slots=0)
+    args = kstep.make_args(step, carry, xs_chunk, outs, slots=0)
+    _, spill = kstep.plan_cluster(lib, args, shards, dev)  # held through the launch
     _launch("step_chunk_sharded", lib.kss_step_chunk_sharded, args, shards, dev)
     step_chunk_sharded.launches += 1
     cls = StepOut if step.out_mode == "full" else CompactOut

@@ -4,7 +4,9 @@
 scheduling step of framework/pipeline.py `Step`:
 
   * for tensors on the card it launches the hand-written kernel once, on
-    PyTorch's current stream, without synchronising, and returns the
+    PyTorch's current stream, without synchronising: one thread-block
+    cluster of S CTAs, 16 where the card has room for it and 8 otherwise
+    (`step_chunk.shards`), each CTA a slice of the nodes.  It returns the
     chunk's StepOut / CompactOut (leading pod axis) with `carry` updated
     in place;
   * for tensors on the CPU it runs the plain PyTorch version,
@@ -27,7 +29,7 @@ import ctypes
 import torch
 
 from ..framework.pipeline import PACK_MODES, CompactOut, StepOut
-from ..plugins import fitscoring
+from ..plugins import fitscoring, volumebinding
 from ..plugins.fitscoring import parse_balanced_resources, parse_fit_strategy
 from ..plugins.topologyspread import MAX_CONSTRAINTS
 from ..state.resources import CPU, MEMORY
@@ -76,12 +78,13 @@ _PTR_FIELDS = (
     "vr_strict", "vr_w_any", "vr_w_rw", "vr_rwop", "vr_filter_skip",
     "vr_used_any", "vr_used_rw", "vr_rwop_used",
     "vb_pv_cap", "vb_pv_node_ok", "vb_bound_code", "vb_want", "vb_active",
-    "vb_provision_ok", "vb_filter_skip", "vb_claimed",
+    "vb_provision_ok", "vb_filter_skip", "vb_claimed", "vb_order",
     "force_unsched",
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
     "scratch_raw", "scratch_feas", "scratch_ign", "scratch_cand",
+    "clock", "spill",
 )
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
@@ -363,6 +366,7 @@ def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
         a.vb_provision_ok = _ptr(x.provision_ok, b, (c, a.VK, n), "binding provision_ok")
         a.vb_filter_skip = _ptr(x.filter_skip, b, (c,), "binding filter_skip")
         a.vb_claimed = _ptr(bc.claimed, b, (a.VV,), "binding claimed")
+        a.vb_order = _ptr(volumebinding.pv_order(st), torch.int32, (a.VV,), "binding pv order")
     if "force_unsched" in xs:
         a.force_unsched = _ptr(xs["force_unsched"], b, (c,), "force_unsched")
 
@@ -441,22 +445,62 @@ def check_launch(what: str, err: int) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def step_chunk(step, carry: dict, xs_chunk: dict):
+def plan_cluster(lib: ctypes.CDLL, args: StepArgs, shards: int, dev: torch.device):
+    """The plan of one launch of step_chunk's cluster kernel (csrc/
+    step_kernel.cuh kss_step_plan) -> (S, the device memory that holds the
+    CTAs' state, or None).  `shards` 0 lets the kernel pick S.  Where a
+    CTA's state does not fit in shared memory it goes to device memory,
+    allocated here on `dev` and set on args.spill; the caller launches
+    before it lets the tensor go (PyTorch's allocator orders its reuse
+    after the launch on the stream)."""
+    out, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    check_launch("step_chunk plan", lib.kss_step_plan(ctypes.byref(args), shards,
+                                                      ctypes.byref(out), ctypes.byref(nbytes)))
+    spill = None
+    if nbytes.value:
+        spill = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+        args.spill = spill.data_ptr()
+    return out.value, spill
+
+
+CLOCK_SLOTS = 8  # csrc/common.cuh KSS_CLOCK_SLOTS
+CLOCK_PHASES = ("pre-reductions", "filter", "score", "normalize reductions",
+                "normalize and argmax", "bind", "NodeVolumeLimits", "VolumeBinding")
+
+
+def step_chunk(step, carry: dict, xs_chunk: dict, *, _shards: int = 0,
+               _clock: torch.Tensor | None = None):
     """One chunk of pods -> (carry, StepOut / CompactOut with a leading pod
-    axis).  CUDA tensors: one kernel launch, carry updated in place.  CPU
-    tensors: the plain version."""
+    axis).  CUDA tensors: one launch of one thread-block cluster, carry
+    updated in place; `step_chunk.shards` records the cluster size it took
+    (16 where the card has room for such a cluster, else 8), and
+    `step_chunk.spilled` whether the CTAs' state went to device memory
+    (a slice too wide for shared memory).  CPU tensors: the plain version.
+
+    For tests and measurement only: `_shards` forces the cluster size (1
+    to 16); `_clock`, a zeroed int64 [C * CLOCK_SLOTS + 2] tensor on the
+    card, runs the phase-clock build of the kernel (csrc/step.cu under
+    -DKSS_PHASE_CLOCK), which adds each pod's phase times in ns
+    (CLOCK_PHASES) and stamps the launch's start and end."""
     dev = carry["core"].requested.device
     if dev.type == "cpu":
         return step.plain_scan(carry, xs_chunk)
     check_device("step_chunk", dev, step.cw.statics, carry, xs_chunk)
-    lib = load_lib("step")
+    lib = load_lib("step" if _clock is None else "step_clock")
     c = xs_chunk["is_pad"].shape[0]
-    outs = alloc_outputs(step, c, dev)
-    args = make_args(step, carry, xs_chunk, outs)
-    check_launch("step_chunk", lib.kss_step_chunk(ctypes.byref(args), stream_of(dev)))
+    outs = alloc_outputs(step, c, dev, slots=0)  # the kernel keeps its rows on chip
+    args = make_args(step, carry, xs_chunk, outs, slots=0)
+    if _clock is not None:
+        args.clock = _ptr(_clock, torch.int64, (c * CLOCK_SLOTS + 2,), "clock")
+    shards, spill = plan_cluster(lib, args, _shards, dev)
+    check_launch("step_chunk", lib.kss_step_chunk(ctypes.byref(args), shards, stream_of(dev)))
     step_chunk.launches += 1
+    step_chunk.shards = shards
+    step_chunk.spilled = spill is not None
     cls = StepOut if step.out_mode == "full" else CompactOut
     return carry, cls(**{k: outs[k] for k in cls._fields})
 
 
 step_chunk.launches = 0
+step_chunk.shards = None
+step_chunk.spilled = None

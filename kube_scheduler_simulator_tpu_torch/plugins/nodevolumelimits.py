@@ -15,7 +15,8 @@ Tensorization: CSI volumes (driver, volumeHandle) over PVC-bound PVs are
 interned as c-slots with a driver id; the carry tracks the per-node
 unique-volume bitmap `on_node[N, C]` (a volume shared by two pods counts
 once).  Per-driver counts are an int64 [N, C] x [C, D] product against
-the driver one-hot.  As in the JAX package, volumes a pod acquires through
+the driver one-hot; a pod's filter walks only its own volumes (the
+kernel's per-pod list) against them.  As in the JAX package, volumes a pod acquires through
 dynamic WaitForFirstConsumer provisioning are not counted against later
 pods, and inline ephemeral CSI volumes are not modelled.
 """
@@ -132,12 +133,22 @@ def _per_driver(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
 
 
 def filter_kernel(static: LimitsStatic, sl: LimitsXS, carry: LimitsCarry) -> torch.Tensor:
-    """[N] int32: 1 where a driver limit would be exceeded."""
-    existing = _per_driver(carry.on_node, static.driver_onehot)                  # [N, D]
-    new = _per_driver(sl.pod_vols[None, :] & ~carry.on_node, static.driver_onehot)  # [N, D]
+    """[N] int32: 1 where a driver limit would be exceeded.
+
+    The kernel's walk (csrc/volumes.cuh nvl_filter): the pod's own volumes,
+    compacted, give `added` per (node, driver), the volumes of that list not
+    yet on the node; `existing` is the per-(node, driver) count of unique
+    volumes on the node, which the kernel keeps beside the bitmap.  A pod
+    that brings no volume fails no node."""
+    n = carry.on_node.shape[0]
+    vols = torch.nonzero(sl.pod_vols).flatten()                                 # the pod's list
+    if vols.numel() == 0:
+        return torch.zeros(n, dtype=torch.int32, device=carry.on_node.device)
+    existing = _per_driver(carry.on_node, static.driver_onehot)                 # [N, D]
+    added = _per_driver(~carry.on_node[:, vols], static.driver_onehot[vols])    # [N, D]
     # upstream checks only drivers the pod ADDS volumes for, so a node
     # already over its limit still accepts pods that bring nothing new
-    over = (static.limits >= 0) & (new > 0) & (existing + new > static.limits)
+    over = (static.limits >= 0) & (added > 0) & (existing + added > static.limits)
     return torch.any(over, dim=1).to(torch.int32)
 
 

@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .base import to_tensor
 from ..state.volumes import (
@@ -90,6 +91,22 @@ class BindingXS(NamedTuple):
 
 class BindingCarry(NamedTuple):
     claimed: torch.Tensor       # [V] bool
+
+
+# pv_cap tensor (by identity) -> its PVs in (capacity, index) order
+_PV_ORDER = WeakIdKeyDictionary()
+
+
+def pv_order(static: BindingStatic) -> torch.Tensor:
+    """The PVs in (capacity, index) order, int32 on their device: a stable
+    sort of the capacities, made once per static (statics never change
+    after compile; `build` makes it) and read by the plain walk below and
+    by the kernels (csrc/volumes.cuh, through kernels/step.py)."""
+    order = _PV_ORDER.get(static.pv_cap)
+    if order is None:
+        order = torch.sort(static.pv_cap, stable=True).indices.to(torch.int32)
+        _PV_ORDER[static.pv_cap] = order
+    return order
 
 
 def classify_pod(vt: VolumeTable, pod: dict):
@@ -201,6 +218,7 @@ def build(vt: VolumeTable, table, pods: list[dict], bound_pods=None, device="cpu
 
     static = BindingStatic(pv_cap=to_tensor(vt.pv_cap, device),
                            pv_node_ok=to_tensor(vt.pv_node_ok, device))
+    pv_order(static)
     xs = BindingXS(
         bound_code=to_tensor(bound_code, device),
         want=to_tensor(want, device),
@@ -213,11 +231,13 @@ def build(vt: VolumeTable, table, pods: list[dict], bound_pods=None, device="cpu
     return static, xs, carry, rejects
 
 
-_I64_MAX = np.iinfo(np.int64).max
-
-
 def _greedy_choices(static: BindingStatic, sl: BindingXS, claimed: torch.Tensor):
-    """Per-node greedy matching over the pod's K unbound-PVC slots.
+    """Per-node greedy matching over the pod's K unbound-PVC slots, as the
+    kernel walks it (csrc/volumes.cuh vb_greedy): the pod's candidates are
+    the unclaimed PVs some active slot wants, in (capacity, index) order;
+    per slot k in order, at each node the first candidate the slot wants,
+    allowed there and not taken by an earlier slot, which is the JAX
+    argmin's first minimum (the least capacity, ties to the lowest index).
 
     -> (bindfail [N] bool, chosen [V, N] bool: PV v claimed when this pod
     lands on node n)."""
@@ -226,21 +246,20 @@ def _greedy_choices(static: BindingStatic, sl: BindingXS, claimed: torch.Tensor)
     dev = claimed.device
     chosen = torch.zeros((v, n), dtype=torch.bool, device=dev)
     bindfail = torch.zeros(n, dtype=torch.bool, device=dev)
+    cand = torch.zeros(0, dtype=torch.int64, device=dev)
+    if v > 0 and k_max > 0:
+        order = pv_order(static).long()
+        wanted = (sl.want & sl.active[:, None]).any(dim=0) & ~claimed
+        cand = order[wanted[order]]
+    allowed = static.pv_node_ok[cand]                                    # [m, N]
+    nodes = torch.arange(n, device=dev)
     for k in range(k_max):
-        if v > 0:
-            cand = (sl.want[k][:, None] & (~claimed)[:, None] & ~chosen
-                    & static.pv_node_ok)
-            cap = torch.where(cand, static.pv_cap[:, None], _I64_MAX)
-            # the first minimum, the lowest PV index, as jnp.argmin: the
-            # minimum's value, then its first position by a masked argmax
-            low = cap.min(dim=0).values
-            pick = torch.argmax((cap == low[None, :]).to(torch.uint8), dim=0)
-            has = torch.gather(cand, 0, pick[None, :])[0]
+        ok = sl.want[k][cand][:, None] & allowed & ~chosen[cand]         # [m, N]
+        has = ok.any(dim=0)
+        if cand.numel():
+            pick = cand[torch.argmax(ok.to(torch.uint8), dim=0)]        # the first allowed
             use = sl.active[k] & has
-            vi = torch.arange(v, device=dev)[:, None]
-            chosen = chosen | ((vi == pick[None, :]) & use[None, :])
-        else:
-            has = torch.zeros(n, dtype=torch.bool, device=dev)
+            chosen[pick, nodes] |= use
         ok_k = has | sl.provision_ok[k]
         bindfail = bindfail | (sl.active[k] & ~ok_k)
     return bindfail, chosen

@@ -11,7 +11,9 @@ port; and B11, the fused round, against its members' solo launches and
 plain rounds (members on streams of their own included), and sessions
 on the card fused against unfused; and B12, the node-sharded step and
 dense eval at 1, 2, 4 and 8 shards, against their plain twins and the
-unsharded kernels.  A CUDA kernel has
+unsharded kernels; step_chunk's cluster at 8 and 16 CTAs, from several
+threads at once, and past shared memory (its state in device memory),
+and spec_commit_bind's grid of node slices against their plain versions.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -316,6 +318,186 @@ def test_b9_in_spec_kernels(card, wl):
             _equal(got, kspec.sparse_round_plain(step, carry, xs, 16), f"spec_round {lo}")
         want = kspec.commit_plain(step, _clone_carry(carry), xs, ev.selected, 32)
         carry = kspec.spec_commit_bind(step, carry, xs, ev.selected, 32)
+        _equal(carry, want, f"spec_commit_bind {lo}")
+
+
+# ------------------------------------------- step_chunk's cluster, spec_commit_bind's slices
+
+def _ladder():
+    """The width-ladder fleet of tests/test_torch_replay.py: 6 nodes, fewer
+    than a cluster's CTAs, and bound anchors whose required pod-affinity
+    terms push every queue pod's InterPod raw past int16."""
+    nodes = make_nodes(6, seed=1)
+    keys = ("kubernetes.io/hostname", "topology.kubernetes.io/zone",
+            "topology.kubernetes.io/region")
+
+    def pod(name, terms=()):
+        spec = {"containers": [{"name": "main", "resources": {
+            "requests": {"cpu": "100m", "memory": str(64 << 20)}}}]}
+        if terms:
+            spec["affinity"] = {"podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+                {"topologyKey": k, "labelSelector": {"matchLabels": {"app": "web"}}}
+                for k in terms]}}
+        return {"apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": name, "namespace": "default", "labels": {"app": "web"}},
+                "spec": spec}
+
+    bound = [(pod(f"anchor-{k}", terms=(key,)), "node-00000") for k, key in enumerate(keys)]
+    cfg = PluginSetConfig(enabled=list(SIX),
+                          args={"InterPodAffinity": {"hardPodAffinityWeight": 20000}})
+    return (nodes, [pod(f"q-{i}") for i in range(10)], cfg), {"bound_pods": bound}
+
+
+# config 5 at 250 nodes and the policies fleet's 24 divide by neither 16
+# nor (config 5) 8; the ladder has 6 nodes
+CLUSTER_WORKLOADS = {"config5": lambda: (WORKLOADS["config5"](), {}),
+                     "policies": lambda: (_policies(), {}),
+                     "ladder": _ladder,
+                     "default_profile": lambda: _default_profile()}
+
+
+@pytest.mark.parametrize("shards", [8, 16])
+@pytest.mark.parametrize("wl", list(CLUSTER_WORKLOADS))
+def test_step_chunk_cluster_sizes_match_plain_scan(card, wl, shards):
+    """step_chunk on a cluster of S = 8 and S = 16 CTAs (forced), chunk
+    after chunk, against Step.plain_scan: outputs and every carry equal,
+    with N not divisible by S, N < S, and the default profile's volume
+    family; left to itself the kernel takes a cluster of 8 or 16."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+
+    args, kw = CLUSTER_WORKLOADS[wl]()
+    cw = compile_workload(*args, device=card, **kw)
+    pm, sd, _ = _compact_plan(cw, None)
+    for step in (build_step(cw), build_step(cw, out_mode="compact", pack_mode=pm,
+                                            score_dtypes=sd)):
+        ck, cp = _clone_carry(cw.init_carry), _clone_carry(cw.init_carry)
+        for lo in range(0, cw.n_pods, 32):
+            xs = _batch(cw, lo, 32, card)
+            ck, ok = kstep.step_chunk(step, ck, xs, _shards=shards)
+            assert kstep.step_chunk.shards == shards
+            cp, op = step.plain_scan(cp, xs)
+            _equal(ok, op, f"{step.out_mode} outputs chunk {lo}")
+            _equal(ck, cp, f"{step.out_mode} carry chunk {lo}")
+    kstep.step_chunk(step, _clone_carry(cw.init_carry), _batch(cw, 0, 32, card))
+    assert kstep.step_chunk.shards in (8, 16)
+
+
+def test_step_chunk_from_several_threads_on_fleets_of_different_widths(card):
+    """Three threads launch step_chunk at once, each on its own stream, on
+    fleets whose launches differ in width, scorer count and PVs, so in
+    shared memory; one (1,000 nodes on one CTA) takes past the 48 KB a
+    launch may take by default.  Every launch succeeds and every chunk
+    equals Step.plain_scan: the kernel's function attributes are set once
+    per card, never per launch, so no thread's launch can undo another's."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    fleets = []
+    for wl in ("config5", "default_profile"):
+        args, kw = CLUSTER_WORKLOADS[wl]()
+        cw = compile_workload(*args, device=card, **kw)
+        fleets.append((cw, build_step(cw), 0))
+    nodes, pods, cfg = baseline_config(5, scale=0.2, seed=0)  # 1,000 nodes
+    cw = compile_workload(nodes, pods[:256], cfg, device=card)
+    fleets.append((cw, build_step(cw), 1))
+    chunks = [[_batch(cw, lo, 32, card) for lo in range(0, min(cw.n_pods, 256), 32)]
+              for cw, _, _ in fleets]
+    want = []
+    for (cw, step, _), xss in zip(fleets, chunks):
+        cp, outs = _clone_carry(cw.init_carry), []
+        for xs in xss:
+            cp, op = step.plain_scan(cp, xs)
+            outs.append(op)
+        want.append((cp, outs))
+    torch.cuda.synchronize()  # the fleets and references, before the threads' streams read them
+    start = threading.Barrier(len(fleets), timeout=120)
+
+    def run(i):
+        (cw, step, shards), xss = fleets[i], chunks[i]
+        stream = torch.cuda.Stream(card)
+        got = []
+        with torch.cuda.stream(stream):
+            start.wait()
+            for _ in range(16):
+                ck, outs = _clone_carry(cw.init_carry), []
+                for xs in xss:
+                    ck, ok = kstep.step_chunk(step, ck, xs, _shards=shards)
+                    outs.append(ok)
+                got.append((ck, outs))
+        stream.synchronize()
+        return got
+
+    with ThreadPoolExecutor(len(fleets)) as pool:
+        results = [f.result() for f in [pool.submit(run, i) for i in range(len(fleets))]]
+    for i, got in enumerate(results):
+        for rep, (ck, outs) in enumerate(got):
+            _equal(outs, want[i][1], f"fleet {i} repeat {rep} outputs")
+            _equal(ck, want[i][0], f"fleet {i} repeat {rep} carry")
+
+
+def _config5_full():
+    nodes, pods, cfg = baseline_config(5, scale=1.0, seed=0)  # 5,000 nodes
+    return nodes, pods[:64], cfg
+
+
+def test_step_chunk_past_shared_memory(card):
+    """A slice too wide for shared memory: config 5's 5,000 nodes on one
+    CTA (S = 1 forced) need about 250 KB of state, past the card's 227 KB,
+    so the kernel keeps it in device memory, and equals Step.plain_scan.
+    The same fleet on its own cluster fits; B12's wrapper at S = 1 takes
+    the same plan."""
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    cw = compile_workload(*_config5_full(), device=card)
+    step = build_step(cw)
+    sstep = build_step(_sharded(cw, make_mesh(1, device=card)))
+    ck, cs, cp = (_clone_carry(cw.init_carry) for _ in range(3))
+    for lo in (0, 32):
+        xs = _batch(cw, lo, 32, card)
+        ck, ok = kstep.step_chunk(step, ck, xs, _shards=1)
+        assert kstep.step_chunk.shards == 1 and kstep.step_chunk.spilled
+        cs, os_ = kmesh.step_chunk_sharded(sstep, cs, xs)
+        cp, op = step.plain_scan(cp, xs)
+        _equal(ok, op, f"S = 1 outputs chunk {lo}")
+        _equal(ck, cp, f"S = 1 carry chunk {lo}")
+        _equal(os_, op, f"sharded S = 1 outputs chunk {lo}")
+        _equal(cs, cp, f"sharded S = 1 carry chunk {lo}")
+    kstep.step_chunk(step, _clone_carry(cw.init_carry), _batch(cw, 0, 32, card))
+    assert kstep.step_chunk.shards in (8, 16) and not kstep.step_chunk.spilled
+
+
+@pytest.mark.parametrize("wl", ["config5", "policies", "default_profile"])
+def test_spec_commit_bind_over_node_slices(card, wl):
+    """spec_commit_bind, a grid of CTAs over node slices, against
+    commit_plain: an accept prefix k < B, rows that select -1, two binds at
+    one node and a third in the same spread domain, and (the default
+    profile, as the host path binds) the volume family's carries."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    args, kw = CLUSTER_WORKLOADS[wl]()
+    cw = compile_workload(*args, device=card, **kw)
+    pm, sd, _ = _compact_plan(cw, None)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    carry = _clone_carry(cw.init_carry)
+    for lo in (0, 32):
+        xs = _batch(cw, lo, 32, card)
+        sel = kspec.eval_plain(step, carry, xs).selected.clone()
+        sel[3], sel[5] = -1, -1
+        first = int(sel[0]) if int(sel[0]) >= 0 else 0
+        sel[0], sel[1] = first, first
+        dom = cw.statics["PodTopologySpread"].dom_idx[0] if "PodTopologySpread" in cw.statics \
+            else None
+        if dom is not None:
+            mates = torch.nonzero((dom == dom[first]) & (torch.arange(cw.n_nodes, device=card)
+                                                         != first)).flatten()
+            if mates.numel():
+                sel[2] = int(mates[-1])
+        want = kspec.commit_plain(step, _clone_carry(carry), xs, sel, 20)
+        launches = kspec.spec_commit_bind.launches
+        carry = kspec.spec_commit_bind(step, carry, xs, sel, 20)
+        assert kspec.spec_commit_bind.launches == launches + 1
         _equal(carry, want, f"spec_commit_bind {lo}")
 
 
@@ -809,6 +991,8 @@ def test_sessions_fuse_on_card(card, monkeypatch, candidates):
     from kube_scheduler_simulator_tpu_torch.models.workloads import make_slot_pinned_workload
     from kube_scheduler_simulator_tpu_torch.server.sessions import SessionManager
 
+    from kube_scheduler_simulator_tpu_torch.parallel.fuse import FUSE
+
     nodes, pods_a = make_slot_pinned_workload(64, 24, seed=71)
     pods = {"a": pods_a, "b": make_slot_pinned_workload(64, 24, seed=72)[1]}
     monkeypatch.setenv("KSS_TPU_SPECULATIVE", "1")
@@ -833,6 +1017,22 @@ def test_sessions_fuse_on_card(card, monkeypatch, candidates):
                     s.di.store.create("pods", copy.deepcopy(obj))
             n0 = fused_kernel.launches
             barrier = threading.Barrier(2)
+            if fuse == "1":
+                # each session's first round waits for the other's, so the
+                # two meet inside the window whatever each wave's host
+                # work before it took
+                first_round = threading.Barrier(2, timeout=120)
+                seen, seen_mu, dispatch = set(), threading.Lock(), FUSE.dispatch
+
+                def meet_then_dispatch(stream, *args, **kw):
+                    with seen_mu:
+                        first = len(seen) < 2 and id(stream) not in seen
+                        seen.add(id(stream))
+                    if first:
+                        first_round.wait()
+                    return dispatch(stream, *args, **kw)
+
+                monkeypatch.setattr(FUSE, "dispatch", meet_then_dispatch)
 
             def run(s):
                 barrier.wait()
@@ -850,6 +1050,8 @@ def test_sessions_fuse_on_card(card, monkeypatch, candidates):
                          fused_kernel.launches - n0))
         finally:
             mgr.shutdown()
+            if fuse == "1":
+                monkeypatch.setattr(FUSE, "dispatch", dispatch)
     (fused, fused_launches), (solo, solo_launches) = arms
     assert fused == solo
     assert fused_launches > 0 and solo_launches == 0
