@@ -308,58 +308,68 @@ def _nbytes(tree) -> int:
     return total
 
 
-def phased_eval_bytes(cw, carry, xs1) -> int:
-    """The bytes one pod's phased_eval must move: the rows it reads and
-    the uncompacted StepOut it writes.  Read in full: the node-axis core
-    columns (statics and carry) and the pod's own xs (its taint rows and
-    spread eligibility are [N] each).  Read in part: NodeAffinity's one
-    required and one preferred row (by req_idx / pref_idx, unless
-    skipped), PodTopologySpread's dom_idx and count rows of the
-    constraints the pod's slots name, and InterPodAffinity's dom_idx and
-    carry rows of the terms its flags touch (pod.cuh, interpod.cuh,
-    spread.cuh).  Config 5's plugins only; another plugin raises."""
+def eval_bytes(cw, carry, xs, out_bytes: int) -> int:
+    """The bytes an evaluation of the batch xs against carry must move:
+    the rows it reads, each once, and `out_bytes` of outputs.  Read in
+    full: the node-axis core columns (statics and carry) and the batch's
+    own xs (its taint rows and spread eligibility are [N] a pod).  Read in
+    part, the union over the batch: NodeAffinity's required and preferred
+    rows (by req_idx / pref_idx, unless skipped), PodTopologySpread's
+    dom_idx and count rows of the constraints the pods' slots name, and
+    InterPodAffinity's dom_idx and carry rows of the terms their flags
+    touch (pod.cuh, interpod.cuh, spread.cuh).  Config 5's plugins only;
+    another plugin raises."""
     n = cw.n_nodes
     unknown = (set(cw.statics) | set(carry)) - {
         "core", "NodeAffinity", "PodTopologySpread", "InterPodAffinity"}
     if unknown:
-        raise ValueError(f"phased_eval_bytes: no row count for {sorted(unknown)}")
-    total = _nbytes({"s": cw.statics["core"], "c": carry["core"]}) + _nbytes(xs1)
+        raise ValueError(f"eval_bytes: no row count for {sorted(unknown)}")
+    total = _nbytes({"s": cw.statics["core"], "c": carry["core"]}) + _nbytes(xs)
+    pods = range(xs["is_pad"].shape[0])
     if "NodeAffinity" in cw.statics:
-        st, x = cw.statics["NodeAffinity"], xs1["NodeAffinity"]
-        if not bool(x.filter_skip[0]):
-            total += n * st.req_rows.element_size()
-        if not bool(x.score_skip[0]):
-            total += n * st.pref_rows.element_size()
+        st, x = cw.statics["NodeAffinity"], xs["NodeAffinity"]
+        req = {int(x.req_idx[i]) for i in pods if not bool(x.filter_skip[i])}
+        pref = {int(x.pref_idx[i]) for i in pods if not bool(x.score_skip[i])}
+        total += n * (len(req) * st.req_rows.element_size()
+                      + len(pref) * st.pref_rows.element_size())
     if "PodTopologySpread" in cw.statics:
-        x = xs1["PodTopologySpread"]
+        x = xs["PodTopologySpread"]
         cids = set()
-        for m, cid in enumerate(x.c_id[0].tolist()):
-            used = ((bool(x.is_filter[0, m]) and not bool(x.filter_skip[0]))
-                    or (bool(x.is_score[0, m]) and not bool(x.score_skip[0])))
-            if cid >= 0 and used:
-                cids.add(cid)
+        for i in pods:
+            for m, cid in enumerate(x.c_id[i].tolist()):
+                used = ((bool(x.is_filter[i, m]) and not bool(x.filter_skip[i]))
+                        or (bool(x.is_score[i, m]) and not bool(x.score_skip[i])))
+                if cid >= 0 and used:
+                    cids.add(cid)
         total += len(cids) * n * 4 * 2  # dom_idx row + count row, int32
     if "InterPodAffinity" in cw.statics:
-        x, ic = xs1["InterPodAffinity"], carry["InterPodAffinity"]
-        filt = not bool(x.filter_skip[0])
-        aff, anti = x.h_req_aff[0].tolist(), x.h_req_anti[0].tolist()
-        coef = (x.h_pref_aff_w[0] - x.h_pref_anti_w[0]).tolist()
-        for t, tm in enumerate(x.t_matches[0].tolist()):
-            rows = set()
-            if filt and aff[t] > 0:
-                rows |= {"dom_idx", "matched"}
-                total += 4  # matched_total[t]
-            if filt and anti[t] > 0:
-                rows.add("matched")
-            if filt and tm:
-                rows.add("have_req_anti")
-            if coef[t] != 0:
-                rows.add("matched")
-            if tm:
-                rows |= {"sym_pref_aff", "sym_pref_anti", "have_req_aff"}
-            total += len(rows) * n * ic.matched.element_size()
+        x, ic = xs["InterPodAffinity"], carry["InterPodAffinity"]
+        rows, totals = set(), set()
+        for i in pods:
+            filt = not bool(x.filter_skip[i])
+            aff, anti = x.h_req_aff[i].tolist(), x.h_req_anti[i].tolist()
+            coef = (x.h_pref_aff_w[i] - x.h_pref_anti_w[i]).tolist()
+            for t, tm in enumerate(x.t_matches[i].tolist()):
+                if filt and aff[t] > 0:
+                    rows |= {(t, "dom_idx"), (t, "matched")}
+                    totals.add(t)  # matched_total[t]
+                if filt and anti[t] > 0:
+                    rows.add((t, "matched"))
+                if filt and tm:
+                    rows.add((t, "have_req_anti"))
+                if coef[t] != 0:
+                    rows.add((t, "matched"))
+                if tm:
+                    rows |= {(t, "sym_pref_aff"), (t, "sym_pref_anti"), (t, "have_req_aff")}
+        total += len(rows) * n * ic.matched.element_size() + 4 * len(totals)
+    return total + out_bytes
+
+
+def phased_eval_bytes(cw, carry, xs1) -> int:
+    """The bytes one pod's phased_eval must move: eval_bytes of the pod
+    with the uncompacted StepOut it writes."""
     f_, s_ = len(cw.config.filters()), len(cw.config.scorers())
-    return total + (f_ + 2 * s_) * n * 4 + 3 * 4
+    return eval_bytes(cw, carry, xs1, (f_ + 2 * s_) * cw.n_nodes * 4 + 3 * 4)
 
 
 def bound(nbytes: int, f64_ops: int = 0) -> tuple[float, str]:
@@ -477,18 +487,205 @@ def same_replay(a, b, what: str, sample) -> None:
               f"{what}: pod {i} annotations")
 
 
+LADDER = (8, 32, 128, 512)      # the speculative ladder's rungs at chunk 512 (_batch_ladder)
+EVAL_SHARDS = (1, 2, 4, 8, 16)  # the cluster sizes the eval kernel takes (kernels/spec.py)
+ORACLE_BATCHES = (8, 512)       # spec_oracle's batches timed beside each other
+DIRECT_RUNS = 3                 # the ladder mode's direct replays
+
+
+def batch_xs(w, lo: int, b: int) -> dict:
+    """Pods [lo, lo + b) of workload w as a batch of b, pad rows past the
+    queue's end."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _slice_xs
+
+    dev = w.init_carry["core"].requested.device
+    hi = min(lo + b, w.n_pods)
+    xs = _slice_xs(w.xs, lo, hi, b)
+    xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
+    return xs
+
+
+def shard_times(fn, call, want, reps: int) -> tuple[dict, int]:
+    """call(), one launch of the wrapper fn, held to `want` and timed
+    (device ms per launch, CUDA graph) at the plan's cluster size, and at
+    each size of EVAL_SHARDS where the wrapper takes a forced one
+    (`_shards`) -> ({"S": the plan's S (None: a wrapper without a plan),
+    "ms", "forced": {S: ms}, "best": the fastest forced S, "slow": the
+    plan more than 10 % slower than that}, max_abs_err over every S)."""
+    import inspect
+
+    err = tree_err(call(), want)
+    out = {"S": getattr(fn, "shards", None), "ms": timed_graph(call, reps)}
+    if "_shards" in inspect.signature(fn).parameters:
+        forced = {}
+        for s in EVAL_SHARDS:
+            err = max(err, tree_err(call(_shards=s), want))
+            forced[s] = timed_graph(lambda s=s: call(_shards=s), reps)
+        best = min(forced, key=forced.get)
+        out.update(forced=forced, best=best, slow=out["ms"] > 1.1 * forced[best])
+    check(err == 0, f"{fn.__name__} differs from its plain version (max |d| {err})")
+    return out, err
+
+
+def eval_ladder(cw, batches, reps: int = 5) -> tuple[dict, int]:
+    """spec_eval on pods [0, b) of cw against its initial carry, for each
+    b of `batches`: held to eval_plain and timed at the plan's S and each
+    forced S (shard_times), with its bound; spec_oracle on the outputs
+    where b is in ORACLE_BATCHES, held to _oracle_core and timed ->
+    ({b: times}, max_abs_err)."""
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    pm, sd, _ = _compact_plan(cw, None)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    carry = _clone_carry(cw.init_carry)
+    res, err = {}, 0
+    for b in batches:
+        xs = batch_xs(cw, 0, b)
+        want = kspec.eval_plain(step, carry, xs)
+        t, e = shard_times(kspec.spec_eval, lambda **kw: kspec.spec_eval(step, carry, xs, **kw),
+                           want, reps)
+        err = max(err, e)
+        t["plain_ms"] = timed_once(lambda: kspec.eval_plain(step, carry, xs)) if b <= 8 else None
+        out_bytes = sum(v.numel() * v.element_size() for v in want)
+        t["bound"] = bound(eval_bytes(cw, carry, xs, out_bytes), b * cw.n_nodes * 22)
+        if b in ORACLE_BATCHES:
+            args = (want.packed_filter, want.prefilter_reject, want.selected)
+            k = kspec.spec_oracle(*args)
+            check(int(k) == int(kspec._oracle_core(*args, b)), f"spec_oracle at b = {b}")
+            t["oracle_ms"] = timed_graph(lambda: kspec.spec_oracle(*args), 20)
+            # the [B, B] packed words at the selected nodes, reject, selected, K
+            t["oracle_bound"] = bound(b * b * args[0].element_size() + 8 * b + 4)
+        res[b] = t
+    return res, err
+
+
+def phased_carry(cw, binds: int = 64):
+    """The host path's phased step of cw and its carry after `binds` pods
+    evaluated and bound through it -> (phased, carry, xs_of(i): pod i's
+    xs as a batch of one)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry
+
+    ph = pipeline.build_phased(cw)
+    carry = _clone_carry(cw.init_carry)
+
+    def xs_of(i: int) -> dict:
+        xs1 = batch_xs(cw, i, 1)
+        xs1["is_pad"] = torch.zeros(1, dtype=torch.bool, device=xs1["is_pad"].device)
+        return xs1
+
+    for i in range(binds):
+        xs1 = xs_of(i)
+        carry = ph.bind(carry, xs1, int(ph.eval(carry, xs1).selected))
+    return ph, carry, xs_of
+
+
+def phased_times(ph, carry, xs1, reps: int = 20) -> tuple[dict, int]:
+    """phased_eval of the pod xs1 against carry, held to its plain version
+    and timed at the plan's S and each forced S (shard_times), with its
+    bound -> (times, max_abs_err)."""
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+
+    want = list(ph.plain_eval(carry, xs1))
+    t, err = shard_times(kphased.phased_eval,
+                         lambda **kw: list(kphased.phased_eval(ph.step, carry, xs1, **kw)),
+                         want, reps)
+    t["bound"] = bound(phased_eval_bytes(ph.step.cw, carry, xs1))
+    return t, err
+
+
+def ptxas_summary(log: str) -> str:
+    """nvcc's -Xptxas -v lines of each kernel: its name, registers and
+    spills."""
+    return " ".join(ln.strip() for ln in log.splitlines()
+                    if "entry function" in ln or "registers" in ln or "spill" in ln)
+
+
+def ladder_main(root: Path) -> int:
+    """`python3 chip_smoke.py --ladder [--root DIR]`: the dense round's
+    evaluation on config 5 at the ladder's batches (and b = 1), the host
+    path's phased_eval, spec_oracle at ORACLE_BATCHES, and DIRECT_RUNS
+    direct replay_speculative runs on 1,024 x 5,000 with spec_eval's
+    launches by batch size, for the port found under DIR (default: this
+    checkout), so that two trees are compared in one call.  Two JSON lines
+    after the card's name: the kernels', then the direct replays'."""
+    import collections
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    from kube_scheduler_simulator_tpu_torch.kernels import build
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.parallel import replay_speculative
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    for stem, res in build.build().items():
+        print(f"[build] {stem}: {ptxas_summary(res.log)}", flush=True)
+    nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
+    cw = compile_workload(nodes, pods, cfg, device=dev)
+    spec, err = eval_ladder(cw, (1, *LADDER))
+    ph, carry, xs_of = phased_carry(cw)
+    phased, perr = phased_times(ph, carry, xs_of(64))
+    del carry
+    print(json.dumps({"card": card, "root": str(root), "max_abs_err": max(err, perr),
+                      "spec_eval": spec, "phased_eval": phased}), flush=True)
+
+    dnodes, dpods, dcfg = baseline_config(CONFIG, scale=DIRECT_SCALE, node_scale=1.0, seed=SEED)
+    dcw = compile_workload(dnodes, dpods, dcfg, device=dev)
+    orig = kspec.spec_eval
+    direct = []
+    for _ in range(DIRECT_RUNS):
+        seen = collections.Counter()
+
+        def counted(step, carry, xs, *a, **kw):
+            seen[xs["is_pad"].shape[0]] += 1
+            return orig(step, carry, xs, *a, **kw)
+
+        # the wrapper counts its launch on the name it is called by
+        counted.launches, counted.batches = 0, collections.Counter()
+        kspec.spec_eval = counted
+        try:
+            t0 = time.perf_counter()
+            _, stats = replay_speculative(dcw, pods=dpods)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            kspec.spec_eval = orig
+        direct.append({"s": wall, "rounds": stats["rounds"], "accepted": stats["accepted"],
+                       "rolled_back": stats["rolled_back"],
+                       "by_batch": dict(sorted(seen.items()))})
+    print(json.dumps({"card": card, "root": str(root), "direct": direct}), flush=True)
+    return 0
+
+
 def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     """Phases 6-9: the speculative wave's kernels against their plain
     versions, its two paths (low contention, contended) and the kernels'
     times.  -> ({"slot": (the slot-pinned workload, its host-resident
-    stream), "contended": phase 8's config-5 stream}, the kernels'
-    entries of the JSON line)."""
+    stream), "contended": phase 8's config-5 stream, "eval_bounds": {b:
+    spec_eval's bound at the ladder's rung b}}, the kernels' entries of
+    the JSON line)."""
     import numpy as np
     import torch
 
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
     from kube_scheduler_simulator_tpu_torch.framework.replay import (
-        _clone_carry, _compact_plan, _slice_xs, replay)
+        _clone_carry, _compact_plan, replay)
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
     from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
     from kube_scheduler_simulator_tpu_torch.models import (
@@ -497,15 +694,8 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         replay_speculative, replay_speculative_stream)
     from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
     from kube_scheduler_simulator_tpu_torch.state import compile_workload
-    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result
 
     kernels = (*kspec.KERNELS, kstep.step_chunk)
-
-    def batch_xs(w, lo: int, b: int) -> dict:
-        hi = min(lo + b, w.n_pods)
-        xs = _slice_xs(w.xs, lo, hi, b)
-        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
-        return xs
 
     def counts() -> dict:
         return {f.__name__: f.launches for f in kernels}
@@ -513,6 +703,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     def reset() -> None:
         for f in kernels:
             f.launches = 0
+        kspec.spec_eval.batches.clear()
 
     errs: dict[str, int] = {}
 
@@ -664,6 +855,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     torch.cuda.synchronize()
     direct_s = time.perf_counter() - t0
     direct = counts()
+    direct_batches = dict(sorted(kspec.spec_eval.batches.items()))
     for name in ("spec_eval", "spec_oracle", "spec_commit_bind"):
         check(direct[name] > 0, f"the direct replay launched no {name}")
     t0 = time.perf_counter()
@@ -673,14 +865,15 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     dp = dcw.n_pods
     same_replay(drr, dbase, f"config {CONFIG} direct vs scan",
                 sorted({0, 1, dp // 2, dp - 1}))
-    print(f"[8 contended] config {CONFIG} {cw.n_pods}x{cw.n_nodes} stream: stats "
+    print(f"[8 contended] {card}: config {CONFIG} {cw.n_pods}x{cw.n_nodes} stream: stats "
           f"{json.dumps(cstats)}; {cstream_s:.4f} s = {cw.n_pods / cstream_s:.1f} cycles/s; "
           f"equal to phase 4's scan; launches {hot} | direct replay_speculative "
           f"{dp}x{dcw.n_nodes}: stats rounds {dstats['rounds']} accepted {dstats['accepted']} "
           f"rolled_back {dstats['rolled_back']} mean_accept {dstats['mean_accept']} "
           f"fallback_at {dstats['fallback_at']}; {direct_s:.4f} s = {dp / direct_s:.1f} "
-          f"cycles/s against the scan's {dscan_s:.4f} s; equal to the scan; launches {direct}; "
-          f"{time.perf_counter() - t8:.1f} s", flush=True)
+          f"cycles/s against the scan's {dscan_s:.4f} s; equal to the scan; launches {direct}, "
+          f"spec_eval's by batch size {direct_batches}; {time.perf_counter() - t8:.1f} s",
+          flush=True)
 
     # ---- 9. the kernels' times, at the phase-6 inputs: device time from
     # CUDA graphs, and the time per wrapper call back to back (which for
@@ -689,11 +882,9 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     ccarry = _clone_carry(cw.init_carry)
     sel0, sel_eval = r0[7], ev.selected
     grid = {k: v.clone() for k, v in bufs.items()}
-    cxs8 = batch_xs(cw, 0, 8)
     calls = {
         "spec_round": (lambda: kspec.spec_round(sstep, scarry, sxs0, KCAND), 5),
         "spec_oracle": (lambda: kspec.spec_oracle(r0[0], r0[1], sel0), 20),
-        "spec_eval": (lambda: kspec.spec_eval(cstep, ccarry, cxs), 3),
         "spec_commit_core": (
             lambda: kspec.spec_commit_core(sstep, scarry, sxs0, sel0, SPEC_BATCH), 20),
         "spec_commit_bind": (
@@ -703,13 +894,11 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     }
     ms = {name: timed_graph(fn, reps) for name, (fn, reps) in calls.items()}
     call_ms = {name: timed(fn, reps) for name, (fn, reps) in calls.items()}
-    eval8 = timed_graph(lambda: kspec.spec_eval(cstep, ccarry, cxs8), 5)
     scarry = _clone_carry(scw.init_carry)
     ccarry = _clone_carry(cw.init_carry)
     plain = {
         "spec_round": timed_once(lambda: kspec.sparse_round_plain(sstep, scarry, sxs0, KCAND)),
         "spec_oracle": timed_once(lambda: kspec._oracle_core(r0[0], r0[1], sel0, SPEC_BATCH)),
-        "spec_eval": timed_once(lambda: kspec.eval_plain(cstep, ccarry, cxs)),
         "spec_commit_core": timed_once(
             lambda: kspec.commit_plain(sstep, scarry, sxs0, sel0, SPEC_BATCH)),
         "spec_commit_bind": timed_once(
@@ -761,8 +950,6 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         # the [B, B] packed words at the selected nodes, reject, selected, K
         "spec_oracle": bound(SPEC_BATCH * SPEC_BATCH * r0[0].element_size()
                              + 8 * SPEC_BATCH + 4),
-        # as step_chunk's bound, with the carry read once and not written
-        "spec_eval": bound(nb(cw.statics, cw.init_carry, cxs, ev), SPEC_BATCH * cw.n_nodes * 22),
         # the batch's core rows and selections; the selected carry rows read
         # and written
         "spec_commit_core": bound(nb(sx, sel0) + 2 * SPEC_BATCH * (scw.schema.n + 3) * 8),
@@ -772,12 +959,35 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         # the buffer read, the head and the second buffer written
         "grid_emit": bound(nb(grid) + nb(heads) + nb(rest)),
     }
-    print(f"[9 timing] {card}: device ms per launch (CUDA graph) {ms} (spec_eval at batch 8: "
-          f"{eval8:.4f}); ms per wrapper call back to back {call_ms}; plain {plain}; "
-          f"library (CUDA graph) {library}; bounds {bounds}", flush=True)
+    # spec_eval and spec_oracle at the ladder's rungs (config 5, the
+    # initial carry): the JSON line takes them at b = 8, the batch of the
+    # direct replay's launches (phase 8)
+    ladder, lerr = eval_ladder(cw, LADDER)
+    errs["spec_eval"] = max(errs["spec_eval"], lerr)
+    at8 = ladder[8]
+    ms["spec_eval"], plain["spec_eval"], bounds["spec_eval"] = (
+        at8["ms"], at8["plain_ms"], at8["bound"])
+    ms["spec_oracle"], bounds["spec_oracle"] = at8["oracle_ms"], at8["oracle_bound"]
+    plain["spec_oracle"] = timed_once(lambda: kspec._oracle_core(
+        ev.packed_filter[:8], ev.prefilter_reject[:8], ev.selected[:8], 8))
+    flag = " FLAG: the plan is over 10 % slower than the best"
+    rungs = "; ".join(
+        f"b={b}: plan S={t['S']} {t['ms']:.5f} ms, forced "
+        + ", ".join(f"S={k} {v:.5f}" for k, v in t["forced"].items())
+        + f", best S={t['best']}{flag if t['slow'] else ''}"
+        + f", bound {t['bound'][0]:.6f} ms by {t['bound'][1]}"
+        for b, t in ladder.items())
+    oracle = ", ".join(f"b={b} {ladder[b]['oracle_ms']:.5f} ms (bound "
+                       f"{ladder[b]['oracle_bound'][0]:.7f})" for b in ORACLE_BATCHES)
+    print(f"[9 timing] {card}: device ms per launch (CUDA graph) {ms}; ms per wrapper call back "
+          f"to back {call_ms}; plain {plain}; library (CUDA graph) {library}; bounds {bounds}",
+          flush=True)
+    print(f"[9 timing] {card}: spec_eval on config {CONFIG} (max_abs_err {lerr} at every S) | "
+          f"{rungs} | spec_oracle {oracle}", flush=True)
 
     launches = {name: low[name] + hot[name] + direct[name] for name in ms}
-    ctx = {"slot": (scw, srr), "contended": crr}
+    ctx = {"slot": (scw, srr), "contended": crr,
+           "eval_bounds": {b: t["bound"] for b, t in ladder.items()}}
     sources = {"spec_eval": "spec_eval.cu", "spec_oracle": "spec_eval.cu",
                "spec_round": "spec_round.cu", "spec_commit_core": "spec_commit.cu",
                "spec_commit_bind": "spec_commit.cu", "grid_append": "grid.cu",
@@ -837,7 +1047,7 @@ def default_profile_phases(dev, card: str) -> list[dict]:
     from kube_scheduler_simulator_tpu_torch.framework import pipeline
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import PACK_MODES, build_step
     from kube_scheduler_simulator_tpu_torch.framework.replay import (
-        ReplayResult, _CompactChunks, _clone_carry, _compact_plan, _slice_xs, replay)
+        ReplayResult, _CompactChunks, _clone_carry, _compact_plan, replay)
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
     from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
     from kube_scheduler_simulator_tpu_torch.models import (
@@ -855,12 +1065,6 @@ def default_profile_phases(dev, card: str) -> list[dict]:
     def reset() -> None:
         for f in kernels:
             f.launches = 0
-
-    def batch_xs(w, lo: int, b: int) -> dict:
-        hi = min(lo + b, w.n_pods)
-        xs = _slice_xs(w.xs, lo, hi, b)
-        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
-        return xs
 
     group_of = {name: g for g, (names, _, _) in B9_GROUPS.items() for name in names}
     errs = {g: 0 for g in B9_GROUPS}
@@ -1522,7 +1726,6 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
     from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
     from kube_scheduler_simulator_tpu_torch.framework import gang, pipeline
     from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
-    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _slice_xs
     from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
     from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
@@ -1625,17 +1828,7 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
 
     # B10 on config 5's 5,000 nodes: 64 pods bound through the phased
     # path, then 8 pods evaluated and renormalized against that carry
-    ph = pipeline.build_phased(cw)
-    carry = _clone_carry(cw.init_carry)
-
-    def xs_of(i):
-        xs1 = _slice_xs(cw.xs, i, i + 1, 1)
-        xs1["is_pad"] = torch.zeros(1, dtype=torch.bool, device=dev)
-        return xs1
-
-    for i in range(64):
-        xs1 = xs_of(i)
-        carry = ph.bind(carry, xs1, int(ph.eval(carry, xs1).selected))
+    ph, carry, xs_of = phased_carry(cw)
     pe_err = rn_err = 0
     norm = [s for s in cw.config.scorers() if s in pipeline.NORMALIZING]
     for i in range(64, 72):
@@ -1659,14 +1852,15 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
     feas = (want.filter_codes == 0).all(0)
     s_aff = cw.config.scorers().index("NodeAffinity")
     raw = want.score_raw[s_aff].long()
-    pe_ms = timed_graph(lambda: ph.eval(carry, xs1), 20)
+    pe, err = phased_times(ph, carry, xs1)
+    pe_err = max(pe_err, err)
+    pe_ms, (pe_bound_ms, pe_bound_by) = pe["ms"], pe["bound"]
     pe_plain_ms = timed_once(lambda: ph.plain_eval(carry, xs1))
     rn_ms = timed_graph(lambda: kphased.renormalize_row(ph.step, "NodeAffinity", carry, xs1,
                                                         raw, feas), 20)
     rn_plain_ms = timed_once(lambda: pipeline.renormalize_plain(
         "NodeAffinity", cw, carry, pipeline.slice_pod(xs1, 0), raw, feas))
     pe_bytes = phased_eval_bytes(cw, carry, xs1)
-    pe_bound_ms, pe_bound_by = bound(pe_bytes)
     rn_bound_ms, rn_bound_by = bound(n * 8 + n + n * 8)
     print(f"[18 B8, B10==plain] {card}: quorum_slice on n={gn}, G={gg} ({absent} groups absent "
           f"from the slice, -1 runs between groups), the empty slice, no groups and a small "
@@ -1675,8 +1869,12 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
           f"plain {b8_plain_ms:.3f} ms; bound {b8_bound_ms:.6f} ms by {b8_bound_by} ({b8_bytes} B) "
           f"| config {CONFIG} {n} nodes, 8 pods after 64 phased binds: phased_eval and "
           f"renormalize_row ({', '.join(norm)}; the others return their raws) max_abs_err "
-          f"{pe_err} and {rn_err}; phased_eval {pe_ms:.5f} ms per launch, plain "
-          f"{pe_plain_ms:.3f} ms, bound {pe_bound_ms:.6f} ms by {pe_bound_by} ({pe_bytes} B); renormalize_row (NodeAffinity) "
+          f"{pe_err} and {rn_err} (phased_eval at the plan's S and each forced S); phased_eval "
+          f"at b=1: plan S={pe['S']} {pe_ms:.5f} ms per launch, forced "
+          f"{', '.join(f'S={k} {v:.5f}' for k, v in pe['forced'].items())}, best S={pe['best']}"
+          f"{' FLAG: the plan is over 10 % slower than the best' if pe['slow'] else ''}; plain "
+          f"{pe_plain_ms:.3f} ms, bound {pe_bound_ms:.6f} ms by {pe_bound_by} ({pe_bytes} B); "
+          f"renormalize_row (NodeAffinity) "
           f"{rn_ms:.5f} ms, plain {rn_plain_ms:.3f} ms, bound {rn_bound_ms:.7f} ms by "
           f"{rn_bound_by}; {time.perf_counter() - t18:.1f} s", flush=True)
     del carry
@@ -1864,7 +2062,7 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
          "launches": main20.get("quorum_slice", 0), "max_abs_err": b8_err, "ms": b8_ms,
          "plain_ms": b8_plain_ms, "bound_ms": b8_bound_ms, "bound_by": b8_bound_by,
          "library_ms": None},
-        {"name": "phased_eval", "route": "cuda", "source": src + "phased.cu",
+        {"name": "phased_eval", "route": "cuda", "source": src + "spec_eval.cu",
          "replaces": "kube_scheduler_simulator_tpu/framework/pipeline.py:446",
          "launches": main21.get("phased_eval", 0), "max_abs_err": pe_err, "ms": pe_ms,
          "plain_ms": pe_plain_ms, "bound_ms": pe_bound_ms, "bound_by": pe_bound_by,
@@ -1950,7 +2148,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
 
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
     from kube_scheduler_simulator_tpu_torch.framework.replay import (
-        _clone_carry, _compact_plan, _slice_xs, replay)
+        _clone_carry, _compact_plan, replay)
     from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
     from kube_scheduler_simulator_tpu_torch.models import make_slot_pinned_workload
@@ -1974,12 +2172,6 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
 
     def nb(*xs) -> int:
         return sum(t.numel() * t.element_size() for x in xs for t in _leaves(x))
-
-    def batch_xs(w, lo: int, b: int) -> dict:
-        hi = min(lo + b, w.n_pods)
-        xs = _slice_xs(w.xs, lo, hi, b)
-        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
-        return xs
 
     # ---- 22. B11 alone: K members of one family, each its own batch of
     # the queue and its own carry (one committed batch in), as K sessions
@@ -2391,7 +2583,7 @@ MESH_ODD_PODS = 1024
 
 
 def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: dict,
-                dp_ctx: dict, step_entry: dict, spec_entries: list) -> list[dict]:
+                dp_ctx: dict, step_entry: dict) -> list[dict]:
     """Phases 25-26: the node-sharded mesh on one card, each "nodes" shard
     one CTA of a thread-block cluster (B12, csrc/mesh.cu).  25: config 5
     through replay(cw, mesh=make_mesh(S)) for S = 2, 4, 8 against phase
@@ -2404,15 +2596,13 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     phase 8, the engine on an 8-shard mesh against phase 4 as phase 19
     holds itself, and a 4,996-node fleet through the engine's unsharded
     fallback.  -> the entries of B12 for the JSON line."""
-    import copy
-
     import torch
 
     from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
     from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
     from kube_scheduler_simulator_tpu_torch.framework.replay import (
-        _clone_carry, _compact_plan, _slice_xs, plugin_attribution, replay)
+        _clone_carry, _compact_plan, plugin_attribution, replay)
     from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
     from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
@@ -2433,12 +2623,6 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
 
     def counts() -> dict:
         return {f.__name__: f.launches for f in kernels if f.launches}
-
-    def batch_xs(w, lo: int, b: int) -> dict:
-        hi = min(lo + b, w.n_pods)
-        xs = _slice_xs(w.xs, lo, hi, b)
-        xs["is_pad"] = torch.arange(b, device=dev) >= (hi - lo)
-        return xs
 
     p, n = cw.n_pods, cw.n_nodes
     n_chunks = math.ceil(p / CHUNK)
@@ -2678,7 +2862,7 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
           f"{key} +{fallbacks}, bound {obound} in {owall:.4f} s through launches {olaunched}, "
           f"equal to the engine without a mesh; {time.perf_counter() - t26:.1f} s", flush=True)
 
-    b2 = next(e for e in spec_entries if e["name"] == "spec_eval")
+    b2_bound = spec_ctx["eval_bounds"][SPEC_BATCH]  # B2's bytes at this batch
     source = "kube_scheduler_simulator_tpu_torch/csrc/mesh.cu"
     return [{
         "name": "step_chunk_sharded",
@@ -2701,8 +2885,8 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
         "max_abs_err": eval_err,
         "ms": eval_ms[8],
         "plain_ms": eval_plain_ms[8],
-        "bound_ms": b2["bound_ms"],
-        "bound_by": b2["bound_by"],
+        "bound_ms": b2_bound[0],
+        "bound_by": b2_bound[1],
         "library_ms": b2_ms,
     }]
 
@@ -2783,10 +2967,8 @@ def main() -> int:
             build.load(stem)
     build_s = time.perf_counter() - t0
     for stem, res in built.items():
-        ptxas = " ".join(ln.strip() for ln in res.log.splitlines()
-                         if "entry function" in ln or "registers" in ln or "spill" in ln)
         print(f"[2 build] {res.path.name} compiled={res.compiled} seconds={res.seconds:.2f} "
-              f"| {ptxas}", flush=True)
+              f"| {ptxas_summary(res.log)}", flush=True)
     print(f"[2 build] {len(built)} libraries in {build_s:.2f} s wall", flush=True)
 
     # the main path's workload, compiled once (timed for phase 4)
@@ -2998,7 +3180,7 @@ def main() -> int:
     engine_entries = engine_phases(dev, card, cw, nodes, pods, cfg, rr)
     fuse_entries = fuse_phases(dev, card, cw, nodes, pods, cfg, spec_ctx)
     mesh_entries = mesh_phases(dev, card, cw, nodes, pods, cfg, rr, spec_ctx, dp_ctx,
-                               step_entry, spec_entries)
+                               step_entry)
     clock_phase(dev, card, {f"config {CONFIG}": cw, "default profile": dp_ctx["default"][0]})
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
                                   *engine_entries, *fuse_entries, *mesh_entries]}))
@@ -3010,6 +3192,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if "--ladder" in sys.argv[1:]:
+            at = sys.argv.index("--root") + 1 if "--root" in sys.argv else 0
+            sys.exit(ladder_main(Path(sys.argv[at]).resolve() if at else ROOT))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

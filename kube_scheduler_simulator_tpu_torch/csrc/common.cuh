@@ -159,8 +159,9 @@ struct StepArgs {
   // --- the phase clock (built with -DKSS_PHASE_CLOCK only): per pod
   // KSS_CLOCK_SLOTS durations in ns, then the launch's start and end
   unsigned long long* clock;             // [C * KSS_CLOCK_SLOTS + 2], or null
-  // --- step_chunk's per-CTA state in device memory, where it does not fit
-  // in shared memory (step_kernel.cuh step_plan): [S, step_smem total]
+  // --- a cluster kernel's per-CTA state in device memory, where it does
+  // not fit in shared memory (cluster.cuh cluster_plan): [CTAs, step_smem
+  // total]
   unsigned char* spill;                  // or null: shared memory
   // --- 8-byte scalars
   long long ip_hard_weight;

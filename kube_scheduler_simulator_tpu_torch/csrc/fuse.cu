@@ -12,7 +12,7 @@
 // The session index picks the entry:
 //
 //   spec_eval_fused    grid (B, K): block (b, s) runs eval_pod for pod b
-//                      of session s (spec_eval's body);
+//                      of session s (spec_eval's body, one block a pod);
 //   spec_round_fused   grid (B, K): block (b, s) runs spec_round_pod for
 //                      pod b of session s, with s's own candidate
 //                      scratch (spec_round's body);
@@ -21,9 +21,10 @@
 //
 // Every block runs a solo kernel's device body (spec.cuh, pod.cuh) on
 // one session's own arguments, so each session's outputs equal its solo
-// launch bit for bit.  The members share B, N, the output widths, the
-// pack width and the candidate cap (the fuse family guarantees it; the
-// wrapper in kernels/fuse.py checks it).
+// launch bit for bit (spec_eval's cluster split changes no bit either).
+// The members share B, N, the output widths, the pack width and the
+// candidate cap (the fuse family guarantees it; the wrapper in
+// kernels/fuse.py checks it).
 //
 // The table: K x sizeof(StepArgs) = K x 1,640 bytes, at most 26,240 for
 // K = 16, inside the 32,764 bytes CUDA 12.1+ allows a kernel's

@@ -80,11 +80,6 @@ extern "C" int kss_spec_eval_sharded(const StepArgs* args, int shards, void* str
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, spec_eval_sharded_kernel, *args, shards);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the return value reports it
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
+  return launch_result(cudaLaunchKernelEx(&cfg, spec_eval_sharded_kernel, *args, shards));
 }
 #endif

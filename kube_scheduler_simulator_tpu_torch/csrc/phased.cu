@@ -1,44 +1,26 @@
-// phased_eval and renormalize_row: the engine's host-interleaved path
-// (webhook extenders, plugin-extender hooks), written for Hopper
-// (sm_90a).
+// renormalize_row: the engine's host-interleaved path (webhook extenders,
+// plugin-extender hooks), written for Hopper (sm_90a).  The path's
+// evaluation, build_phased's eval_fn (B10), is spec_eval.cu's cluster
+// kernel writing the uncompacted StepOut (kernels/phased.py phased_eval);
+// its bind is B5's spec_commit_bind on a batch of one (spec_commit.cu).
 //
-// phased_eval replaces kube_scheduler_simulator_tpu/framework/pipeline.py:446
-// `build_phased`'s eval_fn (B10): the step's evaluation (pod.cuh
-// eval_pod) for one pod against the carry as it stands, with no bind,
-// writing the UNCOMPACTED StepOut the host loop reads: every filter's
-// code at every node, every scorer's raw and final row cast to int32
-// (pipeline.py:472-474), the selection (ties to the lowest node; -1 with
-// no feasible node or on a PreFilter reject), the feasible count (0 on a
-// PreFilter reject) and the reject.  One block per pod, node-parallel, as
-// spec_eval; the host path launches it with one pod.  build_phased's
-// bind_fn is B5's spec_commit_bind on a batch of one (spec_commit.cu).
+// renormalize_row replaces kube_scheduler_simulator_tpu/framework/pipeline.py:198
+// `renormalize`: one plugin's NormalizeScore over [N] raw scores that a
+// host hook may have edited, against a host-edited feasibility, with
+// pod.cuh's normalizers: DefaultNormalizeScore max-scaling (NodeAffinity),
+// its reverse form (TaintToleration), InterPodAffinity's float64 min/max
+// with truncation (this file is built with -fmad=false), and
+// PodTopologySpread's min/max over scored nodes, whose `ignored` mask it
+// first recomputes from the carry (pipeline.py:225-229, spread.cuh
+// spread_score).  A plugin without ScoreExtensions never reaches it: the
+// wrapper returns the raws, as the reference does.  One block of 1024
+// threads: two block reductions and one pass over N.
 //
-// renormalize_row replaces pipeline.py:198 `renormalize`: one plugin's
-// NormalizeScore over [N] raw scores that a host hook may have edited,
-// against a host-edited feasibility, with pod.cuh's normalizers:
-// DefaultNormalizeScore max-scaling (NodeAffinity), its reverse form
-// (TaintToleration), InterPodAffinity's float64 min/max with truncation
-// (this file is built with -fmad=false), and PodTopologySpread's min/max
-// over scored nodes, whose `ignored` mask it first recomputes from the
-// carry (pipeline.py:225-229, spread.cuh spread_score).  A plugin without
-// ScoreExtensions never reaches it: the wrapper returns the raws, as the
-// reference does.  One block of 1024 threads: two block reductions and
-// one pass over N.
-//
-// What bounds them on this card: their launches and the dependent
-// phases of one pod on one SM, as spec_eval's blocks; the bytes (a few
-// rows of [N]) are microseconds of bandwidth at 5,000 nodes.  The host
-// loop around them, one pod at a time with a D2H between its phases, is
-// what the path costs.
+// What bounds it on this card: its launch; the bytes (a few rows of [N])
+// are microseconds of bandwidth at 5,000 nodes.  The host loop around it,
+// one pod at a time with a D2H between its phases, is what the path
+// costs.
 #include "pod.cuh"
-
-#define PHASED_THREADS 256
-
-__global__ void __launch_bounds__(PHASED_THREADS) phased_eval_kernel(const __grid_constant__ StepArgs a) {
-  __shared__ PodShared sh;
-  const int c = blockIdx.x;
-  eval_pod(a, c, pod_scratch(a, c), sh);
-}
 
 __global__ void __launch_bounds__(KSS_THREADS) renormalize_row_kernel(
     const StepArgs a, int pid, const long long* raw, const unsigned char* feas,
@@ -85,13 +67,8 @@ __global__ void __launch_bounds__(KSS_THREADS) renormalize_row_kernel(
 
 extern "C" int kss_step_args_size() { return (int)sizeof(StepArgs); }
 
-// Launch on the caller's stream; no synchronisation.  Each returns
+// Launch on the caller's stream; no synchronisation.  Returns
 // cudaGetLastError() so a refused launch is reported at once.
-extern "C" int kss_phased_eval(const StepArgs* args, void* stream) {
-  phased_eval_kernel<<<args->C, PHASED_THREADS, 0, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int kss_renormalize_row(const StepArgs* args, int pid, const long long* raw,
                                    const unsigned char* feas, unsigned char* ign, long long* out,
                                    void* stream) {

@@ -1,8 +1,8 @@
 // The per-pod body of the scheduling step, shared by step_chunk
 // (step.cu, a chunk's pods in order over one thread-block cluster) and the
-// speculative wave's and the host path's kernels (spec_eval.cu,
-// spec_round.cu, phased.cu, fuse.cu: one pod per block; mesh.cu: one pod
-// per cluster): the plugin dispatch, the compact stores, the step's
+// speculative wave's and the host path's kernels (spec_eval.cu, mesh.cu:
+// one pod per cluster; spec_round.cu, fuse.cu: one pod per block): the
+// plugin dispatch, the compact stores, the step's
 // evaluation of one pod against the carry as it stands, and its bind.
 //
 // The body is templated on its reduction scope (scope.cuh): the node
@@ -334,7 +334,7 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
   return sel;
 }
 
-// One pod per block (spec_eval, phased_eval, the fused dense round).
+// One pod per block (the fused dense round).
 __device__ __forceinline__ int eval_pod(const StepArgs& a, int c, const PodScratch& sc,
                                         PodShared& sh) {
   BlockScope scope(a, sc, sh);

@@ -8,12 +8,13 @@
 //
 //   BlockScope    one block walks all N nodes, keeps the pod's rows in its
 //                 global scratch slot, and a combine ends at a block
-//                 barrier (spec_eval, spec_round, phased_eval, the fused
-//                 rounds: one pod per block);
+//                 barrier (spec_round, the fused rounds: one pod per
+//                 block);
 //   ClusterScope  CTA r of a thread-block cluster walks the node slice
 //                 [lo, hi); a combine ends with one cluster barrier and one
 //                 warp reading the S partials through distributed shared
-//                 memory (step_chunk, spec_eval_sharded).
+//                 memory (step_chunk, spec_eval_cluster,
+//                 spec_eval_sharded).
 //
 // A combine takes a vector of up to KSS_CV integer partials, each with its
 // own operation (min, max, sum or or): every thread folds its values over

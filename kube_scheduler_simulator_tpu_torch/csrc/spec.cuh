@@ -1,5 +1,5 @@
 // The per-block bodies of the speculative round's kernels, shared by the
-// solo kernels (spec_round.cu, spec_eval.cu) and their fused,
+// solo kernels (spec_round.cu, spec_eval.cu's oracle) and their fused,
 // cross-session forms (fuse.cu): a body reads only the StepArgs (or the
 // oracle's pointers) it is given, so a fused launch that hands each
 // session's block that session's arguments computes, block for block,

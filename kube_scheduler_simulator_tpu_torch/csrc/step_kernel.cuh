@@ -1,41 +1,10 @@
 // The cluster kernel of the scheduling step, shared by step_chunk
 // (step.cu, which documents it) and B12's step_chunk_sharded (mesh.cu):
-// one kernel, S a parameter of its launch.
+// one kernel, S a parameter of its launch.  Its launch plan (the node
+// slices, the CTA's width and state) is cluster.cuh's.
 #pragma once
 
-#include "pod.cuh"
-
-#define KSS_STEP_THREADS 512  // the widest CTA; at most 128 registers a thread
-#define KSS_MAX_SHARDS 16
-
-// The state of a CTA of `width` nodes: the pod's rows, NodeVolumeLimits'
-// counts and pod list, VolumeBinding's candidates, and the replicated
-// cluster-wide carries, each 16-byte aligned.  It lives in dynamic shared
-// memory where `total` fits there, else in the CTA's slot of a.spill in
-// device memory (step_plan): the same layout, the same kernel.
-struct StepSmem {
-  size_t raw, feas, ign, count, nvl, vb_pvs, vb_slots, claimed, rwop, matched, total;
-};
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
-
-__host__ __device__ inline StepSmem step_smem(const StepArgs& a, int width) {
-  StepSmem m;
-  const size_t w = (size_t)width;
-  size_t o = 0;
-  m.raw = o;      o = align16(o + w * (size_t)(a.S > 0 ? a.S : 1) * 8);
-  m.feas = o;     o = align16(o + w);
-  m.ign = o;      o = align16(o + w);
-  m.count = o;    if (a.has_nvl) o = align16(o + w * (size_t)a.VD * 4);
-  m.nvl = o;      if (a.has_nvl) o = align16(o + (size_t)a.VC * 4);
-  m.vb_pvs = o;   if (a.has_vb) o = align16(o + (size_t)a.VV * 4);
-  m.vb_slots = o; if (a.has_vb) o = align16(o + (size_t)a.VV);
-  m.claimed = o;  if (a.has_vb) o = align16(o + (size_t)a.VV);
-  m.rwop = o;     if (a.has_vr) o = align16(o + (size_t)a.RR);
-  m.matched = o;  if (a.has_interpod) o = align16(o + (size_t)a.T * 4);
-  m.total = o;
-  return m;
-}
+#include "cluster.cuh"
 
 __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
     step_chunk_kernel(const __grid_constant__ StepArgs a, int width) {
@@ -45,7 +14,7 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), shards = (int)cluster.num_blocks();
   const int lo = min(rank * width, a.N), hi = min(lo + width, a.N);
-  const StepSmem m = step_smem(a, width);
+  const StepSmem m = step_smem(a, width, true);
   unsigned char* smem = a.spill != nullptr ? a.spill + (size_t)rank * m.total : dyn;
   unsigned char* claimed = smem + m.claimed;
   unsigned char* rwop = smem + m.rwop;
@@ -130,86 +99,14 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
 }
 
 #ifdef __CUDACC__
-#include <cuda_runtime.h>
-
-#include <mutex>
-
-#define KSS_MAX_DEVICES 64
-
-// The kernel's function attributes, set once per card for the process:
-// non-portable clusters allowed, and dynamic shared memory up to the
-// card's opt-in maximum less the kernel's static shared memory.  A
-// function attribute is one per process, so no launch changes it (two
-// threads launching fleets of different widths cannot race on it).
-// -> the dynamic shared memory a launch may take, in *max_dynamic.
-static cudaError_t step_attributes(int* max_dynamic) {
-  static std::once_flag once[KSS_MAX_DEVICES];
-  static cudaError_t err[KSS_MAX_DEVICES];
-  static int limit[KSS_MAX_DEVICES];
-  int dev = 0;
-  const cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= KSS_MAX_DEVICES) return cudaErrorInvalidDevice;
-  std::call_once(once[dev], [dev] {
-    int optin = 0;
-    cudaFuncAttributes fa;
-    cudaError_t r = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (r == cudaSuccess) r = cudaFuncGetAttributes(&fa, step_chunk_kernel);
-    if (r == cudaSuccess) {
-      limit[dev] = optin - (int)fa.sharedSizeBytes;
-      r = cudaFuncSetAttribute(step_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               limit[dev]);
-    }
-    if (r == cudaSuccess)
-      r = cudaFuncSetAttribute(step_chunk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    err[dev] = r;
-  });
-  *max_dynamic = limit[dev];
-  return err[dev];
-}
-
-// One launch's shape at `shards` CTAs: each slice ceil(N / shards) nodes
-// wide, its CTA that many threads rounded up to a warp (at most
-// KSS_STEP_THREADS), its state step_smem's `bytes`, in shared memory
-// unless that is more than `max_dynamic` (then `spill`: in device memory).
-struct StepPlan {
-  int width, threads;
-  size_t bytes;
-  bool spill;
-};
-
-static StepPlan step_plan(const StepArgs& a, int shards, int max_dynamic) {
-  StepPlan p;
-  p.width = a.N > 0 ? (a.N + shards - 1) / shards : 1;
-  const int t = (p.width + 31) / 32 * 32;
-  p.threads = t < 32 ? 32 : (t > KSS_STEP_THREADS ? KSS_STEP_THREADS : t);
-  p.bytes = step_smem(a, p.width).total;
-  p.spill = p.bytes > (size_t)max_dynamic;
-  return p;
-}
-
-static void step_config(const StepPlan& p, int shards, cudaStream_t stream,
-                        cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3((unsigned)shards, 1, 1);
-  cfg->blockDim = dim3((unsigned)p.threads, 1, 1);
-  cfg->dynamicSmemBytes = p.spill ? 0 : p.bytes;
-  cfg->stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)shards;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
 // The cluster size step_chunk takes when not told: 16 where a
 // non-portable cluster of 16 CTAs fits on the card, else 8.
 static int step_auto_shards(const StepArgs& a, int max_dynamic) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
-  step_config(step_plan(a, KSS_MAX_SHARDS, max_dynamic), KSS_MAX_SHARDS, nullptr, attr, &cfg);
+  cluster_config(cluster_plan(a, KSS_MAX_SHARDS, max_dynamic, true), 1, KSS_MAX_SHARDS, nullptr,
+                 attr, &cfg);
   if (cudaOccupancyMaxActiveClusters(&clusters, step_chunk_kernel, &cfg) == cudaSuccess &&
       clusters >= 1)
     return KSS_MAX_SHARDS;
@@ -221,15 +118,15 @@ static int step_auto_shards(const StepArgs& a, int max_dynamic) {
 // step_auto_shards; 1 to KSS_MAX_SHARDS is taken as it is) to
 // *out_shards, and to *spill_bytes the device memory the launch needs in
 // a.spill: 0 where each CTA's state fits in shared memory, else S times
-// step_smem's total.
+// step_smem's total (cluster.cuh).
 extern "C" int kss_step_plan(const StepArgs* args, int shards, int* out_shards,
                              long long* spill_bytes) {
   if (shards < 0 || shards > KSS_MAX_SHARDS) return (int)cudaErrorInvalidValue;
   int max_dynamic = 0;
-  const cudaError_t err = step_attributes(&max_dynamic);
+  const cudaError_t err = cluster_attributes<step_chunk_kernel>(&max_dynamic);
   if (err != cudaSuccess) return (int)err;
   if (shards == 0) shards = step_auto_shards(*args, max_dynamic);
-  const StepPlan p = step_plan(*args, shards, max_dynamic);
+  const ClusterPlan p = cluster_plan(*args, shards, max_dynamic, true);
   *out_shards = shards;
   *spill_bytes = p.spill ? (long long)p.bytes * shards : 0;
   return (int)cudaSuccess;
@@ -241,18 +138,13 @@ extern "C" int kss_step_plan(const StepArgs* args, int shards, int* out_shards,
 // is reported at once.
 static int launch_step_cluster(const StepArgs* args, int shards, void* stream) {
   int max_dynamic = 0;
-  cudaError_t err = step_attributes(&max_dynamic);
+  cudaError_t err = cluster_attributes<step_chunk_kernel>(&max_dynamic);
   if (err != cudaSuccess) return (int)err;
-  const StepPlan p = step_plan(*args, shards, max_dynamic);
+  const ClusterPlan p = cluster_plan(*args, shards, max_dynamic, true);
   if (p.spill != (args->spill != nullptr)) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  step_config(p, shards, (cudaStream_t)stream, attr, &cfg);
-  err = cudaLaunchKernelEx(&cfg, step_chunk_kernel, *args, p.width);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the return value reports it
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
+  cluster_config(p, 1, shards, (cudaStream_t)stream, attr, &cfg);
+  return launch_result(cudaLaunchKernelEx(&cfg, step_chunk_kernel, *args, p.width));
 }
 #endif

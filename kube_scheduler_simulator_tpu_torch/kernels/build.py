@@ -53,7 +53,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "step": {"kss_step_args_size": ([], _I), "kss_step_chunk": ([_P, _I, _P], _I),
              "kss_step_plan": ([_P, _I, _P, _P], _I)},
-    "spec_eval": {"kss_step_args_size": ([], _I), "kss_spec_eval": ([_P, _P], _I),
+    "spec_eval": {"kss_step_args_size": ([], _I), "kss_eval_plan": ([_P, _P, _P], _I),
+                  "kss_spec_eval": ([_P, _I, _P], _I),
                   "kss_spec_oracle": ([_P, _I, _P, _P, _I, _I, _P, _P], _I)},
     "spec_round": {"kss_step_args_size": ([], _I), "kss_spec_round": ([_P, _P], _I)},
     "spec_commit": {"kss_step_args_size": ([], _I),
@@ -63,7 +64,7 @@ SIGNATURES = {
     "attribution": {"kss_att_args_size": ([], _I),
                     "kss_chunk_attribution": ([_P, _P], _I)},
     "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _P], _I)},
-    "phased": {"kss_step_args_size": ([], _I), "kss_phased_eval": ([_P, _P], _I),
+    "phased": {"kss_step_args_size": ([], _I),
                "kss_renormalize_row": ([_P, _I, _P, _P, _P, _P, _P], _I)},
     "fuse": {"kss_step_args_size": ([], _I), "kss_fuse_max": ([], _I),
              "kss_spec_eval_fused": ([_P, _I, _P], _I),

@@ -143,9 +143,12 @@ def _skipped(sl: dict, name: str, flag: str) -> bool:
 
 def _eval_sharded(step, carry: dict, sl: dict, plan) -> StepOut | CompactOut:
     """One pod's step outputs against `carry`, without the bind, computed
-    shard by shard (csrc/pod.cuh under mesh.cu's ClusterScope)."""
+    shard by shard over the node slices of `plan`, contiguous and in
+    order (csrc/pod.cuh under ClusterScope: mesh.cu's even slices,
+    spec_eval.cu's ceil slices).  An empty slice adds only identities to
+    each combine, so it is left out."""
     cw = step.cw
-    shards = [_Shard(cw, carry, sl, lo, hi) for lo, hi in plan]
+    shards = [_Shard(cw, carry, sl, lo, hi) for lo, hi in plan if hi > lo]
     dev = carry["core"].requested.device
     reject = _prefilter_reject(cw, carry, sl)  # cluster-wide carries: no node axis
 

@@ -1,9 +1,13 @@
-"""Wrappers of kernel B10 (csrc/phased.cu): the engine's host-interleaved
-path, one pod at a time.
+"""Wrappers of kernel B10: the engine's host-interleaved path, one pod at
+a time.
 
-    kernel              wrapper            plain version                  JAX counterpart
-    phased_eval         phased_eval        pipeline.Phased.plain_eval     framework/pipeline.py:446 build_phased (eval_fn)
-    renormalize_row     renormalize_row    pipeline.renormalize_plain     pipeline.py:198 renormalize
+    kernel                          wrapper          plain version                JAX counterpart
+    spec_eval.cu spec_eval_cluster  phased_eval      pipeline.Phased.plain_eval   framework/pipeline.py:446 build_phased (eval_fn)
+    phased.cu renormalize_row       renormalize_row  pipeline.renormalize_plain   pipeline.py:198 renormalize
+
+phased_eval launches the dense round's cluster kernel (kernels/spec.py
+launch_eval) with the uncompacted outputs: one pod spread over a
+thread-block cluster of up to 16 CTAs.
 
 build_phased's bind_fn is B5's `spec_commit_bind` on a batch of one
 (framework/pipeline.py `Phased.bind`).
@@ -23,6 +27,7 @@ import ctypes
 import torch
 
 from ..framework.pipeline import NORMALIZING, StepOut
+from . import spec as kspec
 from . import step as kstep
 
 
@@ -30,11 +35,13 @@ def _device(carry) -> torch.device:
     return carry["core"].requested.device
 
 
-def phased_eval(step, carry: dict, xs1: dict) -> StepOut:
+def phased_eval(step, carry: dict, xs1: dict, *, _shards: int = 0) -> StepOut:
     """B10 eval: pod 0 of xs1 against the carry, no bind -> the full
     StepOut of that pod (filter codes [F, N], raw and final [S, N] int32,
     scalar selected / feasible_count / prefilter_reject), still on the
-    card.  CPU tensors: step.eval_plain."""
+    card; `phased_eval.shards` records the cluster size the launch took.
+    CPU tensors: step.eval_plain.  For tests and measurement only,
+    `_shards` forces the cluster size (kernels/spec.py EVAL_SHARDS)."""
     from ..framework.pipeline import slice_pod
 
     if step.out_mode != "full":
@@ -44,17 +51,14 @@ def phased_eval(step, carry: dict, xs1: dict) -> StepOut:
         return step.eval_plain(carry, slice_pod(xs1, 0))
     if xs1["is_pad"].shape[0] != 1:
         raise ValueError("phased_eval takes one pod")
-    kstep.check_device("phased_eval", dev, step.cw.statics, carry, xs1)
-    lib = kstep.load_lib("phased")
-    outs = kstep.alloc_outputs(step, 1, dev, slots=1)
-    args = kstep.make_args(step, carry, xs1, outs, slots=1)
-    kstep.check_launch("phased_eval", lib.kss_phased_eval(ctypes.byref(args),
-                                                          kstep.stream_of(dev)))
+    outs = kstep.alloc_outputs(step, 1, dev, slots=0)  # the kernel keeps its rows on chip
+    phased_eval.shards = kspec.launch_eval("phased_eval", step, carry, xs1, outs, _shards)
     phased_eval.launches += 1
     return StepOut(**{k: outs[k][0] for k in StepOut._fields})
 
 
 phased_eval.launches = 0
+phased_eval.shards = None
 
 
 def renormalize_row(step, name: str, carry: dict, xs1: dict, raw: torch.Tensor,

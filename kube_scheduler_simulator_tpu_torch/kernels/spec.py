@@ -2,7 +2,8 @@
 PyTorch version.
 
     kernel (csrc/)                wrapper           plain version         JAX counterpart
-    B2 spec_eval.cu spec_eval     spec_eval         eval_plain            parallel/speculative.py:318 _eval_fn
+    B2 spec_eval.cu               spec_eval         eval_plain            parallel/speculative.py:318 _eval_fn
+       spec_eval_cluster
     B3 spec_eval.cu spec_oracle   spec_oracle       _oracle_core          :299 _oracle_core
     B4 spec_round.cu spec_round   spec_round        sparse_round_plain    :381 _sparse_round_fn
     B5 spec_commit.cu (two)       spec_commit_core  commit_plain          :501 _commit_fn
@@ -20,10 +21,17 @@ chip_smoke.py's reference; nothing on the card's main path calls them.
 The JAX package tiles the batch for XLA on a CPU (`_spec_tile`,
 `_tiled_vmap`, :253-296, KSS_TPU_SPECULATIVE_TILE); the port has no such
 tiling, and its results never depended on it.
+
+spec_eval's kernel, which also serves the host path's phased_eval
+(kernels/phased.py), spreads each pod over a thread-block cluster whose
+size comes from the batch (`eval_shards`); `eval_sliced_plain` computes
+the same split in plain PyTorch, so the CPU tests check the decomposition
+itself.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from types import SimpleNamespace
 
@@ -58,26 +66,94 @@ def eval_plain(step, carry: dict, xs: dict) -> CompactOut:
     return CompactOut(*[_stack([getattr(o, f) for o in outs]) for f in CompactOut._fields])
 
 
-def spec_eval(step, carry: dict, xs: dict, outs: dict | None = None) -> CompactOut:
-    """B2: the dense round's evaluation.  CUDA tensors: one launch, one
-    block per pod of the batch, into `outs` (round_outputs) when the
-    caller allocated them; CPU tensors: eval_plain."""
+EVAL_SHARDS = (1, 2, 4, 8, 16)  # the cluster sizes of csrc/spec_eval.cu's kernel
+
+
+def eval_shards(b: int, n: int, clusters_at: dict) -> int:
+    """The cluster size of an eval launch over b pods of n nodes: the
+    largest S of EVAL_SHARDS, S <= n, at which all b clusters are resident
+    on the card at once (clusters_at[S] >= b, the card's count of
+    clusters of S CTAs), else 1."""
+    for s in reversed(EVAL_SHARDS):
+        if s <= n and clusters_at.get(s, 0) >= b:
+            return s
+    return 1
+
+
+def cluster_slices(n: int, shards: int) -> tuple[tuple[int, int], ...]:
+    """CTA r's nodes [r W, (r + 1) W), W = ceil(n / shards), clipped to n
+    (csrc/cluster.cuh): the last slice may be ragged and, where
+    n < shards, slices empty."""
+    w = -(-n // shards)
+    return tuple((min(r * w, n), min((r + 1) * w, n)) for r in range(shards))
+
+
+def eval_sliced_plain(step, carry: dict, xs: dict, shards: int):
+    """The cluster kernel's split in plain PyTorch: every pod of the batch
+    against one frozen carry, no bind, each reduction over the nodes a
+    partial per slice of cluster_slices(N, shards) combined in rank order
+    (kernels/mesh.py _eval_sharded) -> the outputs of step.out_mode with a
+    leading pod axis, equal to eval_plain's."""
+    from .mesh import _eval_sharded, _stack_outs
+
+    plan = cluster_slices(step.cw.n_nodes, shards)
+    return _stack_outs(step, [_eval_sharded(step, carry, slice_pod(xs, i), plan)
+                              for i in range(xs["is_pad"].shape[0])])
+
+
+def launch_eval(what: str, step, carry: dict, xs: dict, outs: dict, shards: int) -> int:
+    """One launch of csrc/spec_eval.cu's cluster kernel over the batch xs
+    into outs (the layout of step.out_mode), one cluster of S CTAs per
+    pod: S = `shards` (one of EVAL_SHARDS), or where it is 0 eval_shards'
+    choice from the card's cluster occupancy (kss_eval_plan).  Where a CTA's
+    state passes shared memory it goes to device memory allocated here,
+    held through the launch.  -> S."""
+    dev = _device(carry)
+    kstep.check_device(what, dev, step.cw.statics, carry, xs)
+    if shards not in (0, *EVAL_SHARDS):
+        raise ValueError(f"{what}: {shards} CTAs a cluster, not one of {EVAL_SHARDS}")
+    lib = kstep.load_lib("spec_eval")
+    b = xs["is_pad"].shape[0]
+    args = kstep.make_args(step, carry, xs, outs, slots=outs["scratch_raw"].shape[0])
+    clusters = (ctypes.c_int * len(EVAL_SHARDS))()
+    cta_spill = (ctypes.c_longlong * len(EVAL_SHARDS))()
+    kstep.check_launch(f"{what} plan", lib.kss_eval_plan(ctypes.byref(args), clusters, cta_spill))
+    if shards == 0:
+        shards = eval_shards(b, step.cw.n_nodes, dict(zip(EVAL_SHARDS, clusters)))
+    k = EVAL_SHARDS.index(shards)
+    spill = None
+    if cta_spill[k]:
+        spill = torch.empty(cta_spill[k] * b * shards, dtype=torch.uint8, device=dev)
+        args.spill = spill.data_ptr()
+    kstep.check_launch(what, lib.kss_spec_eval(ctypes.byref(args), shards, kstep.stream_of(dev)))
+    return shards
+
+
+def spec_eval(step, carry: dict, xs: dict, outs: dict | None = None, *,
+              _shards: int = 0) -> CompactOut:
+    """B2: the dense round's evaluation.  CUDA tensors: one launch of one
+    thread-block cluster per pod of the batch (launch_eval), into `outs`
+    (round_outputs) when the caller allocated them; `spec_eval.shards`
+    records the cluster size it took, `spec_eval.batches` the launches by
+    batch size.  CPU tensors: eval_plain.  For tests and measurement
+    only, `_shards` forces the cluster size (one of EVAL_SHARDS)."""
     if step.out_mode != "compact":
         raise ValueError("spec_eval evaluates the compact step")
     dev = _device(carry)
     if dev.type == "cpu":
         return eval_plain(step, carry, xs)
-    kstep.check_device("spec_eval", dev, step.cw.statics, carry, xs)
-    lib = kstep.load_lib("spec_eval")
+    b = xs["is_pad"].shape[0]
     if outs is None:
-        outs = round_outputs(step, xs["is_pad"].shape[0], dev)
-    args = round_args(step, carry, xs, outs)
-    kstep.check_launch("spec_eval", lib.kss_spec_eval(ctypes.byref(args), kstep.stream_of(dev)))
+        outs = kstep.alloc_outputs(step, b, dev, slots=0)  # the kernel keeps its rows on chip
+    spec_eval.shards = launch_eval("spec_eval", step, carry, xs, outs, _shards)
     spec_eval.launches += 1
+    spec_eval.batches[b] += 1
     return CompactOut(**{k: outs[k] for k in CompactOut._fields})
 
 
 spec_eval.launches = 0
+spec_eval.shards = None
+spec_eval.batches = collections.Counter()
 
 
 # ------------------------------------------------------------ B3 oracle

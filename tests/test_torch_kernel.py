@@ -13,7 +13,9 @@ on the card fused against unfused; and B12, the node-sharded step and
 dense eval at 1, 2, 4 and 8 shards, against their plain twins and the
 unsharded kernels; step_chunk's cluster at 8 and 16 CTAs, from several
 threads at once, and past shared memory (its state in device memory),
-and spec_commit_bind's grid of node slices against their plain versions.  A CUDA kernel has
+and spec_commit_bind's grid of node slices against their plain versions;
+and the eval kernel's cluster (spec_eval and phased_eval) at the plan's
+cluster size and at every forced one.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -1194,3 +1196,78 @@ def test_sharded_launch_of_16_refused(card):
     err = lib.kss_step_chunk_sharded(ctypes.byref(args), 16, kstep.stream_of(card))
     assert err != 0
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ the eval kernel's cluster
+
+EVAL_FLEETS = {
+    "config5": lambda: baseline_config(5, scale=1.0, seed=0),               # 5,000 nodes
+    "n4999": lambda: baseline_config(5, scale=0.0512, seed=0, node_scale=4999.5 / 5000),
+    "six_nodes": lambda: baseline_config(5, scale=0.0512, seed=0, node_scale=6.5 / 5000),
+}
+_EVAL_CASES = {}
+
+
+def _eval_case(wl, dev):
+    """A fleet of EVAL_FLEETS, its compact step and the carry the step
+    kernel leaves after pods [0, 64)."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+
+    if wl not in _EVAL_CASES:
+        cw = compile_workload(*EVAL_FLEETS[wl](), device=dev)
+        pm, sd, _ = _compact_plan(cw, None)
+        step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+        carry, _ = kstep.step_chunk(step, _clone_carry(cw.init_carry), _batch(cw, 0, 64, dev))
+        _EVAL_CASES[wl] = (cw, step, carry)
+    return _EVAL_CASES[wl]
+
+
+@pytest.mark.parametrize("b", [1, 8, 32, 128, 512])
+@pytest.mark.parametrize("wl", list(EVAL_FLEETS))
+def test_spec_eval_cluster_at_every_size_matches_plain(card, wl, b):
+    """spec_eval (csrc/spec_eval.cu, one pod per cluster) on b pods from
+    pod 64 against the carry of the first 64, at the plan's S and forced
+    to each S of EVAL_SHARDS, == eval_plain, exactly: 5,000 nodes (slices
+    of 313 and 305 at S = 16, the state past shared memory at S = 1), a
+    ragged 4,999 and 6 nodes (empty slices from S = 8)."""
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    cw, step, carry = _eval_case(wl, card)
+    xs = _batch(cw, 64, b, card)
+    want = kspec.eval_plain(step, carry, xs)
+    before = kspec.spec_eval.launches
+    _equal(kspec.spec_eval(step, carry, xs), want, (wl, b, "plan"))
+    assert kspec.spec_eval.shards in kspec.EVAL_SHARDS and kspec.spec_eval.shards <= cw.n_nodes
+    for s in kspec.EVAL_SHARDS:
+        _equal(kspec.spec_eval(step, carry, xs, _shards=s), want, (wl, b, s))
+        assert kspec.spec_eval.shards == s
+    assert kspec.spec_eval.launches == before + 1 + len(kspec.EVAL_SHARDS)
+
+
+@pytest.mark.parametrize("wl", ["config5", "default_profile"])
+def test_phased_eval_cluster_at_every_size_matches_plain(card, wl):
+    """phased_eval (the same kernel, full outputs) at the plan's S and
+    forced to each S == Phased.plain_eval, pod after pod as the carry
+    advances: config 5's 5,000 nodes and the default profile (the volume
+    family's per-pod lists in the cluster's shared memory)."""
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    if wl == "config5":
+        cw = _eval_case("config5", card)[0]
+    else:
+        args, kw = _default_profile()
+        cw = compile_workload(*args, **kw, device=card)
+    ph = pipeline.build_phased(cw)
+    carry = _clone_carry(cw.init_carry)
+    for i in range(6):
+        xs1 = _slice_xs(cw.xs, i, i + 1, 1)
+        xs1["is_pad"] = torch.zeros(1, dtype=torch.bool, device=card)
+        want = ph.plain_eval(carry, xs1)
+        _equal(list(ph.eval(carry, xs1)), list(want), (wl, i, "plan"))
+        assert kphased.phased_eval.shards in kspec.EVAL_SHARDS
+        for s in kspec.EVAL_SHARDS:
+            _equal(list(kphased.phased_eval(ph.step, carry, xs1, _shards=s)), list(want),
+                   (wl, i, s))
+        carry = ph.bind(carry, xs1, int(want.selected))
