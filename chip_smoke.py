@@ -53,11 +53,13 @@ phase:
   21   the engine's host-interleaved path (B10): 256 config-5 pods with
        a webhook extender on localhost and an AfterScore hook, equal to
        the same run with device="cpu";
-  22   B11, the cross-session fused round (spec_round_fused,
-       spec_eval_fused, spec_oracle_fused): K = 2, 4 and 8 sparse rounds
-       on the slot-pinned fleet and K = 2 dense rounds on config 5, each
-       member held exactly equal to its plain round and to its solo
-       launch, with the fused and the K solo launches' times and bounds;
+  22   B11, the cross-session fused round (spec_round_fused and
+       spec_eval_fused, the table launches of spec_round's and
+       spec_eval's kernels, and spec_oracle_fused): K = 2, 4 and 8 sparse
+       rounds on the slot-pinned fleet and K = 2 dense rounds on config
+       5, each member held exactly equal to its plain round and to its
+       solo launch (also at every forced group and cluster size), with
+       the fused and the K solo launches' times and bounds;
   23   multi-session serving: four slot-pinned sessions (10,000 pods
        each, one fleet) in a SessionManager(device="cuda") scheduling at
        once, fused against KSS_TPU_FUSE=0 (every pod's node, the bind
@@ -507,25 +509,27 @@ def batch_xs(w, lo: int, b: int) -> dict:
     return xs
 
 
-def shard_times(fn, call, want, reps: int) -> tuple[dict, int]:
+def shard_times(fn, call, want, reps: int, param: str = "_shards", sizes=EVAL_SHARDS,
+                plan: str = "shards") -> tuple[dict, int]:
     """call(), one launch of the wrapper fn, held to `want` and timed
-    (device ms per launch, CUDA graph) at the plan's cluster size, and at
-    each size of EVAL_SHARDS where the wrapper takes a forced one
-    (`_shards`) -> ({"S": the plan's S (None: a wrapper without a plan),
-    "ms", "forced": {S: ms}, "best": the fastest forced S, "slow": the
-    plan more than 10 % slower than that}, max_abs_err over every S)."""
+    (device ms per launch, CUDA graph) at the plan's size (the cluster
+    size `fn.shards`, or another attribute `plan`), and at each of `sizes`
+    where the wrapper takes a forced one (keyword `param`) -> ({"S": the
+    plan's size (None: a wrapper without a plan), "ms", "forced": {size:
+    ms}, "best": the fastest forced size, "slow": the plan more than 10 %
+    slower than that}, max_abs_err over every size)."""
     import inspect
 
     err = tree_err(call(), want)
-    out = {"S": getattr(fn, "shards", None), "ms": timed_graph(call, reps)}
-    if "_shards" in inspect.signature(fn).parameters:
+    out = {"S": getattr(fn, plan, None), "ms": timed_graph(call, reps)}
+    if param in inspect.signature(fn).parameters:
         forced = {}
-        for s in EVAL_SHARDS:
-            err = max(err, tree_err(call(_shards=s), want))
-            forced[s] = timed_graph(lambda s=s: call(_shards=s), reps)
+        for s in sizes:
+            err = max(err, tree_err(call(**{param: s}), want))
+            forced[s] = timed_graph(lambda s=s: call(**{param: s}), reps)
         best = min(forced, key=forced.get)
         out.update(forced=forced, best=best, slow=out["ms"] > 1.1 * forced[best])
-    check(err == 0, f"{fn.__name__} differs from its plain version (max |d| {err})")
+    check(err == 0, f"{fn.__name__} differs from its reference (max |d| {err})")
     return out, err
 
 
@@ -600,6 +604,136 @@ def phased_times(ph, carry, xs1, reps: int = 20) -> tuple[dict, int]:
     return t, err
 
 
+# B11's dense eval: (K sessions, b pods), the batches phase 23's dense
+# family launches
+FUSED_EVAL_CASES = ((2, 8), (2, 32), (2, 128), (2, 512), (4, 512))
+ROUND_CASES = ((1, 512), (2, 512), (4, 512), (8, 512))  # the sparse round: solo, then B11
+ROUND_PODS = (1, 2, 4, 8)       # the pod-group sizes of the sparse round's kernel
+ROUND_CLOCK_CASES = ((1, 512), (4, 512), (8, 512))
+
+
+def _solo(fn, *args, **kw):
+    """One solo launch's outputs, cloned (its buffers are reused)."""
+    return [t.clone() for t in _leaves(fn(*args, **kw))]
+
+
+def fused_eval_ladder(cw, reps: int = 3) -> tuple[dict, int]:
+    """B11's dense eval on config 5 for each (K, b) of FUSED_EVAL_CASES:
+    K members, member s with pods [s b, (s + 1) b) against the initial
+    carry, held to the K solo spec_eval launches and timed at the plan's S
+    and each forced S (shard_times), beside the K solo launches (the
+    library column: the same function as K calls of today's spec_eval)
+    -> ({"KxB": times}, max_abs_err)."""
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    pm, sd, _ = _compact_plan(cw, None)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    carry = _clone_carry(cw.init_carry)
+    res, err = {}, 0
+    for k, b in FUSED_EVAL_CASES:
+        batches = [batch_xs(cw, s * b, b) for s in range(k)]
+        want = [_solo(kspec.spec_eval, step, carry, xs) for xs in batches]
+
+        def call(**kw):
+            # members made inside the call: a CUDA graph captures them on its own stream
+            return [_leaves(o) for o in kfuse.spec_eval_fused(
+                [kfuse.Member(step, carry, xs) for xs in batches], **kw)]
+
+        t, e = shard_times(kfuse.spec_eval_fused, call, want, reps)
+        err = max(err, e)
+        t["solo_ms"] = timed_graph(lambda: [kspec.spec_eval(step, carry, xs) for xs in batches],
+                                   reps)
+        res[f"{k}x{b}"] = t
+    return res, err
+
+
+def round_ladder(scw, reps: int = 3) -> tuple[dict, int]:
+    """The sparse round on the slot-pinned fleet for each (K, b) of
+    ROUND_CASES (K = 1: the solo spec_round, held to sparse_round_plain;
+    K > 1: B11's spec_round_fused, held to the K solo launches), member s
+    with pods [s b, (s + 1) b) against the initial carry, timed at the
+    plan's pod-group size and each forced one where the wrapper takes one
+    (`_pods`); then the phase clock's split of the launches of
+    ROUND_CLOCK_CASES -> ({"KxB": times, "clock": {"KxB": split}},
+    max_abs_err)."""
+    import inspect
+    import itertools
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+
+    pm, sd, _ = _compact_plan(scw, None)
+    step = build_step(scw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    carry = _clone_carry(scw.init_carry)
+    dev = carry["core"].requested.device
+    res, err = {}, 0
+
+    def members(batches):
+        return [kfuse.Member(step, carry, xs, KCAND) for xs in batches]
+
+    for k, b in ROUND_CASES:
+        batches = [batch_xs(scw, s * b, b) for s in range(k)]
+        if k == 1:
+            fn = kspec.spec_round
+            want = [t.clone() for t in _leaves(
+                kspec.sparse_round_plain(step, carry, batches[0], KCAND))]
+
+            def call(**kw):
+                return _leaves(kspec.spec_round(step, carry, batches[0], KCAND, **kw))
+        else:
+            fn = kfuse.spec_round_fused
+            want = [_solo(kspec.spec_round, step, carry, xs, KCAND) for xs in batches]
+
+            def call(**kw):
+                return [_leaves(r) for r in kfuse.spec_round_fused(members(batches), **kw)]
+
+        t, e = shard_times(fn, call, want, reps, "_pods", ROUND_PODS, "pods")
+        err = max(err, e)
+        if k > 1:
+            t["solo_ms"] = timed_graph(
+                lambda: [kspec.spec_round(step, carry, xs, KCAND) for xs in batches], reps)
+        res[f"{k}x{b}"] = t
+
+    clock = {}
+    # each case at the plan's group size, and at each forced one where the
+    # wrappers take it
+    groups = ((0, *ROUND_PODS) if "_pods" in inspect.signature(kspec.spec_round).parameters
+              else (0,))
+    for (k, b), pods in itertools.product(ROUND_CLOCK_CASES, groups):
+        batches = [batch_xs(scw, s * b, b) for s in range(k)]
+        cks = [torch.zeros(b * kstep.CLOCK_SLOTS, dtype=torch.int64, device=dev)
+               for _ in range(k)]
+        kw = {"_pods": pods} if pods else {}
+        if k == 1:
+            got = _leaves(kspec.spec_round(step, carry, batches[0], KCAND, _clock=cks[0], **kw))
+            want = _leaves(kspec.spec_round(step, carry, batches[0], KCAND))
+        else:
+            got = _leaves(kfuse.spec_round_fused(members(batches), _clock=cks, **kw))
+            want = _leaves(kfuse.spec_round_fused(members(batches)))
+        torch.cuda.synchronize()
+        check(tree_err(got, want) == 0, f"the sparse round's phase-clock build at {k}x{b}")
+        rows = torch.cat([c.view(b, kstep.CLOCK_SLOTS) for c in cks]).cpu()
+        ctas = rows[:, kspec.ROUND_CLOCK_START] > 0
+        span = int(rows[ctas, kspec.ROUND_CLOCK_END].max() - rows[ctas, kspec.ROUND_CLOCK_START].min())
+        n = int(ctas.sum())
+        per = rows[ctas].sum(0)
+        clock[f"{k}x{b}" + (f" P={pods}" if pods else "")] = {
+            "ctas": n, "launch_ms": span / 1e6,
+            "ms": {ph: int(per[j]) / 1e6 for j, ph in enumerate(kspec.ROUND_CLOCK_PHASES)},
+            "us_per_cta": {ph: int(per[j]) / 1e3 / n
+                           for j, ph in enumerate(kspec.ROUND_CLOCK_PHASES)}}
+    res["clock"] = clock
+    return res, err
+
+
 def ptxas_summary(log: str) -> str:
     """nvcc's -Xptxas -v lines of each kernel: its name, registers and
     spills."""
@@ -610,7 +744,9 @@ def ptxas_summary(log: str) -> str:
 def ladder_main(root: Path) -> int:
     """`python3 chip_smoke.py --ladder [--root DIR]`: the dense round's
     evaluation on config 5 at the ladder's batches (and b = 1), the host
-    path's phased_eval, spec_oracle at ORACLE_BATCHES, and DIRECT_RUNS
+    path's phased_eval, spec_oracle at ORACLE_BATCHES, B11's dense eval at
+    FUSED_EVAL_CASES, the sparse round at ROUND_CASES with its phase
+    clock (the slot-pinned fleet), and DIRECT_RUNS
     direct replay_speculative runs on 1,024 x 5,000 with spec_eval's
     launches by batch size, for the port found under DIR (default: this
     checkout), so that two trees are compared in one call.  Two JSON lines
@@ -625,8 +761,10 @@ def ladder_main(root: Path) -> int:
     sys.path.insert(0, str(root))
     from kube_scheduler_simulator_tpu_torch.kernels import build
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
-    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.models import (
+        baseline_config, make_slot_pinned_workload)
     from kube_scheduler_simulator_tpu_torch.parallel import replay_speculative
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
     from kube_scheduler_simulator_tpu_torch.state import compile_workload
 
     dev = torch.device("cuda", 0)
@@ -634,7 +772,7 @@ def ladder_main(root: Path) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    for stem, res in build.build().items():
+    for stem, res in build.build([*build.SIGNATURES]).items():  # the clock builds too
         print(f"[build] {stem}: {ptxas_summary(res.log)}", flush=True)
     nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
     cw = compile_workload(nodes, pods, cfg, device=dev)
@@ -642,8 +780,15 @@ def ladder_main(root: Path) -> int:
     ph, carry, xs_of = phased_carry(cw)
     phased, perr = phased_times(ph, carry, xs_of(64))
     del carry
-    print(json.dumps({"card": card, "root": str(root), "max_abs_err": max(err, perr),
-                      "spec_eval": spec, "phased_eval": phased}), flush=True)
+    fused, ferr = fused_eval_ladder(cw)
+    snodes, spods = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)
+    scw = compile_workload(snodes, spods, PluginSetConfig(enabled=list(SLOT_PLUGINS)), device=dev)
+    rounds, rerr = round_ladder(scw)
+    del scw
+    print(json.dumps({"card": card, "root": str(root),
+                      "max_abs_err": max(err, perr, ferr, rerr), "spec_eval": spec,
+                      "phased_eval": phased, "spec_eval_fused": fused, "sparse_round": rounds}),
+          flush=True)
 
     dnodes, dpods, dcfg = baseline_config(CONFIG, scale=DIRECT_SCALE, node_scale=1.0, seed=SEED)
     dcw = compile_workload(dnodes, dpods, dcfg, device=dev)
@@ -704,6 +849,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         for f in kernels:
             f.launches = 0
         kspec.spec_eval.batches.clear()
+        kspec.spec_round.batches.clear()
 
     errs: dict[str, int] = {}
 
@@ -726,7 +872,12 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     sxs0, sxs1 = batch_xs(scw, 0, SPEC_BATCH), batch_xs(scw, SPEC_BATCH, SPEC_BATCH)
     scarry = _clone_carry(scw.init_carry)
     r0 = kspec.spec_round(sstep, scarry, sxs0, KCAND)
-    held("spec_round", r0, kspec.sparse_round_plain(sstep, scarry, sxs0, KCAND))
+    round0_plain = kspec.sparse_round_plain(sstep, scarry, sxs0, KCAND)
+    held("spec_round", r0, round0_plain)
+    round0_pods = kspec.spec_round.pods
+    for group in kspec.ROUND_PODS:  # every group size of the kernel
+        held("spec_round", kspec.spec_round(sstep, scarry, sxs0, KCAND, _pods=group),
+             round0_plain)
     k0 = kspec.spec_oracle(r0[0], r0[1], r0[7])
     held("spec_oracle", k0, kspec._oracle_core(r0[0], r0[1], r0[7], SPEC_BATCH))
     check(int(k0) == SPEC_BATCH, f"slot-pinned round 0 accepted {int(k0)} of {SPEC_BATCH}")
@@ -764,7 +915,8 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     held("grid_emit", kspec.grid_emit(appended, CHUNK), kspec.emit_plain(want, CHUNK))
     torch.cuda.synchronize()
     print(f"[6 spec kernels==plain] slot-pinned {sp}x{sn} (compile {slot_compile_s:.3f} s): "
-          f"spec_round rounds 0 and 1 at batch {SPEC_BATCH}, K={KCAND}, round 1 after "
+          f"spec_round rounds 0 (the plan's groups of {round0_pods} pods and each forced size "
+          f"of {kspec.ROUND_PODS}) and 1 at batch {SPEC_BATCH}, K={KCAND}, round 1 after "
           f"spec_commit_core; config {CONFIG} {cw.n_pods}x{cw.n_nodes}: spec_eval and "
           f"spec_oracle at batch {SPEC_BATCH}, spec_commit_bind with accept prefix {ACCEPT}; "
           f"grid_append at fill {FILL} then grid_emit; max_abs_err {errs}; "
@@ -778,6 +930,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     low = counts()
+    low_batches = dict(sorted(kspec.spec_round.batches.items()))
     check(sstats["rounds"] == 20 and sstats["accepted"] == sp and sstats["rolled_back"] == 0
           and sstats["fallback_at"] is None, f"slot-pinned stream stats {sstats}")
     for name in ("spec_round", "spec_oracle", "spec_commit_core", "grid_append", "grid_emit"):
@@ -830,7 +983,8 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
           f"scan {scan_s:.4f} s = {sp / scan_s:.1f} cycles/s (device {scan_dev_s:.4f} s); "
           f"host fetch of one chunk's outputs {fetch_ms:.3f} ms ({fetched} B); "
           f"selected, feasible_count, every compact chunk's bytes (raws at feasible nodes) "
-          f"and decode bytes of pods {sample} equal to the scan; launches {low}; {time.perf_counter() - t7:.1f} s",
+          f"and decode bytes of pods {sample} equal to the scan; launches {low}, spec_round's "
+          f"by batch size {low_batches}; {time.perf_counter() - t7:.1f} s",
           flush=True)
 
     # ---- 8. contended: config 5 through the stream (it falls back to the
@@ -883,7 +1037,6 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     sel0, sel_eval = r0[7], ev.selected
     grid = {k: v.clone() for k, v in bufs.items()}
     calls = {
-        "spec_round": (lambda: kspec.spec_round(sstep, scarry, sxs0, KCAND), 5),
         "spec_oracle": (lambda: kspec.spec_oracle(r0[0], r0[1], sel0), 20),
         "spec_commit_core": (
             lambda: kspec.spec_commit_core(sstep, scarry, sxs0, sel0, SPEC_BATCH), 20),
@@ -892,7 +1045,15 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         "grid_append": (lambda: kspec.grid_append(grid, rows0, FILL), 20),
         "grid_emit": (lambda: kspec.grid_emit(grid, CHUNK), 20),
     }
-    ms = {name: timed_graph(fn, reps) for name, (fn, reps) in calls.items()}
+    # spec_round at the plan's group size and each forced one, held to its
+    # plain version
+    rounds, rerr = shard_times(kspec.spec_round,
+                               lambda **kw: kspec.spec_round(sstep, scarry, sxs0, KCAND, **kw),
+                               round0_plain, 5, "_pods", kspec.ROUND_PODS, "pods")
+    errs["spec_round"] = max(errs["spec_round"], rerr)
+    ms = {"spec_round": rounds["ms"],
+          **{name: timed_graph(fn, reps) for name, (fn, reps) in calls.items()}}
+    calls["spec_round"] = (lambda: kspec.spec_round(sstep, scarry, sxs0, KCAND), 5)
     call_ms = {name: timed(fn, reps) for name, (fn, reps) in calls.items()}
     scarry = _clone_carry(scw.init_carry)
     ccarry = _clone_carry(cw.init_carry)
@@ -984,6 +1145,12 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
           flush=True)
     print(f"[9 timing] {card}: spec_eval on config {CONFIG} (max_abs_err {lerr} at every S) | "
           f"{rungs} | spec_oracle {oracle}", flush=True)
+    print(f"[9 timing] {card}: spec_round on the slot-pinned batch of {SPEC_BATCH} (max_abs_err "
+          f"{rerr} at every group size): plan P={rounds['S']} {rounds['ms']:.5f} ms, forced "
+          + ", ".join(f"P={k} {v:.5f}" for k, v in rounds["forced"].items())
+          + f", best P={rounds['best']}"
+          + (" FLAG: the plan is over 10 % slower than the best" if rounds["slow"] else ""),
+          flush=True)
 
     launches = {name: low[name] + hot[name] + direct[name] for name in ms}
     ctx = {"slot": (scw, srr), "contended": crr,
@@ -2166,9 +2333,16 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
     def reset() -> None:
         for f in b11:
             f.launches = 0
+        for f in (kfuse.spec_eval_fused, kfuse.spec_round_fused):
+            f.batches.clear()
 
     def counts() -> dict:
         return {f.__name__: f.launches for f in b11}
+
+    def by_batch() -> dict:
+        """The fused rounds' launches by (K sessions, b pods), "KxB"."""
+        return {f.__name__: {f"{k}x{b}": v for (k, b), v in sorted(f.batches.items())}
+                for f in (kfuse.spec_eval_fused, kfuse.spec_round_fused)}
 
     def nb(*xs) -> int:
         return sum(t.numel() * t.element_size() for x in xs for t in _leaves(x))
@@ -2219,15 +2393,21 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
         kfuse.round_plain(members(cstep, dense_pairs, None))))
     lines22 = []
     timing: dict = {}
+    reset()
     for k in FUSE_KS:
         ms_ = members(sstep, slot_pairs[:k], KCAND)
         fused = [tuple(t.clone() for t in _leaves(r)) for r in kfuse.sparse_round_fused(ms_)]
         solo = [tuple(t.clone() for t in _leaves(kfuse.sparse_round(m))) for m in ms_]
+        plan_pods = kfuse.spec_round_fused.pods
         for i in range(k):
             held("spec_round_fused", "plain", fused[i][:8], _leaves(slot_plain[i])[:8])
             held("spec_round_fused", "solo", fused[i][:8], solo[i][:8])
             held("spec_oracle_fused", "plain", fused[i][8], _leaves(slot_plain[i])[8])
             held("spec_oracle_fused", "solo", fused[i][8], solo[i][8])
+        for group in kspec.ROUND_PODS:  # every group size of the kernel
+            forced = kfuse.spec_round_fused(members(sstep, slot_pairs[:k], KCAND), _pods=group)
+            for i in range(k):
+                held("spec_round_fused", "solo", forced[i], solo[i][:8])
         pk = slot_pairs[:k]
         t_round = timed_graph(lambda: kfuse.spec_round_fused(members(sstep, pk, KCAND)), 3)
         t_round_solo = timed_graph(
@@ -2236,17 +2416,24 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
         t_orc = timed_graph(lambda: kfuse.spec_oracle_fused(members(sstep, pk, KCAND), rows), 20)
         t_orc_solo = timed_graph(lambda: [kspec.spec_oracle(*r) for r in rows], 20)
         timing[k] = (t_round, t_round_solo, t_orc, t_orc_solo)
-        lines22.append(f"K={k}: spec_round_fused {t_round:.4f} ms vs {k} solo spec_round "
+        lines22.append(f"K={k}: spec_round_fused (P={plan_pods}) {t_round:.4f} ms vs {k} solo "
+                       f"spec_round "
                        f"{t_round_solo:.4f} ms; spec_oracle_fused {t_orc:.5f} ms vs {k} solo "
                        f"{t_orc_solo:.5f} ms")
     dm = members(cstep, dense_pairs, None)
     dfused = [tuple(t.clone() for t in _leaves(r)) for r in kfuse.dense_round_fused(dm)]
+    held22 = by_batch()  # the launches held to the plain and solo rounds
     dsolo = [tuple(t.clone() for t in _leaves(kfuse.dense_round(m))) for m in dm]
+    eval_shards = kfuse.spec_eval_fused.shards
     for i in range(2):
         held("spec_eval_fused", "plain", dfused[i][:-1], _leaves(dense_plain[i])[:-1])
         held("spec_eval_fused", "solo", dfused[i][:-1], dsolo[i][:-1])
         held("spec_oracle_fused", "plain", dfused[i][-1], _leaves(dense_plain[i])[-1])
         held("spec_oracle_fused", "solo", dfused[i][-1], dsolo[i][-1])
+    for shards in kspec.EVAL_SHARDS:  # every cluster size of the kernel
+        forced = kfuse.spec_eval_fused(members(cstep, dense_pairs, None), _shards=shards)
+        for i in range(2):
+            held("spec_eval_fused", "solo", forced[i], dsolo[i][:-1])
     t_eval = timed_graph(lambda: kfuse.spec_eval_fused(members(cstep, dense_pairs, None)), 3)
     t_eval_solo = timed_graph(lambda: [kspec.spec_eval(cstep, c, x) for c, x in dense_pairs], 3)
     pk = slot_pairs[:FUSE_K]
@@ -2279,10 +2466,13 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
     torch.cuda.synchronize()
     print(f"[22 B11==plain==solo] {card}: slot-pinned {scw.n_pods}x{scw.n_nodes} sparse rounds "
           f"at batch {SPEC_BATCH}, kcand {KCAND}: {'; '.join(lines22)} | config {CONFIG} dense round "
-          f"K=2: spec_eval_fused {t_eval:.4f} ms vs 2 solo spec_eval {t_eval_solo:.4f} ms | "
+          f"K=2: spec_eval_fused (S={eval_shards}) {t_eval:.4f} ms vs 2 solo spec_eval "
+          f"{t_eval_solo:.4f} ms | each also held to the solo launches at every forced group "
+          f"and cluster size | "
           f"device ms per launch (CUDA graph); plain (K={FUSE_K} sparse, K=2 dense) {plain}; "
           f"bounds (K x the solo round's bytes) {bounds}; max_abs_err against the plain "
-          f"versions and the solo launches {errs}; {time.perf_counter() - t22:.1f} s",
+          f"versions and the solo launches {errs}, those launches by (K, b) {held22}; "
+          f"{time.perf_counter() - t22:.1f} s",
           flush=True)
     del slot_pairs, dense_pairs, dm, dfused, dsolo, frows
 
@@ -2357,6 +2547,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
                     with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
                         wall = run_together([mgr.get(sid) for sid in queues])
                     launched = counts()
+                    batches = by_batch()
                     f1 = FUSE.stats()
                     busy = _device_busy_s(prof)
                     check(all(rrs.get(sid) for sid in queues),
@@ -2376,7 +2567,8 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
             lines.append(f"KSS_TPU_FUSE={fuse}: wall {wall:.4f} s, "
                          f"{len(queues) * n_pods / wall:.1f} cycles/s summed over sessions, "
                          f"device busy {busy:.4f} s, idle share {idle}, fusedDeviceCalls "
-                         f"{calls}, dispatches {tally}, B11 launches {launched}")
+                         f"{calls}, dispatches {tally}, B11 launches {launched}, by (K, b) "
+                         f"{batches}")
         for sid in queues:
             fz, so = arms["1"][sid], arms["0"][sid]
             check(fz[0] == so[0], f"{sid}: nodeName differs between the arms")
@@ -2435,6 +2627,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
                 reset()
                 wall_c1 = run_together([mgr.get(sid) for sid in cids])
                 contended = counts()
+                contended_batches = by_batch()
                 f1 = FUSE.stats()
                 rates = [(TRACER.labeled_totals("speculative_accepted_total", "session").get(s, 0),
                           TRACER.labeled_totals("speculative_rolled_back_total", "session")
@@ -2462,7 +2655,8 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
     c_calls = f1["fusedDeviceCalls"] - f0["fusedDeviceCalls"]
     print(f"[23 contended] {card}: two config-{CONFIG} sessions ({len(pods5)} pods each, one "
           f"family), window {CONTENDED_WINDOW_MS} ms: first wave {wall_c1:.4f} s, "
-          f"fusedDeviceCalls {c_calls}, B11 launches {contended}; (accepted, rolled back) per "
+          f"fusedDeviceCalls {c_calls}, B11 launches {contended}, by (K, b) "
+          f"{contended_batches}; (accepted, rolled back) per "
           f"session {rates} -> both benched by admission; a later wave of {SPEC_BATCH} pods "
           f"each {wall_c2:.4f} s, time-shared, no fused call", flush=True)
     launches = {name: main23[name] + contended[name] for name in main23}
@@ -2560,10 +2754,12 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
           f"{f1['fusedDeviceCalls'] - f0['fusedDeviceCalls']}); "
           f"{time.perf_counter() - t24:.1f} s", flush=True)
 
+    sources = {"spec_eval_fused": "spec_eval.cu", "spec_round_fused": "spec_round.cu",
+               "spec_oracle_fused": "fuse.cu"}
     return [{
         "name": name,
         "route": "cuda",
-        "source": "kube_scheduler_simulator_tpu_torch/csrc/fuse.cu",
+        "source": f"kube_scheduler_simulator_tpu_torch/csrc/{sources[name]}",
         "replaces": "kube_scheduler_simulator_tpu/parallel/fuse.py:356",
         "launches": launches[name],
         "max_abs_err": max(errs[name].values()),

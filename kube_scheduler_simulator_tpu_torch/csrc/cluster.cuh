@@ -48,13 +48,14 @@ __host__ __device__ inline StepSmem step_smem(const StepArgs& a, int width, bool
 
 #define KSS_MAX_DEVICES 64
 
-// A cluster kernel's function attributes, set once per card for the
-// process: non-portable clusters allowed, and dynamic shared memory up to
-// the card's opt-in maximum less the kernel's static shared memory.  A
-// function attribute is one per process, so no launch changes it (two
-// threads launching fleets of different widths cannot race on it).
-// -> the dynamic shared memory a launch may take, in *max_dynamic.
-template <auto Kernel>
+// A kernel's function attributes, set once per card for the process:
+// dynamic shared memory up to the card's opt-in maximum less the kernel's
+// static shared memory and, for a cluster kernel (Clusters), non-portable
+// clusters allowed.  A function attribute is one per process, so no
+// launch changes it (two threads launching fleets of different widths
+// cannot race on it).  -> the dynamic shared memory a launch may take, in
+// *max_dynamic.
+template <auto Kernel, bool Clusters = true>
 static cudaError_t cluster_attributes(int* max_dynamic) {
   static std::once_flag once[KSS_MAX_DEVICES];
   static cudaError_t err[KSS_MAX_DEVICES];
@@ -72,7 +73,7 @@ static cudaError_t cluster_attributes(int* max_dynamic) {
       limit[dev] = optin - (int)fa.sharedSizeBytes;
       r = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit[dev]);
     }
-    if (r == cudaSuccess)
+    if (r == cudaSuccess && Clusters)
       r = cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     err[dev] = r;
   });

@@ -151,17 +151,17 @@ struct StepArgs {
   int* out_selected;                     // [C]
   int* out_feasible_count;               // [C]
   int* out_prefilter_reject;             // [C]
-  // --- scratch, one slot per pod in flight (pod.cuh pod_scratch)
-  long long* scratch_raw;                // [slots, S, N]; spec_round [B, S, K]
+  // --- scratch, one slot per pod in flight (scope.cuh pod_scratch)
+  long long* scratch_raw;                // [slots, S, N]
   unsigned char* scratch_feas;           // [slots, N]
   unsigned char* scratch_ign;            // [slots, N]
-  int* scratch_cand;                     // spec_round: [B, K] candidate nodes
   // --- the phase clock (built with -DKSS_PHASE_CLOCK only): per pod
   // KSS_CLOCK_SLOTS durations in ns, then the launch's start and end
-  unsigned long long* clock;             // [C * KSS_CLOCK_SLOTS + 2], or null
-  // --- a cluster kernel's per-CTA state in device memory, where it does
-  // not fit in shared memory (cluster.cuh cluster_plan): [CTAs, step_smem
-  // total]
+  // (the sparse round: RoundClockSlot, no launch stamps)
+  unsigned long long* clock;             // [C * KSS_CLOCK_SLOTS (+ 2)], or null
+  // --- a kernel's per-CTA state in device memory, where it does not fit
+  // in shared memory (cluster.cuh cluster_plan, spec_round.cu
+  // round_smem): [CTAs, the state's bytes]
   unsigned char* spill;                  // or null: shared memory
   // --- 8-byte scalars
   long long ip_hard_weight;
@@ -204,6 +204,42 @@ struct StepArgs {
   int has_vb;                            // carry holds VolumeBinding
 };
 
+// A launch's table of sessions: one StepArgs per session, KM entries (1,
+// 2, 4, 8 or 16), taken by a kernel as one __grid_constant__ parameter
+// and read in place from the parameter space, indexed by the session of
+// the CTA.  16 x 1,640 bytes = 26,240, inside the 32,764 bytes CUDA 12.1+
+// allows a kernel's parameters on this card.  The members share the
+// batch, the node count and the output widths (kernels/fuse.py checks
+// them); KM = 1 is a solo launch.
+#define KSS_MAX_TABLE 16
+
+template <int KM>
+struct StepTable {
+  StepArgs s[KM];
+};
+
+#ifdef __CUDACC__
+#include <type_traits>
+
+// f(std::integral_constant<int, KM>) for the smallest table that holds k
+// sessions, so a solo launch passes one StepArgs and a pair two.
+template <class F>
+static int by_table(int k, F&& f) {
+  if (k <= 1) return f(std::integral_constant<int, 1>{});
+  if (k <= 2) return f(std::integral_constant<int, 2>{});
+  if (k <= 4) return f(std::integral_constant<int, 4>{});
+  if (k <= 8) return f(std::integral_constant<int, 8>{});
+  return f(std::integral_constant<int, KSS_MAX_TABLE>{});
+}
+
+template <int KM>
+static StepTable<KM> make_table(const StepArgs* args, int k) {
+  StepTable<KM> t;
+  for (int i = 0; i < k; ++i) t.s[i] = args[i];
+  return t;
+}
+#endif
+
 // ---- the phase clock.  Under -DKSS_PHASE_CLOCK, thread 0 of the
 // leading block reads %globaltimer at each phase boundary of each pod and
 // adds the phase's nanoseconds to a.clock[c * KSS_CLOCK_SLOTS + slot]:
@@ -217,6 +253,11 @@ struct StepArgs {
 //   build compiles the stamps out.
 #define KSS_CLOCK_SLOTS 8
 enum ClockSlot { CK_PRE = 0, CK_FILTER, CK_SCORE, CK_REDUCE, CK_ARGMAX, CK_BIND, CK_NVL, CK_VB };
+// The sparse round's (spec_round, spec_round_fused) use of a pod's slots,
+// by thread 0 of each CTA in the slots of the CTA's first pod: the ns of
+// its phases, a filter, b/c candidates, d scores, e normalize and argmax,
+// f/g rows and overflow; then the CTA's first and last stamps.
+enum RoundClockSlot { CR_FILTER = 0, CR_CAND, CR_SCORE, CR_NORM, CR_ROWS, CR_START, CR_END };
 #ifdef KSS_PHASE_CLOCK
 __device__ __forceinline__ unsigned long long kss_now() {
   unsigned long long t;
@@ -278,28 +319,6 @@ __device__ __forceinline__ long long block_max_ll(long long v, long long* sh) {
 // returns the first maximum): the pair order is (value desc, index asc).
 __device__ __forceinline__ void argmax_pair(long long& v, int& i, long long ov, int oi) {
   if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-}
-
-// The block's winning pair is left in (v, i) for every thread.
-__device__ __forceinline__ void block_argmax_pair(long long& v, int& i, long long* shv, int* shi) {
-  for (int o = warpSize / 2; o > 0; o >>= 1) {
-    long long ov = __shfl_xor_sync(0xffffffffu, v, o);
-    int oi = __shfl_xor_sync(0xffffffffu, i, o);
-    argmax_pair(v, i, ov, oi);
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) { shv[threadIdx.x >> 5] = v; shi[threadIdx.x >> 5] = i; }
-  __syncthreads();
-  long long bv = shv[0];
-  int bi = shi[0];
-  for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) argmax_pair(bv, bi, shv[w], shi[w]);
-  v = bv;
-  i = bi;
-}
-
-__device__ __forceinline__ int block_argmax(long long v, int i, long long* shv, int* shi) {
-  block_argmax_pair(v, i, shv, shi);
-  return i;
 }
 
 // Exclusive prefix sum of one int per thread, in thread order; every

@@ -1,8 +1,8 @@
 // The per-pod body of the scheduling step, shared by step_chunk
 // (step.cu, a chunk's pods in order over one thread-block cluster) and the
 // speculative wave's and the host path's kernels (spec_eval.cu, mesh.cu:
-// one pod per cluster; spec_round.cu, fuse.cu: one pod per block): the
-// plugin dispatch, the compact stores, the step's
+// one pod per cluster; spec_round.cu: the plugin dispatch under a group
+// of pods a block): the plugin dispatch, the compact stores, the step's
 // evaluation of one pod against the carry as it stands, and its bind.
 //
 // The body is templated on its reduction scope (scope.cuh): the node
@@ -145,6 +145,18 @@ __device__ __forceinline__ int store_raw(const StepArgs& a, int s, int c, int n,
   return 0;  // G_NONE: a precompiled host row, never written
 }
 
+// store_raw's narrowing check alone: 1 when scorer s's raw would not
+// survive its group's checked narrowing.
+__device__ __forceinline__ int raw_narrows(const StepArgs& a, int s, long long raw) {
+  switch (a.score_group[s]) {
+    case G_RAW16:
+      return a.check_group == G_RAW16 && (long long)(short)raw != raw;
+    case G_RAW32:
+      return a.raw32_bytes == 4 && a.check_group == G_RAW32 && (long long)(int)raw != raw;
+  }
+  return 0;
+}
+
 // The PreFilter reject of pod c (pipeline.py _prefilter_reject): bit 0
 // VolumeRestrictions' ReadWriteOncePod conflict against the cluster-wide
 // carry, bit 1 the compile-time reject.  Uniform across the scope.
@@ -199,23 +211,6 @@ __device__ __forceinline__ bool node_filters(const StepArgs& a, int c, int n, co
     store_packed(a, (long long)c * a.N + n, word);
   }
   return first < 0;
-}
-
-// The filters alone (spec_round_pod): pass 1, then each node's filters
-// and feasibility into sc.feas; -> the feasible count before the reject
-// is applied, the reject in `reject`.  sc.feas is complete when it
-// returns (the combine's barrier).
-__device__ int pod_filter(const StepArgs& a, int c, const PodScratch& sc, PodShared& sh,
-                          int& reject) {
-  BlockScope scope(a, sc, sh);
-  const PodPre pre = pod_prepass(a, c, scope, reject);
-  long long v[1] = {0};
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const bool feas = node_filters(a, c, n, pre KSS_CLOCK(, nullptr));
-    sc.feas[n] = feas;
-    v[0] += feas;
-  }
-  return (int)scope_combine<1, combine_ops(OP_SUM)>(v, scope)[0];
 }
 
 // The node loop's partials, one combine: the feasible count, the
@@ -332,13 +327,6 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
   }
   KSS_CLOCK(if (ck) ck[CK_ARGMAX] += kss_now() - t3;)
   return sel;
-}
-
-// One pod per block (the fused dense round).
-__device__ __forceinline__ int eval_pod(const StepArgs& a, int c, const PodScratch& sc,
-                                        PodShared& sh) {
-  BlockScope scope(a, sc, sh);
-  return eval_pod(a, c, scope);
 }
 
 // The bind of pod c at `sel` into the carry, in place, for every carry the

@@ -1,20 +1,14 @@
-// The reduction scopes of the per-pod body (pod.cuh) and the combine that
+// The reduction scope of the per-pod body (pod.cuh) and the combine that
 // ends every reduction over the node axis.
 //
 // A scope says which nodes the calling block walks, where the pod's raw
 // scores, feasibility and spread-ignore bytes are kept between the node
 // loop and the normalize pass, which thread writes the pod's scalar
-// outputs, and how a reduction over the node axis ends:
-//
-//   BlockScope    one block walks all N nodes, keeps the pod's rows in its
-//                 global scratch slot, and a combine ends at a block
-//                 barrier (spec_round, the fused rounds: one pod per
-//                 block);
-//   ClusterScope  CTA r of a thread-block cluster walks the node slice
-//                 [lo, hi); a combine ends with one cluster barrier and one
-//                 warp reading the S partials through distributed shared
-//                 memory (step_chunk, spec_eval_cluster,
-//                 spec_eval_sharded).
+// outputs, and how a reduction over the node axis ends.  ClusterScope:
+// CTA r of a thread-block cluster walks the node slice [lo, hi); a
+// combine ends with one cluster barrier and one warp reading the S
+// partials through distributed shared memory (step_chunk,
+// spec_eval_cluster, spec_eval_sharded).
 //
 // A combine takes a vector of up to KSS_CV integer partials, each with its
 // own operation (min, max, sum or or): every thread folds its values over
@@ -59,11 +53,10 @@ __device__ __forceinline__ int op_of(unsigned long long ops, int j) {
   return (int)((ops >> (2 * j)) & 3ULL);
 }
 
-// Per-block shared buffers of the per-pod body: the block reductions'
-// slots (common.cuh, spec_round_pod), the warps' partials of a combine, the
+// Per-block shared buffers of the per-pod body: the block scans' slots
+// (the volume lists' compaction), the warps' partials of a combine, the
 // block's double-buffered partial and the combined result.
 struct PodShared {
-  long long ll[KSS_MAX_WARPS];
   int i[KSS_MAX_WARPS];
   long long warp[KSS_MAX_WARPS][KSS_CV];
   int warp_i[KSS_MAX_WARPS];
@@ -75,8 +68,8 @@ struct PodShared {
 };
 
 // Each pod in flight in global scratch: [S, N] raw rows and [N]
-// feasibility and spread-ignore bytes; BlockScope keeps the pod's rows
-// there (one pod per block, block b in slot b).
+// feasibility and spread-ignore bytes (spec_eval_sharded keeps the pod's
+// rows there, cluster c in slot c).
 struct PodScratch {
   long long* raw;        // [max(S, 1), N]
   unsigned char* feas;   // [N]
@@ -97,32 +90,6 @@ struct PodRows {
   unsigned char* feas;
   unsigned char* ign;
   int base, stride;
-};
-
-struct BlockScope {
-  int lo, hi;
-  PodRows rows;
-  PodShared* sh;
-  PodVolumes vols;  // none: the volume filters walk the pod's rows
-  int phase;
-
-  __device__ BlockScope(const StepArgs& a, const PodScratch& sc, PodShared& s)
-      : lo(0), hi(a.N), rows{sc.raw, sc.feas, sc.ign, 0, a.N}, sh(&s), vols{}, phase(0) {}
-  __device__ bool leader() const { return threadIdx.x == 0; }
-
-  // The block's partial in `slot`, written by warp 0: after the barrier
-  // it is the result.
-  __device__ const long long* combine(const long long* slot, int, unsigned long long) {
-    __syncthreads();
-    ++phase;
-    return slot;
-  }
-  __device__ void combine_argmax(long long& v, int& i) {
-    __syncthreads();
-    v = sh->slot[phase & 1][0];
-    i = sh->slot_i[phase & 1];
-    ++phase;
-  }
 };
 
 struct ClusterScope {

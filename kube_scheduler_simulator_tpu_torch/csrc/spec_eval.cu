@@ -1,8 +1,8 @@
 // spec_eval_cluster and spec_oracle: the dense round of the speculative
 // wave and the host path's evaluation, written for Hopper (sm_90a).
 //
-// spec_eval_cluster replaces two JAX functions, one per output layout
-// (StepArgs.compact):
+// spec_eval_cluster replaces three JAX functions, one per output layout
+// (StepArgs.compact) and one across sessions:
 //
 //   * kube_scheduler_simulator_tpu/parallel/speculative.py:318 `_eval_fn`
 //     (B2): the step's compact evaluation, vmapped over a batch of B pods
@@ -11,40 +11,51 @@
 //     `build_phased`'s eval_fn (B10): one pod's evaluation against the
 //     carry as it stands, writing the UNCOMPACTED StepOut the host loop
 //     reads: every filter's code at every node, every scorer's raw and
-//     final row as int32 (kernels/phased.py phased_eval).
+//     final row as int32 (kernels/phased.py phased_eval);
+//   * kube_scheduler_simulator_tpu/parallel/fuse.py:356 `_run_fused` over
+//     the dense round (B11): `_eval_fn` vmapped over K sessions' carries
+//     and batches stacked on a leading axis (kernels/fuse.py
+//     spec_eval_fused).
 //
-// One pod per thread-block cluster: the grid is B x S CTAs, and CTA r of
-// pod b's cluster owns the node slice [r W, (r + 1) W), W = ceil(N / S)
-// (cluster.cuh; a ragged last slice, an empty one where N < S).  The
-// per-pod body is pod.cuh's eval_pod under ClusterScope (scope.cuh): the
-// spread minima, the node loop's statistics and the argmax are three
-// combines, each one cluster barrier and one warp reading the S partials
-// through distributed shared memory.  The pod's raw, feasibility and
-// ignore rows of the slice stay in the CTA's dynamic shared memory (in its
-// slot of StepArgs.spill past the card's limit, as at S = 1 on a 5,000-node
+// The kernel takes a table of sessions (common.cuh StepTable: one
+// StepArgs each, nothing stacked); B2 and B10 are its one-session launch.
+// One pod per thread-block cluster: the grid is K x B x S CTAs, cluster i
+// is pod i % B of session i / B, and CTA r of a pod's cluster owns the
+// node slice [r W, (r + 1) W), W = ceil(N / S) (cluster.cuh; a ragged
+// last slice, an empty one where N < S).  The per-pod body is pod.cuh's
+// eval_pod under ClusterScope (scope.cuh): the spread minima, the node
+// loop's statistics and the argmax are three combines, each one cluster
+// barrier and one warp reading the S partials through distributed shared
+// memory.  The pod's raw, feasibility and ignore rows of the slice stay in
+// the CTA's dynamic shared memory (in its slot of its session's
+// StepArgs.spill past the card's limit, as at S = 1 on a 5,000-node
 // fleet).  Where the workload has them, NodeVolumeLimits walks the pod's
 // own volumes against its slice's per-(node, driver) counts and
 // VolumeBinding the pod's own candidate PVs, compacted as step_chunk
 // compacts them (volumes.cuh).  Nothing writes the carry, so the clusters
-// share it.  Each CTA writes its slice of every [.., N] output; the
-// cluster's leader writes the pod's scalars.
+// of a session share it.  Each CTA writes its slice of every [.., N]
+// output; the cluster's leader writes the pod's scalars.  A CTA's state
+// depends on its session's volume widths, so every member of a table
+// takes the same bytes (kss_eval_plan refuses a mix).
 //
-// S comes from the batch (kernels/spec.py eval_shards): the largest S of
-// 1, 2, 4, 8, 16 at which all B clusters are resident on the card at once
-// (kss_eval_plan asks cudaOccupancyMaxActiveClusters, once per card and
-// per launch shape), else 1.  So a small batch (the contended round's 8
-// pods, the host path's 1) spreads each pod over many SMs, and a large one
-// (512 pods) keeps one CTA per pod.
+// S comes from the launch's K x B clusters (kernels/spec.py eval_shards):
+// the largest S of 1, 2, 4, 8, 16 at which all of them are resident on the
+// card at once (kss_eval_plan asks cudaOccupancyMaxActiveClusters of the
+// table size that runs, once per card and per launch shape), else 1.  So
+// a small batch (the contended round's 8 pods, the host path's 1, a
+// contended pair of sessions' 2 x 8) spreads each pod over many SMs, and
+// a large one (512 pods, or 2 x 512) keeps one CTA per pod.
 //
 // What bounds it on this card: the latency of one pod's dependent phases
 // (the node loop, InterPod's 40 terms a node, three combines), as in
 // step_chunk; the bytes (a few [N] rows a pod) are microseconds.  The
-// cluster divides the node loop by S, and B x S CTAs fill the SMs a small
-// batch left idle.
+// cluster divides the node loop by S, and K x B x S CTAs fill the SMs a
+// small batch left idle.
 //
 // Exactness: as step_chunk.  Integer math is int64 with floor division,
 // the float64 paths are built with -fmad=false, and no float sum runs over
-// the node axis, so the split gives the bytes of one CTA per pod.
+// the node axis, so the split gives the bytes of one CTA per pod, and each
+// session's outputs are its solo launch's.
 //
 // spec_oracle replaces speculative.py:299 `_oracle_core`, the dirty-node
 // prefix (spec.cuh spec_oracle_block), one block.  It runs after the
@@ -53,16 +64,21 @@
 #include "cluster.cuh"
 #include "spec.cuh"
 
+template <int KM>
 __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
-    spec_eval_cluster_kernel(const __grid_constant__ StepArgs a, int width) {
+    spec_eval_cluster_kernel(const __grid_constant__ StepTable<KM> t, int width) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ PodShared sh;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), shards = (int)cluster.num_blocks();
-  const int c = (int)blockIdx.x / shards;
+  const int i = (int)blockIdx.x / shards;  // the cluster
+  const int session = KM == 1 ? 0 : i / t.s[0].C;
+  const StepArgs& a = t.s[session];
+  const int c = i - session * a.C;
   const int lo = min(rank * width, a.N), hi = min(lo + width, a.N);
   const StepSmem m = step_smem(a, width, false);
-  unsigned char* smem = a.spill != nullptr ? a.spill + (size_t)blockIdx.x * m.total : dyn;
+  unsigned char* smem = a.spill != nullptr
+      ? a.spill + (size_t)(blockIdx.x - session * a.C * shards) * m.total : dyn;
   ClusterScope scope{lo, hi, rank, shards,
                      PodRows{(long long*)(smem + m.raw), smem + m.feas, smem + m.ign, lo, width},
                      &sh, PodVolumes{}, 0};
@@ -106,13 +122,14 @@ __global__ void __launch_bounds__(SPEC_THREADS) spec_oracle_kernel(
 
 extern "C" int kss_step_args_size() { return (int)sizeof(StepArgs); }
 
-// cudaOccupancyMaxActiveClusters of the kernel at plan p, asked once per
-// card and per (S, CTA width, shared memory) for the process; a refused
-// query counts as no room (0).
+// cudaOccupancyMaxActiveClusters of the table size KM's kernel at plan p,
+// asked once per card and per (KM, S, CTA width, shared memory) for the
+// process; a refused query counts as no room (0).
+template <int KM>
 static int eval_clusters(const ClusterPlan& p, int shards, int dev) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int, size_t>, int> memo;
-  const auto key = std::make_tuple(dev, shards, p.threads, p.spill ? (size_t)0 : p.bytes);
+  static std::map<std::tuple<int, int, int, int, size_t>, int> memo;
+  const auto key = std::make_tuple(dev, KM, shards, p.threads, p.spill ? (size_t)0 : p.bytes);
   std::lock_guard<std::mutex> lock(mu);
   auto it = memo.find(key);
   if (it == memo.end()) {
@@ -120,7 +137,8 @@ static int eval_clusters(const ClusterPlan& p, int shards, int dev) {
     cudaLaunchConfig_t cfg;
     cluster_config(p, 1, shards, nullptr, attr, &cfg);
     int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, spec_eval_cluster_kernel, &cfg) != cudaSuccess) {
+    if (cudaOccupancyMaxActiveClusters(&clusters, spec_eval_cluster_kernel<KM>, &cfg) !=
+        cudaSuccess) {
       cudaGetLastError();
       clusters = 0;
     }
@@ -129,39 +147,65 @@ static int eval_clusters(const ClusterPlan& p, int shards, int dev) {
   return it->second;
 }
 
-// The plan of a launch over these arguments at each S = 2^k, k < 5: to
-// clusters[k] how many clusters of S CTAs the card holds at once, to
-// cta_spill[k] the device memory each CTA's state takes in a.spill (0
-// where it fits in shared memory).
-extern "C" int kss_eval_plan(const StepArgs* args, int* clusters, long long* cta_spill) {
-  int max_dynamic = 0, dev = 0;
-  cudaError_t err = cluster_attributes<spec_eval_cluster_kernel>(&max_dynamic);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  for (int k = 0; k < KSS_EVAL_SIZES; ++k) {
-    const ClusterPlan p = cluster_plan(*args, 1 << k, max_dynamic, false);
-    clusters[k] = eval_clusters(p, 1 << k, dev);
-    cta_spill[k] = p.spill ? (long long)p.bytes : 0;
-  }
-  return (int)cudaSuccess;
+// The members' CTA state at `shards` CTAs a cluster: one plan for the
+// table, refused (cudaErrorInvalidValue) where two members' state bytes
+// differ (their volume widths: step_smem) or the batch does.
+static cudaError_t table_plan(const StepArgs* table, int k, int shards, int max_dynamic,
+                              ClusterPlan* p) {
+  *p = cluster_plan(table[0], shards, max_dynamic, false);
+  for (int i = 1; i < k; ++i)
+    if (table[i].C != table[0].C || table[i].N != table[0].N ||
+        step_smem(table[i], p->width, false).total != p->bytes)
+      return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// The plan of a launch over a table of k sessions at each S = 2^j, j < 5:
+// to clusters[j] how many clusters of S CTAs the card holds at once, to
+// cta_spill[j] the device memory each CTA's state takes in its session's
+// spill (0 where it fits in shared memory).
+extern "C" int kss_eval_plan(const StepArgs* table, int k, int* clusters,
+                             long long* cta_spill) {
+  if (k < 1 || k > KSS_MAX_TABLE) return (int)cudaErrorInvalidValue;
+  return by_table(k, [&](auto km) {
+    constexpr int KM = decltype(km)::value;
+    int max_dynamic = 0, dev = 0;
+    cudaError_t err = cluster_attributes<spec_eval_cluster_kernel<KM>>(&max_dynamic);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    for (int j = 0; j < KSS_EVAL_SIZES && err == cudaSuccess; ++j) {
+      ClusterPlan p;
+      err = table_plan(table, k, 1 << j, max_dynamic, &p);
+      clusters[j] = eval_clusters<KM>(p, 1 << j, dev);
+      cta_spill[j] = p.spill ? (long long)p.bytes : 0;
+    }
+    return (int)err;
+  });
 }
 
 // Launches on the caller's stream; no synchronisation.  One cluster of
-// `shards` CTAs (1 to KSS_MAX_SHARDS) per pod of args->C, a.spill set
-// exactly where kss_eval_plan gave the state bytes of device memory.
-// Each returns the launch's error or cudaGetLastError(), so a refused
-// launch is reported at once.
-extern "C" int kss_spec_eval(const StepArgs* args, int shards, void* stream) {
-  if (shards < 1 || shards > KSS_MAX_SHARDS || args->C < 1) return (int)cudaErrorInvalidValue;
-  int max_dynamic = 0;
-  const cudaError_t err = cluster_attributes<spec_eval_cluster_kernel>(&max_dynamic);
-  if (err != cudaSuccess) return (int)err;
-  const ClusterPlan p = cluster_plan(*args, shards, max_dynamic, false);
-  if (p.spill != (args->spill != nullptr)) return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  cluster_config(p, args->C, shards, (cudaStream_t)stream, attr, &cfg);
-  return launch_result(cudaLaunchKernelEx(&cfg, spec_eval_cluster_kernel, *args, p.width));
+// `shards` CTAs (1 to KSS_MAX_SHARDS) per pod of each of the k sessions,
+// each session's spill set exactly where kss_eval_plan gave the state
+// bytes of device memory (a slot per CTA of the session).  Each returns
+// the launch's error or cudaGetLastError(), so a refused launch is
+// reported at once.
+extern "C" int kss_spec_eval(const StepArgs* table, int k, int shards, void* stream) {
+  if (k < 1 || k > KSS_MAX_TABLE || shards < 1 || shards > KSS_MAX_SHARDS || table[0].C < 1)
+    return (int)cudaErrorInvalidValue;
+  return by_table(k, [&](auto km) {
+    constexpr int KM = decltype(km)::value;
+    int max_dynamic = 0;
+    cudaError_t err = cluster_attributes<spec_eval_cluster_kernel<KM>>(&max_dynamic);
+    ClusterPlan p;
+    if (err == cudaSuccess) err = table_plan(table, k, shards, max_dynamic, &p);
+    if (err != cudaSuccess) return (int)err;
+    for (int i = 0; i < k; ++i)
+      if (p.spill != (table[i].spill != nullptr)) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg;
+    cluster_config(p, k * table[0].C, shards, (cudaStream_t)stream, attr, &cfg);
+    return launch_result(cudaLaunchKernelEx(&cfg, spec_eval_cluster_kernel<KM>,
+                                            make_table<KM>(table, k), p.width));
+  });
 }
 
 extern "C" int kss_spec_oracle(const void* packed, int pack_bytes, const int* reject,

@@ -53,10 +53,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "step": {"kss_step_args_size": ([], _I), "kss_step_chunk": ([_P, _I, _P], _I),
              "kss_step_plan": ([_P, _I, _P, _P], _I)},
-    "spec_eval": {"kss_step_args_size": ([], _I), "kss_eval_plan": ([_P, _P, _P], _I),
-                  "kss_spec_eval": ([_P, _I, _P], _I),
+    "spec_eval": {"kss_step_args_size": ([], _I), "kss_eval_plan": ([_P, _I, _P, _P], _I),
+                  "kss_spec_eval": ([_P, _I, _I, _P], _I),
                   "kss_spec_oracle": ([_P, _I, _P, _P, _I, _I, _P, _P], _I)},
-    "spec_round": {"kss_step_args_size": ([], _I), "kss_spec_round": ([_P, _P], _I)},
+    "spec_round": {"kss_step_args_size": ([], _I), "kss_round_plan": ([_P, _I, _P, _P, _P], _I),
+                   "kss_spec_round": ([_P, _I, _I, _P], _I)},
     "spec_commit": {"kss_step_args_size": ([], _I),
                     "kss_spec_commit": ([_P, _P, _I, _I, _P], _I)},
     "grid": {"kss_grid_args_size": ([], _I), "kss_grid_append": ([_P, _P], _I),
@@ -66,9 +67,7 @@ SIGNATURES = {
     "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _P], _I)},
     "phased": {"kss_step_args_size": ([], _I),
                "kss_renormalize_row": ([_P, _I, _P, _P, _P, _P, _P], _I)},
-    "fuse": {"kss_step_args_size": ([], _I), "kss_fuse_max": ([], _I),
-             "kss_spec_eval_fused": ([_P, _I, _P], _I),
-             "kss_spec_round_fused": ([_P, _I, _P], _I),
+    "fuse": {"kss_fuse_max": ([], _I),
              "kss_spec_oracle_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
     "mesh": {"kss_step_args_size": ([], _I), "kss_mesh_max_shards": ([], _I),
              "kss_step_plan": ([_P, _I, _P, _P], _I),
@@ -79,9 +78,10 @@ SIGNATURES = {
 
 # builds of a source with extra flags, compiled only when `load` asks for
 # one (never by a plain `build()`): stem -> (source stem, flags).  The
-# phase clock of csrc/common.cuh.
-VARIANTS = {"step_clock": ("step", ("-DKSS_PHASE_CLOCK",))}
-SIGNATURES["step_clock"] = SIGNATURES["step"]
+# phase clocks of csrc/common.cuh.
+VARIANTS = {"step_clock": ("step", ("-DKSS_PHASE_CLOCK",)),
+            "spec_round_clock": ("spec_round", ("-DKSS_PHASE_CLOCK",))}
+SIGNATURES.update({stem: SIGNATURES[source] for stem, (source, _) in VARIANTS.items()})
 
 
 def _sources() -> list[Path]:

@@ -1,18 +1,20 @@
 """B11: one speculative round of K sessions in one launch, each wrapper
 and, beside it, its plain PyTorch version.
 
-    kernel (csrc/fuse.cu)   wrapper             plain version                 JAX counterpart
-    spec_eval_fused         spec_eval_fused     eval_plain, per member        parallel/fuse.py:356
-    spec_round_fused        spec_round_fused    sparse_round_plain, per member  `_run_fused`
-    spec_oracle_fused       spec_oracle_fused   _oracle_core, per member      (vmap at :365)
+    wrapper             kernel (csrc/)                      plain version                   JAX counterpart
+    spec_eval_fused     spec_eval.cu spec_eval_cluster      eval_plain, per member          parallel/fuse.py:356
+    spec_round_fused    spec_round.cu spec_round (groups)   sparse_round_plain, per member  `_run_fused`
+    spec_oracle_fused   fuse.cu spec_oracle_fused           _oracle_core, per member        (vmap at :365)
 
 The JAX package stacks K sessions' carries and pod batches on a leading
 axis and runs `jax.jit(jax.vmap(solo_fn))`.  Here each session is a
 `Member`: its step (statics), its carry, its batch and the outputs it
-allocated on its own thread before it joined the batch.  The kernels
-take one StepArgs per member (kernels/step.py `make_args`) in a table and
-give the session index its own grid axis, so nothing is stacked or
-copied, and each member's outputs equal its solo launch bit for bit.
+allocated on its own thread before it joined the batch.  The dense eval
+and the sparse round are the solo kernels' table launches (kernels/spec.py
+`launch_eval`, `launch_round`): one StepArgs per member (kernels/step.py
+`make_args`), the session picked by the CTA, so nothing is stacked or
+copied, and each member's outputs equal its solo launch bit for bit.  The
+oracle's kernel takes a table of pointers, one block a member.
 
 The round functions are what the speculative stream dispatches through
 the fuse coordinator (parallel/fuse.py):
@@ -41,6 +43,7 @@ and no event is recorded.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -116,12 +119,8 @@ def _dense_fused(args_list: list) -> list:
     if members[0].stream is None:  # CPU tensors
         return [dense_round(m) for m in members]
     # the launches in turn join and release the members' streams as one
-    # B11 launch does (_launch)
-    _join_streams(members)
-    with torch.cuda.stream(members[0].stream):
-        rounds = [dense_round(m) for m in members]
-    _release_streams(members)
-    return rounds
+    # B11 launch does
+    return _launch(members, lambda: [dense_round(m) for m in members])
 
 
 dense_round.fused = _dense_fused
@@ -130,12 +129,22 @@ sparse_round.fused = lambda args_list: sparse_round_fused(_members(args_list))
 
 # ------------------------------------------------------------ checks
 
+def state_shape(step) -> tuple:
+    """What a member's CTA state takes in the eval kernel (csrc/cluster.cuh
+    step_smem): its scorers and, where it has them, NodeVolumeLimits'
+    volumes and drivers and VolumeBinding's PVs."""
+    st = step.cw.statics
+    nvl = st["NodeVolumeLimits"].driver_onehot.shape if "NodeVolumeLimits" in st else None
+    vb = st["VolumeBinding"].pv_cap.shape[0] if "VolumeBinding" in st else None
+    return len(step.score_names), nvl, vb
+
+
 def _check_members(members: list[Member], sparse: bool) -> torch.device:
     """Every member on one device, with the same batch, node count, output
-    widths, pack width and candidate cap: what one launch can take.  The
-    fuse family (parallel/speculative.py `_fuse_family`) makes a
-    difference impossible; a caller that breaks it gets an error, not a
-    wrong answer."""
+    widths, pack width, candidate cap and state bytes (state_shape): what
+    one launch can take.  The fuse family (parallel/speculative.py
+    `_fuse_family`) makes a difference impossible; a caller that breaks
+    it gets an error, not a wrong answer."""
     if not 1 <= len(members) <= MAX_FUSE_SESSIONS:
         raise ValueError(f"{len(members)} members: a fused round takes 1 to {MAX_FUSE_SESSIONS}")
     first = members[0]
@@ -143,7 +152,8 @@ def _check_members(members: list[Member], sparse: bool) -> torch.device:
     def shape(m: Member):
         groups = kstep._score_groups(m.step)
         return (m.device, m.step.out_mode, m.xs["is_pad"].shape[0], m.step.cw.n_nodes,
-                PACK_MODES[m.step.pack_mode][0], groups[2], groups[4], m.kcand)
+                PACK_MODES[m.step.pack_mode][0], groups[2], groups[4], m.kcand,
+                state_shape(m.step))
 
     want = shape(first)
     for i, m in enumerate(members):
@@ -152,7 +162,8 @@ def _check_members(members: list[Member], sparse: bool) -> torch.device:
         got = shape(m)
         if got != want:
             raise ValueError(f"member {i} does not fit the batch: (device, mode, batch, nodes, "
-                             f"pack dtype, raw widths, raw32 bytes, kcand) {got} != {want}")
+                             f"pack dtype, raw widths, raw32 bytes, kcand, (scorers, volume "
+                             f"limits' volumes x drivers, PVs)) {got} != {want}")
         if (m.kcand is not None) != sparse:
             raise ValueError(f"member {i}: a {'sparse' if sparse else 'dense'} round needs "
                              f"{'a' if sparse else 'no'} candidate cap")
@@ -179,68 +190,66 @@ def _release_streams(members: list[Member]) -> None:
             m.stream.wait_event(done)
 
 
-def _load() -> ctypes.CDLL:
-    lib = kstep.load_lib("fuse")
-    if lib.kss_fuse_max() != MAX_FUSE_SESSIONS:
-        raise RuntimeError("MAX_FUSE_SESSIONS differs between csrc/fuse.cu and kernels/fuse.py")
-    return lib
-
-
-def _table(members: list[Member]):
-    """The kernels' table: one StepArgs per member, each filled from the
-    member's own step, carry, batch and outputs."""
-    table = (kstep.StepArgs * len(members))()
-    for i, m in enumerate(members):
-        kstep.check_device("fused round", m.device, m.step.cw.statics, m.carry, m.xs)
-        table[i] = kspec.round_args(m.step, m.carry, m.xs, m.outs, m.kcand)
-    return table
-
-
-def _launch(what: str, fn, members: list[Member], *args) -> None:
-    lead = members[0].stream
+def _launch(members: list[Member], fn, *args):
+    """fn(*args) with the members' streams joined to the leader's and
+    released after: it launches on the leader's stream."""
     _join_streams(members)
-    kstep.check_launch(what, fn(*args, ctypes.c_void_p(lead.cuda_stream)))
+    with torch.cuda.stream(members[0].stream):
+        out = fn(*args)
     _release_streams(members)
+    return out
+
+
+def _entries(members: list[Member]) -> list:
+    return [(m.step, m.carry, m.xs, m.outs) for m in members]
 
 
 # ------------------------------------------------------------ B11 kernels
 
-def spec_eval_fused(members: list[Member]) -> list[CompactOut]:
-    """B11 dense eval: spec_eval of every member in one launch, grid
-    (B, K).  CPU tensors: eval_plain per member."""
+def spec_eval_fused(members: list[Member], *, _shards: int = 0) -> list[CompactOut]:
+    """B11 dense eval: spec_eval of every member in one launch of its
+    kernel over the members' table, one cluster of S CTAs a pod, S from
+    the K x B pods (kernels/spec.py launch_eval); `spec_eval_fused.shards`
+    records S, `spec_eval_fused.batches` the launches by (K, b).  CPU
+    tensors: eval_plain per member.  For tests and measurement only,
+    `_shards` forces S (kernels/spec.py EVAL_SHARDS)."""
     dev = _check_members(members, sparse=False)
     if dev.type == "cpu":
         return [kspec.eval_plain(m.step, m.carry, m.xs) for m in members]
-    lib = _load()
-    table = _table(members)
-    _launch("spec_eval_fused", lib.kss_spec_eval_fused, members, table, len(members))
+    spec_eval_fused.shards = _launch(members, kspec.launch_eval, "spec_eval_fused",
+                                     _entries(members), _shards)
     spec_eval_fused.launches += 1
+    spec_eval_fused.batches[(len(members), members[0].xs["is_pad"].shape[0])] += 1
     return [CompactOut(**{k: m.outs[k] for k in CompactOut._fields}) for m in members]
 
 
-def spec_round_fused(members: list[Member]) -> list[tuple]:
-    """B11 sparse round: spec_round of every member in one launch, grid
-    (B, K), each member with its own candidate scratch.  -> per member
+def spec_round_fused(members: list[Member], *, _pods: int = 0,
+                     _clock: list | None = None) -> list[tuple]:
+    """B11 sparse round: spec_round of every member in one launch of its
+    pod-group kernel over the members' table (kernels/spec.py
+    launch_round); `spec_round_fused.pods` records the group size,
+    `spec_round_fused.batches` the launches by (K, b).  -> per member
     (packed, reject, counts, raw8, raw16, raw32, ovf, selected).  CPU
-    tensors: sparse_round_plain per member."""
+    tensors: sparse_round_plain per member.  For tests and measurement
+    only, `_pods` forces the group size (kernels/spec.py ROUND_PODS);
+    `_clock` (one zeroed int64 [B * CLOCK_SLOTS] tensor per member) runs
+    the phase-clock build (kernels/spec.py ROUND_CLOCK_PHASES)."""
     dev = _check_members(members, sparse=True)
     if dev.type == "cpu":
         return [kspec.sparse_round_plain(m.step, m.carry, m.xs, m.kcand) for m in members]
-    for m in members:
-        kspec.check_round(m.step, m.kcand)
-    lib = _load()
-    table = _table(members)
-    _launch("spec_round_fused", lib.kss_spec_round_fused, members, table, len(members))
+    spec_round_fused.pods = _launch(members, kspec.launch_round, "spec_round_fused",
+                                    _entries(members), members[0].kcand, _pods, _clock)
     spec_round_fused.launches += 1
-    return [(o["packed_filter"], o["prefilter_reject"], o["feasible_count"], o["raw8"],
-             o["raw16"], o["raw32"], o["raw_overflow"], o["selected"])
-            for o in (m.outs for m in members)]
+    spec_round_fused.batches[(len(members), members[0].xs["is_pad"].shape[0])] += 1
+    return [kspec.round_tuple(m.outs) for m in members]
 
 
 def spec_oracle_fused(members: list[Member], rows: list[tuple]) -> list[torch.Tensor]:
     """B11 oracle: spec_oracle of every member's round in one launch, grid
     K, into each member's own K.  rows: per member (packed, reject,
     selected).  CPU tensors: _oracle_core per member."""
+    from . import build
+
     if len(rows) != len(members):
         raise ValueError(f"{len(rows)} rows for {len(members)} members")
     dev = members[0].device
@@ -256,15 +265,23 @@ def spec_oracle_fused(members: list[Member], rows: list[tuple]) -> list[torch.Te
         reject[i] = kstep._ptr(r, torch.int32, (b,), "prefilter_reject")
         selected[i] = kstep._ptr(s, torch.int32, (b,), "selected")
         out_k[i] = kstep._ptr(m.outs["k"], torch.int32, (), "k")
-    lib = _load()
-    _launch("spec_oracle_fused", lib.kss_spec_oracle_fused, members, packed, reject, selected,
-            out_k, k, rows[0][0].element_size(), b, n)
+    lib = build.load("fuse")
+    if lib.kss_fuse_max() != MAX_FUSE_SESSIONS:
+        raise RuntimeError("MAX_FUSE_SESSIONS differs between csrc/common.cuh and "
+                           "kernels/fuse.py")
+    _launch(members, lambda: kstep.check_launch("spec_oracle_fused", lib.kss_spec_oracle_fused(
+        packed, reject, selected, out_k, k, rows[0][0].element_size(), b, n,
+        kstep.stream_of(dev))))
     spec_oracle_fused.launches += 1
     return [m.outs["k"] for m in members]
 
 
 spec_eval_fused.launches = 0
 spec_round_fused.launches = 0
+spec_eval_fused.shards = None
+spec_round_fused.pods = None
+spec_eval_fused.batches = collections.Counter()
+spec_round_fused.batches = collections.Counter()
 spec_oracle_fused.launches = 0
 
 KERNELS = (spec_eval_fused, spec_round_fused, spec_oracle_fused)

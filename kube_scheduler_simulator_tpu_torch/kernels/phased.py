@@ -52,7 +52,7 @@ def phased_eval(step, carry: dict, xs1: dict, *, _shards: int = 0) -> StepOut:
     if xs1["is_pad"].shape[0] != 1:
         raise ValueError("phased_eval takes one pod")
     outs = kstep.alloc_outputs(step, 1, dev, slots=0)  # the kernel keeps its rows on chip
-    phased_eval.shards = kspec.launch_eval("phased_eval", step, carry, xs1, outs, _shards)
+    phased_eval.shards = kspec.launch_eval("phased_eval", [(step, carry, xs1, outs)], _shards)
     phased_eval.launches += 1
     return StepOut(**{k: outs[k][0] for k in StepOut._fields})
 

@@ -23,10 +23,14 @@ The JAX package tiles the batch for XLA on a CPU (`_spec_tile`,
 tiling, and its results never depended on it.
 
 spec_eval's kernel, which also serves the host path's phased_eval
-(kernels/phased.py), spreads each pod over a thread-block cluster whose
-size comes from the batch (`eval_shards`); `eval_sliced_plain` computes
-the same split in plain PyTorch, so the CPU tests check the decomposition
-itself.
+(kernels/phased.py) and B11's fused dense eval (kernels/fuse.py), takes a
+table of sessions and spreads each pod over a thread-block cluster whose
+size comes from the launch's pods (`eval_shards`); `eval_sliced_plain`
+computes the same split in plain PyTorch.  spec_round's kernel, which
+also serves B11's fused sparse round, takes a table of sessions and gives
+each CTA a group of pods over one shared node pass (`round_pods`);
+`round_grouped_plain` computes its split in plain PyTorch.  So the CPU
+tests check each decomposition itself.
 """
 
 from __future__ import annotations
@@ -70,10 +74,10 @@ EVAL_SHARDS = (1, 2, 4, 8, 16)  # the cluster sizes of csrc/spec_eval.cu's kerne
 
 
 def eval_shards(b: int, n: int, clusters_at: dict) -> int:
-    """The cluster size of an eval launch over b pods of n nodes: the
-    largest S of EVAL_SHARDS, S <= n, at which all b clusters are resident
-    on the card at once (clusters_at[S] >= b, the card's count of
-    clusters of S CTAs), else 1."""
+    """The cluster size of an eval launch over b clusters (pods of all its
+    sessions) of n nodes: the largest S of EVAL_SHARDS, S <= n, at which
+    all b clusters are resident on the card at once (clusters_at[S] >= b,
+    the card's count of clusters of S CTAs), else 1."""
     for s in reversed(EVAL_SHARDS):
         if s <= n and clusters_at.get(s, 0) >= b:
             return s
@@ -101,31 +105,39 @@ def eval_sliced_plain(step, carry: dict, xs: dict, shards: int):
                               for i in range(xs["is_pad"].shape[0])])
 
 
-def launch_eval(what: str, step, carry: dict, xs: dict, outs: dict, shards: int) -> int:
-    """One launch of csrc/spec_eval.cu's cluster kernel over the batch xs
-    into outs (the layout of step.out_mode), one cluster of S CTAs per
-    pod: S = `shards` (one of EVAL_SHARDS), or where it is 0 eval_shards'
-    choice from the card's cluster occupancy (kss_eval_plan).  Where a CTA's
-    state passes shared memory it goes to device memory allocated here,
-    held through the launch.  -> S."""
-    dev = _device(carry)
-    kstep.check_device(what, dev, step.cw.statics, carry, xs)
+def launch_eval(what: str, entries: list, shards: int) -> int:
+    """One launch of csrc/spec_eval.cu's cluster kernel over a table of
+    sessions, `entries` of (step, carry, xs, outs): outs in the layout of
+    step.out_mode, every member with the same batch, nodes and state
+    bytes; one cluster of S CTAs per pod of each batch.  S = `shards` (one
+    of EVAL_SHARDS), or where it is 0 eval_shards' choice over the launch's
+    K x B clusters from the card's cluster occupancy (kss_eval_plan).
+    Where a CTA's state passes shared memory it goes to device memory
+    allocated here, held through the launch, a slot per CTA.  Launches on
+    the current stream.  -> S."""
+    dev = _device(entries[0][1])
+    for step, carry, xs, _ in entries:
+        kstep.check_device(what, dev, step.cw.statics, carry, xs)
     if shards not in (0, *EVAL_SHARDS):
         raise ValueError(f"{what}: {shards} CTAs a cluster, not one of {EVAL_SHARDS}")
     lib = kstep.load_lib("spec_eval")
-    b = xs["is_pad"].shape[0]
-    args = kstep.make_args(step, carry, xs, outs, slots=outs["scratch_raw"].shape[0])
+    k, b = len(entries), entries[0][2]["is_pad"].shape[0]
+    table = (kstep.StepArgs * k)()
+    for i, (step, carry, xs, outs) in enumerate(entries):
+        table[i] = kstep.make_args(step, carry, xs, outs, slots=outs["scratch_raw"].shape[0])
     clusters = (ctypes.c_int * len(EVAL_SHARDS))()
     cta_spill = (ctypes.c_longlong * len(EVAL_SHARDS))()
-    kstep.check_launch(f"{what} plan", lib.kss_eval_plan(ctypes.byref(args), clusters, cta_spill))
+    kstep.check_launch(f"{what} plan", lib.kss_eval_plan(table, k, clusters, cta_spill))
     if shards == 0:
-        shards = eval_shards(b, step.cw.n_nodes, dict(zip(EVAL_SHARDS, clusters)))
-    k = EVAL_SHARDS.index(shards)
+        shards = eval_shards(k * b, entries[0][0].cw.n_nodes, dict(zip(EVAL_SHARDS, clusters)))
+    j = EVAL_SHARDS.index(shards)
     spill = None
-    if cta_spill[k]:
-        spill = torch.empty(cta_spill[k] * b * shards, dtype=torch.uint8, device=dev)
-        args.spill = spill.data_ptr()
-    kstep.check_launch(what, lib.kss_spec_eval(ctypes.byref(args), shards, kstep.stream_of(dev)))
+    if cta_spill[j]:
+        per = cta_spill[j] * b * shards
+        spill = torch.empty(per * k, dtype=torch.uint8, device=dev)
+        for i in range(k):
+            table[i].spill = spill.data_ptr() + i * per
+    kstep.check_launch(what, lib.kss_spec_eval(table, k, shards, kstep.stream_of(dev)))
     return shards
 
 
@@ -145,7 +157,7 @@ def spec_eval(step, carry: dict, xs: dict, outs: dict | None = None, *,
     b = xs["is_pad"].shape[0]
     if outs is None:
         outs = kstep.alloc_outputs(step, b, dev, slots=0)  # the kernel keeps its rows on chip
-    spec_eval.shards = launch_eval("spec_eval", step, carry, xs, outs, _shards)
+    spec_eval.shards = launch_eval("spec_eval", [(step, carry, xs, outs)], _shards)
     spec_eval.launches += 1
     spec_eval.batches[b] += 1
     return CompactOut(**{k: outs[k] for k in CompactOut._fields})
@@ -214,19 +226,23 @@ def _take_nodes(x, idx, n: int):
     return x
 
 
-def _sparse_one(step, carry: dict, sl: dict, weights, kcand: int):
+def _sparse_filter(step, carry: dict, sl: dict):
+    """One pod's dense filters -> (packed word [N], PreFilter reject,
+    feasibility [N] bool, feasible count: 0 where rejected)."""
     cw = step.cw
-    n = cw.n_nodes
     codes, feasible = _filter_phase(cw, carry, sl, step.filter_names)
-    packed = pack_filter_codes(codes, n, step.pack_mode)
+    packed = pack_filter_codes(codes, cw.n_nodes, step.pack_mode)
     reject = _prefilter_reject(cw, carry, sl)
     count = torch.sum(feasible, dtype=torch.int32)
-    count = torch.where(reject > 0, 0, count)
-    cum = torch.cumsum(feasible.to(torch.int32), 0, dtype=torch.int32)
-    dev = feasible.device
-    cand = torch.searchsorted(cum, torch.arange(1, kcand + 1, dtype=torch.int32, device=dev))
-    cand = torch.clamp(cand, max=n - 1).to(torch.int32)
-    valid = torch.arange(kcand, dtype=torch.int32, device=dev) < count
+    return packed, reject, feasible, torch.where(reject > 0, 0, count)
+
+
+def _sparse_scores(step, carry: dict, sl: dict, weights, cand, count):
+    """Score / normalize / select on the candidates `cand` [K] (slots <
+    count valid) -> (each scorer's raw [K], selected, the valid slots)."""
+    cw = step.cw
+    n, kcand = cw.n_nodes, cand.shape[0]
+    valid = torch.arange(kcand, dtype=torch.int32, device=cand.device) < count
     idx = cand.to(torch.int64)
 
     def take(tree):
@@ -244,26 +260,28 @@ def _sparse_one(step, carry: dict, sl: dict, weights, kcand: int):
     is_pad = g_sl.get("is_pad")
     if is_pad is not None:
         selected = torch.where(is_pad, -1, selected)
-    # scatter the raw columns onto the dense grid: invalid slots park in a
-    # shed column past n, sliced off below
-    park = torch.where(valid, cand, n).to(torch.int64)
+    return raws, selected, valid
+
+
+def _sparse_rows(step, raws, valid, place):
+    """The raw rows of the compact groups, each scorer's [K] values put
+    onto [N] by place(vals [Sg, K], dtype), and the overflow of the checked
+    narrowing over the valid slots -> (raw8, raw16, raw32, ovf)."""
+    n, dev = step.cw.n_nodes, valid.device
     groups: dict[str, list] = {"i8": [], "i16": [], "i32": []}
     for s, g in enumerate(step.score_dtypes):
         if g == "host":
             continue
         groups["i32" if step.wide_raw else g].append(raws[s])
 
-    def scatter(rows, dtype):
-        if not rows:
+    def rows(vals, dtype):
+        if not vals:
             return torch.zeros((0, n), dtype=dtype, device=dev)
-        vals = torch.stack(rows).to(dtype)                  # [Sg, K]
-        buf = torch.zeros((vals.shape[0], n + 1), dtype=dtype, device=dev)
-        buf[:, park] = vals
-        return buf[:, :n]
+        return place(torch.stack(vals).to(dtype), dtype)
 
-    raw8 = scatter(groups["i8"], torch.int8)
-    raw16 = scatter(groups["i16"], torch.int16)
-    raw32 = scatter(groups["i32"], torch.int64 if step.wide_raw == "i64" else torch.int32)
+    raw8 = rows(groups["i8"], torch.int8)
+    raw16 = rows(groups["i16"], torch.int16)
+    raw32 = rows(groups["i32"], torch.int64 if step.wide_raw == "i64" else torch.int32)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
     if step.wide_raw is None and groups["i16"]:
         full = torch.stack(groups["i16"])
@@ -271,7 +289,27 @@ def _sparse_one(step, carry: dict, sl: dict, weights, kcand: int):
     elif step.wide_raw == "i32" and groups["i32"]:
         full = torch.stack(groups["i32"])
         ovf = torch.any(valid[None, :] & (full != full.to(torch.int32).to(full.dtype)))
-    return packed, reject, count, raw8, raw16, raw32, ovf, selected
+    return raw8, raw16, raw32, ovf
+
+
+def _sparse_one(step, carry: dict, sl: dict, weights, kcand: int):
+    n = step.cw.n_nodes
+    packed, reject, feasible, count = _sparse_filter(step, carry, sl)
+    cum = torch.cumsum(feasible.to(torch.int32), 0, dtype=torch.int32)
+    dev = feasible.device
+    cand = torch.searchsorted(cum, torch.arange(1, kcand + 1, dtype=torch.int32, device=dev))
+    cand = torch.clamp(cand, max=n - 1).to(torch.int32)
+    raws, selected, valid = _sparse_scores(step, carry, sl, weights, cand, count)
+    # scatter the raw columns onto the dense grid: invalid slots park in a
+    # shed column past n, sliced off below
+    park = torch.where(valid, cand, n).to(torch.int64)
+
+    def scatter(vals, dtype):
+        buf = torch.zeros((vals.shape[0], n + 1), dtype=dtype, device=dev)
+        buf[:, park] = vals
+        return buf[:, :n]
+
+    return (packed, reject, count, *_sparse_rows(step, raws, valid, scatter), selected)
 
 
 def sparse_round_plain(step, carry: dict, xs: dict, kcand: int):
@@ -286,35 +324,170 @@ def sparse_round_plain(step, carry: dict, xs: dict, kcand: int):
     return tuple(_stack([r[j] for r in rows]) for j in range(8))
 
 
-def spec_round(step, carry: dict, xs: dict, kcand: int, outs: dict | None = None):
-    """B4: the sparse round's per-pod pass.  CUDA tensors: one launch, one
-    block per pod, into `outs` (round_outputs with kcand) when the caller
-    allocated them; CPU tensors: sparse_round_plain."""
+ROUND_PODS = (1, 2, 4, 8)  # the pod-group sizes of csrc/spec_round.cu's kernel
+
+
+def _popc(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 word (below bit 32)."""
+    bits = (x[..., None] >> torch.arange(32, device=x.device)) & 1
+    return bits.sum(-1)
+
+
+def round_grouped_plain(step, carry: dict, xs: dict, kcand: int, pods: int):
+    """The pod-group kernel's split in plain PyTorch: the batch in groups of
+    `pods` pods; per group, the pods' feasibility as 32-node words, each
+    word's first rank an exclusive scan of the words' popcounts, node n's
+    rank that plus the popcount of its word below its lane; candidate r
+    the feasible node of rank r < kcand (N-1 past the count); every raw row
+    written in one pass, a node's candidate value where it is feasible
+    with rank below the valid count, 0 elsewhere.  -> sparse_round_plain's
+    tuple, equal to it at every `pods`."""
+    if pods not in ROUND_PODS:
+        raise ValueError(f"{pods} pods a group, not one of {ROUND_PODS}")
+    n = step.cw.n_nodes
+    dev = _device(carry)
+    b = xs["is_pad"].shape[0]
+    weights = torch.tensor(step.weights, dtype=torch.int64, device=dev)
+    words = -(-n // 32)
+    lanes = torch.arange(32, device=dev)
+    nodes = torch.arange(n, device=dev)
+    rows = []
+    for c0 in range(0, b, pods):
+        sls = [slice_pod(xs, c) for c in range(c0, min(c0 + pods, b))]
+        filt = [_sparse_filter(step, carry, sl) for sl in sls]
+        feas = torch.zeros((len(sls), words * 32), dtype=torch.int64, device=dev)
+        feas[:, :n] = torch.stack([f[2] for f in filt]).to(torch.int64)
+        bits = feas.view(len(sls), words, 32)
+        word = (bits << lanes).sum(-1)                                  # [P, W]
+        pop = bits.sum(-1)
+        prefix = torch.cumsum(pop, 1) - pop                             # exclusive
+        below = _popc(word[:, :, None] & ((1 << lanes) - 1))            # [P, W, 32]
+        rank = (prefix[:, :, None] + below).view(len(sls), words * 32)[:, :n]
+        for p, (sl, (packed, reject, feasible, count)) in enumerate(zip(sls, filt)):
+            cand = torch.full((kcand,), n - 1, dtype=torch.int32, device=dev)
+            pick = feasible & (rank[p] < kcand)
+            cand[rank[p][pick]] = nodes[pick].to(torch.int32)
+            raws, selected, valid = _sparse_scores(step, carry, sl, weights, cand, count)
+            valid_n = int(valid.sum())
+            take = feasible & (rank[p] < valid_n)
+            at = torch.clamp(rank[p], max=kcand - 1)
+
+            def gather(vals, dtype, take=take, at=at):
+                return torch.where(take[None, :], vals[:, at], torch.zeros((), dtype=dtype,
+                                                                           device=dev))
+
+            rows.append((packed, reject, count, *_sparse_rows(step, raws, valid, gather),
+                         selected))
+    return tuple(_stack([r[j] for r in rows]) for j in range(8))
+
+
+PLAN_PODS = (1, 2)  # the group sizes a launch's plan takes (round_pods)
+
+
+def round_pods(k: int, b: int, resident_at: dict, sms: int) -> int:
+    """The pod-group size of a sparse round's launch over k sessions of b
+    pods: the largest P of PLAN_PODS at which the launch's k x ceil(b / P)
+    CTAs still fill half of the card's resident slots (resident_at[P], the
+    CTAs of that group size an SM holds at once, 0 where the group's state
+    passes shared memory, times the `sms` SMs), else 1.  Groups of 4 and 8
+    stay out of the plan: with four CTAs an SM their node pass costs 1.5
+    to 1.8 times a group of 2's a pod (NVIDIA H100 80GB HBM3, 700.00 W;
+    PERF.md §6)."""
+    for p in reversed(PLAN_PODS):
+        if resident_at.get(p, 0) > 0 and 2 * k * -(-b // p) >= resident_at[p] * sms:
+            return p
+    return 1
+
+
+def launch_round(what: str, entries: list, kcand: int, pods: int, clocks=None) -> int:
+    """One launch of csrc/spec_round.cu's pod-group kernel over a table of
+    sessions, `entries` of (step, carry, xs, outs) (round_outputs), every
+    member with the same batch, nodes, scorers and candidate cap: groups
+    of P pods, one CTA each.  P = `pods` (one of ROUND_PODS), or where it
+    is 0 round_pods' choice from the card's residency (kss_round_plan).
+    Where a group's state passes shared memory it goes to device memory
+    allocated here, held through the launch, a slot per CTA.  `clocks`,
+    one zeroed int64 [B * CLOCK_SLOTS] tensor per member, runs the
+    phase-clock build.  Launches on the current stream.  -> P."""
+    dev = _device(entries[0][1])
+    for step, carry, xs, _ in entries:
+        check_round(step, kcand)
+        kstep.check_device(what, dev, step.cw.statics, carry, xs)
+    if pods not in (0, *ROUND_PODS):
+        raise ValueError(f"{what}: {pods} pods a group, not one of {ROUND_PODS}")
+    lib = kstep.load_lib("spec_round" if clocks is None else "spec_round_clock")
+    k, b = len(entries), entries[0][2]["is_pad"].shape[0]
+    table = (kstep.StepArgs * k)()
+    for i, (step, carry, xs, outs) in enumerate(entries):
+        table[i] = kstep.make_args(step, carry, xs, outs, slots=0)
+        table[i].K = kcand
+    for i, ck in enumerate(clocks or ()):
+        table[i].clock = kstep._ptr(ck, torch.int64, (b * kstep.CLOCK_SLOTS,), "clock")
+    resident = (ctypes.c_int * len(ROUND_PODS))()
+    cta_spill = (ctypes.c_longlong * len(ROUND_PODS))()
+    sms = ctypes.c_int(0)
+    kstep.check_launch(f"{what} plan", lib.kss_round_plan(table, k, resident, cta_spill,
+                                                          ctypes.byref(sms)))
+    if pods == 0:
+        pods = round_pods(k, b, dict(zip(ROUND_PODS, resident)), sms.value)
+    j = ROUND_PODS.index(pods)
+    spill = None
+    if cta_spill[j]:
+        per = cta_spill[j] * -(-b // pods)
+        spill = torch.empty(per * k, dtype=torch.uint8, device=dev)
+        for i in range(k):
+            table[i].spill = spill.data_ptr() + i * per
+    kstep.check_launch(what, lib.kss_spec_round(table, k, pods, kstep.stream_of(dev)))
+    return pods
+
+
+def spec_round(step, carry: dict, xs: dict, kcand: int, outs: dict | None = None, *,
+               _pods: int = 0, _clock: torch.Tensor | None = None):
+    """B4: the sparse round's per-pod pass.  CUDA tensors: one launch of
+    the pod-group kernel (launch_round, one session), into `outs`
+    (round_outputs with kcand) when the caller allocated them;
+    `spec_round.pods` records the group size it took, `spec_round.batches`
+    the launches by batch size.  CPU tensors: sparse_round_plain.  For
+    tests and measurement only, `_pods` forces the group size (one of
+    ROUND_PODS); `_clock` (a zeroed int64 [B * CLOCK_SLOTS] tensor on the
+    card) runs the phase-clock build (ROUND_CLOCK_PHASES)."""
     if step.out_mode != "compact":
         raise ValueError("spec_round evaluates the compact step")
     dev = _device(carry)
     if dev.type == "cpu":
         return sparse_round_plain(step, carry, xs, kcand)
-    check_round(step, kcand)
-    kstep.check_device("spec_round", dev, step.cw.statics, carry, xs)
-    lib = kstep.load_lib("spec_round")
+    b = xs["is_pad"].shape[0]
     if outs is None:
-        outs = round_outputs(step, xs["is_pad"].shape[0], dev, kcand)
-    args = round_args(step, carry, xs, outs, kcand)
-    kstep.check_launch("spec_round", lib.kss_spec_round(ctypes.byref(args), kstep.stream_of(dev)))
+        outs = round_outputs(step, b, dev, kcand)
+    spec_round.pods = launch_round("spec_round", [(step, carry, xs, outs)], kcand, _pods,
+                                   None if _clock is None else [_clock])
     spec_round.launches += 1
-    return (outs["packed_filter"], outs["prefilter_reject"], outs["feasible_count"],
-            outs["raw8"], outs["raw16"], outs["raw32"], outs["raw_overflow"],
-            outs["selected"])
+    spec_round.batches[b] += 1
+    return round_tuple(outs)
 
 
 spec_round.launches = 0
+spec_round.pods = None
+spec_round.batches = collections.Counter()
+# the sparse round's phase clock (csrc/common.cuh RoundClockSlot): per CTA,
+# in its first pod's CLOCK_SLOTS, the ns of each phase, then its first
+# and last stamps
+ROUND_CLOCK_PHASES = ("filter", "candidates", "scores", "normalize and argmax",
+                      "rows and overflow")
+ROUND_CLOCK_START, ROUND_CLOCK_END = 5, 6
+
+
+def round_tuple(outs: dict) -> tuple:
+    """A sparse round's outputs: (packed, reject, counts, raw8, raw16,
+    raw32, ovf, selected)."""
+    return tuple(outs[k] for k in ("packed_filter", "prefilter_reject", "feasible_count",
+                                   "raw8", "raw16", "raw32", "raw_overflow", "selected"))
 
 
 def check_round(step, kcand: int) -> None:
     """What spec_round's kernel takes: the node-local plugins, whose
-    node-axis rows it reads positionally at the candidates, and a
-    candidate cap in [1, N]."""
+    node-axis rows it reads positionally at the candidates and which read
+    no pre-pass, and a candidate cap in [1, N]."""
     from ..parallel.speculative import SAFE_SPECULATIVE
 
     plugins = set(step.filter_names) | set(step.score_names)
@@ -326,25 +499,15 @@ def check_round(step, kcand: int) -> None:
 
 
 def round_outputs(step, b: int, dev: torch.device, kcand: int | None = None) -> dict:
-    """Output and scratch tensors of one round's launch over b pods: the
-    dense eval's (kcand None) or the sparse round's, with its [b, kcand]
-    candidate scratch ("cand"); and the oracle's K ("k")."""
-    outs = kstep.alloc_outputs(step, b, dev, slots=b, width=kcand)
-    if kcand is not None:
-        outs["cand"] = torch.empty((b, kcand), dtype=torch.int32, device=dev)
+    """Output tensors of one round's launch over b pods, the dense eval's
+    (kcand None) or the sparse round's (whose kernels keep their state on
+    chip), and the oracle's K ("k").  A dense round over a mesh keeps each
+    pod's rows in global scratch (kernels/mesh.py spec_eval_sharded): one
+    slot a pod."""
+    slots = b if kcand is None and step.cw.mesh is not None else 0
+    outs = kstep.alloc_outputs(step, b, dev, slots=slots)
     outs["k"] = torch.empty((), dtype=torch.int32, device=dev)
     return outs
-
-
-def round_args(step, carry: dict, xs: dict, outs: dict, kcand: int | None = None):
-    """StepArgs of one round's launch over the batch: the dense eval's
-    (kcand None) or the sparse round's."""
-    b = xs["is_pad"].shape[0]
-    args = kstep.make_args(step, carry, xs, outs, slots=b, width=kcand)
-    if kcand is not None:
-        args.K = kcand
-        args.scratch_cand = kstep._ptr(outs["cand"], torch.int32, (b, kcand), "cand")
-    return args
 
 
 # ------------------------------------------------------------ B5 commit

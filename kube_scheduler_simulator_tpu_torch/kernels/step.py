@@ -83,7 +83,7 @@ _PTR_FIELDS = (
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
-    "scratch_raw", "scratch_feas", "scratch_ign", "scratch_cand",
+    "scratch_raw", "scratch_feas", "scratch_ign",
     "clock", "spill",
 )
 _LL = ctypes.c_longlong

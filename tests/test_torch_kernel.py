@@ -15,7 +15,9 @@ unsharded kernels; step_chunk's cluster at 8 and 16 CTAs, from several
 threads at once, and past shared memory (its state in device memory),
 and spec_commit_bind's grid of node slices against their plain versions;
 and the eval kernel's cluster (spec_eval and phased_eval) at the plan's
-cluster size and at every forced one.  A CUDA kernel has
+cluster size and at every forced one; and the two table kernels over K =
+1, 2, 4, 8, 16 sessions (the dense eval's clusters, the sparse round's
+pod groups) against the solo launches and the plain versions.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -1271,3 +1273,114 @@ def test_phased_eval_cluster_at_every_size_matches_plain(card, wl):
             _equal(list(kphased.phased_eval(ph.step, carry, xs1, _shards=s)), list(want),
                    (wl, i, s))
         carry = ph.bind(carry, xs1, int(want.selected))
+
+
+# ------------------------------------------ the table kernels over sessions
+
+TABLE_KS = (1, 2, 4, 8, 16)  # sessions a launch: every table size (KM = 1, 2, 4, 8, 16)
+
+
+def _members_of(step, carry, batches, kcand=None):
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+
+    return [kfuse.Member(step, carry, xs, kcand) for xs in batches]
+
+
+def _table_batches(cw, b, k, dev, lo=64):
+    """K batches of b pods from pod `lo`, two distinct ones alternating (so
+    each is held to its plain version once)."""
+    return [_batch(cw, lo + (s % 2) * min(b, 7), b, dev) for s in range(k)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 512])
+@pytest.mark.parametrize("wl", list(EVAL_FLEETS))
+def test_eval_table_at_every_session_count_matches_solo_and_plain(card, wl, b):
+    """B11's dense eval (spec_eval_fused: the eval kernel over a table of
+    sessions) at K = 1, 2, 4, 8, 16 sessions of b pods == each member's
+    solo spec_eval launch == eval_plain, exactly, at the plan's S (from
+    the K x B clusters) and, at K = 2 and 16, forced to each S: 5,000,
+    4,999 and 6 nodes."""
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    cw, step, carry = _eval_case(wl, card)
+    batches = _table_batches(cw, b, max(TABLE_KS), card)
+    plain = [tuple(kspec.eval_plain(step, carry, xs)) for xs in batches[:2]]
+    solo = [tuple(t.clone() for t in kspec.spec_eval(step, carry, xs)) for xs in batches[:2]]
+    for i in range(2):
+        _equal(solo[i], plain[i], (wl, b, i, "solo vs plain"))
+    for k in TABLE_KS:
+        for s in (0, *(kspec.EVAL_SHARDS if k in (2, 16) else ())):
+            before = kfuse.spec_eval_fused.launches
+            got = kfuse.spec_eval_fused(_members_of(step, carry, batches[:k]), _shards=s)
+            assert kfuse.spec_eval_fused.launches == before + 1
+            assert kfuse.spec_eval_fused.shards in kspec.EVAL_SHARDS
+            assert s in (0, kfuse.spec_eval_fused.shards)
+            for i, o in enumerate(got):
+                _equal(tuple(o), solo[i % 2], (wl, b, k, s, i))
+
+
+ROUND_FLEETS = (6, 37, 4999)
+_ROUND_CASES = {}
+
+
+def _round_case(n, dev):
+    """The slot-pinned fleet of n nodes, tainted nodes, broad pods 100-139
+    among the pinned ones, its compact step and the carry after 64 pods
+    committed."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.models import make_slot_pinned_workload
+
+    if n not in _ROUND_CASES:
+        nodes, pinned = make_slot_pinned_workload(1200, n, seed=n)
+        tainted = make_nodes(n, seed=n + 1, taint_fraction=0.3)
+        for node, t in zip(nodes, tainted):
+            if t["spec"].get("taints"):
+                node["spec"]["taints"] = t["spec"]["taints"]
+        pods = pinned[:100] + make_pods(40, seed=n + 2, with_affinity=True,
+                                        with_tolerations=True) + pinned[100:]
+        cw = compile_workload(nodes, pods, PluginSetConfig(enabled=SIX[:4]), device=dev)
+        pm, sd, _ = _compact_plan(cw, None)
+        step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+        carry = _clone_carry(cw.init_carry)
+        xs0 = _batch(cw, 0, 64, dev)
+        carry = kspec.commit_plain(step, carry, xs0, kspec.eval_plain(step, carry, xs0).selected,
+                                   64)
+        _ROUND_CASES[n] = (cw, step, carry)
+    return _ROUND_CASES[n]
+
+
+@pytest.mark.parametrize("b", [1, 8, 512])
+@pytest.mark.parametrize("n", ROUND_FLEETS)
+def test_round_table_at_every_session_count_matches_solo_and_plain(card, n, b):
+    """The sparse round's pod-group kernel: spec_round (one session) and
+    B11's spec_round_fused at K = 2, 4, 8, 16 sessions of b pods, each
+    member == its solo launch == sparse_round_plain, exactly, at the
+    plan's group size and, at K = 1 and 4, forced to each P of ROUND_PODS;
+    candidate caps below N and at N (whose groups of 8 pass shared memory
+    on 4,999 nodes and keep their state in device memory)."""
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    cw, step, carry = _round_case(n, card)
+    batches = _table_batches(cw, b, max(TABLE_KS), card, lo=99)  # pinned, then broad pods
+    for kcand in sorted({min(128, n - 1), n}):
+        plain = [kspec.sparse_round_plain(step, carry, xs, kcand) for xs in batches[:2]]
+        solo = [tuple(t.clone() for t in kspec.spec_round(step, carry, xs, kcand))
+                for xs in batches[:2]]
+        for i in range(2):
+            _equal(solo[i], plain[i], (n, b, kcand, i, "solo vs plain"))
+        for s in kspec.ROUND_PODS:
+            _equal(kspec.spec_round(step, carry, batches[0], kcand, _pods=s), plain[0],
+                   (n, b, kcand, "solo", s))
+            assert kspec.spec_round.pods == s
+        for k in TABLE_KS[1:]:
+            for s in (0, *(kspec.ROUND_PODS if k == 4 else ())):
+                before = kfuse.spec_round_fused.launches
+                got = kfuse.spec_round_fused(_members_of(step, carry, batches[:k], kcand),
+                                             _pods=s)
+                assert kfuse.spec_round_fused.launches == before + 1
+                assert kfuse.spec_round_fused.pods in kspec.ROUND_PODS
+                for i, r in enumerate(got):
+                    _equal(tuple(r), solo[i % 2], (n, b, kcand, k, s, i))
