@@ -82,7 +82,23 @@ phase:
        nodes 4 mesh equal to phase 8, through SchedulerEngine on an
        8-shard mesh equal to phase 4 as phase 19 holds itself, and a
        4,996-node fleet through the engine's unsharded fallback, counted
-       once by mesh_fallback_indivisible_nodes_total.
+       once by mesh_fallback_indivisible_nodes_total;
+  27   the phase clock: chunk 0 of config 5 and of the default-profile
+       fleet through step_chunk's -DKSS_PHASE_CLOCK build, each phase's
+       share of the launch;
+  28   custom and guest plugins (B13, their rows read in csrc/pod.cuh):
+       (a) config 5's plugins plus EvenNodesOnly and HugeScorer (raws
+       past 2^33) over 1,024 pods x 5,000 nodes through replay(), chunks
+       0-1 held to the plain step and sampled decodes to the plain
+       replay's, step_chunk on chunk 0 timed with and without the custom
+       plugins; (b) a guest file loaded by SchedulerService with a config
+       shaped like examples/scheduler.yaml (the default profile + the
+       guest: 13 filters, 9 scorers), 512 pods through
+       SchedulerEngine.schedule_pending() against a direct replay();
+       (c) a custom NormalizeScore on the engine's host path, phased_eval
+       with the rows held to its plain version and the run to
+       device="cpu"; (d) (a)'s workload through replay(mesh=make_mesh(8))
+       against (a).
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -3126,6 +3142,426 @@ def clock_phase(dev, card: str, fleets: dict) -> dict:
     return split
 
 
+CUSTOM_PODS = 1024             # phase 28 (a), (d): the queue with custom rows (2 chunks)
+GUEST_PODS = 512               # phase 28 (b): the guest's wave through the service
+HOST_CUSTOM_PODS = 64          # phase 28 (c): a custom NormalizeScore on the host path
+CUSTOM_MESH_SHARDS = 8         # phase 28 (d)
+GUEST_SRC = """
+from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+
+
+class Plugin(CustomPlugin):
+    default_weight = 1
+
+    def filter(self, pod, node):
+        if int(node["metadata"]["name"].rsplit("-", 1)[1]) % 3 == 0:
+            return "guest says no"
+        return None
+
+    def score(self, pod, node):
+        return int(node["metadata"]["name"].rsplit("-", 1)[1]) % 17
+"""
+
+
+def _node_index(obj) -> int:
+    return int(obj["metadata"]["name"].rsplit("-", 1)[1])
+
+
+def custom_plugins() -> dict:
+    """Phase 28's custom plugins (kube_scheduler_simulator_tpu_torch.plugins.custom):
+    EvenNodesOnly filters and scores, HugeScorer scores past int32 (2^33),
+    HalfNormalize scores and has a NormalizeScore -> {name: instance}."""
+    from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+
+    class EvenNodesOnly(CustomPlugin):
+        name = "EvenNodesOnly"
+        default_weight = 2
+
+        def filter(self, pod, node):
+            return None if _node_index(node) % 2 == 0 else "odd nodes not allowed"
+
+        def score(self, pod, node):
+            return _node_index(node)
+
+    class HugeScorer(CustomPlugin):
+        name = "HugeScorer"
+
+        def score(self, pod, node):
+            return (1 << 33) + _node_index(node)
+
+    class HalfNormalize(CustomPlugin):
+        name = "HalfNormalize"
+        default_weight = 3
+
+        def score(self, pod, node):
+            return _node_index(node) * 10
+
+        def normalize(self, scores):
+            return [v // 2 for v in scores]
+
+    return {p.name: p for p in (EvenNodesOnly(), HugeScorer(), HalfNormalize())}
+
+
+def chunk_ms(step, w, xs, reps: int = 5) -> float:
+    """step_chunk's device ms on one chunk: `reps` launches back to back
+    after an untimed one, each on a fresh copy of w's initial carry (as
+    phase 5 times it), the median."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry
+
+    carries = [_clone_carry(w.init_carry) for _ in range(reps + 1)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    step.scan(carries[0], xs)
+    marks[0].record()
+    for k in range(reps):
+        step.scan(carries[k + 1], xs)
+        marks[k + 1].record()
+    torch.cuda.synchronize()
+    return sorted(marks[k].elapsed_time(marks[k + 1]) for k in range(reps))[reps // 2]
+
+
+def custom_phase(dev, card: str, nodes: list, pods: list, cfg) -> dict:
+    """Phase 28: custom and guest plugins (B13, their [P, N] filter and
+    score rows read by the per-pod body of csrc/pod.cuh).  (a) config 5's
+    plugins plus EvenNodesOnly and HugeScorer over CUSTOM_PODS pods on its
+    nodes through replay() on the card: chunks 0-1 against the plain step,
+    sampled decodes against the plain replay's, step_chunk's ms on chunk 0
+    with and without the custom plugins; (b) a guest file loaded through
+    SchedulerService with a config shaped like examples/scheduler.yaml
+    (the default profile plus the guest), GUEST_PODS pods through
+    SchedulerEngine.schedule_pending() against a direct replay(); (c) a
+    custom NormalizeScore on the engine's host path (phased_eval with the
+    rows), against phased_eval's plain version and against device="cpu";
+    (d) replay(mesh=make_mesh(CUSTOM_MESH_SHARDS)) of (a)'s workload
+    against (a).  -> B13's entry for the JSON line."""
+    import copy
+    import tempfile
+
+    import torch
+    from torch import profiler
+
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        ReplayResult, _CompactChunks, _clone_carry, _compact_plan, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.parallel import make_mesh
+    from kube_scheduler_simulator_tpu_torch.plugins import custom as pcustom
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+    from kube_scheduler_simulator_tpu_torch.store import annotations as ann
+    from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
+
+    kernels = (kstep.step_chunk, kmesh.step_chunk_sharded, kphased.phased_eval,
+               kphased.renormalize_row, kspec.spec_eval, kspec.spec_round,
+               kspec.spec_commit_bind)
+
+    def reset() -> None:
+        for f in kernels:
+            f.launches = 0
+
+    def counts() -> dict:
+        return {f.__name__: f.launches for f in kernels if f.launches}
+
+    n = len(nodes)
+    plugins = custom_plugins()
+    rows = ("EvenNodesOnly", "HugeScorer")
+    qpods = pods[:CUSTOM_PODS]
+
+    # ---- (a) replay with custom rows
+    t28 = time.perf_counter()
+    orig_build, build_s = pcustom.build_custom, []
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig_build(*a, **kw)
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    ccfg = PluginSetConfig(enabled=list(cfg.enabled) + list(rows),
+                           custom={k: plugins[k] for k in rows}, weights=dict(cfg.weights),
+                           args=copy.deepcopy(cfg.args))
+    pcustom.build_custom = timed_build  # compile_workload calls it through the module
+    try:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        ccw = compile_workload(nodes, qpods, ccfg, device=dev)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+    finally:
+        pcustom.build_custom = orig_build
+    row_bytes = sum(t.numel() * t.element_size() for k in rows for t in ccw.xs[k])
+    check(ccw.config.filters()[-1] == "EvenNodesOnly"
+          and ccw.config.scorers()[-2:] == list(rows), "custom plugins' order")
+    check(all(ccw.host["score_dtypes"][ccw.config.scorers().index(k)] == "host" for k in rows),
+          "custom raws are not host columns")
+    reset()
+    t0 = time.perf_counter()
+    crr = replay(ccw, chunk=CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launched_a = counts()
+    mem_retained = torch.cuda.memory_allocated(dev) - mem0
+    n_chunks = -(-CUSTOM_PODS // CHUNK)
+    check(launched_a.get("step_chunk", 0) == n_chunks * len(crr.tiers),
+          f"(a) launches {launched_a} for {n_chunks} chunks x tiers {crr.tiers}")
+    wide = crr.tiers[-1]
+    pack_mode, score_dtypes, _ = _compact_plan(ccw, wide)
+    step_c = build_step(ccw, out_mode="compact", pack_mode=pack_mode,
+                        score_dtypes=score_dtypes, wide_raw=wide)
+    plain_chunks = _CompactChunks(chunk=CHUNK, pack_mode=pack_mode,
+                                  score_cols=crr._compact.score_cols)
+    sel, feas = crr.selected.copy(), crr.feasible_count.copy()
+    carry = _clone_carry(ccw.init_carry)
+    xs_chunks = [batch_xs(ccw, lo, CHUNK) for lo in range(0, CUSTOM_PODS, CHUNK)]
+    for ci, xs in enumerate(xs_chunks):
+        carry, out = step_c.plain_scan(carry, xs)
+        host = {f: getattr(out, f).cpu().numpy() for f in out._fields}
+        for grp, fld in (("packed", "packed_filter"), ("raw8", "raw8"), ("raw16", "raw16"),
+                         ("raw32", "raw32")):
+            check((crr._compact.host(grp, ci) == host[fld]).all(),
+                  f"(a) chunk {ci}: compact {fld} differs from the plain step")
+            getattr(plain_chunks, grp).append(host[fld])
+        lo = ci * CHUNK
+        for fld, got in (("selected", crr.selected), ("feasible_count", crr.feasible_count)):
+            check((host[fld] == got[lo:lo + CHUNK]).all(),
+                  f"(a) chunk {ci}: {fld} differs from the plain step")
+        sel[lo:lo + CHUNK], feas[lo:lo + CHUNK] = host["selected"], host["feasible_count"]
+    plain_rr = ReplayResult(cw=ccw, selected=sel, feasible_count=feas,
+                            prefilter_reject=crr.prefilter_reject.copy(), compact=plain_chunks)
+    sample = sorted(set(range(0, CUSTOM_PODS, CUSTOM_PODS // 8)) | {CUSTOM_PODS - 1})
+    names = ccw.node_table.names
+    vetoes = 0  # sampled pods whose filter-result shows EvenNodesOnly's message
+    for i in sample:
+        got = decode_pod_result(crr, i)
+        check(got == decode_pod_result(plain_rr, i), f"(a) pod {i}: annotations differ from "
+                                                     "the plain replay's")
+        s_i = int(crr.selected[i])
+        check(s_i < 0 or s_i % 2 == 0, f"(a) pod {i} on odd node {s_i}")
+        scores = json.loads(got[ann.SCORE_RESULT])
+        if s_i >= 0 and len(scores) > 1:
+            check(scores[names[s_i]]["HugeScorer"] == str((1 << 33) + s_i),
+                  f"(a) pod {i}: HugeScorer raw {scores[names[s_i]]}")
+        # a node's record stops at its first failing plugin
+        msg = json.loads(got[ann.FILTER_RESULT]).get(names[1], {}).get("EvenNodesOnly")
+        check(msg in (None, "odd nodes not allowed"), f"(a) pod {i}: filter-result {msg!r}")
+        vetoes += msg is not None
+    check(crr.scheduled > 0 and vetoes > 0, f"(a) scheduled {crr.scheduled}, vetoes {vetoes}")
+    # step_chunk on chunk 0 with and without the custom plugins: the same
+    # pods compiled without them, so every other row is the same
+    bcw = compile_workload(nodes, qpods, cfg, device=dev)
+    b_pack, b_dtypes, _ = _compact_plan(bcw, wide)
+    step_0 = build_step(bcw, out_mode="compact", pack_mode=b_pack, score_dtypes=b_dtypes,
+                        wide_raw=wide)
+    xs0 = batch_xs(bcw, 0, CHUNK)
+    with_ms, without_ms = chunk_ms(step_c, ccw, xs_chunks[0]), chunk_ms(step_0, bcw, xs0)
+    with_ms2, without_ms2 = chunk_ms(step_c, ccw, xs_chunks[0]), chunk_ms(step_0, bcw, xs0)
+    all_feasible = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def plain_rows():  # the plain step's custom branches on chunk 0, as phase 13 times B9
+        for i in range(CHUNK):
+            sl = pipeline.slice_pod(xs_chunks[0], i)
+            for k in rows:
+                if plugins[k].has_filter:
+                    pipeline._filter_one(k, ccw, None, sl)
+                pipeline._score_one(k, ccw, None, sl, all_feasible)
+
+    plain_ms = timed_once(plain_rows)
+    # B13's bytes a chunk: each custom filter's int32 code and each custom
+    # scorer's int64 raw, read once per (pod, node)
+    b13_bytes = CHUNK * n * (4 * sum(plugins[k].has_filter for k in rows)
+                             + 8 * sum(plugins[k].has_score for k in rows))
+    b13_bound_ms, b13_bound_by = bound(b13_bytes)
+    rows_ms = min(with_ms, with_ms2) - min(without_ms, without_ms2)
+    print(f"[28a custom rows] {card}: config {CONFIG}'s plugins + {list(rows)} over "
+          f"{CUSTOM_PODS} pods x {n} nodes through replay(): {len(ccw.config.filters())} "
+          f"filters, {len(ccw.config.scorers())} scorers; compile {compile_s:.3f} s, of it "
+          f"build_custom {sum(build_s):.3f} s ({len(build_s)} plugins, one Python call per "
+          f"(pod, node) and point); rows {row_bytes} B on the card; replay {replay_s:.4f} s, "
+          f"scheduled {crr.scheduled}, tiers {list(crr.tiers)}, launches {launched_a}; device "
+          f"memory the run retains {mem_retained} B; chunks 0-1 equal the plain step "
+          f"(selected, feasible_count, compact outputs), decodes of pods {sample} equal the "
+          f"plain replay's; step_chunk on chunk 0 (the same pods compiled without the custom "
+          f"plugins, alternating) with the rows {with_ms:.3f} / {with_ms2:.3f} ms, without "
+          f"{without_ms:.3f} / {without_ms2:.3f} ms (the rows' share {rows_ms:.3f} ms, the "
+          f"lesser of each); S = {kstep.step_chunk.shards}; the plain step's custom branches "
+          f"on that chunk {plain_ms:.3f} ms; B13 bound {b13_bound_ms:.6f} "
+          f"ms a chunk by {b13_bound_by} ({b13_bytes} B); {time.perf_counter() - t28:.1f} s",
+          flush=True)
+
+    # ---- (b) a guest through the service, the default profile + the guest
+    tb = time.perf_counter()
+    gpods = qpods[:GUEST_PODS]
+    with tempfile.TemporaryDirectory() as tmp:
+        guest = Path(tmp) / "guest_plugin.py"
+        guest.write_text(GUEST_SRC)
+        sched_cfg = {
+            "apiVersion": "kubescheduler.config.k8s.io/v1",
+            "kind": "KubeSchedulerConfiguration",
+            "profiles": [{
+                "schedulerName": "default-scheduler",
+                "plugins": {"multiPoint": {"enabled": [
+                    {"name": "NodeResourcesFit", "weight": 2},
+                    {"name": "NodeAffinity", "weight": 3}, {"name": "MyGuest"}]}},
+                "pluginConfig": [{"name": "MyGuest", "args": {"guestURL": str(guest)}}],
+            }],
+        }
+        store = ObjectStore()
+        for res, items in (("nodes", nodes), ("pods", gpods)):
+            for obj in items:
+                store.create(res, obj)
+        engine = SchedulerEngine(store)
+        svc = SchedulerService(engine)
+        svc.restart_scheduler(sched_cfg)
+        gcfg = engine.plugin_config
+        check("MyGuest" in gcfg.custom and len(gcfg.scorers()) == 9
+              and len(gcfg.filters()) == 13,
+              f"(b) the guest's profile: {len(gcfg.filters())} filters, "
+              f"{len(gcfg.scorers())} scorers")
+        reset()
+        TRACER.reset()
+        with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bound_b = engine.schedule_pending()
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - t0
+        launched_b = counts()
+        busy = _device_busy_s(prof)
+        spans = {k: round(v["total_seconds"], 4) for k, v in TRACER.summary()["spans"].items()
+                 if k in ("compile_workload", "replay_and_decode_stream", "commit_stream",
+                          "commit_and_reflect")}
+        check(launched_b.get("step_chunk", 0) > 0, f"(b) no step_chunk launch: {launched_b}")
+        ref = replay(compile_workload(nodes, gpods, gcfg, device=dev), chunk=CHUNK,
+                     device="cuda")
+        check(bound_b == ref.scheduled, f"(b) engine bound {bound_b}, replay {ref.scheduled}")
+        by_name = {q["metadata"]["name"]: q for q in store.list("pods")[0]}
+        vetoes = 0
+        for i, q in enumerate(gpods):
+            got = by_name[q["metadata"]["name"]]
+            s_i = int(ref.selected[i])
+            check(got["spec"].get("nodeName") == (names[s_i] if s_i >= 0 else None),
+                  f"(b) pod {i}: node differs from replay()")
+            check(s_i < 0 or s_i % 3 != 0, f"(b) pod {i} on a node the guest vetoes")
+            if i in sample or i == GUEST_PODS - 1:
+                want = decode_pod_result(ref, i)
+                for key in ALL_PLUGIN_KEYS:
+                    check(got["metadata"]["annotations"].get(key) == want[key],
+                          f"(b) pod {i} {key}")
+                msg = json.loads(want[ann.FILTER_RESULT]).get(names[0], {}).get("MyGuest")
+                check(msg in (None, "guest says no"), f"(b) pod {i}: filter-result {msg!r}")
+                vetoes += msg is not None
+        check(vetoes > 0, "(b) no sampled filter-result shows the guest's message")
+        engine.close()
+        del store, engine
+    idle_b = f"{1 - busy / wall_b:.4f}" if busy > 0 else "not measured"
+    print(f"[28b guest] {card}: a guest file importing the port's CustomPlugin, loaded by "
+          f"SchedulerService.restart_scheduler (examples/scheduler.yaml's shape: the default "
+          f"profile + MyGuest, 13 filters, 9 scorers); {GUEST_PODS} pods x {n} nodes through "
+          f"schedule_pending(): bound {bound_b}, wall {wall_b:.4f} s, device busy {busy:.4f} s, "
+          f"idle share {idle_b}, engine spans (s) {spans}, launches {launched_b}; every pod's "
+          f"node and the sampled annotations equal a direct replay(); "
+          f"{time.perf_counter() - tb:.1f} s", flush=True)
+
+    # ---- (c) a custom NormalizeScore on the host path (phased_eval + rows)
+    tc = time.perf_counter()
+    hcfg = PluginSetConfig(enabled=list(cfg.enabled) + ["HalfNormalize", "EvenNodesOnly"],
+                           custom={k: plugins[k] for k in ("HalfNormalize", "EvenNodesOnly")},
+                           weights=dict(cfg.weights), args=copy.deepcopy(cfg.args))
+    hpods = [copy.deepcopy(q) for q in qpods[:HOST_CUSTOM_PODS]]
+    hcw = compile_workload(nodes, hpods, hcfg, device=dev)
+    ph = pipeline.build_phased(hcw)
+    hcarry = _clone_carry(hcw.init_carry)
+    pe_err = 0
+    for i in range(8):
+        xs1 = batch_xs(hcw, i, 1)
+        out, want = ph.eval(hcarry, xs1), ph.plain_eval(hcarry, xs1)
+        e_i = tree_err(list(out), list(want))
+        check(e_i == 0, f"(c) phased_eval pod {i} differs from its plain version ({e_i})")
+        pe_err = max(pe_err, e_i)
+        hcarry = ph.bind(hcarry, xs1, int(want.selected))
+    pe, e_i = phased_times(ph, hcarry, batch_xs(hcw, 8, 1))
+    pe_err = max(pe_err, e_i)
+    snaps, lines_c = [], []
+    for device in ("cuda", "cpu"):
+        store = ObjectStore()
+        for res, items in (("nodes", nodes), ("pods", hpods)):
+            for obj in items:
+                store.create(res, obj)
+        engine = SchedulerEngine(store, plugin_config=hcfg, device=device)
+        check(engine._needs_host_path(), "(c) a custom NormalizeScore not on the host path")
+        reset()
+        t0 = time.perf_counter()
+        bound_c = engine.schedule_pending()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        launched = counts()
+        if device == "cuda":
+            launched_c = launched
+            check(launched.get("phased_eval", 0) == len(hpods),
+                  f"(c) phased_eval launches {launched}")
+            check(launched.get("spec_commit_bind", 0) == bound_c, f"(c) binds {launched}")
+        else:
+            check(not launched, f"(c) the CPU run launched {launched}")
+        snaps.append((bound_c, {q["metadata"]["name"]: (
+            q["spec"].get("nodeName"), q["metadata"].get("annotations"))
+            for q in store.list("pods")[0]}))
+        lines_c.append(f"device={device}: bound {bound_c}, {wall_c:.3f} s = "
+                       f"{wall_c * 1e3 / len(hpods):.3f} ms/pod")
+        engine.close()
+        del store, engine
+    check(snaps[0] == snaps[1], "(c) the card's host path differs from device='cpu'")
+    finals = 0  # HalfNormalize's finalscore = (raw // 2) x weight at each scored node
+    for _node, annos in snaps[0][1].values():
+        for node_name, entry in json.loads(annos.get(ann.FINAL_SCORE_RESULT) or "{}").items():
+            j = _node_index({"metadata": {"name": node_name}})
+            check(entry["HalfNormalize"] == str((j * 10 // 2) * 3),
+                  f"(c) HalfNormalize's final score at {node_name}: {entry['HalfNormalize']}")
+            finals += 1
+    check(finals > 0, "(c) no finalscore-result recorded")
+    print(f"[28c host path] {card}: config {CONFIG}'s plugins + HalfNormalize (NormalizeScore "
+          f"in Python) + EvenNodesOnly, {len(hpods)} pods on {n} nodes through the engine's "
+          f"host path: {'; '.join(lines_c)}; launches on the card {launched_c}; nodes and "
+          f"annotations equal; phased_eval with the rows == plain (max_abs_err {pe_err}), "
+          f"plan S={pe['S']} {pe['ms']:.5f} ms, forced "
+          f"{', '.join(f'S={k} {v:.5f}' for k, v in pe['forced'].items())}, bound "
+          f"{pe['bound'][0]:.6f} ms by {pe['bound'][1]}; {time.perf_counter() - tc:.1f} s",
+          flush=True)
+
+    # ---- (d) the mesh: replay(mesh=) of (a)'s workload
+    td = time.perf_counter()
+    reset()
+    mrr = replay(ccw, chunk=CHUNK, device="cuda", mesh=make_mesh(CUSTOM_MESH_SHARDS, device=dev))
+    torch.cuda.synchronize()
+    launched_d = counts()
+    check(launched_d.get("step_chunk_sharded", 0) == n_chunks * len(mrr.tiers),
+          f"(d) launches {launched_d}")
+    same_replay(mrr, crr, f"(d) mesh S={CUSTOM_MESH_SHARDS} vs (a)", sample)
+    print(f"[28d mesh] {card}: (a)'s workload through replay(mesh=make_mesh("
+          f"{CUSTOM_MESH_SHARDS})): launches {launched_d}; selected, feasible_count, every "
+          f"compact chunk and the sampled decodes equal (a); "
+          f"{time.perf_counter() - td:.1f} s", flush=True)
+
+    launches = (launched_a.get("step_chunk", 0) + launched_b.get("step_chunk", 0)
+                + launched_c.get("phased_eval", 0) + launched_d.get("step_chunk_sharded", 0))
+    return {
+        "name": "step_chunk[B13 custom rows]", "route": "cuda",
+        "source": "kube_scheduler_simulator_tpu_torch/csrc/pod.cuh",
+        "replaces": "kube_scheduler_simulator_tpu/framework/pipeline.py:107",
+        "launches": launches, "max_abs_err": pe_err, "ms": rows_ms, "plain_ms": plain_ms,
+        "bound_ms": b13_bound_ms, "bound_by": b13_bound_by, "library_ms": None,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -3378,8 +3814,9 @@ def main() -> int:
     mesh_entries = mesh_phases(dev, card, cw, nodes, pods, cfg, rr, spec_ctx, dp_ctx,
                                step_entry)
     clock_phase(dev, card, {f"config {CONFIG}": cw, "default profile": dp_ctx["default"][0]})
+    b13_entry = custom_phase(dev, card, nodes, pods, cfg)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
-                                  *engine_entries, *fuse_entries, *mesh_entries]}))
+                                  *engine_entries, *fuse_entries, *mesh_entries, b13_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,8 @@
 #include <climits>
 
 #define KSS_MAX_F 16       // filter plugins per step
-#define KSS_MAX_S 8        // score plugins per step
+#define KSS_MAX_S 16       // score plugins per step
+#define KSS_MAX_CUSTOM 8   // custom plugins with rows per step (B13)
 #define KSS_MAX_RES 8      // scored resources per strategy
 #define KSS_MAX_SHAPE 16   // RequestedToCapacityRatio shape points
 #define KSS_MC 4           // topologyspread.MAX_CONSTRAINTS
@@ -30,6 +31,9 @@ enum PluginId {
   P_VOLLIMITS = 11, // NodeVolumeLimits
   P_VOLBIND = 12,   // VolumeBinding
   P_VOLZONE = 13,   // VolumeZone
+  // a custom plugin (plugins/custom.py, B13): P_CUSTOM + its slot, its
+  // index among the step's custom plugins in name order
+  P_CUSTOM = 16,
 };
 
 enum ResSrc { RES_NONZERO = 0, RES_REQUESTED = 1, RES_NONE = 2 };
@@ -137,6 +141,9 @@ struct StepArgs {
   const int* vb_order;                   // [VV] PV indices by (capacity, index)
   // --- compile-time PreFilter rejects (xs["force_unsched"])
   const unsigned char* force_unsched;    // [C] bool, or null
+  // --- custom plugins (B13): slot k's precompiled rows, or null
+  const int* cu_codes[KSS_MAX_CUSTOM];         // [C, N] 0 pass, else 1 + message id
+  const long long* cu_scores[KSS_MAX_CUSTOM];  // [C, N] raw scores
   // --- outputs, "full" mode (StepOut)
   int* out_codes;                        // [C, F, N]
   int* out_raw;                          // [C, S, N]
@@ -207,16 +214,20 @@ struct StepArgs {
 // A launch's table of sessions: one StepArgs per session, KM entries (1,
 // 2, 4, 8 or 16), taken by a kernel as one __grid_constant__ parameter
 // and read in place from the parameter space, indexed by the session of
-// the CTA.  16 x 1,640 bytes = 26,240, inside the 32,764 bytes CUDA 12.1+
-// allows a kernel's parameters on this card.  The members share the
-// batch, the node count and the output widths (kernels/fuse.py checks
-// them); KM = 1 is a solo launch.
+// the CTA.  16 x 1,944 bytes = 31,104 (kernels/step.py checks
+// sizeof(StepArgs) against its mirror), inside the 32,764 bytes CUDA
+// 12.1+ allows a kernel's parameters on this card, with room for the
+// kernel's other parameters.  The members share the batch, the node count
+// and the output widths (kernels/fuse.py checks them); KM = 1 is a solo
+// launch.
 #define KSS_MAX_TABLE 16
 
 template <int KM>
 struct StepTable {
   StepArgs s[KM];
 };
+static_assert(sizeof(StepTable<KSS_MAX_TABLE>) <= 32764 - 64,
+              "a table of KSS_MAX_TABLE StepArgs passes a kernel's parameter space");
 
 #ifdef __CUDACC__
 #include <type_traits>

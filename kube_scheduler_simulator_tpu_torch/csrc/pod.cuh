@@ -71,6 +71,8 @@ __device__ int filter_code(const StepArgs& a, int pid, int c, int n, const PodPr
     case P_VOLZONE:
       return a.vz_filter_skip[c] ? 0 : volzone_filter(a, c, n);
   }
+  // B13: a custom plugin's precompiled code (JAX pipeline.py:107-109)
+  if (pid >= P_CUSTOM) return a.cu_codes[pid - P_CUSTOM][(long long)c * a.N + n];
   return 0;
 }
 
@@ -99,10 +101,15 @@ __device__ long long score_raw(const StepArgs& a, int pid, int c, int n, bool& i
     case P_VOLBIND:  // VolumeCapacityPriority is off: Score returns 0
       return 0;
   }
+  // B13: a custom plugin's precompiled int64 raw, which is also its
+  // normalized score (a custom NormalizeScore runs on the host;
+  // pipeline.py:150-156)
+  if (pid >= P_CUSTOM) return a.cu_scores[pid - P_CUSTOM][(long long)c * a.N + n];
   return 0;
 }
 
-// Scorers with ScoreExtensions (ImageLocality and VolumeBinding have none).
+// Scorers with ScoreExtensions (ImageLocality, VolumeBinding and the
+// custom plugins' rows have none here).
 __device__ __forceinline__ bool normalizes(int pid) {
   return pid == P_AFFINITY || pid == P_TAINT || pid == P_SPREAD || pid == P_INTERPOD;
 }

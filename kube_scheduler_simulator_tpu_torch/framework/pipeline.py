@@ -97,6 +97,8 @@ def choose_pack_mode(max_code: int, n_filters: int) -> str:
 
 
 def _filter_one(name: str, cw, carry, sl) -> torch.Tensor:
+    if cw.config.is_custom(name):
+        return sl[name].codes.to(torch.int32)  # B13: the precompiled row
     if name == "NodeResourcesFit":
         return noderesources.fit_filter(cw.statics["core"], sl["core"], carry["core"])
     if name == "NodeAffinity":
@@ -134,6 +136,12 @@ def _filter_one(name: str, cw, carry, sl) -> torch.Tensor:
 
 def _score_one(name: str, cw, carry, sl, feasible):
     """-> (raw int64 [N], normalized int64 [N])."""
+    if cw.config.is_custom(name):
+        raw = sl[name].scores.to(torch.int64)  # B13: the precompiled row
+        # a custom NormalizeScore cannot run inside the step; the engine
+        # routes such configs to the host path (engine._needs_host_path)
+        # and replay() refuses them
+        return raw, raw
     if name == "NodeResourcesFit":
         raw = noderesources.fit_score(
             cw.statics["core"], sl["core"], carry["core"],
@@ -481,12 +489,29 @@ def renormalize_plain(name: str, cw, carry, sl, raw, feasible) -> torch.Tensor:
 def renormalize(name: str, phased: "Phased", carry, xs1, raw, feasible) -> torch.Tensor:
     """pipeline.py:198: host-side NormalizeScore recompute for one plugin,
     used by the engine's host-interleaved path when AfterScore hooks or
-    hook-changed feasibility invalidate the fused normalization.  raw [N]
-    int64 and feasible [N] bool on the carry's device; xs1 the pod's xs
-    with a leading axis of 1.  Every scorer is in-tree (a custom plugin
-    that scores does not compile yet; its host-side NormalizeScore,
-    pipeline.py:208-219, comes with its rows): renormalize_row, kernel
-    B10 on the card and renormalize_plain on the CPU."""
+    hook-changed feasibility invalidate the fused normalization, and for
+    custom plugins' NormalizeScore.  raw [N] int64 and feasible [N] bool
+    on the carry's device; xs1 the pod's xs with a leading axis of 1.
+
+    A custom plugin with normalize() runs it in Python on the feasible
+    raws (pipeline.py:208-219; arbitrary Python cannot run in a kernel,
+    and upstream wraps out-of-tree ScoreExtensions as in-tree ones,
+    wrappedplugin.go:388-415); one without returns its raw.  An in-tree
+    scorer: renormalize_row, kernel B10 on the card and
+    renormalize_plain on the CPU."""
+    cfg = phased.step.cw.config
+    if cfg.is_custom(name):
+        plugin = cfg.custom[name]
+        if not getattr(plugin, "has_normalize", False):
+            return raw
+        import numpy as np
+
+        raw_np = raw.cpu().numpy()
+        idx = np.flatnonzero(feasible.cpu().numpy())
+        vals = plugin.normalize([int(raw_np[j]) for j in idx])
+        out = np.zeros_like(raw_np)
+        out[idx] = np.asarray(list(vals), dtype=out.dtype)
+        return torch.from_numpy(out).to(raw.device)
     from ..kernels.phased import renormalize_row
 
     return renormalize_row(phased.step, name, carry, xs1, raw, feasible)

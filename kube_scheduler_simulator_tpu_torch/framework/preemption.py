@@ -212,9 +212,10 @@ class Preemptor:
         # host-resident: the oracle reads the single pod's codes right
         # below, so device residency would just add an unoverlapped
         # round-trip (plus an attribution reduction nobody consumes)
-        # per fit hypothesis.  The JAX package's filter_only= (skip the
-        # score phase) is not ported: the codes are the same
-        rr = replay(cw, chunk=1, device_resident=False, device=self.device)
+        # per fit hypothesis.  filter_only: only the codes are read, so
+        # a custom NormalizeScore does not refuse the replay
+        rr = replay(cw, chunk=1, filter_only=True, device_resident=False,
+                    device=self.device)
         try:
             j = cw.node_table.names.index(node_name)
         except ValueError:

@@ -980,7 +980,7 @@ def _resolve_device_resident(device_resident: bool | None, collect: bool, on_chu
 
 def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chunk=None,
            device_resident: bool | None = None, device="cuda", mesh=None,
-           unroll: int = 1) -> ReplayResult:
+           unroll: int = 1, filter_only: bool = False) -> ReplayResult:
     """Run the full queue; returns host-side result arrays.
 
     collect=False fetches only the per-pod selections, feasible counts and
@@ -1003,7 +1003,10 @@ def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chun
     every chunk runs B12 `step_chunk_sharded`, one CTA of a thread-block
     cluster per shard; results are byte-identical to the unsharded
     replay.  The node count must divide by the "nodes" extent.
-    unroll: the JAX package's scan unroll; not ported, it raises."""
+    unroll: the JAX package's scan unroll; not ported, it raises.
+    filter_only: the caller only consumes filter codes / prefilter
+    rejects (preemption's fit checks), so a custom NormalizeScore, which
+    the chunked step cannot run, is allowed."""
     if unroll != 1:
         raise NotImplementedError("the step kernel has no unroll")
     device = resolve_device(device)
@@ -1013,6 +1016,15 @@ def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chun
         from ..parallel.mesh import shard_workload
 
         cw = shard_workload(cw, mesh)
+    if not filter_only:
+        for name in cw.config.enabled:
+            if cw.config.is_custom(name) and getattr(
+                    cw.config.custom[name], "has_normalize", False):
+                raise ValueError(
+                    f"custom plugin {name} has NormalizeScore: the batched "
+                    "scan cannot run it — schedule through the engine (it "
+                    "routes to the host-interleaved path) or use "
+                    "build_phased directly")
     device_resident = _resolve_device_resident(device_resident, collect, on_chunk)
     # widening ladder: narrow groups -> int32 -> int64 (a raw overflowing
     # its group dtype triggers the next tier; int64 is the upstream score

@@ -35,7 +35,8 @@ from ..framework.pipeline import (CompactOut, StepOut, _bind_phase, _filter_one,
                                   _prefilter_reject, _score_one, _stack, slice_pod)
 from ..plugins import interpod, topologyspread
 from ..plugins.base import default_normalize_apply
-from ..state.compile import NODE_AXES
+from ..plugins.custom import CustomXS
+from ..state.compile import CUSTOM_XS_AXES, NODE_AXES
 from . import step as kstep
 
 # a portable thread-block cluster: csrc/mesh.cu KSS_MAX_CLUSTER
@@ -90,10 +91,13 @@ def _axis(axes: dict, part: str, *path: str):
 
 def _cut_tree(tree: dict, part: str, n: int, lo: int, hi: int) -> dict:
     """Every tensor leaf of a statics, carry or one-pod xs tree cut to the
-    nodes [lo, hi) along the axis NODE_AXES declares for it."""
+    nodes [lo, hi) along the axis NODE_AXES declares for it (a custom
+    plugin's rows: CUSTOM_XS_AXES)."""
     axes = NODE_AXES[part]
     out = {}
     for name, v in tree.items():
+        if isinstance(v, CustomXS):
+            axes = {**axes, name: CUSTOM_XS_AXES}
         if isinstance(v, torch.Tensor):
             out[name] = _cut(v, _axis(axes, part, name), n, lo, hi)
         elif isinstance(v, tuple) and hasattr(v, "_fields"):

@@ -34,7 +34,7 @@ from ..plugins.fitscoring import parse_balanced_resources, parse_fit_strategy
 from ..plugins.topologyspread import MAX_CONSTRAINTS
 from ..state.resources import CPU, MEMORY
 
-MAX_F, MAX_S, MAX_RES, MAX_SHAPE, MAX_VBK = 16, 8, 8, 16, 8
+MAX_F, MAX_S, MAX_RES, MAX_SHAPE, MAX_VBK, MAX_CUSTOM = 16, 16, 8, 16, 8, 8
 
 PLUGIN_IDS = {
     "NodeResourcesFit": 0,
@@ -52,6 +52,9 @@ PLUGIN_IDS = {
     "VolumeBinding": 12,
     "VolumeZone": 13,
 }
+# a custom plugin's id: P_CUSTOM + its slot, its index among the step's
+# custom plugins in name order (custom_ids)
+P_CUSTOM = 16
 RES_NONZERO, RES_REQUESTED, RES_NONE = 0, 1, 2
 FIT_TYPES = {fitscoring.LEAST_ALLOCATED: 0, fitscoring.MOST_ALLOCATED: 1,
              fitscoring.REQUESTED_TO_CAPACITY_RATIO: 2}
@@ -80,6 +83,8 @@ _PTR_FIELDS = (
     "vb_pv_cap", "vb_pv_node_ok", "vb_bound_code", "vb_want", "vb_active",
     "vb_provision_ok", "vb_filter_skip", "vb_claimed", "vb_order",
     "force_unsched",
+)
+_OUT_PTR_FIELDS = (
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
@@ -95,6 +100,9 @@ class StepArgs(ctypes.Structure):
 
     _fields_ = (
         [(f, ctypes.c_void_p) for f in _PTR_FIELDS]
+        + [("cu_codes", ctypes.c_void_p * MAX_CUSTOM),
+           ("cu_scores", ctypes.c_void_p * MAX_CUSTOM)]
+        + [(f, ctypes.c_void_p) for f in _OUT_PTR_FIELDS]
         + [("ip_hard_weight", _LL), ("score_weight", _LL * MAX_S),
            ("fit_weight", _LL * MAX_RES), ("shape_u", _LL * MAX_SHAPE),
            ("shape_s", _LL * MAX_SHAPE)]
@@ -237,11 +245,12 @@ def make_args(step, carry, xs, outs: dict | None, slots: int = 1,
         a.ip_filter_skip = _ptr(x.filter_skip, b, (c,), "interpod filter_skip")
 
     _plugin_args(a, cw, carry, xs, c, n)
+    ids = {**PLUGIN_IDS, **_custom_args(a, step, xs, c, n)}
 
     for k, name in enumerate(step.filter_names):
-        a.filter_ids[k] = PLUGIN_IDS[name]
+        a.filter_ids[k] = ids[name]
     for k, name in enumerate(step.score_names):
-        a.score_ids[k] = PLUGIN_IDS[name]
+        a.score_ids[k] = ids[name]
         a.score_weight[k] = step.weights[k]
 
     strategy = parse_fit_strategy(cw.config.args.get("NodeResourcesFit"))
@@ -369,6 +378,28 @@ def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
         a.vb_order = _ptr(volumebinding.pv_order(st), torch.int32, (a.VV,), "binding pv order")
     if "force_unsched" in xs:
         a.force_unsched = _ptr(xs["force_unsched"], b, (c,), "force_unsched")
+
+
+def custom_ids(step) -> dict[str, int]:
+    """The kernel's id of each custom plugin the step filters or scores
+    with (B13): P_CUSTOM + its index in name order."""
+    cfg = step.cw.config
+    names = sorted({n for n in (*step.filter_names, *step.score_names) if cfg.is_custom(n)})
+    if len(names) > MAX_CUSTOM:
+        raise ValueError(f"{len(names)} custom plugins with rows: the kernel takes at most "
+                         f"{MAX_CUSTOM}")
+    return {name: P_CUSTOM + k for k, name in enumerate(names)}
+
+
+def _custom_args(a: StepArgs, step, xs, c: int, n: int) -> dict[str, int]:
+    """B13: each custom plugin's [C, N] codes and raw scores on its slot,
+    checked -> custom_ids(step)."""
+    ids = custom_ids(step)
+    for name, pid in ids.items():
+        x = xs[name]
+        a.cu_codes[pid - P_CUSTOM] = _ptr(x.codes, torch.int32, (c, n), f"{name}.codes")
+        a.cu_scores[pid - P_CUSTOM] = _ptr(x.scores, torch.int64, (c, n), f"{name}.scores")
+    return ids
 
 
 def alloc_outputs(step, c: int, device, slots: int = 1, width: int | None = None) -> dict:

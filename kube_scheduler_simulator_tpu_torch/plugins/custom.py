@@ -1,11 +1,10 @@
 """Out-of-tree (custom) plugins — the WithPlugin analogue.
 
-A copy of kube_scheduler_simulator_tpu/plugins/custom.py without its
-device rows (`CustomXS`, `build_custom`, :123-158): the port compiles a
-custom plugin that neither filters nor scores (its lifecycle points,
-QueueSort and Coscheduling run on the host); one with filter/score rows
-raises NotImplementedError in `compile_workload` until those rows land
-in the kernels (ROADMAP Queue A).
+A copy of kube_scheduler_simulator_tpu/plugins/custom.py.  `build_custom`
+makes a plugin's [P, N] rows with numpy on the host, then moves them to
+the compile's device; the kernels read them as plugin rows (B13,
+csrc/pod.cuh `filter_code` / `score_raw`).  A guest plugin
+(scheduler/guest.py) subclasses this module's `CustomPlugin`.
 
 The reference lets users build a debuggable scheduler embedding their own
 plugins (reference: simulator/pkg/debuggablescheduler/command.go:64-75
@@ -33,6 +32,13 @@ engine around each pod's cycle; see scheduler/debuggable.py.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .base import to_tensor
 
 
 class CustomPlugin:
@@ -121,3 +127,43 @@ class CustomPlugin:
     def has_lifecycle(self) -> bool:
         return (self.has_reserve or self.has_permit or self.has_pre_bind
                 or self.has_post_bind)
+
+
+class CustomXS(NamedTuple):
+    codes: torch.Tensor   # [P, N] int32; 0 pass, else 1 + msg id
+    scores: torch.Tensor  # [P, N] int64
+
+
+def build_custom(plugin: CustomPlugin, table, pods: list[dict], node_manifests: list[dict],
+                 name: str | None = None, host_out: dict | None = None, device="cuda"):
+    """-> (CustomXS on `device`, msg_table) — messages interned per plugin,
+    in first-seen order.  One call of filter() and of score() per (pod,
+    node), pods outer, in that order: a plugin that counts its calls sees
+    the JAX package's count.
+
+    A plugin with normalize() compiles like any other; its NormalizeScore
+    runs host-side (pipeline.renormalize) on the host-interleaved path —
+    the engine routes such configs there, and replay() refuses them so the
+    chunked step can't silently skip the normalization."""
+    n, p = table.n, len(pods)
+    codes = np.zeros((p, n), dtype=np.int32)
+    scores = np.zeros((p, n), dtype=np.int64)
+    msgs: list[str] = []
+    msg_ids: dict[str, int] = {}
+    for i, pod in enumerate(pods):
+        for j in range(n):
+            if plugin.has_filter:
+                msg = plugin.filter(pod, node_manifests[j])
+                if msg is not None:
+                    mid = msg_ids.setdefault(msg, len(msgs))
+                    if mid == len(msgs):
+                        msgs.append(msg)
+                    codes[i, j] = 1 + mid
+            if plugin.has_score:
+                scores[i, j] = int(plugin.score(pod, node_manifests[j]))
+    if host_out is not None and name is not None and plugin.has_score:
+        # custom raw scores are fully precompiled per (pod, node): the
+        # compact replay reads this host copy instead of transferring the
+        # row back from the device (framework/replay.py "host" group)
+        host_out.setdefault("static_score_rows", {})[name] = scores
+    return CustomXS(codes=to_tensor(codes, device), scores=to_tensor(scores, device)), msgs

@@ -16,8 +16,8 @@ becomes
         with_plugin_extenders={"NodeResourcesFit": MyExtender()},
         config=<KubeSchedulerConfiguration dict>, port=1212, device="cuda")
 
-Custom plugins (plugins/custom.py) with filter or score rows are not
-ported yet (compile_workload raises for them); plugin extenders are host-side hooks with the reference's PluginExtenders
+Custom plugins (plugins/custom.py) are compiled into the tensor pipeline;
+plugin extenders are host-side hooks with the reference's PluginExtenders
 semantics (wrappedplugin.go:159-171) applied per extension point around
 the decode/commit of each pod's cycle, plus the AddCustomResult debugging
 flow (resultstore/store.go:617-626).  When any registered extender

@@ -12,8 +12,8 @@ currentSchedulerCfg (:124-130).
 
 A copy of kube_scheduler_simulator_tpu/scheduler/service.py.  Guest
 plugins (scheduler/guest.py, a pluginConfig with guestURL/guestPath) are
-not ported: a config that declares one is refused (ROADMAP Queue A item
-1), and the rollback restores the previous config.
+loaded on every restart; one that fails to load fails the restart, and
+the rollback restores the previous config.
 """
 
 from __future__ import annotations
@@ -25,19 +25,6 @@ from .convert import (
     default_scheduler_config,
     parse_profiles,
 )
-
-
-def _refuse_guest_plugins(cfg: dict | None) -> dict:
-    """{} for a config that declares no guest plugin; raises for one that
-    does (scheduler/guest.py is ROADMAP Queue A item 1)."""
-    for profile in (cfg or {}).get("profiles") or []:
-        for pc in profile.get("pluginConfig") or []:
-            args = pc.get("args") or {}
-            if args.get("guestURL") or args.get("guestPath"):
-                raise NotImplementedError(
-                    f"guest plugin {pc.get('name')!r}: guest plugins are not ported "
-                    f"(ROADMAP Queue A item 1)")
-    return {}
 
 
 class SchedulerService:
@@ -83,7 +70,9 @@ class SchedulerService:
         old = self._current
         old_guests = self._guest_plugins
         try:
-            self._guest_plugins = _refuse_guest_plugins(cfg)
+            from .guest import collect_guest_plugins
+
+            self._guest_plugins = collect_guest_plugins(cfg)
             profile_sets = self._parse_all(cfg)  # validates even engine-less
             if self.engine is not None:
                 self.engine.set_profiles(profile_sets)

@@ -21,10 +21,11 @@ time (a missing PVC or StorageClass, an unbound Immediate claim) land in
 `xs["force_unsched"]` ([P] bool, the step's prefilter-reject bit 1).
 
 Not ported here: node-table reuse and delta patching (`reuse=`), the
-columnar pod view (`pod_columns=`) and tracing.  A custom plugin compiles
-to nothing when it neither filters nor scores (its lifecycle points and
-Coscheduling run on the host, in the engine); one with filter or score
-rows raises NotImplementedError.
+columnar pod view (`pod_columns=`) and tracing.  A custom plugin's
+filter and score rows (plugins/custom.py `build_custom`, one host call
+per (pod, node)) go into `xs[name]` as a `CustomXS`, its messages into
+`host["custom_msgs"][name]`; its lifecycle points, QueueSort and
+Coscheduling run on the host, in the engine.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from .resources import ResourceSchema, pod_resource_request
 from ..plugins import registry as reg
 from .volumes import build_volume_table, pod_pvc_keys
 from ..plugins import (
-    affinity, imagelocality, interpod, noderesources, nodevolumelimits, ports,
+    affinity, custom, imagelocality, interpod, noderesources, nodevolumelimits, ports,
     taints, topologyspread, volumebinding, volumerestrictions, volumezone,
 )
 from ..plugins.base import CoreCarry, to_tensor
@@ -102,6 +103,9 @@ NODE_AXES: dict[str, dict[str, Any]] = {
         "is_pad": None,
     },
 }
+# the xs of a custom plugin (plugins/custom.py CustomXS), under the
+# plugin's own name
+CUSTOM_XS_AXES = {"codes": -1, "scores": -1}
 
 
 @dataclass
@@ -159,13 +163,6 @@ def compile_workload(
     device = resolve_device(device)
     config = config or reg.PluginSetConfig()
     enabled = set(config.active_plugins())
-    custom = sorted(n for n in enabled if config.is_custom(n))
-    rows = [n for n in custom
-            if config.custom[n].has_filter or config.custom[n].has_score]
-    if rows:
-        raise NotImplementedError(
-            f"custom plugins {rows} filter or score: their [P, N] rows are not "
-            "ported yet (ROADMAP.md Queue A)")
     bound_pods = bound_pods or []
     volumes = volumes or {}
     schema = ResourceSchema.discover(pods + [bp for bp, _ in bound_pods], nodes)
@@ -235,6 +232,15 @@ def compile_workload(
     if any(name in enabled for name in VOLUME_PLUGINS):
         _compile_volumes(table, pods, bound_pods, volumes, enabled, statics, xs,
                          init_carry, host, device)
+    for name, plugin in config.custom.items():
+        # a plugin with neither point has no rows (its lifecycle points
+        # run on the host), where the JAX package builds two of zeros
+        if name not in enabled or not (plugin.has_filter or plugin.has_score):
+            continue
+        x, msg_table = custom.build_custom(plugin, table, pods, nodes, name=name,
+                                           host_out=host, device=device)
+        xs[name] = x
+        host.setdefault("custom_msgs", {})[name] = msg_table
     if "InterPodAffinity" in enabled:
         # the term table spans queue + bound pods so the bound pods' terms
         # (which matter for the symmetric existing-pod checks) share the
@@ -434,10 +440,11 @@ _SCORE_I8_SAFE = frozenset({
 
 
 def _score_dtype(cw: CompiledWorkload, name: str) -> str:
-    """compile.py:456: the compact transfer group of one scorer's raw."""
+    """compile.py:500: the compact transfer group of one scorer's raw."""
     if name in cw.host.get("static_score_rows", {}):
-        # raw is a precompiled host-resident [P, N] row: it never travels
-        # back from the device — the replay reads the host copy
+        # raw is a precompiled host-resident [P, N] row (custom scores
+        # among them): it never travels back from the device — the replay
+        # reads the host copy
         return "host"
     if name in _SCORE_I8_SAFE:
         return "i8"
@@ -446,10 +453,16 @@ def _score_dtype(cw: CompiledWorkload, name: str) -> str:
         if max((len(t) for t in cw.node_table.taints), default=0) <= 127:
             return "i8"
         return "i16"
+    rows = None
     if name == "NodeAffinity":
         # only reached when every pod skips NodeAffinity scoring (no host
         # stash): the bound of the unique preference rows
-        a = _np(cw.statics[name].pref_rows)
+        rows = cw.statics[name].pref_rows
+    elif cw.config.is_custom(name) and hasattr(cw.xs.get(name), "scores"):
+        # a custom plugin without a host stash (has_score False): bound 0
+        rows = cw.xs[name].scores
+    if rows is not None:
+        a = _np(rows)
         # NOT np.abs: |int_min| overflows to a negative bound
         bound = max(int(a.max(initial=0)), -int(a.min(initial=0)))
         if bound <= 0x7F:
@@ -473,7 +486,11 @@ def _max_filter_code(cw: CompiledWorkload) -> int:
             b = max((len(t) for t in cw.node_table.taints), default=0)
         elif name == "PodTopologySpread":
             b = 2 * topologyspread.MAX_CONSTRAINTS
-        else:
+        elif name in _FILTER_CODE_BOUNDS:
             b = _FILTER_CODE_BOUNDS[name]
+        elif name in cw.host.get("custom_msgs", {}):
+            b = len(cw.host["custom_msgs"][name])
+        else:
+            b = 1 << 30  # unknown plugin: force wide packing
         bound = max(bound, b)
     return bound

@@ -8,7 +8,8 @@ Port of kube_scheduler_simulator_tpu/store/decode.py: `_native_ctx`
 `_decode_chunk_native` (:362), `decode_chunk_into` (:383),
 `_decode_path_label` (:407), `_decode_chunk_into` (:419),
 `decode_release_batches` (:460) and `decode_all_parallel` (:535), and the
-`_DECODERS` entries (:47) of every default plugin.
+`_DECODERS` entries (:47) of every default plugin, and a custom plugin's
+interned messages (:87).
 
 Decoder ladder: the chunk-granular native call (one GIL-released C call
 per compact chunk, a C-side worker pool) -> the per-pod fused native
@@ -93,7 +94,10 @@ def prefilter_reject_message(cw, i: int, dynamic_code: int) -> tuple[str, str] |
 
 
 def decode_filter_message(name: str, code: int, node_idx: int, host_aux) -> str:
-    return _DECODERS[name](code, node_idx, host_aux)
+    dec = _DECODERS.get(name)
+    if dec is None:  # custom plugin: interned message table
+        return host_aux["custom_msgs"][name][code - 1]
+    return dec(code, node_idx, host_aux)
 
 
 def decode_pod_result(rr: ReplayResult, i: int, feasible_override=None,

@@ -114,6 +114,9 @@ def build_context(cw):
         elif name == "VolumeZone":
             lut = [volumezone.ERR_VOLUME_ZONE_CONFLICT.encode()]
             per_node.append(0)
+        elif name in cw.host.get("custom_msgs", {}):
+            lut = [m.encode() for m in cw.host["custom_msgs"][name]] or [b""]
+            per_node.append(0)
         else:
             return None
         luts.append(lut)

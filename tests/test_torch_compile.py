@@ -103,16 +103,27 @@ def test_compile_bound_pods_equal():
 
 
 def test_compile_refuses_plugins_outside_the_slice():
-    """Every default plugin compiles now; what lies outside the ported
-    slices is a custom (out-of-tree) plugin, which raises."""
+    """Every default plugin compiles, and since B13 every custom
+    (out-of-tree) plugin too, as its [P, N] rows; what lies outside is a
+    plugin neither in the registry nor in the config's custom map, which
+    the config refuses."""
     from types import SimpleNamespace
 
     nodes, pods, _ = baseline_config(1, scale=0.1, seed=0)
-    guest = SimpleNamespace(has_filter=True, has_score=False, default_weight=1)
+
+    def veto(pod, node):
+        return None if node["metadata"]["name"].endswith("0") else "guest says no"
+
+    guest = SimpleNamespace(has_filter=True, has_score=False, default_weight=1, filter=veto)
     cfg = PluginSetConfig(enabled=["NodeResourcesFit", "GuestFilter"],
                           custom={"GuestFilter": guest})
-    with pytest.raises(NotImplementedError, match="GuestFilter"):
-        compile_workload(nodes, pods, cfg, device="cpu")
+    cw = compile_workload(nodes, pods, cfg, device="cpu")
+    assert cw.host["custom_msgs"]["GuestFilter"] == ["guest says no"]
+    codes = cw.xs["GuestFilter"].codes
+    want = [[0 if n["metadata"]["name"].endswith("0") else 1 for n in nodes]] * len(pods)
+    assert codes.tolist() == want
+    with pytest.raises(ValueError, match="unknown plugin GuestFilter"):
+        PluginSetConfig(enabled=["NodeResourcesFit", "GuestFilter"])
     compile_workload(nodes, pods, PluginSetConfig(enabled=["NodeResourcesFit", "NodePorts"]),
                      device="cpu")
 

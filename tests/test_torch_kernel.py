@@ -17,7 +17,9 @@ and spec_commit_bind's grid of node slices against their plain versions;
 and the eval kernel's cluster (spec_eval and phased_eval) at the plan's
 cluster size and at every forced one; and the two table kernels over K =
 1, 2, 4, 8, 16 sessions (the dense eval's clusters, the sparse round's
-pod groups) against the solo launches and the plain versions.  A CUDA kernel has
+pod groups) against the solo launches and the plain versions; and B13,
+custom plugins' filter and score rows, in step_chunk, step_chunk_sharded
+and phased_eval against their plain versions.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -1384,3 +1386,140 @@ def test_round_table_at_every_session_count_matches_solo_and_plain(card, n, b):
                 assert kfuse.spec_round_fused.pods in kspec.ROUND_PODS
                 for i, r in enumerate(got):
                     _equal(tuple(r), solo[i % 2], (n, b, kcand, k, s, i))
+
+
+# ------------------------------------------ B13: custom plugins' rows
+
+def _custom_plugins():
+    """A filter-and-scorer with three messages and negative raws, a
+    scorer past int32 (2^33), and a filter that rejects every node for
+    the pods of chunk 1 (pods 32-63) and every seventh pod."""
+    from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+
+    def idx(obj):
+        return int(obj["metadata"]["name"].rsplit("-", 1)[1])
+
+    class Zoned(CustomPlugin):
+        name = "Zoned"
+        default_weight = 2
+
+        def filter(self, pod, node):
+            i, j = idx(pod), idx(node)
+            return f"zone {(i * j) % 3} is closed" if (i + j) % 7 == 0 else None
+
+        def score(self, pod, node):
+            return (idx(pod) * 31 + idx(node) * 17) % 101 - 50
+
+    class Huge(CustomPlugin):
+        name = "Huge"
+
+        def score(self, pod, node):
+            return (1 << 33) + idx(node) * (idx(pod) + 1)
+
+    class RejectAll(CustomPlugin):
+        name = "RejectAll"
+
+        def filter(self, pod, node):
+            i = idx(pod)
+            return "no room here" if 32 <= i < 64 or i % 7 == 0 else None
+
+    return {p.name: p for p in (Zoned(), Huge(), RejectAll())}
+
+
+def _custom_fleet(default_profile: bool):
+    """(nodes, pods, cfg, compile kwargs): the six plugins on 40 nodes and
+    96 pods, or the default profile's 96-node fleet (13 filters and 9
+    scorers with Zoned), with the custom plugins of _custom_plugins."""
+    plugins = _custom_plugins()
+    if default_profile:
+        nodes, pods, _, kw = _default_fleet_96()
+        plugins = {"Zoned": plugins["Zoned"]}
+        enabled = PluginSetConfig().enabled
+    else:
+        nodes = make_nodes(40, seed=13, taint_fraction=0.25)
+        pods = make_pods(96, seed=14, with_affinity=True, with_tolerations=True,
+                         with_spread=True, with_interpod=True)
+        kw, enabled = {}, list(SIX)
+    return nodes, pods, PluginSetConfig(enabled=enabled + list(plugins), custom=plugins), kw
+
+
+CUSTOM_FLEETS = {"six": lambda: _custom_fleet(False), "default_profile": lambda: _custom_fleet(True)}
+
+
+@pytest.mark.parametrize("wl", list(CUSTOM_FLEETS))
+def test_custom_rows_in_step_chunk_match_plain(card, wl):
+    """B13 in step_chunk: every output and the carry == Step.plain_scan in
+    every mode, pack mode and tier; a chunk whose every pod a custom filter
+    rejects at every node selects nothing; the 2^33 raws stay exact."""
+    nodes, pods, cfg, kw = CUSTOM_FLEETS[wl]()
+    cw = compile_workload(nodes, pods, cfg, device=card, **kw)
+    if wl == "default_profile":
+        assert len(cw.config.filters()) == 13 and len(cw.config.scorers()) == 9
+    chunk = 32
+    for out_mode, pack_mode, wide in MODES:
+        step = build_step(cw, out_mode=out_mode, pack_mode=pack_mode,
+                          score_dtypes=cw.host["score_dtypes"], wide_raw=wide)
+        ck, cp = _clone_carry(cw.init_carry), _clone_carry(cw.init_carry)
+        for lo in range(0, cw.n_pods, chunk):
+            xs = _batch(cw, lo, chunk, card)
+            ck, ok = kstep.step_chunk(step, ck, xs)
+            cp, op = step.plain_scan(cp, xs)
+            _equal(ok, op, (wl, out_mode, pack_mode, wide, lo))
+            _equal(ck, cp, (wl, out_mode, pack_mode, wide, lo, "carry"))
+            if wl == "six" and lo == 32:
+                assert (ok.selected == -1).all() and (ok.feasible_count == 0).all()
+            if wl == "six" and wide == "i64" and out_mode == "compact":
+                huge = step.score_names.index("Huge")
+                assert cw.host["score_dtypes"][huge] == "host"
+    if wl == "six":
+        assert (cw.xs["Huge"].scores >= (1 << 33)).all()
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_custom_rows_in_step_chunk_sharded_match_plain(card, shards):
+    """B13 in step_chunk_sharded: each shard reads its node slice of the
+    rows (global node index), == the twin and the unsharded kernel."""
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    nodes, pods, cfg, kw = CUSTOM_FLEETS["six"]()
+    cw = compile_workload(nodes, pods, cfg, device=card, **kw)
+    scw = _sharded(cw, make_mesh(shards, device=card))
+    for out_mode, pack_mode, wide in MESH_MODES:
+        kw = dict(out_mode=out_mode, pack_mode=pack_mode,
+                  score_dtypes=cw.host["score_dtypes"], wide_raw=wide)
+        step, sstep = build_step(cw, **kw), build_step(scw, **kw)
+        cs, cp, cu = (_clone_carry(cw.init_carry) for _ in range(3))
+        for lo in range(0, cw.n_pods, 32):
+            xs = _batch(cw, lo, 32, card)
+            cs, os_ = kmesh.step_chunk_sharded(sstep, cs, xs)
+            cp, op = kmesh.step_chunk_sharded_plain(sstep, cp, xs)
+            cu, ou = kstep.step_chunk(step, cu, xs)
+            _equal(os_, op, (shards, out_mode, wide, lo, "plain"))
+            _equal(os_, ou, (shards, out_mode, wide, lo, "unsharded"))
+            _equal(cs, cp, (shards, lo, "carry"))
+
+
+@pytest.mark.parametrize("wl", list(CUSTOM_FLEETS))
+def test_custom_rows_in_phased_eval_match_plain(card, wl):
+    """B13 in phased_eval (spec_eval_cluster, full outputs) at the plan's
+    S and every forced S == Phased.plain_eval, pod after pod, the pods
+    the custom filter rejects everywhere among them."""
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    nodes, pods, cfg, kw = CUSTOM_FLEETS[wl]()
+    cw = compile_workload(nodes, pods, cfg, device=card, **kw)
+    ph = pipeline.build_phased(cw)
+    carry = _clone_carry(cw.init_carry)
+    for i in (0, 1, 2, 7, 32, 33):
+        xs1 = _batch(cw, i, 1, card)
+        want = ph.plain_eval(carry, xs1)
+        _equal(list(ph.eval(carry, xs1)), list(want), (wl, i, "plan"))
+        for s in kspec.EVAL_SHARDS:
+            _equal(list(kphased.phased_eval(ph.step, carry, xs1, _shards=s)), list(want),
+                   (wl, i, s))
+        if wl == "six" and (i % 7 == 0 or 32 <= i < 64):
+            assert int(want.selected) == -1 and int(want.feasible_count) == 0
+        carry = ph.bind(carry, xs1, int(want.selected))
