@@ -71,18 +71,21 @@ phase:
        pods each), scheduled by their loops, 256 pods of each read back
        and held to a direct replay();
   25   B12, the node-sharded scan: config 5 through replay(cw,
-       mesh=make_mesh(S)) for S = 2, 4 and 8 (each "nodes" shard one CTA
-       of a thread-block cluster) equal to phase 4, step_chunk_sharded
-       held to step_chunk and to its plain twin on chunk 0 and timed
-       against step_chunk, and the default-profile fleet's first 1,024
-       pods on a 4-shard mesh equal to phase 11;
+       mesh=make_mesh(S)) for S = 2, 4 and 8 (each "nodes" shard a group
+       of the step kernel's CTAs) equal to phase 4, step_chunk_sharded
+       at the plan's and each forced group size held to step_chunk (and
+       to its plain twin) on chunk 0 and timed against step_chunk in
+       turns, and the default-profile fleet's first 1,024 pods on a
+       4-shard mesh equal to phase 11, each chunk timed beside
+       step_chunk's;
   26   B12 on the stream and the engine: spec_eval_sharded at b = 512
        (dp 1 x nodes 8, dp 2 x nodes 4) held to spec_eval and its plain
        twin; config 5 through replay_speculative_stream on a dp 2 x
        nodes 4 mesh equal to phase 8, through SchedulerEngine on an
-       8-shard mesh equal to phase 4 as phase 19 holds itself, and a
-       4,996-node fleet through the engine's unsharded fallback, counted
-       once by mesh_fallback_indivisible_nodes_total;
+       8-shard mesh equal to phase 4 as phase 19 holds itself, its wall
+       beside the same engine's without a mesh, and a 4,996-node fleet
+       through the engine's unsharded fallback, counted once by
+       mesh_fallback_indivisible_nodes_total;
   27   the phase clock: chunk 0 of config 5 and of the default-profile
        fleet through step_chunk's -DKSS_PHASE_CLOCK build, each phase's
        share of the launch;
@@ -98,7 +101,7 @@ phase:
        (c) a custom NormalizeScore on the engine's host path, phased_eval
        with the rows held to its plain version and the run to
        device="cpu"; (d) (a)'s workload through replay(mesh=make_mesh(8))
-       against (a).
+       against (a), its chunk 0 timed beside step_chunk's.
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -549,10 +552,31 @@ def shard_times(fn, call, want, reps: int, param: str = "_shards", sizes=EVAL_SH
     return out, err
 
 
+def shape_times(fn, call, want, reps: int, plan: str) -> tuple[dict, int]:
+    """Where the wrapper fn takes a forced CTA shape (`_light`): the plan's
+    G (attribute `plan`) and shape after one call(), and call() in each
+    forced shape (at that shape's plan G), held to `want` and timed (CUDA
+    graph) -> ({"G", "light", "shape": {"False": ms, "True": ms}} or {}
+    for a wrapper without shapes, max_abs_err)."""
+    import inspect
+
+    if "_light" not in inspect.signature(fn).parameters:
+        return {}, 0
+    err = tree_err(call(), want)
+    out = {"G": getattr(fn, plan), "light": fn.light, "shape": {}}
+    for light in (False, True):
+        err = max(err, tree_err(call(_light=light), want))
+        out["shape"][str(light)] = timed_graph(lambda lt=light: call(_light=lt), reps)
+    check(err == 0, f"{fn.__name__} in a forced CTA shape differs from its reference "
+                    f"(max |d| {err})")
+    return out, err
+
+
 def eval_ladder(cw, batches, reps: int = 5) -> tuple[dict, int]:
     """spec_eval on pods [0, b) of cw against its initial carry, for each
     b of `batches`: held to eval_plain and timed at the plan's S and each
-    forced S (shard_times), with its bound; spec_oracle on the outputs
+    forced S (shard_times) and in each CTA shape (shape_times), with its
+    bound; spec_oracle on the outputs
     where b is in ORACLE_BATCHES, held to _oracle_core and timed ->
     ({b: times}, max_abs_err)."""
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
@@ -568,7 +592,11 @@ def eval_ladder(cw, batches, reps: int = 5) -> tuple[dict, int]:
         want = kspec.eval_plain(step, carry, xs)
         t, e = shard_times(kspec.spec_eval, lambda **kw: kspec.spec_eval(step, carry, xs, **kw),
                            want, reps)
-        err = max(err, e)
+        shapes, e2 = shape_times(kspec.spec_eval,
+                                 lambda **kw: kspec.spec_eval(step, carry, xs, **kw), want, reps,
+                                 "shards")
+        t.update(shapes)
+        err = max(err, e, e2)
         t["plain_ms"] = timed_once(lambda: kspec.eval_plain(step, carry, xs)) if b <= 8 else None
         out_bytes = sum(v.numel() * v.element_size() for v in want)
         t["bound"] = bound(eval_bytes(cw, carry, xs, out_bytes), b * cw.n_nodes * 22)
@@ -637,7 +665,8 @@ def fused_eval_ladder(cw, reps: int = 3) -> tuple[dict, int]:
     """B11's dense eval on config 5 for each (K, b) of FUSED_EVAL_CASES:
     K members, member s with pods [s b, (s + 1) b) against the initial
     carry, held to the K solo spec_eval launches and timed at the plan's S
-    and each forced S (shard_times), beside the K solo launches (the
+    and each forced S (shard_times) and in each CTA shape (shape_times),
+    beside the K solo launches (the
     library column: the same function as K calls of today's spec_eval)
     -> ({"KxB": times}, max_abs_err)."""
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
@@ -659,7 +688,9 @@ def fused_eval_ladder(cw, reps: int = 3) -> tuple[dict, int]:
                 [kfuse.Member(step, carry, xs) for xs in batches], **kw)]
 
         t, e = shard_times(kfuse.spec_eval_fused, call, want, reps)
-        err = max(err, e)
+        shapes, e2 = shape_times(kfuse.spec_eval_fused, call, want, reps, "shards")
+        t.update(shapes)
+        err = max(err, e, e2)
         t["solo_ms"] = timed_graph(lambda: [kspec.spec_eval(step, carry, xs) for xs in batches],
                                    reps)
         res[f"{k}x{b}"] = t
@@ -750,6 +781,86 @@ def round_ladder(scw, reps: int = 3) -> tuple[dict, int]:
     return res, err
 
 
+MESH_LADDER_SHARDS = (2, 4, 8)  # the mesh's "nodes" extents the ladder times
+
+
+def mesh_ladder(cw, reps: int = 3) -> tuple[dict, int]:
+    """B12 on config 5 for the ladder: spec_eval_sharded on pods [0, b)
+    for each b of LADDER and S of MESH_LADDER_SHARDS, held to spec_eval
+    and timed at the plan's G and each forced G (shard_times, `_groups`
+    where the wrapper takes it) and in each CTA shape (`_light`, where it
+    takes it); then step_chunk_sharded on chunk 0 at
+    each S, at the plan's G and each forced G, held to step_chunk and
+    timed as phase 5 times B1 (back-to-back launches, each on a fresh
+    copy of the initial carry, the median of `reps`), in turns with
+    step_chunk -> ({"eval": {"S=s b=b": times}, "step": {...}},
+    max_abs_err)."""
+    import inspect
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.parallel import make_mesh, shard_workload
+
+    pm, sd, _ = _compact_plan(cw, None)
+    kw = dict(out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    step = build_step(cw, **kw)
+    steps = {s: build_step(shard_workload(cw, make_mesh(s)), **kw) for s in MESH_LADDER_SHARDS}
+    carry = _clone_carry(cw.init_carry)
+    res, err = {"eval": {}, "step": {}}, 0
+    for b in LADDER:
+        xs = batch_xs(cw, 0, b)
+        want = _solo(kspec.spec_eval, step, carry, xs)
+        for s in MESH_LADDER_SHARDS:
+            def call(s=s, **k):
+                return kmesh.spec_eval_sharded(steps[s], carry, xs, **k)
+
+            t, e = shard_times(kmesh.spec_eval_sharded, call, want, reps, "_groups",
+                               [g for g in EVAL_SHARDS if s * g <= 16], "groups")
+            shapes, e2 = shape_times(kmesh.spec_eval_sharded, call, want, reps, "groups")
+            t.update(shapes)
+            err = max(err, e, e2)
+            res["eval"][f"S={s} b={b}"] = t
+
+    def chunk_ms(run) -> float:
+        carries = [_clone_carry(cw.init_carry) for _ in range(reps + 1)]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        run(carries[0])
+        marks[0].record()
+        for k in range(reps):
+            run(carries[k + 1])
+            marks[k + 1].record()
+        torch.cuda.synchronize()
+        return sorted(marks[k].elapsed_time(marks[k + 1]) for k in range(reps))[reps // 2]
+
+    xs0 = batch_xs(cw, 0, CHUNK)
+    cu, ou = kstep.step_chunk(step, _clone_carry(cw.init_carry), xs0)
+    want = _leaves(ou) + _leaves(cu)
+    forced = "_groups" in inspect.signature(kmesh.step_chunk_sharded).parameters
+    runs = {"step_chunk": lambda c: kstep.step_chunk(step, c, xs0)}
+    for s in MESH_LADDER_SHARDS:
+        runs[f"S={s}"] = lambda c, s=s: kmesh.step_chunk_sharded(steps[s], c, xs0)
+        for g in ([g for g in EVAL_SHARDS if s * g <= 16] if forced else []):
+            runs[f"S={s} G={g}"] = lambda c, s=s, g=g: kmesh.step_chunk_sharded(
+                steps[s], c, xs0, _groups=g)
+    for name, run in runs.items():
+        cs, os_ = run(_clone_carry(cw.init_carry))
+        err = max(err, tree_err(_leaves(os_) + _leaves(cs), want))
+        if name.startswith("S=") and " " not in name:
+            res["step"][f"{name} plan G"] = getattr(kmesh.step_chunk_sharded, "groups", None)
+    check(err == 0, f"the mesh ladder differs from the unsharded kernels (max |d| {err})")
+    order = list(runs) + ["step_chunk"]  # in turns: step_chunk first and last
+    times: dict = {}
+    for name in order:
+        times.setdefault(name, []).append(chunk_ms(runs[name]))
+    res["step"].update({k: v for k, v in times.items()})
+    return res, err
+
+
 def ptxas_summary(log: str) -> str:
     """nvcc's -Xptxas -v lines of each kernel: its name, registers and
     spills."""
@@ -762,7 +873,9 @@ def ladder_main(root: Path) -> int:
     evaluation on config 5 at the ladder's batches (and b = 1), the host
     path's phased_eval, spec_oracle at ORACLE_BATCHES, B11's dense eval at
     FUSED_EVAL_CASES, the sparse round at ROUND_CASES with its phase
-    clock (the slot-pinned fleet), and DIRECT_RUNS
+    clock (the slot-pinned fleet), B12's eval and step on config 5
+    (mesh_ladder: the eval at each rung and step_chunk_sharded on chunk
+    0 at S = 2, 4, 8, beside step_chunk), and DIRECT_RUNS
     direct replay_speculative runs on 1,024 x 5,000 with spec_eval's
     launches by batch size, for the port found under DIR (default: this
     checkout), so that two trees are compared in one call.  Two JSON lines
@@ -801,9 +914,11 @@ def ladder_main(root: Path) -> int:
     scw = compile_workload(snodes, spods, PluginSetConfig(enabled=list(SLOT_PLUGINS)), device=dev)
     rounds, rerr = round_ladder(scw)
     del scw
+    mesh, merr = mesh_ladder(cw)
     print(json.dumps({"card": card, "root": str(root),
-                      "max_abs_err": max(err, perr, ferr, rerr), "spec_eval": spec,
-                      "phased_eval": phased, "spec_eval_fused": fused, "sparse_round": rounds}),
+                      "max_abs_err": max(err, perr, ferr, rerr, merr), "spec_eval": spec,
+                      "phased_eval": phased, "spec_eval_fused": fused, "sparse_round": rounds,
+                      "mesh": mesh}),
           flush=True)
 
     dnodes, dpods, dcfg = baseline_config(CONFIG, scale=DIRECT_SCALE, node_scale=1.0, seed=SEED)
@@ -1147,6 +1262,21 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     ms["spec_oracle"], bounds["spec_oracle"] = at8["oracle_ms"], at8["oracle_bound"]
     plain["spec_oracle"] = timed_once(lambda: kspec._oracle_core(
         ev.packed_filter[:8], ev.prefilter_reject[:8], ev.selected[:8], 8))
+    # spec_commit_bind at the main path's batch: the direct replay's
+    # launches are at b = 8 (phase 8), accept prefix k <= 8; the JSON line
+    # takes k = 8
+    bind512 = ms["spec_commit_bind"]
+    xs8 = batch_xs(cw, 0, 8)
+    sel8 = kspec.spec_eval(cstep, ccarry, xs8).selected.clone()
+    bind8 = {}
+    for k in (1, 8):
+        held("spec_commit_bind", kspec.spec_commit_bind(cstep, _clone_carry(ccarry), xs8, sel8, k),
+             kspec.commit_plain(cstep, _clone_carry(ccarry), xs8, sel8, k))
+        bind8[k] = timed_graph(lambda k=k: kspec.spec_commit_bind(cstep, ccarry, xs8, sel8, k), 5)
+    ccarry = _clone_carry(cw.init_carry)
+    ms["spec_commit_bind"] = bind8[8]
+    plain["spec_commit_bind"] = timed_once(lambda: kspec.commit_plain(cstep, ccarry, xs8, sel8, 8))
+    bounds["spec_commit_bind"] = bound(2 * nb(cw.init_carry) + nb(xs8, sel8))
     flag = " FLAG: the plan is over 10 % slower than the best"
     rungs = "; ".join(
         f"b={b}: plan S={t['S']} {t['ms']:.5f} ms, forced "
@@ -1160,7 +1290,10 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
           f"to back {call_ms}; plain {plain}; library (CUDA graph) {library}; bounds {bounds}",
           flush=True)
     print(f"[9 timing] {card}: spec_eval on config {CONFIG} (max_abs_err {lerr} at every S) | "
-          f"{rungs} | spec_oracle {oracle}", flush=True)
+          f"{rungs} | spec_oracle {oracle} | spec_commit_bind at b = 8 (== commit_plain): "
+          f"k = 1 {bind8[1]:.5f} ms, k = 8 {bind8[8]:.5f} ms (at b = {SPEC_BATCH}, k = {ACCEPT}: "
+          f"{bind512:.5f}); plain {plain['spec_commit_bind']:.3f} ms, bound "
+          f"{bounds['spec_commit_bind'][0]:.6f} ms by {bounds['spec_commit_bind'][1]}", flush=True)
     print(f"[9 timing] {card}: spec_round on the slot-pinned batch of {SPEC_BATCH} (max_abs_err "
           f"{rerr} at every group size): plan P={rounds['S']} {rounds['ms']:.5f} ms, forced "
           + ", ".join(f"P={k} {v:.5f}" for k, v in rounds["forced"].items())
@@ -2792,22 +2925,30 @@ MESH_SHARDS = (2, 4, 8)        # phase 25: the "nodes" extents; 5,000 nodes divi
 MESH_DEFAULT_PODS = 1024       # phase 25: the default-profile fleet's pods on the mesh
 MESH_ODD_NODES = 4996          # phase 26: a fleet that 8 shards do not divide
 MESH_ODD_PODS = 1024
+ENGINE_PAIRS = 3               # phase 26: the engine's (none, mesh, mesh, none) turns
 
 
 def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: dict,
                 dp_ctx: dict, step_entry: dict) -> list[dict]:
     """Phases 25-26: the node-sharded mesh on one card, each "nodes" shard
-    one CTA of a thread-block cluster (B12, csrc/mesh.cu).  25: config 5
-    through replay(cw, mesh=make_mesh(S)) for S = 2, 4, 8 against phase
-    4, step_chunk_sharded against its plain twin and step_chunk on chunk
-    0, its times against step_chunk's, the default-profile fleet's first
-    1,024 pods at S = 4 against phase 11; 26: spec_eval_sharded at
-    b = 512 and S = 2, 4, 8 (make_mesh(2), make_mesh(8, dp=2),
-    make_mesh(8)) against spec_eval and its plain twin, the config-5
-    stream on a dp 2 x nodes 4 mesh against
-    phase 8, the engine on an 8-shard mesh against phase 4 as phase 19
-    holds itself, and a 4,996-node fleet through the engine's unsharded
-    fallback.  -> the entries of B12 for the JSON line."""
+    a group of CTAs of the unsharded kernels' clusters (B12: step_chunk's
+    kernel, csrc/step_kernel.cuh, and spec_eval_cluster, csrc/
+    spec_eval.cu).  25: config 5 through replay(cw, mesh=make_mesh(S))
+    for S = 2, 4, 8 against phase 4, step_chunk_sharded at the plan's G
+    and at each forced G against step_chunk on chunk 0 (at S = 8 and the
+    plan's G against its plain twin too), its times at each against
+    step_chunk's, in turns, the default-profile fleet's first 1,024 pods
+    at S = 4 against phase 11, each of its chunks timed beside
+    step_chunk's default launch; 26: spec_eval_sharded at b = 512 and
+    S = 2, 4, 8 (make_mesh(2), make_mesh(8, dp=2), make_mesh(8)) against
+    spec_eval and its plain twin, the config-5 stream on a dp 2 x nodes
+    4 mesh against phase 8, then spec_eval_sharded at that stream's own
+    batch and mesh against spec_eval and its twin (the JSON entry's
+    times), the engine on an 8-shard mesh against phase 4 as phase 19
+    holds itself, beside the same engine run without a mesh (phase 19's
+    default wave, in turns, ENGINE_PAIRS times), and a 4,996-node fleet
+    through the engine's unsharded fallback.  -> the entries of B12 for
+    the JSON line."""
     import torch
 
     from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
@@ -2887,7 +3028,20 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     cs8, os8 = sharded_out[8]
     step_err = max(tree_err(list(os8), list(twin[0][1])), tree_err(cs8, twin[0][0]))
     check(step_err == 0, f"step_chunk_sharded S=8 differs from its plain twin (max |d| {step_err})")
-    del twin, sharded_out, cu, ou
+    del twin, sharded_out
+    # each forced group size (R = S x G <= 16): == step_chunk on chunk 0
+    forced_g = {s: [g for g in EVAL_SHARDS if s * g <= 16] for s in MESH_SHARDS}
+    plan_g = {}
+    for s in MESH_SHARDS:
+        kmesh.step_chunk_sharded(step_s[s], _clone_carry(cw.init_carry), xs0)
+        plan_g[s] = kmesh.step_chunk_sharded.groups
+        for g in forced_g[s]:
+            cs, os_ = kmesh.step_chunk_sharded(step_s[s], _clone_carry(cw.init_carry), xs0,
+                                               _groups=g)
+            err = max(tree_err(list(os_), list(ou)), tree_err(cs, cu))
+            check(err == 0, f"step_chunk_sharded S={s} G={g} differs from step_chunk on chunk 0 "
+                            f"(max |d| {err})")
+    del cu, ou, cs, os_
 
     # times as phase 5 takes B1's: back-to-back launches, each on a fresh
     # copy of the initial carry, after one untimed launch; in turns
@@ -2908,6 +3062,9 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     sharded_ms = {s: chunk_ms(lambda c, s=s: kmesh.step_chunk_sharded(step_s[s], c, xs0))
                   for s in MESH_SHARDS}
     b1_ms.append(chunk_ms(lambda c: kstep.step_chunk(step_c, c, xs0)))
+    forced_ms = {s: {g: chunk_ms(lambda c, s=s, g=g: kmesh.step_chunk_sharded(
+        step_s[s], c, xs0, _groups=g)) for g in forced_g[s]} for s in MESH_SHARDS}
+    b1_ms.append(chunk_ms(lambda c: kstep.step_chunk(step_c, c, xs0)))
     unsharded_ms = sum(b1_ms) / len(b1_ms)
 
     # the default-profile fleet's first 1,024 pods at S = 4, against phase 11
@@ -2923,6 +3080,30 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
         torch.cuda.synchronize()
         fwall = time.perf_counter() - t0
     flaunched = counts()
+    # each of its chunks on the mesh beside step_chunk's default launch,
+    # in turns (unsharded, mesh, mesh, unsharded), from the initial carry
+    fpm, fsd, _ = _compact_plan(fcw, frr.tiers[-1])
+    fkw = dict(out_mode="compact", pack_mode=fpm, score_dtypes=fsd, wide_raw=frr.tiers[-1])
+    fstep, fstep4 = build_step(fcw, **fkw), build_step(shard_workload(fcw, make_mesh(4)), **fkw)
+
+    def fchunk_ms(run, xs) -> float:
+        carries = [_clone_carry(fcw.init_carry) for _ in range(2)]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        run(carries[0], xs)
+        marks[0].record()
+        run(carries[1], xs)
+        marks[1].record()
+        torch.cuda.synchronize()
+        return marks[0].elapsed_time(marks[1])
+
+    fms = {}
+    for lo in range(0, fcw.n_pods, CHUNK):
+        fxs = batch_xs(fcw, lo, CHUNK)
+        fms[lo] = [fchunk_ms(lambda c, x: kstep.step_chunk(fstep, c, x), fxs),
+                   fchunk_ms(lambda c, x: kmesh.step_chunk_sharded(fstep4, c, x), fxs),
+                   fchunk_ms(lambda c, x: kmesh.step_chunk_sharded(fstep4, c, x), fxs),
+                   fchunk_ms(lambda c, x: kstep.step_chunk(fstep, c, x), fxs)]
+    del fstep, fstep4
     check(flaunched.get("step_chunk_sharded", 0) > 0 and "step_chunk" not in flaunched,
           f"default profile on the mesh: launches {flaunched}")
     fp = fcw.n_pods
@@ -2936,19 +3117,23 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
               f"default profile on mesh S=4: pod {i} annotations != phase 11's")
     del frr, fcw
     print(f"[25 mesh scan] {card}: config {CONFIG} {p}x{n} through replay(cw, "
-          f"mesh=make_mesh(S)), S = 2, 4, 8 ({n // 8}-{n // 2} nodes per CTA): wall "
+          f"mesh=make_mesh(S)), S = 2, 4, 8 ({n // 8}-{n // 2} nodes a shard): wall "
           f"{ {s: round(w, 4) for s, w in walls.items()} } s; selected, feasible_count, "
           f"prefilter_reject, every compact chunk's bytes (raws at feasible nodes) and decode "
           f"bytes of pods {sample} equal phase 4's (S = 8 at the device-resident rung, its "
           f"plugin_attribution equal phase 4's host tally); launches {main_launches} at S = 8 | "
           f"chunk 0: step_chunk_sharded == step_chunk (outputs and carry) at every S, == its "
           f"plain twin at S = 8, max_abs_err {step_err}; plain twin {plain_ms:.3f} ms | "
+          f"step_chunk_sharded == step_chunk at every S and forced G {forced_g} | "
           f"ms per chunk (median of 3, in turns): step_chunk {[round(x, 3) for x in b1_ms]}, "
-          f"step_chunk_sharded { {s: round(v, 3) for s, v in sharded_ms.items()} } = "
+          f"step_chunk_sharded at the plan's G {plan_g}: "
+          f"{ {s: round(v, 3) for s, v in sharded_ms.items()} } = "
           f"{ {s: round(v / unsharded_ms, 4) for s, v in sharded_ms.items()} } x step_chunk; "
-          f"bound {step_entry['bound_ms']:.6f} ms by {step_entry['bound_by']} | default profile "
-          f"{fp} pods x {n} nodes on mesh S=4: {fwall:.4f} s, launches {flaunched}, selected, "
-          f"feasible_count, prefilter_reject and decode bytes of pods {fsample} equal phase 11's; "
+          f"forced G {json.dumps(forced_ms)}; bound {step_entry['bound_ms']:.6f} ms by "
+          f"{step_entry['bound_by']} | default profile {fp} pods x {n} nodes on mesh S=4: "
+          f"{fwall:.4f} s, launches {flaunched}, selected, feasible_count, prefilter_reject and "
+          f"decode bytes of pods {fsample} equal phase 11's; ms per chunk from the initial carry "
+          f"(step_chunk, S=4, S=4, step_chunk) {json.dumps(fms)}; "
           f"{time.perf_counter() - t25:.1f} s", flush=True)
 
     # ---- 26. the stream and the engine on a mesh
@@ -2959,7 +3144,7 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     ccarry = _clone_carry(cw.init_carry)
     want = kspec.spec_eval(cstep, ccarry, cxs)
     torch.cuda.synchronize()
-    eval_err, eval_ms, eval_plain_ms = 0, {}, {}
+    eval_err, eval_ms, eval_plain_ms, eval_g = 0, {}, {}, {}
     # S = 8, 4, 2 shards; a mesh's dp extent only rounds the stream's rungs
     for mesh in (make_mesh(8), make_mesh(8, dp=2), make_mesh(2)):
         s = mesh.shape["nodes"]
@@ -2967,11 +3152,13 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
                            score_dtypes=csd)
         got = kmesh.spec_eval_sharded(sstep, ccarry, cxs)
         torch.cuda.synchronize()
+        eval_g[s] = (kmesh.spec_eval_sharded.groups, kmesh.spec_eval_sharded.light)
         err = tree_err(list(got), list(want))
         check(err == 0, f"spec_eval_sharded S={s} differs from spec_eval (max |d| {err})")
         twin = []
+        # the twin over the kernel's own slices (the plan's G)
         eval_plain_ms[s] = timed_once(lambda: twin.append(kmesh.spec_eval_sharded_plain(
-            sstep, ccarry, cxs)))
+            sstep, ccarry, cxs, eval_g[s][0])))
         err = tree_err(list(got), list(twin[0]))
         check(err == 0, f"spec_eval_sharded S={s} differs from its plain twin (max |d| {err})")
         eval_err = max(eval_err, err)
@@ -2980,13 +3167,16 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     b2_ms = timed_graph(lambda: kspec.spec_eval(cstep, ccarry, cxs), 3)
 
     crr = spec_ctx["contended"]
+    smesh = make_mesh(8, dp=2)
     reset()
+    kmesh.spec_eval_sharded.batches.clear()
     t0 = time.perf_counter()
-    mrr, mstats = replay_speculative_stream(cw, make_mesh(8, dp=2), chunk=CHUNK, pods=pods,
+    mrr, mstats = replay_speculative_stream(cw, smesh, chunk=CHUNK, pods=pods,
                                             device_resident=False)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     stream_launched = counts()
+    stream_batches = dict(kmesh.spec_eval_sharded.batches)
     check(stream_launched.get("spec_eval_sharded", 0) > 0,
           f"the mesh stream launched no spec_eval_sharded: {stream_launched}")
     check("spec_eval" not in stream_launched and "step_chunk" not in stream_launched,
@@ -2997,6 +3187,36 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     check(all(b % 2 == 0 for b in mstats["round_batches"]), f"rungs not dp multiples: {mstats}")
     same_replay(mrr, crr, "stream on mesh dp 2 x nodes 4 vs phase 8", sample)
     del mrr
+
+    # the eval at the stream's own batch and mesh (its most launched
+    # batch): the G and shape its plan takes there, held to spec_eval and
+    # to the twin at that G, timed for the JSON line beside the twin and
+    # spec_eval on the same inputs
+    main_b = max(stream_batches, key=stream_batches.get)
+    main_s = smesh.shape["nodes"]
+    sstep = build_step(shard_workload(cw, smesh), out_mode="compact", pack_mode=cpm,
+                       score_dtypes=csd)
+    mxs = batch_xs(cw, 0, main_b)
+    mwant = _solo(kspec.spec_eval, cstep, ccarry, mxs)
+    got = kmesh.spec_eval_sharded(sstep, ccarry, mxs)
+    torch.cuda.synchronize()
+    main_g = (kmesh.spec_eval_sharded.groups, kmesh.spec_eval_sharded.light)
+    main_err = tree_err(list(got), mwant)
+    check(main_err == 0, f"spec_eval_sharded S={main_s} b={main_b} differs from spec_eval "
+                         f"(max |d| {main_err})")
+    twin = []
+    main_plain_ms = timed_once(lambda: twin.append(kmesh.spec_eval_sharded_plain(
+        sstep, ccarry, mxs, main_g[0])))
+    main_err = tree_err(list(got), list(twin[0]))
+    check(main_err == 0, f"spec_eval_sharded S={main_s} b={main_b} differs from its plain twin "
+                         f"(max |d| {main_err})")
+    eval_err = max(eval_err, main_err)
+    main_ms = timed_graph(lambda: kmesh.spec_eval_sharded(sstep, ccarry, mxs), 20)
+    main_b2_ms = timed_graph(lambda: kspec.spec_eval(cstep, ccarry, mxs), 20)
+    main_bound = bound(eval_bytes(cw, ccarry, mxs, sum(t.numel() * t.element_size()
+                                                        for t in mwant)),
+                       main_b * n * 22)
+    del twin, got, mwant
 
     names = cw.node_table.names
 
@@ -3017,8 +3237,21 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
 
     with env(KSS_TPU_SPECULATIVE=None, KSS_TPU_HOST_RESIDENT=None, KSS_TPU_EAGER_DECODE=None,
              KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
-        store, bound_n, ewall, elaunched = engine_run({"nodes": nodes, "pods": pods},
-                                                      make_mesh(8))
+        # phase 19's default wave without a mesh and on the mesh, in turns
+        # (none, mesh, mesh, none) under the same conditions; the first
+        # mesh run is the one checked below
+        walls26 = {"none": [], "mesh": []}
+        store = None
+        for arm in ("none", "mesh", "mesh", "none") * ENGINE_PAIRS:
+            astore, abound, awall, alaunched = engine_run(
+                {"nodes": nodes, "pods": pods}, make_mesh(8) if arm == "mesh" else None)
+            check(abound == rr.scheduled, f"engine ({arm}) bound {abound}, replay {rr.scheduled}")
+            walls26[arm].append(awall)
+            if arm == "none":
+                ulaunched = alaunched
+            elif store is None:
+                store, bound_n, elaunched = astore, abound, alaunched
+            del astore
         check(elaunched.get("spec_eval_sharded", 0) + elaunched.get("step_chunk_sharded", 0) > 0,
               f"the engine on a mesh launched no B12 kernel: {elaunched}")
         check("spec_eval" not in elaunched and "step_chunk" not in elaunched,
@@ -3059,27 +3292,34 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
         check(snap == psnap, "indivisible fleet: placements or annotations differ from the "
                              "engine without a mesh")
         del ostore, pstore, snap, psnap
-    print(f"[26 mesh stream, engine] {card}: spec_eval_sharded at b={SPEC_BATCH} on config "
-          f"{CONFIG}: == spec_eval and == its plain twin at S = 8, 4, 2, "
-          f"max_abs_err {eval_err}; ms per launch (CUDA graph) by S "
+    wmed = {arm: sorted(w)[len(w) // 2] for arm, w in walls26.items()}
+    print(f"[26 mesh stream, engine] {card}: spec_eval_sharded at the stream's batch "
+          f"b={main_b} on S={main_s} (its launches by batch {stream_batches}): (G, light) "
+          f"{main_g}, == spec_eval and == its plain twin at that G; {main_ms:.5f} ms per launch "
+          f"(CUDA graph) against spec_eval {main_b2_ms:.5f}; plain twin {main_plain_ms:.3f} ms; "
+          f"bound {main_bound[0]:.6f} ms by {main_bound[1]} | extras at b={SPEC_BATCH} on "
+          f"config {CONFIG}: == spec_eval and == its plain twin at S = 8, 4, 2 ((G, light) "
+          f"{eval_g}), max_abs_err {eval_err}; ms per launch (CUDA graph) by S "
           f"{ {s: round(v, 5) for s, v in eval_ms.items()} } against spec_eval {b2_ms:.5f}; "
           f"plain twin { {s: round(v, 3) for s, v in eval_plain_ms.items()} } ms | "
           f"replay_speculative_stream(cw, make_mesh(8, dp=2)): stats {json.dumps(mstats)}; "
           f"{stream_s:.4f} s = {p / stream_s:.1f} cycles/s; equal to phase 8 (selected, "
           f"feasible_count, compact bytes, decode bytes of pods {sample}); launches "
           f"{stream_launched} | SchedulerEngine(mesh=make_mesh(8)).schedule_pending(): bound "
-          f"{bound_n}, wall {ewall:.4f} s = {p / ewall:.1f} cycles/s, launches {elaunched}; "
+          f"{bound_n}, launches {elaunched}; walls in turns ((none, mesh, mesh, none) x "
+          f"{ENGINE_PAIRS}; phase 19's default wave, no profiler): mesh "
+          f"{[round(w, 4) for w in walls26['mesh']]} s, none "
+          f"{[round(w, 4) for w in walls26['none']]} s, medians {json.dumps(wmed)} "
+          f"(launches {ulaunched}); "
           f"every spec.nodeName equals phase 4's replay, the 13 annotations of pods {esample} "
           f"its decode | {MESH_ODD_NODES} nodes x {MESH_ODD_PODS} pods on make_mesh(8): "
           f"{key} +{fallbacks}, bound {obound} in {owall:.4f} s through launches {olaunched}, "
           f"equal to the engine without a mesh; {time.perf_counter() - t26:.1f} s", flush=True)
 
-    b2_bound = spec_ctx["eval_bounds"][SPEC_BATCH]  # B2's bytes at this batch
-    source = "kube_scheduler_simulator_tpu_torch/csrc/mesh.cu"
     return [{
         "name": "step_chunk_sharded",
         "route": "cuda",
-        "source": source,
+        "source": "kube_scheduler_simulator_tpu_torch/csrc/step_kernel.cuh",
         "replaces": "kube_scheduler_simulator_tpu/parallel/mesh.py:130",
         "launches": main_launches,
         "max_abs_err": step_err,
@@ -3091,15 +3331,15 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
     }, {
         "name": "spec_eval_sharded",
         "route": "cuda",
-        "source": source,
+        "source": "kube_scheduler_simulator_tpu_torch/csrc/spec_eval.cu",
         "replaces": "kube_scheduler_simulator_tpu/parallel/mesh.py:143",
         "launches": stream_launched.get("spec_eval_sharded", 0),
         "max_abs_err": eval_err,
-        "ms": eval_ms[8],
-        "plain_ms": eval_plain_ms[8],
-        "bound_ms": b2_bound[0],
-        "bound_by": b2_bound[1],
-        "library_ms": b2_ms,
+        "ms": main_ms,
+        "plain_ms": main_plain_ms,
+        "bound_ms": main_bound[0],
+        "bound_by": main_bound[1],
+        "library_ms": main_b2_ms,
     }]
 
 
@@ -3251,7 +3491,7 @@ def custom_phase(dev, card: str, nodes: list, pods: list, cfg) -> dict:
     from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
     from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
-    from kube_scheduler_simulator_tpu_torch.parallel import make_mesh
+    from kube_scheduler_simulator_tpu_torch.parallel import make_mesh, shard_workload
     from kube_scheduler_simulator_tpu_torch.plugins import custom as pcustom
     from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
     from kube_scheduler_simulator_tpu_torch.scheduler.service import SchedulerService
@@ -3546,9 +3786,20 @@ def custom_phase(dev, card: str, nodes: list, pods: list, cfg) -> dict:
     check(launched_d.get("step_chunk_sharded", 0) == n_chunks * len(mrr.tiers),
           f"(d) launches {launched_d}")
     same_replay(mrr, crr, f"(d) mesh S={CUSTOM_MESH_SHARDS} vs (a)", sample)
+    del mrr
+    # chunk 0 with the rows on the mesh, timed as (a) times step_chunk, in
+    # turns with the unsharded launch
+    mstep = build_step(shard_workload(ccw, make_mesh(CUSTOM_MESH_SHARDS, device=dev)),
+                       out_mode="compact", pack_mode=pack_mode, score_dtypes=score_dtypes,
+                       wide_raw=wide)
+    mesh_ms = [chunk_ms(mstep, ccw, xs_chunks[0]), chunk_ms(step_c, ccw, xs_chunks[0]),
+               chunk_ms(mstep, ccw, xs_chunks[0])]
     print(f"[28d mesh] {card}: (a)'s workload through replay(mesh=make_mesh("
           f"{CUSTOM_MESH_SHARDS})): launches {launched_d}; selected, feasible_count, every "
-          f"compact chunk and the sampled decodes equal (a); "
+          f"compact chunk and the sampled decodes equal (a) | chunk 0 with the rows, ms (in "
+          f"turns: mesh, unsharded, mesh): step_chunk_sharded {mesh_ms[0]:.3f}, "
+          f"{mesh_ms[2]:.3f} (G={kmesh.step_chunk_sharded.groups}), step_chunk "
+          f"{mesh_ms[1]:.3f} (with_ms in (a): {with_ms:.3f}, {with_ms2:.3f}); "
           f"{time.perf_counter() - td:.1f} s", flush=True)
 
     launches = (launched_a.get("step_chunk", 0) + launched_b.get("step_chunk", 0)

@@ -1,15 +1,17 @@
 // The launch plan of the cluster kernels, which spread one pod's nodes
-// over the S CTAs of a thread-block cluster: step_chunk's (step_kernel.cuh:
+// over the R CTAs of a thread-block cluster: step_chunk's (step_kernel.cuh:
 // a chunk's pods in order, each bound) and spec_eval_cluster (spec_eval.cu:
-// one pod per cluster, no bind).  CTA r owns the contiguous node slice
-// [r W, (r + 1) W), W = ceil(N / S) (the last slice may be ragged and a
-// slice empty, so any N is taken), and is about one thread per node of it.
+// one pod per cluster, no bind).  The CTAs serve S "nodes" shards, a group
+// of R / S CTAs each (S = 1 without a mesh); CTA r owns slice r of
+// slices.cuh (a last slice may be ragged and a slice empty, so any N is
+// taken) and is about one thread per node of the widest slice.
 #pragma once
 
 #include "pod.cuh"
+#include "slices.cuh"
 
 #define KSS_STEP_THREADS 512  // the widest CTA; at most 128 registers a thread
-#define KSS_MAX_SHARDS 16
+#define KSS_MESH_MAX_SHARDS 8  // a mesh's "nodes" shards: a group each at R = 8 or 16
 
 // The state of a CTA of `width` nodes: the pod's rows, NodeVolumeLimits'
 // counts and pod list, VolumeBinding's candidates and, for a kernel that
@@ -81,40 +83,50 @@ static cudaError_t cluster_attributes(int* max_dynamic) {
   return err[dev];
 }
 
-// One launch's shape at `shards` CTAs a cluster: each slice ceil(N /
-// shards) nodes wide, its CTA that many threads rounded up to a warp (at
-// most KSS_STEP_THREADS), its state step_smem's `bytes`, in shared memory
-// unless that is more than `max_dynamic` (then `spill`: in device memory).
+// One launch's shape at `ctas` CTAs a cluster over `shards` "nodes"
+// shards: its CTA the widest slice's nodes (slices.cuh slice_width) in
+// threads rounded up to a warp (at most `most`), its state step_smem's
+// `bytes`, in shared memory unless that is more than `max_dynamic` (then
+// `spill`: in device memory).
 struct ClusterPlan {
   int width, threads;
   size_t bytes;
   bool spill;
 };
 
-static ClusterPlan cluster_plan(const StepArgs& a, int shards, int max_dynamic, bool replicas) {
+static ClusterPlan cluster_plan(const StepArgs& a, int ctas, int shards, int max_dynamic,
+                                bool replicas, int most = KSS_STEP_THREADS) {
   ClusterPlan p;
-  p.width = a.N > 0 ? (a.N + shards - 1) / shards : 1;
+  p.width = slice_width(a.N, shards, ctas / shards);
   const int t = (p.width + 31) / 32 * 32;
-  p.threads = t < 32 ? 32 : (t > KSS_STEP_THREADS ? KSS_STEP_THREADS : t);
+  p.threads = t < 32 ? 32 : (t > most ? most : t);
   p.bytes = step_smem(a, p.width, replicas).total;
   p.spill = p.bytes > (size_t)max_dynamic;
   return p;
 }
 
-// The launch of `clusters` clusters of `shards` CTAs each, at plan p.
-static void cluster_config(const ClusterPlan& p, int clusters, int shards, cudaStream_t stream,
+// The launch of `clusters` clusters of `ctas` CTAs each, at plan p.
+static void cluster_config(const ClusterPlan& p, int clusters, int ctas, cudaStream_t stream,
                            cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3((unsigned)(clusters * shards), 1, 1);
+  cfg->gridDim = dim3((unsigned)(clusters * ctas), 1, 1);
   cfg->blockDim = dim3((unsigned)p.threads, 1, 1);
   cfg->dynamicSmemBytes = p.spill ? 0 : p.bytes;
   cfg->stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)shards;
+  attr[0].val.clusterDim.x = (unsigned)ctas;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
+}
+
+// Whether a launch of `ctas` CTAs a cluster serves `shards` "nodes"
+// shards: 1 to KSS_MESH_MAX_SHARDS shards that divide N (a mesh's; any N
+// at S = 1), each a group of the same number of CTAs.
+static bool cluster_takes(const StepArgs& a, int ctas, int shards) {
+  return ctas >= 1 && ctas <= KSS_MAX_CTAS && shards >= 1 && shards <= KSS_MESH_MAX_SHARDS &&
+         ctas % shards == 0 && (shards == 1 || a.N % shards == 0);
 }
 
 // The launch's error, or cudaGetLastError() when it was accepted, so a

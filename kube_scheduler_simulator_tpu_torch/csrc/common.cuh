@@ -158,10 +158,6 @@ struct StepArgs {
   int* out_selected;                     // [C]
   int* out_feasible_count;               // [C]
   int* out_prefilter_reject;             // [C]
-  // --- scratch, one slot per pod in flight (scope.cuh pod_scratch)
-  long long* scratch_raw;                // [slots, S, N]
-  unsigned char* scratch_feas;           // [slots, N]
-  unsigned char* scratch_ign;            // [slots, N]
   // --- the phase clock (built with -DKSS_PHASE_CLOCK only): per pod
   // KSS_CLOCK_SLOTS durations in ns, then the launch's start and end
   // (the sparse round: RoundClockSlot, no launch stamps)

@@ -1,6 +1,6 @@
 // The per-pod body of the scheduling step, shared by step_chunk
 // (step.cu, a chunk's pods in order over one thread-block cluster) and the
-// speculative wave's and the host path's kernels (spec_eval.cu, mesh.cu:
+// speculative wave's and the host path's kernels (spec_eval.cu:
 // one pod per cluster; spec_round.cu: the plugin dispatch under a group
 // of pods a block): the plugin dispatch, the compact stores, the step's
 // evaluation of one pod against the carry as it stands, and its bind.

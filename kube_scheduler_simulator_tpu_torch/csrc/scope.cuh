@@ -7,8 +7,8 @@
 // outputs, and how a reduction over the node axis ends.  ClusterScope:
 // CTA r of a thread-block cluster walks the node slice [lo, hi); a
 // combine ends with one cluster barrier and one warp reading the S
-// partials through distributed shared memory (step_chunk,
-// spec_eval_cluster, spec_eval_sharded).
+// partials through distributed shared memory (step_chunk and
+// spec_eval_cluster, with or without a mesh).
 //
 // A combine takes a vector of up to KSS_CV integer partials, each with its
 // own operation (min, max, sum or or): every thread folds its values over
@@ -67,22 +67,6 @@ struct PodShared {
   int res_i;
 };
 
-// Each pod in flight in global scratch: [S, N] raw rows and [N]
-// feasibility and spread-ignore bytes (spec_eval_sharded keeps the pod's
-// rows there, cluster c in slot c).
-struct PodScratch {
-  long long* raw;        // [max(S, 1), N]
-  unsigned char* feas;   // [N]
-  unsigned char* ign;    // [N]
-};
-
-__device__ __forceinline__ PodScratch pod_scratch(const StepArgs& a, long long slot) {
-  const long long n = a.N;
-  const long long s = a.S > 0 ? a.S : 1;
-  return PodScratch{a.scratch_raw + slot * s * n, a.scratch_feas + slot * n,
-                    a.scratch_ign + slot * n};
-}
-
 // Where a scope keeps the pod's rows: raw score s at node n is
 // raw[s * stride + n - base].
 struct PodRows {
@@ -94,7 +78,7 @@ struct PodRows {
 
 struct ClusterScope {
   int lo, hi;          // this CTA's nodes
-  int rank, shards;
+  int rank, ctas;       // this CTA's place in the cluster, the cluster's size
   PodRows rows;
   PodShared* sh;
   PodVolumes vols;
@@ -103,7 +87,7 @@ struct ClusterScope {
   __device__ bool leader() const { return threadIdx.x == 0 && rank == 0; }
   __device__ bool owns(int n) const { return n >= lo && n < hi; }
 
-  // One cluster barrier; lane j of warp 0 folds value j of the S slots in
+  // One cluster barrier; lane j of warp 0 folds value j of the R slots in
   // rank order and leaves it in sh->res for every thread of the block.
   __device__ const long long* combine(const long long* slot, int nv, unsigned long long ops) {
     cg::cluster_group cluster = cg::this_cluster();
@@ -113,7 +97,7 @@ struct ClusterScope {
       long long* mine = const_cast<long long*>(slot) + lane;
       const int op = op_of(ops, lane);
       long long r = *cluster.map_shared_rank(mine, 0);
-      for (int k = 1; k < shards; ++k) r = op_apply(op, r, *cluster.map_shared_rank(mine, k));
+      for (int k = 1; k < ctas; ++k) r = op_apply(op, r, *cluster.map_shared_rank(mine, k));
       sh->res[lane] = r;
     }
     __syncthreads();
@@ -131,7 +115,7 @@ struct ClusterScope {
       const int lane = threadIdx.x;
       long long bv = LLONG_MIN;
       int bi = INT_MAX;
-      for (int k = lane; k < shards; k += 32)
+      for (int k = lane; k < ctas; k += 32)
         argmax_pair(bv, bi, *cluster.map_shared_rank(sh->slot[b], k),
                     *cluster.map_shared_rank(sh->slot_i + b, k));
       for (int o = 16; o > 0; o >>= 1) {

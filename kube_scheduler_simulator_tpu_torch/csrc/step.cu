@@ -6,13 +6,16 @@
 // chunk of pods (framework/replay.py:1130 `_scan_for`), and B12's
 // parallel/mesh.py:130 `sharded_step` (the same step with the node axis
 // sharded over the mesh's "nodes" extent).  The TPU's sequential scan
-// becomes a loop inside ONE cluster of S CTAs: the cluster walks the
-// chunk's pods in queue order, and CTA r owns the contiguous node slice
-// [r W, (r + 1) W), W = ceil(N / S) (the last slice may be ragged, and a
-// slice empty, so any N is taken).  A CTA is sized to its slice, about
-// one thread per node.  S is 16 where cudaOccupancyMaxActiveClusters
-// finds room for a non-portable cluster of 16, else 8; the mesh's
-// wrapper (kernels/mesh.py step_chunk_sharded) passes its own S <= 8.
+// becomes a loop inside ONE cluster of R CTAs: the cluster walks the
+// chunk's pods in queue order, and each CTA owns a contiguous node slice
+// (slices.cuh: without a mesh [r W, (r + 1) W), W = ceil(N / R); on a
+// mesh of S "nodes" shards, each shard's nodes split over a group of R / S
+// CTAs; a last slice may be ragged and a slice empty, so any N is taken).
+// A CTA is sized to the widest slice, about one thread per node.  R is 16
+// where cudaOccupancyMaxActiveClusters finds room for a non-portable
+// cluster of 16, else 8, in whole groups of the mesh's S <= 8
+// (step_kernel.cuh step_auto_ctas).  So a mesh runs the unsharded plan:
+// its shards only name which CTAs' slices are whose.
 //
 // Per pod (pod.cuh eval_pod, three combines of ClusterScope, scope.cuh):
 //
@@ -48,11 +51,11 @@
 // (a few rows of [N] per plugin plus the compact outputs) are small
 // against the card's bandwidth; the time is the chain of the node loop
 // over a CTA's slice, three cluster barriers and the bind, pod after pod.
-// The design spreads the node work over S SMs, keeps the raw scores in
+// The design spreads the node work over R SMs, keeps the raw scores in
 // shared memory (in device memory only past about 227 KB a CTA, where
-// kss_step_plan gives each CTA a slot of StepArgs.spill: at S = 16 and
+// kss_step_plan gives each CTA a slot of StepArgs.spill: at R = 16 and
 // eight scorers, fleets past roughly 45,000 nodes), makes every reduction of a
-// pod one of three vector combines (one warp reads the S partials through
+// pod one of three vector combines (one warp reads the R partials through
 // distributed shared memory and broadcasts them through the block's own),
 // and walks only a pod's own volumes and candidate PVs.
 //
@@ -72,12 +75,14 @@
 
 extern "C" int kss_step_args_size() { return (int)sizeof(StepArgs); }
 
-// Launch on the caller's stream; no synchronisation.  `shards` (1 to
-// KSS_MAX_SHARDS) and a.spill as kss_step_plan (step_kernel.cuh) gave
-// them.  Returns the launch's error or cudaGetLastError(), so a refused
-// launch is reported at once.
-extern "C" int kss_step_chunk(const StepArgs* args, int shards, void* stream) {
-  if (shards < 1 || shards > KSS_MAX_SHARDS) return (int)cudaErrorInvalidValue;
-  return launch_step_cluster(args, shards, stream);
+// Launch on the caller's stream; no synchronisation.  `ctas` and a.spill
+// as kss_step_plan (step_kernel.cuh) gave them for the `shards` "nodes"
+// shards (1 without a mesh; 1 to KSS_MESH_MAX_SHARDS that divide N).
+// Returns the launch's error or cudaGetLastError(), so a refused launch is
+// reported at once.
+extern "C" int kss_step_chunk(const StepArgs* args, int ctas, int shards, void* stream) {
+  return launch_step_cluster(args, ctas, shards, stream);
 }
+
+extern "C" int kss_mesh_max_shards() { return KSS_MESH_MAX_SHARDS; }
 #endif

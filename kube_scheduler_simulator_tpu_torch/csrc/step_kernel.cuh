@@ -1,19 +1,22 @@
-// The cluster kernel of the scheduling step, shared by step_chunk
-// (step.cu, which documents it) and B12's step_chunk_sharded (mesh.cu):
-// one kernel, S a parameter of its launch.  Its launch plan (the node
-// slices, the CTA's width and state) is cluster.cuh's.
+// The cluster kernel of the scheduling step, step_chunk's (step.cu, which
+// documents it) and B12's step_chunk_sharded's: one kernel, the widest
+// slice W and the mesh's "nodes" shards S its parameters (S = 1 without a
+// mesh), from which each CTA computes its node slice (slices.cuh
+// node_slice).  Its launch plan (W, the CTA's threads and state) is
+// cluster.cuh's.
 #pragma once
 
 #include "cluster.cuh"
 
 __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
-    step_chunk_kernel(const __grid_constant__ StepArgs a, int width) {
+    step_chunk_kernel(const __grid_constant__ StepArgs a, int width, int shards) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ PodShared sh;
   __shared__ StepArgs b;  // a, with the cluster-wide carries at this CTA's replicas
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), shards = (int)cluster.num_blocks();
-  const int lo = min(rank * width, a.N), hi = min(lo + width, a.N);
+  const int rank = (int)cluster.block_rank(), ctas = (int)cluster.num_blocks();
+  const NodeSlice ns = node_slice(a.N, shards, ctas / shards, width, rank);
+  const int lo = ns.lo, hi = ns.hi;
   const StepSmem m = step_smem(a, width, true);
   unsigned char* smem = a.spill != nullptr ? a.spill + (size_t)rank * m.total : dyn;
   unsigned char* claimed = smem + m.claimed;
@@ -41,7 +44,7 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
 
   KSS_CLOCK(unsigned long long* ck0 = threadIdx.x == 0 && rank == 0 ? a.clock : nullptr;
             if (ck0) ck0[(long long)a.C * KSS_CLOCK_SLOTS] = kss_now();)
-  ClusterScope scope{lo, hi, rank, shards,
+  ClusterScope scope{lo, hi, rank, ctas,
                      PodRows{(long long*)(smem + m.raw), smem + m.feas, smem + m.ign, lo, width},
                      &sh, PodVolumes{}, 0};
   scope.vols.nvl_count = a.has_nvl ? count : nullptr;
@@ -100,51 +103,56 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
 
 #ifdef __CUDACC__
 // The cluster size step_chunk takes when not told: 16 where a
-// non-portable cluster of 16 CTAs fits on the card, else 8.
-static int step_auto_shards(const StepArgs& a, int max_dynamic) {
+// non-portable cluster of 16 CTAs fits on the card, else 8, each rounded
+// down to whole groups of the mesh's `shards` (16 / S CTAs a shard, or
+// 8 / S; 16 or 8 without a mesh).
+static int step_auto_ctas(const StepArgs& a, int shards, int max_dynamic) {
+  const int wide = KSS_MAX_CTAS / shards * shards;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
-  cluster_config(cluster_plan(a, KSS_MAX_SHARDS, max_dynamic, true), 1, KSS_MAX_SHARDS, nullptr,
-                 attr, &cfg);
+  cluster_config(cluster_plan(a, wide, shards, max_dynamic, true), 1, wide, nullptr, attr, &cfg);
   if (cudaOccupancyMaxActiveClusters(&clusters, step_chunk_kernel, &cfg) == cudaSuccess &&
       clusters >= 1)
-    return KSS_MAX_SHARDS;
+    return wide;
   cudaGetLastError();  // a refused query only means 8
-  return 8;
+  return 8 / shards * shards;
 }
 
-// The plan of a launch, before it: the cluster size (`shards` 0 picks it,
-// step_auto_shards; 1 to KSS_MAX_SHARDS is taken as it is) to
-// *out_shards, and to *spill_bytes the device memory the launch needs in
-// a.spill: 0 where each CTA's state fits in shared memory, else S times
-// step_smem's total (cluster.cuh).
-extern "C" int kss_step_plan(const StepArgs* args, int shards, int* out_shards,
+// The plan of a launch over `shards` "nodes" shards, before it: the
+// cluster size (`ctas` 0 picks it, step_auto_ctas; else it is taken as it
+// is) to *out_ctas, and to *spill_bytes the device memory the launch needs
+// in a.spill: 0 where each CTA's state fits in shared memory, else R times
+// step_smem's total (cluster.cuh).  A launch cluster_takes refuses is
+// cudaErrorInvalidValue.
+extern "C" int kss_step_plan(const StepArgs* args, int ctas, int shards, int* out_ctas,
                              long long* spill_bytes) {
-  if (shards < 0 || shards > KSS_MAX_SHARDS) return (int)cudaErrorInvalidValue;
   int max_dynamic = 0;
   const cudaError_t err = cluster_attributes<step_chunk_kernel>(&max_dynamic);
   if (err != cudaSuccess) return (int)err;
-  if (shards == 0) shards = step_auto_shards(*args, max_dynamic);
-  const ClusterPlan p = cluster_plan(*args, shards, max_dynamic, true);
-  *out_shards = shards;
-  *spill_bytes = p.spill ? (long long)p.bytes * shards : 0;
+  if (ctas == 0 && cluster_takes(*args, shards, shards))
+    ctas = step_auto_ctas(*args, shards, max_dynamic);
+  if (!cluster_takes(*args, ctas, shards)) return (int)cudaErrorInvalidValue;
+  const ClusterPlan p = cluster_plan(*args, ctas, shards, max_dynamic, true);
+  *out_ctas = ctas;
+  *spill_bytes = p.spill ? (long long)p.bytes * ctas : 0;
   return (int)cudaSuccess;
 }
 
-// One launch of a cluster of `shards` CTAs on `stream`, its state where
-// kss_step_plan put it (a.spill set exactly where the plan asked for it).
-// Returns the launch's error or cudaGetLastError(), so a refused launch
-// is reported at once.
-static int launch_step_cluster(const StepArgs* args, int shards, void* stream) {
+// One launch of a cluster of `ctas` CTAs over `shards` "nodes" shards on
+// `stream`, its state where kss_step_plan put it (a.spill set exactly
+// where the plan asked for it).  Returns the launch's error or
+// cudaGetLastError(), so a refused launch is reported at once.
+static int launch_step_cluster(const StepArgs* args, int ctas, int shards, void* stream) {
+  if (!cluster_takes(*args, ctas, shards)) return (int)cudaErrorInvalidValue;
   int max_dynamic = 0;
   cudaError_t err = cluster_attributes<step_chunk_kernel>(&max_dynamic);
   if (err != cudaSuccess) return (int)err;
-  const ClusterPlan p = cluster_plan(*args, shards, max_dynamic, true);
+  const ClusterPlan p = cluster_plan(*args, ctas, shards, max_dynamic, true);
   if (p.spill != (args->spill != nullptr)) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_config(p, 1, shards, (cudaStream_t)stream, attr, &cfg);
-  return launch_result(cudaLaunchKernelEx(&cfg, step_chunk_kernel, *args, p.width));
+  cluster_config(p, 1, ctas, (cudaStream_t)stream, attr, &cfg);
+  return launch_result(cudaLaunchKernelEx(&cfg, step_chunk_kernel, *args, p.width, shards));
 }
 #endif

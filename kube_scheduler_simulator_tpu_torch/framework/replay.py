@@ -1000,8 +1000,8 @@ def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chun
     was compiled for.
     mesh: a one-card parallel.mesh.Mesh — the workload's node axis is
     sharded over its "nodes" extent (parallel/mesh.py shard_workload) and
-    every chunk runs B12 `step_chunk_sharded`, one CTA of a thread-block
-    cluster per shard; results are byte-identical to the unsharded
+    every chunk runs B12 `step_chunk_sharded`, each shard a group of the
+    step kernel's CTAs; results are byte-identical to the unsharded
     replay.  The node count must divide by the "nodes" extent.
     unroll: the JAX package's scan unroll; not ported, it raises.
     filter_only: the caller only consumes filter codes / prefilter

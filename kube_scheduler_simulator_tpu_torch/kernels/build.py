@@ -51,10 +51,11 @@ class BuildResult:
 # C functions of each library: name -> (argtypes, restype)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "step": {"kss_step_args_size": ([], _I), "kss_step_chunk": ([_P, _I, _P], _I),
-             "kss_step_plan": ([_P, _I, _P, _P], _I)},
-    "spec_eval": {"kss_step_args_size": ([], _I), "kss_eval_plan": ([_P, _I, _P, _P], _I),
-                  "kss_spec_eval": ([_P, _I, _I, _P], _I),
+    "step": {"kss_step_args_size": ([], _I), "kss_step_chunk": ([_P, _I, _I, _P], _I),
+             "kss_step_plan": ([_P, _I, _I, _P, _P], _I), "kss_mesh_max_shards": ([], _I)},
+    "spec_eval": {"kss_step_args_size": ([], _I),
+                  "kss_eval_plan": ([_P, _I, _I, _I, _P, _P], _I),
+                  "kss_spec_eval": ([_P, _I, _I, _I, _I, _P], _I),
                   "kss_spec_oracle": ([_P, _I, _P, _P, _I, _I, _P, _P], _I)},
     "spec_round": {"kss_step_args_size": ([], _I), "kss_round_plan": ([_P, _I, _P, _P, _P], _I),
                    "kss_spec_round": ([_P, _I, _I, _P], _I)},
@@ -69,10 +70,6 @@ SIGNATURES = {
                "kss_renormalize_row": ([_P, _I, _P, _P, _P, _P, _P], _I)},
     "fuse": {"kss_fuse_max": ([], _I),
              "kss_spec_oracle_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
-    "mesh": {"kss_step_args_size": ([], _I), "kss_mesh_max_shards": ([], _I),
-             "kss_step_plan": ([_P, _I, _P, _P], _I),
-             "kss_step_chunk_sharded": ([_P, _I, _P], _I),
-             "kss_spec_eval_sharded": ([_P, _I, _P], _I)},
 }
 
 

@@ -69,7 +69,7 @@ class Member:
         self.outs = None
         self.stream = None
         if dev.type == "cuda":
-            self.outs = kspec.round_outputs(step, xs["is_pad"].shape[0], dev, kcand)
+            self.outs = kspec.round_outputs(step, xs["is_pad"].shape[0], dev)
             self.stream = torch.cuda.current_stream(dev)
 
     @property
@@ -108,26 +108,17 @@ def _members(args_list: list) -> list[Member]:
     return [args[0] for args in args_list]
 
 
-def _dense_fused(args_list: list) -> list:
-    """K members' dense rounds in one fused call: B11 for unsharded
-    members; members sharded over a mesh (one fuse family holds one mesh)
-    run their spec_eval_sharded rounds in turn — a single fused sharded
-    launch is later work (ROADMAP Queue B)."""
-    members = _members(args_list)
-    if members[0].step.cw.mesh is None:
-        return dense_round_fused(members)
-    if members[0].stream is None:  # CPU tensors
-        return [dense_round(m) for m in members]
-    # the launches in turn join and release the members' streams as one
-    # B11 launch does
-    return _launch(members, lambda: [dense_round(m) for m in members])
-
-
-dense_round.fused = _dense_fused
+dense_round.fused = lambda args_list: dense_round_fused(_members(args_list))
 sparse_round.fused = lambda args_list: sparse_round_fused(_members(args_list))
 
 
 # ------------------------------------------------------------ checks
+
+def mesh_shards(step) -> int:
+    """The "nodes" shards of a member's mesh, 1 without one (a fuse family
+    holds one mesh: parallel/fuse.py)."""
+    return step.cw.mesh.shape["nodes"] if step.cw.mesh is not None else 1
+
 
 def state_shape(step) -> tuple:
     """What a member's CTA state takes in the eval kernel (csrc/cluster.cuh
@@ -153,7 +144,7 @@ def _check_members(members: list[Member], sparse: bool) -> torch.device:
         groups = kstep._score_groups(m.step)
         return (m.device, m.step.out_mode, m.xs["is_pad"].shape[0], m.step.cw.n_nodes,
                 PACK_MODES[m.step.pack_mode][0], groups[2], groups[4], m.kcand,
-                state_shape(m.step))
+                state_shape(m.step), mesh_shards(m.step))
 
     want = shape(first)
     for i, m in enumerate(members):
@@ -163,7 +154,7 @@ def _check_members(members: list[Member], sparse: bool) -> torch.device:
         if got != want:
             raise ValueError(f"member {i} does not fit the batch: (device, mode, batch, nodes, "
                              f"pack dtype, raw widths, raw32 bytes, kcand, (scorers, volume "
-                             f"limits' volumes x drivers, PVs)) {got} != {want}")
+                             f"limits' volumes x drivers, PVs), mesh shards) {got} != {want}")
         if (m.kcand is not None) != sparse:
             raise ValueError(f"member {i}: a {'sparse' if sparse else 'dense'} round needs "
                              f"{'a' if sparse else 'no'} candidate cap")
@@ -206,18 +197,27 @@ def _entries(members: list[Member]) -> list:
 
 # ------------------------------------------------------------ B11 kernels
 
-def spec_eval_fused(members: list[Member], *, _shards: int = 0) -> list[CompactOut]:
+def spec_eval_fused(members: list[Member], *, _shards: int = 0,
+                    _light: bool | None = None) -> list[CompactOut]:
     """B11 dense eval: spec_eval of every member in one launch of its
-    kernel over the members' table, one cluster of S CTAs a pod, S from
-    the K x B pods (kernels/spec.py launch_eval); `spec_eval_fused.shards`
-    records S, `spec_eval_fused.batches` the launches by (K, b).  CPU
-    tensors: eval_plain per member.  For tests and measurement only,
-    `_shards` forces S (kernels/spec.py EVAL_SHARDS)."""
+    kernel over the members' table, one cluster a pod of S CTAs, S from
+    the K x B pods (kernels/spec.py launch_eval); members sharded over a
+    mesh (B12) take spec_eval_sharded's plan, each shard a group of S
+    CTAs.  `spec_eval_fused.shards` records S, `spec_eval_fused.light`
+    the CTA shape, `spec_eval_fused.batches` the launches by (K, b).  CPU
+    tensors: eval_plain per member (the sharded twin on a mesh).  For
+    tests and measurement only, `_shards` forces S (kernels/spec.py
+    EVAL_SHARDS) and `_light` the CTA shape."""
     dev = _check_members(members, sparse=False)
+    mesh = mesh_shards(members[0].step)
     if dev.type == "cpu":
+        if mesh > 1:
+            from .mesh import spec_eval_sharded_plain
+
+            return [spec_eval_sharded_plain(m.step, m.carry, m.xs) for m in members]
         return [kspec.eval_plain(m.step, m.carry, m.xs) for m in members]
-    spec_eval_fused.shards = _launch(members, kspec.launch_eval, "spec_eval_fused",
-                                     _entries(members), _shards)
+    spec_eval_fused.shards, spec_eval_fused.light = _launch(
+        members, kspec.launch_eval, "spec_eval_fused", _entries(members), _shards, mesh, _light)
     spec_eval_fused.launches += 1
     spec_eval_fused.batches[(len(members), members[0].xs["is_pad"].shape[0])] += 1
     return [CompactOut(**{k: m.outs[k] for k in CompactOut._fields}) for m in members]
@@ -279,6 +279,7 @@ def spec_oracle_fused(members: list[Member], rows: list[tuple]) -> list[torch.Te
 spec_eval_fused.launches = 0
 spec_round_fused.launches = 0
 spec_eval_fused.shards = None
+spec_eval_fused.light = None
 spec_round_fused.pods = None
 spec_eval_fused.batches = collections.Counter()
 spec_round_fused.batches = collections.Counter()

@@ -1,21 +1,24 @@
-"""B12: the node-sharded step and dense eval (csrc/mesh.cu), each wrapper
-and, beside it, its plain PyTorch twin.
+"""B12: the node-sharded step and dense eval, each wrapper and, beside it,
+its plain PyTorch twin.
 
-    kernel (csrc/mesh.cu)  wrapper             plain twin                 JAX counterpart
-    step_chunk_sharded     step_chunk_sharded  step_chunk_sharded_plain   parallel/mesh.py:130 sharded_step
-    spec_eval_sharded      spec_eval_sharded   spec_eval_sharded_plain    :143 speculative_scores
+    kernel (csrc/)                       wrapper             plain twin                 JAX counterpart
+    step_kernel.cuh step_chunk_kernel    step_chunk_sharded  step_chunk_sharded_plain   parallel/mesh.py:130 sharded_step
+    spec_eval.cu spec_eval_cluster       spec_eval_sharded   spec_eval_sharded_plain    :143 speculative_scores
 
 A workload sharded over a one-card mesh (parallel/mesh.py
 `shard_workload`) splits its node axis into S contiguous slices,
-`node_slices(N, S)`; on the card each slice is one CTA of a thread-block
-cluster.  The twins compute the same decomposition in plain PyTorch:
-each shard evaluates the plugins over its own slice of every [.., N]
-tensor, every reduction over the node axis (the spread minima, the
+`node_slices(N, S)`.  On the card the mesh runs the unsharded kernels'
+own cluster plan: a cluster of R CTAs (16 where the card has room, as
+step_chunk and spec_eval pick it) serves the S shards, each a group of
+G = R / S CTAs over its own slice, split again as `cta_slices(N, S, G)`
+(csrc/slices.cuh).  The twins compute the same decomposition in plain
+PyTorch: each CTA slice evaluates the plugins over its own nodes of every
+[.., N] tensor, every reduction over the node axis (the spread minima, the
 feasible count, the raw-overflow OR, the normalizing min/max/any, the
-argmax) is a partial per shard combined in rank order, and the bind
-updates each shard's slice of the node-space carries, with the
-exactly-once updates made for the shard that owns the selected node.  So
-the CPU tests exercise the decomposition itself, not the unsharded step
+argmax) is a partial per slice combined in rank order, and the bind
+updates each slice of the node-space carries, with the exactly-once
+updates made for the slice that owns the selected node.  So the CPU tests
+exercise the decomposition itself, not the unsharded step
 (framework/pipeline.py `Step.plain`), which they compare it with.
 
 As kernels/step.py does: for tensors on the card a wrapper launches on
@@ -27,6 +30,7 @@ fallback: a failed build or launch raises, and each wrapper raises
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -37,9 +41,11 @@ from ..plugins import interpod, topologyspread
 from ..plugins.base import default_normalize_apply
 from ..plugins.custom import CustomXS
 from ..state.compile import CUSTOM_XS_AXES, NODE_AXES
+from . import spec as kspec
 from . import step as kstep
 
-# a portable thread-block cluster: csrc/mesh.cu KSS_MAX_CLUSTER
+# csrc/cluster.cuh KSS_MESH_MAX_SHARDS: at most 8 shards, so that each is a
+# group of CTAs at either cluster size the plan takes (16, or 8)
 MAX_SHARDS = 8
 _BIG = 1 << 40
 
@@ -56,8 +62,8 @@ def check_shards(n: int, shards: int) -> None:
     """What the sharded kernels take: 1 to MAX_SHARDS shards that divide
     the node axis."""
     if not 1 <= shards <= MAX_SHARDS:
-        raise ValueError(f"{shards} node shards: a portable thread-block cluster holds 1 to "
-                         f"{MAX_SHARDS} CTAs")
+        raise ValueError(f"{shards} node shards: the sharded kernels take 1 to {MAX_SHARDS}, "
+                         f"each a group of a cluster's CTAs")
     if n % shards:
         raise ValueError(f"node axis ({n}) must divide evenly across the mesh's 'nodes' "
                          f"extent ({shards}); pick a divisor shard count")
@@ -147,9 +153,9 @@ def _skipped(sl: dict, name: str, flag: str) -> bool:
 
 def _eval_sharded(step, carry: dict, sl: dict, plan) -> StepOut | CompactOut:
     """One pod's step outputs against `carry`, without the bind, computed
-    shard by shard over the node slices of `plan`, contiguous and in
-    order (csrc/pod.cuh under ClusterScope: mesh.cu's even slices,
-    spec_eval.cu's ceil slices).  An empty slice adds only identities to
+    slice by slice over the node slices of `plan`, contiguous and in
+    order (csrc/pod.cuh under ClusterScope, one slice a CTA:
+    kernels/spec.py cta_slices).  An empty slice adds only identities to
     each combine, so it is left out."""
     cw = step.cw
     shards = [_Shard(cw, carry, sl, lo, hi) for lo, hi in plan if hi > lo]
@@ -271,7 +277,7 @@ def _bind_sharded(cw, carry: dict, sl: dict, selected, plan) -> dict:
     matrices takes its same-domain increments; the exactly-once updates
     (the selected node's core, NodePorts, disk and CSI rows, matched_total,
     the cluster-wide ReadWriteOncePod bits, VolumeBinding's claims) are
-    made once, for the shard that owns the selected node."""
+    made once, for the slice that owns the selected node."""
     sel = int(selected)
     coupled = ("PodTopologySpread", "InterPodAffinity")
     out = _bind_phase(cw, {k: v for k, v in carry.items() if k not in coupled}, sl, selected)
@@ -313,20 +319,33 @@ def _stack_outs(step, outs: list):
     return cls(*[_stack([getattr(o, f) for o in outs]) for f in cls._fields])
 
 
-def _plan(step) -> tuple[tuple[int, int], ...]:
-    """The shards' node slices of the workload's mesh (node_slices checks
-    the shard count and the node axis)."""
+def groups_of(step, groups: int | None) -> int:
+    """The CTAs a shard of step's mesh: `groups`, or where it is None the
+    card's usual plan, MAX_CTAS // S (a cluster of 16)."""
+    return groups if groups else kspec.MAX_CTAS // step.cw.mesh.shape["nodes"]
+
+
+def _plan(step, groups: int | None = None) -> tuple[tuple[int, int], ...]:
+    """The CTA slices of the workload's mesh, each of its S shards a group
+    of `groups` CTAs (groups_of) -> cta_slices(N, S, G), after node_slices'
+    checks of the shard count and the node axis."""
     mesh = step.cw.mesh
     if mesh is None:
         raise ValueError("the node-sharded kernels run a workload sharded over a mesh "
                          "(parallel/mesh.py shard_workload)")
-    return node_slices(step.cw.n_nodes, mesh.shape["nodes"])
+    n, shards = step.cw.n_nodes, mesh.shape["nodes"]
+    node_slices(n, shards)
+    g = groups_of(step, groups)
+    if not 1 <= shards * g <= kspec.MAX_CTAS:
+        raise ValueError(f"{shards} shards of {g} CTAs: a cluster holds 1 to {kspec.MAX_CTAS}")
+    return kspec.cta_slices(n, shards, g)
 
 
-def step_chunk_sharded_plain(step, carry: dict, xs_chunk: dict):
+def step_chunk_sharded_plain(step, carry: dict, xs_chunk: dict, groups: int | None = None):
     """The twin of step_chunk_sharded: a chunk of pods in order, each
-    evaluated and bound shard by shard -> (carry', stacked outs)."""
-    plan = _plan(step)
+    evaluated and bound slice by slice, each shard a group of `groups`
+    CTAs (groups_of) -> (carry', stacked outs)."""
+    plan = _plan(step, groups)
     outs = []
     for i in range(xs_chunk["is_pad"].shape[0]):
         sl = slice_pod(xs_chunk, i)
@@ -336,10 +355,11 @@ def step_chunk_sharded_plain(step, carry: dict, xs_chunk: dict):
     return carry, _stack_outs(step, outs)
 
 
-def spec_eval_sharded_plain(step, carry: dict, xs: dict):
+def spec_eval_sharded_plain(step, carry: dict, xs: dict, groups: int | None = None):
     """The twin of spec_eval_sharded: every pod of the batch against one
-    frozen carry, shard by shard, no bind."""
-    plan = _plan(step)
+    frozen carry, slice by slice, each shard a group of `groups` CTAs
+    (groups_of), no bind."""
+    plan = _plan(step, groups)
     outs = [_eval_sharded(step, carry, slice_pod(xs, i), plan)
             for i in range(xs["is_pad"].shape[0])]
     return _stack_outs(step, outs)
@@ -347,55 +367,69 @@ def spec_eval_sharded_plain(step, carry: dict, xs: dict):
 
 # ------------------------------------------------------------ the wrappers
 
-def _launch(what: str, fn, args, shards: int, dev) -> None:
-    kstep.check_launch(what, fn(ctypes.byref(args), shards, kstep.stream_of(dev)))
-
-
-def step_chunk_sharded(step, carry: dict, xs_chunk: dict):
+def step_chunk_sharded(step, carry: dict, xs_chunk: dict, *, _groups: int = 0):
     """B12 sharded_step: one chunk of pods -> (carry, StepOut / CompactOut
     with a leading pod axis), over the workload's mesh.  CUDA tensors: one
-    launch of step_chunk's cluster kernel (csrc/step_kernel.cuh) over the
-    mesh's S CTAs, carry updated in place.  CPU tensors:
-    step_chunk_sharded_plain."""
+    launch of step_chunk's cluster kernel (csrc/step_kernel.cuh) at
+    step_chunk's cluster size, each of the mesh's S shards a group of R / S
+    CTAs (`step_chunk_sharded.groups` records it), carry updated in place.
+    CPU tensors: step_chunk_sharded_plain.  For tests and measurement
+    only, `_groups` forces the CTAs a shard (R = S x `_groups` <= 16; on
+    the CPU, the twin's split)."""
     dev = carry["core"].requested.device
     if dev.type == "cpu":
-        return step_chunk_sharded_plain(step, carry, xs_chunk)
-    shards = len(_plan(step))
+        return step_chunk_sharded_plain(step, carry, xs_chunk, _groups or None)
+    _plan(step, _groups or 1)  # the shard count and the node axis, before a launch
+    shards = step.cw.mesh.shape["nodes"]
     kstep.check_device("step_chunk_sharded", dev, step.cw.statics, carry, xs_chunk)
-    lib = kstep.load_lib("mesh")
+    lib = kstep.load_lib("step")
     c = xs_chunk["is_pad"].shape[0]
-    outs = kstep.alloc_outputs(step, c, dev, slots=0)
-    args = kstep.make_args(step, carry, xs_chunk, outs, slots=0)
-    _, spill = kstep.plan_cluster(lib, args, shards, dev)  # held through the launch
-    _launch("step_chunk_sharded", lib.kss_step_chunk_sharded, args, shards, dev)
+    outs = kstep.alloc_outputs(step, c, dev)
+    args = kstep.make_args(step, carry, xs_chunk, outs)
+    ctas, spill = kstep.plan_cluster(lib, args, shards * _groups, dev, shards)  # spill held
+    kstep.check_launch("step_chunk_sharded", lib.kss_step_chunk(
+        ctypes.byref(args), ctas, shards, kstep.stream_of(dev)))
     step_chunk_sharded.launches += 1
+    step_chunk_sharded.groups = ctas // shards
     cls = StepOut if step.out_mode == "full" else CompactOut
     return carry, cls(**{k: outs[k] for k in cls._fields})
 
 
 step_chunk_sharded.launches = 0
+step_chunk_sharded.groups = None
 
 
-def spec_eval_sharded(step, carry: dict, xs: dict, outs: dict | None = None):
+def spec_eval_sharded(step, carry: dict, xs: dict, outs: dict | None = None, *,
+                      _groups: int = 0, _light: bool | None = None):
     """B12 speculative_scores: every pod of the batch against one frozen
     carry, no bind -> StepOut / CompactOut with a leading pod axis, over
-    the workload's mesh.  CUDA tensors: one launch of one cluster of the
-    mesh's S CTAs per pod, into `outs` (kernels/spec.py round_outputs)
-    when the caller allocated them.  CPU tensors: spec_eval_sharded_plain."""
+    the workload's mesh.  CUDA tensors: one launch of spec_eval's cluster
+    kernel (kernels/spec.py launch_eval), one cluster a pod, each of the
+    mesh's S shards a group of G CTAs (G as spec_eval picks its cluster
+    size, from the batch; `spec_eval_sharded.groups` records it), in the
+    CTA shape the plan picks (kernels/spec.py eval_light;
+    `spec_eval_sharded.light`), into `outs` (kernels/spec.py
+    round_outputs) when the caller allocated them;
+    `spec_eval_sharded.batches` counts the launches by batch size.  CPU
+    tensors: spec_eval_sharded_plain.  For tests and measurement only,
+    `_groups` forces G (one of kernels/spec.py EVAL_SHARDS; on the CPU,
+    the twin's split) and `_light` the CTA shape."""
     dev = carry["core"].requested.device
     if dev.type == "cpu":
-        return spec_eval_sharded_plain(step, carry, xs)
-    shards = len(_plan(step))
-    kstep.check_device("spec_eval_sharded", dev, step.cw.statics, carry, xs)
-    lib = kstep.load_lib("mesh")
-    b = xs["is_pad"].shape[0]
+        return spec_eval_sharded_plain(step, carry, xs, _groups or None)
+    _plan(step, _groups or 1)
     if outs is None:
-        outs = kstep.alloc_outputs(step, b, dev, slots=b)
-    args = kstep.make_args(step, carry, xs, outs, slots=b)
-    _launch("spec_eval_sharded", lib.kss_spec_eval_sharded, args, shards, dev)
+        outs = kstep.alloc_outputs(step, xs["is_pad"].shape[0], dev)
+    spec_eval_sharded.groups, spec_eval_sharded.light = kspec.launch_eval(
+        "spec_eval_sharded", [(step, carry, xs, outs)], _groups, step.cw.mesh.shape["nodes"],
+        _light)
     spec_eval_sharded.launches += 1
+    spec_eval_sharded.batches[xs["is_pad"].shape[0]] += 1
     cls = StepOut if step.out_mode == "full" else CompactOut
     return cls(**{k: outs[k] for k in cls._fields})
 
 
 spec_eval_sharded.launches = 0
+spec_eval_sharded.groups = None
+spec_eval_sharded.light = None
+spec_eval_sharded.batches = collections.Counter()

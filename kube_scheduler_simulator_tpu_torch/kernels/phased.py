@@ -51,8 +51,9 @@ def phased_eval(step, carry: dict, xs1: dict, *, _shards: int = 0) -> StepOut:
         return step.eval_plain(carry, slice_pod(xs1, 0))
     if xs1["is_pad"].shape[0] != 1:
         raise ValueError("phased_eval takes one pod")
-    outs = kstep.alloc_outputs(step, 1, dev, slots=0)  # the kernel keeps its rows on chip
-    phased_eval.shards = kspec.launch_eval("phased_eval", [(step, carry, xs1, outs)], _shards)
+    outs = kstep.alloc_outputs(step, 1, dev)
+    phased_eval.shards, _ = kspec.launch_eval("phased_eval", [(step, carry, xs1, outs)],
+                                              _shards)
     phased_eval.launches += 1
     return StepOut(**{k: outs[k][0] for k in StepOut._fields})
 

@@ -23,10 +23,13 @@ The JAX package tiles the batch for XLA on a CPU (`_spec_tile`,
 tiling, and its results never depended on it.
 
 spec_eval's kernel, which also serves the host path's phased_eval
-(kernels/phased.py) and B11's fused dense eval (kernels/fuse.py), takes a
-table of sessions and spreads each pod over a thread-block cluster whose
-size comes from the launch's pods (`eval_shards`); `eval_sliced_plain`
-computes the same split in plain PyTorch.  spec_round's kernel, which
+(kernels/phased.py), B11's fused dense eval (kernels/fuse.py) and B12's
+mesh eval (kernels/mesh.py), takes a table of sessions and spreads each
+pod over a thread-block cluster whose size comes from the launch's pods
+(`eval_shards`; on a mesh each shard a group of its CTAs, `cta_slices`),
+in the CTA shape whose waves times passes over a slice are fewer
+(`eval_light`, `eval_cost`);
+`eval_sliced_plain` computes the same split in plain PyTorch.  spec_round's kernel, which
 also serves B11's fused sparse round, takes a table of sessions and gives
 each CTA a group of pods over one shared node pass (`round_pods`);
 `round_grouped_plain` computes its split in plain PyTorch.  So the CPU
@@ -70,26 +73,46 @@ def eval_plain(step, carry: dict, xs: dict) -> CompactOut:
     return CompactOut(*[_stack([getattr(o, f) for o in outs]) for f in CompactOut._fields])
 
 
-EVAL_SHARDS = (1, 2, 4, 8, 16)  # the cluster sizes of csrc/spec_eval.cu's kernel
+EVAL_SHARDS = (1, 2, 4, 8, 16)  # CTAs a shard (a pod without a mesh) in csrc/spec_eval.cu
+MAX_CTAS = 16                   # CTAs a cluster: csrc/cluster.cuh KSS_MAX_CTAS
 
 
-def eval_shards(b: int, n: int, clusters_at: dict) -> int:
-    """The cluster size of an eval launch over b clusters (pods of all its
-    sessions) of n nodes: the largest S of EVAL_SHARDS, S <= n, at which
-    all b clusters are resident on the card at once (clusters_at[S] >= b,
-    the card's count of clusters of S CTAs), else 1."""
-    for s in reversed(EVAL_SHARDS):
-        if s <= n and clusters_at.get(s, 0) >= b:
-            return s
+def eval_shards(b: int, n: int, clusters_at: dict, shards: int = 1) -> int:
+    """The group size G of an eval launch over b clusters (pods of all its
+    sessions) of n nodes split over `shards` "nodes" shards (a mesh's; 1
+    without one): the largest G of EVAL_SHARDS, R = shards x G <= n and
+    <= MAX_CTAS, at which all b clusters are resident on the card at once
+    (clusters_at[G] >= b, the card's count of clusters of R CTAs), else
+    1.  Without a mesh G is the cluster size."""
+    for g in reversed(EVAL_SHARDS):
+        if shards * g <= min(n, MAX_CTAS) and clusters_at.get(g, 0) >= b:
+            return g
     return 1
 
 
-def cluster_slices(n: int, shards: int) -> tuple[tuple[int, int], ...]:
-    """CTA r's nodes [r W, (r + 1) W), W = ceil(n / shards), clipped to n
-    (csrc/cluster.cuh): the last slice may be ragged and, where
-    n < shards, slices empty."""
-    w = -(-n // shards)
-    return tuple((min(r * w, n), min((r + 1) * w, n)) for r in range(shards))
+def cta_slices(n: int, shards: int, groups: int) -> tuple[tuple[int, int], ...]:
+    """The node slices of a cluster of shards x groups CTAs, in rank
+    order (csrc/slices.cuh node_slice): shard s owns [s V, (s + 1) V),
+    V = ceil(n / shards), and CTA g of its group [g W, (g + 1) W) of it,
+    W = ceil(V / groups), clipped to the shard.  A last sub-slice may be
+    ragged and, where a shard has fewer nodes than CTAs, sub-slices
+    empty."""
+    v = -(-n // shards)
+    w = max(-(-v // groups), 1)
+    out = []
+    for s in range(shards):
+        slo, shi = min(s * v, n), min(s * v + v, n)
+        for g in range(groups):
+            lo = min(slo + g * w, shi)
+            out.append((lo, min(lo + w, shi)))
+    return tuple(out)
+
+
+def cluster_slices(n: int, ctas: int) -> tuple[tuple[int, int], ...]:
+    """CTA r's nodes [r W, (r + 1) W), W = ceil(n / ctas), clipped to n:
+    cta_slices without a mesh.  The last slice may be ragged and, where
+    n < ctas, slices empty."""
+    return cta_slices(n, 1, ctas)
 
 
 def eval_sliced_plain(step, carry: dict, xs: dict, shards: int):
@@ -105,50 +128,102 @@ def eval_sliced_plain(step, carry: dict, xs: dict, shards: int):
                               for i in range(xs["is_pad"].shape[0])])
 
 
-def launch_eval(what: str, entries: list, shards: int) -> int:
+EVAL_THREADS = {False: 512, True: 256}  # the CTA shapes' most threads (csrc/spec_eval.cu)
+
+
+def eval_cost(b: int, n: int, shards: int, groups: int, clusters_at: dict, light: bool) -> float:
+    """An eval launch's critical path in the plan's own terms: the waves
+    of b clusters the card holds at once at G = `groups` (clusters_at[G],
+    kss_eval_plan's occupancy of the shape) times the passes of a CTA's
+    threads over its slice (W = the widest of cta_slices(n, shards, G),
+    at most EVAL_THREADS[light] threads, one a node) -> waves x passes
+    (inf where the card holds no cluster)."""
+    held = clusters_at.get(groups, 0)
+    if held < 1:
+        return float("inf")
+    w = max(-(-(-(-n // shards)) // groups), 1)
+    threads = min(max(-(-w // 32) * 32, 32), EVAL_THREADS[light])
+    return -(-b // held) * -(-w // threads)
+
+
+def eval_light(b: int, n: int, shards: int, default: tuple, light: tuple) -> bool:
+    """Whether an eval launch over b clusters (pods of all its sessions)
+    takes the light CTA shape (csrc/spec_eval.cu: at most 256 threads,
+    three CTAs an SM) rather than the default one (up to 512 threads, one
+    an SM): where its eval_cost is lower, each shape at its own G and
+    occupancy (`default`, `light`: (G, clusters_at)).  Past the resident
+    clusters three lighter CTAs an SM take fewer waves; within them a G
+    that only the light shape holds all at once takes fewer passes."""
+    return (eval_cost(b, n, shards, light[0], light[1], True)
+            < eval_cost(b, n, shards, default[0], default[1], False))
+
+
+def launch_eval(what: str, entries: list, groups: int, shards: int = 1,
+                light: bool | None = None) -> tuple[int, bool]:
     """One launch of csrc/spec_eval.cu's cluster kernel over a table of
     sessions, `entries` of (step, carry, xs, outs): outs in the layout of
     step.out_mode, every member with the same batch, nodes and state
-    bytes; one cluster of S CTAs per pod of each batch.  S = `shards` (one
-    of EVAL_SHARDS), or where it is 0 eval_shards' choice over the launch's
-    K x B clusters from the card's cluster occupancy (kss_eval_plan).
-    Where a CTA's state passes shared memory it goes to device memory
-    allocated here, held through the launch, a slot per CTA.  Launches on
-    the current stream.  -> S."""
+    bytes; one cluster of R = shards x G CTAs per pod of each batch, each
+    of the `shards` "nodes" shards (a mesh's; 1 without one) a group of G.
+    G = `groups` (one of EVAL_SHARDS), or where it is 0 eval_shards'
+    choice over the launch's K x B clusters from the card's cluster
+    occupancy (kss_eval_plan); the CTA shape `light`, or where it is None
+    eval_light's choice from both shapes' plans, each at its own G.
+    Where a CTA's
+    state passes shared memory it goes to device memory allocated here,
+    held through the launch, a slot per CTA.  Launches on the current
+    stream.  -> (G, light)."""
     dev = _device(entries[0][1])
     for step, carry, xs, _ in entries:
         kstep.check_device(what, dev, step.cw.statics, carry, xs)
-    if shards not in (0, *EVAL_SHARDS):
-        raise ValueError(f"{what}: {shards} CTAs a cluster, not one of {EVAL_SHARDS}")
+    if groups not in (0, *EVAL_SHARDS) or shards * groups > MAX_CTAS:
+        raise ValueError(f"{what}: {groups} CTAs a shard of {shards}, not one of "
+                         f"{EVAL_SHARDS} within a cluster of {MAX_CTAS}")
     lib = kstep.load_lib("spec_eval")
     k, b = len(entries), entries[0][2]["is_pad"].shape[0]
+    n = entries[0][0].cw.n_nodes
     table = (kstep.StepArgs * k)()
     for i, (step, carry, xs, outs) in enumerate(entries):
-        table[i] = kstep.make_args(step, carry, xs, outs, slots=outs["scratch_raw"].shape[0])
-    clusters = (ctypes.c_int * len(EVAL_SHARDS))()
-    cta_spill = (ctypes.c_longlong * len(EVAL_SHARDS))()
-    kstep.check_launch(f"{what} plan", lib.kss_eval_plan(table, k, clusters, cta_spill))
-    if shards == 0:
-        shards = eval_shards(k * b, entries[0][0].cw.n_nodes, dict(zip(EVAL_SHARDS, clusters)))
-    j = EVAL_SHARDS.index(shards)
+        table[i] = kstep.make_args(step, carry, xs, outs)
+
+    def plan(shape: bool):
+        clusters = (ctypes.c_int * len(EVAL_SHARDS))()
+        cta_spill = (ctypes.c_longlong * len(EVAL_SHARDS))()
+        kstep.check_launch(f"{what} plan", lib.kss_eval_plan(table, k, shards, int(shape),
+                                                             clusters, cta_spill))
+        return dict(zip(EVAL_SHARDS, clusters)), dict(zip(EVAL_SHARDS, cta_spill))
+
+    clusters_at, cta_spill = plan(bool(light))
+    g = groups or eval_shards(k * b, n, clusters_at, shards)
+    # the light shape's plan is asked only where the default one takes
+    # more than one wave of one pass
+    if light is None:
+        light = False
+        if eval_cost(k * b, n, shards, g, clusters_at, False) > 1:
+            light_at, light_spill = plan(True)
+            gl = groups or eval_shards(k * b, n, light_at, shards)
+            if eval_light(k * b, n, shards, (g, clusters_at), (gl, light_at)):
+                light, g, cta_spill = True, gl, light_spill
     spill = None
-    if cta_spill[j]:
-        per = cta_spill[j] * b * shards
+    if cta_spill[g]:
+        per = cta_spill[g] * b * shards * g
         spill = torch.empty(per * k, dtype=torch.uint8, device=dev)
         for i in range(k):
             table[i].spill = spill.data_ptr() + i * per
-    kstep.check_launch(what, lib.kss_spec_eval(table, k, shards, kstep.stream_of(dev)))
-    return shards
+    kstep.check_launch(what, lib.kss_spec_eval(table, k, shards * g, shards, int(light),
+                                               kstep.stream_of(dev)))
+    return g, light
 
 
 def spec_eval(step, carry: dict, xs: dict, outs: dict | None = None, *,
-              _shards: int = 0) -> CompactOut:
+              _shards: int = 0, _light: bool | None = None) -> CompactOut:
     """B2: the dense round's evaluation.  CUDA tensors: one launch of one
     thread-block cluster per pod of the batch (launch_eval), into `outs`
     (round_outputs) when the caller allocated them; `spec_eval.shards`
-    records the cluster size it took, `spec_eval.batches` the launches by
-    batch size.  CPU tensors: eval_plain.  For tests and measurement
-    only, `_shards` forces the cluster size (one of EVAL_SHARDS)."""
+    records the cluster size it took, `spec_eval.light` the CTA shape,
+    `spec_eval.batches` the launches by batch size.  CPU tensors:
+    eval_plain.  For tests and measurement only, `_shards` forces the
+    cluster size (one of EVAL_SHARDS) and `_light` the CTA shape."""
     if step.out_mode != "compact":
         raise ValueError("spec_eval evaluates the compact step")
     dev = _device(carry)
@@ -156,8 +231,9 @@ def spec_eval(step, carry: dict, xs: dict, outs: dict | None = None, *,
         return eval_plain(step, carry, xs)
     b = xs["is_pad"].shape[0]
     if outs is None:
-        outs = kstep.alloc_outputs(step, b, dev, slots=0)  # the kernel keeps its rows on chip
-    spec_eval.shards = launch_eval("spec_eval", [(step, carry, xs, outs)], _shards)
+        outs = kstep.alloc_outputs(step, b, dev)
+    spec_eval.shards, spec_eval.light = launch_eval("spec_eval", [(step, carry, xs, outs)],
+                                                    _shards, 1, _light)
     spec_eval.launches += 1
     spec_eval.batches[b] += 1
     return CompactOut(**{k: outs[k] for k in CompactOut._fields})
@@ -165,6 +241,7 @@ def spec_eval(step, carry: dict, xs: dict, outs: dict | None = None, *,
 
 spec_eval.launches = 0
 spec_eval.shards = None
+spec_eval.light = None
 spec_eval.batches = collections.Counter()
 
 
@@ -419,7 +496,7 @@ def launch_round(what: str, entries: list, kcand: int, pods: int, clocks=None) -
     k, b = len(entries), entries[0][2]["is_pad"].shape[0]
     table = (kstep.StepArgs * k)()
     for i, (step, carry, xs, outs) in enumerate(entries):
-        table[i] = kstep.make_args(step, carry, xs, outs, slots=0)
+        table[i] = kstep.make_args(step, carry, xs, outs)
         table[i].K = kcand
     for i, ck in enumerate(clocks or ()):
         table[i].clock = kstep._ptr(ck, torch.int64, (b * kstep.CLOCK_SLOTS,), "clock")
@@ -445,7 +522,7 @@ def spec_round(step, carry: dict, xs: dict, kcand: int, outs: dict | None = None
                _pods: int = 0, _clock: torch.Tensor | None = None):
     """B4: the sparse round's per-pod pass.  CUDA tensors: one launch of
     the pod-group kernel (launch_round, one session), into `outs`
-    (round_outputs with kcand) when the caller allocated them;
+    (round_outputs) when the caller allocated them;
     `spec_round.pods` records the group size it took, `spec_round.batches`
     the launches by batch size.  CPU tensors: sparse_round_plain.  For
     tests and measurement only, `_pods` forces the group size (one of
@@ -458,7 +535,7 @@ def spec_round(step, carry: dict, xs: dict, kcand: int, outs: dict | None = None
         return sparse_round_plain(step, carry, xs, kcand)
     b = xs["is_pad"].shape[0]
     if outs is None:
-        outs = round_outputs(step, b, dev, kcand)
+        outs = round_outputs(step, b, dev)
     spec_round.pods = launch_round("spec_round", [(step, carry, xs, outs)], kcand, _pods,
                                    None if _clock is None else [_clock])
     spec_round.launches += 1
@@ -498,14 +575,10 @@ def check_round(step, kcand: int) -> None:
         raise ValueError(f"kcand {kcand} outside [1, {step.cw.n_nodes}]")
 
 
-def round_outputs(step, b: int, dev: torch.device, kcand: int | None = None) -> dict:
+def round_outputs(step, b: int, dev: torch.device) -> dict:
     """Output tensors of one round's launch over b pods, the dense eval's
-    (kcand None) or the sparse round's (whose kernels keep their state on
-    chip), and the oracle's K ("k").  A dense round over a mesh keeps each
-    pod's rows in global scratch (kernels/mesh.py spec_eval_sharded): one
-    slot a pod."""
-    slots = b if kcand is None and step.cw.mesh is not None else 0
-    outs = kstep.alloc_outputs(step, b, dev, slots=slots)
+    or the sparse round's, and the oracle's K ("k")."""
+    outs = kstep.alloc_outputs(step, b, dev)
     outs["k"] = torch.empty((), dtype=torch.int32, device=dev)
     return outs
 

@@ -88,7 +88,6 @@ _OUT_PTR_FIELDS = (
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
-    "scratch_raw", "scratch_feas", "scratch_ign",
     "clock", "spill",
 )
 _LL = ctypes.c_longlong
@@ -166,12 +165,10 @@ def _score_groups(step):
     return groups, rows, counts, check, 8 if step.wide_raw == "i64" else 4
 
 
-def make_args(step, carry, xs, outs: dict | None, slots: int = 1,
-              width: int | None = None) -> StepArgs:
+def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
     """Fill StepArgs from the workload, the carry, the chunk's xs and the
-    output / scratch tensors (`slots` scratch slots of raw rows `width`
-    wide, N by default; none when `outs` is None), checking each tensor on
-    the way."""
+    output tensors (none when `outs` is None), checking each tensor on the
+    way."""
     cw = step.cw
     n, r = cw.n_nodes, cw.schema.n
     c = xs["is_pad"].shape[0]
@@ -298,10 +295,6 @@ def make_args(step, carry, xs, outs: dict | None, slots: int = 1,
     a.out_selected = _ptr(outs["selected"], i32, (c,), "selected")
     a.out_feasible_count = _ptr(outs["feasible_count"], i32, (c,), "feasible_count")
     a.out_prefilter_reject = _ptr(outs["prefilter_reject"], i32, (c,), "prefilter_reject")
-    a.scratch_raw = _ptr(outs["scratch_raw"], i64, (slots, max(s, 1), width or n),
-                         "scratch_raw")
-    a.scratch_feas = _ptr(outs["scratch_feas"], u8, (slots, n), "scratch_feas")
-    a.scratch_ign = _ptr(outs["scratch_ign"], u8, (slots, n), "scratch_ign")
     return a
 
 
@@ -402,11 +395,10 @@ def _custom_args(a: StepArgs, step, xs, c: int, n: int) -> dict[str, int]:
     return ids
 
 
-def alloc_outputs(step, c: int, device, slots: int = 1, width: int | None = None) -> dict:
-    """Output and scratch tensors of one launch, with `slots` scratch slots
-    (one per pod in flight) of raw rows `width` wide, N by default
-    (torch.empty: the kernel writes every element it is responsible
-    for)."""
+def alloc_outputs(step, c: int, device) -> dict:
+    """Output tensors of one launch over c pods (torch.empty: the kernel
+    writes every element it is responsible for; it keeps a pod's rows on
+    chip, or in StepArgs.spill)."""
     n = step.cw.n_nodes
     f, s = len(step.filter_names), len(step.score_names)
 
@@ -417,9 +409,6 @@ def alloc_outputs(step, c: int, device, slots: int = 1, width: int | None = None
         "selected": empty((c,), torch.int32),
         "feasible_count": empty((c,), torch.int32),
         "prefilter_reject": empty((c,), torch.int32),
-        "scratch_raw": empty((slots, max(s, 1), width or n), torch.int64),
-        "scratch_feas": empty((slots, n), torch.uint8),
-        "scratch_ign": empty((slots, n), torch.uint8),
     }
     if step.out_mode == "full":
         outs["filter_codes"] = empty((c, f, n), torch.int32)
@@ -476,16 +465,18 @@ def check_launch(what: str, err: int) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def plan_cluster(lib: ctypes.CDLL, args: StepArgs, shards: int, dev: torch.device):
-    """The plan of one launch of step_chunk's cluster kernel (csrc/
-    step_kernel.cuh kss_step_plan) -> (S, the device memory that holds the
-    CTAs' state, or None).  `shards` 0 lets the kernel pick S.  Where a
+def plan_cluster(lib: ctypes.CDLL, args: StepArgs, ctas: int, dev: torch.device,
+                 shards: int = 1):
+    """The plan of one launch of step_chunk's cluster kernel over
+    `shards` "nodes" shards (a mesh's; 1 without one) (csrc/
+    step_kernel.cuh kss_step_plan) -> (R, the device memory that holds the
+    CTAs' state, or None).  `ctas` 0 lets the kernel pick R.  Where a
     CTA's state does not fit in shared memory it goes to device memory,
     allocated here on `dev` and set on args.spill; the caller launches
     before it lets the tensor go (PyTorch's allocator orders its reuse
     after the launch on the stream)."""
     out, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
-    check_launch("step_chunk plan", lib.kss_step_plan(ctypes.byref(args), shards,
+    check_launch("step_chunk plan", lib.kss_step_plan(ctypes.byref(args), ctas, shards,
                                                       ctypes.byref(out), ctypes.byref(nbytes)))
     spill = None
     if nbytes.value:
@@ -519,12 +510,13 @@ def step_chunk(step, carry: dict, xs_chunk: dict, *, _shards: int = 0,
     check_device("step_chunk", dev, step.cw.statics, carry, xs_chunk)
     lib = load_lib("step" if _clock is None else "step_clock")
     c = xs_chunk["is_pad"].shape[0]
-    outs = alloc_outputs(step, c, dev, slots=0)  # the kernel keeps its rows on chip
-    args = make_args(step, carry, xs_chunk, outs, slots=0)
+    outs = alloc_outputs(step, c, dev)
+    args = make_args(step, carry, xs_chunk, outs)
     if _clock is not None:
         args.clock = _ptr(_clock, torch.int64, (c * CLOCK_SLOTS + 2,), "clock")
     shards, spill = plan_cluster(lib, args, _shards, dev)
-    check_launch("step_chunk", lib.kss_step_chunk(ctypes.byref(args), shards, stream_of(dev)))
+    check_launch("step_chunk", lib.kss_step_chunk(ctypes.byref(args), shards, 1,
+                                                  stream_of(dev)))
     step_chunk.launches += 1
     step_chunk.shards = shards
     step_chunk.spilled = spill is not None

@@ -14,9 +14,9 @@ and `stats()` are the JAX module's, unchanged.  Two things differ:
     it runs each member's plain round in turn;
   * `_place_sessions` places nothing: on one card a mesh's members keep
     their own tensors, and a fused dense round of members sharded over a
-    mesh runs their B12 `spec_eval_sharded` rounds in turn inside the one
-    `_run_fused` (kernels/fuse.py `_dense_fused`), so the tallies stay
-    the JAX ones.
+    mesh is one table launch too (kernels/fuse.py `spec_eval_fused`, each
+    member's "nodes" shards groups of CTAs as in B12 `spec_eval_sharded`),
+    so the tallies stay the JAX ones.
 
 The rest is the JAX module's description, which holds for the port.
 

@@ -6,12 +6,15 @@ lets GSPMD insert the cross-shard all-reduces; its "dp" axis spreads a
 speculative pod batch.  Here a `Mesh` has the same axes, ("dp",
 "nodes"), on ONE card:
 
-  * its "nodes" extent S is the cluster size of the sharded kernels (B12,
-    csrc/mesh.cu): each shard is one CTA of a thread-block cluster and
-    owns the contiguous nodes [r N/S, (r+1) N/S), the slices
-    `_node_axis_spec` (JAX :62) gives on a device mesh.  The cross-shard
-    reductions run through distributed shared memory.  A portable cluster
-    holds at most 8 CTAs, so S is at most 8;
+  * its "nodes" extent S splits the node axis into the contiguous slices
+    [r N/S, (r+1) N/S), the slices `_node_axis_spec` (JAX :62) gives on a
+    device mesh.  The sharded kernels (B12, kernels/mesh.py) are the
+    unsharded step's and eval's cluster kernels at their own plan: a
+    cluster of R CTAs (16 where the card has room) in which each shard
+    is a group of R / S CTAs over its slice, split again among them
+    (csrc/slices.cuh).  The cross-shard reductions run through
+    distributed shared memory, in node order.  S is at most 8, so every
+    shard has a CTA of its own at either cluster size (16 or 8);
   * its "dp" extent sets the batch ladder's rung rounding
     (parallel/speculative.py `_batch_ladder`): every speculative batch
     splits into dp equal groups of pods.  On one card each pod of a batch
@@ -54,8 +57,8 @@ class Mesh:
     def __init__(self, dp: int, nodes: int, device):
         if nodes > MAX_SHARDS:
             raise ValueError(
-                f"a mesh's 'nodes' extent ({nodes}) is the cluster size of the sharded "
-                f"kernels: a portable thread-block cluster holds at most {MAX_SHARDS} CTAs")
+                f"a mesh's 'nodes' extent ({nodes}) splits a cluster of the sharded "
+                f"kernels into groups of CTAs: they take at most {MAX_SHARDS} shards")
         self.shape = {"dp": dp, "nodes": nodes}
         self.device = resolve_device(device)
 
@@ -88,8 +91,8 @@ def _card(device) -> torch.device:
 
 
 def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda") -> Mesh:
-    """JAX :42: a (dp) x (nodes = n / dp) mesh.  n defaults to the largest
-    portable cluster, 8.  `device` is one card ("cuda" by default, which
+    """JAX :42: a (dp) x (nodes = n / dp) mesh.  n defaults to MAX_SHARDS,
+    8.  `device` is one card ("cuda" by default, which
     needs a card), "cpu", or a list of devices, which must name one card:
     a list over several raises (B12b)."""
     devices = list(device) if isinstance(device, (list, tuple)) else [device]
@@ -156,8 +159,9 @@ def sharded_step(cw: CompiledWorkload, mesh: Mesh | None = None):
 def speculative_scores(cw: CompiledWorkload, mesh: Mesh | None = None):
     """JAX :143: batched speculative evaluation, f(carry, xs_batch) ->
     StepOut batch — every pod of the batch scored against one frozen
-    carry, through B12 `spec_eval_sharded` (one cluster of the mesh's S
-    CTAs per pod).  With no mesh the node axis is one shard."""
+    carry, through B12 `spec_eval_sharded` (one cluster per pod, each of
+    the mesh's S shards a group of its CTAs).  With no mesh the node axis
+    is one shard."""
     if cw.mesh is None:
         cw = shard_workload(cw, mesh if mesh is not None else Mesh(1, 1, cw.device))
     step = build_step(cw)

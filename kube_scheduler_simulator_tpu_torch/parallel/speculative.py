@@ -27,8 +27,10 @@ Each round's device work is a hand-written kernel (kernels/spec.py):
 
 On a mesh (`mesh=`, parallel/mesh.py, JAX :762-763, :969-979, :992-996)
 the stream runs over `shard_workload(cw, mesh)`: the dense round's eval
-is B12 `spec_eval_sharded` (kernels/mesh.py), one cluster of the mesh's
-"nodes" CTAs per pod; the scan fallback is B12 `step_chunk_sharded`; the
+is B12 `spec_eval_sharded` (kernels/mesh.py), one cluster per pod with
+each "nodes" shard a group of its CTAs (a fused round of such sessions:
+one table launch of the same kernel); the scan fallback is B12
+`step_chunk_sharded`; the
 batch ladder rounds its rungs to dp multiples.  The sparse round (B4), the oracle, the commit and the grid
 stay unsharded, as in JAX (`_sparse_round_fn` takes no mesh).
 

@@ -451,7 +451,7 @@ def test_step_chunk_past_shared_memory(card):
     CTA (S = 1 forced) need about 250 KB of state, past the card's 227 KB,
     so the kernel keeps it in device memory, and equals Step.plain_scan.
     The same fleet on its own cluster fits; B12's wrapper at S = 1 takes
-    the same plan."""
+    the step's own plan (one group of 16, or 8, CTAs) and equals both."""
     from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
     from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
 
@@ -957,10 +957,10 @@ def test_fused_members_on_their_own_streams(card):
 
 def test_sharded_members_on_their_own_streams(card):
     """Members sharded over a mesh (B12), each carry written on a stream of
-    the member's own behind a long op: the fused dense round runs their
-    spec_eval_sharded launches in turn on the leader's stream, which waits
-    for each member's, and each member's waits for the launches, so the
-    result equals the plain rounds."""
+    the member's own behind a long op: the fused dense round is ONE table
+    launch of the eval kernel over the members (each shard a group of
+    CTAs) on the leader's stream, which waits for each member's, and each
+    member's waits for the launch, so the result equals the plain rounds."""
     from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
     from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
     from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh, shard_workload
@@ -975,9 +975,10 @@ def test_sharded_members_on_their_own_streams(card):
             torch.cuda._sleep(20_000_000)
             members.append(kfuse.Member(step, _clone_carry(m.carry), m.xs))
     assert len({m.stream for m in members}) == 3
-    n0 = kmesh.spec_eval_sharded.launches
+    n0 = (kfuse.spec_eval_fused.launches, kmesh.spec_eval_sharded.launches)
     fused = kfuse.dense_round.fused([(m,) for m in members])
-    assert kmesh.spec_eval_sharded.launches - n0 == 3
+    assert (kfuse.spec_eval_fused.launches, kmesh.spec_eval_sharded.launches) == (n0[0] + 1,
+                                                                                  n0[1])
     for s in streams:
         s.synchronize()
     for i, m in enumerate(members):
@@ -1111,9 +1112,12 @@ def _claiming_shards(cw, shards):
 @pytest.mark.parametrize("shards", [1, 2, 4, 8])
 @pytest.mark.parametrize("wl", list(MESH_WORKLOADS))
 def test_step_chunk_sharded_matches_plain_and_unsharded(card, wl, shards):
-    """B12 step_chunk_sharded against its plain twin and against the
-    unsharded step_chunk (B1), outputs and carry, exactly; every launch's
-    error code checked by the wrapper, faults surfaced by synchronize."""
+    """B12 step_chunk_sharded, each shard a group of the plan's CTAs,
+    against its plain twin over the same CTA slices and against the
+    unsharded step_chunk (B1), and at forced group sizes G = 1, 2 (8
+    nodes at S = 8, G = 2: empty sub-slices) against step_chunk, outputs
+    and carry, exactly; every launch's error code checked by the wrapper,
+    faults surfaced by synchronize."""
     from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
     from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
 
@@ -1125,6 +1129,7 @@ def test_step_chunk_sharded_matches_plain_and_unsharded(card, wl, shards):
                   score_dtypes=cw.host["score_dtypes"], wide_raw=wide)
         step, sstep = build_step(cw, **kw), build_step(scw, **kw)
         cs, cp, cu = (_clone_carry(cw.init_carry) for _ in range(3))
+        cg = {g: _clone_carry(cw.init_carry) for g in (1, 2)}
         launches = kmesh.step_chunk_sharded.launches
         for lo in range(0, cw.n_pods, chunk):
             hi = min(lo + chunk, cw.n_pods)
@@ -1132,21 +1137,30 @@ def test_step_chunk_sharded_matches_plain_and_unsharded(card, wl, shards):
             xs["is_pad"] = torch.arange(chunk, device=card) >= (hi - lo)
             cs, os_ = kmesh.step_chunk_sharded(sstep, cs, xs)
             torch.cuda.synchronize()
-            cp, op = kmesh.step_chunk_sharded_plain(sstep, cp, xs)
+            plan = kmesh.step_chunk_sharded.groups
+            cp, op = kmesh.step_chunk_sharded_plain(sstep, cp, xs, plan)
             cu, ou = kstep.step_chunk(step, cu, xs)
+            assert plan * shards == kstep.step_chunk.shards
             for f in os_._fields:
                 what = (wl, shards, out_mode, pack_mode, wide, lo, f)
                 _equal(getattr(os_, f), getattr(op, f), ("plain",) + what)
                 _equal(getattr(os_, f), getattr(ou, f), ("unsharded",) + what)
             _equal(cs, cp, (wl, shards, lo, "carry vs plain"))
             _equal(cs, cu, (wl, shards, lo, "carry vs unsharded"))
-        assert kmesh.step_chunk_sharded.launches - launches == -(-cw.n_pods // chunk)
+            for g in cg:
+                cg[g], og = kmesh.step_chunk_sharded(sstep, cg[g], xs, _groups=g)
+                assert kmesh.step_chunk_sharded.groups == g
+                _equal(og, ou, (wl, shards, g, out_mode, wide, lo, "forced G vs unsharded"))
+                _equal(cg[g], cu, (wl, shards, g, lo, "forced G carry vs unsharded"))
+        assert kmesh.step_chunk_sharded.launches - launches == 3 * -(-cw.n_pods // chunk)
 
 
 @pytest.mark.parametrize("n,dp", [(1, 1), (2, 1), (8, 2), (8, 1)])  # S = 1, 2, 4, 8
 @pytest.mark.parametrize("wl", list(MESH_WORKLOADS))
 def test_spec_eval_sharded_matches_plain_and_unsharded(card, wl, n, dp):
-    """B12 spec_eval_sharded against its plain twin and spec_eval (B2), in
+    """B12 spec_eval_sharded, each shard a group of the plan's G CTAs,
+    against its plain twin over the same CTA slices and spec_eval (B2),
+    and at forced G = 1, 2 and the light CTA shape against spec_eval, in
     compact mode at three tiers and in full mode against the plain eval;
     S is the mesh's "nodes" extent, whatever its dp."""
     from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
@@ -1167,18 +1181,27 @@ def test_spec_eval_sharded_matches_plain_and_unsharded(card, wl, n, dp):
             xs = _batch(cw, lo, b, card)
             got = kmesh.spec_eval_sharded(sstep, carry, xs)
             torch.cuda.synchronize()
-            _equal(got, kmesh.spec_eval_sharded_plain(sstep, carry, xs),
-                   (wl, shards, wide, lo, "plain"))
-            _equal(got, kspec.spec_eval(step, carry, xs), (wl, shards, wide, lo, "B2"))
+            g = kmesh.spec_eval_sharded.groups
+            assert shards * g <= 16
+            _equal(got, kmesh.spec_eval_sharded_plain(sstep, carry, xs, g),
+                   (wl, shards, g, wide, lo, "plain"))
+            _equal(got, kspec.spec_eval(step, carry, xs), (wl, shards, g, wide, lo, "B2"))
+            for kw in ({"_groups": 1}, {"_groups": 2}, {"_light": True}, {"_light": False}):
+                _equal(kmesh.spec_eval_sharded(sstep, carry, xs, **kw), got,
+                       (wl, shards, kw, wide, lo, "forced vs plan"))
     full = build_step(scw)
     xs = _batch(cw, 0, 8, card)
     got = kmesh.spec_eval_sharded(full, carry, xs)
-    _equal(got, kmesh.spec_eval_sharded_plain(full, carry, xs), (wl, shards, "full"))
+    _equal(got, kmesh.spec_eval_sharded_plain(full, carry, xs, kmesh.spec_eval_sharded.groups),
+           (wl, shards, "full"))
+    _equal(kmesh.spec_eval_sharded(full, carry, xs, _light=True), got, (wl, shards, "full light"))
 
 
 def test_sharded_launch_of_16_refused(card):
-    """S = 16 is past a portable cluster: the wrapper refuses it before a
-    launch, and the C entry point returns an error code without one."""
+    """S = 16 shards are past what the sharded kernels take (1 to 8, each
+    a group of a cluster's CTAs), and so is a forced group past a cluster
+    of 16: the wrappers refuse them before a launch, and the C entry
+    point returns an error code without one."""
     import ctypes
 
     from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
@@ -1192,13 +1215,20 @@ def test_sharded_launch_of_16_refused(card):
         kmesh.step_chunk_sharded(wide16, _clone_carry(cw.init_carry), xs)
     with pytest.raises(ValueError, match="1 to 8"):
         kmesh.spec_eval_sharded(wide16, cw.init_carry, xs)
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    wide = build_step(_sharded(cw, make_mesh(8, device=card)))
+    with pytest.raises(ValueError, match="cluster holds"):
+        kmesh.step_chunk_sharded(wide, _clone_carry(cw.init_carry), xs, _groups=4)
+    with pytest.raises(ValueError, match="cluster holds"):
+        kmesh.spec_eval_sharded(wide, cw.init_carry, xs, _groups=4)
     assert (kmesh.step_chunk_sharded.launches, kmesh.spec_eval_sharded.launches) == n0
-    lib = kstep.load_lib("mesh")
+    lib = kstep.load_lib("step")
     assert lib.kss_mesh_max_shards() == kmesh.MAX_SHARDS
     outs = kstep.alloc_outputs(step, 8, card)
     args = kstep.make_args(step, _clone_carry(cw.init_carry), xs, outs)
-    err = lib.kss_step_chunk_sharded(ctypes.byref(args), 16, kstep.stream_of(card))
-    assert err != 0
+    for ctas, shards in ((16, 16), (16, 3), (32, 8), (12, 8)):
+        assert lib.kss_step_chunk(ctypes.byref(args), ctas, shards, kstep.stream_of(card)) != 0
     torch.cuda.synchronize()
 
 
@@ -1230,10 +1260,11 @@ def _eval_case(wl, dev):
 @pytest.mark.parametrize("wl", list(EVAL_FLEETS))
 def test_spec_eval_cluster_at_every_size_matches_plain(card, wl, b):
     """spec_eval (csrc/spec_eval.cu, one pod per cluster) on b pods from
-    pod 64 against the carry of the first 64, at the plan's S and forced
-    to each S of EVAL_SHARDS, == eval_plain, exactly: 5,000 nodes (slices
-    of 313 and 305 at S = 16, the state past shared memory at S = 1), a
-    ragged 4,999 and 6 nodes (empty slices from S = 8)."""
+    pod 64 against the carry of the first 64, at the plan's S, forced to
+    each S of EVAL_SHARDS and forced to each CTA shape, == eval_plain,
+    exactly: 5,000 nodes (slices of 313 and 305 at S = 16, the state past
+    shared memory at S = 1), a ragged 4,999 and 6 nodes (empty slices from
+    S = 8)."""
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
 
     cw, step, carry = _eval_case(wl, card)
@@ -1245,7 +1276,10 @@ def test_spec_eval_cluster_at_every_size_matches_plain(card, wl, b):
     for s in kspec.EVAL_SHARDS:
         _equal(kspec.spec_eval(step, carry, xs, _shards=s), want, (wl, b, s))
         assert kspec.spec_eval.shards == s
-    assert kspec.spec_eval.launches == before + 1 + len(kspec.EVAL_SHARDS)
+    for light in (False, True):
+        _equal(kspec.spec_eval(step, carry, xs, _light=light), want, (wl, b, "light", light))
+        assert kspec.spec_eval.light is light
+    assert kspec.spec_eval.launches == before + 3 + len(kspec.EVAL_SHARDS)
 
 
 @pytest.mark.parametrize("wl", ["config5", "default_profile"])
@@ -1300,8 +1334,8 @@ def test_eval_table_at_every_session_count_matches_solo_and_plain(card, wl, b):
     """B11's dense eval (spec_eval_fused: the eval kernel over a table of
     sessions) at K = 1, 2, 4, 8, 16 sessions of b pods == each member's
     solo spec_eval launch == eval_plain, exactly, at the plan's S (from
-    the K x B clusters) and, at K = 2 and 16, forced to each S: 5,000,
-    4,999 and 6 nodes."""
+    the K x B clusters) and, at K = 2 and 16, forced to each S and each
+    CTA shape: 5,000, 4,999 and 6 nodes."""
     from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
 
@@ -1320,6 +1354,11 @@ def test_eval_table_at_every_session_count_matches_solo_and_plain(card, wl, b):
             assert s in (0, kfuse.spec_eval_fused.shards)
             for i, o in enumerate(got):
                 _equal(tuple(o), solo[i % 2], (wl, b, k, s, i))
+        for light in ((False, True) if k in (2, 16) else ()):
+            got = kfuse.spec_eval_fused(_members_of(step, carry, batches[:k]), _light=light)
+            assert kfuse.spec_eval_fused.light is light
+            for i, o in enumerate(got):
+                _equal(tuple(o), solo[i % 2], (wl, b, k, "light", light, i))
 
 
 ROUND_FLEETS = (6, 37, 4999)
