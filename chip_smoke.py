@@ -39,7 +39,7 @@ phase:
   17   the slot-pinned and SAFE-set streams with device_resident=True
        against phases 7 and 12;
   18   B8 (quorum_slice) on a 10,000-pod slice of 1,250 groups, and B10
-       (phased_eval, renormalize_row) on config 5's 5,000 nodes, each
+       (phased_eval, renormalize_rows) on config 5's 5,000 nodes, each
        held exactly equal to its plain version, with times and bounds;
   19   the scheduling engine: config 5 created in an ObjectStore and
        scheduled by SchedulerEngine.schedule_pending() at its default
@@ -52,7 +52,8 @@ phase:
        all-or-nothing and equal across both commit modes and the scan;
   21   the engine's host-interleaved path (B10): 256 config-5 pods with
        a webhook extender on localhost and an AfterScore hook, equal to
-       the same run with device="cpu";
+       the same run with device="cpu", each pod's rows renormalized in
+       one renormalize_rows launch (a launch a flush, at most one a pod);
   22   B11, the cross-session fused round (spec_round_fused and
        spec_eval_fused, the table launches of spec_round's and
        spec_eval's kernels, and spec_oracle_fused): K = 2, 4 and 8 sparse
@@ -512,6 +513,50 @@ LADDER = (8, 32, 128, 512)      # the speculative ladder's rungs at chunk 512 (_
 EVAL_SHARDS = (1, 2, 4, 8, 16)  # the cluster sizes the eval kernel takes (kernels/spec.py)
 ORACLE_BATCHES = (8, 512)       # spec_oracle's batches timed beside each other
 DIRECT_RUNS = 3                 # the ladder mode's direct replays
+# synthetic oracle batches (oracle_batch): no conflict, a conflict at k =
+# 1, one only at k = B - 1 (the one-block walk's worst case), every row
+# PreFilter-rejected, and random feasibility and rejects
+ORACLE_KINDS = ("accepted", "first", "last", "rejected", "random")
+ORACLE_FUSED_KS = (2, 4, 8)     # the ladder's fused oracle at b = SPEC_BATCH
+
+
+def oracle_batch(kind: str, b: int, n: int, dtype, seed: int = 0, pads: int = 0,
+                 device="cpu") -> tuple:
+    """A round's oracle inputs made from `seed` with numpy: packed [b, n]
+    of dtype (0 = the pod is feasible at the node; half the words are),
+    prefilter_reject [b] and selected [b] (random nodes, the last `pads`
+    rows -1 as a round's pad rows) -> (packed, reject, selected) on
+    `device`.  `kind` is one of ORACLE_KINDS; "accepted", "first" and
+    "last" clear every (k, selected[j]) word with j < k first, then
+    "first" sets (1, selected[0]) feasible and "last" (B - 1,
+    selected[j]) for one j < B - 1 that is not a pad."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    packed = np.where(rng.random((b, n)) < 0.5, 0, rng.integers(1, 100, (b, n)))
+    sel = rng.integers(0, n, b)
+    if pads:
+        sel[b - pads:] = -1
+    reject = np.zeros(b, np.int32)
+    if kind in ("accepted", "first", "last"):
+        for k in range(1, b):
+            cols = sel[:k]
+            packed[k, cols[cols >= 0]] = 1
+        real = np.flatnonzero(sel[:b - 1] >= 0)
+        if kind == "first" and b > 1 and sel[0] >= 0:
+            packed[1, sel[0]] = 0
+        if kind == "last" and real.size:
+            packed[b - 1, sel[rng.choice(real)]] = 0
+    elif kind == "rejected":
+        reject[:] = 1 + rng.integers(0, 3, b)
+    elif kind == "random":
+        reject = np.where(rng.random(b) < 0.2, 1, 0).astype(np.int32)
+    else:
+        raise ValueError(f"oracle_batch: kind {kind!r}, not one of {ORACLE_KINDS}")
+    t = torch.from_numpy(packed.astype(np.int64)).to(dtype)
+    return (t.to(device), torch.from_numpy(reject).to(device),
+            torch.from_numpy(sel.astype(np.int32)).to(device))
 
 
 def batch_xs(w, lo: int, b: int) -> dict:
@@ -576,9 +621,9 @@ def eval_ladder(cw, batches, reps: int = 5) -> tuple[dict, int]:
     """spec_eval on pods [0, b) of cw against its initial carry, for each
     b of `batches`: held to eval_plain and timed at the plan's S and each
     forced S (shard_times) and in each CTA shape (shape_times), with its
-    bound; spec_oracle on the outputs
-    where b is in ORACLE_BATCHES, held to _oracle_core and timed ->
-    ({b: times}, max_abs_err)."""
+    bound; spec_oracle on the outputs where b is in ORACLE_BATCHES
+    (oracle_times: held to _oracle_core, timed at the plan's CTAs and each
+    forced count) -> ({b: times}, max_abs_err)."""
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
     from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _compact_plan
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
@@ -602,12 +647,147 @@ def eval_ladder(cw, batches, reps: int = 5) -> tuple[dict, int]:
         t["bound"] = bound(eval_bytes(cw, carry, xs, out_bytes), b * cw.n_nodes * 22)
         if b in ORACLE_BATCHES:
             args = (want.packed_filter, want.prefilter_reject, want.selected)
-            k = kspec.spec_oracle(*args)
-            check(int(k) == int(kspec._oracle_core(*args, b)), f"spec_oracle at b = {b}")
-            t["oracle_ms"] = timed_graph(lambda: kspec.spec_oracle(*args), 20)
-            # the [B, B] packed words at the selected nodes, reject, selected, K
-            t["oracle_bound"] = bound(b * b * args[0].element_size() + 8 * b + 4)
+            t["oracle"], e3 = oracle_times(kspec.spec_oracle, args)
+            err = max(err, e3)
         res[b] = t
+    return res, err
+
+
+def oracle_bytes(packed, reject, selected) -> int:
+    """The bytes the oracle must move for these inputs: the packed words
+    (k, selected[j]) of every pair j < k up to the first conflict K (all
+    B (B - 1) / 2 pairs where there is none), rows with a PreFilter reject
+    left out; the rejects and selections of those rows; K."""
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    b = packed.shape[0]
+    last = min(int(kspec._oracle_core(packed, reject, selected, b)), b - 1)
+    rows = (reject[1:last + 1] == 0).nonzero().flatten()  # row k at k - 1
+    real = (selected[:last] >= 0).long().cumsum(0)        # real j < k at k - 1
+    pairs = int(real[rows].sum()) if rows.numel() else 0
+    return pairs * packed.element_size() + 8 * (last + 1) + 4
+
+
+def oracle_times(fn, args, reps: int = 20) -> tuple[dict, int]:
+    """spec_oracle (fn) over one session's args (packed, reject,
+    selected), held to _oracle_core and timed (CUDA graph) at the plan's
+    CTAs and each forced count where the wrapper takes one (shard_times),
+    with the bound of the data's bytes -> (times, max_abs_err)."""
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    want = kspec._oracle_core(*args, args[0].shape[0])
+    t, err = shard_times(fn, lambda **kw: fn(*args, **kw), want, reps, "_ctas",
+                         getattr(kspec, "ORACLE_CTAS", ()), "ctas")
+    t["k"] = int(want)
+    t["bound"] = bound(oracle_bytes(*args))
+    return t, err
+
+
+def oracle_ladder(cw, reps: int = 20) -> tuple[dict, int]:
+    """The oracle on four kinds of batch, each held to _oracle_core and
+    timed at the plan's CTAs and each forced count: config 5's dense
+    round outputs at b = ORACLE_BATCHES (its first conflict early),
+    synthetic batches of b = SPEC_BATCH at config 5's nodes and pack width
+    whose only conflict is at k = B - 1 and that have none
+    (oracle_batch), and spec_oracle_fused at K = ORACLE_FUSED_KS
+    sessions of such batches (plan, forced, and the K solo launches)
+    -> ({case: times}, max_abs_err)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    dev = cw.init_carry["core"].requested.device
+    pm, sd, _ = _compact_plan(cw, None)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    carry = _clone_carry(cw.init_carry)
+    res, err = {}, 0
+    for b in ORACLE_BATCHES:
+        ev = kspec.spec_eval(step, carry, batch_xs(cw, 0, b))
+        args = (ev.packed_filter.clone(), ev.prefilter_reject.clone(), ev.selected.clone())
+        res[f"config{CONFIG} b={b}"], e = oracle_times(kspec.spec_oracle, args, reps)
+        err = max(err, e)
+    dtype, n = args[0].dtype, cw.n_nodes
+    for kind in ("last", "accepted"):
+        args = oracle_batch(kind, SPEC_BATCH, n, dtype, seed=SEED, device=dev)
+        res[f"{kind} b={SPEC_BATCH}"], e = oracle_times(kspec.spec_oracle, args, reps)
+        err = max(err, e)
+    xs = batch_xs(cw, 0, SPEC_BATCH)
+    for k in ORACLE_FUSED_KS:
+        rows = [oracle_batch("last", SPEC_BATCH, n, dtype, seed=SEED + i, device=dev)
+                for i in range(k)]
+        want = [kspec._oracle_core(*r, SPEC_BATCH) for r in rows]
+
+        def fused(k=k, rows=rows, **kw):
+            # members made in the call, so a CUDA graph's capture stream is
+            # theirs (a member launches on its own stream)
+            return kfuse.spec_oracle_fused([kfuse.Member(step, carry, xs) for _ in range(k)],
+                                           rows, **kw)
+
+        t, e = shard_times(kfuse.spec_oracle_fused, fused, want, reps, "_ctas",
+                           getattr(kspec, "ORACLE_CTAS", ()), "ctas")
+        err = max(err, e)
+        t["solo_ms"] = timed_graph(lambda: [kspec.spec_oracle(*r) for r in rows], reps)
+        t["bound"] = bound(sum(oracle_bytes(*r) for r in rows))
+        res[f"fused K={k} b={SPEC_BATCH}"] = t
+    torch.cuda.synchronize()
+    return res, err
+
+
+RENORM_REPS = 20
+
+
+def renorm_times(ph, carry, xs1, reps: int = RENORM_REPS) -> tuple[dict, int]:
+    """renormalize_rows of the pod xs1 against carry over the first R of
+    the profile's scorers with ScoreExtensions (R = 1 to all of them),
+    their raws from the plain eval, at the pod's feasibility: held to
+    renormalize_plain row by row and timed (CUDA graph) at the plan's G
+    and each forced G (shard_times), each R with its bound.  A tree
+    without renormalize_rows (an older checkout under --ladder --root)
+    times its one-row renormalize_row R times -> ({R: times},
+    max_abs_err)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+
+    cw = ph.step.cw
+    n = cw.n_nodes
+    out = ph.plain_eval(carry, xs1)
+    scorers = list(cw.config.scorers())
+    norm = [s for s, nm in enumerate(scorers) if nm in pipeline.NORMALIZING]
+    feas = (out.filter_codes == 0).all(0)
+    sl = pipeline.slice_pod(xs1, 0)
+    fn = getattr(kphased, "renormalize_rows", None)
+    res, err = {}, 0
+    for r in range(1, len(norm) + 1):
+        names = [scorers[s] for s in norm[:r]]
+        raws = out.score_raw[norm[:r]].long().contiguous()
+        want = torch.stack([pipeline.renormalize_plain(nm, cw, carry, sl, raws[i], feas)
+                            for i, nm in enumerate(names)])
+        if fn is None:
+            def rows():
+                return torch.stack([kphased.renormalize_row(ph.step, nm, carry, xs1, raws[i], feas)
+                                    for i, nm in enumerate(names)])
+
+            e = tree_err(rows(), want)
+            check(e == 0, f"renormalize_row differs from its reference (max |d| {e})")
+            t = {"S": None, "ms": timed_graph(rows, reps)}
+        else:
+            t, e = shard_times(fn, lambda **kw: fn(ph.step, names, carry, xs1, raws, feas, **kw),
+                               want, reps, "_ctas", kphased.RENORM_CTAS, "ctas")
+        err = max(err, e)
+        # the raws and feasibility read, the rows written; a spread row
+        # reads its scoring constraints' domain and count rows too
+        spread = 0
+        if "PodTopologySpread" in names:
+            x = sl["PodTopologySpread"]
+            spread = int(((x.c_id >= 0) & x.is_score).sum()) * n * 8
+        t["bound"] = bound(2 * r * n * 8 + n + spread)
+        t["names"] = names
+        res[r] = t
     return res, err
 
 
@@ -871,7 +1051,10 @@ def ptxas_summary(log: str) -> str:
 def ladder_main(root: Path) -> int:
     """`python3 chip_smoke.py --ladder [--root DIR]`: the dense round's
     evaluation on config 5 at the ladder's batches (and b = 1), the host
-    path's phased_eval, spec_oracle at ORACLE_BATCHES, B11's dense eval at
+    path's phased_eval and renormalize_rows (renorm_times: R = 1 to 4), the
+    oracle (oracle_ladder: config 5's batches at ORACLE_BATCHES, b = 512
+    with its only conflict at k = B - 1 and with none, B11's fused oracle
+    at ORACLE_FUSED_KS; plan and forced CTAs), B11's dense eval at
     FUSED_EVAL_CASES, the sparse round at ROUND_CASES with its phase
     clock (the slot-pinned fleet), B12's eval and step on config 5
     (mesh_ladder: the eval at each rung and step_chunk_sharded on chunk
@@ -908,7 +1091,9 @@ def ladder_main(root: Path) -> int:
     spec, err = eval_ladder(cw, (1, *LADDER))
     ph, carry, xs_of = phased_carry(cw)
     phased, perr = phased_times(ph, carry, xs_of(64))
+    renorm, nerr = renorm_times(ph, carry, xs_of(64))
     del carry
+    oracle, oerr = oracle_ladder(cw)
     fused, ferr = fused_eval_ladder(cw)
     snodes, spods = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)
     scw = compile_workload(snodes, spods, PluginSetConfig(enabled=list(SLOT_PLUGINS)), device=dev)
@@ -916,8 +1101,9 @@ def ladder_main(root: Path) -> int:
     del scw
     mesh, merr = mesh_ladder(cw)
     print(json.dumps({"card": card, "root": str(root),
-                      "max_abs_err": max(err, perr, ferr, rerr, merr), "spec_eval": spec,
-                      "phased_eval": phased, "spec_eval_fused": fused, "sparse_round": rounds,
+                      "max_abs_err": max(err, perr, nerr, oerr, ferr, rerr, merr),
+                      "spec_eval": spec, "phased_eval": phased, "renormalize_rows": renorm,
+                      "oracle": oracle, "spec_eval_fused": fused, "sparse_round": rounds,
                       "mesh": mesh}),
           flush=True)
 
@@ -1239,9 +1425,9 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         # xs, the outputs; balanced allocation's ~9 float64 ops per candidate
         "spec_round": bound(nb(s_stat["core"], scw.init_carry, sxs0) + aff_rows + round_out,
                             SPEC_BATCH * KCAND * 9),
-        # the [B, B] packed words at the selected nodes, reject, selected, K
-        "spec_oracle": bound(SPEC_BATCH * SPEC_BATCH * r0[0].element_size()
-                             + 8 * SPEC_BATCH + 4),
+        # the packed words of the pairs up to the first conflict, their
+        # rows' rejects and selections, K
+        "spec_oracle": bound(oracle_bytes(r0[0], r0[1], sel0)),
         # the batch's core rows and selections; the selected carry rows read
         # and written
         "spec_commit_core": bound(nb(sx, sel0) + 2 * SPEC_BATCH * (scw.schema.n + 3) * 8),
@@ -1259,7 +1445,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     at8 = ladder[8]
     ms["spec_eval"], plain["spec_eval"], bounds["spec_eval"] = (
         at8["ms"], at8["plain_ms"], at8["bound"])
-    ms["spec_oracle"], bounds["spec_oracle"] = at8["oracle_ms"], at8["oracle_bound"]
+    ms["spec_oracle"], bounds["spec_oracle"] = at8["oracle"]["ms"], at8["oracle"]["bound"]
     plain["spec_oracle"] = timed_once(lambda: kspec._oracle_core(
         ev.packed_filter[:8], ev.prefilter_reject[:8], ev.selected[:8], 8))
     # spec_commit_bind at the main path's batch: the direct replay's
@@ -1284,8 +1470,11 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         + f", best S={t['best']}{flag if t['slow'] else ''}"
         + f", bound {t['bound'][0]:.6f} ms by {t['bound'][1]}"
         for b, t in ladder.items())
-    oracle = ", ".join(f"b={b} {ladder[b]['oracle_ms']:.5f} ms (bound "
-                       f"{ladder[b]['oracle_bound'][0]:.7f})" for b in ORACLE_BATCHES)
+    oracle = ", ".join(
+        f"b={b} (K = {o['k']}) plan C={o['S']} {o['ms']:.5f} ms, forced "
+        + ", ".join(f"C={c} {v:.5f}" for c, v in o["forced"].items())
+        + f" (bound {o['bound'][0]:.7f})"
+        for b, o in ((b, ladder[b]["oracle"]) for b in ORACLE_BATCHES))
     print(f"[9 timing] {card}: device ms per launch (CUDA graph) {ms}; ms per wrapper call back "
           f"to back {call_ms}; plain {plain}; library (CUDA graph) {library}; bounds {bounds}",
           flush=True)
@@ -1304,7 +1493,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     launches = {name: low[name] + hot[name] + direct[name] for name in ms}
     ctx = {"slot": (scw, srr), "contended": crr,
            "eval_bounds": {b: t["bound"] for b, t in ladder.items()}}
-    sources = {"spec_eval": "spec_eval.cu", "spec_oracle": "spec_eval.cu",
+    sources = {"spec_eval": "spec_eval.cu", "spec_oracle": "oracle.cu",
                "spec_round": "spec_round.cu", "spec_commit_core": "spec_commit.cu",
                "spec_commit_bind": "spec_commit.cu", "grid_append": "grid.cu",
                "grid_emit": "grid.cu"}
@@ -2060,7 +2249,7 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
     kernels = (kstep.step_chunk, chunk_attribution, kspec.spec_eval, kspec.spec_oracle,
                kspec.spec_round, kspec.spec_commit_core, kspec.spec_commit_bind,
                kspec.grid_append, kspec.grid_emit, kgang.quorum_slice,
-               kphased.phased_eval, kphased.renormalize_row)
+               kphased.phased_eval, kphased.renormalize_rows)
 
     def reset() -> None:
         for f in kernels:
@@ -2153,46 +2342,66 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
         err = tree_err(list(out), list(want))
         check(err == 0, f"phased_eval pod {i} differs from its plain version (max |d| {err})")
         pe_err = max(pe_err, err)
-        feas = (want.filter_codes == 0).all(0) & torch.from_numpy(rng.random(n) < 0.8).to(dev)
-        for s, name in enumerate(cw.config.scorers()):
-            raw = want.score_raw[s].long() + torch.from_numpy(rng.integers(-3, 4, n)).to(dev)
-            got_r = pipeline.renormalize(name, ph, carry, xs1, raw, feas)
-            want_r = pipeline.renormalize_plain(name, cw, carry, pipeline.slice_pod(xs1, 0),
-                                                raw, feas)
-            err = tree_err(got_r, want_r)
-            check(err == 0, f"renormalize_row {name} pod {i} differs (max |d| {err})")
-            rn_err = max(rn_err, err)
+        scorers = list(cw.config.scorers())
+        raws = want.score_raw.long() + torch.from_numpy(
+            rng.integers(-3, 4, (len(scorers), n))).to(dev)
+        sl = pipeline.slice_pod(xs1, 0)
+        # a hook-edited feasibility, and none (no node scored)
+        for feas in ((want.filter_codes == 0).all(0)
+                     & torch.from_numpy(rng.random(n) < 0.8).to(dev),
+                     torch.zeros(n, dtype=torch.bool, device=dev)):
+            want_r = torch.stack([pipeline.renormalize_plain(nm, cw, carry, sl, raws[s], feas)
+                                  for s, nm in enumerate(scorers)])
+            for s, name in enumerate(scorers):  # one row a launch
+                err = tree_err(pipeline.renormalize(name, ph, carry, xs1, raws[s], feas),
+                               want_r[s])
+                check(err == 0, f"renormalize_rows {name} pod {i} differs (max |d| {err})")
+                rn_err = max(rn_err, err)
+            rows = [s for s, nm in enumerate(scorers) if nm in pipeline.NORMALIZING]
+            for g in (0, *kphased.RENORM_CTAS):  # every row at once, plan and forced G
+                err = tree_err(kphased.renormalize_rows(ph.step, [scorers[s] for s in rows],
+                                                        carry, xs1, raws[rows], feas, _ctas=g),
+                               want_r[rows])
+                check(err == 0, f"renormalize_rows pod {i} at G = {g} differs (max |d| {err})")
+                rn_err = max(rn_err, err)
     torch.cuda.synchronize()
     xs1 = xs_of(64)
     want = ph.plain_eval(carry, xs1)
     feas = (want.filter_codes == 0).all(0)
-    s_aff = cw.config.scorers().index("NodeAffinity")
-    raw = want.score_raw[s_aff].long()
     pe, err = phased_times(ph, carry, xs1)
     pe_err = max(pe_err, err)
     pe_ms, (pe_bound_ms, pe_bound_by) = pe["ms"], pe["bound"]
     pe_plain_ms = timed_once(lambda: ph.plain_eval(carry, xs1))
-    rn_ms = timed_graph(lambda: kphased.renormalize_row(ph.step, "NodeAffinity", carry, xs1,
-                                                        raw, feas), 20)
-    rn_plain_ms = timed_once(lambda: pipeline.renormalize_plain(
-        "NodeAffinity", cw, carry, pipeline.slice_pod(xs1, 0), raw, feas))
+    # renormalize_rows at R = 1 to all of config 5's scorers with
+    # ScoreExtensions, plan and forced G; phase 21 picks the JSON's R
+    rn, err = renorm_times(ph, carry, xs1)
+    rn_err = max(rn_err, err)
+    sl64 = pipeline.slice_pod(xs1, 0)
+    rn_plain = {r: timed_once(lambda t=t: [pipeline.renormalize_plain(
+        nm, cw, carry, sl64, want.score_raw[cw.config.scorers().index(nm)].long(), feas)
+        for nm in t["names"]]) for r, t in rn.items()}
     pe_bytes = phased_eval_bytes(cw, carry, xs1)
-    rn_bound_ms, rn_bound_by = bound(n * 8 + n + n * 8)
     print(f"[18 B8, B10==plain] {card}: quorum_slice on n={gn}, G={gg} ({absent} groups absent "
           f"from the slice, -1 runs between groups), the empty slice, no groups and a small "
           f"absent-group slice: max_abs_err {b8_err}; {b8_ms:.5f} ms per launch (CUDA graph), "
           f"H2D {h2d_ms:.4f} ms, D2H {d2h_ms:.4f} ms, {call_ms:.4f} ms per numpy-to-numpy call; "
           f"plain {b8_plain_ms:.3f} ms; bound {b8_bound_ms:.6f} ms by {b8_bound_by} ({b8_bytes} B) "
           f"| config {CONFIG} {n} nodes, 8 pods after 64 phased binds: phased_eval and "
-          f"renormalize_row ({', '.join(norm)}; the others return their raws) max_abs_err "
-          f"{pe_err} and {rn_err} (phased_eval at the plan's S and each forced S); phased_eval "
+          f"renormalize_rows ({', '.join(norm)}; the others return their raws; a row a "
+          f"launch, and every scorer in one launch at the plan's and each forced G, at an "
+          f"edited feasibility and at none) max_abs_err {pe_err} and {rn_err} (phased_eval at "
+          f"the plan's S and each forced S); phased_eval "
           f"at b=1: plan S={pe['S']} {pe_ms:.5f} ms per launch, forced "
           f"{', '.join(f'S={k} {v:.5f}' for k, v in pe['forced'].items())}, best S={pe['best']}"
           f"{' FLAG: the plan is over 10 % slower than the best' if pe['slow'] else ''}; plain "
           f"{pe_plain_ms:.3f} ms, bound {pe_bound_ms:.6f} ms by {pe_bound_by} ({pe_bytes} B); "
-          f"renormalize_row (NodeAffinity) "
-          f"{rn_ms:.5f} ms, plain {rn_plain_ms:.3f} ms, bound {rn_bound_ms:.7f} ms by "
-          f"{rn_bound_by}; {time.perf_counter() - t18:.1f} s", flush=True)
+          f"renormalize_rows (plan G, forced G; plain; bound) "
+          + "; ".join(f"R={r} {'+'.join(t['names'])}: plan G={t['S']} {t['ms']:.5f} ms, forced "
+                      + ", ".join(f"G={g} {v:.5f}" for g, v in t["forced"].items())
+                      + (" FLAG: the plan is over 10 % slower than the best" if t["slow"] else "")
+                      + f"; plain {rn_plain[r]:.3f} ms; bound {t['bound'][0]:.7f} ms by "
+                      f"{t['bound'][1]}" for r, t in rn.items())
+          + f"; {time.perf_counter() - t18:.1f} s", flush=True)
     del carry
 
     # ---- 19. config 5 through the engine: ObjectStore -> schedule_pending()
@@ -2331,7 +2540,7 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
 
     ext = _Extender()
     try:
-        snaps, lines21 = [], []
+        snaps, lines21, flushes = [], [], []
         for device in ("cuda", "cpu"):
             store = fresh_store({"nodes": nodes, "pods": host_pods})
             engine = SchedulerEngine(store, plugin_config=cfg, device=device)
@@ -2340,12 +2549,14 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
                 "weight": 2}]))
             engine.plugin_extenders = {"NodeAffinity": Invert()}
             reset()
+            kphased.renormalize_rows.rows.clear()
             t0 = time.perf_counter()
             bound_n = engine.schedule_pending()
             if device == "cuda":
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched = counts()
+            flushes.append(engine.renormalize_flushes)
             snaps.append((bound_n, {q["metadata"]["name"]: (
                 q["spec"].get("nodeName"), q["metadata"].get("annotations"))
                 for q in store.list("pods")[0]}))
@@ -2353,7 +2564,12 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
                 main21 = launched
                 check(launched.get("phased_eval", 0) == len(host_pods),
                       f"host path: phased_eval launches {launched}")
-                check(launched.get("renormalize_row", 0) > 0, "host path: no renormalize_row")
+                # one launch a flush, at most one flush a pod (no
+                # AfterNormalize hook)
+                check(0 < launched.get("renormalize_rows", 0) == flushes[0] <= len(host_pods),
+                      f"host path: {launched.get('renormalize_rows', 0)} renormalize_rows "
+                      f"launches for {flushes[0]} flushes of {len(host_pods)} pods")
+                rows21 = dict(sorted(kphased.renormalize_rows.rows.items()))
                 check(launched.get("spec_commit_bind", 0) == bound_n,
                       f"host path: {launched} for {bound_n} binds")
             else:
@@ -2365,10 +2581,16 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
     finally:
         ext.close()
     check(snaps[0] == snaps[1], "host path: the card's run differs from device='cpu'")
+    check(flushes[0] == flushes[1], f"host path: flushes {flushes} on the card and the CPU")
+    # renormalize_rows' entry: its time at phase 21's most frequent R
+    r21 = min(max(rows21, key=rows21.get, default=1), max(rn))
     check(all(v[0] != names[0] for v in snaps[0][1].values()), "an extender-vetoed node won")
     print(f"[21 host path] {card}: {len(host_pods)} config-{CONFIG} pods on {n} nodes with a "
           f"webhook extender (filter, prioritize) and an AfterScore hook on NodeAffinity: "
-          f"{'; '.join(lines21)}; launches on the card {main21}; nodes and every annotation "
+          f"{'; '.join(lines21)}; launches on the card {main21}; renormalize_rows: "
+          f"{flushes[0]} flushes (the CPU run's {flushes[1]}), launches by rows {rows21} (the "
+          f"JSON entry times R = {r21}); "
+          f"nodes and every annotation "
           f"(extender results included) equal; {time.perf_counter() - t21:.1f} s", flush=True)
 
     src = "kube_scheduler_simulator_tpu_torch/csrc/"
@@ -2383,11 +2605,11 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
          "launches": main21.get("phased_eval", 0), "max_abs_err": pe_err, "ms": pe_ms,
          "plain_ms": pe_plain_ms, "bound_ms": pe_bound_ms, "bound_by": pe_bound_by,
          "library_ms": None},
-        {"name": "renormalize_row", "route": "cuda", "source": src + "phased.cu",
+        {"name": "renormalize_rows", "route": "cuda", "source": src + "phased.cu",
          "replaces": "kube_scheduler_simulator_tpu/framework/pipeline.py:198",
-         "launches": main21.get("renormalize_row", 0), "max_abs_err": rn_err, "ms": rn_ms,
-         "plain_ms": rn_plain_ms, "bound_ms": rn_bound_ms, "bound_by": rn_bound_by,
-         "library_ms": None},
+         "launches": main21.get("renormalize_rows", 0), "max_abs_err": rn_err,
+         "ms": rn[r21]["ms"], "plain_ms": rn_plain[r21],
+         "bound_ms": rn[r21]["bound"][0], "bound_by": rn[r21]["bound"][1], "library_ms": None},
     ]
 
 
@@ -2557,17 +2779,24 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
             forced = kfuse.spec_round_fused(members(sstep, slot_pairs[:k], KCAND), _pods=group)
             for i in range(k):
                 held("spec_round_fused", "solo", forced[i], solo[i][:8])
+        rows = [(r[0], r[1], r[7]) for r in fused]
+        orc_ctas = kfuse.spec_oracle_fused.ctas
+        for ctas in kspec.ORACLE_CTAS:  # every CTA count of the oracle's clusters
+            forced = kfuse.spec_oracle_fused(members(sstep, slot_pairs[:k], KCAND), rows,
+                                             _ctas=ctas)
+            for i in range(k):
+                held("spec_oracle_fused", "solo", forced[i], solo[i][8])
         pk = slot_pairs[:k]
         t_round = timed_graph(lambda: kfuse.spec_round_fused(members(sstep, pk, KCAND)), 3)
         t_round_solo = timed_graph(
             lambda: [kspec.spec_round(sstep, c, x, KCAND) for c, x in pk], 3)
-        rows = [(r[0], r[1], r[7]) for r in fused]
         t_orc = timed_graph(lambda: kfuse.spec_oracle_fused(members(sstep, pk, KCAND), rows), 20)
         t_orc_solo = timed_graph(lambda: [kspec.spec_oracle(*r) for r in rows], 20)
         timing[k] = (t_round, t_round_solo, t_orc, t_orc_solo)
         lines22.append(f"K={k}: spec_round_fused (P={plan_pods}) {t_round:.4f} ms vs {k} solo "
                        f"spec_round "
-                       f"{t_round_solo:.4f} ms; spec_oracle_fused {t_orc:.5f} ms vs {k} solo "
+                       f"{t_round_solo:.4f} ms; spec_oracle_fused (C={orc_ctas}) {t_orc:.5f} ms "
+                       f"vs {k} solo "
                        f"{t_orc_solo:.5f} ms")
     dm = members(cstep, dense_pairs, None)
     dfused = [tuple(t.clone() for t in _leaves(r)) for r in kfuse.dense_round_fused(dm)]
@@ -2598,8 +2827,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
     solo_round_b = nb(scw.statics["core"], s0c, s0x) + aff_rows + nb(one[:8])
     bounds = {
         "spec_round_fused": bound(FUSE_K * solo_round_b, FUSE_K * SPEC_BATCH * KCAND * 9),
-        "spec_oracle_fused": bound(FUSE_K * (SPEC_BATCH * SPEC_BATCH * frows[0][0].element_size()
-                                             + 8 * SPEC_BATCH + 4)),
+        "spec_oracle_fused": bound(sum(oracle_bytes(*r) for r in frows)),
         "spec_eval_fused": bound(2 * nb(cw.statics, dense_pairs[0][0], dense_pairs[0][1],
                                         dfused[0][:-1]), 2 * SPEC_BATCH * cw.n_nodes * 22),
     }
@@ -2904,7 +3132,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
           f"{time.perf_counter() - t24:.1f} s", flush=True)
 
     sources = {"spec_eval_fused": "spec_eval.cu", "spec_round_fused": "spec_round.cu",
-               "spec_oracle_fused": "fuse.cu"}
+               "spec_oracle_fused": "oracle.cu"}
     return [{
         "name": name,
         "route": "cuda",
@@ -3501,7 +3729,7 @@ def custom_phase(dev, card: str, nodes: list, pods: list, cfg) -> dict:
     from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
 
     kernels = (kstep.step_chunk, kmesh.step_chunk_sharded, kphased.phased_eval,
-               kphased.renormalize_row, kspec.spec_eval, kspec.spec_round,
+               kphased.renormalize_rows, kspec.spec_eval, kspec.spec_round,
                kspec.spec_commit_bind)
 
     def reset() -> None:

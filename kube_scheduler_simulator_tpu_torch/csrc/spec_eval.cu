@@ -1,5 +1,5 @@
-// spec_eval_cluster and spec_oracle: the dense round of the speculative
-// wave and the host path's evaluation, written for Hopper (sm_90a).
+// spec_eval_cluster: the dense round of the speculative wave and the
+// host path's evaluation, written for Hopper (sm_90a).
 //
 // spec_eval_cluster replaces four JAX functions, one per output layout
 // (StepArgs.compact), one across sessions and one over a mesh:
@@ -74,14 +74,9 @@
 // Exactness: as step_chunk.  Integer math is int64 with floor division,
 // the float64 paths are built with -fmad=false, and no float sum runs over
 // the node axis, so the split gives the bytes of one CTA per pod, and each
-// session's outputs are its solo launch's.
-//
-// spec_oracle replaces speculative.py:299 `_oracle_core`, the dirty-node
-// prefix (spec.cuh spec_oracle_block), one block.  It runs after the
-// dense round's eval on the same stream; it reads B x B packed words and
-// is bound by its launch.
+// session's outputs are its solo launch's.  The round's conflict oracle
+// (oracle.cu) runs after it on the same stream.
 #include "cluster.cuh"
-#include "spec.cuh"
 
 #define KSS_LIGHT_THREADS 256
 #define KSS_LIGHT_CTAS 3
@@ -132,13 +127,6 @@ __global__ void __launch_bounds__(LIGHT ? KSS_LIGHT_THREADS : KSS_STEP_THREADS,
   eval_pod(a, c, scope);
   // no CTA leaves while another may still read its slots
   cluster.sync();
-}
-
-__global__ void __launch_bounds__(SPEC_THREADS) spec_oracle_kernel(
-    const void* packed, int pack_bytes, const int* reject, const int* selected, int B, int N,
-    int* out_k) {
-  __shared__ int sh_k;
-  spec_oracle_block(packed, pack_bytes, reject, selected, B, N, out_k, sh_k);
 }
 
 #ifdef __CUDACC__
@@ -262,12 +250,5 @@ extern "C" int kss_spec_eval(const StepArgs* table, int k, int ctas, int shards,
                                               make_table<KM>(table, k), p.width, shards));
     });
   });
-}
-
-extern "C" int kss_spec_oracle(const void* packed, int pack_bytes, const int* reject,
-                               const int* selected, int B, int N, int* out_k, void* stream) {
-  spec_oracle_kernel<<<1, SPEC_THREADS, 0, (cudaStream_t)stream>>>(packed, pack_bytes, reject,
-                                                                   selected, B, N, out_k);
-  return (int)cudaGetLastError();
 }
 #endif

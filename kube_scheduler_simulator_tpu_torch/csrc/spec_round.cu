@@ -7,7 +7,7 @@
 //     `_sparse_round_fn` (B4): its per-pod pass over a batch of B pods
 //     against ONE frozen carry (kernels/spec.py spec_round; the conflict
 //     oracle that the JAX package fuses into the same jit is spec_oracle
-//     in spec_eval.cu, launched right after on the same stream);
+//     in oracle.cu, launched right after on the same stream);
 //   * kube_scheduler_simulator_tpu/parallel/fuse.py:356 `_run_fused` over
 //     the sparse round (B11): `_sparse_round_fn` vmapped over K sessions'
 //     carries and batches stacked on a leading axis (kernels/fuse.py

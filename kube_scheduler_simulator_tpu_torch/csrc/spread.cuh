@@ -73,8 +73,11 @@ __device__ int spread_filter(const StepArgs& a, int c, int n, const long long* m
 
 // float64 sum of count * weight in slot order m = 0..3 (the file is built
 // with -fmad=false: no contraction of total + cnt * w), then Go
-// math.Round of a non-negative value: floor(total + 0.5).
-__device__ long long spread_score(const StepArgs& a, int c, int n, bool& ignored) {
+// math.Round of a non-negative value: floor(total + 0.5).  Args is
+// StepArgs, or any struct with its sp_c_id, sp_is_score, sp_dom_idx,
+// sp_counts, sp_weight and N (phased.cu RenormArgs).
+template <class Args>
+__device__ long long spread_score(const Args& a, int c, int n, bool& ignored) {
   double total = 0.0;
   ignored = false;
   for (int m = 0; m < KSS_MC; ++m) {

@@ -18,7 +18,7 @@ port: every wave compiles, replays and streams on the engine's `device`
 ("cuda" by default, which raises without a card; "cpu" runs the plain
 PyTorch versions) and never falls back to the CPU.  The kernels it
 reaches beyond the replay's and the stream's: B8 `quorum_slice` in every
-gang wave (`_gang_decide`) and B10 `phased_eval` / `renormalize_row`
+gang wave (`_gang_decide`) and B10 `phased_eval` / `renormalize_rows`
 with B5's `spec_commit_bind` on the host-interleaved path
 (`_schedule_host_path`).  `mesh=` (a one-card parallel.mesh.Mesh) runs
 every wave whose node count divides the mesh's "nodes" extent through
@@ -557,6 +557,9 @@ class SchedulerEngine:
         # registry); a bare list is accepted as anonymous after_cycle
         # observers for backward compatibility
         self.plugin_extenders: dict | list = {}
+        # the host path's renormalization flushes: one launch of B10
+        # renormalize_rows each on the card (_hooked_score_phase)
+        self.renormalize_flushes = 0
         self.profiles: dict[str, PluginSetConfig] | None = None
         # pods parked by Permit "wait" (upstream waitingPods map analogue),
         # keyed (namespace, name); external threads may allow()/reject()
@@ -2399,14 +2402,22 @@ class SchedulerEngine:
         (the store's AddNormalizedScoreResult runs before AfterNormalize);
         the framework total additionally reflects AfterNormalize.
 
-        Each hooked scorer's renormalization is one launch of B10
-        `renormalize_row` on the card (the raws and the feasibility go
-        over, the normalized row comes back)."""
+        Every hook runs where the reference runs it, scorer by scorer.  An
+        in-tree scorer's normalization is a pure function of its final
+        raws (after its AfterScore hooks), the carry and the feasibility,
+        so its row waits in `pending` and a pod's pending rows are
+        normalized together, in one launch of B10 `renormalize_rows` on
+        the card (one H2D of the stacked raws, one D2H): just before the
+        AfterNormalize hook of a pending scorer, which needs its row, and
+        at the end of the loop.  A BeforeScore cycle error drops them
+        unlaunched.  A custom plugin's NormalizeScore runs on the host in
+        its place in the loop (pipeline.renormalize)."""
         import numpy as np
         import torch
 
-        from .pipeline import renormalize
+        from ..kernels.phased import renormalize_rows
         from ..scheduler.debuggable import has_hook
+        from .pipeline import NORMALIZING, renormalize
 
         if hooks:
             pod = copy.deepcopy(pod)  # hooks must not reach shared manifests
@@ -2419,6 +2430,32 @@ class SchedulerEngine:
         total = np.zeros(n, dtype=np.int64)
         dev = self.device
         feas_t = torch.from_numpy(np.ascontiguousarray(feasible)).to(dev)
+        pending = []  # (score row, name, hooks) of rows awaiting the flush
+
+        def finish(s, nm, ext, normed):
+            w = cw.config.weight(nm)
+            record_final[s] = normed * w
+            fw_norm = np.array(normed, copy=True)
+            if ext is not None and has_hook(ext, "after_normalize"):
+                ret = ext.after_normalize(
+                    pod, {names[j]: int(fw_norm[j]) for j in feas_idx})
+                if ret is not None:
+                    for node_name, v in ret.items():
+                        j = name_to_idx.get(node_name)
+                        if j is not None:
+                            fw_norm[j] = int(v)
+            total[:] += np.where(feasible, fw_norm * w, 0)
+
+        def flush():
+            rows = [s for s, _, _ in pending]
+            normed = renormalize_rows(
+                phased.step, [nm for _, nm, _ in pending], carry, xs1,
+                torch.from_numpy(eff_raw[rows]).to(dev), feas_t).cpu().numpy()
+            self.renormalize_flushes += 1
+            for (s, nm, ext), row in zip(pending, normed.astype(np.int64)):
+                finish(s, nm, ext, row)
+            pending.clear()
+
         for s, nm in enumerate(score_names):
             if sskip[nm][pod_idx]:
                 continue
@@ -2431,22 +2468,18 @@ class SchedulerEngine:
                 for j in feas_idx:
                     eff_raw[s, j] = int(ext.after_score(
                         pod, names[j], int(eff_raw[s, j])))
-            normed = renormalize(
-                nm, phased, carry, xs1,
-                torch.from_numpy(np.ascontiguousarray(eff_raw[s])).to(dev),
-                feas_t).cpu().numpy().astype(np.int64)
-            w = cw.config.weight(nm)
-            record_final[s] = normed * w
-            fw_norm = np.array(normed, copy=True)
-            if ext is not None and has_hook(ext, "after_normalize"):
-                ret = ext.after_normalize(
-                    pod, {names[j]: int(fw_norm[j]) for j in feas_idx})
-                if ret is not None:
-                    for node_name, v in ret.items():
-                        j = name_to_idx.get(node_name)
-                        if j is not None:
-                            fw_norm[j] = int(v)
-            total += np.where(feasible, fw_norm * w, 0)
+            if cw.config.is_custom(nm):
+                finish(s, nm, ext, renormalize(
+                    nm, phased, carry, xs1, torch.from_numpy(eff_raw[s].copy()),
+                    feas_t).cpu().numpy().astype(np.int64))
+            elif nm in NORMALIZING:
+                pending.append((s, nm, ext))
+                if ext is not None and has_hook(ext, "after_normalize"):
+                    flush()
+            else:
+                finish(s, nm, ext, eff_raw[s].copy())  # no ScoreExtensions
+        if pending:
+            flush()
         return record_final, total, False
 
     def _host_pod_loop(self, cw, pending, phased, carry, names,

@@ -468,7 +468,7 @@ def renormalize_plain(name: str, cw, carry, sl, raw, feasible) -> torch.Tensor:
     NormalizeScore over [N] raw scores (possibly hook-modified) and a
     host-edited feasibility -> [N] int64.  `sl` is the pod's slice (no
     leading axis).  The CPU path and the card's reference for
-    renormalize_row (kernels/phased.py)."""
+    renormalize_rows (kernels/phased.py), row by row."""
     raw = raw.to(torch.int64)
     if name not in NORMALIZING:
         return raw  # no ScoreExtensions
@@ -487,18 +487,20 @@ def renormalize_plain(name: str, cw, carry, sl, raw, feasible) -> torch.Tensor:
 
 
 def renormalize(name: str, phased: "Phased", carry, xs1, raw, feasible) -> torch.Tensor:
-    """pipeline.py:198: host-side NormalizeScore recompute for one plugin,
-    used by the engine's host-interleaved path when AfterScore hooks or
-    hook-changed feasibility invalidate the fused normalization, and for
-    custom plugins' NormalizeScore.  raw [N] int64 and feasible [N] bool
-    on the carry's device; xs1 the pod's xs with a leading axis of 1.
+    """pipeline.py:198: host-side NormalizeScore recompute for one plugin
+    when AfterScore hooks or hook-changed feasibility invalidate the fused
+    normalization.  raw [N] int64 and feasible [N] bool on the carry's
+    device; xs1 the pod's xs with a leading axis of 1.
 
     A custom plugin with normalize() runs it in Python on the feasible
     raws (pipeline.py:208-219; arbitrary Python cannot run in a kernel,
     and upstream wraps out-of-tree ScoreExtensions as in-tree ones,
-    wrappedplugin.go:388-415); one without returns its raw.  An in-tree
-    scorer: renormalize_row, kernel B10 on the card and
-    renormalize_plain on the CPU."""
+    wrappedplugin.go:388-415); one without returns its raw, as does an
+    in-tree scorer without ScoreExtensions.  An in-tree scorer with them:
+    a one-row renormalize_rows, kernel B10 on the card and
+    renormalize_plain on the CPU.  The engine's host path calls it for
+    custom plugins and renormalizes a pod's in-tree rows together, one
+    renormalize_rows launch a flush (engine.py _hooked_score_phase)."""
     cfg = phased.step.cw.config
     if cfg.is_custom(name):
         plugin = cfg.custom[name]
@@ -512,9 +514,11 @@ def renormalize(name: str, phased: "Phased", carry, xs1, raw, feasible) -> torch
         out = np.zeros_like(raw_np)
         out[idx] = np.asarray(list(vals), dtype=out.dtype)
         return torch.from_numpy(out).to(raw.device)
-    from ..kernels.phased import renormalize_row
+    if name not in NORMALIZING:
+        return raw  # no ScoreExtensions
+    from ..kernels.phased import renormalize_rows
 
-    return renormalize_row(phased.step, name, carry, xs1, raw, feasible)
+    return renormalize_rows(phased.step, [name], carry, xs1, raw[None], feasible)[0]
 
 
 class Phased:

@@ -55,8 +55,7 @@ SIGNATURES = {
              "kss_step_plan": ([_P, _I, _I, _P, _P], _I), "kss_mesh_max_shards": ([], _I)},
     "spec_eval": {"kss_step_args_size": ([], _I),
                   "kss_eval_plan": ([_P, _I, _I, _I, _P, _P], _I),
-                  "kss_spec_eval": ([_P, _I, _I, _I, _I, _P], _I),
-                  "kss_spec_oracle": ([_P, _I, _P, _P, _I, _I, _P, _P], _I)},
+                  "kss_spec_eval": ([_P, _I, _I, _I, _I, _P], _I)},
     "spec_round": {"kss_step_args_size": ([], _I), "kss_round_plan": ([_P, _I, _P, _P, _P], _I),
                    "kss_spec_round": ([_P, _I, _I, _P], _I)},
     "spec_commit": {"kss_step_args_size": ([], _I),
@@ -67,9 +66,9 @@ SIGNATURES = {
                     "kss_chunk_attribution": ([_P, _P], _I)},
     "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _P], _I)},
     "phased": {"kss_step_args_size": ([], _I),
-               "kss_renormalize_row": ([_P, _I, _P, _P, _P, _P, _P], _I)},
-    "fuse": {"kss_fuse_max": ([], _I),
-             "kss_spec_oracle_fused": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I)},
+               "kss_renormalize_rows": ([_P, _P, _I, _P, _P, _P, _I, _P], _I)},
+    "oracle": {"kss_fuse_max": ([], _I),
+               "kss_spec_oracle": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I)},
 }
 
 

@@ -4,7 +4,7 @@ and, beside it, its plain PyTorch version.
     wrapper             kernel (csrc/)                      plain version                   JAX counterpart
     spec_eval_fused     spec_eval.cu spec_eval_cluster      eval_plain, per member          parallel/fuse.py:356
     spec_round_fused    spec_round.cu spec_round (groups)   sparse_round_plain, per member  `_run_fused`
-    spec_oracle_fused   fuse.cu spec_oracle_fused           _oracle_core, per member        (vmap at :365)
+    spec_oracle_fused   oracle.cu spec_oracle_kernel        _oracle_core, per member        (vmap at :365)
 
 The JAX package stacks K sessions' carries and pod batches on a leading
 axis and runs `jax.jit(jax.vmap(solo_fn))`.  Here each session is a
@@ -14,7 +14,8 @@ and the sparse round are the solo kernels' table launches (kernels/spec.py
 `launch_eval`, `launch_round`): one StepArgs per member (kernels/step.py
 `make_args`), the session picked by the CTA, so nothing is stacked or
 copied, and each member's outputs equal its solo launch bit for bit.  The
-oracle's kernel takes a table of pointers, one block a member.
+oracle is the solo oracle's table launch too (kernels/spec.py
+`launch_oracle`): a table of pointers, one cluster of CTAs a member.
 
 The round functions are what the speculative stream dispatches through
 the fuse coordinator (parallel/fuse.py):
@@ -44,7 +45,6 @@ and no event is recorded.
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import torch
 
@@ -244,10 +244,15 @@ def spec_round_fused(members: list[Member], *, _pods: int = 0,
     return [kspec.round_tuple(m.outs) for m in members]
 
 
-def spec_oracle_fused(members: list[Member], rows: list[tuple]) -> list[torch.Tensor]:
-    """B11 oracle: spec_oracle of every member's round in one launch, grid
-    K, into each member's own K.  rows: per member (packed, reject,
-    selected).  CPU tensors: _oracle_core per member."""
+def spec_oracle_fused(members: list[Member], rows: list[tuple], *,
+                      _ctas: int = 0) -> list[torch.Tensor]:
+    """B11 oracle: spec_oracle of every member's round in one table launch
+    of the oracle kernel (kernels/spec.py launch_oracle), one cluster of
+    CTAs a member, into each member's own K; `spec_oracle_fused.ctas`
+    records the CTAs a member took.  rows: per member (packed, reject,
+    selected).  CPU tensors: _oracle_core per member.  For tests and
+    measurement only, `_ctas` forces the CTAs a member (one of
+    kernels/spec.py ORACLE_CTAS)."""
     from . import build
 
     if len(rows) != len(members):
@@ -255,25 +260,14 @@ def spec_oracle_fused(members: list[Member], rows: list[tuple]) -> list[torch.Te
     dev = members[0].device
     if dev.type == "cpu":
         return [kspec._oracle_core(p, r, s, p.shape[0]) for p, r, s in rows]
-    b, n = rows[0][0].shape
-    dtype = rows[0][0].dtype
-    k = len(members)
-    packed, reject, selected, out_k = ((ctypes.c_void_p * k)() for _ in range(4))
-    for i, ((p, r, s), m) in enumerate(zip(rows, members)):
-        kstep.check_device("spec_oracle_fused", dev, {"p": p, "r": r, "s": s})
-        packed[i] = kstep._ptr(p, dtype, (b, n), "packed")
-        reject[i] = kstep._ptr(r, torch.int32, (b,), "prefilter_reject")
-        selected[i] = kstep._ptr(s, torch.int32, (b,), "selected")
-        out_k[i] = kstep._ptr(m.outs["k"], torch.int32, (), "k")
-    lib = build.load("fuse")
-    if lib.kss_fuse_max() != MAX_FUSE_SESSIONS:
+    if build.load("oracle").kss_fuse_max() != MAX_FUSE_SESSIONS:
         raise RuntimeError("MAX_FUSE_SESSIONS differs between csrc/common.cuh and "
                            "kernels/fuse.py")
-    _launch(members, lambda: kstep.check_launch("spec_oracle_fused", lib.kss_spec_oracle_fused(
-        packed, reject, selected, out_k, k, rows[0][0].element_size(), b, n,
-        kstep.stream_of(dev))))
+    outs = [m.outs["k"] for m in members]
+    spec_oracle_fused.ctas = _launch(members, kspec.launch_oracle, "spec_oracle_fused", rows,
+                                     outs, _ctas)
     spec_oracle_fused.launches += 1
-    return [m.outs["k"] for m in members]
+    return outs
 
 
 spec_eval_fused.launches = 0
@@ -284,6 +278,7 @@ spec_round_fused.pods = None
 spec_eval_fused.batches = collections.Counter()
 spec_round_fused.batches = collections.Counter()
 spec_oracle_fused.launches = 0
+spec_oracle_fused.ctas = None
 
 KERNELS = (spec_eval_fused, spec_round_fused, spec_oracle_fused)
 

@@ -4,7 +4,7 @@ PyTorch version.
     kernel (csrc/)                wrapper           plain version         JAX counterpart
     B2 spec_eval.cu               spec_eval         eval_plain            parallel/speculative.py:318 _eval_fn
        spec_eval_cluster
-    B3 spec_eval.cu spec_oracle   spec_oracle       _oracle_core          :299 _oracle_core
+    B3 oracle.cu spec_oracle      spec_oracle       _oracle_core          :299 _oracle_core
     B4 spec_round.cu spec_round   spec_round        sparse_round_plain    :381 _sparse_round_fn
     B5 spec_commit.cu (two)       spec_commit_core  commit_plain          :501 _commit_fn
                                   spec_commit_bind
@@ -33,7 +33,11 @@ in the CTA shape whose waves times passes over a slice are fewer
 also serves B11's fused sparse round, takes a table of sessions and gives
 each CTA a group of pods over one shared node pass (`round_pods`);
 `round_grouped_plain` computes its split in plain PyTorch.  So the CPU
-tests check each decomposition itself.
+tests check each decomposition itself.  The oracle's kernel, which also
+serves B11's fused oracle, takes a table of sessions and spreads each
+session's pairs (j < k) over a thread-block cluster whose size comes from
+the batch (`oracle_ctas`); its result is a minimum over rows, which no
+split changes.
 """
 
 from __future__ import annotations
@@ -263,30 +267,73 @@ def _oracle_core(packed, prefilter_reject, selected, batch: int) -> torch.Tensor
     return torch.where(torch.any(conflict), first, batch).to(torch.int32)
 
 
-def spec_oracle(packed, prefilter_reject, selected, out: torch.Tensor | None = None
-                ) -> torch.Tensor:
+ORACLE_CTAS = (1, 2, 4, 8, 16)  # CTAs of a session's cluster in csrc/oracle.cu
+ORACLE_ROWS = 32                # rows a CTA of 16 warps takes before the plan adds CTAs
+
+
+def oracle_ctas(b: int) -> int:
+    """The CTAs of each session's cluster in an oracle launch over
+    batches of b: the smallest of ORACLE_CTAS whose CTAs hold the b rows
+    at ORACLE_ROWS each (two a warp), at most 16.  b <= 32 takes one CTA
+    and no cluster, b = 512 sixteen."""
+    for c in ORACLE_CTAS:
+        if c * ORACLE_ROWS >= b:
+            return c
+    return ORACLE_CTAS[-1]
+
+
+def launch_oracle(what: str, rows: list, outs: list, ctas: int = 0) -> int:
+    """One launch of csrc/oracle.cu's kernel over a table of sessions:
+    rows per session (packed [B, N], prefilter_reject [B], selected [B]),
+    each session's K into its own int32 scalar of `outs`; every session of
+    one batch, node count and pack width.  One cluster of `ctas` CTAs a
+    session (one of ORACLE_CTAS), or where it is 0 oracle_ctas(B).
+    Launches on the current stream -> the CTAs a session took."""
+    from . import build
+
+    b, n = rows[0][0].shape
+    dtype = rows[0][0].dtype
+    dev = rows[0][0].device
+    if ctas not in (0, *ORACLE_CTAS):
+        raise ValueError(f"{what}: {ctas} CTAs a session, not one of {ORACLE_CTAS}")
+    ctas = ctas or oracle_ctas(b)
+    k = len(rows)
+    packed, reject, selected, out_k = ((ctypes.c_void_p * k)() for _ in range(4))
+    for i, ((p, r, s), out) in enumerate(zip(rows, outs, strict=True)):
+        kstep.check_device(what, dev, {"p": p, "r": r, "s": s, "k": out})
+        packed[i] = kstep._ptr(p, dtype, (b, n), "packed")
+        reject[i] = kstep._ptr(r, torch.int32, (b,), "prefilter_reject")
+        selected[i] = kstep._ptr(s, torch.int32, (b,), "selected")
+        out_k[i] = kstep._ptr(out, torch.int32, (), "k")
+    lib = build.load("oracle")
+    kstep.check_launch(what, lib.kss_spec_oracle(packed, reject, selected, out_k, k,
+                                                 rows[0][0].element_size(), b, n, ctas,
+                                                 kstep.stream_of(dev)))
+    return ctas
+
+
+def spec_oracle(packed, prefilter_reject, selected, out: torch.Tensor | None = None, *,
+                _ctas: int = 0) -> torch.Tensor:
     """B3: K as an int32 tensor on the inputs' device (`out` when the
-    caller allocated it).  CUDA tensors: one launch of one block; CPU
-    tensors: _oracle_core."""
-    b, n = packed.shape
+    caller allocated it).  CUDA tensors: the one-session launch of the
+    oracle kernel (launch_oracle), one cluster of oracle_ctas(B) CTAs;
+    `spec_oracle.ctas` records the CTAs it took.  CPU tensors:
+    _oracle_core.  For tests and measurement only, `_ctas` forces the
+    cluster's CTAs (one of ORACLE_CTAS)."""
+    b = packed.shape[0]
     dev = packed.device
     if dev.type == "cpu":
         return _oracle_core(packed, prefilter_reject, selected, b)
-    kstep.check_device("spec_oracle", dev, {"p": packed, "r": prefilter_reject, "s": selected})
-    lib = kstep.load_lib("spec_eval")
     if out is None:
         out = torch.empty((), dtype=torch.int32, device=dev)
-    err = lib.kss_spec_oracle(
-        kstep._ptr(packed, packed.dtype, (b, n), "packed"), packed.element_size(),
-        kstep._ptr(prefilter_reject, torch.int32, (b,), "prefilter_reject"),
-        kstep._ptr(selected, torch.int32, (b,), "selected"), b, n,
-        out.data_ptr(), kstep.stream_of(dev))
-    kstep.check_launch("spec_oracle", err)
+    spec_oracle.ctas = launch_oracle("spec_oracle", [(packed, prefilter_reject, selected)],
+                                     [out], _ctas)
     spec_oracle.launches += 1
     return out
 
 
 spec_oracle.launches = 0
+spec_oracle.ctas = None
 
 
 # ------------------------------------------------------------ B4 sparse round

@@ -19,7 +19,10 @@ cluster size and at every forced one; and the two table kernels over K =
 1, 2, 4, 8, 16 sessions (the dense eval's clusters, the sparse round's
 pod groups) against the solo launches and the plain versions; and B13,
 custom plugins' filter and score rows, in step_chunk, step_chunk_sharded
-and phased_eval against their plain versions.  A CUDA kernel has
+and phased_eval against their plain versions; and the oracle (B3, and
+B11's fused oracle over K = 1..8 sessions, two streams at once) at every
+batch kind, pack width and CTA count, and renormalize_rows (B10) at
+every R and G.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -681,9 +684,10 @@ def _phased_workload(wl):
 @pytest.mark.parametrize("wl", list(PHASED_WORKLOADS) + ["default_profile"])
 def test_phased_kernels_match_plain(card, wl):
     """B10 on the card: phased_eval == Phased.plain_eval (every StepOut
-    field), renormalize_row == renormalize_plain for every scorer on
-    edited raws and feasibility, and the bind (spec_commit_bind on a
-    batch of one) == _bind_phase, pod after pod from one carry."""
+    field), renormalize (a one-row renormalize_rows) == renormalize_plain
+    for every scorer on edited raws and feasibility, and the bind
+    (spec_commit_bind on a batch of one) == _bind_phase, pod after pod
+    from one carry."""
     import numpy as np
 
     from kube_scheduler_simulator_tpu_torch.framework import pipeline
@@ -1562,3 +1566,139 @@ def test_custom_rows_in_phased_eval_match_plain(card, wl):
         if wl == "six" and (i % 7 == 0 or 32 <= i < 64):
             assert int(want.selected) == -1 and int(want.feasible_count) == 0
         carry = ph.bind(carry, xs1, int(want.selected))
+
+
+# ------------------------------------------------ the oracle (csrc/oracle.cu)
+
+ORACLE_BATCHES = (1, 2, 7, 8, 31, 32, 33, 512)
+ORACLE_NODES = 300
+
+
+class _OracleMember:
+    """What spec_oracle_fused reads of a fused round's member: its device,
+    stream and K."""
+
+    def __init__(self, dev):
+        self.device = dev
+        self.stream = torch.cuda.current_stream(dev)
+        self.outs = {"k": torch.empty((), dtype=torch.int32, device=dev)}
+
+
+@pytest.mark.parametrize("pack", [mode[0] for mode in PACK_MODES.values()])
+@pytest.mark.parametrize("b", ORACLE_BATCHES)
+def test_oracle_matches_plain(card, b, pack):
+    """spec_oracle (B3) == _oracle_core on batches all accepted, with a
+    conflict at k = 1, with one only at k = B - 1, all rejected and
+    random, with pad rows (selected -1) and without, at the plan's CTAs
+    and every forced count; the plan's count is oracle_ctas(b)."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    for kind in chip_smoke.ORACLE_KINDS:
+        for pads in sorted({0, min(3, b - 1)}):
+            args = chip_smoke.oracle_batch(kind, b, ORACLE_NODES, pack, seed=b, pads=pads,
+                                           device=card)
+            want = kspec._oracle_core(*args, b)
+            n0 = kspec.spec_oracle.launches
+            _equal(kspec.spec_oracle(*args), want, (b, kind, pads, "plan"))
+            assert kspec.spec_oracle.launches == n0 + 1
+            assert kspec.spec_oracle.ctas == kspec.oracle_ctas(b)
+            for ctas in kspec.ORACLE_CTAS:
+                _equal(kspec.spec_oracle(*args, _ctas=ctas), want, (b, kind, pads, ctas))
+                assert kspec.spec_oracle.ctas == ctas
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_fused_oracle_matches_solo(card, k):
+    """spec_oracle_fused (B11) over K = 1..8 sessions of different kinds
+    of batch: one launch, each session's K equal to its solo spec_oracle
+    and to _oracle_core, at the plan's CTAs and every forced count."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    for b in (8, 33, 512):
+        rows = [chip_smoke.oracle_batch(chip_smoke.ORACLE_KINDS[i % 5], b, ORACLE_NODES,
+                                        torch.uint16, seed=10 * k + i, pads=i % 2,
+                                        device=card) for i in range(k)]
+        want = [kspec._oracle_core(*r, b) for r in rows]
+        solo = [kspec.spec_oracle(*r).clone() for r in rows]
+        for ctas in (0, *kspec.ORACLE_CTAS):
+            members = [_OracleMember(card) for _ in range(k)]
+            n0 = kfuse.spec_oracle_fused.launches
+            got = kfuse.spec_oracle_fused(members, rows, _ctas=ctas)
+            assert kfuse.spec_oracle_fused.launches == n0 + 1
+            assert kfuse.spec_oracle_fused.ctas == (ctas or kspec.oracle_ctas(b))
+            for i in range(k):
+                _equal(got[i], solo[i], (k, b, ctas, i, "solo"))
+                _equal(got[i], want[i], (k, b, ctas, i, "plain"))
+
+
+def test_oracles_on_two_streams_at_once(card):
+    """Two sessions launching the oracle on streams of their own, in turns,
+    each into K tensors of its own: nothing is shared between launches,
+    so every K equals _oracle_core."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    rows = [chip_smoke.oracle_batch(kind, 512, ORACLE_NODES, torch.uint8, seed=s, device=card)
+            for s, kind in enumerate(("last", "first"))]
+    want = [int(kspec._oracle_core(*r, 512)) for r in rows]
+    assert want == [511, 1]
+    outs = [[torch.empty((), dtype=torch.int32, device=card) for _ in range(50)]
+            for _ in streams]
+    torch.cuda.synchronize()
+    for j in range(50):
+        for s, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                kspec.spec_oracle(*rows[s], out=outs[s][j], _ctas=16 if j % 2 else 0)
+    torch.cuda.synchronize()
+    for s in range(2):
+        assert [int(t) for t in outs[s]] == [want[s]] * 50
+
+
+# ------------------------------------------------ renormalize_rows (csrc/phased.cu)
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_renormalize_rows_match_plain(card, r):
+    """renormalize_rows (B10) over R = 1..4 of config 5's scorers with
+    ScoreExtensions, on hook-edited raws == renormalize_plain row by
+    row, at the plan's G
+    and every forced G, at a random feasibility and at none (no node
+    scored), pod after pod on a carry the binds advance; one launch a
+    call."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+
+    nodes, pods, cfg = baseline_config(5, scale=0.06, seed=0)
+    cw = compile_workload(nodes, pods, cfg, device=card)
+    ph = pipeline.build_phased(cw)
+    carry = _clone_carry(cw.init_carry)
+    scorers = list(cw.config.scorers())
+    norm = [nm for nm in scorers if nm in pipeline.NORMALIZING]
+    names = norm[:r]
+    rows = [scorers.index(nm) for nm in names]
+    rng = np.random.default_rng(r)
+    n = cw.n_nodes
+    for i in range(6):
+        xs1 = _batch(cw, i, 1, card)
+        xs1["is_pad"] = torch.zeros(1, dtype=torch.bool, device=card)
+        out = ph.plain_eval(carry, xs1)
+        raws = out.score_raw[rows].long() + torch.from_numpy(
+            rng.integers(-5, 6, (r, n))).to(card)
+        sl = pipeline.slice_pod(xs1, 0)
+        for feas in ((out.filter_codes == 0).all(0) & torch.from_numpy(
+                rng.random(n) < 0.7).to(card), torch.zeros(n, dtype=torch.bool, device=card)):
+            want = torch.stack([pipeline.renormalize_plain(nm, cw, carry, sl, raws[j], feas)
+                                for j, nm in enumerate(names)])
+            for g in (0, *kphased.RENORM_CTAS):
+                n0 = kphased.renormalize_rows.launches
+                got = kphased.renormalize_rows(ph.step, names, carry, xs1, raws, feas, _ctas=g)
+                assert kphased.renormalize_rows.launches == n0 + 1
+                assert kphased.renormalize_rows.ctas == (g or kphased.renorm_ctas(n))
+                _equal(got, want, (r, i, g, bool(feas.any())))
+        carry = ph.bind(carry, xs1, int(out.selected))
+    torch.cuda.synchronize()

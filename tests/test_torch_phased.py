@@ -105,11 +105,11 @@ def test_renormalize_without_score_extensions_returns_raws():
     phased = ppipeline.build_phased(cw)
     raw = torch.arange(cw.n_nodes, dtype=torch.int64) - 3
     feas = torch.ones(cw.n_nodes, dtype=torch.bool)
-    launches = kphased.renormalize_row.launches
+    launches = kphased.renormalize_rows.launches
     for name in ("NodeResourcesFit", "NodeResourcesBalancedAllocation"):
         out = ppipeline.renormalize(name, phased, cw.init_carry, _xs1(cw, 0), raw, feas)
         assert torch.equal(out, raw)
-    assert kphased.renormalize_row.launches == launches
+    assert kphased.renormalize_rows.launches == launches
 
 
 # ------------------------------------------------ the engine's host path
@@ -278,10 +278,10 @@ def _with_hooks(pkg, mod, case, objects, cfg_kw):
 def test_plugin_extender_hooks_match_jax(case):
     nodes, pods, cfg = pworkloads.baseline_config(5, scale=0.01, seed=0)
     objects, cfg_kw = {"nodes": nodes, "pods": pods[:30]}, {"enabled": list(cfg.enabled)}
-    launches = kphased.renormalize_row.launches
+    launches = kphased.renormalize_rows.launches
     bound, snap, host = _with_hooks(PORT, pdebuggable, case, objects, cfg_kw)
     bound_ref, ref, host_ref = _with_hooks(JAX, jdebuggable, case, objects, cfg_kw)
     assert host == host_ref == (case != "observer")
     assert bound == bound_ref and bound > 0
     assert_same(snap, ref)
-    assert kphased.renormalize_row.launches == launches  # the CPU runs the plain version
+    assert kphased.renormalize_rows.launches == launches  # the CPU runs the plain version
