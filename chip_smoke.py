@@ -28,7 +28,9 @@ phase:
        replay, the SAFE-set stream, each B9 group's share of a launch;
   14   B7 (chunk_attribution) held exactly equal to its plain version on
        chunk 0 of config 5, of the default-profile fleet, of a p64 chunk
-       and of an i64-tier chunk, with its time and bound;
+       and of an i64-tier chunk, in the plan's shape and each forced (W
+       warps a pod, P pods a CTA), with its times, bound and the bytes
+       its 32-byte sectors move;
   15   the default result path: config 5 through replay(cw) with default
        arguments (device-resident, B7 on every chunk) against phase 4's
        host-resident replay, again under a 64 MB retention budget, and the
@@ -38,9 +40,12 @@ phase:
        Python encoder;
   17   the slot-pinned and SAFE-set streams with device_resident=True
        against phases 7 and 12;
-  18   B8 (quorum_slice) on a 10,000-pod slice of 1,250 groups, and B10
-       (phased_eval, renormalize_rows) on config 5's 5,000 nodes, each
-       held exactly equal to its plain version, with times and bounds;
+  18   B8 (quorum_slice) on a 10,000-pod slice of 1,250 groups, on one
+       scattered over 1,250 and over 100,000 groups (past shared memory),
+       at the plan's path and each forced one, its page-locked copies and
+       its numpy-to-numpy call, and B10 (phased_eval, renormalize_rows) on
+       config 5's 5,000 nodes, each held exactly equal to its plain
+       version, with times and bounds;
   19   the scheduling engine: config 5 created in an ObjectStore and
        scheduled by SchedulerEngine.schedule_pending() at its default
        wave and rung, then under KSS_TPU_SPECULATIVE=0, every pod's node
@@ -1041,6 +1046,307 @@ def mesh_ladder(cw, reps: int = 3) -> tuple[dict, int]:
     return res, err
 
 
+def att_chunk0(w, wide):
+    """(B7's context, chunk 0's compact outputs, its pack mode) of
+    workload w at the raw tier `wide`."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _DeviceAttribution, _clone_carry, _compact_plan, _slice_xs)
+
+    dev = w.init_carry["core"].requested.device
+    pm, sd, cols = _compact_plan(w, wide)
+    step = build_step(w, out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+    hi = min(CHUNK, w.n_pods)
+    xs = _slice_xs(w.xs, 0, hi, CHUNK)
+    xs["is_pad"] = torch.arange(CHUNK, device=dev) >= hi
+    _, out = step.scan(_clone_carry(w.init_carry), xs)
+    return _DeviceAttribution(w, CHUNK, pm, cols), out, pm
+
+
+def att_args(ctx, out) -> tuple:
+    """chunk_attribution's arguments for chunk 0 of ctx's replay."""
+    m = min(CHUNK, ctx.p)
+    return (out.packed_filter, out.raw8, out.raw16, out.raw32, out.feasible_count,
+            ctx.fskip_dev[0], ctx.sskip_dev[0], m, ctx.code_bits, ctx.dev_cols, ctx.want_pack)
+
+
+def att_cases(cw, wide, dcw, dwide) -> dict:
+    """B7's four chunks: chunk 0 of config 5 (cw at tier wide), of the
+    default-profile fleet dcw (tier dwide: host score columns, so the
+    bitmap), of CHUNK config-5 pods on 5,000 nodes with 16 extended
+    resources (p64) and of config 5 at the i64 tier -> {name: (context,
+    outputs, pack mode)}."""
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    dev = cw.init_carry["core"].requested.device
+    pnodes, ppods, pcfg = baseline_config(CONFIG, scale=CHUNK / 10_000, node_scale=1.0, seed=SEED)
+    extend_resources(pnodes, ppods, SEED)
+    pcw = compile_workload(pnodes, ppods, pcfg, device=dev)
+    cases = {"config5": att_chunk0(cw, wide), "default_profile": att_chunk0(dcw, dwide),
+             "p64": att_chunk0(pcw, None), "i64": att_chunk0(cw, "i64")}
+    check(cases["p64"][2] == "p64", f"the extended-resource chunk packs {cases['p64'][2]}")
+    check(cases["default_profile"][0].want_pack, "the default profile has no host score column")
+    return cases
+
+
+def att_bound(ctx, out, want: dict) -> tuple[float, str, int, int]:
+    """B7's bound on one chunk: every packed word, each device score
+    column's raws where the pod scores and the node is feasible
+    (s_evaluated counts them), fc and the skips, the outputs ->
+    (ms, "bytes", bytes, raw bytes)."""
+    elem = {"raw8": 1, "raw16": 2, "raw32": out.raw32.element_size()}
+    raw_bytes = sum(int(want["s_evaluated"][q]) * elem[g]
+                    for q, (_s, g, _r) in enumerate(ctx.dev_cols)) if ctx.dev_cols else 0
+    nbytes = (out.packed_filter.numel() * out.packed_filter.element_size() + raw_bytes
+              + 4 * CHUNK + ctx.fskip_dev[0].numel() + ctx.sskip_dev[0].numel()
+              + sum(t.numel() * t.element_size() for t in want.values()))
+    return (*bound(nbytes), nbytes, raw_bytes)
+
+
+def att_sector_bytes(ctx, out) -> int:
+    """The bytes a card that reads whole 32-byte sectors moves for B7 on
+    one chunk: the packed words, and every sector of a scored device
+    column's raws that holds a feasible node of a pod that scores it (the
+    bound counts those nodes' bytes alone)."""
+    import torch
+
+    m = min(CHUNK, ctx.p)
+    packed = out.packed_filter
+    feas = (packed.to(torch.int64) >> ctx.code_bits) == 0
+    feas[m:] = False
+    scored = out.feasible_count > 1
+    raws = {"raw8": out.raw8, "raw16": out.raw16, "raw32": out.raw32}
+    total = packed.numel() * packed.element_size()
+    for s, g, r in ctx.dev_cols:
+        x = raws[g]
+        es, n = x.element_size(), x.shape[2]
+        mask = feas & (scored & ~ctx.sskip_dev[0][s])[:, None]
+        at = (torch.arange(x.shape[0], device=x.device)[:, None] * x.shape[1] + r) * n \
+            + torch.arange(n, device=x.device)[None, :]
+        total += 32 * int(torch.unique((at[mask] * es + x.data_ptr()) // 32).numel())
+    return total
+
+
+ATT_SHAPES = ((1, 1), (1, 2), (1, 4), (1, 8), (2, 1), (2, 2), (2, 4), (4, 1), (4, 2), (8, 1))
+
+
+def att_times(args, want: dict, reps: int = 20) -> tuple[dict, int]:
+    """chunk_attribution on args, held to `want` and timed (device ms a
+    launch, CUDA graph) in the plan's shape and, where the wrapper takes
+    `_warps` / `_pods`, in each (W, P) of ATT_SHAPES -> ({"shape": the
+    plan's (W, P) or None, "ms", "forced": {"W,P": ms}, "best", "slow": the
+    plan more than 10 % slower than the best}, max_abs_err)."""
+    import inspect
+
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution
+
+    got = chunk_attribution(*args)
+    check(sorted(got) == sorted(want), f"B7: keys {sorted(got)}")
+    err = tree_err(got, want)
+    out = {"shape": getattr(chunk_attribution, "shape", None),
+           "ms": timed_graph(lambda: chunk_attribution(*args), reps)}
+    if "_warps" in inspect.signature(chunk_attribution).parameters:
+        forced = {}
+        for w, p in ATT_SHAPES:
+            err = max(err, tree_err(chunk_attribution(*args, _warps=w, _pods=p), want))
+            forced[f"{w},{p}"] = timed_graph(
+                lambda w=w, p=p: chunk_attribution(*args, _warps=w, _pods=p), reps)
+        best = min(forced, key=forced.get)
+        out.update(forced=forced, best=best, slow=out["ms"] > 1.1 * forced[best])
+    check(err == 0, f"chunk_attribution differs from its plain version (max |d| {err})")
+    return out, err
+
+
+def att_ladder(cw) -> tuple[dict, int]:
+    """B7 for the ladder: att_cases over config 5 (cw) and a
+    default-profile fleet of CHUNK pods on 5,000 nodes, each chunk's times
+    (att_times) beside its bound, and config 5's chunk with m = 0 (the
+    launch's fixed cost) -> ({case: times}, max_abs_err)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution_plain
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    dev = cw.init_carry["core"].requested.device
+    dnodes, dpods, _ = baseline_config(CONFIG, scale=CHUNK / 10_000, node_scale=1.0, seed=SEED)
+    volumes, bound_pods = decorate_default_profile(dnodes, dpods, SEED)
+    dcw = compile_workload(dnodes, dpods, PluginSetConfig(), volumes=volumes,
+                           bound_pods=bound_pods, device=dev)
+    res, err = {}, 0
+    cases = att_cases(cw, None, dcw, None)
+    for name, (ctx, out, pm) in cases.items():
+        args = att_args(ctx, out)
+        want = chunk_attribution_plain(*args)
+        t, e = att_times(args, want)
+        err = max(err, e)
+        t["pack"] = pm
+        t["bound"] = att_bound(ctx, out, want)[:2]
+        t["sector_bytes"] = att_sector_bytes(ctx, out)
+        res[name] = t
+    # config 5's launch with every row a pad row: what a launch costs that
+    # reads nothing of the chunk
+    ctx, out, pm = cases["config5"]
+    args = (*att_args(ctx, out)[:7], 0, *att_args(ctx, out)[8:])
+    res["config5_all_pad"], e = att_times(args, chunk_attribution_plain(*args))
+    res["config5_all_pad"]["pack"] = pm
+    err = max(err, e)
+    torch.cuda.synchronize()
+    return res, err
+
+
+def gang_slice(rng, gn: int, gg: int, n_nodes: int):
+    """Phase 18's slice: gn pods in contiguous gangs of 2-8 members of gg
+    groups (a tenth absent, runs of ungrouped pods between some), 85 %
+    selected -> (gid, selected, already, min_member) int32."""
+    import numpy as np
+
+    gid = np.full(gn, -1, np.int32)
+    pos, k = 0, 0
+    while pos < gn and k < gg:
+        if rng.random() < 0.1:
+            k += 1  # a group absent from the slice
+            continue
+        size = int(rng.integers(2, 9))
+        gid[pos:pos + size] = k
+        pos += size + (int(rng.integers(1, 6)) if rng.random() < 0.3 else 0)  # -1 runs
+        k += 1
+    sel = np.where(rng.random(gn) < 0.85, rng.integers(0, n_nodes, gn), -1).astype(np.int32)
+    return (gid, sel, rng.integers(0, 3, gg).astype(np.int32),
+            rng.integers(1, 9, gg).astype(np.int32))
+
+
+def scattered_slice(rng, gn: int, gg: int, n_nodes: int):
+    """A slice whose groups are not contiguous: each pod in a random one
+    of gg groups (80 %) or ungrouped, 85 % selected."""
+    import numpy as np
+
+    gid = np.where(rng.random(gn) < 0.8, rng.integers(0, gg, gn), -1).astype(np.int32)
+    sel = np.where(rng.random(gn) < 0.85, rng.integers(0, n_nodes, gn), -1).astype(np.int32)
+    return (gid, sel, rng.integers(0, 3, gg).astype(np.int32),
+            rng.integers(1, 9, gg).astype(np.int32))
+
+
+def gang_wave_slice(lo: int, hi: int):
+    """A commit range [lo, hi) of phase 20's gang wave: GANG_FAMILIES'
+    members in pending order (contiguous gangs), every member selected, the
+    wave's groups all in G."""
+    import numpy as np
+
+    gid = np.concatenate([np.repeat(np.arange(groups) + sum(f[1] for f in
+                                                           GANG_FAMILIES[:i]), size)
+                          for i, (_fam, groups, size, _mm) in enumerate(GANG_FAMILIES)])
+    mm = np.concatenate([np.full(groups, need, np.int32) for _f, groups, _s, need in GANG_FAMILIES])
+    gid = gid[lo:hi].astype(np.int32)
+    return gid, np.zeros(hi - lo, np.int32), np.zeros(len(mm), np.int32), mm
+
+
+def quorum_times(args, dev, reps: int = 20) -> tuple[dict, int]:
+    """B8 on the slice args = (gid, selected, already, min_member): the
+    kernel held to quorum_slice_plain and timed (CUDA graph) at the plan's
+    path and, where the wrapper takes `_path`, each path its tables fit;
+    the copies as the checkout's framework/gang.py makes them (into and
+    out of its page-locked buffers where it has them, else pageable),
+    median device ms of `reps` (CUDA events); the numpy-to-numpy call
+    (host clock, median of `reps` after one untimed); the bound ->
+    (times, max_abs_err)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework import gang
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+
+    n, g = len(args[0]), len(args[3])
+    packed = np.concatenate([np.asarray(a, np.int32) for a in args])
+    packed_dev = torch.from_numpy(packed).to(dev)
+    admit, wave, wait = gang.quorum_slice_plain(*(torch.from_numpy(np.asarray(a, np.int32))
+                                                  .to(dev) for a in args))
+    want = torch.cat([admit.to(torch.int32), wave, wait.to(torch.int32)])
+    err = tree_err(kgang.quorum_slice(packed_dev, n, g), want)
+    out = {"n": n, "G": g, "path": getattr(kgang.quorum_slice, "path", None),
+           "ms": timed_graph(lambda: kgang.quorum_slice(packed_dev, n, g), reps)}
+    if "_path" in inspect.signature(kgang.quorum_slice).parameters:
+        forced = {}
+        for path in kgang.QUORUM_PATHS:
+            if path == "shared" and kgang.quorum_tables(n, g) > kgang.QUORUM_SMEM:
+                continue
+            err = max(err, tree_err(kgang.quorum_slice(packed_dev, n, g, _path=path), want))
+            forced[path] = timed_graph(lambda p=path: kgang.quorum_slice(packed_dev, n, g,
+                                                                         _path=p), reps)
+        out["forced"] = forced
+    for a, b in zip(gang.quorum_slice(*args, device=dev), gang.quorum_slice(*args, device="cpu")):
+        check(a.dtype == b.dtype and (a == b).all(), "B8 through framework/gang.py differs "
+                                                     "from the CPU's")
+    staging = getattr(gang, "_STAGING", None)
+    h2d, d2h = [], []
+    for _ in range(reps):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        if staging is not None:
+            hin_np, hin, _hout_np, hout = staging.buffers(2 * n + 2 * g, 2 * g + n)
+            hin_np[:] = packed
+            e[0].record()
+            din = hin.to(dev, non_blocking=True)
+            e[1].record()
+            dout = kgang.quorum_slice(din, n, g)
+            e[2].record()
+            hout.copy_(dout, non_blocking=True)
+            e[3].record()
+        else:
+            host_in = torch.from_numpy(packed)
+            e[0].record()
+            din = host_in.to(dev)
+            e[1].record()
+            dout = kgang.quorum_slice(din, n, g)
+            e[2].record()
+            dout.cpu()
+            e[3].record()
+        torch.cuda.synchronize()
+        h2d.append(e[0].elapsed_time(e[1]))
+        d2h.append(e[2].elapsed_time(e[3]))
+    calls = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        gang.quorum_slice(*args, device=dev)
+        calls.append((time.perf_counter() - t0) * 1e3)
+    out.update(h2d_ms=float(np.median(h2d)), d2h_ms=float(np.median(d2h)),
+               call_ms=float(np.median(calls[1:])), pinned=staging is not None,
+               bound=bound((2 * n + 2 * g) * 4 + (2 * g + n) * 4))
+    check(err == 0, f"quorum_slice differs from its plain version (max |d| {err})")
+    return out, err
+
+
+QUORUM_LADDER = {"phase18": (10_000, 1_250), "scattered": (10_000, 1_250),
+                 "past_shared": (10_000, 100_000)}
+GANG_RANGE = 512                # phase 20's commit ranges of the gang wave, at most
+
+
+def quorum_ladder(dev, n_nodes: int) -> tuple[dict, int]:
+    """B8 for the ladder (quorum_times): phase 18's slice (n = 10,000,
+    G = 1,250), a scattered one of that size, one with G = 100,000 past
+    shared memory, and phase 20's shapes (gang_wave_slice: its first
+    commit range of GANG_RANGE members and the whole wave of 2,000, G =
+    260) -> ({case: times}, max_abs_err)."""
+    import numpy as np
+
+    res, err = {}, 0
+    for name, (gn, gg) in QUORUM_LADDER.items():
+        rng = np.random.default_rng(SEED)
+        make = gang_slice if name == "phase18" else scattered_slice
+        res[name], e = quorum_times(make(rng, gn, gg, n_nodes), dev)
+        err = max(err, e)
+    members = sum(groups * size for _f, groups, size, _mm in GANG_FAMILIES)
+    for name, (lo, hi) in (("phase20_range", (0, GANG_RANGE)), ("phase20_wave", (0, members))):
+        res[name], e = quorum_times(gang_wave_slice(lo, hi), dev)
+        err = max(err, e)
+    return res, err
+
+
 def ptxas_summary(log: str) -> str:
     """nvcc's -Xptxas -v lines of each kernel: its name, registers and
     spills."""
@@ -1058,7 +1364,12 @@ def ladder_main(root: Path) -> int:
     FUSED_EVAL_CASES, the sparse round at ROUND_CASES with its phase
     clock (the slot-pinned fleet), B12's eval and step on config 5
     (mesh_ladder: the eval at each rung and step_chunk_sharded on chunk
-    0 at S = 2, 4, 8, beside step_chunk), and DIRECT_RUNS
+    0 at S = 2, 4, 8, beside step_chunk), B7 (att_ladder: chunk 0 of
+    config 5, of a default-profile fleet, p64 and i64, in the plan's and
+    each forced shape, and config 5's with every row a pad row), B8
+    (quorum_ladder: phase 18's slice, a scattered
+    one, G past shared memory and phase 20's shapes; the kernel at each
+    path, the copies and the numpy-to-numpy call), and DIRECT_RUNS
     direct replay_speculative runs on 1,024 x 5,000 with spec_eval's
     launches by batch size, for the port found under DIR (default: this
     checkout), so that two trees are compared in one call.  Two JSON lines
@@ -1100,11 +1411,13 @@ def ladder_main(root: Path) -> int:
     rounds, rerr = round_ladder(scw)
     del scw
     mesh, merr = mesh_ladder(cw)
+    b7, aerr = att_ladder(cw)
+    b8, qerr = quorum_ladder(dev, cw.n_nodes)
     print(json.dumps({"card": card, "root": str(root),
-                      "max_abs_err": max(err, perr, nerr, oerr, ferr, rerr, merr),
+                      "max_abs_err": max(err, perr, nerr, oerr, ferr, rerr, merr, aerr, qerr),
                       "spec_eval": spec, "phased_eval": phased, "renormalize_rows": renorm,
                       "oracle": oracle, "spec_eval_fused": fused, "sparse_round": rounds,
-                      "mesh": mesh}),
+                      "mesh": mesh, "b7": b7, "b8": b8}),
           flush=True)
 
     dnodes, dpods, dcfg = baseline_config(CONFIG, scale=DIRECT_SCALE, node_scale=1.0, seed=SEED)
@@ -1906,76 +2219,48 @@ def result_path_phases(dev, card: str, cw, pods: list, rr, spec_ctx: dict,
     from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
     from kube_scheduler_simulator_tpu_torch.kernels.attribution import (
         chunk_attribution, chunk_attribution_plain)
-    from kube_scheduler_simulator_tpu_torch.models import baseline_config
     from kube_scheduler_simulator_tpu_torch.parallel import replay_speculative_stream
-    from kube_scheduler_simulator_tpu_torch.state import compile_workload
     from kube_scheduler_simulator_tpu_torch.store import decode_pod_result, decode_release_batches
     from kube_scheduler_simulator_tpu_torch.store.decode import _decode_path_label
 
-    def chunk0(w, wide):
-        """(att context, chunk 0's compact outputs) of workload w at tier wide."""
-        pm, sd, cols = _compact_plan(w, wide)
-        step = build_step(w, out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
-        hi = min(CHUNK, w.n_pods)
-        xs = _slice_xs(w.xs, 0, hi, CHUNK)
-        xs["is_pad"] = torch.arange(CHUNK, device=dev) >= hi
-        _, out = step.scan(_clone_carry(w.init_carry), xs)
-        return _DeviceAttribution(w, CHUNK, pm, cols), out, pm
-
-    def att_args(ctx, out):
-        m = min(CHUNK, ctx.p)
-        return (out.packed_filter, out.raw8, out.raw16, out.raw32, out.feasible_count,
-                ctx.fskip_dev[0], ctx.sskip_dev[0], m, ctx.code_bits, ctx.dev_cols,
-                ctx.want_pack)
-
-    # ---- 14. B7 == its plain version, exactly
+    # ---- 14. B7 == its plain version, exactly, in the plan's shape and
+    # in each forced one
     t14 = time.perf_counter()
     dcw, drr = dp_ctx["default"]
-    pnodes, ppods, pcfg = baseline_config(CONFIG, scale=CHUNK / 10_000, node_scale=1.0, seed=SEED)
-    extend_resources(pnodes, ppods, SEED)
-    pcw = compile_workload(pnodes, ppods, pcfg, device=dev)
-    cases = {"config5": chunk0(cw, rr.tiers[-1]), "default_profile": chunk0(dcw, drr.tiers[-1]),
-             "p64": chunk0(pcw, None), "i64": chunk0(cw, "i64")}
-    check(cases["p64"][2] == "p64", f"the extended-resource chunk packs {cases['p64'][2]}")
-    check(cases["default_profile"][0].want_pack, "the default profile has no host score column")
-    att_err, att_info = 0, {}
+    cases = att_cases(cw, rr.tiers[-1], dcw, drr.tiers[-1])
+    att_err, att_info, att_t = 0, {}, {}
     for name, (ctx, out, pm) in cases.items():
         args = att_args(ctx, out)
-        got = chunk_attribution(*args)
         want = chunk_attribution_plain(*args)
-        check(sorted(got) == sorted(want), f"B7 {name}: keys {sorted(got)}")
-        err = tree_err(got, want)
+        att_t[name], err = att_times(args, want)
         att_err = max(att_err, err)
-        check(err == 0, f"B7 {name} differs from its plain version (max |d| {err})")
         att_info[name] = (pm, str(out.raw32.dtype).replace("torch.", ""),
-                          int(want["f_rejects"].sum()) if "f_rejects" in want else 0)
+                          int(want["f_rejects"].sum()) if "f_rejects" in want else 0,
+                          att_bound(ctx, out, want)[0], att_sector_bytes(ctx, out))
     torch.cuda.synchronize()
     ctx, out, _ = cases["config5"]
     args = att_args(ctx, out)
-    att_ms = timed_graph(lambda: chunk_attribution(*args), 20)
+    att_ms = att_t["config5"]["ms"]
     att_call_ms = timed(lambda: chunk_attribution(*args), 20)
     att_plain_ms = timed_once(lambda: chunk_attribution_plain(*args))
-    want = chunk_attribution_plain(*args)
-    # the bytes this chunk's attribution needs: every packed word, each
-    # device score column's raws where the pod scores and the node is
-    # feasible (s_evaluated counts them), fc and the skips, the outputs
-    elem = {"raw8": 1, "raw16": 2, "raw32": out.raw32.element_size()}
-    raw_bytes = sum(int(want["s_evaluated"][q]) * elem[g]
-                    for q, (_s, g, _r) in enumerate(ctx.dev_cols))
-    att_bytes = (out.packed_filter.numel() * out.packed_filter.element_size() + raw_bytes
-                 + 4 * CHUNK + ctx.fskip_dev[0].numel() + ctx.sskip_dev[0].numel()
-                 + sum(t.numel() * t.element_size() for t in want.values()))
-    att_bound_ms, att_bound_by = bound(att_bytes)
+    att_bound_ms, att_bound_by, att_bytes, raw_bytes = att_bound(
+        ctx, out, chunk_attribution_plain(*args))
     print(f"[14 B7==plain] {card}: chunk_attribution on chunk 0 of config {CONFIG}, of the "
           f"default-profile fleet (host score columns: the feasibility bitmap), of "
-          f"{pcw.n_pods}x{pcw.n_nodes} config-{CONFIG} pods on nodes with 16 extended resources, "
-          f"and of config {CONFIG} at the i64 tier: (pack, raw32 dtype, rejects) {att_info}; "
-          f"max_abs_err {att_err}; config {CONFIG}: {att_ms:.5f} ms per launch (CUDA graph), "
-          f"{att_call_ms:.5f} ms per wrapper call back to back, plain {att_plain_ms:.3f} ms, "
-          f"bound {att_bound_ms:.6f} ms by {att_bound_by} ({att_bytes} B: packed + the "
-          f"{raw_bytes} B of raws scored at feasible nodes); {time.perf_counter() - t14:.1f} s",
-          flush=True)
-    del cases, pcw
+          f"{CHUNK} config-{CONFIG} pods on nodes with 16 extended resources, and of config "
+          f"{CONFIG} at the i64 tier, in the plan's shape and every forced (W warps a pod, P "
+          f"pods a CTA) {list(ATT_SHAPES)}: (pack, raw32 dtype, rejects, bound ms, bytes in 32-byte "
+          f"sectors) {att_info}; "
+          f"max_abs_err {att_err}; ms per launch (CUDA graph) "
+          + "; ".join(f"{k}: plan {t['shape']} {t['ms']:.5f}, best {t['best']} "
+                      f"{t['forced'][t['best']]:.5f}"
+                      + (" FLAG: the plan is over 10 % slower than the best" if t["slow"] else "")
+                      for k, t in att_t.items())
+          + f"; config {CONFIG} forced {att_t['config5']['forced']}; {att_call_ms:.5f} ms per "
+          f"wrapper call back to back, plain {att_plain_ms:.3f} ms, bound {att_bound_ms:.6f} ms "
+          f"by {att_bound_by} ({att_bytes} B: packed + the {raw_bytes} B of raws scored at "
+          f"feasible nodes); {time.perf_counter() - t14:.1f} s", flush=True)
+    del cases
 
     kernels = (kstep.step_chunk, chunk_attribution)
 
@@ -2272,32 +2557,23 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
     # ---- 18. B8 and B10 == their plain versions, at full width
     t18 = time.perf_counter()
     gn, gg = 10_000, 1_250
-    gid = np.full(gn, -1, np.int32)
-    pos, k = 0, 0
-    while pos < gn and k < gg:
-        if rng.random() < 0.1:
-            k += 1  # a group absent from the slice
-            continue
-        size = int(rng.integers(2, 9))
-        gid[pos:pos + size] = k
-        pos += size + (int(rng.integers(1, 6)) if rng.random() < 0.3 else 0)  # -1 runs
-        k += 1
-    sel = np.where(rng.random(gn) < 0.85, rng.integers(0, n, gn), -1).astype(np.int32)
-    already = rng.integers(0, 3, gg).astype(np.int32)
-    min_member = rng.integers(1, 9, gg).astype(np.int32)
-    packed = np.concatenate([gid, sel, already, min_member])
-    packed_dev = torch.from_numpy(packed).to(dev)
-
-    def b8_plain():
-        return gang.quorum_slice_plain(packed_dev[:gn], packed_dev[gn:2 * gn],
-                                       packed_dev[2 * gn:2 * gn + gg], packed_dev[2 * gn + gg:])
-
-    got = kgang.quorum_slice(packed_dev, gn, gg)
-    admit, wave, wait = b8_plain()
-    want = torch.cat([admit.to(torch.int32), wave, wait.to(torch.int32)])
-    b8_err = tree_err(got, want)
-    check(b8_err == 0, f"B8 differs from its plain version (max |d| {b8_err})")
+    gid, sel, already, min_member = gang_slice(rng, gn, gg, n)
+    b8_t, b8_err = quorum_times((gid, sel, already, min_member), dev)
+    b8_ms = b8_t["ms"]
+    packed_dev = torch.from_numpy(np.concatenate([gid, sel, already, min_member])).to(dev)
+    b8_plain_ms = timed_once(lambda: gang.quorum_slice_plain(
+        packed_dev[:gn], packed_dev[gn:2 * gn], packed_dev[2 * gn:2 * gn + gg],
+        packed_dev[2 * gn + gg:]))
+    (b8_bound_ms, b8_bound_by), b8_bytes = b8_t["bound"], (2 * gn + 2 * gg + 2 * gg + gn) * 4
     absent = int((np.bincount(gid[gid >= 0], minlength=gg) == 0).sum())
+    # groups that are not contiguous, and G past shared memory (the plan
+    # takes the global path there)
+    b8_more = {}
+    for name, (sn, sg) in (("scattered", (gn, gg)), ("past shared", (gn, 100_000))):
+        b8_more[name], err = quorum_times(scattered_slice(rng, sn, sg, n), dev)
+        b8_err = max(b8_err, err)
+    check(b8_t["path"] == "shared" and b8_more["past shared"]["path"] == "global",
+          f"B8 paths {b8_t['path']}, {b8_more['past shared']['path']}")
     # the empty slice and no groups: answered without a launch; a small
     # slice whose groups are mostly absent
     before = kgang.quorum_slice.launches
@@ -2311,25 +2587,7 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
     for a, b in zip(gang.quorum_slice(*small, device=dev), gang.quorum_slice(*small, device="cpu")):
         check(a.dtype == b.dtype and (a == b).all(), "B8 absent-group case differs from plain")
     torch.cuda.synchronize()
-    b8_ms = timed_graph(lambda: kgang.quorum_slice(packed_dev, gn, gg), 20)
-    b8_plain_ms = timed_once(b8_plain)
-    e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    host_in = torch.from_numpy(packed)
-    e[0].record()
-    din = host_in.to(dev)
-    e[1].record()
-    dout = kgang.quorum_slice(din, gn, gg)
-    e[2].record()
-    dout.cpu()
-    e[3].record()
-    torch.cuda.synchronize()
-    h2d_ms, d2h_ms = e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3])
-    t0 = time.perf_counter()
-    for _ in range(20):
-        gang.quorum_slice(gid, sel, already, min_member, device=dev)
-    call_ms = (time.perf_counter() - t0) * 1e3 / 20
-    b8_bytes = (2 * gn + 2 * gg) * 4 + (2 * gg + gn) * 4
-    b8_bound_ms, b8_bound_by = bound(b8_bytes)
+    h2d_ms, d2h_ms, call_ms = b8_t["h2d_ms"], b8_t["d2h_ms"], b8_t["call_ms"]
 
     # B10 on config 5's 5,000 nodes: 64 pods bound through the phased
     # path, then 8 pods evaluated and renormalized against that carry
@@ -2382,10 +2640,16 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
         for nm in t["names"]]) for r, t in rn.items()}
     pe_bytes = phased_eval_bytes(cw, carry, xs1)
     print(f"[18 B8, B10==plain] {card}: quorum_slice on n={gn}, G={gg} ({absent} groups absent "
-          f"from the slice, -1 runs between groups), the empty slice, no groups and a small "
-          f"absent-group slice: max_abs_err {b8_err}; {b8_ms:.5f} ms per launch (CUDA graph), "
-          f"H2D {h2d_ms:.4f} ms, D2H {d2h_ms:.4f} ms, {call_ms:.4f} ms per numpy-to-numpy call; "
-          f"plain {b8_plain_ms:.3f} ms; bound {b8_bound_ms:.6f} ms by {b8_bound_by} ({b8_bytes} B) "
+          f"from the slice, -1 runs between groups), on n={gn} scattered over G={gg} and over "
+          f"G=100,000 (past shared memory), each at the plan's path and each forced one, the "
+          f"empty slice, no groups and a small absent-group slice: max_abs_err {b8_err}; "
+          f"plan path {b8_t['path']} {b8_ms:.5f} ms per launch (CUDA graph), forced "
+          f"{b8_t.get('forced')}; H2D {h2d_ms:.4f} ms, D2H {d2h_ms:.4f} ms (page-locked: "
+          f"{b8_t['pinned']}; medians), {call_ms:.4f} ms per numpy-to-numpy call; "
+          + "; ".join(f"{k}: plan {t['path']} {t['ms']:.5f} ms, forced {t.get('forced')}"
+                      for k, t in b8_more.items())
+          + f"; plain {b8_plain_ms:.3f} ms; bound {b8_bound_ms:.6f} ms by {b8_bound_by} "
+          f"({b8_bytes} B) "
           f"| config {CONFIG} {n} nodes, 8 pods after 64 phased binds: phased_eval and "
           f"renormalize_rows ({', '.join(norm)}; the others return their raws; a row a "
           f"launch, and every scorer in one launch at the plan's and each forced G, at an "

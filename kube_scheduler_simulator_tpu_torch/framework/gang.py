@@ -37,6 +37,7 @@ plugin (plugins/coscheduling.py), the pending-queue ordering
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -229,6 +230,35 @@ def quorum_slice_plain(gid, selected, already, min_member):
     return admit, wave, wait_mask
 
 
+class _Staging(threading.local):
+    """B8's page-locked host buffers, a pair per thread (commit workers of
+    several sessions call quorum_slice at once), grown to the largest
+    slice the thread has passed and reused: the four rows are packed into
+    `host_in`, copied to the card without blocking, and the outputs come
+    back into `host_out`."""
+
+    def __init__(self):
+        self.host_in = self.host_out = None
+
+    def buffers(self, n_in: int, n_out: int) -> tuple[np.ndarray, torch.Tensor, np.ndarray,
+                                                     torch.Tensor]:
+        """(host_in[:n_in] as numpy and as a tensor, host_out[:n_out] as
+        numpy and as a tensor), page-locked; a failed pin raises."""
+        if self.host_in is None or self.host_in.numel() < n_in:
+            self.host_in = torch.empty(_grown(n_in), dtype=torch.int32, pin_memory=True)
+        if self.host_out is None or self.host_out.numel() < n_out:
+            self.host_out = torch.empty(_grown(n_out), dtype=torch.int32, pin_memory=True)
+        hin, hout = self.host_in[:n_in], self.host_out[:n_out]
+        return hin.numpy(), hin, hout.numpy(), hout
+
+
+def _grown(n: int) -> int:
+    return 1 << max(n - 1, 1023).bit_length()
+
+
+_STAGING = _Staging()
+
+
 def quorum_slice(gid: np.ndarray, selected: np.ndarray,
                  already: np.ndarray, min_member: np.ndarray,
                  device="cuda") -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -244,9 +274,11 @@ def quorum_slice(gid: np.ndarray, selected: np.ndarray,
     selected:   [n] int32, replayed node selection (-1 infeasible)
     already:    [G] int32, waiting + bound members per group before the wave
     min_member: [G] int32
-    device:     where the pass runs: a CUDA device launches B8 (one
-                host-to-device copy of the four rows, one copy back), the
-                CPU runs quorum_slice_plain
+    device:     where the pass runs: a CUDA device launches B8 (the four
+                rows packed into the thread's page-locked buffer, one
+                non-blocking host-to-device copy, the launch, one copy back
+                into page-locked memory, one stream sync), the CPU runs
+                quorum_slice_plain
 
     Returns numpy (admit [G] bool, wave_counts [G] int32,
     wait_mask [n] bool).  wait_mask marks feasible members whose Permit
@@ -261,12 +293,22 @@ def quorum_slice(gid: np.ndarray, selected: np.ndarray,
     g = int(min_member.shape[0])
     if n == 0 or g == 0:
         return (np.zeros(g, bool), np.zeros(g, np.int32), np.zeros(n, bool))
-    packed = np.concatenate([
-        np.asarray(gid, np.int32), np.asarray(selected, np.int32),
-        np.asarray(already, np.int32), np.asarray(min_member, np.int32)])
-    out = _kernel(torch.from_numpy(packed).to(device), n, g).cpu().numpy()
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        packed = np.concatenate([
+            np.asarray(gid, np.int32), np.asarray(selected, np.int32),
+            np.asarray(already, np.int32), np.asarray(min_member, np.int32)])
+        out = _kernel(torch.from_numpy(packed), n, g).numpy()
+    else:
+        hin_np, hin, out, hout = _STAGING.buffers(2 * n + 2 * g, 2 * g + n)
+        hin_np[:n] = gid
+        hin_np[n:2 * n] = selected
+        hin_np[2 * n:2 * n + g] = already
+        hin_np[2 * n + g:] = min_member
+        hout.copy_(_kernel(hin.to(dev, non_blocking=True), n, g), non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
     admit_np = out[:g] != 0
-    wave_np = out[g:2 * g].astype(np.int32)
+    wave_np = out[g:2 * g].astype(np.int32)  # a copy: `out` may be the thread's buffer
     wait_mask = out[2 * g:] != 0
     # flight-recorder tap (docs/metrics.md): per-PASS decision counts for
     # the groups this slice actually touched.  A group re-examined by a

@@ -1,9 +1,8 @@
 """B7, the per-chunk attribution of a device-resident replay chunk: the
 wrapper of csrc/attribution.cu and, beside it, its plain PyTorch version.
 
-    kernel (csrc/)                          wrapper            plain version
-    B7 attribution.cu att_pod_kernel,       chunk_attribution  chunk_attribution_plain
-       att_total_kernel
+    kernel (csrc/)                   wrapper            plain version
+    B7 attribution.cu att_kernel<T>  chunk_attribution  chunk_attribution_plain
 
 The JAX counterpart is framework/replay.py:1217 `_build_att_fn.fn`.  Both
 versions return one dict of int64 tensors (uint8 for the bitmap), each
@@ -25,10 +24,13 @@ host tally computes them (ChunkAttribution._tally_chunk, replay.py:739);
 the JAX function's int32 casts drop the index under p64 and wrap raws
 past int32 (ROADMAP Queue C).
 
-For tensors on the card the wrapper launches the kernel on PyTorch's
-current stream, without synchronising, and adds one to `launches`; for
-tensors on the CPU it runs the plain version.  There is no fallback: a
-failed build or launch raises.
+For tensors on the card the wrapper launches the kernel once on
+PyTorch's current stream (the chunk totals zeroed on that stream just
+before it), without synchronising, in the shape `att_shape` plans (W
+warps a pod, P pods a CTA; `_warps=` and `_pods=` force them, and
+`chunk_attribution.shape` records the last launch's), and adds one to
+`launches`; for tensors on the CPU it runs the plain version.  There is
+no fallback: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ import torch
 from . import step as kstep
 
 MAX_F, MAX_Q = 16, 8
+ATT_WARPS = (1, 2, 4, 8)   # warps a pod the kernel takes
+ATT_PODS = (1, 2, 4, 8)    # pods a CTA
+ATT_MAX_WARPS = 8          # a CTA's warps (csrc/attribution.cu ATT_MAX_WARPS)
+ATT_IN_FLIGHT = 2048       # warps a launch aims to run at once: about 16 an SM of 132
+ATT_NODES_A_WARP = 1024    # a warp of a pod takes at least this many nodes
+ATT_SMEM = 48 * 1024       # the pods' bitmaps: the default dynamic shared memory
 _GROUP_CODE = {"raw8": 1, "raw16": 2, "raw32": 3}
 _P = ctypes.c_void_p
 
@@ -50,15 +58,36 @@ class AttArgs(ctypes.Structure):
     _fields_ = [
         *[(name, _P) for name in (
             "packed", "raw8", "raw16", "raw32", "fc", "fskip", "sskip",
-            "feas_cnt", "rej_pp", "s_sum", "feas_packed",
-            "f_rejects", "f_evaluated", "s_evaluated")],
+            "s_sum", "feas_packed", "totals")],
         ("col_group", ctypes.c_int * MAX_Q),
         ("col_row", ctypes.c_int * MAX_Q),
         ("col_scorer", ctypes.c_int * MAX_Q),
         *[(name, ctypes.c_int) for name in (
             "c", "n", "m", "f", "q", "s8", "s16", "s32",
-            "pack_bytes", "code_bits", "raw32_bytes", "want_pack")],
+            "pack_bytes", "code_bits", "raw32_bytes", "want_pack", "warps", "pods")],
     ]
+
+
+def att_shape(c: int, n: int, f: int, q: int) -> tuple[int, int]:
+    """The launch shape of a chunk of c pods x n nodes with f filters and q
+    device score columns -> (W warps a pod, P pods a CTA).  W doubles from 1
+    while the launch has fewer than ATT_IN_FLIGHT warps and each warp keeps
+    at least ATT_NODES_A_WARP nodes (up to 8); P makes a CTA at least four
+    warps, halved while the pods' bitmaps (ceil(n / 32) words each) pass
+    ATT_SMEM.  f and q only bound the kernel (16 and 8)."""
+    if c < 1 or n < 0 or not 0 <= f <= MAX_F or not 0 <= q <= MAX_Q:
+        raise ValueError(f"chunk_attribution: {c} pods, {n} nodes, {f} filters, {q} device "
+                         f"score columns (the kernel takes {MAX_F} and {MAX_Q})")
+    words = (n + 31) // 32
+    if 4 * words > ATT_SMEM:
+        raise ValueError(f"chunk_attribution: {n} nodes, a bitmap past {ATT_SMEM} bytes")
+    w = 1
+    while w < ATT_WARPS[-1] and c * w < ATT_IN_FLIGHT and n >= 2 * w * ATT_NODES_A_WARP:
+        w *= 2
+    pods = max(1, 4 // w)
+    while pods > 1 and pods * 4 * words > ATT_SMEM:
+        pods //= 2
+    return w, pods
 
 
 def chunk_attribution_plain(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
@@ -122,9 +151,10 @@ def _att_lib() -> ctypes.CDLL:
 
 def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
                       m: int, code_bits: int, dev_cols: tuple,
-                      want_pack: bool) -> dict:
+                      want_pack: bool, _warps: int = 0, _pods: int = 0) -> dict:
     """One chunk's attribution (module doc).  CUDA tensors: the kernel's
-    two launches, counted once; CPU tensors: chunk_attribution_plain."""
+    one launch, in att_shape's shape unless `_warps` / `_pods` force W / P;
+    CPU tensors: chunk_attribution_plain."""
     dev = packed.device
     if dev.type == "cpu":
         return chunk_attribution_plain(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
@@ -133,9 +163,12 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
         raise ValueError(f"chunk_attribution: unsupported device {dev}")
     c, n = packed.shape
     f, q = fskip_c.shape[0], len(dev_cols)
-    if f > MAX_F or q > MAX_Q:
-        raise ValueError(f"chunk_attribution: {f} filters, {q} device score columns "
-                         f"(the kernel takes {MAX_F} and {MAX_Q})")
+    warps, pods = att_shape(c, n, f, q)
+    warps, pods = _warps or warps, _pods or pods
+    if warps not in ATT_WARPS or pods not in ATT_PODS or warps * pods > ATT_MAX_WARPS \
+            or pods * 4 * ((n + 31) // 32) > ATT_SMEM:
+        raise ValueError(f"chunk_attribution: {warps} warps a pod, {pods} pods a CTA at "
+                         f"{n} nodes")
     pack_bytes = packed.element_size()
     if pack_bytes not in (1, 2, 4, 8) or packed.dtype.is_floating_point:
         raise ValueError(f"chunk_attribution: packed words of {packed.dtype}")
@@ -157,21 +190,17 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
             raise ValueError(f"chunk_attribution: column {(s, group, row)} out of range")
 
     lib = _att_lib()
-    empty = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
-    nb = (n + 7) // 8
-    feas_cnt, rej_pp, s_sum = empty((c,), torch.int32), empty((f, c), torch.int32), \
-        empty((c, q), torch.int64)
-    out = {"f_rejects": empty((f,), torch.int64), "f_evaluated": empty((f,), torch.int64),
-           "s_sums": s_sum, "s_evaluated": empty((q,), torch.int64)}
+    s_sum = torch.empty((c, q), dtype=torch.int64, device=dev)
+    totals = torch.empty(2 * f + q, dtype=torch.int64, device=dev)  # zeroed by the launch
+    out = {"f_rejects": totals[:f], "f_evaluated": totals[f:2 * f],
+           "s_sums": s_sum, "s_evaluated": totals[2 * f:]}
     if want_pack:
-        out["feas_packed"] = empty((c, nb), torch.uint8)
+        out["feas_packed"] = torch.empty((c, (n + 7) // 8), dtype=torch.uint8, device=dev)
 
     a = AttArgs()
     for name, t in (("packed", packed), ("raw8", raw8), ("raw16", raw16), ("raw32", raw32),
-                    ("fc", fc), ("fskip", fskip_c), ("sskip", sskip_c),
-                    ("feas_cnt", feas_cnt), ("rej_pp", rej_pp), ("s_sum", s_sum),
-                    ("f_rejects", out["f_rejects"]), ("f_evaluated", out["f_evaluated"]),
-                    ("s_evaluated", out["s_evaluated"])):
+                    ("fc", fc), ("fskip", fskip_c), ("sskip", sskip_c), ("s_sum", s_sum),
+                    ("totals", totals)):
         setattr(a, name, t.data_ptr())
     a.feas_packed = out["feas_packed"].data_ptr() if want_pack else None
     for k, (s, group, row) in enumerate(dev_cols):
@@ -180,9 +209,11 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
     a.s8, a.s16, a.s32 = raw8.shape[1], raw16.shape[1], raw32.shape[1]
     a.pack_bytes, a.code_bits = pack_bytes, code_bits
     a.raw32_bytes, a.want_pack = raw32.element_size(), int(want_pack)
+    a.warps, a.pods = warps, pods
     kstep.check_launch("chunk_attribution",
                        lib.kss_chunk_attribution(ctypes.byref(a), kstep.stream_of(dev)))
     chunk_attribution.launches += 1
+    chunk_attribution.shape = (warps, pods)
     if not f:
         del out["f_rejects"], out["f_evaluated"]
     if not q:
@@ -191,3 +222,4 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
 
 
 chunk_attribution.launches = 0
+chunk_attribution.shape = None

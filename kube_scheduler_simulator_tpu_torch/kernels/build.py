@@ -64,7 +64,7 @@ SIGNATURES = {
              "kss_grid_emit": ([_P, _P], _I)},
     "attribution": {"kss_att_args_size": ([], _I),
                     "kss_chunk_attribution": ([_P, _P], _I)},
-    "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _P], _I)},
+    "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _I, _P], _I)},
     "phased": {"kss_step_args_size": ([], _I),
                "kss_renormalize_rows": ([_P, _P, _I, _P, _P, _P, _I, _P], _I)},
     "oracle": {"kss_fuse_max": ([], _I),

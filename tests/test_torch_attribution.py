@@ -63,10 +63,11 @@ def env(**values):
                 os.environ[k] = v
 
 
-def random_chunk(seed: int, mode: str, tier: str, f: int, m: int):
+def random_chunk(seed: int, mode: str, tier: str, f: int, m: int, ncols: int = 4):
     """A chunk's compact outputs drawn with numpy: packed first-fail words
     (0 on about half the nodes), raws over each group's full range, feasible
-    counts and skips.  -> (arrays dict, dev_cols)."""
+    counts and skips, ncols device score columns.  -> (arrays dict,
+    dev_cols)."""
     rng = np.random.default_rng(seed)
     dtype, code_bits, _ = PACK_MODES[mode]
     ffp = np.where(rng.random((C, N)) < 0.5, 0, rng.integers(1, f + 1, (C, N)))
@@ -74,7 +75,8 @@ def random_chunk(seed: int, mode: str, tier: str, f: int, m: int):
     packed = (ffp.astype(np.int64) << code_bits) | code
     np_dtype = {torch.uint8: np.uint8, torch.uint16: np.uint16, torch.int32: np.int32,
                 torch.int64: np.int64}[dtype]
-    groups = {"narrow": ("raw8", "raw16", "raw32", "raw16"), "i32": ("raw32",) * 4}[tier]
+    cycle = {"narrow": ("raw8", "raw16", "raw32", "raw16"), "i32": ("raw32",) * 4}[tier]
+    groups = tuple(cycle[k % 4] for k in range(ncols))
     counts = {g: groups.count(g) for g in ("raw8", "raw16", "raw32")}
     seen = {"raw8": 0, "raw16": 0, "raw32": 0}
     dev_cols = []
@@ -148,6 +150,23 @@ def test_plain_matches_jax_att_fn(mode, tier):
         got = port_att(arrays, m, code_bits, dev_cols, want_pack)
         assert_same(got, jax_att(arrays, m, code_bits, dev_cols, want_pack),
                     f"{mode} {tier} seed {seed}")
+
+
+@pytest.mark.parametrize("tier", ["narrow", "i32"])
+@pytest.mark.parametrize("mode", ["p8", "p16", "p32"])
+def test_plain_matches_jax_att_fn_at_the_kernel_limits(mode, tier):
+    """F = 16 filters and Q = 8 device score columns, the most B7's kernel
+    takes (kernels/attribution.py MAX_F, MAX_Q), with pad rows and the
+    bitmap, and with every row a pad row (m = 0)."""
+    code_bits = PACK_MODES[mode][1]
+    for seed, m, want_pack in ((7, C - 4, True), (8, 0, True), (9, C, False)):
+        arrays, dev_cols = random_chunk(seed, mode, tier, 16, m, ncols=8)
+        assert len(dev_cols) == 8 and arrays["fskip"].shape[0] == 16
+        got = port_att(arrays, m, code_bits, dev_cols, want_pack)
+        assert_same(got, jax_att(arrays, m, code_bits, dev_cols, want_pack),
+                    f"{mode} {tier} seed {seed} F=16 Q=8")
+        if m == 0:
+            assert not got["f_rejects"].any() and not got["s_sums"].any()
 
 
 def test_plain_without_filters_or_device_columns():

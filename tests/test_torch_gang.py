@@ -59,6 +59,48 @@ def test_quorum_slice_plain_matches_jax(n, g):
             np.testing.assert_array_equal(x, w)
 
 
+def _scattered_slice(rng, n, g):
+    """gid with groups that are not contiguous: each pod in a random group
+    (so a group's members lie in several runs, interleaved with others')
+    or ungrouped, some groups absent."""
+    gid = np.where(rng.random(n) < 0.75, rng.integers(0, g, n), -1).astype(np.int32)
+    sel = np.where(rng.random(n) < 0.6, rng.integers(0, 9, n), -1).astype(np.int32)
+    return (gid, sel, rng.integers(0, 4, g).astype(np.int32),
+            rng.integers(1, 8, g).astype(np.int32))
+
+
+@pytest.mark.parametrize("n,g", [(1, 1), (7, 3), (40, 6), (200, 30), (33, 40), (300, 2)])
+def test_quorum_slice_plain_matches_jax_on_scattered_groups(n, g):
+    """The plain version, B8's spec, equals the JAX pass where a group is
+    not one contiguous run (the engine never passes such a slice, but the
+    kernel must not lean on contiguity): wave counts, decisions and the
+    formula's ranks."""
+    rng = np.random.default_rng(n * 7 + g)
+    for _ in range(12):
+        args = _scattered_slice(rng, n, g)
+        want = jgang.quorum_slice(*args)
+        got = pgang.quorum_slice(*args, device="cpu")
+        for w, x in zip(want, got):
+            assert w.dtype == x.dtype and w.shape == x.shape
+            np.testing.assert_array_equal(x, w)
+
+
+@pytest.mark.parametrize("n,g", [(1, 1), (64, 5), (513, 40)])
+def test_quorum_slice_plain_matches_jax_when_every_pod_is_ungrouped(n, g):
+    """A slice with no group member: no wave counts, no waiters, and every
+    group admits exactly when its already count reaches minMember."""
+    rng = np.random.default_rng(n + g)
+    args = (np.full(n, -1, np.int32), rng.integers(-1, 9, n).astype(np.int32),
+            rng.integers(0, 4, g).astype(np.int32), rng.integers(1, 5, g).astype(np.int32))
+    want = jgang.quorum_slice(*args)
+    got = pgang.quorum_slice(*args, device="cpu")
+    for w, x in zip(want, got):
+        assert w.dtype == x.dtype and w.shape == x.shape
+        np.testing.assert_array_equal(x, w)
+    assert not got[1].any() and not got[2].any()
+    np.testing.assert_array_equal(got[0], args[2] >= args[3])
+
+
 @pytest.mark.parametrize("n,g", [(0, 3), (5, 0), (0, 0)])
 def test_quorum_slice_empty(n, g):
     rng = np.random.default_rng(1)

@@ -5,8 +5,12 @@ in "compact" mode under every pack mode and raw-width tier, on configs
 eligibility, and the scheduler's default profile (every plugin row of
 the default lineup, the volume family included); the speculative wave's
 kernels likewise, the SAFE-set fleet included; B7, the chunk
-attribution, in every pack mode and raw tier; the device-resident
-replay and stream, B8, B10 and the engine on the card against the CPU
+attribution, in every pack mode and raw tier, at config 5's full width
+and an odd node count, at its limits (16 filters, 8 device columns, all
+pad rows), in every forced shape and on two streams at once; the
+device-resident replay and stream, B8 (on any group layout, at each
+path, G past shared memory, from four threads at once through its
+page-locked copies), B10 and the engine on the card against the CPU
 port; and B11, the fused round, against its members' solo launches and
 plain rounds (members on streams of their own included), and sessions
 on the card fused against unfused; and B12, the node-sharded step and
@@ -512,18 +516,21 @@ def test_spec_commit_bind_over_node_slices(card, wl):
 
 # ------------------------------------------- B7, the chunk attribution
 
-def _att_chunk(seed, mode, tier, c=40, n=1037):
+def _att_chunk(seed, mode, tier, c=40, n=1037, f=None, ncols=4, m=None):
     """A chunk's compact outputs drawn with numpy (n not a multiple of 8:
-    the bitmap's padded tail); the i64 tier's raws pass int32."""
+    the bitmap's padded tail), f filters (7 under p8, else 12 by default),
+    ncols device score columns and m real pods (c - 3 by default); the i64
+    tier's raws pass int32."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    f = 7 if mode == "p8" else 12
+    f = f if f is not None else (7 if mode == "p8" else 12)
     dtype, code_bits, _ = PACK_MODES[mode]
     ffp = np.where(rng.random((c, n)) < 0.5, 0, rng.integers(1, f + 1, (c, n)))
     code = np.where(ffp > 0, rng.integers(1, 1 << min(code_bits, 20), (c, n)), 0)
     packed = torch.from_numpy((ffp.astype(np.int64) << code_bits) | code).to(dtype)
-    groups = ("raw8", "raw16", "raw32", "raw16") if tier == "narrow" else ("raw32",) * 4
+    cycle = ("raw8", "raw16", "raw32", "raw16") if tier == "narrow" else ("raw32",) * 4
+    groups = [cycle[k % 4] for k in range(ncols)]
     seen = {"raw8": 0, "raw16": 0, "raw32": 0}
     cols = []
     for s, g in enumerate(groups):
@@ -531,7 +538,7 @@ def _att_chunk(seed, mode, tier, c=40, n=1037):
         seen[g] += 1
     wide = 1 << 40 if tier == "i64" else 1 << 31
     raw32 = rng.integers(-wide, wide, (c, seen["raw32"], n))
-    m = c - 3
+    m = c - 3 if m is None else m
     t = {
         "packed": packed,
         "raw8": torch.from_numpy(rng.integers(-128, 128, (c, seen["raw8"], n)).astype(np.int8)),
@@ -566,6 +573,92 @@ def test_chunk_attribution_matches_plain(card, mode, tier):
         want = chunk_attribution_plain(*[t[k] for k in args], m, code_bits, cols, want_pack)
         _equal(got, want, f"chunk_attribution {mode} {tier} {seed}")
         assert int(want["f_rejects"].sum()) > 0
+
+
+ATT_ARGS = ("packed", "raw8", "raw16", "raw32", "fc", "fskip", "sskip")
+
+
+def _att_case(card, seed, mode, tier, want_pack=True, **kw):
+    """(the card's inputs, the plain version's outputs) of _att_chunk."""
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution_plain
+
+    t, m, code_bits, cols = _att_chunk(seed, mode, tier, **kw)
+    want = chunk_attribution_plain(*[t[k] for k in ATT_ARGS], m, code_bits, cols, want_pack)
+    return (*[t[k].to(card) for k in ATT_ARGS], m, code_bits, cols, want_pack), want
+
+
+def _att_equal(got, want, what):
+    assert sorted(got) == sorted(want), what
+    _equal(got, want, what)
+
+
+@pytest.mark.parametrize("n", [5000, 4999])
+@pytest.mark.parametrize("mode", list(PACK_MODES))
+def test_chunk_attribution_at_full_width(card, mode, n):
+    """B7 at config 5's full width (512 pods x 5,000 nodes) and at an odd
+    node count (4,999: every row's 16-byte alignment differs, under p8
+    and p16 too) in each pack mode, with the bitmap and without: one
+    launch, in the planned shape, equal to the plain version."""
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import (
+        att_shape, chunk_attribution)
+
+    for seed, tier, want_pack in ((n, "narrow", True), (n + 1, "i64", False)):
+        args, want = _att_case(card, seed, mode, tier, want_pack, c=512, n=n)
+        before = chunk_attribution.launches
+        got = chunk_attribution(*args)
+        assert chunk_attribution.launches == before + 1
+        assert chunk_attribution.shape == att_shape(512, n, 12 - 5 * (mode == "p8"), 4)
+        _att_equal(got, want, f"chunk_attribution {mode} n={n} {tier}")
+
+
+@pytest.mark.parametrize("mode", list(PACK_MODES))
+def test_chunk_attribution_at_the_limits(card, mode):
+    """B7 with F = 16 filters and Q = 8 device score columns (the kernel's
+    limits) in each tier, and with m = 0 (every row a pad row)."""
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution
+
+    for tier in ("narrow", "i32", "i64"):
+        args, want = _att_case(card, 16, mode, tier, c=64, n=2053, f=16, ncols=8)
+        _att_equal(chunk_attribution(*args), want, f"{mode} {tier} F=16 Q=8")
+    args, want = _att_case(card, 17, mode, "narrow", c=24, n=777, m=0)
+    _att_equal(chunk_attribution(*args), want, f"{mode} m=0")
+    assert int(want["f_rejects"].sum()) == 0 and not want["feas_packed"].any()
+
+
+@pytest.mark.parametrize("mode", ["p8", "p16", "p64"])
+def test_chunk_attribution_at_every_forced_shape(card, mode):
+    """B7 at every forced (W warps a pod, P pods a CTA) the kernel takes,
+    on a chunk whose C is no multiple of P (the last CTA's empty slots)."""
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import (
+        ATT_MAX_WARPS, ATT_PODS, ATT_WARPS, chunk_attribution)
+
+    args, want = _att_case(card, 18, mode, "i32", c=37, n=3001, f=16, ncols=8)
+    shapes = [(w, p) for w in ATT_WARPS for p in ATT_PODS if w * p <= ATT_MAX_WARPS]
+    assert len(shapes) == 10
+    for w, p in shapes:
+        got = chunk_attribution(*args, _warps=w, _pods=p)
+        assert chunk_attribution.shape == (w, p)
+        _att_equal(got, want, f"{mode} W={w} P={p}")
+
+
+def test_chunk_attributions_on_two_streams_at_once(card):
+    """Two sessions launching B7 on streams of their own, in turns, each
+    on a chunk of its own: each launch zeroes and sums its own totals, so
+    every result equals the plain version of its own chunk."""
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import chunk_attribution
+
+    cases = [_att_case(card, 20 + s, "p16", "narrow", c=512, n=5000) for s in range(2)]
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    outs = [[], []]
+    torch.cuda.synchronize()
+    for j in range(20):
+        for s, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[s].append(chunk_attribution(*cases[s][0], _warps=(1, 4)[j % 2]))
+    torch.cuda.synchronize()
+    for s in range(2):
+        for j, got in enumerate(outs[s]):
+            _att_equal(got, cases[s][1], f"stream {s} launch {j}")
 
 
 RESIDENT_WORKLOADS = {"config5": lambda: (WORKLOADS["config5"](), {}),
@@ -670,6 +763,94 @@ def test_quorum_slice_kernel_matches_plain(card, n, g):
         want = gang.quorum_slice(*args, device="cpu")
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape and (a == b).all()
+
+
+def _scattered_slice(rng, n, g):
+    """Groups that are not contiguous: each pod in a random group or
+    ungrouped, so a group's members are runs spread over the slice and
+    some groups are absent."""
+    import numpy as np
+
+    gid = np.where(rng.random(n) < 0.8, rng.integers(0, g, n), -1).astype(np.int32)
+    sel = np.where(rng.random(n) < 0.7, rng.integers(0, 5000, n), -1).astype(np.int32)
+    return (gid, sel, rng.integers(0, 4, g).astype(np.int32),
+            rng.integers(1, 10, g).astype(np.int32))
+
+
+def _quorum_paths(n, g):
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+
+    return [p for p in kgang.QUORUM_PATHS
+            if p == "global" or kgang.quorum_tables(n, g) <= kgang.QUORUM_SMEM]
+
+
+@pytest.mark.parametrize("n,g", [(37, 5), (1000, 40), (10_000, 1_250), (10_000, 100_000),
+                                 (40_000, 300), (3, 50)])
+def test_quorum_slice_kernel_on_any_layout_and_path(card, n, g):
+    """B8 equal to the plain version on contiguous and on scattered groups
+    (a group in several runs, interleaved with others, absent), on an
+    all-ungrouped slice, at the planned path and at each path forced; G =
+    100,000 passes shared memory (the plan takes the global path), n =
+    40,000 scans two tiles of words."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.framework import gang
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+
+    rng = np.random.default_rng(n + g)
+    slices = [_gang_slice(rng, n, g), _scattered_slice(rng, n, g),
+              (np.full(n, -1, np.int32), np.arange(n, dtype=np.int32),
+               np.zeros(g, np.int32), np.ones(g, np.int32))]
+    assert (kgang.quorum_path(n, g) == "global") == (g == 100_000)
+    for args in slices:
+        packed = torch.from_numpy(np.concatenate(args)).to(card)
+        admit, wave, wait = gang.quorum_slice_plain(*(torch.from_numpy(a) for a in args))
+        want = torch.cat([admit.to(torch.int32), wave, wait.to(torch.int32)])
+        for path in (None, *_quorum_paths(n, g)):
+            got = kgang.quorum_slice(packed, n, g, _path=path)
+            assert kgang.quorum_slice.path == (path or kgang.quorum_path(n, g))
+            _equal(got, want, (n, g, path))
+        for a, b in zip(gang.quorum_slice(*args, device=card), gang.quorum_slice(*args,
+                                                                                 device="cpu")):
+            assert a.dtype == b.dtype and a.shape == b.shape and (a == b).all()
+
+
+def test_quorum_slice_from_four_threads_at_once(card):
+    """Four commit workers calling framework/gang.py quorum_slice at once,
+    each on slices of its own sizes: each thread packs into and reads back
+    from its own page-locked buffers, so every result equals the CPU's."""
+    import threading
+
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.framework import gang
+
+    errors, pinned = [], set()
+
+    def worker(k):
+        try:
+            rng = np.random.default_rng(100 + k)
+            for j in range(40):
+                n, g = int(rng.integers(1, 3000)), int(rng.integers(1, 400))
+                args = (_gang_slice if j % 2 else _scattered_slice)(rng, n, g)
+                got = gang.quorum_slice(*args, device=card)
+                want = gang.quorum_slice(*args, device="cpu")
+                for a, b in zip(got, want):
+                    if not (a.dtype == b.dtype and a.shape == b.shape and (a == b).all()):
+                        errors.append((k, j, n, g))
+            pinned.add((gang._STAGING.host_in.data_ptr(), gang._STAGING.host_in.is_pinned(),
+                        gang._STAGING.host_out.is_pinned()))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append((k, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:5]
+    assert len(pinned) == 4 and all(a and b for _p, a, b in pinned)
 
 
 PHASED_WORKLOADS = {k: WORKLOADS[k] for k in ("config3", "config5", "policies")}
