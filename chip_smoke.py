@@ -13,11 +13,14 @@ phase:
        kernel held exactly equal to its plain PyTorch version, the replay
        and the annotation decode, and the kernel's times;
   6    the speculative wave's kernels (spec_round, spec_oracle, spec_eval,
-       spec_commit_core, spec_commit_bind, grid_append, grid_emit) held
-       exactly equal to their plain versions at full width;
+       spec_commit_core, spec_commit_bind, grid_append, grid_emit, and
+       spec_oracle with B5's core commit folded in) held exactly equal to
+       their plain versions at full width;
   7    low contention, the wave's main path: the slot-pinned fleet
        (10,000 pods x 5,000 nodes) through replay_speculative_stream,
-       equal to the scan of the same workload;
+       equal to the scan of the same workload, every round's commit in
+       its oracle launch; the same stream as a gang wave, its commits
+       through spec_commit_core;
   8    contended: config 5 through the stream (it falls back to the
        scan), and replay_speculative with no fallback on 1,024 pods x
        5,000 nodes, each equal to its scan;
@@ -64,8 +67,9 @@ phase:
        spec_eval's kernels, and spec_oracle_fused): K = 2, 4 and 8 sparse
        rounds on the slot-pinned fleet and K = 2 dense rounds on config
        5, each member held exactly equal to its plain round and to its
-       solo launch (also at every forced group and cluster size), with
-       the fused and the K solo launches' times and bounds;
+       solo launch (also at every forced group and cluster size), the
+       oracle's table with folded commits at K = 2 and 4, with the fused
+       and the K solo launches' times and bounds;
   23   multi-session serving: four slot-pinned sessions (10,000 pods
        each, one fleet) in a SessionManager(device="cuda") scheduling at
        once, fused against KSS_TPU_FUSE=0 (every pod's node, the bind
@@ -107,7 +111,16 @@ phase:
        (c) a custom NormalizeScore on the engine's host path, phased_eval
        with the rows held to its plain version and the run to
        device="cpu"; (d) (a)'s workload through replay(mesh=make_mesh(8))
-       against (a), its chunk 0 timed beside step_chunk's.
+       against (a), its chunk 0 timed beside step_chunk's;
+  29   the engine over the store's columnar plane: 5,000 nodes from
+       make_nodes_columnar and four waves of 2,500 pods from
+       make_pods_columnar with config 5's plugins, the node table reused,
+       patched (64 node updates) and rebuilt (a node added) between
+       waves, under KSS_TPU_COLUMNAR=1 and =0 in turns, every pod's node
+       and annotations equal between them, the first wave equal to
+       phase 19's engine on the same manifests; each wave's compile split
+       (schema, node table, pod requests, each plugin's build, upload),
+       its five counters, wall and idle share.
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -144,6 +157,7 @@ SLOT_PLUGINS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffi
 SPEC_BATCH = 512               # the ladder's top rung at chunk 512
 KCAND = 128                    # KSS_TPU_SPECULATIVE_CANDIDATES' default
 ACCEPT = 37                    # the accept prefix of the general commit's check
+GANG_CUT = 6                   # phase 7's gang wave: gangs of 6 pods, cut off 512-pod rounds
 FILL = 37                      # an unaligned fill mark for grid_append's check
 DIRECT_SCALE = 0.1024          # 1,024 pods x 5,000 nodes for replay_speculative
 # phase 20's PodGroups: (family, groups, members, minMember) -> 2,000 pods
@@ -578,6 +592,81 @@ def batch_xs(w, lo: int, b: int) -> dict:
     return xs
 
 
+# B5's core folded into the oracle launch: the batches it is held to its
+# plain form on (the plain oracle, then commit_plain at k = min(K, m)).
+# "accepted": no conflict; "first": a conflict at k = 1; "all_pad": every
+# row a pad row (m = 0, selected -1); "k0": real selections, m = 0;
+# "wide": a sparse round with a row past its candidate cap (no commit);
+# "narrow": one within it
+FOLD_KINDS = ("accepted", "first", "all_pad", "k0", "wide", "narrow")
+FOLD_BATCHES = (8, 32, 512)
+FOLD_TABLE_KS = (2, 4)         # phase 22's table launches of the folded oracle
+
+
+def fold_case(w, kind: str, b: int, seed: int, dtype=None) -> tuple:
+    """One folded-oracle case over workload w (a core-only carry): its
+    oracle rows (oracle_batch at w's nodes), its batch's xs (pods [0, b)
+    of w) and its Commit without a carry: -> (rows, xs, m, counts,
+    kcand).  The counts of "wide" and "narrow" are a sparse round's
+    feasible counts, one row past KCAND or none."""
+    import torch
+
+    dev = w.init_carry["core"].requested.device
+    base = "first" if kind == "first" else "accepted"
+    pads = b if kind == "all_pad" else 0
+    rows = oracle_batch(base, b, w.n_nodes, dtype or torch.uint8, seed=seed, pads=pads,
+                        device=dev)
+    m = 0 if kind in ("all_pad", "k0") else b
+    counts = None
+    if kind in ("wide", "narrow"):
+        counts = torch.full((b,), KCAND, dtype=torch.int32, device=dev)
+        if kind == "wide":
+            counts[b // 2] = KCAND + 1
+    return rows, batch_xs(w, 0, b), m, counts, KCAND
+
+
+def fold_err(kspec, rows, xs, m, counts, kcand, carry, launch) -> tuple[int, int]:
+    """launch(rows, commit) -> K, the folded launch on a copy of `carry`,
+    against kspec.oracle_commit_plain on another copy: -> (max |d| over K
+    and the carry, the plain K)."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry
+
+    want = _clone_carry(carry)
+    k_want = kspec.oracle_commit_plain(*rows, kspec.Commit(want, xs, m, counts, kcand))
+    got = _clone_carry(carry)
+    k_got = launch(rows, kspec.Commit(got, xs, m, counts, kcand))
+    return max(tree_err(k_got, k_want), tree_err(got, want)), int(k_want)
+
+
+def fold_table_err(kspec, kfuse, w, step, k: int, b: int, seed: int, dtype=None,
+                   _ctas: int = 0) -> int:
+    """spec_oracle_fused over k sessions of workload w at batch b, the
+    even ones with a folded commit (FOLD_KINDS in turn), the odd ones
+    without, each on its own carry: each session's K and carry against
+    the plain oracle then commit_plain (or the plain oracle alone and
+    its carry untouched) -> max |d|."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry
+
+    cases = [fold_case(w, FOLD_KINDS[i % len(FOLD_KINDS)], b, seed + i, dtype)
+             for i in range(k)]
+    base = _clone_carry(w.init_carry)
+    got = [_clone_carry(base) for _ in range(k)]
+    want = [_clone_carry(base) for _ in range(k)]
+    commits = [kspec.Commit(got[i], xs, m, counts, kc) if i % 2 == 0 else None
+               for i, (_, xs, m, counts, kc) in enumerate(cases)]
+    members = [kfuse.Member(step, got[i], cases[i][1]) for i in range(k)]
+    n0 = kfuse.spec_oracle_fused.commits
+    ks = kfuse.spec_oracle_fused(members, [c[0] for c in cases], commits=commits, _ctas=_ctas)
+    check(kfuse.spec_oracle_fused.commits - n0 == (k + 1) // 2,
+          "spec_oracle_fused did not count its sessions' commits")
+    err = 0
+    for i, (rows, xs, m, counts, kc) in enumerate(cases):
+        commit = kspec.Commit(want[i], xs, m, counts, kc) if i % 2 == 0 else None
+        k_want = kspec.oracle_commit_plain(*rows, commit)
+        err = max(err, tree_err(ks[i], k_want), tree_err(got[i], want[i]))
+    return err
+
+
 def shard_times(fn, call, want, reps: int, param: str = "_shards", sizes=EVAL_SHARDS,
                 plan: str = "shards") -> tuple[dict, int]:
     """call(), one launch of the wrapper fn, held to `want` and timed
@@ -739,6 +828,174 @@ def oracle_ladder(cw, reps: int = 20) -> tuple[dict, int]:
         res[f"fused K={k} b={SPEC_BATCH}"] = t
     torch.cuda.synchronize()
     return res, err
+
+
+B5_TABLE_K = 4                 # the ladder's b5 entry: B11's table of K = 4 sessions
+
+
+def b5_ladder(scw, reps: int = 20) -> tuple[dict, int]:
+    """B5's core commit on the slot-pinned fleet at b = SPEC_BATCH, as
+    phase 7's rounds give it (each batch a sparse round after the one
+    before has committed): the oracle alone (unfolded), spec_commit_core
+    alone, the two in a row (the parent's round), and, where the checkout
+    has it, the oracle with the commit folded in (with the round's
+    feasible counts and candidate cap), held to the plain oracle then
+    commit_plain; then the same over B11's table of B5_TABLE_K sessions
+    (spec_oracle_fused, and the K cores).  Device ms, CUDA graph ->
+    ({case: ms}, max_abs_err)."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    folds = hasattr(kspec, "Commit")
+    pm, sd, _ = _compact_plan(scw, None)
+    step = build_step(scw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    sessions = []
+    for s in range(B5_TABLE_K):
+        carry = _clone_carry(scw.init_carry)
+        xs0 = batch_xs(scw, 2 * s * SPEC_BATCH, SPEC_BATCH)
+        r0 = kspec.spec_round(step, carry, xs0, KCAND)
+        kspec.spec_commit(step, carry, xs0, r0[7], SPEC_BATCH)
+        xs = batch_xs(scw, (2 * s + 1) * SPEC_BATCH, SPEC_BATCH)
+        r = kspec.spec_round(step, carry, xs, KCAND)
+        sessions.append((carry, xs, (r[0], r[1], r[7]), r[2]))
+    torch.cuda.synchronize()
+    carry, xs, rows, counts = sessions[0]
+    out, err = {"folds": folds}, 0
+
+    def core(c, x, r):
+        return kspec.spec_commit_core(step, c, x, r[2], SPEC_BATCH)
+
+    out["oracle"] = timed_graph(lambda: kspec.spec_oracle(*rows), reps)
+    out["core"] = timed_graph(lambda: core(carry, xs, rows), reps)
+    out["oracle_then_core"] = timed_graph(lambda: (kspec.spec_oracle(*rows),
+                                                   core(carry, xs, rows)), reps)
+    if folds:
+        e, _ = fold_err(kspec, rows, xs, SPEC_BATCH, counts, KCAND, carry,
+                        lambda r, c: kspec.spec_oracle(*r, commit=c))
+        err = max(err, e)
+        out["folded"] = timed_graph(lambda: kspec.spec_oracle(
+            *rows, commit=kspec.Commit(carry, xs, SPEC_BATCH, counts, KCAND)), reps)
+    table_rows = [r for _, _, r, _ in sessions]
+
+    def members():
+        # made in the call, so a CUDA graph's capture stream is theirs
+        return [kfuse.Member(step, c, x) for c, x, _, _ in sessions]
+
+    def cores():
+        return [core(c, x, r) for c, x, r, _ in sessions]
+
+    out[f"table K={B5_TABLE_K} oracle"] = timed_graph(
+        lambda: kfuse.spec_oracle_fused(members(), table_rows), reps)
+    out[f"table K={B5_TABLE_K} cores"] = timed_graph(cores, reps)
+    out[f"table K={B5_TABLE_K} oracle_then_cores"] = timed_graph(
+        lambda: (kfuse.spec_oracle_fused(members(), table_rows), cores()), reps)
+    if folds:
+        out[f"table K={B5_TABLE_K} folded"] = timed_graph(lambda: kfuse.spec_oracle_fused(
+            members(), table_rows, commits=[kspec.Commit(c, x, SPEC_BATCH, n, KCAND)
+                                            for c, x, _, n in sessions]), reps)
+        err = max(err, fold_table_err(kspec, kfuse, scw, step, B5_TABLE_K, SPEC_BATCH, SEED,
+                                      rows[0].dtype))
+    check(err == 0, f"b5: the folded oracle differs from its plain form (max |d| {err})")
+    torch.cuda.synchronize()
+    return out, err
+
+
+# the compile's parts the ladder times in any checkout (compile_ladder):
+# part -> (module under kube_scheduler_simulator_tpu_torch, attribute)
+COMPILE_PARTS = {
+    "schema": (("state.resources", "ResourceSchema.discover"),
+               ("state.resources", "ResourceSchema.discover_columnar")),
+    "node_table": (("state.compile", "build_node_table"),
+                   ("state.compile", "build_node_table_columnar"),
+                   ("state.compile", "patch_node_table"),
+                   ("state.compile", "patch_node_table_columnar")),
+    "pod_requests": (("state.compile", "_pod_requests"),),
+    "NodeResourcesFit": (("plugins.noderesources", "build_fit"),),
+    "NodeAffinity": (("plugins.affinity", "build"),),
+    "TaintToleration": (("plugins.taints", "build_taints"),),
+    "PodTopologySpread": (("plugins.topologyspread", "build"),
+                          ("plugins.topologyspread", "assemble_counts")),
+    "InterPodAffinity": (("plugins.interpod", "build"), ("plugins.interpod", "assemble_carry")),
+}
+
+
+def compile_ladder(nodes: list, pods: list, cfg) -> dict:
+    """compile_workload's split on phase 19's default wave (config 5 in an
+    ObjectStore, SchedulerEngine.schedule_pending()) and on a second wave
+    of 16 new pods over the same nodes, in whatever checkout is imported:
+    each part of COMPILE_PARTS wrapped in a timer (a part the checkout
+    lacks is left out), the compile's total from the engine's
+    compile_workload span, and the checkout's own compile.* spans and
+    counters where it has them (compile_split).  Seconds."""
+    import copy
+    import importlib
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
+
+    spent: dict = {}
+    running: set = set()  # parts timing now: a part that calls itself counts once
+    undo = []
+    for part, places in COMPILE_PARTS.items():
+        for mod_name, attr in places:
+            mod = importlib.import_module(f"kube_scheduler_simulator_tpu_torch.{mod_name}")
+            owner, _, name = attr.rpartition(".")
+            target = getattr(mod, owner) if owner else mod
+            fn = target.__dict__.get(name) if owner else getattr(mod, name, None)
+            if fn is None:
+                continue
+            call = fn.__func__ if isinstance(fn, staticmethod) else fn
+
+            def timed_fn(*a, _call=call, _part=part, **kw):
+                if _part in running:  # discover_columnar calls discover
+                    return _call(*a, **kw)
+                running.add(_part)
+                t0 = time.perf_counter()
+                try:
+                    return _call(*a, **kw)
+                finally:
+                    running.discard(_part)
+                    spent[_part] = spent.get(_part, 0.0) + time.perf_counter() - t0
+
+            setattr(target, name, staticmethod(timed_fn) if isinstance(fn, staticmethod)
+                    else timed_fn)
+            undo.append((target, name, fn))
+    out = {}
+    try:
+        store = ObjectStore()
+        for kind, items in (("nodes", nodes), ("pods", pods)):
+            for obj in items:
+                store.create(kind, obj)
+        engine = SchedulerEngine(store, plugin_config=cfg)
+        for label in ("wave 1", "wave 2"):
+            if label == "wave 2":
+                for q in pods[:16]:
+                    q = copy.deepcopy(q)
+                    q["metadata"]["name"] += "-again"
+                    store.create("pods", q)
+            spent.clear()
+            TRACER.reset()
+            t0 = time.perf_counter()
+            engine.schedule_pending()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = TRACER.summary()["spans"]["compile_workload"]["total_seconds"]
+            out[label] = {"wall": round(wall, 4), "compile": round(total, 4),
+                          "parts": {k: round(v, 4) for k, v in spent.items()},
+                          "rest": round(total - sum(spent.values()), 4),
+                          "spans": compile_split(TRACER)}
+        engine.close()
+    finally:
+        for target, name, fn in undo:
+            setattr(target, name, fn)
+    return out
 
 
 RENORM_REPS = 20
@@ -1354,7 +1611,7 @@ def ptxas_summary(log: str) -> str:
                     if "entry function" in ln or "registers" in ln or "spill" in ln)
 
 
-def ladder_main(root: Path) -> int:
+def ladder_main(root: Path, only: set | None = None) -> int:
     """`python3 chip_smoke.py --ladder [--root DIR]`: the dense round's
     evaluation on config 5 at the ladder's batches (and b = 1), the host
     path's phased_eval and renormalize_rows (renorm_times: R = 1 to 4), the
@@ -1369,11 +1626,17 @@ def ladder_main(root: Path) -> int:
     each forced shape, and config 5's with every row a pad row), B8
     (quorum_ladder: phase 18's slice, a scattered
     one, G past shared memory and phase 20's shapes; the kernel at each
-    path, the copies and the numpy-to-numpy call), and DIRECT_RUNS
+    path, the copies and the numpy-to-numpy call), B5's core (b5_ladder:
+    the oracle, the core and the two in a row, and the oracle with the
+    core folded in where the checkout has it; solo at b = 512 and over
+    B11's table of 4 sessions), and DIRECT_RUNS
     direct replay_speculative runs on 1,024 x 5,000 with spec_eval's
-    launches by batch size, for the port found under DIR (default: this
+    launches by batch size, and the compile's split on phase 19's wave
+    (compile_ladder), for the port found under DIR (default: this
     checkout), so that two trees are compared in one call.  Two JSON lines
-    after the card's name: the kernels', then the direct replays'."""
+    after the card's name: the kernels', then the direct replays'.
+    `--only NAME,...` runs only those entries of the first line (and the
+    direct replays only if "direct" is named)."""
     import collections
 
     import torch
@@ -1398,27 +1661,40 @@ def ladder_main(root: Path) -> int:
     for stem, res in build.build([*build.SIGNATURES]).items():  # the clock builds too
         print(f"[build] {stem}: {ptxas_summary(res.log)}", flush=True)
     nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
-    cw = compile_workload(nodes, pods, cfg, device=dev)
-    spec, err = eval_ladder(cw, (1, *LADDER))
-    ph, carry, xs_of = phased_carry(cw)
-    phased, perr = phased_times(ph, carry, xs_of(64))
-    renorm, nerr = renorm_times(ph, carry, xs_of(64))
-    del carry
-    oracle, oerr = oracle_ladder(cw)
-    fused, ferr = fused_eval_ladder(cw)
-    snodes, spods = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)
-    scw = compile_workload(snodes, spods, PluginSetConfig(enabled=list(SLOT_PLUGINS)), device=dev)
-    rounds, rerr = round_ladder(scw)
-    del scw
-    mesh, merr = mesh_ladder(cw)
-    b7, aerr = att_ladder(cw)
-    b8, qerr = quorum_ladder(dev, cw.n_nodes)
-    print(json.dumps({"card": card, "root": str(root),
-                      "max_abs_err": max(err, perr, nerr, oerr, ferr, rerr, merr, aerr, qerr),
-                      "spec_eval": spec, "phased_eval": phased, "renormalize_rows": renorm,
-                      "oracle": oracle, "spec_eval_fused": fused, "sparse_round": rounds,
-                      "mesh": mesh, "b7": b7, "b8": b8}),
+    res, errs = {}, [0]
+
+    def run(name: str, fn) -> None:
+        if only and name not in only:
+            return
+        res[name], err = fn()
+        errs.append(err)
+
+    if not only or only - {"b5", "compile"}:
+        cw = compile_workload(nodes, pods, cfg, device=dev)
+        run("spec_eval", lambda: eval_ladder(cw, (1, *LADDER)))
+        if not only or {"phased_eval", "renormalize_rows"} & only:
+            ph, carry, xs_of = phased_carry(cw)
+            run("phased_eval", lambda: phased_times(ph, carry, xs_of(64)))
+            run("renormalize_rows", lambda: renorm_times(ph, carry, xs_of(64)))
+            del carry
+        run("oracle", lambda: oracle_ladder(cw))
+        run("spec_eval_fused", lambda: fused_eval_ladder(cw))
+        run("mesh", lambda: mesh_ladder(cw))
+        run("b7", lambda: att_ladder(cw))
+        run("b8", lambda: quorum_ladder(dev, cw.n_nodes))
+        del cw
+    if not only or {"sparse_round", "b5"} & only:
+        snodes, spods = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)
+        scw = compile_workload(snodes, spods, PluginSetConfig(enabled=list(SLOT_PLUGINS)),
+                               device=dev)
+        run("sparse_round", lambda: round_ladder(scw))
+        run("b5", lambda: b5_ladder(scw))
+        del scw
+    run("compile", lambda: (compile_ladder(nodes, pods, cfg), 0))
+    print(json.dumps({"card": card, "root": str(root), "max_abs_err": max(errs), **res}),
           flush=True)
+    if only and "direct" not in only:
+        return 0
 
     dnodes, dpods, dcfg = baseline_config(CONFIG, scale=DIRECT_SCALE, node_scale=1.0, seed=SEED)
     dcw = compile_workload(dnodes, dpods, dcfg, device=dev)
@@ -1455,6 +1731,8 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     stream), "contended": phase 8's config-5 stream, "eval_bounds": {b:
     spec_eval's bound at the ladder's rung b}}, the kernels' entries of
     the JSON line)."""
+    from types import SimpleNamespace
+
     import numpy as np
     import torch
 
@@ -1478,6 +1756,7 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     def reset() -> None:
         for f in kernels:
             f.launches = 0
+        kspec.spec_oracle.commits = 0
         kspec.spec_eval.batches.clear()
         kspec.spec_round.batches.clear()
 
@@ -1518,6 +1797,20 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     held("spec_round", r1, kspec.sparse_round_plain(sstep, scarry, sxs1, KCAND))
     k1 = kspec.spec_oracle(r1[0], r1[1], r1[7])
     held("spec_oracle", k1, kspec._oracle_core(r1[0], r1[1], r1[7], SPEC_BATCH))
+    # the oracle with B5's core folded in, on the slot-pinned carry after
+    # round 0's commit, against the plain oracle then commit_plain
+    fold_k, c0 = {}, kspec.spec_oracle.commits
+    for b in FOLD_BATCHES:
+        for i, kind in enumerate(FOLD_KINDS):
+            rows, fxs, fm, fcounts, fk = fold_case(scw, kind, b, SEED + i, r0[0].dtype)
+            err, fold_k[f"{kind} b={b}"] = fold_err(
+                kspec, rows, fxs, fm, fcounts, fk, scarry,
+                lambda rows, c: kspec.spec_oracle(*rows, commit=c))
+            errs["spec_oracle_commit"] = max(errs.get("spec_oracle_commit", 0), err)
+            check(err == 0, f"the folded oracle differs from the plain oracle then "
+                            f"commit_plain ({kind}, b = {b}; max |d| {err})")
+    check(kspec.spec_oracle.commits - c0 == len(FOLD_BATCHES) * len(FOLD_KINDS),
+          "a folded oracle launch was not counted")
 
     cpm, csd, _ = _compact_plan(cw, None)
     cstep = build_step(cw, out_mode="compact", pack_mode=cpm, score_dtypes=csd)
@@ -1547,7 +1840,9 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     print(f"[6 spec kernels==plain] slot-pinned {sp}x{sn} (compile {slot_compile_s:.3f} s): "
           f"spec_round rounds 0 (the plan's groups of {round0_pods} pods and each forced size "
           f"of {kspec.ROUND_PODS}) and 1 at batch {SPEC_BATCH}, K={KCAND}, round 1 after "
-          f"spec_commit_core; config {CONFIG} {cw.n_pods}x{cw.n_nodes}: spec_eval and "
+          f"spec_commit_core; spec_oracle with the core commit folded in, on that carry, "
+          f"against the plain oracle then commit_plain, K {fold_k}; config {CONFIG} "
+          f"{cw.n_pods}x{cw.n_nodes}: spec_eval and "
           f"spec_oracle at batch {SPEC_BATCH}, spec_commit_bind with accept prefix {ACCEPT}; "
           f"grid_append at fill {FILL} then grid_emit; max_abs_err {errs}; "
           f"{time.perf_counter() - t6:.1f} s", flush=True)
@@ -1560,11 +1855,18 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     low = counts()
+    folded = kspec.spec_oracle.commits
+    low["spec_oracle_commit"] = folded
     low_batches = dict(sorted(kspec.spec_round.batches.items()))
     check(sstats["rounds"] == 20 and sstats["accepted"] == sp and sstats["rolled_back"] == 0
           and sstats["fallback_at"] is None, f"slot-pinned stream stats {sstats}")
-    for name in ("spec_round", "spec_oracle", "spec_commit_core", "grid_append", "grid_emit"):
+    for name in ("spec_round", "spec_oracle", "grid_append", "grid_emit"):
         check(low[name] > 0, f"the low-contention path launched no {name}")
+    # every round's commit is folded into its oracle launch (a core-only
+    # carry, no interaction rule, no gang): no spec_commit_core
+    check(folded == sstats["rounds"] and low["spec_commit_core"] == 0,
+          f"slot-pinned stream: {folded} of {sstats['rounds']} rounds folded, "
+          f"{low['spec_commit_core']} spec_commit_core launches")
     t0 = time.perf_counter()
     sbase = replay(scw, chunk=CHUNK, device=dev)
     torch.cuda.synchronize()
@@ -1572,6 +1874,25 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     sample = sorted(set(range(0, sp, sp // 8)) | {1, CHUNK - 1, CHUNK, sp - 1})
     same_replay(srr, sbase, "slot-pinned stream vs scan", sample)
     check(srr.scheduled == sp, f"slot-pinned: {srr.scheduled} of {sp} scheduled")
+    # the same stream as an engine's gang wave runs it (gangs of GANG_CUT
+    # pods, contiguous): the host may cut a round's K at a gang boundary
+    # after reading it, so no round folds, and each commits through
+    # spec_commit_core
+    reset()
+    gid = np.arange(sp, dtype=np.int32) // GANG_CUT
+    gang = SimpleNamespace(gid=gid, start=np.arange(0, sp, GANG_CUT, dtype=np.int64))
+    t0 = time.perf_counter()
+    grr, gstats = replay_speculative_stream(scw, chunk=CHUNK, device_resident=False, gang=gang)
+    torch.cuda.synchronize()
+    gang_s = time.perf_counter() - t0
+    gang_low = counts()
+    check(kspec.spec_oracle.commits == 0 and gang_low["spec_commit_core"] == gstats["rounds"],
+          f"gang stream: {kspec.spec_oracle.commits} rounds folded, "
+          f"{gang_low['spec_commit_core']} spec_commit_core of {gstats['rounds']} rounds")
+    same_replay(grr, sbase, "slot-pinned gang stream vs scan", sample)
+    # the JSON line's launches: the main stream's, and spec_commit_core's
+    # from the gang wave, the path that runs it now
+    low_json = dict(low, spec_commit_core=gang_low["spec_commit_core"])
     # device time of each: the same launches again, no fetch, between events
     carry = _clone_carry(scw.init_carry)
     spans = []
@@ -1581,8 +1902,8 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         out = kspec.spec_round(sstep, carry, xs, KCAND)
-        kspec.spec_oracle(out[0], out[1], out[7])
-        kspec.spec_commit_core(sstep, carry, xs, out[7], m)
+        kspec.spec_oracle(out[0], out[1], out[7], commit=kspec.Commit(carry, xs, m, out[2],
+                                                                       KCAND))
         if m < SPEC_BATCH:
             grid = {k: torch.zeros((CHUNK + SPEC_BATCH,) + tuple(v.shape[1:]), dtype=v.dtype,
                                    device=dev) for k, v in rows0.items()}
@@ -1614,7 +1935,11 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
           f"host fetch of one chunk's outputs {fetch_ms:.3f} ms ({fetched} B); "
           f"selected, feasible_count, every compact chunk's bytes (raws at feasible nodes) "
           f"and decode bytes of pods {sample} equal to the scan; launches {low}, spec_round's "
-          f"by batch size {low_batches}; {time.perf_counter() - t7:.1f} s",
+          f"by batch size {low_batches}; rounds folded (the commit in the oracle launch) "
+          f"{folded} of {sstats['rounds']}, unfolded {sstats['rounds'] - folded} | as a gang "
+          f"wave (gangs of {GANG_CUT} pods): {gstats['rounds']} rounds, none folded, "
+          f"{gang_low['spec_commit_core']} spec_commit_core launches, {gang_s:.4f} s, equal to "
+          f"the scan; {time.perf_counter() - t7:.1f} s",
           flush=True)
 
     # ---- 8. contended: config 5 through the stream (it falls back to the
@@ -1668,6 +1993,11 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     grid = {k: v.clone() for k, v in bufs.items()}
     calls = {
         "spec_oracle": (lambda: kspec.spec_oracle(r0[0], r0[1], sel0), 20),
+        # the oracle with the core commit folded in, as phase 7's sparse
+        # rounds launch it (its feasible counts and candidate cap)
+        "spec_oracle_commit": (lambda: kspec.spec_oracle(
+            r0[0], r0[1], sel0, commit=kspec.Commit(scarry, sxs0, SPEC_BATCH, r0[2], KCAND)),
+            20),
         "spec_commit_core": (
             lambda: kspec.spec_commit_core(sstep, scarry, sxs0, sel0, SPEC_BATCH), 20),
         "spec_commit_bind": (
@@ -1690,6 +2020,8 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
     plain = {
         "spec_round": timed_once(lambda: kspec.sparse_round_plain(sstep, scarry, sxs0, KCAND)),
         "spec_oracle": timed_once(lambda: kspec._oracle_core(r0[0], r0[1], sel0, SPEC_BATCH)),
+        "spec_oracle_commit": timed_once(lambda: kspec.oracle_commit_plain(
+            r0[0], r0[1], sel0, kspec.Commit(scarry, sxs0, SPEC_BATCH, r0[2], KCAND))),
         "spec_commit_core": timed_once(
             lambda: kspec.commit_plain(sstep, scarry, sxs0, sel0, SPEC_BATCH)),
         "spec_commit_bind": timed_once(
@@ -1744,6 +2076,10 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
         # the batch's core rows and selections; the selected carry rows read
         # and written
         "spec_commit_core": bound(nb(sx, sel0) + 2 * SPEC_BATCH * (scw.schema.n + 3) * 8),
+        # the oracle's bytes, and the commit's, and the feasible counts it
+        # tests against the candidate cap
+        "spec_oracle_commit": bound(oracle_bytes(r0[0], r0[1], sel0) + nb(sx, r0[2])
+                                    + 2 * SPEC_BATCH * (scw.schema.n + 3) * 8),
         # the carry read and written once, the batch's xs and selections
         "spec_commit_bind": bound(2 * nb(cw.init_carry) + nb(cxs, sel_eval)),
         "grid_append": bound(2 * nb(rows0)),
@@ -1803,16 +2139,17 @@ def speculative_phases(dev, card: str, cw, pods: list, rr) -> list[dict]:
           + (" FLAG: the plan is over 10 % slower than the best" if rounds["slow"] else ""),
           flush=True)
 
-    launches = {name: low[name] + hot[name] + direct[name] for name in ms}
+    launches = {name: low_json[name] + hot.get(name, 0) + direct.get(name, 0) for name in ms}
     ctx = {"slot": (scw, srr), "contended": crr,
            "eval_bounds": {b: t["bound"] for b, t in ladder.items()}}
     sources = {"spec_eval": "spec_eval.cu", "spec_oracle": "oracle.cu",
+               "spec_oracle_commit": "oracle.cu",
                "spec_round": "spec_round.cu", "spec_commit_core": "spec_commit.cu",
                "spec_commit_bind": "spec_commit.cu", "grid_append": "grid.cu",
                "grid_emit": "grid.cu"}
     replaces = {"spec_eval": 318, "spec_oracle": 299, "spec_round": 381,
-                "spec_commit_core": 501, "spec_commit_bind": 501, "grid_append": 553,
-                "grid_emit": 553}
+                "spec_oracle_commit": 501, "spec_commit_core": 501, "spec_commit_bind": 501,
+                "grid_append": 553, "grid_emit": 553}
     return ctx, [{
         "name": name,
         "route": "cuda",
@@ -2487,6 +2824,23 @@ class _Extender:
         self.thread.join()
 
 
+COMPILE_COUNTERS = ("node_table_reuse_total", "node_table_delta_patches_total",
+                    "node_table_delta_rows_total", "node_table_builds_total",
+                    "compile_requests_gathered_total")
+
+
+def compile_split(tracer) -> dict:
+    """The compile's spans since the tracer's last reset (seconds: the
+    schema, the node table, the pods' requests, each plugin's build, the
+    upload) and its five counters."""
+    spans = tracer.summary()["spans"]
+    totals = tracer.counter_totals()
+    out = {k[len("compile."):]: round(v["total_seconds"], 4) for k, v in spans.items()
+           if k.startswith("compile.")}
+    out.update({k: totals.get(k, 0) for k in COMPILE_COUNTERS})
+    return out
+
+
 def _device_busy_s(prof) -> float:
     """Seconds of device activity (kernels and copies) a CUDA-only
     torch.profiler trace recorded; 0.0 when it recorded none."""
@@ -2692,6 +3046,7 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
             spans = {k: round(v["total_seconds"], 4) for k, v in TRACER.summary()["spans"].items()
                      if k in ("compile_workload", "replay_and_decode_stream",
                               "commit_and_reflect", "commit_stream")}
+            split = compile_split(TRACER)
         check(launched.get("step_chunk", 0) + launched.get("spec_eval", 0) > 0,
               f"engine ({label}) launched no step or wave kernel: {launched}")
         check(bound_n == rr.scheduled, f"engine ({label}) bound {bound_n}, replay {rr.scheduled}")
@@ -2713,7 +3068,7 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
             main19 = launched
         lines19.append(f"{label}: bound {bound_n}, wall {wall:.4f} s = {p / wall:.1f} cycles/s, "
                        f"device busy {busy:.4f} s, idle share {idle}, engine spans (s) {spans}, "
-                       f"launches {launched}")
+                       f"the compile's split (s) and counters {split}, launches {launched}")
         del store, engine
     print(f"[19 engine] {card}: config {CONFIG} {p}x{n} in an ObjectStore through "
           f"SchedulerEngine(store, plugin_config=cfg).schedule_pending(): {'; '.join(lines19)}; "
@@ -2948,7 +3303,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
     import torch
     from torch import profiler
 
-    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import PACK_MODES, build_step
     from kube_scheduler_simulator_tpu_torch.framework.replay import (
         _clone_carry, _compact_plan, replay)
     from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
@@ -3062,6 +3417,19 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
                        f"{t_round_solo:.4f} ms; spec_oracle_fused (C={orc_ctas}) {t_orc:.5f} ms "
                        f"vs {k} solo "
                        f"{t_orc_solo:.5f} ms")
+    # the table launch with B5's core folded in: K = 2 and 4 sessions,
+    # folded and unfolded in turn, at the plan's CTAs and each forced count
+    for k in FOLD_TABLE_KS:
+        for ctas in (0, *kspec.ORACLE_CTAS):
+            err = fold_table_err(kspec, kfuse, scw, sstep, k, SPEC_BATCH, SEED + k, PACK_MODES[spm][0],
+                                 _ctas=ctas)
+            errs["spec_oracle_fused"]["plain"] = max(errs["spec_oracle_fused"]["plain"], err)
+            check(err == 0, f"spec_oracle_fused with folded commits differs from the plain "
+                            f"oracle then commit_plain (K = {k}, {ctas} CTAs; max |d| {err})")
+    lines22.append(f"spec_oracle_fused with the core commit folded in (K = "
+                   f"{', '.join(map(str, FOLD_TABLE_KS))}, folded and unfolded sessions in "
+                   f"turn, every CTA count) == the plain oracle then commit_plain, carry for "
+                   f"carry")
     dm = members(cstep, dense_pairs, None)
     dfused = [tuple(t.clone() for t in _leaves(r)) for r in kfuse.dense_round_fused(dm)]
     held22 = by_batch()  # the launches held to the plain and solo rounds
@@ -3155,6 +3523,11 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
         check(not errors, f"sessions failed: {errors}")
         return wall
 
+    def fold_tally() -> dict:
+        return {"solo": kspec.spec_oracle.commits, "fused": kfuse.spec_oracle_fused.commits,
+                "spec_commit_core": kspec.spec_commit_core.launches,
+                "spec_commit_bind": kspec.spec_commit_bind.launches}
+
     def run_arms(family: str, plugins, seeds, n_pods: int = SLOT_PODS) -> tuple[list, dict]:
         """Sessions of one family (the slot-pinned fleet, `n_pods` pods of
         each queue seed of `seeds`, `plugins`) scheduling at once, fused
@@ -3163,6 +3536,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
         lines, the fused arm's B11 launches)."""
         queues = {f"{family}-{s}": make_slot_pinned_workload(n_pods, SLOT_NODES, seed=s)[1]
                   for s in seeds}
+        core_only = not set(plugins) & pspec.LABEL_COUPLED
         arms, lines, fused_launches = {}, [], None
         for fuse in ("1", "0"):
             rrs.clear()
@@ -3185,9 +3559,11 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
                         _spy_engine(sess, orders[sid])
                     f0 = FUSE.stats()
                     reset()
+                    c0 = fold_tally()
                     with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
                         wall = run_together([mgr.get(sid) for sid in queues])
                     launched = counts()
+                    folds = {k: v - c0[k] for k, v in fold_tally().items()}
                     batches = by_batch()
                     f1 = FUSE.stats()
                     busy = _device_busy_s(prof)
@@ -3204,12 +3580,23 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
             else:
                 check(calls == 0 and not any(launched.values()),
                       f"{family} KSS_TPU_FUSE=0 arm fused")
+            # a core-only family's rounds commit in their oracle launches,
+            # solo or fused; a label-coupled one's never do
+            folded = folds["solo"] + folds["fused"]
+            if core_only:
+                check(folded > 0 and folds["spec_commit_core"] == 0,
+                      f"{family} KSS_TPU_FUSE={fuse}: commits {folds}")
+            else:
+                check(folded == 0, f"{family} KSS_TPU_FUSE={fuse}: commits {folds}")
             idle = f"{1 - busy / wall:.4f}" if busy > 0 else "not measured"
             lines.append(f"KSS_TPU_FUSE={fuse}: wall {wall:.4f} s, "
                          f"{len(queues) * n_pods / wall:.1f} cycles/s summed over sessions, "
                          f"device busy {busy:.4f} s, idle share {idle}, fusedDeviceCalls "
                          f"{calls}, dispatches {tally}, B11 launches {launched}, by (K, b) "
-                         f"{batches}")
+                         f"{batches}, rounds folded (the commit in the oracle launch: solo "
+                         f"launches, fused sessions) {folds['solo']}, {folds['fused']}, "
+                         f"spec_commit_core {folds['spec_commit_core']}, spec_commit_bind "
+                         f"{folds['spec_commit_bind']}")
         for sid in queues:
             fz, so = arms["1"][sid], arms["0"][sid]
             check(fz[0] == so[0], f"{sid}: nodeName differs between the arms")
@@ -4558,6 +4945,7 @@ def main() -> int:
                                step_entry)
     clock_phase(dev, card, {f"config {CONFIG}": cw, "default profile": dp_ctx["default"][0]})
     b13_entry = custom_phase(dev, card, nodes, pods, cfg)
+    columnar_phase(dev, card, cfg)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
                                   *engine_entries, *fuse_entries, *mesh_entries, b13_entry]}))
     print(json.dumps({"ok": True, "device": {
@@ -4566,11 +4954,187 @@ def main() -> int:
     return 0
 
 
+COLUMNAR_NODES = 5_000         # phase 29: config 5's fleet, from make_nodes_columnar
+COLUMNAR_WAVES = 4             # phase 29: waves of COLUMNAR_WAVE_PODS from make_pods_columnar
+COLUMNAR_WAVE_PODS = 2_500
+COLUMNAR_UPDATES = 64          # phase 29: node updates before wave 3 (the delta patch)
+
+
+def _plain_manifest(obj: dict, name: str | None = None) -> dict:
+    """A generated manifest as a client would create it: no uid,
+    resourceVersion or creationTimestamp (the store stamps them)."""
+    import copy
+
+    out = copy.deepcopy(dict(obj))
+    meta = out["metadata"]
+    for key in ("uid", "resourceVersion", "creationTimestamp"):
+        meta.pop(key, None)
+    if name is not None:
+        meta["name"] = name
+    return out
+
+
+def columnar_phase(dev, card: str, cfg) -> None:
+    """Phase 29: the engine over the store's columnar plane at config 5's
+    width.  COLUMNAR_NODES nodes from make_nodes_columnar, bulk-loaded,
+    and COLUMNAR_WAVES waves of COLUMNAR_WAVE_PODS pods from
+    make_pods_columnar (the first bulk-loaded, the later created one by
+    one), each scheduled by SchedulerEngine.schedule_pending() with
+    config 5's plugins.  Between waves: nothing (the node table reused),
+    COLUMNAR_UPDATES node updates (patched), one node added (rebuilt).
+    Run with KSS_TPU_COLUMNAR=1 and =0 in turns; every pod's node and
+    annotation bytes equal between the two after every wave, and the
+    first wave equal to phase 19's engine (a store filled by create())
+    on the same manifests.  Each wave prints the compile's split and
+    counters, the wall and the device's idle share."""
+    import torch
+    from torch import profiler
+
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.kernels import attribution as katt
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.models import (make_nodes_columnar,
+                                                           make_pods_columnar)
+    from kube_scheduler_simulator_tpu_torch.utils.tracing import TRACER
+
+    t29 = time.perf_counter()
+    kernels = (*kspec.KERNELS, kstep.step_chunk, katt.chunk_attribution)
+
+    def node_bank():
+        return make_nodes_columnar(COLUMNAR_NODES, seed=SEED, taint_fraction=0.1,
+                                   unschedulable_fraction=0.01)
+
+    def pod_bank(w: int):
+        return make_pods_columnar(COLUMNAR_WAVE_PODS, seed=SEED + w, with_affinity=True)
+
+    def wave_pods(w: int) -> list:
+        bank = pod_bank(w)
+        return [_plain_manifest(bank.synthesize(r), f"w{w}-pod-{r:05d}") for r in range(bank.n)]
+
+    def state(store) -> dict:
+        out = {}
+        for q in store.list("pods")[0]:
+            meta = q["metadata"]
+            out[meta["name"]] = ((q.get("spec") or {}).get("nodeName"),
+                                 dict(meta.get("annotations") or {}))
+        return out
+
+    def edit(store, w: int) -> str:
+        """The churn before wave w -> what the compile should do."""
+        if w == 2:
+            return "reuse"
+        if w == 3:
+            for i in range(0, COLUMNAR_NODES, COLUMNAR_NODES // COLUMNAR_UPDATES)[
+                    :COLUMNAR_UPDATES]:
+                nd = store.get("nodes", f"node-{i:05d}")
+                nd["status"]["allocatable"]["cpu"] = "96000m"
+                store.update("nodes", nd)
+            return "delta patch"
+        store.create("nodes", {
+            "apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": "node-added", "labels": {
+                "kubernetes.io/hostname": "node-added", "disktype": "ssd",
+                "topology.kubernetes.io/zone": "zone-0",
+                "topology.kubernetes.io/region": "region-0",
+                "node.kubernetes.io/instance-type": "type-0"}},
+            "status": {"allocatable": {"cpu": "64000m", "memory": str(256 << 30),
+                                       "ephemeral-storage": str(512 << 30), "pods": "110"}}})
+        return "rebuild"
+
+    def wave(store, engine) -> tuple:
+        for f in kernels:
+            f.launches = 0
+        TRACER.reset()
+        with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bound_n = engine.schedule_pending()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = _device_busy_s(prof)
+        split = compile_split(TRACER)
+        launched = {f.__name__: f.launches for f in kernels if f.launches}
+        check(launched, "an engine wave over the columnar store launched no kernel")
+        idle = f"{1 - busy / wall:.4f}" if busy > 0 else "not measured"
+        return bound_n, wall, idle, split, launched
+
+    want_counts = {"build": {"node_table_builds_total": 1},
+                   "reuse": {"node_table_reuse_total": 1},
+                   "delta patch": {"node_table_delta_patches_total": 1,
+                                   "node_table_delta_rows_total": COLUMNAR_UPDATES},
+                   "rebuild": {"node_table_builds_total": 1}}
+    arms, lines = {}, []
+    for columnar in ("1", "0"):
+        with env(KSS_TPU_COLUMNAR=columnar, KSS_TPU_SPECULATIVE=None,
+                 KSS_TPU_HOST_RESIDENT=None, KSS_TPU_EAGER_DECODE=None,
+                 KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+            t0 = time.perf_counter()
+            store = ObjectStore()
+            store.load_columnar("nodes", node_bank())
+            store.load_columnar("pods", pod_bank(1))
+            load_s = time.perf_counter() - t0
+            engine = SchedulerEngine(store, plugin_config=cfg)
+            states, waves = [], []
+            for w in range(1, COLUMNAR_WAVES + 1):
+                what = "build" if w == 1 else edit(store, w)
+                if w > 1:
+                    for q in wave_pods(w):
+                        store.create("pods", q)
+                bound_n, wall, idle, split, launched = wave(store, engine)
+                moved = {k: v for k, v in split.items()
+                         if k in COMPILE_COUNTERS[:4] and v}
+                check(moved == want_counts[what],
+                      f"KSS_TPU_COLUMNAR={columnar} wave {w} ({what}): counters {moved}")
+                gathered = split["compile_requests_gathered_total"]
+                check((gathered > 0) == (columnar == "1"),
+                      f"KSS_TPU_COLUMNAR={columnar} wave {w}: {gathered} request rows gathered")
+                check(bound_n > 0, f"KSS_TPU_COLUMNAR={columnar} wave {w} bound no pod")
+                states.append(state(store))
+                waves.append(f"wave {w} ({what}): bound {bound_n}, wall {wall:.4f} s, idle "
+                             f"share {idle}, compile split (s) and counters {split}, launches "
+                             f"{launched}")
+            engine.close()
+            arms[columnar] = states
+            lines.append(f"KSS_TPU_COLUMNAR={columnar} (load {load_s:.3f} s): "
+                         + "; ".join(waves))
+            del store, engine
+    for w, (a, b) in enumerate(zip(arms["1"], arms["0"]), 1):
+        check(a.keys() == b.keys(), f"wave {w}: the arms hold different pods")
+        for name in b:
+            check(a[name] == b[name], f"wave {w}: pod {name} differs between KSS_TPU_COLUMNAR=1 "
+                                      f"and =0")
+    # phase 19's engine (a store filled by create()) on the first wave's
+    # manifests
+    nb = node_bank()
+    store = ObjectStore()
+    for r in range(nb.n):
+        store.create("nodes", _plain_manifest(nb.synthesize(r)))
+    pb = pod_bank(1)
+    for r in range(pb.n):
+        store.create("pods", _plain_manifest(pb.synthesize(r)))
+    engine = SchedulerEngine(store, plugin_config=cfg)
+    bound19, wall19, idle19, split19, _ = wave(store, engine)
+    engine.close()
+    first = state(store)
+    check(first == arms["1"][0], "wave 1 differs from phase 19's engine on the same manifests")
+    del store, engine
+    print(f"[29 columnar store] {card}: {COLUMNAR_NODES} nodes from make_nodes_columnar and "
+          f"{COLUMNAR_WAVES} waves of {COLUMNAR_WAVE_PODS} pods from make_pods_columnar, config "
+          f"{CONFIG}'s plugins, SchedulerEngine.schedule_pending(): {' | '.join(lines)} | every "
+          f"pod's node and annotation bytes equal between the arms after every wave; wave 1 "
+          f"equal to phase 19's engine on the same manifests (bound {bound19}, wall "
+          f"{wall19:.4f} s, idle share {idle19}, compile {split19}); walls under a CUDA-only "
+          f"torch.profiler trace; {time.perf_counter() - t29:.1f} s", flush=True)
+
+
 if __name__ == "__main__":
     try:
         if "--ladder" in sys.argv[1:]:
             at = sys.argv.index("--root") + 1 if "--root" in sys.argv else 0
-            sys.exit(ladder_main(Path(sys.argv[at]).resolve() if at else ROOT))
+            sel = sys.argv.index("--only") + 1 if "--only" in sys.argv else 0
+            sys.exit(ladder_main(Path(sys.argv[at]).resolve() if at else ROOT,
+                                 set(sys.argv[sel].split(",")) if sel else None))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

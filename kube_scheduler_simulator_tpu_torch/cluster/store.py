@@ -1,9 +1,12 @@
 """In-memory cluster object store — the KWOK/etcd analogue.
 
 A copy of kube_scheduler_simulator_tpu/cluster/store.py, host code with its
-imports rewired to the port, without its columnar data plane (the numpy
-banks mirrored on every write, `load_columnar`, KSS_TPU_COLUMNAR): nothing
-in the port reads that view until compile_workload takes `pod_columns=`.
+imports rewired to the port, its columnar data plane included: the hot
+fields of nodes and pods mirrored into numpy banks on every write
+(cluster/columnar.py, `load_columnar`, KSS_TPU_COLUMNAR, on by default),
+which compile_workload reads through the listings' `.columns`.  A failed
+mirror marks its row opaque, as the JAX store does, and is counted in
+`store_columnar_opaque_rows_total`.
 
 The reference runs against a KWOK fake cluster (etcd + kube-apiserver with
 no kubelets, reference: compose.yml:53-66, kwok.yaml:1-12) and talks to it
@@ -35,6 +38,16 @@ import threading
 import time
 import uuid
 
+import numpy as np
+
+from .columnar import (
+    ColumnarManifestList,
+    ColumnarNodeBank,
+    ColumnarPodBank,
+    LazyManifest,
+)
+from ..utils.env import env_bool
+from ..utils.faults import fault_point
 
 # resource name -> (kind, namespaced).  The first 7 are the kinds the
 # reference simulator watches/records/syncs (reference:
@@ -68,6 +81,14 @@ API_VERSIONS = {
 ADDED, MODIFIED, DELETED = "ADDED", "MODIFIED", "DELETED"
 
 _EVENT_BUFFER = 4096  # per-resource ring buffer for watch replay
+
+# resources with a columnar hot-field backing (cluster/columnar.py)
+_COLUMNAR_BANKS = {"nodes": ColumnarNodeBank, "pods": ColumnarPodBank}
+
+
+def _new_uid() -> str:
+    return str(uuid.uuid4())
+
 
 class ApiError(Exception):
     status = 500
@@ -124,6 +145,20 @@ class ObjectStore:
         # the engine's shared-manifest fast paths (copy_object(s)=False)
         # stay off the decode
         self._read_hooks: list = []
+        # columnar data plane (cluster/columnar.py): hot fields of
+        # nodes/pods mirrored into numpy banks on every write (guarded
+        # by the store.columnar_sync fault seam; a failed sync marks the
+        # row opaque and the manifest stays authoritative).  Listings
+        # carry the bank view as ColumnarManifestList.columns so the
+        # compile path reads columns instead of re-parsing manifests.
+        # KSS_TPU_COLUMNAR=0 pins the pure dict baseline.
+        self._columnar = env_bool("KSS_TPU_COLUMNAR", True)
+        self._banks: dict = {}
+        if self._columnar:
+            for resource, factory in _COLUMNAR_BANKS.items():
+                bank = factory()
+                bank.uid_factory = _new_uid
+                self._banks[resource] = bank
         # per-resource write counters keying the sorted-listing cache
         self._res_version: dict[str, int] = {}
         self._list_cache: dict[str, tuple] = {}
@@ -178,20 +213,157 @@ class ObjectStore:
         state) — the transparent-read barrier copying reads run, also
         callable directly by consumers of the shared-manifest fast
         paths (snapshot export, the HTTP watch stream) that need the
-        eager bytes without paying per-object deep copies."""
+        eager bytes without paying per-object deep copies.
+
+        Also fills LAZY columnar rows in scope: consumers that hand
+        shared manifests to C-level serializers (json.dumps walks dict
+        storage, bypassing LazyManifest's overrides) call this first and
+        then observe full bytes."""
         for hook in tuple(self._read_hooks):
             hook.flush(resource, name, namespace)
+        self._fill_lazy(resource, name, namespace)
+
+    def _fill_lazy(self, resource: str | None, name: str | None = None,
+                   namespace: str | None = None) -> None:
+        for res, bank in self._banks.items():
+            if resource is not None and res != resource:
+                continue
+            objs = self._objects.get(res)
+            if not objs:
+                continue
+            if name is not None:
+                _, namespaced = self.resources[res]
+                key = (f"{namespace or 'default'}/{name}"
+                       if namespaced else name)
+                LazyManifest.ensure(objs.get(key))
+            else:
+                with self._lock:
+                    vals = list(objs.values())
+                for obj in vals:
+                    LazyManifest.ensure(obj)
 
     def _discard_hooks(self, resource: str | None, name: str | None = None,
                        namespace: str | None = None) -> None:
         for hook in tuple(self._read_hooks):
             hook.discard(resource, name, namespace)
 
-    # ----------------------------------------------------------- listing cache
+    # ----------------------------------------------------------- columnar
 
     def _bump(self, resource: str) -> None:
         """Invalidate the sorted-listing cache for resource (lock held)."""
         self._res_version[resource] = self._res_version.get(resource, 0) + 1
+
+    def _columnar_sync(self, resource: str, op: str, key: str,
+                       obj: dict | None) -> None:
+        """Mirror a write into the columnar bank (lock held).  Never
+        raises: a sync failure (including an injected store.columnar_sync
+        fault) marks the row OPAQUE, and every columnar reader falls back
+        to the manifest for opaque rows — the shim stays consistent."""
+        bank = self._banks.get(resource)
+        if bank is None:
+            return
+        if op == "delete":
+            bank.drop(key)
+            return
+        row = None
+        try:
+            fault_point("store.columnar_sync")
+            row = bank.new_row(key) if op == "create" else bank.row_of[key]
+            bank.manifests[row] = obj
+            meta = obj.get("metadata") or {}
+            bank.rv[row] = int(meta.get("resourceVersion") or 0)
+            uid = meta.get("uid")
+            if uid:
+                bank.uid[row] = uid
+                by_uid = getattr(bank, "row_by_uid", None)
+                if by_uid is not None:
+                    by_uid[uid] = row
+            bank.created[row] = meta.get("creationTimestamp")
+            bank.sync_from_manifest(row, obj, cow=(op != "create"))
+            bank.opaque[row] = False
+        except Exception:
+            from ..utils.tracing import TRACER
+
+            # readers parse this row's manifest from now on; counted so a
+            # plane that degrades row by row shows
+            TRACER.count("store_columnar_opaque_rows_total")
+            if row is None:
+                row = bank.row_of.get(key)
+                if row is None:
+                    row = bank.new_row(key)
+            bank.manifests[row] = obj
+            bank.opaque[row] = True
+            try:
+                bank.rv[row] = int(
+                    (obj.get("metadata") or {}).get("resourceVersion") or 0)
+            except Exception:
+                pass
+
+    def _list_columns(self, resource: str, keys: list[str]):
+        bank = self._banks.get(resource)
+        if bank is None:
+            return None
+        try:
+            return bank.view(keys)
+        except KeyError:
+            return None  # bank coverage hole: dict listing only
+
+    def load_columnar(self, resource: str, bank) -> int:
+        """Bulk-attach a generator-built bank (make_nodes_columnar /
+        make_pods_columnar) as `resource`'s population: rows become LAZY
+        stored objects that synthesize their manifest from the bank on
+        first read, with the same rv/uid/creationTimestamp stamping and
+        watch events the per-object create path produces — n objects for
+        one lock hold and zero manifest dicts until someone looks.
+        Requires an empty resource.  Returns the number of rows loaded.
+
+        Pods fall back to per-row create() when a globalDefault
+        PriorityClass exists (priority admission must inspect each pod).
+        """
+        if resource not in self.resources:
+            raise NotFound(f"unknown resource {resource}")
+        if resource not in _COLUMNAR_BANKS:
+            raise ApiError(f"no columnar backing for resource {resource}")
+        slow = not self._columnar
+        if resource == "pods" and not slow:
+            with self._lock:
+                slow = any(pc.get("globalDefault") for pc in
+                           self._objects["priorityclasses"].values())
+        if slow:
+            n = bank.n
+            for row in range(n):
+                self.create(resource, bank.synthesize(row), owned=True)
+            return n
+        ts = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+        with self._lock:
+            if self._objects[resource]:
+                raise ApiError(
+                    f"load_columnar requires an empty {resource} keyspace")
+            n = bank.n
+            first = next(self._rv)
+            self._rv = itertools.count(first + n)
+            self._last_rv = first + n - 1
+            bank.rv[:n] = np.arange(first, first + n, dtype=np.int64)
+            bank.created[:n] = [ts] * n
+            bank.uid_factory = _new_uid
+            self._banks[resource] = bank
+            objs = self._objects[resource]
+            events = []
+            for key, row in bank.row_of.items():
+                lm = LazyManifest(bank, row)
+                objs[key] = lm
+                events.append((int(bank.rv[row]), ADDED, lm))
+            events.sort(key=lambda ev: ev[0])
+            if self._watchers[resource]:
+                for ev in events:
+                    for q in self._watchers[resource]:
+                        q.put(ev)
+            buf = self._events[resource]
+            buf.extend(events[-_EVENT_BUFFER:])
+            if len(buf) > _EVENT_BUFFER:
+                del buf[: len(buf) - _EVENT_BUFFER]
+            self._bump(resource)
+            return n
 
     # ----------------------------------------------------------- helpers
 
@@ -274,6 +446,7 @@ class ObjectStore:
             )
             self._stamp_kind(resource, obj)
             self._objects[resource][key] = obj
+            self._columnar_sync(resource, "create", key, obj)
             self._bump(resource)
             # events and the return share the stored dict (see update():
             # stored objects are replaced, never mutated in place)
@@ -300,6 +473,10 @@ class ObjectStore:
             cur = self._objects[resource].get(key)
             if cur is None:
                 raise NotFound(f"{resource} \"{key}\" not found")
+            # a superseded lazy row must capture its pre-update bytes
+            # BEFORE the bank columns move on (watch events/readers may
+            # still hold it)
+            LazyManifest.ensure(cur)
             sent_rv = meta.get("resourceVersion")
             if sent_rv and sent_rv != cur["metadata"]["resourceVersion"]:
                 raise Conflict(
@@ -314,6 +491,7 @@ class ObjectStore:
             meta.setdefault("creationTimestamp", cur["metadata"].get("creationTimestamp"))
             self._stamp_kind(resource, obj)
             self._objects[resource][key] = obj
+            self._columnar_sync(resource, "update", key, obj)
             self._bump(resource)
             self._notify(resource, MODIFIED, obj, rv)
             return obj
@@ -328,6 +506,10 @@ class ObjectStore:
             if cur is None:
                 raise NotFound(f"{resource} \"{key}\" not found")
             rv = self._next_rv()
+            # an unfilled lazy row stays synthesizable after drop() (it
+            # holds its own bank ref and tombstoned rows keep their
+            # column bytes), so no eager fill here
+            self._columnar_sync(resource, "delete", key, None)
             self._bump(resource)
             self._notify(resource, DELETED, cur, rv)  # popped: share freely
         if self._read_hooks:
@@ -383,25 +565,28 @@ class ObjectStore:
             _, namespaced = self.resources[resource]
             # sorted-listing cache keyed on the per-resource write
             # counter: successive waves over an unchanged keyspace skip
-            # the O(N log N) sort
+            # the O(N log N) sort AND the columnar view rebuild
             ver = self._res_version.get(resource, 0)
             entry = self._list_cache.get(resource)
             if entry is not None and entry[0] == ver:
-                _, keys, shared = entry
+                _, keys, shared, cols = entry
             else:
                 pairs = sorted(self._objects[resource].items())
                 keys = [k for k, _ in pairs]
                 shared = [o for _, o in pairs]
-                self._list_cache[resource] = (ver, keys, shared)
+                cols = self._list_columns(resource, keys)
+                self._list_cache[resource] = (ver, keys, shared, cols)
             if namespace is None and label_selector is None:
                 # fresh list object per call (callers may mutate the
                 # LIST; the elements stay shared as documented)
-                items = list(shared)
+                items = (ColumnarManifestList(shared, cols)
+                         if cols is not None else list(shared))
             else:
                 items = []
                 for key, obj in zip(keys, shared):
                     if namespace:
-                        # namespaced keys carry the namespace
+                        # namespaced keys carry the namespace — keep
+                        # lazy rows unmaterialized on this filter
                         ns = (key.partition("/")[0] if namespaced else
                               ((obj.get("metadata") or {}).get("namespace")
                                or "default"))
@@ -473,6 +658,10 @@ class ObjectStore:
                     cur = self._objects[resource].get(key)
                     if cur is None:
                         continue
+                    # dict(cur) walks dict storage directly (bypassing
+                    # LazyManifest overrides) AND the bank columns are
+                    # about to move: fill first
+                    LazyManifest.ensure(cur)
                     obj = dict(cur)
                     for part in ("metadata", "spec", "status"):
                         if part in obj:
@@ -489,6 +678,7 @@ class ObjectStore:
                                     cur["metadata"].get("creationTimestamp"))
                     self._stamp_kind(resource, obj)
                     self._objects[resource][key] = obj
+                    self._columnar_sync(resource, "update", key, obj)
                     self._notify(resource, MODIFIED, obj, rv)
                     written += 1
                 if written:
@@ -572,6 +762,13 @@ class ObjectStore:
                     cur = self._objects[resource].pop(key)
                     self._notify(resource, DELETED, cur, self._next_rv())
                 self._bump(resource)
+            # fresh banks for the restored keyspace; popped lazy rows
+            # keep their old bank alive through their own reference
+            if self._columnar:
+                for resource, factory in _COLUMNAR_BANKS.items():
+                    bank = factory()
+                    bank.uid_factory = _new_uid
+                    self._banks[resource] = bank
             for resource, objs in copies.items():
                 if resource not in self.resources and objs:
                     # a dump from a store with registered extras: infer
@@ -583,6 +780,7 @@ class ObjectStore:
                         api_version=first.get("apiVersion") or "v1")
                 for key, obj in objs.items():
                     self._objects[resource][key] = obj
+                    self._columnar_sync(resource, "create", key, obj)
                     self._notify(resource, ADDED, obj, self._next_rv())
                 self._bump(resource)
 

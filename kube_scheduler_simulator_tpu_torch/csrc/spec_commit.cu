@@ -36,6 +36,16 @@
 // the k binds within one CTA, each a ballot over the pod's groups and
 // terms (a warp finds the ones it changes, 32 at a time) and a pass of
 // 128 nodes for each of them, with the CTAs in parallel over the nodes.
+//
+// Where the host will not cut a round's K (a core-only carry, no
+// interaction rule, no gang: parallel/speculative.py `commit_folds`), the
+// core-only commit is not launched at all: csrc/oracle.cu applies it in
+// the oracle's launch, which knows K on the device (its rows are added
+// while the oracle's gathers run, and the rows past K taken back), and
+// only those atomics remain of its cost.  The standalone core kernel
+// stays for the core-only rounds the host may cut after reading K (the
+// interaction rule of label-coupled plugins never applies to a core-only
+// carry, but a gang boundary does).
 #include "pod.cuh"
 
 #define COMMIT_THREADS 256

@@ -25,9 +25,11 @@ every wave whose node count divides the mesh's "nodes" extent through
 B12, the node-sharded replay and stream, and the rest unsharded, counted
 by `mesh_fallback_indivisible_nodes_total`; `unroll` is kept in the
 signature and not passed on (the step kernel has none, and it never
-changes a result); compile_workload's node-table reuse and columnar pod
-view (`reuse=`, `pod_columns=`) and the store's columnar plane that feeds
-them are ROADMAP Queue A item 2.
+changes a result).  Each wave compiles with the previous wave's node
+table (`reuse=`, a NodeTableReuse: kept as it is, patched at the changed
+rows or rebuilt, engine.py:1153-1166) and, where the store lists from
+its columnar plane (cluster/columnar.py), the pods' request rows
+gathered from the pod bank (`pod_columns=`).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from .replay import _clone_carry, _slice_xs, replay
 from ..cluster.store import Conflict, NotFound, ObjectStore
 from ..utils.tracing import TRACER
 from ..plugins.registry import PluginSetConfig
-from ..state.compile import compile_workload
+from ..state.compile import NodeTableReuse, compile_workload
 from ..store import annotations as ann
 from ..store.decode import decode_pod_result
 from ..store.reflector import StoreReflector
@@ -1189,9 +1191,14 @@ class SchedulerEngine:
         with TRACER.span("compile_workload", pods=len(pending), nodes=len(nodes)):
             cw = compile_workload(
                 nodes, pending, self.plugin_config, bound_pods=bound,
-                volumes=volumes, namespaces=self._list_shared("namespaces"),
+                volumes=volumes, reuse=getattr(self, "_last_cw", None),
+                namespaces=self._list_shared("namespaces"),
+                # columnar pod view (when the store lists columnar):
+                # request rows gather from pre-parsed bank columns
+                pod_columns=getattr(pods_all, "columns", None),
                 device=self.device,
             )
+            self._last_cw = NodeTableReuse(cw)
         if self._needs_host_path():
             # gangs route through the per-pod Permit machinery here
             # (the Coscheduling plugin stays in the lifecycle set)

@@ -187,28 +187,28 @@ class Preemptor:
         in `removed` (set of ns/name keys) deleted from the cluster?
 
         Each hypothesis recompiles the workload's tensors (numpy, then
-        one copy to the device) and replays the one pod through the step
-        kernel (B1)."""
+        one copy to the device) over the previous hypothesis's node table
+        (`reuse=`: the nodes do not change between hypotheses) and
+        replays the one pod through the step kernel (B1)."""
         cache_key = (node_name, removed)
         hit = self._fit_cache.get(cache_key)
         if hit is not None:
             return hit
 
         from .replay import replay
-        from ..state.compile import compile_workload
+        from ..state.compile import NodeTableReuse, compile_workload
 
         nodes = self._nodes
         bound = [
             (p, p["spec"]["nodeName"]) for p in self._pods_all
             if (p.get("spec") or {}).get("nodeName") and _pod_key(p) not in removed
         ]
-        # node-table reuse across hypotheses (`reuse=`) is ROADMAP Queue A
-        # item 2: it changes compile time, never a result
         cw = compile_workload(
             nodes, [pod], self.plugin_config, bound_pods=bound,
-            volumes=self._volumes, namespaces=self._namespaces,
-            device=self.device,
+            volumes=self._volumes, reuse=getattr(self, "_fit_cw", None),
+            namespaces=self._namespaces, device=self.device,
         )
+        self._fit_cw = NodeTableReuse(cw)  # shared across fit hypotheses
         # host-resident: the oracle reads the single pod's codes right
         # below, so device residency would just add an unoverlapped
         # round-trip (plus an attribution reduction nobody consumes)

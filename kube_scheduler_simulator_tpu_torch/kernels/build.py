@@ -67,8 +67,8 @@ SIGNATURES = {
     "gang": {"kss_quorum_slice": ([_P, _I, _I, _P, _P, _I, _P], _I)},
     "phased": {"kss_step_args_size": ([], _I),
                "kss_renormalize_rows": ([_P, _P, _I, _P, _P, _P, _I, _P], _I)},
-    "oracle": {"kss_fuse_max": ([], _I),
-               "kss_spec_oracle": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I)},
+    "oracle": {"kss_fuse_max": ([], _I), "kss_oracle_commit_size": ([], _I),
+               "kss_spec_oracle": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I)},
 }
 
 

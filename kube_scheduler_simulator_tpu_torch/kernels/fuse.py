@@ -26,6 +26,11 @@ the fuse coordinator (parallel/fuse.py):
   * `sparse_round(m)`: the solo sparse round, spec_round (B4) then
     spec_oracle; `.fused` is spec_round_fused then spec_oracle_fused.
 
+A member whose round the host will not cut brings its core-only commit
+(`Member.commit`, a kernels/spec.py Commit): the oracle launch, solo or
+fused, leaves its accepted prefix bound into its carry (csrc/oracle.cu),
+so a fused round of K such sessions commits in its one oracle launch.
+
 As in kernels/spec.py: for tensors on the card a wrapper launches on
 PyTorch's current stream without synchronising and adds one to its
 `launches`; for tensors on the CPU it runs the plain version, each
@@ -57,14 +62,19 @@ MAX_FUSE_SESSIONS = 16
 
 class Member:
     """One session's part of a fused round: its step, frozen carry and
-    batch, the candidate cap of a sparse round (None: dense), and, on
-    the card, the outputs and scratch allocated on its own thread and
-    stream at construction, before it joins a batch."""
+    batch, the candidate cap of a sparse round (None: dense), the round's
+    rows that are not pad where the oracle launch is to commit them
+    (`commit_rows`: the carry core-only and the host never cutting K;
+    None: the caller commits), and, on the card, the outputs and scratch
+    allocated on its own thread and stream at construction, before it
+    joins a batch."""
 
-    __slots__ = ("step", "carry", "xs", "kcand", "outs", "stream")
+    __slots__ = ("step", "carry", "xs", "kcand", "commit", "outs", "stream")
 
-    def __init__(self, step, carry: dict, xs: dict, kcand: int | None = None):
+    def __init__(self, step, carry: dict, xs: dict, kcand: int | None = None,
+                 commit_rows: int | None = None):
         self.step, self.carry, self.xs, self.kcand = step, carry, xs, kcand
+        self.commit = None if commit_rows is None else kspec.Commit(carry, xs, commit_rows)
         dev = kspec._device(carry)
         self.outs = None
         self.stream = None
@@ -91,7 +101,7 @@ def dense_round(m: Member):
     else:
         outs = kspec.spec_eval(m.step, m.carry, m.xs, outs=m.outs)
     k = kspec.spec_oracle(outs.packed_filter, outs.prefilter_reject, outs.selected,
-                          out=None if m.outs is None else m.outs["k"])
+                          out=None if m.outs is None else m.outs["k"], commit=m.commit)
     return outs, k
 
 
@@ -100,8 +110,16 @@ def sparse_round(m: Member):
     raw32, ovf, selected, K): spec_round then spec_oracle
     (speculative.py:381 `_sparse_round_fn`, which holds the oracle)."""
     r = kspec.spec_round(m.step, m.carry, m.xs, m.kcand, outs=m.outs)
-    k = kspec.spec_oracle(r[0], r[1], r[7], out=None if m.outs is None else m.outs["k"])
+    k = kspec.spec_oracle(r[0], r[1], r[7], out=None if m.outs is None else m.outs["k"],
+                          commit=sparse_commit(m, r))
     return (*r, k)
+
+
+def sparse_commit(m: Member, r: tuple):
+    """A sparse member's commit with its round's feasible counts (r[2])
+    and candidate cap: the oracle commits nothing where a row passes the
+    cap, as the host then runs the round dense."""
+    return None if m.commit is None else m.commit._replace(counts=r[2], kcand=m.kcand)
 
 
 def _members(args_list: list) -> list[Member]:
@@ -245,28 +263,33 @@ def spec_round_fused(members: list[Member], *, _pods: int = 0,
 
 
 def spec_oracle_fused(members: list[Member], rows: list[tuple], *,
-                      _ctas: int = 0) -> list[torch.Tensor]:
+                      commits: list | None = None, _ctas: int = 0) -> list[torch.Tensor]:
     """B11 oracle: spec_oracle of every member's round in one table launch
     of the oracle kernel (kernels/spec.py launch_oracle), one cluster of
-    CTAs a member, into each member's own K; `spec_oracle_fused.ctas`
-    records the CTAs a member took.  rows: per member (packed, reject,
-    selected).  CPU tensors: _oracle_core per member.  For tests and
-    measurement only, `_ctas` forces the CTAs a member (one of
-    kernels/spec.py ORACLE_CTAS)."""
+    CTAs a member, into each member's own K, with each member's commit
+    (`commits`, by default each `Member.commit`) bound into its carry by
+    the same launch; `spec_oracle_fused.ctas` records the CTAs a member
+    took, `spec_oracle_fused.commits` the members' commits.  rows: per
+    member (packed, reject, selected).  CPU tensors: oracle_commit_plain
+    per member.  For tests and measurement only, `_ctas` forces the CTAs
+    a member (one of kernels/spec.py ORACLE_CTAS)."""
     from . import build
 
     if len(rows) != len(members):
         raise ValueError(f"{len(rows)} rows for {len(members)} members")
     dev = members[0].device
+    if commits is None:
+        commits = [m.commit for m in members]
     if dev.type == "cpu":
-        return [kspec._oracle_core(p, r, s, p.shape[0]) for p, r, s in rows]
+        return [kspec.oracle_commit_plain(p, r, s, c) for (p, r, s), c in zip(rows, commits)]
     if build.load("oracle").kss_fuse_max() != MAX_FUSE_SESSIONS:
         raise RuntimeError("MAX_FUSE_SESSIONS differs between csrc/common.cuh and "
                            "kernels/fuse.py")
     outs = [m.outs["k"] for m in members]
     spec_oracle_fused.ctas = _launch(members, kspec.launch_oracle, "spec_oracle_fused", rows,
-                                     outs, _ctas)
+                                     outs, _ctas, commits)
     spec_oracle_fused.launches += 1
+    spec_oracle_fused.commits += sum(c is not None for c in commits)
     return outs
 
 
@@ -278,6 +301,7 @@ spec_round_fused.pods = None
 spec_eval_fused.batches = collections.Counter()
 spec_round_fused.batches = collections.Counter()
 spec_oracle_fused.launches = 0
+spec_oracle_fused.commits = 0
 spec_oracle_fused.ctas = None
 
 KERNELS = (spec_eval_fused, spec_round_fused, spec_oracle_fused)
@@ -298,22 +322,24 @@ def sparse_round_fused(members: list[Member]) -> list[tuple]:
     """K sparse rounds -> per member sparse_round's 9-tuple:
     spec_round_fused then spec_oracle_fused."""
     rounds = spec_round_fused(members)
-    ks = spec_oracle_fused(members, [(r[0], r[1], r[7]) for r in rounds])
+    ks = spec_oracle_fused(members, [(r[0], r[1], r[7]) for r in rounds],
+                           commits=[sparse_commit(m, r) for m, r in zip(members, rounds)])
     return [(*r, k) for r, k in zip(rounds, ks)]
 
 
 def round_plain(members: list[Member]) -> list[tuple]:
     """The plain version of a fused round: each member's solo plain round
-    in turn (eval_plain + _oracle_core, or sparse_round_plain +
-    _oracle_core).  The tests' and chip_smoke.py's reference; nothing on
-    the card's main path calls it."""
+    in turn (eval_plain + oracle_commit_plain, or sparse_round_plain +
+    oracle_commit_plain: with the member's commit, its carry is updated
+    in place as the launch leaves it).  The tests' and chip_smoke.py's
+    reference; nothing on the card's main path calls it."""
     out = []
     for m in members:
         if m.kcand is None:
             o = kspec.eval_plain(m.step, m.carry, m.xs)
-            out.append((o, kspec._oracle_core(o.packed_filter, o.prefilter_reject,
-                                              o.selected, o.selected.shape[0])))
+            out.append((o, kspec.oracle_commit_plain(o.packed_filter, o.prefilter_reject,
+                                                     o.selected, m.commit)))
         else:
             r = kspec.sparse_round_plain(m.step, m.carry, m.xs, m.kcand)
-            out.append((*r, kspec._oracle_core(r[0], r[1], r[7], r[7].shape[0])))
+            out.append((*r, kspec.oracle_commit_plain(r[0], r[1], r[7], sparse_commit(m, r))))
     return out

@@ -37,7 +37,12 @@ tests check each decomposition itself.  The oracle's kernel, which also
 serves B11's fused oracle, takes a table of sessions and spreads each
 session's pairs (j < k) over a thread-block cluster whose size comes from
 the batch (`oracle_ctas`); its result is a minimum over rows, which no
-split changes.
+split changes.  A session may hand the oracle its round's core-only
+commit (`Commit`): the launch then leaves the accepted prefix, rows
+b < min(K, m), applied to the carry in place (B5's core folded in: the
+rows are added while the gathers run, and the rows past K taken back),
+and the round launches no spec_commit_core; `oracle_commit_plain` is its
+plain form, the plain oracle and then `commit_plain` at that k.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from __future__ import annotations
 import collections
 import ctypes
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -267,6 +273,78 @@ def _oracle_core(packed, prefilter_reject, selected, batch: int) -> torch.Tensor
     return torch.where(torch.any(conflict), first, batch).to(torch.int32)
 
 
+class Commit(NamedTuple):
+    """A round's commit folded into its oracle launch: the core-only
+    carry (updated in place), the batch's xs and m, the rows that are
+    not pad.  The launch commits rows b < min(K, m) with selected[b] >= 0.
+    A sparse round's commit also holds its feasible counts [B] and
+    candidate cap: where a row b < m passes the cap, the host runs the
+    round dense, and the launch commits nothing."""
+
+    carry: dict
+    xs: dict
+    m: int
+    counts: torch.Tensor | None = None
+    kcand: int = 0
+
+
+class OracleCommit(ctypes.Structure):
+    """csrc/oracle.cu OracleCommit: the pointers and widths of one
+    session's commit (requested == 0: none)."""
+
+    _fields_ = [("requested", ctypes.c_void_p), ("nonzero", ctypes.c_void_p),
+                ("num_pods", ctypes.c_void_p), ("pod_requests", ctypes.c_void_p),
+                ("pod_nonzero", ctypes.c_void_p), ("counts", ctypes.c_void_p),
+                ("R", ctypes.c_int), ("m", ctypes.c_int), ("kcand", ctypes.c_int)]
+
+
+def _check_commit(commit: Commit) -> None:
+    if not core_only(commit.carry):
+        raise ValueError(f"a folded commit binds only the core carry, not "
+                         f"{sorted(commit.carry)}")
+
+
+def oracle_commit_args(commit: Commit, b: int) -> OracleCommit:
+    """The C struct of one session's commit, its tensors checked."""
+    _check_commit(commit)
+    core, batch = commit.carry["core"], commit.xs["core"]
+    n, r = core.requested.shape
+    if not 0 <= commit.m <= b:
+        raise ValueError(f"a folded commit of {commit.m} rows in a batch of {b}")
+    counts = (None if commit.counts is None else
+              kstep._ptr(commit.counts, torch.int32, (b,), "counts"))
+    return OracleCommit(
+        kstep._ptr(core.requested, torch.int64, (n, r), "requested"),
+        kstep._ptr(core.nonzero, torch.int64, (n, 2), "nonzero"),
+        kstep._ptr(core.num_pods, torch.int64, (n,), "num_pods"),
+        kstep._ptr(batch.requests, torch.int64, (b, r), "pod_requests"),
+        kstep._ptr(batch.nonzero, torch.int64, (b, 2), "pod_nonzero"), counts, r, commit.m,
+        commit.kcand)
+
+
+def commit_wide(commit: Commit) -> bool:
+    """A sparse round's commit whose rows b < m include one feasible at
+    more nodes than the candidate cap: the host runs that round dense
+    (parallel/speculative.py `_spec_run`), so its oracle commits nothing."""
+    return (commit.counts is not None and commit.m > 0
+            and int(commit.counts[:commit.m].max()) > commit.kcand)
+
+
+def oracle_commit_plain(packed, prefilter_reject, selected, commit: Commit | None):
+    """The plain form of an oracle launch with its commit folded in:
+    _oracle_core, then, with a commit (and no row b < m of a sparse
+    round past its candidate cap), commit_plain of the rows b <
+    min(K, m) copied into the carry's tensors in place, as the kernel
+    leaves them.  -> K."""
+    k = _oracle_core(packed, prefilter_reject, selected, packed.shape[0])
+    if commit is not None and not commit_wide(commit):
+        _check_commit(commit)
+        new = commit_plain(None, commit.carry, commit.xs, selected, min(int(k), commit.m))
+        for got, want in zip(commit.carry["core"], new["core"]):
+            got.copy_(want)
+    return k
+
+
 ORACLE_CTAS = (1, 2, 4, 8, 16)  # CTAs of a session's cluster in csrc/oracle.cu
 ORACLE_ROWS = 32                # rows a CTA of 16 warps takes before the plan adds CTAs
 
@@ -282,13 +360,16 @@ def oracle_ctas(b: int) -> int:
     return ORACLE_CTAS[-1]
 
 
-def launch_oracle(what: str, rows: list, outs: list, ctas: int = 0) -> int:
+def launch_oracle(what: str, rows: list, outs: list, ctas: int = 0,
+                  commits: list | None = None) -> int:
     """One launch of csrc/oracle.cu's kernel over a table of sessions:
     rows per session (packed [B, N], prefilter_reject [B], selected [B]),
-    each session's K into its own int32 scalar of `outs`; every session of
-    one batch, node count and pack width.  One cluster of `ctas` CTAs a
-    session (one of ORACLE_CTAS), or where it is 0 oracle_ctas(B).
-    Launches on the current stream -> the CTAs a session took."""
+    each session's K into its own int32 scalar of `outs`, and where
+    `commits` gives a session a Commit (else None), its accepted prefix
+    bound into its carry; every session of one batch, node count and pack
+    width.  One cluster of `ctas` CTAs a session (one of ORACLE_CTAS), or
+    where it is 0 oracle_ctas(B).  Launches on the current stream -> the
+    CTAs a session took."""
     from . import build
 
     b, n = rows[0][0].shape
@@ -298,41 +379,52 @@ def launch_oracle(what: str, rows: list, outs: list, ctas: int = 0) -> int:
         raise ValueError(f"{what}: {ctas} CTAs a session, not one of {ORACLE_CTAS}")
     ctas = ctas or oracle_ctas(b)
     k = len(rows)
+    commits = commits or [None] * k
     packed, reject, selected, out_k = ((ctypes.c_void_p * k)() for _ in range(4))
-    for i, ((p, r, s), out) in enumerate(zip(rows, outs, strict=True)):
+    table = (OracleCommit * k)()
+    for i, ((p, r, s), out, c) in enumerate(zip(rows, outs, commits, strict=True)):
         kstep.check_device(what, dev, {"p": p, "r": r, "s": s, "k": out})
         packed[i] = kstep._ptr(p, dtype, (b, n), "packed")
         reject[i] = kstep._ptr(r, torch.int32, (b,), "prefilter_reject")
         selected[i] = kstep._ptr(s, torch.int32, (b,), "selected")
         out_k[i] = kstep._ptr(out, torch.int32, (), "k")
+        if c is not None:
+            kstep.check_device(what, dev, c.carry, {"core": c.xs["core"]})
+            table[i] = oracle_commit_args(c, b)
     lib = build.load("oracle")
-    kstep.check_launch(what, lib.kss_spec_oracle(packed, reject, selected, out_k, k,
+    if lib.kss_oracle_commit_size() != ctypes.sizeof(OracleCommit):
+        raise RuntimeError("OracleCommit differs between csrc/oracle.cu and kernels/spec.py")
+    kstep.check_launch(what, lib.kss_spec_oracle(packed, reject, selected, out_k, table, k,
                                                  rows[0][0].element_size(), b, n, ctas,
                                                  kstep.stream_of(dev)))
     return ctas
 
 
 def spec_oracle(packed, prefilter_reject, selected, out: torch.Tensor | None = None, *,
-                _ctas: int = 0) -> torch.Tensor:
+                commit: Commit | None = None, _ctas: int = 0) -> torch.Tensor:
     """B3: K as an int32 tensor on the inputs' device (`out` when the
-    caller allocated it).  CUDA tensors: the one-session launch of the
+    caller allocated it); with `commit`, the round's accepted prefix (rows
+    b < min(K, commit.m)) bound into commit.carry in place by the same
+    launch, B5's core folded in.  CUDA tensors: the one-session launch of the
     oracle kernel (launch_oracle), one cluster of oracle_ctas(B) CTAs;
-    `spec_oracle.ctas` records the CTAs it took.  CPU tensors:
-    _oracle_core.  For tests and measurement only, `_ctas` forces the
-    cluster's CTAs (one of ORACLE_CTAS)."""
-    b = packed.shape[0]
+    `spec_oracle.ctas` records the CTAs it took, `spec_oracle.commits`
+    the launches that committed.  CPU tensors: oracle_commit_plain.  For
+    tests and measurement only, `_ctas` forces the cluster's CTAs (one of
+    ORACLE_CTAS)."""
     dev = packed.device
     if dev.type == "cpu":
-        return _oracle_core(packed, prefilter_reject, selected, b)
+        return oracle_commit_plain(packed, prefilter_reject, selected, commit)
     if out is None:
         out = torch.empty((), dtype=torch.int32, device=dev)
     spec_oracle.ctas = launch_oracle("spec_oracle", [(packed, prefilter_reject, selected)],
-                                     [out], _ctas)
+                                     [out], _ctas, [commit])
     spec_oracle.launches += 1
+    spec_oracle.commits += commit is not None
     return out
 
 
 spec_oracle.launches = 0
+spec_oracle.commits = 0
 spec_oracle.ctas = None
 
 
@@ -679,7 +771,8 @@ def _commit(kernel, step, carry: dict, xs: dict, selected, k: int) -> dict:
 
 def spec_commit_core(step, carry: dict, xs: dict, selected, k: int) -> dict:
     """B5, core-only: 64-bit atomic adds, one thread per batch row, carry
-    updated in place."""
+    updated in place.  A round whose K the host will not cut launches
+    none: its oracle launch commits (spec_oracle's `commit`)."""
     return _commit(spec_commit_core, step, carry, xs, selected, k)
 
 

@@ -4,8 +4,8 @@ Port of kube_scheduler_simulator_tpu/models/workloads.py (`make_nodes`
 :16, `make_pods` :68, `SLOT_LABEL` and `make_slot_pinned_workload`
 :299-345, `BASELINE_CONFIGS` and `baseline_config` :481-524): the same
 numpy draws in the same order, so the same seed gives the same manifests.
-`make_gang_workload` ports :348.  The columnar and churn generators wait
-for later slices.
+`make_gang_workload` ports :348, `make_nodes_columnar` :177 and
+`make_pods_columnar` :241.  The churn generator waits for a later slice.
 """
 
 from __future__ import annotations
@@ -175,6 +175,127 @@ def make_pods(
         pods.append(pod)
     return pods
 
+
+def make_nodes_columnar(
+    n: int,
+    seed: int = 0,
+    n_zones: int = 8,
+    taint_fraction: float = 0.0,
+    unschedulable_fraction: float = 0.0,
+    cpu_milli: int = 64_000,
+    mem_bytes: int = 256 << 30,
+):
+    """Columnar fast path for make_nodes: the same node population shape
+    (capacities, labels, taints) drawn with VECTORIZED rng — n nodes
+    never exist as n dicts.  Draw streams differ from make_nodes for the
+    same seed (per-row vs vectorized consumption), so a given scenario
+    is either dict-generated or columnar-generated, not both; parity
+    checks materialize THIS bank's rows to dicts and compare paths.
+    -> ColumnarNodeBank (load via store.load_columnar or bank.view())."""
+    from ..cluster.columnar import ColumnarNodeBank
+
+    rng = np.random.default_rng(seed)
+    bank = ColumnarNodeBank(capacity=max(n, 1))
+    names = [f"node-{i:05d}" for i in range(n)]
+    bank.bulk_rows(names)
+    scale = rng.choice([0.5, 1.0, 1.0, 2.0], size=n)
+    cpu = (cpu_milli * scale).astype(np.int64)
+    mem = (mem_bytes * rng.choice([0.5, 1.0, 1.0, 2.0], size=n)).astype(np.int64)
+    for rname, col in (("cpu", cpu), ("memory", mem),
+                       ("ephemeral-storage",
+                        np.full(n, 512 << 30, dtype=np.int64))):
+        c, present = bank._res_col(rname)
+        c[:n] = col
+        present[:n] = True
+    bank.allowed_pods[:n] = 110
+    bank.rv[:n] = np.arange(1, n + 1)
+
+    idx = np.arange(n)
+    names_col = np.array(names, dtype=object)
+    zone_pool = np.array([f"zone-{z}" for z in range(n_zones)], dtype=object)
+    region_pool = np.array(
+        [f"region-{z // 4}" for z in range(n_zones)], dtype=object)
+    type_pool = np.array([f"type-{t}" for t in range(4)], dtype=object)
+    bank.label_cols["kubernetes.io/hostname"] = names_col
+    bank.label_cols["topology.kubernetes.io/zone"] = zone_pool[idx % n_zones]
+    bank.label_cols["topology.kubernetes.io/region"] = region_pool[idx % n_zones]
+    bank.label_cols["node.kubernetes.io/instance-type"] = \
+        type_pool[rng.integers(4, size=n)]
+    bank.label_cols["disktype"] = np.where(
+        rng.random(n) < 0.5,
+        np.array("ssd", dtype=object), np.array("hdd", dtype=object))
+
+    if taint_fraction > 0:
+        batch = [("dedicated", "batch", "NoSchedule")]
+        degraded = [("degraded", "", "PreferNoSchedule")]
+        t1 = rng.random(n) < taint_fraction
+        t2 = rng.random(n) < taint_fraction
+        taints = bank.taints
+        for i in np.flatnonzero(t1):
+            taints[i] = batch
+        for i in np.flatnonzero(~t1 & t2):
+            taints[i] = degraded
+    if unschedulable_fraction > 0:
+        bank.unschedulable[:n] = rng.random(n) < unschedulable_fraction
+    return bank
+
+
+def make_pods_columnar(
+    n: int,
+    seed: int = 1,
+    with_affinity: bool = False,
+    n_apps: int = 20,
+):
+    """Columnar fast path for make_pods (resource-request + label +
+    required/preferred node-affinity shapes only — the spread/interpod
+    variants stay dict-generated).  -> ColumnarPodBank."""
+    from ..cluster.columnar import ColumnarPodBank
+
+    rng = np.random.default_rng(seed)
+    bank = ColumnarPodBank(capacity=max(n, 1))
+    names = [f"default/pod-{i:05d}" for i in range(n)]
+    bank.bulk_rows(names)
+    cpu = rng.choice(np.array([100, 250, 500, 1000, 2000]), size=n)
+    mem = rng.choice(np.array([128, 256, 512, 1024, 2048]), size=n) << 20
+    bank._req_col("cpu")[:n] = cpu
+    bank._req_col("memory")[:n] = mem
+    bank.nonzero[:n, 0] = cpu
+    bank.nonzero[:n, 1] = mem
+    bank.rv[:n] = np.arange(1, n + 1)
+    app_pool = np.array([f"app-{a}" for a in range(n_apps)], dtype=object)
+    bank.label_cols["app"] = app_pool[rng.integers(n_apps, size=n)]
+    bank.label_cols["tier"] = np.where(
+        rng.random(n) < 0.5,
+        np.array("web", dtype=object), np.array("backend", dtype=object))
+    if with_affinity:
+        # template space: preferred weight w in [1, 100) x instance type
+        # t in [0, 4); code 0 = no affinity, else (w-1)*4 + t + 1
+        templates = [
+            {
+                "nodeAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": {
+                        "nodeSelectorTerms": [{
+                            "matchExpressions": [{
+                                "key": "disktype", "operator": "In",
+                                "values": ["ssd"]}]
+                        }]
+                    },
+                    "preferredDuringSchedulingIgnoredDuringExecution": [{
+                        "weight": w,
+                        "preference": {"matchExpressions": [{
+                            "key": "node.kubernetes.io/instance-type",
+                            "operator": "In", "values": [f"type-{t}"]}]},
+                    }],
+                }
+            }
+            for w in range(1, 100) for t in range(4)
+        ]
+        has = rng.random(n) < 0.5
+        w = rng.integers(1, 100, size=n)
+        t = rng.integers(4, size=n)
+        codes = np.where(has, (w - 1) * 4 + t + 1, 0)
+        bank.set_affinity_codes(codes, templates)
+    return bank
 
 
 SLOT_LABEL = "kss.simulator/slot"

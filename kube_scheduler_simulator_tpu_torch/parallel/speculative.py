@@ -20,7 +20,11 @@ Each round's device work is a hand-written kernel (kernels/spec.py):
   * either round as ONE dispatch through the cross-session fuse
     coordinator (parallel/fuse.py), which runs K sessions' rounds of one
     family in one launch of B11 (kernels/fuse.py);
-  * commit: spec_commit_core or spec_commit_bind (B5), in place;
+  * commit: spec_commit_core or spec_commit_bind (B5), in place; where
+    the host will not cut the round's K (`commit_folds`: a core-only
+    carry, no interaction rule, no gang) the round's oracle launch
+    commits the accepted prefix instead, and no commit kernel is
+    launched;
   * the chunk grid: grid_append and grid_emit (B6);
   * the contention fallback: the scan's step_chunk (B1), resumed from
     the speculative carry.
@@ -387,6 +391,15 @@ def _fuse_family(cw: CompiledWorkload, chunk: int, wide, ignore: frozenset | set
     return (base_key, wide, sparse, kcand if sparse else None)
 
 
+def commit_folds(carry: dict, inter, gang) -> bool:
+    """Whether a round's commit is folded into its oracle launch (B5's
+    core in csrc/oracle.cu): the carry is core-only, so the commit
+    is spec_commit_core's, and the host cuts K after the launch neither by
+    the interaction rule (`_interaction_cut`) nor at a gang boundary
+    (`aligned_cut`), so the launch's K is the round's."""
+    return kspec.core_only(carry) and inter is None and gang is None
+
+
 def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
               wide, inter, scan_fallback: bool,
               device_resident: bool, gang=None,
@@ -571,14 +584,20 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
             fault_point("replay.scan_dispatch")
             xs = _slice_xs(cw.xs, lo, hi, b)
             xs["is_pad"] = torch.arange(b, device=dev) >= m
+            # the round's oracle launch commits its accepted prefix where
+            # the host will not cut K (commit_folds); the carry is then
+            # updated in place by the launch, before K is read back
+            fold = commit_folds(carry, inter, gang)
             dense = not sparse
             if sparse:
                 # one dispatch per round (spec_round + spec_oracle); a
                 # wide-feasibility round (max count past the candidate
-                # cap) discards the sparse output and re-runs dense
+                # cap) discards the sparse output and re-runs dense: its
+                # oracle launch makes the same test and commits nothing
                 (packed, reject_d, counts_d, raw8, raw16, raw32, ovf_d,
                  sel_dev, k_dev) = fused_call("round", b, kfuse.sparse_round,
-                                              kfuse.Member(step, carry, xs, kcand))
+                                              kfuse.Member(step, carry, xs, kcand,
+                                                           m if fold else None))
                 fault_point("replay.decision_fetch")
                 fc = _host(counts_d)
                 rej = _host(reject_d)
@@ -592,7 +611,8 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
             if dense:
                 # one dispatch per round: spec_eval + spec_oracle
                 outs, k_dev = fused_call("dense", b, kfuse.dense_round,
-                                         kfuse.Member(step, carry, xs))
+                                         kfuse.Member(step, carry, xs, None,
+                                                      m if fold else None))
                 fault_point("replay.decision_fetch")
                 sel = _host(outs.selected)
                 fc = _host(outs.feasible_count)
@@ -611,7 +631,8 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
             selected[lo:lo + k] = sel[:k]
             feasible_count[lo:lo + k] = fc[:k]
             prefilter_reject[lo:lo + k] = rej[:k]
-            carry = kspec.spec_commit(step, carry, xs, sel_dev, k)
+            if not fold:
+                carry = kspec.spec_commit(step, carry, xs, sel_dev, k)
             if k == m == chunk and fill == 0 and lo % chunk == 0:
                 # a fully-accepted top-rung round at an aligned position IS
                 # a grid chunk: ingest its outputs directly, with no

@@ -173,7 +173,6 @@ def effective_terms(pod: dict, field: str, preferred: bool,
 def build(table: NodeTable, pods: list[dict],
           hard_weight: int = DEFAULT_HARD_POD_AFFINITY_WEIGHT,
           namespaces: list[dict] | None = None, device="cpu"):
-    labels = table.labels
     n, p = table.n, len(pods)
 
     # --- unique term table ----------------------------------------------
@@ -212,8 +211,9 @@ def build(table: NodeTable, pods: list[dict],
     dom_idx = np.full((t_count, n), -1, dtype=np.int32)
     for t_id, (key, _, _) in enumerate(term_list):
         vals: dict[str, int] = {}
-        for j in range(n):
-            v = labels[j].get(key)
+        # the key's column of the table's label index: a columnar table's
+        # rows are not synthesized one by one
+        for j, v in enumerate(table.label_index.column(key)):
             if v is not None:
                 dom_idx[t_id, j] = vals.setdefault(v, len(vals))
     d_max = max(int(dom_idx.max()) + 1, 1)

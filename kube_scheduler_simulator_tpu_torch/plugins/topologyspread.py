@@ -181,7 +181,6 @@ def _taints_tolerated_row(pod: dict, table: NodeTable) -> np.ndarray:
 
 
 def build(table: NodeTable, pods: list[dict], device="cpu"):
-    labels = table.labels
     n, p = table.n, len(pods)
 
     # unique count groups + per-pod slots over the effective constraints
@@ -205,8 +204,9 @@ def build(table: NodeTable, pods: list[dict], device="cpu"):
         if hit is None:
             vals: dict[str, int] = {}
             row = np.full(n, -1, dtype=np.int32)
-            for j in range(n):
-                v = labels[j].get(key)
+            # the key's column of the table's label index: a columnar
+            # table's rows are not synthesized one by one
+            for j, v in enumerate(table.label_index.column(key)):
                 if v is not None:
                     row[j] = vals.setdefault(v, len(vals))
             hit = (row, len(vals))

@@ -20,12 +20,28 @@ time (a missing PVC or StorageClass, an unbound Immediate claim) land in
 `host["prefilter_reject"]` (messages per plugin, for the decoder) and in
 `xs["force_unsched"]` ([P] bool, the step's prefilter-reject bit 1).
 
-Not ported here: node-table reuse and delta patching (`reuse=`), the
-columnar pod view (`pod_columns=`) and tracing.  A custom plugin's
-filter and score rows (plugins/custom.py `build_custom`, one host call
-per (pod, node)) go into `xs[name]` as a `CustomXS`, its messages into
-`host["custom_msgs"][name]`; its lifecycle points, QueueSort and
-Coscheduling run on the host, in the engine.
+A prior wave's node table is reused (`reuse=`, compile.py:87-160): as
+it is when the node set, its resourceVersions and the resource schema
+are unchanged, patched row by row when at most
+KSS_TPU_COLUMNAR_DELTA_MAX rows changed (`_node_delta`), else rebuilt.
+Listings from the store's columnar plane (cluster/columnar.py) carry
+their bank view: the schema, the node key and the table are read from
+its columns, and with `pod_columns=` the pods' request rows are
+gathered from the pod bank by uid.  TRACER counts each path
+(node_table_reuse_total, node_table_delta_patches_total,
+node_table_delta_rows_total, node_table_builds_total,
+compile_requests_gathered_total).
+
+Every part is built on the host, as numpy and CPU tensors, and the
+statics, xs and initial carry are moved to `device` in one last step:
+TRACER spans split a compile into compile.schema, compile.node_table,
+compile.pod_requests, compile.build.<plugin> (core for the resource
+carry) and compile.upload.
+
+A custom plugin's filter and score rows (plugins/custom.py
+`build_custom`, one host call per (pod, node)) go into `xs[name]` as a
+`CustomXS`, its messages into `host["custom_msgs"][name]`; its lifecycle
+points, QueueSort and Coscheduling run on the host, in the engine.
 """
 
 from __future__ import annotations
@@ -37,8 +53,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .nodes import NodeTable, build_node_table
+from .nodes import (NodeTable, build_node_table, build_node_table_columnar,
+                    patch_node_table, patch_node_table_columnar)
 from .resources import ResourceSchema, pod_resource_request
+from ..utils.env import env_int
+from ..utils.tracing import TRACER
 from ..plugins import registry as reg
 from .volumes import build_volume_table, pod_pvc_keys
 from ..plugins import (
@@ -138,6 +157,19 @@ def _pod_key(pod: dict) -> str:
     return f"{meta.get('namespace') or 'default'}/{meta.get('name', '')}"
 
 
+class NodeTableReuse:
+    """Slim handle for compile_workload(reuse=...): holds only the node
+    table and schema (what the reuse path reads), so callers caching it
+    between waves don't pin the previous wave's per-pod device tensors."""
+
+    __slots__ = ("host", "schema", "node_table")
+
+    def __init__(self, cw: CompiledWorkload):
+        self.host = {"node_key": cw.host.get("node_key")}
+        self.schema = cw.schema
+        self.node_table = cw.node_table
+
+
 def _np(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
@@ -148,7 +180,9 @@ def compile_workload(
     config: reg.PluginSetConfig | None = None,
     bound_pods: list[tuple[dict, str]] | None = None,
     volumes: dict | None = None,
+    reuse: "CompiledWorkload | NodeTableReuse | None" = None,
     namespaces: list[dict] | None = None,
+    pod_columns=None,
     device="cuda",
 ) -> CompiledWorkload:
     """Compile (nodes, queue pods, already-bound pods) into tensors on
@@ -158,106 +192,139 @@ def compile_workload(
     carry; they also contribute to topology/affinity counts.
     volumes: optional {"pvcs": [...], "pvs": [...], "storageclasses":
     [...], "csinodes": [...]} manifest lists backing the volume family.
+    reuse: a prior wave's workload (or its NodeTableReuse): its NodeTable
+    is reused when the node set, resourceVersions and the discovered
+    resource schema are unchanged, and patched row-wise when at most
+    KSS_TPU_COLUMNAR_DELTA_MAX rows changed.
     namespaces: namespace manifests that InterPodAffinity's
-    namespaceSelector resolves against."""
+    namespaceSelector resolves against.
+    pod_columns: the pod listing's columnar view (ColumnarManifestList
+    .columns): request rows are gathered from the bank's pre-parsed
+    columns by uid instead of parsed per wave."""
     device = resolve_device(device)
     config = config or reg.PluginSetConfig()
     enabled = set(config.active_plugins())
     bound_pods = bound_pods or []
     volumes = volumes or {}
-    schema = ResourceSchema.discover(pods + [bp for bp, _ in bound_pods], nodes)
-    table = build_node_table(nodes, schema)
+    # columnar listings (cluster/columnar.ColumnarManifestList) carry their
+    # bank view: schema discovery, the node-table identity and the table
+    # build read columns instead of walking N manifests
+    cols = getattr(nodes, "columns", None)
+    with TRACER.span("compile.schema"):
+        if cols is not None:
+            schema = ResourceSchema.discover_columnar(
+                pods + [bp for bp, _ in bound_pods], cols)
+            node_key = cols.identity()
+        else:
+            schema = ResourceSchema.discover(pods + [bp for bp, _ in bound_pods], nodes)
+            node_key = tuple(
+                ((n.get("metadata") or {}).get("name", ""),
+                 (n.get("metadata") or {}).get("resourceVersion", ""))
+                for n in nodes)
+    with TRACER.span("compile.node_table"):
+        schema, table = _node_table(nodes, cols, schema, node_key, reuse)
 
-    requests, nonzero = _pod_requests(pods, schema)
+    with TRACER.span("compile.pod_requests"):
+        requests, nonzero = _pod_requests(pods, schema, pod_columns)
 
     statics: dict[str, Any] = {}
     xs: dict[str, Any] = {}
     init_carry: dict[str, Any] = {}
-    host: dict[str, Any] = {"node_table": table, "schema": schema}
+    host: dict[str, Any] = {"node_table": table, "schema": schema, "node_key": node_key}
+    # every part is built on the host; compile.upload moves it to `device`
+    cpu = torch.device("cpu")
 
     # core resource carry, primed with bound pods
-    name_idx = {name: j for j, name in enumerate(table.names)}
-    req0 = table.initial_requested.copy()
-    nz0 = table.initial_nonzero.copy()
-    np0 = table.initial_num_pods.copy()
-    if bound_pods:
-        b_req, b_nz = _pod_requests([bp for bp, _ in bound_pods], schema)
-        for bi, (_, node_name) in enumerate(bound_pods):
-            j = name_idx.get(node_name)
-            if j is None:
-                continue
-            req0[j] += b_req[bi]
-            nz0[j] += b_nz[bi]
-            np0[j] += 1
-
-    # Fit static/xs double as the core resource tensors even when the Fit
-    # plugin itself is disabled (bind updates always need pod requests).
-    fit_static, fit_xs = noderesources.build_fit(
-        table, schema, requests, nonzero,
-        fit_args=config.args.get("NodeResourcesFit"), device=device)
-    statics["core"] = fit_static
-    xs["core"] = fit_xs
-    init_carry["core"] = CoreCarry(
-        requested=to_tensor(req0, device),
-        nonzero=to_tensor(nz0, device),
-        num_pods=to_tensor(np0, device),
-    )
+    with _build_span("core"):
+        name_idx = {name: j for j, name in enumerate(table.names)}
+        req0 = table.initial_requested.copy()
+        nz0 = table.initial_nonzero.copy()
+        np0 = table.initial_num_pods.copy()
+        if bound_pods:
+            b_req, b_nz = _pod_requests([bp for bp, _ in bound_pods], schema, pod_columns)
+            for bi, (_, node_name) in enumerate(bound_pods):
+                j = name_idx.get(node_name)
+                if j is None:
+                    continue
+                req0[j] += b_req[bi]
+                nz0[j] += b_nz[bi]
+                np0[j] += 1
+        # Fit static/xs double as the core resource tensors even when the
+        # Fit plugin itself is disabled (bind updates always need pod
+        # requests).
+        fit_static, fit_xs = noderesources.build_fit(
+            table, schema, requests, nonzero,
+            fit_args=config.args.get("NodeResourcesFit"), device=cpu)
+        statics["core"] = fit_static
+        xs["core"] = fit_xs
+        init_carry["core"] = CoreCarry(
+            requested=to_tensor(req0, cpu),
+            nonzero=to_tensor(nz0, cpu),
+            num_pods=to_tensor(np0, cpu),
+        )
 
     if "NodeAffinity" in enabled:
-        st, x = affinity.build(
-            table, pods, args=config.args.get("NodeAffinity"), host_out=host,
-            device=device)
-        statics["NodeAffinity"] = st
-        xs["NodeAffinity"] = x
+        with _build_span("NodeAffinity"):
+            st, x = affinity.build(
+                table, pods, args=config.args.get("NodeAffinity"), host_out=host, device=cpu)
+            statics["NodeAffinity"] = st
+            xs["NodeAffinity"] = x
     if "NodePorts" in enabled:
-        st, x, carry = ports.build(table, pods, bound_pods, device=device)
-        statics["NodePorts"] = st
-        xs["NodePorts"] = x
-        init_carry["NodePorts"] = carry
+        with _build_span("NodePorts"):
+            st, x, carry = ports.build(table, pods, bound_pods, device=cpu)
+            statics["NodePorts"] = st
+            xs["NodePorts"] = x
+            init_carry["NodePorts"] = carry
     if "ImageLocality" in enabled:
-        xs["ImageLocality"] = imagelocality.build(nodes, pods, host_out=host, device=device)
+        with _build_span("ImageLocality"):
+            xs["ImageLocality"] = imagelocality.build(nodes, pods, host_out=host, device=cpu)
     if "TaintToleration" in enabled:
-        xs["TaintToleration"] = taints.build_taints(
-            table, pods, host_out=host, device=device)
+        with _build_span("TaintToleration"):
+            xs["TaintToleration"] = taints.build_taints(table, pods, host_out=host, device=cpu)
     if "NodeUnschedulable" in enabled:
-        xs["NodeUnschedulable"] = taints.build_unschedulable(table, pods, device=device)
+        with _build_span("NodeUnschedulable"):
+            xs["NodeUnschedulable"] = taints.build_unschedulable(table, pods, device=cpu)
     if "NodeName" in enabled:
-        xs["NodeName"] = taints.build_nodename(table, pods, device=device)
+        with _build_span("NodeName"):
+            xs["NodeName"] = taints.build_nodename(table, pods, device=cpu)
     if "PodTopologySpread" in enabled:
-        st, x, counts_dom = topologyspread.build(table, pods, device=device)
-        statics["PodTopologySpread"] = st
-        xs["PodTopologySpread"] = x
-        _prime_spread_counts(counts_dom, st, pods, bound_pods, name_idx)
-        init_carry["PodTopologySpread"] = topologyspread.assemble_counts(st, counts_dom)
+        with _build_span("PodTopologySpread"):
+            st, x, counts_dom = topologyspread.build(table, pods, device=cpu)
+            statics["PodTopologySpread"] = st
+            xs["PodTopologySpread"] = x
+            _prime_spread_counts(counts_dom, st, pods, bound_pods, name_idx)
+            init_carry["PodTopologySpread"] = topologyspread.assemble_counts(st, counts_dom)
     if any(name in enabled for name in VOLUME_PLUGINS):
         _compile_volumes(table, pods, bound_pods, volumes, enabled, statics, xs,
-                         init_carry, host, device)
+                         init_carry, host, cpu)
     for name, plugin in config.custom.items():
         # a plugin with neither point has no rows (its lifecycle points
         # run on the host), where the JAX package builds two of zeros
         if name not in enabled or not (plugin.has_filter or plugin.has_score):
             continue
-        x, msg_table = custom.build_custom(plugin, table, pods, nodes, name=name,
-                                           host_out=host, device=device)
-        xs[name] = x
-        host.setdefault("custom_msgs", {})[name] = msg_table
+        with _build_span(name):
+            x, msg_table = custom.build_custom(plugin, table, pods, nodes, name=name,
+                                               host_out=host, device=cpu)
+            xs[name] = x
+            host.setdefault("custom_msgs", {})[name] = msg_table
     if "InterPodAffinity" in enabled:
         # the term table spans queue + bound pods so the bound pods' terms
         # (which matter for the symmetric existing-pod checks) share the
         # same term ids; the per-pod xs are then cut back to the queue
-        bound_manifests = [bp for bp, _ in bound_pods]
-        st, x_all, dom_mats = interpod.build(
-            table, pods + bound_manifests,
-            hard_weight=int((config.args.get("InterPodAffinity") or {})
-                            .get("hardPodAffinityWeight")
-                            or interpod.DEFAULT_HARD_POD_AFFINITY_WEIGHT),
-            namespaces=namespaces, device=device,
-        )
-        statics["InterPodAffinity"] = st
-        xs["InterPodAffinity"] = interpod.InterPodXS(
-            *[v[:len(pods)] for v in x_all])
-        _prime_interpod_counts(dom_mats, st, x_all, len(pods), bound_pods, name_idx)
-        init_carry["InterPodAffinity"] = interpod.assemble_carry(st, dom_mats)
+        with _build_span("InterPodAffinity"):
+            bound_manifests = [bp for bp, _ in bound_pods]
+            st, x_all, dom_mats = interpod.build(
+                table, pods + bound_manifests,
+                hard_weight=int((config.args.get("InterPodAffinity") or {})
+                                .get("hardPodAffinityWeight")
+                                or interpod.DEFAULT_HARD_POD_AFFINITY_WEIGHT),
+                namespaces=namespaces, device=cpu,
+            )
+            statics["InterPodAffinity"] = st
+            xs["InterPodAffinity"] = interpod.InterPodXS(
+                *[v[:len(pods)] for v in x_all])
+            _prime_interpod_counts(dom_mats, st, x_all, len(pods), bound_pods, name_idx)
+            init_carry["InterPodAffinity"] = interpod.assemble_carry(st, dom_mats)
 
     cw = CompiledWorkload(
         schema=schema,
@@ -271,8 +338,99 @@ def compile_workload(
         host=host,
         device=device,
     )
+    # the host flags read the parts while they are still on the host
     _collect_host_flags(cw)
+    with TRACER.span("compile.upload"):
+        moved: dict[int, torch.Tensor] = {}
+        cw.statics = _upload(statics, device, moved)
+        cw.xs = _upload(xs, device, moved)
+        cw.init_carry = _upload(init_carry, device, moved)
     return cw
+
+
+def _build_span(name: str):
+    return TRACER.span(f"compile.build.{name}")
+
+
+def _upload(tree, device: torch.device, moved: dict):
+    """`tree` (dicts, NamedTuples, tuples and lists of tensors; other
+    leaves pass through) with every tensor on `device`; a tensor that
+    appears twice is moved once (`moved`, by id), so aliases stay
+    aliases.  On the CPU it returns the same tensors."""
+    if isinstance(tree, torch.Tensor):
+        if tree.device == device:
+            return tree
+        got = moved.get(id(tree))
+        if got is None:
+            got = moved[id(tree)] = tree.to(device)
+        return got
+    if isinstance(tree, dict):
+        return {k: _upload(v, device, moved) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_upload(v, device, moved) for v in tree])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_upload(v, device, moved) for v in tree)
+    return tree
+
+
+def _node_table(nodes, cols, schema: ResourceSchema, node_key, reuse):
+    """(schema, NodeTable) for this wave (compile.py:124-148): a prior
+    wave's table as it is (same node key and schema), patched at the rows
+    whose resourceVersion moved (`_node_delta`), or built afresh."""
+    if (reuse is not None
+            and tuple(reuse.schema.columns) == tuple(schema.columns)
+            and reuse.schema.n == schema.n):
+        old_key = reuse.host.get("node_key")
+        if old_key == node_key:
+            TRACER.count("node_table_reuse_total")
+            return reuse.schema, reuse.node_table
+        delta = _node_delta(old_key, node_key, cols)
+        if delta is not None:
+            schema = reuse.schema
+            if cols is not None:
+                table = patch_node_table_columnar(reuse.node_table, cols, delta, schema)
+            else:
+                table = patch_node_table(reuse.node_table, nodes, delta, schema)
+            TRACER.count("node_table_delta_patches_total")
+            TRACER.count("node_table_delta_rows_total", len(delta))
+            return schema, table
+    table = (build_node_table_columnar(cols, schema) if cols is not None
+             else build_node_table(nodes, schema))
+    TRACER.count("node_table_builds_total")
+    return schema, table
+
+
+def _node_delta(old_key, node_key, cols):
+    """Positions whose node rows changed between waves, or None when the
+    delta path doesn't apply (different membership/order, too many
+    changes, incomparable keys).  Bounded by KSS_TPU_COLUMNAR_DELTA_MAX
+    rows: past that a full rebuild is cheaper than the patch walk."""
+    delta_max = env_int("KSS_TPU_COLUMNAR_DELTA_MAX", 256)
+    if delta_max <= 0 or not isinstance(old_key, tuple):
+        return None
+    if cols is not None:
+        # columnar identity: ("columnar", bank_id, names_version, rv bytes)
+        if (len(old_key) != 4 or len(node_key) != 4
+                or old_key[:3] != node_key[:3]):
+            return None
+        old_rv = np.frombuffer(old_key[3], dtype=np.int64)
+        if len(old_rv) != cols.n:
+            return None
+        changed = np.flatnonzero(old_rv != cols.rv)
+        return changed if 0 < len(changed) <= delta_max else None
+    # dict identity: ((name, rv), ...)
+    if len(old_key) != len(node_key):
+        return None
+    changed = []
+    for i, (a, b) in enumerate(zip(old_key, node_key)):
+        if a == b:
+            continue
+        if a[0] != b[0]:
+            return None  # membership/order changed: rebuild
+        changed.append(i)
+        if len(changed) > delta_max:
+            return None
+    return np.asarray(changed, dtype=np.int64) if changed else None
 
 
 def _compile_volumes(table, pods, bound_pods, volumes, enabled, statics, xs,
@@ -282,38 +440,43 @@ def _compile_volumes(table, pods, bound_pods, volumes, enabled, statics, xs,
     PreFilter reports them (the earliest enabled prefilter in config
     order wins at decode time)."""
     p = len(pods)
-    vt = build_volume_table(
-        table, volumes.get("pvcs"), volumes.get("pvs"),
-        volumes.get("storageclasses"), volumes.get("csinodes"),
-    )
+    with _build_span("volume_table"):
+        vt = build_volume_table(
+            table, volumes.get("pvcs"), volumes.get("pvs"),
+            volumes.get("storageclasses"), volumes.get("csinodes"),
+        )
     host["volume_table"] = vt
     rejects: dict[str, list[str | None]] = {}
     if "VolumeRestrictions" in enabled:
-        st, x, carry = volumerestrictions.build(vt, table, pods, bound_pods, device=device)
-        statics["VolumeRestrictions"] = st
-        xs["VolumeRestrictions"] = x
-        init_carry["VolumeRestrictions"] = carry
-        # upstream VolumeRestrictions' PreFilter does the PVC lister
-        # lookup first, so a missing PVC rejects there
-        rejects["VolumeRestrictions"] = [_missing_pvc_message(vt, pod) for pod in pods]
+        with _build_span("VolumeRestrictions"):
+            st, x, carry = volumerestrictions.build(vt, table, pods, bound_pods, device=device)
+            statics["VolumeRestrictions"] = st
+            xs["VolumeRestrictions"] = x
+            init_carry["VolumeRestrictions"] = carry
+            # upstream VolumeRestrictions' PreFilter does the PVC lister
+            # lookup first, so a missing PVC rejects there
+            rejects["VolumeRestrictions"] = [_missing_pvc_message(vt, pod) for pod in pods]
     if "NodeVolumeLimits" in enabled:
-        st, x, carry = nodevolumelimits.build(vt, table, pods, bound_pods, device=device)
-        statics["NodeVolumeLimits"] = st
-        xs["NodeVolumeLimits"] = x
-        init_carry["NodeVolumeLimits"] = carry
+        with _build_span("NodeVolumeLimits"):
+            st, x, carry = nodevolumelimits.build(vt, table, pods, bound_pods, device=device)
+            statics["NodeVolumeLimits"] = st
+            xs["NodeVolumeLimits"] = x
+            init_carry["NodeVolumeLimits"] = carry
     if "VolumeBinding" in enabled:
-        st, x, carry, vb_rejects = volumebinding.build(vt, table, pods, bound_pods,
-                                                       device=device)
-        statics["VolumeBinding"] = st
-        xs["VolumeBinding"] = x
-        init_carry["VolumeBinding"] = carry
-        rejects["VolumeBinding"] = vb_rejects
-        # VolumeCapacityPriority is off: Score is constant 0 for every
-        # (pod, node), kept host-resident
-        host.setdefault("static_score_rows", {})["VolumeBinding"] = (
-            np.zeros((p, table.n), dtype=np.int8))
+        with _build_span("VolumeBinding"):
+            st, x, carry, vb_rejects = volumebinding.build(vt, table, pods, bound_pods,
+                                                           device=device)
+            statics["VolumeBinding"] = st
+            xs["VolumeBinding"] = x
+            init_carry["VolumeBinding"] = carry
+            rejects["VolumeBinding"] = vb_rejects
+            # VolumeCapacityPriority is off: Score is constant 0 for every
+            # (pod, node), kept host-resident
+            host.setdefault("static_score_rows", {})["VolumeBinding"] = (
+                np.zeros((p, table.n), dtype=np.int8))
     if "VolumeZone" in enabled:
-        xs["VolumeZone"] = volumezone.build(vt, table, pods, device=device)
+        with _build_span("VolumeZone"):
+            xs["VolumeZone"] = volumezone.build(vt, table, pods, device=device)
     if any(any(m is not None for m in msgs) for msgs in rejects.values()):
         host["prefilter_reject"] = rejects
         xs["force_unsched"] = to_tensor(np.asarray([
@@ -330,12 +493,42 @@ def _missing_pvc_message(vt, pod: dict) -> str | None:
     return None
 
 
-def _pod_requests(pods: list[dict], schema: ResourceSchema):
-    """[P, R] requests + [P, 2] nonzero rows."""
-    requests = np.zeros((len(pods), schema.n), dtype=np.int64)
-    nonzero = np.zeros((len(pods), 2), dtype=np.int64)
-    for i, pod in enumerate(pods):
-        requests[i], nonzero[i] = pod_resource_request(pod, schema)
+def _pod_requests(pods: list[dict], schema: ResourceSchema, pod_columns=None):
+    """[P, R] requests + [P, 2] nonzero rows (compile.py:345).  With a
+    columnar pod view, rows are gathered from the bank's pre-parsed
+    request columns by uid (one vectorized fancy-index per schema
+    column); pods the bank can't answer (no uid match, opaque or deleted
+    rows) are parsed from their manifests."""
+    p = len(pods)
+    requests = np.zeros((p, schema.n), dtype=np.int64)
+    nonzero = np.zeros((p, 2), dtype=np.int64)
+    misses = range(p)
+    if pod_columns is not None and p:
+        bank = pod_columns.bank
+        by_uid = bank.row_by_uid
+        rows = np.full(p, -1, dtype=np.int64)
+        miss = []
+        # the uid -> row mapping is dict lookups; the per-column gather
+        # below is the vectorized part
+        for i, pod in enumerate(pods):
+            uid = (pod.get("metadata") or {}).get("uid")
+            row = by_uid.get(uid) if uid else None
+            if row is None or bank.opaque[row] or bank.deleted[row]:
+                miss.append(i)
+            else:
+                rows[i] = row
+        ok = rows >= 0
+        if ok.any():
+            okr = rows[ok]
+            for j, rname in enumerate(schema.columns):
+                col = bank.req.get(rname)
+                if col is not None:
+                    requests[ok, j] = col[okr]
+            nonzero[ok] = bank.nonzero[okr]
+            TRACER.count("compile_requests_gathered_total", int(ok.sum()))
+        misses = miss
+    for i in misses:
+        requests[i], nonzero[i] = pod_resource_request(pods[i], schema)
     return requests, nonzero
 
 

@@ -1,7 +1,6 @@
 """Resource schema + pod resource-request computation.
 
-Port of kube_scheduler_simulator_tpu/state/resources.py (the columnar
-`discover_columnar` waits for the engine slice).
+Port of kube_scheduler_simulator_tpu/state/resources.py.
 
 Reproduces the semantics of upstream `computePodResourceRequest`
 (k8s.io/kubernetes pkg/scheduler/framework/plugins/noderesources/fit.go,
@@ -73,6 +72,14 @@ class ResourceSchema:
             for c in (spec.get("containers") or []) + (spec.get("initContainers") or []):
                 scan_res(((c.get("resources") or {}).get("requests")) or {})
             scan_res(spec.get("overhead") or {})
+        return ResourceSchema(tuple(sorted(ext)))
+
+    @staticmethod
+    def discover_columnar(pods: list[dict], node_columns) -> "ResourceSchema":
+        """discover() with the node half answered by the columnar view's
+        presence columns (exact per live row) instead of a manifest scan."""
+        pod_side = ResourceSchema.discover(pods, ())
+        ext = set(pod_side.extended) | node_columns.extended_names()
         return ResourceSchema(tuple(sorted(ext)))
 
     def parse_map(self, res: dict) -> np.ndarray:

@@ -181,8 +181,14 @@ class LabelIndex:
     def column(self, key: str) -> np.ndarray:
         col = self._cols.get(key)
         if col is None:
-            col = np.array([lab.get(key) for lab in self._labels],
-                           dtype=object)
+            fast = getattr(self._labels, "column", None)
+            if fast is not None:
+                # columnar label rows (cluster/columnar._LabelRows):
+                # the interned column gathered without per-row Python
+                col = fast(key)
+            else:
+                col = np.array([lab.get(key) for lab in self._labels],
+                               dtype=object)
             self._cols[key] = col
         return col
 

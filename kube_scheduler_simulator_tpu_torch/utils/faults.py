@@ -76,6 +76,9 @@ SEAMS = (
     "compile.build",           # XLA scan build (_ScanCacheRegistry)
     "session.create",          # session admission (server/sessions.py)
     "session.evict",           # session teardown/eviction
+    "store.columnar_sync",     # columnar bank write mirror — a trip
+                               # marks the row opaque; the manifest
+                               # stays authoritative (cluster/store.py)
     "autopilot.decide",        # autopilot decision application — a trip
                                # reverts every effector to the static
                                # defaults (control/autopilot.py fail-safe)

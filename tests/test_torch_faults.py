@@ -240,6 +240,7 @@ SEAM_CASES = {
     "session.create": "session_create",
     "session.evict": "session_evict",
     "autopilot.decide": "autopilot",
+    "store.columnar_sync": "columnar_sync",
 }
 
 
@@ -334,6 +335,16 @@ def _drive(kind: str, monkeypatch):
         finally:
             CONTROLS.reset()
             mgr.shutdown()
+        return
+    if kind == "columnar_sync":
+        # the store's write mirror absorbs the fault: the row goes opaque
+        # and the manifest stays authoritative
+        s = ObjectStore()
+        s.create("nodes", {"metadata": {"name": "n1"},
+                           "status": {"allocatable": {"cpu": "1", "pods": "10"}}})
+        bank = s._banks["nodes"]
+        assert bank.opaque[bank.row_of["n1"]]
+        assert s.get("nodes", "n1")["status"]["allocatable"]["cpu"] == "1"
         return
     raise AssertionError(kind)
 

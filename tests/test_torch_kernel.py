@@ -25,8 +25,10 @@ pod groups) against the solo launches and the plain versions; and B13,
 custom plugins' filter and score rows, in step_chunk, step_chunk_sharded
 and phased_eval against their plain versions; and the oracle (B3, and
 B11's fused oracle over K = 1..8 sessions, two streams at once) at every
-batch kind, pack width and CTA count, and renormalize_rows (B10) at
-every R and G.  A CUDA kernel has
+batch kind, pack width and CTA count, with B5's core commit folded into
+its launch (solo and over K = 2, 4, 16 sessions, folded and not, two
+streams at once) against the plain oracle then commit_plain, and
+renormalize_rows (B10) at every R and G.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -1757,12 +1759,13 @@ ORACLE_NODES = 300
 
 class _OracleMember:
     """What spec_oracle_fused reads of a fused round's member: its device,
-    stream and K."""
+    stream, K and commit (none)."""
 
     def __init__(self, dev):
         self.device = dev
         self.stream = torch.cuda.current_stream(dev)
         self.outs = {"k": torch.empty((), dtype=torch.int32, device=dev)}
+        self.commit = None
 
 
 @pytest.mark.parametrize("pack", [mode[0] for mode in PACK_MODES.values()])
@@ -1837,6 +1840,108 @@ def test_oracles_on_two_streams_at_once(card):
     torch.cuda.synchronize()
     for s in range(2):
         assert [int(t) for t in outs[s]] == [want[s]] * 50
+
+
+# ------------------------------------------------ B5's core folded into the oracle
+
+def _fold_workload(card, extended: int):
+    """A core-only fleet (NodeResourcesFit, BalancedAllocation,
+    NodeAffinity) of 300 nodes and 600 pods, with `extended` extended
+    resources on every node (chip_smoke.extend_resources): R = 3 +
+    extended schema columns."""
+    import chip_smoke
+
+    nodes = make_nodes(ORACLE_NODES, seed=7, taint_fraction=0.1)
+    pods = make_pods(600, seed=8, with_affinity=True)
+    if extended:
+        chip_smoke.extend_resources(nodes, pods, seed=9, k=extended)
+    cfg = PluginSetConfig(enabled=["NodeResourcesFit", "NodeResourcesBalancedAllocation",
+                                   "NodeAffinity"])
+    cw = compile_workload(nodes, pods, cfg, device=card)
+    assert set(cw.init_carry) == {"core"} and cw.schema.n == 3 + extended
+    return cw
+
+
+@pytest.mark.parametrize("extended", [0, 16], ids=["R3", "R19"])
+@pytest.mark.parametrize("b", [8, 32, 512])
+def test_folded_oracle_matches_plain(card, b, extended):
+    """spec_oracle with B5's core commit folded in == the plain oracle then
+    commit_plain at k = min(K, m), K and carry exactly: all accepted, an
+    early conflict, all pad rows, m = 0 (K = 0 committed), a sparse
+    round past its candidate cap (nothing committed) and within it, at
+    the plan's CTAs and every forced count, at R = 3 and the widest
+    schema here; one launch, counted as a commit."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    cw = _fold_workload(card, extended)
+    carry = _clone_carry(cw.init_carry)
+    carry["core"].requested.add_(7)  # a carry that is not all zeros
+    for i, kind in enumerate(chip_smoke.FOLD_KINDS):
+        for pack in (torch.uint8, torch.int64):
+            for ctas in (0, *kspec.ORACLE_CTAS):
+                rows, xs, m, counts, kc = chip_smoke.fold_case(cw, kind, b, 31 * i + b, pack)
+                n0, c0 = kspec.spec_oracle.launches, kspec.spec_oracle.commits
+                err, k = chip_smoke.fold_err(
+                    kspec, rows, xs, m, counts, kc, carry,
+                    lambda rows, c: kspec.spec_oracle(*rows, commit=c, _ctas=ctas))
+                assert err == 0, (b, extended, kind, pack, ctas)
+                assert kspec.spec_oracle.launches == n0 + 1
+                assert kspec.spec_oracle.commits == c0 + 1
+                if kind == "first" and b > 1:
+                    assert k == 1
+
+
+@pytest.mark.parametrize("k", [2, 4, 16])
+def test_fused_folded_oracle_matches_plain(card, k):
+    """spec_oracle_fused over K sessions, folded and unfolded in turn:
+    each session's K and carry equal the plain oracle then commit_plain
+    (its carry untouched where it has no commit), at the plan's CTAs and
+    every forced count, at b = 8 and 512."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    cw = _fold_workload(card, 16)
+    pm, sd, _ = _compact_plan(cw, None)
+    step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    for b in (8, 512):
+        for ctas in (0, *kspec.ORACLE_CTAS):
+            assert chip_smoke.fold_table_err(kspec, kfuse, cw, step, k, b, 3 * k + b,
+                                             PACK_MODES[pm][0], _ctas=ctas) == 0, (k, b, ctas)
+
+
+def test_folded_oracles_on_two_streams_at_once(card):
+    """Two sessions launching the folded oracle on streams of their own, in
+    turns, 50 times each into carries of their own: each carry ends at 50
+    commits of its own batch, as the plain form applied 50 times."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    cw = _fold_workload(card, 0)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    cases = [chip_smoke.fold_case(cw, kind, 512, s) for s, kind in enumerate(("accepted",
+                                                                            "first"))]
+    carries = [_clone_carry(cw.init_carry) for _ in streams]
+    want = [_clone_carry(cw.init_carry) for _ in streams]
+    outs = [[torch.empty((), dtype=torch.int32, device=card) for _ in range(50)]
+            for _ in streams]
+    torch.cuda.synchronize()
+    for j in range(50):
+        for s, stream in enumerate(streams):
+            rows, xs, m, counts, kc = cases[s]
+            with torch.cuda.stream(stream):
+                kspec.spec_oracle(*rows, out=outs[s][j], _ctas=16 if j % 2 else 0,
+                                  commit=kspec.Commit(carries[s], xs, m, counts, kc))
+    torch.cuda.synchronize()
+    for s in range(2):
+        rows, xs, m, counts, kc = cases[s]
+        for _ in range(50):
+            k = kspec.oracle_commit_plain(*rows, kspec.Commit(want[s], xs, m, counts, kc))
+        assert [int(t) for t in outs[s]] == [int(k)] * 50
+        _equal(list(carries[s]["core"]), list(want[s]["core"]), ("stream", s))
 
 
 # ------------------------------------------------ renormalize_rows (csrc/phased.cu)
