@@ -89,10 +89,11 @@ phase:
        4-shard mesh equal to phase 11, each chunk timed beside
        step_chunk's;
   26   B12 on the stream and the engine: spec_eval_sharded at b = 512
-       (dp 1 x nodes 8, dp 2 x nodes 4) held to spec_eval and its plain
-       twin; config 5 through replay_speculative_stream on a dp 2 x
-       nodes 4 mesh equal to phase 8, through SchedulerEngine on an
-       8-shard mesh equal to phase 4 as phase 19 holds itself, its wall
+       (dp 1 x nodes 8, dp 2 x nodes 4) held to spec_eval and, on its
+       first 64 pods, its plain twin; config 5 through
+       replay_speculative_stream on a dp 2 x nodes 4 mesh equal to phase
+       8, through SchedulerEngine on an 8-shard mesh equal to phase 4 as
+       phase 19 holds itself, its wall
        beside the same engine's without a mesh, and a 4,996-node fleet
        through the engine's unsharded fallback, counted once by
        mesh_fallback_indivisible_nodes_total;
@@ -120,7 +121,28 @@ phase:
        and annotations equal between them, the first wave equal to
        phase 19's engine on the same manifests; each wave's compile split
        (schema, node table, pod requests, each plugin's build, upload),
-       its five counters, wall and idle share.
+       its five counters, wall and idle share;
+  30   workloads past StepArgs' fixed arrays (C5), each at 5,000 nodes x
+       512 pods: the default profile + 5 custom filters (F = 17), config
+       5's plugins + 9 custom filter-only plugins, the default profile +
+       9 custom scorers (S = 17), an RTCR strategy over 10 resources and
+       20 shape points, BalancedAllocation over 10 resources, 9-12
+       unbound claims a pod: step_chunk (full and compact) == the plain
+       step (64 pods with custom plugins: their rows are Python calls),
+       the device-resident replay == the host-resident one, each
+       timed beside the same workload cut to the fixed arrays, spec_eval
+       at b = 8 on the resource cases; B7's wide form (F = 17, Q = 9) and
+       its bitmaps at 393,216, 400,000 and 2,000,000 nodes == plain;
+  31   the sources, the CLIs and profile capture at config 5's full
+       width: a kubeConfig import session (a fake kube-apiserver on
+       localhost, a bearer token) scheduling on the card under POST
+       /api/v1/profile, whose trace names the wave's kernels; `python -m
+       ...cmd.scheduler --once --device cuda` against a simulator server
+       in this process, on the queue's first 256 pods (each pod's write
+       crosses HTTP with its annotations); `python -m
+       ...cmd.sched_recorder` recording that run,
+       its lines == the store's events; every pod's node and sampled
+       annotations == phase 4's replay().
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -3804,7 +3826,8 @@ MESH_SHARDS = (2, 4, 8)        # phase 25: the "nodes" extents; 5,000 nodes divi
 MESH_DEFAULT_PODS = 1024       # phase 25: the default-profile fleet's pods on the mesh
 MESH_ODD_NODES = 4996          # phase 26: a fleet that 8 shards do not divide
 MESH_ODD_PODS = 1024
-ENGINE_PAIRS = 3               # phase 26: the engine's (none, mesh, mesh, none) turns
+ENGINE_PAIRS = 1               # phase 26: the engine's (none, mesh, mesh, none) turns
+TWIN_PODS = 64                 # phase 26: the b = 512 eval's plain twins, on its first pods
 
 
 def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: dict,
@@ -4035,10 +4058,13 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
         err = tree_err(list(got), list(want))
         check(err == 0, f"spec_eval_sharded S={s} differs from spec_eval (max |d| {err})")
         twin = []
-        # the twin over the kernel's own slices (the plan's G)
+        # the twin over the kernel's own slices (the plan's G), on the
+        # batch's first TWIN_PODS pods (a twin is minutes at b = 512)
+        txs = batch_xs(cw, 0, TWIN_PODS)
+        tgot = kmesh.spec_eval_sharded(sstep, ccarry, txs, _groups=eval_g[s][0])
         eval_plain_ms[s] = timed_once(lambda: twin.append(kmesh.spec_eval_sharded_plain(
-            sstep, ccarry, cxs, eval_g[s][0])))
-        err = tree_err(list(got), list(twin[0]))
+            sstep, ccarry, txs, eval_g[s][0])))
+        err = tree_err(list(tgot), list(twin[0]))
         check(err == 0, f"spec_eval_sharded S={s} differs from its plain twin (max |d| {err})")
         eval_err = max(eval_err, err)
         eval_ms[s] = timed_graph(lambda: kmesh.spec_eval_sharded(sstep, ccarry, cxs), 3)
@@ -4177,10 +4203,11 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
           f"{main_g}, == spec_eval and == its plain twin at that G; {main_ms:.5f} ms per launch "
           f"(CUDA graph) against spec_eval {main_b2_ms:.5f}; plain twin {main_plain_ms:.3f} ms; "
           f"bound {main_bound[0]:.6f} ms by {main_bound[1]} | extras at b={SPEC_BATCH} on "
-          f"config {CONFIG}: == spec_eval and == its plain twin at S = 8, 4, 2 ((G, light) "
-          f"{eval_g}), max_abs_err {eval_err}; ms per launch (CUDA graph) by S "
-          f"{ {s: round(v, 5) for s, v in eval_ms.items()} } against spec_eval {b2_ms:.5f}; "
-          f"plain twin { {s: round(v, 3) for s, v in eval_plain_ms.items()} } ms | "
+          f"config {CONFIG}: == spec_eval at S = 8, 4, 2 ((G, light) {eval_g}), and on its "
+          f"first {TWIN_PODS} pods == its plain twin, max_abs_err {eval_err}; ms per launch "
+          f"(CUDA graph) by S { {s: round(v, 5) for s, v in eval_ms.items()} } against "
+          f"spec_eval {b2_ms:.5f}; plain twin on {TWIN_PODS} pods "
+          f"{ {s: round(v, 3) for s, v in eval_plain_ms.items()} } ms | "
           f"replay_speculative_stream(cw, make_mesh(8, dp=2)): stats {json.dumps(mstats)}; "
           f"{stream_s:.4f} s = {p / stream_s:.1f} cycles/s; equal to phase 8 (selected, "
           f"feasible_count, compact bytes, decode bytes of pods {sample}); launches "
@@ -4319,6 +4346,150 @@ def custom_plugins() -> dict:
             return [v // 2 for v in scores]
 
     return {p.name: p for p in (EvenNodesOnly(), HugeScorer(), HalfNormalize())}
+
+
+# ---- phase 30 (C5): workloads past StepArgs' fixed arrays
+TABLE_NODES = 5_000            # phase 30: nodes of each over-limit case
+TABLE_PODS = 512               # phase 30: pods of each case (one chunk)
+TABLE_CUSTOM_PODS = 64         # ... of the custom-plugin cases: their rows are a Python call a
+                               # (pod, node, plugin), 2.9 M calls at 64 pods and 9 plugins
+TABLE_CASES = ("filters17", "custom9", "scores17", "rtcr10", "balanced10", "claims12")
+TABLE_REPS = 3                 # phase 30: timed launches a case, the median
+ATT_WIDE_NODES = (400_000, 2_000_000)  # phase 30: B7's opt-in and device-memory bitmaps
+ATT_WIDE_PODS = 8
+EXTRA_RESOURCES = [f"example.com/dev-{j}" for j in range(8)]
+
+
+def table_plugins(base, kind: str, within: bool = False) -> dict:
+    """Phase 30's custom plugins, subclasses of `base` (the port's
+    CustomPlugin, or the JAX package's in the tests): 5 filters
+    ("filters17"), 9 filter-only plugins ("custom9") or 9 scorers
+    ("scores17"), each a hash of the pod's and the node's indices; one
+    fewer `within` the fixed arrays -> {name: instance}."""
+
+    def filt(k):
+        def f(self, pod, node):
+            h = (_node_index(pod) * (7 + k) + _node_index(node) * (3 + 2 * k)) % 29
+            return f"c{k} rejects bucket {h % 3}" if h < 2 else None
+        return f
+
+    def score(k):
+        def f(self, pod, node):
+            return (_node_index(pod) * (5 + k) + _node_index(node) * (11 + k)) % (17 + 9 * k)
+        return f
+
+    count = {"filters17": 5, "custom9": 9, "scores17": 9}[kind] - within
+    out = {}
+    for k in range(count):
+        body = {"name": f"Table{k}", "default_weight": 1 + k % 3}
+        body["score" if kind == "scores17" else "filter"] = (score if kind == "scores17"
+                                                             else filt)(k)
+        out[body["name"]] = type(f"Table{k}", (base,), body)()
+    return out
+
+
+def table_case(kind: str, n_nodes: int, n_pods: int, seed: int, cfg_cls, custom_base,
+               within: bool = False):
+    """One of phase 30's over-limit workloads at n_nodes x n_pods, from
+    seed, for the plugin-config class cfg_cls (PluginSetConfig of the port,
+    or of the JAX package in the tests) -> (nodes, pods, cfg, volumes,
+    bound_pods):
+
+      filters17   the default profile + 5 custom filter plugins (F = 17)
+      custom9     config 5's six plugins + 9 custom filter-only plugins
+      scores17    the default profile + 9 custom score plugins (S = 17)
+      rtcr10      config 5's plugins, NodeResourcesFit RequestedToCapacity
+                  Ratio over 10 resources (8 extended) and 20 shape points
+      balanced10  config 5's plugins, BalancedAllocation over 10 resources
+      claims12    the default profile, every pod with 9-12 unbound claims
+                  (local PVs in a WaitForFirstConsumer class, and a
+                  provisioned class allowed in half the zones)
+
+    `within` gives the same workload cut to the fixed arrays (F = 16,
+    8 custom plugins, S = 16, 8 resources and 16 shape points, 8 claims
+    a pod at most): the in-limit launch phase 30 times beside each case."""
+    import numpy as np
+
+    from kube_scheduler_simulator_tpu_torch.models.workloads import make_nodes, make_pods
+
+    six = ["NodeResourcesFit", "NodeResourcesBalancedAllocation", "NodeAffinity",
+           "TaintToleration", "PodTopologySpread", "InterPodAffinity"]
+    nodes = make_nodes(n_nodes, seed=seed, taint_fraction=0.1)
+    pods = make_pods(n_pods, seed=seed + 1, with_affinity=True, with_tolerations=True,
+                     with_spread=True, with_interpod=True)
+    volumes, bound = {}, []
+    if kind in ("filters17", "scores17"):
+        volumes, bound = decorate_default_profile(nodes, pods, seed)
+        custom = table_plugins(custom_base, kind, within)
+        cfg = cfg_cls(enabled=cfg_cls().enabled + list(custom), custom=custom)
+    elif kind == "custom9":
+        custom = table_plugins(custom_base, kind, within)
+        cfg = cfg_cls(enabled=six + list(custom), custom=custom)
+    elif kind in ("rtcr10", "balanced10"):
+        rng = np.random.default_rng(seed + 2)
+        for nd in nodes:
+            for r in EXTRA_RESOURCES:
+                nd["status"]["allocatable"][r] = str(int(rng.integers(0, 9)))
+        for pod in pods:
+            req = pod["spec"]["containers"][0]["resources"]["requests"]
+            for r in rng.choice(EXTRA_RESOURCES, size=int(rng.integers(0, 4)), replace=False):
+                req[str(r)] = str(int(rng.integers(1, 4)))
+        names = ["cpu", "memory", *EXTRA_RESOURCES][:8 if within else 10]
+        if kind == "rtcr10":
+            shape = [{"utilization": 5 * k, "score": (k * 7) % 11}
+                     for k in range(16 if within else 20)]
+            args = {"NodeResourcesFit": {"scoringStrategy": {
+                "type": "RequestedToCapacityRatio",
+                "resources": [{"name": r, "weight": 1 + k % 4} for k, r in enumerate(names)],
+                "requestedToCapacityRatio": {"shape": shape}}}}
+        else:
+            args = {"NodeResourcesBalancedAllocation": {
+                "resources": [{"name": r, "weight": 1} for r in names]}}
+        cfg = cfg_cls(enabled=six, args=args)
+    elif kind == "claims12":
+        decorate_default_profile(nodes, pods, seed, volumes_on=False)
+        volumes = claims_volumes(nodes, pods, seed + 3, (5, 9) if within else (9, 13))
+        cfg = cfg_cls()
+    else:
+        raise ValueError(f"unknown table case {kind}")
+    return nodes, pods, cfg, volumes, bound
+
+
+def claims_volumes(nodes: list, pods: list, seed: int, claims=(9, 13)) -> dict:
+    """claims12's volumes: every pod 9-12 unbound claims (`claims`, a
+    numpy integers range) of 1-4 Gi, two
+    thirds in a WaitForFirstConsumer class without a provisioner (local
+    PVs of 1-8 Gi, zone-affine, 6 a node's zone per 10 claims), the rest in
+    a provisioned class allowed in the first half of the zones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    zones = sorted({nd["metadata"]["labels"].get(ZONE_KEY, "") for nd in nodes})
+    scs = [{"metadata": {"name": "wffc"}, "provisioner": "kubernetes.io/no-provisioner",
+            "volumeBindingMode": "WaitForFirstConsumer"},
+           {"metadata": {"name": "fast"}, "provisioner": "csi.example.com",
+            "volumeBindingMode": "WaitForFirstConsumer",
+            "allowedTopologies": [{"matchLabelExpressions": [
+                {"key": ZONE_KEY, "values": zones[:max(1, len(zones) // 2)]}]}]}]
+    pvcs, pvs = [], []
+    for i, pod in enumerate(pods):
+        ns = pod["metadata"].get("namespace") or "default"
+        for k in range(int(rng.integers(*claims))):
+            name = f"claim-{i}-{k}"
+            sc = "wffc" if rng.random() < 2 / 3 else "fast"
+            pvcs.append({"metadata": {"name": name, "namespace": ns}, "spec": {
+                "storageClassName": sc, "accessModes": ["ReadWriteOnce"],
+                "resources": {"requests": {"storage": str(int(rng.integers(1, 5)) * GI)}}}})
+            pod["spec"].setdefault("volumes", []).append(
+                {"name": f"v-{k}", "persistentVolumeClaim": {"claimName": name}})
+    for k in range(max(1, int(0.6 * len(pvcs)))):
+        zone = zones[int(rng.integers(len(zones)))]
+        pvs.append({"metadata": {"name": f"pv-local-{k}"}, "spec": {
+            "capacity": {"storage": str(int(rng.integers(1, 9)) * GI)},
+            "accessModes": ["ReadWriteOnce"], "storageClassName": "wffc",
+            "nodeAffinity": {"required": {"nodeSelectorTerms": [{"matchExpressions": [
+                {"key": ZONE_KEY, "operator": "In", "values": [zone]}]}]}}}})
+    return {"pvcs": pvcs, "pvs": pvs, "storageclasses": scs}
 
 
 def chunk_ms(step, w, xs, reps: int = 5) -> float:
@@ -4946,6 +5117,8 @@ def main() -> int:
     clock_phase(dev, card, {f"config {CONFIG}": cw, "default profile": dp_ctx["default"][0]})
     b13_entry = custom_phase(dev, card, nodes, pods, cfg)
     columnar_phase(dev, card, cfg)
+    table_phase(dev, card)
+    serving_phase(dev, card, cw, nodes, pods, cfg, rr)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
                                   *engine_entries, *fuse_entries, *mesh_entries, b13_entry]}))
     print(json.dumps({"ok": True, "device": {
@@ -5126,6 +5299,453 @@ def columnar_phase(dev, card: str, cfg) -> None:
           f"equal to phase 19's engine on the same manifests (bound {bound19}, wall "
           f"{wall19:.4f} s, idle share {idle19}, compile {split19}); walls under a CUDA-only "
           f"torch.profiler trace; {time.perf_counter() - t29:.1f} s", flush=True)
+
+
+def att_random(dev, c: int, n: int, f: int, q: int, seed: int):
+    """A random chunk of B7's inputs on the card (p32 words, half the nodes
+    feasible, raws of each group, skips), made there from a seed ->
+    (chunk_attribution's positional arguments)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int64).to(dtype)
+
+    ff = torch.where(torch.rand((c, n), generator=g, device=dev) < 0.5, 0,
+                     ints(1, f + 1, (c, n), torch.int64))
+    packed = ((ff << 16) | torch.where(ff > 0, ints(1, 1 << 15, (c, n), torch.int64), 0)).to(
+        torch.int32)
+    cycle = ("raw8", "raw16", "raw32", "raw16")
+    seen = {"raw8": 0, "raw16": 0, "raw32": 0}
+    cols = []
+    for k in range(q):
+        grp = cycle[k % 4]
+        cols.append((k, grp, seen[grp]))
+        seen[grp] += 1
+    m = c - 1
+    fskip = torch.rand((f, c), generator=g, device=dev) < 0.3
+    fskip[:, m:] = True
+    sskip = torch.rand((q + 1, c), generator=g, device=dev) < 0.3
+    sskip[:, m:] = True
+    return (packed, ints(-128, 128, (c, seen["raw8"], n), torch.int8),
+            ints(-(1 << 15), 1 << 15, (c, seen["raw16"], n), torch.int16),
+            ints(-(1 << 31), 1 << 31, (c, seen["raw32"], n), torch.int32),
+            ints(0, 4, (c,), torch.int32), fskip, sskip, m, 16, tuple(cols), True)
+
+
+def table_phase(dev, card: str) -> None:
+    """Phase 30 (C5): each workload past StepArgs' fixed arrays
+    (table_case) at TABLE_NODES x TABLE_PODS (TABLE_CUSTOM_PODS with
+    custom plugins): step_chunk's compact launch held exactly to the
+    plain step (outputs and carry; the full mode is the card tests'), the
+    default device-resident replay (B7 on the chunk) to the host-resident
+    one (selections, attribution, sampled annotations), step_chunk timed
+    beside the same workload cut to the fixed arrays (`within`), and for
+    the resource-table cases spec_eval at b = 8 held to its plain version
+    and timed beside the cut; then B7 past its fixed sizes: its wide form
+    (F = 17, Q = 9) at 512 x 5,000 beside the fixed form's limits, and a
+    chunk of 8 pods at 393,216 nodes (48 KB), 400,000 (opt-in shared
+    memory) and 2,000,000 (device memory), each held to its plain
+    version and timed."""
+    import numpy as np
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs, plugin_attribution, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import attribution as katt
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+
+    t30 = time.perf_counter()
+    lines = []
+    for kind in TABLE_CASES:
+        got = {}
+        n_pods = TABLE_CUSTOM_PODS if kind in ("filters17", "custom9", "scores17") else TABLE_PODS
+        for within in (False, True):
+            nodes, pods, cfg, vols, bound_pods = table_case(
+                kind, TABLE_NODES, n_pods, SEED, PluginSetConfig, CustomPlugin, within)
+            w = compile_workload(nodes, pods, cfg, volumes=vols, bound_pods=bound_pods,
+                                 device=dev)
+            pm, sd, _ = _compact_plan(w, None)
+            step = build_step(w, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+            xs = _slice_xs(w.xs, 0, w.n_pods, n_pods)
+            xs["is_pad"] = torch.arange(n_pods, device=dev) >= w.n_pods
+            args = kstep.make_args(step, w.init_carry, xs, None)
+            over = bool(args.ext) or args.VK > kstep.MAX_VBK
+            check(over != within, f"30 {kind} (within {within}): over the fixed arrays {over}")
+            shape = (f"F={args.F} S={args.S} custom={len(kstep.custom_ids(step))} "
+                     f"fit={args.fit_nres}/{args.fit_nshape} balanced={args.bal_nres} "
+                     f"VK={args.VK}")
+            del args
+            err = 0
+            if not within:
+                ck, ok = kstep.step_chunk(step, _clone_carry(w.init_carry), xs)
+                cp, op = step.plain_scan(_clone_carry(w.init_carry), xs)
+                err = max(tree_err(list(ok), list(op)), tree_err(ck, cp))
+                check(err == 0, f"30 {kind}: step_chunk differs from the plain step "
+                                f"(max |d| {err})")
+                del ck, ok, cp, op
+                katt.chunk_attribution.launches = kstep.step_chunk.launches = 0
+                with env(KSS_TPU_HOST_RESIDENT=None, KSS_TPU_EAGER_DECODE=None,
+                         KSS_TPU_DEVICE_RESULT_BUDGET_MB=None):
+                    rr = replay(w, chunk=n_pods, device="cuda")
+                    att = plugin_attribution(rr)
+                check(kstep.step_chunk.launches >= 1 and katt.chunk_attribution.launches >= 1,
+                      f"30 {kind}: the replay launched step_chunk {kstep.step_chunk.launches}, "
+                      f"B7 {katt.chunk_attribution.launches} times")
+                path = katt.chunk_attribution.path
+                with env(KSS_TPU_HOST_RESIDENT="1"):
+                    rr_host = replay(w, chunk=n_pods, device="cuda")
+                check((rr.selected == rr_host.selected).all(), f"30 {kind}: selections differ")
+                check(att == plugin_attribution(rr_host), f"30 {kind}: attribution differs")
+                for i in (0, 1, w.n_pods // 2, w.n_pods - 1):
+                    a, b = decode_pod_result(rr, i), decode_pod_result(rr_host, i)
+                    check(all(a[k] == b[k] for k in ALL_PLUGIN_KEYS),
+                          f"30 {kind}: pod {i} annotations differ")
+                got["scheduled"], got["att"] = rr.scheduled, path
+                del rr, rr_host
+            got[within] = chunk_ms(step, w, xs, TABLE_REPS)
+            got[("shape", within)] = shape
+            if kind in ("rtcr10", "balanced10"):
+                xs8 = _slice_xs(w.xs, 0, 8, 8)
+                xs8["is_pad"] = torch.zeros(8, dtype=torch.bool, device=dev)
+                if not within:
+                    e = tree_err(kspec.spec_eval(step, w.init_carry, xs8),
+                                 kspec.eval_plain(step, w.init_carry, xs8))
+                    check(e == 0, f"30 {kind}: spec_eval differs from its plain version")
+                got[("eval", within)] = timed_graph(
+                    lambda: kspec.spec_eval(step, w.init_carry, xs8), 20)
+            del w, step, xs
+        line = (f"{kind} [{got[('shape', False)]}] {n_pods} pods: step_chunk {got[False]:.3f} ms "
+                f"beside {got[True]:.3f} ms cut to the fixed arrays "
+                f"[{got[('shape', True)]}] (x{got[False] / got[True]:.3f}); == plain; "
+                f"replay {got['scheduled']} scheduled, device-resident == "
+                f"host-resident, B7 path {got['att']}")
+        if ("eval", False) in got:
+            line += (f"; spec_eval b=8 {got[('eval', False)]:.5f} ms beside "
+                     f"{got[('eval', True)]:.5f} ms")
+        lines.append(line)
+    torch.cuda.empty_cache()
+
+    # B7 past its fixed sizes: the wide form, then the bitmap's places
+    att_lines = []
+    for c, n, f, q in ((512, 5000, 16, 8), (512, 5000, 17, 9), (ATT_WIDE_PODS, 393_216, 12, 4),
+                       *((ATT_WIDE_PODS, nn, 12, 4) for nn in ATT_WIDE_NODES)):
+        a = att_random(dev, c, n, f, q, seed=30 + n % 97)
+        want = katt.chunk_attribution_plain(*a)
+        e = tree_err(katt.chunk_attribution(*a), want)
+        check(e == 0, f"30 B7 {c}x{n} f={f} q={q}: differs from its plain version")
+        path = katt.chunk_attribution.path
+        ms = timed_graph(lambda: katt.chunk_attribution(*a), 20)
+        plain_ms = timed_once(lambda: katt.chunk_attribution_plain(*a))
+        att_lines.append(f"{c}x{n} F={f} Q={q} {path}: {ms:.5f} ms (plain {plain_ms:.3f} ms)")
+        del a, want
+        torch.cuda.empty_cache()
+    print(f"[30 C5] {card}: {TABLE_NODES} nodes a case, step_chunk the "
+          f"median of {TABLE_REPS} launches: {' | '.join(lines)} | B7 == plain (CUDA graph of "
+          f"20): {'; '.join(att_lines)}; {time.perf_counter() - t30:.1f} s", flush=True)
+
+
+KUBE_TOKEN = "kss-smoke-token"  # phase 31's fake kube-apiserver's bearer token
+SERVE_PODS = 256               # phase 31 (b), (c): the queue's first pods, on the whole fleet:
+                               # each pod goes back over HTTP twice with its annotations
+                               # (about 0.2 MB at 5,000 nodes), to the scheduler and recorded
+# phase 31 runs `python -m ...cmd.scheduler ARGS` as this script, which
+# then prints the process's launch counts (its kernels ran in it, not here)
+SCHED_RUN = """
+import json, runpy, sys
+from kube_scheduler_simulator_tpu_torch.kernels import spec, step
+sys.argv = ["scheduler", *sys.argv[1:]]
+runpy.run_module("kube_scheduler_simulator_tpu_torch.cmd.scheduler", run_name="__main__")
+print("launches", json.dumps({f.__name__: f.launches for f in (
+    step.step_chunk, spec.spec_eval, spec.spec_round, spec.spec_oracle) if f.launches}))
+"""
+
+
+def fake_kube_apiserver(objects: dict, token: str):
+    """A kube-apiserver of lists only, on localhost over plain HTTP (the
+    card's machine may lack the `cryptography` package a TLS test would
+    need): GET of each of cluster/kubeapi.py API_PATHS' resources answers
+    its List of `objects[resource]` (empty where absent), /apis its
+    groups, and any request without `Authorization: Bearer token` 401 ->
+    the started ThreadingHTTPServer (its port in server_address)."""
+    import http.server
+    import threading
+
+    from kube_scheduler_simulator_tpu_torch.cluster.kubeapi import API_PATHS
+    from kube_scheduler_simulator_tpu_torch.cluster.store import RESOURCES
+
+    bodies = {}
+    for res, (prefix, _) in API_PATHS.items():
+        kind = RESOURCES[res][0]
+        bodies[f"{prefix}/{res}"] = json.dumps({
+            "kind": f"{kind}List", "apiVersion": prefix.rsplit("/", 1)[-1] if "apis" in prefix
+            else "v1", "metadata": {"resourceVersion": "1"},
+            "items": objects.get(res, [])}).encode()
+    bodies["/apis"] = json.dumps({"kind": "APIGroupList", "groups": [
+        {"name": "scheduling.k8s.io"}, {"name": "storage.k8s.io"}]}).encode()
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_GET(self):
+            if self.headers.get("Authorization") != f"Bearer {token}":
+                return self._send(401, b'{"kind": "Status", "code": 401}')
+            body = bodies.get(self.path.split("?", 1)[0])
+            if body is None:
+                return self._send(404, b'{"kind": "Status", "code": 404}')
+            self._send(200, body)
+
+        def _send(self, code: int, body: bytes):
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def _post(url: str, body: dict) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    r = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                               headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(r, timeout=60) as resp:
+            return resp.status, json.loads(resp.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def kernel_busy(trace: dict) -> tuple[set, float]:
+    """The kernel names of a Chrome trace's device events and the seconds
+    their union covers."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in trace.get("traceEvents", [])
+                   if e.get("cat") == "kernel")
+    names = {e.get("name", "") for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"}
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return names, busy / 1e6
+
+
+def serving_phase(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> None:
+    """Phase 31 (the sources, the CLIs, profile capture) at config 5's full
+    width: (a) a session (DIContainer) with a kubeConfig import source,
+    a JSON kubeconfig with a bearer token against a fake kube-apiserver
+    on localhost, imports the fleet and schedules it on the card under a
+    profile started and stopped through POST /api/v1/profile, whose trace
+    must name the wave's kernels; (b) a simulator server with
+    externalSchedulerEnabled in this process, filled through its store,
+    scheduled by `python -m ...cmd.scheduler --once --device cuda` over
+    RemoteCluster; (c) `python -m ...cmd.sched_recorder` recording that
+    run, its lines counted against the store's events.  Every pod's node
+    and the sampled annotations equal phase 4's replay(), as phase 19's
+    engine does.  (b) and (c) take the queue's first SERVE_PODS pods: each
+    pod's write, with its annotations, crosses HTTP to the server and back
+    out to both watch streams, minutes at 10,000; the first pods'
+    decisions do not depend on later ones."""
+    import signal
+    import tempfile
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.config.config import SimulatorConfiguration
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.server.di import DIContainer
+    from kube_scheduler_simulator_tpu_torch.server.server import SimulatorServer
+    from kube_scheduler_simulator_tpu_torch.cluster.store import DEFAULT_GVRS
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+
+    t31 = time.perf_counter()
+    names = cw.node_table.names
+    p = cw.n_pods
+    serve = min(SERVE_PODS, p)
+    sample = sorted(set(range(0, p, p // 11)) | {p - 1})[:12]
+    ksc = {"apiVersion": "kubescheduler.config.k8s.io/v1", "kind": "KubeSchedulerConfiguration",
+           "profiles": [{"schedulerName": "default-scheduler", "plugins": {"multiPoint": {
+               "enabled": [{"name": n, "weight": cfg.weight(n)} for n in cfg.enabled],
+               "disabled": [{"name": "*"}]}}}]}
+
+    def held(store, what: str, count: int = p) -> None:
+        by_name = {q["metadata"]["name"]: (q.get("spec") or {}).get("nodeName")
+                   for q in store.list("pods")[0]}
+        check(len(by_name) == count, f"31 {what}: {len(by_name)} pods for {count}")
+        for i, q in enumerate(pods[:count]):
+            s = int(rr.selected[i])
+            check(by_name.get(q["metadata"]["name"]) == (names[s] if s >= 0 else None),
+                  f"31 {what}: pod {i} node differs from phase 4's replay()")
+        some = sample if count == p else sorted(set(range(0, count, max(1, count // 8)))
+                                                | {count - 1})
+        for i in some:
+            got = store.get("pods", pods[i]["metadata"]["name"])["metadata"]["annotations"]
+            want = decode_pod_result(rr, i)
+            for key in ALL_PLUGIN_KEYS:
+                check(got.get(key) == want[key], f"31 {what}: pod {i} {key}")
+
+    tmp = tempfile.TemporaryDirectory(prefix="kss-smoke-31-")
+    sdi = DIContainer(SimulatorConfiguration(port=0, external_scheduler_enabled=True),
+                      start_scheduler=False, device=dev)
+    srv = SimulatorServer(sdi, port=0, device=dev)
+    srv.start(block=False)
+    url = f"http://127.0.0.1:{srv.port}"
+    fake = fake_kube_apiserver({"nodes": nodes, "pods": pods}, KUBE_TOKEN)
+    rec = None
+    try:
+        # ---- (a) the kubeConfig import session, its wave under a profile
+        kc = os.path.join(tmp.name, "kubeconfig.json")
+        with open(kc, "w") as f:
+            json.dump({"apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+                       "contexts": [{"name": "smoke", "context": {"cluster": "fake",
+                                                                  "user": "smoke"}}],
+                       "clusters": [{"name": "fake", "cluster": {
+                           "server": f"http://127.0.0.1:{fake.server_address[1]}"}}],
+                       "users": [{"name": "smoke", "user": {"token": KUBE_TOKEN}}]}, f)
+        t0 = time.perf_counter()
+        idi = DIContainer(SimulatorConfiguration(port=0, external_import_enabled=True,
+                                                 kube_config=kc),
+                          start_scheduler=False, device=dev)
+        imported = idi.importer.import_cluster_resources()
+        import_s = time.perf_counter() - t0
+        check(imported == len(nodes) + len(pods), f"31 import: {imported} objects")
+        idi.scheduler_service.restart_scheduler(ksc)
+        check(sorted(idi.engine.plugin_config.enabled) == sorted(cfg.enabled),
+              f"31 import: the session's plugins {idi.engine.plugin_config.enabled}")
+        order = [q["metadata"]["name"] for q in idi.engine.pending_pods()]
+        check(order == [q["metadata"]["name"] for q in pods],
+              "31 import: the session's pending order is not the queue's")
+        code, body = _post(url + "/api/v1/profile",
+                           {"action": "start", "logDir": os.path.join(tmp.name, "profile")})
+        check(code == 200 and body.get("profiling") is True, f"31 profile start: {code} {body}")
+        code, body = _post(url + "/api/v1/profile", {"action": "start"})
+        check(code == 409, f"31 profile double start: {code}")
+        for f in (kstep.step_chunk, kspec.spec_eval, kspec.spec_round):
+            f.launches = 0
+        t0 = time.perf_counter()
+        bound_a = idi.engine.schedule_pending()
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+        launched = {f.__name__: f.launches for f in (kstep.step_chunk, kspec.spec_eval,
+                                                     kspec.spec_round) if f.launches}
+        code, body = _post(url + "/api/v1/profile", {"action": "stop"})
+        check(code == 200 and os.path.isfile(body.get("trace", "")),
+              f"31 profile stop: {code} {body}")
+        with open(body["trace"]) as f:
+            kernels, busy = kernel_busy(json.load(f))
+        wave_kernels = sorted(k for k in kernels if any(
+            w in k for w in ("step_chunk", "spec_eval", "spec_round", "spec_oracle",
+                             "spec_commit", "att_kernel")))
+        check(wave_kernels, f"31 profile: no wave kernel among {sorted(kernels)[:20]}")
+        check(launched and bound_a == rr.scheduled,
+              f"31 import: bound {bound_a} (replay {rr.scheduled}), launches {launched}")
+        held(idi.store, "import")
+        idi.shutdown()
+        idle = f"{1 - busy / wave_s:.4f}" if busy > 0 else "not measured"
+        del idi
+        print(f"[31a import, profile] {card}: import {import_s:.3f} s, wave {wave_s:.4f} s, "
+              f"{time.perf_counter() - t31:.1f} s", flush=True)
+
+        # ---- (c) the recorder on the external-scheduler server, then (b)
+        record = os.path.join(tmp.name, "record.jsonl")
+        child_env = dict(os.environ, PYTHONPATH=str(ROOT))
+        rec = subprocess.Popen(
+            [sys.executable, "-m", "kube_scheduler_simulator_tpu_torch.cmd.sched_recorder",
+             "--path", record, "--kubeconfig", url], cwd=str(ROOT), env=child_env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+        def lines() -> list[str]:
+            if not os.path.exists(record):
+                return []
+            with open(record) as f:
+                return f.read().splitlines()
+
+        sdi.store.create("namespaces", {"metadata": {"name": "kss-smoke-marker"}})
+        deadline = time.time() + 120
+        while time.time() < deadline and not any("kss-smoke-marker" in ln for ln in lines()):
+            time.sleep(0.5)
+        check(any("kss-smoke-marker" in ln for ln in lines()), "31 recorder: never connected")
+        time.sleep(6)  # one more flush: what the recorder holds is on disk
+        n0 = len(lines())
+        rv0 = sdi.store.list("namespaces")[1]
+        watch = {r: sdi.store.watch(r, since_rv=rv0) for r in DEFAULT_GVRS}
+        for res, items in (("nodes", nodes), ("pods", pods[:serve])):
+            for obj in items:
+                sdi.store.create(res, obj)
+        # the recorder's stream caught up before the scheduler lists the
+        # server (else the server's one process serves both at once)
+        created = sum(q.qsize() for q in watch.values())
+        deadline = time.time() + 180
+        while time.time() < deadline and len(lines()) - n0 < created:
+            time.sleep(1)
+        sched_cfg = os.path.join(tmp.name, "scheduler.json")
+        with open(sched_cfg, "w") as f:
+            json.dump(ksc, f)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", SCHED_RUN, "--master", url, "--config", sched_cfg, "--once",
+             "--device", "cuda"],
+            cwd=str(ROOT), env=child_env, capture_output=True, text=True, timeout=900)
+        sched_s = time.perf_counter() - t0
+        check(run.returncode == 0, f"31 cmd.scheduler: rc {run.returncode} {run.stderr[-2000:]}")
+        want_bound = int((rr.selected[:serve] >= 0).sum())
+        check(f"scheduled {want_bound} pod(s)" in run.stdout,
+              f"31 cmd.scheduler: {run.stdout.strip()[-300:]}")
+        sched_launches = json.loads(run.stdout.rsplit("launches ", 1)[-1])
+        check(sched_launches.get("step_chunk", 0) + sched_launches.get("spec_eval", 0) > 0,
+              f"31 cmd.scheduler launched no step or wave kernel: {sched_launches}")
+        held(sdi.store, "cmd.scheduler", serve)
+        events = sum(q.qsize() for q in watch.values())
+        print(f"[31b cmd.scheduler] {card}: {sched_s:.3f} s, {events} store events, recorded "
+              f"{len(lines()) - n0}, {time.perf_counter() - t31:.1f} s", flush=True)
+        deadline = time.time() + 180
+        while time.time() < deadline and len(lines()) - n0 < events:
+            time.sleep(1)
+        rec.send_signal(signal.SIGINT)
+        rec.wait(timeout=120)
+        got = len(lines()) - n0
+        if got != events:
+            kinds: dict = {}
+            for ln in lines()[n0:]:
+                kind = (json.loads(ln).get("resource") or {}).get("kind")
+                kinds[kind] = kinds.get(kind, 0) + 1
+            check(False, f"31 recorder: {got} lines for {events} store events (by kind "
+                         f"{kinds}, store {({r: q.qsize() for r, q in watch.items()})}; "
+                         f"{time.perf_counter() - t31:.1f} s)")
+        rec = None
+    finally:
+        if rec is not None:
+            rec.kill()
+            rec.wait()
+        fake.shutdown()
+        srv.shutdown()
+        tmp.cleanup()
+    print(f"[31 sources, CLIs, profile] {card}: config {CONFIG} {p}x{len(nodes)}: (a) kubeConfig "
+          f"import session (bearer token, a fake kube-apiserver on localhost): import "
+          f"{import_s:.3f} s ({imported} objects), wave {wave_s:.4f} s = "
+          f"{p / wave_s:.1f} cycles/s, bound {bound_a}, launches {launched}, device busy {busy:.4f} s, idle share {idle}; "
+          f"POST /api/v1/profile start 200, double start 409, stop 200, the trace's wave "
+          f"kernels {wave_kernels}; (b) the first {serve} pods: cmd.scheduler --once "
+          f"--device cuda over RemoteCluster "
+          f"{sched_s:.3f} s wall (process start, list, compile, wave, binds over HTTP), "
+          f"launches {sched_launches}; "
+          f"(c) cmd.sched_recorder {got} lines == {events} store events; every pod's node and "
+          f"the 13 annotations of pods {sample} in (a), of 9 of the first {serve} in (b), "
+          f"equal phase 4's replay(); "
+          f"{time.perf_counter() - t31:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

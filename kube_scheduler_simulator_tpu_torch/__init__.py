@@ -14,8 +14,6 @@ score math is int64/float64 where the reference relies on x64.
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 ANNOTATION_PREFIX = "kube-scheduler-simulator.sigs.k8s.io/"
@@ -24,7 +22,11 @@ ANNOTATION_PREFIX = "kube-scheduler-simulator.sigs.k8s.io/"
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on.  "cuda" (the default) needs a
     card: without one this raises instead of running on the CPU, so a
-    caller that wants the plain PyTorch path passes device="cpu"."""
+    caller that wants the plain PyTorch path passes device="cpu".  torch
+    is imported here, not with the package: a host-only entry point (the
+    recorder CLI) starts without it."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -66,6 +66,8 @@
 #define ATT_UNROLL 4     // 16-byte loads a lane keeps in flight, packed pass
 #define ATT_RAW_UNROLL 8 // the same, raw pass
 #define ATT_TOTALS (2 * ATT_MAX_F + ATT_MAX_Q)
+#define ATT_SMEM (48 * 1024)          // dynamic shared memory without the opt-in
+#define ATT_SMEM_MAX (225 * 1024)     // one pod's bitmap, opt-in (kernels/attribution.py)
 
 // All 8-byte members first, then the 4-byte ones (kernels/attribution.py
 // mirrors it as a ctypes.Structure).
@@ -80,6 +82,8 @@ struct AttArgs {
   long long* s_sum;             // [C, Q]
   unsigned char* feas_packed;   // [C, NB], or null
   long long* totals;            // [2F + Q]: f_rejects, f_evaluated, s_evaluated
+  unsigned* bits;               // [grid x pods, ceil(N / 32)]: the bitmaps, or null (shared)
+  const int* cols;              // [3, Q]: group, row, scorer (the wide kernel), or null
   int col_group[ATT_MAX_Q];     // per device column: 1 raw8, 2 raw16, 3 raw32
   int col_row[ATT_MAX_Q];       // its row in that group
   int col_scorer[ATT_MAX_Q];    // its scorer index (the sskip row)
@@ -263,7 +267,9 @@ __global__ void __launch_bounds__(ATT_MAX_WARPS * 32) att_kernel(const AttArgs a
   const int c = blockIdx.x * a.pods + slot;
   const bool real = c < a.c, valid = c < a.m;
   const int words = (a.n + 31) >> 5;
-  unsigned* bm = (a.q > 0 || a.want_pack) ? sh_bits + slot * words : nullptr;
+  unsigned* bm = !(a.q > 0 || a.want_pack) ? nullptr
+      : a.bits ? a.bits + (long long)((int)blockIdx.x * a.pods + slot) * words
+               : sh_bits + slot * words;
 
   if (bm)
     for (int i = tp; i < words; i += nth) bm[i] = 0;
@@ -362,16 +368,167 @@ __global__ void __launch_bounds__(ATT_MAX_WARPS * 32) att_kernel(const AttArgs a
     if (sh_tot[i]) atomicAdd(reinterpret_cast<unsigned long long*>(a.totals) + i, sh_tot[i]);
 }
 
+// Column q's (group, row, scorer) in the wide kernel: from a.cols.
+__device__ __forceinline__ const unsigned char* wide_raw_row(const AttArgs& a, int q, int c,
+                                                             int& es) {
+  const long long r = a.cols[a.q + q];
+  switch (a.cols[q]) {
+    case 1:
+      es = 1;
+      return reinterpret_cast<const unsigned char*>(a.raw8 + ((long long)c * a.s8 + r) * a.n);
+    case 2:
+      es = 2;
+      return reinterpret_cast<const unsigned char*>(a.raw16 + ((long long)c * a.s16 + r) * a.n);
+    default:
+      es = a.raw32_bytes;
+      return static_cast<const unsigned char*>(a.raw32) + ((long long)c * a.s32 + r) * a.n * es;
+  }
+}
+
+// The wide form: one pod a CTA of a.warps warps; dynamic shared memory
+// holds the column sums [q] (int64), the first-fail histogram [f] and,
+// unless a.bits is set, the bitmap.
+template <typename T>
+__global__ void __launch_bounds__(ATT_MAX_WARPS * 32) att_wide_kernel(const AttArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ int sh_feas;
+  long long* sum = reinterpret_cast<long long*>(dyn);
+  int* rej = reinterpret_cast<int*>(dyn + 8 * (size_t)a.q);
+  const int words = (a.n + 31) >> 5;
+  const int c = blockIdx.x;
+  const bool valid = c < a.m;
+  unsigned* bm = a.bits ? a.bits + (long long)c * words
+                        : reinterpret_cast<unsigned*>(dyn + 8 * (size_t)a.q +
+                                                      4 * (size_t)((a.f + 3) & ~3));
+  for (int i = threadIdx.x; i < a.q; i += blockDim.x) sum[i] = 0;
+  for (int i = threadIdx.x; i < a.f; i += blockDim.x) rej[i] = 0;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) bm[i] = 0;
+  if (threadIdx.x == 0) sh_feas = 0;
+  __syncthreads();
+  if (valid) {
+    const T* row = static_cast<const T*>(a.packed) + (long long)c * a.n;
+    int feas = 0;
+    for (int j = threadIdx.x; j < a.n; j += blockDim.x) {
+      const int ff = first_fail(row[j], a.code_bits);
+      if (ff == 0) {
+        ++feas;
+        atomicOr(&bm[j >> 5], 1u << (j & 31));
+      } else if (ff >= 1 && ff <= a.f) {
+        atomicAdd(&rej[ff - 1], 1);
+      }
+    }
+    feas = (int)__reduce_add_sync(0xffffffffu, (unsigned)feas);
+    if ((threadIdx.x & 31) == 0) atomicAdd(&sh_feas, feas);
+  }
+  __syncthreads();  // the bitmap is whole
+  if (a.want_pack && c < a.c) {
+    const unsigned char* bytes = reinterpret_cast<const unsigned char*>(bm);
+    const int nb = (a.n + 7) >> 3;
+    for (int i = threadIdx.x; i < nb; i += blockDim.x)
+      a.feas_packed[(long long)c * nb + i] = bytes[i];
+  }
+  const bool scored = valid && a.fc[c] > 1;
+  for (int q = 0; q < a.q; ++q) {
+    if (!scored || a.sskip[(long long)a.cols[2 * a.q + q] * a.c + c]) continue;  // uniform
+    int es;
+    const unsigned char* raw = wide_raw_row(a, q, c, es);
+    long long s = 0;
+    for (int j = threadIdx.x; j < a.n; j += blockDim.x) {
+      if (!(bm[j >> 5] >> (j & 31) & 1)) continue;
+      switch (es) {
+        case 1: s += reinterpret_cast<const signed char*>(raw)[j]; break;
+        case 2: s += reinterpret_cast<const short*>(raw)[j]; break;
+        case 4: s += reinterpret_cast<const int*>(raw)[j]; break;
+        default: s += reinterpret_cast<const long long*>(raw)[j];
+      }
+    }
+    s = warp_sum64(s);
+    if ((threadIdx.x & 31) == 0 && s)
+      atomicAdd(reinterpret_cast<unsigned long long*>(&sum[q]), (unsigned long long)s);
+  }
+  __syncthreads();
+  // the pod's sums and its share of the chunk totals, by one thread
+  if (threadIdx.x == 0 && c < a.c) {
+    unsigned long long* tot = reinterpret_cast<unsigned long long*>(a.totals);
+    const long long feas = sh_feas;
+    long long suffix = 0;
+    for (int f = a.f - 1; f >= 0; --f) {
+      suffix += rej[f];
+      if (rej[f]) atomicAdd(&tot[f], (unsigned long long)rej[f]);
+      const long long ev = feas + suffix;
+      if (ev && valid && !a.fskip[(long long)f * a.c + c])
+        atomicAdd(&tot[a.f + f], (unsigned long long)ev);
+    }
+    for (int q = 0; q < a.q; ++q) {
+      a.s_sum[(long long)c * a.q + q] = sum[q];
+      const bool on = scored && !a.sskip[(long long)a.cols[2 * a.q + q] * a.c + c];
+      if (feas && on) atomicAdd(&tot[2 * a.f + q], (unsigned long long)feas);
+    }
+  }
+}
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+#include <mutex>
+
+#define ATT_MAX_DEVICES 64
+
 extern "C" int kss_att_args_size() { return (int)sizeof(AttArgs); }
 
+// Kernel's dynamic shared memory opted in to ATT_SMEM_MAX, once per card
+// for the process (a function attribute, so no launch changes it): a
+// launch's static and dynamic shared memory together may then pass 48 KB.
+template <auto Kernel>
+static cudaError_t att_optin() {
+  static std::once_flag once[ATT_MAX_DEVICES];
+  static cudaError_t err[ATT_MAX_DEVICES];
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= ATT_MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    err[dev] = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    ATT_SMEM_MAX);
+  });
+  return err[dev];
+}
+
+template <typename T>
+static int att_launch(const AttArgs& a, cudaStream_t s) {
+  const bool wide = a.f > ATT_MAX_F || a.q > ATT_MAX_Q;
+  const bool bitmap = (a.q > 0 || a.want_pack) && a.bits == nullptr;
+  const size_t words = (size_t)(a.n + 31) / 32;
+  if (wide) {
+    if (a.pods != 1 || (a.cols == nullptr && a.q > 0)) return (int)cudaErrorInvalidValue;
+    const size_t smem = 8 * (size_t)a.q + 4 * (size_t)((a.f + 3) & ~3) + (bitmap ? 4 * words : 0);
+    if (smem > ATT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = att_optin<att_wide_kernel<T>>();
+    if (e != cudaSuccess) return (int)e;
+    att_wide_kernel<T><<<a.c, a.warps * 32, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = bitmap ? (size_t)a.pods * words * 4 : 0;
+  if (smem > ATT_SMEM_MAX || (smem > ATT_SMEM && a.pods != 1)) return (int)cudaErrorInvalidValue;
+  if (smem > 0) {
+    // the opt-in also at up to 48 KB: the kernel's static shared memory
+    // counts against the default limit, so a bitmap of exactly 48 KB
+    // (393,216 nodes) needs it too
+    const cudaError_t e = att_optin<att_kernel<T>>();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((a.c + a.pods - 1) / a.pods), block(a.pods * a.warps * 32);
+  att_kernel<T><<<grid, block, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // The chunk totals zeroed on the caller's stream, then the one launch:
-// ceil(C / pods) CTAs of pods x warps warps, a bitmap of ceil(N / 32)
-// words a pod in dynamic shared memory where one is needed (the wrapper
-// keeps it within the default 48 KB).  No synchronisation.  Returns the
-// first CUDA error, so a refused launch is reported at once.
+// ceil(C / pods) CTAs of pods x warps warps (the wide kernel: C CTAs of
+// one pod), a bitmap of ceil(N / 32) words a pod in dynamic shared memory
+// where one is needed and a.bits is null (past 48 KB, one pod a CTA, in
+// the opt-in shared memory up to ATT_SMEM_MAX), else in a.bits.  No
+// synchronisation.  Returns the first CUDA error, so a refused launch is
+// reported at once.
 extern "C" int kss_chunk_attribution(const AttArgs* args, void* stream) {
   const AttArgs& a = *args;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -382,14 +539,11 @@ extern "C" int kss_chunk_attribution(const AttArgs* args, void* stream) {
   }
   if (a.warps < 1 || a.pods < 1 || a.warps * a.pods > ATT_MAX_WARPS || a.c < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.c + a.pods - 1) / a.pods), block(a.pods * a.warps * 32);
-  const size_t smem = (a.q > 0 || a.want_pack) ? (size_t)a.pods * ((a.n + 31) / 32) * 4 : 0;
   switch (a.pack_bytes) {
-    case 1: att_kernel<unsigned char><<<grid, block, smem, s>>>(a); break;
-    case 2: att_kernel<unsigned short><<<grid, block, smem, s>>>(a); break;
-    case 4: att_kernel<int><<<grid, block, smem, s>>>(a); break;
-    default: att_kernel<long long><<<grid, block, smem, s>>>(a);
+    case 1: return att_launch<unsigned char>(a, s);
+    case 2: return att_launch<unsigned short>(a, s);
+    case 4: return att_launch<int>(a, s);
+    default: return att_launch<long long>(a, s);
   }
-  return (int)cudaGetLastError();
 }
 #endif

@@ -166,6 +166,8 @@ struct StepArgs {
   // in shared memory (cluster.cuh cluster_plan, spec_round.cu
   // round_smem): [CTAs, the state's bytes]
   unsigned char* spill;                  // or null: shared memory
+  // --- the step's tables where they pass the fixed arrays below (step_tables)
+  const long long* ext;                  // or null: the fixed arrays
   // --- 8-byte scalars
   long long ip_hard_weight;
   long long score_weight[KSS_MAX_S];
@@ -210,12 +212,13 @@ struct StepArgs {
 // A launch's table of sessions: one StepArgs per session, KM entries (1,
 // 2, 4, 8 or 16), taken by a kernel as one __grid_constant__ parameter
 // and read in place from the parameter space, indexed by the session of
-// the CTA.  16 x 1,944 bytes = 31,104 (kernels/step.py checks
+// the CTA.  16 x 1,952 bytes = 31,232 (kernels/step.py checks
 // sizeof(StepArgs) against its mirror), inside the 32,764 bytes CUDA
 // 12.1+ allows a kernel's parameters on this card, with room for the
 // kernel's other parameters.  The members share the batch, the node count
 // and the output widths (kernels/fuse.py checks them); KM = 1 is a solo
-// launch.
+// launch.  A workload past the fixed arrays keeps its tables in device
+// memory (StepArgs.ext), so the table's size does not depend on them.
 #define KSS_MAX_TABLE 16
 
 template <int KM>
@@ -224,6 +227,108 @@ struct StepTable {
 };
 static_assert(sizeof(StepTable<KSS_MAX_TABLE>) <= 32764 - 64,
               "a table of KSS_MAX_TABLE StepArgs passes a kernel's parameter space");
+
+// ---- the step's tables.  A workload within the fixed arrays keeps them
+// in StepArgs (the parameter space, or the CTA's copy in shared memory);
+// past any of them (more than KSS_MAX_F filters, KSS_MAX_S scorers,
+// KSS_MAX_CUSTOM custom plugins with rows, KSS_MAX_RES resources of a
+// strategy or KSS_MAX_SHAPE shape points) kernels/step.py make_args puts
+// every table in a.ext, one int64 array in device memory:
+//   filter ids [F]; score ids, weights, raw groups, rows [S each];
+//   NodeResourcesFit's source, column, need-request, weight [fit_nres
+//   each]; shape utilizations, scores [fit_nshape each];
+//   BalancedAllocation's source, column, need-request [bal_nres each];
+//   then each custom slot's codes and scores addresses, in slot order.
+// The kernels read them only through these accessors, whose template flag
+// W ("wide") is the kernel instantiation's: W = false reads the fixed
+// arrays alone, the code of a launch within them; W = true reads a.ext
+// where it is set (a table launch may mix members), and also takes a pod
+// past KSS_MAX_VBK claims (volumes.cuh).  The launch functions pick W
+// from the StepArgs (step_wide).
+struct ResDesc {
+  int src, col, need;  // ResSrc, the column, a scalar the pod must request
+  long long weight;    // NodeResourcesFit only
+};
+
+__device__ __forceinline__ const long long* ext_fit(const StepArgs& a) {
+  return a.ext + a.F + 4 * a.S;
+}
+__device__ __forceinline__ const long long* ext_shape(const StepArgs& a) {
+  return ext_fit(a) + 4 * a.fit_nres;
+}
+__device__ __forceinline__ const long long* ext_bal(const StepArgs& a) {
+  return ext_shape(a) + 2 * a.fit_nshape;
+}
+template <bool W>
+__device__ __forceinline__ int filter_id(const StepArgs& a, int f) {
+  if constexpr (W) if (a.ext) return (int)a.ext[f];
+  return a.filter_ids[f];
+}
+template <bool W>
+__device__ __forceinline__ int score_id(const StepArgs& a, int s) {
+  if constexpr (W) if (a.ext) return (int)a.ext[a.F + s];
+  return a.score_ids[s];
+}
+template <bool W>
+__device__ __forceinline__ long long score_weight_of(const StepArgs& a, int s) {
+  if constexpr (W) if (a.ext) return a.ext[a.F + a.S + s];
+  return a.score_weight[s];
+}
+template <bool W>
+__device__ __forceinline__ int score_group_of(const StepArgs& a, int s) {
+  if constexpr (W) if (a.ext) return (int)a.ext[a.F + 2 * a.S + s];
+  return a.score_group[s];
+}
+template <bool W>
+__device__ __forceinline__ int score_row_of(const StepArgs& a, int s) {
+  if constexpr (W) if (a.ext) return (int)a.ext[a.F + 3 * a.S + s];
+  return a.score_row[s];
+}
+template <bool W>
+__device__ __forceinline__ ResDesc fit_desc(const StepArgs& a, int k) {
+  if constexpr (W) {
+    if (a.ext) {
+      const long long* t = ext_fit(a);
+      const int r = a.fit_nres;
+      return ResDesc{(int)t[k], (int)t[r + k], (int)t[2 * r + k], t[3 * r + k]};
+    }
+  }
+  return ResDesc{a.fit_src[k], a.fit_col[k], a.fit_need_request[k], a.fit_weight[k]};
+}
+template <bool W>
+__device__ __forceinline__ void shape_point(const StepArgs& a, int i, long long& u, long long& s) {
+  if constexpr (W) {
+    if (a.ext) {
+      const long long* t = ext_shape(a);
+      u = t[i];
+      s = t[a.fit_nshape + i];
+      return;
+    }
+  }
+  u = a.shape_u[i];
+  s = a.shape_s[i];
+}
+template <bool W>
+__device__ __forceinline__ ResDesc bal_desc(const StepArgs& a, int k) {
+  if constexpr (W) {
+    if (a.ext) {
+      const long long* t = ext_bal(a);
+      const int r = a.bal_nres;
+      return ResDesc{(int)t[k], (int)t[r + k], (int)t[2 * r + k], 0};
+    }
+  }
+  return ResDesc{a.bal_src[k], a.bal_col[k], a.bal_need_request[k], 0};
+}
+template <bool W>
+__device__ __forceinline__ const int* custom_codes(const StepArgs& a, int slot) {
+  if constexpr (W) if (a.ext) return (const int*)ext_bal(a)[3 * a.bal_nres + 2 * slot];
+  return a.cu_codes[slot];
+}
+template <bool W>
+__device__ __forceinline__ const long long* custom_scores(const StepArgs& a, int slot) {
+  if constexpr (W) if (a.ext) return (const long long*)ext_bal(a)[3 * a.bal_nres + 2 * slot + 1];
+  return a.cu_scores[slot];
+}
 
 #ifdef __CUDACC__
 #include <type_traits>
@@ -237,6 +342,32 @@ static int by_table(int k, F&& f) {
   if (k <= 4) return f(std::integral_constant<int, 4>{});
   if (k <= 8) return f(std::integral_constant<int, 8>{});
   return f(std::integral_constant<int, KSS_MAX_TABLE>{});
+}
+
+static inline bool step_wide(const StepArgs& a) {
+  return a.ext != nullptr || a.VK > KSS_MAX_VBK;
+}
+
+// f(std::integral_constant<bool, W>): W = true where any of the k
+// sessions is wide (step_wide).
+template <class F>
+static int by_wide(const StepArgs* args, int k, F&& f) {
+  for (int i = 0; i < k; ++i)
+    if (step_wide(args[i])) return f(std::integral_constant<bool, true>{});
+  return f(std::integral_constant<bool, false>{});
+}
+
+// by_table for the wide instantiations, which are built at KM = 1 and
+// KSS_MAX_TABLE only (a wide launch is rare; each instantiation is build
+// time).
+template <bool W, class F>
+static int by_table_of(int k, F&& f) {
+  if constexpr (W) {
+    if (k <= 1) return f(std::integral_constant<int, 1>{});
+    return f(std::integral_constant<int, KSS_MAX_TABLE>{});
+  } else {
+    return by_table(k, f);
+  }
 }
 
 template <int KM>

@@ -45,25 +45,30 @@ __device__ __forceinline__ bool res_active(const StepArgs& a, int c, int src, in
   return active;
 }
 
+template <bool W>
 __device__ long long broken_linear(const StepArgs& a, long long p) {
   // the first shape point with p <= u wins (the reverse where-loop of
   // _broken_linear_vec); past the last point, its score
+  long long up = 0, sp = 0;
   for (int i = 0; i < a.fit_nshape; ++i) {
-    long long u = a.shape_u[i], s = a.shape_s[i];
+    long long u, s;
+    shape_point<W>(a, i, u, s);
     if (p <= u) {
       if (i == 0) return s;
-      long long up = a.shape_u[i - 1], sp = a.shape_s[i - 1];
       return sp + truncdiv((s - sp) * (p - up), u - up);
     }
+    up = u;
+    sp = s;
   }
-  return a.shape_s[a.fit_nshape - 1];
+  return sp;
 }
 
+template <bool W>
 __device__ long long score_resource(const StepArgs& a, long long req, long long cap) {
   if (a.fit_type == FIT_RTCR) {
     bool over = cap == 0 || req > cap;
     long long util = over ? MAX_NODE_SCORE : floordiv(req * MAX_NODE_SCORE, ll_max(cap, 1));
-    return broken_linear(a, util);
+    return broken_linear<W>(a, util);
   }
   bool ok = cap > 0 && req <= cap;
   if (!ok) return 0;
@@ -72,38 +77,54 @@ __device__ long long score_resource(const StepArgs& a, long long req, long long 
   return floordiv((cap - req) * MAX_NODE_SCORE, capd);
 }
 
+template <bool W>
 __device__ long long fit_score(const StepArgs& a, int c, int n) {
   const bool rtcr = a.fit_type == FIT_RTCR;
   long long total = 0, wsum = 0;
   for (int k = 0; k < a.fit_nres; ++k) {
+    const ResDesc d = fit_desc<W>(a, k);
     long long req, alloc;
-    res_req_alloc(a, c, n, a.fit_src[k], a.fit_col[k], req, alloc);
-    bool active = res_active(a, c, a.fit_src[k], a.fit_col[k], a.fit_need_request[k], alloc);
-    long long s = score_resource(a, req, alloc);
+    res_req_alloc(a, c, n, d.src, d.col, req, alloc);
+    bool active = res_active(a, c, d.src, d.col, d.need, alloc);
+    long long s = score_resource<W>(a, req, alloc);
     if (rtcr) active = active && s > 0;
-    if (active) { total += s * a.fit_weight[k]; wsum += a.fit_weight[k]; }
+    if (active) { total += s * d.weight; wsum += d.weight; }
   }
   if (wsum <= 0) return 0;
   if (rtcr) return floordiv(2 * total + wsum, ll_max(2 * wsum, 1));  // round half up
   return floordiv(total, ll_max(wsum, 1));
 }
 
+// Resource k's requested fraction at node n, and whether it counts.
+template <bool W>
+__device__ __forceinline__ double bal_fraction(const StepArgs& a, int c, int n, int k,
+                                               bool& active) {
+  const ResDesc d = bal_desc<W>(a, k);
+  long long req, alloc;
+  res_req_alloc(a, c, n, d.src, d.col, req, alloc);
+  active = res_active(a, c, d.src, d.col, d.need, alloc);
+  return fmin((double)req / fmax((double)alloc, 1.0), 1.0);
+}
+
 // float64 without contraction: the file is built with -fmad=false, so
 // (1 - std) * 100 and the sums below round after every operation, as the
 // reference's separate jnp ops do.  Sums over resources run in resource
-// order, as the plain version's explicit loop.
+// order, as the plain version's explicit loop.  Up to KSS_MAX_RES
+// resources the fractions are kept in the thread's array; past it (a wide
+// launch only) each pass computes them again, the same operations giving
+// the same bits.
+template <bool W>
 __device__ long long balanced_score(const StepArgs& a, int c, int n) {
   double f[KSS_MAX_RES];
   bool m[KSS_MAX_RES];
   int cnt = 0;
   const int K = a.bal_nres;
+  const bool kept = !W || K <= KSS_MAX_RES;
   for (int k = 0; k < K; ++k) {
-    long long req, alloc;
-    res_req_alloc(a, c, n, a.bal_src[k], a.bal_col[k], req, alloc);
-    double ad = (double)alloc;
-    f[k] = fmin((double)req / fmax(ad, 1.0), 1.0);
-    m[k] = res_active(a, c, a.bal_src[k], a.bal_col[k], a.bal_need_request[k], alloc);
-    cnt += m[k] ? 1 : 0;
+    bool mk;
+    const double fk = bal_fraction<W>(a, c, n, k, mk);
+    if (kept) { f[k] = fk; m[k] = mk; }
+    cnt += mk ? 1 : 0;
   }
   double std_ = 0.0;
   if (K == 2) {
@@ -114,8 +135,10 @@ __device__ long long balanced_score(const StepArgs& a, int c, int n) {
     double s1 = 0.0, s2 = 0.0;
     bool first = true;
     for (int k = 0; k < K; ++k) {
-      double fm = m[k] ? f[k] : 0.0;
-      double f2 = m[k] ? f[k] * f[k] : 0.0;
+      bool mk;
+      const double fk = kept ? (mk = m[k], f[k]) : bal_fraction<W>(a, c, n, k, mk);
+      double fm = mk ? fk : 0.0;
+      double f2 = mk ? fk * fk : 0.0;
       if (first) { s1 = fm; s2 = f2; first = false; }
       else { s1 = s1 + fm; s2 = s2 + f2; }
     }
@@ -123,8 +146,10 @@ __device__ long long balanced_score(const StepArgs& a, int c, int n) {
     double var = 0.0;
     first = true;
     for (int k = 0; k < K; ++k) {
-      double d = f[k] - mean;
-      double term = m[k] ? d * d : 0.0;
+      bool mk;
+      const double fk = kept ? (mk = m[k], f[k]) : bal_fraction<W>(a, c, n, k, mk);
+      double d = fk - mean;
+      double term = mk ? d * d : 0.0;
       var = first ? term : var + term;
       first = false;
     }

@@ -34,11 +34,12 @@
 #include "cluster.cuh"
 
 #define RENORM_THREADS 512
+#define RENORM_MAX_ROWS 16  // rows a launch (kernels/phased.py MAX_ROWS): each normalizer once
 
 // What a launch reads of the pod's StepArgs (its pod 0): PodTopologySpread's
 // rows for spread_score, and N; and the rows' plugin ids (P_AFFINITY,
-// P_TAINT, P_SPREAD or P_INTERPOD), R <= KSS_MAX_S.  A parameter of 112
-// bytes where StepArgs takes 1,944.
+// P_TAINT, P_SPREAD or P_INTERPOD), R <= RENORM_MAX_ROWS.  A parameter of
+// 112 bytes where StepArgs takes 1,952.
 struct RenormArgs {
   const int* sp_c_id;
   const unsigned char* sp_is_score;
@@ -46,7 +47,7 @@ struct RenormArgs {
   const int* sp_counts;
   const double* sp_weight;
   int N;
-  int pid[KSS_MAX_S];
+  int pid[RENORM_MAX_ROWS];
 };
 
 constexpr unsigned long long kRenormOps = combine_ops(OP_MIN, OP_MAX, OP_OR);
@@ -114,14 +115,14 @@ __global__ void __launch_bounds__(RENORM_THREADS) renormalize_rows_kernel(
 extern "C" int kss_step_args_size() { return (int)sizeof(StepArgs); }
 
 // Launches on the caller's stream; no synchronisation.  r rows (1 to
-// KSS_MAX_S) of args->N nodes, each one cluster of `ctas` CTAs (1 to
+// RENORM_MAX_ROWS) of args->N nodes, each one cluster of `ctas` CTAs (1 to
 // KSS_MAX_CTAS) over the node slices of slices.cuh, with the pod of
 // args (its pod 0) and the feasibility feas [N].  Returns the launch's
 // error or cudaGetLastError(), so a refused launch is reported at once.
 extern "C" int kss_renormalize_rows(const StepArgs* args, const int* pids, int r,
                                     const long long* raws, const unsigned char* feas,
                                     long long* out, int ctas, void* stream) {
-  if (r < 1 || r > KSS_MAX_S || ctas < 1 || ctas > KSS_MAX_CTAS || args->N < 1)
+  if (r < 1 || r > RENORM_MAX_ROWS || ctas < 1 || ctas > KSS_MAX_CTAS || args->N < 1)
     return (int)cudaErrorInvalidValue;
   int max_dynamic = 0;
   const cudaError_t err = cluster_attributes<renormalize_rows_kernel>(&max_dynamic);

@@ -44,6 +44,7 @@ struct PodPre {
   PodVolumes vols;
 };
 
+template <bool W>
 __device__ int filter_code(const StepArgs& a, int pid, int c, int n, const PodPre& pre) {
   switch (pid) {
     case P_FIT:
@@ -67,12 +68,12 @@ __device__ int filter_code(const StepArgs& a, int pid, int c, int n, const PodPr
     case P_VOLLIMITS:
       return a.nvl_filter_skip[c] ? 0 : nvl_filter(a, c, n, pre.vols);
     case P_VOLBIND:
-      return a.vb_filter_skip[c] ? 0 : vb_filter(a, c, n, pre.vols);
+      return a.vb_filter_skip[c] ? 0 : vb_filter<W>(a, c, n, pre.vols);
     case P_VOLZONE:
       return a.vz_filter_skip[c] ? 0 : volzone_filter(a, c, n);
   }
   // B13: a custom plugin's precompiled code (JAX pipeline.py:107-109)
-  if (pid >= P_CUSTOM) return a.cu_codes[pid - P_CUSTOM][(long long)c * a.N + n];
+  if (pid >= P_CUSTOM) return custom_codes<W>(a, pid - P_CUSTOM)[(long long)c * a.N + n];
   return 0;
 }
 
@@ -82,12 +83,13 @@ __device__ __forceinline__ bool score_skipped(const StepArgs& a, int pid, int c)
   return false;
 }
 
+template <bool W>
 __device__ long long score_raw(const StepArgs& a, int pid, int c, int n, bool& ignored) {
   switch (pid) {
     case P_FIT:
-      return fit_score(a, c, n);
+      return fit_score<W>(a, c, n);
     case P_BALANCED:
-      return balanced_score(a, c, n);
+      return balanced_score<W>(a, c, n);
     case P_AFFINITY:
       return affinity_score(a, c, n);
     case P_TAINT:
@@ -104,7 +106,7 @@ __device__ long long score_raw(const StepArgs& a, int pid, int c, int n, bool& i
   // B13: a custom plugin's precompiled int64 raw, which is also its
   // normalized score (a custom NormalizeScore runs on the host;
   // pipeline.py:150-156)
-  if (pid >= P_CUSTOM) return a.cu_scores[pid - P_CUSTOM][(long long)c * a.N + n];
+  if (pid >= P_CUSTOM) return custom_scores<W>(a, pid - P_CUSTOM)[(long long)c * a.N + n];
   return 0;
 }
 
@@ -127,9 +129,10 @@ __device__ __forceinline__ void store_packed(const StepArgs& a, long long idx, l
 // narrowing that is checked (the i16 group on the first tier, the i32
 // group on the second; pipeline.py:412-421).  The i8 group is in range
 // by its compile-time bound.
+template <bool W>
 __device__ __forceinline__ int store_raw(const StepArgs& a, int s, int c, int n, long long raw) {
-  const int row = a.score_row[s];
-  switch (a.score_group[s]) {
+  const int row = score_row_of<W>(a, s);
+  switch (score_group_of<W>(a, s)) {
     case G_RAW8:
       a.out_raw8[((long long)c * a.S8 + row) * a.N + n] = (signed char)raw;
       return 0;
@@ -154,8 +157,9 @@ __device__ __forceinline__ int store_raw(const StepArgs& a, int s, int c, int n,
 
 // store_raw's narrowing check alone: 1 when scorer s's raw would not
 // survive its group's checked narrowing.
+template <bool W>
 __device__ __forceinline__ int raw_narrows(const StepArgs& a, int s, long long raw) {
-  switch (a.score_group[s]) {
+  switch (score_group_of<W>(a, s)) {
     case G_RAW16:
       return a.check_group == G_RAW16 && (long long)(short)raw != raw;
     case G_RAW32:
@@ -181,7 +185,7 @@ __device__ __forceinline__ int prefilter_reject(const StepArgs& a, int c) {
 // The pod's PreFilter reject (its leader writes it), its volume lists
 // (the scope's, compacted by the caller) and pass 1: the spread minima
 // and InterPod's pod scalars.
-template <class Scope>
+template <bool W, class Scope>
 __device__ PodPre pod_prepass(const StepArgs& a, int c, Scope& scope, int& reject) {
   reject = prefilter_reject(a, c);
   if (scope.leader()) a.out_prefilter_reject[c] = reject;
@@ -191,9 +195,10 @@ __device__ PodPre pod_prepass(const StepArgs& a, int c, Scope& scope, int& rejec
   pre.ip_total_any = 0;
   for (int m = 0; m < KSS_MC; ++m) pre.sp_mins[m] = 0;
   for (int f = 0; f < a.F; ++f) {
-    if (a.filter_ids[f] == P_SPREAD && !a.sp_filter_skip[c])
+    const int pid = filter_id<W>(a, f);
+    if (pid == P_SPREAD && !a.sp_filter_skip[c])
       spread_minima(a, c, pre.sp_mins, scope);
-    if (a.filter_ids[f] == P_INTERPOD)
+    if (pid == P_INTERPOD)
       interpod_pod_scalars(a, c, pre.ip_any_aff, pre.ip_total_any);
   }
   return pre;
@@ -201,14 +206,16 @@ __device__ PodPre pod_prepass(const StepArgs& a, int c, Scope& scope, int& rejec
 
 // Each filter at node n in config order with its filter_skip: the codes
 // (full) or the first-fail word (compact) stored; -> feasible.
+template <bool W>
 __device__ __forceinline__ bool node_filters(const StepArgs& a, int c, int n, const PodPre& pre
                                              KSS_CLOCK(, unsigned long long* ck)) {
   int first = -1, first_code = 0;
   for (int f = 0; f < a.F; ++f) {
     KSS_CLOCK(const unsigned long long tv = kss_now();)
-    const int code = filter_code(a, a.filter_ids[f], c, n, pre);
-    KSS_CLOCK(if (a.filter_ids[f] == P_VOLLIMITS) KSS_CLOCK_ADD(CK_NVL, tv);
-              if (a.filter_ids[f] == P_VOLBIND) KSS_CLOCK_ADD(CK_VB, tv);)
+    const int pid = filter_id<W>(a, f);
+    const int code = filter_code<W>(a, pid, c, n, pre);
+    KSS_CLOCK(if (pid == P_VOLLIMITS) KSS_CLOCK_ADD(CK_NVL, tv);
+              if (pid == P_VOLBIND) KSS_CLOCK_ADD(CK_VB, tv);)
     if (!a.compact) a.out_codes[((long long)c * a.F + f) * a.N + n] = code;
     if (code != 0 && first < 0) { first = f; first_code = code; }
   }
@@ -238,13 +245,13 @@ constexpr unsigned long long kNodeStatOps =
 // feasible_count > 0 and is_pad applied; the scope's leader writes the
 // pod's scalar outputs (feasible_count is 0 for a pod a PreFilter
 // rejected).  Every thread of the scope calls it and gets the selection.
-template <class Scope>
+template <bool W, class Scope>
 __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
   KSS_CLOCK(unsigned long long* ck = scope.leader() && a.clock
                 ? a.clock + (long long)c * KSS_CLOCK_SLOTS : nullptr;
             const unsigned long long t0 = kss_now();)
   int reject;
-  const PodPre pre = pod_prepass(a, c, scope, reject);
+  const PodPre pre = pod_prepass<W>(a, c, scope, reject);
   KSS_CLOCK(const unsigned long long t1 = kss_now(); if (ck) ck[CK_PRE] += t1 - t0;)
   const PodRows& rows = scope.rows;
 
@@ -253,17 +260,17 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
                             LLONG_MIN};
   for (int n = scope.lo + threadIdx.x; n < scope.hi; n += blockDim.x) {
     KSS_CLOCK(const unsigned long long tf = kss_now();)
-    const bool feas = node_filters(a, c, n, pre KSS_CLOCK(, ck));
+    const bool feas = node_filters<W>(a, c, n, pre KSS_CLOCK(, ck));
     KSS_CLOCK(const unsigned long long ts = kss_now(); if (ck) ck[CK_FILTER] += ts - tf;)
     bool ignored = false;
     for (int s = 0; s < a.S; ++s) {
-      const int pid = a.score_ids[s];
+      const int pid = score_id<W>(a, s);
       const bool skip = score_skipped(a, pid, c);
       bool ign = false;
-      const long long raw = skip ? 0 : score_raw(a, pid, c, n, ign);
+      const long long raw = skip ? 0 : score_raw<W>(a, pid, c, n, ign);
       if (pid == P_SPREAD) ignored = ign;
       rows.raw[(long long)s * rows.stride + (n - rows.base)] = raw;
-      if (a.compact) st[NS_OVERFLOW] |= store_raw(a, s, c, n, raw);
+      if (a.compact) st[NS_OVERFLOW] |= store_raw<W>(a, s, c, n, raw);
       else a.out_raw[((long long)c * a.S + s) * a.N + n] = (int)raw;
       if (skip) continue;
       switch (pid) {
@@ -308,7 +315,7 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
     const bool ign = rows.ign[n - rows.base] != 0;
     long long total = 0;
     for (int s = 0; s < a.S; ++s) {
-      const int pid = a.score_ids[s];
+      const int pid = score_id<W>(a, s);
       long long final_ = 0;
       if (!score_skipped(a, pid, c)) {
         const long long raw = rows.raw[(long long)s * rows.stride + (n - rows.base)];
@@ -317,7 +324,7 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
         else if (pid == P_TAINT) normed = default_normalize(raw, taint_hi, true);
         else if (pid == P_SPREAD) normed = spread_normalize(raw, ign, sp_lo, sp_hi, sp_any);
         else if (pid == P_INTERPOD) normed = interpod_normalize(raw, ip_lo, ip_hi);
-        final_ = normed * a.score_weight[s];
+        final_ = normed * score_weight_of<W>(a, s);
       }
       if (!a.compact) a.out_final[((long long)c * a.S + s) * a.N + n] = (int)final_;
       total += final_;
@@ -348,6 +355,7 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
 // same thread of a block, so binds in a row need no barrier between them;
 // the caller puts one between the evaluation's last read of the carry and
 // this call, and after it.
+template <bool W>
 __device__ void bind_pod(const StepArgs& a, int c, int sel, int lo, int hi, bool owner,
                          bool cluster_wide, const PodVolumes& vols) {
   if (sel < 0) return;
@@ -361,6 +369,6 @@ __device__ void bind_pod(const StepArgs& a, int c, int sel, int lo, int hi, bool
   if (a.has_interpod) interpod_bind(a, c, sel, lo, hi, cluster_wide);
   if (cluster_wide) {
     if (a.has_vr) vr_bind_rwop(a, c);
-    if (a.has_vb) vb_bind(a, c, sel, vols);
+    if (a.has_vb) vb_bind<W>(a, c, sel, vols);
   }
 }

@@ -67,6 +67,7 @@ __global__ void __launch_bounds__(COMMIT_THREADS) spec_commit_core_kernel(
 
 #define COMMIT_SLICE 128  // nodes (and threads) of a general commit's CTA
 
+template <bool W>
 __global__ void __launch_bounds__(COMMIT_SLICE) spec_commit_bind_kernel(
     const __grid_constant__ StepArgs a, const int* selected, int k) {
   const int lo = min((int)blockIdx.x * COMMIT_SLICE, a.N), hi = min(lo + COMMIT_SLICE, a.N);
@@ -74,7 +75,7 @@ __global__ void __launch_bounds__(COMMIT_SLICE) spec_commit_bind_kernel(
   const PodVolumes none{};
   for (int b = 0; b < min(k, a.C); ++b) {
     const int sel = selected[b];
-    bind_pod(a, b, sel, lo, hi, sel >= lo && sel < hi, cluster_wide, none);
+    bind_pod<W>(a, b, sel, lo, hi, sel >= lo && sel < hi, cluster_wide, none);
   }
 }
 
@@ -93,8 +94,13 @@ extern "C" int kss_spec_commit(const StepArgs* args, const int* selected, int k,
                                                                                  k);
   } else {
     const int blocks = args->N > 0 ? (args->N + COMMIT_SLICE - 1) / COMMIT_SLICE : 1;
-    spec_commit_bind_kernel<<<blocks, COMMIT_SLICE, 0, (cudaStream_t)stream>>>(*args, selected,
-                                                                               k);
+    // W as common.cuh's: a pod past KSS_MAX_VBK claims binds by the wide walk
+    by_wide(args, 1, [&](auto wide) {
+      constexpr bool W = decltype(wide)::value;
+      spec_commit_bind_kernel<W><<<blocks, COMMIT_SLICE, 0, (cudaStream_t)stream>>>(
+          *args, selected, k);
+      return 0;
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -85,7 +85,7 @@
 // one CTA an SM at up to 128 registers) and the light one (up to 256
 // threads, three CTAs an SM at up to 85 registers; its state in shared
 // memory where three CTAs' state fits there, else in device memory).
-template <int KM, bool LIGHT>
+template <int KM, bool LIGHT, bool W>
 __global__ void __launch_bounds__(LIGHT ? KSS_LIGHT_THREADS : KSS_STEP_THREADS,
                                   LIGHT ? KSS_LIGHT_CTAS : 1)
     spec_eval_cluster_kernel(const __grid_constant__ StepTable<KM> t, int width,
@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(LIGHT ? KSS_LIGHT_THREADS : KSS_STEP_THREADS,
     scope.vols.vb_n = vb_compact(a, c, pvs, slots, sh.i);
   }
   __syncthreads();
-  eval_pod(a, c, scope);
+  eval_pod<W>(a, c, scope);
   // no CTA leaves while another may still read its slots
   cluster.sync();
 }
@@ -147,9 +147,9 @@ static int by_shape(int light, F&& f) {
 extern "C" int kss_step_args_size() { return (int)sizeof(StepArgs); }
 
 // cudaOccupancyMaxActiveClusters of the table size KM's kernel at plan p,
-// asked once per card and per (KM, shape, R, CTA width, shared memory)
+// asked once per card and per (KM, shape, W, R, CTA width, shared memory)
 // for the process; a refused query counts as no room (0).
-template <int KM, bool LIGHT>
+template <int KM, bool LIGHT, bool W>
 static int eval_clusters(const ClusterPlan& p, int ctas, int dev) {
   static std::mutex mu;
   static std::map<std::tuple<int, int, bool, int, int, size_t>, int> memo;
@@ -162,7 +162,7 @@ static int eval_clusters(const ClusterPlan& p, int ctas, int dev) {
     cudaLaunchConfig_t cfg;
     cluster_config(p, 1, ctas, nullptr, attr, &cfg);
     int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, spec_eval_cluster_kernel<KM, LIGHT>, &cfg) !=
+    if (cudaOccupancyMaxActiveClusters(&clusters, spec_eval_cluster_kernel<KM, LIGHT, W>, &cfg) !=
         cudaSuccess) {
       cudaGetLastError();
       clusters = 0;
@@ -202,22 +202,26 @@ extern "C" int kss_eval_plan(const StepArgs* table, int k, int shards, int light
     return (int)cudaErrorInvalidValue;
   return by_shape(light, [&](auto shape) {
     constexpr bool LIGHT = decltype(shape)::value;
-    return by_table(k, [&](auto km) {
-      constexpr int KM = decltype(km)::value;
-      int max_dynamic = 0, dev = 0;
-      cudaError_t err = cluster_attributes<spec_eval_cluster_kernel<KM, LIGHT>>(&max_dynamic);
-      if (err == cudaSuccess) err = cudaGetDevice(&dev);
-      for (int j = 0; j < KSS_EVAL_SIZES && err == cudaSuccess; ++j) {
-        const int ctas = shards << j;
-        clusters[j] = 0;
-        cta_spill[j] = 0;
-        if (ctas > KSS_MAX_CTAS) continue;
-        ClusterPlan p;
-        err = table_plan(table, k, ctas, shards, LIGHT, max_dynamic, &p);
-        clusters[j] = eval_clusters<KM, LIGHT>(p, ctas, dev);
-        cta_spill[j] = p.spill ? (long long)p.bytes : 0;
-      }
-      return (int)err;
+    return by_wide(table, k, [&](auto wide) {
+      constexpr bool W = decltype(wide)::value;
+      return by_table_of<W>(k, [&](auto km) {
+        constexpr int KM = decltype(km)::value;
+        int max_dynamic = 0, dev = 0;
+        cudaError_t err =
+            cluster_attributes<spec_eval_cluster_kernel<KM, LIGHT, W>>(&max_dynamic);
+        if (err == cudaSuccess) err = cudaGetDevice(&dev);
+        for (int j = 0; j < KSS_EVAL_SIZES && err == cudaSuccess; ++j) {
+          const int ctas = shards << j;
+          clusters[j] = 0;
+          cta_spill[j] = 0;
+          if (ctas > KSS_MAX_CTAS) continue;
+          ClusterPlan p;
+          err = table_plan(table, k, ctas, shards, LIGHT, max_dynamic, &p);
+          clusters[j] = eval_clusters<KM, LIGHT, W>(p, ctas, dev);
+          cta_spill[j] = p.spill ? (long long)p.bytes : 0;
+        }
+        return (int)err;
+      });
     });
   });
 }
@@ -234,20 +238,24 @@ extern "C" int kss_spec_eval(const StepArgs* table, int k, int ctas, int shards,
   if (k < 1 || k > KSS_MAX_TABLE || table[0].C < 1) return (int)cudaErrorInvalidValue;
   return by_shape(light, [&](auto shape) {
     constexpr bool LIGHT = decltype(shape)::value;
-    return by_table(k, [&](auto km) {
-      constexpr int KM = decltype(km)::value;
-      int max_dynamic = 0;
-      cudaError_t err = cluster_attributes<spec_eval_cluster_kernel<KM, LIGHT>>(&max_dynamic);
-      ClusterPlan p;
-      if (err == cudaSuccess) err = table_plan(table, k, ctas, shards, LIGHT, max_dynamic, &p);
-      if (err != cudaSuccess) return (int)err;
-      for (int i = 0; i < k; ++i)
-        if (p.spill != (table[i].spill != nullptr)) return (int)cudaErrorInvalidValue;
-      cudaLaunchAttribute attr[1];
-      cudaLaunchConfig_t cfg;
-      cluster_config(p, k * table[0].C, ctas, (cudaStream_t)stream, attr, &cfg);
-      return launch_result(cudaLaunchKernelEx(&cfg, spec_eval_cluster_kernel<KM, LIGHT>,
-                                              make_table<KM>(table, k), p.width, shards));
+    return by_wide(table, k, [&](auto wide) {
+      constexpr bool W = decltype(wide)::value;
+      return by_table_of<W>(k, [&](auto km) {
+        constexpr int KM = decltype(km)::value;
+        int max_dynamic = 0;
+        cudaError_t err =
+            cluster_attributes<spec_eval_cluster_kernel<KM, LIGHT, W>>(&max_dynamic);
+        ClusterPlan p;
+        if (err == cudaSuccess) err = table_plan(table, k, ctas, shards, LIGHT, max_dynamic, &p);
+        if (err != cudaSuccess) return (int)err;
+        for (int i = 0; i < k; ++i)
+          if (p.spill != (table[i].spill != nullptr)) return (int)cudaErrorInvalidValue;
+        cudaLaunchAttribute attr[1];
+        cudaLaunchConfig_t cfg;
+        cluster_config(p, k * table[0].C, ctas, (cudaStream_t)stream, attr, &cfg);
+        return launch_result(cudaLaunchKernelEx(&cfg, spec_eval_cluster_kernel<KM, LIGHT, W>,
+                                                make_table<KM>(table, k), p.width, shards));
+      });
     });
   });
 }

@@ -148,7 +148,8 @@ __device__ __forceinline__ void round_row(T* row, const unsigned* pb, const int*
 
 // The P = np pods c0 .. c0 + np - 1 of session a, their state at `base`.
 // Inlined into each table size's kernel, so a session's arguments are
-// read from the parameter space.
+// read from the parameter space; WIDE is common.cuh's flag W.
+template <bool WIDE>
 __device__ __forceinline__ void round_group(const StepArgs& a, int c0, int np,
                                             unsigned char* base) {
   __shared__ int sh_reject[KSS_MAX_GROUP], sh_count[KSS_MAX_GROUP];
@@ -176,7 +177,7 @@ __device__ __forceinline__ void round_group(const StepArgs& a, int c0, int np,
   for (int n0 = 0; n0 < N; n0 += blockDim.x) {
     const int n = n0 + tid;
     for (int p = 0; p < np; ++p) {
-      const bool feas = n < N && node_filters(a, c0 + p, n, pre KSS_CLOCK(, nullptr));
+      const bool feas = n < N && node_filters<WIDE>(a, c0 + p, n, pre KSS_CLOCK(, nullptr));
       const unsigned word = __ballot_sync(0xffffffffu, feas);
       if (lane == 0 && n < N) bits[p * W + (n >> 5)] = word;
     }
@@ -232,9 +233,10 @@ __device__ __forceinline__ void round_group(const StepArgs& a, int c0, int np,
     const int n = cand[i];
     long long* r = raw + (long long)p * S1 * K + k;
     for (int s = 0; s < a.S; ++s) {
-      const int pid = a.score_ids[s];
+      const int pid = score_id<WIDE>(a, s);
       bool ign = false;
-      r[(long long)s * K] = !valid || score_skipped(a, pid, c) ? 0 : score_raw(a, pid, c, n, ign);
+      r[(long long)s * K] =
+          !valid || score_skipped(a, pid, c) ? 0 : score_raw<WIDE>(a, pid, c, n, ign);
     }
   }
   __syncthreads();
@@ -249,7 +251,7 @@ __device__ __forceinline__ void round_group(const StepArgs& a, int c0, int np,
     const long long* r = raw + (long long)p * S1 * K;
     long long aff_hi = 0, taint_hi = 0;
     for (int s = 0; s < a.S; ++s) {
-      const int pid = a.score_ids[s];
+      const int pid = score_id<WIDE>(a, s);
       if ((pid != P_AFFINITY && pid != P_TAINT) || score_skipped(a, pid, c)) continue;
       long long h = LLONG_MIN;
       for (int k = lane; k < K; k += 32) h = ll_max(h, k < valid_n ? r[(long long)s * K + k] : 0);
@@ -262,14 +264,14 @@ __device__ __forceinline__ void round_group(const StepArgs& a, int c0, int np,
     for (int k = lane; k < K; k += 32) {
       long long tot = 0;
       for (int s = 0; s < a.S; ++s) {
-        const int pid = a.score_ids[s];
+        const int pid = score_id<WIDE>(a, s);
         if (score_skipped(a, pid, c)) continue;
         const long long v = r[(long long)s * K + k];
-        if (k < valid_n) ovf |= raw_narrows(a, s, v);
+        if (k < valid_n) ovf |= raw_narrows<WIDE>(a, s, v);
         long long normed = v;
         if (pid == P_AFFINITY) normed = default_normalize(v, aff_hi, false);
         else if (pid == P_TAINT) normed = default_normalize(v, taint_hi, true);
-        tot += normed * a.score_weight[s];
+        tot += normed * score_weight_of<WIDE>(a, s);
       }
       if (k >= valid_n) tot = -1;
       argmax_pair(best_v, best_k, tot, k);
@@ -297,8 +299,8 @@ __device__ __forceinline__ void round_group(const StepArgs& a, int c0, int np,
     const int* pp = prefix + p * W;
     for (int s = 0; s < a.S; ++s) {
       const long long* r = raw + ((long long)p * S1 + s) * K;
-      const long long at = (long long)a.score_row[s] * N;
-      switch (a.score_group[s]) {
+      const long long at = (long long)score_row_of<WIDE>(a, s) * N;
+      switch (score_group_of<WIDE>(a, s)) {
         case G_RAW8:
           round_row(a.out_raw8 + (long long)c * a.S8 * N + at, pb, pp, r, valid_n, N);
           break;
@@ -318,7 +320,7 @@ __device__ __forceinline__ void round_group(const StepArgs& a, int c0, int np,
   KSS_CLOCK(if (ck) { const unsigned long long t = kss_now(); ck[CR_ROWS] += t - tk; ck[CR_END] = t; })
 }
 
-template <int KM>
+template <int KM, bool WIDE>
 __global__ void __launch_bounds__(ROUND_THREADS, ROUND_BLOCKS)
     spec_round_kernel(const __grid_constant__ StepTable<KM> t, int pods) {
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -329,7 +331,7 @@ __global__ void __launch_bounds__(ROUND_THREADS, ROUND_BLOCKS)
   const int c0 = g * pods;
   unsigned char* base =
       a.spill != nullptr ? a.spill + (size_t)g * round_smem(a, pods).total : dyn;
-  round_group(a, c0, min(pods, a.C - c0), base);
+  round_group<WIDE>(a, c0, min(pods, a.C - c0), base);
 }
 
 #ifdef __CUDACC__
@@ -352,8 +354,8 @@ static bool same_shape(const StepArgs* table, int k) {
 
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor of the table size KM's
 // kernel with `bytes` of dynamic shared memory, asked once per card and
-// per (KM, bytes) for the process; a refused query counts as none (0).
-template <int KM>
+// per (KM, W, bytes) for the process; a refused query counts as none (0).
+template <int KM, bool W>
 static int round_resident(size_t bytes, int dev) {
   static std::mutex mu;
   static std::map<std::tuple<int, size_t>, int> memo;
@@ -361,7 +363,7 @@ static int round_resident(size_t bytes, int dev) {
   auto it = memo.find(std::make_tuple(dev, bytes));
   if (it == memo.end()) {
     int blocks = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, spec_round_kernel<KM>,
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, spec_round_kernel<KM, W>,
                                                       ROUND_THREADS, bytes) != cudaSuccess) {
       cudaGetLastError();
       blocks = 0;
@@ -379,19 +381,23 @@ static int round_resident(size_t bytes, int dev) {
 extern "C" int kss_round_plan(const StepArgs* table, int k, int* resident,
                               long long* cta_spill, int* sms) {
   if (k < 1 || k > KSS_MAX_TABLE || !same_shape(table, k)) return (int)cudaErrorInvalidValue;
-  return by_table(k, [&](auto km) {
-    constexpr int KM = decltype(km)::value;
-    int max_dynamic = 0, dev = 0;
-    cudaError_t err = cluster_attributes<spec_round_kernel<KM>, false>(&max_dynamic);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-    for (int j = 0; j < KSS_GROUP_SIZES && err == cudaSuccess; ++j) {
-      const size_t bytes = round_smem(table[0], 1 << j).total;
-      const bool spill = bytes > (size_t)max_dynamic;
-      resident[j] = spill ? 0 : round_resident<KM>(bytes, dev);
-      cta_spill[j] = spill ? (long long)bytes : 0;
-    }
-    return (int)err;
+  return by_wide(table, k, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    return by_table_of<W>(k, [&](auto km) {
+      constexpr int KM = decltype(km)::value;
+      int max_dynamic = 0, dev = 0;
+      cudaError_t err = cluster_attributes<spec_round_kernel<KM, W>, false>(&max_dynamic);
+      if (err == cudaSuccess) err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+      for (int j = 0; j < KSS_GROUP_SIZES && err == cudaSuccess; ++j) {
+        const size_t bytes = round_smem(table[0], 1 << j).total;
+        const bool spill = bytes > (size_t)max_dynamic;
+        resident[j] = spill ? 0 : round_resident<KM, W>(bytes, dev);
+        cta_spill[j] = spill ? (long long)bytes : 0;
+      }
+      return (int)err;
+    });
   });
 }
 
@@ -404,19 +410,22 @@ extern "C" int kss_spec_round(const StepArgs* table, int k, int pods, void* stre
   if (k < 1 || k > KSS_MAX_TABLE || pods < 1 || pods > KSS_MAX_GROUP || (pods & (pods - 1)) ||
       table[0].C < 1 || table[0].K < 1 || !same_shape(table, k))
     return (int)cudaErrorInvalidValue;
-  return by_table(k, [&](auto km) {
-    constexpr int KM = decltype(km)::value;
-    int max_dynamic = 0;
-    const cudaError_t err = cluster_attributes<spec_round_kernel<KM>, false>(&max_dynamic);
-    if (err != cudaSuccess) return (int)err;
-    const size_t bytes = round_smem(table[0], pods).total;
-    const bool spill = bytes > (size_t)max_dynamic;
-    for (int i = 0; i < k; ++i)
-      if (spill != (table[i].spill != nullptr)) return (int)cudaErrorInvalidValue;
-    const int groups = (table[0].C + pods - 1) / pods;
-    spec_round_kernel<KM><<<k * groups, ROUND_THREADS, spill ? 0 : bytes, (cudaStream_t)stream>>>(
-        make_table<KM>(table, k), pods);
-    return (int)cudaGetLastError();
+  return by_wide(table, k, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    return by_table_of<W>(k, [&](auto km) {
+      constexpr int KM = decltype(km)::value;
+      int max_dynamic = 0;
+      const cudaError_t err = cluster_attributes<spec_round_kernel<KM, W>, false>(&max_dynamic);
+      if (err != cudaSuccess) return (int)err;
+      const size_t bytes = round_smem(table[0], pods).total;
+      const bool spill = bytes > (size_t)max_dynamic;
+      for (int i = 0; i < k; ++i)
+        if (spill != (table[i].spill != nullptr)) return (int)cudaErrorInvalidValue;
+      const int groups = (table[0].C + pods - 1) / pods;
+      spec_round_kernel<KM, W><<<k * groups, ROUND_THREADS, spill ? 0 : bytes,
+                                 (cudaStream_t)stream>>>(make_table<KM>(table, k), pods);
+      return (int)cudaGetLastError();
+    });
   });
 }
 #endif

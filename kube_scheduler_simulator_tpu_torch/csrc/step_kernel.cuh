@@ -1,13 +1,15 @@
 // The cluster kernel of the scheduling step, step_chunk's (step.cu, which
 // documents it) and B12's step_chunk_sharded's: one kernel, the widest
-// slice W and the mesh's "nodes" shards S its parameters (S = 1 without a
+// slice and the mesh's "nodes" shards S its parameters (S = 1 without a
 // mesh), from which each CTA computes its node slice (slices.cuh
-// node_slice).  Its launch plan (W, the CTA's threads and state) is
-// cluster.cuh's.
+// node_slice).  Its launch plan (the width, the CTA's threads and state)
+// is cluster.cuh's.  Its template flag W is common.cuh's: a launch past
+// the fixed tables (step_wide) takes the W = true instantiation.
 #pragma once
 
 #include "cluster.cuh"
 
+template <bool W>
 __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
     step_chunk_kernel(const __grid_constant__ StepArgs a, int width, int shards) {
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -74,13 +76,13 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
               })
 
     // ---- 1-3. pre-pass, node loop, normalize and argmax (pod.cuh)
-    const int sel = eval_pod(b, c, scope);
+    const int sel = eval_pod<W>(b, c, scope);
 
     // ---- 4. the bind.  Every read of the carry for this pod happened
     // before the argmax's cluster barrier; a rejected or padded pod binds
     // nothing.
     KSS_CLOCK(const unsigned long long tb = kss_now();)
-    bind_pod(b, c, sel, lo, hi, scope.owns(sel), true, scope.vols);
+    bind_pod<W>(b, c, sel, lo, hi, scope.owns(sel), true, scope.vols);
     __syncthreads();  // the next pod reads the rows and replicas this one wrote
     KSS_CLOCK(if (ck) {
       const unsigned long long dt = kss_now() - tb;
@@ -106,13 +108,14 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
 // non-portable cluster of 16 CTAs fits on the card, else 8, each rounded
 // down to whole groups of the mesh's `shards` (16 / S CTAs a shard, or
 // 8 / S; 16 or 8 without a mesh).
+template <bool W>
 static int step_auto_ctas(const StepArgs& a, int shards, int max_dynamic) {
   const int wide = KSS_MAX_CTAS / shards * shards;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
   cluster_config(cluster_plan(a, wide, shards, max_dynamic, true), 1, wide, nullptr, attr, &cfg);
-  if (cudaOccupancyMaxActiveClusters(&clusters, step_chunk_kernel, &cfg) == cudaSuccess &&
+  if (cudaOccupancyMaxActiveClusters(&clusters, step_chunk_kernel<W>, &cfg) == cudaSuccess &&
       clusters >= 1)
     return wide;
   cudaGetLastError();  // a refused query only means 8
@@ -127,16 +130,19 @@ static int step_auto_ctas(const StepArgs& a, int shards, int max_dynamic) {
 // cudaErrorInvalidValue.
 extern "C" int kss_step_plan(const StepArgs* args, int ctas, int shards, int* out_ctas,
                              long long* spill_bytes) {
-  int max_dynamic = 0;
-  const cudaError_t err = cluster_attributes<step_chunk_kernel>(&max_dynamic);
-  if (err != cudaSuccess) return (int)err;
-  if (ctas == 0 && cluster_takes(*args, shards, shards))
-    ctas = step_auto_ctas(*args, shards, max_dynamic);
-  if (!cluster_takes(*args, ctas, shards)) return (int)cudaErrorInvalidValue;
-  const ClusterPlan p = cluster_plan(*args, ctas, shards, max_dynamic, true);
-  *out_ctas = ctas;
-  *spill_bytes = p.spill ? (long long)p.bytes * ctas : 0;
-  return (int)cudaSuccess;
+  return by_wide(args, 1, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    int max_dynamic = 0;
+    const cudaError_t err = cluster_attributes<step_chunk_kernel<W>>(&max_dynamic);
+    if (err != cudaSuccess) return (int)err;
+    if (ctas == 0 && cluster_takes(*args, shards, shards))
+      ctas = step_auto_ctas<W>(*args, shards, max_dynamic);
+    if (!cluster_takes(*args, ctas, shards)) return (int)cudaErrorInvalidValue;
+    const ClusterPlan p = cluster_plan(*args, ctas, shards, max_dynamic, true);
+    *out_ctas = ctas;
+    *spill_bytes = p.spill ? (long long)p.bytes * ctas : 0;
+    return (int)cudaSuccess;
+  });
 }
 
 // One launch of a cluster of `ctas` CTAs over `shards` "nodes" shards on
@@ -145,14 +151,17 @@ extern "C" int kss_step_plan(const StepArgs* args, int ctas, int shards, int* ou
 // cudaGetLastError(), so a refused launch is reported at once.
 static int launch_step_cluster(const StepArgs* args, int ctas, int shards, void* stream) {
   if (!cluster_takes(*args, ctas, shards)) return (int)cudaErrorInvalidValue;
-  int max_dynamic = 0;
-  cudaError_t err = cluster_attributes<step_chunk_kernel>(&max_dynamic);
-  if (err != cudaSuccess) return (int)err;
-  const ClusterPlan p = cluster_plan(*args, ctas, shards, max_dynamic, true);
-  if (p.spill != (args->spill != nullptr)) return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  cluster_config(p, 1, ctas, (cudaStream_t)stream, attr, &cfg);
-  return launch_result(cudaLaunchKernelEx(&cfg, step_chunk_kernel, *args, p.width, shards));
+  return by_wide(args, 1, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    int max_dynamic = 0;
+    cudaError_t err = cluster_attributes<step_chunk_kernel<W>>(&max_dynamic);
+    if (err != cudaSuccess) return (int)err;
+    const ClusterPlan p = cluster_plan(*args, ctas, shards, max_dynamic, true);
+    if (p.spill != (args->spill != nullptr)) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg;
+    cluster_config(p, 1, ctas, (cudaStream_t)stream, attr, &cfg);
+    return launch_result(cudaLaunchKernelEx(&cfg, step_chunk_kernel<W>, *args, p.width, shards));
+  });
 }
 #endif

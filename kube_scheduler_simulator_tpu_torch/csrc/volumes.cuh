@@ -212,9 +212,61 @@ __device__ bool vb_greedy(const StepArgs& a, int c, int n, int* chosen, const Po
   return bindfail;
 }
 
+// Past KSS_MAX_VBK claim slots (a pod with more unbound claims) the
+// choice walks the PVs instead of the slots: each PV in (capacity, index)
+// order that is unclaimed and allowed at n goes to the lowest open active
+// slot that wants it.  That is the slot-order choice above: a slot's pick
+// is the first PV in that order it wants that no lower slot took, and the
+// lowest open slot wanting a PV is the one whose pick it is.  The open
+// slots are a bit mask in KSS_VB_WORDS words, so no chosen set is kept;
+// `claim` marks each PV given to a slot claimed (the bind at sel).
+// Returns whether some active slot can neither take a PV nor provision.
+#define KSS_VB_WORDS 4   // at most 256 claim slots a pod (kernels/step.py MAX_VBK_WIDE)
+
+__device__ bool vb_greedy_wide(const StepArgs& a, int c, int n, bool claim) {
+  unsigned long long open[KSS_VB_WORDS];
+  const int words = (a.VK + 63) >> 6;
+  const unsigned char* active = a.vb_active + (long long)c * a.VK;
+  int left = 0;
+  for (int w = 0; w < words; ++w) {
+    unsigned long long m = 0;
+    for (int b = 0; b < 64 && w * 64 + b < a.VK; ++b)
+      if (active[w * 64 + b]) m |= 1ull << b;
+    open[w] = m;
+    left += __popcll(m);
+  }
+  const unsigned char* want = a.vb_want + (long long)c * a.VK * a.VV;
+  for (int e = 0; e < a.VV && left > 0; ++e) {
+    const int v = a.vb_order[e];
+    if (a.vb_claimed[v] || !a.vb_pv_node_ok[(long long)v * a.N + n]) continue;
+    bool given = false;
+    for (int w = 0; w < words && !given; ++w)
+      for (unsigned long long m = open[w]; m != 0; m &= m - 1) {
+        const int k = w * 64 + __ffsll((long long)m) - 1;
+        if (want[(long long)k * a.VV + v]) {
+          open[w] &= ~(1ull << (k & 63));
+          --left;
+          given = true;
+          break;
+        }
+      }
+    if (given && claim) a.vb_claimed[v] = 1;
+  }
+  bool bindfail = false;
+  for (int w = 0; w < words; ++w)
+    for (unsigned long long m = open[w]; m != 0; m &= m - 1) {
+      const int k = w * 64 + __ffsll((long long)m) - 1;
+      bindfail |= !a.vb_provision_ok[((long long)c * a.VK + k) * a.N + n];
+    }
+  return bindfail;
+}
+
+template <bool W>
 __device__ int vb_filter(const StepArgs& a, int c, int n, const PodVolumes& pv) {
-  int chosen[KSS_MAX_VBK];
   const int code = a.vb_bound_code[(long long)c * a.vb_width + (a.vb_width == 1 ? 0 : n)];
+  if constexpr (W)
+    if (a.VK > KSS_MAX_VBK) return code | (vb_greedy_wide(a, c, n, false) ? 2 : 0);
+  int chosen[KSS_MAX_VBK];
   return code | (vb_greedy(a, c, n, chosen, pv) ? 2 : 0);
 }
 
@@ -222,8 +274,15 @@ __device__ int vb_filter(const StepArgs& a, int c, int n, const PodVolumes& pv) 
 // against the claims as they were before this bind (only called with
 // sel >= 0, by every block that keeps the cluster-wide claims).  One
 // thread: a handful of claim slots.
+template <bool W>
 __device__ void vb_bind(const StepArgs& a, int c, int sel, const PodVolumes& pv) {
   if (threadIdx.x != 0 || a.VV == 0 || a.VK == 0) return;
+  if constexpr (W) {
+    if (a.VK > KSS_MAX_VBK) {
+      vb_greedy_wide(a, c, sel, true);
+      return;
+    }
+  }
   int chosen[KSS_MAX_VBK];
   vb_greedy(a, c, sel, chosen, pv);
   for (int k = 0; k < a.VK; ++k)
@@ -261,6 +320,7 @@ __device__ int nvl_compact(const StepArgs& a, int c, int* out, int* sh) {
 // slot of the pod wants, in (capacity, index) order, each with the bits
 // of the slots that want it.
 __device__ int vb_compact(const StepArgs& a, int c, int* out, unsigned char* slots, int* sh) {
+  if (a.VK > KSS_MAX_VBK) return 0;  // uniform: the wide walk reads the whole order
   unsigned active = 0;
   for (int k = 0; k < a.VK; ++k)
     if (a.vb_active[(long long)c * a.VK + k]) active |= 1u << k;

@@ -46,6 +46,7 @@ import time
 import weakref
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from typing import Any
 
 import numpy as np
@@ -188,7 +189,11 @@ class _CompactChunks:
             fault_point("replay.materialize")
             if self.ready[ci] is not None:
                 self.ready[ci].synchronize()  # written on another thread's stream
-            fetched = {g: _to_host(getattr(self, g)[ci]) for g in self.GROUPS}
+            # the span rides a conditional context manager: on-demand reads
+            # only, not the budget's background spills (JAX replay.py:189)
+            with (nullcontext() if spill
+                  else TRACER.span("d2h_fetch", chunk=ci)):  # kss-analyze: allow(unbalanced-span)
+                fetched = {g: _to_host(getattr(self, g)[ci]) for g in self.GROUPS}
             dt = time.perf_counter() - t0
         except BaseException:
             _MATERIALIZE_FAILS.fail()
@@ -205,14 +210,20 @@ class _CompactChunks:
             del self._inflight[ci]
         ev.set()
         _DEVICE_BUDGET.release(self, ci)
+        nbytes = sum(a.nbytes for a in fetched.values())
         if spill:
             sid = TRACER.current_session()
             if sid is not None:
                 TRACER.inc("device_chunks_spilled_total", session=sid)
             else:
                 TRACER.count("device_chunks_spilled_total")
+            # black-box spill evidence: which chunk left the card, how big
+            # (utils/blackbox.py)
+            from ..utils.blackbox import BLACKBOX
+
+            BLACKBOX.record("budget.spill", chunk=ci, bytes=int(nbytes))
         else:
-            TRACER.count("d2h_on_demand_bytes_total", sum(a.nbytes for a in fetched.values()))
+            TRACER.count("d2h_on_demand_bytes_total", nbytes)
             TRACER.observe("d2h_on_demand_seconds", dt)
 
 
@@ -259,6 +270,7 @@ class _DeviceResultBudget:
             ent = self._entries.pop(self._dead.popleft(), None)
             if ent is not None:
                 self._total -= ent[2]
+        TRACER.gauge("device_chunks_retained", len(self._entries))
 
     def retain(self, cc: _CompactChunks, ci: int, nbytes: int) -> None:
         key = (id(cc), ci)
@@ -273,6 +285,7 @@ class _DeviceResultBudget:
             self._prune_locked()
             self._entries[key] = [weakref.ref(cc, _gone), ci, nbytes, False, 0, session]
             self._total += nbytes
+            TRACER.gauge("device_chunks_retained", len(self._entries))
         self._enforce()
 
     def release(self, cc: _CompactChunks, ci: int) -> None:
@@ -1037,6 +1050,7 @@ def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chun
         if result is not None:
             result.tiers = tiers[:k + 1]
             return result
+        TRACER.count("replay_width_retries_total")
     raise AssertionError("unreachable: i64 replay cannot overflow")
 
 
@@ -1208,6 +1222,7 @@ def _replay_run(cw: CompiledWorkload, chunk: int, wide: str | None, collect: boo
         compact.ready.append(landing.event if dev_out is not None else None)
         compact.att.append(att)
         compact.d2h_bytes.append(c["_d2h_bytes"])
+        TRACER.count("wave_d2h_bytes_total", c["_d2h_bytes"])
         if dev_out is not None:
             ci = len(compact.packed) - 1
             _DEVICE_BUDGET.retain(compact, ci, compact.device_nbytes(ci))

@@ -31,6 +31,14 @@ warps a pod, P pods a CTA; `_warps=` and `_pods=` force them, and
 `chunk_attribution.shape` records the last launch's), and adds one to
 `launches`; for tensors on the CPU it runs the plain version.  There is
 no fallback: a failed build or launch raises.
+
+Past the fixed sizes (`att_path`): a pod's bitmap past ATT_SMEM (the
+default 48 KB, 393,216 nodes) takes the card's opt-in shared memory, one
+pod a CTA, up to ATT_SMEM_MAX (1,843,200 nodes), and device memory past
+that; more than MAX_F filters or MAX_Q device score columns take the
+kernel's wide form (one pod a CTA, the histogram and sums in shared
+memory).  `chunk_attribution.path` records the last launch's
+(bitmap place, wide or not).
 """
 
 from __future__ import annotations
@@ -41,13 +49,14 @@ import torch
 
 from . import step as kstep
 
-MAX_F, MAX_Q = 16, 8
+MAX_F, MAX_Q = 16, 8       # the kernel's fixed form; past either, its wide form
 ATT_WARPS = (1, 2, 4, 8)   # warps a pod the kernel takes
 ATT_PODS = (1, 2, 4, 8)    # pods a CTA
 ATT_MAX_WARPS = 8          # a CTA's warps (csrc/attribution.cu ATT_MAX_WARPS)
 ATT_IN_FLIGHT = 2048       # warps a launch aims to run at once: about 16 an SM of 132
 ATT_NODES_A_WARP = 1024    # a warp of a pod takes at least this many nodes
 ATT_SMEM = 48 * 1024       # the pods' bitmaps: the default dynamic shared memory
+ATT_SMEM_MAX = 225 * 1024  # one pod's bitmap in the opt-in shared memory (csrc ATT_SMEM_MAX)
 _GROUP_CODE = {"raw8": 1, "raw16": 2, "raw32": 3}
 _P = ctypes.c_void_p
 
@@ -58,7 +67,7 @@ class AttArgs(ctypes.Structure):
     _fields_ = [
         *[(name, _P) for name in (
             "packed", "raw8", "raw16", "raw32", "fc", "fskip", "sskip",
-            "s_sum", "feas_packed", "totals")],
+            "s_sum", "feas_packed", "totals", "bits", "cols")],
         ("col_group", ctypes.c_int * MAX_Q),
         ("col_row", ctypes.c_int * MAX_Q),
         ("col_scorer", ctypes.c_int * MAX_Q),
@@ -74,20 +83,33 @@ def att_shape(c: int, n: int, f: int, q: int) -> tuple[int, int]:
     while the launch has fewer than ATT_IN_FLIGHT warps and each warp keeps
     at least ATT_NODES_A_WARP nodes (up to 8); P makes a CTA at least four
     warps, halved while the pods' bitmaps (ceil(n / 32) words each) pass
-    ATT_SMEM.  f and q only bound the kernel (16 and 8)."""
-    if c < 1 or n < 0 or not 0 <= f <= MAX_F or not 0 <= q <= MAX_Q:
+    ATT_SMEM.  Past MAX_F filters or MAX_Q columns (the wide form) P is 1."""
+    if c < 1 or n < 0 or f < 0 or q < 0:
         raise ValueError(f"chunk_attribution: {c} pods, {n} nodes, {f} filters, {q} device "
-                         f"score columns (the kernel takes {MAX_F} and {MAX_Q})")
+                         f"score columns")
     words = (n + 31) // 32
-    if 4 * words > ATT_SMEM:
-        raise ValueError(f"chunk_attribution: {n} nodes, a bitmap past {ATT_SMEM} bytes")
     w = 1
     while w < ATT_WARPS[-1] and c * w < ATT_IN_FLIGHT and n >= 2 * w * ATT_NODES_A_WARP:
         w *= 2
-    pods = max(1, 4 // w)
+    pods = 1 if f > MAX_F or q > MAX_Q else max(1, 4 // w)
     while pods > 1 and pods * 4 * words > ATT_SMEM:
         pods //= 2
     return w, pods
+
+
+def att_path(n: int, pods: int, f: int, q: int) -> tuple[str, bool]:
+    """Where a launch of P pods a CTA keeps its bitmaps ("shared" within
+    ATT_SMEM, "optin" for one pod within ATT_SMEM_MAX, else "device") and
+    whether it takes the wide form (more than MAX_F filters or MAX_Q
+    columns)."""
+    wide = f > MAX_F or q > MAX_Q
+    nbytes = 4 * ((n + 31) // 32)
+    extra = 8 * q + 16 * -(-f // 4) if wide else 0  # the wide form's sums and histogram
+    if pods * nbytes + extra <= ATT_SMEM:
+        return "shared", wide
+    if pods == 1 and nbytes + extra <= ATT_SMEM_MAX:
+        return "optin", wide
+    return "device", wide
 
 
 def chunk_attribution_plain(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
@@ -165,10 +187,11 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
     f, q = fskip_c.shape[0], len(dev_cols)
     warps, pods = att_shape(c, n, f, q)
     warps, pods = _warps or warps, _pods or pods
+    place, wide = att_path(n, pods, f, q)
     if warps not in ATT_WARPS or pods not in ATT_PODS or warps * pods > ATT_MAX_WARPS \
-            or pods * 4 * ((n + 31) // 32) > ATT_SMEM:
+            or (pods > 1 and (wide or place != "shared")):
         raise ValueError(f"chunk_attribution: {warps} warps a pod, {pods} pods a CTA at "
-                         f"{n} nodes")
+                         f"{n} nodes, {f} filters, {q} columns")
     pack_bytes = packed.element_size()
     if pack_bytes not in (1, 2, 4, 8) or packed.dtype.is_floating_point:
         raise ValueError(f"chunk_attribution: packed words of {packed.dtype}")
@@ -203,8 +226,18 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
                     ("totals", totals)):
         setattr(a, name, t.data_ptr())
     a.feas_packed = out["feas_packed"].data_ptr() if want_pack else None
-    for k, (s, group, row) in enumerate(dev_cols):
-        a.col_group[k], a.col_row[k], a.col_scorer[k] = _GROUP_CODE[group], row, s
+    cols = bits = None  # held through the launch
+    if wide:
+        cols = torch.tensor([[_GROUP_CODE[g] for _, g, _ in dev_cols], [r for _, _, r in dev_cols],
+                             [s for s, _, _ in dev_cols]], dtype=torch.int32)
+        cols = cols.pin_memory().to(dev, non_blocking=True)
+        a.cols = cols.data_ptr()
+    else:
+        for k, (s, group, row) in enumerate(dev_cols):
+            a.col_group[k], a.col_row[k], a.col_scorer[k] = _GROUP_CODE[group], row, s
+    if place == "device" and (q > 0 or want_pack):
+        bits = torch.empty((-(-c // pods) * pods, (n + 31) // 32), dtype=torch.int32, device=dev)
+        a.bits = bits.data_ptr()
     a.c, a.n, a.m, a.f, a.q = c, n, min(max(int(m), 0), c), f, q
     a.s8, a.s16, a.s32 = raw8.shape[1], raw16.shape[1], raw32.shape[1]
     a.pack_bytes, a.code_bits = pack_bytes, code_bits
@@ -214,6 +247,7 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
                        lib.kss_chunk_attribution(ctypes.byref(a), kstep.stream_of(dev)))
     chunk_attribution.launches += 1
     chunk_attribution.shape = (warps, pods)
+    chunk_attribution.path = (place, wide)
     if not f:
         del out["f_rejects"], out["f_evaluated"]
     if not q:
@@ -223,3 +257,4 @@ def chunk_attribution(packed, raw8, raw16, raw32, fc, fskip_c, sskip_c,
 
 chunk_attribution.launches = 0
 chunk_attribution.shape = None
+chunk_attribution.path = None

@@ -70,7 +70,9 @@ phased_eval.shards = None
 RENORM_CTAS = (1, 2, 4, 8, 16)  # CTAs of a row's cluster in csrc/phased.cu
 RENORM_THREADS = 512            # the widest CTA (csrc/phased.cu RENORM_THREADS)
 RENORM_PASSES = 3               # passes of a CTA over its slice before G grows
-MAX_ROWS = kstep.MAX_S          # rows a launch (csrc/common.cuh KSS_MAX_S)
+# rows a launch (csrc/phased.cu RENORM_MAX_ROWS): a pod's rows are its
+# scorers with ScoreExtensions, each once, so at most four reach it
+MAX_ROWS = 16
 
 
 def renorm_ctas(n: int) -> int:

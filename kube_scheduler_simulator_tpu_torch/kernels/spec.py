@@ -193,8 +193,9 @@ def launch_eval(what: str, entries: list, groups: int, shards: int = 1,
     k, b = len(entries), entries[0][2]["is_pad"].shape[0]
     n = entries[0][0].cw.n_nodes
     table = (kstep.StepArgs * k)()
-    for i, (step, carry, xs, outs) in enumerate(entries):
-        table[i] = kstep.make_args(step, carry, xs, outs)
+    member_args = [kstep.make_args(step, carry, xs, outs) for step, carry, xs, outs in entries]
+    for i, args in enumerate(member_args):  # kept: their tables on the card outlive the launch
+        table[i] = args
 
     def plan(shape: bool):
         clusters = (ctypes.c_int * len(EVAL_SHARDS))()
@@ -634,8 +635,9 @@ def launch_round(what: str, entries: list, kcand: int, pods: int, clocks=None) -
     lib = kstep.load_lib("spec_round" if clocks is None else "spec_round_clock")
     k, b = len(entries), entries[0][2]["is_pad"].shape[0]
     table = (kstep.StepArgs * k)()
-    for i, (step, carry, xs, outs) in enumerate(entries):
-        table[i] = kstep.make_args(step, carry, xs, outs)
+    member_args = [kstep.make_args(step, carry, xs, outs) for step, carry, xs, outs in entries]
+    for i, args in enumerate(member_args):  # kept: their tables on the card outlive the launch
+        table[i] = args
         table[i].K = kcand
     for i, ck in enumerate(clocks or ()):
         table[i].clock = kstep._ptr(ck, torch.int64, (b * kstep.CLOCK_SLOTS,), "clock")

@@ -19,7 +19,14 @@ main path went through the kernel.
 The kernel takes its ~100 pointers and its scalars in one C struct,
 `StepArgs` (csrc/common.cuh), mirrored here as a ctypes.Structure; the
 wrapper checks every tensor's device, dtype, shape and contiguity before
-it takes a pointer.
+it takes a pointer.  The step's tables (plugin ids, weights, the raw
+groups, the custom slots, the strategies' resources and shape points) sit
+in StepArgs' fixed arrays while they fit (MAX_F filters, MAX_S scorers,
+MAX_CUSTOM custom plugins with rows, MAX_RES resources, MAX_SHAPE shape
+points); a workload past any of them gets all its tables in one int64
+array on the card (`StepArgs.ext`, `step_tables`), which the kernels read
+instead.  The one bound left is VolumeBinding's: MAX_VBK_WIDE unbound
+claims a pod (csrc/volumes.cuh KSS_VB_WORDS), past which make_args raises.
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ from ..plugins.fitscoring import parse_balanced_resources, parse_fit_strategy
 from ..plugins.topologyspread import MAX_CONSTRAINTS
 from ..state.resources import CPU, MEMORY
 
+# StepArgs' fixed arrays (csrc/common.cuh KSS_MAX_*): past any of them the
+# tables go to StepArgs.ext
 MAX_F, MAX_S, MAX_RES, MAX_SHAPE, MAX_VBK, MAX_CUSTOM = 16, 16, 8, 16, 8, 8
+MAX_VBK_WIDE = 256  # unbound claims a pod on the card (csrc/volumes.cuh KSS_VB_WORDS x 64)
 
 PLUGIN_IDS = {
     "NodeResourcesFit": 0,
@@ -88,7 +98,7 @@ _OUT_PTR_FIELDS = (
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
-    "clock", "spill",
+    "clock", "spill", "ext",
 )
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
@@ -168,13 +178,13 @@ def _score_groups(step):
 def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
     """Fill StepArgs from the workload, the carry, the chunk's xs and the
     output tensors (none when `outs` is None), checking each tensor on the
-    way."""
+    way.  Past the fixed arrays the tables go to a device array
+    (step_tables) that the returned StepArgs holds (`ext_tensor`): keep
+    the StepArgs until the launch has been issued."""
     cw = step.cw
     n, r = cw.n_nodes, cw.schema.n
     c = xs["is_pad"].shape[0]
     f, s = len(step.filter_names), len(step.score_names)
-    if f > MAX_F or s > MAX_S:
-        raise ValueError(f"{f} filters / {s} scorers: the kernel takes at most {MAX_F} / {MAX_S}")
     i64, i32, i16, u8, f64, b = (torch.int64, torch.int32, torch.int16, torch.uint8,
                                  torch.float64, torch.bool)
     a = StepArgs()
@@ -242,32 +252,7 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
         a.ip_filter_skip = _ptr(x.filter_skip, b, (c,), "interpod filter_skip")
 
     _plugin_args(a, cw, carry, xs, c, n)
-    ids = {**PLUGIN_IDS, **_custom_args(a, step, xs, c, n)}
-
-    for k, name in enumerate(step.filter_names):
-        a.filter_ids[k] = ids[name]
-    for k, name in enumerate(step.score_names):
-        a.score_ids[k] = ids[name]
-        a.score_weight[k] = step.weights[k]
-
-    strategy = parse_fit_strategy(cw.config.args.get("NodeResourcesFit"))
-    rtcr = strategy.stype == fitscoring.REQUESTED_TO_CAPACITY_RATIO
-    if len(strategy.resources) > MAX_RES or len(strategy.shape) > MAX_SHAPE:
-        raise ValueError("fit strategy larger than the kernel takes")
-    a.fit_type = FIT_TYPES[strategy.stype]
-    a.fit_nres = len(strategy.resources)
-    for k, (name, w) in enumerate(strategy.resources):
-        a.fit_src[k], a.fit_col[k], a.fit_need_request[k] = _resource_desc(name, cw.schema, rtcr)
-        a.fit_weight[k] = w
-    a.fit_nshape = len(strategy.shape)
-    for k, (u, sc) in enumerate(strategy.shape):
-        a.shape_u[k], a.shape_s[k] = u, sc
-    balanced = parse_balanced_resources(cw.config.args.get("NodeResourcesBalancedAllocation"))
-    if len(balanced) > MAX_RES:
-        raise ValueError("balanced allocation over more resources than the kernel takes")
-    a.bal_nres = len(balanced)
-    for k, name in enumerate(balanced):
-        a.bal_src[k], a.bal_col[k], a.bal_need_request[k] = _resource_desc(name, cw.schema, False)
+    _tables(a, step, xs, c, n, carry["core"].requested.device)
 
     if outs is None:
         return a
@@ -276,7 +261,7 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
         a.out_raw = _ptr(outs["score_raw"], i32, (c, s, n), "score_raw")
         a.out_final = _ptr(outs["score_final"], i32, (c, s, n), "score_final")
     else:
-        groups, rows, counts, check, raw32_bytes = _score_groups(step)
+        _, _, counts, check, raw32_bytes = _score_groups(step)
         dtype, code_bits, _ = PACK_MODES[step.pack_mode]
         a.compact = 1
         a.pack_code_bits = code_bits
@@ -284,8 +269,6 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
         a.raw32_bytes = raw32_bytes
         a.check_group = check
         a.S8, a.S16, a.S32 = counts[G_RAW8], counts[G_RAW16], counts[G_RAW32]
-        for k in range(s):
-            a.score_group[k], a.score_row[k] = groups[k], rows[k]
         a.out_packed = _ptr(outs["packed_filter"], dtype, (c, n), "packed_filter")
         a.out_raw8 = _ptr(outs["raw8"], torch.int8, (c, a.S8, n), "raw8")
         a.out_raw16 = _ptr(outs["raw16"], i16, (c, a.S16, n), "raw16")
@@ -296,6 +279,90 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
     a.out_feasible_count = _ptr(outs["feasible_count"], i32, (c,), "feasible_count")
     a.out_prefilter_reject = _ptr(outs["prefilter_reject"], i32, (c,), "prefilter_reject")
     return a
+
+
+def step_tables(step, xs, c: int, n: int) -> dict:
+    """The step's tables, each a list: filter and score plugin ids, score
+    weights, raw groups and rows (compact mode; 0 in full mode), the
+    NodeResourcesFit strategy's (source, column, need-request, weight) per
+    resource and its shape points, BalancedAllocation's (source, column,
+    need-request) per resource, the fit type, and each custom slot's
+    (codes, scores) addresses in slot order, checked."""
+    cw = step.cw
+    s = len(step.score_names)
+    slots = custom_ids(step)  # in slot order
+    ids = {**PLUGIN_IDS, **slots}
+    custom = [(_ptr(xs[name].codes, torch.int32, (c, n), f"{name}.codes"),
+               _ptr(xs[name].scores, torch.int64, (c, n), f"{name}.scores")) for name in slots]
+    strategy = parse_fit_strategy(cw.config.args.get("NodeResourcesFit"))
+    rtcr = strategy.stype == fitscoring.REQUESTED_TO_CAPACITY_RATIO
+    balanced = parse_balanced_resources(cw.config.args.get("NodeResourcesBalancedAllocation"))
+    groups, rows = ([0] * s, [0] * s) if step.out_mode == "full" else _score_groups(step)[:2]
+    return {
+        "filters": [ids[name] for name in step.filter_names],
+        "scores": [ids[name] for name in step.score_names],
+        "weights": [int(w) for w in step.weights],
+        "groups": groups, "rows": rows,
+        "fit": [(*_resource_desc(name, cw.schema, rtcr), int(w))
+                for name, w in strategy.resources],
+        "shape": [(int(u), int(sc)) for u, sc in strategy.shape],
+        "balanced": [_resource_desc(name, cw.schema, False) for name in balanced],
+        "fit_type": FIT_TYPES[strategy.stype],
+        "custom": custom,
+    }
+
+
+def tables_fit(t: dict) -> bool:
+    """Whether the tables fit StepArgs' fixed arrays (else StepArgs.ext)."""
+    return (len(t["filters"]) <= MAX_F and len(t["scores"]) <= MAX_S
+            and len(t["custom"]) <= MAX_CUSTOM and len(t["fit"]) <= MAX_RES
+            and len(t["shape"]) <= MAX_SHAPE and len(t["balanced"]) <= MAX_RES)
+
+
+def ext_values(t: dict) -> list[int]:
+    """The tables as csrc/common.cuh lays them out in StepArgs.ext."""
+    vals = [*t["filters"], *t["scores"], *t["weights"], *t["groups"], *t["rows"]]
+    for j in range(4):
+        vals += [d[j] for d in t["fit"]]
+    for j in range(2):
+        vals += [p[j] for p in t["shape"]]
+    for j in range(3):
+        vals += [d[j] for d in t["balanced"]]
+    for codes, scores in t["custom"]:
+        vals += [codes, scores]
+    return vals
+
+
+def _tables(a: StepArgs, step, xs, c: int, n: int, dev: torch.device) -> None:
+    """The step's tables into the fixed arrays, or, past them, into one
+    int64 array on dev that a.ext points to (held as a.ext_tensor)."""
+    t = step_tables(step, xs, c, n)
+    a.fit_type = t["fit_type"]
+    a.fit_nres, a.fit_nshape, a.bal_nres = len(t["fit"]), len(t["shape"]), len(t["balanced"])
+    if not tables_fit(t):
+        host = torch.tensor(ext_values(t), dtype=torch.int64)
+        if dev.type == "cuda":
+            # a pinned source: the copy queues behind the launches so far
+            # and the allocator keeps the buffer until it has run
+            ext = host.pin_memory().to(dev, non_blocking=True)
+        else:
+            ext = host
+        a.ext = ext.data_ptr()
+        a.ext_tensor = ext
+        return
+    for k, pid in enumerate(t["filters"]):
+        a.filter_ids[k] = pid
+    for k, pid in enumerate(t["scores"]):
+        a.score_ids[k], a.score_weight[k] = pid, t["weights"][k]
+        a.score_group[k], a.score_row[k] = t["groups"][k], t["rows"][k]
+    for k, (src, col, need, w) in enumerate(t["fit"]):
+        a.fit_src[k], a.fit_col[k], a.fit_need_request[k], a.fit_weight[k] = src, col, need, w
+    for k, (u, sc) in enumerate(t["shape"]):
+        a.shape_u[k], a.shape_s[k] = u, sc
+    for k, (src, col, need) in enumerate(t["balanced"]):
+        a.bal_src[k], a.bal_col[k], a.bal_need_request[k] = src, col, need
+    for k, (codes, scores) in enumerate(t["custom"]):
+        a.cu_codes[k], a.cu_scores[k] = codes, scores
 
 
 def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
@@ -353,9 +420,9 @@ def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
     if "VolumeBinding" in cw.statics:
         st, x, bc = cw.statics["VolumeBinding"], xs["VolumeBinding"], carry["VolumeBinding"]
         a.VV, a.VK = st.pv_cap.shape[0], x.active.shape[1]
-        if a.VK > MAX_VBK:
-            raise ValueError(f"{a.VK} unbound claims in one pod: the kernel takes at most "
-                             f"{MAX_VBK}")
+        if a.VK > MAX_VBK_WIDE:
+            raise ValueError(f"{a.VK} unbound claims in one pod: the card takes at most "
+                             f"{MAX_VBK_WIDE} (csrc/volumes.cuh KSS_VB_WORDS)")
         a.vb_width = x.bound_code.shape[-1]
         if a.vb_width not in (1, n):
             raise ValueError(f"VolumeBinding.bound_code: shape {tuple(x.bound_code.shape)}")
@@ -378,21 +445,7 @@ def custom_ids(step) -> dict[str, int]:
     with (B13): P_CUSTOM + its index in name order."""
     cfg = step.cw.config
     names = sorted({n for n in (*step.filter_names, *step.score_names) if cfg.is_custom(n)})
-    if len(names) > MAX_CUSTOM:
-        raise ValueError(f"{len(names)} custom plugins with rows: the kernel takes at most "
-                         f"{MAX_CUSTOM}")
     return {name: P_CUSTOM + k for k, name in enumerate(names)}
-
-
-def _custom_args(a: StepArgs, step, xs, c: int, n: int) -> dict[str, int]:
-    """B13: each custom plugin's [C, N] codes and raw scores on its slot,
-    checked -> custom_ids(step)."""
-    ids = custom_ids(step)
-    for name, pid in ids.items():
-        x = xs[name]
-        a.cu_codes[pid - P_CUSTOM] = _ptr(x.codes, torch.int32, (c, n), f"{name}.codes")
-        a.cu_scores[pid - P_CUSTOM] = _ptr(x.scores, torch.int64, (c, n), f"{name}.scores")
-    return ids
 
 
 def alloc_outputs(step, c: int, device) -> dict:

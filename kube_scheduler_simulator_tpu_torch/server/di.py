@@ -159,11 +159,13 @@ class DIContainer:
         if ((self.cfg.external_import_enabled or self.cfg.resource_sync_enabled)
                 and source_store is None and self.cfg.kube_config):
             # the reference builds a client-go config from the kubeConfig
-            # field for import/sync sources (config.go:94-98); the JAX
-            # package dials it through cluster/kubeapi.py
-            raise NotImplementedError(
-                "a kubeConfig import/sync source needs cluster/kubeapi.py, which is not "
-                "ported (ROADMAP Queue A item 10); pass source_store instead")
+            # field for import/sync sources (config.go:94-98); here that
+            # is a real-apiserver REST client (or a simulator URL —
+            # connect_source probes)
+            from ..cluster.kubeapi import connect_source
+
+            source_store = connect_source(self.cfg.kube_config)
+            self._owned_source = source_store
         if self.cfg.external_import_enabled:
             if source_store is None:
                 raise ValueError("externalImportEnabled requires a source "
@@ -199,3 +201,11 @@ class DIContainer:
             self.syncer.stop()
         if self.recorder:
             self.recorder.stop()
+        src = getattr(self, "_owned_source", None)
+        if src is not None:
+            # a source THIS container dialed from cfg.kube_config — release
+            # its watch threads/sockets (callers own any source they pass)
+            if hasattr(src, "close"):
+                src.close()
+            elif hasattr(src, "stop"):
+                src.stop()

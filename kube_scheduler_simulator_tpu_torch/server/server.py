@@ -43,7 +43,7 @@ ties the HTTP request to its wave, speculative rounds and fused
 dispatches across every surface above.
   GET  /api/v1/debug/dump       -> wave black-box post-mortem bundle
                                    (?session=; utils/blackbox.py)
-  POST /api/v1/profile          -> device profile start/stop: not ported
+  POST /api/v1/profile          -> PyTorch profile start/stop (409 on bad state)
                                    (501 with utils/tracing.py's message;
                                    ROADMAP Queue A item 11)
   GET  /healthz | /readyz       -> liveness / scheduling-loop readiness
@@ -477,27 +477,30 @@ def _make_handler(server: SimulatorServer):
         def _profile(self):
             """POST /api/v1/profile {"action": "start", "logDir": ...} /
             {"action": "stop"} — device profile capture around live
-            scheduling (additive observability, SURVEY.md §5).  Invalid
-            state transitions (double start, stop without start) are a
-            409 Conflict with a JSON error body, never a 500.  The port
-            has no profile capture yet: 501 with the tracer's message."""
+            scheduling (additive observability, SURVEY.md §5): a PyTorch
+            profile (utils/tracing.py), whose Chrome trace the stop
+            writes into logDir and names as "trace".  Invalid state
+            transitions (double start, stop without start) are a 409
+            Conflict with a JSON error body, never a 500."""
+            import os
+            import tempfile
+
             from ..utils.tracing import TRACER, ProfileStateError
 
             body = self._body() or {}
             action = body.get("action")
             try:
                 if action == "start":
-                    log_dir = body.get("logDir") or "/tmp/kss-tpu-profile"
+                    log_dir = body.get("logDir") or os.path.join(tempfile.gettempdir(),
+                                                                 "kss-tpu-profile")
                     TRACER.start_xla_profile(log_dir)
                     return self._json(200, {"profiling": True, "logDir": log_dir})
                 if action == "stop":
-                    d = TRACER.stop_xla_profile()
-                    return self._json(200, {"profiling": False, "logDir": d})
+                    path = TRACER.stop_xla_profile()
+                    return self._json(200, {"profiling": False,
+                                            "logDir": os.path.dirname(path), "trace": path})
             except ProfileStateError as e:
                 return self._json(409, {"reason": "Conflict",
-                                        "message": str(e)})
-            except NotImplementedError as e:
-                return self._json(501, {"reason": "NotImplemented",
                                         "message": str(e)})
             return self._json(400, {"reason": "BadRequest",
                                     "message": "action must be start or stop"})

@@ -1,7 +1,8 @@
 """Wave flight recorder: tracing and metrics for the scheduling engine.
 
 A copy of kube_scheduler_simulator_tpu/utils/tracing.py, host code with its
-imports rewired to the port. Its device profile capture (jax.profiler) is not ported and raises.
+imports rewired to the port. Its device profile capture runs torch.profiler
+(CPU activity, and CUDA's where a card is present) and writes a Chrome trace.
 
 Additive over the reference (SURVEY.md §5: the reference has no tracing
 beyond the per-Pod annotation record; the upstream scheduler only
@@ -56,6 +57,59 @@ BLACKBOX_OPEN_SPANS = os.environ.get("KSS_TPU_BLACKBOX", "1") != "0"
 class ProfileStateError(RuntimeError):
     """Invalid XLA-profile state transition (double start, stop without
     start) — the server maps it to HTTP 409."""
+
+
+class _ProfileSession:
+    """One torch.profiler session on a thread of its own: the profiler
+    must start and stop on one thread, and the server answers each
+    request on another.  The thread starts the profile, waits for stop(),
+    stops it and exports the Chrome trace."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self._started = threading.Event()
+        self._stop = threading.Event()
+        self._done = threading.Event()
+        self._error: BaseException | None = None
+        self.path = os.path.join(log_dir, f"kss-profile-{os.getpid()}-{time.time_ns()}.json")
+        os.makedirs(log_dir, exist_ok=True)
+        self._thread = threading.Thread(target=self._run, name="kss-profile", daemon=True)
+        self._thread.start()
+        self._started.wait()
+        if self._error is not None:
+            self._thread.join()
+            raise ProfileStateError(str(self._error)) from self._error
+
+    def _run(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=activities)
+            prof.start()
+        except RuntimeError as e:  # a profiler session started outside this tracer
+            self._error = e
+            self._started.set()
+            return
+        self._started.set()
+        self._stop.wait()
+        try:
+            prof.stop()
+            prof.export_chrome_trace(self.path)
+        except (RuntimeError, OSError) as e:
+            self._error = e
+        self._done.set()
+
+    def stop(self) -> str:
+        self._stop.set()
+        self._done.wait()
+        self._thread.join()
+        if self._error is not None:
+            raise ProfileStateError(str(self._error)) from self._error
+        return self.path
 
 
 def _exp_buckets(start: float, factor: float, count: int) -> tuple[float, ...]:
@@ -293,6 +347,7 @@ class Tracer:
         self._hists: dict[str, dict[tuple, _Hist]] = {}
         self._hist_bounds: dict[str, tuple[float, ...]] = {}
         self._profile_dir: str | None = None
+        self._profile: _ProfileSession | None = None
         self._profile_lock = threading.Lock()
         self._epoch = time.time()
         self._perf_epoch = time.perf_counter()
@@ -932,15 +987,31 @@ class Tracer:
     # -------------------------------------------------------- XLA profile
 
     def start_xla_profile(self, log_dir: str) -> None:
-        """The JAX package captures an XLA profile here (jax.profiler);
-        the port's device profile capture comes with telemetry and
-        control (ROADMAP Queue A item 11)."""
-        raise NotImplementedError(
-            "device profile capture is not ported (ROADMAP Queue A item 11)")
+        """Start a PyTorch profile (torch.profiler: CPU activity, and CUDA's,
+        every kernel on the card, where one is present) that
+        stop_xla_profile writes into log_dir.  The name is the JAX
+        tracer's (an XLA profile there), which the server calls.  A second
+        start raises ProfileStateError."""
+        with self._profile_lock:
+            if self._profile_dir is not None:
+                raise ProfileStateError(
+                    f"profile already running into {self._profile_dir}")
+            # the profiler starts under _profile_lock BY DESIGN: the lock
+            # exists solely to make the is-running check and the start one
+            # transition (409 on double start); nothing on the scheduling
+            # path ever takes it
+            session = _ProfileSession(log_dir)  # kss-analyze: allow(device-under-lock)
+            self._profile, self._profile_dir = session, log_dir
 
     def stop_xla_profile(self) -> str:
-        raise NotImplementedError(
-            "device profile capture is not ported (ROADMAP Queue A item 11)")
+        """Stop the running profile -> the path of its Chrome trace, written
+        into the start's log_dir.  Without a running profile raises
+        ProfileStateError."""
+        with self._profile_lock:
+            if self._profile_dir is None:
+                raise ProfileStateError("no profile running")
+            session, self._profile, self._profile_dir = self._profile, None, None
+        return session.stop()
 
     @property
     def profiling(self) -> bool:

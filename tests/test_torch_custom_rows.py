@@ -418,7 +418,8 @@ def test_pack_mode_matches_jax(messages):
 def test_custom_ids_and_row_pointers():
     """make_args gives each custom plugin P_CUSTOM + its index in name
     order, in config order among the filters and scorers, and points its
-    slot at the chunk's rows; more than MAX_CUSTOM raises."""
+    slot at the chunk's rows; past MAX_CUSTOM every table, the custom
+    slots' row addresses last, goes to the device array StepArgs.ext."""
     cw, _ = _both()
     step = ppipeline.build_step(cw)
     xs, _ = _chunk(cw, 8)
@@ -445,8 +446,14 @@ def test_custom_ids_and_row_pointers():
     nodes, pods, _ = _manifests(n_nodes=4, n_pods=2, n_bound=0)
     wide = compile_workload(nodes, pods, PluginSetConfig(
         enabled=["NodeResourcesFit"] + list(many), custom=many), device="cpu")
-    with pytest.raises(ValueError, match="custom plugins"):
-        kstep.make_args(ppipeline.build_step(wide), wide.init_carry, _chunk(wide, 2)[0], None)
+    wstep = ppipeline.build_step(wide)
+    wxs = _chunk(wide, 2)[0]
+    wargs = kstep.make_args(wstep, wide.init_carry, wxs, None)
+    assert wargs.ext == wargs.ext_tensor.data_ptr()
+    vals = wargs.ext_tensor.tolist()
+    assert vals == kstep.ext_values(kstep.step_tables(wstep, wxs, 2, 4))
+    assert vals[-18:] == [p for k in range(9) for p in (wxs[f"C{k}"].codes.data_ptr(),
+                                                         wxs[f"C{k}"].scores.data_ptr())]
 
 
 def test_step_args_layout_matches_the_c_struct(tmp_path):

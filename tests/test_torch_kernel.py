@@ -28,7 +28,11 @@ B11's fused oracle over K = 1..8 sessions, two streams at once) at every
 batch kind, pack width and CTA count, with B5's core commit folded into
 its launch (solo and over K = 2, 4, 16 sessions, folded and not, two
 streams at once) against the plain oracle then commit_plain, and
-renormalize_rows (B10) at every R and G.  A CUDA kernel has
+renormalize_rows (B10) at every R and G; and the workloads past
+StepArgs' fixed arrays (chip_smoke.py phase 30's cases: the tables in
+StepArgs.ext, the wide VolumeBinding walk) through step_chunk,
+phased_eval and the wave's kernels, and B7's wide form and its opt-in
+and device-memory bitmaps, against their plain versions.  A CUDA kernel has
 no CPU mode, so these tests skip where there is no card; run them on one
 with
 
@@ -1988,3 +1992,124 @@ def test_renormalize_rows_match_plain(card, r):
                 _equal(got, want, (r, i, g, bool(feas.any())))
         carry = ph.bind(carry, xs1, int(out.selected))
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ past the fixed tables (C5)
+
+TABLE_NODES, TABLE_PODS = 300, 48
+
+
+def _table_cw(card, kind):
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+
+    nodes, pods, cfg, volumes, bound = chip_smoke.table_case(
+        kind, TABLE_NODES, TABLE_PODS, 11, PluginSetConfig, CustomPlugin)
+    return compile_workload(nodes, pods, cfg, volumes=volumes, bound_pods=bound, device=card)
+
+
+@pytest.mark.parametrize("kind", ["filters17", "custom9", "scores17", "rtcr10", "balanced10",
+                                  "claims12"])
+def test_table_limits_step_chunk_matches_plain(card, kind):
+    """step_chunk on each of chip_smoke.py phase 30's over-limit cases
+    (the tables in StepArgs.ext, or the wide VolumeBinding walk) == the
+    plain step, in full mode and at each compact tier, chunk by chunk,
+    outputs and carry."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+
+    cw = _table_cw(card, kind)
+    chunk = 16
+    for out_mode, wide in (("full", None), ("compact", None), ("compact", "i64")):
+        pm, sd, _ = _compact_plan(cw, wide)
+        step = build_step(cw, out_mode=out_mode, pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+        ck, cp = _clone_carry(cw.init_carry), _clone_carry(cw.init_carry)
+        launches = kstep.step_chunk.launches
+        for lo in range(0, cw.n_pods, chunk):
+            xs = _batch(cw, lo, chunk, card)
+            ck, ok = step.scan(ck, xs)
+            cp, op = step.plain_scan(cp, xs)
+            _equal(list(ok), list(op), (kind, out_mode, wide, lo))
+            for a, b in zip(_leaves(ck), _leaves(cp)):
+                assert torch.equal(a, b), (kind, out_mode, wide, lo, "carry")
+        assert kstep.step_chunk.launches - launches == -(-cw.n_pods // chunk)
+
+
+@pytest.mark.parametrize("kind", ["filters17", "custom9", "scores17", "rtcr10", "balanced10",
+                                  "claims12"])
+def test_table_limits_phased_eval_matches_plain(card, kind):
+    """phased_eval (spec_eval_cluster, full outputs) at the plan's S and
+    S = 1 on each over-limit case == Phased.plain_eval, pod after pod."""
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+
+    cw = _table_cw(card, kind)
+    ph = pipeline.build_phased(cw)
+    carry = _clone_carry(cw.init_carry)
+    for i in range(0, cw.n_pods, 5):
+        xs1 = _batch(cw, i, 1, card)
+        want = ph.plain_eval(carry, xs1)
+        _equal(list(ph.eval(carry, xs1)), list(want), (kind, i, "plan"))
+        _equal(list(kphased.phased_eval(ph.step, carry, xs1, _shards=1)), list(want),
+               (kind, i, 1))
+        carry = ph.bind(carry, xs1, int(want.selected))
+
+
+@pytest.mark.parametrize("kind", ["rtcr10", "balanced10"])
+def test_table_limits_spec_kernels_match_plain(card, kind):
+    """The speculative wave's kernels on the resource-table cases:
+    spec_eval at b = 1, 8, 48, the sparse round on their node-local
+    four plugins, and the commit, against their plain versions."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    for plugins in (SIX, SIX[:4]):
+        cw = _table_cw(card, kind)
+        cfg = cw.config
+        if plugins is not SIX:
+            import chip_smoke
+            from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+
+            nodes, pods, cfg, _, _ = chip_smoke.table_case(
+                kind, TABLE_NODES, TABLE_PODS, 11, PluginSetConfig, CustomPlugin)
+            cfg = PluginSetConfig(enabled=list(plugins), args=cfg.args)
+            cw = compile_workload(nodes, pods, cfg, device=card)
+        pm, sd, _ = _compact_plan(cw, None)
+        step = build_step(cw, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+        carry = _clone_carry(cw.init_carry)
+        for lo, b in ((0, 1), (3, 8), (0, 48)):
+            xs = _batch(cw, lo, b, card)
+            ev = kspec.spec_eval(step, carry, xs)
+            _equal(ev, kspec.eval_plain(step, carry, xs), (kind, len(plugins), lo, b))
+            if plugins is not SIX:
+                for kcand in (1, 16):
+                    _equal(kspec.spec_round(step, carry, xs, kcand),
+                           kspec.sparse_round_plain(step, carry, xs, kcand),
+                           (kind, "round", lo, b, kcand))
+            want = kspec.commit_plain(step, _clone_carry(carry), xs, ev.selected, b)
+            got = kspec.spec_commit(step, _clone_carry(carry), xs, ev.selected, b)
+            _equal(got, want, (kind, "commit", lo, b))
+            carry = want
+
+
+@pytest.mark.parametrize("n,f,ncols", [(1037, 20, 10), (5000, 17, 3), (5000, 6, 9),
+                                       (393_216, 12, 4), (400_000, 12, 4),
+                                       (2_000_000, 12, 4), (2_000_000, 20, 10)])
+def test_table_limits_attribution_matches_plain(card, n, f, ncols):
+    """B7 past its fixed sizes == its plain version: the wide form (F > 16
+    or Q > 8), a bitmap of exactly 48 KB (393,216 nodes: with the kernel's
+    static shared memory past the default limit), in the opt-in shared
+    memory (400,000 nodes) and in device memory (2,000,000 nodes), every
+    pack mode at the first."""
+    from kube_scheduler_simulator_tpu_torch.kernels.attribution import (
+        att_path, att_shape, chunk_attribution)
+
+    c = 8 if n > 5000 else 40
+    modes = list(PACK_MODES) if n == 1037 else ["p32"]
+    for mode in modes:
+        args, want = _att_case(card, 31, mode, "narrow", c=c, n=n, f=f, ncols=ncols, m=c - 1)
+        before = chunk_attribution.launches
+        got = chunk_attribution(*args)
+        assert chunk_attribution.launches == before + 1
+        w, p = att_shape(c, n, f, ncols)
+        assert chunk_attribution.path == att_path(n, p, f, ncols)
+        _att_equal(got, want, f"chunk_attribution {mode} n={n} f={f} q={ncols}")

@@ -227,10 +227,41 @@ def test_listwatch_resume_skips_old_events(server):
     assert "old-node" not in node_names  # resumed past it
 
 
-def test_profile_route_answers_not_implemented(server):
-    """Device profile capture is not ported: a clear 501, never a 500."""
-    code, body = req(server, "POST", "/api/v1/profile", {"action": "start"})
-    assert code == 501 and "not ported" in body["message"]
+def test_profile_route_start_stop_and_conflicts(server, tmp_path):
+    """POST /api/v1/profile: start 200, a second start 409, stop 200 with
+    the trace's path in logDir, a second stop 409 (JAX server's contract)."""
+    start = {"action": "start", "logDir": str(tmp_path)}
+    code, body = req(server, "POST", "/api/v1/profile", start)
+    assert code == 200 and body == {"profiling": True, "logDir": str(tmp_path)}
+    code, body = req(server, "POST", "/api/v1/profile", start)
+    assert code == 409 and body["reason"] == "Conflict" and "already running" in body["message"]
+    code, body = req(server, "POST", "/api/v1/profile", {"action": "stop"})
+    assert code == 200 and body["profiling"] is False and body["logDir"] == str(tmp_path)
+    assert body["trace"].startswith(str(tmp_path))
+    code, body = req(server, "POST", "/api/v1/profile", {"action": "stop"})
+    assert code == 409 and "no profile running" in body["message"]
+    code, body = req(server, "POST", "/api/v1/profile", {"action": "pause"})
+    assert code == 400
+
+
+def test_profile_route_writes_a_trace_around_a_wave(server, tmp_path):
+    """A profile around a scheduled pod: the stop writes a Chrome trace
+    (torch.profiler's JSON, traceEvents) at the path it answers."""
+    code, _ = req(server, "POST", "/api/v1/profile",
+                  {"action": "start", "logDir": str(tmp_path / "prof")})
+    assert code == 200
+    for n in make_nodes(2, seed=4):
+        assert req(server, "POST", "/api/v1/nodes", n)[0] in (200, 201)
+    pod = {"metadata": {"name": "traced", "namespace": "default"},
+           "spec": {"containers": [{"name": "c", "image": "x",
+                                    "resources": {"requests": {"cpu": "100m"}}}]}}
+    assert req(server, "POST", "/api/v1/pods", pod)[0] in (200, 201)
+    assert _bound(server, "/api/v1/pods/default/traced") is not None
+    code, body = req(server, "POST", "/api/v1/profile", {"action": "stop"})
+    assert code == 200
+    with open(body["trace"]) as f:
+        trace = json.load(f)
+    assert trace["traceEvents"]
 
 
 def test_sessions_surface_reports_fuse_and_device(server):
@@ -251,7 +282,23 @@ def test_new_scheduler_command_builds_the_server_on_the_device():
         srv.manager.shutdown()
 
 
-def test_kube_config_source_is_not_ported():
-    cfg = SimulatorConfiguration(port=0, external_import_enabled=True, kube_config="x")
-    with pytest.raises(NotImplementedError, match="kubeapi"):
-        DIContainer(cfg, start_scheduler=False, device="cpu")
+def test_kube_config_source_dials_connect_source(server):
+    """A kubeConfig import source is dialed by cluster/kubeapi.py
+    connect_source: here the URL of a simulator server, which it reaches
+    through RemoteCluster; the import brings its nodes over, and the
+    container closes the source it dialed at shutdown."""
+    from kube_scheduler_simulator_tpu_torch.cluster.remote import RemoteCluster
+
+    for n in make_nodes(3, seed=6):
+        assert req(server, "POST", "/api/v1/nodes", n)[0] in (200, 201)
+    cfg = SimulatorConfiguration(port=0, external_import_enabled=True,
+                                 kube_config=f"http://127.0.0.1:{server.port}")
+    di = DIContainer(cfg, start_scheduler=False, device="cpu")
+    try:
+        assert isinstance(di._owned_source, RemoteCluster)
+        di.importer.import_cluster_resources()
+        names = sorted(n["metadata"]["name"] for n in di.store.list("nodes")[0])
+        assert names == sorted(n["metadata"]["name"] for n in make_nodes(3, seed=6))
+    finally:
+        di.shutdown()
+    assert di._owned_source._closed.is_set()
