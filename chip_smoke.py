@@ -945,13 +945,48 @@ COMPILE_PARTS = {
 }
 
 
+def step_ladder(cw) -> tuple[dict, int]:
+    """step_chunk's ms on chunk 0 of config 5 (cw), of the default-profile
+    fleet on the same queue (decorate_default_profile) and of phase 30's
+    claims12 (TABLE_NODES x TABLE_PODS, 9-12 claims a pod: VolumeBinding's
+    wide walk with its masks in a thread's own array), each the median of
+    7 launches on fresh carries (chunk_ms), in whatever checkout is
+    imported: the fast path's A/B, and the wide instantiation's."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan, _slice_xs
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    def chunk0(w):
+        pm, sd, _ = _compact_plan(w, None)
+        step = build_step(w, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+        xs = _slice_xs(w.xs, 0, min(CHUNK, w.n_pods), CHUNK)
+        xs["is_pad"] = torch.arange(CHUNK, device=w.device) >= min(CHUNK, w.n_pods)
+        return chunk_ms(step, w, xs, 7)
+
+    out = {"config5": chunk0(cw)}
+    nodes, pods, _ = baseline_config(CONFIG, scale=1.0, seed=SEED)
+    vols, bound = decorate_default_profile(nodes, pods, seed=SEED)
+    out["default"] = chunk0(compile_workload(nodes, pods, PluginSetConfig(), volumes=vols,
+                                             bound_pods=bound, device=cw.device))
+    nodes, pods, cfg, vols, bound = table_case("claims12", TABLE_NODES, TABLE_PODS, SEED,
+                                               PluginSetConfig, CustomPlugin)
+    out["claims12"] = chunk0(compile_workload(nodes, pods, cfg, volumes=vols, bound_pods=bound,
+                                              device=cw.device))
+    return out, 0
+
+
 def compile_ladder(nodes: list, pods: list, cfg) -> dict:
     """compile_workload's split on phase 19's default wave (config 5 in an
     ObjectStore, SchedulerEngine.schedule_pending()) and on a second wave
     of 16 new pods over the same nodes, in whatever checkout is imported:
     each part of COMPILE_PARTS wrapped in a timer (a part the checkout
     lacks is left out), the compile's total from the engine's
-    compile_workload span, and the checkout's own compile.* spans and
+    compile_workload span, and the checkout's own compile_* spans and
     counters where it has them (compile_split).  Seconds."""
     import copy
     import importlib
@@ -1655,8 +1690,11 @@ def ladder_main(root: Path, only: set | None = None) -> int:
     direct replay_speculative runs on 1,024 x 5,000 with spec_eval's
     launches by batch size, and the compile's split on phase 19's wave
     (compile_ladder), for the port found under DIR (default: this
-    checkout), so that two trees are compared in one call.  Two JSON lines
-    after the card's name: the kernels', then the direct replays'.
+    checkout), so that two trees are compared in one call, and step_chunk
+    on chunk 0 of config 5, of the default-profile fleet and of claims12
+    (step_ladder).
+    Two JSON lines after the card's name: the kernels', then the direct
+    replays'.
     `--only NAME,...` runs only those entries of the first line (and the
     direct replays only if "direct" is named)."""
     import collections
@@ -1704,6 +1742,7 @@ def ladder_main(root: Path, only: set | None = None) -> int:
         run("mesh", lambda: mesh_ladder(cw))
         run("b7", lambda: att_ladder(cw))
         run("b8", lambda: quorum_ladder(dev, cw.n_nodes))
+        run("step", lambda: step_ladder(cw))
         del cw
     if not only or {"sparse_round", "b5"} & only:
         snodes, spods = make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=SEED)
@@ -2857,8 +2896,10 @@ def compile_split(tracer) -> dict:
     upload) and its five counters."""
     spans = tracer.summary()["spans"]
     totals = tracer.counter_totals()
+    # compile_<part> in this checkout; compile.<part> in an older one
+    # (--ladder --root); compile_workload is the engine's whole compile
     out = {k[len("compile."):]: round(v["total_seconds"], 4) for k, v in spans.items()
-           if k.startswith("compile.")}
+           if k[:8] in ("compile.", "compile_") and k != "compile_workload"}
     out.update({k: totals.get(k, 0) for k in COMPILE_COUNTERS})
     return out
 
@@ -3259,9 +3300,14 @@ FUSE_K = 4                     # phase 22's JSON entry and phase 23's sessions
 HTTP_SAMPLE = 256              # phase 24: pods read back per session
 SESSION_WINDOW_MS = 200        # phases 23-24: the fuse window (KSS_TPU_FUSE_WINDOW_MS)
 CONTENDED_WINDOW_MS = 1000     # phase 23's config-5 pair: their four rounds may meet
-# phase 23's dense family: its label-coupled rounds cost the host an
-# interaction walk per round, so its queues are cut to 2,048 pods
-DENSE_PODS = 2048
+# phase 23's depth, cut to pay for phase 32 (the width stays: every
+# session on the 5,000-node fleet, rounds at the stream's b = 512, and
+# phase 22's launches at full width): each sparse-family session and each
+# of the contended config-5 pair schedule the first SESSION_PODS pods of
+# their queue; the dense family, whose label-coupled rounds cost the host
+# an interaction walk per round, DENSE_PODS
+SESSION_PODS = 2_500
+DENSE_PODS = 1024
 
 
 def _session_state(mgr, sids, rrs, orders) -> dict:
@@ -3550,7 +3596,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
                 "spec_commit_core": kspec.spec_commit_core.launches,
                 "spec_commit_bind": kspec.spec_commit_bind.launches}
 
-    def run_arms(family: str, plugins, seeds, n_pods: int = SLOT_PODS) -> tuple[list, dict]:
+    def run_arms(family: str, plugins, seeds, n_pods: int = SESSION_PODS) -> tuple[list, dict]:
         """Sessions of one family (the slot-pinned fleet, `n_pods` pods of
         each queue seed of `seeds`, `plugins`) scheduling at once, fused
         and KSS_TPU_FUSE=0; every pod's node, the bind order and the
@@ -3631,7 +3677,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
         # the sparse family: the three-plugin set, rounds of spec_round
         lines23, main23 = run_arms("slot", SLOT_PLUGINS, range(FUSE_K))
         check(main23["spec_round_fused"] > 0, f"the sparse arm launched no B11: {main23}")
-        print(f"[23 sessions] {card}: {FUSE_K} sessions x {SLOT_PODS} slot-pinned pods "
+        print(f"[23 sessions] {card}: {FUSE_K} sessions x {SESSION_PODS} slot-pinned pods "
               f"(queue seeds 0-{FUSE_K - 1}, plugins {list(SLOT_PLUGINS)}) on the "
               f"{SLOT_NODES}-node fleet, SessionManager(device='cuda'), schedule_pending() of "
               f"every session at once from a barrier, window {SESSION_WINDOW_MS} ms: "
@@ -3671,7 +3717,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
                     sess.di.engine.plugin_config = cfg5
                     for obj in nodes5:
                         sess.di.store.create("nodes", obj)
-                    for obj in pods5:
+                    for obj in pods5[:SESSION_PODS]:
                         sess.di.store.create("pods", obj)
                 f0 = FUSE.stats()
                 reset()
@@ -3703,7 +3749,8 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
     finally:
         pspec.replay_speculative_stream = real_stream
     c_calls = f1["fusedDeviceCalls"] - f0["fusedDeviceCalls"]
-    print(f"[23 contended] {card}: two config-{CONFIG} sessions ({len(pods5)} pods each, one "
+    print(f"[23 contended] {card}: two config-{CONFIG} sessions ({min(len(pods5), SESSION_PODS)} "
+          f"pods each, the queue's first, one "
           f"family), window {CONTENDED_WINDOW_MS} ms: first wave {wall_c1:.4f} s, "
           f"fusedDeviceCalls {c_calls}, B11 launches {contended}, by (K, b) "
           f"{contended_batches}; (accepted, rolled back) per "
@@ -3827,7 +3874,8 @@ MESH_DEFAULT_PODS = 1024       # phase 25: the default-profile fleet's pods on t
 MESH_ODD_NODES = 4996          # phase 26: a fleet that 8 shards do not divide
 MESH_ODD_PODS = 1024
 ENGINE_PAIRS = 1               # phase 26: the engine's (none, mesh, mesh, none) turns
-TWIN_PODS = 64                 # phase 26: the b = 512 eval's plain twins, on its first pods
+TWIN_PODS = 64                 # phases 25, 26: the plain twins of chunk 0 and of the b = 512
+                               # eval, on their first pods
 
 
 def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: dict,
@@ -3924,13 +3972,16 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
         check(err == 0, f"step_chunk_sharded S={s} differs from step_chunk on chunk 0 "
                         f"(max |d| {err})")
         sharded_out[s] = (cs, os_)
+    # the plain twin on chunk 0's first TWIN_PODS pods (the whole chunk's
+    # twin is minutes), against the kernel on the same pods
     twin = []
+    xs_twin = batch_xs(cw, 0, TWIN_PODS)
+    cs8, os8 = kmesh.step_chunk_sharded(step_s[8], _clone_carry(cw.init_carry), xs_twin)
     plain_ms = timed_once(lambda: twin.append(kmesh.step_chunk_sharded_plain(
-        step_s[8], _clone_carry(cw.init_carry), xs0)))
-    cs8, os8 = sharded_out[8]
+        step_s[8], _clone_carry(cw.init_carry), xs_twin)))
     step_err = max(tree_err(list(os8), list(twin[0][1])), tree_err(cs8, twin[0][0]))
     check(step_err == 0, f"step_chunk_sharded S=8 differs from its plain twin (max |d| {step_err})")
-    del twin, sharded_out
+    del twin, sharded_out, xs_twin, cs8, os8
     # each forced group size (R = S x G <= 16): == step_chunk on chunk 0
     forced_g = {s: [g for g in EVAL_SHARDS if s * g <= 16] for s in MESH_SHARDS}
     plan_g = {}
@@ -4025,7 +4076,8 @@ def mesh_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr, spec_ctx: 
           f"bytes of pods {sample} equal phase 4's (S = 8 at the device-resident rung, its "
           f"plugin_attribution equal phase 4's host tally); launches {main_launches} at S = 8 | "
           f"chunk 0: step_chunk_sharded == step_chunk (outputs and carry) at every S, == its "
-          f"plain twin at S = 8, max_abs_err {step_err}; plain twin {plain_ms:.3f} ms | "
+          f"plain twin at S = 8 on its first {TWIN_PODS} pods, max_abs_err {step_err}; plain "
+          f"twin {plain_ms:.3f} ms | "
           f"step_chunk_sharded == step_chunk at every S and forced G {forced_g} | "
           f"ms per chunk (median of 3, in turns): step_chunk {[round(x, 3) for x in b1_ms]}, "
           f"step_chunk_sharded at the plan's G {plan_g}: "
@@ -4355,6 +4407,8 @@ TABLE_CUSTOM_PODS = 64         # ... of the custom-plugin cases: their rows are 
                                # (pod, node, plugin), 2.9 M calls at 64 pods and 9 plugins
 TABLE_CASES = ("filters17", "custom9", "scores17", "rtcr10", "balanced10", "claims12")
 TABLE_REPS = 3                 # phase 30: timed launches a case, the median
+TABLE_CLAIMS_PODS = 8          # phase 30: pods of the 300-claim case and of claims12 beside it
+                               # (its xs' want is pods x 300 x pods x 300 bytes)
 ATT_WIDE_NODES = (400_000, 2_000_000)  # phase 30: B7's opt-in and device-memory bitmaps
 ATT_WIDE_PODS = 8
 EXTRA_RESOURCES = [f"example.com/dev-{j}" for j in range(8)]
@@ -4404,6 +4458,11 @@ def table_case(kind: str, n_nodes: int, n_pods: int, seed: int, cfg_cls, custom_
       claims12    the default profile, every pod with 9-12 unbound claims
                   (local PVs in a WaitForFirstConsumer class, and a
                   provisioned class allowed in half the zones)
+      claims300   the same with 300 unbound claims a pod and a local PV a
+                  claim, all in the provisioned class's zones, so that most
+                  pods bind: VolumeBinding's open-slot masks past a thread's
+                  own array, in device memory (csrc/volumes.cuh
+                  vb_greedy_wide)
 
     `within` gives the same workload cut to the fixed arrays (F = 16,
     8 custom plugins, S = 16, 8 resources and 16 shape points, 8 claims
@@ -4450,17 +4509,23 @@ def table_case(kind: str, n_nodes: int, n_pods: int, seed: int, cfg_cls, custom_
         decorate_default_profile(nodes, pods, seed, volumes_on=False)
         volumes = claims_volumes(nodes, pods, seed + 3, (5, 9) if within else (9, 13))
         cfg = cfg_cls()
+    elif kind == "claims300":
+        decorate_default_profile(nodes, pods, seed, volumes_on=False)
+        volumes = claims_volumes(nodes, pods, seed + 3, (300, 301), 1.0, True)
+        cfg = cfg_cls()
     else:
         raise ValueError(f"unknown table case {kind}")
     return nodes, pods, cfg, volumes, bound
 
 
-def claims_volumes(nodes: list, pods: list, seed: int, claims=(9, 13)) -> dict:
-    """claims12's volumes: every pod 9-12 unbound claims (`claims`, a
-    numpy integers range) of 1-4 Gi, two
+def claims_volumes(nodes: list, pods: list, seed: int, claims=(9, 13), pvs_per_claim=0.6,
+                   local_half: bool = False) -> dict:
+    """claims12's and claims300's volumes: every pod 9-12 unbound claims
+    (`claims`, a numpy integers range) of 1-4 Gi, two
     thirds in a WaitForFirstConsumer class without a provisioner (local
-    PVs of 1-8 Gi, zone-affine, 6 a node's zone per 10 claims), the rest in
-    a provisioned class allowed in the first half of the zones."""
+    PVs of 1-8 Gi, zone-affine, `pvs_per_claim` a claim, in any zone or
+    with `local_half` in the provisioned class's), the rest in a
+    provisioned class allowed in the first half of the zones."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -4482,8 +4547,9 @@ def claims_volumes(nodes: list, pods: list, seed: int, claims=(9, 13)) -> dict:
                 "resources": {"requests": {"storage": str(int(rng.integers(1, 5)) * GI)}}}})
             pod["spec"].setdefault("volumes", []).append(
                 {"name": f"v-{k}", "persistentVolumeClaim": {"claimName": name}})
-    for k in range(max(1, int(0.6 * len(pvcs)))):
-        zone = zones[int(rng.integers(len(zones)))]
+    local = zones[:max(1, len(zones) // 2)] if local_half else zones
+    for k in range(max(1, int(pvs_per_claim * len(pvcs)))):
+        zone = local[int(rng.integers(len(local)))]
         pvs.append({"metadata": {"name": f"pv-local-{k}"}, "spec": {
             "capacity": {"storage": str(int(rng.integers(1, 9)) * GI)},
             "accessModes": ["ReadWriteOnce"], "storageClassName": "wffc",
@@ -5119,6 +5185,7 @@ def main() -> int:
     columnar_phase(dev, card, cfg)
     table_phase(dev, card)
     serving_phase(dev, card, cw, nodes, pods, cfg, rr)
+    tools_phase(dev, card)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
                                   *engine_entries, *fuse_entries, *mesh_entries, b13_entry]}))
     print(json.dumps({"ok": True, "device": {
@@ -5432,6 +5499,7 @@ def table_phase(dev, card: str) -> None:
                      f"{got[('eval', True)]:.5f} ms")
         lines.append(line)
     torch.cuda.empty_cache()
+    lines.append(claims_wide_case(dev))
 
     # B7 past its fixed sizes: the wide form, then the bitmap's places
     att_lines = []
@@ -5450,6 +5518,390 @@ def table_phase(dev, card: str) -> None:
     print(f"[30 C5] {card}: {TABLE_NODES} nodes a case, step_chunk the "
           f"median of {TABLE_REPS} launches: {' | '.join(lines)} | B7 == plain (CUDA graph of "
           f"20): {'; '.join(att_lines)}; {time.perf_counter() - t30:.1f} s", flush=True)
+
+
+def claims_wide_case(dev) -> str:
+    """Phase 30's 300-claim case: TABLE_CLAIMS_PODS pods of claims300 on
+    TABLE_NODES nodes, VolumeBinding's open-slot masks in the launch's
+    device memory (csrc/volumes.cuh vb_greedy_wide).  step_chunk (the
+    filter's walk, and the bind's, whose claimed PVs are in the carry),
+    spec_eval at b = 8 and the speculative bind (spec_commit) each held
+    exactly to its plain version; step_chunk timed beside claims12 on the
+    same pods and nodes.  -> the phase's line for it."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs)
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    c, got = TABLE_CLAIMS_PODS, {}
+    for kind in ("claims300", "claims12"):
+        nodes, pods, cfg, vols, bound_pods = table_case(
+            kind, TABLE_NODES, c, SEED, PluginSetConfig, CustomPlugin)
+        w = compile_workload(nodes, pods, cfg, volumes=vols, bound_pods=bound_pods, device=dev)
+        pm, sd, _ = _compact_plan(w, None)
+        step = build_step(w, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+        xs = _slice_xs(w.xs, 0, w.n_pods, c)
+        xs["is_pad"] = torch.zeros(c, dtype=torch.bool, device=dev)
+        vk = kstep.make_args(step, w.init_carry, xs, None).VK
+        if kind == "claims300":
+            check(vk == 300, f"30 claims300: VK {vk}")
+            ck, ok = kstep.step_chunk(step, _clone_carry(w.init_carry), xs)
+            cp, op = step.plain_scan(_clone_carry(w.init_carry), xs)
+            err = max(tree_err(list(ok), list(op)), tree_err(ck, cp))
+            claimed = int(cp["VolumeBinding"].claimed.sum())
+            check(err == 0 and torch.equal(ck["VolumeBinding"].claimed,
+                                           cp["VolumeBinding"].claimed),
+                  f"30 claims300: step_chunk differs from the plain step (max |d| {err})")
+            check(claimed > 0, "30 claims300: the chunk's binds claimed no PV")
+            got["scheduled"] = int((op.selected >= 0).sum())
+            e = tree_err(kspec.spec_eval(step, w.init_carry, xs),
+                         kspec.eval_plain(step, w.init_carry, xs))
+            check(e == 0, f"30 claims300: spec_eval differs from its plain version ({e})")
+            sel = kspec.eval_plain(step, w.init_carry, xs).selected
+            bind = kspec.spec_commit(step, _clone_carry(w.init_carry), xs, sel, c)
+            want = kspec.commit_plain(step, _clone_carry(w.init_carry), xs, sel, c)
+            e = tree_err(bind, want)
+            check(e == 0 and torch.equal(bind["VolumeBinding"].claimed,
+                                         want["VolumeBinding"].claimed),
+                  f"30 claims300: spec_commit's bind differs from its plain version ({e})")
+            got["claimed"] = claimed
+            del ck, ok, cp, op, bind, want
+        if kind == "claims12":
+            _, out = kstep.step_chunk(step, _clone_carry(w.init_carry), xs)
+            got["scheduled12"] = int((out.selected >= 0).sum())
+        got[kind] = chunk_ms(step, w, xs, 1)
+        got[(kind, "vk")] = vk
+        del w, step, xs
+        torch.cuda.empty_cache()
+    return (f"claims300 [VK={got[('claims300', 'vk')]}] {c} pods: step_chunk "
+            f"{got['claims300']:.3f} ms ({got['scheduled']} scheduled, {got['claimed']} PVs "
+            f"claimed) beside claims12 [VK={got[('claims12', 'vk')]}] {got['claims12']:.3f} ms "
+            f"({got['scheduled12']} scheduled) (x{got['claims300'] / got['claims12']:.3f}); "
+            f"step_chunk, spec_eval b={c} and spec_commit == plain")
+
+
+def _clone_tree(x):
+    """x with every tensor cloned (dicts, lists, tuples and NamedTuples
+    rebuilt; anything else, such as a step, kept)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone_tree(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone_tree(v) for v in x)
+    return x
+
+
+class LaunchTap:
+    """The arguments of the first launch on the card of each of `wrappers`
+    in each window the caller names (`window`; None takes nothing), cloned
+    as the call starts: a sys.monitoring PY_START event on the wrappers'
+    own code objects, so no caller's path, import or launch count changes.
+    Phase 32 holds each kernel to its plain version on the inputs the tools
+    gave it.  -> args[window][name] = {parameter: value}."""
+
+    def __init__(self, wrappers):
+        self.codes = {f.__code__: f.__name__ for f in wrappers}
+        self.args: dict = {}
+        self.window = None
+        self.tool = None
+
+    def __enter__(self):
+        mon = sys.monitoring
+        self.tool = next(i for i in range(6) if mon.get_tool(i) is None)
+        mon.use_tool_id(self.tool, "chip_smoke launch tap")
+        mon.register_callback(self.tool, mon.events.PY_START, self._start)
+        for code in self.codes:
+            mon.set_local_events(self.tool, code, mon.events.PY_START)
+        return self
+
+    def __exit__(self, *exc):
+        mon = sys.monitoring
+        for code in self.codes:
+            mon.set_local_events(self.tool, code, 0)
+        mon.register_callback(self.tool, mon.events.PY_START, None)
+        mon.free_tool_id(self.tool)
+
+    def _start(self, code, _offset):
+        name, window = self.codes.get(code), self.window
+        if name is None or window is None or name in self.args.get(window, {}):
+            return
+        frame = sys._getframe(1)
+        params = code.co_varnames[:code.co_argcount + code.co_kwonlyargcount]
+        call = {p: frame.f_locals[p] for p in params}
+        tensors = _leaves(list(call.values()))
+        if tensors and tensors[0].device.type == "cuda":
+            self.args.setdefault(window, {}).setdefault(name, _clone_tree(call))
+
+    def first(self, name: str, prefer: str):
+        """(window, arguments) of `name`'s capture, from `prefer` where it
+        has one, else from the first window that does; or None."""
+        for window in (prefer, *self.args):
+            if name in self.args.get(window, {}):
+                return window, self.args[window][name]
+        return None
+
+
+def tapped_holds(tap: LaunchTap, prefer: str) -> dict:
+    """Each kernel the tap caught, launched again on a fresh clone of its
+    captured inputs and its plain version on another, held exactly: ->
+    {name: (window, shape, max_abs_err)}."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.kernels import attribution as katt
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+
+    def step_pair(a):
+        c = lambda: _clone_tree(a["carry"])  # noqa: E731
+        gc, go = kstep.step_chunk(a["step"], c(), a["xs_chunk"])
+        wc, wo = a["step"].plain_scan(c(), a["xs_chunk"])
+        return (gc, list(go)), (wc, list(wo))
+
+    def oracle_pair(a):
+        cm = a["commit"]
+        gcm, wcm = _clone_tree(cm), _clone_tree(cm)
+        got = kspec.spec_oracle(a["packed"], a["prefilter_reject"], a["selected"], commit=gcm)
+        want = kspec.oracle_commit_plain(a["packed"], a["prefilter_reject"], a["selected"], wcm)
+        return ((got, None if gcm is None else gcm.carry),
+                (want, None if wcm is None else wcm.carry))
+
+    def commit_pair(kernel):
+        def pair(a):
+            c = lambda: _clone_tree(a["carry"])  # noqa: E731
+            got = kernel(a["step"], c(), a["xs"], a["selected"], a["k"])
+            want = kspec.commit_plain(a["step"], c(), a["xs"], a["selected"], a["k"])
+            return got, want
+        return pair
+
+    def att_args(a):
+        return [a[p] for p in ("packed", "raw8", "raw16", "raw32", "fc", "fskip_c", "sskip_c",
+                               "m", "code_bits", "dev_cols", "want_pack")]
+
+    def quorum_pair(a):
+        got = kgang.quorum_slice(a["packed_in"], a["n"], a["g"])
+        return got, kgang.quorum_slice(a["packed_in"].cpu(), a["n"], a["g"]).to(got.device)
+
+    pairs = {
+        "step_chunk": (step_pair, lambda a: f"{a['xs_chunk']['is_pad'].shape[0]} pods x "
+                                            f"{a['step'].cw.n_nodes} nodes"),
+        "spec_eval": (lambda a: (kspec.spec_eval(a["step"], a["carry"], a["xs"]),
+                                 kspec.eval_plain(a["step"], a["carry"], a["xs"])),
+                      lambda a: f"b={a['xs']['is_pad'].shape[0]} x {a['step'].cw.n_nodes} nodes"),
+        "spec_round": (lambda a: (kspec.spec_round(a["step"], a["carry"], a["xs"], a["kcand"]),
+                                  kspec.sparse_round_plain(a["step"], a["carry"], a["xs"],
+                                                           a["kcand"])),
+                       lambda a: f"b={a['xs']['is_pad'].shape[0]} x {a['step'].cw.n_nodes} "
+                                 f"nodes, K={a['kcand']}"),
+        "spec_oracle": (oracle_pair, lambda a: f"b={a['packed'].shape[0]} x "
+                                               f"{a['packed'].shape[1]}, commit "
+                                               f"{a['commit'] is not None}"),
+        "spec_commit_core": (commit_pair(kspec.spec_commit_core),
+                             lambda a: f"b={a['xs']['is_pad'].shape[0]}, k={int(a['k'])}"),
+        "spec_commit_bind": (commit_pair(kspec.spec_commit_bind),
+                             lambda a: f"b={a['xs']['is_pad'].shape[0]}, k={int(a['k'])}"),
+        "grid_append": (lambda a: (kspec.grid_append(_clone_tree(a["bufs"]), a["rows"], a["fill"]),
+                                   kspec.append_plain(_clone_tree(a["bufs"]), a["rows"],
+                                                      a["fill"])),
+                        lambda a: f"fill {a['fill']}"),
+        "grid_emit": (lambda a: (kspec.grid_emit(_clone_tree(a["bufs"]), a["chunk"]),
+                                 kspec.emit_plain(_clone_tree(a["bufs"]), a["chunk"])),
+                      lambda a: f"chunk {a['chunk']}"),
+        "chunk_attribution": (lambda a: (katt.chunk_attribution(*att_args(a)),
+                                         katt.chunk_attribution_plain(*att_args(a))),
+                              lambda a: f"{tuple(a['packed'].shape)}, m={a['m']}"),
+        "quorum_slice": (quorum_pair, lambda a: f"n={a['n']}, G={a['g']}"),
+    }
+    torch.cuda.synchronize()  # the captures were cloned on the sessions' streams
+    out = {}
+    for name, (pair, shape) in pairs.items():
+        hit = tap.first(name, prefer)
+        if hit is None:
+            continue
+        window, a = hit
+        got, want = pair(a)
+        err = tree_err(got, want)
+        check(err == 0, f"32 {name} on the tools' inputs ({window}, {shape(a)}) differs from "
+                        f"its plain version (max |d| {err})")
+        out[name] = (window, shape(a), err)
+    return out
+
+
+# phase 32: the operations tooling at Kubernetes' largest supported
+# cluster, 5,000 nodes ("Considerations for large clusters")
+CHAOS_SCALE = {"nodes": 5_000, "pods": 2_048, "gangs": 8, "gang_members": 8,
+               "chunk": CHUNK, "wedge_s": 600.0}  # a wave's limit before it counts as wedged
+CHAOS_SEEDS = (1, 2, 3)              # at the JAX tool's FULL_SHAPE
+SOAK_CHURN = {"std_nodes": 5_000, "ticks": 18, "arrival_rate": 64.0, "departure_rate": 32.0}
+
+
+def tools_phase(dev, card: str) -> None:
+    """Phase 32: the port's operations tooling (kube_scheduler_simulator_
+    tpu_torch/tools) on the card, every kernel launch counted from 0 over
+    the phase: the chaos gate (seeds CHAOS_SEEDS at the JAX tool's
+    FULL_SHAPE, then seed 1 at CHAOS_SCALE, under the lock witness), its
+    5,000-node fault-free run held to the CPU's plain path (every pod's
+    node; the annotations of the first pod, the last and the first gang's
+    members), the soak (the standard tenant on make_churn_workload at
+    SOAK_CHURN, its target 1.5 x a calibration pass's p99), the black-box
+    smoke (the fingerprint names the card) and the trace smoke.  Each
+    kernel the tools launch is then held to its plain version on the
+    inputs of its first launch in the 5,000-node chaos run (else of its
+    first launch in the phase), caught by a LaunchTap; B1 and B2 also on
+    the 5,000-node cluster's first chunk."""
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan)
+    from kube_scheduler_simulator_tpu_torch.kernels import attribution as katt
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import gang as kgang
+    from kube_scheduler_simulator_tpu_torch.kernels import phased as kphased
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.models import make_nodes, make_pods
+    from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    wrappers = (kstep.step_chunk, kspec.spec_eval, kspec.spec_oracle, kspec.spec_round,
+                kspec.spec_commit_core, kspec.spec_commit_bind, kspec.grid_append,
+                kspec.grid_emit, katt.chunk_attribution, kgang.quorum_slice,
+                kphased.phased_eval, kphased.renormalize_rows, *kfuse.KERNELS)
+    device = dev.type  # "cuda": the tools' own --device
+    t32 = time.perf_counter()
+    for f in wrappers:
+        f.launches = 0
+    with LaunchTap(wrappers) as tap:
+        run_tools(tap, dev, card, device)
+    launched = {f.__name__: f.launches for f in wrappers if f.launches}
+    for name in ("step_chunk", "chunk_attribution", "quorum_slice"):
+        check(launched.get(name, 0) > 0, f"32: the tools launched no {name}: {launched}")
+    check(launched.get("spec_eval", 0) + launched.get("spec_round", 0) > 0,
+          f"32: the tools launched no round kernel: {launched}")
+
+    # ---- each launched kernel == plain on the tools' own inputs
+    t0 = time.perf_counter()
+    holds = tapped_holds(tap, "chaos at scale")
+    missing = sorted(set(launched) - set(holds))
+    check(not missing, f"32: no inputs caught for {missing}")
+    del tap
+
+    # ---- B1 and B2 on the 5,000-node cluster's first chunk, against plain
+    shape = CHAOS_SCALE
+    nodes = make_nodes(shape["nodes"], seed=1)
+    pods = make_pods(shape["pods"], seed=1)
+    w = compile_workload(nodes, pods, PluginSetConfig(enabled=["NodeResourcesFit"]), device=dev)
+    pm, sd, _ = _compact_plan(w, None)
+    step = build_step(w, out_mode="compact", pack_mode=pm, score_dtypes=sd)
+    xs = batch_xs(w, 0, CHUNK)
+    ck, ok = kstep.step_chunk(step, _clone_carry(w.init_carry), xs)
+    cp, op = step.plain_scan(_clone_carry(w.init_carry), xs)
+    b1_err = max(tree_err(list(ok), list(op)), tree_err(ck, cp))
+    xs8 = batch_xs(w, 0, 8)
+    b2_err = tree_err(kspec.spec_eval(step, w.init_carry, xs8),
+                      kspec.eval_plain(step, w.init_carry, xs8))
+    check(b1_err == 0 and b2_err == 0, f"32: step_chunk {b1_err}, spec_eval {b2_err} differ "
+                                       "from their plain versions")
+    del w, step, xs, xs8, ck, ok, cp, op
+    print(f"[32 kernels] {card}: launched by the tools {launched}; each == plain on the inputs "
+          f"of its first launch (max_abs_err): "
+          + "; ".join(f"{n} {e} ({win}, {s})" for n, (win, s, e) in holds.items())
+          + f"; B1 and B2 == plain on the 5,000-node cluster's first chunk ({b1_err}, {b2_err});"
+          f" holds {time.perf_counter() - t0:.1f} s; phase {time.perf_counter() - t32:.1f} s",
+          flush=True)
+
+
+def run_tools(tap: LaunchTap, dev, card: str, device: str) -> None:
+    """Phase 32's tools on the card (tools_phase), `tap` catching each
+    kernel's first inputs: its window "chaos at scale" over the 5,000-node
+    chaos run, "tools" over the rest, None over the CPU's reference."""
+    from kube_scheduler_simulator_tpu_torch.tools import (
+        blackbox_smoke, chaos, lockwitness, obs_smoke, soak)
+
+    # ---- chaos, under the lock witness (locks made from here on)
+    tap.window = "tools"
+    witness = lockwitness.install()
+    try:
+        lines = []
+        for seed in CHAOS_SEEDS:
+            t0 = time.perf_counter()
+            r = chaos.run_seed(seed, chaos.FULL_SHAPE, witness=witness, device=device)
+            check(r["ok"] and r["injected"] >= 1, f"32 chaos seed {seed}: {r['failures']}")
+            lines.append(f"seed {seed} FULL_SHAPE: ok, injected {r['injected']} "
+                         f"{r['injected_by_seam']}, modes {r['modes']}, failures "
+                         f"{r['failures']}, {time.perf_counter() - t0:.1f} s")
+        shape = CHAOS_SCALE
+        t0 = time.perf_counter()
+        tap.window = "chaos at scale"
+        big = chaos.run_seed(1, shape, witness=witness, device=device, keep_state=True)
+        check(big["ok"] and big["injected"] >= 1, f"32 chaos at scale: {big['failures']}")
+        chaos_s = time.perf_counter() - t0
+    finally:
+        tap.window = None
+        lockwitness.uninstall()
+    print(f"[32 chaos] {card}: {'; '.join(lines)}; seed 1 at {shape['nodes']} nodes x "
+          f"{shape['pods']} pods a session + {shape['gangs']} gangs of "
+          f"{shape['gang_members']}: "
+          f"ok, injected {big['injected']} {big['injected_by_seam']}, modes {big['modes']}, "
+          f"failures {big['failures']}, {chaos_s:.1f} s; lock witness: no cycle", flush=True)
+
+    # the card's fault-free run against the CPU's plain path
+    t0 = time.perf_counter()
+    want = chaos.fault_free_state(1, shape, "cpu")
+    got = big["reference"][chaos.FAULTED]
+    check(set(got) == set(want), "32 chaos: the card's and the CPU's pods differ")
+    moved = [n for n in want if got[n][0] != want[n][0]]
+    check(not moved, f"32 chaos: {len(moved)} pods bound elsewhere than on the CPU, "
+                     f"first {moved[:3]}")
+    plain = sorted(n for n in want if not n.startswith("cg"))
+    gang = big["gangs"][chaos.FAULTED][0]
+    sample = [plain[0], plain[-1], *sorted(n for n in want if n.startswith(gang + "-"))]
+    for n in sample:
+        check(got[n][1] == want[n][1], f"32 chaos: pod {n}'s annotations differ from the CPU's")
+    bound = sum(1 for v in got.values() if v[0])
+    print(f"[32 chaos == cpu] {card}: seed 1's fault-free {chaos.FAULTED} on the card == the "
+          f"CPU's plain path: every pod's node ({bound} of {len(got)} bound), the "
+          f"annotations of {len(sample)} pods ({plain[0]}, {plain[-1]}, gang {gang}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del big, want, got
+
+    # ---- the soak at 5,000 nodes
+    tap.window = "tools"
+    t0 = time.perf_counter()
+    v = soak.run_soak(device=device, slo_target=None, **SOAK_CHURN)
+    check(v["ok"], f"32 soak: {v['failures']}")
+    print(f"[32 soak] {card}: standard tenant on make_churn_workload(n_nodes="
+          f"{SOAK_CHURN['std_nodes']}, ticks={SOAK_CHURN['ticks']}, seed=5, arrival_rate="
+          f"{SOAK_CHURN['arrival_rate']}, departure_rate={SOAK_CHURN['departure_rate']}): p99 "
+          f"{v['soak_p99_wave_seconds']} s against the target {v['slo_target_p99_s']} s "
+          f"(1.5 x the calibration pass's p99 {v['calibration_p99_s']} s); best-effort shed "
+          f"rate {v['soak_shed_rate']} ({v['shed_responses']} 429s, all with Retry-After: "
+          f"{v['all_shed_had_retry_after']}; lifted {v['shed_lifted']}; overload waves of "
+          f"{v['overload_batch']} pods); final rung {v['final_rung']}; history rows "
+          f"{v['history_rows']}, shed evidence checked {v['shed_evidence_checked']}; autopilot "
+          f"{v['autopilot']}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the black box and the trace
+    bb = blackbox_smoke.run(device)
+    check(bb["ok"] and bb["hbm_available"], f"32 blackbox smoke: {bb}")
+    ob = obs_smoke.run(device)
+    check(ob["ok"], f"32 obs smoke: {ob}")
+    print(f"[32 black box] {card}: dump {bb['dump']} ({bb['reason']}, cause "
+          f"{bb['cause']['seam']}), fingerprint kind {bb['kind']!r}, hbm_available "
+          f"{bb['hbm_available']}, events {bb['event_kinds']} | [32 trace] "
+          f"{ob['traced_spans']} spans, {ob['traced_dump_events']} dump events and "
+          f"{ob['perfetto_spans']} + {ob['perfetto_instants']} Perfetto events under "
+          f"{ob['trace_id']!r}; history window {ob['history_rows']} rows", flush=True)
 
 
 KUBE_TOKEN = "kss-smoke-token"  # phase 31's fake kube-apiserver's bearer token

@@ -14,6 +14,8 @@
 #define KSS_MAX_SHAPE 16   // RequestedToCapacityRatio shape points
 #define KSS_MC 4           // topologyspread.MAX_CONSTRAINTS
 #define KSS_MAX_VBK 8      // VolumeBinding: unbound claims per pod
+#define KSS_VB_WORDS 4     // ... past KSS_MAX_VBK: open-slot mask words in a thread's own
+                           // array; past KSS_VB_WORDS * 64 claims in StepArgs.vb_masks
 #define KSS_THREADS 1024
 
 enum PluginId {
@@ -168,6 +170,10 @@ struct StepArgs {
   unsigned char* spill;                  // or null: shared memory
   // --- the step's tables where they pass the fixed arrays below (step_tables)
   const long long* ext;                  // or null: the fixed arrays
+  // --- VolumeBinding's open-slot masks past KSS_VB_WORDS * 64 claims a pod
+  // (volumes.cuh vb_greedy_wide): [vb_mask_words, the launch's threads],
+  // sized by the launch's plan (its mask bytes) and allocated by its caller
+  unsigned long long* vb_masks;          // or null: no pod past the threads' own arrays
   // --- 8-byte scalars
   long long ip_hard_weight;
   long long score_weight[KSS_MAX_S];
@@ -212,7 +218,7 @@ struct StepArgs {
 // A launch's table of sessions: one StepArgs per session, KM entries (1,
 // 2, 4, 8 or 16), taken by a kernel as one __grid_constant__ parameter
 // and read in place from the parameter space, indexed by the session of
-// the CTA.  16 x 1,952 bytes = 31,232 (kernels/step.py checks
+// the CTA.  16 x 1,936 bytes = 30,976 (kernels/step.py checks
 // sizeof(StepArgs) against its mirror), inside the 32,764 bytes CUDA
 // 12.1+ allows a kernel's parameters on this card, with room for the
 // kernel's other parameters.  The members share the batch, the node count
@@ -375,6 +381,26 @@ static StepTable<KM> make_table(const StepArgs* args, int k) {
   StepTable<KM> t;
   for (int i = 0; i < k; ++i) t.s[i] = args[i];
   return t;
+}
+
+// The open-slot mask words a thread of a launch over the k sessions keeps
+// in StepArgs.vb_masks: ceil(VK / 64) at the widest session's VK where a
+// pod passes KSS_VB_WORDS * 64 claims, else 0 (the threads' own arrays).
+// A plan's mask bytes are these words x 8 x its threads; a launch with
+// words and no vb_masks is refused.
+static inline long long vb_mask_words(const StepArgs* args, int k) {
+  int words = 0;
+  for (int i = 0; i < k; ++i)
+    if (args[i].VK > KSS_VB_WORDS * 64 && (args[i].VK + 63) >> 6 > words)
+      words = (args[i].VK + 63) >> 6;
+  return words;
+}
+
+static inline bool vb_masks_missing(const StepArgs* args, int k) {
+  if (vb_mask_words(args, k) == 0) return false;
+  for (int i = 0; i < k; ++i)
+    if (args[i].vb_masks == nullptr) return true;
+  return false;
 }
 #endif
 

@@ -84,8 +84,20 @@ __global__ void __launch_bounds__(COMMIT_SLICE) spec_commit_bind_kernel(
 
 extern "C" int kss_step_args_size() { return (int)sizeof(StepArgs); }
 
-// Launch on the caller's stream; no synchronisation.  Returns
-// cudaGetLastError() so a refused launch is reported at once.
+static int commit_blocks(const StepArgs* args) {
+  return args->N > 0 ? (args->N + COMMIT_SLICE - 1) / COMMIT_SLICE : 1;
+}
+
+// The device memory a general commit's launch needs in a.vb_masks
+// (common.cuh vb_mask_words), to *mask_bytes.
+extern "C" int kss_commit_plan(const StepArgs* args, long long* mask_bytes) {
+  *mask_bytes = vb_mask_words(args, 1) * 8 * commit_blocks(args) * COMMIT_SLICE;
+  return 0;
+}
+
+// Launch on the caller's stream; no synchronisation; a.vb_masks set where
+// kss_commit_plan gave mask bytes.  Returns cudaGetLastError() so a refused
+// launch is reported at once.
 extern "C" int kss_spec_commit(const StepArgs* args, const int* selected, int k, int core_only,
                                void* stream) {
   if (core_only) {
@@ -93,7 +105,8 @@ extern "C" int kss_spec_commit(const StepArgs* args, const int* selected, int k,
     spec_commit_core_kernel<<<blocks, COMMIT_THREADS, 0, (cudaStream_t)stream>>>(*args, selected,
                                                                                  k);
   } else {
-    const int blocks = args->N > 0 ? (args->N + COMMIT_SLICE - 1) / COMMIT_SLICE : 1;
+    if (vb_masks_missing(args, 1)) return (int)cudaErrorInvalidValue;
+    const int blocks = commit_blocks(args);
     // W as common.cuh's: a pod past KSS_MAX_VBK claims binds by the wide walk
     by_wide(args, 1, [&](auto wide) {
       constexpr bool W = decltype(wide)::value;

@@ -195,9 +195,10 @@ static cudaError_t table_plan(const StepArgs* table, int k, int ctas, int shards
 // j < 5, R = S G: to clusters[j] how many clusters of R CTAs the card
 // holds at once (0 past KSS_MAX_CTAS), to cta_spill[j] the device memory
 // each CTA's state takes in its session's spill (0 where it stays in
-// shared memory).
+// shared memory), to cta_masks[j] the bytes each CTA of the launch takes
+// in vb_masks (common.cuh vb_mask_words).
 extern "C" int kss_eval_plan(const StepArgs* table, int k, int shards, int light,
-                             int* clusters, long long* cta_spill) {
+                             int* clusters, long long* cta_spill, long long* cta_masks) {
   if (k < 1 || k > KSS_MAX_TABLE || !cluster_takes(table[0], shards, shards))
     return (int)cudaErrorInvalidValue;
   return by_shape(light, [&](auto shape) {
@@ -213,12 +214,13 @@ extern "C" int kss_eval_plan(const StepArgs* table, int k, int shards, int light
         for (int j = 0; j < KSS_EVAL_SIZES && err == cudaSuccess; ++j) {
           const int ctas = shards << j;
           clusters[j] = 0;
-          cta_spill[j] = 0;
+          cta_spill[j] = cta_masks[j] = 0;
           if (ctas > KSS_MAX_CTAS) continue;
           ClusterPlan p;
           err = table_plan(table, k, ctas, shards, LIGHT, max_dynamic, &p);
           clusters[j] = eval_clusters<KM, LIGHT, W>(p, ctas, dev);
           cta_spill[j] = p.spill ? (long long)p.bytes : 0;
+          cta_masks[j] = vb_mask_words(table, k) * 8 * p.threads;
         }
         return (int)err;
       });
@@ -230,12 +232,14 @@ extern "C" int kss_eval_plan(const StepArgs* table, int k, int shards, int light
 // `ctas` CTAs (1 to KSS_MAX_CTAS, whole groups of the `shards` "nodes"
 // shards) of the `light` shape or the default one per pod of each of the
 // k sessions, each session's spill set exactly where kss_eval_plan gave
-// the state bytes of device memory (a slot per CTA of the session).  Each
-// returns the launch's error or cudaGetLastError(), so a refused launch is
-// reported at once.
+// the state bytes of device memory (a slot per CTA of the session), and
+// vb_masks where it gave mask bytes (one buffer of the launch's CTAs,
+// every session's pointing at it).  Each returns the launch's error or
+// cudaGetLastError(), so a refused launch is reported at once.
 extern "C" int kss_spec_eval(const StepArgs* table, int k, int ctas, int shards, int light,
                              void* stream) {
-  if (k < 1 || k > KSS_MAX_TABLE || table[0].C < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > KSS_MAX_TABLE || table[0].C < 1 || vb_masks_missing(table, k))
+    return (int)cudaErrorInvalidValue;
   return by_shape(light, [&](auto shape) {
     constexpr bool LIGHT = decltype(shape)::value;
     return by_wide(table, k, [&](auto wide) {

@@ -377,9 +377,11 @@ static int round_resident(size_t bytes, int dev) {
 // to resident[j] how many CTAs of that group size an SM holds at once (0
 // where the group's state passes shared memory: the plan takes such a P
 // only as P = 1), to cta_spill[j] the device memory a CTA's state then
-// takes in its session's spill (else 0); to *sms the card's SMs.
+// takes in its session's spill (else 0); to *sms the card's SMs; to
+// *cta_mask the bytes a CTA of the launch takes in vb_masks (common.cuh
+// vb_mask_words, at any P).
 extern "C" int kss_round_plan(const StepArgs* table, int k, int* resident,
-                              long long* cta_spill, int* sms) {
+                              long long* cta_spill, int* sms, long long* cta_mask) {
   if (k < 1 || k > KSS_MAX_TABLE || !same_shape(table, k)) return (int)cudaErrorInvalidValue;
   return by_wide(table, k, [&](auto wide) {
     constexpr bool W = decltype(wide)::value;
@@ -396,6 +398,7 @@ extern "C" int kss_round_plan(const StepArgs* table, int k, int* resident,
         resident[j] = spill ? 0 : round_resident<KM, W>(bytes, dev);
         cta_spill[j] = spill ? (long long)bytes : 0;
       }
+      *cta_mask = vb_mask_words(table, k) * 8 * ROUND_THREADS;
       return (int)err;
     });
   });
@@ -404,11 +407,12 @@ extern "C" int kss_round_plan(const StepArgs* table, int k, int* resident,
 // Launches on the caller's stream; no synchronisation.  ceil(B / pods)
 // CTAs per session, `pods` one of 1, 2, 4, 8, each session's spill set
 // exactly where kss_round_plan gave the state bytes of device memory (a
-// slot per CTA of the session).  Returns the launch's error, so a refused
-// launch is reported at once.
+// slot per CTA of the session), vb_masks where it gave mask bytes (one
+// buffer of the launch's CTAs, every session's pointing at it).  Returns
+// the launch's error, so a refused launch is reported at once.
 extern "C" int kss_spec_round(const StepArgs* table, int k, int pods, void* stream) {
   if (k < 1 || k > KSS_MAX_TABLE || pods < 1 || pods > KSS_MAX_GROUP || (pods & (pods - 1)) ||
-      table[0].C < 1 || table[0].K < 1 || !same_shape(table, k))
+      table[0].C < 1 || table[0].K < 1 || !same_shape(table, k) || vb_masks_missing(table, k))
     return (int)cudaErrorInvalidValue;
   return by_wide(table, k, [&](auto wide) {
     constexpr bool W = decltype(wide)::value;

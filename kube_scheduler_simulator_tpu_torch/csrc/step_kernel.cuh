@@ -126,10 +126,11 @@ static int step_auto_ctas(const StepArgs& a, int shards, int max_dynamic) {
 // cluster size (`ctas` 0 picks it, step_auto_ctas; else it is taken as it
 // is) to *out_ctas, and to *spill_bytes the device memory the launch needs
 // in a.spill: 0 where each CTA's state fits in shared memory, else R times
-// step_smem's total (cluster.cuh).  A launch cluster_takes refuses is
-// cudaErrorInvalidValue.
+// step_smem's total (cluster.cuh); to *mask_bytes the device memory it
+// needs in a.vb_masks (common.cuh vb_mask_words, R CTAs).  A launch
+// cluster_takes refuses is cudaErrorInvalidValue.
 extern "C" int kss_step_plan(const StepArgs* args, int ctas, int shards, int* out_ctas,
-                             long long* spill_bytes) {
+                             long long* spill_bytes, long long* mask_bytes) {
   return by_wide(args, 1, [&](auto wide) {
     constexpr bool W = decltype(wide)::value;
     int max_dynamic = 0;
@@ -141,6 +142,7 @@ extern "C" int kss_step_plan(const StepArgs* args, int ctas, int shards, int* ou
     const ClusterPlan p = cluster_plan(*args, ctas, shards, max_dynamic, true);
     *out_ctas = ctas;
     *spill_bytes = p.spill ? (long long)p.bytes * ctas : 0;
+    *mask_bytes = vb_mask_words(args, 1) * 8 * ctas * p.threads;
     return (int)cudaSuccess;
   });
 }
@@ -150,7 +152,8 @@ extern "C" int kss_step_plan(const StepArgs* args, int ctas, int shards, int* ou
 // where the plan asked for it).  Returns the launch's error or
 // cudaGetLastError(), so a refused launch is reported at once.
 static int launch_step_cluster(const StepArgs* args, int ctas, int shards, void* stream) {
-  if (!cluster_takes(*args, ctas, shards)) return (int)cudaErrorInvalidValue;
+  if (!cluster_takes(*args, ctas, shards) || vb_masks_missing(args, 1))
+    return (int)cudaErrorInvalidValue;
   return by_wide(args, 1, [&](auto wide) {
     constexpr bool W = decltype(wide)::value;
     int max_dynamic = 0;

@@ -218,13 +218,12 @@ __device__ bool vb_greedy(const StepArgs& a, int c, int n, int* chosen, const Po
 // slot that wants it.  That is the slot-order choice above: a slot's pick
 // is the first PV in that order it wants that no lower slot took, and the
 // lowest open slot wanting a PV is the one whose pick it is.  The open
-// slots are a bit mask in KSS_VB_WORDS words, so no chosen set is kept;
-// `claim` marks each PV given to a slot claimed (the bind at sel).
-// Returns whether some active slot can neither take a PV nor provision.
-#define KSS_VB_WORDS 4   // at most 256 claim slots a pod (kernels/step.py MAX_VBK_WIDE)
-
-__device__ bool vb_greedy_wide(const StepArgs& a, int c, int n, bool claim) {
-  unsigned long long open[KSS_VB_WORDS];
+// slots are a bit mask of ceil(VK / 64) words, word w at open[w * stride],
+// so no chosen set is kept; `claim` marks each PV given to a slot claimed
+// (the bind at sel).  Returns whether some active slot can neither take a
+// PV nor provision.
+__device__ __forceinline__ bool vb_walk(const StepArgs& a, int c, int n, bool claim,
+                                        unsigned long long* open, long long stride) {
   const int words = (a.VK + 63) >> 6;
   const unsigned char* active = a.vb_active + (long long)c * a.VK;
   int left = 0;
@@ -232,7 +231,7 @@ __device__ bool vb_greedy_wide(const StepArgs& a, int c, int n, bool claim) {
     unsigned long long m = 0;
     for (int b = 0; b < 64 && w * 64 + b < a.VK; ++b)
       if (active[w * 64 + b]) m |= 1ull << b;
-    open[w] = m;
+    open[w * stride] = m;
     left += __popcll(m);
   }
   const unsigned char* want = a.vb_want + (long long)c * a.VK * a.VV;
@@ -241,10 +240,10 @@ __device__ bool vb_greedy_wide(const StepArgs& a, int c, int n, bool claim) {
     if (a.vb_claimed[v] || !a.vb_pv_node_ok[(long long)v * a.N + n]) continue;
     bool given = false;
     for (int w = 0; w < words && !given; ++w)
-      for (unsigned long long m = open[w]; m != 0; m &= m - 1) {
+      for (unsigned long long m = open[w * stride]; m != 0; m &= m - 1) {
         const int k = w * 64 + __ffsll((long long)m) - 1;
         if (want[(long long)k * a.VV + v]) {
-          open[w] &= ~(1ull << (k & 63));
+          open[w * stride] &= ~(1ull << (k & 63));
           --left;
           given = true;
           break;
@@ -254,11 +253,25 @@ __device__ bool vb_greedy_wide(const StepArgs& a, int c, int n, bool claim) {
   }
   bool bindfail = false;
   for (int w = 0; w < words; ++w)
-    for (unsigned long long m = open[w]; m != 0; m &= m - 1) {
+    for (unsigned long long m = open[w * stride]; m != 0; m &= m - 1) {
       const int k = w * 64 + __ffsll((long long)m) - 1;
       bindfail |= !a.vb_provision_ok[((long long)c * a.VK + k) * a.N + n];
     }
   return bindfail;
+}
+
+// The mask in the thread's own array up to KSS_VB_WORDS * 64 claims;
+// past that, the thread's column of a.vb_masks (one row a word, one column
+// a thread of the launch: the launch's plan sizes it, common.cuh
+// vb_mask_words, and its caller allocates it).  Every launch is
+// one-dimensional.
+__device__ bool vb_greedy_wide(const StepArgs& a, int c, int n, bool claim) {
+  if (a.VK <= KSS_VB_WORDS * 64) {
+    unsigned long long open[KSS_VB_WORDS];
+    return vb_walk(a, c, n, claim, open, 1);
+  }
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  return vb_walk(a, c, n, claim, a.vb_masks + lane, (long long)gridDim.x * blockDim.x);
 }
 
 template <bool W>

@@ -2459,6 +2459,7 @@ class SchedulerEngine:
                 phased.step, [nm for _, nm, _ in pending], carry, xs1,
                 torch.from_numpy(eff_raw[rows]).to(dev), feas_t).cpu().numpy()
             self.renormalize_flushes += 1
+            # kss-analyze: allow(pod-loop) one pod's deferred score rows, not pods
             for (s, nm, ext), row in zip(pending, normed.astype(np.int64)):
                 finish(s, nm, ext, row)
             pending.clear()

@@ -453,10 +453,36 @@ def build_step(cw, out_mode: str = "full", pack_mode: str = "p16",
     """pipeline.py:360: the step of one compiled workload (see Step).
     The port builds every replay's, stream's and host path's step here,
     so this is the `compile.build` fault seam's one site (the JAX package
-    fires it where its compile cache builds a program, replay.py:1023)."""
-    fault_point("compile.build")
-    return Step(cw, out_mode=out_mode, pack_mode=pack_mode,
-                score_dtypes=score_dtypes, wide_raw=wide_raw)
+    fires it where its compile cache builds a program, replay.py:1023),
+    and it keeps the JAX seam's telemetry (replay.py:1025-1051): the
+    build's seconds in `scan_compile_build_seconds{key, result}` and a
+    black-box `compile.build` (or `compile.fail`) event.  `key` is a
+    short id of the step's shape.  The port has no program cache (the
+    kernels are built once, as libraries; a step costs a Python object),
+    so it keeps no `scan_compile_cache_entries` gauge."""
+    import time
+    import zlib
+
+    from ..utils.blackbox import BLACKBOX
+    from ..utils.tracing import TRACER
+
+    key = (cw.n_nodes, tuple(cw.config.active_plugins()), out_mode, pack_mode,
+           tuple(score_dtypes), wide_raw)
+    key_id = f"{zlib.crc32(repr(key).encode()) & 0xffffffff:08x}"
+    t0 = time.perf_counter()
+    try:
+        fault_point("compile.build")
+        step = Step(cw, out_mode=out_mode, pack_mode=pack_mode,
+                    score_dtypes=score_dtypes, wide_raw=wide_raw)
+    except BaseException as e:
+        TRACER.observe("scan_compile_build_seconds", time.perf_counter() - t0, key=key_id,
+                       result="error")
+        BLACKBOX.record("compile.fail", key=key_id, error=f"{type(e).__name__}: {e}"[:200])
+        raise
+    dt = time.perf_counter() - t0
+    TRACER.observe("scan_compile_build_seconds", dt, key=key_id, result="ok")
+    BLACKBOX.record("compile.build", key=key_id, seconds=round(dt, 3))
+    return step
 
 
 # the in-tree scorers with ScoreExtensions: the ones renormalize recomputes

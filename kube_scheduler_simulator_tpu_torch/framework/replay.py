@@ -991,6 +991,14 @@ def _resolve_device_resident(device_resident: bool | None, collect: bool, on_chu
     return bool(device_resident)
 
 
+
+def check_unroll(unroll: int) -> None:
+    """The JAX package's `unroll=` as lax.scan takes it: an int of at least
+    1 (lax.scan raises below that).  The step kernel walks a chunk's pods
+    in one launch, so the value selects nothing here."""
+    if int(unroll) < 1:
+        raise ValueError(f"unroll must be a positive integer, got {unroll}")
+
 def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chunk=None,
            device_resident: bool | None = None, device="cuda", mesh=None,
            unroll: int = 1, filter_only: bool = False) -> ReplayResult:
@@ -1016,12 +1024,15 @@ def replay(cw: CompiledWorkload, chunk: int = 512, collect: bool = True, on_chun
     every chunk runs B12 `step_chunk_sharded`, each shard a group of the
     step kernel's CTAs; results are byte-identical to the unsharded
     replay.  The node count must divide by the "nodes" extent.
-    unroll: the JAX package's scan unroll; not ported, it raises.
+    unroll: the JAX package's lax.scan unroll factor, taken as it takes
+    it: a value below 1 raises, as lax.scan refuses it, and any other
+    changes nothing, since the step kernel loops over the chunk's pods
+    itself (one launch a chunk) and a hint to unroll a scan cannot change
+    a result.
     filter_only: the caller only consumes filter codes / prefilter
     rejects (preemption's fit checks), so a custom NormalizeScore, which
     the chunked step cannot run, is allowed."""
-    if unroll != 1:
-        raise NotImplementedError("the step kernel has no unroll")
+    check_unroll(unroll)
     device = resolve_device(device)
     if cw.device != device:
         raise ValueError(f"workload compiled for {cw.device}, replay asked for {device}")

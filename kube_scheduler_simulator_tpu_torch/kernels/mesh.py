@@ -386,7 +386,7 @@ def step_chunk_sharded(step, carry: dict, xs_chunk: dict, *, _groups: int = 0):
     c = xs_chunk["is_pad"].shape[0]
     outs = kstep.alloc_outputs(step, c, dev)
     args = kstep.make_args(step, carry, xs_chunk, outs)
-    ctas, spill = kstep.plan_cluster(lib, args, shards * _groups, dev, shards)  # spill held
+    ctas, *held = kstep.plan_cluster(lib, args, shards * _groups, dev, shards)  # to the launch
     kstep.check_launch("step_chunk_sharded", lib.kss_step_chunk(
         ctypes.byref(args), ctas, shards, kstep.stream_of(dev)))
     step_chunk_sharded.launches += 1

@@ -181,8 +181,9 @@ def launch_eval(what: str, entries: list, groups: int, shards: int = 1,
     eval_light's choice from both shapes' plans, each at its own G.
     Where a CTA's
     state passes shared memory it goes to device memory allocated here,
-    held through the launch, a slot per CTA.  Launches on the current
-    stream.  -> (G, light)."""
+    held through the launch, a slot per CTA; so do VolumeBinding's
+    open-slot masks where the plan gives them bytes.  Launches on the
+    current stream.  -> (G, light)."""
     dev = _device(entries[0][1])
     for step, carry, xs, _ in entries:
         kstep.check_device(what, dev, step.cw.statics, carry, xs)
@@ -200,27 +201,31 @@ def launch_eval(what: str, entries: list, groups: int, shards: int = 1,
     def plan(shape: bool):
         clusters = (ctypes.c_int * len(EVAL_SHARDS))()
         cta_spill = (ctypes.c_longlong * len(EVAL_SHARDS))()
+        cta_masks = (ctypes.c_longlong * len(EVAL_SHARDS))()
         kstep.check_launch(f"{what} plan", lib.kss_eval_plan(table, k, shards, int(shape),
-                                                             clusters, cta_spill))
-        return dict(zip(EVAL_SHARDS, clusters)), dict(zip(EVAL_SHARDS, cta_spill))
+                                                             clusters, cta_spill, cta_masks))
+        return (dict(zip(EVAL_SHARDS, clusters)), dict(zip(EVAL_SHARDS, cta_spill)),
+                dict(zip(EVAL_SHARDS, cta_masks)))
 
-    clusters_at, cta_spill = plan(bool(light))
+    clusters_at, cta_spill, cta_masks = plan(bool(light))
     g = groups or eval_shards(k * b, n, clusters_at, shards)
     # the light shape's plan is asked only where the default one takes
     # more than one wave of one pass
     if light is None:
         light = False
         if eval_cost(k * b, n, shards, g, clusters_at, False) > 1:
-            light_at, light_spill = plan(True)
+            light_at, light_spill, light_masks = plan(True)
             gl = groups or eval_shards(k * b, n, light_at, shards)
             if eval_light(k * b, n, shards, (g, clusters_at), (gl, light_at)):
-                light, g, cta_spill = True, gl, light_spill
-    spill = None
+                light, g, cta_spill, cta_masks = True, gl, light_spill, light_masks
+    spill = masks = None
     if cta_spill[g]:
         per = cta_spill[g] * b * shards * g
         spill = torch.empty(per * k, dtype=torch.uint8, device=dev)
         for i in range(k):
             table[i].spill = spill.data_ptr() + i * per
+    if cta_masks[g]:
+        masks = kstep.vb_masks(cta_masks[g] * k * b * shards * g, dev, table)
     kstep.check_launch(what, lib.kss_spec_eval(table, k, shards * g, shards, int(light),
                                                kstep.stream_of(dev)))
     return g, light
@@ -623,7 +628,8 @@ def launch_round(what: str, entries: list, kcand: int, pods: int, clocks=None) -
     of P pods, one CTA each.  P = `pods` (one of ROUND_PODS), or where it
     is 0 round_pods' choice from the card's residency (kss_round_plan).
     Where a group's state passes shared memory it goes to device memory
-    allocated here, held through the launch, a slot per CTA.  `clocks`,
+    allocated here, held through the launch, a slot per CTA; so do
+    VolumeBinding's open-slot masks where the plan gives them bytes.  `clocks`,
     one zeroed int64 [B * CLOCK_SLOTS] tensor per member, runs the
     phase-clock build.  Launches on the current stream.  -> P."""
     dev = _device(entries[0][1])
@@ -643,18 +649,21 @@ def launch_round(what: str, entries: list, kcand: int, pods: int, clocks=None) -
         table[i].clock = kstep._ptr(ck, torch.int64, (b * kstep.CLOCK_SLOTS,), "clock")
     resident = (ctypes.c_int * len(ROUND_PODS))()
     cta_spill = (ctypes.c_longlong * len(ROUND_PODS))()
-    sms = ctypes.c_int(0)
+    sms, cta_mask = ctypes.c_int(0), ctypes.c_longlong(0)
     kstep.check_launch(f"{what} plan", lib.kss_round_plan(table, k, resident, cta_spill,
-                                                          ctypes.byref(sms)))
+                                                          ctypes.byref(sms),
+                                                          ctypes.byref(cta_mask)))
     if pods == 0:
         pods = round_pods(k, b, dict(zip(ROUND_PODS, resident)), sms.value)
     j = ROUND_PODS.index(pods)
-    spill = None
+    spill = masks = None
     if cta_spill[j]:
         per = cta_spill[j] * -(-b // pods)
         spill = torch.empty(per * k, dtype=torch.uint8, device=dev)
         for i in range(k):
             table[i].spill = spill.data_ptr() + i * per
+    if cta_mask.value:
+        masks = kstep.vb_masks(cta_mask.value * k * -(-b // pods), dev, table)
     kstep.check_launch(what, lib.kss_spec_round(table, k, pods, kstep.stream_of(dev)))
     return pods
 
@@ -764,6 +773,12 @@ def _commit(kernel, step, carry: dict, xs: dict, selected, k: int) -> dict:
     b = xs["is_pad"].shape[0]
     args = kstep.make_args(step, carry, xs, None)
     sel_ptr = kstep._ptr(selected, torch.int32, (b,), "selected")
+    masks, nbytes = None, ctypes.c_longlong(0)
+    if kernel is spec_commit_bind:
+        kstep.check_launch(f"{kernel.__name__} plan",
+                           lib.kss_commit_plan(ctypes.byref(args), ctypes.byref(nbytes)))
+    if nbytes.value:
+        masks = kstep.vb_masks(nbytes.value, dev, [args])  # held through the launch
     err = lib.kss_spec_commit(ctypes.byref(args), sel_ptr, int(k),
                               int(kernel is spec_commit_core), kstep.stream_of(dev))
     kstep.check_launch(kernel.__name__, err)

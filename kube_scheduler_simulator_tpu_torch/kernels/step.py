@@ -25,8 +25,11 @@ in StepArgs' fixed arrays while they fit (MAX_F filters, MAX_S scorers,
 MAX_CUSTOM custom plugins with rows, MAX_RES resources, MAX_SHAPE shape
 points); a workload past any of them gets all its tables in one int64
 array on the card (`StepArgs.ext`, `step_tables`), which the kernels read
-instead.  The one bound left is VolumeBinding's: MAX_VBK_WIDE unbound
-claims a pod (csrc/volumes.cuh KSS_VB_WORDS), past which make_args raises.
+instead.  A pod past MAX_VBK unbound claims takes VolumeBinding's wide
+walk (csrc/volumes.cuh vb_greedy_wide), whose open-slot masks pass the
+thread's own array past 256 claims: the launch's plan then gives their
+bytes and its caller allocates them with the spill (StepArgs.vb_masks,
+`vb_masks`).  No count is bounded on the card.
 """
 
 from __future__ import annotations
@@ -44,7 +47,6 @@ from ..state.resources import CPU, MEMORY
 # StepArgs' fixed arrays (csrc/common.cuh KSS_MAX_*): past any of them the
 # tables go to StepArgs.ext
 MAX_F, MAX_S, MAX_RES, MAX_SHAPE, MAX_VBK, MAX_CUSTOM = 16, 16, 8, 16, 8, 8
-MAX_VBK_WIDE = 256  # unbound claims a pod on the card (csrc/volumes.cuh KSS_VB_WORDS x 64)
 
 PLUGIN_IDS = {
     "NodeResourcesFit": 0,
@@ -98,7 +100,7 @@ _OUT_PTR_FIELDS = (
     "out_codes", "out_raw", "out_final",
     "out_packed", "out_raw8", "out_raw16", "out_raw32", "out_overflow",
     "out_selected", "out_feasible_count", "out_prefilter_reject",
-    "clock", "spill", "ext",
+    "clock", "spill", "ext", "vb_masks",
 )
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
@@ -420,9 +422,6 @@ def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
     if "VolumeBinding" in cw.statics:
         st, x, bc = cw.statics["VolumeBinding"], xs["VolumeBinding"], carry["VolumeBinding"]
         a.VV, a.VK = st.pv_cap.shape[0], x.active.shape[1]
-        if a.VK > MAX_VBK_WIDE:
-            raise ValueError(f"{a.VK} unbound claims in one pod: the card takes at most "
-                             f"{MAX_VBK_WIDE} (csrc/volumes.cuh KSS_VB_WORDS)")
         a.vb_width = x.bound_code.shape[-1]
         if a.vb_width not in (1, n):
             raise ValueError(f"VolumeBinding.bound_code: shape {tuple(x.bound_code.shape)}")
@@ -523,19 +522,33 @@ def plan_cluster(lib: ctypes.CDLL, args: StepArgs, ctas: int, dev: torch.device,
     """The plan of one launch of step_chunk's cluster kernel over
     `shards` "nodes" shards (a mesh's; 1 without one) (csrc/
     step_kernel.cuh kss_step_plan) -> (R, the device memory that holds the
-    CTAs' state, or None).  `ctas` 0 lets the kernel pick R.  Where a
-    CTA's state does not fit in shared memory it goes to device memory,
-    allocated here on `dev` and set on args.spill; the caller launches
-    before it lets the tensor go (PyTorch's allocator orders its reuse
-    after the launch on the stream)."""
-    out, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    CTAs' state or None, that of VolumeBinding's open-slot masks or None).
+    `ctas` 0 lets the kernel pick R.  Where a CTA's state does not fit in
+    shared memory it goes to device memory, and where a pod passes the
+    threads' own mask arrays the masks do (csrc/common.cuh vb_mask_words):
+    each allocated here on `dev` and set on args.spill, args.vb_masks; the
+    caller launches before it lets the tensors go (PyTorch's allocator
+    orders their reuse after the launch on the stream)."""
+    out, nbytes, mbytes = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_longlong(0)
     check_launch("step_chunk plan", lib.kss_step_plan(ctypes.byref(args), ctas, shards,
-                                                      ctypes.byref(out), ctypes.byref(nbytes)))
-    spill = None
+                                                      ctypes.byref(out), ctypes.byref(nbytes),
+                                                      ctypes.byref(mbytes)))
+    spill = masks = None
     if nbytes.value:
         spill = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
         args.spill = spill.data_ptr()
-    return out.value, spill
+    if mbytes.value:
+        masks = vb_masks(mbytes.value, dev, [args])
+    return out.value, spill, masks
+
+
+def vb_masks(nbytes: int, dev: torch.device, table) -> torch.Tensor:
+    """`nbytes` of device memory for VolumeBinding's open-slot masks, set
+    on every StepArgs of `table` (one buffer a launch)."""
+    masks = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    for args in table:
+        args.vb_masks = masks.data_ptr()
+    return masks
 
 
 CLOCK_SLOTS = 8  # csrc/common.cuh KSS_CLOCK_SLOTS
@@ -567,7 +580,7 @@ def step_chunk(step, carry: dict, xs_chunk: dict, *, _shards: int = 0,
     args = make_args(step, carry, xs_chunk, outs)
     if _clock is not None:
         args.clock = _ptr(_clock, torch.int64, (c * CLOCK_SLOTS + 2,), "clock")
-    shards, spill = plan_cluster(lib, args, _shards, dev)
+    shards, spill, _masks = plan_cluster(lib, args, _shards, dev)
     check_launch("step_chunk", lib.kss_step_chunk(ctypes.byref(args), shards, 1,
                                                   stream_of(dev)))
     step_chunk.launches += 1

@@ -4,8 +4,9 @@ Port of kube_scheduler_simulator_tpu/models/workloads.py (`make_nodes`
 :16, `make_pods` :68, `SLOT_LABEL` and `make_slot_pinned_workload`
 :299-345, `BASELINE_CONFIGS` and `baseline_config` :481-524): the same
 numpy draws in the same order, so the same seed gives the same manifests.
-`make_gang_workload` ports :348, `make_nodes_columnar` :177 and
-`make_pods_columnar` :241.  The churn generator waits for a later slice.
+`make_gang_workload` ports :348, `make_nodes_columnar` :177,
+`make_pods_columnar` :241 and `make_churn_workload` :406, the traffic
+the port's soak (tools/soak.py) drives.
 """
 
 from __future__ import annotations
@@ -400,6 +401,75 @@ def make_gang_workload(
                 },
             })
     return podgroups, pods
+
+
+def make_churn_workload(
+    n_nodes: int,
+    ticks: int,
+    seed: int = 0,
+    arrival_rate: float = 20.0,
+    departure_rate: float = 10.0,
+    name_prefix: str = "churn",
+    slot_size: int = 2,
+) -> tuple[list[dict], list[dict]]:
+    """Arrival-churn traffic over the reserved-slot fleet shape: a Poisson
+    stream of pod arrivals plus Poisson departures of pods that arrived
+    earlier, bucketed into `ticks` discrete steps.
+
+    Deterministic for a (seed, shape) pair: one
+    ``np.random.default_rng(seed + 1)`` draws the arrival counts, the
+    departure counts and the departures in the JAX package's order, so the
+    same arguments give the same schedule, byte for byte.  Departures only
+    pick pods that arrived in an EARLIER tick and never pick twice, so a
+    driver can create and delete in schedule order without bookkeeping.
+
+    -> (nodes, schedule), schedule a list of per-tick dicts {"create":
+    [pod manifests], "delete": [pod names]}.  Nodes carry SLOT_LABEL
+    partitions and pods per-slot `app` labels, but the pods are not
+    affinity-pinned: every wave then has the same compiled shape, which
+    sustained-load drivers need."""
+    nodes = make_nodes(n_nodes, seed=seed)
+    n_slots = max(n_nodes // max(slot_size, 1), 1)
+    for i, node in enumerate(nodes):
+        node["metadata"]["labels"][SLOT_LABEL] = f"slot-{i % n_slots}"
+    rng = np.random.default_rng(seed + 1)
+    schedule: list[dict] = []
+    live: list[str] = []   # arrival order; departures sample from here
+    serial = 0
+    for _t in range(max(ticks, 1)):
+        n_arrive = int(rng.poisson(arrival_rate))
+        n_depart = min(int(rng.poisson(departure_rate)), len(live))
+        delete: list[str] = []
+        if n_depart:
+            picks = rng.choice(len(live), size=n_depart, replace=False)
+            # pop from the back first so earlier indices stay valid
+            for idx in sorted((int(p) for p in picks), reverse=True):
+                delete.append(live.pop(idx))
+            delete.reverse()
+        create: list[dict] = []
+        for _ in range(n_arrive):
+            slot = int(rng.integers(n_slots))
+            cpu = int(rng.choice([100, 250, 500]))
+            name = f"{name_prefix}-pod-{serial:06d}"
+            serial += 1
+            create.append({
+                "apiVersion": "v1",
+                "kind": "Pod",
+                "metadata": {"name": name, "namespace": "default",
+                             "labels": {"app": f"job-{slot}"}},
+                "spec": {
+                    "containers": [{
+                        "name": "main",
+                        "image": "registry.k8s.io/pause:3.9",
+                        "resources": {"requests": {
+                            "cpu": f"{cpu}m",
+                            "memory": str(256 << 20)}},
+                    }],
+                },
+            })
+            live.append(name)
+        schedule.append({"create": create, "delete": delete})
+    return nodes, schedule
 
 
 BASELINE_CONFIGS = {

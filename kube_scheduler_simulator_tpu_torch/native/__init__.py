@@ -143,7 +143,9 @@ def get_lib() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            _lib = _load(build_codec())
+            # concurrent first users wait for the one g++ build: the
+            # wait is the point (no lock is taken inside it)
+            _lib = _load(build_codec())  # kss-analyze: allow(blocking-under-lock)
     return _lib
 
 

@@ -74,9 +74,12 @@ Fault seams: `speculative.round` at the top of every round,
 `replay.scan_dispatch` at each round's and scan chunk's dispatch,
 `replay.decision_fetch` after each result.
 
-Not ported, and refused where a caller asks for them: `unroll=` (the
-scan kernel has no unroll), and a mesh over more than one card (ROADMAP
-Queue B item B12b, parallel/mesh.py).
+`unroll=` is taken as the JAX package takes it, a hint to the scan
+fallback that cannot change a result: a value below 1 raises, as lax.scan
+refuses it, and any other selects nothing, since the step kernel walks a
+chunk's pods in one launch.  Not ported, and refused where a caller asks
+for it: a mesh over more than one card (ROADMAP Queue B item B12b,
+parallel/mesh.py).
 
 Env knobs, read as in JAX: KSS_TPU_SPECULATIVE_BATCH pins the batch (one
 rung); KSS_TPU_SPECULATIVE_CANDIDATES caps the sparse round's candidate
@@ -96,7 +99,7 @@ from .. import resolve_device
 from ..control import CONTROLS
 from ..framework.gang import aligned_cut
 from ..framework.pipeline import PACK_MODES, build_step
-from ..framework.replay import (_DEVICE_BUDGET, ReplayResult, _CompactChunks,
+from ..framework.replay import (_DEVICE_BUDGET, ReplayResult, _CompactChunks, check_unroll,
                                 _DeviceAttribution, _Landing, _clone_carry, _ready_event,
                                 _compact_plan, _resolve_device_resident, _slice_xs,
                                 _workload_scan_key)
@@ -292,7 +295,7 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def replay_speculative_stream(
-        cw: CompiledWorkload, mesh=None, chunk: int = 512,
+        cw: CompiledWorkload, mesh=None, chunk: int = 512, unroll: int = 1,
         batch: int | None = None, pods: list[dict] | None = None,
         namespaces: list[dict] | None = None, on_chunk=None,
         device_resident: bool | None = None, gang=None,
@@ -318,11 +321,13 @@ def replay_speculative_stream(
     the sparse-round eligibility).  device: where the stream runs; None
     is the device `cw` was compiled for, anything else must name it.
 
-    mesh: a one-card parallel.mesh.Mesh (module doc).
+    mesh: a one-card parallel.mesh.Mesh (module doc).  unroll: the JAX
+    package's scan unroll (module doc): below 1 raises, else no effect.
 
     Returns (rr, stats): rr is bit-identical to replay(cw) and the
     sequential oracle; stats records rounds, acceptance and fallback.
     Caller must have checked speculation_ok(cw.config, ...)."""
+    check_unroll(unroll)
     if device is not None and resolve_device(device) != cw.device:
         raise ValueError(f"workload compiled for {cw.device}, stream asked for {device}")
     if mesh is not None:

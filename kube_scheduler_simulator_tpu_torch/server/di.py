@@ -22,9 +22,10 @@ session's tracer scope.
 A copy of kube_scheduler_simulator_tpu/server/di.py, rewired to the
 port: `device` ("cuda" by default, which raises without a card; "cpu"
 runs the plain PyTorch path) goes to the engine.  A `kube_config`
-import or sync source needs cluster/kubeapi.py, which is not ported
-(ROADMAP Queue A item 10): it raises NotImplementedError.  A
-`source_store` passed in works as in the JAX package.
+import or sync source is dialed through cluster/kubeapi.py
+`connect_source` (a kube-apiserver, or a simulator server through
+cluster/remote.py) and closed at shutdown, as in the JAX package; a
+`source_store` passed in works as there too.
 """
 
 from __future__ import annotations

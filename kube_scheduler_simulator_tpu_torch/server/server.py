@@ -58,7 +58,8 @@ instead of leaving handler threads sleeping into a dead simulation.
 A copy of kube_scheduler_simulator_tpu/server/server.py, rewired to the
 port: `SimulatorServer(..., device=)` ("cuda" by default, which raises
 without a card; "cpu" runs the plain PyTorch path) builds its session
-manager's engines there.
+manager's engines there; a server around a DIContainer builds its new
+sessions where that container's engine runs unless told otherwise.
 """
 
 from __future__ import annotations
@@ -80,14 +81,17 @@ from .sessions import SessionManager, StreamRegistry
 # "namespaceLastResourceVersion" is singular in the reference)
 class SimulatorServer:
     def __init__(self, di: DIContainer | SessionManager | None = None,
-                 port: int | None = None, device="cuda"):
+                 port: int | None = None, device=None):
         # accept either the pre-session shape (a DIContainer, adopted as
         # the pinned default session) or a SessionManager; `device` is
-        # where a manager built here schedules (an adopted container or
-        # manager keeps its own)
+        # where a manager built here schedules its sessions: by default
+        # where an adopted container's engine runs, else "cuda" (an
+        # adopted manager keeps its own)
         if isinstance(di, SessionManager):
             self.manager = di
         else:
+            if device is None:
+                device = di.engine.device if di is not None else "cuda"
             self.manager = SessionManager(default_di=di, device=device)
         self.port = port if port is not None else self.manager.cfg.port
         self.httpd: ThreadingHTTPServer | None = None

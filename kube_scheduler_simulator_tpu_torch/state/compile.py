@@ -34,9 +34,10 @@ compile_requests_gathered_total).
 
 Every part is built on the host, as numpy and CPU tensors, and the
 statics, xs and initial carry are moved to `device` in one last step:
-TRACER spans split a compile into compile.schema, compile.node_table,
-compile.pod_requests, compile.build.<plugin> (core for the resource
-carry) and compile.upload.
+TRACER spans split a compile into compile_schema, compile_node_table,
+compile_pod_requests, compile_build_<plugin> (core for the resource
+carry) and compile_upload (names that pass the Prometheus rules, which
+validate_exposition holds the spans' histograms to).
 
 A custom plugin's filter and score rows (plugins/custom.py
 `build_custom`, one host call per (pod, node)) go into `xs[name]` as a
@@ -46,6 +47,7 @@ points, QueueSort and Coscheduling run on the host, in the engine.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -210,7 +212,7 @@ def compile_workload(
     # bank view: schema discovery, the node-table identity and the table
     # build read columns instead of walking N manifests
     cols = getattr(nodes, "columns", None)
-    with TRACER.span("compile.schema"):
+    with TRACER.span("compile_schema"):
         if cols is not None:
             schema = ResourceSchema.discover_columnar(
                 pods + [bp for bp, _ in bound_pods], cols)
@@ -221,17 +223,17 @@ def compile_workload(
                 ((n.get("metadata") or {}).get("name", ""),
                  (n.get("metadata") or {}).get("resourceVersion", ""))
                 for n in nodes)
-    with TRACER.span("compile.node_table"):
+    with TRACER.span("compile_node_table"):
         schema, table = _node_table(nodes, cols, schema, node_key, reuse)
 
-    with TRACER.span("compile.pod_requests"):
+    with TRACER.span("compile_pod_requests"):
         requests, nonzero = _pod_requests(pods, schema, pod_columns)
 
     statics: dict[str, Any] = {}
     xs: dict[str, Any] = {}
     init_carry: dict[str, Any] = {}
     host: dict[str, Any] = {"node_table": table, "schema": schema, "node_key": node_key}
-    # every part is built on the host; compile.upload moves it to `device`
+    # every part is built on the host; compile_upload moves it to `device`
     cpu = torch.device("cpu")
 
     # core resource carry, primed with bound pods
@@ -340,7 +342,7 @@ def compile_workload(
     )
     # the host flags read the parts while they are still on the host
     _collect_host_flags(cw)
-    with TRACER.span("compile.upload"):
+    with TRACER.span("compile_upload"):
         moved: dict[int, torch.Tensor] = {}
         cw.statics = _upload(statics, device, moved)
         cw.xs = _upload(xs, device, moved)
@@ -348,8 +350,11 @@ def compile_workload(
     return cw
 
 
+@contextlib.contextmanager
 def _build_span(name: str):
-    return TRACER.span(f"compile.build.{name}")
+    """The span of one plugin's build, ended on every exit path."""
+    with TRACER.span(f"compile_build_{name}"):
+        yield
 
 
 def _upload(tree, device: torch.device, moved: dict):
@@ -510,6 +515,7 @@ def _pod_requests(pods: list[dict], schema: ResourceSchema, pod_columns=None):
         miss = []
         # the uid -> row mapping is dict lookups; the per-column gather
         # below is the vectorized part
+        # kss-analyze: allow(pod-loop) a dict lookup a pod, on the host before the upload
         for i, pod in enumerate(pods):
             uid = (pod.get("metadata") or {}).get("uid")
             row = by_uid.get(uid) if uid else None

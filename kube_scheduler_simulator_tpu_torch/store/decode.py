@@ -479,7 +479,9 @@ def decode_release_batches(rr, lo: int, hi: int, on_pod=None, batch: int = 64) -
             try:
                 fut.result().discard()
             except Exception:  # noqa: BLE001 — the original error re-raises below
-                pass
+                # counted, not raised: the batch's own failure is the one
+                # the caller must see
+                TRACER.inc("decode_failures_total", path="native_arena_discard")
         raise
 
 

@@ -497,6 +497,14 @@ class SLOTracker:
             "cyclesPerSec": round(total_p / total_s, 1) if total_s else None,
         }
 
+    def set_window(self, window: int) -> int:
+        """The window for sessions whose first wave comes after this call
+        (KSS_TPU_SLO_WINDOW is read at import; a run that needs another,
+        as the soak does, sets it in-process).  Returns the previous."""
+        with self._mu:
+            prev, self._window = self._window, max(int(window), 4)
+        return prev
+
     def drop_session(self, session: str | None) -> None:
         """Release a torn-down session's window (session eviction)."""
         with self._mu:

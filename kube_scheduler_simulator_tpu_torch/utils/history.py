@@ -205,5 +205,24 @@ class TelemetryHistory:
             self._ts[:] = 0
             self._n = 0
 
+    def ensure_capacity(self, capacity: int) -> int:
+        """Grow the ring to at least `capacity` rows, keeping every row it
+        holds at its absolute index (a run that must read a long window
+        back, as the soak does, sizes it in-process; KSS_TPU_HISTORY_
+        CAPACITY is read at import).  Returns the previous capacity."""
+        with self._mu:
+            prev = self._cap
+            if capacity <= prev:
+                return prev
+            lo = max(self._n - prev, 0)
+            ts = np.zeros(capacity, dtype=np.int64)
+            cols = {name: np.full(capacity, np.nan) for name in self._cols}
+            for i in range(lo, self._n):
+                ts[i % capacity] = self._ts[i % prev]
+                for name, col in self._cols.items():
+                    cols[name][i % capacity] = col[i % prev]
+            self._ts, self._cols, self._cap = ts, cols, capacity
+        return prev
+
 
 HISTORY = TelemetryHistory()

@@ -28,8 +28,10 @@ Here the TPU path gets real observability:
 - Perfetto / chrome://tracing JSON export of the span tree
   (GET /api/v1/trace), showing the commit pipeline's overlap in one
   browser load (docs/metrics.md has the walkthrough);
-- device profile capture: not ported (ROADMAP Queue A item 11);
-  start_xla_profile/stop_xla_profile raise NotImplementedError.
+- device profile capture: start_xla_profile/stop_xla_profile run
+  `torch.profiler` on a thread of its own (_ProfileSession; the
+  profiler must start and stop on one thread) and write a Chrome trace
+  into the log dir (POST /api/v1/profile).
 """
 
 from __future__ import annotations

@@ -255,8 +255,8 @@ def test_compile_spans_split_the_compile():
     TRACER.reset()
     pcompile.compile_workload(nodes, pods, cfg, device="cpu")
     spans = set(TRACER.summary()["spans"])
-    want = {"compile.schema", "compile.node_table", "compile.pod_requests",
-            "compile.build.core", "compile.upload"}
-    want |= {f"compile.build.{name}" for name in cfg.active_plugins()
+    want = {"compile_schema", "compile_node_table", "compile_pod_requests",
+            "compile_build_core", "compile_upload"}
+    want |= {f"compile_build_{name}" for name in cfg.active_plugins()
              if name not in ("NodeResourcesFit", "NodeResourcesBalancedAllocation")}
     assert want <= spans, sorted(want - spans)

@@ -2091,6 +2091,59 @@ def test_table_limits_spec_kernels_match_plain(card, kind):
             carry = want
 
 
+def test_table_limits_claims300_matches_plain(card):
+    """300 unbound claims a pod (chip_smoke.table_case "claims300"): past
+    what a thread's own mask array holds, so VolumeBinding's open-slot
+    masks go to device memory the launch's plan sizes and its wrapper
+    allocates.
+    make_args no longer raises; step_chunk (full and compact, chunk by
+    chunk, the claimed PVs in the carry), phased_eval, spec_eval at b = 8
+    (solo, and fused with a second session: one mask buffer for the table)
+    and the speculative bind equal their plain versions."""
+    import chip_smoke
+    from kube_scheduler_simulator_tpu_torch.framework import pipeline
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import fuse as kfuse
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.plugins.custom import CustomPlugin
+
+    nodes, pods, cfg, volumes, bound = chip_smoke.table_case(
+        "claims300", TABLE_NODES, 16, chip_smoke.SEED, PluginSetConfig, CustomPlugin)
+    cw = compile_workload(nodes, pods, cfg, volumes=volumes, bound_pods=bound, device=card)
+    chunk = 8
+    for out_mode in ("full", "compact"):
+        pm, sd, _ = _compact_plan(cw, None)
+        step = build_step(cw, out_mode=out_mode, pack_mode=pm, score_dtypes=sd)
+        assert kstep.make_args(step, cw.init_carry, _batch(cw, 0, chunk, card), None).VK == 300
+        ck, cp = _clone_carry(cw.init_carry), _clone_carry(cw.init_carry)
+        for lo in range(0, cw.n_pods, chunk):
+            xs = _batch(cw, lo, chunk, card)
+            ck, ok = step.scan(ck, xs)
+            cp, op = step.plain_scan(cp, xs)
+            _equal(list(ok), list(op), (out_mode, lo))
+            for a, b in zip(_leaves(ck), _leaves(cp)):
+                assert torch.equal(a, b), (out_mode, lo, "carry")
+        assert int(cp["VolumeBinding"].claimed.sum()) > 0
+    ph = pipeline.build_phased(cw)
+    carry = _clone_carry(cw.init_carry)
+    for i in range(0, cw.n_pods, 5):
+        xs1 = _batch(cw, i, 1, card)
+        want = ph.plain_eval(carry, xs1)
+        _equal(list(ph.eval(carry, xs1)), list(want), ("phased", i))
+        carry = ph.bind(carry, xs1, int(want.selected))
+    xs = _batch(cw, 0, chunk, card)
+    ev = kspec.spec_eval(step, cw.init_carry, xs)
+    _equal(ev, kspec.eval_plain(step, cw.init_carry, xs), "spec_eval")
+    xs2 = _batch(cw, chunk, chunk, card)
+    fused = kfuse.spec_eval_fused([kfuse.Member(step, cw.init_carry, xs),
+                                   kfuse.Member(step, cw.init_carry, xs2)])
+    _equal(fused[0], ev, "spec_eval_fused")
+    _equal(fused[1], kspec.eval_plain(step, cw.init_carry, xs2), "spec_eval_fused 2")
+    want = kspec.commit_plain(step, _clone_carry(cw.init_carry), xs, ev.selected, chunk)
+    got = kspec.spec_commit(step, _clone_carry(cw.init_carry), xs, ev.selected, chunk)
+    _equal(got, want, "spec_commit")
+
+
 @pytest.mark.parametrize("n,f,ncols", [(1037, 20, 10), (5000, 17, 3), (5000, 6, 9),
                                        (393_216, 12, 4), (400_000, 12, 4),
                                        (2_000_000, 12, 4), (2_000_000, 20, 10)])

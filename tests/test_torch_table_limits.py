@@ -13,7 +13,10 @@ opt-in shared or device-memory bitmap past 48 KB.  Here:
     replay: selected nodes and every annotation equal (tolerance 0);
   * `make_args` on the CPU tensors of each case takes the over-limit
     path (the device array's values, the wide VolumeBinding count)
-    where it used to raise, and still refuses past MAX_VBK_WIDE claims;
+    where it used to raise, and takes 300 claims a pod, past what a
+    thread's own mask array holds, with no bound left;
+  * the 300-claim case (`claims300`) through the port's replay and the
+    JAX replay at 60 nodes x 8 pods, byte for byte;
   * `att_shape` and `att_path` choose B7's wide form and bitmap place,
     and B7's plain version at F = 20 and Q = 10 equals the JAX
     `_build_att_fn`.
@@ -117,16 +120,43 @@ def test_make_args_takes_the_over_limit_path(kind):
     assert args.fit_type == (2 if kind == "rtcr10" else 0)
 
 
-def test_make_args_refuses_past_the_claim_bound(monkeypatch):
-    """The one bound left on the card: MAX_VBK_WIDE unbound claims a pod
-    (csrc/volumes.cuh KSS_VB_WORDS words of 64 slots); past it make_args
-    raises with the bound in the message."""
-    cw = _port("claims12")
+def test_make_args_refuses_past_the_claim_bound():
+    """The card's last count bound is gone: make_args takes a pod with 300
+    unbound claims (past csrc/common.cuh KSS_VB_WORDS words of 64 slots,
+    what a thread's own mask array holds) and leaves StepArgs.vb_masks to
+    the launch's wrapper, which allocates the bytes its plan gives; there
+    is no MAX_VBK_WIDE to refuse past."""
+    nodes, pods, cfg, volumes, bound = chip_smoke.table_case(
+        "claims300", 48, 4, SEED, PluginSetConfig, pcustom.CustomPlugin)
+    cw = compile_workload(nodes, pods, cfg, volumes=volumes, bound_pods=bound, device="cpu")
     step = _step(cw)
-    assert kstep.MAX_VBK_WIDE == 256
-    monkeypatch.setattr(kstep, "MAX_VBK_WIDE", 10)
-    with pytest.raises(ValueError, match="the card takes at most 10"):
-        kstep.make_args(step, cw.init_carry, _chunk(cw, 8), None)
+    assert not hasattr(kstep, "MAX_VBK_WIDE")
+    args = kstep.make_args(step, cw.init_carry, _chunk(cw, 4), None)
+    assert args.VK == 300 > 4 * 64
+    assert not args.vb_masks and not args.ext
+
+
+def test_replay_with_300_claims_a_pod_matches_jax():
+    """claims300 (every pod 300 unbound claims: the wide walk's masks past
+    a thread's own array on the card) through the port's replay and the
+    JAX replay: selected nodes, feasible counts and every annotation equal,
+    and some pod binds with its PVs claimed."""
+    shape = (60, 8, chip_smoke.SEED)
+    nodes, pods, cfg, volumes, bound = chip_smoke.table_case(
+        "claims300", *shape, PluginSetConfig, pcustom.CustomPlugin)
+    cw = compile_workload(nodes, pods, cfg, volumes=volumes, bound_pods=bound, device="cpu")
+    jn, jp, jc, jv, jb = chip_smoke.table_case("claims300", *shape, JCfg, jcustom.CustomPlugin)
+    jcw = jax_compile(jn, jp, jc, volumes=jv, bound_pods=jb)
+    assert cw.xs["VolumeBinding"].active.shape[1] == 300
+    rr = replay(cw, chunk=4, device="cpu")
+    jrr = jax_replay(jcw, chunk=4)
+    np.testing.assert_array_equal(rr.selected, np.asarray(jrr.selected))
+    np.testing.assert_array_equal(rr.feasible_count, np.asarray(jrr.feasible_count))
+    for i in range(cw.n_pods):
+        got, want = decode_pod_result(rr, i), jax_decode(jrr, i)
+        for key in ALL_PLUGIN_KEYS:
+            assert got[key] == want[key], f"claims300 pod {i} {key}"
+    assert rr.scheduled > 0
 
 
 @pytest.mark.parametrize("args,shape,path", [
