@@ -114,7 +114,7 @@ phase:
        device="cpu"; (d) (a)'s workload through replay(mesh=make_mesh(8))
        against (a), its chunk 0 timed beside step_chunk's;
   29   the engine over the store's columnar plane: 5,000 nodes from
-       make_nodes_columnar and four waves of 2,500 pods from
+       make_nodes_columnar and four waves of 1,250 pods from
        make_pods_columnar with config 5's plugins, the node table reused,
        patched (64 node updates) and rebuilt (a node added) between
        waves, under KSS_TPU_COLUMNAR=1 and =0 in turns, every pod's node
@@ -123,7 +123,7 @@ phase:
        (schema, node table, pod requests, each plugin's build, upload),
        its five counters, wall and idle share;
   30   workloads past StepArgs' fixed arrays (C5), each at 5,000 nodes x
-       512 pods: the default profile + 5 custom filters (F = 17), config
+       256 pods: the default profile + 5 custom filters (F = 17), config
        5's plugins + 9 custom filter-only plugins, the default profile +
        9 custom scorers (S = 17), an RTCR strategy over 10 resources and
        20 shape points, BalancedAllocation over 10 resources, 9-12
@@ -138,11 +138,24 @@ phase:
        localhost, a bearer token) scheduling on the card under POST
        /api/v1/profile, whose trace names the wave's kernels; `python -m
        ...cmd.scheduler --once --device cuda` against a simulator server
-       in this process, on the queue's first 256 pods (each pod's write
+       in this process, on the queue's first 128 pods (each pod's write
        crosses HTTP with its annotations); `python -m
        ...cmd.sched_recorder` recording that run,
        its lines == the store's events; every pod's node and sampled
-       annotations == phase 4's replay().
+       annotations == phase 4's replay();
+  32   the operations tooling (tools/): the chaos gate, the soak at 5,000
+       nodes, the black-box and trace smokes, every kernel they launch
+       held to its plain version, under a traceback deadline;
+  33   the mesh's node shards on separate cards (B12b): config 5 over 2
+       and 4 virtual cards of the card and the stream over 2 x 2, every
+       pod == phase 4, each kernel == its twin and timed beside the
+       one-card kernels; on a host with two cards or more, the same over
+       its distinct cards.
+
+    python3 chip_smoke.py --cards
+
+runs phase 33 alone (after the build and phase 4's replay), for a host
+with several cards.
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -4402,7 +4415,8 @@ def custom_plugins() -> dict:
 
 # ---- phase 30 (C5): workloads past StepArgs' fixed arrays
 TABLE_NODES = 5_000            # phase 30: nodes of each over-limit case
-TABLE_PODS = 512               # phase 30: pods of each case (one chunk)
+TABLE_PODS = 256               # phase 30: pods of each case, one chunk (halved from 512
+                               # to pay for phase 33)
 TABLE_CUSTOM_PODS = 64         # ... of the custom-plugin cases: their rows are a Python call a
                                # (pod, node, plugin), 2.9 M calls at 64 pods and 9 plugins
 TABLE_CASES = ("filters17", "custom9", "scores17", "rtcr10", "balanced10", "claims12")
@@ -4929,6 +4943,257 @@ def custom_phase(dev, card: str, nodes: list, pods: list, cfg) -> dict:
     }
 
 
+# phase 33 (B12b): the mesh's "nodes" shards on separate cards, held on
+# virtual cards of the one card (and on distinct cards where the host has them)
+CARD_MESHES = (2, 4)           # phase 33: replay() over n virtual cards at dp = 1
+CARD_STREAM = (4, 2)           # ... replay_speculative_stream over n = 4 cards at dp = 2
+CARD_TWIN_PODS = 16            # ... the twins' pods of the first launches' inputs
+CARD_REPS = 3                  # ... timed launches, the median
+
+
+def cards_phase(dev, card: str, cw, pods: list, rr, step_entry: dict) -> list[dict]:
+    """Phase 33 (B12b): config 5 at full width over virtual cards of the
+    one card (kernels/mesh.py Cards; csrc/scope.cuh PeerScope): replay()
+    over CARD_MESHES cards at dp = 1 and replay_speculative_stream over
+    CARD_STREAM, each against phase 4's unsharded step_chunk replay
+    (selected, feasible counts, every chunk's compact bytes, the decoded
+    annotations of every pod); each B12b kernel against its plain twin on
+    CARD_TWIN_PODS pods of the inputs of its first launch; each kernel's
+    ms a launch beside the one-card B12 kernel and the unsharded kernel on
+    the same inputs.  Where the host has two cards or more, the replay
+    over two distinct cards too.  -> the B12b entries of the JSON line."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.parallel import (make_mesh, replay_speculative_stream,
+                                                             shard_workload)
+    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result
+
+    b12b = (kmesh.step_chunk_cards, kmesh.spec_eval_cards, kmesh.spec_commit_cards)
+    others = (kstep.step_chunk, kmesh.step_chunk_sharded, kmesh.spec_eval_sharded,
+              kspec.spec_eval, kspec.spec_round)
+    t33 = time.perf_counter()
+    p, n = cw.n_pods, cw.n_nodes
+    n_chunks = math.ceil(p / CHUNK)
+    want_ann = [decode_pod_result(rr, i) for i in range(p)]
+
+    def every_pod(got, what: str) -> None:
+        same_replay(got, rr, what, [0])
+        bad = [i for i in range(p) if decode_pod_result(got, i) != want_ann[i]]
+        check(not bad, f"{what}: the annotations of {len(bad)} pods differ, first {bad[:5]}")
+
+    def run(fn, what: str):
+        for f in (*b12b, *others):
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {f.__name__: f.launches for f in (*b12b, *others) if f.launches}
+        check(not set(launched) & {f.__name__ for f in others},
+              f"{what} ran a kernel of one card: {launched}")
+        return out, wall, launched
+
+    # ---- the main path over virtual cards
+    lines, replay_launches = [], {}
+    for k in CARD_MESHES:
+        mesh = make_mesh(k, device=dev, _virtual=True)
+        mrr, wall, launched = run(lambda: replay(cw, chunk=CHUNK, device="cuda", mesh=mesh),
+                                  f"replay over {k} cards")
+        check(launched.get("step_chunk_cards", 0) == n_chunks * len(mrr.tiers),
+              f"replay over {k} cards: launches {launched}")
+        every_pod(mrr, f"replay over {k} virtual cards")
+        replay_launches[k] = launched["step_chunk_cards"]
+        lines.append(f"replay over {k} cards == phase 4 (every pod), {wall:.4f} s, "
+                     f"R = {kmesh.step_chunk_cards.ctas} CTAs a card, launches {launched}")
+        del mrr
+    k_s, dp_s = CARD_STREAM
+    smesh = make_mesh(k_s, dp=dp_s, device=dev, _virtual=True)
+    (srr, sstats), swall, slaunched = run(
+        lambda: replay_speculative_stream(cw, mesh=smesh, chunk=CHUNK, pods=pods),
+        f"the stream over {k_s} cards")
+    check(slaunched.get("spec_eval_cards", 0) > 0, f"the stream over cards: {slaunched}")
+    every_pod(srr, f"the stream over {k_s} cards, dp {dp_s}")
+    del srr
+    print(f"[33 cards] {card}: config {CONFIG} {p} x {n}: " + "; ".join(lines)
+          + f"; replay_speculative_stream over {k_s} cards at dp {dp_s} == phase 4 (every pod),"
+          f" {swall:.4f} s, {sstats['rounds']} rounds, eval slots {kmesh.spec_eval_cards.slots} "
+          f"at R = {kmesh.spec_eval_cards.ctas}, launches {slaunched}", flush=True)
+
+    # ---- each kernel == its twin on its first launch's inputs (16 pods)
+    wide = rr.tiers[-1]
+    pm, sd, _ = _compact_plan(cw, wide)
+    kw = dict(out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+    mesh2 = make_mesh(CARD_MESHES[0], device=dev, _virtual=True)
+    scw = shard_workload(cw, mesh2)
+    step2 = build_step(scw, **kw)
+
+    def card_xs(w, lo: int, b: int):
+        xs = _slice_xs(w.xs, lo, min(lo + b, p), b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= min(b, p - lo)
+        return xs
+
+    xs16 = card_xs(scw, 0, CARD_TWIN_PODS)
+    ck, ok = kmesh.step_chunk_cards(step2, _clone_carry(scw.init_carry), xs16)
+    twin = []
+    step_plain_ms = timed_once(lambda: twin.append(kmesh.step_chunk_cards_plain(
+        step2, _clone_carry(scw.init_carry), xs16)))
+    step_err = max(tree_err(list(ok), list(twin[0][1])), tree_err(list(ck), list(twin[0][0])))
+    check(step_err == 0, f"step_chunk_cards differs from its twin (max |d| {step_err})")
+    sscw = shard_workload(cw, smesh)
+    sstep = build_step(sscw, **kw)
+    xsb = card_xs(sscw, 0, LADDER[0])  # the stream's first round: b = 8 at pod 0
+    got = kmesh.spec_eval_cards(sstep, sscw.init_carry, xsb)
+    twin = []
+    eval_plain_ms = timed_once(lambda: twin.append(kmesh.spec_eval_cards_plain(
+        sstep, sscw.init_carry, xsb)))
+    eval_err = tree_err(list(got), list(twin[0]))
+    check(eval_err == 0, f"spec_eval_cards differs from its twin (max |d| {eval_err})")
+    kb = LADDER[0]
+    cc = kmesh.spec_commit_cards(sstep, _clone_carry(sscw.init_carry), xsb, got.selected, kb)
+    twin = []
+    commit_plain_ms = timed_once(lambda: twin.append(kmesh.spec_commit_cards_plain(
+        sstep, _clone_carry(sscw.init_carry), xsb, got.selected, kb)))
+    torch.cuda.synchronize()
+    commit_err = tree_err(list(cc), list(twin[0]))
+    check(commit_err == 0, f"spec_commit_cards differs from its twin (max |d| {commit_err})")
+    del twin, ck, ok, cc
+
+    # ---- ms a launch: the B12b kernel (its launch's device span) beside
+    # the one-card B12 kernel and the unsharded kernel on the same inputs
+    def med(ts):
+        return sorted(ts)[len(ts) // 2]
+
+    def span(fn) -> float:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn((e0, e1))
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    step_c = build_step(cw, **kw)
+    xs0 = batch_xs(cw, 0, CHUNK)
+    step_ms, b12_step_ms = {}, {}
+    for k in CARD_MESHES:
+        mk = make_mesh(k, device=dev, _virtual=True)
+        kcw = shard_workload(cw, mk)
+        kstep_ = build_step(kcw, **kw)
+        kxs = card_xs(kcw, 0, CHUNK)
+        kmesh.step_chunk_cards(kstep_, _clone_carry(kcw.init_carry), kxs)  # untimed
+        step_ms[k] = med([span(lambda ev: kmesh.step_chunk_cards(
+            kstep_, _clone_carry(kcw.init_carry), kxs, _events=ev)) for _ in range(CARD_REPS)])
+        one = build_step(shard_workload(cw, make_mesh(k, device=dev)), **kw)
+        b12_step_ms[k] = timed(lambda: kmesh.step_chunk_sharded(
+            one, _clone_carry(cw.init_carry), xs0), CARD_REPS)
+        del kcw, kstep_, kxs
+    unsharded_ms = timed(lambda: kstep.step_chunk(step_c, _clone_carry(cw.init_carry), xs0),
+                         CARD_REPS)
+    kmesh.spec_eval_cards(sstep, sscw.init_carry, xsb)
+    eval_ms = med([span(lambda ev: kmesh.spec_eval_cards(sstep, sscw.init_carry, xsb, _events=ev))
+                   for _ in range(CARD_REPS * 5)])
+    one_s = build_step(shard_workload(cw, make_mesh(k_s, dp=dp_s, device=dev)), **kw)
+    xb = batch_xs(cw, 0, LADDER[0])
+    b12_eval_ms = timed_graph(lambda: kmesh.spec_eval_sharded(one_s, cw.init_carry, xb), 20)
+    b2_ms = timed_graph(lambda: kspec.spec_eval(step_c, cw.init_carry, xb), 20)
+    # the commits bind into copies of the initial carry, one a call
+    c_cards, c_one = _clone_carry(sscw.init_carry), _clone_carry(cw.init_carry)
+    commit_ms = timed_graph(lambda: kmesh.spec_commit_cards(
+        sstep, c_cards, xsb, got.selected, kb), 5)
+    b5_ms = timed_graph(lambda: kspec.spec_commit_bind(
+        step_c, c_one, xb, got.selected, kb), 5)
+    del c_cards, c_one
+    eb = eval_bytes(cw, cw.init_carry, xb, sum(t.numel() * t.element_size() for t in got))
+    e_bound = bound(eb)
+    c_bound = bound(2 * _nbytes(cw.init_carry) + _nbytes(xb))
+    print(f"[33 cards kernels] {card}: each == its twin on {CARD_TWIN_PODS} pods of chunk 0 "
+          f"(step_chunk_cards over {CARD_MESHES[0]} cards, max_abs_err {step_err}, twin "
+          f"{step_plain_ms:.1f} ms), the stream's first round (spec_eval_cards over {k_s} cards "
+          f"at dp {dp_s}, b = {LADDER[0]}: {eval_err}, twin {eval_plain_ms:.1f} ms; "
+          f"spec_commit_cards of its {kb} binds: {commit_err}, twin {commit_plain_ms:.1f} ms) "
+          f"| ms a launch on chunk 0 (512 pods), median of {CARD_REPS}: step_chunk_cards "
+          f"{ {k: round(v, 3) for k, v in step_ms.items()} } against the one-card "
+          f"step_chunk_sharded at S = n { {k: round(v, 3) for k, v in b12_step_ms.items()} } "
+          f"and step_chunk {unsharded_ms:.3f}; spec_eval_cards at b = {LADDER[0]} {eval_ms:.5f} "
+          f"against spec_eval_sharded on one card {b12_eval_ms:.5f} and spec_eval {b2_ms:.5f} "
+          f"(bound {e_bound[0]:.6f} ms; the one-card kernels in a CUDA graph, the cards' "
+          f"launches between events, waits outside); spec_commit_cards {commit_ms:.5f} (its "
+          f"{k_s} launches, CUDA graph) against spec_commit_bind {b5_ms:.5f}", flush=True)
+
+    # ---- distinct cards, where the host has them: the replay over 2 (and
+    # 4) cards, the stream over 2 x 2, the step against its twin
+    have = torch.cuda.device_count()
+    if have >= 2:
+        lines = []
+        for k, dp in ((2, 1), (4, 1), (4, 2)):
+            if k > have:
+                continue
+            dmesh = make_mesh(k, dp=dp, device=[f"cuda:{j}" for j in range(k)])
+            drr, dwall, dlaunched = run(
+                lambda: replay(cw, chunk=CHUNK, device="cuda", mesh=dmesh),
+                f"replay over {k} distinct cards")
+            every_pod(drr, f"replay over {k} distinct cards, dp {dp}")
+            del drr
+            lines.append(f"replay over cuda:0-{k - 1} at dp {dp} == phase 4 (every pod), "
+                         f"{dwall:.4f} s, launches {dlaunched}")
+            if dp > 1:
+                (drr, _), swall_d, slaunched_d = run(
+                    lambda: replay_speculative_stream(cw, mesh=dmesh, chunk=CHUNK, pods=pods),
+                    f"the stream over {k} distinct cards")
+                every_pod(drr, f"the stream over {k} distinct cards, dp {dp}")
+                del drr
+                lines.append(f"the stream over them == phase 4 (every pod), {swall_d:.4f} s, "
+                             f"launches {slaunched_d}")
+            dcw = shard_workload(cw, dmesh)
+            dstep = build_step(dcw, **kw)
+            dxs = card_xs(dcw, 0, CARD_TWIN_PODS)
+            ck, ok = kmesh.step_chunk_cards(dstep, _clone_carry(dcw.init_carry), dxs)
+            cp, op = kmesh.step_chunk_cards_plain(dstep, _clone_carry(dcw.init_carry), dxs)
+            derr = max(tree_err(list(ok), list(op)), tree_err(list(ck), list(cp)))
+            check(derr == 0, f"step_chunk_cards over {k} distinct cards differs from its twin")
+            dxs = card_xs(dcw, 0, CHUNK)
+            kmesh.step_chunk_cards(dstep, _clone_carry(dcw.init_carry), dxs)  # untimed
+            ts = []
+            for _ in range(CARD_REPS):
+                carry_d = _clone_carry(dcw.init_carry)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kmesh.step_chunk_cards(dstep, carry_d, dxs)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            lines.append(f"step_chunk_cards == its twin on {CARD_TWIN_PODS} pods (max_abs_err "
+                         f"{derr}), {med(ts):.3f} ms a chunk (the call: the launches, the wait "
+                         f"and the join, host clock)")
+            del dcw, dstep, dxs, ck, ok, cp, op
+        print(f"[33 distinct cards] {card} x {have}: " + "; ".join(lines), flush=True)
+    else:
+        print(f"[33 distinct cards] not run: this host has {have} card", flush=True)
+    print(f"[33] phase {time.perf_counter() - t33:.1f} s", flush=True)
+
+    def entry(name, src, replaces, launches, err, ms, plain, bnd, lib):
+        return {"name": name, "route": "cuda",
+                "source": f"kube_scheduler_simulator_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+
+    return [
+        entry("step_chunk_cards", "step_kernel.cuh",
+              "kube_scheduler_simulator_tpu/parallel/mesh.py:130", replay_launches[2], step_err,
+              step_ms[2], step_plain_ms, (step_entry["bound_ms"], step_entry["bound_by"]),
+              b12_step_ms[2]),
+        entry("spec_eval_cards", "spec_eval.cu",
+              "kube_scheduler_simulator_tpu/parallel/mesh.py:143",
+              slaunched.get("spec_eval_cards", 0), eval_err, eval_ms, eval_plain_ms, e_bound,
+              b12_eval_ms),
+        entry("spec_commit_cards", "spec_commit.cu",
+              "kube_scheduler_simulator_tpu/parallel/speculative.py:501",
+              slaunched.get("spec_commit_cards", 0), commit_err, commit_ms, commit_plain_ms,
+              c_bound, b5_ms),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -5186,8 +5451,10 @@ def main() -> int:
     table_phase(dev, card)
     serving_phase(dev, card, cw, nodes, pods, cfg, rr)
     tools_phase(dev, card)
+    cards_entries = cards_phase(dev, card, cw, pods, rr, step_entry)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
-                                  *engine_entries, *fuse_entries, *mesh_entries, b13_entry]}))
+                                  *engine_entries, *fuse_entries, *mesh_entries, b13_entry,
+                                  *cards_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -5196,7 +5463,7 @@ def main() -> int:
 
 COLUMNAR_NODES = 5_000         # phase 29: config 5's fleet, from make_nodes_columnar
 COLUMNAR_WAVES = 4             # phase 29: waves of COLUMNAR_WAVE_PODS from make_pods_columnar
-COLUMNAR_WAVE_PODS = 2_500
+COLUMNAR_WAVE_PODS = 1_250     # phase 29 (halved from 2,500 to pay for phase 33)
 COLUMNAR_UPDATES = 64          # phase 29: node updates before wave 3 (the delta patch)
 
 
@@ -5744,6 +6011,7 @@ CHAOS_SCALE = {"nodes": 5_000, "pods": 2_048, "gangs": 8, "gang_members": 8,
                "chunk": CHUNK, "wedge_s": 600.0}  # a wave's limit before it counts as wedged
 CHAOS_SEEDS = (1, 2, 3)              # at the JAX tool's FULL_SHAPE
 SOAK_CHURN = {"std_nodes": 5_000, "ticks": 18, "arrival_rate": 64.0, "departure_rate": 32.0}
+TOOLS_LIMIT_S = 420.0  # phase 32: past this the phase fails with every thread's traceback
 
 
 def tools_phase(dev, card: str) -> None:
@@ -5777,12 +6045,20 @@ def tools_phase(dev, card: str) -> None:
                 kspec.spec_commit_core, kspec.spec_commit_bind, kspec.grid_append,
                 kspec.grid_emit, katt.chunk_attribution, kgang.quorum_slice,
                 kphased.phased_eval, kphased.renormalize_rows, *kfuse.KERNELS)
+    import faulthandler
+
     device = dev.type  # "cuda": the tools' own --device
     t32 = time.perf_counter()
     for f in wrappers:
         f.launches = 0
-    with LaunchTap(wrappers) as tap:
-        run_tools(tap, dev, card, device)
+    # a hang fails the run with every thread's traceback instead of
+    # running out its clock
+    faulthandler.dump_traceback_later(TOOLS_LIMIT_S, exit=True)
+    try:
+        with LaunchTap(wrappers) as tap:
+            run_tools(tap, dev, card, device)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
     launched = {f.__name__: f.launches for f in wrappers if f.launches}
     for name in ("step_chunk", "chunk_attribution", "quorum_slice"):
         check(launched.get(name, 0) > 0, f"32: the tools launched no {name}: {launched}")
@@ -5889,7 +6165,8 @@ def run_tools(tap: LaunchTap, dev, card: str, device: str) -> None:
           f"{v['all_shed_had_retry_after']}; lifted {v['shed_lifted']}; overload waves of "
           f"{v['overload_batch']} pods); final rung {v['final_rung']}; history rows "
           f"{v['history_rows']}, shed evidence checked {v['shed_evidence_checked']}; autopilot "
-          f"{v['autopilot']}; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{v['autopilot']}; standard waves, calibration {v['calibration_waves_s']} s, soak "
+          f"{v['soak_waves_s']} s; {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the black box and the trace
     bb = blackbox_smoke.run(device)
@@ -5905,7 +6182,8 @@ def run_tools(tap: LaunchTap, dev, card: str, device: str) -> None:
 
 
 KUBE_TOKEN = "kss-smoke-token"  # phase 31's fake kube-apiserver's bearer token
-SERVE_PODS = 256               # phase 31 (b), (c): the queue's first pods, on the whole fleet:
+SERVE_PODS = 128               # phase 31 (b), (c): the queue's first pods, on the whole fleet
+                               # (halved from 256 to pay for phase 33):
                                # each pod goes back over HTTP twice with its annotations
                                # (about 0.2 MB at 5,000 nodes), to the scheduler and recorded
 # phase 31 runs `python -m ...cmd.scheduler ARGS` as this script, which
@@ -6200,8 +6478,39 @@ def serving_phase(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> None:
           f"{time.perf_counter() - t31:.1f} s", flush=True)
 
 
+def cards_main() -> int:
+    """`--cards`: phase 33 alone (after the build and phase 4's replay of
+    config 5), for a host with several cards: its virtual cards, then its
+    distinct cards.  Prints phase 33's lines; no kernel line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from kube_scheduler_simulator_tpu_torch.framework.replay import replay
+    from kube_scheduler_simulator_tpu_torch.kernels import build
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    build.build()
+    nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
+    cw = compile_workload(nodes, pods, cfg, device=dev)
+    with env(KSS_TPU_HOST_RESIDENT="1"):
+        rr = replay(cw, chunk=CHUNK, device="cuda")
+    cards_phase(dev, card, cw, pods, rr, {"bound_ms": None, "bound_by": None})
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if "--cards" in sys.argv[1:]:
+            sys.exit(cards_main())
         if "--ladder" in sys.argv[1:]:
             at = sys.argv.index("--root") + 1 if "--root" in sys.argv else 0
             sel = sys.argv.index("--only") + 1 if "--only" in sys.argv else 0

@@ -46,7 +46,9 @@ __host__ __device__ inline StepSmem step_smem(const StepArgs& a, int width, bool
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+#include <map>
 #include <mutex>
+#include <tuple>
 
 #define KSS_MAX_DEVICES 64
 
@@ -127,6 +129,49 @@ static void cluster_config(const ClusterPlan& p, int clusters, int ctas, cudaStr
 static bool cluster_takes(const StepArgs& a, int ctas, int shards) {
   return ctas >= 1 && ctas <= KSS_MAX_CTAS && shards >= 1 && shards <= KSS_MESH_MAX_SHARDS &&
          ctas % shards == 0 && (shards == 1 || a.N % shards == 0);
+}
+
+// cudaOccupancyMaxActiveClusters of Kernel at `ctas` CTAs a cluster and
+// plan p on the current card, asked once per card and per (R, CTA width,
+// shared memory) for the process; a refused query counts as no room (0).
+template <auto Kernel>
+static int active_clusters(const ClusterPlan& p, int ctas) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, size_t>, int> memo;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  const auto key = std::make_tuple(dev, ctas, p.threads, p.spill ? (size_t)0 : p.bytes);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = memo.find(key);
+  if (it == memo.end()) {
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg;
+    cluster_config(p, 1, ctas, nullptr, attr, &cfg);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, Kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      clusters = 0;
+    }
+    it = memo.emplace(key, clusters).first;
+  }
+  return it->second;
+}
+
+// A B12b launch whose clusters the card does not hold all at once: they
+// spin on each other, so kernels/mesh.py raises, naming the plan.
+#define KSS_ERR_RESIDENT 1000
+
+// The entries of a card launch's table share the batch, the node count
+// and the CTA state's bytes at width w.
+static bool cards_alike(const StepArgs* table, int k, int w, bool replicas) {
+  for (int i = 1; i < k; ++i)
+    if (table[i].C != table[0].C || table[i].N != table[0].N ||
+        step_smem(table[i], w, replicas).total != step_smem(table[0], w, replicas).total)
+      return false;
+  return true;
 }
 
 // The launch's error, or cudaGetLastError() when it was accepted, so a

@@ -213,12 +213,29 @@ struct StepArgs {
   int has_nvl;                           // carry holds NodeVolumeLimits
   int has_vr;                            // carry holds VolumeRestrictions
   int has_vb;                            // carry holds VolumeBinding
+  // --- a card of a card mesh (B12b, kernels/mesh.py): its nodes are the
+  // mesh's [node_base, node_base + N); the tables whole_at reads are
+  // whole_n wide.  Without a card mesh node_base is 0 and whole_n is N.
+  int node_base;
+  int whole_n;
 };
+
+// A card mesh gives each card its node slice of every [.., N] tensor but
+// the rows that a bind reads at a selected node on another card: the
+// spread and InterPod node-to-domain rows (sp_dom_idx, ip_dom_idx) and
+// VolumeBinding's PV and provision rows (vb_pv_node_ok, vb_provision_ok)
+// stay whole on every card.  Local node n (negative or past N where the
+// node is another card's) is column node_base + n of such a row.  Args is
+// StepArgs or any struct with node_base and whole_n (phased.cu RenormArgs).
+template <class Args>
+__device__ __forceinline__ long long whole_at(const Args& a, long long row, int n) {
+  return row * a.whole_n + a.node_base + n;
+}
 
 // A launch's table of sessions: one StepArgs per session, KM entries (1,
 // 2, 4, 8 or 16), taken by a kernel as one __grid_constant__ parameter
 // and read in place from the parameter space, indexed by the session of
-// the CTA.  16 x 1,936 bytes = 30,976 (kernels/step.py checks
+// the CTA.  16 x 1,944 bytes = 31,104 (kernels/step.py checks
 // sizeof(StepArgs) against its mirror), inside the 32,764 bytes CUDA
 // 12.1+ allows a kernel's parameters on this card, with room for the
 // kernel's other parameters.  The members share the batch, the node count

@@ -33,7 +33,7 @@ __device__ int interpod_filter(const StepArgs& a, int c, int n, bool any_aff, in
     const long long tn = (long long)t * a.N + n;
     if (a.ip_h_req_aff[ct] > 0) {
       aff_ok_all = aff_ok_all && a.ip_matched[tn] > 0;
-      node_has_keys = node_has_keys && a.ip_dom_idx[tn] >= 0;
+      node_has_keys = node_has_keys && a.ip_dom_idx[whole_at(a, t, n)] >= 0;
     }
     if (a.ip_h_req_anti[ct] > 0 && a.ip_matched[tn] > 0) fail_anti = true;
     if (a.ip_t_matches[ct]) existing += a.ip_have_req_anti[tn];
@@ -77,7 +77,8 @@ __device__ __forceinline__ long long interpod_normalize(long long raw, long long
 // the cluster-wide counters, from its thread 0.  Terms with all-zero
 // increments change nothing: each warp finds the others 32 at a time with
 // a ballot (the same mask in every warp), so they cost no load of their
-// domain row.  Only called with sel >= 0.
+// domain row.  Only called for a bound pod, `sel` its local index (the
+// domain rows are whole on every card of a card mesh: whole_at).
 __device__ void interpod_bind(const StepArgs& a, int c, int sel, int lo, int hi,
                               bool cluster_wide) {
   const int lane = threadIdx.x & 31;
@@ -93,7 +94,7 @@ __device__ void interpod_bind(const StepArgs& a, int c, int sel, int lo, int hi,
     while (mask) {
       const int t = t0 + __ffs(mask) - 1;
       mask &= mask - 1;
-      const int dcol = a.ip_dom_idx[(long long)t * a.N + sel];
+      const int dcol = a.ip_dom_idx[whole_at(a, t, sel)];
       if (dcol < 0) continue;  // uniform across the block
       const long long ct = (long long)c * a.T + t;
       const int inc_m = a.ip_t_matches[ct] ? 1 : 0;
@@ -104,7 +105,7 @@ __device__ void interpod_bind(const StepArgs& a, int c, int sel, int lo, int hi,
       if (cluster_wide && threadIdx.x == 0) a.ip_matched_total[t] += inc_m;
       for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
         const long long tn = (long long)t * a.N + n;
-        if (a.ip_dom_idx[tn] != dcol) continue;
+        if (a.ip_dom_idx[whole_at(a, t, n)] != dcol) continue;
         a.ip_matched[tn] += inc_m;
         a.ip_have_req_anti[tn] += inc_anti;
         a.ip_have_req_aff[tn] += inc_aff;

@@ -39,14 +39,14 @@
 // What a launch reads of the pod's StepArgs (its pod 0): PodTopologySpread's
 // rows for spread_score, and N; and the rows' plugin ids (P_AFFINITY,
 // P_TAINT, P_SPREAD or P_INTERPOD), R <= RENORM_MAX_ROWS.  A parameter of
-// 112 bytes where StepArgs takes 1,952.
+// 120 bytes where StepArgs takes 1,944.
 struct RenormArgs {
   const int* sp_c_id;
   const unsigned char* sp_is_score;
   const int* sp_dom_idx;
   const int* sp_counts;
   const double* sp_weight;
-  int N;
+  int N, node_base, whole_n;
   int pid[RENORM_MAX_ROWS];
 };
 
@@ -134,6 +134,8 @@ extern "C" int kss_renormalize_rows(const StepArgs* args, const int* pids, int r
   ra.sp_counts = args->sp_counts;
   ra.sp_weight = args->sp_weight;
   ra.N = args->N;
+  ra.node_base = args->node_base;
+  ra.whole_n = args->whole_n;
   for (int i = 0; i < r; ++i) ra.pid[i] = pids[i];
   const int width = slice_width(args->N, 1, ctas);
   const int t = (width + 31) / 32 * 32;

@@ -345,7 +345,9 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
 
 // The bind of pod c at `sel` into the carry, in place, for every carry the
 // workload has (pipeline.py _bind_phase).  Every thread of the block calls
-// it; a rejected or padded pod (sel == -1) binds nothing.  The node-space
+// it; a rejected or padded pod (selected -1) binds nothing.  `sel` is the
+// selected node's local index, selected - a.node_base (on a card mesh it
+// lies outside [0, N) where the node is another card's).  The node-space
 // rows (spread counts, the InterPod matrices) take their same-domain
 // increments over the block's nodes [lo, hi); the selected node's rows
 // (core, NodePorts, disk and CSI rows) are updated by the block that owns
@@ -358,7 +360,7 @@ __device__ int eval_pod(const StepArgs& a, int c, Scope& scope) {
 template <bool W>
 __device__ void bind_pod(const StepArgs& a, int c, int sel, int lo, int hi, bool owner,
                          bool cluster_wide, const PodVolumes& vols) {
-  if (sel < 0) return;
+  if (sel + a.node_base < 0) return;
   if (owner) {
     core_bind(a, c, sel);
     if (a.has_ports) ports_bind(a, c, sel);

@@ -20,6 +20,30 @@
 // passed the cluster barrier of the combine in between, and so has every
 // reader.  The values are integers, so the order of the reduction cannot
 // change a result; it stays in rank order all the same.
+//
+// PeerScope (B12b): the "nodes" shards of a mesh on separate cards, each
+// card's shard served by its own cluster under ClusterScope.  Each combine
+// first ends inside the card (ClusterScope::combine), then the card's
+// leader CTA publishes the card's partial into its entry of an exchange
+// buffer held on every card of its group (the cards of one "dp" row): the
+// values with plain stores, then the entry's epoch with a system-scope
+// release store, so a peer that reads the epoch with a system-scope
+// acquire load sees the values.  Every CTA's thread 0 then polls its own
+// card's buffer for the group's entries of that epoch and folds them in
+// card order (cards ascend in node order, so an argmax tie goes to the
+// lowest node, and the integer folds are order-free anyway).  Entries are
+// double-buffered by the epoch's parity: a card that publishes epoch e + 2
+// into an entry has seen every card's epoch e + 1, which each card
+// publishes only after all its CTAs read epoch e (the cluster barrier that
+// opens every combine).  Epochs only grow, across launches too (the host
+// gives each launch a base past the last one's, kernels/mesh.py
+// Exchange), and a launch ends with a barrier over the group, so no card
+// starts its next launch while a peer may still read this one's values.
+// A wait past `bound` clock64() cycles writes the error word of the
+// card's buffer (1 + the card waited for) and skips the waits after it;
+// the wrapper raises on it.  The same code serves cards that are peers
+// over NVLink and "virtual cards", clusters of one launch on one card
+// each with buffers of its own, for tests and measurement.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -129,6 +153,139 @@ struct ClusterScope {
     v = sh->res_v;
     i = sh->res_i;
     ++phase;
+  }
+
+  // The end of a launch: no CTA leaves while another may still read its
+  // slots.
+  __device__ void finish() { cg::this_cluster().sync(); }
+};
+
+// ---- B12b: the cross-card exchange (kernels/mesh.py Exchange)
+#define KSS_MAX_CARDS 8
+#define KSS_XW 16     // 8-byte words an entry: the epoch, KSS_CV values, an argmax index
+#define KSS_XHEAD 16  // words of a buffer's header: [0] the error word
+
+// A launch's view of its mesh's exchange: card k's buffer is xbuf[k], in
+// card k's memory, KSS_XHEAD words then [slots][2 parities][cards][KSS_XW].
+struct PeerArgs {
+  unsigned long long* xbuf[KSS_MAX_CARDS];
+  long long epoch;  // the launch's base: its combines take epoch + 1, + 2, ...
+  long long bound;  // clock64() cycles a wait may take
+  int cards;        // the cards of a group (a "dp" row of the mesh)
+  int slots;        // pod slots of a buffer (one pod a slot at a time)
+  int card0;        // the mesh index of the launch's table entry 0
+};
+
+__device__ __forceinline__ void st_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+struct PeerScope : ClusterScope {
+  const PeerArgs* peer;
+  int card;        // this card's index in the mesh
+  int slot;        // the pod slot of this cluster
+  int node_base;   // this card's first node
+  long long ep;    // the last epoch taken
+  bool dead;       // a wait of this thread ran past the bound
+
+  __device__ int group0() const { return card / peer->cards * peer->cards; }
+
+  __device__ unsigned long long* entry(int owner, int parity, int j) const {
+    return peer->xbuf[owner] + KSS_XHEAD +
+           (((long long)slot * 2 + parity) * peer->cards + j) * KSS_XW;
+  }
+
+  // The card's leader thread: nv values and an index into this card's
+  // entry on every card of the group, the epoch last.
+  __device__ void publish(const long long* v, int nv, long long idx, long long e) {
+    if (rank != 0 || threadIdx.x != 0) return;
+    const int g0 = group0(), j = card - g0, b = (int)(e & 1);
+    for (int k = 0; k < peer->cards; ++k) {
+      unsigned long long* x = entry(g0 + k, b, j);
+      for (int q = 0; q < nv; ++q) x[1 + q] = (unsigned long long)v[q];
+      x[1 + KSS_CV] = (unsigned long long)idx;
+      st_release_sys(x, (unsigned long long)e);
+    }
+  }
+
+  // Thread 0: wait until every entry of the group on this card's buffer
+  // holds epoch e or later.
+  __device__ void await(long long e) {
+    const int b = (int)(e & 1);
+    for (int j = 0; j < peer->cards && !dead; ++j) {
+      const unsigned long long* x = entry(card, b, j);
+      const long long t0 = clock64();
+      while ((long long)ld_acquire_sys(x) < e) {
+        if (clock64() - t0 > peer->bound) {
+          atomicCAS(peer->xbuf[card], 0ULL, (unsigned long long)(group0() + j + 1));
+          dead = true;
+          break;
+        }
+      }
+    }
+  }
+
+  __device__ const volatile unsigned long long* value(long long e, int j) const {
+    return entry(card, (int)(e & 1), j);
+  }
+
+  // The card's combine, then the group's: every thread gets the fold.
+  __device__ const long long* combine(const long long* slot_, int nv, unsigned long long ops) {
+    ClusterScope::combine(slot_, nv, ops);
+    const long long e = ++ep;
+    publish(sh->res, nv, 0, e);
+    if (threadIdx.x == 0) {
+      await(e);
+      long long acc[KSS_CV];
+      for (int j = 0; j < peer->cards; ++j) {
+        const volatile unsigned long long* x = value(e, j);
+        for (int q = 0; q < nv; ++q) {
+          const long long y = (long long)x[1 + q];
+          acc[q] = j == 0 ? y : op_apply(op_of(ops, q), acc[q], y);
+        }
+      }
+      for (int q = 0; q < nv; ++q) sh->res[q] = acc[q];
+    }
+    __syncthreads();
+    return sh->res;
+  }
+
+  // The card's argmax (local index), then the group's over the mesh's
+  // node indices, (value desc, index asc).
+  __device__ void combine_argmax(long long& v, int& i) {
+    ClusterScope::combine_argmax(v, i);
+    __syncthreads();  // every thread has read the card's result
+    const long long e = ++ep;
+    publish(&v, 1, i == INT_MAX ? (long long)INT_MAX : (long long)i + node_base, e);
+    if (threadIdx.x == 0) {
+      await(e);
+      long long bv = LLONG_MIN;
+      int bi = INT_MAX;
+      for (int j = 0; j < peer->cards; ++j) {
+        const volatile unsigned long long* x = value(e, j);
+        argmax_pair(bv, bi, (long long)x[1], (int)(long long)x[1 + KSS_CV]);
+      }
+      sh->res_v = bv;
+      sh->res_i = bi;
+    }
+    __syncthreads();
+    v = sh->res_v;
+    i = sh->res_i;
+  }
+
+  // The end of a launch: a barrier over the group's cards.
+  __device__ void finish() {
+    cg::this_cluster().sync();
+    const long long e = ++ep;
+    publish(nullptr, 0, 0, e);
+    if (threadIdx.x == 0) await(e);
+    __syncthreads();
   }
 };
 

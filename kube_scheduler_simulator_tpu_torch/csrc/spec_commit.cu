@@ -31,6 +31,14 @@
 //     the host path's bind does, and its claims run in batch order on the
 //     last CTA.
 //
+// On a card mesh (B12b, kernels/mesh.py spec_commit_cards) each card
+// launches it over its own node slice, `selected` holding the mesh's node
+// indices: a card adds only the rows of the nodes it owns (core), or
+// makes the exactly-once updates where it owns `selected` and its slice's
+// same-domain increments (general, the domain rows whole on every card:
+// common.cuh whole_at); every card keeps the cluster-wide carries, so
+// each one's last CTA walks every bind for them.
+//
 // What bounds it on this card: the core-only variant is a few hundred
 // 8-byte atomics, bound by its launch; the general one is the chain of
 // the k binds within one CTA, each a ballot over the pod's groups and
@@ -54,8 +62,8 @@ __global__ void __launch_bounds__(COMMIT_THREADS) spec_commit_core_kernel(
     const StepArgs a, const int* selected, int k) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.C || b >= k) return;
-  const int sel = selected[b];
-  if (sel < 0) return;
+  const int sel = selected[b] - a.node_base;  // local; a card mesh's other cards own the rest
+  if (selected[b] < 0 || sel < 0 || sel >= a.N) return;
   for (int r = 0; r < a.R; ++r)
     atomicAdd((unsigned long long*)&a.requested[(long long)sel * a.R + r],
               (unsigned long long)a.pod_requests[(long long)b * a.R + r]);
@@ -74,7 +82,7 @@ __global__ void __launch_bounds__(COMMIT_SLICE) spec_commit_bind_kernel(
   const bool cluster_wide = blockIdx.x == gridDim.x - 1;
   const PodVolumes none{};
   for (int b = 0; b < min(k, a.C); ++b) {
-    const int sel = selected[b];
+    const int sel = selected[b] - a.node_base;
     bind_pod<W>(a, b, sel, lo, hi, sel >= lo && sel < hi, cluster_wide, none);
   }
 }

@@ -20,7 +20,9 @@
 //     `speculative_scores` (B12): `_eval_fn` with every [.., N] tensor
 //     sharded over the mesh's "nodes" axis, GSPMD's all-reduces between
 //     the shards (kernels/mesh.py spec_eval_sharded; a fused round of
-//     members on one mesh too).
+//     members on one mesh too), and, with the shards on separate cards,
+//     B12b (spec_eval_cards_kernel below, kernels/mesh.py
+//     spec_eval_cards).
 //
 // The kernel takes a table of sessions (common.cuh StepTable: one
 // StepArgs each, nothing stacked); B2 and B10 are its one-session launch.
@@ -127,6 +129,59 @@ __global__ void __launch_bounds__(LIGHT ? KSS_LIGHT_THREADS : KSS_STEP_THREADS,
   eval_pod<W>(a, c, scope);
   // no CTA leaves while another may still read its slots
   cluster.sync();
+}
+
+// B12b (kernels/mesh.py spec_eval_cards): the dense eval over a card
+// mesh.  Table entry e is a card of the mesh (card peer.card0 + e), its
+// StepArgs the card's node slice and the pods of its "dp" row's group;
+// each card holds `peer.slots` clusters of R CTAs, and slot q walks the
+// pods q, q + slots, ...  The slot-q clusters of a row's cards combine
+// through PeerScope (scope.cuh), so the launch's clusters spin on each
+// other and kss_eval_cards_plan sizes `slots` so that the card holds
+// every one of them at once.
+template <bool W>
+__global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
+    spec_eval_cards_kernel(const __grid_constant__ StepTable<KSS_MAX_CARDS> t, int width,
+                           const __grid_constant__ PeerArgs peer) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ PodShared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ctas = (int)cluster.num_blocks();
+  const int i = (int)blockIdx.x / ctas;  // the cluster
+  const int e = i / peer.slots, slot = i - e * peer.slots;
+  const StepArgs& a = t.s[e];
+  const NodeSlice ns = node_slice(a.N, 1, ctas, width, rank);
+  const int lo = ns.lo, hi = ns.hi;
+  const StepSmem m = step_smem(a, width, false);
+  unsigned char* smem =
+      a.spill != nullptr ? a.spill + ((size_t)slot * ctas + rank) * m.total : dyn;
+  PeerScope scope{ClusterScope{lo, hi, rank, ctas,
+                               PodRows{(long long*)(smem + m.raw), smem + m.feas, smem + m.ign,
+                                       lo, width},
+                               &sh, PodVolumes{}, 0},
+                  &peer, peer.card0 + e, slot, a.node_base, peer.epoch, false};
+  int* count = (int*)(smem + m.count);
+  if (a.has_nvl) nvl_counts(a, lo, hi, count);  // no bind: the slice's counts hold for every pod
+  for (int c = slot; c < a.C; c += peer.slots) {
+    scope.vols = PodVolumes{};
+    if (a.has_nvl && !a.nvl_filter_skip[c]) {
+      int* vols = (int*)(smem + m.nvl);
+      scope.vols.nvl_count = count;
+      scope.vols.count_lo = lo;
+      scope.vols.nvl_vols = vols;
+      scope.vols.nvl_n = nvl_compact(a, c, vols, sh.i);
+    }
+    if (a.has_vb) {
+      int* pvs = (int*)(smem + m.vb_pvs);
+      unsigned char* slots = smem + m.vb_slots;
+      scope.vols.vb_pvs = pvs;
+      scope.vols.vb_slots = slots;
+      scope.vols.vb_n = vb_compact(a, c, pvs, slots, sh.i);
+    }
+    __syncthreads();
+    eval_pod<W>(a, c, scope);
+  }
+  scope.finish();
 }
 
 #ifdef __CUDACC__
@@ -261,6 +316,78 @@ extern "C" int kss_spec_eval(const StepArgs* table, int k, int ctas, int shards,
                                                 make_table<KM>(table, k), p.width, shards));
       });
     });
+  });
+}
+
+// B12b: the plan of an eval over the k cards of `table` on card `device`:
+// R (`ctas` 0: the largest of 16, 8, 4, 2, 1, at most the card's nodes, at
+// which the card holds a cluster for every pod of every entry, else 1) to
+// *out_ctas; the pod slots a card (at most its pods, as many as the card
+// holds k times over) to *slots; a CTA's spill bytes (0: shared memory)
+// to *cta_spill; the launch's VolumeBinding mask bytes to *mask_bytes; and
+// the clusters the card holds at once to *resident.
+extern "C" int kss_eval_cards_plan(const StepArgs* table, int k, int ctas, int device,
+                                   int* out_ctas, int* slots, long long* cta_spill,
+                                   long long* mask_bytes, int* resident) {
+  if (k < 1 || k > KSS_MAX_CARDS || table[0].C < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  return by_wide(table, k, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    int max_dynamic = 0;
+    const cudaError_t err = cluster_attributes<spec_eval_cards_kernel<W>>(&max_dynamic);
+    if (err != cudaSuccess) return (int)err;
+    if (ctas == 0) {
+      ctas = 1;
+      for (int r = KSS_MAX_CTAS; r > 1; r /= 2) {
+        if (r > table[0].N) continue;
+        const ClusterPlan p = cluster_plan(table[0], r, 1, max_dynamic, false);
+        if (active_clusters<spec_eval_cards_kernel<W>>(p, r) >= k * table[0].C) {
+          ctas = r;
+          break;
+        }
+      }
+    }
+    if (!cluster_takes(table[0], ctas, 1)) return (int)cudaErrorInvalidValue;
+    const ClusterPlan p = cluster_plan(table[0], ctas, 1, max_dynamic, false);
+    if (!cards_alike(table, k, p.width, false)) return (int)cudaErrorInvalidValue;
+    *resident = active_clusters<spec_eval_cards_kernel<W>>(p, ctas);
+    const int per_card = *resident / k;
+    *slots = per_card < table[0].C ? per_card : table[0].C;
+    *out_ctas = ctas;
+    *cta_spill = p.spill ? (long long)p.bytes : 0;
+    *mask_bytes = vb_mask_words(table, k) * 8 * k * (*slots) * ctas * p.threads;
+    return (int)cudaSuccess;
+  });
+}
+
+// B12b: one launch of k x peer->slots clusters of `ctas` CTAs on `stream`
+// of card `device`; KSS_ERR_RESIDENT where the card does not hold them all
+// at once.
+extern "C" int kss_eval_cards(const StepArgs* table, int k, int ctas, const PeerArgs* peer,
+                              int device, void* stream) {
+  if (k < 1 || k > KSS_MAX_CARDS || table[0].C < 1 || peer->slots < 1 ||
+      !cluster_takes(table[0], ctas, 1) || vb_masks_missing(table, k))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  return by_wide(table, k, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    int max_dynamic = 0;
+    const cudaError_t err = cluster_attributes<spec_eval_cards_kernel<W>>(&max_dynamic);
+    if (err != cudaSuccess) return (int)err;
+    const ClusterPlan p = cluster_plan(table[0], ctas, 1, max_dynamic, false);
+    if (!cards_alike(table, k, p.width, false)) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < k; ++i)
+      if (p.spill != (table[i].spill != nullptr)) return (int)cudaErrorInvalidValue;
+    if (active_clusters<spec_eval_cards_kernel<W>>(p, ctas) < k * peer->slots)
+      return KSS_ERR_RESIDENT;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg;
+    cluster_config(p, k * peer->slots, ctas, (cudaStream_t)stream, attr, &cfg);
+    return launch_result(cudaLaunchKernelEx(&cfg, spec_eval_cards_kernel<W>,
+                                            make_table<KSS_MAX_CARDS>(table, k), p.width,
+                                            *peer));
   });
 }
 #endif

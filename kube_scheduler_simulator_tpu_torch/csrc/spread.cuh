@@ -44,7 +44,7 @@ __device__ void spread_minima(const StepArgs& a, int c, long long* mins, Scope& 
     for (int m = 0; m < KSS_MC; ++m) {
       if (!checks[m]) continue;
       const long long cid = a.sp_c_id[c * KSS_MC + m];
-      if (a.sp_dom_idx[cid * a.N + n] >= 0 && spread_eligible(a, c, m, n))
+      if (a.sp_dom_idx[whole_at(a, cid, n)] >= 0 && spread_eligible(a, c, m, n))
         v[m] = ll_min(v[m], (long long)a.sp_counts[cid * a.N + n]);
     }
   }
@@ -62,7 +62,7 @@ __device__ int spread_filter(const StepArgs& a, int c, int n, const long long* m
   for (int m = 0; m < KSS_MC; ++m) {
     if (!spread_checks(a, c, m)) continue;
     const long long cid = a.sp_c_id[c * KSS_MC + m];
-    bool has_key = a.sp_dom_idx[cid * a.N + n] >= 0;
+    bool has_key = a.sp_dom_idx[whole_at(a, cid, n)] >= 0;
     long long self_match = a.sp_pm[(long long)c * a.G + cid] ? 1 : 0;
     long long skew = (long long)a.sp_counts[cid * a.N + n] + self_match - mins[m];
     int viol = has_key ? (skew > a.sp_max_skew[c * KSS_MC + m] ? 2 + 2 * m : 0) : 1 + 2 * m;
@@ -75,7 +75,7 @@ __device__ int spread_filter(const StepArgs& a, int c, int n, const long long* m
 // with -fmad=false: no contraction of total + cnt * w), then Go
 // math.Round of a non-negative value: floor(total + 0.5).  Args is
 // StepArgs, or any struct with its sp_c_id, sp_is_score, sp_dom_idx,
-// sp_counts, sp_weight and N (phased.cu RenormArgs).
+// sp_counts, sp_weight, N, node_base and whole_n (phased.cu RenormArgs).
 template <class Args>
 __device__ long long spread_score(const Args& a, int c, int n, bool& ignored) {
   double total = 0.0;
@@ -83,7 +83,7 @@ __device__ long long spread_score(const Args& a, int c, int n, bool& ignored) {
   for (int m = 0; m < KSS_MC; ++m) {
     const long long cid = a.sp_c_id[c * KSS_MC + m];
     if (cid < 0 || !a.sp_is_score[c * KSS_MC + m]) continue;
-    if (a.sp_dom_idx[cid * a.N + n] >= 0)
+    if (a.sp_dom_idx[whole_at(a, cid, n)] >= 0)
       total = total + (double)a.sp_counts[cid * a.N + n] * a.sp_weight[c * KSS_MC + m];
     else
       ignored = true;
@@ -104,9 +104,10 @@ __device__ __forceinline__ long long spread_normalize(long long raw, bool ignore
 }
 
 // Node-space bind: every node of [lo, hi) sharing the selected node's
-// domain, in every group the pod matches, takes +1.  Only called with
-// sel >= 0; the selected node's domain is read from the statics, which
-// every block sees whole.  Each warp finds the pod's groups 32 at a time
+// domain, in every group the pod matches, takes +1.  Only called for a
+// bound pod, `sel` its local index; the selected node's domain is read
+// from the statics, which every block sees whole (on a card mesh every
+// card keeps the domain rows whole: whole_at).  Each warp finds the pod's groups 32 at a time
 // with a ballot (the same mask in every warp), so groups the pod does not
 // match cost no load of their domain row.
 __device__ void spread_bind(const StepArgs& a, int c, int sel, int lo, int hi) {
@@ -117,10 +118,10 @@ __device__ void spread_bind(const StepArgs& a, int c, int sel, int lo, int hi) {
     while (mask) {
       const int g = g0 + __ffs(mask) - 1;
       mask &= mask - 1;
-      const int dcol = a.sp_dom_idx[(long long)g * a.N + sel];
+      const int dcol = a.sp_dom_idx[whole_at(a, g, sel)];
       if (dcol < 0) continue;
       for (int n = lo + threadIdx.x; n < hi; n += blockDim.x)
-        if (a.sp_dom_idx[(long long)g * a.N + n] == dcol) a.sp_counts[(long long)g * a.N + n] += 1;
+        if (a.sp_dom_idx[whole_at(a, g, n)] == dcol) a.sp_counts[(long long)g * a.N + n] += 1;
     }
   }
 }

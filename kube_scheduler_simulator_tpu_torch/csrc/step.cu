@@ -5,7 +5,7 @@
 // `build_step.step`, which the JAX package runs as a `lax.scan` over a
 // chunk of pods (framework/replay.py:1130 `_scan_for`), and B12's
 // parallel/mesh.py:130 `sharded_step` (the same step with the node axis
-// sharded over the mesh's "nodes" extent).  The TPU's sequential scan
+// sharded over the mesh's "nodes" extent; on separate cards B12b, below).  The TPU's sequential scan
 // becomes a loop inside ONE cluster of R CTAs: the cluster walks the
 // chunk's pods in queue order, and each CTA owns a contiguous node slice
 // (slices.cuh: without a mesh [r W, (r + 1) W), W = ceil(N / R); on a
@@ -59,6 +59,33 @@
 // distributed shared memory and broadcasts them through the block's own),
 // and walks only a pod's own volumes and candidate PVs.
 //
+// B12b: the "nodes" shards of a mesh on separate cards (kernels/mesh.py
+// step_chunk_cards; JAX parallel/mesh.py:130 with the shards on separate
+// devices).  step_kernel.cuh step_cards_kernel is the same body under
+// PeerScope (scope.cuh): each card runs the chunk on one cluster of R
+// CTAs over its own node slice (its StepArgs: N the card's nodes,
+// node_base its first), and each of a pod's three combines ends inside
+// the card, then across the cards of its "dp" row through their
+// exchange buffers, folded in card order.  Across distinct cards it is one
+// launch a card, all issued before any is awaited; on virtual cards one
+// launch of a cluster a card, which the card must hold at once
+// (kss_step_cards_plan: the largest R at which
+// cudaOccupancyMaxActiveClusters admits every card).  The bind is
+// bind_pod's: the owner card (it owns `selected`) makes the exactly-once
+// row updates; every card applies the replicated increments (InterPod's
+// matched_total, the ReadWriteOncePod bits, VolumeBinding's claims) to
+// its own replicas; each card updates its slice of the spread counts and
+// the InterPod matrices.  Those read rows of the selected node that a
+// card need not own: its spread and InterPod domains (sp_dom_idx,
+// ip_dom_idx) and, for the claims, VolumeBinding's PV and provision rows
+// at it.  These tables stay whole on every card (common.cuh whole_at)
+// rather than travelling in the argmax exchange: they are static (the
+// provision rows are the pod's own), a few int32 or byte rows of N, and
+// the node loop reads them at its own nodes anyway; publishing them would
+// make the argmax entry as wide as the workload's groups and terms, every
+// pod.  So no exchange follows the argmax, and the bind needs no barrier
+// across cards, as it needs none across CTAs.
+//
 // The phase clock (-DKSS_PHASE_CLOCK, the "step_clock" build of
 // kernels/build.py) has rank 0's thread 0 stamp each phase of each pod
 // (common.cuh KSS_CLOCK_SLOTS); every other build compiles it out.
@@ -85,4 +112,27 @@ extern "C" int kss_step_chunk(const StepArgs* args, int ctas, int shards, void* 
 }
 
 extern "C" int kss_mesh_max_shards() { return KSS_MESH_MAX_SHARDS; }
+
+// B12b: one launch of the step over k cards of a card mesh (step_kernel.cuh
+// launch_step_cards) on `stream` of card `device`.
+extern "C" int kss_step_cards(const StepArgs* table, int k, int ctas, const PeerArgs* peer,
+                              int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return launch_step_cards(table, k, ctas, peer, stream);
+}
+
+extern "C" int kss_peer_args_size() { return (int)sizeof(PeerArgs); }
+
+// Card `device` may read and write card `peer`'s memory (once per pair a
+// process; an access already enabled is no error).
+extern "C" int kss_enable_peer(int device, int peer) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    err = cudaSuccess;
+  }
+  return (int)err;
+}
 #endif

@@ -5,16 +5,24 @@
 // node_slice).  Its launch plan (the width, the CTA's threads and state)
 // is cluster.cuh's.  Its template flag W is common.cuh's: a launch past
 // the fixed tables (step_wide) takes the W = true instantiation.
+//
+// B12b's step over a card mesh, step_cards_kernel, is the same body under
+// PeerScope (scope.cuh): a cluster a card, each card's StepArgs its own
+// node slice; step.cu documents it.
 #pragma once
 
 #include "cluster.cuh"
 
-template <bool W>
-__global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
-    step_chunk_kernel(const __grid_constant__ StepArgs a, int width, int shards) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  __shared__ PodShared sh;
-  __shared__ StepArgs b;  // a, with the cluster-wide carries at this CTA's replicas
+// The chunk's pods in order under the scope `make_scope` builds from the
+// CTA's ClusterScope: a's replicated cluster-wide carries copied into the
+// CTA's state (b holds a with its replicas' pointers), each pod evaluated
+// (pod.cuh eval_pod) and bound, the scope finished, and rank 0's replicas
+// written back.  eval_pod's selection is the mesh's node index; the bind
+// takes it less a.node_base.
+template <bool W, class MakeScope>
+__device__ __forceinline__ void step_chunk_body(const StepArgs& a, int width, int shards,
+                                                unsigned char* dyn, PodShared& sh, StepArgs& b,
+                                                MakeScope make_scope) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), ctas = (int)cluster.num_blocks();
   const NodeSlice ns = node_slice(a.N, shards, ctas / shards, width, rank);
@@ -46,9 +54,10 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
 
   KSS_CLOCK(unsigned long long* ck0 = threadIdx.x == 0 && rank == 0 ? a.clock : nullptr;
             if (ck0) ck0[(long long)a.C * KSS_CLOCK_SLOTS] = kss_now();)
-  ClusterScope scope{lo, hi, rank, ctas,
-                     PodRows{(long long*)(smem + m.raw), smem + m.feas, smem + m.ign, lo, width},
-                     &sh, PodVolumes{}, 0};
+  auto scope = make_scope(ClusterScope{
+      lo, hi, rank, ctas,
+      PodRows{(long long*)(smem + m.raw), smem + m.feas, smem + m.ign, lo, width}, &sh,
+      PodVolumes{}, 0});
   scope.vols.nvl_count = a.has_nvl ? count : nullptr;
   scope.vols.count_lo = lo;
   for (int c = 0; c < a.C; ++c) {
@@ -76,7 +85,7 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
               })
 
     // ---- 1-3. pre-pass, node loop, normalize and argmax (pod.cuh)
-    const int sel = eval_pod<W>(b, c, scope);
+    const int sel = eval_pod<W>(b, c, scope) - a.node_base;
 
     // ---- 4. the bind.  Every read of the carry for this pod happened
     // before the argmax's cluster barrier; a rejected or padded pod binds
@@ -91,7 +100,7 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
     })
   }
   // no CTA leaves while another may still read its slots
-  cluster.sync();
+  scope.finish();
   KSS_CLOCK(if (ck0) ck0[(long long)a.C * KSS_CLOCK_SLOTS + 1] = kss_now();)
   if (rank == 0) {
     if (a.has_vb)
@@ -101,6 +110,32 @@ __global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
     if (a.has_interpod)
       for (int t = threadIdx.x; t < a.T; t += blockDim.x) a.ip_matched_total[t] = matched[t];
   }
+}
+
+template <bool W>
+__global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
+    step_chunk_kernel(const __grid_constant__ StepArgs a, int width, int shards) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ PodShared sh;
+  __shared__ StepArgs b;  // a, with the cluster-wide carries at this CTA's replicas
+  step_chunk_body<W>(a, width, shards, dyn, sh, b, [](const ClusterScope& s) { return s; });
+}
+
+// B12b: table entry i (a card of the mesh, card peer.card0 + i) is
+// cluster i; each card's cluster walks the chunk over its own node slice,
+// the cards of a "dp" row combining through PeerScope.
+template <bool W>
+__global__ void __launch_bounds__(KSS_STEP_THREADS, 1)
+    step_cards_kernel(const __grid_constant__ StepTable<KSS_MAX_CARDS> t, int width,
+                      const __grid_constant__ PeerArgs peer) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ PodShared sh;
+  __shared__ StepArgs b;
+  const int i = (int)(blockIdx.x / cg::this_cluster().num_blocks());
+  const StepArgs& a = t.s[i];
+  step_chunk_body<W>(a, width, 1, dyn, sh, b, [&](const ClusterScope& s) {
+    return PeerScope{s, &peer, peer.card0 + i, 0, a.node_base, peer.epoch, false};
+  });
 }
 
 #ifdef __CUDACC__
@@ -165,6 +200,77 @@ static int launch_step_cluster(const StepArgs* args, int ctas, int shards, void*
     cudaLaunchConfig_t cfg;
     cluster_config(p, 1, ctas, (cudaStream_t)stream, attr, &cfg);
     return launch_result(cudaLaunchKernelEx(&cfg, step_chunk_kernel<W>, *args, p.width, shards));
+  });
+}
+
+// ---- B12b: the step over a card mesh's cards (kernels/mesh.py
+// step_chunk_cards).  A launch runs k of the mesh's cards, one cluster of
+// R CTAs each (k = 1 on a card of its own; all the mesh's cards on
+// virtual cards).  The clusters spin on each other, so the card must hold
+// all k at once.
+
+// The plan of a launch over the k cards of `table` on card `device`: R (`ctas` 0: the
+// largest of 16, 8, 4, 2, 1 at which the card holds k clusters) to
+// *out_ctas, the spill bytes of EACH card to *spill_bytes (0: shared
+// memory), the launch's VolumeBinding mask bytes (one buffer, every entry
+// pointing at it) to *mask_bytes and the clusters of R CTAs the card holds
+// at once to *resident.
+extern "C" int kss_step_cards_plan(const StepArgs* table, int k, int ctas, int device,
+                                   int* out_ctas, long long* spill_bytes,
+                                   long long* mask_bytes, int* resident) {
+  if (k < 1 || k > KSS_MAX_CARDS) return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  return by_wide(table, k, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    int max_dynamic = 0;
+    const cudaError_t err = cluster_attributes<step_cards_kernel<W>>(&max_dynamic);
+    if (err != cudaSuccess) return (int)err;
+    if (ctas == 0) {
+      ctas = 1;
+      for (int r = KSS_MAX_CTAS; r > 1; r /= 2) {
+        const ClusterPlan p = cluster_plan(table[0], r, 1, max_dynamic, true);
+        if (active_clusters<step_cards_kernel<W>>(p, r) >= k) {
+          ctas = r;
+          break;
+        }
+      }
+    }
+    if (!cluster_takes(table[0], ctas, 1)) return (int)cudaErrorInvalidValue;
+    const ClusterPlan p = cluster_plan(table[0], ctas, 1, max_dynamic, true);
+    if (!cards_alike(table, k, p.width, true)) return (int)cudaErrorInvalidValue;
+    *out_ctas = ctas;
+    *spill_bytes = p.spill ? (long long)p.bytes * ctas : 0;
+    *mask_bytes = vb_mask_words(table, k) * 8 * k * ctas * p.threads;
+    *resident = active_clusters<step_cards_kernel<W>>(p, ctas);
+    return (int)cudaSuccess;
+  });
+}
+
+// One launch of k clusters of `ctas` CTAs, table entry i the mesh's card
+// peer->card0 + i, on `stream` of the current card; KSS_ERR_RESIDENT where
+// the card does not hold the k clusters at once.
+static int launch_step_cards(const StepArgs* table, int k, int ctas, const PeerArgs* peer,
+                             void* stream) {
+  if (k < 1 || k > KSS_MAX_CARDS || !cluster_takes(table[0], ctas, 1) ||
+      vb_masks_missing(table, k))
+    return (int)cudaErrorInvalidValue;
+  return by_wide(table, k, [&](auto wide) {
+    constexpr bool W = decltype(wide)::value;
+    int max_dynamic = 0;
+    const cudaError_t err = cluster_attributes<step_cards_kernel<W>>(&max_dynamic);
+    if (err != cudaSuccess) return (int)err;
+    const ClusterPlan p = cluster_plan(table[0], ctas, 1, max_dynamic, true);
+    if (!cards_alike(table, k, p.width, true)) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < k; ++i)
+      if (p.spill != (table[i].spill != nullptr)) return (int)cudaErrorInvalidValue;
+    if (active_clusters<step_cards_kernel<W>>(p, ctas) < k) return KSS_ERR_RESIDENT;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg;
+    cluster_config(p, k, ctas, (cudaStream_t)stream, attr, &cfg);
+    return launch_result(cudaLaunchKernelEx(&cfg, step_cards_kernel<W>,
+                                            make_table<KSS_MAX_CARDS>(table, k), p.width,
+                                            *peer));
   });
 }
 #endif

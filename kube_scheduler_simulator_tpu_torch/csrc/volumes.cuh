@@ -190,7 +190,7 @@ __device__ bool vb_greedy(const StepArgs& a, int c, int n, int* chosen, const Po
         for (int j = 0; j < KSS_VB_BATCH; ++j) {
           const int e = e0 + j;
           ok[j] = e < pv.vb_n && ((pv.vb_slots[e] >> k) & 1)
-                      ? a.vb_pv_node_ok[(long long)pv.vb_pvs[e] * a.N + n] : 0;
+                      ? a.vb_pv_node_ok[whole_at(a, pv.vb_pvs[e], n)] : 0;
         }
 #pragma unroll
         for (int j = 0; j < KSS_VB_BATCH; ++j)
@@ -200,13 +200,13 @@ __device__ bool vb_greedy(const StepArgs& a, int c, int n, int* chosen, const Po
       const unsigned char* want = a.vb_want + ((long long)c * a.VK + k) * a.VV;
       for (int e = 0; e < a.VV && pick < 0; ++e) {
         const int v = a.vb_order[e];
-        if (want[v] && !a.vb_claimed[v] && a.vb_pv_node_ok[(long long)v * a.N + n] &&
+        if (want[v] && !a.vb_claimed[v] && a.vb_pv_node_ok[whole_at(a, v, n)] &&
             !vb_taken(chosen, k, v))
           pick = v;
       }
     }
     chosen[k] = pick;
-    const bool ok = pick >= 0 || a.vb_provision_ok[((long long)c * a.VK + k) * a.N + n];
+    const bool ok = pick >= 0 || a.vb_provision_ok[whole_at(a, (long long)c * a.VK + k, n)];
     bindfail |= !ok;
   }
   return bindfail;
@@ -237,7 +237,7 @@ __device__ __forceinline__ bool vb_walk(const StepArgs& a, int c, int n, bool cl
   const unsigned char* want = a.vb_want + (long long)c * a.VK * a.VV;
   for (int e = 0; e < a.VV && left > 0; ++e) {
     const int v = a.vb_order[e];
-    if (a.vb_claimed[v] || !a.vb_pv_node_ok[(long long)v * a.N + n]) continue;
+    if (a.vb_claimed[v] || !a.vb_pv_node_ok[whole_at(a, v, n)]) continue;
     bool given = false;
     for (int w = 0; w < words && !given; ++w)
       for (unsigned long long m = open[w * stride]; m != 0; m &= m - 1) {
@@ -255,7 +255,7 @@ __device__ __forceinline__ bool vb_walk(const StepArgs& a, int c, int n, bool cl
   for (int w = 0; w < words; ++w)
     for (unsigned long long m = open[w * stride]; m != 0; m &= m - 1) {
       const int k = w * 64 + __ffsll((long long)m) - 1;
-      bindfail |= !a.vb_provision_ok[((long long)c * a.VK + k) * a.N + n];
+      bindfail |= !a.vb_provision_ok[whole_at(a, (long long)c * a.VK + k, n)];
     }
   return bindfail;
 }

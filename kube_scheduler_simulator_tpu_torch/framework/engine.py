@@ -20,10 +20,12 @@ PyTorch versions) and never falls back to the CPU.  The kernels it
 reaches beyond the replay's and the stream's: B8 `quorum_slice` in every
 gang wave (`_gang_decide`) and B10 `phased_eval` / `renormalize_rows`
 with B5's `spec_commit_bind` on the host-interleaved path
-(`_schedule_host_path`).  `mesh=` (a one-card parallel.mesh.Mesh) runs
-every wave whose node count divides the mesh's "nodes" extent through
-B12, the node-sharded replay and stream, and the rest unsharded, counted
-by `mesh_fallback_indivisible_nodes_total`; `unroll` is kept in the
+(`_schedule_host_path`).  `mesh=` (a parallel.mesh.Mesh on one card, or
+over cards) runs every wave whose node count divides the mesh's "nodes"
+extent through the node-sharded replay and stream (B12 on one card, B12b
+over cards: each wave's workload placed over the mesh's cards), and the
+rest unsharded, counted by `mesh_fallback_indivisible_nodes_total` (JAX
+engine.py:1186-1192); `unroll` is kept in the
 signature and not passed on (the step kernel has none, and it never
 changes a result).  Each wave compiles with the previous wave's node
 table (`reuse=`, a NodeTableReuse: kept as it is, patched at the changed
@@ -526,8 +528,9 @@ class SchedulerEngine:
                  pipeline_commit: bool = True, device="cuda"):
         # every wave's compile, replay, stream and kernel runs here
         self.device = resolve_device(device)
-        # optional one-card parallel.mesh.Mesh with a "nodes" axis: every
-        # batched replay and stream shards the node axis across it
+        # optional parallel.mesh.Mesh with a "nodes" axis, on one card or
+        # over cards (its first card the engine's device): every batched
+        # replay and stream shards the node axis across it
         if mesh is not None:
             from ..parallel.mesh import Mesh
 

@@ -321,7 +321,10 @@ class Step:
         # InterPodAffinity's hardPodAffinityWeight as a Python int, read
         # from the device once here: the kernels take it as a scalar, and
         # reading the tensor at every launch would wait for the card
-        ip = cw.statics.get("InterPodAffinity")
+        # a card mesh's statics are per card (kernels/mesh.py Cards); the
+        # weight is the same on every card
+        statics = cw.statics[0] if isinstance(cw.statics, tuple) else cw.statics
+        ip = statics.get("InterPodAffinity")
         self.ip_hard_weight = int(ip.hard_weight) if ip is not None else 0
         if out_mode == "compact" and len(score_dtypes) != len(self.score_names):
             raise ValueError("compact mode needs one score dtype per scorer")
@@ -429,21 +432,30 @@ class Step:
         card (the carry updated in place), `plain_scan` for tensors on the
         CPU.  A workload sharded over a mesh (parallel/mesh.py
         shard_workload) runs the node-sharded step instead (B12,
-        kernels/mesh.py step_chunk_sharded)."""
+        kernels/mesh.py step_chunk_sharded; over a card mesh B12b,
+        step_chunk_cards, the carry and xs per card)."""
         if self.cw.mesh is not None:
-            from ..kernels.mesh import step_chunk_sharded
+            from ..kernels.mesh import step_chunk_cards, step_chunk_sharded
 
+            if self.cw.mesh.cards is not None:
+                return step_chunk_cards(self, carry, xs_chunk)
             return step_chunk_sharded(self, carry, xs_chunk)
         from ..kernels.step import step_chunk
 
         return step_chunk(self, carry, xs_chunk)
 
     def __call__(self, carry: dict[str, Any], sl: dict[str, Any]):
-        """One pod -> (carry', out): a chunk of one through `scan`."""
-        xs1 = _map_tree(lambda a: a[None], sl)
-        if "is_pad" not in xs1:
-            xs1["is_pad"] = torch.zeros(1, dtype=torch.bool,
-                                        device=carry["core"].requested.device)
+        """One pod -> (carry', out): a chunk of one through `scan` (a card
+        mesh's carry and pod per card)."""
+        if isinstance(sl, tuple):  # kernels/mesh.py Cards
+            xs1 = sl.map(lambda part: _map_tree(lambda a: a[None], part))
+            if "is_pad" not in xs1[0]:
+                xs1["is_pad"] = torch.zeros(1, dtype=torch.bool)
+        else:
+            xs1 = _map_tree(lambda a: a[None], sl)
+            if "is_pad" not in xs1:
+                xs1["is_pad"] = torch.zeros(1, dtype=torch.bool,
+                                            device=carry["core"].requested.device)
         carry, out = self.scan(carry, xs1)
         return carry, type(out)(*[v[0] for v in out])
 

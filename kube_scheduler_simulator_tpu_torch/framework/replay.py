@@ -820,7 +820,11 @@ def plugin_attribution(rr: ReplayResult) -> dict | None:
 
 
 def _slice_xs(xs: dict[str, Any], lo: int, hi: int, pad_to: int) -> dict[str, Any]:
-    """Pods lo..hi of every per-pod tensor, zero-padded to pad_to rows."""
+    """Pods lo..hi of every per-pod tensor, zero-padded to pad_to rows (on
+    each card of a card mesh, kernels/mesh.py Cards)."""
+    if isinstance(xs, tuple):
+        return xs.map(lambda part: _slice_xs(part, lo, hi, pad_to))
+
     def cut(a):
         piece = a[lo:hi]
         if pad_to > piece.shape[0]:
@@ -836,7 +840,10 @@ def _slice_xs(xs: dict[str, Any], lo: int, hi: int, pad_to: int) -> dict[str, An
 def _clone_carry(carry: dict[str, Any]) -> dict[str, Any]:
     """A private copy of the initial carry: the kernel updates the carry in
     place, and cw.init_carry must survive for later replays of the same
-    compiled workload (replay.py:1488-1490, where the scan donates it)."""
+    compiled workload (replay.py:1488-1490, where the scan donates it);
+    a card mesh's carry card by card."""
+    if isinstance(carry, tuple):  # kernels/mesh.py Cards
+        return carry.map(_clone_carry)
     return {k: v.clone() if isinstance(v, torch.Tensor)
             else type(v)(*[a.clone() for a in v]) for k, v in carry.items()}
 
@@ -1112,16 +1119,22 @@ def _statics_fingerprint(cw: CompiledWorkload) -> str:
     import hashlib
 
     h = hashlib.sha1()
-    for name in sorted(cw.statics):
+    # a card mesh's statics card by card (kernels/mesh.py Cards)
+    for statics in cw.statics if isinstance(cw.statics, tuple) else (cw.statics,):
+        _hash_statics(h, statics)
+    fp = h.hexdigest()
+    cw.host["_statics_fp"] = fp
+    return fp
+
+
+def _hash_statics(h, statics: dict) -> None:
+    for name in sorted(statics):
         h.update(name.encode())
-        for _path, leaf in _leaves(cw.statics[name]):
+        for _path, leaf in _leaves(statics[name]):
             a = _to_host(leaf) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
             h.update(str(a.shape).encode())
             h.update(str(a.dtype).encode())
             h.update(a.tobytes())
-    fp = h.hexdigest()
-    cw.host["_statics_fp"] = fp
-    return fp
 
 
 def _workload_scan_key(cw: CompiledWorkload, chunk: int):

@@ -52,10 +52,15 @@ class BuildResult:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "step": {"kss_step_args_size": ([], _I), "kss_step_chunk": ([_P, _I, _I, _P], _I),
-             "kss_step_plan": ([_P, _I, _I, _P, _P, _P], _I), "kss_mesh_max_shards": ([], _I)},
+             "kss_step_plan": ([_P, _I, _I, _P, _P, _P], _I), "kss_mesh_max_shards": ([], _I),
+             "kss_step_cards_plan": ([_P, _I, _I, _I, _P, _P, _P, _P], _I),
+             "kss_step_cards": ([_P, _I, _I, _P, _I, _P], _I),
+             "kss_peer_args_size": ([], _I), "kss_enable_peer": ([_I, _I], _I)},
     "spec_eval": {"kss_step_args_size": ([], _I),
                   "kss_eval_plan": ([_P, _I, _I, _I, _P, _P, _P], _I),
-                  "kss_spec_eval": ([_P, _I, _I, _I, _I, _P], _I)},
+                  "kss_spec_eval": ([_P, _I, _I, _I, _I, _P], _I),
+                  "kss_eval_cards_plan": ([_P, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+                  "kss_eval_cards": ([_P, _I, _I, _P, _I, _P], _I)},
     "spec_round": {"kss_step_args_size": ([], _I), "kss_round_plan": ([_P, _I, _P, _P, _P, _P], _I),
                    "kss_spec_round": ([_P, _I, _I, _P], _I)},
     "spec_commit": {"kss_step_args_size": ([], _I),

@@ -79,7 +79,10 @@ class Member:
         self.outs = None
         self.stream = None
         if dev.type == "cuda":
-            self.outs = kspec.round_outputs(step, xs["is_pad"].shape[0], dev)
+            # a card mesh's xs is per card (kernels/mesh.py Cards); its
+            # outputs are joined on the first card, here
+            pods = (xs[0] if isinstance(xs, tuple) else xs)["is_pad"].shape[0]
+            self.outs = kspec.round_outputs(step, pods, dev)
             self.stream = torch.cuda.current_stream(dev)
 
     @property
@@ -93,8 +96,15 @@ def dense_round(m: Member):
     """The solo dense round -> (CompactOut, K): spec_eval then
     spec_oracle (speculative.py:939 `dense_round_for`).  A member whose
     workload is sharded over a mesh evaluates with B12
-    `spec_eval_sharded` (kernels/mesh.py) instead of spec_eval."""
-    if m.step.cw.mesh is not None:
+    `spec_eval_sharded` (kernels/mesh.py) instead of spec_eval, over a
+    card mesh with B12b `spec_eval_cards`, whose outputs are joined on the
+    mesh's first card, where the oracle runs."""
+    mesh = m.step.cw.mesh
+    if mesh is not None and mesh.cards is not None:
+        from .mesh import spec_eval_cards
+
+        outs = spec_eval_cards(m.step, m.carry, m.xs, outs=m.outs)
+    elif mesh is not None:
         from .mesh import spec_eval_sharded
 
         outs = spec_eval_sharded(m.step, m.carry, m.xs, outs=m.outs)
@@ -311,7 +321,13 @@ KERNELS = (spec_eval_fused, spec_round_fused, spec_oracle_fused)
 
 def dense_round_fused(members: list[Member]) -> list[tuple]:
     """K dense rounds -> per member (CompactOut, K): spec_eval_fused then
-    spec_oracle_fused."""
+    spec_oracle_fused.  Members over a card mesh (B12b) run their solo
+    rounds in turn: each round's eval spans every card of the mesh
+    already, each "dp" row its group of the batch (parallel/fuse.py
+    _place_sessions)."""
+    mesh = members[0].step.cw.mesh
+    if mesh is not None and mesh.cards is not None:
+        return [dense_round(m) for m in members]
     outs = spec_eval_fused(members)
     ks = spec_oracle_fused(members, [(o.packed_filter, o.prefilter_reject, o.selected)
                                      for o in outs])

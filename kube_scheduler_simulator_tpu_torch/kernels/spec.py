@@ -63,6 +63,8 @@ GRID_GROUPS = ("packed", "raw8", "raw16", "raw32", "fc")
 
 
 def _device(carry) -> torch.device:
+    if isinstance(carry, tuple):  # a card mesh's (kernels/mesh.py Cards): its first card
+        return carry.devices[0]
     return carry["core"].requested.device
 
 

@@ -132,7 +132,8 @@ class StepArgs(ctypes.Structure):
         + [(f, _INT) for f in ("has_spread", "has_interpod", "sp_elig_per_slot",
                                "Q", "QS", "VC", "VD", "RD", "RR", "VV", "VK",
                                "vz_width", "vb_width",
-                               "has_ports", "has_nvl", "has_vr", "has_vb")]
+                               "has_ports", "has_nvl", "has_vr", "has_vb",
+                               "node_base", "whole_n")]
     )
 
 
@@ -191,6 +192,10 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
                                  torch.float64, torch.bool)
     a = StepArgs()
     a.C, a.N, a.R, a.F, a.S = c, n, r, f, s
+    # a card of a card mesh (kernels/mesh.py _CardWorkload): its first node,
+    # and the width of the rows it keeps whole (csrc/common.cuh whole_at)
+    a.node_base = getattr(cw, "node_base", 0)
+    a.whole_n = whole = getattr(cw, "whole_n", n)
 
     st, cc, cx = cw.statics["core"], carry["core"], xs["core"]
     a.allocatable = _ptr(st.allocatable, i64, (n, r), "allocatable")
@@ -221,7 +226,7 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
         mc = MAX_CONSTRAINTS
         a.G = g
         a.has_spread = 1
-        a.sp_dom_idx = _ptr(st.dom_idx, i32, (g, n), "spread dom_idx")
+        a.sp_dom_idx = _ptr(st.dom_idx, i32, (g, whole), "spread dom_idx")
         a.sp_counts = _ptr(carry["PodTopologySpread"], i32, (g, n), "spread counts")
         a.sp_pm = _ptr(x.pm, b, (c, g), "spread pm")
         a.sp_c_id = _ptr(x.c_id, i32, (c, mc), "spread c_id")
@@ -241,7 +246,7 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
         a.T = t
         a.has_interpod = 1
         a.ip_hard_weight = step.ip_hard_weight
-        a.ip_dom_idx = _ptr(st.dom_idx, i32, (t, n), "interpod dom_idx")
+        a.ip_dom_idx = _ptr(st.dom_idx, i32, (t, whole), "interpod dom_idx")
         for fld in ("matched", "have_req_anti", "have_req_aff", "sym_pref_aff", "sym_pref_anti"):
             setattr(a, "ip_" + fld, _ptr(getattr(ic, fld), i32, (t, n), "interpod " + fld))
         a.ip_matched_total = _ptr(ic.matched_total, i32, (t,), "interpod matched_total")
@@ -253,7 +258,7 @@ def make_args(step, carry, xs, outs: dict | None) -> StepArgs:
         a.ip_self_ok = _ptr(x.self_ok, b, (c,), "interpod self_ok")
         a.ip_filter_skip = _ptr(x.filter_skip, b, (c,), "interpod filter_skip")
 
-    _plugin_args(a, cw, carry, xs, c, n)
+    _plugin_args(a, cw, carry, xs, c, n, whole)
     _tables(a, step, xs, c, n, carry["core"].requested.device)
 
     if outs is None:
@@ -367,7 +372,7 @@ def _tables(a: StepArgs, step, xs, c: int, n: int, dev: torch.device) -> None:
         a.cu_codes[k], a.cu_scores[k] = codes, scores
 
 
-def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
+def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int, whole: int) -> None:
     """The default profile's further plugins (csrc/taints.cuh, ports.cuh,
     volumes.cuh and the ImageLocality row) and the compile-time PreFilter
     rejects: each one's pointers, checked, where the workload has it."""
@@ -427,11 +432,11 @@ def _plugin_args(a: StepArgs, cw, carry, xs, c: int, n: int) -> None:
             raise ValueError(f"VolumeBinding.bound_code: shape {tuple(x.bound_code.shape)}")
         a.has_vb = 1
         a.vb_pv_cap = _ptr(st.pv_cap, i64, (a.VV,), "binding pv_cap")
-        a.vb_pv_node_ok = _ptr(st.pv_node_ok, b, (a.VV, n), "binding pv_node_ok")
+        a.vb_pv_node_ok = _ptr(st.pv_node_ok, b, (a.VV, whole), "binding pv_node_ok")
         a.vb_bound_code = _ptr(x.bound_code, i32, (c, a.vb_width), "binding bound_code")
         a.vb_want = _ptr(x.want, b, (c, a.VK, a.VV), "binding want")
         a.vb_active = _ptr(x.active, b, (c, a.VK), "binding active")
-        a.vb_provision_ok = _ptr(x.provision_ok, b, (c, a.VK, n), "binding provision_ok")
+        a.vb_provision_ok = _ptr(x.provision_ok, b, (c, a.VK, whole), "binding provision_ok")
         a.vb_filter_skip = _ptr(x.filter_skip, b, (c,), "binding filter_skip")
         a.vb_claimed = _ptr(bc.claimed, b, (a.VV,), "binding claimed")
         a.vb_order = _ptr(volumebinding.pv_order(st), torch.int32, (a.VV,), "binding pv order")

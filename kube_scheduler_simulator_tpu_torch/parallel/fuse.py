@@ -161,9 +161,14 @@ class _Batch:
 
 def _place_sessions(args_list: list, mesh, k: int) -> list:
     """The JAX package lays the stacked session axis over a mesh's "dp"
-    extent.  On one card nothing is stacked: every member of a fused
-    call keeps its own tensors, on the mesh its stream opened with (the
-    fuse family holds the mesh's signature, so members share it)."""
+    extent (JAX fuse.py:149-166).  Nothing is stacked here: every member
+    of a fused call keeps its own tensors, on the mesh its stream opened
+    with (the fuse family holds the mesh's signature, so members share
+    it).  On a card mesh (B12b) each member's workload is placed over the
+    mesh's cards already, and each of its rounds spreads its batch over
+    the "dp" rows of cards (kernels/mesh.py spec_eval_cards), so the
+    members' rounds run in turn (kernels/fuse.py dense_round_fused) and
+    placement, as in JAX, changes no result."""
     if mesh is not None:
         for args in args_list:
             member_mesh = args[0].step.cw.mesh

@@ -1,14 +1,16 @@
-"""Scale-out of the node axis over a mesh, on one card.
+"""Scale-out of the node axis over a mesh: on one card, or over cards.
 
 Port of kube_scheduler_simulator_tpu/parallel/mesh.py.  The JAX package
 lays the cluster-node axis over the "nodes" axis of a device mesh and
 lets GSPMD insert the cross-shard all-reduces; its "dp" axis spreads a
 speculative pod batch.  Here a `Mesh` has the same axes, ("dp",
-"nodes"), on ONE card:
+"nodes"), in one of two forms.
+
+A one-card mesh (B12: `device` one card, or "cpu"):
 
   * its "nodes" extent S splits the node axis into the contiguous slices
     [r N/S, (r+1) N/S), the slices `_node_axis_spec` (JAX :62) gives on a
-    device mesh.  The sharded kernels (B12, kernels/mesh.py) are the
+    device mesh.  The sharded kernels (kernels/mesh.py) are the
     unsharded step's and eval's cluster kernels at their own plan: a
     cluster of R CTAs (16 where the card has room) in which each shard
     is a group of R / S CTAs over its slice, split again among them
@@ -16,20 +18,51 @@ speculative pod batch.  Here a `Mesh` has the same axes, ("dp",
     distributed shared memory, in node order.  S is at most 8, so every
     shard has a CTA of its own at either cluster size (16 or 8);
   * its "dp" extent sets the batch ladder's rung rounding
-    (parallel/speculative.py `_batch_ladder`): every speculative batch
-    splits into dp equal groups of pods.  On one card each pod of a batch
-    is a cluster of its own already, so the kernels take no dp.
+    (parallel/speculative.py `_batch_ladder`); each pod of a batch is a
+    cluster of its own already, so the kernels take no dp.
+  Statics and carries stay one copy on the card; `shard_workload` returns
+  a copy of the workload that carries the mesh.
 
-Statics and carries stay one copy on the card; `shard_workload` returns a
-copy of the workload that carries the mesh, and every
-replay, stream and engine wave over it runs the sharded kernels
-(kernels/mesh.py).  A mesh on the CPU (`device="cpu"`) runs their plain
-twins, which compute the same per-shard decomposition: the counterpart of
-the JAX package's virtual CPU devices.
+A card mesh (B12b: `device` a list of distinct cards, or `_virtual` cards
+on one device), n = dp x S cards laid out (dp, S) as JAX :57-58 lays
+them:
 
-Shards on separate cards (peer memory or NCCL, a multi-card host) are
-ROADMAP Queue B item B12b: a mesh over more than one card, and
-`initialize_distributed`, raise.
+  * card k holds the ("dp", "nodes") position (k // S, k % S).
+    `shard_workload` places on each card its node shard's slice of every
+    [.., N] tensor of the statics, the xs and the carry (the node axis of
+    each leaf from state/compile.py NODE_AXES, as `_node_axis_spec`
+    places them), the cluster-wide carries replicated, and whole on
+    every card the rows a bind reads at a node another card owns (the
+    spread and InterPod node-to-domain rows, VolumeBinding's PV and
+    provision rows: kernels/mesh.py WHOLE);
+  * inside a card its shard is served by the card's own cluster plan; the
+    cards of a "dp" row combine every reduction through an exchange
+    buffer on each card (csrc/scope.cuh PeerScope: a system-scope
+    release of each card's partial, an acquire poll, the partials folded
+    in card order), so results are byte-identical to one card's;
+  * the step (kernels/mesh.py step_chunk_cards) runs on every row, each
+    keeping its replica of the carry; the dense eval
+    (spec_eval_cards) gives "dp" row r the batch's r-th group of pods
+    (JAX :160-170); outputs are joined in card order on the mesh's first
+    card, where the oracle, the chunk grid, B7 and the decode run as
+    they do without a mesh;
+  * distinct cards need peer access between every pair
+    (`torch.cuda.can_device_access_peer`); nothing is staged through the
+    host and there is no fallback to one card.  Virtual cards are the
+    counterpart of the JAX package's `--xla_force_host_platform_device_count`:
+    n cards on one device (the CPU, or one H100, where they are n
+    clusters of one launch), each with its own tensors and its own
+    exchange buffer, for tests and measurement only (`make_mesh(...,
+    _virtual=True)`).
+
+On the CPU every kernel's plain twin runs, which computes the same
+per-shard (or per-card) decomposition.
+
+Not ported: `initialize_distributed`, the multi-process, multi-host mesh
+(ROADMAP Queue B item B12c): the JAX package runs the same program in
+every process once `jax.distributed.initialize` has made the device set
+global, so the port needs the engine driven in every process and a
+transport across hosts.
 """
 
 from __future__ import annotations
@@ -41,26 +74,32 @@ import torch
 
 from .. import resolve_device
 from ..framework.pipeline import build_step
-from ..kernels.mesh import MAX_SHARDS, node_slices, spec_eval_sharded
+from ..kernels.mesh import (MAX_CARDS, MAX_SHARDS, node_slices, place_cards, spec_eval_cards,
+                            spec_eval_sharded)
 from ..state.compile import CompiledWorkload
 
-_B12B = ("shards on separate cards are not ported (ROADMAP Queue B: B12b): a mesh "
-         "lives on one card")
+_B12C = ("a mesh across processes and hosts is not ported (ROADMAP Queue B: B12c): "
+         "a card mesh spans the cards of one process")
 
 
 class Mesh:
-    """A ("dp", "nodes") mesh on one card: `shape` is {"dp": dp, "nodes":
-    S} as in a jax.sharding.Mesh, `device` the card (or the CPU)."""
+    """A ("dp", "nodes") mesh: `shape` is {"dp": dp, "nodes": S} as in a
+    jax.sharding.Mesh, `device` the card (or the CPU) that holds the
+    workload's unsharded tensors and the joined outputs.  `cards` is None
+    on a one-card mesh (B12), else the dp x S cards in mesh order (B12b),
+    `virtual` when they are virtual cards of `device`."""
 
     axis_names = ("dp", "nodes")
 
-    def __init__(self, dp: int, nodes: int, device):
-        if nodes > MAX_SHARDS:
+    def __init__(self, dp: int, nodes: int, device, cards=None, virtual: bool = False):
+        if cards is None and nodes > MAX_SHARDS:
             raise ValueError(
                 f"a mesh's 'nodes' extent ({nodes}) splits a cluster of the sharded "
                 f"kernels into groups of CTAs: they take at most {MAX_SHARDS} shards")
         self.shape = {"dp": dp, "nodes": nodes}
         self.device = resolve_device(device)
+        self.cards = None if cards is None else tuple(cards)
+        self.virtual = virtual
 
     def node_slices(self, n: int) -> tuple[tuple[int, int], ...]:
         """Shard r's nodes [lo, hi), r = 0..S-1."""
@@ -68,8 +107,11 @@ class Mesh:
 
     def signature(self) -> tuple:
         """What a compiled program depends on: the axes' extents (JAX
-        replay.py:1094 mesh_sig) and the device."""
-        return (tuple(self.shape.items()), str(self.device))
+        replay.py:1094 mesh_sig), the device, and a card mesh's cards
+        (this mesh's own, for virtual cards: their buffers are its own)."""
+        cards = None if self.cards is None else (
+            tuple(map(str, self.cards)), id(self) if self.virtual else None)
+        return (tuple(self.shape.items()), str(self.device), cards)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self.signature() == other.signature()
@@ -78,7 +120,10 @@ class Mesh:
         return hash(self.signature())
 
     def __repr__(self) -> str:
-        return f"Mesh(dp={self.shape['dp']}, nodes={self.shape['nodes']}, device={self.device})"
+        where = (f"device={self.device}" if self.cards is None else
+                 f"{len(self.cards)} virtual cards of {self.device}" if self.virtual else
+                 f"cards={[str(c) for c in self.cards]}")
+        return f"Mesh(dp={self.shape['dp']}, nodes={self.shape['nodes']}, {where})"
 
 
 def _card(device) -> torch.device:
@@ -90,18 +135,43 @@ def _card(device) -> torch.device:
     return d
 
 
-def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda") -> Mesh:
-    """JAX :42: a (dp) x (nodes = n / dp) mesh.  n defaults to MAX_SHARDS,
-    8.  `device` is one card ("cuda" by default, which
-    needs a card), "cpu", or a list of devices, which must name one card:
-    a list over several raises (B12b)."""
+def _check_cards(cards: list) -> None:
+    """Distinct cards: each present, each pair with peer access."""
+    if any(c.type != "cuda" for c in cards):
+        raise ValueError(f"a mesh over {[str(c) for c in cards]}: a mesh over several devices "
+                         "takes cards only")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    missing = [str(c) for c in cards if c.index >= have]
+    if missing:
+        raise RuntimeError(f"a mesh over {[str(c) for c in cards]}: {missing} not present "
+                           f"(this host has {have} card{'s' if have != 1 else ''})")
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a.index, b.index):
+                raise RuntimeError(f"a mesh over {[str(c) for c in cards]}: {a} has no peer "
+                                   f"access to {b}")
+
+
+def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda", *,
+              _virtual: bool = False) -> Mesh:
+    """JAX :42: a (dp) x (nodes = n / dp) mesh.  `device` is one card
+    ("cuda" by default, which needs a card) or "cpu": a one-card mesh, n
+    defaulting to MAX_SHARDS, 8; or a list of devices: of one card, the
+    same; of distinct cards, a mesh over them (n defaults to their number,
+    and at most that many are taken, as JAX takes jax.devices()[:n]).
+    For tests and measurement only, `_virtual` gives n virtual cards of
+    the one `device` (the counterpart of the JAX package's virtual CPU
+    devices)."""
     devices = list(device) if isinstance(device, (list, tuple)) else [device]
-    cards = {_card(d) for d in devices}
-    if len(cards) > 1:
-        raise NotImplementedError(f"a mesh over {sorted(map(str, cards))}: {_B12B}")
-    n = n_devices or MAX_SHARDS
+    cards = list(dict.fromkeys(_card(d) for d in devices))
+    distinct = len(cards) > 1
+    if distinct and _virtual:
+        raise ValueError("virtual cards are cards of one device")
+    n = n_devices or (len(devices) if distinct else MAX_SHARDS)
     if n < 1:
         raise ValueError(f"asked for {n} devices")
+    if distinct and n > len(devices):
+        raise ValueError(f"asked for {n} devices, only {len(devices)} present")
     if dp < 1:
         raise ValueError(f"dp must be >= 1, got {dp}")
     if n % dp:
@@ -111,13 +181,28 @@ def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda") -> Mesh:
             f"n_devices ({n}) must divide evenly by dp ({dp}): a "
             f"(dp={dp}) x (nodes={n}/{dp}) mesh is not integral — pick a "
             f"dp that divides the device count")
-    return Mesh(dp, n // dp, devices[0])
+    if not (distinct or _virtual):
+        return Mesh(dp, n // dp, devices[0])
+    if n > MAX_CARDS:
+        raise ValueError(f"a mesh over {n} cards: a card mesh takes at most {MAX_CARDS}")
+    if distinct:
+        cards = [_card(d) for d in devices[:n]]
+        if len(set(cards)) != n:
+            raise ValueError(f"a mesh over {[str(c) for c in cards]} names a card twice")
+        _check_cards(cards)
+        return Mesh(dp, n // dp, cards[0], cards)
+    home = resolve_device(devices[0])
+    return Mesh(dp, n // dp, home, [home] * n, virtual=True)
 
 
 def gather_to_host(x) -> np.ndarray:
-    """JAX :80: one replay output as a contiguous C-order host array.  On
-    one card a sharded output is already one full-width tensor (each
-    shard wrote its slice in place), so this is a contiguous host copy."""
+    """JAX :80: one replay output as a contiguous C-order host array.  A
+    sharded output is one full-width tensor already (on one card each
+    shard wrote its slice in place; a card mesh's are joined on its first
+    card); a sequence of per-card shards is joined in card order along
+    its last (node) axis."""
+    if isinstance(x, (list, tuple)):
+        return np.ascontiguousarray(np.concatenate([gather_to_host(s) for s in x], axis=-1))
     if isinstance(x, torch.Tensor):
         x = x.cpu().numpy()
     return np.ascontiguousarray(x)
@@ -134,23 +219,34 @@ def can_shard(n_nodes: int, mesh: Mesh | None) -> bool:
 
 
 def shard_workload(cw: CompiledWorkload, mesh: Mesh) -> CompiledWorkload:
-    """JAX :101: a copy of `cw` carrying the mesh (the input workload is left untouched, so unsharded replays of the same
-    object stay unsharded).  The tensors are shared: on one card each
-    shard reads and writes its slice of them in place."""
+    """JAX :101: a copy of `cw` carrying the mesh (the input workload is
+    left untouched, so unsharded replays of the same object stay
+    unsharded).  On one card the tensors are shared: each shard reads and
+    writes its slice of them in place.  On a card mesh its statics, xs
+    and carry are kernels/mesh.py `Cards`, each card's part placed on it
+    (module doc)."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"expected a parallel.mesh.Mesh, got {type(mesh).__name__}")
     if mesh.device != cw.device:
         raise ValueError(f"workload compiled for {cw.device}, mesh on {mesh.device}")
+    if cw.mesh is not None and cw.mesh.cards is not None:
+        # its tensors are the cards' already
+        if cw.mesh != mesh:
+            raise ValueError(f"workload placed over {cw.mesh}, asked for {mesh}")
+        return cw
     # node_slices raises on an indivisible node count, with the JAX message
     mesh.node_slices(cw.n_nodes)
-    return dataclasses.replace(cw, mesh=mesh)
+    if mesh.cards is None:
+        return dataclasses.replace(cw, mesh=mesh)
+    statics, xs, carry = place_cards(cw, mesh)
+    return dataclasses.replace(cw, mesh=mesh, statics=statics, xs=xs, init_carry=carry)
 
 
 def sharded_step(cw: CompiledWorkload, mesh: Mesh | None = None):
     """JAX :130: the scheduling step over the node-sharded workload, a
     `Step` whose chunk and single-pod calls run B12 `step_chunk_sharded`
-    (one cluster per chunk).  `cw` from shard_workload, or unsharded with
-    the mesh given."""
+    (one cluster per chunk) or, on a card mesh, B12b `step_chunk_cards`.
+    `cw` from shard_workload, or unsharded with the mesh given."""
     if mesh is not None and cw.mesh is None:
         cw = shard_workload(cw, mesh)
     return build_step(cw)
@@ -160,14 +256,18 @@ def speculative_scores(cw: CompiledWorkload, mesh: Mesh | None = None):
     """JAX :143: batched speculative evaluation, f(carry, xs_batch) ->
     StepOut batch — every pod of the batch scored against one frozen
     carry, through B12 `spec_eval_sharded` (one cluster per pod, each of
-    the mesh's S shards a group of its CTAs).  With no mesh the node axis
-    is one shard."""
+    the mesh's S shards a group of its CTAs) or, on a card mesh, B12b
+    `spec_eval_cards` (each "dp" row of cards its group of the batch).
+    With no mesh the node axis is one shard."""
     if cw.mesh is None:
         cw = shard_workload(cw, mesh if mesh is not None else Mesh(1, 1, cw.device))
     step = build_step(cw)
-
-    def run(carry, xs_batch):
-        return spec_eval_sharded(step, carry, xs_batch)
+    if cw.mesh.cards is not None:
+        def run(carry, xs_batch):
+            return spec_eval_cards(step, carry, xs_batch)
+    else:
+        def run(carry, xs_batch):
+            return spec_eval_sharded(step, carry, xs_batch)
 
     return run
 
@@ -175,6 +275,7 @@ def speculative_scores(cw: CompiledWorkload, mesh: Mesh | None = None):
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """JAX :172: the multi-host entry.  A mesh over several cards is
-    ROADMAP Queue B item B12b, waiting for a multi-card host."""
-    raise NotImplementedError(f"initialize_distributed: {_B12B}")
+    """JAX :172: the multi-host entry.  A card mesh spans the cards of one
+    process; meshes across processes and hosts are ROADMAP Queue B item
+    B12c."""
+    raise NotImplementedError(f"initialize_distributed: {_B12C}")

@@ -38,6 +38,28 @@ one table launch of the same kernel); the scan fallback is B12
 batch ladder rounds its rungs to dp multiples.  The sparse round (B4), the oracle, the commit and the grid
 stay unsharded, as in JAX (`_sparse_round_fn` takes no mesh).
 
+Over a card mesh (B12b: the shards on separate cards, parallel/mesh.py)
+the carry and the xs are per card (kernels/mesh.py Cards), and the
+round's state lives as follows:
+
+  * the dense eval is B12b `spec_eval_cards`: "dp" row r of cards takes
+    the batch's r-th group of pods, and the outputs are joined in card
+    order on the mesh's first card;
+  * the oracle runs there, over the joined outputs, unchanged: it reads
+    only the round's outputs;
+  * the commit runs on each card over its own slice: B5's kernel with the
+    card's node range (kernels/mesh.py spec_commit_cards), the owner card
+    making the exactly-once updates and every card the cluster-wide ones
+    and its slice's same-domain increments; so no commit is folded into
+    the oracle launch (`commit_folds`), whose carry would be one card's;
+  * the round is always dense: the sparse round gathers candidate rows
+    from anywhere on the node axis and reads the carry at them, which
+    over cards would mean gathering the carry each round; the dense round
+    gives the same bytes (the module's exactness argument holds for
+    either);
+  * the grid, B7 and the decode run on the first card, as without a mesh;
+  * the scan fallback is B12b `step_chunk_cards`.
+
 On the CPU each wrapper runs its plain PyTorch version instead.  The
 device is the one `cw` lives on: `compile_workload` defaults to the card.
 
@@ -77,9 +99,7 @@ Fault seams: `speculative.round` at the top of every round,
 `unroll=` is taken as the JAX package takes it, a hint to the scan
 fallback that cannot change a result: a value below 1 raises, as lax.scan
 refuses it, and any other selects nothing, since the step kernel walks a
-chunk's pods in one launch.  Not ported, and refused where a caller asks
-for it: a mesh over more than one card (ROADMAP Queue B item B12b,
-parallel/mesh.py).
+chunk's pods in one launch.
 
 Env knobs, read as in JAX: KSS_TPU_SPECULATIVE_BATCH pins the batch (one
 rung); KSS_TPU_SPECULATIVE_CANDIDATES caps the sparse round's candidate
@@ -104,6 +124,7 @@ from ..framework.replay import (_DEVICE_BUDGET, ReplayResult, _CompactChunks, ch
                                 _compact_plan, _resolve_device_resident, _slice_xs,
                                 _workload_scan_key)
 from ..kernels import fuse as kfuse
+from ..kernels import mesh as kmesh
 from ..kernels import spec as kspec
 from ..state.compile import CompiledWorkload
 from ..utils.blackbox import BLACKBOX
@@ -321,7 +342,7 @@ def replay_speculative_stream(
     the sparse-round eligibility).  device: where the stream runs; None
     is the device `cw` was compiled for, anything else must name it.
 
-    mesh: a one-card parallel.mesh.Mesh (module doc).  unroll: the JAX
+    mesh: a parallel.mesh.Mesh, on one card or over cards (module doc).  unroll: the JAX
     package's scan unroll (module doc): below 1 raises, else no effect.
 
     Returns (rr, stats): rr is bit-identical to replay(cw) and the
@@ -392,7 +413,8 @@ def _fuse_family(cw: CompiledWorkload, chunk: int, wide, ignore: frozenset | set
     active_eff = set(cw.config.active_plugins()) - set(ignore)
     _, ov_kcand = CONTROLS.spec_overrides(TRACER.current_session())
     kcand = _kcand(cw, ov_kcand)
-    sparse = _sparse_ok(active_eff) and kcand < cw.n_nodes
+    sparse = (_sparse_ok(active_eff) and kcand < cw.n_nodes
+              and (cw.mesh is None or cw.mesh.cards is None))
     return (base_key, wide, sparse, kcand if sparse else None)
 
 
@@ -515,7 +537,10 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
     # rung; both only partition the same exact rounds differently
     ov_rung, ov_kcand = CONTROLS.spec_overrides(TRACER.current_session())
     kcand = _kcand(cw, ov_kcand)
-    sparse = _sparse_ok(set(cw.config.active_plugins()) - set(ignore)) and kcand < n
+    # a card mesh's rounds are dense, its commits per card (module doc)
+    cards = cw.mesh is not None and cw.mesh.cards is not None
+    sparse = (_sparse_ok(set(cw.config.active_plugins()) - set(ignore)) and kcand < n
+              and not cards)
     if sparse and adaptive:
         # sparse probes are cheap, so start at the TOP rung: a
         # contention-free wave's rounds are then whole aligned chunks
@@ -592,7 +617,7 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
             # the round's oracle launch commits its accepted prefix where
             # the host will not cut K (commit_folds); the carry is then
             # updated in place by the launch, before K is read back
-            fold = commit_folds(carry, inter, gang)
+            fold = not cards and commit_folds(carry, inter, gang)
             dense = not sparse
             if sparse:
                 # one dispatch per round (spec_round + spec_oracle); a
@@ -636,7 +661,9 @@ def _spec_run(cw: CompiledWorkload, chunk: int, batch: int | None, on_chunk,
             selected[lo:lo + k] = sel[:k]
             feasible_count[lo:lo + k] = fc[:k]
             prefilter_reject[lo:lo + k] = rej[:k]
-            if not fold:
+            if cards:
+                carry = kmesh.spec_commit_cards(step, carry, xs, sel_dev, k)
+            elif not fold:
                 carry = kspec.spec_commit(step, carry, xs, sel_dev, k)
             if k == m == chunk and fill == 0 and lo % chunk == 0:
                 # a fully-accepted top-rung round at an aligned position IS

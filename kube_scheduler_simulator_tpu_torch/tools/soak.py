@@ -39,14 +39,25 @@ worst: on an NVIDIA H100 80GB HBM3 host the standard tenant's slow waves
 (0.140-0.172 s against 0.05-0.09) each held a full collection of
 0.079-0.109 s, and on an 8-core CPU host a caller's 2 M objects took
 0.45 s to collect and moved the p99 from 0.109 s to 0.175 s.
+
+Every wait has a deadline: each wave (WAVE_DEADLINE_S), each request
+(REQUEST_DEADLINE_S) and each server's shutdown, whose joins run on a
+thread joined with SHUTDOWN_DEADLINE_S.  A wait past its deadline writes
+every thread's traceback to stderr and raises SoakTimeout, so a hang
+fails with its traceback.  The verdict lists the standard tenant's wave
+seconds, tick by tick, of the calibration pass (`calibration_waves_s`)
+and of the soak (`soak_waves_s`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import faulthandler
 import gc
 import json
 import sys
+import threading
 import time
 
 from . import add_device_arg, scoped_env
@@ -66,6 +77,76 @@ STD, BE, DEG, CAL = "soak-std", "soak-be", "soak-deg", "soak-cal"
 # waves, so the two drive the same traffic
 WAVE_QUANTUM = 16
 
+# deadlines: a wave, a request, and a server's shutdown (its threads'
+# joins).  A wait past its deadline writes every thread's traceback to
+# stderr and fails the soak, instead of running out a caller's clock.
+WAVE_DEADLINE_S = 300.0
+REQUEST_DEADLINE_S = 60.0
+SHUTDOWN_DEADLINE_S = 60.0
+
+
+class SoakTimeout(RuntimeError):
+    """A soak step passed its deadline (every thread's traceback went to
+    stderr)."""
+
+
+def _dump(what: str, seconds: float) -> None:
+    print(f"soak: {what} passed its {seconds:.0f} s deadline; every thread:",
+          file=sys.stderr, flush=True)
+    faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+
+
+@contextlib.contextmanager
+def _deadline(seconds: float, what: str):
+    """A watchdog over the block: past `seconds` it dumps every thread's
+    traceback at once (the block may be hung), and the block's end raises
+    SoakTimeout."""
+    fired = threading.Event()
+
+    def fire():
+        fired.set()
+        _dump(what, seconds)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+    if fired.is_set():
+        raise SoakTimeout(f"soak: {what} took past its {seconds:.0f} s deadline")
+
+
+def _within(seconds: float, fn, what: str) -> None:
+    """fn() on a thread joined with a deadline: past it, every thread's
+    traceback and SoakTimeout (the thread is left, a daemon)."""
+    err: list = []
+
+    def run():
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller's thread
+            err.append(e)
+
+    t = threading.Thread(target=run, name=f"soak-{what}", daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        _dump(what, seconds)
+        raise SoakTimeout(f"soak: {what} did not finish within {seconds:.0f} s")
+    if err:
+        raise err[0]
+
+
+def _wave(eng, what: str, times: list | None = None) -> None:
+    """One scheduling wave under its deadline; its seconds into `times`."""
+    t0 = time.perf_counter()
+    with _deadline(WAVE_DEADLINE_S, what):
+        eng.schedule_pending()
+    if times is not None:
+        times.append(round(time.perf_counter() - t0, 6))
+
 
 def _req(port: int, method: str, path: str, body=None):
     """-> (status, headers dict, parsed body|None) without raising on
@@ -77,7 +158,7 @@ def _req(port: int, method: str, path: str, body=None):
     r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
                                headers={"Content-Type": "application/json"})
     try:
-        with urllib.request.urlopen(r, timeout=60) as resp:
+        with urllib.request.urlopen(r, timeout=REQUEST_DEADLINE_S) as resp:
             raw = resp.read()
             return resp.status, dict(resp.headers), (json.loads(raw) if raw else None)
     except urllib.error.HTTPError as e:
@@ -137,10 +218,10 @@ def _calibrate_overload(eng, store, target: float) -> int:
     target."""
     probe = 200
     _fill(store, _pods(probe, seed=11, prefix="soak-cal"))
-    eng.schedule_pending()          # warm-up, not timed
+    _wave(eng, "the overload probe's warm-up wave")  # not timed
     _fill(store, _pods(probe, seed=12, prefix="soak-cal2"))
     t0 = time.perf_counter()
-    eng.schedule_pending()
+    _wave(eng, "the overload probe's wave")
     per_pod = max(time.perf_counter() - t0, 1e-4) / probe
     _drop_pods(store, bound=True)
     _drop_pods(store, bound=False)
@@ -154,18 +235,18 @@ def _warm_standard(port: int, sid: str, eng, store) -> None:
     loop sees steady-state churn."""
     for shape in (WAVE_QUANTUM, 2 * WAVE_QUANTUM):
         _fill(store, _slot_pods(shape, seed=60 + shape, prefix=f"soak-warm-{shape}"))
-        eng.schedule_pending()
+        _wave(eng, f"{sid}'s warm-up wave")
     for t in range(SLO_WINDOW):
         _fill(store, _slot_pods(WAVE_QUANTUM, seed=800 + t, prefix=f"soak-stdflush-{t}"))
-        eng.schedule_pending()
+        _wave(eng, f"{sid}'s flush wave")
     _drop_pods(store, bound=True)   # warm-up filler leaves
 
 
 def _standard_tick(port: int, sid: str, eng, store, tick: dict, t: int,
-                   failures: list[str]) -> None:
+                   failures: list[str], times: list) -> None:
     """The standard tenant's tick: a collection (module doc), HTTP
     create/delete per the churn schedule, padded to the wave quantum,
-    then one wave."""
+    then one wave, its seconds into `times`."""
     gc.collect()
     for pod in tick["create"]:
         code, _h, _b = _req(port, "POST", f"/api/v1/sessions/{sid}/pods", pod)
@@ -177,13 +258,15 @@ def _standard_tick(port: int, sid: str, eng, store, tick: dict, t: int,
     pad = -created % WAVE_QUANTUM or WAVE_QUANTUM * (not created)
     if pad:
         _fill(store, _slot_pods(pad, seed=900 + t, prefix=f"soak-pad-{t}"))
-    eng.schedule_pending()
+    _wave(eng, f"{sid}'s tick {t}", times)
     _drop_pods(store, bound=True, prefix="soak-pad-")
 
 
-def calibrate_standard(schedule: list[dict], nodes: list[dict], device: str) -> float:
+def calibrate_standard(schedule: list[dict], nodes: list[dict], device: str,
+                       times: list | None = None) -> float:
     """The standard tenant's p99 wave seconds over the whole churn stream,
-    alone: its own server, no other tenant, the autopilot off."""
+    alone: its own server, no other tenant, the autopilot off (each
+    wave's seconds into `times`)."""
     from ..server.server import SimulatorServer
     from ..server.sessions import SessionManager
     from ..utils.blackbox import SLO
@@ -202,12 +285,13 @@ def calibrate_standard(schedule: list[dict], nodes: list[dict], device: str) -> 
             store.create("nodes", n)
         _warm_standard(srv.port, CAL, eng, store)
         for t, tick in enumerate(schedule):
-            _standard_tick(srv.port, CAL, eng, store, tick, t, failures)
+            _standard_tick(srv.port, CAL, eng, store, tick, t, failures,
+                           [] if times is None else times)
         if failures:
             raise RuntimeError(f"calibration pass failed: {failures[:3]}")
         return (SLO.stats(CAL) or {})["p99WaveSeconds"]
     finally:
-        srv.shutdown()
+        _within(SHUTDOWN_DEADLINE_S, srv.shutdown, "the calibration server's shutdown")
         SLO.drop_session(CAL)
 
 
@@ -234,8 +318,9 @@ def run_soak(ticks: int = 18, device: str = "cuda", std_nodes: int = 48,
     try:
         with scoped_env(KSS_TPU_SLO_WINDOW=str(SLO_WINDOW), KSS_TPU_HISTORY="1",
                         KSS_TPU_HISTORY_CAPACITY=str(HISTORY_ROWS)):
-            cal_p99 = calibrate_standard(schedule, nodes, device) if slo_target is None \
-                else None
+            cal_waves: list = []
+            cal_p99 = calibrate_standard(schedule, nodes, device, cal_waves) \
+                if slo_target is None else None
             target = slo_target if slo_target is not None else max(
                 CPU_FLOOR_S if device == "cpu" else 0.0, SLO_FACTOR * cal_p99)
             with scoped_env(KSS_TPU_AUTOPILOT="1", KSS_TPU_AUTOPILOT_INTERVAL_S="0.1",
@@ -249,6 +334,7 @@ def run_soak(ticks: int = 18, device: str = "cuda", std_nodes: int = 48,
         gc.unfreeze()
         SLO.set_window(prev_window)
     verdict["calibration_p99_s"] = cal_p99
+    verdict["calibration_waves_s"] = cal_waves
     verdict["std_nodes"] = std_nodes
     verdict["seconds"] = round(time.perf_counter() - t_start, 2)
     return verdict
@@ -275,6 +361,7 @@ def _soak(ticks: int, device: str, nodes: list[dict], schedule: list[dict],
     final_rung = None
     breach_before_shed = shed_lift_in_ring = False
     std_p99 = batch = None
+    std_waves: list = []
     hist_rows = evidence_checked = 0
     ap = {}
     prev_plan = faults.current_plan()
@@ -301,7 +388,7 @@ def _soak(ticks: int, device: str, nodes: list[dict], schedule: list[dict],
         for t in range(3 * SLO_WINDOW):
             _fill(stores[BE], _pods(WAVE_QUANTUM, seed=700 + t, prefix=f"soak-flush-{t}",
                                     cheap=True))
-            engines[BE].schedule_pending()
+            _wave(engines[BE], f"{BE}'s flush wave")
             time.sleep(0.02)
             # the calibration's waves may have tripped the shed: flush
             # until the controller reopens the tenant
@@ -320,7 +407,8 @@ def _soak(ticks: int, device: str, nodes: list[dict], schedule: list[dict],
 
         # ---- churn + overload main loop
         for t in range(ticks):
-            _standard_tick(port, STD, engines[STD], stores[STD], schedule[t], t, failures)
+            _standard_tick(port, STD, engines[STD], stores[STD], schedule[t], t, failures,
+                           std_waves)
 
             # best-effort: one HTTP canary probes the shed state; while
             # open, the bulk overload lands and runs an over-target wave
@@ -336,7 +424,7 @@ def _soak(ticks: int, device: str, nodes: list[dict], schedule: list[dict],
                     bad_shed += 1
             elif code == 201:
                 _fill(stores[BE], _pods(batch, seed=200 + t, prefix=f"soak-be-{t}"))
-                engines[BE].schedule_pending()
+                _wave(engines[BE], f"{BE}'s overload wave {t}")
                 _drop_pods(stores[BE], bound=True)   # completed work
             else:
                 failures.append(f"be canary -> {code} (tick {t})")
@@ -345,7 +433,7 @@ def _soak(ticks: int, device: str, nodes: list[dict], schedule: list[dict],
             # trips the structural fault, the rest are the clean probe
             # waves the ladder needs to climb back
             _fill(stores[DEG], _pods(24, seed=300 + t, prefix=f"soak-deg-{t}"))
-            engines[DEG].schedule_pending()
+            _wave(engines[DEG], f"{DEG}'s wave {t}")
             _drop_pods(stores[DEG], bound=True)
             if engines[DEG].result_mode() != "device_resident":
                 deg_tripped = True
@@ -378,7 +466,7 @@ def _soak(ticks: int, device: str, nodes: list[dict], schedule: list[dict],
             code, hdrs, body = _req(port, "POST", f"/api/v1/sessions/{BE}/pods", probe)
             if code == 201:
                 shed_lifted = True
-                engines[BE].schedule_pending()   # bind the probe pod
+                _wave(engines[BE], f"{BE}'s probe wave")   # bind the probe pod
                 _drop_pods(stores[BE], bound=True)
                 break
             if code != 429:
@@ -489,13 +577,14 @@ def _soak(ticks: int, device: str, nodes: list[dict], schedule: list[dict],
             faults.arm(prev_plan)
         else:
             faults.disarm()
-        srv.shutdown()
+        _within(SHUTDOWN_DEADLINE_S, srv.shutdown, "the soak server's shutdown")
         CONTROLS.reset()
 
     return {
         "ok": not failures,
         "failures": failures,
         "soak_p99_wave_seconds": std_p99,
+        "soak_waves_s": std_waves,
         "soak_shed_rate": round(shed_responses / max(canaries, 1), 3),
         "soak_recovered_to_rung0": recovered,
         "all_shed_had_retry_after": shed_responses > 0 and bad_shed == 0,

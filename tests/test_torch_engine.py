@@ -319,16 +319,41 @@ def test_engine_needs_a_card_by_default():
 
 
 def test_engine_refuses_a_mesh():
-    """A one-card mesh is ported (B12, tests/test_torch_mesh.py); a mesh
-    over two cards is ROADMAP Queue B item B12b and raises, as does an
-    object that is not a mesh."""
+    """A one-card mesh is ported (B12, tests/test_torch_mesh.py) and so is a
+    mesh over cards (B12b, tests/test_torch_mesh_cards.py): an engine over
+    four virtual CPU cards binds and annotates as the unsharded engine
+    does.  It refuses an object that is not a mesh, and a mesh whose first
+    card is not the engine's device."""
+    import copy
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.models import make_nodes, make_pods
     from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="B12b"):
-        SchedulerEngine(ObjectStore(), mesh=make_mesh(4, device=["cuda:0", "cuda:1"]),
-                        device="cpu")
+    nodes = make_nodes(8, seed=41, taint_fraction=0.25)
+    pods = make_pods(6, seed=42, with_affinity=True, with_tolerations=True, with_spread=True)
+
+    def run(mesh):
+        store = ObjectStore()
+        for n in nodes:
+            store.create("nodes", copy.deepcopy(n))
+        for p in pods:
+            store.create("pods", copy.deepcopy(p))
+        bound = SchedulerEngine(store, mesh=mesh, device="cpu").schedule_pending()
+        return bound, [store.get("pods", p["metadata"]["name"]) for p in pods]
+
+    b0, p0 = run(None)
+    b1, p1 = run(make_mesh(4, device="cpu", _virtual=True))
+    assert b1 == b0
+    for a, b in zip(p1, p0):
+        assert a["spec"].get("nodeName") == b["spec"].get("nodeName")
+        assert a["metadata"].get("annotations") == b["metadata"].get("annotations")
     with pytest.raises(TypeError, match="Mesh"):
         SchedulerEngine(ObjectStore(), mesh=object(), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="not present"):
+            make_mesh(2, device=["cuda:0", "cuda:1"])
 
 
 @pytest.mark.parametrize("spec", ["1", "0"], ids=["wave", "scan"])

@@ -2166,3 +2166,170 @@ def test_table_limits_attribution_matches_plain(card, n, f, ncols):
         w, p = att_shape(c, n, f, ncols)
         assert chunk_attribution.path == att_path(n, p, f, ncols)
         _att_equal(got, want, f"chunk_attribution {mode} n={n} f={f} q={ncols}")
+
+
+# ------------------------------------------------ B12b: the mesh over cards
+
+CARD_MESHES = [(2, 1), (4, 1), (8, 1), (4, 2), (8, 2)]
+CARD_IDS = [f"n{n}-dp{dp}" for n, dp in CARD_MESHES]
+
+
+def _card_meshes(card):
+    """Virtual cards of the one card, and distinct cards where the host
+    has two or more (each pair with peer access)."""
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    have = torch.cuda.device_count()
+    return have, (lambda n, dp: make_mesh(n, dp=dp, device=card, _virtual=True))
+
+
+def _card_slice(t, k, mesh, n):
+    shards = mesh.shape["nodes"]
+    w = n // shards
+    return t[..., (k % shards) * w:(k % shards + 1) * w]
+
+
+@pytest.mark.parametrize("n,dp", CARD_MESHES, ids=CARD_IDS)
+@pytest.mark.parametrize("wl", list(MESH_WORKLOADS))
+def test_step_chunk_cards_matches_plain_and_unsharded(card, wl, n, dp):
+    """B12b step_chunk_cards on n virtual cards of the one card (a cluster
+    a card, PeerScope through the cards' exchange buffers) against its
+    plain twin over the same cards and the unsharded step_chunk (B1),
+    outputs (joined on the first card) and every card's carry, exactly."""
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+
+    _, virtual = _card_meshes(card)
+    cw = _mesh_cw(wl, card)
+    mesh = virtual(n, dp)
+    if cw.n_nodes % mesh.shape["nodes"]:
+        pytest.skip(f"{cw.n_nodes} nodes do not divide over {mesh.shape['nodes']} cards")
+    scw = _sharded(cw, mesh)
+    chunk = 32
+    for out_mode, pack_mode, wide in MESH_MODES:
+        kw = dict(out_mode=out_mode, pack_mode=pack_mode,
+                  score_dtypes=cw.host["score_dtypes"], wide_raw=wide)
+        step, sstep = build_step(cw, **kw), build_step(scw, **kw)
+        cs, cp = _clone_carry(scw.init_carry), _clone_carry(scw.init_carry)
+        cu = _clone_carry(cw.init_carry)
+        launches = kmesh.step_chunk_cards.launches
+        for lo in range(0, cw.n_pods, chunk):
+            hi = min(lo + chunk, cw.n_pods)
+            xs = _slice_xs(cw.xs, lo, hi, chunk)
+            xs["is_pad"] = torch.arange(chunk, device=card) >= (hi - lo)
+            sxs = _slice_xs(scw.xs, lo, hi, chunk)
+            sxs["is_pad"] = xs["is_pad"]
+            cs, os_ = kmesh.step_chunk_cards(sstep, cs, sxs)
+            cp, op = kmesh.step_chunk_cards_plain(sstep, cp, sxs)
+            cu, ou = kstep.step_chunk(step, cu, xs)
+            for f in os_._fields:
+                what = (wl, n, dp, out_mode, pack_mode, wide, lo, f)
+                _equal(getattr(os_, f), getattr(op, f), ("plain",) + what)
+                _equal(getattr(os_, f), getattr(ou, f), ("unsharded",) + what)
+            for k in range(n):
+                _equal(cs[k], cp[k], (wl, n, dp, lo, k, "carry vs plain"))
+                for name, v in cu.items():
+                    got = cs[k][name]
+                    for j, (a, b) in enumerate(zip(
+                            [got] if isinstance(got, torch.Tensor) else got,
+                            [v] if isinstance(v, torch.Tensor) else v)):
+                        want = b if a.shape == b.shape else (
+                            _card_slice(b, k, mesh, cw.n_nodes) if name in (
+                                "PodTopologySpread", "InterPodAffinity")
+                            else b[(k % mesh.shape["nodes"]) * a.shape[0]:
+                                   (k % mesh.shape["nodes"] + 1) * a.shape[0]])
+                        _equal(a, want, (wl, n, dp, lo, k, name, j, "carry vs unsharded"))
+        assert kmesh.step_chunk_cards.launches - launches == -(-cw.n_pods // chunk)
+
+
+@pytest.mark.parametrize("n,dp", CARD_MESHES, ids=CARD_IDS)
+@pytest.mark.parametrize("wl", list(MESH_WORKLOADS))
+def test_spec_eval_cards_matches_plain_and_unsharded(card, wl, n, dp):
+    """B12b spec_eval_cards on n virtual cards, each "dp" row its group of
+    the batch, against its plain twin and spec_eval (B2), at three tiers,
+    at the plan's R and at forced R = 1, 2, and the general and core-only
+    commits over the cards (spec_commit_cards) against their plain twin."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import _compact_plan
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+
+    _, virtual = _card_meshes(card)
+    cw = _mesh_cw(wl, card)
+    mesh = virtual(n, dp)
+    if cw.n_nodes % mesh.shape["nodes"]:
+        pytest.skip(f"{cw.n_nodes} nodes do not divide over {mesh.shape['nodes']} cards")
+    scw = _sharded(cw, mesh)
+    carry = _clone_carry(cw.init_carry)
+    scarry = _clone_carry(scw.init_carry)
+    for wide in (None, "i32", "i64"):
+        pm, sd, _ = _compact_plan(cw, wide)
+        kw = dict(out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+        step, sstep = build_step(cw, **kw), build_step(scw, **kw)
+        for lo, b in ((0, 8), (cw.n_pods - 3, 16)):
+            xs = _batch(cw, lo, b, card)
+            sxs = _slice_xs(scw.xs, lo, min(lo + b, cw.n_pods), b)
+            sxs["is_pad"] = xs["is_pad"]
+            got = kmesh.spec_eval_cards(sstep, scarry, sxs)
+            _equal(got, kmesh.spec_eval_cards_plain(sstep, scarry, sxs),
+                   (wl, n, dp, wide, lo, "plain"))
+            _equal(got, kspec.spec_eval(step, carry, xs), (wl, n, dp, wide, lo, "B2"))
+            for r in (1, 2):
+                _equal(kmesh.spec_eval_cards(sstep, scarry, sxs, _ctas=r), got,
+                       (wl, n, dp, r, wide, lo, "forced R"))
+            if wide is None and lo == 0:
+                sel = got.selected
+                ck = kmesh.spec_commit_cards(sstep, _clone_carry(scarry), sxs, sel, 5)
+                cp = kmesh.spec_commit_cards_plain(sstep, _clone_carry(scarry), sxs, sel, 5)
+                for k in range(n):
+                    _equal(ck[k], cp[k], (wl, n, dp, k, "commit vs plain"))
+                kmesh.spec_commit_cards(sstep, ck, sxs, sel, 0)  # nothing past K = 0
+
+
+def test_cards_spin_bound_and_residency_raise(card):
+    """No fallback: a card whose peer never launches waits past the spin
+    bound and the wrapper raises, naming both cards; a launch whose pod
+    slots the card cannot hold at once is refused by the C entry point."""
+    import ctypes
+
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+
+    _, virtual = _card_meshes(card)
+    cw = _mesh_cw("tiny", card)
+    mesh = virtual(2, 1)
+    scw = _sharded(cw, mesh)
+    step = build_step(scw)
+    xs = _slice_xs(scw.xs, 0, 8, 8)
+    xs["is_pad"] = torch.zeros(8, dtype=torch.bool, device=card)
+    with pytest.raises(RuntimeError, match="spin bound for card 1"):
+        kmesh.step_chunk_cards(step, _clone_carry(scw.init_carry), xs, _only=(0,),
+                               _bound=1 << 22)
+    # the exchange is whole again: the next launch over both cards runs
+    c, out = kmesh.step_chunk_cards(step, _clone_carry(scw.init_carry), xs)
+    c2, want = kmesh.step_chunk_cards_plain(step, _clone_carry(scw.init_carry), xs)
+    _equal(out, want, "after a refused wait")
+    lib = kstep.load_lib("spec_eval")
+    steps = kmesh.card_steps(step)
+    outs = [kstep.alloc_outputs(s, 8, card) for s in steps]
+    args = [kstep.make_args(s, p, x, o) for s, p, x, o in zip(steps, scw.init_carry, xs, outs)]
+    peer = kmesh.exchange(mesh, lib).args(1 << 40, 1 << 20, 0, 1 << 20)
+    table = (kstep.StepArgs * 2)(*args)
+    assert lib.kss_eval_cards(table, 2, 1, ctypes.byref(peer), card.index,
+                              kstep.stream_of(card)) == kmesh.ERR_RESIDENT
+
+
+@pytest.mark.parametrize("n,dp", [(2, 1), (4, 2)], ids=["n2-dp1", "n4-dp2"])
+def test_cards_on_distinct_cards(card, n, dp):
+    """The same kernels over distinct cards of one host, where it has them:
+    the replay and the stream over the cards equal the unsharded ones."""
+    from kube_scheduler_simulator_tpu_torch.framework.replay import replay
+    from kube_scheduler_simulator_tpu_torch.parallel import speculative as pspec
+    from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards, the host has {torch.cuda.device_count()}")
+    cw = _mesh_cw("policies", card)
+    mesh = make_mesh(n, dp=dp, device=[f"cuda:{k}" for k in range(n)])
+    base = replay(cw, chunk=16)
+    rr = replay(cw, chunk=16, mesh=mesh)
+    assert (rr.selected == base.selected).all()
+    srr, _ = pspec.replay_speculative_stream(cw, mesh=mesh, chunk=16, pods=cw.pods)
+    assert (srr.selected == base.selected).all()

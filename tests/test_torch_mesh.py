@@ -194,9 +194,19 @@ def test_make_mesh_rejects_non_divisible_dp():
     with pytest.raises(ValueError, match="at most 8"):
         make_mesh(16, device=CPU)
     assert make_mesh(16, dp=2, device=CPU).shape == {"dp": 2, "nodes": 8}
-    # shards on separate cards are ROADMAP Queue B item B12b
-    with pytest.raises(NotImplementedError, match="B12b"):
-        make_mesh(8, device=["cuda:0", "cuda:1"])
+    # shards on separate cards (B12b): a mesh over distinct cards needs them
+    # present, and names the ones that are not; on virtual cards of the CPU
+    # the same mesh replays byte-identically to the unsharded path
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < 2:
+        with pytest.raises(RuntimeError, match="not present"):
+            make_mesh(2, device=["cuda:0", "cuda:1"])
+    cards = make_mesh(2, device=CPU, _virtual=True)
+    assert cards.shape == {"dp": 1, "nodes": 2} and cards.virtual
+    nodes, pods = _workload(n_nodes=8, n_pods=6, seed=88)
+    cw = compile_workload(nodes, pods, PluginSetConfig(), device=CPU)
+    assert_same_results(replay(cw, chunk=4, device=CPU, mesh=cards),
+                        replay(cw, chunk=4, device=CPU), "two virtual cards vs unsharded")
     # "cuda" names the current card: with "cuda:0" that is one card, so the
     # mesh passes the B12b check and needs the card
     if not torch.cuda.is_available():
@@ -204,7 +214,8 @@ def test_make_mesh_rejects_non_divisible_dp():
             make_mesh(8, device=["cuda", "cuda:0"])
     else:
         assert make_mesh(8, device=["cuda", "cuda:0"]).device == torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match="B12b"):
+    # meshes across processes and hosts are ROADMAP Queue B item B12c
+    with pytest.raises(NotImplementedError, match="B12c"):
         initialize_distributed()
 
 

@@ -328,13 +328,20 @@ def test_init_carry_survives_speculative_replay():
 def test_unported_options_raise():
     nodes, pods, _ = _safe(pwl)
     cw = compile_workload(nodes[:4], pods[:4], PluginSetConfig(enabled=SAFE), device="cpu")
-    # a one-card mesh is ported (B12, tests/test_torch_mesh.py); shards on
-    # separate cards (B12b) stay unported and raise.  gang= is ported with
-    # the engine (tests/test_torch_gang.py test_stream_takes_gang_and_ignore)
+    # a one-card mesh is ported (B12, tests/test_torch_mesh.py), and so are
+    # shards on separate cards (B12b): the stream over four virtual CPU
+    # cards (dp = 2) equals the stream without a mesh.  gang= is ported
+    # with the engine (tests/test_torch_gang.py
+    # test_stream_takes_gang_and_ignore)
     from kube_scheduler_simulator_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="B12b"):
-        pspec.replay_speculative_stream(cw, mesh=make_mesh(4, device=["cuda:0", "cuda:1"]))
+    want, _ = pspec.replay_speculative_stream(cw, batch=2)
+    got, _ = pspec.replay_speculative_stream(
+        cw, mesh=make_mesh(4, dp=2, device="cpu", _virtual=True), batch=2)
+    assert (got.selected == want.selected).all()
+    assert (got.feasible_count == want.feasible_count).all()
+    for i in range(cw.n_pods):
+        assert decode_pod_result(got, i) == decode_pod_result(want, i)
 
 
 @pytest.mark.parametrize("fuse", ["1", "0"])
