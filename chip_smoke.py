@@ -58,7 +58,7 @@ phase:
        (groups that reach quorum, park, or fail the Coscheduling
        PreFilter) through the engine, B8 in every wave, binds
        all-or-nothing and equal across both commit modes and the scan;
-  21   the engine's host-interleaved path (B10): 256 config-5 pods with
+  21   the engine's host-interleaved path (B10): 128 config-5 pods with
        a webhook extender on localhost and an AfterScore hook, equal to
        the same run with device="cpu", each pod's rows renormalized in
        one renormalize_rows launch (a launch a flush, at most one a pod);
@@ -70,14 +70,14 @@ phase:
        solo launch (also at every forced group and cluster size), the
        oracle's table with folded commits at K = 2 and 4, with the fused
        and the K solo launches' times and bounds;
-  23   multi-session serving: four slot-pinned sessions (10,000 pods
+  23   multi-session serving: four slot-pinned sessions (1,250 pods
        each, one fleet) in a SessionManager(device="cuda") scheduling at
        once, fused against KSS_TPU_FUSE=0 (every pod's node, the bind
        order and the results equal), with the device's idle share; the
        same with PodTopologySpread added (dense rounds); two config-5
        sessions, contended, benched by admission after their first wave;
   24   the HTTP server on localhost: two sessions created and filled
-       through POST /api/v1/sessions and .../import (5,000 nodes, 10,000
+       through POST /api/v1/sessions and .../import (5,000 nodes, 5,000
        pods each), scheduled by their loops, 256 pods of each read back
        and held to a direct replay();
   25   B12, the node-sharded scan: config 5 through replay(cw,
@@ -107,7 +107,7 @@ phase:
        replay's, step_chunk on chunk 0 timed with and without the custom
        plugins; (b) a guest file loaded by SchedulerService with a config
        shaped like examples/scheduler.yaml (the default profile + the
-       guest: 13 filters, 9 scorers), 512 pods through
+       guest: 13 filters, 9 scorers), 256 pods through
        SchedulerEngine.schedule_pending() against a direct replay();
        (c) a custom NormalizeScore on the engine's host path, phased_eval
        with the rows held to its plain version and the run to
@@ -128,7 +128,7 @@ phase:
        9 custom scorers (S = 17), an RTCR strategy over 10 resources and
        20 shape points, BalancedAllocation over 10 resources, 9-12
        unbound claims a pod: step_chunk (full and compact) == the plain
-       step (64 pods with custom plugins: their rows are Python calls),
+       step (32 pods with custom plugins: their rows are Python calls),
        the device-resident replay == the host-resident one, each
        timed beside the same workload cut to the fixed arrays, spec_eval
        at b = 8 on the resource cases; B7's wide form (F = 17, Q = 9) and
@@ -150,12 +150,25 @@ phase:
        and 4 virtual cards of the card and the stream over 2 x 2, every
        pod == phase 4, each kernel == its twin and timed beside the
        one-card kernels; on a host with two cards or more, the same over
-       its distinct cards.
+       its distinct cards;
+  34   the mesh across processes (B12c): two processes sharing the card,
+       each its own CUDA context and exchange buffer, opened by the other
+       over CUDA IPC: config 5 at full width (its queue cut to its first
+       PROCS_PODS pods) through replay(), the stream and one engine wave
+       over the process mesh in both processes, every pod == phase 4;
+       each kernel == its twin in the process mesh, timed beside B12b on
+       as many virtual cards.
 
     python3 chip_smoke.py --cards
 
 runs phase 33 alone (after the build and phase 4's replay), for a host
 with several cards.
+
+    python3 chip_smoke.py --procs
+
+runs phase 34 alone over one process per distinct card of the host
+(after the build and phase 4's replay); on a host with one card it says
+that it did not run.
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -197,7 +210,8 @@ FILL = 37                      # an unaligned fill mark for grid_append's check
 DIRECT_SCALE = 0.1024          # 1,024 pods x 5,000 nodes for replay_speculative
 # phase 20's PodGroups: (family, groups, members, minMember) -> 2,000 pods
 GANG_FAMILIES = (("quorum", 200, 8, 8), ("park", 40, 8, 8), ("reject", 20, 4, 8))
-HOST_PODS = 256                # phase 21: pods through the host-interleaved path
+HOST_PODS = 128                # phase 21: pods through the host-interleaved path (cut from
+                               # 256 to pay for phase 34)
 
 
 # the default-profile fleet's decoration (phases 10-12)
@@ -3311,6 +3325,8 @@ def engine_phases(dev, card: str, cw, nodes: list, pods: list, cfg, rr) -> list[
 FUSE_KS = (2, 4, 8)            # phase 22: sessions per fused sparse round
 FUSE_K = 4                     # phase 22's JSON entry and phase 23's sessions
 HTTP_SAMPLE = 256              # phase 24: pods read back per session
+HTTP_PODS = 5_000              # phase 24: each session's queue (cut from 10,000 to
+                               # pay for phase 34)
 SESSION_WINDOW_MS = 200        # phases 23-24: the fuse window (KSS_TPU_FUSE_WINDOW_MS)
 CONTENDED_WINDOW_MS = 1000     # phase 23's config-5 pair: their four rounds may meet
 # phase 23's depth, cut to pay for phase 32 (the width stays: every
@@ -3319,7 +3335,7 @@ CONTENDED_WINDOW_MS = 1000     # phase 23's config-5 pair: their four rounds may
 # of the contended config-5 pair schedule the first SESSION_PODS pods of
 # their queue; the dense family, whose label-coupled rounds cost the host
 # an interaction walk per round, DENSE_PODS
-SESSION_PODS = 2_500
+SESSION_PODS = 1_250           # (cut from 2,500 to pay for phase 34)
 DENSE_PODS = 1024
 
 
@@ -3710,7 +3726,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
               f"PodTopologySpread (dense rounds), as above: {'; '.join(dense_lines)}; equal "
               f"between the arms; {time.perf_counter() - t23d:.1f} s", flush=True)
         main23 = {k: main23[k] + dense23[k] for k in main23}
-        queues = {f"slot-{s}": make_slot_pinned_workload(SLOT_PODS, SLOT_NODES, seed=s)[1]
+        queues = {f"slot-{s}": make_slot_pinned_workload(HTTP_PODS, SLOT_NODES, seed=s)[1]
                   for s in range(2)}
 
         # the contended case: two config-5 sessions (one family).  Their
@@ -3814,7 +3830,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
             while len(done) < len(sids) and time.time() < deadline:
                 for sid in sids:
                     _, m = req(srv, "GET", f"/api/v1/sessions/{sid}/metrics")
-                    if m["counters"].get("pods_scheduled_total", 0) >= SLOT_PODS:
+                    if m["counters"].get("pods_scheduled_total", 0) >= HTTP_PODS:
                         done.add(sid)
                 time.sleep(0.2)
             bind_s = time.perf_counter() - t0
@@ -3830,14 +3846,14 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
             for k, sid in enumerate(sids):
                 by_name = {q["metadata"]["name"]: q for q in queues[f"slot-{k}"]}
                 queue = [by_name[nm] for _ns, nm, _node in http_orders[sid]]
-                check(len(queue) == SLOT_PODS and len(set(map(id, queue))) == SLOT_PODS,
-                      f"{sid}: {len(queue)} binds for {SLOT_PODS} pods")
+                check(len(queue) == HTTP_PODS and len(set(map(id, queue))) == HTTP_PODS,
+                      f"{sid}: {len(queue)} binds for {HTTP_PODS} pods")
                 sess = srv.manager.get(sid)
                 prof_cfg = sess.di.engine.profiles["default-scheduler"]
                 dcw = compile_workload(snodes, queue, prof_cfg, device=dev)
                 drr = replay(dcw, chunk=CHUNK, device=dev)
                 sample = list(range(HTTP_SAMPLE // 2)) + list(
-                    range(SLOT_PODS - HTTP_SAMPLE // 2, SLOT_PODS))
+                    range(HTTP_PODS - HTTP_SAMPLE // 2, HTTP_PODS))
                 for i in sample:
                     name = queue[i]["metadata"]["name"]
                     _, pod = req(srv, "GET", f"/api/v1/sessions/{sid}/pods/default/{name}")
@@ -3855,7 +3871,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
             srv.shutdown()
     print(f"[24 HTTP] {card}: SimulatorServer(device='cuda') on localhost, sessions "
           f"{sids} created through POST /api/v1/sessions, each importing {SLOT_NODES} nodes "
-          f"and {SLOT_PODS} pods (POST .../import with a three-plugin scheduler config); all "
+          f"and {HTTP_PODS} pods (POST .../import with a three-plugin scheduler config); all "
           f"bound in {bind_s:.3f} s from the first import; the 13 annotations and nodeName of "
           f"pods {sample[0]}-{sample[HTTP_SAMPLE // 2 - 1]} and "
           f"{sample[HTTP_SAMPLE // 2]}-{sample[-1]} of each session (GET .../pods/<ns>/<name>) "
@@ -3885,7 +3901,7 @@ def fuse_phases(dev, card: str, cw, nodes5: list, pods5: list, cfg5, spec_ctx: d
 MESH_SHARDS = (2, 4, 8)        # phase 25: the "nodes" extents; 5,000 nodes divide by each
 MESH_DEFAULT_PODS = 1024       # phase 25: the default-profile fleet's pods on the mesh
 MESH_ODD_NODES = 4996          # phase 26: a fleet that 8 shards do not divide
-MESH_ODD_PODS = 1024
+MESH_ODD_PODS = 512            # (cut from 1,024 to pay for phase 34)
 ENGINE_PAIRS = 1               # phase 26: the engine's (none, mesh, mesh, none) turns
 TWIN_PODS = 64                 # phases 25, 26: the plain twins of chunk 0 and of the b = 512
                                # eval, on their first pods
@@ -4354,7 +4370,8 @@ def clock_phase(dev, card: str, fleets: dict) -> dict:
 
 
 CUSTOM_PODS = 1024             # phase 28 (a), (d): the queue with custom rows (2 chunks)
-GUEST_PODS = 512               # phase 28 (b): the guest's wave through the service
+GUEST_PODS = 256               # phase 28 (b): the guest's wave through the service
+                               # (cut from 512 to pay for phase 34)
 HOST_CUSTOM_PODS = 64          # phase 28 (c): a custom NormalizeScore on the host path
 CUSTOM_MESH_SHARDS = 8         # phase 28 (d)
 GUEST_SRC = """
@@ -4417,8 +4434,9 @@ def custom_plugins() -> dict:
 TABLE_NODES = 5_000            # phase 30: nodes of each over-limit case
 TABLE_PODS = 256               # phase 30: pods of each case, one chunk (halved from 512
                                # to pay for phase 33)
-TABLE_CUSTOM_PODS = 64         # ... of the custom-plugin cases: their rows are a Python call a
-                               # (pod, node, plugin), 2.9 M calls at 64 pods and 9 plugins
+TABLE_CUSTOM_PODS = 32         # ... of the custom-plugin cases: their rows are a Python call a
+                               # (pod, node, plugin), 1.4 M calls at 32 pods and 9 plugins
+                               # (cut from 64 to pay for phase 34)
 TABLE_CASES = ("filters17", "custom9", "scores17", "rtcr10", "balanced10", "claims12")
 TABLE_REPS = 3                 # phase 30: timed launches a case, the median
 TABLE_CLAIMS_PODS = 8          # phase 30: pods of the 300-claim case and of claims12 beside it
@@ -5194,6 +5212,352 @@ def cards_phase(dev, card: str, cw, pods: list, rr, step_entry: dict) -> list[di
     ]
 
 
+# phase 34 (B12c): the mesh across processes, two processes sharing the card
+PROCS = 2                      # phase 34: processes of the mesh, one process-card each
+PROCS_PODS = 256               # ... config 5's first pods, cut from 10,000 (procs_phase)
+PROCS_TWIN_PODS = 16           # ... the twins' pods of the first launches' inputs
+PROCS_TIMED_PODS = 64          # ... the timed step's chunk: the queue's first pods
+PROCS_REPS = 3                 # ... timed launches, the median
+PROCS_DEADLINE_S = 420.0       # ... past this the workers print their tracebacks and are killed
+
+
+def _ann_digest(ann: dict) -> str:
+    import hashlib
+
+    return hashlib.sha1(json.dumps(ann, sort_keys=True).encode()).hexdigest()
+
+
+def procs_worker(rank: int, n: int, n_pods: int) -> dict:
+    """One process of phase 34's mesh (spawned; parallel/distributed.py
+    _spawn sets the launcher's environment and this process's card).  It
+    loads the libraries the parent built (it never starts nvcc), joins the
+    mesh, compiles config 5 cut to its first n_pods pods on its card and,
+    with the launch counts set to 0 just before each and read just after,
+    drives replay() over the mesh, the stream over it (dp 1 x nodes n) and
+    one engine wave over it; then holds each B12c kernel to its twin (the
+    twin's combines across the processes through the process group) on
+    PROCS_TWIN_PODS pods of its first launch's inputs and times each.
+    -> what the parent checks: per-pod selections and annotation
+    digests, placements, launch counts, errors and times."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (_clone_carry, _compact_plan,
+                                                                     _slice_xs, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import build
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.parallel import (
+        distributed, global_devices, initialize_distributed, make_mesh,
+        replay_speculative_stream, shard_workload)
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+
+    missing = [s for s in build.SIGNATURES
+               if s not in build.VARIANTS and not build.library_path(s).exists()]
+    check(not missing, f"process {rank}: libraries {missing} not built by the parent")
+    initialize_distributed()
+    mesh = make_mesh(n, device=global_devices())
+    dev = mesh.device
+    nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
+    pods = pods[:n_pods]
+    cw = compile_workload(nodes, pods, cfg, device=dev)
+    p = cw.n_pods
+    b12c = (kmesh.step_chunk_cards, kmesh.spec_eval_cards, kmesh.spec_commit_cards)
+    others = (kstep.step_chunk, kmesh.step_chunk_sharded, kmesh.spec_eval_sharded,
+              kspec.spec_eval, kspec.spec_round)
+
+    def run(fn, what: str):
+        for f in (*b12c, *others):
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {f.__name__: f.launches for f in (*b12c, *others) if f.launches}
+        check(not set(launched) & {f.__name__ for f in others},
+              f"process {rank}: {what} ran a kernel of one card: {launched}")
+        return out, wall, launched
+
+    def result(rr, wall, launched) -> dict:
+        return {"selected": rr.selected.tolist(), "feasible": rr.feasible_count.tolist(),
+                "reject": rr.prefilter_reject.tolist(), "wall": wall, "launched": launched,
+                "ann": [_ann_digest(decode_pod_result(rr, i)) for i in range(p)]}
+
+    out = {"card": str(dev), "jax": None}
+    # two chunks, so that a launch starts from the carry another left
+    rr, wall, launched = run(lambda: replay(cw, chunk=-(-p // 2), device=dev, mesh=mesh),
+                             "the replay")
+    out["replay"] = result(rr, wall, launched)
+    (srr, stats), wall, launched = run(
+        lambda: replay_speculative_stream(cw, mesh=mesh, chunk=CHUNK, pods=pods), "the stream")
+    out["stream"] = result(srr, wall, launched)
+    out["stream"]["rounds"] = (stats["rounds"], stats["round_batches"], stats["accepted"],
+                               stats["fallback_at"])
+    del srr
+
+    def wave():
+        store = ObjectStore()
+        for o in nodes:
+            store.create("nodes", copy.deepcopy(o))
+        for o in pods:
+            store.create("pods", copy.deepcopy(o))
+        bound = SchedulerEngine(store, plugin_config=cfg, device=dev,
+                                mesh=mesh).schedule_pending()
+        return store, bound
+
+    (store, bound), wall, launched = run(wave, "the engine wave")
+    got = [store.get("pods", q["metadata"]["name"]) for q in pods]
+    out["engine"] = {
+        "bound": bound, "wall": wall, "launched": launched,
+        "nodes": [(q.get("spec") or {}).get("nodeName") for q in got],
+        "ann": [_ann_digest({k: (q["metadata"].get("annotations") or {}).get(k)
+                             for k in ALL_PLUGIN_KEYS}) for q in got]}
+    del store, got
+
+    # ---- each kernel == its twin on its first launch's inputs, and its time
+    wide = rr.tiers[-1]
+    pm, sd, _ = _compact_plan(cw, wide)
+    kw = dict(out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+    scw = shard_workload(cw, mesh)
+    step = build_step(scw, **kw)
+
+    def card_xs(lo: int, b: int):
+        xs = _slice_xs(scw.xs, lo, min(lo + b, p), b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= min(b, p - lo)
+        return xs
+
+    t_twins = time.perf_counter()
+    xs16 = card_xs(0, PROCS_TWIN_PODS)
+    ck, ok = kmesh.step_chunk_cards(step, _clone_carry(scw.init_carry), xs16)
+    twin = []
+    step_plain_ms = timed_once(lambda: twin.append(kmesh.step_chunk_cards_plain(
+        step, _clone_carry(scw.init_carry), xs16)))
+    step_err = max(tree_err(list(ok), list(twin[0][1])), tree_err(list(ck), list(twin[0][0])))
+    xsb = card_xs(0, LADDER[0])
+    ev = kmesh.spec_eval_cards(step, scw.init_carry, xsb)
+    twin = []
+    eval_plain_ms = timed_once(lambda: twin.append(kmesh.spec_eval_cards_plain(
+        step, scw.init_carry, xsb)))
+    eval_err = tree_err(list(ev), list(twin[0]))
+    kb = LADDER[0]
+    cc = kmesh.spec_commit_cards(step, _clone_carry(scw.init_carry), xsb, ev.selected, kb)
+    twin = []
+    commit_plain_ms = timed_once(lambda: twin.append(kmesh.spec_commit_cards_plain(
+        step, _clone_carry(scw.init_carry), xsb, ev.selected, kb)))
+    torch.cuda.synchronize()
+    commit_err = tree_err(list(cc), list(twin[0]))
+    del twin, ck, ok, cc
+
+    def med(ts):
+        return sorted(ts)[len(ts) // 2]
+
+    def span(fn) -> tuple[float, float]:
+        """(the launch's device span between events on this process's
+        stream, the call's host clock: launch, wait, gather and join)."""
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn((e0, e1))
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3
+
+    t_timed = time.perf_counter()
+    xs0 = card_xs(0, PROCS_TIMED_PODS)
+    kmesh.step_chunk_cards(step, _clone_carry(scw.init_carry), xs0)  # untimed
+    st = [span(lambda ev_: kmesh.step_chunk_cards(step, _clone_carry(scw.init_carry), xs0,
+                                                  _events=ev_)) for _ in range(PROCS_REPS)]
+    et = [span(lambda ev_: kmesh.spec_eval_cards(step, scw.init_carry, xsb, _events=ev_))
+          for _ in range(PROCS_REPS * 5)]
+    c_cards = _clone_carry(scw.init_carry)
+    commit_ms = timed_graph(lambda: kmesh.spec_commit_cards(
+        step, c_cards, xsb, ev.selected, kb), 5)
+    # one gloo all_gather of one int64: what the eval's slot agreement
+    # costs, once a step and batch size
+    gt = []
+    for _ in range(PROCS_REPS * 5):
+        t0 = time.perf_counter()
+        distributed.all_gather(torch.tensor(0))
+        gt.append((time.perf_counter() - t0) * 1e3)
+    out["kernels"] = {
+        "step_err": step_err, "eval_err": eval_err, "commit_err": commit_err,
+        "step_plain_ms": step_plain_ms, "eval_plain_ms": eval_plain_ms,
+        "commit_plain_ms": commit_plain_ms,
+        "step_ms": med([a for a, _ in st]), "step_host_ms": med([b for _, b in st]),
+        "eval_ms": med([a for a, _ in et]), "eval_host_ms": med([b for _, b in et]),
+        "commit_ms": commit_ms, "ctas": kmesh.step_chunk_cards.ctas,
+        "slots": kmesh.spec_eval_cards.slots, "gather_ms": med(gt),
+        "twins_s": t_timed - t_twins,
+        "timed_s": time.perf_counter() - t_timed}
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+def procs_phase(dev, card: str, cw, rr, cards: list, n_pods: int,
+                label: str = "34 procs") -> list[dict]:
+    """Phase 34 (B12c): the mesh across processes of one host.  `len(cards)`
+    processes (spawned, card `cards[i]` for process i: on one card two
+    processes sharing it, two CUDA contexts with an exchange buffer each,
+    opened by the other over CUDA IPC) each run procs_worker over config 5
+    at full width (5,000 nodes, six plugins), its queue cut to its first
+    `n_pods` pods: with two contexts on one card and no MPS the card
+    time-slices between them, and each exchange of a pod waits for the
+    other context's turn (PERF.md §4), so the pods are cut, never the
+    nodes.  Every process's replay, stream (dp 1 x nodes n) and engine
+    wave must equal phase 4's replay on those pods (selected, feasible,
+    rejects, the 13 annotations of every pod; the engine's nodes and
+    annotations), which phases 8 and 19 hold their stream and engine to;
+    every process the same.  Each kernel == its twin in the process mesh;
+    its times beside B12b's kernel over as many virtual cards on the
+    same inputs.  -> the B12c entries of the JSON line."""
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (
+        _clone_carry, _compact_plan, _slice_xs)
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
+    from kube_scheduler_simulator_tpu_torch.parallel import make_mesh, shard_workload
+    from kube_scheduler_simulator_tpu_torch.parallel.distributed import _spawn
+    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result
+
+    t34 = time.perf_counter()
+    n = len(cards)
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.split()
+    print(f"[{label}] compute mode {', '.join(mode)}; {n} processes on "
+          f"{[f'cuda:{c}' for c in cards]}", flush=True)
+    p = min(n_pods, cw.n_pods)
+    res = _spawn(procs_worker, n, (n, p), deadline_s=PROCS_DEADLINE_S, cards=cards)
+    check(not any(r.pop("jax") for r in res), f"{label}: a worker imported JAX")
+    for r in res[1:]:
+        for part in ("replay", "stream", "engine"):
+            for key in ("selected", "feasible", "reject", "ann", "nodes", "bound", "rounds"):
+                check(r[part].get(key) == res[0][part].get(key),
+                      f"{label}: process {res.index(r)}'s {part} {key} differs from process 0's")
+    want_ann = [_ann_digest(decode_pod_result(rr, i)) for i in range(p)]
+    names = cw.node_table.names
+    want_nodes = [names[int(s)] if s >= 0 else None for s in rr.selected[:p]]
+    r0 = res[0]
+    for part in ("replay", "stream"):
+        got = r0[part]
+        check(got["selected"] == rr.selected[:p].tolist(), f"{label} {part}: selected")
+        check(got["feasible"] == rr.feasible_count[:p].tolist(), f"{label} {part}: feasible")
+        check(got["reject"] == rr.prefilter_reject[:p].tolist(), f"{label} {part}: rejects")
+        bad = [i for i in range(p) if got["ann"][i] != want_ann[i]]
+        check(not bad, f"{label} {part}: the annotations of {len(bad)} pods differ, first "
+              f"{bad[:5]}")
+    eng = r0["engine"]
+    check(eng["nodes"] == want_nodes, f"{label} engine: nodes differ from phase 4")
+    bad = [i for i in range(p) if eng["ann"][i] != want_ann[i]]
+    check(not bad, f"{label} engine: the annotations of {len(bad)} pods differ, first {bad[:5]}")
+    check(r0["replay"]["launched"].get("step_chunk_cards", 0) > 0
+          and r0["stream"]["launched"].get("spec_eval_cards", 0) > 0
+          and r0["stream"]["launched"].get("spec_commit_cards", 0) > 0
+          and r0["engine"]["launched"], f"{label}: launches {r0['replay']['launched']}, "
+          f"{r0['stream']['launched']}, {r0['engine']['launched']}")
+    k = r0["kernels"]
+    for r in res:
+        for key in ("step_err", "eval_err", "commit_err"):
+            check(r["kernels"][key] == 0, f"{label}: {key} {r['kernels'][key]} in a process")
+    print(f"[{label}] {card}: config {CONFIG} {p} x {cw.n_nodes} over {n} processes, every "
+          f"process the same: replay() == phase 4 (every pod), {r0['replay']['wall']:.4f} s, "
+          f"launches {r0['replay']['launched']}; the stream (dp 1 x nodes {n}) == phase 4, "
+          f"{r0['stream']['wall']:.4f} s, rounds {r0['stream']['rounds'][0]} (accepted "
+          f"{r0['stream']['rounds'][2]}, fallback at {r0['stream']['rounds'][3]}), launches "
+          f"{r0['stream']['launched']}; one engine wave == phase 4 (every pod's node and "
+          f"annotations), bound {eng['bound']}, {eng['wall']:.4f} s, launches "
+          f"{eng['launched']}", flush=True)
+
+    # ---- B12b over as many virtual cards of this card, on the same inputs
+    wide = rr.tiers[-1]
+    pm, sd, _ = _compact_plan(cw, wide)
+    kw = dict(out_mode="compact", pack_mode=pm, score_dtypes=sd, wide_raw=wide)
+    vcw = shard_workload(cw, make_mesh(n, device=dev, _virtual=True))
+    vstep = build_step(vcw, **kw)
+
+    def card_xs(lo: int, b: int):
+        xs = _slice_xs(vcw.xs, lo, min(lo + b, p), b)
+        xs["is_pad"] = torch.arange(b, device=dev) >= min(b, p - lo)
+        return xs
+
+    def med(ts):
+        return sorted(ts)[len(ts) // 2]
+
+    def span(fn) -> float:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn((e0, e1))
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    xs0, xsb = card_xs(0, PROCS_TIMED_PODS), card_xs(0, LADDER[0])
+    kmesh.step_chunk_cards(vstep, _clone_carry(vcw.init_carry), xs0)  # untimed
+    v_step = med([span(lambda ev: kmesh.step_chunk_cards(
+        vstep, _clone_carry(vcw.init_carry), xs0, _events=ev)) for _ in range(PROCS_REPS)])
+    vev = kmesh.spec_eval_cards(vstep, vcw.init_carry, xsb)
+    v_eval = med([span(lambda ev: kmesh.spec_eval_cards(vstep, vcw.init_carry, xsb, _events=ev))
+                  for _ in range(PROCS_REPS * 5)])
+    c_cards = _clone_carry(vcw.init_carry)
+    v_commit = timed_graph(lambda: kmesh.spec_commit_cards(
+        vstep, c_cards, xsb, vev.selected, LADDER[0]), 5)
+    del vcw, vstep, c_cards
+    uxs = batch_xs(cw, 0, LADDER[0])
+    eb = eval_bytes(cw, cw.init_carry, uxs, sum(t.numel() * t.element_size() for t in vev))
+    e_bound = bound(eb)
+    c_bound = bound(2 * _nbytes(cw.init_carry) + _nbytes(uxs))
+    # the timed step's work, as phase 5 counts a chunk's: its inputs read
+    # once, its carry and outputs written once, 22 float64 operations a
+    # pod and node
+    touts = kstep.alloc_outputs(build_step(cw, **kw), PROCS_TIMED_PODS, dev)
+    s_bound = bound(_nbytes(cw.statics) + 2 * _nbytes(cw.init_carry)
+                    + _nbytes(batch_xs(cw, 0, PROCS_TIMED_PODS))
+                    + sum(touts[f].numel() * touts[f].element_size()
+                          for f in ("packed_filter", "raw8", "raw16", "raw32", "raw_overflow",
+                                    "selected", "feasible_count", "prefilter_reject")),
+                    PROCS_TIMED_PODS * cw.n_nodes * 22)
+    del touts
+    print(f"[{label} kernels] {card}: each == its twin in the process mesh on "
+          f"{PROCS_TWIN_PODS} pods (step_chunk_cards, twin {k['step_plain_ms']:.1f} ms), "
+          f"b = {LADDER[0]} (spec_eval_cards, twin {k['eval_plain_ms']:.1f} ms; "
+          f"spec_commit_cards of its {LADDER[0]} binds, twin {k['commit_plain_ms']:.1f} ms) "
+          f"in every process, max_abs_err 0 | ms a launch, median, process 0: "
+          f"step_chunk_cards on the first {PROCS_TIMED_PODS} pods {k['step_ms']:.3f} (the call "
+          f"{k['step_host_ms']:.3f}: launch, wait, gather, join; R = {k['ctas']}) against B12b "
+          f"over {n} virtual cards {v_step:.3f}; spec_eval_cards at b = {LADDER[0]} "
+          f"{k['eval_ms']:.5f} (the call {k['eval_host_ms']:.3f}, {k['slots']} slots) against "
+          f"{v_eval:.5f}; spec_commit_cards {k['commit_ms']:.5f} (CUDA graph) against "
+          f"{v_commit:.5f} | one gloo all_gather of an int64 (the slots' agreement, once a "
+          f"step and batch size) {k['gather_ms']:.3f} ms, median of {PROCS_REPS * 5} "
+          f"| process 0: twins {k['twins_s']:.1f} s, timing {k['timed_s']:.1f} s; "
+          f"phase {time.perf_counter() - t34:.1f} s", flush=True)
+
+    def entry(name, src, launches, err, ms, plain, bnd, lib):
+        return {"name": name, "route": "cuda",
+                "source": f"kube_scheduler_simulator_tpu_torch/csrc/{src}",
+                "replaces": "kube_scheduler_simulator_tpu/parallel/mesh.py:175",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+
+    return [
+        entry("step_chunk_cards over processes", "step_kernel.cuh",
+              r0["replay"]["launched"].get("step_chunk_cards", 0), k["step_err"], k["step_ms"],
+              k["step_plain_ms"], s_bound, v_step),
+        entry("spec_eval_cards over processes", "spec_eval.cu",
+              r0["stream"]["launched"].get("spec_eval_cards", 0), k["eval_err"], k["eval_ms"],
+              k["eval_plain_ms"], e_bound, v_eval),
+        entry("spec_commit_cards over processes", "spec_commit.cu",
+              r0["stream"]["launched"].get("spec_commit_cards", 0), k["commit_err"], k["commit_ms"],
+              k["commit_plain_ms"], c_bound, v_commit),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -5452,9 +5816,10 @@ def main() -> int:
     serving_phase(dev, card, cw, nodes, pods, cfg, rr)
     tools_phase(dev, card)
     cards_entries = cards_phase(dev, card, cw, pods, rr, step_entry)
+    procs_entries = procs_phase(dev, card, cw, rr, [dev.index] * PROCS, PROCS_PODS)
     print(json.dumps({"kernels": [step_entry, *spec_entries, att_entry, *b9_entries,
                                   *engine_entries, *fuse_entries, *mesh_entries, b13_entry,
-                                  *cards_entries]}))
+                                  *cards_entries, *procs_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -6009,7 +6374,7 @@ def tapped_holds(tap: LaunchTap, prefer: str) -> dict:
 # cluster, 5,000 nodes ("Considerations for large clusters")
 CHAOS_SCALE = {"nodes": 5_000, "pods": 2_048, "gangs": 8, "gang_members": 8,
                "chunk": CHUNK, "wedge_s": 600.0}  # a wave's limit before it counts as wedged
-CHAOS_SEEDS = (1, 2, 3)              # at the JAX tool's FULL_SHAPE
+CHAOS_SEEDS = (1, 2)                 # at the JAX tool's FULL_SHAPE (seed 3 cut to pay for phase 34)
 SOAK_CHURN = {"std_nodes": 5_000, "ticks": 18, "arrival_rate": 64.0, "departure_rate": 32.0}
 TOOLS_LIMIT_S = 420.0  # phase 32: past this the phase fails with every thread's traceback
 
@@ -6507,10 +6872,48 @@ def cards_main() -> int:
     return 0
 
 
+def procs_main() -> int:
+    """`--procs`: phase 34 alone (after the build and phase 4's replay of
+    config 5) over one process per distinct card of the host (as many as
+    divide the 5,000 nodes); on a host with one card it says it did not
+    run.  Prints phase 34's lines; no kernel line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from kube_scheduler_simulator_tpu_torch.framework.replay import replay
+    from kube_scheduler_simulator_tpu_torch.kernels import build
+    from kube_scheduler_simulator_tpu_torch.models import baseline_config
+    from kube_scheduler_simulator_tpu_torch.state import compile_workload
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    have = torch.cuda.device_count()
+    if have < 2:
+        print(f"[34 distinct cards] not run: this host has {have} card", flush=True)
+        return 0
+    for stem in build.build():
+        build.load(stem)  # the workers load these and never start nvcc
+    nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
+    cw = compile_workload(nodes, pods, cfg, device=dev)
+    n = max(k for k in range(2, have + 1) if cw.n_nodes % k == 0)
+    with env(KSS_TPU_HOST_RESIDENT="1"):
+        rr = replay(cw, chunk=CHUNK, device="cuda")
+    procs_phase(dev, card, cw, rr, list(range(n)), PROCS_PODS, label="34 distinct cards")
+    return 0
+
+
 if __name__ == "__main__":
     try:
         if "--cards" in sys.argv[1:]:
             sys.exit(cards_main())
+        if "--procs" in sys.argv[1:]:
+            sys.exit(procs_main())
         if "--ladder" in sys.argv[1:]:
             at = sys.argv.index("--root") + 1 if "--root" in sys.argv else 0
             sel = sys.argv.index("--only") + 1 if "--only" in sys.argv else 0

@@ -100,6 +100,8 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 extern "C" int kss_step_args_size() { return (int)sizeof(StepArgs); }
 
 // Launch on the caller's stream; no synchronisation.  `ctas` and a.spill
@@ -133,6 +135,47 @@ extern "C" int kss_enable_peer(int device, int peer) {
     cudaGetLastError();
     err = cudaSuccess;
   }
+  return (int)err;
+}
+
+// B12c: a card mesh across the processes of one host.  Each process
+// allocates the exchange buffers of its own cards here, with cudaMalloc
+// and zeroed, and exports an IPC handle of each (64 bytes); every other
+// process of the mesh opens it, so a launch's PeerArgs.xbuf holds local
+// and opened pointers alike and scope.cuh PeerScope runs unchanged.  A
+// handle names a whole allocation: a tensor of PyTorch's caching
+// allocator sits at an offset inside a larger block, so the buffers are
+// allocations of their own.  Two processes may name the same card: each
+// is a context with memory of its own, and a handle opens on the card it
+// came from.  `opened` handles are closed (kss_ipc_close with opened = 1)
+// before the exporting process frees its buffer (opened = 0).
+static_assert(sizeof(cudaIpcMemHandle_t) == 64, "kernels/mesh.py IPC_HANDLE_BYTES");
+
+extern "C" int kss_ipc_export(int device, long long bytes, void** ptr, void* handle) {
+  *ptr = nullptr;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, (size_t)bytes);
+  // the zeros are in place before a peer can open the buffer
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  cudaIpcMemHandle_t h;
+  if (err == cudaSuccess) err = cudaIpcGetMemHandle(&h, *ptr);
+  if (err == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  return (int)err;
+}
+
+extern "C" int kss_ipc_open(int device, const void* handle, void** ptr) {
+  *ptr = nullptr;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  return (int)err;
+}
+
+extern "C" int kss_ipc_close(int device, void* ptr, int opened) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = opened ? cudaIpcCloseMemHandle(ptr) : cudaFree(ptr);
   return (int)err;
 }
 #endif

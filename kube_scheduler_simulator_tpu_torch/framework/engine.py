@@ -529,8 +529,10 @@ class SchedulerEngine:
         # every wave's compile, replay, stream and kernel runs here
         self.device = resolve_device(device)
         # optional parallel.mesh.Mesh with a "nodes" axis, on one card or
-        # over cards (its first card the engine's device): every batched
-        # replay and stream shards the node axis across it
+        # over cards (its first card the engine's device; over processes,
+        # this process's card, every process running the engine alike over
+        # a store of the same objects): every batched replay and stream
+        # shards the node axis across it
         if mesh is not None:
             from ..parallel.mesh import Mesh
 

@@ -55,7 +55,9 @@ SIGNATURES = {
              "kss_step_plan": ([_P, _I, _I, _P, _P, _P], _I), "kss_mesh_max_shards": ([], _I),
              "kss_step_cards_plan": ([_P, _I, _I, _I, _P, _P, _P, _P], _I),
              "kss_step_cards": ([_P, _I, _I, _P, _I, _P], _I),
-             "kss_peer_args_size": ([], _I), "kss_enable_peer": ([_I, _I], _I)},
+             "kss_peer_args_size": ([], _I), "kss_enable_peer": ([_I, _I], _I),
+             "kss_ipc_export": ([_I, ctypes.c_longlong, _P, _P], _I),
+             "kss_ipc_open": ([_I, _P, _P], _I), "kss_ipc_close": ([_I, _P, _I], _I)},
     "spec_eval": {"kss_step_args_size": ([], _I),
                   "kss_eval_plan": ([_P, _I, _I, _I, _P, _P, _P], _I),
                   "kss_spec_eval": ([_P, _I, _I, _I, _I, _P], _I),

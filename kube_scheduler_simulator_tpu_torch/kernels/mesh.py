@@ -19,6 +19,17 @@ issue every card's launch before they wait for any, then wait and raise
 on the exchange's error word (a wait past the spin bound), and join the
 outputs in card order on the mesh's first card.
 
+Over a process mesh (B12c; parallel/distributed.py) card k is held by
+process k: `Cards` holds this process's part alone (`Cards.ks` its mesh
+index), each process launches its own card, the exchange's buffers are
+the processes' own allocations opened by the others over CUDA IPC
+(Exchange), and after the launch every card's outputs and error word are
+gathered through the process group (_gather_cards), so every process
+joins the full outputs on its own card and raises alike.  The twins fold
+each combine's partials across the processes through the process group,
+one gather a combine (_ProcFold), and each card binds from its own
+tensors (_bind_card), as the kernels do.
+
 A workload sharded over a one-card mesh (parallel/mesh.py
 `shard_workload`) splits its node axis into S contiguous slices,
 `node_slices(N, S)`.  On the card the mesh runs the unsharded kernels'
@@ -189,12 +200,69 @@ class _ShardWorkload:
         self.statics, self.n_nodes, self.config, self.schema = statics, n, cw.config, cw.schema
 
 
-def _combine(parts: list, op):
-    """The shards' partials folded in rank order."""
+_OPS = ("min", "max", "sum", "or")
+
+
+def _fold_in_order(parts: list, ops) -> torch.Tensor:
+    """Vectors of partials (int64, one a shard) folded in rank order,
+    entry j by ops[j] (or every entry by `ops`, one name): csrc/scope.cuh
+    op_apply."""
+    code = torch.tensor([_OPS.index(o) for o in ([ops] * parts[0].shape[0]
+                                                 if isinstance(ops, str) else ops)],
+                        device=parts[0].device)
     acc = parts[0]
     for p in parts[1:]:
-        acc = op(acc, p)
+        acc = torch.where(code == 0, torch.minimum(acc, p), torch.where(
+            code == 1, torch.maximum(acc, p), torch.where(code == 2, acc + p, acc | p)))
     return acc
+
+
+def _argmax_in_order(pairs) -> int:
+    """The (value, node) partials' argmax, value desc, node asc -> node."""
+    best_v, best_i = None, None
+    for v, i in pairs:
+        if best_v is None or v > best_v or (v == best_v and i < best_i):
+            best_v, best_i = v, i
+    return best_i
+
+
+class _Fold:
+    """A pod's combines over shards all held here."""
+
+    def __call__(self, parts: list, ops) -> torch.Tensor:
+        return _fold_in_order(parts, ops)
+
+    def argmax(self, pairs) -> int:
+        return _argmax_in_order(pairs)
+
+
+_FOLD = _Fold()
+
+
+class _ProcFold(_Fold):
+    """A pod's combines over the cards of "dp" row `row` of a process mesh
+    (B12c): this process's partials folded, gathered from every process
+    through the process group (once a combine), and the row's folded in
+    card order.  Every process takes part in every gather, whichever row
+    it serves."""
+
+    def __init__(self, mesh, row: int):
+        shards = mesh.shape["nodes"]
+        self.peers = [mesh.procs[row * shards + j] for j in range(shards)]
+
+    def __call__(self, parts: list, ops) -> torch.Tensor:
+        from ..parallel import distributed
+
+        every = distributed.all_gather(_fold_in_order(parts, ops))
+        return _fold_in_order([every[q] for q in self.peers], ops)
+
+    def argmax(self, pairs) -> int:
+        from ..parallel import distributed
+
+        mine = _argmax_in_order(pairs)
+        v = next(v for v, i in pairs if i == mine)
+        every = distributed.all_gather(torch.tensor([v, mine], dtype=torch.int64))
+        return _argmax_in_order([(int(every[q][0]), int(every[q][1])) for q in self.peers])
 
 
 def _skipped(sl: dict, name: str, flag: str) -> bool:
@@ -213,26 +281,33 @@ def _eval_sharded(step, carry: dict, sl: dict, plan) -> StepOut | CompactOut:
     return _eval_shards(step, [_Shard(step.cw, carry, sl, lo, hi) for lo, hi in plan if hi > lo])
 
 
-def _eval_shards(step, shards: list) -> StepOut | CompactOut:
+def _eval_shards(step, shards: list, fold=None, out_step=None) -> StepOut | CompactOut:
     """One pod's step outputs over `shards` (_Shard views, contiguous and
     in node order: a plan's CTA slices, or a card mesh's cards), every
-    reduction over the nodes a partial per shard folded in order; the
-    node-axis outputs joined on the first shard's device."""
-    cw = step.cw
+    reduction over the nodes a partial per shard folded in order by
+    `fold` (_Fold: these shards alone; _ProcFold: with the shards of the
+    other processes of a process mesh, one gather a combine, as PeerScope
+    exchanges once a combine: the spread minima, one vector of the feasible
+    count, the overflow and the normalizing reductions, and the argmax);
+    the node-axis outputs joined on the first shard's device, as wide as
+    `shards` (`out_step`'s node count: step's where they cover it)."""
+    fold = fold or _FOLD
+    out_step = out_step or step
     first = shards[0]
     carry, sl = first.carry, first.sl
     dev = carry["core"].requested.device
     # cluster-wide carries: no node axis, whole (replicated) on every shard
     reject = _prefilter_reject(first.cw, carry, sl)
 
-    # ---- 0. the spread minima: per-shard partials, min-combined
+    # ---- 0. the spread minima: per-shard partials, min-combined (for a
+    # pod whose filter Skips too, so that every pod takes the same combines)
     slot_mins = None
     spread = "PodTopologySpread"
-    if spread in step.filter_names and not _skipped(sl, spread, "filter_skip"):
-        slot_mins = _combine([topologyspread.minima_partial(
-            s.statics[spread], s.sl[spread], s.carry[spread]) for s in shards], torch.minimum)
+    if spread in step.filter_names:
+        slot_mins = fold([topologyspread.minima_partial(
+            s.statics[spread], s.sl[spread], s.carry[spread]) for s in shards], "min")
 
-    # ---- 1. filters over each shard's nodes; the feasible count summed
+    # ---- 1. filters over each shard's nodes
     codes, feas = [], []
     for s in shards:
         w = s.hi - s.lo
@@ -252,8 +327,6 @@ def _eval_shards(step, shards: list) -> StepOut | CompactOut:
         codes.append(torch.stack(rows) if rows
                      else torch.zeros((0, w), dtype=torch.int32, device=dev))
         feas.append(ok)
-    count = _combine([f.sum(dtype=torch.int64).to(dev) for f in feas], torch.add)
-    feasible_count = torch.where(reject > 0, 0, count).to(torch.int32)
 
     # ---- 2. raw scores over each shard's nodes (0 where the scorer Skips)
     raws, ignored = [], []
@@ -272,51 +345,70 @@ def _eval_shards(step, shards: list) -> StepOut | CompactOut:
             rows.append(torch.broadcast_to(raw.to(torch.int64), (s.hi - s.lo,)))
         raws.append(rows)
         ignored.append(ign)
-    overflow = None
-    if step.out_mode == "compact" and step.score_names:
-        overflow = _combine([step.raw_overflow(torch.stack(r)) for r in raws], torch.logical_or)
 
-    # ---- 3/4. the normalizing scorers' reductions combined; normalize x
-    # weight per shard; the argmax partials combined (value desc, index asc)
+    # ---- 3. one combine: the feasible count, the raw-overflow OR and the
+    # normalizing scorers' reductions (every scorer's, Skip or not: the
+    # vector's layout is the step's)
+    ops, parts = [], [[] for _ in shards]
+
+    def partial(op, values):
+        ops.append(op)
+        for part, v in zip(parts, values):
+            part.append(v.to(torch.int64))
+
+    partial("sum", [f.sum() for f in feas])
+    has_overflow = step.out_mode == "compact" and bool(step.score_names)
+    if has_overflow:
+        partial("or", [step.raw_overflow(torch.stack(r)) for r in raws])
+    for k, name in enumerate(step.score_names):
+        rk = [r[k] for r in raws]
+        if name in ("NodeAffinity", "TaintToleration"):
+            partial("max", [torch.where(f, r, 0).max() for r, f in zip(rk, feas)])
+        elif name == spread:
+            scored = [f & ~i for f, i in zip(feas, ignored)]
+            partial("min", [torch.where(sc, r, _BIG).min() for r, sc in zip(rk, scored)])
+            partial("max", [torch.where(sc, r, 0).max() for r, sc in zip(rk, scored)])
+            partial("or", [sc.any() for sc in scored])
+        elif name == "InterPodAffinity":
+            partial("min", [torch.where(f, r, _BIG).min() for r, f in zip(rk, feas)])
+            partial("max", [torch.where(f, r, -_BIG).max() for r, f in zip(rk, feas)])
+    stats = iter(fold([torch.stack(p) for p in parts], ops))
+    count = next(stats)
+    feasible_count = torch.where(reject > 0, 0, count).to(torch.int32)
+    overflow = (next(stats) != 0) if has_overflow else None
+
+    # ---- 4. normalize x weight per shard; the argmax partials combined
+    # (value desc, index asc)
     finals = [[] for _ in shards]
     for k, name in enumerate(step.score_names):
         skip = _skipped(sl, name, "score_skip")
         rk = [r[k] for r in raws]
-        if skip:
-            normed = [torch.zeros_like(r) for r in rk]
-        elif name in ("NodeAffinity", "TaintToleration"):
-            hi = _combine([torch.where(f, r, 0).max() for r, f in zip(rk, feas)], torch.maximum)
+        if name in ("NodeAffinity", "TaintToleration"):
+            hi = next(stats)
             rev = name == "TaintToleration"
-            normed = [default_normalize_apply(r, hi, rev) for r in rk]
+            normed = None if skip else [default_normalize_apply(r, hi, rev) for r in rk]
         elif name == spread:
-            scored = [f & ~i for f, i in zip(feas, ignored)]
-            lo = _combine([torch.where(sc, r, _BIG).min() for r, sc in zip(rk, scored)],
-                          torch.minimum)
-            hi = _combine([torch.where(sc, r, 0).max() for r, sc in zip(rk, scored)],
-                          torch.maximum)
-            anys = _combine([sc.any() for sc in scored], torch.logical_or)
-            normed = [topologyspread.normalize_apply(r, i, lo, hi, anys)
-                      for r, i in zip(rk, ignored)]
+            lo, hi, anys = next(stats), next(stats), next(stats) != 0
+            normed = None if skip else [topologyspread.normalize_apply(r, i, lo, hi, anys)
+                                        for r, i in zip(rk, ignored)]
         elif name == "InterPodAffinity":
-            lo = _combine([torch.where(f, r, _BIG).min() for r, f in zip(rk, feas)],
-                          torch.minimum)
-            hi = _combine([torch.where(f, r, -_BIG).max() for r, f in zip(rk, feas)],
-                          torch.maximum)
-            normed = [interpod.normalize_apply(r, lo, hi) for r in rk]
+            lo, hi = next(stats), next(stats)
+            normed = None if skip else [interpod.normalize_apply(r, lo, hi) for r in rk]
         else:
             normed = rk  # no ScoreExtensions
+        if skip:
+            normed = [torch.zeros_like(r) for r in rk]
         for j, v in enumerate(normed):
             finals[j].append(v * step.weights[k])
-    best_v, best_i = None, None
+    pairs = []
     for s, f, fin in zip(shards, feas, finals):
         total = torch.zeros(s.hi - s.lo, dtype=torch.int64, device=dev)
         for v in fin:
             total = total + v
         total = torch.where(f, total, -1)
         i = int(torch.argmax(total))  # first max: the lowest node of the shard
-        v = int(total[i])
-        if best_v is None or v > best_v or (v == best_v and s.lo + i < best_i):
-            best_v, best_i = v, s.lo + i
+        pairs.append((int(total[i]), s.lo + i))
+    best_i = fold.argmax(pairs)
     selected = torch.tensor(best_i if int(feasible_count) > 0 else -1, dtype=torch.int32,
                             device=dev)
     is_pad = sl.get("is_pad")
@@ -327,11 +419,11 @@ def _eval_shards(step, shards: list) -> StepOut | CompactOut:
 
     def cat(rows_by_shard, k):
         if k == 0:
-            return torch.zeros((0, cw.n_nodes), dtype=torch.int64, device=dev)
+            return torch.zeros((0, out_step.cw.n_nodes), dtype=torch.int64, device=dev)
         return torch.cat([torch.stack(r) for r in rows_by_shard], dim=1)
 
-    return step.pod_out(torch.cat(codes, dim=1), cat(raws, n_s), cat(finals, n_s), selected,
-                        feasible_count, reject, overflow)
+    return out_step.pod_out(torch.cat(codes, dim=1), cat(raws, n_s), cat(finals, n_s), selected,
+                            feasible_count, reject, overflow)
 
 
 def _bind_sharded(cw, carry: dict, sl: dict, selected, plan) -> dict:
@@ -515,12 +607,15 @@ ERR_RESIDENT = 1000  # csrc/cluster.cuh KSS_ERR_RESIDENT
 
 class Cards(tuple):
     """A workload tree (statics, xs or carry) over a card mesh: one part a
-    card, in the mesh's card order, each part a dict on its card.  Setting
-    a key (the padding mask of a chunk) sets it on every card."""
+    card this process holds, in the mesh's card order (every card, but on
+    a process mesh, B12c, where a process holds its own), each part a
+    dict on its card; `ks` are the parts' mesh indices.  Setting a key
+    (the padding mask of a chunk) sets it on every part."""
 
-    def __new__(cls, parts, devices):
+    def __new__(cls, parts, devices, ks=None):
         self = super().__new__(cls, parts)
         self.devices = tuple(devices)
+        self.ks = tuple(range(len(self))) if ks is None else tuple(ks)
         return self
 
     def __setitem__(self, key: str, value: torch.Tensor) -> None:
@@ -528,7 +623,7 @@ class Cards(tuple):
             part[key] = value.to(dev)
 
     def map(self, fn) -> "Cards":
-        return Cards([fn(p) for p in self], self.devices)
+        return Cards([fn(p) for p in self], self.devices, self.ks)
 
 
 def _own(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -564,123 +659,152 @@ def _place_tree(tree: dict, part: str, n: int, lo: int, hi: int, dev, lead: int)
 
 
 def place_cards(cw, mesh) -> tuple[Cards, Cards, Cards]:
-    """The workload's (statics, xs, init_carry) over the mesh's cards."""
+    """The workload's (statics, xs, init_carry) over the cards of the mesh
+    that this process holds (every card, but on a process mesh)."""
     n, shards = cw.n_nodes, mesh.shape["nodes"]
     sl = node_slices(n, shards)
     parts = ([], [], [])
-    for k, dev in enumerate(mesh.cards):
+    for k in mesh.local:
+        dev = mesh.cards[k]
         lo, hi = sl[k % shards]
         parts[0].append(_place_tree(cw.statics, "statics", n, lo, hi, dev, 0))
         parts[1].append(_place_tree(cw.xs, "xs", n, lo, hi, dev, 1))
         parts[2].append(_place_tree(cw.init_carry, "carry", n, lo, hi, dev, 0))
-    return tuple(Cards(p, mesh.cards) for p in parts)
+    devices = [mesh.cards[k] for k in mesh.local]
+    return tuple(Cards(p, devices, mesh.local) for p in parts)
 
 
 class _CardWorkload:
-    """What the kernels' argument code reads of a workload, for card k: its
-    statics, its nodes, where they start and the WHOLE rows' width."""
+    """What the kernels' argument code reads of a workload, for the card of
+    mesh index k (this process's part i): its statics, its nodes, where
+    they start and the WHOLE rows' width."""
 
     __slots__ = ("statics", "n_nodes", "config", "schema", "node_base", "whole_n", "mesh")
 
-    def __init__(self, cw, k: int):
+    def __init__(self, cw, i: int, k: int):
         shards = cw.mesh.shape["nodes"]
         w = cw.n_nodes // shards
-        self.statics, self.n_nodes = cw.statics[k], w
+        self.statics, self.n_nodes = cw.statics[i], w
         self.config, self.schema, self.mesh = cw.config, cw.schema, None
         self.node_base, self.whole_n = (k % shards) * w, cw.n_nodes
 
 
 def card_steps(step) -> list:
-    """The step of each card of step's card mesh: step's plugins and
-    layout over the card's workload (_CardWorkload), made once a step."""
+    """The step of each card this process holds of step's card mesh:
+    step's plugins and layout over the card's workload (_CardWorkload),
+    made once a step."""
     steps = getattr(step, "_card_steps", None)
     if steps is None:
         steps = []
-        for k in range(len(step.cw.mesh.cards)):
+        for i, k in enumerate(step.cw.mesh.local):
             s = copy.copy(step)
-            s.cw = _CardWorkload(step.cw, k)
+            s.cw = _CardWorkload(step.cw, i, k)
             steps.append(s)
         step._card_steps = steps
     return steps
 
 
 def _row_views(step, carry: Cards, sl: Cards, row: int, dev) -> list:
-    """The _Shard views of one pod over the cards of "dp" row `row`, each
-    card's tensors on `dev` (the twins fold on one device)."""
+    """The _Shard views of one pod over the cards of "dp" row `row` that
+    this process holds, each card's tensors on `dev` (the twins fold on
+    one device)."""
     cw, shards = step.cw, step.cw.mesh.shape["nodes"]
+    slices = node_slices(cw.n_nodes, shards)
     views = []
-    for j, (lo, hi) in enumerate(node_slices(cw.n_nodes, shards)):
-        k = row * shards + j
-        move = (lambda t: t.to(dev)) if cw.mesh.cards[k] != dev else (lambda t: t)
-        views.append(_Shard.of_card(cw, _map_tree(move, cw.statics[k]), _map_tree(move, carry[k]),
-                                    _map_tree(move, sl[k]), lo, hi))
+    for i, k in enumerate(carry.ks):
+        if k // shards != row:
+            continue
+        lo, hi = slices[k % shards]
+        move = (lambda t: t.to(dev)) if carry.devices[i] != dev else (lambda t: t)
+        views.append(_Shard.of_card(cw, _map_tree(move, cw.statics[i]), _map_tree(move, carry[i]),
+                                    _map_tree(move, sl[i]), lo, hi))
     return views
 
 
-def _cluster_wide(name: str, v, owner_v, dev):
-    """Card copy `v` of carry component `name` with its cluster-wide leaves
-    (no node axis) taken from the owner card's bound copy `owner_v`."""
+def _twin_fold(step):
+    """(the "dp" row the twins walk, its _Fold, the step that sizes their
+    outputs): row 0, the in-order fold and the full step where this
+    process holds every card; on a process mesh the row of this process's
+    card, the fold across processes and the card's own step."""
+    mesh = step.cw.mesh
+    if mesh.procs is None:
+        return 0, _FOLD, step
+    (k,) = mesh.local
+    row = k // mesh.shape["nodes"]
+    return row, _ProcFold(mesh, row), card_steps(step)[0]
+
+
+_COUPLED = ("PodTopologySpread", "InterPodAffinity")
+
+
+def _cluster_wide(name: str, v, bound_v):
+    """Carry component `name` of a card with its cluster-wide leaves (no
+    node axis) taken from `bound_v`, the same component after the bind."""
     axes = NODE_AXES["carry"][name]
     if isinstance(v, torch.Tensor):
-        return owner_v.to(dev) if axes is None else v
-    return v._replace(**{f: getattr(owner_v, f).to(dev) for f in v._fields
-                         if axes.get(f, 0) is None})
+        return bound_v if axes is None else v
+    return v._replace(**{f: getattr(bound_v, f) for f in v._fields if axes.get(f, 0) is None})
+
+
+def _bind_card(step, i: int, k: int, carry: dict, sl: dict, selected: int) -> dict:
+    """The bind of one pod at node `selected` (the mesh's index, >= 0) on
+    the card of mesh index k (this process's part i), from the card's own
+    tensors alone, as csrc/pod.cuh bind_pod does under PeerScope: the card
+    that owns the node makes the exactly-once row updates (core,
+    NodePorts, disk and CSI rows); every card makes the cluster-wide ones
+    (the ReadWriteOncePod bits, VolumeBinding's claims, InterPod's
+    matched_total) from its whole rows (WHOLE) at the node, over a
+    one-node view of its tensors; each card's slice of the spread counts
+    and the InterPod matrices takes its same-domain increments, the domain
+    read from the card's whole rows.  -> the card's new carry."""
+    cw = step.cw
+    n, shards = cw.n_nodes, cw.mesh.shape["nodes"]
+    w = n // shards
+    lo = (k % shards) * w
+    statics = cw.statics[i]
+    dev = carry["core"].requested.device
+    base = {name: v for name, v in carry.items() if name not in _COUPLED}
+    if lo <= selected < lo + w:
+        view = _Shard.of_card(cw, statics, carry, sl, lo, lo + w)
+        new = _bind_phase(view.cw, base, view.sl,
+                          torch.tensor(selected - lo, dtype=torch.int32, device=dev))
+    else:
+        one = _cut_tree(_cut_whole(statics, "statics", n, selected, selected + 1, 0), "statics",
+                        w, 0, 1)
+        sl1 = _cut_tree(_cut_whole(sl, "xs", n, selected, selected + 1, 0), "xs", w, 0, 1)
+        bound = _bind_phase(_ShardWorkload(cw, one, 1), _cut_tree(base, "carry", w, 0, 1), sl1,
+                            torch.tensor(0, dtype=torch.int32, device=dev))
+        new = {name: _cluster_wide(name, v, bound[name]) for name, v in base.items()}
+    if "PodTopologySpread" in carry:
+        dom = statics["PodTopologySpread"].dom_idx
+        dcol = dom[:, selected]
+        valid = (dcol >= 0) & sl["PodTopologySpread"].pm
+        counts = carry["PodTopologySpread"]
+        new["PodTopologySpread"] = counts + (
+            (dom[:, lo:lo + w] == dcol[:, None]) & valid[:, None]).to(counts.dtype)
+    if "InterPodAffinity" in carry:
+        ic, pod = carry["InterPodAffinity"], sl["InterPodAffinity"]
+        dom = statics["InterPodAffinity"].dom_idx
+        dcol = dom[:, selected]
+        valid = dcol >= 0
+        same = (dom[:, lo:lo + w] == dcol[:, None]) & valid[:, None]
+        incs = (pod.t_matches, pod.h_req_anti, pod.h_req_aff, pod.h_pref_aff_w,
+                pod.h_pref_anti_w)
+        mats = {f: getattr(ic, f) + torch.where(same, inc.to(getattr(ic, f).dtype)[:, None], 0)
+                for f, inc in zip(_IP_MATS, incs)}
+        total = ic.matched_total + torch.where(valid, pod.t_matches.to(torch.int32), 0)
+        new["InterPodAffinity"] = ic._replace(matched_total=total, **mats)
+    return {name: new[name] for name in carry}  # the carry's own order
 
 
 def _bind_cards(step, carry: Cards, sl: Cards, selected: int) -> Cards:
     """The bind of one pod at node `selected` (the mesh's index; -1 binds
-    nothing) on every card, as csrc/pod.cuh bind_pod does under PeerScope:
-    the card that owns the node makes the exactly-once row updates (core,
-    NodePorts, disk and CSI rows) and, as every card does, the cluster-wide
-    ones (the ReadWriteOncePod bits, VolumeBinding's claims, InterPod's
-    matched_total); each card's slice of the spread counts and the InterPod
-    matrices takes its same-domain increments, the domain read from the
-    card's whole rows.  -> new per-card carries."""
+    nothing) on every card this process holds (_bind_card) -> new
+    per-card carries."""
     if selected < 0:
         return carry
-    cw = step.cw
-    shards = cw.mesh.shape["nodes"]
-    w = cw.n_nodes // shards
-    owner = selected // w
-    coupled = ("PodTopologySpread", "InterPodAffinity")
-    out, bound = [], {}
-    for k, dev in enumerate(cw.mesh.cards):
-        row, j = divmod(k, shards)
-        lo = j * w
-        view = _Shard.of_card(cw, cw.statics[k], carry[k], sl[k], lo, lo + w)
-        base = {name: v for name, v in carry[k].items() if name not in coupled}
-        ko = row * shards + owner
-        if row not in bound:  # the owner card's bind, once a row
-            ov = _Shard.of_card(cw, cw.statics[ko], carry[ko], sl[ko], owner * w, owner * w + w)
-            sel_o = torch.tensor(selected - owner * w, dtype=torch.int32,
-                                 device=cw.mesh.cards[ko])
-            bound[row] = _bind_phase(ov.cw, {name: carry[ko][name] for name in base}, ov.sl,
-                                     sel_o)
-        new = bound[row] if k == ko else {name: _cluster_wide(name, v, bound[row][name], dev)
-                                          for name, v in base.items()}
-        new = {name: (v.to(dev) if isinstance(v, torch.Tensor) else
-                      type(v)(*[a.to(dev) for a in v])) for name, v in new.items()}
-        if "PodTopologySpread" in carry[k]:
-            dom = view.statics["PodTopologySpread"].dom_idx
-            dcol = cw.statics[k]["PodTopologySpread"].dom_idx[:, selected]
-            valid = (dcol >= 0) & sl[k]["PodTopologySpread"].pm
-            counts = carry[k]["PodTopologySpread"]
-            new["PodTopologySpread"] = counts + (
-                (dom == dcol[:, None]) & valid[:, None]).to(counts.dtype)
-        if "InterPodAffinity" in carry[k]:
-            ic, pod = carry[k]["InterPodAffinity"], sl[k]["InterPodAffinity"]
-            dom = view.statics["InterPodAffinity"].dom_idx
-            dcol = cw.statics[k]["InterPodAffinity"].dom_idx[:, selected]
-            valid = dcol >= 0
-            same = (dom == dcol[:, None]) & valid[:, None]
-            incs = (pod.t_matches, pod.h_req_anti, pod.h_req_aff, pod.h_pref_aff_w,
-                    pod.h_pref_anti_w)
-            mats = {f: getattr(ic, f) + torch.where(same, inc.to(getattr(ic, f).dtype)[:, None], 0)
-                    for f, inc in zip(_IP_MATS, incs)}
-            total = ic.matched_total + torch.where(valid, pod.t_matches.to(torch.int32), 0)
-            new["InterPodAffinity"] = ic._replace(matched_total=total, **mats)
-        out.append({name: new[name] for name in carry[k]})  # the carry's own order
-    return Cards(out, carry.devices)
+    return Cards([_bind_card(step, i, k, carry[i], sl[i], selected)
+                  for i, k in enumerate(carry.ks)], carry.devices, carry.ks)
 
 
 def _pods(xs: dict, lo: int, hi: int) -> dict:
@@ -688,50 +812,76 @@ def _pods(xs: dict, lo: int, hi: int) -> dict:
     return _map_tree(lambda a: a[lo:hi], xs)
 
 
+def _proc_join(step, stacked, rows: int, q: int):
+    """A process mesh's twin outputs: this process's card's (`stacked`,
+    the card's width) gathered with every other card's through the
+    process group and joined on this process's card, as the wrappers join
+    theirs."""
+    mesh = step.cw.mesh
+    joined = kstep.alloc_outputs(step, rows * q, mesh.cards[mesh.local[0]])
+    mine = {f: getattr(stacked, f) for f in stacked._fields}
+    _join(step, joined, _gather_cards(mesh, mine, [0])[0], rows, q)
+    return type(stacked)(**{f: joined[f] for f in stacked._fields})
+
+
 def step_chunk_cards_plain(step, carry: Cards, xs_chunk: Cards):
     """The twin of step_chunk_cards: a chunk of pods in order, each
-    evaluated over row 0's cards, their partials folded in card order, and
-    bound on every card -> (carry', stacked outs on the mesh's first
-    card)."""
-    dev = step.cw.mesh.cards[0]
+    evaluated over row 0's cards (a process mesh: over the row of this
+    process's card, the other cards' partials through the process group),
+    their partials folded in card order, and bound on every card ->
+    (carry', stacked outs on the mesh's first card; a process mesh's
+    joined on this process's card)."""
+    row, fold, out_step = _twin_fold(step)
+    dev = carry.devices[0]
+    c = xs_chunk[0]["is_pad"].shape[0]
     outs = []
-    for i in range(xs_chunk[0]["is_pad"].shape[0]):
+    for i in range(c):
         sl = xs_chunk.map(lambda x: slice_pod(x, i))
-        out = _eval_shards(step, _row_views(step, carry, sl, 0, dev))
+        out = _eval_shards(step, _row_views(step, carry, sl, row, dev), fold, out_step)
         carry = _bind_cards(step, carry, sl, int(out.selected))
         outs.append(out)
-    return carry, _stack_outs(step, outs)
+    stacked = _stack_outs(out_step, outs)
+    if step.cw.mesh.procs is None:
+        return carry, stacked
+    return carry, _proc_join(step, stacked, 1, c)
 
 
 def _row_batches(step, xs: Cards, b: int) -> list:
-    """Each card's pods of a batch of b: "dp" row r's cards take its r-th
-    group of b / dp pods (JAX parallel/mesh.py:160-170)."""
+    """Each held card's pods of a batch of b: "dp" row r's cards take its
+    r-th group of b / dp pods (JAX parallel/mesh.py:160-170)."""
     dp, shards = step.cw.mesh.shape["dp"], step.cw.mesh.shape["nodes"]
     if b % dp:
         raise ValueError(f"a batch of {b} pods does not split into the mesh's {dp} 'dp' rows")
     q = b // dp
-    return [_pods(x, (k // shards) * q, (k // shards + 1) * q) for k, x in enumerate(xs)]
+    return [_pods(x, (k // shards) * q, (k // shards + 1) * q) for k, x in zip(xs.ks, xs)]
 
 
 def spec_eval_cards_plain(step, carry: Cards, xs: Cards):
     """The twin of spec_eval_cards: every pod of the batch against one
     frozen carry, each "dp" row's group over that row's cards, the
-    partials folded in card order, no bind -> outs on the first card."""
-    dev = step.cw.mesh.cards[0]
-    shards = step.cw.mesh.shape["nodes"]
+    partials folded in card order, no bind -> outs on the first card (a
+    process mesh: each process its row's group, joined on its card)."""
+    dp = step.cw.mesh.shape["dp"]
+    dev = carry.devices[0]
     b = xs[0]["is_pad"].shape[0]
-    mine = Cards(_row_batches(step, xs, b), xs.devices)
+    q = b // dp
+    mine = Cards(_row_batches(step, xs, b), xs.devices, xs.ks)
+    row, fold, out_step = _twin_fold(step)
+    rows = range(dp) if step.cw.mesh.procs is None else (row,)
     outs = []
-    for r in range(step.cw.mesh.shape["dp"]):
-        for i in range(mine[r * shards]["is_pad"].shape[0]):
-            sl = mine.map(lambda x: slice_pod(x, i) if x["is_pad"].shape[0] > i else x)
-            outs.append(_eval_shards(step, _row_views(step, carry, sl, r, dev)))
-    return _stack_outs(step, outs)
+    for r in rows:
+        for i in range(q):
+            sl = mine.map(lambda x: slice_pod(x, i))
+            outs.append(_eval_shards(step, _row_views(step, carry, sl, r, dev), fold, out_step))
+    stacked = _stack_outs(out_step, outs)
+    if step.cw.mesh.procs is None:
+        return stacked
+    return _proc_join(step, stacked, dp, q)
 
 
 def spec_commit_cards_plain(step, carry: Cards, xs: Cards, selected, k: int) -> Cards:
     """The twin of spec_commit_cards: the batch's binds b < k folded in
-    order on every card."""
+    order on every card this process holds."""
     sel = selected.cpu().tolist()
     for b in range(min(int(k), len(sel))):
         carry = _bind_cards(step, carry, xs.map(lambda x: slice_pod(x, b)), int(sel[b]))
@@ -749,21 +899,43 @@ class PeerArgs(ctypes.Structure):
 # (card, peer) pairs whose peer access this process enabled (a second
 # enable of a pair is no error, so two threads racing here are harmless)
 _PEERS_ENABLED: set = set()
+IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t), csrc/step.cu
+
+
+class _DeviceWords:
+    """`__cuda_array_interface__` of `words` int64 at a device pointer:
+    torch.as_tensor wraps it without a copy (the exchange buffer this
+    process allocated, which outlives the tensor)."""
+
+    def __init__(self, ptr: int, words: int):
+        self.__cuda_array_interface__ = {"shape": (words,), "typestr": "<i8",
+                                         "data": (ptr, False), "version": 2, "strides": None}
 
 
 class Exchange:
     """A card mesh's exchange (csrc/scope.cuh PeerScope): a buffer on each
     card, zeroed once, and the epoch counter.  A launch takes epochs past
     the last launch's, so flags only grow; its lock keeps two threads'
-    launches over one mesh from interleaving."""
+    launches over one mesh from interleaving.  On a process mesh (B12c)
+    each process allocates its own card's buffer (csrc/step.cu
+    kss_ipc_export), publishes its IPC handle through the coordinator's
+    store and opens every other card's (kss_ipc_open): `ptrs` are every
+    card's buffer as this process addresses it, `bufs` its own cards'.
+    Every process issues the same launches in the same order (SPMD), so
+    their epochs agree with no exchange of their own; a process that
+    strays makes its peers' waits run past the spin bound, which raises."""
 
     def __init__(self, mesh, lib):
         shards = mesh.shape["nodes"]
         self.mesh = mesh
         self.lock = threading.Lock()
         self.epoch = 0
-        words = XHEAD + XSLOTS * 2 * shards * XW
-        self.bufs = [torch.zeros(words, dtype=torch.int64, device=d) for d in mesh.cards]
+        self.words = XHEAD + XSLOTS * 2 * shards * XW
+        if mesh.procs is not None:
+            self._open_ipc()
+            return
+        self.bufs = [torch.zeros(self.words, dtype=torch.int64, device=d) for d in mesh.cards]
+        self.ptrs = [b.data_ptr() for b in self.bufs]
         distinct = sorted({d.index for d in mesh.cards})
         for a in distinct:
             for b in distinct:
@@ -773,6 +945,52 @@ class Exchange:
                                            lib.kss_enable_peer(a, b))
                     _PEERS_ENABLED.add((a, b))
 
+    def _open_ipc(self) -> None:
+        from ..parallel import distributed
+
+        mesh = self.mesh
+        lib = kstep.load_lib("step")
+        store = distributed.store()
+        key = f"kss/x/{distributed.next_seq()}"
+        self.ptrs = [0] * len(mesh.cards)
+        self.owned, self.opened, self.bufs = [], [], []
+        for k in mesh.local:
+            dev = mesh.cards[k]
+            ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+            kstep.check_launch(f"exchange buffer on {dev}", lib.kss_ipc_export(
+                dev.index, self.words * 8, ctypes.byref(ptr), handle))
+            self.owned.append((dev, ptr.value))
+            self.ptrs[k] = ptr.value
+            self.bufs.append(torch.as_tensor(_DeviceWords(ptr.value, self.words), device=dev))
+            store.set(f"{key}/{k}", handle.raw)
+        home = mesh.cards[mesh.local[0]]
+        for k in range(len(mesh.cards)):
+            if k in mesh.local:
+                continue
+            ptr = ctypes.c_void_p()
+            kstep.check_launch(
+                f"exchange buffer of card {k} (process {mesh.procs[k]}) opened on {home}",
+                lib.kss_ipc_open(home.index, store.get(f"{key}/{k}"), ctypes.byref(ptr)))
+            self.opened.append((home, ptr.value))
+            self.ptrs[k] = ptr.value
+        distributed.on_shutdown(self.close)
+
+    def close(self) -> None:
+        """A process mesh's: close the opened handles, wait until every
+        process has closed its own, free this process's buffers."""
+        import torch.distributed as dist
+
+        lib = kstep.load_lib("step")
+        for dev, _ in self.owned + self.opened:
+            torch.cuda.synchronize(dev)
+        for dev, ptr in self.opened:
+            kstep.check_launch("closing an exchange buffer", lib.kss_ipc_close(dev.index, ptr, 1))
+        self.opened, self.bufs = [], []
+        dist.barrier()
+        for dev, ptr in self.owned:
+            kstep.check_launch("freeing an exchange buffer", lib.kss_ipc_close(dev.index, ptr, 0))
+        self.owned = []
+
     def take(self, epochs: int) -> int:
         """The base epoch of a launch that takes up to `epochs` epochs."""
         base = self.epoch
@@ -781,23 +999,34 @@ class Exchange:
 
     def args(self, base: int, slots: int, card0: int, bound: int) -> PeerArgs:
         p = PeerArgs()
-        for k, buf in enumerate(self.bufs):
-            p.xbuf[k] = buf.data_ptr()
+        for k, ptr in enumerate(self.ptrs):
+            p.xbuf[k] = ptr
         p.epoch, p.bound = base, bound
         p.cards, p.slots, p.card0 = self.mesh.shape["nodes"], slots, card0
         return p
 
-    def check(self, what: str) -> None:
-        """After the launches: raise where a card's wait ran past the spin
-        bound (its buffer's error word: 1 + the card it waited for)."""
+    def errors(self) -> list[int]:
+        """After the launches: the error word of each buffer this process
+        holds (0, or 1 + the card its wait ran past the spin bound for),
+        each reset."""
         words = [int(b[0]) for b in self.bufs]
         for b in self.bufs:
             b[0] = 0
+        return words
+
+    def check(self, what: str, words: list[int]) -> None:
+        """Raise where a card's wait ran past the spin bound; `words` are
+        every card's error words, in mesh order."""
         bad = [(k, w - 1) for k, w in enumerate(words) if w]
         if bad:
             raise RuntimeError(f"{what}: " + "; ".join(
-                f"card {k} ({self.mesh.cards[k]}) waited past the spin bound for card {j} "
-                f"({self.mesh.cards[j]})" for k, j in bad))
+                f"card {k} ({self._name(k)}) waited past the spin bound for card {j} "
+                f"({self._name(j)})" for k, j in bad))
+
+    def _name(self, k: int) -> str:
+        procs = self.mesh.procs
+        where = str(self.mesh.cards[k])
+        return where if procs is None else f"process {procs[k]}:{where}"
 
 
 def exchange(mesh, lib) -> Exchange:
@@ -807,21 +1036,46 @@ def exchange(mesh, lib) -> Exchange:
     return x
 
 
+def _gather_cards(mesh, outs: dict, words: list[int]) -> tuple[list[dict], list[int]]:
+    """A process mesh's card outputs and error words: this process's card's
+    `outs` (a dict of tensors, the same shapes on every card) and error
+    word, gathered through the process group in one collective (every
+    process calls it) -> every card's outputs, on this process's card, and
+    error words, in mesh order."""
+    from ..parallel import distributed
+
+    dev = mesh.cards[mesh.local[0]]
+    keys = list(outs)
+    flat = [torch.tensor(words, dtype=torch.int64)] + [
+        outs[f].detach().reshape(-1).cpu() for f in keys]
+    sizes = [t.numel() * t.element_size() for t in flat]
+    every = distributed.all_gather(torch.cat([t.contiguous().view(torch.uint8) for t in flat]))
+    cards, errs = [None] * len(mesh.cards), [0] * len(mesh.cards)
+    for k, q in enumerate(mesh.procs):
+        pieces = every[q].split(sizes)
+        errs[k] = int(pieces[0].clone().view(torch.int64)[0])
+        # a piece may start at any byte: each is copied before its view
+        cards[k] = {f: p.clone().view(outs[f].dtype).reshape(outs[f].shape).to(dev)
+                    for f, p in zip(keys, pieces[1:])}
+    return cards, errs
+
+
 def _launch_groups(mesh) -> list:
-    """(card, mesh indices) of each launch: one launch of every card on
-    virtual cards, else one a card."""
+    """(card, this process's part indices) of each launch: one launch of
+    every card on virtual cards, else one a card."""
     if mesh.virtual:
         return [(mesh.cards[0], list(range(len(mesh.cards))))]
-    return [(d, [k]) for k, d in enumerate(mesh.cards)]
+    return [(mesh.cards[k], [i]) for i, k in enumerate(mesh.local)]
 
 
-def _table(args: list, ks: list):
-    return (kstep.StepArgs * len(ks))(*[args[k] for k in ks])
+def _table(args: list, ids: list):
+    return (kstep.StepArgs * len(ids))(*[args[i] for i in ids])
 
 
 def _join(step, dst: dict, outs: list, rows: int, q: int) -> None:
-    """Each "dp" row's card outputs written into dst (full width, on the
-    mesh's first card): row r's pods [r q, (r + 1) q), card j's nodes."""
+    """Each "dp" row's card outputs (`outs` in mesh order) written into dst
+    (full width, on the mesh's first card, or this process's card):
+    row r's pods [r q, (r + 1) q), card j's nodes."""
     mesh = step.cw.mesh
     shards, w = mesh.shape["nodes"], step.cw.n_nodes // mesh.shape["nodes"]
     for r in range(rows):
@@ -842,10 +1096,36 @@ def _resident(what: str, plan: str, have: int, need: int) -> None:
                            f"once, the launch needs {need}: its clusters spin on each other")
 
 
-def _finish(what: str, x: Exchange, mesh) -> None:
-    for d in {d for d in mesh.cards}:
+def _finish(what: str, x: Exchange, mesh, outs: list) -> list:
+    """Wait for this process's launches and raise where a wait ran past the
+    spin bound -> every card's outputs in mesh order.  On a process mesh
+    the other cards' outputs and error words come through the process
+    group, so every process raises alike."""
+    for d in {mesh.cards[k] for k in mesh.local}:
         torch.cuda.current_stream(d).synchronize()
-    x.check(what)
+    words = x.errors()
+    if mesh.procs is not None:
+        (mine,) = outs
+        outs, words = _gather_cards(mesh, mine, words)
+    x.check(what, words)
+    return outs
+
+
+def _agreed_slots(step, q: int, ctas: int, slots: int) -> int:
+    """The pod slots of a launch on every card: this process's plan's, and
+    on a process mesh the least of every process's (the cards of a row
+    walk the same pods in the same slots).  The plan is a function of the
+    step, the batch's pods a row `q` and the CTAs asked for, so the
+    processes agree once for each (on their first such launch, which
+    SPMD order makes the same launch in each) and keep the answer."""
+    if step.cw.mesh.procs is None:
+        return slots
+    agreed = step.__dict__.setdefault("_agreed_slots", {})
+    if (q, ctas) not in agreed:
+        from ..parallel import distributed
+
+        agreed[q, ctas] = min(int(t) for t in distributed.all_gather(torch.tensor(slots)))
+    return agreed[q, ctas]
 
 
 def step_chunk_cards(step, carry: Cards, xs_chunk: Cards, *, _ctas: int = 0, _bound: int = 0,
@@ -857,13 +1137,14 @@ def step_chunk_cards(step, carry: Cards, xs_chunk: Cards, *, _ctas: int = 0, _bo
     cluster of R CTAs a card, the cards of each "dp" row combining through
     the exchange; every card's carry updated in place; the wrapper waits
     for its launches and raises where a wait ran past the spin bound; the
-    first row's outputs joined on the first card.  CPU tensors:
-    step_chunk_cards_plain.  For tests and measurement only: `_ctas`
-    forces R, `_bound` the spin bound in clock64() cycles, `_only` (mesh
-    card indices) launches those cards alone, so their waits fail;
-    `_events`, two CUDA events, are recorded on the first card's stream
-    before the first launch and after the last (virtual cards: the
-    launch's device time, without the wait and the join)."""
+    first row's outputs joined on the first card.  On a process mesh
+    (B12c) each process launches its own card and joins the outputs on
+    it.  CPU tensors: step_chunk_cards_plain.  For tests and measurement
+    only: `_ctas` forces R, `_bound` the spin bound in clock64() cycles,
+    `_only` (mesh card indices) launches those cards alone, so their waits
+    fail; `_events`, two CUDA events, are recorded on this process's first
+    card's stream before the first launch and after the last (virtual
+    cards: the launch's device time, without the wait and the join)."""
     mesh = step.cw.mesh
     if mesh.cards[0].type == "cpu":
         return step_chunk_cards_plain(step, carry, xs_chunk)
@@ -871,46 +1152,48 @@ def step_chunk_cards(step, carry: Cards, xs_chunk: Cards, *, _ctas: int = 0, _bo
     steps = card_steps(step)
     c = xs_chunk[0]["is_pad"].shape[0]
     outs, args = [], []
-    for k, dev in enumerate(mesh.cards):
-        kstep.check_device("step_chunk_cards", dev, steps[k].cw.statics, carry[k], xs_chunk[k])
-        outs.append(kstep.alloc_outputs(steps[k], c, dev))
-        args.append(kstep.make_args(steps[k], carry[k], xs_chunk[k], outs[-1]))
+    for i, dev in enumerate(carry.devices):
+        kstep.check_device("step_chunk_cards", dev, steps[i].cw.statics, carry[i], xs_chunk[i])
+        outs.append(kstep.alloc_outputs(steps[i], c, dev))
+        args.append(kstep.make_args(steps[i], carry[i], xs_chunk[i], outs[-1]))
     x = exchange(mesh, lib)
     held = []
     groups = _launch_groups(mesh)
     if _only is not None:
-        groups = [(dev, [k for k in ks if k in _only]) for dev, ks in groups]
-        groups = [(dev, ks) for dev, ks in groups if ks]
+        groups = [(dev, [i for i in ids if mesh.local[i] in _only]) for dev, ids in groups]
+        groups = [(dev, ids) for dev, ids in groups if ids]
+    home = carry.devices[0]
     with x.lock:
         base = x.take(3 * c + 1)
         if _events is not None:
-            _events[0].record(torch.cuda.current_stream(mesh.cards[0]))
-        for dev, ks in groups:
+            _events[0].record(torch.cuda.current_stream(home))
+        for dev, ids in groups:
             ctas, spill, masks, resident = (ctypes.c_int(0), ctypes.c_longlong(0),
                                             ctypes.c_longlong(0), ctypes.c_int(0))
             with torch.cuda.device(dev):
                 kstep.check_launch("step_chunk_cards plan", lib.kss_step_cards_plan(
-                    _table(args, ks), len(ks), _ctas, dev.index, ctypes.byref(ctas),
+                    _table(args, ids), len(ids), _ctas, dev.index, ctypes.byref(ctas),
                     ctypes.byref(spill), ctypes.byref(masks), ctypes.byref(resident)))
-                _resident("step_chunk_cards", f"{ctas.value} CTAs a card", resident.value, len(ks))
-                for k in ks:
+                _resident("step_chunk_cards", f"{ctas.value} CTAs a card", resident.value,
+                          len(ids))
+                for i in ids:
                     if spill.value:
                         held.append(torch.empty(spill.value, dtype=torch.uint8, device=dev))
-                        args[k].spill = held[-1].data_ptr()
+                        args[i].spill = held[-1].data_ptr()
                 if masks.value:
-                    held.append(kstep.vb_masks(masks.value, dev, [args[k] for k in ks]))
-                peer = x.args(base, 1, ks[0], _bound or SPIN_BOUND)
-                err = lib.kss_step_cards(_table(args, ks), len(ks), ctas.value,
+                    held.append(kstep.vb_masks(masks.value, dev, [args[i] for i in ids]))
+                peer = x.args(base, 1, mesh.local[ids[0]], _bound or SPIN_BOUND)
+                err = lib.kss_step_cards(_table(args, ids), len(ids), ctas.value,
                                          ctypes.byref(peer), dev.index, kstep.stream_of(dev))
             if err == ERR_RESIDENT:
-                _resident("step_chunk_cards", f"{ctas.value} CTAs a card", 0, len(ks))
+                _resident("step_chunk_cards", f"{ctas.value} CTAs a card", 0, len(ids))
             kstep.check_launch("step_chunk_cards", err)
             step_chunk_cards.launches += 1
             step_chunk_cards.ctas = ctas.value
         if _events is not None:
-            _events[1].record(torch.cuda.current_stream(mesh.cards[0]))
-        _finish("step_chunk_cards", x, mesh)
-    joined = kstep.alloc_outputs(step, c, mesh.cards[0])
+            _events[1].record(torch.cuda.current_stream(home))
+        outs = _finish("step_chunk_cards", x, mesh, outs)
+    joined = kstep.alloc_outputs(step, c, home)
     _join(step, joined, outs, 1, c)
     cls = StepOut if step.out_mode == "full" else CompactOut
     return carry, cls(**{k: joined[k] for k in cls._fields})
@@ -929,9 +1212,10 @@ def spec_eval_cards(step, carry: Cards, xs: Cards, outs: dict | None = None, *, 
     tensors: one launch of csrc/spec_eval.cu spec_eval_cards_kernel a card
     (one of every card on virtual cards), all issued before any is
     awaited: a card's clusters are pod slots, as many as the card holds
-    with every other card's (`spec_eval_cards.slots`), each walking its
-    pods; the wrapper waits and raises as step_chunk_cards does.  CPU
-    tensors: spec_eval_cards_plain.  `_ctas`, `_bound`, `_events`: as
+    with every other card's (`spec_eval_cards.slots`; on a process mesh
+    the least over the processes), each walking its pods; the wrapper
+    waits and raises as step_chunk_cards does.  CPU tensors:
+    spec_eval_cards_plain.  `_ctas`, `_bound`, `_events`: as
     step_chunk_cards."""
     mesh = step.cw.mesh
     if mesh.cards[0].type == "cpu":
@@ -942,56 +1226,57 @@ def spec_eval_cards(step, carry: Cards, xs: Cards, outs: dict | None = None, *, 
     mine = _row_batches(step, xs, b)
     q = b // mesh.shape["dp"]
     card_outs, args = [], []
-    for k, dev in enumerate(mesh.cards):
-        kstep.check_device("spec_eval_cards", dev, steps[k].cw.statics, carry[k], mine[k])
-        card_outs.append(kstep.alloc_outputs(steps[k], q, dev))
-        args.append(kstep.make_args(steps[k], carry[k], mine[k], card_outs[-1]))
+    for i, dev in enumerate(carry.devices):
+        kstep.check_device("spec_eval_cards", dev, steps[i].cw.statics, carry[i], mine[i])
+        card_outs.append(kstep.alloc_outputs(steps[i], q, dev))
+        args.append(kstep.make_args(steps[i], carry[i], mine[i], card_outs[-1]))
     x = exchange(mesh, lib)
     held = []
     groups = _launch_groups(mesh)
     plans = []
-    for dev, ks in groups:
+    for dev, ids in groups:
         ctas, slots, spill, masks, resident = (ctypes.c_int(0), ctypes.c_int(0),
                                                ctypes.c_longlong(0), ctypes.c_longlong(0),
                                                ctypes.c_int(0))
         with torch.cuda.device(dev):
             kstep.check_launch("spec_eval_cards plan", lib.kss_eval_cards_plan(
-                _table(args, ks), len(ks), _ctas, dev.index, ctypes.byref(ctas),
+                _table(args, ids), len(ids), _ctas, dev.index, ctypes.byref(ctas),
                 ctypes.byref(slots), ctypes.byref(spill), ctypes.byref(masks),
                 ctypes.byref(resident)))
-        _resident("spec_eval_cards", f"{ctas.value} CTAs a pod", resident.value, len(ks))
+        _resident("spec_eval_cards", f"{ctas.value} CTAs a pod", resident.value, len(ids))
         plans.append((ctas.value, slots.value, spill.value, masks.value))
     ctas = plans[0][0]
     # a row's cards walk the same pods in the same slots
-    slots = min(XSLOTS, *(p[1] for p in plans))
+    slots = _agreed_slots(step, q, _ctas, min(XSLOTS, *(p[1] for p in plans)))
+    home = carry.devices[0]
     with x.lock:
         base = x.take(3 * -(-q // slots) + 1)
         if _events is not None:
-            _events[0].record(torch.cuda.current_stream(mesh.cards[0]))
-        for (dev, ks), (_, _, cta_spill, mask_bytes) in zip(groups, plans):
+            _events[0].record(torch.cuda.current_stream(home))
+        for (dev, ids), (_, _, cta_spill, mask_bytes) in zip(groups, plans):
             with torch.cuda.device(dev):
-                for k in ks:
+                for i in ids:
                     if cta_spill:
                         held.append(torch.empty(cta_spill * slots * ctas, dtype=torch.uint8,
                                                 device=dev))
-                        args[k].spill = held[-1].data_ptr()
+                        args[i].spill = held[-1].data_ptr()
                 if mask_bytes:  # the plan's slots, at least these
-                    held.append(kstep.vb_masks(mask_bytes, dev, [args[k] for k in ks]))
-                peer = x.args(base, slots, ks[0], _bound or SPIN_BOUND)
-                err = lib.kss_eval_cards(_table(args, ks), len(ks), ctas, ctypes.byref(peer),
+                    held.append(kstep.vb_masks(mask_bytes, dev, [args[i] for i in ids]))
+                peer = x.args(base, slots, mesh.local[ids[0]], _bound or SPIN_BOUND)
+                err = lib.kss_eval_cards(_table(args, ids), len(ids), ctas, ctypes.byref(peer),
                                          dev.index, kstep.stream_of(dev))
             if err == ERR_RESIDENT:
                 _resident("spec_eval_cards", f"{ctas} CTAs a pod, {slots} slots a card", 0,
-                          len(ks) * slots)
+                          len(ids) * slots)
             kstep.check_launch("spec_eval_cards", err)
             spec_eval_cards.launches += 1
         if _events is not None:
-            _events[1].record(torch.cuda.current_stream(mesh.cards[0]))
-        _finish("spec_eval_cards", x, mesh)
+            _events[1].record(torch.cuda.current_stream(home))
+        card_outs = _finish("spec_eval_cards", x, mesh, card_outs)
     spec_eval_cards.ctas, spec_eval_cards.slots = ctas, slots
     spec_eval_cards.batches[b] += 1
     if outs is None:
-        outs = kstep.alloc_outputs(step, b, mesh.cards[0])
+        outs = kstep.alloc_outputs(step, b, home)
     _join(step, outs, card_outs, mesh.shape["dp"], q)
     cls = StepOut if step.out_mode == "full" else CompactOut
     return cls(**{k: outs[k] for k in cls._fields})
@@ -1004,18 +1289,18 @@ spec_eval_cards.batches = collections.Counter()
 
 
 def spec_commit_cards(step, carry: Cards, xs: Cards, selected, k: int) -> Cards:
-    """B5 over a card mesh: rows b < k of the batch bound into every card's
-    carry.  CUDA tensors: B5's kernel (spec_commit_core on a core-only
-    carry, else spec_commit_bind) on each card over its node slice, in
-    place, `selected` the mesh's node indices (csrc/spec_commit.cu).  CPU
-    tensors: spec_commit_cards_plain."""
+    """B5 over a card mesh: rows b < k of the batch bound into the carry of
+    every card this process holds.  CUDA tensors: B5's kernel
+    (spec_commit_core on a core-only carry, else spec_commit_bind) on each
+    card over its node slice, in place, `selected` the mesh's node indices
+    (csrc/spec_commit.cu).  CPU tensors: spec_commit_cards_plain."""
     mesh = step.cw.mesh
     if mesh.cards[0].type == "cpu":
         return spec_commit_cards_plain(step, carry, xs, selected, k)
     kernel = kspec.spec_commit_core if kspec.core_only(carry[0]) else kspec.spec_commit_bind
-    for j, (s, dev) in enumerate(zip(card_steps(step), mesh.cards)):
+    for i, (s, dev) in enumerate(zip(card_steps(step), carry.devices)):
         with torch.cuda.device(dev):
-            kspec._commit(kernel, s, carry[j], xs[j], selected.to(dev), k)
+            kspec._commit(kernel, s, carry[i], xs[i], selected.to(dev), k)
         spec_commit_cards.launches += 1
     return carry
 

@@ -1,3 +1,5 @@
+from .distributed import (  # noqa: F401
+    CrossHostMeshError, global_devices, process_count, process_index, shutdown_distributed)
 from .mesh import (  # noqa: F401
     initialize_distributed,
     make_mesh,

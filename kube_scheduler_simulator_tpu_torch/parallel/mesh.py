@@ -55,14 +55,33 @@ them:
     exchange buffer, for tests and measurement only (`make_mesh(...,
     _virtual=True)`).
 
+A process mesh (B12c: `device` the global device set of a process mesh,
+`global_devices()` after `initialize_distributed`, parallel/distributed.py):
+the same card mesh with card k held by process k, one process a card, so
+every process of the mesh runs the same program (SPMD) and returns the
+same result:
+
+  * each process places only its own card's parts, cut from the same
+    compiled workload exactly as above (`shard_workload`);
+  * the exchange buffers are each process's own allocations, opened by
+    every other process over CUDA IPC (kernels/mesh.py Exchange), so the
+    kernels are B12b's, unchanged; every process issues the same launches
+    in the same order, which keeps the exchange's epochs in step without a
+    host round trip per launch;
+  * after each launch the cards' outputs and error words are gathered
+    through the process group, so every process joins the full outputs on
+    its own card (where the oracle, the grid, B7 and the decode run) and
+    every process raises where any card's wait failed;
+  * two processes may share one card: they are two CUDA contexts, each
+    with its own memory and its own exchange buffer; distinct cards need
+    peer access between every pair;
+  * on the CPU the twins fold each combine's partials across the processes
+    through the process group, one gather a combine.
+Not ported: processes on more than one host (ROADMAP Queue B: B12c across
+hosts), which `initialize_distributed` refuses.
+
 On the CPU every kernel's plain twin runs, which computes the same
 per-shard (or per-card) decomposition.
-
-Not ported: `initialize_distributed`, the multi-process, multi-host mesh
-(ROADMAP Queue B item B12c): the JAX package runs the same program in
-every process once `jax.distributed.initialize` has made the device set
-global, so the port needs the engine driven in every process and a
-transport across hosts.
 """
 
 from __future__ import annotations
@@ -77,9 +96,8 @@ from ..framework.pipeline import build_step
 from ..kernels.mesh import (MAX_CARDS, MAX_SHARDS, node_slices, place_cards, spec_eval_cards,
                             spec_eval_sharded)
 from ..state.compile import CompiledWorkload
-
-_B12C = ("a mesh across processes and hosts is not ported (ROADMAP Queue B: B12c): "
-         "a card mesh spans the cards of one process")
+from . import distributed
+from .distributed import initialize_distributed  # noqa: F401  (JAX :175)
 
 
 class Mesh:
@@ -87,11 +105,14 @@ class Mesh:
     jax.sharding.Mesh, `device` the card (or the CPU) that holds the
     workload's unsharded tensors and the joined outputs.  `cards` is None
     on a one-card mesh (B12), else the dp x S cards in mesh order (B12b),
-    `virtual` when they are virtual cards of `device`."""
+    `virtual` when they are virtual cards of `device`.  On a process mesh
+    (B12c) `procs` is each card's process and `device` this process's
+    card; `local` is the mesh indices of the cards this process holds."""
 
     axis_names = ("dp", "nodes")
 
-    def __init__(self, dp: int, nodes: int, device, cards=None, virtual: bool = False):
+    def __init__(self, dp: int, nodes: int, device, cards=None, virtual: bool = False,
+                 procs=None):
         if cards is None and nodes > MAX_SHARDS:
             raise ValueError(
                 f"a mesh's 'nodes' extent ({nodes}) splits a cluster of the sharded "
@@ -100,6 +121,10 @@ class Mesh:
         self.device = resolve_device(device)
         self.cards = None if cards is None else tuple(cards)
         self.virtual = virtual
+        self.procs = None if procs is None else tuple(procs)
+        me = distributed.process_index()
+        self.local = (None if cards is None else tuple(range(len(self.cards))) if procs is None
+                      else tuple(k for k, q in enumerate(self.procs) if q == me))
 
     def node_slices(self, n: int) -> tuple[tuple[int, int], ...]:
         """Shard r's nodes [lo, hi), r = 0..S-1."""
@@ -107,11 +132,13 @@ class Mesh:
 
     def signature(self) -> tuple:
         """What a compiled program depends on: the axes' extents (JAX
-        replay.py:1094 mesh_sig), the device, and a card mesh's cards
-        (this mesh's own, for virtual cards: their buffers are its own)."""
+        replay.py:1094 mesh_sig), the device, a card mesh's cards (this
+        mesh's own, for virtual cards: their buffers are its own) and a
+        process mesh's layout (each card's process, of how many)."""
         cards = None if self.cards is None else (
             tuple(map(str, self.cards)), id(self) if self.virtual else None)
-        return (tuple(self.shape.items()), str(self.device), cards)
+        procs = None if self.procs is None else (self.procs, distributed.process_count())
+        return (tuple(self.shape.items()), str(self.device), cards, procs)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self.signature() == other.signature()
@@ -122,7 +149,8 @@ class Mesh:
     def __repr__(self) -> str:
         where = (f"device={self.device}" if self.cards is None else
                  f"{len(self.cards)} virtual cards of {self.device}" if self.virtual else
-                 f"cards={[str(c) for c in self.cards]}")
+                 f"cards={[str(c) for c in self.cards]}" if self.procs is None else
+                 f"{len(self.cards)} processes' cards {[str(c) for c in self.cards]}")
         return f"Mesh(dp={self.shape['dp']}, nodes={self.shape['nodes']}, {where})"
 
 
@@ -152,19 +180,50 @@ def _check_cards(cards: list) -> None:
                                    f"access to {b}")
 
 
+def _check_process_cards(cards: list) -> None:
+    """A process mesh's cards: all cards or all the CPU; where two
+    processes hold distinct physical cards, this process sees both and
+    they have peer access (two processes on one card need none)."""
+    kinds = {c.device.type for c in cards}
+    if len(kinds) > 1:
+        raise ValueError(f"a mesh over {[str(c) for c in cards]}: a process mesh takes cards "
+                         "only or the CPU only")
+    if kinds != {"cuda"}:
+        return
+    here = {str(torch.cuda.get_device_properties(i).uuid): i
+            for i in range(torch.cuda.device_count())}
+    uuids = sorted({c.uuid for c in cards})
+    if len(uuids) < 2:
+        return
+    unseen = [str(c) for c in cards if c.uuid not in here]
+    if unseen:
+        raise RuntimeError(f"a mesh over {[str(c) for c in cards]}: process "
+                           f"{distributed.process_index()} does not see the cards of {unseen}")
+    for a in uuids:
+        for b in uuids:
+            if a != b and not torch.cuda.can_device_access_peer(here[a], here[b]):
+                raise RuntimeError(f"a mesh over {[str(c) for c in cards]}: cuda:{here[a]} "
+                                   f"has no peer access to cuda:{here[b]}")
+
+
 def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda", *,
               _virtual: bool = False) -> Mesh:
     """JAX :42: a (dp) x (nodes = n / dp) mesh.  `device` is one card
     ("cuda" by default, which needs a card) or "cpu": a one-card mesh, n
     defaulting to MAX_SHARDS, 8; or a list of devices: of one card, the
     same; of distinct cards, a mesh over them (n defaults to their number,
-    and at most that many are taken, as JAX takes jax.devices()[:n]).
+    and at most that many are taken, as JAX takes jax.devices()[:n]); or
+    `global_devices()` of a process mesh (parallel/distributed.py), card k
+    held by process k (B12c), which every process of the mesh calls alike.
     For tests and measurement only, `_virtual` gives n virtual cards of
     the one `device` (the counterpart of the JAX package's virtual CPU
     devices)."""
     devices = list(device) if isinstance(device, (list, tuple)) else [device]
-    cards = list(dict.fromkeys(_card(d) for d in devices))
-    distinct = len(cards) > 1
+    across = [d for d in devices if isinstance(d, distributed.ProcessCard)]
+    if across and (len(across) != len(devices) or _virtual):
+        raise ValueError("a process mesh is laid over global_devices() alone")
+    cards = list(dict.fromkeys(_card(d) for d in devices)) if not across else []
+    distinct = len(cards) > 1 or bool(across)
     if distinct and _virtual:
         raise ValueError("virtual cards are cards of one device")
     n = n_devices or (len(devices) if distinct else MAX_SHARDS)
@@ -185,6 +244,15 @@ def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda", *,
         return Mesh(dp, n // dp, devices[0])
     if n > MAX_CARDS:
         raise ValueError(f"a mesh over {n} cards: a card mesh takes at most {MAX_CARDS}")
+    if across:
+        chosen = across[:n]
+        procs = [c.process for c in chosen]
+        if sorted(procs) != list(range(distributed.process_count())):
+            raise ValueError(f"a process mesh over {[str(c) for c in chosen]}: it holds one "
+                             f"card of each of the {distributed.process_count()} processes")
+        _check_process_cards(chosen)
+        me = procs.index(distributed.process_index())
+        return Mesh(dp, n // dp, chosen[me].device, [c.device for c in chosen], procs=procs)
     if distinct:
         cards = [_card(d) for d in devices[:n]]
         if len(set(cards)) != n:
@@ -195,12 +263,20 @@ def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda", *,
     return Mesh(dp, n // dp, home, [home] * n, virtual=True)
 
 
-def gather_to_host(x) -> np.ndarray:
+def gather_to_host(x, mesh: Mesh | None = None) -> np.ndarray:
     """JAX :80: one replay output as a contiguous C-order host array.  A
     sharded output is one full-width tensor already (on one card each
     shard wrote its slice in place; a card mesh's are joined on its first
-    card); a sequence of per-card shards is joined in card order along
-    its last (node) axis."""
+    card, a process mesh's on every process's card); a sequence of
+    per-card shards is joined in card order along its last (node) axis.
+    On a process `mesh` `x` is this process's card's node shard (a tensor,
+    or a sequence of one): every process of the mesh calls it, the other
+    cards' shards come through the process group, and the first "dp"
+    row's are joined (every row holds the same values)."""
+    if mesh is not None and mesh.procs is not None:
+        mine = x[0] if isinstance(x, (list, tuple)) else x
+        parts = distributed.all_gather(torch.as_tensor(mine))
+        return gather_to_host([parts[q] for q in mesh.procs[:mesh.shape["nodes"]]])
     if isinstance(x, (list, tuple)):
         return np.ascontiguousarray(np.concatenate([gather_to_host(s) for s in x], axis=-1))
     if isinstance(x, torch.Tensor):
@@ -224,7 +300,8 @@ def shard_workload(cw: CompiledWorkload, mesh: Mesh) -> CompiledWorkload:
     unsharded).  On one card the tensors are shared: each shard reads and
     writes its slice of them in place.  On a card mesh its statics, xs
     and carry are kernels/mesh.py `Cards`, each card's part placed on it
-    (module doc)."""
+    (module doc); on a process mesh the parts of this process's card, cut
+    from `cw` exactly as every other process cuts its own."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"expected a parallel.mesh.Mesh, got {type(mesh).__name__}")
     if mesh.device != cw.device:
@@ -270,12 +347,3 @@ def speculative_scores(cw: CompiledWorkload, mesh: Mesh | None = None):
             return spec_eval_sharded(step, carry, xs_batch)
 
     return run
-
-
-def initialize_distributed(coordinator_address: str | None = None,
-                           num_processes: int | None = None,
-                           process_id: int | None = None) -> None:
-    """JAX :172: the multi-host entry.  A card mesh spans the cards of one
-    process; meshes across processes and hosts are ROADMAP Queue B item
-    B12c."""
-    raise NotImplementedError(f"initialize_distributed: {_B12C}")

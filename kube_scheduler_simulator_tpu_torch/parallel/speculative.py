@@ -60,6 +60,12 @@ round's state lives as follows:
   * the grid, B7 and the decode run on the first card, as without a mesh;
   * the scan fallback is B12b `step_chunk_cards`.
 
+Over a process mesh (B12c, parallel/distributed.py) every process runs
+the stream alike: each round's outputs are joined on every process's
+card, so every process runs the oracle over the same outputs and takes
+the same K, the same cuts and the same fallback, with no broadcast of
+the decision; the commit runs on each process's own card.
+
 On the CPU each wrapper runs its plain PyTorch version instead.  The
 device is the one `cw` lives on: `compile_workload` defaults to the card.
 

@@ -2333,3 +2333,26 @@ def test_cards_on_distinct_cards(card, n, dp):
     assert (rr.selected == base.selected).all()
     srr, _ = pspec.replay_speculative_stream(cw, mesh=mesh, chunk=16, pods=cw.pods)
     assert (srr.selected == base.selected).all()
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["one-card", "distinct-cards"])
+def test_cards_in_a_process_mesh(card, shared):
+    """B12c: step_chunk_cards, spec_eval_cards and spec_commit_cards over a
+    mesh of two processes (two contexts sharing the card, or one process
+    a card where the host has two), the exchange buffers opened over CUDA
+    IPC, each held exactly to its twin in the same mesh (the twin's
+    combines through the process group) in both processes.  The parent
+    builds the kernels first: the workers load them."""
+    import torch_mesh_procs_workers as workers
+
+    from kube_scheduler_simulator_tpu_torch.parallel.distributed import _spawn
+
+    if not shared and torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 cards, the host has {torch.cuda.device_count()}")
+    for stem in ("step", "spec_eval", "spec_commit"):
+        kstep.load_lib(stem)
+    got = _spawn(workers.card_kernels_worker, 2, (2, 16, 8), deadline_s=300,
+                cards=[0, 0] if shared else [0, 1])
+    for r in got:
+        assert (r["step"], r["eval"], r["commit"]) == (0, 0, 0), r
+        assert all(n > 0 for n in r["launches"]), r

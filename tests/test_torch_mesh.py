@@ -44,7 +44,7 @@ from kube_scheduler_simulator_tpu_torch.framework.replay import _clone_carry, _s
 from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
 from kube_scheduler_simulator_tpu_torch.models import baseline_config
 from kube_scheduler_simulator_tpu_torch.parallel import (
-    initialize_distributed, make_mesh, shard_workload, sharded_step, speculative_scores)
+    global_devices, make_mesh, shard_workload, sharded_step, speculative_scores)
 from kube_scheduler_simulator_tpu_torch.parallel import speculative as pspec
 from kube_scheduler_simulator_tpu_torch.parallel.mesh import Mesh, can_shard, gather_to_host
 from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
@@ -214,9 +214,11 @@ def test_make_mesh_rejects_non_divisible_dp():
             make_mesh(8, device=["cuda", "cuda:0"])
     else:
         assert make_mesh(8, device=["cuda", "cuda:0"]).device == torch.device("cuda", 0)
-    # meshes across processes and hosts are ROADMAP Queue B item B12c
-    with pytest.raises(NotImplementedError, match="B12c"):
-        initialize_distributed()
+    # a mesh across processes (B12c) is laid over the global device set,
+    # which initialize_distributed makes (tests/test_torch_mesh_procs.py
+    # spawns the processes)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        global_devices()
 
 
 def test_speculative_batch_consistent_with_step():

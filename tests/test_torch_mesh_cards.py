@@ -42,7 +42,7 @@ from kube_scheduler_simulator_tpu_torch.framework.replay import (_clone_carry, _
 from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
 from kube_scheduler_simulator_tpu_torch.models import baseline_config
 from kube_scheduler_simulator_tpu_torch.parallel import (
-    initialize_distributed, make_mesh, shard_workload, sharded_step, speculative_scores)
+    global_devices, make_mesh, shard_workload, sharded_step, speculative_scores)
 from kube_scheduler_simulator_tpu_torch.parallel import speculative as pspec
 from kube_scheduler_simulator_tpu_torch.parallel.mesh import gather_to_host
 from kube_scheduler_simulator_tpu_torch.plugins.registry import PluginSetConfig
@@ -231,8 +231,10 @@ def test_make_mesh_over_cards_errors():
     # a card that is not present: the error names it
     with pytest.raises(RuntimeError, match=rf"'cuda:{max(have, 1)}'\] not present"):
         make_mesh(2, device=["cuda:0", f"cuda:{max(have, 1)}"])
-    with pytest.raises(NotImplementedError, match="B12c"):
-        initialize_distributed()
+    # B12c: a process mesh is laid over global_devices(), which needs
+    # initialize_distributed first (tests/test_torch_mesh_procs.py)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        global_devices()
     # a workload placed over one mesh is not re-placed over another
     nodes, pods = _workload(n_nodes=8, n_pods=4, seed=86)
     cw = shard_workload(compile_workload(nodes, pods, PluginSetConfig(), device=CPU), _cards(2, 1))
