@@ -157,18 +157,26 @@ phase:
        PROCS_PODS pods) through replay(), the stream and one engine wave
        over the process mesh in both processes, every pod == phase 4;
        each kernel == its twin in the process mesh, timed beside B12b on
-       as many virtual cards.
+       as many virtual cards;
+  35   the mesh across hosts (B12c across hosts): the same two processes
+       (one spawn with phase 34) shut phase 34's mesh down and initialize
+       again posing as two hosts, so the exchange takes the host relay
+       (mapped host buffers, csrc/relay.cpp) and no IPC handle is opened:
+       the same paths, every pod == phase 4; each kernel == its twin,
+       timed beside phase 34's IPC path; the relays' counts above 0 and
+       each side's sent == the other's received.
 
     python3 chip_smoke.py --cards
 
 runs phase 33 alone (after the build and phase 4's replay), for a host
 with several cards.
 
-    python3 chip_smoke.py --procs
+    python3 chip_smoke.py --procs [--hosts 2]
 
 runs phase 34 alone over one process per distinct card of the host
-(after the build and phase 4's replay); on a host with one card it says
-that it did not run.
+(after the build and phase 4's replay), or with `--hosts 2` phase 35
+alone, those processes posing as two hosts; on a host with one card it
+says that it did not run.
 
 Phases 4, 7, 8, 11 and 12 run the host-resident rung
 (KSS_TPU_HOST_RESIDENT=1 or device_resident=False) and time the Python
@@ -4966,6 +4974,8 @@ def custom_phase(dev, card: str, nodes: list, pods: list, cfg) -> dict:
 CARD_MESHES = (2, 4)           # phase 33: replay() over n virtual cards at dp = 1
 CARD_STREAM = (4, 2)           # ... replay_speculative_stream over n = 4 cards at dp = 2
 CARD_TWIN_PODS = 16            # ... the twins' pods of the first launches' inputs
+CARD_DECODE_EVERY = 97         # ... every 97th pod's annotations decoded (cut from every pod
+                               # to pay for phase 35; every pod's compact bytes still compared)
 CARD_REPS = 3                  # ... timed launches, the median
 
 
@@ -4974,8 +4984,9 @@ def cards_phase(dev, card: str, cw, pods: list, rr, step_entry: dict) -> list[di
     one card (kernels/mesh.py Cards; csrc/scope.cuh PeerScope): replay()
     over CARD_MESHES cards at dp = 1 and replay_speculative_stream over
     CARD_STREAM, each against phase 4's unsharded step_chunk replay
-    (selected, feasible counts, every chunk's compact bytes, the decoded
-    annotations of every pod); each B12b kernel against its plain twin on
+    (selected, feasible counts and every chunk's compact bytes, which the
+    decode reads, for every pod; the decoded annotations of every
+    CARD_DECODE_EVERY-th pod and the last); each B12b kernel against its plain twin on
     CARD_TWIN_PODS pods of the inputs of its first launch; each kernel's
     ms a launch beside the one-card B12 kernel and the unsharded kernel on
     the same inputs.  Where the host has two cards or more, the replay
@@ -4990,7 +5001,6 @@ def cards_phase(dev, card: str, cw, pods: list, rr, step_entry: dict) -> list[di
     from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
     from kube_scheduler_simulator_tpu_torch.parallel import (make_mesh, replay_speculative_stream,
                                                              shard_workload)
-    from kube_scheduler_simulator_tpu_torch.store import decode_pod_result
 
     b12b = (kmesh.step_chunk_cards, kmesh.spec_eval_cards, kmesh.spec_commit_cards)
     others = (kstep.step_chunk, kmesh.step_chunk_sharded, kmesh.spec_eval_sharded,
@@ -4998,12 +5008,10 @@ def cards_phase(dev, card: str, cw, pods: list, rr, step_entry: dict) -> list[di
     t33 = time.perf_counter()
     p, n = cw.n_pods, cw.n_nodes
     n_chunks = math.ceil(p / CHUNK)
-    want_ann = [decode_pod_result(rr, i) for i in range(p)]
+    decoded = sorted({*range(0, p, CARD_DECODE_EVERY), p - 1})
 
     def every_pod(got, what: str) -> None:
-        same_replay(got, rr, what, [0])
-        bad = [i for i in range(p) if decode_pod_result(got, i) != want_ann[i]]
-        check(not bad, f"{what}: the annotations of {len(bad)} pods differ, first {bad[:5]}")
+        same_replay(got, rr, what, decoded)
 
     def run(fn, what: str):
         for f in (*b12b, *others):
@@ -5212,13 +5220,16 @@ def cards_phase(dev, card: str, cw, pods: list, rr, step_entry: dict) -> list[di
     ]
 
 
-# phase 34 (B12c): the mesh across processes, two processes sharing the card
-PROCS = 2                      # phase 34: processes of the mesh, one process-card each
-PROCS_PODS = 256               # ... config 5's first pods, cut from 10,000 (procs_phase)
+# phases 34 and 35 (B12c): the mesh across processes, two processes sharing
+# the card, first as processes of one host, then posing as two hosts
+PROCS = 2                      # phases 34-35: processes of the mesh, one process-card each
+PROCS_PODS = 128               # ... config 5's first pods, cut from 10,000 (procs_phase; from
+                               # 256 to pay for phase 35)
 PROCS_TWIN_PODS = 16           # ... the twins' pods of the first launches' inputs
 PROCS_TIMED_PODS = 64          # ... the timed step's chunk: the queue's first pods
 PROCS_REPS = 3                 # ... timed launches, the median
-PROCS_DEADLINE_S = 420.0       # ... past this the workers print their tracebacks and are killed
+PROCS_DEADLINE_S = 600.0       # ... past this the workers print their tracebacks and are killed
+PROCS_HOSTS = 2                # phase 35: the hosts the processes pose as (`_host`)
 
 
 def _ann_digest(ann: dict) -> str:
@@ -5227,52 +5238,84 @@ def _ann_digest(ann: dict) -> str:
     return hashlib.sha1(json.dumps(ann, sort_keys=True).encode()).hexdigest()
 
 
-def procs_worker(rank: int, n: int, n_pods: int) -> dict:
-    """One process of phase 34's mesh (spawned; parallel/distributed.py
-    _spawn sets the launcher's environment and this process's card).  It
-    loads the libraries the parent built (it never starts nvcc), joins the
-    mesh, compiles config 5 cut to its first n_pods pods on its card and,
-    with the launch counts set to 0 just before each and read just after,
-    drives replay() over the mesh, the stream over it (dp 1 x nodes n) and
-    one engine wave over it; then holds each B12c kernel to its twin (the
-    twin's combines across the processes through the process group) on
-    PROCS_TWIN_PODS pods of its first launch's inputs and times each.
-    -> what the parent checks: per-pod selections and annotation
-    digests, placements, launch counts, errors and times."""
-    import copy
-
+def procs_worker(rank: int, n: int, n_pods: int, modes: tuple = ("ipc",),
+                 hosts: int = PROCS_HOSTS) -> dict:
+    """One process of the meshes of phases 34 and 35 (spawned;
+    parallel/distributed.py _spawn sets the launcher's environment and
+    this process's card).  It loads the libraries the parent built (it
+    never starts nvcc or g++) and compiles config 5 cut to its first
+    n_pods pods on its card.  Then, for each of `modes` in turn, it joins
+    the mesh: "ipc" (phase 34) as a process of this host, the exchange
+    over CUDA IPC; "hosts" (phase 35) posing as host `rank * hosts // n`
+    of `hosts` (`initialize_distributed(_host=...)`), the exchange over
+    the host relay; a later mode shuts the earlier mesh down and
+    initializes again in the same store.  Over each mesh, with the launch
+    counts set to 0 just before each path and read just after, it drives
+    replay(), the stream (dp 1 x nodes n) and one engine wave; then holds
+    each B12c kernel to its twin (the twin's combines across the
+    processes through the process group) on PROCS_TWIN_PODS pods of its
+    first launch's inputs and times each.  -> {mode: what the parent
+    checks: per-pod selections and annotation digests, placements, launch
+    counts, errors, times, the exchange's transport, the IPC handles
+    opened and the relay's counts}."""
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
-    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
-    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
-    from kube_scheduler_simulator_tpu_torch.framework.replay import (_clone_carry, _compact_plan,
-                                                                     _slice_xs, replay)
     from kube_scheduler_simulator_tpu_torch.kernels import build
     from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
     from kube_scheduler_simulator_tpu_torch.kernels import spec as kspec
     from kube_scheduler_simulator_tpu_torch.kernels import step as kstep
     from kube_scheduler_simulator_tpu_torch.models import baseline_config
-    from kube_scheduler_simulator_tpu_torch.parallel import (
-        distributed, global_devices, initialize_distributed, make_mesh,
-        replay_speculative_stream, shard_workload)
+    from kube_scheduler_simulator_tpu_torch.parallel import (distributed, global_devices,
+                                                             initialize_distributed, make_mesh)
     from kube_scheduler_simulator_tpu_torch.state import compile_workload
-    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
 
-    missing = [s for s in build.SIGNATURES
+    missing = [s for s in (*build.SIGNATURES, *build.HOST_SIGNATURES)
                if s not in build.VARIANTS and not build.library_path(s).exists()]
     check(not missing, f"process {rank}: libraries {missing} not built by the parent")
-    initialize_distributed()
-    mesh = make_mesh(n, device=global_devices())
-    dev = mesh.device
+    dev = torch.device("cuda", torch.cuda.current_device())
     nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
     pods = pods[:n_pods]
     cw = compile_workload(nodes, pods, cfg, device=dev)
-    p = cw.n_pods
     b12c = (kmesh.step_chunk_cards, kmesh.spec_eval_cards, kmesh.spec_commit_cards)
     others = (kstep.step_chunk, kmesh.step_chunk_sharded, kmesh.spec_eval_sharded,
               kspec.spec_eval, kspec.spec_round)
+
+    out = {"card": str(dev), "jax": None}
+    for i, mode in enumerate(modes):
+        if i:
+            distributed.shutdown_distributed()
+        kmesh.Exchange.ipc_opened = 0
+        initialize_distributed(_host=f"host-{rank * hosts // n}" if mode == "hosts" else None)
+        mesh = make_mesh(n, device=global_devices())
+        out[mode] = _procs_drive(mesh, rank, cw, nodes, pods, cfg, b12c, others)
+        x = mesh._exchange
+        out[mode].update(transport=x.transport, ipc_opened=kmesh.Exchange.ipc_opened,
+                         relay=x.relay.status() if x.relay else None, hosts=list(mesh.hosts))
+        del mesh, x
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+def _procs_drive(mesh, rank: int, cw, nodes, pods, cfg, b12c, others) -> dict:
+    """procs_worker's paths over one process mesh -> their results."""
+    import copy
+
+    import torch
+
+    from kube_scheduler_simulator_tpu_torch.cluster.store import ObjectStore
+    from kube_scheduler_simulator_tpu_torch.framework.engine import SchedulerEngine
+    from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
+    from kube_scheduler_simulator_tpu_torch.framework.replay import (_clone_carry, _compact_plan,
+                                                                     _slice_xs, replay)
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.parallel import (distributed,
+                                                             replay_speculative_stream,
+                                                             shard_workload)
+    from kube_scheduler_simulator_tpu_torch.store import ALL_PLUGIN_KEYS, decode_pod_result
+
+    dev = mesh.device
+    p = cw.n_pods
 
     def run(fn, what: str):
         for f in (*b12c, *others):
@@ -5291,7 +5334,7 @@ def procs_worker(rank: int, n: int, n_pods: int) -> dict:
                 "reject": rr.prefilter_reject.tolist(), "wall": wall, "launched": launched,
                 "ann": [_ann_digest(decode_pod_result(rr, i)) for i in range(p)]}
 
-    out = {"card": str(dev), "jax": None}
+    out = {}
     # two chunks, so that a launch starts from the carry another left
     rr, wall, launched = run(lambda: replay(cw, chunk=-(-p // 2), device=dev, mesh=mesh),
                              "the replay")
@@ -5396,18 +5439,21 @@ def procs_worker(rank: int, n: int, n_pods: int) -> dict:
         "slots": kmesh.spec_eval_cards.slots, "gather_ms": med(gt),
         "twins_s": t_timed - t_twins,
         "timed_s": time.perf_counter() - t_timed}
-    out["jax"] = "jax" in sys.modules
     return out
 
 
 def procs_phase(dev, card: str, cw, rr, cards: list, n_pods: int,
-                label: str = "34 procs") -> list[dict]:
-    """Phase 34 (B12c): the mesh across processes of one host.  `len(cards)`
-    processes (spawned, card `cards[i]` for process i: on one card two
-    processes sharing it, two CUDA contexts with an exchange buffer each,
-    opened by the other over CUDA IPC) each run procs_worker over config 5
-    at full width (5,000 nodes, six plugins), its queue cut to its first
-    `n_pods` pods: with two contexts on one card and no MPS the card
+                modes: tuple = ("ipc", "hosts"), hosts: int = PROCS_HOSTS) -> list[dict]:
+    """Phases 34 and 35 (B12c): the mesh across processes, on one host
+    ("ipc", phase 34) and across hosts ("hosts", phase 35), in one spawn.
+    `len(cards)` processes (spawned, card `cards[i]` for process i: on one
+    card two processes sharing it, two CUDA contexts) each run
+    procs_worker over config 5 at full width (5,000 nodes, six plugins),
+    its queue cut to its first `n_pods` pods, once for each of `modes`: in
+    phase 34 each card's exchange buffer is opened by the others over CUDA
+    IPC; in phase 35 the processes pose as `hosts` hosts, so the exchange
+    takes the host relay (mapped host buffers, csrc/relay.cpp) and no IPC
+    handle is opened.  With two contexts on one card and no MPS the card
     time-slices between them, and each exchange of a pod waits for the
     other context's turn (PERF.md §4), so the pods are cut, never the
     nodes.  Every process's replay, stream (dp 1 x nodes n) and engine
@@ -5415,8 +5461,11 @@ def procs_phase(dev, card: str, cw, rr, cards: list, n_pods: int,
     rejects, the 13 annotations of every pod; the engine's nodes and
     annotations), which phases 8 and 19 hold their stream and engine to;
     every process the same.  Each kernel == its twin in the process mesh;
-    its times beside B12b's kernel over as many virtual cards on the
-    same inputs.  -> the B12c entries of the JSON line."""
+    its times beside B12b's kernel over as many virtual cards on the same
+    inputs (phase 34) and beside phase 34's IPC path (phase 35, where both
+    ran).  Phase 35 checks that no IPC handle was opened and the relays'
+    counts: above 0, and what the processes sent equals what they
+    received.  -> the B12c entries of the JSON line."""
     import torch
 
     from kube_scheduler_simulator_tpu_torch.framework.pipeline import build_step
@@ -5430,51 +5479,76 @@ def procs_phase(dev, card: str, cw, rr, cards: list, n_pods: int,
 
     t34 = time.perf_counter()
     n = len(cards)
+    where = "distinct cards" if len(set(cards)) > 1 else "procs"
+    labels = {"ipc": f"34 {where}", "hosts": f"35 hosts, {where}"}
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.split()
-    print(f"[{label}] compute mode {', '.join(mode)}; {n} processes on "
-          f"{[f'cuda:{c}' for c in cards]}", flush=True)
+    print(f"[{labels[modes[0]]}] compute mode {', '.join(mode)}; {n} processes on "
+          f"{[f'cuda:{c}' for c in cards]}; meshes {list(modes)} (phase 35: {hosts} hosts)",
+          flush=True)
     p = min(n_pods, cw.n_pods)
-    res = _spawn(procs_worker, n, (n, p), deadline_s=PROCS_DEADLINE_S, cards=cards)
-    check(not any(r.pop("jax") for r in res), f"{label}: a worker imported JAX")
-    for r in res[1:]:
-        for part in ("replay", "stream", "engine"):
-            for key in ("selected", "feasible", "reject", "ann", "nodes", "bound", "rounds"):
-                check(r[part].get(key) == res[0][part].get(key),
-                      f"{label}: process {res.index(r)}'s {part} {key} differs from process 0's")
+    res = _spawn(procs_worker, n, (n, p, modes, hosts), deadline_s=PROCS_DEADLINE_S,
+                 cards=cards)
+    check(not any(r.pop("jax") for r in res), "phases 34-35: a worker imported JAX")
+    print(f"[{labels[modes[0]]}] the spawn: {time.perf_counter() - t34:.1f} s", flush=True)
     want_ann = [_ann_digest(decode_pod_result(rr, i)) for i in range(p)]
     names = cw.node_table.names
     want_nodes = [names[int(s)] if s >= 0 else None for s in rr.selected[:p]]
-    r0 = res[0]
-    for part in ("replay", "stream"):
-        got = r0[part]
-        check(got["selected"] == rr.selected[:p].tolist(), f"{label} {part}: selected")
-        check(got["feasible"] == rr.feasible_count[:p].tolist(), f"{label} {part}: feasible")
-        check(got["reject"] == rr.prefilter_reject[:p].tolist(), f"{label} {part}: rejects")
-        bad = [i for i in range(p) if got["ann"][i] != want_ann[i]]
-        check(not bad, f"{label} {part}: the annotations of {len(bad)} pods differ, first "
+    for m in modes:
+        label = labels[m]
+        for r in res[1:]:
+            for part in ("replay", "stream", "engine"):
+                for key in ("selected", "feasible", "reject", "ann", "nodes", "bound", "rounds"):
+                    check(r[m][part].get(key) == res[0][m][part].get(key),
+                          f"{label}: process {res.index(r)}'s {part} {key} differs from "
+                          "process 0's")
+        r0 = res[0][m]
+        for part in ("replay", "stream"):
+            got = r0[part]
+            check(got["selected"] == rr.selected[:p].tolist(), f"{label} {part}: selected")
+            check(got["feasible"] == rr.feasible_count[:p].tolist(), f"{label} {part}: feasible")
+            check(got["reject"] == rr.prefilter_reject[:p].tolist(), f"{label} {part}: rejects")
+            bad = [i for i in range(p) if got["ann"][i] != want_ann[i]]
+            check(not bad, f"{label} {part}: the annotations of {len(bad)} pods differ, first "
+                  f"{bad[:5]}")
+        eng = r0["engine"]
+        check(eng["nodes"] == want_nodes, f"{label} engine: nodes differ from phase 4")
+        bad = [i for i in range(p) if eng["ann"][i] != want_ann[i]]
+        check(not bad, f"{label} engine: the annotations of {len(bad)} pods differ, first "
               f"{bad[:5]}")
-    eng = r0["engine"]
-    check(eng["nodes"] == want_nodes, f"{label} engine: nodes differ from phase 4")
-    bad = [i for i in range(p) if eng["ann"][i] != want_ann[i]]
-    check(not bad, f"{label} engine: the annotations of {len(bad)} pods differ, first {bad[:5]}")
-    check(r0["replay"]["launched"].get("step_chunk_cards", 0) > 0
-          and r0["stream"]["launched"].get("spec_eval_cards", 0) > 0
-          and r0["stream"]["launched"].get("spec_commit_cards", 0) > 0
-          and r0["engine"]["launched"], f"{label}: launches {r0['replay']['launched']}, "
-          f"{r0['stream']['launched']}, {r0['engine']['launched']}")
-    k = r0["kernels"]
-    for r in res:
-        for key in ("step_err", "eval_err", "commit_err"):
-            check(r["kernels"][key] == 0, f"{label}: {key} {r['kernels'][key]} in a process")
-    print(f"[{label}] {card}: config {CONFIG} {p} x {cw.n_nodes} over {n} processes, every "
-          f"process the same: replay() == phase 4 (every pod), {r0['replay']['wall']:.4f} s, "
-          f"launches {r0['replay']['launched']}; the stream (dp 1 x nodes {n}) == phase 4, "
-          f"{r0['stream']['wall']:.4f} s, rounds {r0['stream']['rounds'][0]} (accepted "
-          f"{r0['stream']['rounds'][2]}, fallback at {r0['stream']['rounds'][3]}), launches "
-          f"{r0['stream']['launched']}; one engine wave == phase 4 (every pod's node and "
-          f"annotations), bound {eng['bound']}, {eng['wall']:.4f} s, launches "
-          f"{eng['launched']}", flush=True)
+        check(r0["replay"]["launched"].get("step_chunk_cards", 0) > 0
+              and r0["stream"]["launched"].get("spec_eval_cards", 0) > 0
+              and r0["stream"]["launched"].get("spec_commit_cards", 0) > 0
+              and r0["engine"]["launched"], f"{label}: launches {r0['replay']['launched']}, "
+              f"{r0['stream']['launched']}, {r0['engine']['launched']}")
+        for r in res:
+            for key in ("step_err", "eval_err", "commit_err"):
+                check(r[m]["kernels"][key] == 0, f"{label}: {key} {r[m]['kernels'][key]} in a "
+                      "process")
+        relay = [r[m]["relay"] for r in res]
+        if m == "hosts":
+            check(all(r[m]["transport"] == "relay" and r[m]["ipc_opened"] == 0 for r in res),
+                  f"{label}: transports {[r[m]['transport'] for r in res]}, IPC handles opened "
+                  f"{[r[m]['ipc_opened'] for r in res]}")
+            check(len(set(r0["hosts"])) == hosts, f"{label}: hosts {r0['hosts']}")
+            check(all(c["sent"] > 0 and c["received"] > 0 and c["lost"] is None for c in relay)
+                  and sum(c["sent"] for c in relay) == sum(c["received"] for c in relay)
+                  and (n != 2 or (relay[0]["sent"] == relay[1]["received"]
+                                  and relay[1]["sent"] == relay[0]["received"])),
+                  f"{label}: the relays' counts {relay}")
+        else:
+            check(all(r[m]["transport"] == "ipc" for r in res),
+                  f"{label}: transports {[r[m]['transport'] for r in res]}")
+        print(f"[{label}] {card}: config {CONFIG} {p} x {cw.n_nodes} over {n} processes "
+              f"(hosts {r0['hosts']}, exchange over {r0['transport']}), every process the "
+              f"same: replay() == phase 4 (every pod), {r0['replay']['wall']:.4f} s, launches "
+              f"{r0['replay']['launched']}; the stream (dp 1 x nodes {n}) == phase 4, "
+              f"{r0['stream']['wall']:.4f} s, rounds {r0['stream']['rounds'][0]} (accepted "
+              f"{r0['stream']['rounds'][2]}, fallback at {r0['stream']['rounds'][3]}), launches "
+              f"{r0['stream']['launched']}; one engine wave == phase 4 (every pod's node and "
+              f"annotations), bound {eng['bound']}, {eng['wall']:.4f} s, launches "
+              f"{eng['launched']}; IPC handles opened {[r[m]['ipc_opened'] for r in res]}; "
+              f"relay counts {relay}", flush=True)
 
     # ---- B12b over as many virtual cards of this card, on the same inputs
     wide = rr.tiers[-1]
@@ -5523,20 +5597,10 @@ def procs_phase(dev, card: str, cw, rr, cards: list, n_pods: int,
                                     "selected", "feasible_count", "prefilter_reject")),
                     PROCS_TIMED_PODS * cw.n_nodes * 22)
     del touts
-    print(f"[{label} kernels] {card}: each == its twin in the process mesh on "
-          f"{PROCS_TWIN_PODS} pods (step_chunk_cards, twin {k['step_plain_ms']:.1f} ms), "
-          f"b = {LADDER[0]} (spec_eval_cards, twin {k['eval_plain_ms']:.1f} ms; "
-          f"spec_commit_cards of its {LADDER[0]} binds, twin {k['commit_plain_ms']:.1f} ms) "
-          f"in every process, max_abs_err 0 | ms a launch, median, process 0: "
-          f"step_chunk_cards on the first {PROCS_TIMED_PODS} pods {k['step_ms']:.3f} (the call "
-          f"{k['step_host_ms']:.3f}: launch, wait, gather, join; R = {k['ctas']}) against B12b "
-          f"over {n} virtual cards {v_step:.3f}; spec_eval_cards at b = {LADDER[0]} "
-          f"{k['eval_ms']:.5f} (the call {k['eval_host_ms']:.3f}, {k['slots']} slots) against "
-          f"{v_eval:.5f}; spec_commit_cards {k['commit_ms']:.5f} (CUDA graph) against "
-          f"{v_commit:.5f} | one gloo all_gather of an int64 (the slots' agreement, once a "
-          f"step and batch size) {k['gather_ms']:.3f} ms, median of {PROCS_REPS * 5} "
-          f"| process 0: twins {k['twins_s']:.1f} s, timing {k['timed_s']:.1f} s; "
-          f"phase {time.perf_counter() - t34:.1f} s", flush=True)
+    virtual = {"step_ms": v_step, "eval_ms": v_eval, "commit_ms": v_commit}
+    beside = {"ipc": (f"B12b over {n} virtual cards", virtual)}
+    beside["hosts"] = (("phase 34's IPC path", res[0]["ipc"]["kernels"]) if "ipc" in modes
+                       else beside["ipc"])
 
     def entry(name, src, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",
@@ -5545,18 +5609,41 @@ def procs_phase(dev, card: str, cw, rr, cards: list, n_pods: int,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
 
-    return [
-        entry("step_chunk_cards over processes", "step_kernel.cuh",
-              r0["replay"]["launched"].get("step_chunk_cards", 0), k["step_err"], k["step_ms"],
-              k["step_plain_ms"], s_bound, v_step),
-        entry("spec_eval_cards over processes", "spec_eval.cu",
-              r0["stream"]["launched"].get("spec_eval_cards", 0), k["eval_err"], k["eval_ms"],
-              k["eval_plain_ms"], e_bound, v_eval),
-        entry("spec_commit_cards over processes", "spec_commit.cu",
-              r0["stream"]["launched"].get("spec_commit_cards", 0), k["commit_err"], k["commit_ms"],
-              k["commit_plain_ms"], c_bound, v_commit),
-    ]
-
+    entries = []
+    for m in modes:
+        label, r0 = labels[m], res[0][m]
+        k = r0["kernels"]
+        what, lib = beside[m]
+        print(f"[{label} kernels] {card}: each == its twin in the process mesh on "
+              f"{PROCS_TWIN_PODS} pods (step_chunk_cards, twin {k['step_plain_ms']:.1f} ms), "
+              f"b = {LADDER[0]} (spec_eval_cards, twin {k['eval_plain_ms']:.1f} ms; "
+              f"spec_commit_cards of its {LADDER[0]} binds, twin {k['commit_plain_ms']:.1f} ms) "
+              f"in every process, max_abs_err 0 | ms a launch, median, process 0: "
+              f"step_chunk_cards on the first {PROCS_TIMED_PODS} pods {k['step_ms']:.3f} (the "
+              f"call {k['step_host_ms']:.3f}: launch, wait, gather, join; R = {k['ctas']}) "
+              f"against {what} {lib['step_ms']:.3f}; spec_eval_cards at b = {LADDER[0]} "
+              f"{k['eval_ms']:.5f} (the call {k['eval_host_ms']:.3f}, {k['slots']} slots) "
+              f"against {lib['eval_ms']:.5f}; spec_commit_cards {k['commit_ms']:.5f} (CUDA "
+              f"graph) against {lib['commit_ms']:.5f} | one gloo all_gather of an int64 (the "
+              f"slots' agreement, once a step and batch size) {k['gather_ms']:.3f} ms, median "
+              f"of {PROCS_REPS * 5} | process 0: twins {k['twins_s']:.1f} s, timing "
+              f"{k['timed_s']:.1f} s", flush=True)
+        over, src = (("over processes", "") if m == "ipc" else
+                     ("over the relay", ", kube_scheduler_simulator_tpu_torch/csrc/relay.cpp"))
+        entries += [
+            entry(f"step_chunk_cards {over}", "step_kernel.cuh" + src,
+                  r0["replay"]["launched"].get("step_chunk_cards", 0), k["step_err"],
+                  k["step_ms"], k["step_plain_ms"], s_bound, lib["step_ms"]),
+            entry(f"spec_eval_cards {over}", "spec_eval.cu" + src,
+                  r0["stream"]["launched"].get("spec_eval_cards", 0), k["eval_err"],
+                  k["eval_ms"], k["eval_plain_ms"], e_bound, lib["eval_ms"]),
+            entry(f"spec_commit_cards {over}", "spec_commit.cu",
+                  r0["stream"]["launched"].get("spec_commit_cards", 0), k["commit_err"],
+                  k["commit_ms"], k["commit_plain_ms"], c_bound, lib["commit_ms"]),
+        ]
+    print(f"[{labels[modes[-1]]}] phases {' and '.join(labels[m].split()[0] for m in modes)}: "
+          f"{time.perf_counter() - t34:.1f} s", flush=True)
+    return entries
 
 def main() -> int:
     import torch
@@ -5589,7 +5676,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # every library, and with them the phase clock's build (phase 27 alone
     # loads it; the main path never does)
-    built = build.build([*build.SIGNATURES])
+    built = build.build([*build.SIGNATURES, *build.HOST_SIGNATURES])
     for stem in built:
         if stem not in build.VARIANTS:
             build.load(stem)
@@ -6873,10 +6960,12 @@ def cards_main() -> int:
 
 
 def procs_main() -> int:
-    """`--procs`: phase 34 alone (after the build and phase 4's replay of
-    config 5) over one process per distinct card of the host (as many as
-    divide the 5,000 nodes); on a host with one card it says it did not
-    run.  Prints phase 34's lines; no kernel line."""
+    """`--procs [--hosts H]`: phase 34 alone (after the build and phase 4's
+    replay of config 5) over one process per distinct card of the host (as
+    many as divide the 5,000 nodes), or with `--hosts H` phase 35 alone,
+    those processes posing as H hosts (the exchange over the relay); on a
+    host with one card it says it did not run.  Prints the phase's lines;
+    no kernel line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6893,18 +6982,22 @@ def procs_main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    hosts = int(sys.argv[sys.argv.index("--hosts") + 1]) if "--hosts" in sys.argv else 0
     have = torch.cuda.device_count()
     if have < 2:
-        print(f"[34 distinct cards] not run: this host has {have} card", flush=True)
+        print(f"[{'35 hosts' if hosts else '34'} distinct cards] not run: this host has {have} "
+              "card", flush=True)
         return 0
-    for stem in build.build():
-        build.load(stem)  # the workers load these and never start nvcc
+    for stem in build.build([*(s for s in build.SIGNATURES if s not in build.VARIANTS),
+                             *build.HOST_SIGNATURES]):
+        build.load(stem)  # the workers load these and never start nvcc or g++
     nodes, pods, cfg = baseline_config(CONFIG, scale=1.0, seed=SEED)
     cw = compile_workload(nodes, pods, cfg, device=dev)
     n = max(k for k in range(2, have + 1) if cw.n_nodes % k == 0)
     with env(KSS_TPU_HOST_RESIDENT="1"):
         rr = replay(cw, chunk=CHUNK, device="cuda")
-    procs_phase(dev, card, cw, rr, list(range(n)), PROCS_PODS, label="34 distinct cards")
+    procs_phase(dev, card, cw, rr, list(range(n)), PROCS_PODS,
+                modes=("hosts",) if hosts else ("ipc",), hosts=hosts or PROCS_HOSTS)
     return 0
 
 

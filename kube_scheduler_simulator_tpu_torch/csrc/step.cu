@@ -178,4 +178,29 @@ extern "C" int kss_ipc_close(int device, void* ptr, int opened) {
   if (err == cudaSuccess) err = opened ? cudaIpcCloseMemHandle(ptr) : cudaFree(ptr);
   return (int)err;
 }
+
+// B12c across hosts: a card mesh whose processes span hosts has no peer
+// memory, so each process keeps its card's exchange buffer (the inbox)
+// and an outbox for each other card of its row in page-locked host
+// memory mapped into its card: `*host` the CPU's address, `*dev` the
+// card's, zeroed before any launch.  A launch's PeerArgs.xbuf holds the
+// card's addresses, so scope.cuh PeerScope runs unchanged: its
+// st.release.sys and ld.acquire.sys order the values and the epoch
+// across PCIe as they do across NVLink, and the host relay (relay.cpp)
+// carries the outboxes' entries to the other processes' inboxes.  Both
+// calls may synchronise the device: kernels/mesh.py Exchange makes every
+// buffer when it is made and frees them after the last launch.
+extern "C" int kss_mapped_alloc(int device, long long bytes, void** host, void** dev) {
+  *host = *dev = nullptr;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaHostAlloc(host, (size_t)bytes, cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err == cudaSuccess) {
+    memset(*host, 0, (size_t)bytes);
+    err = cudaHostGetDevicePointer(dev, *host, 0);
+  }
+  return (int)err;
+}
+
+extern "C" int kss_mapped_free(void* host) { return (int)cudaFreeHost(host); }
 #endif

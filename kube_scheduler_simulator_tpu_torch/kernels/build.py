@@ -1,13 +1,17 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host relay.
 
 Each .cu source under csrc/ is compiled with nvcc into a shared library
 of its own with a plain C interface, loaded with ctypes (no PyTorch
 headers, so a build takes seconds).  `build()` starts one nvcc per source,
-all at once, and waits for them.  The libraries go to
-build/kss_torch_kernels/ at the root of the checkout, named by the source
-and a hash of all of csrc/ and the flags, so a fresh checkout builds them
-on first use and later calls reuse them.  Nothing is compiled or loaded
-at import time.
+all at once, and waits for them.  The host-only sources (HOST_SIGNATURES:
+csrc/relay.cpp, the relay of a mesh across hosts, plain C++ with no CUDA)
+are compiled with the host's g++, only where a list names them or `load`
+asks for one, so that they build where there is no CUDA toolkit too.  The
+libraries go to build/kss_torch_kernels/ at the root of the checkout,
+named by the source and a hash of all of csrc/'s CUDA sources (a host
+source: of itself) and the flags, so a fresh checkout builds them on
+first use and later calls reuse them.  Nothing is compiled or loaded at
+import time.
 """
 
 from __future__ import annotations
@@ -57,7 +61,9 @@ SIGNATURES = {
              "kss_step_cards": ([_P, _I, _I, _P, _I, _P], _I),
              "kss_peer_args_size": ([], _I), "kss_enable_peer": ([_I, _I], _I),
              "kss_ipc_export": ([_I, ctypes.c_longlong, _P, _P], _I),
-             "kss_ipc_open": ([_I, _P, _P], _I), "kss_ipc_close": ([_I, _P, _I], _I)},
+             "kss_ipc_open": ([_I, _P, _P], _I), "kss_ipc_close": ([_I, _P, _I], _I),
+             "kss_mapped_alloc": ([_I, ctypes.c_longlong, _P, _P], _I),
+             "kss_mapped_free": ([_P], _I)},
     "spec_eval": {"kss_step_args_size": ([], _I),
                   "kss_eval_plan": ([_P, _I, _I, _I, _P, _P, _P], _I),
                   "kss_spec_eval": ([_P, _I, _I, _I, _I, _P], _I),
@@ -87,6 +93,15 @@ VARIANTS = {"step_clock": ("step", ("-DKSS_PHASE_CLOCK",)),
             "spec_round_clock": ("spec_round", ("-DKSS_PHASE_CLOCK",))}
 SIGNATURES.update({stem: SIGNATURES[source] for stem, (source, _) in VARIANTS.items()})
 
+# host-only libraries: csrc/<stem>.cpp, built with g++ and HOST_FLAGS
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
+HOST_SIGNATURES = {
+    "relay": {"kss_relay_layout": ([_P, _P, _P], _I),
+              "kss_relay_start": ([_P, _I, _I, _I, _I, _P, _P, _P], _P),
+              "kss_relay_arm": ([_P, _I], None), "kss_relay_park": ([_P], None),
+              "kss_relay_status": ([_P, _P], None), "kss_relay_stop": ([_P], _I)},
+}
+
 
 def _sources() -> list[Path]:
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
@@ -113,7 +128,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _gxx() -> str:
+    found = shutil.which("g++") or shutil.which("c++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host relay (csrc/relay.cpp) builds with the host's "
+                       "C++ compiler")
+
+
 def library_path(stem: str = "step") -> Path:
+    if stem in HOST_SIGNATURES:
+        h = hashlib.sha256((CSRC / f"{stem}.cpp").read_bytes())
+        h.update(" ".join(HOST_FLAGS).encode())
+        return BUILD_DIR / f"libkss_{stem}_{h.hexdigest()[:16]}.so"
     return BUILD_DIR / f"libkss_{stem}_{_digest()}.so"
 
 
@@ -126,7 +153,8 @@ _BUILD_LOCK = threading.Lock()
 def build(stems=None) -> dict[str, BuildResult]:
     """Compile the libraries of `stems` (by default every csrc/*.cu, each
     including the .cuh files it needs, and no VARIANTS) whose library for
-    these sources does not exist: one nvcc per library, started together.
+    these sources does not exist: one compiler per library (nvcc, or g++
+    for HOST_SIGNATURES' stems), started together.
     A thread that finds another thread building waits for it, then finds
     its libraries.  -> {stem: BuildResult}."""
     stems = [s for s in SIGNATURES if s not in VARIANTS] if stems is None else list(stems)
@@ -143,23 +171,27 @@ def build(stems=None) -> dict[str, BuildResult]:
 
 
 def _compile(stems: list[str]) -> dict[str, BuildResult]:
-    nvcc = _nvcc()
+    nvcc = _nvcc() if any(s not in HOST_SIGNATURES for s in stems) else None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for stem in stems:
         out = library_path(stem)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        source, extra = VARIANTS.get(stem, (stem, ()))
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+        if stem in HOST_SIGNATURES:
+            cmd = [_gxx(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cpp")]
+        else:
+            source, extra = VARIANTS.get(stem, (stem, ()))
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{source}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
-        running[stem] = (proc, tmp, out, time.perf_counter())
+        running[stem] = (proc, cmd, tmp, out, time.perf_counter())
     results, failed = {}, []
-    for stem, (proc, tmp, out, t0) in running.items():
+    for stem, (proc, cmd, tmp, out, t0) in running.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{log}")
+            failed.append(f"{Path(cmd[0]).name} {Path(cmd[-1]).name} failed "
+                          f"({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
         results[stem] = BuildResult(out, True, seconds, log)
@@ -170,12 +202,14 @@ def _compile(stems: list[str]) -> dict[str, BuildResult]:
 
 @functools.cache
 def load(stem: str = "step") -> ctypes.CDLL:
-    """The library built from csrc/<stem>.cu with its C functions'
-    signatures declared.  Built (with every other library, or a variant
-    alone), hashed and opened once per process: later launches reuse it."""
-    built = build((stem,)) if stem in VARIANTS else build()
+    """The library built from csrc/<stem>.cu (a host library: .cpp) with
+    its C functions' signatures declared.  Built (with every other CUDA library, or a
+    variant or a host library alone), hashed and opened once per process:
+    later launches reuse it."""
+    alone = stem in VARIANTS or stem in HOST_SIGNATURES
+    built = build((stem,)) if alone else build()
     lib = ctypes.CDLL(str(built[stem].path))
-    for name, (argtypes, restype) in SIGNATURES[stem].items():
+    for name, (argtypes, restype) in {**SIGNATURES, **HOST_SIGNATURES}[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype

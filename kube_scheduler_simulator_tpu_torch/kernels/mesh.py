@@ -21,11 +21,16 @@ outputs in card order on the mesh's first card.
 
 Over a process mesh (B12c; parallel/distributed.py) card k is held by
 process k: `Cards` holds this process's part alone (`Cards.ks` its mesh
-index), each process launches its own card, the exchange's buffers are
-the processes' own allocations opened by the others over CUDA IPC
-(Exchange), and after the launch every card's outputs and error word are
-gathered through the process group (_gather_cards), so every process
-joins the full outputs on its own card and raises alike.  The twins fold
+index), each process launches its own card, and the exchange (Exchange)
+takes one of two transports: on one host the buffers are the processes'
+own allocations on their cards, opened by the others over CUDA IPC;
+across hosts each process keeps its card's buffer and an outbox for each
+other card of its row in page-locked host memory mapped into its card,
+and its host relay (kernels/relay.py, csrc/relay.cpp) carries the
+entries between the processes, armed while a launch is in flight.  After
+the launch every card's outputs and error word are gathered through the
+process group (_gather_cards), so every process joins the full outputs on
+its own card and raises alike.  The twins fold
 each combine's partials across the processes through the process group,
 one gather a combine (_ProcFold), and each card binds from its own
 tensors (_bind_card), as the kernels do.
@@ -56,6 +61,7 @@ fallback: a failed build or launch raises, and each wrapper raises
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import ctypes
 import threading
@@ -603,6 +609,7 @@ XHEAD, XW = 16, 16  # csrc/scope.cuh KSS_XHEAD, KSS_XW
 XSLOTS = 256  # pod slots an exchange buffer holds
 SPIN_BOUND = 1 << 34  # clock64() cycles a wait may take: about 8.7 s at 1.98 GHz
 ERR_RESIDENT = 1000  # csrc/cluster.cuh KSS_ERR_RESIDENT
+RELAY_LOST = 1 + MAX_CARDS  # error word RELAY_LOST + j: the relay lost card j (csrc/relay.cpp)
 
 
 class Cards(tuple):
@@ -917,13 +924,22 @@ class Exchange:
     card, zeroed once, and the epoch counter.  A launch takes epochs past
     the last launch's, so flags only grow; its lock keeps two threads'
     launches over one mesh from interleaving.  On a process mesh (B12c)
-    each process allocates its own card's buffer (csrc/step.cu
-    kss_ipc_export), publishes its IPC handle through the coordinator's
-    store and opens every other card's (kss_ipc_open): `ptrs` are every
-    card's buffer as this process addresses it, `bufs` its own cards'.
-    Every process issues the same launches in the same order (SPMD), so
-    their epochs agree with no exchange of their own; a process that
-    strays makes its peers' waits run past the spin bound, which raises."""
+    `transport` is "ipc" where its processes share a host: each process
+    allocates its own card's buffer (csrc/step.cu kss_ipc_export),
+    publishes its IPC handle through the coordinator's store and opens
+    every other card's (kss_ipc_open; `ipc_opened` counts the handles
+    opened in this process).  Where they span hosts it is "relay": each
+    process allocates its card's buffer (the inbox) and an outbox for each
+    other card of its row in page-locked host memory mapped into its card
+    (kss_mapped_alloc), and its Relay carries the outboxes' entries to
+    their cards' processes.  `ptrs` are every card's buffer as this
+    process's card addresses it, `bufs` its own cards' (a CPU view of the
+    inbox on the relay).  Every process issues the same launches in the
+    same order (SPMD), so their epochs agree with no exchange of their
+    own; a process that strays makes its peers' waits run past the spin
+    bound, which raises."""
+
+    ipc_opened = 0
 
     def __init__(self, mesh, lib):
         shards = mesh.shape["nodes"]
@@ -931,9 +947,16 @@ class Exchange:
         self.lock = threading.Lock()
         self.epoch = 0
         self.words = XHEAD + XSLOTS * 2 * shards * XW
+        self.relay = None
         if mesh.procs is not None:
-            self._open_ipc()
+            if len(set(mesh.hosts)) > 1:
+                self.transport = "relay"
+                self._open_relay()
+            else:
+                self.transport = "ipc"
+                self._open_ipc()
             return
+        self.transport = "local"
         self.bufs = [torch.zeros(self.words, dtype=torch.int64, device=d) for d in mesh.cards]
         self.ptrs = [b.data_ptr() for b in self.bufs]
         distinct = sorted({d.index for d in mesh.cards})
@@ -951,7 +974,7 @@ class Exchange:
         mesh = self.mesh
         lib = kstep.load_lib("step")
         store = distributed.store()
-        key = f"kss/x/{distributed.next_seq()}"
+        key = distributed.next_key("x")
         self.ptrs = [0] * len(mesh.cards)
         self.owned, self.opened, self.bufs = [], [], []
         for k in mesh.local:
@@ -971,16 +994,53 @@ class Exchange:
             kstep.check_launch(
                 f"exchange buffer of card {k} (process {mesh.procs[k]}) opened on {home}",
                 lib.kss_ipc_open(home.index, store.get(f"{key}/{k}"), ctypes.byref(ptr)))
+            Exchange.ipc_opened += 1
             self.opened.append((home, ptr.value))
             self.ptrs[k] = ptr.value
         distributed.on_shutdown(self.close)
 
+    def _open_relay(self) -> None:
+        from ..parallel import distributed
+        from . import relay as krelay
+
+        mesh = self.mesh
+        lib = kstep.load_lib("step")
+        (k,) = mesh.local
+        dev, shards = mesh.cards[k], mesh.shape["nodes"]
+        row = range(k // shards * shards, (k // shards + 1) * shards)
+        self.ptrs = [0] * len(mesh.cards)
+        self.mapped, host = [], {}
+        for j in row:
+            h, d = ctypes.c_void_p(), ctypes.c_void_p()
+            kstep.check_launch(
+                f"{card_name(mesh, k)}: mapped host buffer for card {j}",
+                lib.kss_mapped_alloc(dev.index, self.words * 8, ctypes.byref(h), ctypes.byref(d)))
+            self.mapped.append(h.value)
+            host[j], self.ptrs[j] = h.value, d.value
+        self.bufs = [torch.frombuffer((ctypes.c_int64 * self.words).from_address(host[k]),
+                                      dtype=torch.int64)]
+        distributed.on_shutdown(self.close)
+        self.relay = krelay.Relay(distributed.next_key("x"), k, shards, XSLOTS, host[k],
+                                  {j: host[j] for j in row if j != k}, mesh.procs)
+
     def close(self) -> None:
-        """A process mesh's: close the opened handles, wait until every
-        process has closed its own, free this process's buffers."""
+        """A process mesh's: wait until every process has ended its launches;
+        on the relay stop it (its sockets closed) and free the mapped
+        buffers, over IPC close the opened handles, wait until every
+        process has closed its own and free this process's buffers."""
         import torch.distributed as dist
 
         lib = kstep.load_lib("step")
+        if self.transport == "relay":
+            torch.cuda.synchronize(self.mesh.cards[self.mesh.local[0]])
+            dist.barrier()
+            if self.relay is not None:
+                self.relay.stop()
+            self.bufs = []
+            for h in self.mapped:
+                kstep.check_launch("freeing a mapped exchange buffer", lib.kss_mapped_free(h))
+            self.mapped = []
+            return
         for dev, _ in self.owned + self.opened:
             torch.cuda.synchronize(dev)
         for dev, ptr in self.opened:
@@ -997,6 +1057,19 @@ class Exchange:
         self.epoch += epochs + 1
         return base
 
+    @contextlib.contextmanager
+    def armed(self, slots: int):
+        """Around a launch over `slots` pod slots and its wait: the relay
+        spins while it is in flight (nothing for the other transports)."""
+        if self.relay is None:
+            yield
+            return
+        self.relay.arm(slots)
+        try:
+            yield
+        finally:
+            self.relay.park()
+
     def args(self, base: int, slots: int, card0: int, bound: int) -> PeerArgs:
         p = PeerArgs()
         for k, ptr in enumerate(self.ptrs):
@@ -1007,26 +1080,38 @@ class Exchange:
 
     def errors(self) -> list[int]:
         """After the launches: the error word of each buffer this process
-        holds (0, or 1 + the card its wait ran past the spin bound for),
-        each reset."""
+        holds (0; 1 + the card its wait ran past the spin bound for; on the
+        relay RELAY_LOST + the card whose connection it lost), each reset."""
         words = [int(b[0]) for b in self.bufs]
         for b in self.bufs:
             b[0] = 0
         return words
 
-    def check(self, what: str, words: list[int]) -> None:
-        """Raise where a card's wait ran past the spin bound; `words` are
-        every card's error words, in mesh order."""
-        bad = [(k, w - 1) for k, w in enumerate(words) if w]
+    def check(self, what: str, words: list[int], ks=None) -> None:
+        """Raise where a card's wait ran past the spin bound or its relay
+        lost a connection; `words` are the error words of the cards `ks`
+        (every card, in mesh order, by default)."""
+        ks = range(len(words)) if ks is None else ks
+        bad = [error_says(self.mesh, k, w) for k, w in zip(ks, words) if w]
         if bad:
-            raise RuntimeError(f"{what}: " + "; ".join(
-                f"card {k} ({self._name(k)}) waited past the spin bound for card {j} "
-                f"({self._name(j)})" for k, j in bad))
+            raise RuntimeError(f"{what}: " + "; ".join(bad))
 
-    def _name(self, k: int) -> str:
-        procs = self.mesh.procs
-        where = str(self.mesh.cards[k])
-        return where if procs is None else f"process {procs[k]}:{where}"
+
+def card_name(mesh, k: int) -> str:
+    """Card k of a card mesh as a message names it: its device, and on a
+    process mesh its process and host."""
+    where = str(mesh.cards[k])
+    return where if mesh.procs is None else f"process {mesh.procs[k]} on {mesh.hosts[k]}:{where}"
+
+
+def error_says(mesh, k: int, word: int) -> str:
+    """What error word `word` (not 0) of card k's exchange buffer says."""
+    if word >= RELAY_LOST:
+        j = word - RELAY_LOST
+        return (f"card {k} ({card_name(mesh, k)}) lost its relay connection to card {j} "
+                f"({card_name(mesh, j)})")
+    return (f"card {k} ({card_name(mesh, k)}) waited past the spin bound for card {word - 1} "
+            f"({card_name(mesh, word - 1)})")
 
 
 def exchange(mesh, lib) -> Exchange:
@@ -1100,11 +1185,13 @@ def _finish(what: str, x: Exchange, mesh, outs: list) -> list:
     """Wait for this process's launches and raise where a wait ran past the
     spin bound -> every card's outputs in mesh order.  On a process mesh
     the other cards' outputs and error words come through the process
-    group, so every process raises alike."""
+    group, so every process raises alike; a relay that lost a connection
+    raises before the gather (its peer may be gone)."""
     for d in {mesh.cards[k] for k in mesh.local}:
         torch.cuda.current_stream(d).synchronize()
     words = x.errors()
     if mesh.procs is not None:
+        x.check(what, [w if w >= RELAY_LOST else 0 for w in words], mesh.local)
         (mine,) = outs
         outs, words = _gather_cards(mesh, mine, words)
     x.check(what, words)
@@ -1163,7 +1250,7 @@ def step_chunk_cards(step, carry: Cards, xs_chunk: Cards, *, _ctas: int = 0, _bo
         groups = [(dev, [i for i in ids if mesh.local[i] in _only]) for dev, ids in groups]
         groups = [(dev, ids) for dev, ids in groups if ids]
     home = carry.devices[0]
-    with x.lock:
+    with x.lock, x.armed(1):
         base = x.take(3 * c + 1)
         if _events is not None:
             _events[0].record(torch.cuda.current_stream(home))
@@ -1249,7 +1336,7 @@ def spec_eval_cards(step, carry: Cards, xs: Cards, outs: dict | None = None, *, 
     # a row's cards walk the same pods in the same slots
     slots = _agreed_slots(step, q, _ctas, min(XSLOTS, *(p[1] for p in plans)))
     home = carry.devices[0]
-    with x.lock:
+    with x.lock, x.armed(slots):
         base = x.take(3 * -(-q // slots) + 1)
         if _events is not None:
             _events[0].record(torch.cuda.current_stream(home))

@@ -1,18 +1,31 @@
-"""The mesh across processes (B12c, the processes of one host).
+"""The mesh across processes (B12c), on one host or across hosts.
 
 Port of kube_scheduler_simulator_tpu/parallel/mesh.py:175-195
 `initialize_distributed`.  The JAX package starts the JAX distributed
 runtime, so that `jax.devices()` is the global device set and `make_mesh`
-lays the "nodes" axis across processes unchanged.  Here
+lays the "nodes" axis across processes and hosts unchanged.  Here
 `initialize_distributed` starts the host control plane of a process mesh:
 a `torch.distributed` process group, gloo over a TCPStore at the
 coordinator (no NCCL: the control plane runs on the CPU too), and
 `global_devices()` is then every process's card in process order, each
-tagged with its process and host.  `make_mesh(n, dp,
-device=global_devices())` (parallel/mesh.py) lays them out as (dp, n /
-dp), one process a card; the card mesh's kernels (kernels/mesh.py) then
-combine through exchange buffers that each process allocates on its own
-card and that every other process opens over CUDA IPC.
+tagged with its process, its host and the address of its relay.
+`make_mesh(n, dp, device=global_devices())` (parallel/mesh.py) lays them
+out as (dp, n / dp), one process a card; the card mesh's kernels
+(kernels/mesh.py) then combine through exchange buffers:
+
+  * processes of one host: each process allocates its card's buffer on
+    the card and every other process opens it over CUDA IPC;
+  * processes on several hosts (no peer memory between them): every
+    process keeps its card's buffer and one for each other card of its
+    row in page-locked host memory mapped into its card, and a host relay
+    in each process (csrc/relay.cpp, kernels/relay.py) carries the
+    entries between the processes over TCP.  Every pair of processes of
+    such a mesh takes the relay, also two on one host.
+
+Each process listens for its relay's connections from the start, on the
+interface that reaches the coordinator (127.0.0.1 where the coordinator
+is this host's loopback), at a port the OS chose; the address is
+published beside the process's card.
 
 A process's card is its current card (`torch.cuda.set_device` before the
 call, as a launcher sets it from its local rank); `device="cpu"` makes a
@@ -22,16 +35,17 @@ card: they are two CUDA contexts, each with memory of its own.
 
 The arguments default from the launcher's environment, as JAX's do from
 its own: `MASTER_ADDR` and `MASTER_PORT` (the coordinator, process 0's
-store), `WORLD_SIZE` and `RANK` (torchrun's names).  Not ported: processes
-on more than one host (ROADMAP Queue B, B12c across hosts), which have no
-peer memory between them; `initialize_distributed` raises
-CrossHostMeshError for them in every process.
+store), `WORLD_SIZE` and `RANK` (torchrun's names).  A process may
+initialize again after `shutdown_distributed`, in the same store: every
+key of an initialization carries its number, each process's count of its
+own initializations, which SPMD order keeps the same in every process.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import ipaddress
 import json
 import os
 import socket
@@ -41,21 +55,22 @@ import torch
 import torch.distributed as dist
 
 
-class CrossHostMeshError(NotImplementedError):
-    """Processes on more than one host: the cross-host transport of the
-    mesh is not ported (ROADMAP Queue B: B12c across hosts)."""
+class CrossHostMeshError(ConnectionError):
+    """A process of a mesh across hosts could not reach another's relay
+    at the address that process published (kernels/relay.py)."""
 
 
 @dataclasses.dataclass(frozen=True)
 class ProcessCard:
     """One card of the global device set: its process, its host, the
-    device as that process names it, and the physical card's UUID (None
-    for the CPU)."""
+    device as that process names it, the physical card's UUID (None for
+    the CPU) and the "address:port" its process's relay listens at."""
 
     process: int
     host: str
     device: torch.device
     uuid: str | None
+    relay: str
 
     def __str__(self) -> str:
         return f"process {self.process}:{self.device}"
@@ -67,12 +82,15 @@ class _State:
     rank: int
     world: int
     devices: tuple
-    exchanges: list  # close() of every IPC exchange opened in this process
+    gen: int  # this initialization's number in the store (each process's own count)
+    listener: socket.socket  # the relay's listening socket
+    exchanges: list  # close() of every exchange opened in this process
     seq: int = 0
 
 
 _STATE: _State | None = None
 _TIMEOUT_S = 120.0  # the store's and the process group's
+_SPAWN_GRACE_S = 10.0  # _spawn: how long the other workers may take to fail after a first
 
 
 def _local_device(device) -> tuple[torch.device, str | None]:
@@ -84,6 +102,23 @@ def _local_device(device) -> tuple[torch.device, str | None]:
     return dev, str(torch.cuda.get_device_properties(dev.index).uuid)
 
 
+def _relay_listener(coordinator: str) -> socket.socket:
+    """A listening TCP socket for this process's relay, on the interface
+    that reaches the coordinator host (127.0.0.1 for a loopback one), at a
+    port the OS chooses."""
+    ip = socket.gethostbyname(coordinator)
+    if ipaddress.ip_address(ip).is_loopback:
+        ip = "127.0.0.1"
+    else:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+            probe.connect((ip, 1))  # a route lookup: a datagram socket sends nothing here
+            ip = probe.getsockname()[0]
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.bind((ip, 0))
+    sock.listen(64)
+    return sock
+
+
 def _env_int(name: str) -> int | None:
     v = os.environ.get(name)
     return None if v in (None, "") else int(v)
@@ -92,7 +127,7 @@ def _env_int(name: str) -> int | None:
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None, *, device="cuda",
-                           _host: str | None = None) -> None:
+                           _host: str | None = None, _relay: str | None = None) -> None:
     """JAX :175: start the process mesh's control plane, once per process,
     before any mesh over `global_devices()` is made.  `coordinator_address`
     is "host:port" of process 0's store (default MASTER_ADDR:MASTER_PORT),
@@ -102,9 +137,12 @@ def initialize_distributed(coordinator_address: str | None = None,
     card) or "cpu" for a process mesh of the plain twins.  Process 0 holds
     the store, unless the launcher holds it (TORCHELASTIC_USE_AGENT_STORE,
     as torchrun's agent sets it): then every process is its client.  Raises on a second
-    call, where the processes disagree on `num_processes`, and
-    (CrossHostMeshError) where they run on more than one host.  `_host`
-    names this process's host in place of its host name (tests only)."""
+    call and where the processes disagree on `num_processes`.  Processes
+    may run on several hosts; a mesh over them then exchanges through the
+    relays.  For tests only: `_host` names this process's host in place of
+    its host name (two processes of one machine pose as two hosts), and
+    `_relay` is published as this process's relay address in place of its
+    listener's."""
     global _STATE
     if _STATE is not None:
         raise RuntimeError(f"initialize_distributed: already initialized (process "
@@ -126,46 +164,45 @@ def initialize_distributed(coordinator_address: str | None = None,
     timeout = datetime.timedelta(seconds=_TIMEOUT_S)
     hosts_store = r == 0 and os.environ.get("TORCHELASTIC_USE_AGENT_STORE") != "True"
     store = dist.TCPStore(host, int(port), None, hosts_store, timeout, wait_for_workers=False)
+    gen = store.add(f"kss/inits/{r}", 1)
     dev, uuid = _local_device(device)
-    me = {"n": n, "host": _host or socket.gethostname(), "device": str(dev), "uuid": uuid}
-    store.set(f"kss/proc/{r}", json.dumps(me))
+    listener = _relay_listener(host)
+    me = {"n": n, "host": _host or socket.gethostname(), "device": str(dev), "uuid": uuid,
+          "relay": _relay or "%s:%d" % listener.getsockname()}
+    store.set(f"kss/{gen}/proc/{r}", json.dumps(me))
 
     def refuse(err: Exception):
         # process 0 holds the store: it leaves only once every process has
         # read what it needs to raise too
-        store.set(f"kss/done/{r}", "1")
+        listener.close()
+        store.set(f"kss/{gen}/done/{r}", "1")
         if r == 0:
-            store.wait([f"kss/done/{q}" for q in range(n)])
+            store.wait([f"kss/{gen}/done/{q}" for q in range(n)])
         raise err
 
     # every process reads process 0's count first, so a mismatch raises
     # without waiting for a process that will never come
-    zero = json.loads(store.get("kss/proc/0"))
+    zero = json.loads(store.get(f"kss/{gen}/proc/0"))
     if zero["n"] != n:
         refuse(ValueError(f"initialize_distributed: num_processes {n} in process {r}, "
                           f"{zero['n']} in process 0"))
-    procs = [json.loads(store.get(f"kss/proc/{q}")) for q in range(n)]
+    procs = [json.loads(store.get(f"kss/{gen}/proc/{q}")) for q in range(n)]
     bad = {q: e["n"] for q, e in enumerate(procs) if e["n"] != n}
     if bad:
         refuse(ValueError(f"initialize_distributed: num_processes {n} in process {r}, "
                           f"{bad} elsewhere"))
-    hosts = sorted({e["host"] for e in procs})
-    if len(hosts) > 1:
-        refuse(CrossHostMeshError(
-            f"initialize_distributed: {n} processes on {len(hosts)} hosts {hosts}: a mesh "
-            "across hosts needs a transport without peer memory, which is not ported "
-            "(ROADMAP Queue B: B12c across hosts); run the processes on one host"))
-    dist.init_process_group("gloo", store=dist.PrefixStore("kss/pg", store), rank=r,
+    dist.init_process_group("gloo", store=dist.PrefixStore(f"kss/{gen}/pg", store), rank=r,
                             world_size=n, timeout=timeout)
-    devices = tuple(ProcessCard(q, e["host"], torch.device(e["device"]), e["uuid"])
+    devices = tuple(ProcessCard(q, e["host"], torch.device(e["device"]), e["uuid"], e["relay"])
                     for q, e in enumerate(procs))
-    _STATE = _State(store, r, n, devices, [])
+    _STATE = _State(store, r, n, devices, gen, listener, [])
 
 
 def shutdown_distributed() -> None:
-    """jax.distributed.shutdown: close every IPC exchange this process
-    opened (before the process group goes) and tear the group down.  A
-    no-op where nothing was initialized."""
+    """jax.distributed.shutdown: close every exchange this process opened
+    (its relay stopped and its buffers freed, or its IPC handles closed,
+    before the process group goes), the relay's listener, and tear the
+    group down.  A no-op where nothing was initialized."""
     global _STATE
     state, _STATE = _STATE, None
     if state is None:
@@ -174,6 +211,7 @@ def shutdown_distributed() -> None:
         for close in state.exchanges:
             close()
     finally:
+        state.listener.close()
         dist.destroy_process_group()
 
 
@@ -202,16 +240,21 @@ def global_devices() -> list[ProcessCard]:
 
 def store():
     """The coordinator's TCPStore (the exchanges publish their IPC handles
-    through it)."""
+    and the relays their connections' outcomes through it)."""
     return _state("the process mesh").store
 
 
-def next_seq() -> int:
-    """A number the processes of an SPMD program draw in the same order:
-    each exchange's key in the store."""
+def next_key(name: str) -> str:
+    """A store key the processes of an SPMD program draw in the same order
+    (each exchange's), unique to this initialization."""
     s = _state("the process mesh")
     s.seq += 1
-    return s.seq
+    return f"kss/{s.gen}/{name}/{s.seq}"
+
+
+def listener() -> socket.socket:
+    """The relay's listening socket of this process (kernels/relay.py)."""
+    return _state("the process mesh").listener
 
 
 def on_shutdown(close) -> None:
@@ -254,13 +297,17 @@ def _spawn(fn, nprocs: int, args: tuple = (), *, deadline_s: float, cards=None) 
     `initialize_distributed`; the caller holds the store, as torchrun's
     agent does, at a port the OS chose when it bound it, for the call's
     lifetime; process i on card `cards[i]` where cards are given.  The
-    launcher of the tests and of chip_smoke.py's phase 34; users start the
-    processes with torchrun.  `fn` calls initialize_distributed
+    launcher of the tests and of chip_smoke.py's phases 34 and 35; users
+    start the processes with torchrun.  `fn` calls initialize_distributed
     itself and returns something picklable; the worker shuts the mesh
     down after it.  -> the results in process order.  A worker that
-    raises fails the call at once with its traceback; workers not all done
-    `deadline_s` after the start print every thread's traceback (to their
-    standard error), are killed, and the call raises naming them."""
+    raises fails the call with its traceback, once every other worker has
+    given its result or failed too, or _SPAWN_GRACE_S after the first
+    failure, whichever comes first: the call names every failure (a peer
+    of a raising worker raises too, and says what it saw).  Workers not
+    all done `deadline_s` after the start print
+    every thread's traceback (to their standard error), are killed, and
+    the call raises naming them."""
     import queue
     import time
 
@@ -278,17 +325,23 @@ def _spawn(fn, nprocs: int, args: tuple = (), *, deadline_s: float, cards=None) 
     for p in procs:
         p.start()
     end = time.monotonic() + deadline_s
-    got = {}
+    got, failed = {}, {}
     try:
-        while len(got) < nprocs and time.monotonic() < end:
+        while len(got) + len(failed) < nprocs and time.monotonic() < end:
             try:
                 rank, ok, value = results.get(timeout=min(max(end - time.monotonic(), 0.01),
                                                           1.0))
             except queue.Empty:
                 continue
-            if not ok:
-                raise RuntimeError(f"process mesh: worker {rank} of {nprocs} failed:\n{value}")
-            got[rank] = value
+            if ok:
+                got[rank] = value
+                continue
+            if not failed:
+                end = min(end, time.monotonic() + _SPAWN_GRACE_S)
+            failed[rank] = value
+        if failed:
+            raise RuntimeError("process mesh: " + "\n".join(
+                f"worker {rank} of {nprocs} failed:\n{failed[rank]}" for rank in sorted(failed)))
         if len(got) < nprocs:
             hung = [i for i in range(nprocs) if i not in got]
             codes = [procs[i].exitcode for i in hung]

@@ -63,22 +63,27 @@ same result:
 
   * each process places only its own card's parts, cut from the same
     compiled workload exactly as above (`shard_workload`);
-  * the exchange buffers are each process's own allocations, opened by
-    every other process over CUDA IPC (kernels/mesh.py Exchange), so the
-    kernels are B12b's, unchanged; every process issues the same launches
-    in the same order, which keeps the exchange's epochs in step without a
-    host round trip per launch;
+  * the kernels are B12b's, unchanged, over one of two transports
+    (kernels/mesh.py Exchange).  On one host the exchange buffers are each
+    process's own allocations on its card, opened by every other process
+    over CUDA IPC.  Across hosts (`hosts`: each card's host, from
+    `initialize_distributed`) there is no peer memory: each process keeps
+    its card's buffer and an outbox for each other card of its row in
+    page-locked host memory mapped into its card, and a host relay in each
+    process carries the entries over TCP (csrc/relay.cpp); such a mesh
+    takes the relay for every pair of cards, also two on one host, and
+    needs no peer access.  Every process issues the same launches in the
+    same order, which keeps the exchange's epochs in step without a host
+    round trip per launch;
   * after each launch the cards' outputs and error words are gathered
     through the process group, so every process joins the full outputs on
     its own card (where the oracle, the grid, B7 and the decode run) and
     every process raises where any card's wait failed;
   * two processes may share one card: they are two CUDA contexts, each
-    with its own memory and its own exchange buffer; distinct cards need
-    peer access between every pair;
+    with its own memory and its own exchange buffers; distinct cards of
+    one host need peer access between every pair;
   * on the CPU the twins fold each combine's partials across the processes
-    through the process group, one gather a combine.
-Not ported: processes on more than one host (ROADMAP Queue B: B12c across
-hosts), which `initialize_distributed` refuses.
+    through the process group, one gather a combine, on one host or many.
 
 On the CPU every kernel's plain twin runs, which computes the same
 per-shard (or per-card) decomposition.
@@ -106,13 +111,14 @@ class Mesh:
     workload's unsharded tensors and the joined outputs.  `cards` is None
     on a one-card mesh (B12), else the dp x S cards in mesh order (B12b),
     `virtual` when they are virtual cards of `device`.  On a process mesh
-    (B12c) `procs` is each card's process and `device` this process's
-    card; `local` is the mesh indices of the cards this process holds."""
+    (B12c) `procs` is each card's process, `hosts` its host and `device`
+    this process's card; `local` is the mesh indices of the cards this
+    process holds."""
 
     axis_names = ("dp", "nodes")
 
     def __init__(self, dp: int, nodes: int, device, cards=None, virtual: bool = False,
-                 procs=None):
+                 procs=None, hosts=None):
         if cards is None and nodes > MAX_SHARDS:
             raise ValueError(
                 f"a mesh's 'nodes' extent ({nodes}) splits a cluster of the sharded "
@@ -122,6 +128,7 @@ class Mesh:
         self.cards = None if cards is None else tuple(cards)
         self.virtual = virtual
         self.procs = None if procs is None else tuple(procs)
+        self.hosts = None if hosts is None else tuple(hosts)
         me = distributed.process_index()
         self.local = (None if cards is None else tuple(range(len(self.cards))) if procs is None
                       else tuple(k for k, q in enumerate(self.procs) if q == me))
@@ -137,7 +144,8 @@ class Mesh:
         process mesh's layout (each card's process, of how many)."""
         cards = None if self.cards is None else (
             tuple(map(str, self.cards)), id(self) if self.virtual else None)
-        procs = None if self.procs is None else (self.procs, distributed.process_count())
+        procs = None if self.procs is None else (self.procs, self.hosts,
+                                                 distributed.process_count())
         return (tuple(self.shape.items()), str(self.device), cards, procs)
 
     def __eq__(self, other) -> bool:
@@ -150,7 +158,8 @@ class Mesh:
         where = (f"device={self.device}" if self.cards is None else
                  f"{len(self.cards)} virtual cards of {self.device}" if self.virtual else
                  f"cards={[str(c) for c in self.cards]}" if self.procs is None else
-                 f"{len(self.cards)} processes' cards {[str(c) for c in self.cards]}")
+                 f"{len(self.cards)} processes' cards {[str(c) for c in self.cards]} on "
+                 f"hosts {list(self.hosts)}")
         return f"Mesh(dp={self.shape['dp']}, nodes={self.shape['nodes']}, {where})"
 
 
@@ -181,14 +190,15 @@ def _check_cards(cards: list) -> None:
 
 
 def _check_process_cards(cards: list) -> None:
-    """A process mesh's cards: all cards or all the CPU; where two
-    processes hold distinct physical cards, this process sees both and
-    they have peer access (two processes on one card need none)."""
+    """A process mesh's cards: all cards or all the CPU; on one host, where
+    two processes hold distinct physical cards, this process sees both and
+    they have peer access (two processes on one card need none; a mesh
+    across hosts exchanges through the relays and needs none)."""
     kinds = {c.device.type for c in cards}
     if len(kinds) > 1:
         raise ValueError(f"a mesh over {[str(c) for c in cards]}: a process mesh takes cards "
                          "only or the CPU only")
-    if kinds != {"cuda"}:
+    if kinds != {"cuda"} or len({c.host for c in cards}) > 1:
         return
     here = {str(torch.cuda.get_device_properties(i).uuid): i
             for i in range(torch.cuda.device_count())}
@@ -252,7 +262,8 @@ def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda", *,
                              f"card of each of the {distributed.process_count()} processes")
         _check_process_cards(chosen)
         me = procs.index(distributed.process_index())
-        return Mesh(dp, n // dp, chosen[me].device, [c.device for c in chosen], procs=procs)
+        return Mesh(dp, n // dp, chosen[me].device, [c.device for c in chosen], procs=procs,
+                    hosts=[c.host for c in chosen])
     if distinct:
         cards = [_card(d) for d in devices[:n]]
         if len(set(cards)) != n:

@@ -2356,3 +2356,32 @@ def test_cards_in_a_process_mesh(card, shared):
     for r in got:
         assert (r["step"], r["eval"], r["commit"]) == (0, 0, 0), r
         assert all(n > 0 for n in r["launches"]), r
+
+
+def test_cards_in_a_process_mesh_across_hosts(card):
+    """B12c across hosts: the same three kernels over two processes sharing
+    the card and posing as two hosts, so the exchange takes the relay
+    (mapped host buffers, csrc/relay.cpp): each == its twin, no IPC handle
+    opened, the relay's counts above 0 and each side's sent == the other's
+    received.  Then card 0 launched alone with a short spin bound: both
+    processes raise naming process 1 and its host, and the next launch of
+    both is whole again."""
+    import torch_mesh_procs_workers as workers
+
+    from kube_scheduler_simulator_tpu_torch.kernels import build
+    from kube_scheduler_simulator_tpu_torch.parallel.distributed import _spawn
+
+    for stem in ("step", "spec_eval", "spec_commit", "relay"):
+        build.load(stem)
+    got = _spawn(workers.card_kernels_worker, 2, (2, 16, 8, 2), deadline_s=300, cards=[0, 0])
+    for r in got:
+        assert (r["step"], r["eval"], r["commit"]) == (0, 0, 0), r
+        assert all(n > 0 for n in r["launches"]), r
+        assert (r["transport"], r["ipc_opened"]) == ("relay", 0), r
+        assert r["relay"]["sent"] > 0 and r["relay"]["lost"] is None, r
+    assert got[0]["relay"]["sent"] == got[1]["relay"]["received"]
+    assert got[1]["relay"]["sent"] == got[0]["relay"]["received"]
+    got = _spawn(workers.relay_bound_worker, 2, (2, 16), deadline_s=300, cards=[0, 0])
+    for r in got:
+        assert "waited past the spin bound for card 1 (process 1 on host-1" in r["msg"], r
+        assert r["err"] == 0, r

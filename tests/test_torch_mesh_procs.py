@@ -3,7 +3,10 @@ initialize_distributed, global_devices; parallel/mesh.py make_mesh over
 them; kernels/mesh.py with each process holding its own card) on the CPU,
 in spawned processes, against the JAX package's mesh on the conftest's 8
 virtual CPU devices and the port's card mesh on virtual cards in one
-process.
+process.  The mirrors across hosts run the same cases with each process
+posing as one of two hosts (`initialize_distributed(_host=...)`): the
+processes of a mesh across hosts take the same twins, whose combines go
+through the process group, which crosses hosts.
 
 Each case spawns 2 or 4 processes (parallel/distributed.py _spawn: gloo
 over a TCPStore that the parent holds at a port the OS chose, `torch.set_num_threads(1)`
@@ -90,6 +93,51 @@ def test_replay_over_processes_matches_jax(n, dp):
     _assert_same_as_jax(_same_everywhere(fut.result()), jrr)
 
 
+@pytest.mark.parametrize("n,dp", [(2, 1), (4, 2)], ids=["p2-hosts2-dp1", "p4-hosts2-dp2"])
+def test_replay_across_hosts_matches_jax(n, dp):
+    """replay() over processes on two hosts (2 x 1, and 2 x 2 processes) in
+    every process == the JAX replay over its 8-device mesh at the same dp,
+    every pod and all 13 annotations."""
+    fut = _spawned(workers.replay_worker, n, (n, dp, NODES, PODS, CHUNK, 2))
+    jn, jp, jcfg = _jax_config5()
+    jrr = jax_replay(jax_compile(jn, jp, jcfg), chunk=CHUNK, mesh=jmesh.make_mesh(8, dp=dp))
+    _assert_same_as_jax(_same_everywhere(fut.result()), jrr)
+
+
+def test_stream_across_hosts_matches_jax():
+    """replay_speculative_stream over 2 x 2 processes on two hosts == the
+    JAX stream over its 8-device mesh at dp 2, every process alike."""
+    fut = _spawned(workers.stream_worker, 4, (4, 2, NODES, PODS, CHUNK, 2))
+    jn, jp, jcfg = _jax_config5()
+    jrr, _ = jspec.replay_speculative_stream(jax_compile(jn, jp, jcfg),
+                                             jmesh.make_mesh(8, dp=2), chunk=CHUNK, pods=jp)
+    got = _same_everywhere(fut.result())
+    assert got["n_rounds"] > 1
+    _assert_same_as_jax(got, jrr)
+
+
+def test_engine_wave_across_hosts_matches_jax(monkeypatch):
+    """One engine wave (the default, speculative wave) over 2 processes on
+    two hosts == the unsharded JAX engine: the same binds, nodes and
+    annotations in every process."""
+    fut = _spawned(workers.engine_worker, 2, (2, NODES, 12, "1", 2))
+    monkeypatch.setenv("KSS_TPU_SPECULATIVE", "1")
+    jn, jp, jcfg = _jax_config5(n_pods=12)
+    store = JObjectStore()
+    for o in jn:
+        store.create("nodes", copy.deepcopy(o))
+    for o in jp:
+        store.create("pods", copy.deepcopy(o))
+    bound = JEngine(store, plugin_config=jcfg).schedule_pending()
+    got = _same_everywhere(fut.result())
+    assert got["bound"] == bound
+    for p in jp:
+        cur = store.get("pods", p["metadata"]["name"])
+        name = p["metadata"]["name"]
+        assert got["placements"][name] == (cur["spec"].get("nodeName") or "")
+        assert got["annotations"][name] == dict(cur["metadata"].get("annotations") or {})
+
+
 def test_stream_over_processes_matches_jax():
     """replay_speculative_stream over 2 x 2 processes (config 5: dense
     rounds, the interaction rule's cuts, the general commit on every card)
@@ -166,26 +214,26 @@ def test_twins_across_processes_match_virtual_cards(n, dp):
 
 @pytest.mark.parametrize("case,error", [
     ("twice", "RuntimeError: initialize_distributed: already initialized"),
-    ("hosts", "CrossHostMeshError: initialize_distributed: 2 processes on 2 hosts"),
+    ("relay", "CrossHostMeshError: a mesh across hosts: process 1 on host-1 could not reach "
+              "the relay of process 0 on host-0 at 127.0.0.1:1"),
     ("num_processes", "ValueError: initialize_distributed: num_processes"),
     ("partial_mesh", "ValueError: a process mesh over"),
 ])
 def test_process_mesh_refusals(case, error):
-    """A second initialize_distributed; processes on two hosts (a faked
-    host tag), which name the missing cross-host transport; processes that
-    disagree on num_processes; a mesh that leaves a process out: each
-    raises in every process."""
+    """A second initialize_distributed; a mesh across two hosts (faked
+    host tags) whose process 0 published a relay address where nothing
+    listens, which every process names with the process, its host and
+    the address; processes that disagree on num_processes; a mesh that
+    leaves a process out: each raises in every process."""
     got = _spawn(workers.errors_worker, 2, (case,), deadline_s=DEADLINE_S)
     assert all(g.startswith(error) for g in got), got
-    if case == "hosts":
-        assert all("B12c across hosts" in g for g in got)
 
 
 def test_global_devices_before_initialization():
     assert (process_index(), process_count()) == (0, 1)
     with pytest.raises(RuntimeError, match="initialize_distributed"):
         global_devices()
-    assert issubclass(CrossHostMeshError, NotImplementedError)
+    assert issubclass(CrossHostMeshError, ConnectionError)
 
 
 def test_process_zero_holds_the_store(monkeypatch):

@@ -1,12 +1,18 @@
-"""The worker bodies of tests/test_torch_mesh_procs.py: each runs in a
-spawned process of a process mesh (parallel/distributed.py _spawn) and
-imports the port alone, never JAX or the JAX package, so the process
-mesh is held as a user would run it.  Each returns plain, picklable
-results: selected nodes, feasible counts and the 13 annotations a pod.
+"""The worker bodies of tests/test_torch_mesh_procs.py and
+tests/test_torch_relay.py: each runs in a spawned process of a process
+mesh (parallel/distributed.py _spawn) and imports the port alone, never
+JAX or the JAX package, so the process mesh is held as a user would run
+it.  Each returns plain, picklable results: selected nodes, feasible
+counts and the 13 annotations a pod; the relay's outcomes and counts.
+A worker given `hosts` poses as one of that many hosts (the
+`initialize_distributed(_host=...)` of process r is "host-{r * hosts //
+n}"), so that two processes of this machine are a mesh across hosts.
 """
 
 import copy
+import ctypes
 import sys
+import time
 
 import torch
 
@@ -40,16 +46,24 @@ def _result(rr) -> dict:
             "jax": "jax" in sys.modules}
 
 
-def _mesh(n: int, dp: int, device=CPU):
-    initialize_distributed(device=device)
+def _host(rank: int, n: int, hosts: int):
+    return f"host-{rank * hosts // n}" if hosts else None
+
+
+def _mesh(n: int, dp: int, device=CPU, hosts: int = 0):
+    rank = int(__import__("os").environ["RANK"])
+    initialize_distributed(device=device, _host=_host(rank, n, hosts))
     devices = global_devices()
     assert [d.process for d in devices] == list(range(process_count()))
-    return make_mesh(n, dp=dp, device=devices)
+    mesh = make_mesh(n, dp=dp, device=devices)
+    assert len(set(mesh.hosts)) == (hosts or 1), mesh
+    return mesh
 
 
-def replay_worker(rank: int, n: int, dp: int, n_nodes: int, n_pods: int, chunk: int) -> dict:
+def replay_worker(rank: int, n: int, dp: int, n_nodes: int, n_pods: int, chunk: int,
+                  hosts: int = 0) -> dict:
     """replay(cw, mesh=process mesh) in every process."""
-    mesh = _mesh(n, dp)
+    mesh = _mesh(n, dp, hosts=hosts)
     assert process_index() == rank and mesh.local == (rank,)
     nodes, pods, cfg = config5(n_nodes, n_pods)
     cw = compile_workload(nodes, pods, cfg, device=CPU)
@@ -57,10 +71,11 @@ def replay_worker(rank: int, n: int, dp: int, n_nodes: int, n_pods: int, chunk: 
     return _result(rr)
 
 
-def stream_worker(rank: int, n: int, dp: int, n_nodes: int, n_pods: int, chunk: int) -> dict:
+def stream_worker(rank: int, n: int, dp: int, n_nodes: int, n_pods: int, chunk: int,
+                  hosts: int = 0) -> dict:
     """replay_speculative_stream over the process mesh in every process;
     the rounds' accepted K and the fallback point with the result."""
-    mesh = _mesh(n, dp)
+    mesh = _mesh(n, dp, hosts=hosts)
     nodes, pods, cfg = config5(n_nodes, n_pods)
     cw = compile_workload(nodes, pods, cfg, device=CPU)
     rr, stats = replay_speculative_stream(cw, mesh=mesh, chunk=chunk, pods=pods)
@@ -70,13 +85,14 @@ def stream_worker(rank: int, n: int, dp: int, n_nodes: int, n_pods: int, chunk: 
     return out
 
 
-def engine_worker(rank: int, n: int, n_nodes: int, n_pods: int, spec: str) -> dict:
+def engine_worker(rank: int, n: int, n_nodes: int, n_pods: int, spec: str,
+                  hosts: int = 0) -> dict:
     """One engine wave over the process mesh, every process over a store
     holding the same objects -> the binds and annotations."""
     import os
 
     os.environ["KSS_TPU_SPECULATIVE"] = spec
-    mesh = _mesh(n, 1)
+    mesh = _mesh(n, 1, hosts=hosts)
     nodes, pods, cfg = config5(n_nodes, n_pods)
     store = ObjectStore()
     for o in nodes:
@@ -136,8 +152,17 @@ def errors_worker(rank: int, case: str) -> str:
         if case == "twice":
             initialize_distributed(device=CPU)
             initialize_distributed(device=CPU)
-        elif case == "hosts":
-            initialize_distributed(device=CPU, _host=f"host-{rank}")
+        elif case == "relay":
+            # process 0 publishes an address where nothing listens: a relay
+            # that cannot be reached
+            from kube_scheduler_simulator_tpu_torch.kernels.relay import Relay
+            from kube_scheduler_simulator_tpu_torch.parallel import distributed
+
+            initialize_distributed(device=CPU, _host=f"host-{rank}",
+                                   _relay="127.0.0.1:1" if rank == 0 else None)
+            buf = (ctypes.c_uint64 * 64)()
+            Relay(distributed.next_key("x"), rank, 2, 1, ctypes.addressof(buf),
+                  {1 - rank: ctypes.addressof(buf)}, (0, 1))
         elif case == "num_processes":
             initialize_distributed(num_processes=2 + rank, device=CPU)
         elif case == "partial_mesh":
@@ -148,11 +173,13 @@ def errors_worker(rank: int, case: str) -> str:
     return "no error"
 
 
-def card_kernels_worker(rank: int, n: int, n_nodes: int, n_pods: int) -> dict:
+def card_kernels_worker(rank: int, n: int, n_nodes: int, n_pods: int, hosts: int = 0) -> dict:
     """On the card: the three B12c kernels over a process mesh of n
-    process-cards (processes sharing a card, or one a card) against their
-    twins in the same mesh -> each kernel's largest difference."""
-    mesh = _mesh(n, 1, "cuda")
+    process-cards (processes sharing a card, or one a card; posing as
+    `hosts` hosts, over the relay) against their twins in the same mesh
+    -> each kernel's largest difference, the launch counts and the
+    exchange's transport, IPC handles opened and relay counts."""
+    mesh = _mesh(n, 1, "cuda", hosts)
     dev = mesh.device
     nodes, pods, cfg = config5(n_nodes, n_pods)
     cw = shard_workload(compile_workload(nodes, pods, cfg, device=dev), mesh)
@@ -175,4 +202,84 @@ def card_kernels_worker(rank: int, n: int, n_nodes: int, n_pods: int) -> dict:
     return {"step": max(err(tuple(ok), tuple(op)), err(ck[0], cp[0])),
             "eval": err(tuple(ev), tuple(evp)), "commit": err(cc[0], ccp[0]),
             "launches": (kmesh.step_chunk_cards.launches, kmesh.spec_eval_cards.launches,
-                         kmesh.spec_commit_cards.launches)}
+                         kmesh.spec_commit_cards.launches),
+            "transport": mesh._exchange.transport, "ipc_opened": kmesh.Exchange.ipc_opened,
+            "relay": mesh._exchange.relay and mesh._exchange.relay.status()}
+
+
+def relay_bound_worker(rank: int, n: int, n_nodes: int) -> dict:
+    """On the card, over the relay (two processes posing as two hosts):
+    step_chunk_cards launched on card 0 alone with a short spin bound, so
+    that its wait for card 1 runs past it and both processes raise naming
+    process 1 and its host; then a launch of both, which must be whole
+    again -> the message and that launch's largest difference from the
+    twin."""
+    mesh = _mesh(n, 1, "cuda", 2)
+    dev = mesh.device
+    nodes, pods, cfg = config5(n_nodes, 8)
+    cw = shard_workload(compile_workload(nodes, pods, cfg, device=dev), mesh)
+    step = build_step(cw)
+    xs = _slice_xs(cw.xs, 0, 8, 8)
+    xs["is_pad"] = torch.zeros(8, dtype=torch.bool, device=dev)
+    msg = ""
+    try:
+        kmesh.step_chunk_cards(step, _clone_carry(cw.init_carry), xs, _only=(0,),
+                               _bound=1 << 22)
+    except RuntimeError as e:
+        msg = str(e)
+    _, out = kmesh.step_chunk_cards(step, _clone_carry(cw.init_carry), xs)
+    _, want = kmesh.step_chunk_cards_plain(step, _clone_carry(cw.init_carry), xs)
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in zip(_leaves(tuple(out)), _leaves(tuple(want))))
+    return {"msg": msg, "err": err}
+
+
+def relay_worker(rank: int, case: str, harness: str, slots: int, epochs: int,
+                 n: int = 2) -> dict:
+    """The relay's protocol on the CPU, n processes posing as two hosts,
+    each card of a row of n played by host threads (harness: the compiled
+    tests/torch_relay_cards.cpp) over host buffers of PeerScope's layout.
+    Cases: "ordered" (every process plays `epochs` epochs on `slots`
+    slots); "silent" (process 1 stops after half, alive: process 0's waits
+    pass their bound); "raises" (process 1 raises after half: its
+    connection closes without a goodbye, and process 0 raises naming it).
+    -> each slot's outcome and epoch, the error word, the relay's status."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from kube_scheduler_simulator_tpu_torch.kernels import mesh as kmesh
+    from kube_scheduler_simulator_tpu_torch.kernels.relay import Relay
+    from kube_scheduler_simulator_tpu_torch.parallel import distributed
+
+    mesh = _mesh(n, 1, CPU, 2)
+    play = ctypes.CDLL(harness).kss_play
+    play.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    words = kmesh.XHEAD + kmesh.XSLOTS * 2 * n * kmesh.XW
+    bufs = [np.zeros(words, np.uint64) for _ in range(n)]  # card k's buffer as this card writes it
+    relay = Relay(distributed.next_key("x"), rank, n, kmesh.XSLOTS, bufs[rank].ctypes.data,
+                  {k: bufs[k].ctypes.data for k in range(n) if k != rank}, mesh.procs)
+    half = epochs // 2 if case != "ordered" else epochs
+    out = np.zeros(2 * slots, np.int64)
+    ptrs = (ctypes.c_void_p * n)(*[b.ctypes.data for b in bufs])
+    t0 = time.monotonic()
+    relay.arm(slots)
+    worst = play(ptrs, n, 0, rank, slots, 0, half, 60_000, out.ctypes.data)
+    if rank == 0 and half < epochs and not worst:
+        # the second half alone, its waits bounded at 1 s where the peer is silent
+        worst = play(ptrs, n, 0, rank, slots, half, epochs - half,
+                     1_000 if case == "silent" else 60_000, out.ctypes.data)
+    relay.park()
+    wait_s = time.monotonic() - t0
+    if case == "raises" and rank == 1:
+        raise RuntimeError("process 1 raises mid-run")
+    word = int(bufs[rank][0])
+    if case == "raises":
+        raise RuntimeError(f"after {wait_s:.1f} s, outcome {worst}: "
+                           + kmesh.error_says(mesh, rank, word))
+    dist.barrier()
+    status = relay.status()
+    relay.stop()
+    return {"outcomes": out.reshape(slots, 2).tolist(), "word": word, "status": status,
+            "word_after_stop": int(bufs[rank][0]), "jax": "jax" in sys.modules}
+
